@@ -1,0 +1,41 @@
+"""vitx_torch -- the PyTorch / CUDA port of vitx for NVIDIA Hopper.
+
+A second implementation of the ``vitx`` package beside it, held against it
+part by part: the same configs, parameter tree and layouts (NHWC images,
+``wqkv`` as (E, 3, H, D)), fp32 parameters and compute in
+``cfg.compute_dtype``. The fused attention and MLP halves of every encoder
+block are hand-written CUDA kernels for sm_90a (``vitx_torch.kernels``);
+the rest is plain torch. It imports neither ``jax`` nor ``vitx``.
+
+Entry points run on a CUDA device unless the caller passes
+``device="cpu"``, where the kernels' plain torch versions run instead.
+
+Importing the package switches off TF32 for float32 matrix products and
+convolutions, and reduced-precision reductions in bf16 products, so that
+float32 means float32 and a bf16 product accumulates in fp32 -- the
+contract every comparison with vitx rests on.
+"""
+
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+from vitx_torch.core.config import PRESETS, ViTConfig, get_config  # noqa: E402
+from vitx_torch.interop.jax_params import params_from_jax  # noqa: E402
+from vitx_torch.nn.vit import (classify, encode, forward,  # noqa: E402
+                               init_params)
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "ViTConfig",
+    "PRESETS",
+    "get_config",
+    "init_params",
+    "forward",
+    "encode",
+    "classify",
+    "params_from_jax",
+]

@@ -1,0 +1,156 @@
+"""Serving CLI: ``python -m vitx_torch.cli.serve --preset base16``
+
+A stdlib HTTP front end over ``vitx_torch.serve.InferenceServer``, the
+counterpart of ``vitx/cli/serve.py``. Endpoints:
+
+- ``POST /predict``: the body is a float32 (H, W, C) image (``.npy`` bytes
+  or raw little-endian floats); the answer is JSON ``{"probs": [...],
+  "classes": [...]}`` for the top-k classes.
+- ``POST /explain``: 501, not ported yet (ROADMAP A9).
+- ``GET /stats``: JSON throughput / latency / occupancy counters.
+- ``GET /metrics``: the same counters in Prometheus text format.
+- ``GET /healthz``: 200 once the model is warmed up and serving.
+
+``--device`` selects the device (default ``cuda``; the server refuses to
+start without one unless ``--device cpu`` is given).
+"""
+
+from __future__ import annotations
+
+import argparse
+import io
+import json
+import sys
+import threading
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+import numpy as np
+
+from vitx_torch.core.config import PRESETS, ViTConfig, get_config
+from vitx_torch.serve import ServerOverloaded, load_server
+
+
+def make_handler(server):
+    cfg = server.cfg
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *a):            # quiet access log
+            pass
+
+        def _send(self, code, body: bytes, ctype: str):
+            self.send_response(code)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def _reply(self, code, payload: dict):
+            self._send(code, json.dumps(payload).encode(),
+                       "application/json")
+
+        def do_GET(self):
+            if self.path == "/healthz":
+                self._reply(200, {"status": "ok"})
+            elif self.path == "/stats":
+                self._reply(200, server.stats.summary())
+            elif self.path == "/metrics":
+                s = server.stats.summary()
+                lines = []
+                for name, key in (("requests_total", "requests"),
+                                  ("batches_total", "batches"),
+                                  ("rejected_total", "rejected")):
+                    lines.append(f"# TYPE vitx_{name} counter")
+                    lines.append(f"vitx_{name} {s[key]}")
+                lines.append("# TYPE vitx_batch_occupancy gauge")
+                lines.append(f"vitx_batch_occupancy {s['batch_occupancy']}")
+                lines.append("# TYPE vitx_latency_ms summary")
+                for q, key in (("0.5", "p50_ms"), ("0.9", "p90_ms"),
+                               ("0.99", "p99_ms")):
+                    lines.append(
+                        f'vitx_latency_ms{{quantile="{q}"}} {s[key]}')
+                self._send(200, ("\n".join(lines) + "\n").encode(),
+                           "text/plain; version=0.0.4")
+            else:
+                self._reply(404, {"error": "unknown path"})
+
+        def do_POST(self):
+            path = self.path.split("?", 1)[0]
+            if path == "/explain":
+                self._reply(501, {"error": "not ported yet (ROADMAP A9)"})
+                return
+            if path != "/predict":
+                self._reply(404, {"error": "unknown path"})
+                return
+            n = int(self.headers.get("Content-Length", 0))
+            raw = self.rfile.read(n)
+            try:
+                if raw[:6] == b"\x93NUMPY":
+                    img = np.load(io.BytesIO(raw))
+                else:
+                    img = np.frombuffer(raw, np.float32).reshape(
+                        cfg.image_size, cfg.image_size, cfg.num_channels)
+                out = server.predict(np.asarray(img, np.float32))
+                self._reply(200, out)
+            except ServerOverloaded as e:
+                self._reply(503, {"error": f"{type(e).__name__}: {e}"})
+            except (ValueError, RuntimeError, TimeoutError) as e:
+                self._reply(400, {"error": f"{type(e).__name__}: {e}"})
+
+    return Handler
+
+
+def resolve_serve_config(config_json, preset) -> ViTConfig:
+    """An explicit ``--config-json`` wins over the preset."""
+    if config_json:
+        with open(config_json) as f:
+            return ViTConfig.from_json(f.read())
+    return get_config(preset)
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(prog="vitx_torch.serve")
+    p.add_argument("--preset", default="tiny", choices=sorted(PRESETS))
+    p.add_argument("--config-json", default=None)
+    p.add_argument("--checkpoint", default=None,
+                   help="bare vitx params .npz (vitx.cli.pretrain "
+                        "--export-vit); omit for fresh params")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8808)
+    p.add_argument("--batch-size", type=int, default=32)
+    p.add_argument("--top-k", type=int, default=5)
+    p.add_argument("--max-delay-ms", type=float, default=5.0)
+    p.add_argument("--temperature", type=float, default=None,
+                   help="temperature-scale the served probabilities")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to serve on (default: cuda)")
+    args = p.parse_args(argv)
+
+    cfg = resolve_serve_config(args.config_json, args.preset)
+    server = load_server(args.checkpoint, cfg, batch_size=args.batch_size,
+                         top_k=args.top_k, max_delay_ms=args.max_delay_ms,
+                         temperature=args.temperature, device=args.device)
+    httpd = ThreadingHTTPServer((args.host, args.port), make_handler(server))
+    print(f"serving {args.preset} on http://{args.host}:{httpd.server_port} "
+          f"(batch {args.batch_size}, top-{server.top_k}, "
+          f"{server.device})", flush=True)
+    try:
+        httpd.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        httpd.server_close()
+        server.close()
+    return 0
+
+
+def serve_in_thread(server, host="127.0.0.1", port=0):
+    """Start the HTTP front end on a background thread (tests, embedding).
+    Returns (httpd, thread); ``httpd.server_port`` has the bound port."""
+    httpd = ThreadingHTTPServer((host, port), make_handler(server))
+    t = threading.Thread(target=httpd.serve_forever, daemon=True)
+    t.start()
+    return httpd, t
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,94 @@
+"""vitx parameters -> the port's parameters.
+
+vitx keeps its parameters as a nested dict of arrays (``vitx/nn/vit.py:100``)
+and ``vitx.cli.pretrain --export-vit`` writes them to a bare ``.npz`` of
+flat ``"a/b/c"`` keys (``vitx/cli/pretrain.py:286-288``). The port uses the
+same tree, so conversion is a copy into torch tensors with the shapes
+checked against ``param_spec``.
+"""
+
+from __future__ import annotations
+
+import os
+import warnings
+
+import numpy as np
+import torch
+
+from vitx_torch.core.config import ViTConfig
+from vitx_torch.core.device import resolve_device
+from vitx_torch.nn.vit import init_leaf, param_spec
+
+
+def _walk(spec, prefix=()):
+    for key, node in spec.items():
+        if isinstance(node, dict):
+            yield from _walk(node, prefix + (key,))
+        else:
+            yield prefix + (key,), node
+
+
+def _put(tree, path, leaf):
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = leaf
+
+
+def _leaf(arr, cfg: ViTConfig, dev):
+    return torch.from_numpy(np.asarray(arr, np.float32)).to(
+        cfg.pdtype()).to(dev)
+
+
+def params_from_jax(tree, cfg: ViTConfig, device="cuda") -> dict:
+    """The port's parameter tree from vitx's.
+
+    ``tree`` is either vitx's nested dict (leaves: numpy arrays, or
+    anything ``np.asarray`` reads) or the path of a bare params ``.npz``
+    written by ``--export-vit``. The dict must hold exactly the leaves
+    ``cfg`` has, each of its shape. From a ``.npz``, as in vitx's
+    ``load_vit_init``, a leaf the file lacks or holds in another shape
+    keeps a fresh init (seed 0) with a warning; a positional table of
+    another grid size raises (its resize is ROADMAP A14).
+    """
+    dev = resolve_device(device)
+    spec = param_spec(cfg)
+    out: dict = {}
+    if isinstance(tree, (str, os.PathLike)):
+        gen = torch.Generator().manual_seed(0)
+        fresh = []
+        with np.load(tree) as data:
+            for path, (shape, init) in _walk(spec):
+                key = "/".join(path)
+                if key in data.files and data[key].shape == tuple(shape):
+                    _put(out, path, _leaf(data[key], cfg, dev))
+                    continue
+                if key == "pos_embed" and key in data.files:
+                    raise NotImplementedError(
+                        f"{tree}: pos_embed has shape {data[key].shape}, "
+                        f"the config needs {tuple(shape)}; resizing it is "
+                        f"not ported yet (ROADMAP A14)")
+                fresh.append(key)
+                _put(out, path, init_leaf(shape, init, cfg, gen).to(dev))
+        if fresh:
+            warnings.warn(f"{tree}: fresh init kept for {fresh} (missing or "
+                          f"shape-mismatched in the file)")
+        return out
+
+    seen = set()
+    for path, (shape, _) in _walk(spec):
+        node = tree
+        for key in path:
+            if not isinstance(node, dict) or key not in node:
+                raise KeyError(f"vitx params lack {'/'.join(path)}")
+            node = node[key]
+        arr = np.asarray(node)
+        if arr.shape != tuple(shape):
+            raise ValueError(f"{'/'.join(path)}: shape {arr.shape}, the "
+                             f"config needs {tuple(shape)}")
+        seen.add(path)
+        _put(out, path, _leaf(arr, cfg, dev))
+    extra = sorted("/".join(p) for p, _ in _walk(tree) if p not in seen)
+    if extra:
+        raise ValueError(f"vitx params carry leaves the config does not "
+                         f"have (or the port lacks): {extra}")
+    return out

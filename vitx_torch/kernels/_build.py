@@ -1,0 +1,123 @@
+"""Build the CUDA sources of ``vitx_torch/kernels/csrc`` and load them.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into its own shared library
+with a plain C interface, loaded with ``ctypes``. The library lands in
+``build/vitx_torch/`` at the repository root, under a name that carries a
+hash of the source, of the shared headers and of the flags, so an edited
+source is rebuilt at its first use and an unchanged one is loaded as is.
+Nothing is built at import time: the first call on a CUDA tensor builds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "vitx_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# the C entry point of each source and its argument types
+SIGNATURES = {
+    "mha_block": ("vitx_mha_block",
+                  [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                   _I, _I, _I, _I, _F, _P]),
+    "mlp_block": ("vitx_mlp_block",
+                  [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                   _I, _I, _I, _I, _F, _P]),
+}
+
+_lock = threading.Lock()
+_loaded: dict[str, ctypes._CFuncPtr] = {}
+build_log: dict[str, dict] = {}   # name -> {"seconds", "ptxas"} of this process
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    for cand in (Path(home) / "bin" / "nvcc", shutil.which("nvcc")):
+        if cand and Path(cand).is_file():
+            return str(cand)
+    raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin, "
+                       "/usr/local/cuda/bin and PATH): the vitx_torch CUDA "
+                       "kernels are built from source at first use")
+
+
+def _target(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def _start(name: str):
+    """Start nvcc for ``name`` unless its library exists; returns
+    (target, process or None, start time)."""
+    so = _target(name)
+    if so.exists():
+        return so, None, time.perf_counter()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return so, proc, time.perf_counter()
+
+
+def _finish(name: str, so: Path, proc, t0: float) -> None:
+    if proc is None:
+        return
+    out, _ = proc.communicate()
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on csrc/{name}.cu "
+                           f"(exit {proc.returncode}):\n{out}")
+    os.replace(tmp, so)
+    build_log[name] = {"seconds": time.perf_counter() - t0, "ptxas": out}
+
+
+def build_all() -> None:
+    """Build every source at once, one nvcc process each."""
+    with _lock:
+        started = [(n, *_start(n)) for n in SIGNATURES if n not in _loaded]
+        errors = []
+        for n, so, proc, t0 in started:   # wait for every nvcc, then raise
+            try:
+                _finish(n, so, proc, t0)
+            except RuntimeError as e:
+                errors.append(e)
+        if errors:
+            raise errors[0]
+
+
+def entry(name: str):
+    """The C entry point of ``csrc/<name>.cu``, built on first use."""
+    with _lock:
+        fn = _loaded.get(name)
+        if fn is not None:
+            return fn
+        so, proc, t0 = _start(name)
+        _finish(name, so, proc, t0)
+        symbol, argtypes = SIGNATURES[name]
+        fn = getattr(ctypes.CDLL(str(so)), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _loaded[name] = fn
+        return fn
+
+
+def check(name: str, err: int) -> None:
+    """Raise if a kernel's C entry point reported a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t "
+                           f"{err}")

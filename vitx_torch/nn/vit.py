@@ -1,0 +1,316 @@
+"""The Vision Transformer forward in PyTorch.
+
+The counterpart of ``vitx/nn/vit.py`` for inference. Parameters are the
+same nested dict as vitx's (``init_params``): block leaves stacked on a
+leading depth axis, ``wqkv`` as (E, 3, H, D), ``wo`` (E, E), fp32. Images
+are NHWC. The blocks run as a Python loop; on a CUDA device each block's
+attention half is kernel K1 and its MLP half kernel K2
+(``vitx_torch/kernels``). Everything else -- patch embedding, residual
+adds, the head -- is plain torch, as it is XLA in vitx.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from vitx_torch.core.config import ViTConfig
+from vitx_torch.core.device import resolve_device
+from vitx_torch.kernels.mha_block import fused_mha_block
+from vitx_torch.kernels.mlp_block import fused_mlp_block
+from vitx_torch.nn.attention import multi_head_attention
+from vitx_torch.nn.layers import (activation, add_layer_norm, dot,
+                                  layer_norm, matmul32, mlp)
+
+Params = dict
+
+
+def check_ported(cfg: ViTConfig) -> None:
+    """Raise for the model features the port does not have yet, naming the
+    ROADMAP item that brings each."""
+    missing = (
+        (cfg.stem == "conv", "the conv stem (stem='conv')", "A12"),
+        (cfg.num_registers, "register tokens", "A12"),
+        (cfg.distill_token, "the distillation token", "A12"),
+        (cfg.moe_experts, "Soft-MoE blocks", "A12"),
+        (cfg.lora_rank, "LoRA adapters", "A12"),
+        (cfg.head_type == "map", "the MAP head", "A12"),
+        (cfg.pos_embed != "learned", f"pos_embed={cfg.pos_embed!r}", "A12"),
+        (cfg.tome_r, "ToMe token merging", "A10"),
+    )
+    for cond, what, item in missing:
+        if cond:
+            raise NotImplementedError(
+                f"{what} is not ported to vitx_torch yet (ROADMAP {item})")
+
+
+# ---------------------------------------------------------------------------
+# Initialization
+# ---------------------------------------------------------------------------
+
+def param_spec(cfg: ViTConfig) -> dict:
+    """The parameter tree of ``cfg`` as nested dicts of (shape, init) leaves,
+    where init is "normal" (trunc-normal, ``cfg.init_std``) or a constant.
+    The same tree and shapes as ``vitx/nn/vit.py:44-223`` for the features
+    the port has."""
+    check_ported(cfg)
+    E, H, D, M, L = (cfg.embed_dim, cfg.num_heads, cfg.head_dim, cfg.mlp_dim,
+                     cfg.depth)
+    P, C = cfg.patch_size, cfg.num_channels
+    blocks = {
+        "ln1_scale": ((L, E), 1.0), "ln1_bias": ((L, E), 0.0),
+        "wqkv": ((L, E, 3, H, D), "normal"), "wo": ((L, E, E), "normal"),
+        "ln2_scale": ((L, E), 1.0), "ln2_bias": ((L, E), 0.0),
+        "w1": ((L, E, M), "normal"), "b1": ((L, M), 0.0),
+        "w2": ((L, M, E), "normal"), "b2": ((L, E), 0.0),
+    }
+    if cfg.mlp_act == "swiglu":
+        blocks["w3"] = ((L, E, M), "normal")
+        blocks["b3"] = ((L, M), 0.0)
+    if cfg.qkv_bias:
+        blocks["bqkv"] = ((L, 3, H, D), 0.0)
+    if cfg.qk_norm:
+        blocks["lnq_scale"] = ((L, H, D), 1.0)
+        blocks["lnk_scale"] = ((L, H, D), 1.0)
+    if cfg.proj_bias:
+        blocks["bo"] = ((L, E), 0.0)
+    if cfg.layerscale_init:
+        blocks["ls1"] = ((L, E), cfg.layerscale_init)
+        blocks["ls2"] = ((L, E), cfg.layerscale_init)
+    spec = {
+        "patch_embed": {"kernel": ((P * P * C, E), "normal"),
+                        "bias": ((E,), 0.0)},
+        "cls_token": ((1, 1, E), "normal"),
+        "pos_embed": ((1, cfg.pos_len, E), "normal"),
+        "blocks": blocks,
+    }
+    if cfg.final_norm:
+        spec["final_norm"] = {"scale": ((E,), 1.0), "bias": ((E,), 0.0)}
+    if cfg.head_type == "reference":
+        spec["head"] = {
+            "w1": ((E, 4 * E), "normal"), "b1": ((4 * E,), 0.0),
+            "ln_scale": ((4 * E,), 1.0), "ln_bias": ((4 * E,), 0.0),
+            "w2": ((4 * E, cfg.num_classes), "normal"),
+            "b2": ((cfg.num_classes,), 0.0),
+        }
+    else:
+        spec["head"] = {
+            "ln_scale": ((E,), 1.0), "ln_bias": ((E,), 0.0),
+            "w": ((E, cfg.num_classes), 0.0), "b": ((cfg.num_classes,), 0.0),
+        }
+    return spec
+
+
+def init_leaf(shape, init, cfg: ViTConfig, gen: torch.Generator):
+    """One parameter leaf on the CPU in ``cfg.param_dtype``."""
+    t = torch.empty(shape, dtype=torch.float32)
+    if init == "normal":
+        std = cfg.init_std
+        torch.nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std,
+                                    generator=gen)
+    else:
+        t.fill_(init)
+    return t.to(cfg.pdtype())
+
+
+def init_params(rng, cfg: ViTConfig, *, device="cuda") -> Params:
+    """Fresh parameters: trunc-normal (``cfg.init_std``, cut at 2 std)
+    weights, zero biases, unit LN scales. ``rng`` is a ``torch.Generator``
+    or an int seed; the values are drawn on the CPU, so a seed gives the
+    same parameters on every device (but not vitx's: JAX's generator
+    differs)."""
+    dev = resolve_device(device)
+    gen = rng if isinstance(rng, torch.Generator) else \
+        torch.Generator().manual_seed(int(rng))
+
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(v) for k, v in node.items()}
+        shape, init = node
+        return init_leaf(shape, init, cfg, gen).to(dev)
+
+    return build(param_spec(cfg))
+
+
+def params_to(params: Params, device) -> Params:
+    """The parameter tree on ``device`` (leaves already there are kept)."""
+    if isinstance(params, dict):
+        return {k: params_to(v, device) for k, v in params.items()}
+    return params.to(device)
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+def patch_embed(params: Params, images, cfg: ViTConfig):
+    """(B, H, W, C) images -> (B, N, E) patch tokens: space-to-depth with
+    rows ordered (P, P, C), then one matmul (``vitx/nn/vit.py:262-284``)."""
+    B = images.shape[0]
+    P, g, C = cfg.patch_size, cfg.grid_size, cfg.num_channels
+    x = images.to(cfg.cdtype())
+    x = x.reshape(B, g, P, g, P, C).permute(0, 1, 3, 2, 4, 5)
+    x = x.reshape(B, g * g, P * P * C)
+    pe = params["patch_embed"]
+    return dot(x, pe["kernel"].to(x.dtype)) + pe["bias"].to(x.dtype)
+
+
+def _join_cls(params: Params, tokens, cfg: ViTConfig, B: int):
+    """Prepend the CLS token; ``parity="bug_exact"`` appends it, honouring
+    a per-batch-slot CLS (``vitx/nn/vit.py:555-583``)."""
+    cls_p = params["cls_token"].to(cfg.cdtype())
+    E = cfg.embed_dim
+    if cfg.parity == "bug_exact":
+        if cls_p.shape[0] == 1:
+            cls = cls_p.expand(B, 1, E)
+        elif cls_p.shape[0] == B:
+            cls = cls_p
+        else:
+            raise ValueError(
+                f"bug_exact parity: checkpoint carries {cls_p.shape[0]} "
+                f"per-slot CLS tokens but the batch has {B} rows")
+        return torch.cat([tokens, cls], dim=1)
+    return torch.cat([cls_p.expand(B, 1, E), tokens], dim=1)
+
+
+def add_pos_embed(params: Params, x, cfg: ViTConfig):
+    """Add the learned positional table (the only kind the port has)."""
+    return x + params["pos_embed"].to(x.dtype)
+
+
+def embed_tokens(params: Params, images, cfg: ViTConfig):
+    """Images -> the token sequence the first block reads."""
+    tokens = patch_embed(params, images, cfg)
+    x = _join_cls(params, tokens, cfg, tokens.shape[0])
+    return add_pos_embed(params, x, cfg)
+
+
+def _use_fused_mha(cfg: ViTConfig, bp, x) -> bool:
+    """vitx's rule (``vitx/nn/vit.py:287-304``) with "is this a TPU" read
+    as "are the tensors on a CUDA device". The port's forward requests no
+    attention probabilities (ROADMAP A9), so that condition is absent."""
+    if cfg.parity == "bug_exact":
+        return False
+    if "bqkv" in bp or cfg.fuse_mha == "off":
+        return False
+    if cfg.qk_norm or cfg.pos_embed == "rope":
+        return False
+    if cfg.fuse_mha == "on":
+        return True
+    return cfg.attn_impl in ("auto", "flash") and x.is_cuda
+
+
+def _use_fused_mlp(cfg: ViTConfig, x) -> bool:
+    """vitx's rule (``vitx/nn/vit.py:307-316``), CUDA in place of TPU."""
+    if cfg.mlp_act == "swiglu" or cfg.fuse_mlp == "off":
+        return False
+    if cfg.fuse_mlp == "on":
+        return True
+    return cfg.attn_impl in ("auto", "flash") and x.is_cuda
+
+
+def _encoder_block(x, pending, bp, cfg: ViTConfig):
+    """Pre-LN block: x + MHA(LN1(x)); x + MLP(LN2(x)). The previous block's
+    MLP output arrives as ``pending`` and the block returns its own as the
+    new pending (``vitx/nn/vit.py:319-436``)."""
+    dt = x.dtype
+    if _use_fused_mha(cfg, bp, x):
+        x = x + pending
+        bo = bp.get("bo")
+        if bo is None:
+            bo = torch.zeros(cfg.embed_dim, dtype=torch.float32,
+                             device=x.device)
+        attn_out = fused_mha_block(
+            x, bp["wqkv"].to(dt), bp["wo"].to(dt), bo.float(),
+            bp["ln1_scale"].float(), bp["ln1_bias"].float(),
+            eps=cfg.layer_norm_eps)
+    else:   # composed: CPU only until the flash kernel (B5) is ported
+        x, h = add_layer_norm(x, pending, bp["ln1_scale"], bp["ln1_bias"],
+                              eps=cfg.layer_norm_eps)
+        attn_out = multi_head_attention(
+            h, bp["wqkv"], bp.get("bqkv"), bp["wo"], bp.get("bo"),
+            num_heads=cfg.num_heads,
+            scale=(float(cfg.head_dim) ** 0.5
+                   if cfg.parity == "bug_exact" else None),
+            qk_scales=((bp["lnq_scale"], bp["lnk_scale"])
+                       if cfg.qk_norm else None),
+            qk_eps=cfg.layer_norm_eps)
+    if "ls1" in bp:
+        attn_out = attn_out * bp["ls1"].to(dt)
+
+    if _use_fused_mlp(cfg, x):
+        x = x + attn_out
+        mlp_out = fused_mlp_block(
+            x, bp["w1"].to(dt), bp["b1"].float(), bp["w2"].to(dt),
+            bp["b2"].float(), bp["ln2_scale"].float(),
+            bp["ln2_bias"].float(), act=cfg.mlp_act, eps=cfg.layer_norm_eps)
+    else:
+        x, h = add_layer_norm(x, attn_out, bp["ln2_scale"], bp["ln2_bias"],
+                              eps=cfg.layer_norm_eps)
+        mlp_out = mlp(h, bp["w1"], bp["b1"], bp["w2"], bp["b2"],
+                      act=cfg.mlp_act, w3=bp.get("w3"), b3=bp.get("b3"))
+    if "ls2" in bp:
+        mlp_out = mlp_out * bp["ls2"].to(dt)
+    return x, mlp_out
+
+
+def run_blocks(blocks: Params, x, cfg: ViTConfig):
+    """Run the stacked blocks over tokens x (B, T, E): a Python loop in
+    place of vitx's ``lax.scan``; returns x + pending
+    (``vitx/nn/vit.py:513-515``)."""
+    pending = torch.zeros_like(x)
+    for layer in range(cfg.depth):
+        bp = {k: v[layer] for k, v in blocks.items()}
+        x, pending = _encoder_block(x, pending, bp, cfg)
+    return x + pending
+
+
+def encode(params: Params, images, cfg: ViTConfig):
+    """Images -> encoder output tokens (B, T, E)."""
+    check_ported(cfg)
+    x = embed_tokens(params, images, cfg)
+    x = run_blocks(params["blocks"], x, cfg)
+    if cfg.final_norm:
+        fn = params["final_norm"]
+        x = layer_norm(x, fn["scale"], fn["bias"], eps=cfg.layer_norm_eps)
+    return x
+
+
+def classify(params: Params, x, cfg: ViTConfig):
+    """Encoder tokens (B, T, E) -> fp32 logits (B, classes): token 0 (or the
+    patch mean for ``global_pool="gap"``) through the reference head
+    (Linear -> erf GELU -> LayerNorm(4E) -> Linear) or the standard head
+    (LN -> Linear), as at ``vitx/nn/vit.py:780-807``."""
+    if cfg.global_pool == "gap":
+        s = cfg.num_prefix_tokens
+        cls = x[:, s:, :].mean(dim=1)
+    else:
+        cls = x[:, 0, :]
+    hp = params["head"]
+    if cfg.head_type == "reference":
+        h = dot(cls, hp["w1"].to(cls.dtype)) + hp["b1"].to(cls.dtype)
+        h = activation(h, "gelu")   # the head's GELU is erf in every config
+        h = layer_norm(h, hp["ln_scale"], hp["ln_bias"],
+                       eps=cfg.layer_norm_eps)
+        logits = matmul32(h, hp["w2"].to(h.dtype)) + hp["b2"].float()
+    else:
+        h = layer_norm(cls, hp["ln_scale"], hp["ln_bias"],
+                       eps=cfg.layer_norm_eps)
+        logits = matmul32(h, hp["w"].to(h.dtype)) + hp["b"].float()
+    return logits.float()
+
+
+def forward(params: Params, images, cfg: ViTConfig, *, device="cuda"):
+    """Full model: images (B, H, W, C) -> logits (B, classes), fp32.
+
+    ``images`` may be a numpy array or a tensor; it and the parameters are
+    moved to ``device`` (a CUDA device by default; raises when there is
+    none). Inference only: dropout and drop-path are identities.
+    """
+    dev = resolve_device(device)
+    params = params_to(params, dev)
+    if isinstance(images, np.ndarray):
+        images = torch.from_numpy(images)
+    images = images.to(dev)
+    with torch.inference_mode():
+        return classify(params, encode(params, images, cfg), cfg)

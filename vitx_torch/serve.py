@@ -1,0 +1,255 @@
+"""Batched inference serving for the PyTorch port.
+
+The counterpart of ``vitx/serve.py``: requests queue on the host, a
+collector thread drains up to ``batch_size`` of them (waiting at most
+``max_delay_ms`` after the first), pads them to ONE fixed batch shape, runs
+one forward on the device and fans the top-k results back out. Softmax and
+top-k run on the device in fp32, so only k values per image return to the
+host. The server warms up at start (which also builds the CUDA kernels),
+tracks p50/p90/p99 latency with drift against a recent window, and bounds
+its queue (``max_queue``) so overload raises ``ServerOverloaded`` instead of
+growing the latency tail.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+import time
+from collections import deque
+from dataclasses import dataclass, field
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from vitx_torch.core.config import ViTConfig
+from vitx_torch.core.device import resolve_device
+from vitx_torch.nn.vit import check_ported, classify, encode, init_params, \
+    params_to
+
+
+class ServerOverloaded(RuntimeError):
+    """Raised by ``predict`` when the request queue is at ``max_queue``."""
+
+
+@dataclass
+class ServerStats:
+    """Counters and a bounded latency window; mutated under ``lock`` by the
+    collector and the predict threads."""
+    requests: int = 0
+    batches: int = 0
+    padded_slots: int = 0
+    rejected: int = 0
+    window: int = 10_000
+    recent_window: int = 1_000
+    latencies_ms: deque = field(default=None)
+    recent_ms: deque = field(default=None)
+    lock: threading.Lock = field(default_factory=threading.Lock)
+
+    def __post_init__(self):
+        if self.latencies_ms is None:
+            self.latencies_ms = deque(maxlen=self.window)
+        if self.recent_ms is None:
+            self.recent_ms = deque(maxlen=self.recent_window)
+
+    @staticmethod
+    def _pct(lat, p):
+        return lat[min(len(lat) - 1, int(p * len(lat)))] if lat else 0.0
+
+    def summary(self) -> dict:
+        with self.lock:
+            lat = sorted(self.latencies_ms)
+            recent = sorted(self.recent_ms)
+            requests, batches = self.requests, self.batches
+            rejected, padded = self.rejected, self.padded_slots
+        occupancy = 0.0
+        if requests + padded:
+            occupancy = requests / (requests + padded)
+        p50, p99 = self._pct(lat, 0.50), self._pct(lat, 0.99)
+        p50_r, p99_r = self._pct(recent, 0.50), self._pct(recent, 0.99)
+        return {"requests": requests, "batches": batches,
+                "rejected": rejected,
+                "batch_occupancy": round(occupancy, 3),
+                "p50_ms": round(p50, 2),
+                "p90_ms": round(self._pct(lat, 0.90), 2),
+                "p99_ms": round(p99, 2),
+                # drift: the last-1k percentiles against the 10k window;
+                # positive means the server is getting slower
+                "p50_recent_ms": round(p50_r, 2),
+                "p99_recent_ms": round(p99_r, 2),
+                "p50_drift_ms": round(p50_r - p50, 2),
+                "p99_drift_ms": round(p99_r - p99, 2)}
+
+
+class _Pending:
+    __slots__ = ("image", "event", "result", "error", "t0")
+
+    def __init__(self, image):
+        self.image = image
+        self.event = threading.Event()
+        self.result = None
+        self.error = None
+        self.t0 = time.perf_counter()
+
+
+class InferenceServer:
+    """Dynamic-batching inference over one fixed-shape forward.
+
+    ``predict(image)`` is thread-safe and blocking: it enqueues the (H, W, C)
+    image, the collector folds it into the next device batch, and the call
+    returns ``{"probs": [k], "classes": [k]}`` for the top-``k`` classes.
+    """
+
+    def __init__(self, params, cfg: ViTConfig, *, batch_size: int = 32,
+                 top_k: int = 5, max_delay_ms: float = 5.0,
+                 max_queue: int | None = None,
+                 temperature: float | None = None, device="cuda"):
+        """``max_queue``: beyond this many queued requests ``predict``
+        raises ``ServerOverloaded`` (the HTTP front end answers 503).
+        Default: 8 device batches. ``temperature`` scales the logits before
+        the softmax (calibrated confidences; the top-k order is unchanged).
+        ``device``: a CUDA device by default; raises when there is none.
+        """
+        self.device = resolve_device(device)
+        check_ported(cfg)
+        self.cfg = cfg
+        self.batch_size = batch_size
+        self.top_k = min(top_k, cfg.num_classes)
+        self.max_delay_s = max_delay_ms / 1000.0
+        self.max_queue = (max_queue if max_queue is not None
+                          else 8 * batch_size)
+        self.temperature = temperature
+        self.stats = ServerStats()
+        self._queue: queue.Queue[_Pending] = queue.Queue(
+            maxsize=self.max_queue)
+        self._stop = threading.Event()
+        self._params = params_to(params, self.device)
+        self._inv_t = 1.0 / temperature if temperature else 1.0
+        # warm-up at the serving shape: the first request must not pay for
+        # building the kernels or for allocator growth
+        shape = (batch_size, cfg.image_size, cfg.image_size,
+                 cfg.num_channels)
+        self._run(torch.zeros(shape, dtype=cfg.cdtype(), device=self.device))
+        self._thread = threading.Thread(target=self._collector, daemon=True)
+        self._thread.start()
+
+    def _run(self, images):
+        """images on the device -> (values (B, k), indices (B, k)) on the
+        host: the forward, fp32 softmax and top-k on the device."""
+        with torch.inference_mode():
+            logits = classify(self._params, encode(self._params, images,
+                                                   self.cfg), self.cfg)
+            probs = torch.softmax(logits.float() * self._inv_t, dim=-1)
+            values, indices = torch.topk(probs, self.top_k, dim=-1)
+            return values.cpu().numpy(), indices.cpu().numpy()
+
+    def predict(self, image: np.ndarray, timeout: float = 30.0) -> dict:
+        """image: (H, W, C) float array in model input scale."""
+        expect = (self.cfg.image_size, self.cfg.image_size,
+                  self.cfg.num_channels)
+        if tuple(image.shape) != expect:
+            raise ValueError(f"expected image shape {expect}, "
+                             f"got {tuple(image.shape)}")
+        item = _Pending(np.asarray(image, np.float32))
+        try:
+            self._queue.put_nowait(item)
+        except queue.Full:
+            with self.stats.lock:
+                self.stats.rejected += 1
+            raise ServerOverloaded(
+                f"queue full ({self.max_queue} pending)") from None
+        if not item.event.wait(timeout):
+            raise TimeoutError("inference request timed out")
+        if item.error is not None:
+            raise RuntimeError(f"inference failed: {item.error}")
+        return item.result
+
+    def close(self):
+        self._stop.set()
+        self._thread.join(timeout=5.0)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def _collector(self):
+        while not self._stop.is_set():
+            try:
+                first = self._queue.get(timeout=0.05)
+            except queue.Empty:
+                continue
+            batch = [first]
+            deadline = time.perf_counter() + self.max_delay_s
+            while len(batch) < self.batch_size:
+                remaining = deadline - time.perf_counter()
+                if remaining <= 0:
+                    break
+                try:
+                    batch.append(self._queue.get(timeout=remaining))
+                except queue.Empty:
+                    break
+            try:
+                self._run_batch(batch)
+            except Exception as e:   # noqa: BLE001 -- hand to the waiters
+                for item in batch:
+                    item.error = e
+                    item.event.set()
+
+    def _run_batch(self, batch):
+        n = len(batch)
+        pad = self.batch_size - n
+        images = np.stack([b.image for b in batch])
+        if pad:
+            images = np.concatenate(
+                [images, np.zeros((pad,) + images.shape[1:], np.float32)])
+        values, indices = self._run(
+            torch.from_numpy(images).to(self.device).to(self.cfg.cdtype()))
+        now = time.perf_counter()
+        with self.stats.lock:
+            for item in batch:
+                ms = (now - item.t0) * 1000.0
+                self.stats.latencies_ms.append(ms)
+                self.stats.recent_ms.append(ms)
+            self.stats.requests += n
+            self.stats.batches += 1
+            self.stats.padded_slots += pad
+        for i, item in enumerate(batch):
+            item.result = {"probs": values[i].tolist(),
+                           "classes": indices[i].tolist()}
+            item.event.set()
+
+
+# artifact kinds of vitx.serve.load_server that the port cannot read yet
+_NOT_PORTED = (
+    (".quant.npz", "int8 .quant.npz artifacts", "A11"),
+    (".stablehlo", ".stablehlo deployment artifacts", "A11"),
+    (".pt", "reference .pt checkpoints", "A14"),
+)
+
+
+def load_server(checkpoint, cfg: ViTConfig, *, device="cuda",
+                **kw) -> InferenceServer:
+    """A server from ``None`` (fresh parameters, seed 0) or a bare vitx
+    params ``.npz`` (``vitx.cli.pretrain --export-vit``). The other
+    artifact kinds of ``vitx.serve.load_server`` raise, naming the ROADMAP
+    item that brings each."""
+    from vitx_torch.interop.jax_params import params_from_jax
+
+    dev = resolve_device(device)
+    if checkpoint is None:
+        return InferenceServer(init_params(0, cfg, device=dev), cfg,
+                               device=dev, **kw)
+    name = Path(checkpoint).name
+    for suffix, what, item in _NOT_PORTED:
+        if name.endswith(suffix):
+            raise NotImplementedError(
+                f"{what} are not readable by vitx_torch yet (ROADMAP {item})")
+    if name.endswith(".npz"):
+        return InferenceServer(params_from_jax(checkpoint, cfg, device=dev),
+                               cfg, device=dev, **kw)
+    raise NotImplementedError(
+        f"{checkpoint}: vitx .ckpt / orbax checkpoints are not readable by "
+        f"vitx_torch yet (ROADMAP A3); export a bare params .npz instead")
