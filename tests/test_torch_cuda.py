@@ -17,9 +17,13 @@ import pytest
 import torch
 
 import vitx_torch
-from vitx_torch.kernels import (fused_mha_block, fused_mlp_block,
-                                mha_block_plain, mlp_block_plain)
+from vitx_torch.kernels import (adamw_plain, attention_bwd,
+                                attention_bwd_plain, fused_adamw_,
+                                fused_mha_block, fused_mlp_block, ln_bwd,
+                                ln_bwd_plain, mha_block_plain,
+                                mlp_block_plain)
 from vitx_torch.nn.vit import params_to
+from vitx_torch.train import step as tstep
 
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
@@ -101,3 +105,120 @@ def test_composed_attention_raises_on_card(cuda):
     x = np.zeros((1, cfg.image_size, cfg.image_size, 3), np.float32)
     with pytest.raises(NotImplementedError, match="B5"):
         vitx_torch.forward(params, x, cfg)
+
+
+def seeded(shape, seed, scale=1.0, shift=0.0, dtype="float32",
+           device="cpu"):
+    a = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+    return torch.from_numpy(shift + scale * a).to(device,
+                                                  getattr(torch, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dims", [(2, 12, 197, 64), (3, 4, 65, 16),
+                                  (2, 4, 50, 9), (1, 1, 40, 128)])
+def test_attention_bwd_matches_plain(cuda, dims, dtype):
+    """B2 at ViT-B/16 shapes, tiny's, a ragged head (D=9) and the largest
+    head it takes (D=128)."""
+    q, k, v = (seeded(dims, s, 1.5, dtype=dtype, device=cuda)
+               for s in (1, 2, 3))
+    do = seeded(dims, 4, 0.1, dtype=dtype, device=cuda)
+    n = attention_bwd.launches
+    out = attention_bwd(q, k, v, do)
+    torch.cuda.synchronize()
+    assert attention_bwd.launches == n + 1
+    for o, r in zip(out, attention_bwd_plain(q, k, v, do)):
+        assert o.dtype == q.dtype and bool(torch.isfinite(o).all())
+        assert rel_err(o, r) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 197, 768), (2, 3072), (3, 5, 36),
+                                   (130, 64)])
+def test_ln_bwd_matches_plain(cuda, shape, dtype):
+    x = seeded(shape, 5, 2.0, 0.5, dtype=dtype, device=cuda)
+    dy = seeded(shape, 6, 0.1, dtype=dtype, device=cuda)
+    sc = seeded(shape[-1:], 7, 0.1, 1.0, device=cuda)
+    n = ln_bwd.launches
+    out = ln_bwd(x, sc, dy)
+    torch.cuda.synchronize()
+    assert ln_bwd.launches == n + 1
+    for o, r in zip(out, ln_bwd_plain(x, sc, dy)):
+        assert rel_err(o, r) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("numel", [65536, 1000, 1])
+def test_fused_adamw_matches_plain(cuda, numel, gdtype):
+    p = seeded((numel,), 8, 0.02, device=cuda)
+    g = seeded((numel,), 9, 1e-3, dtype=gdtype, device=cuda)
+    mu = seeded((numel,), 10, 1e-4, device=cuda)
+    nu = seeded((numel,), 11, 1e-6, device=cuda).abs()
+    kw = dict(lr=1e-3, c1=0.19, c2=0.001999, b1=0.9, b2=0.999, eps=1e-8,
+              wd=1e-4)
+    ref = adamw_plain(p, g, mu, nu, **kw)
+    n = fused_adamw_.launches
+    fused_adamw_(p, g, mu, nu, **kw)
+    torch.cuda.synchronize()
+    assert fused_adamw_.launches == n + 1
+    for o, r in zip((p, mu, nu), ref):
+        assert rel_err(o, r) <= TOL["float32"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_stash_matches_plain(cuda, dtype):
+    mha, mlp = block_args(2, 197, 768, 12, dtype, cuda)
+    for o, r in zip(fused_mha_block(*mha, stash=True),
+                    mha_block_plain(*mha, stash=True)):
+        assert o.shape == r.shape and rel_err(o, r) <= TOL[dtype]
+    for o, r in zip(fused_mlp_block(*mlp, act="gelu_tanh", stash=True),
+                    mlp_block_plain(*mlp, act="gelu_tanh", stash=True)):
+        assert o.shape == r.shape and rel_err(o, r) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fuse_mlp", ["auto", "on"])
+def test_train_step_on_card_matches_cpu(cuda, fuse_mlp):
+    """One fp32 tiny step, kernels on the card and plain versions on the
+    CPU, from the same params: the loss, grad_norm and params, and the
+    launches the routing gives (K2 only with fuse_mlp="on"). Params are
+    held in units of lr: Adam's first step is about +-lr whatever |g|, so
+    an element whose gradient is small against its leaf's rounding may
+    land anywhere within 2 lr; a wrong update moves a large share."""
+    cfg = vitx_torch.get_config("tiny", compute_dtype="float32",
+                                fuse_mlp=fuse_mlp)
+    opt = tstep.make_optimizer(lr=1e-3, fused=True)
+    host = vitx_torch.init_params(0, cfg, device="cpu")
+    rng = np.random.default_rng(0)
+    batch = {"image": rng.standard_normal(
+        (4, cfg.image_size, cfg.image_size, 3)).astype(np.float32),
+        "label": rng.integers(0, cfg.num_classes, 4).astype(np.int32)}
+    names = ("fused_mha_block", "fused_mlp_block", "attention_bwd",
+             "ln_bwd", "fused_adamw_")
+    fns = (fused_mha_block, fused_mlp_block, attention_bwd, ln_bwd,
+           fused_adamw_)
+    before = [f.launches for f in fns]
+    on_card = params_to(host, cuda)
+    card, m_card = tstep.train_step(
+        tstep.TrainState(0, on_card, opt.init(on_card)), batch, cfg=cfg,
+        optimizer=opt)
+    torch.cuda.synchronize()
+    n_leaves = len(tstep.leaves(host))
+    k2 = cfg.depth if fuse_mlp == "on" else 0
+    assert {n: f.launches - b for n, f, b in zip(names, fns, before)} == {
+        "fused_mha_block": cfg.depth, "fused_mlp_block": k2,
+        "attention_bwd": cfg.depth, "ln_bwd": 2 * cfg.depth + 1,
+        "fused_adamw_": n_leaves}
+    ref, m_ref = tstep.train_step(
+        tstep.TrainState(0, host, opt.init(host)), batch, cfg=cfg,
+        optimizer=opt, device="cpu")
+    for k in ("loss", "grad_norm"):
+        assert rel_err(m_card[k], m_ref[k]) <= 1e-4, k
+    dp = torch.cat([(a.cpu() - b).abs().flatten() for a, b in zip(
+        tstep.leaves(card.params), tstep.leaves(ref.params))]) / 1e-3
+    assert float(dp.max()) <= 2.0
+    assert float((dp > 0.01).float().mean()) <= 1e-3

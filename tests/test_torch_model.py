@@ -204,6 +204,7 @@ def test_imports_without_jax():
     of the vitx package."""
     code = ("import sys; sys.modules['jax'] = None\n"
             "import vitx_torch, vitx_torch.serve, vitx_torch.cli.serve\n"
+            "import vitx_torch.train, vitx_torch.data, vitx_torch.metrics\n"
             "import vitx_torch.kernels._build\n"
             "bad = [m for m in sys.modules if m == 'vitx' or "
             "m.startswith('vitx.')]\n"

@@ -4,8 +4,10 @@ A second implementation of the ``vitx`` package beside it, held against it
 part by part: the same configs, parameter tree and layouts (NHWC images,
 ``wqkv`` as (E, 3, H, D)), fp32 parameters and compute in
 ``cfg.compute_dtype``. The fused attention and MLP halves of every encoder
-block are hand-written CUDA kernels for sm_90a (``vitx_torch.kernels``);
-the rest is plain torch. It imports neither ``jax`` nor ``vitx``.
+block are hand-written CUDA kernels for sm_90a (``vitx_torch.kernels``),
+and so are the attention and LayerNorm backwards and the fused AdamW
+update of the train step (``vitx_torch.train``); the rest is plain torch.
+It imports neither ``jax`` nor ``vitx``.
 
 Entry points run on a CUDA device unless the caller passes
 ``device="cpu"``, where the kernels' plain torch versions run instead.
@@ -23,7 +25,8 @@ torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 from vitx_torch.core.config import PRESETS, ViTConfig, get_config  # noqa: E402
-from vitx_torch.interop.jax_params import params_from_jax  # noqa: E402
+from vitx_torch.interop.jax_params import (  # noqa: E402
+    adamw_state_from_jax, params_from_jax)
 from vitx_torch.nn.vit import (classify, encode, forward,  # noqa: E402
                                init_params)
 
@@ -38,4 +41,5 @@ __all__ = [
     "encode",
     "classify",
     "params_from_jax",
+    "adamw_state_from_jax",
 ]

@@ -1,10 +1,11 @@
-"""vitx parameters -> the port's parameters.
+"""vitx parameters and AdamW state -> the port's.
 
 vitx keeps its parameters as a nested dict of arrays (``vitx/nn/vit.py:100``)
 and ``vitx.cli.pretrain --export-vit`` writes them to a bare ``.npz`` of
 flat ``"a/b/c"`` keys (``vitx/cli/pretrain.py:286-288``). The port uses the
 same tree, so conversion is a copy into torch tensors with the shapes
-checked against ``param_spec``.
+checked against ``param_spec``. AdamW's moments are trees of the same
+shape (``adamw_state_from_jax``).
 """
 
 from __future__ import annotations
@@ -92,3 +93,40 @@ def params_from_jax(tree, cfg: ViTConfig, device="cuda") -> dict:
         raise ValueError(f"vitx params carry leaves the config does not "
                          f"have (or the port lacks): {extra}")
     return out
+
+
+def _adam_node(state):
+    """The (count, mu, nu) node inside an optax state: optax's
+    ``ScaleByAdamState`` or vitx's ``FusedAdamWState``, found by its
+    fields wherever the chain nests it."""
+    if all(hasattr(state, f) for f in ("count", "mu", "nu")):
+        return state
+    if isinstance(state, (tuple, list)):
+        found = [n for n in (_adam_node(s) for s in state) if n is not None]
+        if len(found) > 1:
+            raise ValueError("the optimizer state holds more than one Adam "
+                             "state")
+        return found[0] if found else None
+    return None
+
+
+def adamw_state_from_jax(opt_state, cfg: ViTConfig, device="cuda"):
+    """The port's ``AdamWState`` from the state of vitx's
+    ``make_optimizer()`` (plain or ``fused=True``; a schedule and
+    ``grad_clip`` keep no moments of their own). mu and nu must be fp32
+    trees of the params' shapes."""
+    from vitx_torch.train.step import AdamWState
+
+    node = _adam_node(opt_state)
+    if node is None:
+        raise ValueError("no Adam state (count, mu, nu) in the optimizer "
+                         "state")
+    for name in ("mu", "nu"):
+        dt = {np.asarray(a).dtype for _, a in _walk(getattr(node, name))}
+        if dt != {np.dtype(np.float32)}:
+            raise ValueError(f"{name} must be float32 (mu_dtype is not "
+                             f"ported, ROADMAP A12), got "
+                             f"{sorted(map(str, dt))}")
+    return AdamWState(count=int(np.asarray(node.count)),
+                      mu=params_from_jax(node.mu, cfg, device),
+                      nu=params_from_jax(node.nu, cfg, device))

@@ -1,17 +1,31 @@
 """Hand-written CUDA kernels for Hopper (sm_90a) and their plain versions.
 
 - ``fused_mha_block`` (K1, ``csrc/mha_block.cu``): LN -> QKV -> attention
-  -> out-projection; replaces ``vitx/kernels/mha_block.py::_kernel``.
-- ``fused_mlp_block`` (K2, ``csrc/mlp_block.cu``): LN -> W1 -> act -> W2;
-  replaces ``vitx/kernels/mlp_block.py::_kernel``.
+  -> out-projection, with its stash and a backward;
+  replaces ``vitx/kernels/mha_block.py::_kernel``.
+- ``fused_mlp_block`` (K2, ``csrc/mlp_block.cu``): LN -> W1 -> act -> W2,
+  with its stash and a backward; replaces
+  ``vitx/kernels/mlp_block.py::_kernel``.
+- ``attention_bwd`` (B2, ``csrc/flash_attention_bwd.cu``): the attention
+  backward for T <= 1024; replaces
+  ``vitx/kernels/flash_attention.py::_bwd_kernel_nq1``.
+- ``ln_bwd`` (B3, ``csrc/layer_norm_bwd.cu``): the LayerNorm backward;
+  replaces ``vitx/kernels/layer_norm.py::_ln_bwd3_kernel``.
+- ``fused_adamw_`` (B12, ``csrc/adamw.cu``): one in-place AdamW pass over
+  an fp32 leaf; replaces ``vitx/kernels/adamw.py::_kernel``.
 
 Each wrapper launches its kernel for CUDA tensors (building it with nvcc at
 first use, ``_build.py``) and counts the launches in its ``launches``
 attribute; for CPU tensors it runs the plain torch version beside it.
 """
 
+from vitx_torch.kernels.adamw import adamw_plain, fused_adamw_
+from vitx_torch.kernels.flash_attention import (attention_bwd,
+                                                attention_bwd_plain)
+from vitx_torch.kernels.layer_norm import ln_bwd, ln_bwd_plain
 from vitx_torch.kernels.mha_block import fused_mha_block, mha_block_plain
 from vitx_torch.kernels.mlp_block import fused_mlp_block, mlp_block_plain
 
 __all__ = ["fused_mha_block", "mha_block_plain", "fused_mlp_block",
-           "mlp_block_plain"]
+           "mlp_block_plain", "attention_bwd", "attention_bwd_plain",
+           "ln_bwd", "ln_bwd_plain", "fused_adamw_", "adamw_plain"]

@@ -19,13 +19,19 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "vitx_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+# the dtype argument of every entry point that takes one
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 # the C entry point of each source and its argument types
 SIGNATURES = {
@@ -33,8 +39,15 @@ SIGNATURES = {
                   [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                    _I, _I, _I, _I, _F, _P]),
     "mlp_block": ("vitx_mlp_block",
-                  [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                  [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                    _I, _I, _I, _I, _F, _P]),
+    "flash_attention_bwd": ("vitx_attention_bwd",
+                            [_I, _P, _P, _P, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _P]),
+    "layer_norm_bwd": ("vitx_ln_bwd",
+                       [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P]),
+    "adamw": ("vitx_adamw",
+              [_I, _P, _P, _P, _P, _L] + [_F] * 9 + [_P]),
 }
 
 _lock = threading.Lock()

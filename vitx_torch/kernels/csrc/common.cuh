@@ -1,9 +1,11 @@
-// Shared device code of the fused block kernels (mha_block.cu, mlp_block.cu).
+// Shared device code of the kernels in this directory.
 //
 // - Mma<T>: a 16x16x16 warp-level matrix product with fp32 accumulators.
 //   bf16 runs on the tensor cores through nvcuda::wmma (mma.sync); fp32
 //   takes the same tiling with fp32 FMA on the CUDA cores, so both compute
 //   types share every kernel below.
+// - stage_rows / stage_rows_scaled: a (64, D) tile of a row-major plane
+//   into shared memory (the attention kernels, forward and backward).
 // - ln_stats: per-row LayerNorm statistics (fp32, two passes), read by the
 //   GEMM prologue.
 // - gemm: a tiled (M, K) x (K, N) product, A and W row-major, with an
@@ -120,6 +122,61 @@ template <> struct Mma<float> {
   }
 };
 
+// Rows [row0, row0 + 64) x cols [0, DP) of a (rows, D) plane into shared
+// memory with row stride ld; zero beyond nrows and beyond D. NT threads.
+template <typename T, int DP, int NT>
+__device__ void stage_rows(T* dst, int ld, const T* __restrict__ src, int row0,
+                           int nrows, int D) {
+  constexpr int VEC = 16 / sizeof(T);
+  if (D % VEC == 0) {
+    for (int idx = threadIdx.x; idx < 64 * (DP / VEC); idx += NT) {
+      const int r = idx / (DP / VEC), c = (idx % (DP / VEC)) * VEC;
+      const int t = row0 + r;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (t < nrows && c < D) v = *reinterpret_cast<const uint4*>(src + (size_t)t * D + c);
+      *reinterpret_cast<uint4*>(dst + r * ld + c) = v;
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < 64 * DP; idx += NT) {
+      const int r = idx / DP, c = idx % DP;
+      const int t = row0 + r;
+      dst[r * ld + c] = (t < nrows && c < D) ? src[(size_t)t * D + c] : from_f<T>(0.0f);
+    }
+  }
+}
+
+// The same tile, each element cast(src * f) with f = fac[r] (a per-row
+// factor in shared memory) or, when fac is null, f = uni: the rounding of
+// jnp's (a.astype(f32) * f).astype(dtype). 16-byte loads when D allows.
+template <typename T, int DP, int NT>
+__device__ void stage_rows_scaled(T* dst, int ld, const T* __restrict__ src, int row0,
+                                  int nrows, int D, const float* fac, float uni) {
+  constexpr int VEC = 16 / sizeof(T);
+  if (D % VEC == 0) {
+    for (int idx = threadIdx.x; idx < 64 * (DP / VEC); idx += NT) {
+      const int r = idx / (DP / VEC), c = (idx % (DP / VEC)) * VEC;
+      const int t = row0 + r;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (t < nrows && c < D) {
+        v = *reinterpret_cast<const uint4*>(src + (size_t)t * D + c);
+        const float f = fac ? fac[r] : uni;
+        T* e = reinterpret_cast<T*>(&v);
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) e[j] = from_f<T>(to_f(e[j]) * f);
+      }
+      *reinterpret_cast<uint4*>(dst + r * ld + c) = v;
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < 64 * DP; idx += NT) {
+      const int r = idx / DP, c = idx % DP;
+      const int t = row0 + r;
+      float v = 0.0f;
+      if (t < nrows && c < D) v = to_f(src[(size_t)t * D + c]) * (fac ? fac[r] : uni);
+      dst[r * ld + c] = from_f<T>(v);
+    }
+  }
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -209,9 +266,10 @@ struct GemmArgs {
   const float* ln_b;       // (K,) LN bias
   const float* bias;       // (N,) fp32 (EPI_BIAS, EPI_BIAS_ACT)
   void* out;
+  void* pre_act;           // EPI_BIAS_ACT: also write cast(A @ W + bias) here
+                           // when not null (the stash of the MLP's VJP)
   int act;                 // EPI_BIAS_ACT
   int T, H, D;             // EPI_QKV: rows are (b, t); out is (3, B, H, T, D)
-  float q_scale;           // EPI_QKV: q = cast(cast(q) * q_scale)
 };
 
 constexpr int GBM = 128, GBN = 128, GBK = 32, GNT = 256;
@@ -379,19 +437,21 @@ gemm_kernel(const GemmArgs args) {
 #pragma unroll
         for (int e = 0; e < 8; ++e) v[e] = cs[r * CS_LD + c0 + e];
         alignas(16) T o[8];
+        alignas(16) T pre[8];
         if constexpr (EPI == EPI_QKV) {
+          // q, k and v are all written unscaled: the attention kernels
+          // scale q as they stage it
 #pragma unroll
-          for (int e = 0; e < 8; ++e) {
-            float y = round_to<T>(v[e]);
-            if (gc + e < E) y = y * args.q_scale;   // q: cast, scale in fp32
-            o[e] = from_f<T>(y);
-          }
+          for (int e = 0; e < 8; ++e) o[e] = from_f<T>(v[e]);
         } else {
 #pragma unroll
           for (int e = 0; e < 8; ++e) {
             const float bias = gc + e < N ? args.bias[gc + e] : 0.0f;
             float y = v[e] + bias;
-            if constexpr (EPI == EPI_BIAS_ACT) y = apply_act(round_to<T>(y), args.act);
+            if constexpr (EPI == EPI_BIAS_ACT) {
+              pre[e] = from_f<T>(y);
+              y = apply_act(to_f(pre[e]), args.act);
+            }
             o[e] = from_f<T>(y);
           }
         }
@@ -414,12 +474,22 @@ gemm_kernel(const GemmArgs args) {
           }
         } else {
           T* dst = out + (size_t)gr * N + gc;
+          T* pdst = EPI == EPI_BIAS_ACT && args.pre_act
+                        ? static_cast<T*>(args.pre_act) + (size_t)gr * N + gc
+                        : nullptr;
           if (b_vec && N % 8 == 0 && gc + 8 <= N) {
 #pragma unroll
             for (int q = 0; q < 8 / VEC; ++q)
               reinterpret_cast<uint4*>(dst)[q] = reinterpret_cast<const uint4*>(o)[q];
+            if (pdst) {
+#pragma unroll
+              for (int q = 0; q < 8 / VEC; ++q)
+                reinterpret_cast<uint4*>(pdst)[q] = reinterpret_cast<const uint4*>(pre)[q];
+            }
           } else {
             for (int e = 0; e < 8 && gc + e < N; ++e) dst[e] = o[e];
+            if (pdst)
+              for (int e = 0; e < 8 && gc + e < N; ++e) pdst[e] = pre[e];
           }
         }
       }

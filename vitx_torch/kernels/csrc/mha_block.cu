@@ -1,8 +1,11 @@
 // K1: the fused attention half of an encoder block for Hopper (sm_90a).
 //
 // Replaces vitx/kernels/mha_block.py::_kernel (launched by _fused_fwd,
-// entry fused_mha_block), the no-stash variant:
+// entry fused_mha_block), with and without its stash:
 //   out = (concat_h softmax(q_h k_h^T) v_h) @ Wo + bo,  q|k|v = LN(x) @ Wqkv
+// The stash (unscaled q, k, v as (B, H, T, D) planes and o_all (B, T, E),
+// the residuals of the VJP) is what launches 2 and 4 read anyway: the
+// wrapper returns views of the qkv and o_all buffers, at no extra cost.
 //
 // What bounds it on the H100: the two projections are 8/9 of its FLOPs
 // (2*B*T*E*4E against 4*B*H*T^2*D for attention), so it is bound by the
@@ -13,9 +16,9 @@
 //   1. ln_stats_kernel: fp32 mean / rstd per row of x;
 //   2. gemm_kernel<EPI_QKV>: LN applied while the A tile is staged, then
 //      x_ln @ Wqkv with fp32 accumulation; q, k, v are cast to the compute
-//      dtype (q scaled by 1/sqrt(D) in fp32 and cast again) and scattered
-//      into (3, B, H, T, D) planes;
-//   3. attention_kernel: one block per (b*h, 64 queries); key/value chunks
+//      dtype and scattered, unscaled, into (3, B, H, T, D) planes;
+//   3. attention_kernel: one block per (b*h, 64 queries), q scaled by
+//      1/sqrt(D) in fp32 and cast again as it is staged; key/value chunks
 //      of 64 rows are staged in shared memory; a first pass finds each
 //      row's max logit, a second recomputes the logits, takes
 //      p = exp(s - max) in fp32, sums l over the fp32 p, multiplies the
@@ -45,34 +48,11 @@ template <typename T, int DP> struct AttnSmem {
   static constexpr int BYTES = Q_BYTES + 2 * KV_BYTES + S_BYTES + P_BYTES;
 };
 
-// rows [row0, row0 + 64) x cols [0, DP) of a (rows, D) plane into shared
-// memory, zero beyond nrows and beyond D
-template <typename T, int DP>
-__device__ void stage_rows(T* dst, int ld, const T* __restrict__ src, int row0,
-                           int nrows, int D) {
-  constexpr int VEC = 16 / sizeof(T);
-  if (D % VEC == 0) {
-    for (int idx = threadIdx.x; idx < 64 * (DP / VEC); idx += ANT) {
-      const int r = idx / (DP / VEC), c = (idx % (DP / VEC)) * VEC;
-      const int t = row0 + r;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (t < nrows && c < D) v = *reinterpret_cast<const uint4*>(src + (size_t)t * D + c);
-      *reinterpret_cast<uint4*>(dst + r * ld + c) = v;
-    }
-  } else {
-    for (int idx = threadIdx.x; idx < 64 * DP; idx += ANT) {
-      const int r = idx / DP, c = idx % DP;
-      const int t = row0 + r;
-      dst[r * ld + c] = (t < nrows && c < D) ? src[(size_t)t * D + c] : from_f<T>(0.0f);
-    }
-  }
-}
-
-// qkv: (3, B, H, T, D) with q already scaled; o_all: (B, T, E)
+// qkv: (3, B, H, T, D), q unscaled; o_all: (B, T, E)
 template <typename T, int DP>
 __global__ void __launch_bounds__(ANT)
 attention_kernel(const T* __restrict__ qkv, T* __restrict__ o_all, int B, int ntok,
-                 int H, int D) {
+                 int H, int D, float q_scale) {
   using S = AttnSmem<T, DP>;
   using M_ = Mma<T>;
   constexpr int ND = DP / 16;
@@ -94,14 +74,15 @@ attention_kernel(const T* __restrict__ qkv, T* __restrict__ o_all, int B, int nt
   float* sw = Ss + warp * 16 * CS_LD;
   T* pw = Ps + warp * 16 * S::LDP;
 
-  stage_rows<T, DP>(Qs, S::LD, qp, q0, ntok, D);
+  // q = cast(cast(q) * scale), as mha_block.py:74 scales the stashed q0
+  stage_rows_scaled<T, DP, ANT>(Qs, S::LD, qp, q0, ntok, D, nullptr, q_scale);
   typename M_::FragA qf[ND];
 
   // pass 1: the row max of the fp32 logits
   float m = -CUDART_INF_F;
   for (int kc = 0; kc < ntok; kc += AKC) {
     __syncthreads();
-    stage_rows<T, DP>(Ks, S::LD, kp, kc, ntok, D);
+    stage_rows<T, DP, ANT>(Ks, S::LD, kp, kc, ntok, D);
     __syncthreads();
     if (kc == 0) {
 #pragma unroll
@@ -134,8 +115,8 @@ attention_kernel(const T* __restrict__ qkv, T* __restrict__ o_all, int B, int nt
   for (int dt = 0; dt < ND; ++dt) M_::zero(o[dt]);
   for (int kc = 0; kc < ntok; kc += AKC) {
     __syncthreads();
-    stage_rows<T, DP>(Ks, S::LD, kp, kc, ntok, D);
-    stage_rows<T, DP>(Vs, S::LD, vp, kc, ntok, D);
+    stage_rows<T, DP, ANT>(Ks, S::LD, kp, kc, ntok, D);
+    stage_rows<T, DP, ANT>(Vs, S::LD, vp, kc, ntok, D);
     __syncthreads();
     for (int j = 0; j < AKC / 16 && kc + j * 16 < ntok; ++j) {
       typename M_::Acc s;
@@ -189,14 +170,14 @@ attention_kernel(const T* __restrict__ qkv, T* __restrict__ o_all, int B, int nt
 
 template <typename T, int DP>
 cudaError_t launch_attention(const T* qkv, T* o_all, int B, int T_, int H, int D,
-                             cudaStream_t s) {
+                             float q_scale, cudaStream_t s) {
   constexpr int bytes = AttnSmem<T, DP>::BYTES;
   auto kern = attention_kernel<T, DP>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   dim3 grid(B * H, (T_ + AQ - 1) / AQ);
-  kern<<<grid, ANT, bytes, s>>>(qkv, o_all, B, T_, H, D);
+  kern<<<grid, ANT, bytes, s>>>(qkv, o_all, B, T_, H, D, q_scale);
   return cudaGetLastError();
 }
 
@@ -213,17 +194,17 @@ cudaError_t run_mha(const void* x, const void* wqkv, const void* wo, const float
   qa.a = x; qa.w = wqkv; qa.M = M; qa.N = 3 * E; qa.K = E;
   qa.ln_stats = stats; qa.ln_g = g; qa.ln_b = b;
   qa.out = qkv; qa.T = T_; qa.H = H; qa.D = D;
-  qa.q_scale = static_cast<float>(1.0 / sqrt(static_cast<double>(D)));  // as 1.0 / D**0.5
   err = launch_gemm<T, EPI_QKV, true>(qa, s);
   if (err != cudaSuccess) return err;
 
   const T* q = static_cast<const T*>(qkv);
   T* o = static_cast<T*>(o_all);
-  if (D <= 16) err = launch_attention<T, 16>(q, o, B, T_, H, D, s);
-  else if (D <= 32) err = launch_attention<T, 32>(q, o, B, T_, H, D, s);
-  else if (D <= 64) err = launch_attention<T, 64>(q, o, B, T_, H, D, s);
-  else if (D <= 128) err = launch_attention<T, 128>(q, o, B, T_, H, D, s);
-  else err = launch_attention<T, 256>(q, o, B, T_, H, D, s);
+  const float sc = static_cast<float>(1.0 / sqrt(static_cast<double>(D)));  // 1.0 / D**0.5
+  if (D <= 16) err = launch_attention<T, 16>(q, o, B, T_, H, D, sc, s);
+  else if (D <= 32) err = launch_attention<T, 32>(q, o, B, T_, H, D, sc, s);
+  else if (D <= 64) err = launch_attention<T, 64>(q, o, B, T_, H, D, sc, s);
+  else if (D <= 128) err = launch_attention<T, 128>(q, o, B, T_, H, D, sc, s);
+  else err = launch_attention<T, 256>(q, o, B, T_, H, D, sc, s);
   if (err != cudaSuccess) return err;
 
   GemmArgs oa = {};

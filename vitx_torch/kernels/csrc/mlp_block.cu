@@ -1,8 +1,10 @@
 // K2: the fused MLP half of an encoder block for Hopper (sm_90a).
 //
 // Replaces vitx/kernels/mlp_block.py::_kernel (launched by _fused_fwd,
-// entry fused_mlp_block), the no-stash variant:
+// entry fused_mlp_block), with and without its stash:
 //   out = act(LN(x) @ W1 + b1) @ W2 + b2
+// The stash is hp = cast(LN(x) @ W1 + b1) (B*T, M), the residual of the
+// VJP: the epilogue of launch 2 writes it beside ha when asked to.
 //
 // What bounds it on the H100: two products of 2*B*T*E*M operations each
 // against ~2*B*T*E elements in and out, so the tensor cores, not memory,
@@ -15,6 +17,7 @@
 //      then x_ln @ W1 in fp32, + b1 in fp32, cast to the compute dtype,
 //      the activation in fp32 (mlp_block.py:34-64: the A-S polynomial erf
 //      for gelu, tanh through exp for gelu_tanh), cast -> ha (B*T, M);
+//      with the stash, the cast pre-activation hp as well;
 //   3. gemm_kernel<EPI_BIAS>: ha @ W2 in fp32, + b2 in fp32, one cast.
 // The hidden activation ha (B*T*M elements, 4x the block's input) makes a
 // round trip through device memory; keeping it on chip is the first thing
@@ -27,7 +30,7 @@ namespace vitx {
 template <typename T>
 cudaError_t run_mlp(const void* x, const void* w1, const float* b1, const void* w2,
                     const float* b2, const float* g, const float* b, void* out, void* ha,
-                    float* stats, int rows, int E, int Mh, int act, float eps,
+                    void* hp, float* stats, int rows, int E, int Mh, int act, float eps,
                     cudaStream_t s) {
   cudaError_t err = launch_ln_stats<T>(static_cast<const T*>(x), stats, rows, E, eps, s);
   if (err != cudaSuccess) return err;
@@ -35,7 +38,7 @@ cudaError_t run_mlp(const void* x, const void* w1, const float* b1, const void* 
   GemmArgs up = {};
   up.a = x; up.w = w1; up.M = rows; up.N = Mh; up.K = E;
   up.ln_stats = stats; up.ln_g = g; up.ln_b = b;
-  up.bias = b1; up.act = act; up.out = ha;
+  up.bias = b1; up.act = act; up.out = ha; up.pre_act = hp;
   err = launch_gemm<T, EPI_BIAS_ACT, true>(up, s);
   if (err != cudaSuccess) return err;
 
@@ -49,18 +52,19 @@ cudaError_t run_mlp(const void* x, const void* w1, const float* b1, const void* 
 
 // dtype: 0 = float32, 1 = bfloat16; act: 0 gelu, 1 gelu_tanh, 2 relu.
 // Scratch from the caller: ha (rows*Mh elements), stats (2*rows fp32).
+// hp (rows*Mh elements) receives the stash, or is null for none.
 // Returns the first CUDA error of the launches (0 when all were accepted).
 extern "C" int vitx_mlp_block(int dtype, const void* x, const void* w1, const float* b1,
                               const void* w2, const float* b2, const float* g,
-                              const float* b, void* out, void* ha, float* stats, int rows,
-                              int E, int Mh, int act, float eps, void* stream) {
+                              const float* b, void* out, void* ha, void* hp, float* stats,
+                              int rows, int E, int Mh, int act, float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 1)
-    err = vitx::run_mlp<vitx::bf16>(x, w1, b1, w2, b2, g, b, out, ha, stats, rows, E, Mh,
-                                    act, eps, s);
+    err = vitx::run_mlp<vitx::bf16>(x, w1, b1, w2, b2, g, b, out, ha, hp, stats, rows, E,
+                                    Mh, act, eps, s);
   else
-    err = vitx::run_mlp<float>(x, w1, b1, w2, b2, g, b, out, ha, stats, rows, E, Mh, act,
-                               eps, s);
+    err = vitx::run_mlp<float>(x, w1, b1, w2, b2, g, b, out, ha, hp, stats, rows, E, Mh,
+                               act, eps, s);
   return static_cast<int>(err);
 }

@@ -2,8 +2,11 @@
 
 ``fused_mha_block`` launches the Hopper kernel K1 (``csrc/mha_block.cu``)
 on CUDA tensors and runs ``mha_block_plain``, the same math in plain torch,
-on CPU tensors. It replaces ``vitx/kernels/mha_block.py::_kernel`` (the
-no-stash variant of ``_fused_fwd``). The source note in the ``.cu`` file
+on CPU tensors. It replaces ``vitx/kernels/mha_block.py::_kernel`` with and
+without its stash (``_fused_fwd``), and is differentiable: its backward
+mirrors ``_fused_op_bwd`` (``mha_block.py:964-1005``) -- torch products for
+the projections, the attention backward B2 (``attention_bwd``) and the
+LayerNorm backward B3 (``ln_bwd``). The source note in the ``.cu`` file
 says what bounds the kernel on the H100 and how it is laid out.
 """
 
@@ -12,19 +15,23 @@ from __future__ import annotations
 import torch
 
 from vitx_torch.kernels import _build
-from vitx_torch.nn.layers import layer_norm, matmul32
+from vitx_torch.kernels._build import DTYPE_CODES
+from vitx_torch.kernels.flash_attention import attention_bwd
+from vitx_torch.kernels.layer_norm import ln_bwd
+from vitx_torch.nn.layers import dot, layer_norm, matmul32
 
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
 
 
-def mha_block_plain(x, wqkv, wo, bo, g, b, *, eps: float = 1e-5):
+def mha_block_plain(x, wqkv, wo, bo, g, b, *, eps: float = 1e-5,
+                    stash: bool = False):
     """The plain torch version of K1, rounding where the TPU kernel rounds
     (``vitx/kernels/mha_block.py:46-91``): q|k|v accumulate in fp32 and
     are cast; q is rescaled in fp32 and cast again; l sums the fp32 p while
     the PV product takes p cast to the compute dtype, and the division by l
     follows the product; bo is added to the fp32 out-projection before the
-    one cast."""
+    one cast. ``stash=True`` also returns the unscaled q, k, v
+    ((B, H, T, D) each) and o_all (B, T, E)."""
     B, T, E = x.shape
     H = wqkv.shape[2]
     D = E // H
@@ -33,14 +40,18 @@ def mha_block_plain(x, wqkv, wo, bo, g, b, *, eps: float = 1e-5):
     qkv = matmul32(h, wqkv.reshape(E, 3 * E)).to(dt)
     # column block s*E + h*D of the (E, 3E) flattening is head h of q|k|v
     qkv = qkv.reshape(B, T, 3, H, D).permute(2, 0, 3, 1, 4)
-    q = (qkv[0].float() * (1.0 / D ** 0.5)).to(dt)
-    k, v = qkv[1], qkv[2]
+    q0, k, v = qkv[0], qkv[1], qkv[2]
+    q = (q0.float() * (1.0 / D ** 0.5)).to(dt)
     s = matmul32(q, k.transpose(-1, -2))
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     l = p.sum(dim=-1, keepdim=True)
     o = (matmul32(p.to(dt), v) / l).to(dt)
     o_all = o.transpose(1, 2).reshape(B, T, E)
-    return (matmul32(o_all, wo) + bo.float()).to(dt)
+    out = (matmul32(o_all, wo) + bo.float()).to(dt)
+    if stash:
+        return (out, q0.contiguous(), k.contiguous(), v.contiguous(),
+                o_all.contiguous())
+    return out
 
 
 def _check(x, wqkv, wo, bo, g, b):
@@ -77,18 +88,12 @@ def _check(x, wqkv, wo, bo, g, b):
             raise ValueError(f"{name} must be contiguous")
 
 
-def fused_mha_block(x, wqkv, wo, bo, g, b, *, eps: float = 1e-5):
-    """LN(x) -> multi-head attention -> output projection, fused.
-
-    x: (B, T, E) compute dtype; wqkv: (E, 3, H, D) and wo: (E, E) in x's
-    dtype; bo (zeros when the projection has no bias), g, b: (E,) float32.
-    Returns (B, T, E) in x's dtype. CUDA tensors go through kernel K1 and
-    add one to ``fused_mha_block.launches``; CPU tensors take the plain
-    version.
-    """
-    _check(x, wqkv, wo, bo, g, b)
+def _forward(x, wqkv, wo, bo, g, b, eps):
+    """-> (out, q, k, v, o_all): kernel K1 on CUDA, the plain version on
+    the CPU. The stash is free on the card: q|k|v and o_all are the
+    kernel's own intermediates, returned as views."""
     if x.device.type == "cpu":
-        return mha_block_plain(x, wqkv, wo, bo, g, b, eps=eps)
+        return mha_block_plain(x, wqkv, wo, bo, g, b, eps=eps, stash=True)
     if not x.is_cuda:
         raise ValueError(f"fused_mha_block runs on cuda or cpu, "
                          f"not {x.device}")
@@ -107,7 +112,68 @@ def fused_mha_block(x, wqkv, wo, bo, g, b, *, eps: float = 1e-5):
                  torch.cuda.current_stream().cuda_stream)
     _build.check("mha_block", err)
     fused_mha_block.launches += 1
-    return out
+    return out, qkv[0], qkv[1], qkv[2], o_all
+
+
+def _backward(dout, x, wqkv, wo, g, b, q, k, v, o_all, eps):
+    """``_fused_op_bwd`` (``vitx/kernels/mha_block.py:964-1005``): every
+    product accumulates in fp32 and is cast once -- dwo and dwqkv to the
+    weights' dtype, do and dh to the activations'; dbo stays fp32."""
+    B, T, E = x.shape
+    H, D = wqkv.shape[2], wqkv.shape[3]
+    d2 = dout.reshape(B * T, E)
+    dwo = dot(o_all.reshape(B * T, E).t(), d2).to(wo.dtype)
+    dbo = dout.float().sum(dim=(0, 1))
+    do = dot(d2, wo.to(dout.dtype).t()).reshape(B, T, H, D).transpose(1, 2)
+    dq, dk, dv = attention_bwd(q, k, v, do.contiguous())
+    # the three projections side by side, as the columns of the (E, 3E)
+    # flattening of wqkv: dwqkv is one product and dh one fp32 sum of the
+    # three, cast once
+    dqkv = torch.stack((dq, dk, dv)).permute(1, 3, 0, 2, 4).reshape(
+        B * T, 3 * E)
+    h = layer_norm(x, g, b, eps=eps)
+    dwqkv = dot(h.reshape(B * T, E).t(), dqkv).to(wqkv.dtype).reshape(
+        E, 3, H, D)
+    w = wqkv.reshape(E, 3 * E).to(dqkv.dtype)
+    dh = dot(dqkv, w.t()).to(x.dtype).reshape(B, T, E)
+    dx, dg, db = ln_bwd(x, g, dh, eps=eps)
+    return dx, dwqkv, dwo, dbo, dg.to(g.dtype), db.to(b.dtype)
+
+
+class _FusedMHA(torch.autograd.Function):
+    """K1 forward with its stash; the backward of ``_backward``."""
+
+    @staticmethod
+    def forward(ctx, x, wqkv, wo, bo, g, b, eps):
+        out, q, k, v, o_all = _forward(x, wqkv, wo, bo, g, b, eps)
+        ctx.save_for_backward(x, wqkv, wo, g, b, q, k, v, o_all)
+        ctx.eps = eps
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        grads = _backward(dout.contiguous(), *ctx.saved_tensors, ctx.eps)
+        return (*grads, None)
+
+
+def fused_mha_block(x, wqkv, wo, bo, g, b, *, eps: float = 1e-5,
+                    stash: bool = False):
+    """LN(x) -> multi-head attention -> output projection, fused.
+
+    x: (B, T, E) compute dtype; wqkv: (E, 3, H, D) and wo: (E, E) in x's
+    dtype; bo (zeros when the projection has no bias), g, b: (E,) float32.
+    Returns (B, T, E) in x's dtype, differentiable in every input. With
+    ``stash=True`` returns (out, q, k, v, o_all) as vitx's
+    ``_fused_fwd(stash=True)`` does -- q, k, v (B, H, T, D) with q
+    unscaled, o_all (B, T, E) -- and records no gradient. CUDA tensors go
+    through kernel K1 and add one to ``fused_mha_block.launches``; CPU
+    tensors take the plain version.
+    """
+    _check(x, wqkv, wo, bo, g, b)
+    if stash:
+        with torch.no_grad():
+            return _forward(x, wqkv, wo, bo, g, b, eps)
+    return _FusedMHA.apply(x, wqkv, wo, bo, g, b, float(eps))
 
 
 fused_mha_block.launches = 0

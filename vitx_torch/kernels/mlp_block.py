@@ -2,9 +2,12 @@
 
 ``fused_mlp_block`` launches the Hopper kernel K2 (``csrc/mlp_block.cu``)
 on CUDA tensors and runs ``mlp_block_plain``, the same math in plain torch,
-on CPU tensors. It replaces ``vitx/kernels/mlp_block.py::_kernel`` (the
-no-stash variant of ``_fused_fwd``). The source note in the ``.cu`` file
-says what bounds the kernel on the H100 and how it is laid out.
+on CPU tensors. It replaces ``vitx/kernels/mlp_block.py::_kernel`` with and
+without its stash (``_fused_fwd``), and is differentiable: its backward is
+plain torch, as ``_fused_op_bwd`` is XLA math (``mlp_block.py:185-208``),
+apart from the LayerNorm backward, which is B3 (``ln_bwd``). The source
+note in the ``.cu`` file says what bounds the kernel on the H100 and how it
+is laid out.
 """
 
 from __future__ import annotations
@@ -12,9 +15,10 @@ from __future__ import annotations
 import torch
 
 from vitx_torch.kernels import _build
-from vitx_torch.kernels.mha_block import DTYPE_CODES
-from vitx_torch.nn.layers import (gelu_erf_poly, gelu_tanh_exp, layer_norm,
-                                  matmul32)
+from vitx_torch.kernels._build import DTYPE_CODES
+from vitx_torch.kernels.layer_norm import ln_bwd
+from vitx_torch.nn.layers import (activation, dot, gelu_erf_poly,
+                                  gelu_tanh_exp, layer_norm, matmul32)
 
 ACT_CODES = {"gelu": 0, "gelu_tanh": 1, "relu": 2}
 
@@ -31,16 +35,18 @@ def _act_kernel(x, act: str):
     raise ValueError(f"unknown activation {act!r}")
 
 
-def mlp_block_plain(x, w1, b1, w2, b2, g, b, *, act: str, eps: float = 1e-5):
+def mlp_block_plain(x, w1, b1, w2, b2, g, b, *, act: str, eps: float = 1e-5,
+                    stash: bool = False):
     """The plain torch version of K2, rounding where the TPU kernel rounds
     (``vitx/kernels/mlp_block.py:67-84``): hp = h @ W1 + b1 in fp32, cast;
     the activation in fp32 on the cast hp, cast; @ W2 + b2 in fp32, one
-    cast."""
+    cast. ``stash=True`` also returns hp (B, T, M)."""
     dt = x.dtype
     h = layer_norm(x, g, b, eps=eps)
     hp = (matmul32(h, w1) + b1.float()).to(dt)
     ha = _act_kernel(hp, act)
-    return (matmul32(ha, w2) + b2.float()).to(dt)
+    out = (matmul32(ha, w2) + b2.float()).to(dt)
+    return (out, hp) if stash else out
 
 
 def _check(x, w1, b1, w2, b2, g, b, act):
@@ -76,19 +82,12 @@ def _check(x, w1, b1, w2, b2, g, b, act):
             raise ValueError(f"{name} must be contiguous")
 
 
-def fused_mlp_block(x, w1, b1, w2, b2, g, b, *, act: str = "gelu",
-                    eps: float = 1e-5):
-    """LN(x) -> Linear -> activation -> Linear, fused; the residual add
-    happens outside.
-
-    x: (B, T, E) compute dtype; w1 (E, M), w2 (M, E) in x's dtype; b1 (M,),
-    b2, g, b (E,) float32. Returns (B, T, E) in x's dtype. CUDA tensors go
-    through kernel K2 and add one to ``fused_mlp_block.launches``; CPU
-    tensors take the plain version.
-    """
-    _check(x, w1, b1, w2, b2, g, b, act)
+def _forward(x, w1, b1, w2, b2, g, b, act, eps, stash):
+    """-> out, or (out, hp) with the stash: kernel K2 on CUDA, the plain
+    version on the CPU."""
     if x.device.type == "cpu":
-        return mlp_block_plain(x, w1, b1, w2, b2, g, b, act=act, eps=eps)
+        return mlp_block_plain(x, w1, b1, w2, b2, g, b, act=act, eps=eps,
+                               stash=stash)
     if not x.is_cuda:
         raise ValueError(f"fused_mlp_block runs on cuda or cpu, "
                          f"not {x.device}")
@@ -97,16 +96,81 @@ def fused_mlp_block(x, w1, b1, w2, b2, g, b, *, act: str = "gelu",
     fn = _build.entry("mlp_block")
     out = torch.empty_like(x)
     ha = torch.empty((B, T, M), dtype=x.dtype, device=x.device)
+    hp = torch.empty_like(ha) if stash else None
     stats = torch.empty((2, B * T), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         err = fn(DTYPE_CODES[x.dtype], x.data_ptr(), w1.data_ptr(),
                  b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), g.data_ptr(),
                  b.data_ptr(), out.data_ptr(), ha.data_ptr(),
-                 stats.data_ptr(), B * T, E, M, ACT_CODES[act], float(eps),
+                 hp.data_ptr() if stash else None, stats.data_ptr(), B * T,
+                 E, M, ACT_CODES[act], float(eps),
                  torch.cuda.current_stream().cuda_stream)
     _build.check("mlp_block", err)
     fused_mlp_block.launches += 1
-    return out
+    return (out, hp) if stash else out
+
+
+def _backward(dout, x, w1, w2, g, b, hp, act, eps):
+    """``_fused_op_bwd`` (``vitx/kernels/mlp_block.py:185-208``): the
+    activation is differentiated in its true form (``activation``), not
+    the kernel's polynomial; every product accumulates in fp32 and is cast
+    once; db1 and db2 stay fp32."""
+    B, T, E = x.shape
+    M = hp.shape[-1]
+    with torch.enable_grad():
+        hp_ = hp.detach().requires_grad_()
+        ha = activation(hp_, act)
+    d2 = dout.reshape(B * T, E)
+    dw2 = dot(ha.detach().reshape(B * T, M).t(), d2).to(w2.dtype)
+    db2 = dout.float().sum(dim=(0, 1))
+    dha = dot(d2, w2.to(dout.dtype).t()).to(hp.dtype).reshape(B, T, M)
+    (dhp,) = torch.autograd.grad(ha, hp_, dha)
+    h = layer_norm(x, g, b, eps=eps)
+    dhp2 = dhp.reshape(B * T, M)
+    dw1 = dot(h.reshape(B * T, E).t(), dhp2).to(w1.dtype)
+    db1 = dhp.float().sum(dim=(0, 1))
+    dh = dot(dhp2, w1.to(dhp.dtype).t()).to(x.dtype).reshape(B, T, E)
+    dx, dg, db = ln_bwd(x, g, dh, eps=eps)
+    return dx, dw1, db1, dw2, db2, dg.to(g.dtype), db.to(b.dtype)
+
+
+class _FusedMLP(torch.autograd.Function):
+    """K2 forward with its stash; the backward of ``_backward``."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, g, b, act, eps):
+        out, hp = _forward(x, w1, b1, w2, b2, g, b, act, eps, stash=True)
+        ctx.save_for_backward(x, w1, w2, g, b, hp)
+        ctx.act, ctx.eps = act, eps
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        grads = _backward(dout.contiguous(), *ctx.saved_tensors, ctx.act,
+                          ctx.eps)
+        return (*grads, None, None)
+
+
+def fused_mlp_block(x, w1, b1, w2, b2, g, b, *, act: str = "gelu",
+                    eps: float = 1e-5, stash: bool = False):
+    """LN(x) -> Linear -> activation -> Linear, fused; the residual add
+    happens outside.
+
+    x: (B, T, E) compute dtype; w1 (E, M), w2 (M, E) in x's dtype; b1 (M,),
+    b2, g, b (E,) float32. Returns (B, T, E) in x's dtype, differentiable
+    in every input. With ``stash=True`` returns (out, hp), hp the cast
+    pre-activation (B, T, M) as vitx's ``_fused_fwd(stash=True)`` does, and
+    records no gradient. CUDA tensors go through kernel K2 and add one to
+    ``fused_mlp_block.launches``; CPU tensors take the plain version.
+    """
+    _check(x, w1, b1, w2, b2, g, b, act)
+    if stash:
+        with torch.no_grad():
+            return _forward(x, w1, b1, w2, b2, g, b, act, eps, stash=True)
+    if not torch.is_grad_enabled() or not any(
+            t.requires_grad for t in (x, w1, b1, w2, b2, g, b)):
+        return _forward(x, w1, b1, w2, b2, g, b, act, eps, stash=False)
+    return _FusedMLP.apply(x, w1, b1, w2, b2, g, b, act, float(eps))
 
 
 fused_mlp_block.launches = 0

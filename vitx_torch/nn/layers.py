@@ -1,9 +1,13 @@
-"""Small functional building blocks: LayerNorm, activations, the MLP.
+"""Small functional building blocks: LayerNorm, activations, the MLP,
+dropout.
 
-The torch counterparts of ``vitx/nn/layers.py`` (forward only). LayerNorm
-statistics are taken in fp32 whatever the compute dtype, and every matrix
-product accumulates in fp32 (operands upcast, then one cast back), which is
-what ``preferred_element_type=float32`` gives in the JAX package.
+The torch counterparts of ``vitx/nn/layers.py``. LayerNorm statistics are
+taken in fp32 whatever the compute dtype, and every matrix product
+accumulates in fp32 (operands upcast, then one cast back), which is what
+``preferred_element_type=float32`` gives in the JAX package. The LayerNorm
+forward is plain torch and its backward the kernel B3 (``ln_bwd``), as
+vitx keeps the forward in XLA and routes the backward through its Pallas
+pass (``vitx/nn/layers.py:55-111``).
 """
 
 from __future__ import annotations
@@ -13,9 +17,7 @@ import math
 import torch
 
 
-def layer_norm(x, scale, bias, *, eps: float = 1e-5):
-    """LayerNorm over the last axis with fp32 two-pass stats; returns
-    ``x.dtype`` (``vitx/nn/layers.py:16-23``)."""
+def _ln_forward(x, scale, bias, eps):
     x32 = x.float()
     mean = x32.mean(dim=-1, keepdim=True)
     var = (x32 - mean).square().mean(dim=-1, keepdim=True)
@@ -24,10 +26,55 @@ def layer_norm(x, scale, bias, *, eps: float = 1e-5):
     return y.to(x.dtype)
 
 
+def _ln_backward(x, scale, dy, eps):
+    """(dx, dscale, dbias) through B3, the scale's grads in its dtype."""
+    # imported here: vitx_torch.kernels imports this module
+    from vitx_torch.kernels.layer_norm import ln_bwd
+
+    dx, dscale, dbias = ln_bwd(x, scale, dy.contiguous(), eps=eps)
+    return dx, dscale.to(scale.dtype), dbias.to(scale.dtype)
+
+
+class _LayerNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return _ln_forward(x, scale, bias, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        return (*_ln_backward(x, scale, dy, ctx.eps), None)
+
+
+class _AddLayerNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, r, scale, bias, eps):
+        s = x + r
+        ctx.save_for_backward(s, scale)
+        ctx.eps = eps
+        return s, _ln_forward(s, scale, bias, eps)
+
+    @staticmethod
+    def backward(ctx, g_sum, g_y):
+        s, scale = ctx.saved_tensors
+        dx, dscale, dbias = _ln_backward(s, scale, g_y, ctx.eps)
+        dx = dx + g_sum
+        return dx, dx, dscale, dbias, None
+
+
+def layer_norm(x, scale, bias, *, eps: float = 1e-5):
+    """LayerNorm over the last axis with fp32 two-pass stats; returns
+    ``x.dtype`` (``vitx/nn/layers.py:16-23``). Differentiable: the
+    backward is B3."""
+    return _LayerNorm.apply(x, scale, bias, float(eps))
+
+
 def add_layer_norm(x, r, scale, bias, *, eps: float = 1e-5):
-    """-> (x + r, LN(x + r)): the pre-LN residual pattern."""
-    s = x + r
-    return s, layer_norm(s, scale, bias, eps=eps)
+    """-> (x + r, LN(x + r)): the pre-LN residual pattern. Its backward
+    returns dx + g_sum for both x and r (``vitx/nn/layers.py:96-101``)."""
+    return _AddLayerNorm.apply(x, r, scale, bias, float(eps))
 
 
 def activation(x, name: str):
@@ -92,3 +139,32 @@ def gelu_tanh_exp(x):
     u = math.sqrt(2.0 / math.pi) * (x + 0.044715 * x * x * x)
     t = 1.0 - 2.0 / (torch.exp(2.0 * u) + 1.0)
     return 0.5 * x * (1.0 + t)
+
+
+def dropout(x, rate: float, rng, *, deterministic: bool):
+    """Inverted dropout (``vitx/nn/layers.py:160-166``): keep each element
+    with probability 1 - rate and scale it by 1/keep. Identity when
+    deterministic or rate == 0. ``rng`` is a ``torch.Generator`` on x's
+    device; vitx's and torch's generators draw different masks."""
+    if deterministic or rate == 0.0:
+        return x
+    if rng is None:
+        raise ValueError("dropout needs a torch.Generator when not "
+                         "deterministic")
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=rng, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def drop_path(x, rate: float, rng, *, deterministic: bool):
+    """Stochastic depth (``vitx/nn/layers.py:169-180``): drop a sample's
+    whole residual branch with probability ``rate``, scale the kept ones by
+    1/keep (keep rounded to x's dtype). Identity when deterministic or
+    without a generator."""
+    if deterministic or rng is None:
+        return x
+    keep = 1.0 - rate
+    shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+    mask = torch.rand(shape, generator=rng, device=x.device) < keep
+    kept = x / torch.tensor(keep, dtype=x.dtype, device=x.device)
+    return torch.where(mask, kept, torch.zeros_like(x))

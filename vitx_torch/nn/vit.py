@@ -1,12 +1,15 @@
 """The Vision Transformer forward in PyTorch.
 
-The counterpart of ``vitx/nn/vit.py`` for inference. Parameters are the
-same nested dict as vitx's (``init_params``): block leaves stacked on a
-leading depth axis, ``wqkv`` as (E, 3, H, D), ``wo`` (E, E), fp32. Images
-are NHWC. The blocks run as a Python loop; on a CUDA device each block's
-attention half is kernel K1 and its MLP half kernel K2
-(``vitx_torch/kernels``). Everything else -- patch embedding, residual
-adds, the head -- is plain torch, as it is XLA in vitx.
+The counterpart of ``vitx/nn/vit.py``. Parameters are the same nested dict
+as vitx's (``init_params``): block leaves stacked on a leading depth axis,
+``wqkv`` as (E, 3, H, D), ``wo`` (E, E), fp32. Images are NHWC. The blocks
+run as a Python loop; on a CUDA device each block's attention half is
+kernel K1 and its MLP half kernel K2 (``vitx_torch/kernels``). Everything
+else -- patch embedding, residual adds, the head -- is plain torch, as it
+is XLA in vitx. ``model_logits`` is the differentiable forward the train
+step runs (dropout and drop-path from an explicit ``torch.Generator``);
+``forward`` is inference, under ``torch.inference_mode``. vitx's ``remat``
+is accepted and ignored: autograd keeps the activations.
 """
 
 from __future__ import annotations
@@ -20,7 +23,8 @@ from vitx_torch.kernels.mha_block import fused_mha_block
 from vitx_torch.kernels.mlp_block import fused_mlp_block
 from vitx_torch.nn.attention import multi_head_attention
 from vitx_torch.nn.layers import (activation, add_layer_norm, dot,
-                                  layer_norm, matmul32, mlp)
+                                  drop_path, dropout, layer_norm, matmul32,
+                                  mlp)
 
 Params = dict
 
@@ -209,10 +213,12 @@ def _use_fused_mlp(cfg: ViTConfig, x) -> bool:
     return cfg.attn_impl in ("auto", "flash") and x.is_cuda
 
 
-def _encoder_block(x, pending, bp, cfg: ViTConfig):
+def _encoder_block(x, pending, bp, cfg: ViTConfig, *, rng=None,
+                   deterministic: bool = True, dp_rate: float = 0.0):
     """Pre-LN block: x + MHA(LN1(x)); x + MLP(LN2(x)). The previous block's
     MLP output arrives as ``pending`` and the block returns its own as the
-    new pending (``vitx/nn/vit.py:319-436``)."""
+    new pending (``vitx/nn/vit.py:319-436``). Dropout, then drop-path at
+    this block's ``dp_rate``, on both branches when training."""
     dt = x.dtype
     if _use_fused_mha(cfg, bp, x):
         x = x + pending
@@ -237,6 +243,11 @@ def _encoder_block(x, pending, bp, cfg: ViTConfig):
             qk_eps=cfg.layer_norm_eps)
     if "ls1" in bp:
         attn_out = attn_out * bp["ls1"].to(dt)
+    attn_out = dropout(attn_out, cfg.dropout, rng,
+                       deterministic=deterministic)
+    if cfg.drop_path:
+        attn_out = drop_path(attn_out, dp_rate, rng,
+                             deterministic=deterministic)
 
     if _use_fused_mlp(cfg, x):
         x = x + attn_out
@@ -251,25 +262,46 @@ def _encoder_block(x, pending, bp, cfg: ViTConfig):
                       act=cfg.mlp_act, w3=bp.get("w3"), b3=bp.get("b3"))
     if "ls2" in bp:
         mlp_out = mlp_out * bp["ls2"].to(dt)
+    mlp_out = dropout(mlp_out, cfg.dropout, rng, deterministic=deterministic)
+    if cfg.drop_path:
+        mlp_out = drop_path(mlp_out, dp_rate, rng,
+                            deterministic=deterministic)
     return x, mlp_out
 
 
-def run_blocks(blocks: Params, x, cfg: ViTConfig):
+def run_blocks(blocks: Params, x, cfg: ViTConfig, *, rng=None,
+               deterministic: bool = True):
     """Run the stacked blocks over tokens x (B, T, E): a Python loop in
     place of vitx's ``lax.scan``; returns x + pending
-    (``vitx/nn/vit.py:513-515``)."""
+    (``vitx/nn/vit.py:513-515``). Drop-path rates rise linearly from 0 at
+    the first block to ``cfg.drop_path`` at the last (vit.py:464-468).
+    Each stacked leaf is unbound once, so its gradient is one stack."""
+    layers = {k: v.unbind(0) for k, v in blocks.items()}
+    rates = torch.linspace(0.0, cfg.drop_path, cfg.depth).tolist()
     pending = torch.zeros_like(x)
     for layer in range(cfg.depth):
-        bp = {k: v[layer] for k, v in blocks.items()}
-        x, pending = _encoder_block(x, pending, bp, cfg)
+        bp = {k: v[layer] for k, v in layers.items()}
+        x, pending = _encoder_block(x, pending, bp, cfg, rng=rng,
+                                    deterministic=deterministic,
+                                    dp_rate=rates[layer])
     return x + pending
 
 
-def encode(params: Params, images, cfg: ViTConfig):
-    """Images -> encoder output tokens (B, T, E)."""
+def encode(params: Params, images, cfg: ViTConfig, *, rng=None,
+           deterministic: bool = True):
+    """Images -> encoder output tokens (B, T, E). With a generator, dropout
+    on the embedded tokens and in every block (``vitx/nn/vit.py:699-722``).
+    """
     check_ported(cfg)
     x = embed_tokens(params, images, cfg)
-    x = run_blocks(params["blocks"], x, cfg)
+    if rng is not None:
+        if cfg.patch_drop and not deterministic:
+            raise NotImplementedError(
+                "patch dropout (patch_drop) is not ported to vitx_torch yet "
+                "(ROADMAP A12)")
+        x = dropout(x, cfg.dropout, rng, deterministic=deterministic)
+    x = run_blocks(params["blocks"], x, cfg, rng=rng,
+                   deterministic=deterministic)
     if cfg.final_norm:
         fn = params["final_norm"]
         x = layer_norm(x, fn["scale"], fn["bias"], eps=cfg.layer_norm_eps)
@@ -300,12 +332,23 @@ def classify(params: Params, x, cfg: ViTConfig):
     return logits.float()
 
 
+def model_logits(params: Params, images, cfg: ViTConfig, *, rng=None,
+                 deterministic: bool = True):
+    """Images (B, H, W, C) -> fp32 logits on the tensors' own device,
+    differentiable: the forward of vitx's ``loss_fn``
+    (``vitx/nn/vit.py:834-856``). ``rng`` (a ``torch.Generator`` on that
+    device) drives dropout and drop-path when ``deterministic`` is False."""
+    x = encode(params, images, cfg, rng=rng, deterministic=deterministic)
+    return classify(params, x, cfg)
+
+
 def forward(params: Params, images, cfg: ViTConfig, *, device="cuda"):
     """Full model: images (B, H, W, C) -> logits (B, classes), fp32.
 
     ``images`` may be a numpy array or a tensor; it and the parameters are
     moved to ``device`` (a CUDA device by default; raises when there is
-    none). Inference only: dropout and drop-path are identities.
+    none). Inference only, under ``torch.inference_mode``: dropout and
+    drop-path are identities.
     """
     dev = resolve_device(device)
     params = params_to(params, dev)
@@ -313,4 +356,4 @@ def forward(params: Params, images, cfg: ViTConfig, *, device="cuda"):
         images = torch.from_numpy(images)
     images = images.to(dev)
     with torch.inference_mode():
-        return classify(params, encode(params, images, cfg), cfg)
+        return model_logits(params, images, cfg)

@@ -1,0 +1,25 @@
+"""Training of the port: the counterpart of ``vitx.train``."""
+
+from vitx_torch.train.step import (
+    TrainState,
+    create_train_state,
+    cross_entropy_loss,
+    eval_step,
+    make_eval_step,
+    make_optimizer,
+    make_train_step,
+    train_step,
+    warmup_cosine,
+)
+
+__all__ = [
+    "TrainState",
+    "create_train_state",
+    "cross_entropy_loss",
+    "eval_step",
+    "make_eval_step",
+    "make_optimizer",
+    "make_train_step",
+    "train_step",
+    "warmup_cosine",
+]
