@@ -14,14 +14,21 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
 3. kernels -- K1 (fused MHA block) and K2 (fused MLP block) at ViT-B/16
               shapes, batch 8 and 32, against their plain torch versions
               on the same card: float32 within 1e-4 relative, bfloat16 within
-              BF16_TOL (see below), all three activations.
+              BF16_TOL (see below), all three activations. B5 (attention
+              forward) in its three modes at (2, 16, 577, 64), (2, 12, 197,
+              64) and (1, 16, 1100, 64); B7 (block with head-mean probs),
+              K1 and K2 (gelu_tanh) at large16_384 block shapes, batch 2
+              and 8; float32 and bfloat16; B5's head mean and B7 twice,
+              bit for bit; probability rows summing to 1 within 1e-5.
 4. grad    -- the training kernels at ViT-B/16 shapes (T 197) against
               their plain versions: batch 8 in float32 (1e-4) and bfloat16,
               and the train main path's batch 128 in bfloat16: B2
               (attention backward), B3 (LayerNorm backward at E 768 and the
               head's 3072), the K1 and K2 stashes, and torch.autograd.grad
               through both fused blocks on the card against the same on the
-              CPU (plain versions); B12 (AdamW) on a base16 leaf.
+              CPU (plain versions); B12 (AdamW) on a base16 leaf. B2 and B3
+              also at Grad-CAM's large16_384 shapes (T 577, E 1024 and the
+              head's 4096), batch 1 and 8, float32 and bfloat16.
 5. forward -- the base16 forward (depth 12, bf16) at batch 8 on the card
               against the port's plain forward on the CPU with the same
               weights (relative error < 0.05 on the logits); exactly 12 K1
@@ -39,11 +46,33 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               repeated batch; the loss must be finite and fall, the
               launches per step must be K1 12, B2 12, B3 25, K2 0 and B12
               0 or one per leaf; one eval_step.
-8. times   -- CUDA-event medians: the base16 forward at batch 256 bf16
-              (img/s) and the train step at batch 128 bf16 (img/s), each
-              with a torch.profiler split; for each kernel its time, its
-              bound, its plain version's time and one PyTorch library call
-              of the same function, at the shapes of those two paths.
+8. explain -- main path 3, large16_384 (ViT-L/16 at 384², T 577) at full
+              width and depth, bf16, random weights from seed 0: (a)
+              forward_with_rollout at batch 8 on the kernels against the
+              same call with attn_impl="reference", fuse_mha="off",
+              fuse_mlp="off" (no kernel) on the card: logits and rollout
+              weights within 0.05, launches B7 24, K2 24, K1 0, B5 0;
+              grad_cam at batch 8 against the same route (heatmap and
+              logits within GRADCAM_TOL; that route's only launches are
+              B3's LayerNorm backwards); (b) forward_with_attn(
+              probs_mode="full") at batch 2: B5 24, K2 24, logits and
+              probs against the same reference route (no launches);
+              (c) a depth-2 float32 copy, card against CPU (1e-4):
+              rollout, Grad-CAM, and with fuse_mha="off" the forward (B5
+              without probs) and forward_with_attn("mean") (B5 head
+              mean); (d) an InferenceServer with its HTTP front end
+              answering 16 /explain requests (rollout and gradcam, with
+              and without class) from 4 threads, then 3 of each method
+              one at a time (service time alone), each equal to a direct
+              call, with the launches Grad-CAM's routing gives.
+9. times   -- CUDA-event medians: the base16 forward at batch 256 bf16
+              (img/s), the train step at batch 128 bf16 (img/s), the
+              large16_384 rollout forward at batch 32 bf16 (img/s) and
+              forward_with_attn("full") at batch 2, each with a
+              torch.profiler split; for each kernel its time, its bound,
+              its plain version's time and one PyTorch library call of the
+              same function where there is one, at the shapes of those
+              paths.
 
 Each main path runs with the kernels' launch counts set to 0 just before
 it and read just after. The last lines are one JSON object listing the
@@ -74,11 +103,21 @@ BF16_TOL = 2e-2
 # (do, dq|dk|dv, dh, dx and the weights' grads) compound those flips
 GRAD_BF16_TOL = 5e-2
 FP32_TOL = 1e-4
+# B5's probabilities in bf16: kernel and plain read the same bf16 q and k
+# and differ only in the fp32 order of the logits' sums
+PROBS_BF16_TOL = 1e-3
+# the explain path on the kernels against the kernel-free route on the
+# card, bf16: the repo's bf16 parity bar (tests/test_parity_torch.py:80)
+EXPLAIN_TOL = 0.05
+# the bf16 Grad-CAM heatmap against the reference route: a gradient through
+# the last block (GRAD_BF16_TOL's chain of casts) times the tokens entering
+# it, summed over the channels
+GRADCAM_TOL = GRAD_BF16_TOL
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 (data sheet)
 PEAK_FP32_FLOPS = 67e12       # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
 PHASES = ("device", "build", "kernels", "grad", "forward", "serve", "train",
-          "times")
+          "explain", "times")
 
 KERNELS = {
     "fused_mha_block": {
@@ -106,7 +145,33 @@ KERNELS = {
         "replaces": "vitx/kernels/adamw.py:56",
         "tpu_kernel": "vitx/kernels/adamw.py::_kernel",
     },
+    "flash_attention": {
+        "source": "vitx_torch/kernels/csrc/flash_attention_fwd.cu",
+        "replaces": "vitx/kernels/flash_attention.py:132",
+        "tpu_kernel": "vitx/kernels/flash_attention.py::_fwd_kernel "
+                      "(no probs)",
+    },
+    "flash_attention_with_probs": {
+        "source": "vitx_torch/kernels/csrc/flash_attention_fwd.cu",
+        "replaces": "vitx/kernels/flash_attention.py:132",
+        "tpu_kernel": "vitx/kernels/flash_attention.py::_fwd_kernel "
+                      "(full probs)",
+    },
+    "flash_attention_with_mean_probs": {
+        "source": "vitx_torch/kernels/csrc/flash_attention_fwd.cu",
+        "replaces": "vitx/kernels/flash_attention.py:132",
+        "tpu_kernel": "vitx/kernels/flash_attention.py::_fwd_kernel "
+                      "(head-mean probs)",
+    },
+    "fused_mha_block_with_mean_probs": {
+        "source": "vitx_torch/kernels/csrc/mha_block.cu",
+        "replaces": "vitx/kernels/mha_block.py:174",
+        "tpu_kernel": "vitx/kernels/mha_block.py::_kernel_hchunk "
+                      "(mean probs)",
+    },
 }
+NO_LIBRARY = ("no single PyTorch call returns attention probabilities "
+              "(scaled_dot_product_attention returns only the output)")
 
 
 def emit(obj) -> None:
@@ -189,6 +254,93 @@ def phase_kernels(errs: dict):
         for dtype, tol in ((torch.float32, FP32_TOL),
                            (torch.bfloat16, BF16_TOL)):
             check_block(B, T, E, H, dtype, tol, errs)
+    # B5 at the rollout's heads, base16's, and past T = 1024
+    for shape in ((2, 16, 577, 64), (2, 12, 197, 64), (1, 16, 1100, 64)):
+        for dtype in (torch.float32, torch.bfloat16):
+            check_flash(shape, dtype, errs)
+    # B7 and K1 at large16_384 block shapes
+    for B in (2, 8):
+        for dtype, tol in ((torch.float32, FP32_TOL),
+                           (torch.bfloat16, BF16_TOL)):
+            check_mean_probs_block(B, 577, 1024, 16, dtype, tol, errs)
+
+
+def check_rows(what: str, probs, **info) -> None:
+    """Each row of a probability tensor sums to 1 within 1e-5."""
+    dev = float((probs.double().sum(-1) - 1.0).abs().max())
+    emit({"phase": "kernels", "check": f"{what} row sums", "max_dev": dev,
+          "tol": 1e-5, **info})
+    if dev > 1e-5:
+        raise AssertionError(f"{what} {info}: rows sum to 1 +- {dev}")
+
+
+def check_flash(shape, dtype, errs: dict) -> None:
+    """B5 in each mode against ``flash_attention_fwd_plain``; the head
+    mean twice, bit for bit."""
+    from vitx_torch.kernels import (flash_attention,
+                                    flash_attention_fwd_plain,
+                                    flash_attention_with_mean_probs,
+                                    flash_attention_with_probs)
+
+    bf = dtype == torch.bfloat16
+    q, k, v = (seeded(shape, s, 1.5, dtype=dtype) for s in (31, 32, 33))
+    info = {"shape": list(shape), "dtype": str(dtype)}
+    tol, ptol = (BF16_TOL, PROBS_BF16_TOL) if bf else (FP32_TOL, FP32_TOL)
+    main = bf and shape[1] == 16 and shape[2] == 577
+    for name, fn, mode in (
+            ("flash_attention", flash_attention, None),
+            ("flash_attention_with_probs", flash_attention_with_probs,
+             "full"),
+            ("flash_attention_with_mean_probs",
+             flash_attention_with_mean_probs, "mean")):
+        out = fn(q, k, v)
+        torch.cuda.synchronize()
+        ref = flash_attention_fwd_plain(q, k, v, mode)
+        if mode is None:
+            check("kernels", name, out, ref, tol, errs if main else None,
+                  name, **info)
+            continue
+        check("kernels", f"{name} o", out[0], ref[0], tol,
+              errs if main else None, name, **info)
+        check("kernels", f"{name} probs", out[1], ref[1], ptol,
+              errs if main else None, name, **info)
+        check_rows(name, out[1], **info)
+        if mode == "mean" and not torch.equal(fn(q, k, v)[1], out[1]):
+            raise AssertionError(f"{name} {info}: two calls differ")
+        del out, ref
+
+
+def check_mean_probs_block(B, T, E, H, dtype, tol, errs: dict) -> None:
+    """B7 against ``mha_block_mean_probs_plain``, K1 against
+    ``mha_block_plain`` and K2 (gelu_tanh, width 4E) against
+    ``mlp_block_plain`` at (B, T, E); B7 twice, bit for bit."""
+    from vitx_torch.kernels import (fused_mha_block,
+                                    fused_mha_block_with_mean_probs,
+                                    fused_mlp_block,
+                                    mha_block_mean_probs_plain,
+                                    mha_block_plain, mlp_block_plain)
+
+    x, mha, mlp = block_inputs(B, T, E, H, 4 * E, dtype, 40 + B, "cuda")
+    info = {"batch": B, "shape": [B, T, E], "dtype": str(dtype)}
+    bf = dtype == torch.bfloat16
+    out = fused_mha_block_with_mean_probs(x, **mha)
+    torch.cuda.synchronize()
+    check("kernels", "fused_mha_block_with_mean_probs (out, probs)", out,
+          mha_block_mean_probs_plain(x, **mha), tol, errs if bf else None,
+          "fused_mha_block_with_mean_probs", **info)
+    check_rows("fused_mha_block_with_mean_probs", out[1], **info)
+    again = fused_mha_block_with_mean_probs(x, **mha)
+    if not (torch.equal(again[1], out[1]) and torch.equal(again[0], out[0])):
+        raise AssertionError(f"B7 {info}: two calls differ")
+    k1 = fused_mha_block(x, **mha)
+    torch.cuda.synchronize()
+    check("kernels", "fused_mha_block", k1, mha_block_plain(x, **mha), tol,
+          errs if bf else None, "fused_mha_block", **info)
+    k2 = fused_mlp_block(x, **mlp, act="gelu_tanh")
+    torch.cuda.synchronize()
+    check("kernels", "fused_mlp_block", k2,
+          mlp_block_plain(x, **mlp, act="gelu_tanh"), tol,
+          errs if bf else None, "fused_mlp_block", act="gelu_tanh", **info)
 
 
 def check_block(B, T, E, H, dtype, tol, errs: dict):
@@ -225,11 +377,15 @@ def counts():
     return {name: fn.launches for name, fn in wrappers().items()}
 
 
+def launches_of(**per: int) -> dict:
+    """A launch count for every kernel: ``per``'s, else 0."""
+    return {name: per.get(name, 0) for name in KERNELS}
+
+
 def forward_launches(cfg, forwards: int) -> dict:
     """Inference launches: one K1 and one K2 per block, nothing else."""
-    return {name: (cfg.depth * forwards if name in ("fused_mha_block",
-                                                    "fused_mlp_block")
-                   else 0) for name in KERNELS}
+    return launches_of(fused_mha_block=cfg.depth * forwards,
+                       fused_mlp_block=cfg.depth * forwards)
 
 
 def check(phase: str, what: str, out, ref, tol: float,
@@ -260,13 +416,11 @@ def seeded(shape, seed, scale=1.0, shift=0.0, dtype=torch.float32,
     return torch.from_numpy(shift + scale * a).to(device=device, dtype=dtype)
 
 
-def check_training_kernels(B, T, E, H, dtype, tol, gtol, errs: dict):
-    """B2, B3 (E and the head's 4E), the K1 and K2 stashes and autograd
-    through both blocks (card against CPU) at (B, T, E) in ``dtype``."""
+def check_backward_kernels(B, T, E, H, dtype, tol, errs: dict):
+    """B2 at (B, H, T, E / H) and B3 at (B, T, E) and the head's (B, 4E)
+    against their plain versions in ``dtype``."""
     from vitx_torch.kernels import (attention_bwd, attention_bwd_plain,
-                                    fused_mha_block, fused_mlp_block,
-                                    ln_bwd, ln_bwd_plain, mha_block_plain,
-                                    mlp_block_plain)
+                                    ln_bwd, ln_bwd_plain)
 
     D = E // H
     bf = dtype == torch.bfloat16
@@ -276,7 +430,8 @@ def check_training_kernels(B, T, E, H, dtype, tol, gtol, errs: dict):
     out = attention_bwd(q, k, v, do)
     torch.cuda.synchronize()
     check("grad", "attention_bwd", out, attention_bwd_plain(q, k, v, do),
-          tol, errs if bf else None, "attention_bwd", **info)
+          tol, errs if bf else None, "attention_bwd", shape=[B, H, T, D],
+          **info)
     del q, k, v, do, out
     for shape in ((B, T, E), (B, 4 * E)):
         x = seeded(shape, 5, 2.0, 0.5, dtype=dtype)
@@ -286,6 +441,16 @@ def check_training_kernels(B, T, E, H, dtype, tol, gtol, errs: dict):
         torch.cuda.synchronize()
         check("grad", "ln_bwd", out, ln_bwd_plain(x, sc, dy), tol,
               errs if bf else None, "ln_bwd", shape=list(shape), **info)
+
+
+def check_training_kernels(B, T, E, H, dtype, tol, gtol, errs: dict):
+    """``check_backward_kernels``, the K1 and K2 stashes and autograd
+    through both blocks (card against CPU) at (B, T, E) in ``dtype``."""
+    from vitx_torch.kernels import (fused_mha_block, fused_mlp_block,
+                                    mha_block_plain, mlp_block_plain)
+
+    info = {"dtype": str(dtype), "batch": B}
+    check_backward_kernels(B, T, E, H, dtype, tol, errs)
     x, mha, mlp = block_inputs(B, T, E, H, 4 * E, dtype, 8, "cuda")
     out = fused_mha_block(x, **mha, stash=True)
     torch.cuda.synchronize()
@@ -325,6 +490,11 @@ def phase_grad(errs: dict):
                                 (128, torch.bfloat16, BF16_TOL,
                                  GRAD_BF16_TOL)):
         check_training_kernels(B, 197, E, 12, dtype, tol, gtol, errs)
+    # B2 and B3 at Grad-CAM's large16_384 shapes: batch 1 (served) and 8
+    for B in (1, 8):
+        for dtype, tol in ((torch.float32, FP32_TOL),
+                           (torch.bfloat16, BF16_TOL)):
+            check_backward_kernels(B, 577, 1024, 16, dtype, tol, errs)
     # B12 on a base16 leaf (the stacked block W1), float32 and bf16 grads
     shape = (12, E, 4 * E)
     for gdt in (torch.float32, torch.bfloat16):
@@ -428,11 +598,10 @@ def expected_train_launches(cfg, n_leaves: int, steps: int,
     LayerNorm and the final norm; K2 off under grad (fuse_mlp "auto"); B12
     once per leaf in the fused steps."""
     b3 = 2 * cfg.depth + (cfg.head_type == "reference") + int(cfg.final_norm)
-    return {"fused_mha_block": cfg.depth * steps,
-            "fused_mlp_block": 0,
-            "attention_bwd": cfg.depth * steps,
-            "ln_bwd": b3 * steps,
-            "fused_adamw_": n_leaves * fused_steps}
+    return launches_of(fused_mha_block=cfg.depth * steps,
+                       attention_bwd=cfg.depth * steps,
+                       ln_bwd=b3 * steps,
+                       fused_adamw_=n_leaves * fused_steps)
 
 
 def param_gap(gc, gh, pc, ph, lr: float, eps: float) -> dict:
@@ -537,6 +706,299 @@ def phase_train(ds) -> tuple:
         raise AssertionError(f"eval_step: {int(cm.sum())} rows counted, "
                              f"loss {float(eval_loss)}")
     return launches, state, batch, step
+
+
+def card_rel_err(a, b) -> float:
+    """max |a - b| / max |b|, computed on the card (for large tensors)."""
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-12))
+
+
+def delta(before: dict) -> dict:
+    """The launches since the ``counts()`` snapshot ``before``."""
+    now = counts()
+    return {k: now[k] - before[k] for k in KERNELS}
+
+
+def expect_launches(what: str, got: dict, expect: dict) -> None:
+    if got != expect:
+        raise AssertionError(f"{what}: launches {got}, expected {expect}")
+
+
+def rollout_launches(cfg, calls: int = 1) -> dict:
+    """forward_with_rollout on the fused path: B7 and K2 in every block."""
+    return launches_of(fused_mha_block_with_mean_probs=cfg.depth * calls,
+                       fused_mlp_block=cfg.depth * calls)
+
+
+def gradcam_launches(cfg, calls: int = 1) -> dict:
+    """grad_cam: K1 and K2 in every block; the last block's backward runs
+    B2 once and B3 for LN1 (inside K1's backward) and LN2 (inside K2's),
+    and B3 again for the reference head's LayerNorm and the final norm."""
+    b3 = 2 + (cfg.head_type == "reference") + int(cfg.final_norm)
+    return launches_of(fused_mha_block=cfg.depth * calls,
+                       fused_mlp_block=cfg.depth * calls,
+                       attention_bwd=calls, ln_bwd=b3 * calls)
+
+
+def add_launches(*dicts) -> dict:
+    return {k: sum(d.get(k, 0) for d in dicts) for k in KERNELS}
+
+
+def explain_images(cfg, n: int, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal(
+        (n, cfg.image_size, cfg.image_size, 3)).astype(np.float32)
+
+
+def phase_explain(cfg, params) -> dict:
+    """Main path 3: large16_384 explained on the card. Returns its
+    launches (all four parts, the server's warm-up included; not the
+    reference route's)."""
+    import vitx_torch
+    from vitx_torch import (forward, forward_with_attn, forward_with_rollout,
+                            grad_cam)
+    from vitx_torch.nn.vit import init_params, params_to
+
+    ref_cfg = cfg.replace(attn_impl="reference", fuse_mha="off",
+                          fuse_mlp="off")
+    reset_counts()
+    start = counts()
+    expected = []
+
+    # (a) the rollout at batch 8, kernels against the kernel-free route
+    imgs = explain_images(cfg, 8, 5)
+    snap = counts()
+    logits, weights = forward_with_rollout(params, imgs, cfg)
+    torch.cuda.synchronize()
+    got = delta(snap)
+    expect_launches("(a) rollout", got, rollout_launches(cfg))
+    expected.append(got)
+    snap = counts()
+    ref_logits, ref_weights = forward_with_rollout(params, imgs, ref_cfg)
+    torch.cuda.synchronize()
+    expect_launches("(a) reference rollout", delta(snap), launches_of())
+    errs = {"logits": card_rel_err(logits, ref_logits),
+            "rollout": card_rel_err(weights, ref_weights)}
+    sums = float((weights.double().sum(-1) - 1).abs().max())
+    emit({"phase": "explain", "part": "a: rollout b8 bf16, kernels vs "
+          "reference route", "rel_err": errs, "row_sum_dev": sums,
+          "launches": got, "tol": EXPLAIN_TOL,
+          "shape": list(weights.shape)})
+    if not (max(errs.values()) <= EXPLAIN_TOL and sums <= 1e-4
+            and weights.shape == (8, cfg.num_patches)
+            and bool(torch.isfinite(logits).all())):
+        raise AssertionError(f"(a) rollout: {errs}, row sums +- {sums}")
+    del logits, weights, ref_logits, ref_weights
+
+    # (a) Grad-CAM at batch 8, kernels against the reference route, whose
+    # LayerNorm backwards are B3 as everywhere on the card; both for the
+    # classes the kernels' logits pick (random weights leave near ties,
+    # which the routes' bf16 rounding could break apart)
+    snap = counts()
+    heat, logits = grad_cam(params, imgs, cfg)
+    torch.cuda.synchronize()
+    got = delta(snap)
+    expect_launches("(a) grad_cam", got, gradcam_launches(cfg))
+    expected.append(got)
+    snap = counts()
+    ref_heat, ref_logits = grad_cam(params, imgs, ref_cfg,
+                                    class_idx=logits.argmax(-1))
+    torch.cuda.synchronize()
+    ref_got = delta(snap)
+    expect_launches("(a) reference grad_cam", ref_got, launches_of(
+        ln_bwd=gradcam_launches(cfg)["ln_bwd"]))
+    errs = {"logits": card_rel_err(logits, ref_logits),
+            "heatmap": card_rel_err(heat, ref_heat)}
+    cos = torch.nn.functional.cosine_similarity(heat, ref_heat, dim=-1)
+    emit({"phase": "explain", "part": "a: grad_cam b8 bf16, kernels vs "
+          "reference route", "rel_err": errs, "cosine": cos.tolist(),
+          "launches": got,
+          "reference_launches": ref_got, "tol": GRADCAM_TOL,
+          "shape": list(heat.shape)})
+    if not (max(errs.values()) <= GRADCAM_TOL
+            and heat.shape == (8, cfg.num_patches)
+            and bool(torch.isfinite(heat).all())):
+        raise AssertionError(f"(a) grad_cam: {errs}")
+    del heat, logits, ref_heat, ref_logits
+
+    # (b) forward_with_attn("full") at batch 2
+    imgs = explain_images(cfg, 2, 6)
+    snap = counts()
+    logits, probs = forward_with_attn(params, imgs, cfg)
+    torch.cuda.synchronize()
+    got = delta(snap)
+    expect_launches("(b) forward_with_attn", got, launches_of(
+        flash_attention_with_probs=cfg.depth, fused_mlp_block=cfg.depth))
+    expected.append(got)
+    snap = counts()
+    ref_logits, ref_probs = forward_with_attn(params, imgs, ref_cfg)
+    torch.cuda.synchronize()
+    expect_launches("(b) reference forward_with_attn", delta(snap),
+                    launches_of())
+    errs = {"logits": card_rel_err(logits, ref_logits),
+            "probs": card_rel_err(probs, ref_probs)}
+    shape = (cfg.depth, 2, cfg.num_heads, cfg.seq_len, cfg.seq_len)
+    emit({"phase": "explain", "part": "b: forward_with_attn full b2 bf16, "
+          "kernels vs reference route", "rel_err": errs, "launches": got,
+          "tol": EXPLAIN_TOL, "shape": list(probs.shape)})
+    if not (max(errs.values()) <= EXPLAIN_TOL and probs.shape == shape):
+        raise AssertionError(f"(b) forward_with_attn: {errs}")
+    del logits, probs, ref_logits, ref_probs
+    torch.cuda.empty_cache()
+
+    # (c) a depth-2 float32 copy, card against CPU
+    cfg2 = vitx_torch.get_config("large16_384", depth=2,
+                                 compute_dtype="float32")
+    off2 = cfg2.replace(fuse_mha="off")
+    host = init_params(0, cfg2, device="cpu")
+    card = params_to(host, "cuda")
+    imgs = explain_images(cfg2, 2, 7)
+    runs = (
+        ("rollout", cfg2, lambda p, c, d: forward_with_rollout(
+            p, imgs, c, device=d), rollout_launches(cfg2)),
+        ("grad_cam", cfg2, lambda p, c, d: grad_cam(p, imgs, c, device=d),
+         gradcam_launches(cfg2)),
+        ("forward, fuse_mha off", off2, lambda p, c, d: forward(
+            p, imgs, c, device=d), launches_of(
+                flash_attention=2, fused_mlp_block=2)),
+        ("forward_with_attn mean, fuse_mha off", off2,
+         lambda p, c, d: forward_with_attn(p, imgs, c, probs_mode="mean",
+                                           device=d),
+         launches_of(flash_attention_with_mean_probs=2, fused_mlp_block=2)),
+    )
+    for what, c, fn, expect in runs:
+        snap = counts()
+        out = fn(card, c, "cuda")
+        torch.cuda.synchronize()
+        got = delta(snap)
+        expect_launches(f"(c) {what}", got, expect)
+        expected.append(got)
+        check("explain", f"c: {what}, large16_384 depth 2 fp32, card vs "
+              "CPU", out, fn(host, c, "cpu"), FP32_TOL, launches=got)
+    del host, card
+
+    # (d) the server's /explain, 16 requests from 4 threads
+    got, *served = phase_explain_serve(cfg, params)
+    expected.append(got)
+    # the main path's launches: all but the reference Grad-CAM's
+    total = {k: n - ref_got[k] for k, n in delta(start).items()}
+    expect_launches("explain phase", total, add_launches(*expected))
+    verify_explains(cfg, params, *served)
+    return total
+
+
+def phase_explain_serve(cfg, params) -> tuple:
+    """(d): an InferenceServer for ``cfg`` behind its HTTP front end; 16
+    /explain requests, rollout and gradcam mixed, with and without a
+    class, from 4 threads. Returns (the launches, the server's warm-up
+    forward included; the images, queries and answers)."""
+    import io
+    import urllib.request
+
+    from vitx_torch.cli.serve import serve_in_thread
+    from vitx_torch.serve import InferenceServer
+
+    queries = []
+    for i in range(16):       # 8 rollouts, 4 gradcams with a class
+        if i % 2 == 0:
+            queries.append(("rollout", None))
+        elif i % 4 == 1:
+            queries.append(("gradcam", None))
+        else:
+            queries.append(("gradcam", (37 * i) % cfg.num_classes))
+    alone = 3                 # then each method 3 times, one at a time
+    queries += [(m, None) for m in ("rollout", "gradcam")
+                for _ in range(alone)]
+    n = len(queries)
+    imgs = explain_images(cfg, n, 8)
+    results, millis = [None] * n, [0.0] * n
+    snap = counts()
+    with InferenceServer(params, cfg, batch_size=4, top_k=5) as srv:
+        httpd, _ = serve_in_thread(srv)
+        base = f"http://127.0.0.1:{httpd.server_port}/explain"
+
+        def send(i):
+            method, cls = queries[i]
+            url = f"{base}?method={method}"
+            if cls is not None:
+                url += f"&class={cls}"
+            buf = io.BytesIO()
+            np.save(buf, imgs[i])
+            req = urllib.request.Request(url, data=buf.getvalue(),
+                                         method="POST")
+            t0 = time.perf_counter()
+            results[i] = json.loads(urllib.request.urlopen(
+                req, timeout=600).read())
+            millis[i] = (time.perf_counter() - t0) * 1e3
+
+        try:
+            threads = [threading.Thread(
+                target=lambda c: [send(i) for i in range(c, 16, 4)],
+                args=(c,)) for c in range(4)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=900)
+            if any(t.is_alive() for t in threads):
+                raise AssertionError("explain: clients did not finish")
+            for i in range(16, n):
+                send(i)
+            if None in results:
+                raise AssertionError("explain: requests went unanswered")
+            stats = srv.stats.summary()
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+    got = delta(snap)
+    n_roll = sum(m == "rollout" for m, _ in queries)
+    expect = add_launches(forward_launches(cfg, 1),
+                          rollout_launches(cfg, n_roll),
+                          gradcam_launches(cfg, n - n_roll))
+    expect_launches("(d) server explain", got, expect)
+    if stats["explains"] != n:
+        raise AssertionError(f"explain stats: {stats}")
+    queued, single = {}, {}
+    for method in ("rollout", "gradcam"):
+        ms = sorted(m for m, (q, _) in zip(millis[:16], queries)
+                    if q == method)
+        queued[method] = {"n": len(ms), "p50_ms": ms[len(ms) // 2],
+                          "p90_ms": ms[min(len(ms) - 1, int(0.9 * len(ms)))]}
+        single[method] = {"n": alone, "median_ms": statistics.median(
+            m for m, (q, _) in zip(millis[16:], queries[16:])
+            if q == method)}
+    emit({"phase": "explain", "part": "d: server /explain, 16 requests "
+          "from 4 threads (queued: queue wait plus service), then each "
+          "method alone (service time)", "latency": queued,
+          "alone": single, "stats": stats, "launches": got})
+    return got, imgs, queries, results
+
+
+def verify_explains(cfg, params, imgs, queries, results) -> None:
+    """Each served heatmap and top-k equal to a direct call of
+    ``forward_with_rollout`` / ``grad_cam`` on the same image."""
+    from vitx_torch import forward_with_rollout, grad_cam
+
+    for i, (method, cls) in enumerate(queries):
+        x = torch.from_numpy(imgs[i:i + 1]).cuda().to(cfg.cdtype())
+        if method == "rollout":
+            logits, heat = forward_with_rollout(params, x, cfg)
+        else:
+            heat, logits = grad_cam(params, x, cfg, class_idx=cls)
+        probs, classes = torch.topk(torch.softmax(logits.float(), -1), 5)
+        got = results[i]
+        if (got["classes"] != classes[0].tolist()
+                or got["method"] != method or got["grid"] != cfg.grid_size):
+            raise AssertionError(f"explain {i} ({method}, {cls}): served "
+                                 f"{got['classes']}, direct "
+                                 f"{classes[0].tolist()}")
+        np.testing.assert_allclose(got["probs"], probs[0].cpu().numpy(),
+                                   rtol=1e-6, atol=1e-9)
+        np.testing.assert_allclose(got["heatmap"],
+                                   heat[0].float().cpu().numpy(),
+                                   rtol=1e-6, atol=1e-9)
+    emit({"phase": "explain", "check": "served heatmaps and top-k equal "
+          "direct calls", "requests": len(queries)})
 
 
 def profile_call(what: str, fn, top: int = 12) -> None:
@@ -747,6 +1209,83 @@ def phase_train_times(cfg, state, batch, step, launches: dict,
     return rows, stash
 
 
+def phase_explain_times(cfg, params, errs: dict, launches: dict) -> list:
+    """The large16_384 rollout forward at batch 32 and forward_with_attn
+    ("full") at batch 2 (CUDA events, profiler split), and rows for B5 in
+    each mode and B7 at the shapes of those paths: the full probs at
+    batch 2, the head mean and no probs (the composed path,
+    fuse_mha="off") and B7 at batch 32."""
+    import torch.nn.functional as F
+
+    from vitx_torch import forward_with_attn, forward_with_rollout
+    from vitx_torch.kernels import (flash_attention,
+                                    flash_attention_fwd_plain,
+                                    flash_attention_with_mean_probs,
+                                    flash_attention_with_probs,
+                                    fused_mha_block,
+                                    fused_mha_block_with_mean_probs,
+                                    mha_block_mean_probs_plain)
+
+    E, H, T, D = cfg.embed_dim, cfg.num_heads, cfg.seq_len, cfg.head_dim
+    bf = torch.bfloat16
+    gen = torch.Generator("cuda").manual_seed(9)
+    imgs = {B: torch.randn(B, cfg.image_size, cfg.image_size, 3,
+                           device="cuda", generator=gen).to(bf)
+            for B in (32, 2)}
+    for what, B, fn in (
+            ("rollout_forward", 32,
+             lambda: forward_with_rollout(params, imgs[32], cfg)),
+            ("forward_with_attn_full", 2,
+             lambda: forward_with_attn(params, imgs[2], cfg))):
+        ms = cuda_ms(fn, reps=10)
+        emit({"phase": "times", "what": what, "batch": B, "ms": ms,
+              "img_per_s": B / (ms / 1000.0)})
+        profile_call(what, fn, top=14)
+    del imgs
+    torch.cuda.empty_cache()
+
+    def attn(B):
+        q, k, v = (seeded((B, H, T, D), s, 1.5, dtype=bf)
+                   for s in (51, 52, 53))
+        return q, k, v, 4 * B * H * T * T * D, 4 * B * H * T * D * 2
+
+    rows = []
+    q, k, v, flops, nbytes = attn(32)
+    rows.append(kernel_row(
+        "flash_attention", lambda: flash_attention(q, k, v),
+        lambda: flash_attention_fwd_plain(q, k, v),
+        lambda: F.scaled_dot_product_attention(q, k, v), flops,
+        PEAK_BF16_FLOPS, nbytes, launches, errs, shape=[32, H, T, D]))
+    rows.append(kernel_row(
+        "flash_attention_with_mean_probs",
+        lambda: flash_attention_with_mean_probs(q, k, v),
+        lambda: flash_attention_fwd_plain(q, k, v, "mean"), None, flops,
+        PEAK_BF16_FLOPS, nbytes + 32 * T * T * 4, launches, errs,
+        shape=[32, H, T, D], library_note=NO_LIBRARY))
+    q, k, v, flops, nbytes = attn(2)
+    rows.append(kernel_row(
+        "flash_attention_with_probs",
+        lambda: flash_attention_with_probs(q, k, v),
+        lambda: flash_attention_fwd_plain(q, k, v, "full"), None, flops,
+        PEAK_BF16_FLOPS, nbytes + 2 * H * T * T * 4, launches, errs,
+        shape=[2, H, T, D], library_note=NO_LIBRARY))
+    del q, k, v
+    B = 32
+    x, mha, _ = block_inputs(B, T, E, H, cfg.mlp_dim, bf, 54, "cuda")
+    rows_ = B * T
+    b7_flops = (2 * rows_ * E * 3 * E + 2 * rows_ * E * E
+                + 4 * B * H * T * T * D)
+    b7_bytes = 2 * rows_ * E * 2 + 4 * E * E * 2 + 3 * E * 4 + B * T * T * 4
+    k1_ms = cuda_ms(lambda: fused_mha_block(x, **mha), reps=20)
+    rows.append(kernel_row(
+        "fused_mha_block_with_mean_probs",
+        lambda: fused_mha_block_with_mean_probs(x, **mha),
+        lambda: mha_block_mean_probs_plain(x, **mha), None, b7_flops,
+        PEAK_BF16_FLOPS, b7_bytes, launches, errs, shape=[B, T, E],
+        library_note=NO_LIBRARY, k1_ms_same_shape=k1_ms))
+    return rows
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--phases", default=",".join(PHASES),
@@ -777,7 +1316,8 @@ def main(argv=None) -> int:
         params = init_params(0, cfg)
     if "forward" in phases:
         phase_forward(cfg, params)
-    serve_launches, train_launches, train = {}, {}, None
+    serve_launches, train_launches, explain_launches = {}, {}, {}
+    train = None
     if "serve" in phases:
         serve_launches = phase_serve(cfg, params)
     if "train" in phases:
@@ -786,8 +1326,12 @@ def main(argv=None) -> int:
         ds = SyntheticDataset(num_examples=128, image_size=cfg.image_size,
                               num_classes=cfg.num_classes, seed=0)
         train_launches, *train = phase_train(ds)
-    launches = {k: serve_launches.get(k, 0) + train_launches.get(k, 0)
-                for k in KERNELS}
+    large = large_params = None
+    if "explain" in phases:
+        large = vitx_torch.get_config("large16_384")
+        large_params = init_params(0, large)
+        explain_launches = phase_explain(large, large_params)
+    launches = add_launches(serve_launches, train_launches, explain_launches)
     if "times" in phases:
         rows = phase_times(cfg, params, errs, launches)
         del params
@@ -795,12 +1339,19 @@ def main(argv=None) -> int:
         if train:
             new_rows, stash = phase_train_times(cfg, *train, launches, errs)
             rows += new_rows
+        del train
+        if large is not None:
+            rows += phase_explain_times(large, large_params, errs, launches)
         for row in rows:
             row["launches_by_path"] = {
                 "serve": serve_launches.get(row["name"], 0),
-                "train": train_launches.get(row["name"], 0)}
+                "train": train_launches.get(row["name"], 0),
+                "explain": explain_launches.get(row["name"], 0)}
             if row["name"] in stash:
                 row["stash_ms_b128"] = stash[row["name"]]
+        missing = sorted(set(KERNELS) - {row["name"] for row in rows})
+        if missing and phases == list(PHASES):
+            raise AssertionError(f"no times row for {missing}")
         emit({"kernels": rows})
     if phases != list(PHASES):
         return 0

@@ -9,7 +9,9 @@ JAX, so on a machine with a card it runs without the JAX package:
 
 Bars, as max |kernel - plain| over max |plain|: float32 1e-4 (TF32 off);
 bfloat16 2e-2 -- both sides accumulate in fp32 in another order, which
-moves a few bf16 roundings of the intermediates by one ulp (2**-8).
+moves a few bf16 roundings of the intermediates by one ulp (2**-8). B5's
+probabilities in bf16: 1e-3 -- kernel and plain read the same bf16 q and
+k and differ only in the fp32 order of the logits' sums.
 """
 
 import numpy as np
@@ -18,9 +20,14 @@ import torch
 
 import vitx_torch
 from vitx_torch.kernels import (adamw_plain, attention_bwd,
-                                attention_bwd_plain, fused_adamw_,
-                                fused_mha_block, fused_mlp_block, ln_bwd,
-                                ln_bwd_plain, mha_block_plain,
+                                attention_bwd_plain, flash_attention,
+                                flash_attention_fwd_plain,
+                                flash_attention_with_mean_probs,
+                                flash_attention_with_probs, fused_adamw_,
+                                fused_mha_block,
+                                fused_mha_block_with_mean_probs,
+                                fused_mlp_block, ln_bwd, ln_bwd_plain,
+                                mha_block_mean_probs_plain, mha_block_plain,
                                 mlp_block_plain)
 from vitx_torch.nn.vit import params_to
 from vitx_torch.train import step as tstep
@@ -99,12 +106,92 @@ def test_forward_on_card_matches_cpu(cuda, dtype):
 
 
 @pytest.mark.cuda
-def test_composed_attention_raises_on_card(cuda):
-    cfg = vitx_torch.get_config("tiny", qkv_bias=True)
-    params = vitx_torch.init_params(0, cfg, device=cuda)
-    x = np.zeros((1, cfg.image_size, cfg.image_size, 3), np.float32)
-    with pytest.raises(NotImplementedError, match="B5"):
-        vitx_torch.forward(params, x, cfg)
+def test_composed_attention_runs_on_card(cuda):
+    """The composed path (a QKV bias, attn_impl="flash") runs on the card
+    through B5, one launch per block, and agrees with the CPU; a train
+    step of it runs B5 forward and B2 backward."""
+    cfg = vitx_torch.get_config("tiny", qkv_bias=True, attn_impl="flash",
+                                compute_dtype="float32")
+    host = vitx_torch.init_params(0, cfg, device="cpu")
+    params = params_to(host, cuda)
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2, cfg.image_size, cfg.image_size, 3)).astype(
+        np.float32)
+    n = flash_attention.launches
+    out = vitx_torch.forward(params, x, cfg)
+    torch.cuda.synchronize()
+    assert flash_attention.launches - n == cfg.depth
+    ref = vitx_torch.forward(host, x, cfg, device="cpu")
+    assert rel_err(out, ref) < 1e-4
+    opt = tstep.make_optimizer(lr=1e-3)
+    batch = {"image": x, "label": rng.integers(0, cfg.num_classes, 2)
+             .astype(np.int32)}
+    n, nb = flash_attention.launches, attention_bwd.launches
+    _, m_card = tstep.train_step(tstep.TrainState(0, params,
+                                                  opt.init(params)),
+                                 batch, cfg=cfg, optimizer=opt)
+    torch.cuda.synchronize()
+    assert flash_attention.launches - n == cfg.depth
+    assert attention_bwd.launches - nb == cfg.depth
+    _, m_ref = tstep.train_step(tstep.TrainState(0, host, opt.init(host)),
+                                batch, cfg=cfg, optimizer=opt, device="cpu")
+    for k in ("loss", "grad_norm"):
+        assert rel_err(m_card[k], m_ref[k]) <= 1e-4, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dims", [(2, 12, 197, 64), (2, 16, 577, 64),
+                                  (1, 2, 1100, 64), (3, 4, 65, 16),
+                                  (2, 3, 50, 9)])
+def test_flash_attention_matches_plain(cuda, dims, dtype):
+    """B5 in its three modes against its plain version, at base16's and
+    large16_384's shapes, a T above 1024, tiny's and a ragged head (D=9);
+    the head mean twice, bit for bit, rows summing to 1."""
+    q, k, v = (seeded(dims, s, 1.5, dtype=dtype, device=cuda)
+               for s in (1, 2, 3))
+    ptol = 1e-4 if dtype == "float32" else 1e-3
+    for fn, mode in ((flash_attention, None),
+                     (flash_attention_with_probs, "full"),
+                     (flash_attention_with_mean_probs, "mean")):
+        n = fn.launches
+        out = fn(q, k, v)
+        torch.cuda.synchronize()
+        assert fn.launches == n + 1
+        ref = flash_attention_fwd_plain(q, k, v, mode)
+        if mode is None:
+            out, ref = (out,), (ref,)
+        assert out[0].dtype == q.dtype
+        assert rel_err(out[0], ref[0]) <= TOL[dtype]
+        if mode is not None:
+            assert out[1].dtype == torch.float32
+            assert rel_err(out[1], ref[1]) <= ptol
+            rows = out[1].double().sum(-1)
+            assert float((rows - 1).abs().max()) <= 1e-5
+        if mode == "mean":
+            assert torch.equal(fn(q, k, v)[1], out[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dims", [(2, 197, 768, 12), (2, 577, 1024, 16),
+                                  (3, 65, 64, 4)])
+def test_mha_mean_probs_matches_plain(cuda, dims, dtype):
+    """B7 against its plain version at base16, large16_384 and tiny
+    shapes; repeated calls agree bit for bit; its out equals K1's."""
+    mha, _ = block_args(*dims, dtype, cuda)
+    n, n1 = fused_mha_block_with_mean_probs.launches, fused_mha_block.launches
+    out, probs = fused_mha_block_with_mean_probs(*mha)
+    torch.cuda.synchronize()
+    assert fused_mha_block_with_mean_probs.launches == n + 1
+    assert fused_mha_block.launches == n1
+    ref_out, ref_probs = mha_block_mean_probs_plain(*mha)
+    assert rel_err(out, ref_out) <= TOL[dtype]
+    assert rel_err(probs, ref_probs) <= TOL[dtype]
+    assert float((probs.double().sum(-1) - 1).abs().max()) <= 1e-5
+    again = fused_mha_block_with_mean_probs(*mha)
+    assert torch.equal(again[1], probs) and torch.equal(again[0], out)
+    assert torch.equal(fused_mha_block(*mha), out)
 
 
 def seeded(shape, seed, scale=1.0, shift=0.0, dtype="float32",

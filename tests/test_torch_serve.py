@@ -1,6 +1,8 @@
 """The port's serving layer (vitx_torch.serve, vitx_torch.cli.serve) on the
 CPU: dynamic batching, top-k against a direct forward, stats, the queue
-bound, the HTTP front end and artifact loading."""
+bound, the HTTP front end with ``/explain`` (its rollout heatmap held to
+vitx's ``forward_with_rollout`` on the same params) and artifact
+loading."""
 
 import io
 import json
@@ -8,10 +10,13 @@ import threading
 import urllib.error
 import urllib.request
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import vitx
 import vitx_torch
 from vitx_torch.cli.serve import serve_in_thread
 from vitx_torch.serve import InferenceServer, ServerOverloaded, load_server
@@ -19,6 +24,7 @@ from vitx_torch.serve import InferenceServer, ServerOverloaded, load_server
 torch.set_num_threads(1)
 
 CFG = vitx_torch.get_config("tiny", compute_dtype="float32")
+JCFG = vitx.get_config("tiny", compute_dtype="float32")
 
 
 def _img(seed):
@@ -78,13 +84,36 @@ def test_queue_bound_raises_overloaded(params):
     assert srv.stats.summary()["rejected"] == 1
 
 
+def test_explain_bound_raises_overloaded(params):
+    """Beyond 4 explains in flight, explain raises ServerOverloaded and
+    counts a rejection; a freed slot serves again."""
+    with InferenceServer(params, CFG, batch_size=2, device="cpu") as srv:
+        for _ in range(4):
+            assert srv._explain_slots.acquire(blocking=False)
+        with pytest.raises(ServerOverloaded):
+            srv.explain(_img(0))
+        assert srv.stats.summary()["rejected"] == 1
+        srv._explain_slots.release()
+        out = srv.explain(_img(0), method="gradcam")
+        assert out["method"] == "gradcam"
+        assert srv.stats.summary()["explains"] == 1
+
+
 def test_shape_validation(params):
     with InferenceServer(params, CFG, batch_size=2, device="cpu") as srv:
         with pytest.raises(ValueError):
             srv.predict(np.zeros((8, 8, 3), np.float32))
 
 
-def test_http_front_end(params):
+def test_http_front_end():
+    """/healthz, /predict (npy and raw bodies), /stats, /metrics and
+    /explain, on weights made by vitx and carried across with
+    ``params_from_jax``."""
+    rng = np.random.default_rng(11)
+    pn = jax.tree.map(lambda a: np.asarray(a, np.float32) + 0.02 *
+                      rng.standard_normal(a.shape).astype(np.float32),
+                      vitx.init_params(jax.random.PRNGKey(0), JCFG))
+    params = vitx_torch.params_from_jax(pn, CFG, "cpu")
     with InferenceServer(params, CFG, batch_size=2, top_k=2,
                          device="cpu") as srv:
         httpd, _ = serve_in_thread(srv)
@@ -108,11 +137,42 @@ def test_http_front_end(params):
             assert stats["requests"] == 2
             metrics = urllib.request.urlopen(base + "/metrics").read()
             assert b"vitx_requests_total 2" in metrics
-            req = urllib.request.Request(base + "/explain", data=b"x",
-                                         method="POST")
-            with pytest.raises(urllib.error.HTTPError) as e:
-                urllib.request.urlopen(req)
-            assert e.value.code == 501
+            explains = {}
+            for query in ("", "?method=gradcam", "?method=gradcam&class=3"):
+                req = urllib.request.Request(base + "/explain" + query,
+                                             data=buf.getvalue(),
+                                             method="POST")
+                explains[query] = json.loads(urllib.request.urlopen(req)
+                                             .read())
+            for query, out in explains.items():
+                assert sorted(out) == ["classes", "grid", "heatmap",
+                                       "method", "probs"]
+                assert out["grid"] == CFG.grid_size
+                assert len(out["heatmap"]) == CFG.grid_size ** 2
+                assert out["classes"] == explains[""]["classes"]
+                assert out["method"] == ("gradcam" if "gradcam" in query
+                                         else "rollout")
+            cam, _ = vitx_torch.grad_cam(params, img[None], CFG, class_idx=3,
+                                         device="cpu")
+            np.testing.assert_allclose(
+                explains["?method=gradcam&class=3"]["heatmap"], cam[0],
+                rtol=1e-6, atol=1e-9)
+            # the rollout heatmap against vitx on the same params
+            _, ref = vitx.forward_with_rollout(
+                jax.tree.map(jnp.asarray, pn), jnp.asarray(img[None]), JCFG)
+            np.testing.assert_allclose(explains[""]["heatmap"],
+                                       np.asarray(ref)[0], rtol=1e-4,
+                                       atol=1e-6)
+            for query in ("?method=bad", "?method=rollout&class=1",
+                          "?method=gradcam&class=4", "?method=gradcam&class=x"):
+                req = urllib.request.Request(base + "/explain" + query,
+                                             data=buf.getvalue(),
+                                             method="POST")
+                with pytest.raises(urllib.error.HTTPError) as e:
+                    urllib.request.urlopen(req)
+                assert e.value.code == 400, query
+            metrics = urllib.request.urlopen(base + "/metrics").read()
+            assert b"vitx_explains_total 3" in metrics
         finally:
             httpd.shutdown()
             httpd.server_close()

@@ -6,7 +6,9 @@ part by part: the same configs, parameter tree and layouts (NHWC images,
 ``cfg.compute_dtype``. The fused attention and MLP halves of every encoder
 block are hand-written CUDA kernels for sm_90a (``vitx_torch.kernels``),
 and so are the attention and LayerNorm backwards and the fused AdamW
-update of the train step (``vitx_torch.train``); the rest is plain torch.
+update of the train step (``vitx_torch.train``) and the attention forwards
+with probabilities behind ``forward_with_attn``, ``forward_with_rollout``
+and the server's ``/explain``; the rest is plain torch.
 It imports neither ``jax`` nor ``vitx``.
 
 Entry points run on a CUDA device unless the caller passes
@@ -27,7 +29,10 @@ torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 from vitx_torch.core.config import PRESETS, ViTConfig, get_config  # noqa: E402
 from vitx_torch.interop.jax_params import (  # noqa: E402
     adamw_state_from_jax, params_from_jax)
+from vitx_torch.nn.rollout import attention_rollout  # noqa: E402
+from vitx_torch.nn.saliency import grad_cam  # noqa: E402
 from vitx_torch.nn.vit import (classify, encode, forward,  # noqa: E402
+                               forward_with_attn, forward_with_rollout,
                                init_params)
 
 __version__ = "0.1.0"
@@ -38,6 +43,10 @@ __all__ = [
     "get_config",
     "init_params",
     "forward",
+    "forward_with_attn",
+    "forward_with_rollout",
+    "attention_rollout",
+    "grad_cam",
     "encode",
     "classify",
     "params_from_jax",

@@ -6,7 +6,11 @@ counterpart of ``vitx/cli/serve.py``. Endpoints:
 - ``POST /predict``: the body is a float32 (H, W, C) image (``.npy`` bytes
   or raw little-endian floats); the answer is JSON ``{"probs": [...],
   "classes": [...]}`` for the top-k classes.
-- ``POST /explain``: 501, not ported yet (ROADMAP A9).
+- ``POST /explain[?method=rollout|gradcam&class=K]``: the same body; the
+  answer adds ``heatmap`` (patch-grid weights, row-major), ``grid`` and
+  ``method``. ``rollout`` is class-agnostic attention rollout, ``gradcam``
+  class-specific Grad-CAM (``class`` defaults to the prediction). 400 on
+  a bad method, class or image, 503 when 4 explains are in flight.
 - ``GET /stats``: JSON throughput / latency / occupancy counters.
 - ``GET /metrics``: the same counters in Prometheus text format.
 - ``GET /healthz``: 200 once the model is warmed up and serving.
@@ -23,6 +27,7 @@ import json
 import sys
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from urllib.parse import parse_qs, urlparse
 
 import numpy as np
 
@@ -58,7 +63,8 @@ def make_handler(server):
                 lines = []
                 for name, key in (("requests_total", "requests"),
                                   ("batches_total", "batches"),
-                                  ("rejected_total", "rejected")):
+                                  ("rejected_total", "rejected"),
+                                  ("explains_total", "explains")):
                     lines.append(f"# TYPE vitx_{name} counter")
                     lines.append(f"vitx_{name} {s[key]}")
                 lines.append("# TYPE vitx_batch_occupancy gauge")
@@ -74,11 +80,8 @@ def make_handler(server):
                 self._reply(404, {"error": "unknown path"})
 
         def do_POST(self):
-            path = self.path.split("?", 1)[0]
-            if path == "/explain":
-                self._reply(501, {"error": "not ported yet (ROADMAP A9)"})
-                return
-            if path != "/predict":
+            url = urlparse(self.path)
+            if url.path not in ("/predict", "/explain"):
                 self._reply(404, {"error": "unknown path"})
                 return
             n = int(self.headers.get("Content-Length", 0))
@@ -89,7 +92,15 @@ def make_handler(server):
                 else:
                     img = np.frombuffer(raw, np.float32).reshape(
                         cfg.image_size, cfg.image_size, cfg.num_channels)
-                out = server.predict(np.asarray(img, np.float32))
+                img = np.asarray(img, np.float32)
+                if url.path == "/predict":
+                    out = server.predict(img)
+                else:
+                    q = parse_qs(url.query)
+                    cls = q.get("class", [None])[0]
+                    out = server.explain(
+                        img, method=q.get("method", ["rollout"])[0],
+                        class_idx=None if cls is None else int(cls))
                 self._reply(200, out)
             except ServerOverloaded as e:
                 self._reply(503, {"error": f"{type(e).__name__}: {e}"})

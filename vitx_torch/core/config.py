@@ -252,12 +252,14 @@ class ViTConfig:
 
     # --- kernels ---
     # "auto" / "flash": the fused kernels on a CUDA device, the plain torch
-    # versions on the CPU. "reference" / "xla": the composed attention path
-    # (CPU only in the port so far).
+    # versions on the CPU; on the composed path the flash-attention kernel
+    # (always for "flash", for "auto" on CUDA at D >= 32 and T >= 128).
+    # "reference" / "xla": the composed path with the plain attention.
     attn_impl: str = "auto"
     # Fused LN->QKV->attention->proj block kernel
     # (vitx_torch/kernels/mha_block.py). "auto": on for CUDA tensors when
-    # attn_impl is "auto" and no probs are requested; "on"/"off": force.
+    # attn_impl is "auto" or "flash" and no full probs are requested (head-
+    # mean probs take its B7 form); "on"/"off": force.
     fuse_mha: str = "auto"
     # Fused LN->Linear->act->Linear MLP kernel
     # (vitx_torch/kernels/mlp_block.py), same semantics as fuse_mha.

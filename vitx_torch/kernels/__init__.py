@@ -3,6 +3,14 @@
 - ``fused_mha_block`` (K1, ``csrc/mha_block.cu``): LN -> QKV -> attention
   -> out-projection, with its stash and a backward;
   replaces ``vitx/kernels/mha_block.py::_kernel``.
+- ``fused_mha_block_with_mean_probs`` (B7, ``csrc/mha_block.cu``): K1 plus
+  the head-mean attention probabilities; replaces
+  ``vitx/kernels/mha_block.py::_kernel_hchunk`` (mean-probs mode).
+- ``flash_attention``, ``flash_attention_with_probs``,
+  ``flash_attention_with_mean_probs`` (B5, ``csrc/flash_attention_fwd.cu``,
+  with ``attention_fwd.cuh`` shared with K1 and B7): the attention forward
+  without probs, with full probs and with head-mean probs; replace
+  ``vitx/kernels/flash_attention.py::_fwd_kernel``.
 - ``fused_mlp_block`` (K2, ``csrc/mlp_block.cu``): LN -> W1 -> act -> W2,
   with its stash and a backward; replaces
   ``vitx/kernels/mlp_block.py::_kernel``.
@@ -20,12 +28,21 @@ attribute; for CPU tensors it runs the plain torch version beside it.
 """
 
 from vitx_torch.kernels.adamw import adamw_plain, fused_adamw_
-from vitx_torch.kernels.flash_attention import (attention_bwd,
-                                                attention_bwd_plain)
+from vitx_torch.kernels.flash_attention import (
+    attention_bwd, attention_bwd_plain, flash_attention,
+    flash_attention_fwd_plain, flash_attention_with_mean_probs,
+    flash_attention_with_probs)
 from vitx_torch.kernels.layer_norm import ln_bwd, ln_bwd_plain
-from vitx_torch.kernels.mha_block import fused_mha_block, mha_block_plain
+from vitx_torch.kernels.mha_block import (fused_mha_block,
+                                          fused_mha_block_with_mean_probs,
+                                          mha_block_mean_probs_plain,
+                                          mha_block_plain)
 from vitx_torch.kernels.mlp_block import fused_mlp_block, mlp_block_plain
 
-__all__ = ["fused_mha_block", "mha_block_plain", "fused_mlp_block",
-           "mlp_block_plain", "attention_bwd", "attention_bwd_plain",
-           "ln_bwd", "ln_bwd_plain", "fused_adamw_", "adamw_plain"]
+__all__ = ["fused_mha_block", "mha_block_plain",
+           "fused_mha_block_with_mean_probs", "mha_block_mean_probs_plain",
+           "fused_mlp_block", "mlp_block_plain", "flash_attention",
+           "flash_attention_with_probs", "flash_attention_with_mean_probs",
+           "flash_attention_fwd_plain", "attention_bwd",
+           "attention_bwd_plain", "ln_bwd", "ln_bwd_plain", "fused_adamw_",
+           "adamw_plain"]

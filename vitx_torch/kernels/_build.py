@@ -33,26 +33,35 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
-# the C entry point of each source and its argument types
+# each C entry point: its source (csrc/<source>.cu), symbol and argument
+# types
 SIGNATURES = {
-    "mha_block": ("vitx_mha_block",
+    "mha_block": ("mha_block", "vitx_mha_block",
                   [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                    _I, _I, _I, _I, _F, _P]),
-    "mlp_block": ("vitx_mlp_block",
+    "mha_block_mean_probs": ("mha_block", "vitx_mha_block_mean_probs",
+                             [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                              _P, _I, _I, _I, _I, _F, _P]),
+    "mlp_block": ("mlp_block", "vitx_mlp_block",
                   [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                    _I, _I, _I, _I, _F, _P]),
-    "flash_attention_bwd": ("vitx_attention_bwd",
+    "flash_attention_fwd": ("flash_attention_fwd", "vitx_attention_fwd",
+                            [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _P]),
+    "flash_attention_bwd": ("flash_attention_bwd", "vitx_attention_bwd",
                             [_I, _P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _P]),
-    "layer_norm_bwd": ("vitx_ln_bwd",
+    "layer_norm_bwd": ("layer_norm_bwd", "vitx_ln_bwd",
                        [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P]),
-    "adamw": ("vitx_adamw",
+    "adamw": ("adamw", "vitx_adamw",
               [_I, _P, _P, _P, _P, _L] + [_F] * 9 + [_P]),
 }
+SOURCES = sorted({source for source, _, _ in SIGNATURES.values()})
 
 _lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}        # source -> its loaded library
 _loaded: dict[str, ctypes._CFuncPtr] = {}
-build_log: dict[str, dict] = {}   # name -> {"seconds", "ptxas"} of this process
+build_log: dict[str, dict] = {}   # source -> {"seconds", "ptxas"} of this process
 
 
 def _nvcc() -> str:
@@ -102,7 +111,7 @@ def _finish(name: str, so: Path, proc, t0: float) -> None:
 def build_all() -> None:
     """Build every source at once, one nvcc process each."""
     with _lock:
-        started = [(n, *_start(n)) for n in SIGNATURES if n not in _loaded]
+        started = [(n, *_start(n)) for n in SOURCES if n not in _libs]
         errors = []
         for n, so, proc, t0 in started:   # wait for every nvcc, then raise
             try:
@@ -114,15 +123,19 @@ def build_all() -> None:
 
 
 def entry(name: str):
-    """The C entry point of ``csrc/<name>.cu``, built on first use."""
+    """The C entry point ``name`` of ``SIGNATURES``, its source built on
+    first use."""
     with _lock:
         fn = _loaded.get(name)
         if fn is not None:
             return fn
-        so, proc, t0 = _start(name)
-        _finish(name, so, proc, t0)
-        symbol, argtypes = SIGNATURES[name]
-        fn = getattr(ctypes.CDLL(str(so)), symbol)
+        source, symbol, argtypes = SIGNATURES[name]
+        lib = _libs.get(source)
+        if lib is None:
+            so, proc, t0 = _start(source)
+            _finish(source, so, proc, t0)
+            lib = _libs[source] = ctypes.CDLL(str(so))
+        fn = getattr(lib, symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _loaded[name] = fn

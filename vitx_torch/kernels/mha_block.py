@@ -6,8 +6,17 @@ on CPU tensors. It replaces ``vitx/kernels/mha_block.py::_kernel`` with and
 without its stash (``_fused_fwd``), and is differentiable: its backward
 mirrors ``_fused_op_bwd`` (``mha_block.py:964-1005``) -- torch products for
 the projections, the attention backward B2 (``attention_bwd``) and the
-LayerNorm backward B3 (``ln_bwd``). The source note in the ``.cu`` file
-says what bounds the kernel on the H100 and how it is laid out.
+LayerNorm backward B3 (``ln_bwd``).
+
+``fused_mha_block_with_mean_probs`` (B7, the same source's second entry)
+also returns the head-mean attention probabilities; it replaces
+``_kernel_hchunk`` in its mean-probs mode (``_chunked_fwd``,
+``fused_mha_block_with_mean_probs``), and its plain version is
+``mha_block_mean_probs_plain``. ``_kernel_hchunk``'s no-probs mode
+computes ``_kernel``'s function, which vitx takes only where ``_kernel``
+does not fit VMEM (``mha_block.py:1046-1054``); K1 serves it at every
+shape. The source note in the ``.cu`` file says what bounds the kernels on
+the H100 and how they are laid out.
 """
 
 from __future__ import annotations
@@ -23,15 +32,9 @@ from vitx_torch.nn.layers import dot, layer_norm, matmul32
 MAX_HEAD_DIM = 256
 
 
-def mha_block_plain(x, wqkv, wo, bo, g, b, *, eps: float = 1e-5,
-                    stash: bool = False):
-    """The plain torch version of K1, rounding where the TPU kernel rounds
-    (``vitx/kernels/mha_block.py:46-91``): q|k|v accumulate in fp32 and
-    are cast; q is rescaled in fp32 and cast again; l sums the fp32 p while
-    the PV product takes p cast to the compute dtype, and the division by l
-    follows the product; bo is added to the fp32 out-projection before the
-    one cast. ``stash=True`` also returns the unscaled q, k, v
-    ((B, H, T, D) each) and o_all (B, T, E)."""
+def _plain(x, wqkv, wo, bo, g, b, eps, probs: bool):
+    """-> (out, q0, k, v, o_all, mean probs or None), see
+    ``mha_block_plain``."""
     B, T, E = x.shape
     H = wqkv.shape[2]
     D = E // H
@@ -48,10 +51,40 @@ def mha_block_plain(x, wqkv, wo, bo, g, b, *, eps: float = 1e-5,
     o = (matmul32(p.to(dt), v) / l).to(dt)
     o_all = o.transpose(1, 2).reshape(B, T, E)
     out = (matmul32(o_all, wo) + bo.float()).to(dt)
+    mean = None
+    if probs:   # the head sum in order, then / H (csrc/attention_fwd.cuh)
+        pl = p / l
+        mean = pl[:, 0]
+        for i in range(1, H):
+            mean = mean + pl[:, i]
+        mean = mean / H
+    return out, q0, k, v, o_all, mean
+
+
+def mha_block_plain(x, wqkv, wo, bo, g, b, *, eps: float = 1e-5,
+                    stash: bool = False):
+    """The plain torch version of K1, rounding where the TPU kernel rounds
+    (``vitx/kernels/mha_block.py:46-91``): q|k|v accumulate in fp32 and
+    are cast; q is rescaled in fp32 and cast again; l sums the fp32 p while
+    the PV product takes p cast to the compute dtype, and the division by l
+    follows the product; bo is added to the fp32 out-projection before the
+    one cast. ``stash=True`` also returns the unscaled q, k, v
+    ((B, H, T, D) each) and o_all (B, T, E)."""
+    out, q0, k, v, o_all, _ = _plain(x, wqkv, wo, bo, g, b, eps, False)
     if stash:
         return (out, q0.contiguous(), k.contiguous(), v.contiguous(),
                 o_all.contiguous())
     return out
+
+
+def mha_block_mean_probs_plain(x, wqkv, wo, bo, g, b, *,
+                               eps: float = 1e-5):
+    """The plain torch version of B7: (``mha_block_plain``'s out, probs
+    (B, T, T) fp32), probs the sum over the heads, in order, of the fp32
+    p / l, divided by H. vitx's ``_kernel_hchunk`` sums p / (l * H)
+    (``mha_block.py:217-218``): the same value up to fp32 rounding."""
+    out, _, _, _, _, mean = _plain(x, wqkv, wo, bo, g, b, eps, True)
+    return out, mean
 
 
 def _check(x, wqkv, wo, bo, g, b):
@@ -88,31 +121,40 @@ def _check(x, wqkv, wo, bo, g, b):
             raise ValueError(f"{name} must be contiguous")
 
 
+def _launch(x, wqkv, wo, bo, g, b, eps, probs):
+    """K1 (``probs`` None) or B7 (``probs`` the (B, T, T) fp32 output) on
+    CUDA tensors -> (out, q, k, v, o_all)."""
+    if not x.is_cuda:
+        raise ValueError(f"fused_mha_block runs on cuda or cpu, "
+                         f"not {x.device}")
+    B, T, E = x.shape
+    H = wqkv.shape[2]
+    name = "mha_block" if probs is None else "mha_block_mean_probs"
+    fn = _build.entry(name)
+    out = torch.empty_like(x)
+    qkv = torch.empty((3, B, H, T, E // H), dtype=x.dtype, device=x.device)
+    o_all = torch.empty_like(x)
+    stats = torch.empty((2, B * T), dtype=torch.float32, device=x.device)
+    extra = () if probs is None else (probs.data_ptr(),)
+    with torch.cuda.device(x.device):
+        err = fn(DTYPE_CODES[x.dtype], x.data_ptr(), wqkv.data_ptr(),
+                 wo.data_ptr(), bo.data_ptr(), g.data_ptr(), b.data_ptr(),
+                 out.data_ptr(), qkv.data_ptr(), o_all.data_ptr(),
+                 stats.data_ptr(), *extra, B, T, E, H, float(eps),
+                 torch.cuda.current_stream().cuda_stream)
+    _build.check(name, err)
+    return out, qkv[0], qkv[1], qkv[2], o_all
+
+
 def _forward(x, wqkv, wo, bo, g, b, eps):
     """-> (out, q, k, v, o_all): kernel K1 on CUDA, the plain version on
     the CPU. The stash is free on the card: q|k|v and o_all are the
     kernel's own intermediates, returned as views."""
     if x.device.type == "cpu":
         return mha_block_plain(x, wqkv, wo, bo, g, b, eps=eps, stash=True)
-    if not x.is_cuda:
-        raise ValueError(f"fused_mha_block runs on cuda or cpu, "
-                         f"not {x.device}")
-    B, T, E = x.shape
-    H = wqkv.shape[2]
-    fn = _build.entry("mha_block")
-    out = torch.empty_like(x)
-    qkv = torch.empty((3, B, H, T, E // H), dtype=x.dtype, device=x.device)
-    o_all = torch.empty_like(x)
-    stats = torch.empty((2, B * T), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        err = fn(DTYPE_CODES[x.dtype], x.data_ptr(), wqkv.data_ptr(),
-                 wo.data_ptr(), bo.data_ptr(), g.data_ptr(), b.data_ptr(),
-                 out.data_ptr(), qkv.data_ptr(), o_all.data_ptr(),
-                 stats.data_ptr(), B, T, E, H, float(eps),
-                 torch.cuda.current_stream().cuda_stream)
-    _build.check("mha_block", err)
+    res = _launch(x, wqkv, wo, bo, g, b, eps, None)
     fused_mha_block.launches += 1
-    return out, qkv[0], qkv[1], qkv[2], o_all
+    return res
 
 
 def _backward(dout, x, wqkv, wo, g, b, q, k, v, o_all, eps):
@@ -177,3 +219,67 @@ def fused_mha_block(x, wqkv, wo, bo, g, b, *, eps: float = 1e-5,
 
 
 fused_mha_block.launches = 0
+
+
+# --- B7: the block with head-mean probabilities ------------------------------
+
+def _forward_mean_probs(x, wqkv, wo, bo, g, b, eps):
+    """-> (out, probs): kernel B7 on CUDA, the plain version on the CPU."""
+    if x.device.type == "cpu":
+        return mha_block_mean_probs_plain(x, wqkv, wo, bo, g, b, eps=eps)
+    B, T, _ = x.shape
+    probs = torch.empty((B, T, T), dtype=torch.float32, device=x.device)
+    out = _launch(x, wqkv, wo, bo, g, b, eps, probs)[0]
+    fused_mha_block_with_mean_probs.launches += 1
+    return out, probs
+
+
+def _composed_with_mean_probs(x, wqkv, wo, bo, g, b, eps):
+    """The function B7's backward differentiates, vitx's
+    ``_composed_with_mean_probs`` (``mha_block.py:397-416``): LN, then the
+    composed reference attention with the head-mean probs."""
+    # imported here: vitx_torch.nn.attention imports the kernels
+    from vitx_torch.nn.attention import multi_head_attention
+
+    return multi_head_attention(
+        layer_norm(x, g, b, eps=eps), wqkv, None, wo, bo,
+        num_heads=wqkv.shape[2], impl="reference", return_probs=True,
+        probs_mode="mean")
+
+
+class _FusedMHAMeanProbs(torch.autograd.Function):
+    """B7 forward; the backward differentiates the composed path, as
+    vitx's ``_make_chunked_probs_op`` does (``mha_block.py:456-474``)."""
+
+    @staticmethod
+    def forward(ctx, x, wqkv, wo, bo, g, b, eps):
+        ctx.save_for_backward(x, wqkv, wo, bo, g, b)
+        ctx.eps = eps
+        return _forward_mean_probs(x, wqkv, wo, bo, g, b, eps)
+
+    @staticmethod
+    def backward(ctx, dout, dprobs):
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            outs = _composed_with_mean_probs(*ins, ctx.eps)
+        grads = torch.autograd.grad(outs, ins, (dout, dprobs))
+        return (*grads, None)
+
+
+def fused_mha_block_with_mean_probs(x, wqkv, wo, bo, g, b, *,
+                                    eps: float = 1e-5):
+    """``fused_mha_block`` that also returns the head-mean attention
+    probabilities: (out (B, T, E) in x's dtype, probs (B, T, T) fp32), the
+    rollout path's input. The head sum has one fixed order, so repeated
+    calls agree bit for bit. CUDA tensors go through kernel B7 and add one
+    to ``fused_mha_block_with_mean_probs.launches``; CPU tensors take the
+    plain version. Differentiable through the composed path.
+    """
+    _check(x, wqkv, wo, bo, g, b)
+    if not torch.is_grad_enabled() or not any(
+            t.requires_grad for t in (x, wqkv, wo, bo, g, b)):
+        return _forward_mean_probs(x, wqkv, wo, bo, g, b, eps)
+    return _FusedMHAMeanProbs.apply(x, wqkv, wo, bo, g, b, float(eps))
+
+
+fused_mha_block_with_mean_probs.launches = 0

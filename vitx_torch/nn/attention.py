@@ -1,11 +1,12 @@
-"""Multi-head self-attention, composed from plain torch operations.
+"""Multi-head self-attention, composed: projections, then attention.
 
 The counterpart of ``vitx/nn/attention.py``. Dense models on a CUDA device
-never come here: their attention half runs through the fused block kernel
-(``vitx_torch.kernels.mha_block``). This composed path serves what that
-kernel does not cover (a QKV bias, QK-Norm, a non-standard logit scale,
-attention probabilities) and only on the CPU for now: on a CUDA device it
-would stand in for the flash-attention kernel, which is not ported yet.
+run their attention half through the fused block kernels
+(``vitx_torch.kernels.mha_block``) instead; this composed path serves
+what those do not cover (a QKV bias, QK-Norm, a non-standard logit scale,
+the full attention probabilities, ``fuse_mha="off"``). Its attention is
+the flash-attention kernel B5 (``vitx_torch.kernels.flash_attention``) or
+the plain reference, by vitx's rule.
 
 Scaling is ``1/sqrt(head_dim)`` unless ``scale`` overrides it.
 """
@@ -14,25 +15,24 @@ from __future__ import annotations
 
 import torch
 
-from vitx_torch.nn.layers import matmul32
-
-FLASH_NOT_PORTED = (
-    "the composed attention path needs the flash-attention kernel "
-    "(vitx/kernels/flash_attention.py::_fwd_kernel, ROADMAP B5), which is "
-    "not ported to CUDA yet; it runs on the CPU only")
+from vitx_torch.kernels.flash_attention import (
+    flash_attention, flash_attention_with_mean_probs,
+    flash_attention_with_probs)
+from vitx_torch.nn.layers import dot, matmul32
 
 
-def reference_attention(q, k, v, *, scale=None):
-    """Plain attention over (B, H, T, D) q/k/v -> (B, H, T, D).
+def reference_attention(q, k, v, *, return_probs: bool = False, scale=None):
+    """Plain attention over (B, H, T, D) q/k/v -> (out (B, H, T, D),
+    probs (B, H, T, T) fp32 or None).
 
     fp32 logits and a max-subtracted softmax; the probabilities are cast to
     the compute dtype for the PV product (``vitx/nn/attention.py:22-43``).
-    Attention probabilities as an output come with ROADMAP A9.
     """
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
     probs = torch.softmax(matmul32(q, k.transpose(-1, -2)) * scale, dim=-1)
-    return matmul32(probs.to(q.dtype), v).to(q.dtype)
+    out = matmul32(probs.to(q.dtype), v).to(q.dtype)
+    return out, (probs if return_probs else None)
 
 
 def _qk_layer_norm(t, scale, eps):
@@ -45,23 +45,40 @@ def _qk_layer_norm(t, scale, eps):
     return (normed * scale.float()[None, :, None, :]).to(t.dtype)
 
 
+def use_flash(impl: str, x, head_dim: int, scale=None) -> bool:
+    """vitx's rule (``vitx/nn/attention.py:102-111``) with "on a TPU" read
+    as "x on a CUDA device": B5 for ``impl="flash"``, or for ``"auto"`` on
+    CUDA with D >= 32 and T >= 128; never with a non-standard scale."""
+    if scale is not None:
+        return False
+    if impl == "flash":
+        return True
+    if impl == "auto":
+        return x.is_cuda and head_dim >= 32 and x.shape[1] >= 128
+    return False
+
+
 def multi_head_attention(x, wqkv, bqkv, wo, bo, *, num_heads: int,
+                         impl: str = "auto", return_probs: bool = False,
+                         probs_mode: str = "full",
                          scale: float | None = None, qk_scales=None,
                          qk_eps: float = 1e-5):
-    """Composed multi-head self-attention over (B, T, E) tokens -> (B, T, E).
+    """Composed multi-head self-attention over (B, T, E) tokens.
 
     wqkv: (E, 3, H, D); bqkv: (3, H, D) or None; wo: (E, E); bo: (E,) or
     None; ``qk_scales``: the (H, D) QK-Norm scales of q and k, or None.
+    ``impl``: "auto" | "flash" | "reference" (``use_flash``).
+    ``return_probs``: also return the attention probabilities, (B, H, T, T)
+    fp32, or their head mean (B, T, T) for ``probs_mode="mean"``.
+    Returns (out (B, T, E), probs or None).
     """
-    if x.is_cuda:
-        raise NotImplementedError(FLASH_NOT_PORTED)
     B, T, E = x.shape
     H = num_heads
     D = E // H
     w = wqkv.to(x.dtype)
 
     def proj(s):
-        r = matmul32(x, w[:, s].reshape(E, H * D)).to(x.dtype)
+        r = dot(x, w[:, s].reshape(E, H * D))
         r = r.reshape(B, T, H, D).transpose(1, 2)            # (B, H, T, D)
         if bqkv is not None:
             r = r + bqkv[s].to(x.dtype)[None, :, None, :]
@@ -71,9 +88,21 @@ def multi_head_attention(x, wqkv, bqkv, wo, bo, *, num_heads: int,
     if qk_scales is not None:
         q = _qk_layer_norm(q, qk_scales[0], qk_eps)
         k = _qk_layer_norm(k, qk_scales[1], qk_eps)
-    out = reference_attention(q, k, v, scale=scale)
+    if use_flash(impl, x, D, scale):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        if not return_probs:
+            out, probs = flash_attention(q, k, v), None
+        elif probs_mode == "mean":
+            out, probs = flash_attention_with_mean_probs(q, k, v)
+        else:
+            out, probs = flash_attention_with_probs(q, k, v)
+    else:
+        out, probs = reference_attention(q, k, v, return_probs=return_probs,
+                                         scale=scale)
+        if probs is not None and probs_mode == "mean":
+            probs = probs.mean(dim=1)
     out = out.transpose(1, 2).reshape(B, T, E)
-    out = matmul32(out, wo.to(x.dtype)).to(x.dtype)
+    out = dot(out, wo.to(x.dtype))
     if bo is not None:
         out = out + bo.to(x.dtype)
-    return out
+    return out, probs

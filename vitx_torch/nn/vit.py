@@ -4,12 +4,14 @@ The counterpart of ``vitx/nn/vit.py``. Parameters are the same nested dict
 as vitx's (``init_params``): block leaves stacked on a leading depth axis,
 ``wqkv`` as (E, 3, H, D), ``wo`` (E, E), fp32. Images are NHWC. The blocks
 run as a Python loop; on a CUDA device each block's attention half is
-kernel K1 and its MLP half kernel K2 (``vitx_torch/kernels``). Everything
-else -- patch embedding, residual adds, the head -- is plain torch, as it
-is XLA in vitx. ``model_logits`` is the differentiable forward the train
-step runs (dropout and drop-path from an explicit ``torch.Generator``);
-``forward`` is inference, under ``torch.inference_mode``. vitx's ``remat``
-is accepted and ignored: autograd keeps the activations.
+kernel K1 (B7 when head-mean probabilities are asked for; B5 inside the
+composed path) and its MLP half kernel K2 (``vitx_torch/kernels``).
+Everything else -- patch embedding, residual adds, the head, the rollout
+chain -- is plain torch, as it is XLA in vitx. ``model_logits`` is the
+differentiable forward the train step runs (dropout and drop-path from an
+explicit ``torch.Generator``); ``forward``, ``forward_with_attn`` and
+``forward_with_rollout`` are inference, under ``torch.inference_mode``.
+vitx's ``remat`` is accepted and ignored: autograd keeps the activations.
 """
 
 from __future__ import annotations
@@ -19,7 +21,8 @@ import torch
 
 from vitx_torch.core.config import ViTConfig
 from vitx_torch.core.device import resolve_device
-from vitx_torch.kernels.mha_block import fused_mha_block
+from vitx_torch.kernels.mha_block import (fused_mha_block,
+                                          fused_mha_block_with_mean_probs)
 from vitx_torch.kernels.mlp_block import fused_mlp_block
 from vitx_torch.nn.attention import multi_head_attention
 from vitx_torch.nn.layers import (activation, add_layer_norm, dot,
@@ -189,13 +192,13 @@ def embed_tokens(params: Params, images, cfg: ViTConfig):
     return add_pos_embed(params, x, cfg)
 
 
-def _use_fused_mha(cfg: ViTConfig, bp, x) -> bool:
+def _use_fused_mha(cfg: ViTConfig, bp, x,
+                   return_probs: bool = False) -> bool:
     """vitx's rule (``vitx/nn/vit.py:287-304``) with "is this a TPU" read
-    as "are the tensors on a CUDA device". The port's forward requests no
-    attention probabilities (ROADMAP A9), so that condition is absent."""
+    as "are the tensors on a CUDA device"."""
     if cfg.parity == "bug_exact":
         return False
-    if "bqkv" in bp or cfg.fuse_mha == "off":
+    if return_probs or "bqkv" in bp or cfg.fuse_mha == "off":
         return False
     if cfg.qk_norm or cfg.pos_embed == "rope":
         return False
@@ -214,28 +217,44 @@ def _use_fused_mlp(cfg: ViTConfig, x) -> bool:
 
 
 def _encoder_block(x, pending, bp, cfg: ViTConfig, *, rng=None,
-                   deterministic: bool = True, dp_rate: float = 0.0):
+                   deterministic: bool = True, dp_rate: float = 0.0,
+                   return_probs: bool = False, probs_mode: str = "full"):
     """Pre-LN block: x + MHA(LN1(x)); x + MLP(LN2(x)). The previous block's
     MLP output arrives as ``pending`` and the block returns its own as the
     new pending (``vitx/nn/vit.py:319-436``). Dropout, then drop-path at
-    this block's ``dp_rate``, on both branches when training."""
+    this block's ``dp_rate``, on both branches when training. Returns
+    (x, pending, probs): probs (B, H, T, T) fp32, their head mean (B, T, T)
+    for ``probs_mode="mean"``, or None without ``return_probs``.
+
+    Head-mean probabilities on the fused path go to B7 on CUDA for every
+    shape K1 takes, where vitx sends them to ``_kernel_hchunk`` or, past
+    its VMEM limits, to its composed fallback (vit.py:348-377) -- the same
+    function; on the CPU, as in vitx's interpret mode, they take the
+    composed path."""
     dt = x.dtype
-    if _use_fused_mha(cfg, bp, x):
+    fused_mean_probs = (return_probs and probs_mode == "mean" and x.is_cuda
+                        and _use_fused_mha(cfg, bp, x))
+    probs = None
+    if _use_fused_mha(cfg, bp, x, return_probs) or fused_mean_probs:
         x = x + pending
         bo = bp.get("bo")
         if bo is None:
             bo = torch.zeros(cfg.embed_dim, dtype=torch.float32,
                              device=x.device)
-        attn_out = fused_mha_block(
-            x, bp["wqkv"].to(dt), bp["wo"].to(dt), bo.float(),
-            bp["ln1_scale"].float(), bp["ln1_bias"].float(),
-            eps=cfg.layer_norm_eps)
-    else:   # composed: CPU only until the flash kernel (B5) is ported
+        args = (x, bp["wqkv"].to(dt), bp["wo"].to(dt), bo.float(),
+                bp["ln1_scale"].float(), bp["ln1_bias"].float())
+        if fused_mean_probs:
+            attn_out, probs = fused_mha_block_with_mean_probs(
+                *args, eps=cfg.layer_norm_eps)
+        else:
+            attn_out = fused_mha_block(*args, eps=cfg.layer_norm_eps)
+    else:   # composed: B5 or the reference attention inside
         x, h = add_layer_norm(x, pending, bp["ln1_scale"], bp["ln1_bias"],
                               eps=cfg.layer_norm_eps)
-        attn_out = multi_head_attention(
+        attn_out, probs = multi_head_attention(
             h, bp["wqkv"], bp.get("bqkv"), bp["wo"], bp.get("bo"),
-            num_heads=cfg.num_heads,
+            num_heads=cfg.num_heads, impl=cfg.attn_impl,
+            return_probs=return_probs, probs_mode=probs_mode,
             scale=(float(cfg.head_dim) ** 0.5
                    if cfg.parity == "bug_exact" else None),
             qk_scales=((bp["lnq_scale"], bp["lnk_scale"])
@@ -266,31 +285,51 @@ def _encoder_block(x, pending, bp, cfg: ViTConfig, *, rng=None,
     if cfg.drop_path:
         mlp_out = drop_path(mlp_out, dp_rate, rng,
                             deterministic=deterministic)
-    return x, mlp_out
+    return x, mlp_out, probs
+
+
+def unstack(blocks: Params):
+    """The stacked block leaves -> one parameter dict per block. Each
+    stacked leaf is unbound once, so its gradient is one stack."""
+    layers = {k: v.unbind(0) for k, v in blocks.items()}
+    depth = len(next(iter(layers.values())))
+    return [{k: v[i] for k, v in layers.items()} for i in range(depth)]
 
 
 def run_blocks(blocks: Params, x, cfg: ViTConfig, *, rng=None,
-               deterministic: bool = True):
+               deterministic: bool = True, return_probs: bool = False,
+               probs_mode: str = "full"):
     """Run the stacked blocks over tokens x (B, T, E): a Python loop in
-    place of vitx's ``lax.scan``; returns x + pending
-    (``vitx/nn/vit.py:513-515``). Drop-path rates rise linearly from 0 at
-    the first block to ``cfg.drop_path`` at the last (vit.py:464-468).
-    Each stacked leaf is unbound once, so its gradient is one stack."""
-    layers = {k: v.unbind(0) for k, v in blocks.items()}
-    rates = torch.linspace(0.0, cfg.drop_path, cfg.depth).tolist()
+    place of vitx's ``lax.scan``; returns (x + pending, probs stacked over
+    the blocks or None) (``vitx/nn/vit.py:439-515``). The number of blocks
+    is the stack's. Drop-path rates rise linearly from 0 at the first
+    block to ``cfg.drop_path`` at the last (vit.py:464-468)."""
+    layers = unstack(blocks)
+    rates = torch.linspace(0.0, cfg.drop_path, len(layers)).tolist()
     pending = torch.zeros_like(x)
-    for layer in range(cfg.depth):
-        bp = {k: v[layer] for k, v in layers.items()}
-        x, pending = _encoder_block(x, pending, bp, cfg, rng=rng,
-                                    deterministic=deterministic,
-                                    dp_rate=rates[layer])
-    return x + pending
+    probs = []
+    for bp, rate in zip(layers, rates):
+        x, pending, p = _encoder_block(
+            x, pending, bp, cfg, rng=rng, deterministic=deterministic,
+            dp_rate=rate, return_probs=return_probs, probs_mode=probs_mode)
+        probs.append(p)
+    return x + pending, (torch.stack(probs) if return_probs else None)
+
+
+def _final_norm(params: Params, x, cfg: ViTConfig):
+    if cfg.final_norm:
+        fn = params["final_norm"]
+        x = layer_norm(x, fn["scale"], fn["bias"], eps=cfg.layer_norm_eps)
+    return x
 
 
 def encode(params: Params, images, cfg: ViTConfig, *, rng=None,
-           deterministic: bool = True):
+           deterministic: bool = True, return_probs: bool = False,
+           probs_mode: str = "full"):
     """Images -> encoder output tokens (B, T, E). With a generator, dropout
     on the embedded tokens and in every block (``vitx/nn/vit.py:699-722``).
+    With ``return_probs``, (tokens, per-block probs): (depth, B, H, T, T)
+    fp32, or (depth, B, T, T) for ``probs_mode="mean"``.
     """
     check_ported(cfg)
     x = embed_tokens(params, images, cfg)
@@ -300,12 +339,11 @@ def encode(params: Params, images, cfg: ViTConfig, *, rng=None,
                 "patch dropout (patch_drop) is not ported to vitx_torch yet "
                 "(ROADMAP A12)")
         x = dropout(x, cfg.dropout, rng, deterministic=deterministic)
-    x = run_blocks(params["blocks"], x, cfg, rng=rng,
-                   deterministic=deterministic)
-    if cfg.final_norm:
-        fn = params["final_norm"]
-        x = layer_norm(x, fn["scale"], fn["bias"], eps=cfg.layer_norm_eps)
-    return x
+    x, probs = run_blocks(params["blocks"], x, cfg, rng=rng,
+                          deterministic=deterministic,
+                          return_probs=return_probs, probs_mode=probs_mode)
+    x = _final_norm(params, x, cfg)
+    return (x, probs) if return_probs else x
 
 
 def classify(params: Params, x, cfg: ViTConfig):
@@ -342,18 +380,77 @@ def model_logits(params: Params, images, cfg: ViTConfig, *, rng=None,
     return classify(params, x, cfg)
 
 
+def on_device(params: Params, images, device):
+    """(params, images) on ``device`` (a CUDA device by default; raises
+    when there is none); ``images`` may be a numpy array or a tensor."""
+    dev = resolve_device(device)
+    if isinstance(images, np.ndarray):
+        images = torch.from_numpy(images)
+    return params_to(params, dev), images.to(dev)
+
+
 def forward(params: Params, images, cfg: ViTConfig, *, device="cuda"):
     """Full model: images (B, H, W, C) -> logits (B, classes), fp32.
 
-    ``images`` may be a numpy array or a tensor; it and the parameters are
-    moved to ``device`` (a CUDA device by default; raises when there is
-    none). Inference only, under ``torch.inference_mode``: dropout and
-    drop-path are identities.
+    ``images`` and the parameters are moved to ``device`` (``on_device``).
+    Inference only, under ``torch.inference_mode``: dropout and drop-path
+    are identities.
     """
-    dev = resolve_device(device)
-    params = params_to(params, dev)
-    if isinstance(images, np.ndarray):
-        images = torch.from_numpy(images)
-    images = images.to(dev)
+    params, images = on_device(params, images, device)
     with torch.inference_mode():
         return model_logits(params, images, cfg)
+
+
+def forward_with_attn(params: Params, images, cfg: ViTConfig, *,
+                      probs_mode: str = "full", device="cuda"):
+    """Instrumented forward (``vitx/nn/vit.py:885-900``): (logits,
+    attn_probs), attn_probs (depth, B, H, T, T) fp32, or the head mean
+    (depth, B, T, T) for ``probs_mode="mean"`` -- what
+    ``attention_rollout`` reads. On CUDA the full probabilities come from
+    B5 on the composed path, the head mean from B7 on the fused one.
+    Devices as ``forward``."""
+    if probs_mode not in ("full", "mean"):
+        raise ValueError(f"probs_mode must be 'full' or 'mean', got "
+                         f"{probs_mode!r}")
+    params, images = on_device(params, images, device)
+    with torch.inference_mode():
+        x, probs = encode(params, images, cfg, return_probs=True,
+                          probs_mode=probs_mode)
+        return classify(params, x, cfg), probs
+
+
+def forward_with_rollout(params: Params, images, cfg: ViTConfig, *,
+                         device="cuda"):
+    """Forward + attention rollout in one pass (``vitx/nn/vit.py:903-981``):
+    (logits, (B, N) rollout weights of the CLS token over the N patches).
+
+    Each block's head-mean probabilities (B7 on CUDA) update an fp32
+    (B, T, T) carry R <- rownorm(0.5 P R + 0.5 R) -- equal to chaining
+    rownorm(0.5 P + 0.5 I), since R's rows sum to 1 -- so the
+    (depth, B, T, T) stack is never held. The chain is a plain fp32
+    ``torch.matmul`` (TF32 off). Matches
+    ``attention_rollout(head_fusion="mean")``. Devices as ``forward``."""
+    check_ported(cfg)
+    params, images = on_device(params, images, device)
+    with torch.inference_mode():
+        x = embed_tokens(params, images, cfg)
+        B, T = x.shape[0], x.shape[1]
+        rollout = torch.eye(T, dtype=torch.float32,
+                            device=x.device).expand(B, T, T)
+        pending = torch.zeros_like(x)
+        for bp in unstack(params["blocks"]):
+            x, pending, probs = _encoder_block(
+                x, pending, bp, cfg, return_probs=True, probs_mode="mean")
+            r2 = 0.5 * torch.matmul(probs, rollout) + 0.5 * rollout
+            rollout = r2 / r2.sum(dim=-1, keepdim=True)
+        x = _final_norm(params, x + pending, cfg)
+        if cfg.parity == "bug_exact":
+            # the head reads token 0, the first patch (the CLS is appended);
+            # its row over the patch tokens
+            cls_to_patches = rollout[:, 0, :-1]
+        else:
+            p = cfg.num_prefix_tokens
+            cls_to_patches = rollout[:, 0, p:p + cfg.num_patches]
+        denom = cls_to_patches.sum(dim=-1, keepdim=True)
+        weights = cls_to_patches / denom.clamp_min(1e-12)
+        return classify(params, x, cfg), weights

@@ -8,7 +8,8 @@ top-k run on the device in fp32, so only k values per image return to the
 host. The server warms up at start (which also builds the CUDA kernels),
 tracks p50/p90/p99 latency with drift against a recent window, and bounds
 its queue (``max_queue``) so overload raises ``ServerOverloaded`` instead of
-growing the latency tail.
+growing the latency tail. ``explain`` answers one image with a heatmap
+(attention rollout or Grad-CAM) outside the batcher.
 """
 
 from __future__ import annotations
@@ -25,8 +26,9 @@ import torch
 
 from vitx_torch.core.config import ViTConfig
 from vitx_torch.core.device import resolve_device
-from vitx_torch.nn.vit import check_ported, classify, encode, init_params, \
-    params_to
+from vitx_torch.nn.saliency import grad_cam
+from vitx_torch.nn.vit import check_ported, classify, encode, \
+    forward_with_rollout, init_params, params_to
 
 
 class ServerOverloaded(RuntimeError):
@@ -41,6 +43,7 @@ class ServerStats:
     batches: int = 0
     padded_slots: int = 0
     rejected: int = 0
+    explains: int = 0
     window: int = 10_000
     recent_window: int = 1_000
     latencies_ms: deque = field(default=None)
@@ -63,13 +66,14 @@ class ServerStats:
             recent = sorted(self.recent_ms)
             requests, batches = self.requests, self.batches
             rejected, padded = self.rejected, self.padded_slots
+            explains = self.explains
         occupancy = 0.0
         if requests + padded:
             occupancy = requests / (requests + padded)
         p50, p99 = self._pct(lat, 0.50), self._pct(lat, 0.99)
         p50_r, p99_r = self._pct(recent, 0.50), self._pct(recent, 0.99)
         return {"requests": requests, "batches": batches,
-                "rejected": rejected,
+                "rejected": rejected, "explains": explains,
                 "batch_occupancy": round(occupancy, 3),
                 "p50_ms": round(p50, 2),
                 "p90_ms": round(self._pct(lat, 0.90), 2),
@@ -131,6 +135,10 @@ class InferenceServer:
         shape = (batch_size, cfg.image_size, cfg.image_size,
                  cfg.num_channels)
         self._run(torch.zeros(shape, dtype=cfg.cdtype(), device=self.device))
+        # explain() bypasses the batcher: one at a time, and beyond 4 in
+        # flight it raises ServerOverloaded instead of stacking threads
+        self._explain_lock = threading.Lock()
+        self._explain_slots = threading.Semaphore(4)
         self._thread = threading.Thread(target=self._collector, daemon=True)
         self._thread.start()
 
@@ -138,11 +146,69 @@ class InferenceServer:
         """images on the device -> (values (B, k), indices (B, k)) on the
         host: the forward, fp32 softmax and top-k on the device."""
         with torch.inference_mode():
-            logits = classify(self._params, encode(self._params, images,
-                                                   self.cfg), self.cfg)
-            probs = torch.softmax(logits.float() * self._inv_t, dim=-1)
-            values, indices = torch.topk(probs, self.top_k, dim=-1)
-            return values.cpu().numpy(), indices.cpu().numpy()
+            return self._topk(classify(
+                self._params, encode(self._params, images, self.cfg),
+                self.cfg))
+
+    def _topk(self, logits):
+        probs = torch.softmax(logits.float() * self._inv_t, dim=-1)
+        values, indices = torch.topk(probs, self.top_k, dim=-1)
+        return values.cpu().numpy(), indices.cpu().numpy()
+
+    def explain(self, image: np.ndarray, *, method: str = "rollout",
+                class_idx: int | None = None) -> dict:
+        """One image's top-k classes and a patch-grid heatmap
+        (``vitx/serve.py:212-305``).
+
+        ``method="rollout"``: class-agnostic attention rollout
+        (``forward_with_rollout``, where CLS looked). ``method="gradcam"``:
+        class-specific Grad-CAM (``grad_cam``) for ``class_idx``, by
+        default the predicted class. Runs at batch 1 outside the batcher,
+        one call at a time; beyond 4 in flight it raises
+        ``ServerOverloaded``. Returns predict's fields plus ``heatmap``
+        ((grid*grid,) patch-raster weights), ``method`` and ``grid``; the
+        HTTP front end serves it as ``POST /explain``.
+        """
+        if method not in ("rollout", "gradcam"):
+            raise ValueError(f"unknown explain method {method!r} "
+                             "(rollout or gradcam)")
+        if class_idx is not None:
+            if method != "gradcam":
+                raise ValueError("class selection needs method='gradcam' "
+                                 "(rollout is class-agnostic)")
+            if not 0 <= int(class_idx) < self.cfg.num_classes:
+                raise ValueError(f"class_idx {class_idx} out of range "
+                                 f"[0, {self.cfg.num_classes})")
+        expect = (self.cfg.image_size, self.cfg.image_size,
+                  self.cfg.num_channels)
+        if tuple(image.shape) != expect:
+            raise ValueError(f"expected image shape {expect}, "
+                             f"got {tuple(image.shape)}")
+        if not self._explain_slots.acquire(blocking=False):
+            with self.stats.lock:
+                self.stats.rejected += 1
+            raise ServerOverloaded("too many in-flight explain requests")
+        try:
+            x = torch.from_numpy(np.array(image, np.float32)[None]).to(
+                self.device).to(self.cfg.cdtype())
+            with self._explain_lock:
+                if method == "rollout":
+                    logits, heat = forward_with_rollout(
+                        self._params, x, self.cfg, device=self.device)
+                else:
+                    heat, logits = grad_cam(
+                        self._params, x, self.cfg, device=self.device,
+                        class_idx=(None if class_idx is None
+                                   else int(class_idx)))
+                values, indices = self._topk(logits)
+                heat = heat.float().cpu().numpy()
+        finally:
+            self._explain_slots.release()
+        with self.stats.lock:
+            self.stats.explains += 1
+        return {"probs": values[0].tolist(), "classes": indices[0].tolist(),
+                "heatmap": heat[0].tolist(), "method": method,
+                "grid": self.cfg.grid_size}
 
     def predict(self, image: np.ndarray, timeout: float = 30.0) -> dict:
         """image: (H, W, C) float array in model input scale."""
