@@ -20,6 +20,15 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               K1 and K2 (gelu_tanh) at large16_384 block shapes, batch 2
               and 8; float32 and bfloat16; B5's head mean and B7 twice,
               bit for bit; probability rows summing to 1 within 1e-5.
+              B8 (the ToMe block, with a random QKV bias and log_size in
+              [0, log 6]) against its plain version at the base16 r=13
+              server's blocks (32, 197) first, (32, 119) and (32, 54)
+              last, and at (8, 197), (8, 41), (2, 13); at large16_384's
+              (8, 577), (8, 416), B9's range, and (8, 48), the last r=23
+              block: float32 1e-4, bfloat16 BF16_TOL; k_mean twice, bit
+              for bit; with zero biases its out equal to K1's bit for
+              bit. K2 at the r=13 server's first and last MLP shapes,
+              (32, 184) and (32, 41).
 4. grad    -- the training kernels at ViT-B/16 shapes (T 197) against
               their plain versions: batch 8 in float32 (1e-4) and bfloat16,
               and the train main path's batch 128 in bfloat16: B2
@@ -65,14 +74,34 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               and without class) from 4 threads, then 3 of each method
               one at a time (service time alone), each equal to a direct
               call, with the launches Grad-CAM's routing gives.
-9. times   -- CUDA-event medians: the base16 forward at batch 256 bf16
+9. tome    -- main path 4, ToMe token merging at full width and depth,
+              random weights from seed 0: (a) base16 tome_r=13 at batch
+              8, bf16, on the kernels: finite logits, launches B8 12, K2
+              12, nothing else; reported, not held to a bar: the logits'
+              distance from the kernel-free route (fuse_mha="off",
+              fuse_mlp="off") and how many images the two routes
+              partition alike (bf16 rounding tips near-tie merges); (a')
+              the same model in float32 at batch 2, card against the
+              CPU's plain versions: logits 1e-4, the merges' sources
+              equal; (b) lossless: base16 fp32 batch 2, a constant image
+              and zero pos_embed, ToMe logits equal to full-token logits
+              within 1e-4; (c), (c') large16_384 tome_r=23 as (a), (a'),
+              B8 24, K2 24; (d) a depth-2 fp32 large16_384 copy with a
+              random QKV bias at tome_r=(65, 64) as (a'); (e) an
+              InferenceServer for base16 tome_r=13 at batch 32 answering
+              64 requests from 8 threads, each top-k equal to a direct
+              ToMe forward.
+10. times  -- CUDA-event medians: the base16 forward at batch 256 bf16
               (img/s), the train step at batch 128 bf16 (img/s), the
               large16_384 rollout forward at batch 32 bf16 (img/s) and
-              forward_with_attn("full") at batch 2, each with a
-              torch.profiler split; for each kernel its time, its bound,
-              its plain version's time and one PyTorch library call of the
+              forward_with_attn("full") at batch 2, the ToMe forward at
+              base16 b256 (r=13 and (35, 34)) and large16_384 b32 (r=23
+              and (65, 64 x 6)), each with a torch.profiler split (ToMe:
+              r=13 and r=23); for each kernel its time, its bound, its
+              plain version's time and one PyTorch library call of the
               same function where there is one, at the shapes of those
-              paths.
+              paths (B8 at base16's first and last r=13 blocks, and at
+              large16_384's T 577 and 416, where vitx takes B9).
 
 Each main path runs with the kernels' launch counts set to 0 just before
 it and read just after. The last lines are one JSON object listing the
@@ -117,7 +146,7 @@ PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 (data sheet)
 PEAK_FP32_FLOPS = 67e12       # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
 PHASES = ("device", "build", "kernels", "grad", "forward", "serve", "train",
-          "explain", "times")
+          "explain", "tome", "times")
 
 KERNELS = {
     "fused_mha_block": {
@@ -168,6 +197,15 @@ KERNELS = {
         "replaces": "vitx/kernels/mha_block.py:174",
         "tpu_kernel": "vitx/kernels/mha_block.py::_kernel_hchunk "
                       "(mean probs)",
+    },
+    "fused_mha_block_tome": {
+        "source": "vitx_torch/kernels/csrc/mha_block.cu",
+        "replaces": "vitx/kernels/mha_block.py:507",
+        "tpu_kernel": "vitx/kernels/mha_block.py::_kernel_tome",
+        # B9 is B8 cut into head chunks only for the TPU's VMEM: the entry
+        # vitx_mha_block_tome computes its function at every T
+        "also_replaces": "vitx/kernels/mha_block.py:686",
+        "also_tpu_kernel": "vitx/kernels/mha_block.py::_kernel_hchunk_tome",
     },
 }
 NO_LIBRARY = ("no single PyTorch call returns attention probabilities "
@@ -263,6 +301,22 @@ def phase_kernels(errs: dict):
         for dtype, tol in ((torch.float32, FP32_TOL),
                            (torch.bfloat16, BF16_TOL)):
             check_mean_probs_block(B, 577, 1024, 16, dtype, tol, errs)
+    # B8 where the base16 r=13 server runs it (batch 32; T 197 the first
+    # block, 54 the last, 119 between), at batch 8 and small T; at
+    # large16_384's early ToMe blocks, the range of B9 (T 577 .. 416), and
+    # its last r=23 block (T 48)
+    for shape in ((32, 197, 768, 12), (32, 119, 768, 12), (32, 54, 768, 12),
+                  (8, 197, 768, 12), (8, 41, 768, 12), (2, 13, 768, 12),
+                  (8, 577, 1024, 16), (8, 416, 1024, 16), (8, 48, 1024, 16)):
+        for dtype, tol in ((torch.float32, FP32_TOL),
+                           (torch.bfloat16, BF16_TOL)):
+            check_tome_block(*shape, dtype, tol, errs)
+    # K2 at the r=13 server's first and last MLP shapes (41 tokens leave
+    # the last block)
+    for T in (184, 41):
+        for dtype, tol in ((torch.float32, FP32_TOL),
+                           (torch.bfloat16, BF16_TOL)):
+            check_block(32, T, E, H, dtype, tol, errs, mha=False)
 
 
 def check_rows(what: str, probs, **info) -> None:
@@ -343,13 +397,55 @@ def check_mean_probs_block(B, T, E, H, dtype, tol, errs: dict) -> None:
           errs if bf else None, "fused_mlp_block", act="gelu_tanh", **info)
 
 
-def check_block(B, T, E, H, dtype, tol, errs: dict):
+def tome_inputs(B, T, E, H, dtype, seed, device="cuda"):
+    """x and B8's other inputs at (B, T, E): random nonzero bqkv, and
+    log_size in [0, log 6] (tokens standing for 1 to 6 originals)."""
+    x, mha, _ = block_inputs(B, T, E, H, E, dtype, seed, device)
+    rng = np.random.default_rng(seed + 1)
+    sizes = 1.0 + 5.0 * rng.random((B, T))
+    tome = dict(mha, bqkv=seeded((3, H, E // H), seed + 2, 0.1,
+                                 device=device),
+                log_size=torch.from_numpy(np.log(sizes).astype(np.float32))
+                .to(device))
+    return x, tome
+
+
+def check_tome_block(B, T, E, H, dtype, tol, errs: dict) -> None:
+    """B8 against ``mha_block_tome_plain`` (out and k_mean); k_mean twice,
+    bit for bit; with zero bqkv and log_size, its out equal to K1's bit for
+    bit (the shared GEMM and attention bodies are K1's)."""
+    from vitx_torch.kernels import (fused_mha_block, fused_mha_block_tome,
+                                    mha_block_tome_plain)
+
+    x, tm = tome_inputs(B, T, E, H, dtype, 60 + T)
+    info = {"batch": B, "shape": [B, T, E], "dtype": str(dtype)}
+    out = fused_mha_block_tome(x, **tm)
+    torch.cuda.synchronize()
+    check("kernels", "fused_mha_block_tome (out, k_mean)", out,
+          mha_block_tome_plain(x, **tm), tol,
+          errs if dtype == torch.bfloat16 else None, "fused_mha_block_tome",
+          **info)
+    if not torch.equal(fused_mha_block_tome(x, **tm)[1], out[1]):
+        raise AssertionError(f"B8 {info}: two calls' k_mean differ")
+    zero = dict(tm, bqkv=torch.zeros_like(tm["bqkv"]),
+                log_size=torch.zeros_like(tm["log_size"]))
+    k1 = fused_mha_block(x, **{k: v for k, v in tm.items()
+                               if k not in ("bqkv", "log_size")})
+    if not torch.equal(fused_mha_block_tome(x, **zero)[0], k1):
+        raise AssertionError(f"B8 {info}: zero biases differ from K1")
+    emit({"phase": "kernels", "check": "fused_mha_block_tome k_mean "
+          "bit-identical twice; zero biases bit-equal to K1", **info})
+
+
+def check_block(B, T, E, H, dtype, tol, errs: dict, mha: bool = True):
+    """K1 (unless ``mha`` is False) and K2 in its three activations
+    against their plain versions at (B, T, E)."""
     from vitx_torch.kernels import (fused_mha_block, fused_mlp_block,
                                     mha_block_plain, mlp_block_plain)
 
-    x, mha, mlp = block_inputs(B, T, E, H, 4 * E, dtype, B, "cuda")
-    runs = [("fused_mha_block", None, lambda: fused_mha_block(x, **mha),
-             lambda: mha_block_plain(x, **mha))]
+    x, attn, mlp = block_inputs(B, T, E, H, 4 * E, dtype, B, "cuda")
+    runs = [("fused_mha_block", None, lambda: fused_mha_block(x, **attn),
+             lambda: mha_block_plain(x, **attn))] if mha else []
     for act in ("gelu", "gelu_tanh", "relu"):
         runs.append(("fused_mlp_block", act,
                      lambda a=act: fused_mlp_block(x, **mlp, act=a),
@@ -359,7 +455,7 @@ def check_block(B, T, E, H, dtype, tol, errs: dict):
         torch.cuda.synchronize()
         check("kernels", name, out, plain(), tol,
               errs if dtype == torch.bfloat16 and act in (None, "gelu_tanh")
-              else None, name, act=act, batch=B, dtype=str(dtype))
+              else None, name, act=act, batch=B, T=T, dtype=str(dtype))
 
 
 def wrappers() -> dict:
@@ -383,9 +479,11 @@ def launches_of(**per: int) -> dict:
 
 
 def forward_launches(cfg, forwards: int) -> dict:
-    """Inference launches: one K1 and one K2 per block, nothing else."""
-    return launches_of(fused_mha_block=cfg.depth * forwards,
-                       fused_mlp_block=cfg.depth * forwards)
+    """Inference launches: one K1 (B8 with ``cfg.tome_r``) and one K2 per
+    block, nothing else."""
+    attn = "fused_mha_block_tome" if cfg.tome_r else "fused_mha_block"
+    return launches_of(**{attn: cfg.depth * forwards,
+                          "fused_mlp_block": cfg.depth * forwards})
 
 
 def check(phase: str, what: str, out, ref, tol: float,
@@ -537,7 +635,7 @@ def phase_forward(cfg, params):
         raise AssertionError(f"forward vs plain: rel err {err}")
 
 
-def phase_serve(cfg, params) -> dict:
+def phase_serve(cfg, params, phase: str = "serve") -> dict:
     from vitx_torch import forward
     from vitx_torch.serve import InferenceServer
 
@@ -563,9 +661,8 @@ def phase_serve(cfg, params) -> dict:
         stats = srv.stats.summary()
     launches = counts()
     forwards = 1 + stats["batches"]            # the warm-up, then batches
-    expect = forward_launches(cfg, forwards)
-    if launches != expect:
-        raise AssertionError(f"serve launches {launches}, expected {expect}")
+    expect_launches(f"{phase}: server", launches,
+                    forward_launches(cfg, forwards))
     for lo in (0, 32):
         logits = forward(params, imgs[lo:lo + 32], cfg)
         probs, classes = torch.topk(torch.softmax(logits.float(), -1), 5)
@@ -579,7 +676,8 @@ def phase_serve(cfg, params) -> dict:
                                        rtol=1e-6, atol=1e-9)
     if stats["requests"] != 64:
         raise AssertionError(f"stats count {stats['requests']} requests")
-    emit({"phase": "serve", "stats": stats, "launches": launches})
+    emit({"phase": phase, "part": f"server, tome_r={cfg.tome_r}",
+          "stats": stats, "launches": launches})
     return launches
 
 
@@ -1116,10 +1214,11 @@ def kernel_row(name, kern, plain, lib, flops, peak, nbytes, launches,
 
 
 def phase_train_times(cfg, state, batch, step, launches: dict,
-                      errs: dict) -> list:
+                      train_launches: dict, errs: dict) -> list:
     """The train step at batch 128 bf16 (img/s, profiler split), and the
     training kernels' rows at its shapes: B2 and B3 per call, B12 per step
-    over every leaf; K1 and K2 with their stash."""
+    over every leaf; K1 and K2 with their stash. ``per_step`` is from the
+    train path's launches (25 steps, the last 5 fused)."""
     import torch.nn.functional as F
 
     from vitx_torch.kernels import (adamw_plain, attention_bwd,
@@ -1154,7 +1253,7 @@ def phase_train_times(cfg, state, batch, step, launches: dict,
                                     retain_graph=True),
         10 * B * H * T * T * D, PEAK_BF16_FLOPS, 7 * B * H * T * D * 2,
         launches, errs, shape=[B, H, T, D],
-        per_step=launches.get("attention_bwd", 0) // 25))
+        per_step=train_launches.get("attention_bwd", 0) // 25))
     # B3 at a block's LayerNorm (B, T, E)
     x = seeded((B, T, E), 25, 2.0, 0.5, dtype=bf)
     dy = seeded((B, T, E), 26, 0.1, dtype=bf)
@@ -1168,7 +1267,7 @@ def phase_train_times(cfg, state, batch, step, launches: dict,
                                     retain_graph=True),
         20 * B * T * E, PEAK_FP32_FLOPS, 3 * B * T * E * 2 + 3 * E * 4,
         launches, errs, shape=[B, T, E],
-        per_step=launches.get("ln_bwd", 0) // 25))
+        per_step=train_launches.get("ln_bwd", 0) // 25))
     # B12 over every leaf of the base16 state, per step
     ps = [t.detach().clone() for t in leaves(holder[0].params)]
     gs = [torch.randn_like(t) * 1e-3 for t in ps]
@@ -1195,7 +1294,7 @@ def phase_train_times(cfg, state, batch, step, launches: dict,
         "fused_adamw_", fused_all, plain_all, lib_opt.step,
         15 * n, PEAK_FP32_FLOPS, 7 * 4 * n, launches, errs,
         leaves=len(ps), elements=n,
-        per_step=launches.get("fused_adamw_", 0) // 5))
+        per_step=train_launches.get("fused_adamw_", 0) // 5))
     # K1 and K2 with their stash at the step's shapes
     x, mha, mlp = block_inputs(B, T, E, H, cfg.mlp_dim, bf, 28, "cuda")
     stash = {
@@ -1286,6 +1385,209 @@ def phase_explain_times(cfg, params, errs: dict, launches: dict) -> list:
     return rows
 
 
+def tome_logits_sources(params, imgs, cfg, device):
+    """``cfg``'s ToMe logits and the merges' sources on ``device``: the
+    encoder and head of ``forward``, in one pass."""
+    from vitx_torch import encode_tome
+    from vitx_torch.nn.vit import classify, on_device
+
+    p, x = on_device(params, imgs, device)
+    with torch.inference_mode():
+        tokens, src = encode_tome(p, x, cfg, return_sources=True)
+        return classify(p, tokens, cfg), src
+
+
+def phase_tome(cfg, params, large, large_params) -> dict:
+    """Main path 4: ToMe on the card, random weights from seed 0. Returns
+    the launches of all its parts (the reference routes launch
+    nothing)."""
+    import vitx_torch
+    from vitx_torch import forward
+    from vitx_torch.nn.vit import init_params, params_to
+
+    reset_counts()
+    start = counts()
+    expected = []
+    base13, large23 = cfg.replace(tome_r=13), large.replace(tome_r=23)
+
+    def on_kernels(part, c, p, seed):
+        """c's bf16 ToMe forward at batch 8 on the kernels: finite logits
+        and the launches. Reported only: the distance from the kernel-free
+        route (composed_tome, the plain MLP) on the card and how many of
+        the 8 images the two partition alike; the routes round differently
+        in bf16, which tips near-tie merges to other pairs, so no bar
+        holds them. Returns the launches, the partitions' included."""
+        ref_c = c.replace(fuse_mha="off", fuse_mlp="off")
+        imgs = explain_images(c, 8, seed)
+        snap = counts()
+        logits = forward(p, imgs, c)
+        torch.cuda.synchronize()
+        got = delta(snap)
+        expect_launches(part, got, forward_launches(c, 1))
+        snap = counts()
+        ref, ref_src = tome_logits_sources(p, imgs, ref_c, "cuda")
+        torch.cuda.synchronize()
+        expect_launches(f"{part} reference", delta(snap), launches_of())
+        snap = counts()
+        _, src = tome_logits_sources(p, imgs, c, "cuda")
+        alike = int((src == ref_src).flatten(1).all(dim=1).sum())
+        emit({"phase": "tome", "part": part, "launches": got,
+              "rel_err_to_kernel_free_route": card_rel_err(logits, ref),
+              "images_partitioned_alike": alike})
+        if not (logits.shape == (8, c.num_classes)
+                and bool(torch.isfinite(logits).all())):
+            raise AssertionError(f"{part}: logits {logits.shape} or "
+                                 "not finite")
+        return add_launches(got, delta(snap))
+
+    def against_cpu(part, c, card, host, seed):
+        """c's float32 ToMe logits and sources at batch 2 on the kernels
+        against the CPU's plain versions (fuse "on"): in float32 both
+        routes merge the same pairs, so the logits agree within 1e-4 and
+        the sources exactly. Returns the launches."""
+        imgs = explain_images(c, 2, seed)
+        snap = counts()
+        logits, src = tome_logits_sources(card, imgs, c, "cuda")
+        torch.cuda.synchronize()
+        got = delta(snap)
+        expect_launches(part, got, forward_launches(c, 1))
+        ref, ref_src = tome_logits_sources(
+            host, imgs, c.replace(fuse_mha="on", fuse_mlp="on"), "cpu")
+        check("tome", part, logits, ref, FP32_TOL, launches=got,
+              tokens=list(src.shape[1:]))
+        if not torch.equal(src.cpu(), ref_src):
+            raise AssertionError(f"{part}: the merges' sources differ")
+        return got
+
+    # (a) base16 r=13, bf16, batch 8; (a') in float32, card vs CPU
+    expected.append(on_kernels(
+        "a: base16 tome_r=13 b8 bf16 on the kernels", base13, params, 21))
+    expected.append(against_cpu(
+        "a': base16 tome_r=13 b2 fp32, card vs CPU",
+        base13.replace(compute_dtype="float32"), params,
+        params_to(params, "cpu"), 25))
+
+    # (b) lossless: a constant image and zero positional embeddings make
+    # every patch token identical, so merging loses nothing: the fp32
+    # ToMe logits equal the full-token logits (tests/test_tome.py:36-50)
+    c32 = base13.replace(compute_dtype="float32")
+    flat = dict(params, pos_embed=torch.zeros_like(params["pos_embed"]))
+    imgs = np.full((2, cfg.image_size, cfg.image_size, 3), 0.3, np.float32)
+    snap = counts()
+    merged = forward(flat, imgs, c32)
+    full = forward(flat, imgs, c32.replace(tome_r=0))
+    torch.cuda.synchronize()
+    got = delta(snap)
+    expect_launches("(b) lossless", got, add_launches(
+        forward_launches(c32, 1), forward_launches(cfg, 1)))
+    expected.append(got)
+    err = card_rel_err(merged, full)
+    emit({"phase": "tome", "part": "b: lossless, base16 fp32 b2, constant "
+          "image, zero pos_embed: ToMe vs full-token logits",
+          "rel_err": err, "launches": got, "tol": FP32_TOL})
+    if not err <= FP32_TOL:
+        raise AssertionError(f"(b) lossless: rel err {err}")
+    del flat
+
+    # (c) large16_384 r=23, bf16, batch 8; (c') in float32, card vs CPU
+    expected.append(on_kernels(
+        "c: large16_384 tome_r=23 b8 bf16 on the kernels", large23,
+        large_params, 22))
+    expected.append(against_cpu(
+        "c': large16_384 tome_r=23 b2 fp32, card vs CPU",
+        large23.replace(compute_dtype="float32"), large_params,
+        params_to(large_params, "cpu"), 26))
+
+    # (d) a depth-2 fp32 large16_384 copy with a random QKV bias
+    c2 = vitx_torch.get_config("large16_384", depth=2,
+                               compute_dtype="float32", qkv_bias=True,
+                               tome_r=(65, 64))
+    host = init_params(0, c2, device="cpu")
+    host["blocks"]["bqkv"] = seeded(host["blocks"]["bqkv"].shape, 23, 0.1,
+                                    device="cpu")
+    expected.append(against_cpu(
+        "d: large16_384 depth 2 fp32, qkv_bias, tome_r=(65, 64), card vs "
+        "CPU", c2, params_to(host, "cuda"), host, 24))
+    del host
+
+    total = delta(start)
+    expect_launches("tome phase (a)-(d)", total, add_launches(*expected))
+    # (e) the main path: an InferenceServer for base16 r=13 at batch 32
+    # (phase_serve sets the counts to 0 before it and reads them after)
+    return add_launches(total, phase_serve(base13, params, phase="tome"))
+
+
+def tome_kernel_row(base, large, errs: dict, launches: dict) -> dict:
+    """B8's row, bf16: its numbers at base16's first r=13 block (256, 197),
+    and under ``shapes`` those at (256, 197), the last block (256, 54) and
+    large16_384's T 577 and 416 at batch 32, where vitx takes B9. The
+    library call: F.layer_norm, F.linear with the QKV bias, SDPA with
+    log_size as its additive mask, F.linear, and k's mean over the heads."""
+    import torch.nn.functional as F
+
+    from vitx_torch.kernels import fused_mha_block_tome, mha_block_tome_plain
+
+    bf = torch.bfloat16
+    rows = []
+    for c, B, T in ((base, 256, 197), (base, 256, 54), (large, 32, 577),
+                    (large, 32, 416)):
+        E, H, D, eps = c.embed_dim, c.num_heads, c.head_dim, c.layer_norm_eps
+        x, tm = tome_inputs(B, T, E, H, bf, 70 + T)
+        wqkv_t = tm["wqkv"].reshape(E, 3 * E).t().contiguous()
+        bqkv = tm["bqkv"].reshape(3 * E).to(bf)
+        wo_t = tm["wo"].t().contiguous()
+        mask = tm["log_size"].to(bf)[:, None, None, :]
+
+        def lib():
+            h = F.layer_norm(x, (E,), tm["g"].to(bf), tm["b"].to(bf), eps)
+            q, k, v = F.linear(h, wqkv_t, bqkv).view(B, T, 3, H, D).permute(
+                2, 0, 3, 1, 4)
+            o = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+            return (F.linear(o.transpose(1, 2).reshape(B, T, E), wo_t,
+                             tm["bo"].to(bf)), k.mean(dim=1))
+
+        flops = 2 * B * T * E * 4 * E + 4 * B * H * T * T * D
+        nbytes = (2 * B * T * E * 2 + 4 * E * E * 2 + 6 * E * 4 + B * T * 4
+                  + B * T * D * 2)
+        rows.append(kernel_row(
+            "fused_mha_block_tome",
+            lambda: fused_mha_block_tome(x, **tm, eps=eps),
+            lambda: mha_block_tome_plain(x, **tm, eps=eps), lib, flops,
+            PEAK_BF16_FLOPS, nbytes, launches, errs, shape=[B, T, E]))
+        del x, tm
+    keep = ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "tflops")
+    return dict(rows[0], shapes=[{k: r[k] for k in keep} for r in rows])
+
+
+def phase_tome_times(cfg, params, large, large_params, errs: dict,
+                     launches: dict) -> list:
+    """The ToMe forward at bench configs 6 and 8's operating points
+    (base16 b256 at r=13 and (35, 34); large16_384 b32 at r=23 and
+    (65, 64 x 6)) in img/s, a profiler split at r=13 and r=23, and B8's
+    row (``tome_kernel_row``)."""
+    from vitx_torch import forward
+
+    gen = torch.Generator("cuda").manual_seed(15)
+    for c, p, B in ((cfg.replace(tome_r=13), params, 256),
+                    (cfg.replace(tome_r=(35, 34)), params, 256),
+                    (large.replace(tome_r=23), large_params, 32),
+                    (large.replace(tome_r=(65,) + (64,) * 6), large_params,
+                     32)):
+        imgs = torch.randn(B, c.image_size, c.image_size, 3, device="cuda",
+                           generator=gen).to(torch.bfloat16)
+        ms = cuda_ms(lambda: forward(p, imgs, c), reps=10)
+        what = f"tome_forward {c.image_size} r={c.tome_r}"
+        emit({"phase": "times", "what": what, "batch": B, "ms": ms,
+              "img_per_s": B / (ms / 1000.0),
+              "tokens_last_block": c.seq_len - sum(c.tome_schedule[:-1])})
+        if isinstance(c.tome_r, int):
+            profile_call(what, lambda: forward(p, imgs, c), top=16)
+        del imgs
+    torch.cuda.empty_cache()
+    return [tome_kernel_row(cfg, large, errs, launches)]
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--phases", default=",".join(PHASES),
@@ -1312,11 +1614,12 @@ def main(argv=None) -> int:
         phase_grad(errs)
     cfg = vitx_torch.get_config("base16")
     params = None
-    if {"forward", "serve", "times"} & set(phases):
+    if {"forward", "serve", "tome", "times"} & set(phases):
         params = init_params(0, cfg)
     if "forward" in phases:
         phase_forward(cfg, params)
     serve_launches, train_launches, explain_launches = {}, {}, {}
+    tome_launches = {}
     train = None
     if "serve" in phases:
         serve_launches = phase_serve(cfg, params)
@@ -1327,26 +1630,35 @@ def main(argv=None) -> int:
                               num_classes=cfg.num_classes, seed=0)
         train_launches, *train = phase_train(ds)
     large = large_params = None
-    if "explain" in phases:
+    if {"explain", "tome"} & set(phases):
         large = vitx_torch.get_config("large16_384")
         large_params = init_params(0, large)
+    if "explain" in phases:
         explain_launches = phase_explain(large, large_params)
-    launches = add_launches(serve_launches, train_launches, explain_launches)
+    if "tome" in phases:
+        tome_launches = phase_tome(cfg, params, large, large_params)
+    launches = add_launches(serve_launches, train_launches, explain_launches,
+                            tome_launches)
     if "times" in phases:
         rows = phase_times(cfg, params, errs, launches)
+        if tome_launches:
+            rows += phase_tome_times(cfg, params, large, large_params, errs,
+                                     launches)
         del params
         stash = {}
         if train:
-            new_rows, stash = phase_train_times(cfg, *train, launches, errs)
+            new_rows, stash = phase_train_times(cfg, *train, launches,
+                                                  train_launches, errs)
             rows += new_rows
         del train
-        if large is not None:
+        if explain_launches:
             rows += phase_explain_times(large, large_params, errs, launches)
         for row in rows:
             row["launches_by_path"] = {
                 "serve": serve_launches.get(row["name"], 0),
                 "train": train_launches.get(row["name"], 0),
-                "explain": explain_launches.get(row["name"], 0)}
+                "explain": explain_launches.get(row["name"], 0),
+                "tome": tome_launches.get(row["name"], 0)}
             if row["name"] in stash:
                 row["stash_ms_b128"] = stash[row["name"]]
         missing = sorted(set(KERNELS) - {row["name"] for row in rows})

@@ -24,11 +24,11 @@ from vitx_torch.kernels import (adamw_plain, attention_bwd,
                                 flash_attention_fwd_plain,
                                 flash_attention_with_mean_probs,
                                 flash_attention_with_probs, fused_adamw_,
-                                fused_mha_block,
+                                fused_mha_block, fused_mha_block_tome,
                                 fused_mha_block_with_mean_probs,
                                 fused_mlp_block, ln_bwd, ln_bwd_plain,
                                 mha_block_mean_probs_plain, mha_block_plain,
-                                mlp_block_plain)
+                                mha_block_tome_plain, mlp_block_plain)
 from vitx_torch.nn.vit import params_to
 from vitx_torch.train import step as tstep
 
@@ -309,3 +309,76 @@ def test_train_step_on_card_matches_cpu(cuda, fuse_mlp):
         tstep.leaves(card.params), tstep.leaves(ref.params))]) / 1e-3
     assert float(dp.max()) <= 2.0
     assert float((dp > 0.01).float().mean()) <= 1e-3
+
+
+def tome_args(B, T, E, H, dtype, device, bias=True, seed=5):
+    """B8's inputs: block_args' attention half plus bqkv (3, H, D) and
+    log_size (B, T) in [0, log 6], or zeros for both."""
+    (x, wqkv, wo, bo, g, b), _ = block_args(B, T, E, H, dtype, device, seed)
+    rng = np.random.default_rng(seed + 1)
+    bqkv = seeded((3, H, E // H), seed + 2, 0.1, device=device)
+    ls = torch.from_numpy(np.log(1.0 + 5.0 * rng.random((B, T))).astype(
+        np.float32)).to(device)
+    if not bias:
+        bqkv, ls = torch.zeros_like(bqkv), torch.zeros_like(ls)
+    return x, wqkv, bqkv, wo, bo, g, b, ls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T", [197, 54, 41, 13])
+def test_tome_block_matches_plain(cuda, T, dtype, bias):
+    """B8 against its plain version at base16's ToMe block shapes (T 197
+    and 54, the first and last r=13 blocks; 41, the tokens leaving the
+    last; and 13), with and without the QKV and key biases; k_mean twice,
+    bit for bit."""
+    args = tome_args(2, T, 768, 12, dtype, cuda, bias)
+    n = fused_mha_block_tome.launches
+    out, k_mean = fused_mha_block_tome(*args)
+    torch.cuda.synchronize()
+    assert fused_mha_block_tome.launches == n + 1
+    ref_out, ref_km = mha_block_tome_plain(*args)
+    assert out.dtype == k_mean.dtype == args[0].dtype
+    assert k_mean.shape == (2, T, 64)
+    assert rel_err(out, ref_out) <= TOL[dtype]
+    assert rel_err(k_mean, ref_km) <= TOL[dtype]
+    assert torch.equal(fused_mha_block_tome(*args)[1], k_mean)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dims", [(2, 197, 768, 12), (3, 65, 64, 4)])
+def test_tome_block_zero_biases_equal_k1(cuda, dims, dtype):
+    """With zero bqkv and log_size, B8's out is K1's bit for bit."""
+    x, wqkv, bqkv, wo, bo, g, b, ls = tome_args(*dims, dtype, cuda, False)
+    out, _ = fused_mha_block_tome(x, wqkv, bqkv, wo, bo, g, b, ls)
+    assert torch.equal(out, fused_mha_block(x, wqkv, wo, bo, g, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qkv_bias", [False, True])
+def test_tome_forward_on_card_matches_cpu(cuda, qkv_bias):
+    """A tiny ToMe forward (r=4) in fp32: B8 and K2 once per block, K1
+    never; the logits and the merge's sources agree with the CPU."""
+    cfg = vitx_torch.get_config("tiny", compute_dtype="float32", tome_r=4,
+                                qkv_bias=qkv_bias)
+    host = vitx_torch.init_params(0, cfg, device="cpu")
+    if qkv_bias:
+        host["blocks"]["bqkv"] = seeded(host["blocks"]["bqkv"].shape, 9, 0.1)
+    params = params_to(host, cuda)
+    x = np.random.default_rng(0).standard_normal(
+        (4, cfg.image_size, cfg.image_size, 3)).astype(np.float32)
+    fns = (fused_mha_block_tome, fused_mlp_block, fused_mha_block)
+    before = [f.launches for f in fns]
+    out = vitx_torch.forward(params, x, cfg)
+    torch.cuda.synchronize()
+    assert [f.launches - n for f, n in zip(fns, before)] == [
+        cfg.depth, cfg.depth, 0]
+    assert rel_err(out, vitx_torch.forward(host, x, cfg, device="cpu")) < 1e-4
+    with torch.inference_mode():
+        _, src = vitx_torch.encode_tome(params, torch.from_numpy(x).to(cuda),
+                                        cfg, return_sources=True)
+        _, ref = vitx_torch.encode_tome(host, torch.from_numpy(x), cfg,
+                                        return_sources=True)
+    assert torch.equal(src.cpu(), ref)

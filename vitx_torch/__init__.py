@@ -8,7 +8,8 @@ block are hand-written CUDA kernels for sm_90a (``vitx_torch.kernels``),
 and so are the attention and LayerNorm backwards and the fused AdamW
 update of the train step (``vitx_torch.train``) and the attention forwards
 with probabilities behind ``forward_with_attn``, ``forward_with_rollout``
-and the server's ``/explain``; the rest is plain torch.
+and the server's ``/explain``, and ToMe's attention half behind
+``encode_tome`` (token merging, ``cfg.tome_r``); the rest is plain torch.
 It imports neither ``jax`` nor ``vitx``.
 
 Entry points run on a CUDA device unless the caller passes
@@ -31,6 +32,9 @@ from vitx_torch.interop.jax_params import (  # noqa: E402
     adamw_state_from_jax, params_from_jax)
 from vitx_torch.nn.rollout import attention_rollout  # noqa: E402
 from vitx_torch.nn.saliency import grad_cam  # noqa: E402
+from vitx_torch.nn.tome import (aligned_schedule, encode_tome,  # noqa: E402
+                                merge_tokens, parse_tome_r,
+                                tome_patch_assignment)
 from vitx_torch.nn.vit import (classify, encode, forward,  # noqa: E402
                                forward_with_attn, forward_with_rollout,
                                init_params)
@@ -49,6 +53,11 @@ __all__ = [
     "grad_cam",
     "encode",
     "classify",
+    "encode_tome",
+    "merge_tokens",
+    "aligned_schedule",
+    "parse_tome_r",
+    "tome_patch_assignment",
     "params_from_jax",
     "adamw_state_from_jax",
 ]

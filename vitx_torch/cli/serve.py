@@ -16,7 +16,11 @@ counterpart of ``vitx/cli/serve.py``. Endpoints:
 - ``GET /healthz``: 200 once the model is warmed up and serving.
 
 ``--device`` selects the device (default ``cuda``; the server refuses to
-start without one unless ``--device cpu`` is given).
+start without one unless ``--device cpu`` is given). ``--tome-r`` serves
+``/predict`` from the ToMe encoder: ``13`` merges 13 token pairs in every
+block, ``35,34`` follows a per-block schedule, ``to128`` resolves to
+vitx's schedule reaching 128 tokens (``aligned_schedule``); ``/explain``
+runs every token.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from urllib.parse import parse_qs, urlparse
 import numpy as np
 
 from vitx_torch.core.config import PRESETS, ViTConfig, get_config
+from vitx_torch.nn.tome import aligned_schedule, parse_tome_r
 from vitx_torch.serve import ServerOverloaded, load_server
 
 
@@ -110,12 +115,18 @@ def make_handler(server):
     return Handler
 
 
-def resolve_serve_config(config_json, preset) -> ViTConfig:
-    """An explicit ``--config-json`` wins over the preset."""
+def resolve_serve_config(config_json, preset, tome_r=0) -> ViTConfig:
+    """An explicit ``--config-json`` wins over the preset; ``tome_r`` (a
+    ``parse_tome_r`` value) applies last, a ``toN`` resolved against the
+    final geometry (``vitx/train/checkpoint.py:480-485``)."""
     if config_json:
         with open(config_json) as f:
-            return ViTConfig.from_json(f.read())
-    return get_config(preset)
+            cfg = ViTConfig.from_json(f.read())
+    else:
+        cfg = get_config(preset)
+    if isinstance(tome_r, str):
+        tome_r = aligned_schedule(cfg, target_tokens=int(tome_r[2:]))
+    return cfg.replace(tome_r=tome_r) if tome_r else cfg
 
 
 def main(argv=None):
@@ -134,16 +145,20 @@ def main(argv=None):
                    help="temperature-scale the served probabilities")
     p.add_argument("--device", default="cuda",
                    help="torch device to serve on (default: cuda)")
+    p.add_argument("--tome-r", type=parse_tome_r, default=0,
+                   help="ToMe token merging for /predict: pairs merged per "
+                        "block, a comma-separated per-block schedule, or "
+                        "'toN' (e.g. to128)")
     args = p.parse_args(argv)
 
-    cfg = resolve_serve_config(args.config_json, args.preset)
+    cfg = resolve_serve_config(args.config_json, args.preset, args.tome_r)
     server = load_server(args.checkpoint, cfg, batch_size=args.batch_size,
                          top_k=args.top_k, max_delay_ms=args.max_delay_ms,
                          temperature=args.temperature, device=args.device)
     httpd = ThreadingHTTPServer((args.host, args.port), make_handler(server))
     print(f"serving {args.preset} on http://{args.host}:{httpd.server_port} "
           f"(batch {args.batch_size}, top-{server.top_k}, "
-          f"{server.device})", flush=True)
+          f"tome_r={cfg.tome_r}, {server.device})", flush=True)
     try:
         httpd.serve_forever()
     except KeyboardInterrupt:

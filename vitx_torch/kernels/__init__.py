@@ -6,6 +6,10 @@
 - ``fused_mha_block_with_mean_probs`` (B7, ``csrc/mha_block.cu``): K1 plus
   the head-mean attention probabilities; replaces
   ``vitx/kernels/mha_block.py::_kernel_hchunk`` (mean-probs mode).
+- ``fused_mha_block_tome`` (B8, ``csrc/mha_block.cu``): K1 with a QKV
+  bias and a per-key logit bias, plus the head-mean key; replaces
+  ``vitx/kernels/mha_block.py::_kernel_tome`` and serves the function of
+  ``_kernel_hchunk_tome`` (B9) at every shape.
 - ``flash_attention``, ``flash_attention_with_probs``,
   ``flash_attention_with_mean_probs`` (B5, ``csrc/flash_attention_fwd.cu``,
   with ``attention_fwd.cuh`` shared with K1 and B7): the attention forward
@@ -33,14 +37,17 @@ from vitx_torch.kernels.flash_attention import (
     flash_attention_fwd_plain, flash_attention_with_mean_probs,
     flash_attention_with_probs)
 from vitx_torch.kernels.layer_norm import ln_bwd, ln_bwd_plain
-from vitx_torch.kernels.mha_block import (fused_mha_block,
+from vitx_torch.kernels.mha_block import (composed_tome, fused_mha_block,
+                                          fused_mha_block_tome,
                                           fused_mha_block_with_mean_probs,
                                           mha_block_mean_probs_plain,
-                                          mha_block_plain)
+                                          mha_block_plain,
+                                          mha_block_tome_plain)
 from vitx_torch.kernels.mlp_block import fused_mlp_block, mlp_block_plain
 
 __all__ = ["fused_mha_block", "mha_block_plain",
            "fused_mha_block_with_mean_probs", "mha_block_mean_probs_plain",
+           "fused_mha_block_tome", "mha_block_tome_plain", "composed_tome",
            "fused_mlp_block", "mlp_block_plain", "flash_attention",
            "flash_attention_with_probs", "flash_attention_with_mean_probs",
            "flash_attention_fwd_plain", "attention_bwd",

@@ -42,6 +42,9 @@ SIGNATURES = {
     "mha_block_mean_probs": ("mha_block", "vitx_mha_block_mean_probs",
                              [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                               _P, _I, _I, _I, _I, _F, _P]),
+    "mha_block_tome": ("mha_block", "vitx_mha_block_tome",
+                       [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                        _P, _P, _P, _I, _I, _I, _I, _F, _P]),
     "mlp_block": ("mlp_block", "vitx_mlp_block",
                   [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                    _I, _I, _I, _I, _F, _P]),

@@ -1,4 +1,4 @@
-// The attention forward shared by K1/B7 (mha_block.cu) and B5
+// The attention forward shared by K1/B7/B8 (mha_block.cu) and B5
 // (flash_attention_fwd.cu): per (image, head, 64 queries), over unscaled
 // q, k, v planes of (B*H, T, D),
 //   qs = cast(cast(q) * scale)                 (stage_rows_scaled)
@@ -21,6 +21,11 @@
 // third q k^T instead of a (64, T) fp32 row block in shared memory (148 KB
 // at T = 577, too large at T = 1024): any T runs, the ragged key tail is
 // masked in the kernel (no padding) and T > 1024 needs nothing more.
+// KBIAS (B8, ToMe's proportional attention): an fp32 bias per key,
+// key_bias (B, T), is added to the fp32 logits before the max, in every
+// pass that recomputes s (vitx/kernels/mha_block.py:535); each block stages
+// it with its 64-key chunk. Without it (K1, B5, B7) the code is as before.
+//
 // PROBS_MEAN: a block owns (image, 64 queries) and loops over the heads in
 // order, adding each head's p / l to its own rows of the output in device
 // memory (the same thread reads and writes an element at every head), so
@@ -57,11 +62,12 @@ struct AttnArgs {
   void* o;              // element (b, h, t, d) at b*o_sb + h*o_sh + t*o_st + d
   long long o_sb, o_sh, o_st;
   float* probs;         // PROBS_FULL (B, H, T, T), PROBS_MEAN (B, T, T) fp32
+  const float* key_bias;  // KBIAS: (B, T) fp32, added to the logits over the keys
   int B, H, T, D;
   float q_scale;
 };
 
-template <typename T, int DP, int MODE>
+template <typename T, int DP, int MODE, bool KBIAS>
 __global__ void __launch_bounds__(ANT)
 attention_kernel(const AttnArgs a) {
   using S = AttnSmem<T, DP>;
@@ -73,6 +79,7 @@ attention_kernel(const AttnArgs a) {
   T* Vs = reinterpret_cast<T*>(smem + S::Q_BYTES + S::KV_BYTES);
   float* Ss = reinterpret_cast<float*>(smem + S::Q_BYTES + 2 * S::KV_BYTES);
   T* Ps = reinterpret_cast<T*>(smem + S::Q_BYTES + 2 * S::KV_BYTES + S::S_BYTES);
+  float* kb = reinterpret_cast<float*>(smem + S::BYTES);   // KBIAS: AKC keys
 
   const int H = a.H, ntok = a.T, D = a.D;
   const int q0 = blockIdx.y * AQ;
@@ -113,6 +120,20 @@ attention_kernel(const AttnArgs a) {
       M_::store(sw, s, CS_LD);
     };
 
+    // the key biases of the chunk at kc, staged beside its keys
+    auto stage_kb = [&](int kc) {
+      if constexpr (KBIAS) {
+        for (int i = threadIdx.x; i < AKC; i += ANT)
+          kb[i] = kc + i < ntok ? a.key_bias[(size_t)b * ntok + kc + i] : 0.0f;
+      }
+    };
+    // this lane's logit e of sw's keys [j*16, j*16 + 16), with its key bias
+    auto logit = [&](int j, int e) {
+      float v = sw[r * CS_LD + c0 + e];
+      if constexpr (KBIAS) v += kb[j * 16 + c0 + e];
+      return v;
+    };
+
     __syncthreads();   // the previous head is done with Qs
     // q = cast(cast(q) * scale), as flash_attention.py:108 scales q
     stage_rows_scaled<T, DP, ANT>(Qs, S::LD, qp, q0, ntok, D, nullptr, a.q_scale);
@@ -122,6 +143,7 @@ attention_kernel(const AttnArgs a) {
     for (int kc = 0; kc < ntok; kc += AKC) {
       __syncthreads();
       stage_rows<T, DP, ANT>(Ks, S::LD, kp, kc, ntok, D);
+      stage_kb(kc);
       __syncthreads();
       if (kc == 0) {
 #pragma unroll
@@ -133,7 +155,7 @@ attention_kernel(const AttnArgs a) {
         __syncwarp();
 #pragma unroll
         for (int e = 0; e < 8; ++e)
-          if (kc + j * 16 + c0 + e < ntok) m = fmaxf(m, sw[r * CS_LD + c0 + e]);
+          if (kc + j * 16 + c0 + e < ntok) m = fmaxf(m, logit(j, e));
         __syncwarp();
       }
     }
@@ -148,6 +170,7 @@ attention_kernel(const AttnArgs a) {
       __syncthreads();
       stage_rows<T, DP, ANT>(Ks, S::LD, kp, kc, ntok, D);
       stage_rows<T, DP, ANT>(Vs, S::LD, vp, kc, ntok, D);
+      stage_kb(kc);
       __syncthreads();
       for (int j = 0; j < AKC / 16 && kc + j * 16 < ntok; ++j) {
         logits(j);
@@ -155,7 +178,7 @@ attention_kernel(const AttnArgs a) {
 #pragma unroll
         for (int e = 0; e < 8; ++e) {
           float p = 0.0f;
-          if (kc + j * 16 + c0 + e < ntok) p = expf(sw[r * CS_LD + c0 + e] - m);
+          if (kc + j * 16 + c0 + e < ntok) p = expf(logit(j, e) - m);
           l += p;
           pw[r * S::LDP + c0 + e] = from_f<T>(p);
         }
@@ -196,6 +219,7 @@ attention_kernel(const AttnArgs a) {
       for (int kc = 0; kc < ntok; kc += AKC) {
         __syncthreads();
         stage_rows<T, DP, ANT>(Ks, S::LD, kp, kc, ntok, D);
+        stage_kb(kc);
         __syncthreads();
         for (int j = 0; j < AKC / 16 && kc + j * 16 < ntok; ++j) {
           logits(j);
@@ -205,7 +229,7 @@ attention_kernel(const AttnArgs a) {
             for (int e = 0; e < 8; ++e) {
               const int col = kc + j * 16 + c0 + e;
               if (col < ntok) {
-                const float pv = expf(sw[r * CS_LD + c0 + e] - m) / l;
+                const float pv = expf(logit(j, e) - m) / l;
                 if (MODE == PROBS_FULL) {
                   row[col] = pv;
                 } else {
@@ -223,10 +247,10 @@ attention_kernel(const AttnArgs a) {
   }
 }
 
-template <typename T, int DP, int MODE>
+template <typename T, int DP, int MODE, bool KBIAS>
 cudaError_t launch_attention_dp(const AttnArgs& a, cudaStream_t s) {
-  constexpr int bytes = AttnSmem<T, DP>::BYTES;
-  auto kern = attention_kernel<T, DP, MODE>;
+  constexpr int bytes = AttnSmem<T, DP>::BYTES + (KBIAS ? AKC * 4 : 0);
+  auto kern = attention_kernel<T, DP, MODE, KBIAS>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
@@ -236,13 +260,13 @@ cudaError_t launch_attention_dp(const AttnArgs& a, cudaStream_t s) {
 }
 
 // The head dim rounded up to the staged tile width: 16, 32, 64, 128 or 256.
-template <typename T, int MODE>
+template <typename T, int MODE, bool KBIAS = false>
 cudaError_t launch_attention(const AttnArgs& a, cudaStream_t s) {
-  if (a.D <= 16) return launch_attention_dp<T, 16, MODE>(a, s);
-  if (a.D <= 32) return launch_attention_dp<T, 32, MODE>(a, s);
-  if (a.D <= 64) return launch_attention_dp<T, 64, MODE>(a, s);
-  if (a.D <= 128) return launch_attention_dp<T, 128, MODE>(a, s);
-  if (a.D <= 256) return launch_attention_dp<T, 256, MODE>(a, s);
+  if (a.D <= 16) return launch_attention_dp<T, 16, MODE, KBIAS>(a, s);
+  if (a.D <= 32) return launch_attention_dp<T, 32, MODE, KBIAS>(a, s);
+  if (a.D <= 64) return launch_attention_dp<T, 64, MODE, KBIAS>(a, s);
+  if (a.D <= 128) return launch_attention_dp<T, 128, MODE, KBIAS>(a, s);
+  if (a.D <= 256) return launch_attention_dp<T, 256, MODE, KBIAS>(a, s);
   return cudaErrorInvalidValue;
 }
 

@@ -10,7 +10,8 @@
 //   GEMM prologue.
 // - gemm: a tiled (M, K) x (K, N) product, A and W row-major, with an
 //   optional LayerNorm applied while the A tile is staged into shared
-//   memory and one of three epilogues (QKV scatter, bias, bias + act).
+//   memory and one of four epilogues (QKV scatter, QKV scatter with a
+//   bias, bias, bias + act).
 //
 // Rounding follows the TPU kernels (vitx/kernels/mha_block.py::_kernel,
 // vitx/kernels/mlp_block.py::_kernel): products accumulate in fp32 and
@@ -255,7 +256,10 @@ __device__ __forceinline__ float apply_act(float x, int act) {
 // current one is multiplied (double-buffered shared memory).
 // ---------------------------------------------------------------------------
 
-enum Epi { EPI_QKV = 0, EPI_BIAS = 1, EPI_BIAS_ACT = 2 };
+// EPI_QKV_BIAS: EPI_QKV with an fp32 bias added to the accumulator before
+// the one cast (B8, vitx/kernels/mha_block.py:518-521); EPI_QKV's code is
+// unchanged by it.
+enum Epi { EPI_QKV = 0, EPI_BIAS = 1, EPI_BIAS_ACT = 2, EPI_QKV_BIAS = 3 };
 
 struct GemmArgs {
   const void* a;           // (M, K) compute dtype
@@ -264,12 +268,12 @@ struct GemmArgs {
   const float* ln_stats;   // (2, M) mean / rstd of A's rows (LN prologue)
   const float* ln_g;       // (K,) LN scale
   const float* ln_b;       // (K,) LN bias
-  const float* bias;       // (N,) fp32 (EPI_BIAS, EPI_BIAS_ACT)
+  const float* bias;       // (N,) fp32 (EPI_BIAS, EPI_BIAS_ACT, EPI_QKV_BIAS)
   void* out;
   void* pre_act;           // EPI_BIAS_ACT: also write cast(A @ W + bias) here
                            // when not null (the stash of the MLP's VJP)
   int act;                 // EPI_BIAS_ACT
-  int T, H, D;             // EPI_QKV: rows are (b, t); out is (3, B, H, T, D)
+  int T, H, D;             // EPI_QKV(_BIAS): rows are (b, t); out is (3, B, H, T, D)
 };
 
 constexpr int GBM = 128, GBN = 128, GBK = 32, GNT = 256;
@@ -423,7 +427,8 @@ gemm_kernel(const GemmArgs args) {
   // 8 consecutive columns of one row
   float* cs = Cs + warp * 16 * CS_LD;
   const int r = lane >> 1, c0 = (lane & 1) * 8;
-  const int E = N / 3;  // EPI_QKV
+  const int E = N / 3;  // EPI_QKV, EPI_QKV_BIAS
+  constexpr bool QKV = EPI == EPI_QKV || EPI == EPI_QKV_BIAS;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
 #pragma unroll
@@ -443,6 +448,12 @@ gemm_kernel(const GemmArgs args) {
           // scale q as they stage it
 #pragma unroll
           for (int e = 0; e < 8; ++e) o[e] = from_f<T>(v[e]);
+        } else if constexpr (EPI == EPI_QKV_BIAS) {
+          // column gc + e of the (E, 3E) flattening is element (s, h, d)
+          // of the (3, H, D) bias
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            o[e] = from_f<T>(v[e] + (gc + e < N ? args.bias[gc + e] : 0.0f));
         } else {
 #pragma unroll
           for (int e = 0; e < 8; ++e) {
@@ -456,7 +467,7 @@ gemm_kernel(const GemmArgs args) {
           }
         }
         T* out = static_cast<T*>(args.out);
-        if constexpr (EPI == EPI_QKV) {
+        if constexpr (QKV) {
           const int D = args.D, H = args.H, Tq = args.T;
           const int b = gr / Tq, t = gr - b * Tq, B = M / Tq;
           if (D % 8 == 0 && gc + 8 <= N) {

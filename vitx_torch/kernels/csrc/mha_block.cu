@@ -1,4 +1,4 @@
-// K1 and B7: the fused attention half of an encoder block for Hopper
+// K1, B7 and B8: the fused attention half of an encoder block for Hopper
 // (sm_90a).
 //
 // K1 replaces vitx/kernels/mha_block.py::_kernel (launched by _fused_fwd,
@@ -17,6 +17,19 @@
 // products, so B7 is K1's pipeline with the attention launch in its
 // PROBS_MEAN form (attention_fwd.cuh). _kernel_hchunk's no-probs mode is
 // the function of _kernel, and K1 serves it at every shape.
+// B8 (entry vitx_mha_block_tome) replaces vitx/kernels/mha_block.py::
+// _kernel_tome (launched by _tome_fwd, entry fused_mha_block_tome), ToMe's
+// attention half: K1 with an fp32 QKV bias added to the accumulator before
+// the cast (the EPI_QKV_BIAS epilogue), an fp32 bias per key, log(size),
+// added to the fp32 logits (the KBIAS attention, attention_fwd.cuh), and
+// k_mean (B, T, D), the head mean of the cast k, the merge metric. It also
+// serves _kernel_hchunk_tome (B9, launched by _chunked_tome_fwd), which is
+// _kernel_tome cut into head chunks, with out and k_mean summed across the
+// chunks in fp32 scratch, only because ViT-L@384's weights and fp32 qkv
+// overflow VMEM (mha_block.py:680-684): here the products are tiled at
+// every T, so there is no head-chunk grid and no scratch, and one entry
+// computes B9's function (B9 sums k/H per chunk, then across chunks; B8
+// sums k over the heads, then divides: the two differ in fp32 ulps).
 //
 // What bounds it on the H100: the two projections are 8/9 of its FLOPs
 // (2*B*T*E*4E against 4*B*H*T^2*D for attention), so it is bound by the
@@ -34,7 +47,13 @@
 //      queries) -- per (b, 64 queries) over the heads in order for B7 --
 //      q scaled by 1/sqrt(D) in fp32 and cast again as it is staged; the
 //      rounding points of mha_block.py:74-84 exactly;
-//   4. gemm_kernel<EPI_BIAS>: o_all @ Wo in fp32 plus bo in fp32, one cast.
+//   4. gemm_kernel<EPI_BIAS>: o_all @ Wo in fp32 plus bo in fp32, one cast;
+//   5. (B8 only) head_mean_kernel: k_mean = cast(sum_h k_h / H), the fp32
+//      sum over the heads of the k plane that launch 2 wrote, in head order
+//      by one thread per element (no atomics: the same bits every call).
+// B8 is bound as K1 is: the projections' operations; k_mean reads the k
+// plane once more (B*T*E elements) and writes B*T*D, and the per-key bias
+// adds T floats per 64-key chunk to each attention block.
 // The intermediates qkv (3*B*T*E) and o_all (B*T*E) make a round trip
 // through device memory; keeping them on chip is the first thing a faster
 // version removes. The products use mma.sync through nvcuda::wmma; wgmma,
@@ -44,11 +63,27 @@
 
 namespace vitx {
 
-template <typename T, int MODE>
+// k_mean[b, t, d] = cast(sum over h, in order, of k[b, h, t, d] in fp32, / H)
+template <typename T>
+__global__ void head_mean_kernel(const T* __restrict__ k, T* __restrict__ km, int H,
+                                 long long plane, long long n) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const long long b = i / plane, td = i - b * plane;   // plane = T * D
+  const T* kp = k + b * H * plane + td;
+  float sum = to_f(kp[0]);
+  for (int h = 1; h < H; ++h) sum += to_f(kp[h * plane]);
+  km[i] = from_f<T>(sum / (float)H);
+}
+
+// MODE: the attention's probabilities (K1, B7); TOME: B8's QKV bias, key
+// bias and k_mean (with PROBS_NONE).
+template <typename T, int MODE, bool TOME>
 cudaError_t run_mha(const void* x, const void* wqkv, const void* wo, const float* bo,
                     const float* g, const float* b, void* out, void* qkv, void* o_all,
-                    float* stats, float* probs, int B, int T_, int E, int H, float eps,
-                    cudaStream_t s) {
+                    float* stats, float* probs, const float* qkv_bias,
+                    const float* key_bias, void* k_mean, int B, int T_, int E, int H,
+                    float eps, cudaStream_t s) {
   const int M = B * T_, D = E / H;
   cudaError_t err = launch_ln_stats<T>(static_cast<const T*>(x), stats, M, E, eps, s);
   if (err != cudaSuccess) return err;
@@ -57,7 +92,12 @@ cudaError_t run_mha(const void* x, const void* wqkv, const void* wo, const float
   qa.a = x; qa.w = wqkv; qa.M = M; qa.N = 3 * E; qa.K = E;
   qa.ln_stats = stats; qa.ln_g = g; qa.ln_b = b;
   qa.out = qkv; qa.T = T_; qa.H = H; qa.D = D;
-  err = launch_gemm<T, EPI_QKV, true>(qa, s);
+  if constexpr (TOME) {
+    qa.bias = qkv_bias;
+    err = launch_gemm<T, EPI_QKV_BIAS, true>(qa, s);
+  } else {
+    err = launch_gemm<T, EPI_QKV, true>(qa, s);
+  }
   if (err != cudaSuccess) return err;
 
   const size_t plane = (size_t)B * H * T_ * D;
@@ -68,15 +108,24 @@ cudaError_t run_mha(const void* x, const void* wqkv, const void* wo, const float
   aa.o = o_all;                       // (B, T, E): head h at columns h*D
   aa.o_sb = (long long)T_ * E; aa.o_sh = D; aa.o_st = E;
   aa.probs = probs;
+  aa.key_bias = key_bias;
   aa.B = B; aa.H = H; aa.T = T_; aa.D = D;
   aa.q_scale = static_cast<float>(1.0 / sqrt(static_cast<double>(D)));  // 1.0 / D**0.5
-  err = launch_attention<T, MODE>(aa, s);
+  err = launch_attention<T, MODE, TOME>(aa, s);
   if (err != cudaSuccess) return err;
 
   GemmArgs oa = {};
   oa.a = o_all; oa.w = wo; oa.M = M; oa.N = E; oa.K = E;
   oa.bias = bo; oa.out = out;
-  return launch_gemm<T, EPI_BIAS, false>(oa, s);
+  err = launch_gemm<T, EPI_BIAS, false>(oa, s);
+  if constexpr (TOME) {
+    if (err != cudaSuccess) return err;
+    const long long n = (long long)B * T_ * D;
+    head_mean_kernel<T><<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
+        static_cast<const T*>(aa.k), static_cast<T*>(k_mean), H, (long long)T_ * D, n);
+    err = cudaGetLastError();
+  }
+  return err;
 }
 
 }  // namespace vitx
@@ -91,11 +140,13 @@ extern "C" int vitx_mha_block(int dtype, const void* x, const void* wqkv, const 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 1)
-    err = vitx::run_mha<vitx::bf16, vitx::PROBS_NONE>(x, wqkv, wo, bo, g, b, out, qkv, o_all,
-                                                      stats, nullptr, B, T, E, H, eps, s);
+    err = vitx::run_mha<vitx::bf16, vitx::PROBS_NONE, false>(
+        x, wqkv, wo, bo, g, b, out, qkv, o_all, stats, nullptr, nullptr, nullptr, nullptr, B,
+        T, E, H, eps, s);
   else
-    err = vitx::run_mha<float, vitx::PROBS_NONE>(x, wqkv, wo, bo, g, b, out, qkv, o_all,
-                                                 stats, nullptr, B, T, E, H, eps, s);
+    err = vitx::run_mha<float, vitx::PROBS_NONE, false>(
+        x, wqkv, wo, bo, g, b, out, qkv, o_all, stats, nullptr, nullptr, nullptr, nullptr, B,
+        T, E, H, eps, s);
   return static_cast<int>(err);
 }
 
@@ -109,10 +160,33 @@ extern "C" int vitx_mha_block_mean_probs(int dtype, const void* x, const void* w
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 1)
-    err = vitx::run_mha<vitx::bf16, vitx::PROBS_MEAN>(x, wqkv, wo, bo, g, b, out, qkv, o_all,
-                                                      stats, probs, B, T, E, H, eps, s);
+    err = vitx::run_mha<vitx::bf16, vitx::PROBS_MEAN, false>(
+        x, wqkv, wo, bo, g, b, out, qkv, o_all, stats, probs, nullptr, nullptr, nullptr, B, T,
+        E, H, eps, s);
   else
-    err = vitx::run_mha<float, vitx::PROBS_MEAN>(x, wqkv, wo, bo, g, b, out, qkv, o_all,
-                                                 stats, probs, B, T, E, H, eps, s);
+    err = vitx::run_mha<float, vitx::PROBS_MEAN, false>(
+        x, wqkv, wo, bo, g, b, out, qkv, o_all, stats, probs, nullptr, nullptr, nullptr, B, T,
+        E, H, eps, s);
+  return static_cast<int>(err);
+}
+
+// B8: vitx_mha_block with bqkv ((3, H, D) fp32, added before the QKV cast),
+// log_size ((B, T) fp32, added to the logits over each key) and k_mean
+// (B*T*D elements, written in full: the head mean of the cast k).
+extern "C" int vitx_mha_block_tome(int dtype, const void* x, const void* wqkv, const void* wo,
+                                   const float* bo, const float* g, const float* b, void* out,
+                                   void* qkv, void* o_all, float* stats, const float* bqkv,
+                                   const float* log_size, void* k_mean, int B, int T, int E,
+                                   int H, float eps, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (dtype == 1)
+    err = vitx::run_mha<vitx::bf16, vitx::PROBS_NONE, true>(
+        x, wqkv, wo, bo, g, b, out, qkv, o_all, stats, nullptr, bqkv, log_size, k_mean, B, T,
+        E, H, eps, s);
+  else
+    err = vitx::run_mha<float, vitx::PROBS_NONE, true>(
+        x, wqkv, wo, bo, g, b, out, qkv, o_all, stats, nullptr, bqkv, log_size, k_mean, B, T,
+        E, H, eps, s);
   return static_cast<int>(err);
 }

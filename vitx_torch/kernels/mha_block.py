@@ -15,8 +15,17 @@ also returns the head-mean attention probabilities; it replaces
 ``mha_block_mean_probs_plain``. ``_kernel_hchunk``'s no-probs mode
 computes ``_kernel``'s function, which vitx takes only where ``_kernel``
 does not fit VMEM (``mha_block.py:1046-1054``); K1 serves it at every
-shape. The source note in the ``.cu`` file says what bounds the kernels on
-the H100 and how they are laid out.
+shape.
+
+``fused_mha_block_tome`` (B8, the third entry) is ToMe's attention half:
+K1 plus an fp32 QKV bias, a per-key fp32 logit bias ``log_size`` and the
+head-mean key ``k_mean``, the merge metric. It replaces ``_kernel_tome``
+and, at every shape, ``_kernel_hchunk_tome`` (B9): that kernel is
+``_kernel_tome`` cut into head chunks where the TPU's VMEM runs out, the
+same function. Its plain version is ``mha_block_tome_plain``;
+``composed_tome`` is vitx's ``_composed_tome``, which rounds elsewhere and
+is what its backward differentiates. The source note in the ``.cu`` file
+says what bounds the kernels on the H100 and how they are laid out.
 """
 
 from __future__ import annotations
@@ -32,20 +41,27 @@ from vitx_torch.nn.layers import dot, layer_norm, matmul32
 MAX_HEAD_DIM = 256
 
 
-def _plain(x, wqkv, wo, bo, g, b, eps, probs: bool):
+def _plain(x, wqkv, wo, bo, g, b, eps, probs: bool, bqkv=None,
+           log_size=None):
     """-> (out, q0, k, v, o_all, mean probs or None), see
-    ``mha_block_plain``."""
+    ``mha_block_plain``; with B8's ``bqkv`` and ``log_size``, see
+    ``mha_block_tome_plain``."""
     B, T, E = x.shape
     H = wqkv.shape[2]
     D = E // H
     dt = x.dtype
     h = layer_norm(x, g, b, eps=eps)
-    qkv = matmul32(h, wqkv.reshape(E, 3 * E)).to(dt)
+    qkv = matmul32(h, wqkv.reshape(E, 3 * E))
+    if bqkv is not None:    # the bias joins the fp32 sum, before the cast
+        qkv = qkv + bqkv.reshape(3 * E).float()
+    qkv = qkv.to(dt)
     # column block s*E + h*D of the (E, 3E) flattening is head h of q|k|v
     qkv = qkv.reshape(B, T, 3, H, D).permute(2, 0, 3, 1, 4)
     q0, k, v = qkv[0], qkv[1], qkv[2]
     q = (q0.float() * (1.0 / D ** 0.5)).to(dt)
     s = matmul32(q, k.transpose(-1, -2))
+    if log_size is not None:   # one fp32 bias per key, on the fp32 logits
+        s = s + log_size.float()[:, None, None, :]
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     l = p.sum(dim=-1, keepdim=True)
     o = (matmul32(p.to(dt), v) / l).to(dt)
@@ -121,27 +137,26 @@ def _check(x, wqkv, wo, bo, g, b):
             raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(x, wqkv, wo, bo, g, b, eps, probs):
-    """K1 (``probs`` None) or B7 (``probs`` the (B, T, T) fp32 output) on
-    CUDA tensors -> (out, q, k, v, o_all)."""
+def _launch(x, wqkv, wo, bo, g, b, eps, name="mha_block", extra=()):
+    """The ``mha_block.cu`` entry ``name`` on CUDA tensors -> (out, q, k,
+    v, o_all): K1, or B7 with ``extra`` its (B, T, T) fp32 probs output, or
+    B8 with ``extra`` (bqkv, log_size, its (B, T, D) k_mean output)."""
     if not x.is_cuda:
         raise ValueError(f"fused_mha_block runs on cuda or cpu, "
                          f"not {x.device}")
     B, T, E = x.shape
     H = wqkv.shape[2]
-    name = "mha_block" if probs is None else "mha_block_mean_probs"
     fn = _build.entry(name)
     out = torch.empty_like(x)
     qkv = torch.empty((3, B, H, T, E // H), dtype=x.dtype, device=x.device)
     o_all = torch.empty_like(x)
     stats = torch.empty((2, B * T), dtype=torch.float32, device=x.device)
-    extra = () if probs is None else (probs.data_ptr(),)
     with torch.cuda.device(x.device):
         err = fn(DTYPE_CODES[x.dtype], x.data_ptr(), wqkv.data_ptr(),
                  wo.data_ptr(), bo.data_ptr(), g.data_ptr(), b.data_ptr(),
                  out.data_ptr(), qkv.data_ptr(), o_all.data_ptr(),
-                 stats.data_ptr(), *extra, B, T, E, H, float(eps),
-                 torch.cuda.current_stream().cuda_stream)
+                 stats.data_ptr(), *(t.data_ptr() for t in extra), B, T, E,
+                 H, float(eps), torch.cuda.current_stream().cuda_stream)
     _build.check(name, err)
     return out, qkv[0], qkv[1], qkv[2], o_all
 
@@ -152,7 +167,7 @@ def _forward(x, wqkv, wo, bo, g, b, eps):
     kernel's own intermediates, returned as views."""
     if x.device.type == "cpu":
         return mha_block_plain(x, wqkv, wo, bo, g, b, eps=eps, stash=True)
-    res = _launch(x, wqkv, wo, bo, g, b, eps, None)
+    res = _launch(x, wqkv, wo, bo, g, b, eps)
     fused_mha_block.launches += 1
     return res
 
@@ -229,7 +244,8 @@ def _forward_mean_probs(x, wqkv, wo, bo, g, b, eps):
         return mha_block_mean_probs_plain(x, wqkv, wo, bo, g, b, eps=eps)
     B, T, _ = x.shape
     probs = torch.empty((B, T, T), dtype=torch.float32, device=x.device)
-    out = _launch(x, wqkv, wo, bo, g, b, eps, probs)[0]
+    out = _launch(x, wqkv, wo, bo, g, b, eps, "mha_block_mean_probs",
+                  (probs,))[0]
     fused_mha_block_with_mean_probs.launches += 1
     return out, probs
 
@@ -283,3 +299,124 @@ def fused_mha_block_with_mean_probs(x, wqkv, wo, bo, g, b, *,
 
 
 fused_mha_block_with_mean_probs.launches = 0
+
+
+# --- B8: ToMe's attention half (and B9's function) ---------------------------
+
+def mha_block_tome_plain(x, wqkv, bqkv, wo, bo, g, b, log_size, *,
+                         eps: float = 1e-5):
+    """The plain torch version of B8: (out (B, T, E), k_mean (B, T, D)),
+    both in x's dtype, rounding where ``_kernel_tome`` rounds
+    (``vitx/kernels/mha_block.py:507-548``): ``mha_block_plain`` with the
+    fp32 QKV bias ``bqkv`` (3, H, D) added to the fp32 projection before
+    its cast, the fp32 ``log_size`` (B, T) added to every query's fp32
+    logits over the keys, and k_mean the fp32 sum over the heads, in order,
+    of the cast k, divided by H and cast."""
+    out, _, k, _, _, _ = _plain(x, wqkv, wo, bo, g, b, eps, False, bqkv,
+                                log_size)
+    k_sum = k[:, 0].float()
+    for i in range(1, k.shape[1]):
+        k_sum = k_sum + k[:, i].float()
+    return out, (k_sum / k.shape[1]).to(x.dtype)
+
+
+def composed_tome(x, wqkv, bqkv, wo, bo, g, b, log_size, *,
+                  eps: float = 1e-5):
+    """vitx's ``_composed_tome`` (``mha_block.py:593-618``): the same
+    function as B8, unfused and rounding as XLA does there -- the QKV bias
+    is cast and added after the projection's cast, the logits are divided
+    by sqrt(D) after the product, the softmax is cast before the PV
+    product, bo is cast and added after the out-projection's cast, and
+    k_mean is the mean of the cast k. The kernel-free route on the card,
+    the CPU route when the fused rule says no, and what B8's backward
+    differentiates."""
+    B, T, E = x.shape
+    H, D = wqkv.shape[2], wqkv.shape[3]
+    h = layer_norm(x, g, b, eps=eps)
+    dt = h.dtype
+    w, bq = wqkv.to(dt), bqkv.to(dt)
+
+    def proj(s):
+        r = dot(h, w[:, s].reshape(E, H * D)).reshape(B, T, H, D)
+        return r.transpose(1, 2) + bq[s][None, :, None, :]
+
+    q, k, v = proj(0), proj(1), proj(2)
+    logits = matmul32(q, k.transpose(-1, -2)) / (D ** 0.5)
+    logits = logits + log_size.float()[:, None, None, :]
+    probs = torch.softmax(logits, dim=-1).to(dt)
+    o = dot(probs, v).transpose(1, 2).reshape(B, T, E)
+    out = dot(o, wo.to(dt)) + bo.to(dt)
+    return out, k.float().mean(dim=1).to(dt)
+
+
+def _check_tome(x, wqkv, bqkv, wo, bo, g, b, log_size):
+    _check(x, wqkv, wo, bo, g, b)
+    B, T, _ = x.shape
+    H, D = wqkv.shape[2], wqkv.shape[3]
+    for name, t, shape in (("bqkv", bqkv, (3, H, D)),
+                           ("log_size", log_size, (B, T))):
+        if tuple(t.shape) != shape or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32 {shape}, "
+                             f"got {t.dtype} {tuple(t.shape)}")
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _forward_tome(x, wqkv, bqkv, wo, bo, g, b, log_size, eps):
+    """-> (out, k_mean): kernel B8 on CUDA, the plain version on the CPU."""
+    if x.device.type == "cpu":
+        return mha_block_tome_plain(x, wqkv, bqkv, wo, bo, g, b, log_size,
+                                    eps=eps)
+    B, T, _ = x.shape
+    k_mean = torch.empty((B, T, wqkv.shape[3]), dtype=x.dtype,
+                         device=x.device)
+    out = _launch(x, wqkv, wo, bo, g, b, eps, "mha_block_tome",
+                  (bqkv, log_size, k_mean))[0]
+    fused_mha_block_tome.launches += 1
+    return out, k_mean
+
+
+class _FusedMHATome(torch.autograd.Function):
+    """B8 forward; the backward differentiates ``composed_tome``, as
+    vitx's ``_make_tome_op`` does (``mha_block.py:658-677``)."""
+
+    @staticmethod
+    def forward(ctx, x, wqkv, bqkv, wo, bo, g, b, log_size, eps):
+        ctx.save_for_backward(x, wqkv, bqkv, wo, bo, g, b, log_size)
+        ctx.eps = eps
+        return _forward_tome(x, wqkv, bqkv, wo, bo, g, b, log_size, eps)
+
+    @staticmethod
+    def backward(ctx, dout, dk_mean):
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            outs = composed_tome(*ins, eps=ctx.eps)
+        grads = torch.autograd.grad(outs, ins, (dout, dk_mean))
+        return (*grads, None)
+
+
+def fused_mha_block_tome(x, wqkv, bqkv, wo, bo, g, b, log_size, *,
+                         eps: float = 1e-5):
+    """ToMe's attention half, fused: LN(x) -> QKV + bias -> attention with
+    one additive logit bias per key (proportional attention, ``log_size``
+    = log of the tokens each key stands for) -> out-projection; also the
+    head-mean key, the merge metric.
+
+    x: (B, T, E) compute dtype; wqkv: (E, 3, H, D) and wo: (E, E) in x's
+    dtype; bqkv: (3, H, D) float32 (zeros without a QKV bias); bo, g, b:
+    (E,) float32; log_size: (B, T) float32. Returns (out (B, T, E),
+    k_mean (B, T, D)), both in x's dtype, differentiable in every input
+    through ``composed_tome``. CUDA tensors go through kernel B8 (any T;
+    it serves B9's head-chunked function too) and add one to
+    ``fused_mha_block_tome.launches``; CPU tensors take the plain version.
+    """
+    _check_tome(x, wqkv, bqkv, wo, bo, g, b, log_size)
+    args = (x, wqkv, bqkv, wo, bo, g, b, log_size)
+    if not torch.is_grad_enabled() or not any(t.requires_grad for t in args):
+        return _forward_tome(*args, eps)
+    return _FusedMHATome.apply(*args, float(eps))
+
+
+fused_mha_block_tome.launches = 0

@@ -5,7 +5,8 @@ as vitx's (``init_params``): block leaves stacked on a leading depth axis,
 ``wqkv`` as (E, 3, H, D), ``wo`` (E, E), fp32. Images are NHWC. The blocks
 run as a Python loop; on a CUDA device each block's attention half is
 kernel K1 (B7 when head-mean probabilities are asked for; B5 inside the
-composed path) and its MLP half kernel K2 (``vitx_torch/kernels``).
+composed path; B8 in the ToMe encoder, ``vitx_torch/nn/tome.py``) and its
+MLP half kernel K2 (``vitx_torch/kernels``).
 Everything else -- patch embedding, residual adds, the head, the rollout
 chain -- is plain torch, as it is XLA in vitx. ``model_logits`` is the
 differentiable forward the train step runs (dropout and drop-path from an
@@ -43,7 +44,7 @@ def check_ported(cfg: ViTConfig) -> None:
         (cfg.lora_rank, "LoRA adapters", "A12"),
         (cfg.head_type == "map", "the MAP head", "A12"),
         (cfg.pos_embed != "learned", f"pos_embed={cfg.pos_embed!r}", "A12"),
-        (cfg.tome_r, "ToMe token merging", "A10"),
+        (cfg.tome_train, "training through ToMe (tome_train)", "A10"),
     )
     for cond, what, item in missing:
         if cond:
@@ -373,10 +374,18 @@ def classify(params: Params, x, cfg: ViTConfig):
 def model_logits(params: Params, images, cfg: ViTConfig, *, rng=None,
                  deterministic: bool = True):
     """Images (B, H, W, C) -> fp32 logits on the tensors' own device,
-    differentiable: the forward of vitx's ``loss_fn``
-    (``vitx/nn/vit.py:834-856``). ``rng`` (a ``torch.Generator`` on that
-    device) drives dropout and drop-path when ``deterministic`` is False."""
-    x = encode(params, images, cfg, rng=rng, deterministic=deterministic)
+    differentiable: vitx's ``forward`` (``vitx/nn/vit.py:834-856``), what
+    its ``loss_fn`` and eval step run. ``rng`` (a ``torch.Generator`` on
+    that device) drives dropout and drop-path when ``deterministic`` is
+    False. With ``cfg.tome_r``, deterministic calls run the ToMe encoder
+    (``vitx_torch.nn.tome.encode_tome``); training runs every token."""
+    if cfg.tome_r and deterministic:
+        # imported here: vitx_torch.nn.tome imports this module
+        from vitx_torch.nn.tome import encode_tome
+
+        x = encode_tome(params, images, cfg)
+    else:
+        x = encode(params, images, cfg, rng=rng, deterministic=deterministic)
     return classify(params, x, cfg)
 
 
@@ -394,7 +403,8 @@ def forward(params: Params, images, cfg: ViTConfig, *, device="cuda"):
 
     ``images`` and the parameters are moved to ``device`` (``on_device``).
     Inference only, under ``torch.inference_mode``: dropout and drop-path
-    are identities.
+    are identities. With ``cfg.tome_r`` the tokens merge (ToMe); the probs
+    paths below always run every token, as vitx's do.
     """
     params, images = on_device(params, images, device)
     with torch.inference_mode():

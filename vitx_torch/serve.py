@@ -3,7 +3,8 @@
 The counterpart of ``vitx/serve.py``: requests queue on the host, a
 collector thread drains up to ``batch_size`` of them (waiting at most
 ``max_delay_ms`` after the first), pads them to ONE fixed batch shape, runs
-one forward on the device and fans the top-k results back out. Softmax and
+one forward on the device (through the ToMe encoder when ``cfg.tome_r`` is
+set) and fans the top-k results back out. Softmax and
 top-k run on the device in fp32, so only k values per image return to the
 host. The server warms up at start (which also builds the CUDA kernels),
 tracks p50/p90/p99 latency with drift against a recent window, and bounds
@@ -27,8 +28,8 @@ import torch
 from vitx_torch.core.config import ViTConfig
 from vitx_torch.core.device import resolve_device
 from vitx_torch.nn.saliency import grad_cam
-from vitx_torch.nn.vit import check_ported, classify, encode, \
-    forward_with_rollout, init_params, params_to
+from vitx_torch.nn.vit import check_ported, forward_with_rollout, \
+    init_params, model_logits, params_to
 
 
 class ServerOverloaded(RuntimeError):
@@ -144,11 +145,11 @@ class InferenceServer:
 
     def _run(self, images):
         """images on the device -> (values (B, k), indices (B, k)) on the
-        host: the forward, fp32 softmax and top-k on the device."""
+        host: the forward (ToMe-merged when ``cfg.tome_r`` is set, as
+        vitx's server runs ``vitx.nn.vit.forward``), fp32 softmax and top-k
+        on the device."""
         with torch.inference_mode():
-            return self._topk(classify(
-                self._params, encode(self._params, images, self.cfg),
-                self.cfg))
+            return self._topk(model_logits(self._params, images, self.cfg))
 
     def _topk(self, logits):
         probs = torch.softmax(logits.float() * self._inv_t, dim=-1)
