@@ -28,7 +28,11 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               block: float32 1e-4, bfloat16 BF16_TOL; k_mean twice, bit
               for bit; with zero biases its out equal to K1's bit for
               bit. K2 at the r=13 server's first and last MLP shapes,
-              (32, 184) and (32, 41).
+              (32, 184) and (32, 41). B10 (fused_layer_norm and
+              fused_add_layer_norm) against their plain version at E
+              64, 100, 768, 1024, 3072 and R 1, 394, 50432 rows, float32
+              1e-4 and bfloat16 BF16_TOL; the add variant's sum equal to
+              x + r bit for bit; each twice, bit for bit.
 4. grad    -- the training kernels at ViT-B/16 shapes (T 197) against
               their plain versions: batch 8 in float32 (1e-4) and bfloat16,
               and the train main path's batch 128 in bfloat16: B2
@@ -37,7 +41,15 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               through both fused blocks on the card against the same on the
               CPU (plain versions); B12 (AdamW) on a base16 leaf. B2 and B3
               also at Grad-CAM's large16_384 shapes (T 577, E 1024 and the
-              head's 4096), batch 1 and 8, float32 and bfloat16.
+              head's 4096), batch 1 and 8, float32 and bfloat16. Past T =
+              1024, where vitx runs its q-chunked backward B6: the
+              stashes, B2, B3 and autograd through both blocks at (2,
+              1025, 768), float32 and bfloat16, and at the fine-tune main
+              path's own (32, 1025, 768) in bfloat16; B2 at (1, 16, 1100,
+              64), (1, 12, 2048, 64) and, in float32, (32, 12, 1025, 64);
+              the fused_layer_norm entries' backward (B11, through B3)
+              against ln_bwd_plain on the 2-D view at (2, 1025, 768) and
+              (256, 197, 768); float32 and bfloat16.
 5. forward -- the base16 forward (depth 12, bf16) at batch 8 on the card
               against the port's plain forward on the CPU with the same
               weights (relative error < 0.05 on the logits); exactly 12 K1
@@ -91,7 +103,20 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               InferenceServer for base16 tome_r=13 at batch 32 answering
               64 requests from 8 threads, each top-k equal to a direct
               ToMe forward.
-10. times  -- CUDA-event medians: the base16 forward at batch 256 bf16
+10. finetune -- main path 5, ViT-B/16 fine-tuned at 512² (T 1025): (a)
+              a seed-0 base16 224² export (the .npz --export-vit writes)
+              read into the 512² config on the card and on the CPU, its
+              positional grid resized (1e-6); (b) its first two blocks
+              in float32, batch 2: one train_step card vs CPU as train
+              (a), the param element that sets param_gap's worst named
+              in worst_at; (c) the main path: full base16 at 512² in bf16, batch
+              32 on SyntheticDataset(image_size=512) batches, 10 steps
+              on one repeated batch, the loss finite and falling, the
+              launches per step K1 12, B2 12, B3 25, K2 0; one
+              eval_step; (d) fused_add_layer_norm then fused_layer_norm
+              at the fine-tune's tokens with their gradients, against
+              the plain version, launches B10 1 + 1, B3 2.
+11. times  -- CUDA-event medians: the base16 forward at batch 256 bf16
               (img/s), the train step at batch 128 bf16 (img/s), the
               large16_384 rollout forward at batch 32 bf16 (img/s) and
               forward_with_attn("full") at batch 2, the ToMe forward at
@@ -101,7 +126,11 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               plain version's time and one PyTorch library call of the
               same function where there is one, at the shapes of those
               paths (B8 at base16's first and last r=13 blocks, and at
-              large16_384's T 577 and 416, where vitx takes B9).
+              large16_384's T 577 and 416, where vitx takes B9); the
+              fine-tune step at batch 32 (img/s, profiler split), B2 at
+              its (32, 12, 1025, 64), B6's range, and B3 on the 2-D view
+              of base16's b256 tokens, B11's function (each under its
+              row's "shapes"), and B10's two rows there.
 
 Each main path runs with the kernels' launch counts set to 0 just before
 it and read just after. The last lines are one JSON object listing the
@@ -119,6 +148,7 @@ import subprocess
 import sys
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -146,7 +176,7 @@ PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 (data sheet)
 PEAK_FP32_FLOPS = 67e12       # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
 PHASES = ("device", "build", "kernels", "grad", "forward", "serve", "train",
-          "explain", "tome", "times")
+          "explain", "tome", "finetune", "times")
 
 KERNELS = {
     "fused_mha_block": {
@@ -163,11 +193,29 @@ KERNELS = {
         "source": "vitx_torch/kernels/csrc/flash_attention_bwd.cu",
         "replaces": "vitx/kernels/flash_attention.py:287",
         "tpu_kernel": "vitx/kernels/flash_attention.py::_bwd_kernel_nq1",
+        # B6, the q-chunked backward vitx runs past T = 1024: the same
+        # function, which this kernel computes at every T
+        "also_replaces": "vitx/kernels/flash_attention.py:238",
+        "also_tpu_kernel": "vitx/kernels/flash_attention.py::_bwd_kernel",
     },
     "ln_bwd": {
         "source": "vitx_torch/kernels/csrc/layer_norm_bwd.cu",
         "replaces": "vitx/kernels/layer_norm.py:173",
         "tpu_kernel": "vitx/kernels/layer_norm.py::_ln_bwd3_kernel",
+        # B11, the fused_layer_norm entries' backward: B3's function on
+        # the 2-D (R, E) view, which ln_bwd takes at any rank
+        "also_replaces": "vitx/kernels/layer_norm.py:114",
+        "also_tpu_kernel": "vitx/kernels/layer_norm.py::_ln_bwd_kernel",
+    },
+    "fused_layer_norm": {
+        "source": "vitx_torch/kernels/csrc/layer_norm_fwd.cu",
+        "replaces": "vitx/kernels/layer_norm.py:59",
+        "tpu_kernel": "vitx/kernels/layer_norm.py::_ln_kernel (plain)",
+    },
+    "fused_add_layer_norm": {
+        "source": "vitx_torch/kernels/csrc/layer_norm_fwd.cu",
+        "replaces": "vitx/kernels/layer_norm.py:59",
+        "tpu_kernel": "vitx/kernels/layer_norm.py::_ln_kernel (with_add)",
     },
     "fused_adamw_": {
         "source": "vitx_torch/kernels/csrc/adamw.cu",
@@ -210,6 +258,9 @@ KERNELS = {
 }
 NO_LIBRARY = ("no single PyTorch call returns attention probabilities "
               "(scaled_dot_product_attention returns only the output)")
+NO_ADD_LIBRARY = ("no single PyTorch call adds a residual and normalises "
+                  "(F.layer_norm takes one input)")
+BUILD = Path(__file__).resolve().parent / "build"
 
 
 def emit(obj) -> None:
@@ -317,6 +368,46 @@ def phase_kernels(errs: dict):
         for dtype, tol in ((torch.float32, FP32_TOL),
                            (torch.bfloat16, BF16_TOL)):
             check_block(32, T, E, H, dtype, tol, errs, mha=False)
+    # B10 at widths off and on the 16-byte vectors (64, 100), the models'
+    # (768, 1024) and the reference head's (3072); one row, the two
+    # sequences of a base16 server batch, and base16's b256 tokens
+    for E_ in (64, 100, 768, 1024, 3072):
+        for R in (1, 394, 256 * 197):
+            for dtype in (torch.float32, torch.bfloat16):
+                check_layer_norm_fwd(R, E_, dtype, errs)
+    emit({"phase": "kernels", "check": "fused_layer_norm and "
+          "fused_add_layer_norm twice bit for bit, the add variant's sum "
+          "equal to x + r, at every shape above"})
+
+
+def check_layer_norm_fwd(R, E, dtype, errs: dict) -> None:
+    """B10 in both variants against ``layer_norm_fwd_plain`` on (R, E);
+    the add variant's sum equal to the plain sum bit for bit; each variant
+    twice, bit for bit."""
+    from vitx_torch.kernels import (fused_add_layer_norm, fused_layer_norm,
+                                    layer_norm_fwd_plain)
+
+    bf = dtype == torch.bfloat16
+    tol = BF16_TOL if bf else FP32_TOL
+    x = seeded((R, E), 80 + E, 3.0, 0.5, dtype=dtype)
+    r = seeded((R, E), 81 + E, 1.0, dtype=dtype)
+    sc, bi = seeded((E,), 82, 0.1, 1.0), seeded((E,), 83, 0.1)
+    info = {"shape": [R, E], "dtype": str(dtype)}
+    main = bf and (R, E) == (256 * 197, 768)      # the timed shape
+    y = fused_layer_norm(x, sc, bi)
+    s, ya = fused_add_layer_norm(x, r, sc, bi)
+    torch.cuda.synchronize()
+    check("kernels", "fused_layer_norm", y, layer_norm_fwd_plain(x, sc, bi),
+          tol, errs if main else None, "fused_layer_norm", **info)
+    ref_s, ref_y = layer_norm_fwd_plain(x, sc, bi, r)
+    check("kernels", "fused_add_layer_norm (sum, y)", (s, ya),
+          (ref_s, ref_y), tol, errs if main else None,
+          "fused_add_layer_norm", **info)
+    if not torch.equal(s, ref_s):
+        raise AssertionError(f"B10 {info}: the sum differs from x + r")
+    if not (torch.equal(fused_layer_norm(x, sc, bi), y)
+            and torch.equal(fused_add_layer_norm(x, r, sc, bi)[1], ya)):
+        raise AssertionError(f"B10 {info}: two calls differ")
 
 
 def check_rows(what: str, probs, **info) -> None:
@@ -489,14 +580,17 @@ def forward_launches(cfg, forwards: int) -> dict:
 def check(phase: str, what: str, out, ref, tol: float,
           errs: dict | None = None, key: str | None = None, **info) -> None:
     """Emit one comparison of ``out`` with ``ref`` (tensors or sequences
-    of them, compared on the CPU) and raise past ``tol``; ``errs[key]``
-    keeps the largest absolute error."""
+    of them, compared on their device, or on the CPU where they differ)
+    and raise past ``tol``; ``errs[key]`` keeps the largest absolute
+    error."""
     outs = out if isinstance(out, (tuple, list)) else (out,)
     refs = ref if isinstance(ref, (tuple, list)) else (ref,)
     rel = abs_err = 0.0
     finite = True
     for o, r in zip(outs, refs):
-        o, r = o.detach().float().cpu(), r.detach().float().cpu()
+        o, r = o.detach().float(), r.detach().float()
+        if o.device != r.device:
+            o, r = o.cpu(), r.cpu()
         finite = finite and bool(torch.isfinite(o).all())
         rel = max(rel, rel_err(o, r))
         abs_err = max(abs_err, float((o - r).abs().max()))
@@ -514,23 +608,62 @@ def seeded(shape, seed, scale=1.0, shift=0.0, dtype=torch.float32,
     return torch.from_numpy(shift + scale * a).to(device=device, dtype=dtype)
 
 
-def check_backward_kernels(B, T, E, H, dtype, tol, errs: dict):
-    """B2 at (B, H, T, E / H) and B3 at (B, T, E) and the head's (B, 4E)
-    against their plain versions in ``dtype``."""
-    from vitx_torch.kernels import (attention_bwd, attention_bwd_plain,
-                                    ln_bwd, ln_bwd_plain)
+def check_attention_bwd(shape, dtype, tol, errs: dict) -> None:
+    """B2's kernel at (B, H, T, D) against ``attention_bwd_plain``."""
+    from vitx_torch.kernels import attention_bwd, attention_bwd_plain
 
-    D = E // H
-    bf = dtype == torch.bfloat16
-    info = {"dtype": str(dtype), "batch": B}
-    q, k, v = (seeded((B, H, T, D), s, 1.5, dtype=dtype) for s in (1, 2, 3))
-    do = seeded((B, H, T, D), 4, 0.1, dtype=dtype)
+    q, k, v = (seeded(shape, s, 1.5, dtype=dtype) for s in (1, 2, 3))
+    do = seeded(shape, 4, 0.1, dtype=dtype)
     out = attention_bwd(q, k, v, do)
     torch.cuda.synchronize()
     check("grad", "attention_bwd", out, attention_bwd_plain(q, k, v, do),
-          tol, errs if bf else None, "attention_bwd", shape=[B, H, T, D],
+          tol, errs if dtype == torch.bfloat16 else None, "attention_bwd",
+          shape=list(shape), dtype=str(dtype))
+
+
+def check_entries_backward(shape, dtype, tol, errs: dict) -> None:
+    """B11 through B3: autograd through ``fused_layer_norm`` and
+    ``fused_add_layer_norm`` on the card against ``ln_bwd_plain`` on the
+    2-D view; the add variant's dx, the sum's cotangent added, the same
+    for x and r."""
+    from vitx_torch.kernels import (fused_add_layer_norm, fused_layer_norm,
+                                    ln_bwd_plain)
+
+    E = shape[-1]
+    bf = dtype == torch.bfloat16
+    x = seeded(shape, 90, 2.0, 0.5, dtype=dtype)
+    r = seeded(shape, 91, 1.0, dtype=dtype)
+    dy, ds = (seeded(shape, s, 0.1, dtype=dtype) for s in (92, 93))
+    sc, bi = seeded((E,), 94, 0.1, 1.0), seeded((E,), 95, 0.1)
+    info = {"shape": list(shape), "dtype": str(dtype)}
+    ts = [t.detach().requires_grad_() for t in (x, sc, bi)]
+    grads = torch.autograd.grad(fused_layer_norm(*ts), ts, dy)
+    torch.cuda.synchronize()
+    dx, dsc, dbi = ln_bwd_plain(x.reshape(-1, E), sc, dy.reshape(-1, E))
+    check("grad", "fused_layer_norm backward (dx, dscale, dbias)", grads,
+          (dx.reshape(shape), dsc, dbi), tol, errs if bf else None, "ln_bwd",
           **info)
-    del q, k, v, do, out
+    ta = [t.detach().requires_grad_() for t in (x, r, sc, bi)]
+    s, y = fused_add_layer_norm(*ta)
+    grads = torch.autograd.grad((s, y), ta, (ds, dy))
+    torch.cuda.synchronize()
+    if not torch.equal(grads[0], grads[1]):
+        raise AssertionError(f"B11 {info}: dx and dr differ")
+    dx, dsc, dbi = ln_bwd_plain(s.detach().reshape(-1, E), sc,
+                                dy.reshape(-1, E))
+    check("grad", "fused_add_layer_norm backward (dx, dscale, dbias)",
+          grads[1:], (dx.reshape(shape) + ds, dsc, dbi), tol,
+          errs if bf else None, "ln_bwd", **info)
+
+
+def check_backward_kernels(B, T, E, H, dtype, tol, errs: dict):
+    """B2 at (B, H, T, E / H) and B3 at (B, T, E) and the head's (B, 4E)
+    against their plain versions in ``dtype``."""
+    from vitx_torch.kernels import ln_bwd, ln_bwd_plain
+
+    bf = dtype == torch.bfloat16
+    info = {"dtype": str(dtype), "batch": B}
+    check_attention_bwd((B, H, T, E // H), dtype, tol, errs)
     for shape in ((B, T, E), (B, 4 * E)):
         x = seeded(shape, 5, 2.0, 0.5, dtype=dtype)
         dy = seeded(shape, 6, 0.1, dtype=dtype)
@@ -593,6 +726,28 @@ def phase_grad(errs: dict):
         for dtype, tol in ((torch.float32, FP32_TOL),
                            (torch.bfloat16, BF16_TOL)):
             check_backward_kernels(B, 577, 1024, 16, dtype, tol, errs)
+    # past T = 1024, where vitx runs its q-chunked backward B6: the
+    # fine-tune's tokens (T 1025) at batch 2 in both dtypes, with K1 and
+    # K2's stash and autograd (B2 at (2, 12, 1025, 64) among them); B2 at a
+    # ragged T of large16's heads and at T 2048; and B11, the
+    # fused_layer_norm entries' backward, at batch 2 of T 1025 and at
+    # base16's b256 rows
+    for dtype, tol, gtol in ((torch.float32, FP32_TOL, FP32_TOL),
+                             (torch.bfloat16, BF16_TOL, GRAD_BF16_TOL)):
+        check_training_kernels(2, 1025, E, 12, dtype, tol, gtol, errs)
+        for shape in ((1, 16, 1100, 64), (1, 12, 2048, 64)):
+            check_attention_bwd(shape, dtype, tol, errs)
+        for shape in ((2, 1025, E), (256, 197, E)):
+            check_entries_backward(shape, dtype, tol, errs)
+    # the fine-tune main path's own shapes, bf16 batch 32: K1's stash and
+    # autograd through both blocks, B2 at (32, 12, 1025, 64) and B3 at
+    # (32, 1025, 768) and the head's (32, 3072); B2 there in fp32 as well
+    t0 = time.perf_counter()
+    check_training_kernels(32, 1025, E, 12, torch.bfloat16, BF16_TOL,
+                           GRAD_BF16_TOL, errs)
+    check_attention_bwd((32, 12, 1025, 64), torch.float32, FP32_TOL, errs)
+    emit({"phase": "grad", "part": "fine-tune shapes, batch 32",
+          "seconds": time.perf_counter() - t0})
     # B12 on a base16 leaf (the stacked block W1), float32 and bf16 grads
     shape = (12, E, 4 * E)
     for gdt in (torch.float32, torch.bfloat16):
@@ -702,7 +857,15 @@ def expected_train_launches(cfg, n_leaves: int, steps: int,
                        fused_adamw_=n_leaves * fused_steps)
 
 
-def param_gap(gc, gh, pc, ph, lr: float, eps: float) -> dict:
+def leaf_names(tree, prefix: str = "") -> list:
+    """The "a/b/c" paths of ``leaves(tree)``, in its order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in leaf_names(tree[k], f"{prefix}{k}/")]
+    return [prefix.rstrip("/")]
+
+
+def param_gap(gc, gh, pc, ph, lr: float, eps: float, names) -> dict:
     """Hold the params after one Adam step from zero moments on the card
     (``pc``, gradients ``gc``) to those on the CPU (``ph``, ``gh``).
 
@@ -712,10 +875,13 @@ def param_gap(gc, gh, pc, ph, lr: float, eps: float) -> dict:
     lr * eps * d / (|g| - d + eps)**2 where |g| > d (mean value theorem).
     Each element is held to the smaller of the two, plus 1e-4 lr for the
     update's rounding and one ulp of the new param. ``worst`` is the
-    largest gap over its allowance; ``loose_share`` the share of elements
-    whose allowance exceeds lr / 2 (a sign the two steps may not share)."""
-    worst, loose, total = 0.0, 0, 0
-    for a, b, p_card, p_host in zip(gc, gh, pc, ph):
+    largest gap over its allowance, ``worst_at`` the element that sets it:
+    its leaf (named by ``names``) and index, both gradients, d, the margin
+    |g| - d, and the allowance's three terms. ``loose_share`` is the share
+    of elements whose allowance exceeds lr / 2 (a sign the two steps may
+    not share)."""
+    worst, loose, total, at = 0.0, 0, 0, {}
+    for name, a, b, p_card, p_host in zip(names, gc, gh, pc, ph):
         d = float((a - b).abs().max())
         g = b.abs()
         bound = (g + d) / (g + d + eps) + g / (g + eps)
@@ -724,38 +890,43 @@ def param_gap(gc, gh, pc, ph, lr: float, eps: float) -> dict:
         size = p_host.abs()
         ulp = torch.nextafter(size, torch.full_like(size, np.inf)) - size
         allow = lr * (1e-4 + bound) + ulp
-        worst = max(worst, float(((p_card - p_host).abs() / allow).max()))
+        gap = (p_card - p_host).abs()
+        ratio = (gap / allow).reshape(-1)
+        i = int(ratio.argmax())
+        if float(ratio[i]) > worst:
+            worst = float(ratio[i])
+            at = {"leaf": name, "index": [int(j) for j in np.unravel_index(
+                      i, tuple(g.shape))],
+                  "grad_cpu": float(b.reshape(-1)[i]),
+                  "grad_card": float(a.reshape(-1)[i]), "leaf_grad_gap": d,
+                  "grad_margin": float(g.reshape(-1)[i]) - d,
+                  "param_gap": float(gap.reshape(-1)[i]),
+                  "allow_rounding": lr * 1e-4,
+                  "allow_step": lr * float(bound.reshape(-1)[i]),
+                  "allow_ulp": float(ulp.reshape(-1)[i])}
         loose += int((bound > 0.5).sum())
         total += g.numel()
-    return {"worst": worst, "loose_share": loose / total, "elements": total}
+    return {"worst": worst, "worst_at": at, "loose_share": loose / total,
+            "elements": total}
 
 
-def phase_train(ds) -> tuple:
-    """(a) one fp32 step at depth 2, card vs CPU; (b) the bf16 main path.
-    Returns (the main path's launches, its state, its batch, the step)."""
-    import vitx_torch
-    from vitx_torch.nn.vit import init_params, params_to
-    from vitx_torch.train import (TrainState, create_train_state, eval_step,
-                                  make_optimizer, make_train_step,
-                                  train_step)
+def check_step_card_vs_cpu(phase, part, cfg, card, host, batch, lr) -> None:
+    """One fp32 train_step of ``cfg`` from the same params on the card and
+    on the CPU (plain versions): the loss, grad_norm and the gradients of
+    the step's loss agree to FP32_TOL of each leaf's largest; each param
+    within its ``param_gap`` allowance. The steps update both trees."""
+    from vitx_torch.train import TrainState, make_optimizer, train_step
     from vitx_torch.train.step import leaves, loss_fn, tree_map
 
-    # (a) base16 at depth 2, batch 4, fp32: card against CPU. The gradients
-    # of the step's loss agree to FP32_TOL of each leaf's largest.
-    cfg2 = vitx_torch.get_config("base16", depth=2, compute_dtype="float32")
-    lr = 1e-4
     opt = make_optimizer(lr=lr)
-    host = init_params(1, cfg2, device="cpu")
-    card = params_to(host, "cuda")
-    batch4 = synthetic_batch(ds, 4)
     out = []
     for params, dev in ((card, "cuda"), (host, "cpu")):
         t0 = time.perf_counter()
         req = tree_map(lambda t: t.detach().requires_grad_(), params)
-        b = {k: torch.from_numpy(v).to(dev) for k, v in batch4.items()}
-        grads = torch.autograd.grad(loss_fn(req, b, cfg2)[0], leaves(req))
+        b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        grads = torch.autograd.grad(loss_fn(req, b, cfg)[0], leaves(req))
         state = TrainState(0, params, opt.init(params))
-        state, m = train_step(state, batch4, cfg=cfg2, optimizer=opt,
+        state, m = train_step(state, batch, cfg=cfg, optimizer=opt,
                               device=dev)
         out.append(([g.cpu() for g in grads], [t.cpu() for t in
                                                 leaves(state.params)],
@@ -764,12 +935,29 @@ def phase_train(ds) -> tuple:
     (gc, pc, mc, card_s), (gh, ph, mh, cpu_s) = out
     errs = {k: abs(mc[k] - mh[k]) / abs(mh[k]) for k in ("loss", "grad_norm")}
     errs["grads"] = max(rel_err(a, b) for a, b in zip(gc, gh))
-    p_err = param_gap(gc, gh, pc, ph, lr, opt.eps)
-    emit({"phase": "train", "part": "a: base16 depth 2 fp32, card vs CPU",
-          "card": mc, "cpu": mh, "rel_err": errs, "params": p_err,
-          "tol": FP32_TOL, "card_s": card_s, "cpu_s": cpu_s})
+    p_err = param_gap(gc, gh, pc, ph, lr, opt.eps, leaf_names(host))
+    emit({"phase": phase, "part": part, "card": mc, "cpu": mh,
+          "rel_err": errs, "params": p_err, "tol": FP32_TOL,
+          "card_s": card_s, "cpu_s": cpu_s})
     if not (max(errs.values()) <= FP32_TOL and p_err["worst"] <= 1.0):
-        raise AssertionError(f"train step card vs CPU: {errs}, {p_err}")
+        raise AssertionError(f"{part}: {errs}, {p_err}")
+
+
+def phase_train(ds) -> tuple:
+    """(a) one fp32 step at depth 2, card vs CPU; (b) the bf16 main path.
+    Returns (the main path's launches, its state, its batch, the step)."""
+    import vitx_torch
+    from vitx_torch.nn.vit import init_params, params_to
+    from vitx_torch.train import (create_train_state, eval_step,
+                                  make_optimizer, make_train_step)
+    from vitx_torch.train.step import leaves
+
+    # (a) base16 at depth 2, batch 4, fp32: card against CPU
+    cfg2 = vitx_torch.get_config("base16", depth=2, compute_dtype="float32")
+    host = init_params(1, cfg2, device="cpu")
+    check_step_card_vs_cpu("train", "a: base16 depth 2 fp32, card vs CPU",
+                           cfg2, params_to(host, "cuda"), host,
+                           synthetic_batch(ds, 4), 1e-4)
 
     # (b) the main path: full base16, bf16, batch 128
     cfg = vitx_torch.get_config("base16")
@@ -804,6 +992,135 @@ def phase_train(ds) -> tuple:
         raise AssertionError(f"eval_step: {int(cm.sum())} rows counted, "
                              f"loss {float(eval_loss)}")
     return launches, state, batch, step
+
+
+def export_vit(params, path) -> None:
+    """``params`` as vitx's ``--export-vit`` writes them: a bare ``.npz``
+    of flat "a/b/c" keys (``vitx/cli/pretrain.py:286-288``)."""
+    flat = {}
+
+    def walk(node, prefix):
+        for key in sorted(node):
+            if isinstance(node[key], dict):
+                walk(node[key], f"{prefix}{key}/")
+            else:
+                flat[prefix + key] = node[key].detach().cpu().numpy()
+
+    walk(params, "")
+    np.savez(path, **flat)
+
+
+def phase_finetune(ds) -> tuple:
+    """Main path 5: ViT-B/16 fine-tuned at 512² (T 1025) from a 224²
+    export. (a) the export read into the 512² config on the card and on
+    the CPU; (b) depth 2 fp32, card vs CPU; (c) the main path, full base16
+    bf16 at batch 32; (d) the fused_layer_norm entries, forward and
+    backward, on the fine-tune's tokens. Returns ((c) and (d)'s launches,
+    the config, the state, the batch, the step)."""
+    import tempfile
+    import warnings
+
+    import vitx_torch
+    from vitx_torch import (fused_add_layer_norm, fused_layer_norm,
+                            layer_norm_fwd_plain, params_from_jax)
+    from vitx_torch.nn.vit import init_params
+    from vitx_torch.train import (TrainState, eval_step, make_optimizer,
+                                  make_train_step)
+    from vitx_torch.train.step import leaves
+
+    src = vitx_torch.get_config("base16")
+    cfg = src.replace(image_size=512)
+
+    # (a) a seed-0 base16 224² export, read into the 512² config
+    BUILD.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
+        path = Path(tmp) / "base16_224.npz"
+        export_vit(init_params(0, src, device="cpu"), path)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            card = params_from_jax(path, cfg)
+            host = params_from_jax(path, cfg, device="cpu")
+    notes = sorted({str(w.message).split(": ", 1)[1] for w in caught})
+    gap = float((card["pos_embed"].cpu() - host["pos_embed"]).abs().max())
+    emit({"phase": "finetune", "part": "a: base16 224² export read into "
+          "512², card vs CPU", "warnings": notes, "pos_embed_gap": gap,
+          "shape": list(card["pos_embed"].shape), "tol": 1e-6})
+    if (notes != ["pos_embed resized from 197 to 1025 positions (grid "
+                  "32x32)"] or gap > 1e-6
+            or card["pos_embed"].shape != (1, cfg.pos_len, cfg.embed_dim)):
+        raise AssertionError(f"(a) export read: {notes}, gap {gap}")
+
+    # (b) depth 2 fp32, batch 2, T 1025: card against CPU, the first two
+    # blocks of the export
+    cfg2 = cfg.replace(depth=2, compute_dtype="float32")
+
+    def depth2(p):
+        return dict(p, blocks={k: v[:2].clone()
+                               for k, v in p["blocks"].items()})
+
+    check_step_card_vs_cpu("finetune", "b: base16 512² depth 2 fp32 b2, "
+                           "card vs CPU", cfg2, depth2(card), depth2(host),
+                           synthetic_batch(ds, 2), 1e-4)
+    del host
+
+    # (c) the main path: full base16 at 512², bf16, batch 32, one batch
+    # repeated for 10 steps
+    batch = synthetic_batch(ds, 32)
+    opt = make_optimizer(lr=1e-4)
+    state = TrainState(0, card, opt.init(card))
+    step = make_train_step(cfg, opt)
+    n_leaves = len(leaves(card))
+    losses = []
+    reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        state, m = step(state, batch)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = counts()
+    losses = [float(v) for v in losses]
+    expect = expected_train_launches(cfg, n_leaves, 10, 0)
+    cm, eval_loss = eval_step(state.params, batch, cfg=cfg)
+    emit({"phase": "finetune", "part": "c: base16 512² bf16 batch 32, 10 "
+          "steps", "losses": losses, "launches": got, "expected": expect,
+          "wall_s": wall, "eval_loss": float(eval_loss)})
+    expect_launches("(c) fine-tune steps", got, expect)
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]
+            and min(losses[-3:]) < min(losses[:3])):
+        raise AssertionError(f"fine-tune loss did not fall: {losses}")
+    if int(cm.sum()) != 32 or not np.isfinite(float(eval_loss)):
+        raise AssertionError(f"eval_step: {int(cm.sum())} rows counted, "
+                             f"loss {float(eval_loss)}")
+
+    # (d) the public entries on the fine-tune's tokens: the pre-LN
+    # residual pattern s, h = x + r, LN(x + r), a second LN of h, and the
+    # gradients of every input
+    shape = (32, cfg.seq_len, cfg.embed_dim)
+    bf = torch.bfloat16
+    x = seeded(shape, 96, 1.0, dtype=bf).requires_grad_()
+    r = seeded(shape, 97, 0.1, dtype=bf).requires_grad_()
+    lnp = [seeded((cfg.embed_dim,), 98 + i, 0.1, 1.0 if i % 2 == 0 else 0.0)
+           .requires_grad_() for i in range(4)]
+    snap = counts()
+    s, h = fused_add_layer_norm(x, r, lnp[0], lnp[1])
+    y = fused_layer_norm(h, lnp[2], lnp[3])
+    grads = torch.autograd.grad(y.float().square().mean() + s.float().mean(),
+                                [x, r, *lnp])
+    torch.cuda.synchronize()
+    got_d = delta(snap)
+    expect_launches("(d) entries", got_d, launches_of(
+        fused_add_layer_norm=1, fused_layer_norm=1, ln_bwd=2))
+    with torch.no_grad():
+        ref_s, ref_h = layer_norm_fwd_plain(x, lnp[0], lnp[1], r)
+        ref_y = layer_norm_fwd_plain(ref_h, lnp[2], lnp[3])
+    check("finetune", "d: fused_add_layer_norm then fused_layer_norm at "
+          "(32, 1025, 768) bf16 vs plain", (s, h, y), (ref_s, ref_h, ref_y),
+          BF16_TOL, launches=got_d)
+    if not all(bool(torch.isfinite(g).all()) for g in grads):
+        raise AssertionError("(d) entries: gradients not finite")
+    del x, r, s, h, y, grads
+    return add_launches(got, got_d), cfg, state, batch, step
 
 
 def card_rel_err(a, b) -> float:
@@ -1588,6 +1905,81 @@ def phase_tome_times(cfg, params, large, large_params, errs: dict,
     return [tome_kernel_row(cfg, large, errs, launches)]
 
 
+def phase_finetune_times(cfg, state, batch, step, launches: dict,
+                         errs: dict) -> tuple:
+    """The fine-tune step at batch 32 bf16 (ms, img/s, profiler split);
+    B2's kernel at its attention shape (32, 12, 1025, 64), where vitx runs
+    B6; B10's two rows and B3's kernel on the (R, E) view, B11's function,
+    at base16's b256 tokens (256 x 197, 768) bf16. Returns (B10's rows,
+    {name: [shape entries]} for the rows of attention_bwd and ln_bwd)."""
+    import torch.nn.functional as F
+
+    from vitx_torch.kernels import (attention_bwd, attention_bwd_plain,
+                                    fused_add_layer_norm, fused_layer_norm,
+                                    layer_norm_fwd_plain, ln_bwd,
+                                    ln_bwd_plain)
+
+    B = batch["image"].shape[0]
+    T, E, H, D = cfg.seq_len, cfg.embed_dim, cfg.num_heads, cfg.head_dim
+    holder = [state]
+
+    def one_step():
+        holder[0], _ = step(holder[0], batch)
+
+    step_ms = cuda_ms(one_step, reps=5, warmup=1)
+    emit({"phase": "times", "what": "finetune_step", "batch": B, "T": T,
+          "ms": step_ms, "img_per_s": B / (step_ms / 1000.0)})
+    profile_call("finetune_step", one_step, top=16)
+
+    bf = torch.bfloat16
+    keep = ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "tflops")
+    q, k, v = (seeded((B, H, T, D), s, 1.5, dtype=bf) for s in (41, 42, 43))
+    do = seeded((B, H, T, D), 44, 0.1, dtype=bf)
+    qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+    o_lib = F.scaled_dot_product_attention(qs, ks, vs)
+    b6 = kernel_row(
+        "attention_bwd", lambda: attention_bwd(q, k, v, do),
+        lambda: attention_bwd_plain(q, k, v, do),
+        lambda: torch.autograd.grad(o_lib, (qs, ks, vs), do,
+                                    retain_graph=True),
+        10 * B * H * T * T * D, PEAK_BF16_FLOPS, 7 * B * H * T * D * 2,
+        launches, errs, shape=[B, H, T, D])
+    del q, k, v, do, qs, ks, vs, o_lib
+
+    R = 256 * 197
+    x = seeded((R, E), 45, 2.0, 0.5, dtype=bf)
+    r = seeded((R, E), 46, 1.0, dtype=bf)
+    dy = seeded((R, E), 47, 0.1, dtype=bf)
+    sc, bi = seeded((E,), 48, 0.1, 1.0), seeded((E,), 49, 0.1)
+    xs, scs, bs = (t.detach().to(bf).requires_grad_() for t in (x, sc, bi))
+    y_lib = F.layer_norm(xs, (E,), scs, bs, cfg.layer_norm_eps)
+    b11 = kernel_row(
+        "ln_bwd", lambda: ln_bwd(x, sc, dy), lambda: ln_bwd_plain(x, sc, dy),
+        lambda: torch.autograd.grad(y_lib, (xs, scs, bs), dy,
+                                    retain_graph=True),
+        20 * R * E, PEAK_FP32_FLOPS, 3 * R * E * 2 + 3 * E * 4, launches,
+        errs, shape=[R, E])
+    del xs, scs, bs, y_lib
+    rows = [
+        kernel_row("fused_layer_norm", lambda: fused_layer_norm(x, sc, bi),
+                   lambda: layer_norm_fwd_plain(x, sc, bi),
+                   lambda: F.layer_norm(x, (E,), sc.to(bf), bi.to(bf),
+                                        cfg.layer_norm_eps),
+                   8 * R * E, PEAK_FP32_FLOPS, 2 * R * E * 2 + 2 * E * 4,
+                   launches, errs, shape=[R, E]),
+        kernel_row("fused_add_layer_norm",
+                   lambda: fused_add_layer_norm(x, r, sc, bi),
+                   lambda: layer_norm_fwd_plain(x, sc, bi, r), None,
+                   9 * R * E, PEAK_FP32_FLOPS, 4 * R * E * 2 + 2 * E * 4,
+                   launches, errs, shape=[R, E],
+                   library_note=NO_ADD_LIBRARY),
+    ]
+    shapes = {"attention_bwd": [{k: b6[k] for k in keep}],
+              "ln_bwd": [{k: b11[k] for k in keep}]}
+    return rows, shapes
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--phases", default=",".join(PHASES),
@@ -1619,8 +2011,8 @@ def main(argv=None) -> int:
     if "forward" in phases:
         phase_forward(cfg, params)
     serve_launches, train_launches, explain_launches = {}, {}, {}
-    tome_launches = {}
-    train = None
+    tome_launches, finetune_launches = {}, {}
+    train = finetune = None
     if "serve" in phases:
         serve_launches = phase_serve(cfg, params)
     if "train" in phases:
@@ -1637,8 +2029,14 @@ def main(argv=None) -> int:
         explain_launches = phase_explain(large, large_params)
     if "tome" in phases:
         tome_launches = phase_tome(cfg, params, large, large_params)
+    if "finetune" in phases:
+        from vitx_torch.data import SyntheticDataset
+
+        ds512 = SyntheticDataset(num_examples=32, image_size=512,
+                                 num_classes=cfg.num_classes, seed=0)
+        finetune_launches, *finetune = phase_finetune(ds512)
     launches = add_launches(serve_launches, train_launches, explain_launches,
-                            tome_launches)
+                            tome_launches, finetune_launches)
     if "times" in phases:
         rows = phase_times(cfg, params, errs, launches)
         if tome_launches:
@@ -1653,12 +2051,23 @@ def main(argv=None) -> int:
         del train
         if explain_launches:
             rows += phase_explain_times(large, large_params, errs, launches)
+        if finetune:
+            new_rows, extra = phase_finetune_times(*finetune, launches, errs)
+            rows += new_rows
+            for row in rows:
+                if row["name"] in extra:
+                    # the row's own numbers first, then those past T 1024
+                    # (B6) or on the entries' 2-D view (B11)
+                    row["shapes"] = [{k: row[k] for k in extra[
+                        row["name"]][0]}] + extra[row["name"]]
+        del finetune
         for row in rows:
             row["launches_by_path"] = {
                 "serve": serve_launches.get(row["name"], 0),
                 "train": train_launches.get(row["name"], 0),
                 "explain": explain_launches.get(row["name"], 0),
-                "tome": tome_launches.get(row["name"], 0)}
+                "tome": tome_launches.get(row["name"], 0),
+                "finetune": finetune_launches.get(row["name"], 0)}
             if row["name"] in stash:
                 row["stash_ms_b128"] = stash[row["name"]]
         missing = sorted(set(KERNELS) - {row["name"] for row in rows})

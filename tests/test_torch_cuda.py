@@ -23,12 +23,15 @@ from vitx_torch.kernels import (adamw_plain, attention_bwd,
                                 attention_bwd_plain, flash_attention,
                                 flash_attention_fwd_plain,
                                 flash_attention_with_mean_probs,
-                                flash_attention_with_probs, fused_adamw_,
-                                fused_mha_block, fused_mha_block_tome,
+                                flash_attention_with_probs,
+                                fused_add_layer_norm, fused_adamw_,
+                                fused_layer_norm, fused_mha_block,
+                                fused_mha_block_tome,
                                 fused_mha_block_with_mean_probs,
-                                fused_mlp_block, ln_bwd, ln_bwd_plain,
-                                mha_block_mean_probs_plain, mha_block_plain,
-                                mha_block_tome_plain, mlp_block_plain)
+                                fused_mlp_block, layer_norm_fwd_plain, ln_bwd,
+                                ln_bwd_plain, mha_block_mean_probs_plain,
+                                mha_block_plain, mha_block_tome_plain,
+                                mlp_block_plain)
 from vitx_torch.nn.vit import params_to
 from vitx_torch.train import step as tstep
 
@@ -382,3 +385,129 @@ def test_tome_forward_on_card_matches_cpu(cuda, qkv_bias):
         _, ref = vitx_torch.encode_tome(host, torch.from_numpy(x), cfg,
                                         return_sources=True)
     assert torch.equal(src.cpu(), ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dims", [(2, 12, 1025, 64), (1, 2, 2048, 64),
+                                  (1, 3, 1100, 16)])
+def test_attention_bwd_long_sequences_match_plain(cuda, dims, dtype):
+    """B2's kernel where vitx runs its q-chunked backward (B6): ViT-B/16
+    at 512² (T 1025: a last tile of one query and one key), T 2048 (32
+    tiles) and a ragged T with D 16."""
+    q, k, v = (seeded(dims, s, 1.5, dtype=dtype, device=cuda)
+               for s in (11, 12, 13))
+    do = seeded(dims, 14, 0.1, dtype=dtype, device=cuda)
+    n = attention_bwd.launches
+    out = attention_bwd(q, k, v, do)
+    torch.cuda.synchronize()
+    assert attention_bwd.launches == n + 1
+    for o, r in zip(out, attention_bwd_plain(q, k, v, do)):
+        assert bool(torch.isfinite(o).all())
+        assert rel_err(o, r) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 197, 768), (394, 100), (1, 3072),
+                                   (3, 5, 64), (7, 36)])
+def test_fused_layer_norm_matches_plain(cuda, shape, dtype):
+    """B10 in both variants against its plain version, at a block's
+    shape, a width off the 16-byte vectors (100, 36), one row of the
+    head's 3072 and tiny's 64: the sum equal bit for bit, two calls
+    likewise."""
+    E = shape[-1]
+    x = seeded(shape, 15, 3.0, 0.5, dtype=dtype, device=cuda)
+    r = seeded(shape, 16, 1.0, dtype=dtype, device=cuda)
+    sc = seeded((E,), 17, 0.1, 1.0, device=cuda)
+    bi = seeded((E,), 18, 0.1, device=cuda)
+    n, na = fused_layer_norm.launches, fused_add_layer_norm.launches
+    y = fused_layer_norm(x, sc, bi)
+    s, ya = fused_add_layer_norm(x, r, sc, bi)
+    torch.cuda.synchronize()
+    assert fused_layer_norm.launches == n + 1
+    assert fused_add_layer_norm.launches == na + 1
+    assert y.dtype == ya.dtype == s.dtype == x.dtype
+    assert rel_err(y, layer_norm_fwd_plain(x, sc, bi)) <= TOL[dtype]
+    ref_s, ref_y = layer_norm_fwd_plain(x, sc, bi, r)
+    assert torch.equal(s, ref_s) and torch.equal(s, x + r)
+    assert rel_err(ya, ref_y) <= TOL[dtype]
+    assert torch.equal(fused_layer_norm(x, sc, bi), y)
+    assert torch.equal(fused_add_layer_norm(x, r, sc, bi)[1], ya)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 197, 768), (3, 5, 100)])
+def test_fused_layer_norm_backward_matches_plain(cuda, shape, dtype):
+    """B11 through B3's kernel: the entries' gradients on the card against
+    ``ln_bwd_plain`` on the 2-D view, the add variant's sum cotangent
+    added to dx for both x and r."""
+    E = shape[-1]
+    x = seeded(shape, 19, 2.0, 0.5, dtype=dtype, device=cuda)
+    r = seeded(shape, 20, 1.0, dtype=dtype, device=cuda)
+    dy = seeded(shape, 21, 0.1, dtype=dtype, device=cuda)
+    ds = seeded(shape, 22, 0.1, dtype=dtype, device=cuda)
+    sc = seeded((E,), 23, 0.1, 1.0, device=cuda)
+    bi = seeded((E,), 24, 0.1, device=cuda)
+    ts = [t.detach().requires_grad_() for t in (x, sc, bi)]
+    n = ln_bwd.launches
+    grads = torch.autograd.grad(fused_layer_norm(*ts), ts, dy)
+    torch.cuda.synchronize()
+    assert ln_bwd.launches == n + 1
+    dx, dsc, dbi = ln_bwd_plain(x.reshape(-1, E), sc, dy.reshape(-1, E))
+    for g, ref in zip(grads, (dx.reshape(shape), dsc, dbi)):
+        assert rel_err(g, ref) <= TOL[dtype]
+    ta = [t.detach().requires_grad_() for t in (x, r, sc, bi)]
+    s, y = fused_add_layer_norm(*ta)
+    grads = torch.autograd.grad((s, y), ta, (ds, dy))
+    dx, dsc, dbi = ln_bwd_plain(s.detach().reshape(-1, E), sc,
+                                dy.reshape(-1, E))
+    dx = dx.reshape(shape) + ds
+    assert torch.equal(grads[0], grads[1])
+    for g, ref in zip(grads[1:], (dx, dsc, dbi)):
+        assert rel_err(g, ref) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_finetune_step_on_card_matches_cpu(cuda, tmp_path):
+    """Fine-tuning ViT-B/16 at 512² (T 1025) at depth 2, fp32, batch 1,
+    from a 224² export whose positional grid is resized: one step on the
+    card against the CPU's, and the launches per step (K1 and B2's kernel
+    once a block, B3 for both LayerNorms of a block and the head's)."""
+    src = vitx_torch.get_config("base16", depth=2, compute_dtype="float32")
+    cfg = src.replace(image_size=512)
+    host = vitx_torch.init_params(0, src, device="cpu")
+    leaves = {}
+
+    def walk(node, prefix):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, prefix + k + "/")
+            else:
+                leaves[prefix + k] = v.numpy()
+
+    walk(host, "")
+    path = tmp_path / "base16_224.npz"
+    np.savez(path, **leaves)
+    with pytest.warns(UserWarning, match="resized from 197 to 1025"):
+        on_card = vitx_torch.params_from_jax(path, cfg, device=cuda)
+    with pytest.warns(UserWarning, match="resized from 197 to 1025"):
+        on_host = vitx_torch.params_from_jax(path, cfg, device="cpu")
+    assert torch.equal(on_card["pos_embed"].cpu(), on_host["pos_embed"])
+    opt = tstep.make_optimizer(lr=1e-4)
+    rng = np.random.default_rng(1)
+    batch = {"image": rng.standard_normal((1, 512, 512, 3)).astype(
+        np.float32), "label": np.array([7], np.int32)}
+    fns = (fused_mha_block, attention_bwd, ln_bwd, fused_mlp_block)
+    before = [f.launches for f in fns]
+    _, m_card = tstep.train_step(
+        tstep.TrainState(0, on_card, opt.init(on_card)), batch, cfg=cfg,
+        optimizer=opt)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(fns, before)] == [2, 2, 5, 0]
+    _, m_host = tstep.train_step(
+        tstep.TrainState(0, on_host, opt.init(on_host)), batch, cfg=cfg,
+        optimizer=opt, device="cpu")
+    for k in ("loss", "grad_norm"):
+        assert rel_err(m_card[k], m_host[k]) <= 1e-4, k

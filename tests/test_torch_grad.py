@@ -96,9 +96,18 @@ def test_attention_bwd_matches_pallas(shape, dtype):
 
 
 def test_attention_bwd_refuses_long_sequences():
-    q = torch.zeros(1, 1, 1025, 16)
-    with pytest.raises(NotImplementedError, match="B6"):
-        attention_bwd(q, q, q, q)
+    """Named for the T <= 1024 refusal it once pinned; that refusal is
+    gone. Past T = 1024, where vitx's ``_bwd`` takes its q-chunked kernel
+    (B6), ``attention_bwd`` refuses nothing and matches it (fp32)."""
+    rng = np.random.default_rng(6)
+    shape = (1, 1, 1025, 16)
+    arrs = [normal(rng, shape, 1.5) for _ in range(3)]
+    arrs.append(normal(rng, shape, 0.1))
+    jx, tx = zip(*(both(a, "float32") for a in arrs))
+    ref = jflash._bwd(tuple(jx[:3]), jx[3])
+    for o, r in zip(attention_bwd(*tx), ref):
+        assert o.shape == tx[0].shape
+        assert rel_err(f32(o), f32(r)) <= TOL["float32"]
 
 
 # --- B3: LayerNorm backward -------------------------------------------------

@@ -9,7 +9,12 @@ and so are the attention and LayerNorm backwards and the fused AdamW
 update of the train step (``vitx_torch.train``) and the attention forwards
 with probabilities behind ``forward_with_attn``, ``forward_with_rollout``
 and the server's ``/explain``, and ToMe's attention half behind
-``encode_tome`` (token merging, ``cfg.tome_r``); the rest is plain torch.
+``encode_tome`` (token merging, ``cfg.tome_r``), and the LayerNorm
+forward behind ``fused_layer_norm`` / ``fused_add_layer_norm``; the rest
+is plain torch. A 224² export fine-tunes at a larger image size
+(``params_from_jax`` resizes its positional grid, ``resize_pos_embed``);
+the attention backward takes every sequence length (ViT-B/16 at 512²,
+T 1025).
 It imports neither ``jax`` nor ``vitx``.
 
 Entry points run on a CUDA device unless the caller passes
@@ -30,6 +35,9 @@ torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 from vitx_torch.core.config import PRESETS, ViTConfig, get_config  # noqa: E402
 from vitx_torch.interop.jax_params import (  # noqa: E402
     adamw_state_from_jax, params_from_jax)
+from vitx_torch.interop.pretrained import resize_pos_embed  # noqa: E402
+from vitx_torch.kernels.layer_norm import (  # noqa: E402
+    fused_add_layer_norm, fused_layer_norm, layer_norm_fwd_plain)
 from vitx_torch.nn.rollout import attention_rollout  # noqa: E402
 from vitx_torch.nn.saliency import grad_cam  # noqa: E402
 from vitx_torch.nn.tome import (aligned_schedule, encode_tome,  # noqa: E402
@@ -60,4 +68,8 @@ __all__ = [
     "tome_patch_assignment",
     "params_from_jax",
     "adamw_state_from_jax",
+    "resize_pos_embed",
+    "fused_layer_norm",
+    "fused_add_layer_norm",
+    "layer_norm_fwd_plain",
 ]

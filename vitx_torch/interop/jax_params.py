@@ -5,11 +5,14 @@ and ``vitx.cli.pretrain --export-vit`` writes them to a bare ``.npz`` of
 flat ``"a/b/c"`` keys (``vitx/cli/pretrain.py:286-288``). The port uses the
 same tree, so conversion is a copy into torch tensors with the shapes
 checked against ``param_spec``. AdamW's moments are trees of the same
-shape (``adamw_state_from_jax``).
+shape (``adamw_state_from_jax``). An export read into a config of another
+image size gets its positional grid resized, as vitx's ``load_vit_init``
+does (``vitx/cli/pretrain.py:306-368``).
 """
 
 from __future__ import annotations
 
+import math
 import os
 import warnings
 
@@ -18,6 +21,7 @@ import torch
 
 from vitx_torch.core.config import ViTConfig
 from vitx_torch.core.device import resolve_device
+from vitx_torch.interop.pretrained import resize_pos_embed
 from vitx_torch.nn.vit import init_leaf, param_spec
 
 
@@ -40,6 +44,27 @@ def _leaf(arr, cfg: ViTConfig, dev):
         cfg.pdtype()).to(dev)
 
 
+def _resized_pos_embed(saved: np.ndarray, cfg: ViTConfig):
+    """A saved (1, prefix + g², E) table resized to ``cfg``'s grid, or None
+    where the mismatch is not a pure change of square grid
+    (``vitx/cli/pretrain.py:306-328``). ``parity="bug_exact"`` stores the
+    CLS row after the patches, which the resize would blend into the grid,
+    so it keeps the fresh init too."""
+    if cfg.parity == "bug_exact":
+        return None
+    if (saved.ndim != 3 or saved.shape[0] != 1
+            or saved.shape[2] != cfg.embed_dim):
+        return None
+    n_patches = saved.shape[1] - cfg.num_prefix_tokens
+    g = math.isqrt(max(n_patches, 0))
+    if g <= 0 or g * g != n_patches or g == cfg.grid_size:
+        return None
+    cfg_from = cfg.replace(image_size=g * cfg.patch_size)
+    table = torch.from_numpy(np.asarray(saved, np.float32))
+    return resize_pos_embed({"pos_embed": table}, cfg_from,
+                            cfg)["pos_embed"]
+
+
 def params_from_jax(tree, cfg: ViTConfig, device="cuda") -> dict:
     """The port's parameter tree from vitx's.
 
@@ -47,9 +72,13 @@ def params_from_jax(tree, cfg: ViTConfig, device="cuda") -> dict:
     anything ``np.asarray`` reads) or the path of a bare params ``.npz``
     written by ``--export-vit``. The dict must hold exactly the leaves
     ``cfg`` has, each of its shape. From a ``.npz``, as in vitx's
-    ``load_vit_init``, a leaf the file lacks or holds in another shape
-    keeps a fresh init (seed 0) with a warning; a positional table of
-    another grid size raises (its resize is ROADMAP A14).
+    ``load_vit_init``, a ``pos_embed`` of another square grid (a 224²
+    export read into a 512² config) is resized bilinearly to ``cfg``'s
+    grid (``resize_pos_embed``) with a warning naming the two position
+    counts; any other leaf the file lacks or holds in another shape --
+    and a table that is no pure grid change, or any table under
+    ``parity="bug_exact"`` -- keeps a fresh init (seed 0), named in one
+    warning.
     """
     dev = resolve_device(device)
     spec = param_spec(cfg)
@@ -64,10 +93,15 @@ def params_from_jax(tree, cfg: ViTConfig, device="cuda") -> dict:
                     _put(out, path, _leaf(data[key], cfg, dev))
                     continue
                 if key == "pos_embed" and key in data.files:
-                    raise NotImplementedError(
-                        f"{tree}: pos_embed has shape {data[key].shape}, "
-                        f"the config needs {tuple(shape)}; resizing it is "
-                        f"not ported yet (ROADMAP A14)")
+                    resized = _resized_pos_embed(data[key], cfg)
+                    if resized is not None:
+                        warnings.warn(
+                            f"{tree}: pos_embed resized from "
+                            f"{data[key].shape[1]} to {cfg.pos_len} "
+                            f"positions (grid {cfg.grid_size}x"
+                            f"{cfg.grid_size})")
+                        _put(out, path, resized.to(cfg.pdtype()).to(dev))
+                        continue
                 fresh.append(key)
                 _put(out, path, init_leaf(shape, init, cfg, gen).to(dev))
         if fresh:

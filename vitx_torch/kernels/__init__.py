@@ -19,10 +19,17 @@
   with its stash and a backward; replaces
   ``vitx/kernels/mlp_block.py::_kernel``.
 - ``attention_bwd`` (B2, ``csrc/flash_attention_bwd.cu``): the attention
-  backward for T <= 1024; replaces
-  ``vitx/kernels/flash_attention.py::_bwd_kernel_nq1``.
+  backward at every T; replaces
+  ``vitx/kernels/flash_attention.py::_bwd_kernel_nq1`` and, past T = 1024,
+  the q-chunked ``_bwd_kernel`` (B6).
 - ``ln_bwd`` (B3, ``csrc/layer_norm_bwd.cu``): the LayerNorm backward;
-  replaces ``vitx/kernels/layer_norm.py::_ln_bwd3_kernel``.
+  replaces ``vitx/kernels/layer_norm.py::_ln_bwd3_kernel``, and serves the
+  function of ``_ln_bwd_kernel`` (B11, the 2-D backward of the entries
+  below).
+- ``fused_layer_norm``, ``fused_add_layer_norm`` (B10,
+  ``csrc/layer_norm_fwd.cu``): the LayerNorm forward, plain and after a
+  residual add, with B11 (through ``ln_bwd``) as backward; replace
+  ``vitx/kernels/layer_norm.py::_ln_kernel``.
 - ``fused_adamw_`` (B12, ``csrc/adamw.cu``): one in-place AdamW pass over
   an fp32 leaf; replaces ``vitx/kernels/adamw.py::_kernel``.
 
@@ -36,7 +43,10 @@ from vitx_torch.kernels.flash_attention import (
     attention_bwd, attention_bwd_plain, flash_attention,
     flash_attention_fwd_plain, flash_attention_with_mean_probs,
     flash_attention_with_probs)
-from vitx_torch.kernels.layer_norm import ln_bwd, ln_bwd_plain
+from vitx_torch.kernels.layer_norm import (fused_add_layer_norm,
+                                          fused_layer_norm,
+                                          layer_norm_fwd_plain, ln_bwd,
+                                          ln_bwd_plain)
 from vitx_torch.kernels.mha_block import (composed_tome, fused_mha_block,
                                           fused_mha_block_tome,
                                           fused_mha_block_with_mean_probs,
@@ -51,5 +61,6 @@ __all__ = ["fused_mha_block", "mha_block_plain",
            "fused_mlp_block", "mlp_block_plain", "flash_attention",
            "flash_attention_with_probs", "flash_attention_with_mean_probs",
            "flash_attention_fwd_plain", "attention_bwd",
-           "attention_bwd_plain", "ln_bwd", "ln_bwd_plain", "fused_adamw_",
-           "adamw_plain"]
+           "attention_bwd_plain", "ln_bwd", "ln_bwd_plain",
+           "fused_layer_norm", "fused_add_layer_norm",
+           "layer_norm_fwd_plain", "fused_adamw_", "adamw_plain"]

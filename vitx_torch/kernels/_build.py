@@ -56,6 +56,8 @@ SIGNATURES = {
                              _I, _I, _I, _P]),
     "layer_norm_bwd": ("layer_norm_bwd", "vitx_ln_bwd",
                        [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P]),
+    "layer_norm_fwd": ("layer_norm_fwd", "vitx_ln_fwd",
+                       [_I, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P]),
     "adamw": ("adamw", "vitx_adamw",
               [_I, _P, _P, _P, _P, _L] + [_F] * 9 + [_P]),
 }

@@ -1,8 +1,13 @@
-// B2: the attention backward for Hopper (sm_90a).
+// B2: the attention backward for Hopper (sm_90a), at every T.
 //
 // Replaces vitx/kernels/flash_attention.py::_bwd_kernel_nq1 (launched by
-// _bwd_nq1 from _bwd for T <= 1024, which the fused MHA block's VJP calls):
-// q, k, v, do (B, H, T, D) -> dq, dk, dv in the input dtype, q unscaled.
+// _bwd_nq1 from _bwd for T <= 1024, which the fused MHA block's VJP calls)
+// and, past T = 1024 or past _bwd's VMEM budget, the q-chunked
+// _bwd_kernel (B6, launched by _bwd itself; T padded to 128, dk and dv in
+// fp32 scratch over query chunks): the same function, whose padded rows
+// add exactly 0. q, k, v, do (B, H, T, D) -> dq, dk, dv in the input
+// dtype, q unscaled. Both launches tile queries and keys in blocks of 64
+// and mask the ragged last tile, so no shared memory grows with T.
 // With qs = cast(q * scale), s = qs k^T (fp32), m = rowmax(s),
 // pu = exp(s - m) and l = rowsum(pu), both fp32, linv = 1 / l:
 //   dv = cast(pu)^T cast(do * linv)

@@ -10,12 +10,18 @@
   B2, the probs variants differentiate the plain reference attention
   (``flash_attention.py:516-538``). Each keeps its own ``launches`` count.
 - ``attention_bwd`` launches ``csrc/flash_attention_bwd.cu`` on CUDA
-  tensors and runs ``attention_bwd_plain`` on CPU tensors. It replaces
-  ``vitx/kernels/flash_attention.py::_bwd_kernel_nq1``, which vitx's
-  ``_bwd`` picks for T <= 1024 (the ViT regime) and which the fused MHA
-  block's VJP calls. Longer sequences take vitx's q-chunked
-  ``_bwd_kernel`` (ROADMAP B6), not ported yet: ``attention_bwd``, and
-  ``flash_attention`` under grad, refuse them.
+  tensors and runs ``attention_bwd_plain`` on CPU tensors, at every T. It
+  replaces both of vitx's attention backwards, which the fused MHA
+  block's VJP and ``flash_attention``'s reach through ``_bwd``:
+  ``_bwd_kernel_nq1`` (the whole query block at once) and the q-chunked
+  ``_bwd_kernel``, which pads T to a multiple of 128 and accumulates dk
+  and dv in fp32 scratch over query chunks. vitx chooses between them by
+  a VMEM budget (``flash_attention.py:346-359``): T > 1024 always takes
+  ``_bwd_kernel``, and in bf16 at D = 64 so does T above about 868. Both
+  compute one function -- the padded queries and keys add exactly 0 --
+  and differ only in the order of the fp32 sums of dk and dv. The CUDA
+  kernel tiles queries and keys in blocks of 64 with no shared memory
+  that grows with T, so one kernel serves every T.
 """
 
 from __future__ import annotations
@@ -26,7 +32,10 @@ from vitx_torch.kernels import _build
 from vitx_torch.kernels._build import DTYPE_CODES
 from vitx_torch.nn.layers import matmul32
 
-MAX_T = 1024          # flash_attention.py::_MAX_UNPADDED_T
+# The backward takes every T. vitx's _MAX_UNPADDED_T (1024) and its VMEM
+# budget only choose between its two backward kernels, _bwd_kernel_nq1
+# and the q-chunked _bwd_kernel (flash_attention.py:346-359); the CUDA
+# kernel tiles queries and keys in 64-row blocks at any T.
 MAX_HEAD_DIM = 128    # the backward kernel's shared-memory tiles (csrc note)
 MAX_FWD_HEAD_DIM = 256
 PROBS_MODES = {None: 0, "full": 1, "mean": 2}
@@ -68,19 +77,14 @@ def _check(q, k, v, do):
                              f"q, got {t.dtype} {tuple(t.shape)}")
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-    T, D = q.shape[2], q.shape[3]
-    if T > MAX_T:
-        raise NotImplementedError(
-            f"attention_bwd covers T <= {MAX_T} (flash_attention.py::"
-            f"_bwd_kernel_nq1); T={T} needs the q-chunked backward "
-            f"_bwd_kernel, not ported yet (ROADMAP B6)")
+    D = q.shape[3]
     if D > MAX_HEAD_DIM:
         raise ValueError(f"head_dim {D} > {MAX_HEAD_DIM} is not supported")
 
 
 def attention_bwd(q, k, v, do):
     """The attention backward over (B, H, T, D) q, k, v and do, q unscaled
-    (the fused MHA block's stash): returns dq, dk, dv in q's dtype.
+    (the fused MHA block's stash), any T: returns dq, dk, dv in q's dtype.
 
     CUDA tensors go through the kernel and add one to
     ``attention_bwd.launches``; CPU tensors take the plain version.
@@ -234,17 +238,11 @@ def flash_attention(q, k, v):
     (B, H, T, D) in q's dtype, differentiable (B2 backward).
 
     CUDA tensors go through B5 and add one to ``flash_attention.launches``;
-    CPU tensors take the plain version. Any T runs forward; under grad
-    T <= 1024, the range of B2 (longer needs B6, not ported yet).
+    CPU tensors take the plain version. Any T runs, forward and backward.
     """
     _check_fwd(q, k, v, None)
     if not _needs_grad(q, k, v):
         return _fwd(q, k, v, None, flash_attention)
-    if q.shape[2] > MAX_T:
-        raise NotImplementedError(
-            f"flash_attention under grad covers T <= {MAX_T}; T={q.shape[2]} "
-            f"needs the q-chunked backward _bwd_kernel, not ported yet "
-            f"(ROADMAP B6)")
     return _Flash.apply(q, k, v)
 
 

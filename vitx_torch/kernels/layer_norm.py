@@ -1,11 +1,23 @@
-"""LayerNorm backward (B3): dx, dscale and dbias from x, the scale and dy.
+"""LayerNorm kernels: the backward (B3, which also serves B11) and the
+forward behind the ``fused_layer_norm`` entries (B10).
 
-``ln_bwd`` launches the Hopper kernel ``csrc/layer_norm_bwd.cu`` on CUDA
-tensors and runs ``ln_bwd_plain``, the same math in plain torch, on CPU
-tensors. It replaces ``vitx/kernels/layer_norm.py::_ln_bwd3_kernel`` (entry
-``ln_bwd``), which every LayerNorm backward of vitx's train step runs
-through on the TPU. vitx gates it on ``E % 128 == 0`` (``nn/layers.py:48``),
-a fact of the TPU's lanes: here every width takes the kernel.
+- ``ln_bwd`` launches the Hopper kernel ``csrc/layer_norm_bwd.cu`` on CUDA
+  tensors and runs ``ln_bwd_plain``, the same math in plain torch, on CPU
+  tensors. It replaces ``vitx/kernels/layer_norm.py::_ln_bwd3_kernel``
+  (entry ``ln_bwd``), which every LayerNorm backward of vitx's train step
+  runs through on the TPU. vitx gates it on ``E % 128 == 0``
+  (``nn/layers.py:48``), a fact of the TPU's lanes: here every width takes
+  the kernel.
+- ``fused_layer_norm(x, scale, bias)`` and ``fused_add_layer_norm(x, r,
+  scale, bias) -> (x + r, LN(x + r))`` launch ``csrc/layer_norm_fwd.cu`` on
+  CUDA tensors and run ``layer_norm_fwd_plain`` on CPU tensors, any leading
+  dims. They replace vitx's entries of the same names
+  (``layer_norm.py:273-321``) and their kernel ``_ln_kernel`` (B10). Their
+  backward is vitx's ``_ln_bwd_kernel`` (B11): B3's function on the 2-D
+  (R, E) view, its per-block partials summed outside, which ``ln_bwd``
+  computes at any rank -- B3's kernel on CUDA. As in vitx, the model does
+  not call them: its LayerNorm forward stays plain torch
+  (``vitx_torch/nn/layers.py``), as vitx's stays XLA.
 """
 
 from __future__ import annotations
@@ -14,6 +26,8 @@ import torch
 
 from vitx_torch.kernels import _build
 from vitx_torch.kernels._build import DTYPE_CODES
+from vitx_torch.nn.layers import (_add_ln_forward, _AddLayerNorm,
+                                  _LayerNorm, _ln_forward)
 
 ROWS_PER_CHUNK = 64   # rows per partial column sum (csrc/layer_norm_bwd.cu)
 
@@ -90,3 +104,103 @@ def ln_bwd(x, scale, dy, *, eps: float = 1e-5):
 
 
 ln_bwd.launches = 0
+
+
+# --- B10: the forward entries, and B11 through B3 ---------------------------
+
+def layer_norm_fwd_plain(x, scale, bias, r=None, *, eps: float = 1e-5):
+    """The plain torch version of B10 (``layer_norm.py:59-70``): LN(x)
+    with fp32 two-pass statistics, ``((x - mean) * inv) * scale + bias``
+    cast once to x's dtype; with ``r``, s = cast(fp32(x) + fp32(r)) and
+    (s, LN(s)), the statistics those of the cast s. These are the model's
+    own LayerNorm forwards (``vitx_torch/nn/layers.py``)."""
+    if r is None:
+        return _ln_forward(x, scale, bias, eps)
+    return _add_ln_forward(x, r, scale, bias, eps)
+
+
+def _check_fwd(x, scale, bias, r):
+    if x.dtype not in DTYPE_CODES:
+        raise TypeError(f"fused_layer_norm takes float32 or bfloat16, got "
+                        f"{x.dtype}")
+    if x.dim() < 1 or x.numel() == 0:
+        raise ValueError(f"x must be a non-empty (..., E), got "
+                         f"{tuple(x.shape)}")
+    E = x.shape[-1]
+    for name, t in (("scale", scale), ("bias", bias)):
+        if tuple(t.shape) != (E,) or not t.is_floating_point():
+            raise ValueError(f"{name} must be a float ({E},), got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    if r is not None and (r.shape != x.shape or r.dtype != x.dtype):
+        raise ValueError(f"r must be {x.dtype} {tuple(x.shape)} like x, got "
+                         f"{r.dtype} {tuple(r.shape)}")
+    for name, t in (("scale", scale), ("bias", bias), ("r", r)):
+        if t is not None and t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+
+
+def _b10(x, scale, bias, eps, r=None):
+    """B10 on CUDA (adding one to the entry's ``launches``), the plain
+    version on the CPU: y, or (s, y) with ``r``."""
+    if x.device.type == "cpu":
+        return layer_norm_fwd_plain(x, scale, bias, r, eps=eps)
+    if not x.is_cuda:
+        raise ValueError(f"fused_layer_norm runs on cuda or cpu, not "
+                         f"{x.device}")
+    E = x.shape[-1]
+    x2 = x.reshape(-1, E).contiguous()
+    r2 = None if r is None else r.reshape(-1, E).contiguous()
+    sc, bi = scale.float().contiguous(), bias.float().contiguous()
+    y = torch.empty_like(x2)
+    s = None if r is None else torch.empty_like(x2)
+    fn = _build.entry("layer_norm_fwd")
+    with torch.cuda.device(x.device):
+        err = fn(DTYPE_CODES[x.dtype], x2.data_ptr(),
+                 None if r2 is None else r2.data_ptr(), sc.data_ptr(),
+                 bi.data_ptr(), None if s is None else s.data_ptr(),
+                 y.data_ptr(), x2.shape[0], E, float(eps),
+                 torch.cuda.current_stream().cuda_stream)
+    _build.check("layer_norm_fwd", err)
+    (fused_layer_norm if r is None else fused_add_layer_norm).launches += 1
+    y = y.reshape(x.shape)
+    return y if s is None else (s.reshape(x.shape), y)
+
+
+def _b10_add(x, r, scale, bias, eps):
+    return _b10(x, scale, bias, eps, r)
+
+
+# The entries' backward is the model's: ``_LayerNorm`` and ``_AddLayerNorm``
+# take B10 as their forward and keep their backward, B11's function on the
+# (R, E) view through ``ln_bwd`` (B3's kernel on CUDA), with dscale and
+# dbias in the scale's dtype as ``layer_norm.py:285-291`` casts them; in the
+# add variant the sum's cotangent joins dx, returned for x and r
+# (``layer_norm.py:306-318``). ``ln_bwd`` takes a leading axis, so a 1-D x
+# goes through as one row.
+
+def fused_layer_norm(x, scale, bias, eps: float = 1e-5):
+    """LayerNorm over the last axis of (..., E) x, any leading dims, in
+    x's dtype; scale and bias (E,). Differentiable (B11 backward). CUDA
+    tensors go through B10 and add one to ``fused_layer_norm.launches``;
+    CPU tensors take the plain version."""
+    _check_fwd(x, scale, bias, None)
+    if x.dim() == 1:
+        return fused_layer_norm(x[None], scale, bias, eps)[0]
+    return _LayerNorm.apply(x, scale, bias, float(eps), _b10)
+
+
+def fused_add_layer_norm(x, r, scale, bias, eps: float = 1e-5):
+    """-> (x + r, LN(x + r)) in one pass, the pre-LN residual pattern: the
+    sum is cast to x's dtype and normalised as cast. Differentiable (B11
+    backward). CUDA tensors go through B10 and add one to
+    ``fused_add_layer_norm.launches``; CPU tensors take the plain
+    version."""
+    _check_fwd(x, scale, bias, r)
+    if x.dim() == 1:
+        s, y = fused_add_layer_norm(x[None], r[None], scale, bias, eps)
+        return s[0], y[0]
+    return _AddLayerNorm.apply(x, r, scale, bias, float(eps), _b10_add)
+
+
+fused_layer_norm.launches = 0
+fused_add_layer_norm.launches = 0

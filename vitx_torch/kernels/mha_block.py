@@ -8,6 +8,16 @@ mirrors ``_fused_op_bwd`` (``mha_block.py:964-1005``) -- torch products for
 the projections, the attention backward B2 (``attention_bwd``) and the
 LayerNorm backward B3 (``ln_bwd``).
 
+K1 and its stash take every T. Past T = 1024 (ViT-B/16 at 512², T 1025)
+the port still runs K1 with its stash, and its backward reaches vitx's
+q-chunked backward B6 through ``attention_bwd``. vitx on the TPU routes
+that T elsewhere: ``supports_fused_mha`` fails its VMEM budget and
+``supports_chunked_mha`` stops at T 1024 (``mha_block.py:387-394,
+1011-1035``), so it trains through the composed path (LN, XLA
+projections, B5 forward, B6 backward). Both routes compute the same
+function; in Pallas interpret mode vitx runs the fused block as the port
+does.
+
 ``fused_mha_block_with_mean_probs`` (B7, the same source's second entry)
 also returns the head-mean attention probabilities; it replaces
 ``_kernel_hchunk`` in its mean-probs mode (``_chunked_fwd``,

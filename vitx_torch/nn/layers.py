@@ -35,46 +35,62 @@ def _ln_backward(x, scale, dy, eps):
     return dx, dscale.to(scale.dtype), dbias.to(scale.dtype)
 
 
+def _add_ln_forward(x, r, scale, bias, eps):
+    """(s, LN(s)) with s = x + r in x's dtype: torch rounds the fp32 sum of
+    two bf16 tensors once, so s is cast(fp32(x) + fp32(r)). The statistics
+    are those of the cast s."""
+    s = x + r
+    return s, _ln_forward(s, scale, bias, eps)
+
+
 class _LayerNorm(torch.autograd.Function):
+    """LayerNorm with B3's backward; ``fwd(x, scale, bias, eps)`` is its
+    forward: ``_ln_forward`` for the model, B10 for ``fused_layer_norm``."""
+
     @staticmethod
-    def forward(ctx, x, scale, bias, eps):
+    def forward(ctx, x, scale, bias, eps, fwd):
         ctx.save_for_backward(x, scale)
         ctx.eps = eps
-        return _ln_forward(x, scale, bias, eps)
+        return fwd(x, scale, bias, eps)
 
     @staticmethod
     def backward(ctx, dy):
         x, scale = ctx.saved_tensors
-        return (*_ln_backward(x, scale, dy, ctx.eps), None)
+        return (*_ln_backward(x, scale, dy, ctx.eps), None, None)
 
 
 class _AddLayerNorm(torch.autograd.Function):
+    """(x + r, LN(x + r)) with B3's backward on the sum; ``fwd(x, r, scale,
+    bias, eps)`` is its forward: ``_add_ln_forward`` for the model, B10's
+    add variant for ``fused_add_layer_norm``."""
+
     @staticmethod
-    def forward(ctx, x, r, scale, bias, eps):
-        s = x + r
+    def forward(ctx, x, r, scale, bias, eps, fwd):
+        s, y = fwd(x, r, scale, bias, eps)
         ctx.save_for_backward(s, scale)
         ctx.eps = eps
-        return s, _ln_forward(s, scale, bias, eps)
+        return s, y
 
     @staticmethod
     def backward(ctx, g_sum, g_y):
         s, scale = ctx.saved_tensors
         dx, dscale, dbias = _ln_backward(s, scale, g_y, ctx.eps)
         dx = dx + g_sum
-        return dx, dx, dscale, dbias, None
+        return dx, dx, dscale, dbias, None, None
 
 
 def layer_norm(x, scale, bias, *, eps: float = 1e-5):
     """LayerNorm over the last axis with fp32 two-pass stats; returns
     ``x.dtype`` (``vitx/nn/layers.py:16-23``). Differentiable: the
     backward is B3."""
-    return _LayerNorm.apply(x, scale, bias, float(eps))
+    return _LayerNorm.apply(x, scale, bias, float(eps), _ln_forward)
 
 
 def add_layer_norm(x, r, scale, bias, *, eps: float = 1e-5):
     """-> (x + r, LN(x + r)): the pre-LN residual pattern. Its backward
     returns dx + g_sum for both x and r (``vitx/nn/layers.py:96-101``)."""
-    return _AddLayerNorm.apply(x, r, scale, bias, float(eps))
+    return _AddLayerNorm.apply(x, r, scale, bias, float(eps),
+                               _add_ln_forward)
 
 
 def activation(x, name: str):
