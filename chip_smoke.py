@@ -10,13 +10,19 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
 1. device  -- a CUDA device is present; prints its name and power limit as
               ``nvidia-smi --query-gpu=name,power.limit`` gives them.
 2. build   -- builds every kernel from the sources in the checkout
-              (vitx_torch/kernels/csrc, one nvcc per source, in parallel).
+              (vitx_torch/kernels/csrc, one nvcc per source, in parallel)
+              and counts, per kernel of the sm90 sources, the wgmma
+              (HGMMA) and TMA (UTMALDG) instructions in its SASS
+              (cuobjdump -sass); each must have both.
 3. kernels -- K1 (fused MHA block) and K2 (fused MLP block) at ViT-B/16
               shapes, batch 8 and 32, against their plain torch versions
               on the same card: float32 within 1e-4 relative, bfloat16 within
               BF16_TOL (see below), all three activations. B5 (attention
               forward) in its three modes at (2, 16, 577, 64), (2, 12, 197,
-              64) and (1, 16, 1100, 64); B7 (block with head-mean probs),
+              64) and (1, 16, 1100, 64) -- without probs in bf16 its sm90
+              kernel, with the row statistics it writes for the backward
+              (STATS_TOL), twice bit for bit, and the earlier kernel on
+              the same inputs; B7 (block with head-mean probs),
               K1 and K2 (gelu_tanh) at large16_384 block shapes, batch 2
               and 8; float32 and bfloat16; B5's head mean and B7 twice,
               bit for bit; probability rows summing to 1 within 1e-5.
@@ -39,7 +45,12 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               (attention backward), B3 (LayerNorm backward at E 768 and the
               head's 3072), the K1 and K2 stashes, and torch.autograd.grad
               through both fused blocks on the card against the same on the
-              CPU (plain versions); B12 (AdamW) on a base16 leaf. B2 and B3
+              CPU (plain versions); B12 (AdamW) on a base16 leaf. B2 is
+              given the forward's o and row statistics and called twice,
+              bit for bit; in bf16 at D 64 that is its sm90 kernel, also
+              on do and o in the fused block's (B, T, H, D) layouts
+              writing into one (B, T, 3, H, D) buffer, bit for bit, and
+              the earlier kernel is held on the same inputs. B2 and B3
               also at Grad-CAM's large16_384 shapes (T 577, E 1024 and the
               head's 4096), batch 1 and 8, float32 and bfloat16. Past T =
               1024, where vitx runs its q-chunked backward B6: the
@@ -65,8 +76,9 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               on SyntheticDataset batches: 20 train_steps with
               make_optimizer(lr=1e-4), then 5 with fused=True, on one
               repeated batch; the loss must be finite and fall, the
-              launches per step must be K1 12, B2 12, B3 25, K2 0 and B12
-              0 or one per leaf; one eval_step.
+              launches per step must be K1 12, B2 12 (all on its sm90
+              route), B3 25, K2 0 and B12 0 or one per leaf; one
+              eval_step.
 8. explain -- main path 3, large16_384 (ViT-L/16 at 384², T 577) at full
               width and depth, bf16, random weights from seed 0: (a)
               forward_with_rollout at batch 8 on the kernels against the
@@ -78,6 +90,10 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               B3's LayerNorm backwards); (b) forward_with_attn(
               probs_mode="full") at batch 2: B5 24, K2 24, logits and
               probs against the same reference route (no launches);
+              (b') with fuse_mha="off" at batch 8: the forward (B5 without
+              probs in every block, on its sm90 route) and Grad-CAM
+              through it (B5's sm90 forward with its statistics, B2's
+              sm90 backward) against the reference route;
               (c) a depth-2 float32 copy, card against CPU (1e-4):
               rollout, Grad-CAM, and with fuse_mha="off" the forward (B5
               without probs) and forward_with_attn("mean") (B5 head
@@ -109,10 +125,10 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               positional grid resized (1e-6); (b) its first two blocks
               in float32, batch 2: one train_step card vs CPU as train
               (a), the param element that sets param_gap's worst named
-              in worst_at; (c) the main path: full base16 at 512² in bf16, batch
-              32 on SyntheticDataset(image_size=512) batches, 10 steps
+              in worst_at; (c) the main path: full base16 at 512² in bf16,
+              batch 32 on SyntheticDataset(image_size=512) batches, 10 steps
               on one repeated batch, the loss finite and falling, the
-              launches per step K1 12, B2 12, B3 25, K2 0; one
+              launches per step K1 12, B2 12 (sm90 12), B3 25, K2 0; one
               eval_step; (d) fused_add_layer_norm then fused_layer_norm
               at the fine-tune's tokens with their gradients, against
               the plain version, launches B10 1 + 1, B3 2.
@@ -130,13 +146,21 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               fine-tune step at batch 32 (img/s, profiler split), B2 at
               its (32, 12, 1025, 64), B6's range, and B3 on the 2-D view
               of base16's b256 tokens, B11's function (each under its
-              row's "shapes"), and B10's two rows there.
+              row's "shapes"), and B10's two rows there. B2 and B5
+              without probs have two rows each: the sm90 kernel
+              (attention_bwd_sm90, flash_attention_sm90) and the earlier
+              kernel on the same bf16 inputs through its launcher
+              (attention_bwd, flash_attention), which the wrappers keep
+              for fp32 and other D.
 
 Each main path runs with the kernels' launch counts set to 0 just before
-it and read just after. The last lines are one JSON object listing the
-kernels and, last, ``{"ok": true, "device": {...}}``. ``--phases`` runs a
-subset (``device,build,grad`` is the quick check after editing a kernel);
-a subset never prints the ok line.
+it and read just after. ``attention_bwd`` and ``flash_attention`` count
+every launch of their wrappers; ``attention_bwd_sm90`` and
+``flash_attention_sm90`` read the wrappers' ``launches_sm90``, the
+launches on the sm90 route (COUNTERS). The last lines are one JSON
+object listing the kernels and, last, ``{"ok": true, "device": {...}}``.
+``--phases`` runs a subset (``device,build,grad`` is the quick check
+after editing a kernel); a subset never prints the ok line.
 """
 
 from __future__ import annotations
@@ -162,6 +186,10 @@ BF16_TOL = 2e-2
 # (do, dq|dk|dv, dh, dx and the weights' grads) compound those flips
 GRAD_BF16_TOL = 5e-2
 FP32_TOL = 1e-4
+# the sm90 forward's row statistics against attention_stats_plain: both
+# from the same bf16 q and k in fp32, summed in another order, and exp
+# through exp2 on the card
+STATS_TOL = 1e-4
 # B5's probabilities in bf16: kernel and plain read the same bf16 q and k
 # and differ only in the fp32 order of the logits' sums
 PROBS_BF16_TOL = 1e-3
@@ -198,6 +226,16 @@ KERNELS = {
         "also_replaces": "vitx/kernels/flash_attention.py:238",
         "also_tpu_kernel": "vitx/kernels/flash_attention.py::_bwd_kernel",
     },
+    # the sm90 route of attention_bwd (bf16, D 64): counted in
+    # attention_bwd.launches_sm90 (COUNTERS), while attention_bwd counts
+    # every launch of the wrapper, both routes, as before
+    "attention_bwd_sm90": {
+        "source": "vitx_torch/kernels/csrc/attention_bwd_sm90.cu",
+        "replaces": "vitx/kernels/flash_attention.py:287",
+        "tpu_kernel": "vitx/kernels/flash_attention.py::_bwd_kernel_nq1",
+        "also_replaces": "vitx/kernels/flash_attention.py:238",
+        "also_tpu_kernel": "vitx/kernels/flash_attention.py::_bwd_kernel",
+    },
     "ln_bwd": {
         "source": "vitx_torch/kernels/csrc/layer_norm_bwd.cu",
         "replaces": "vitx/kernels/layer_norm.py:173",
@@ -228,6 +266,12 @@ KERNELS = {
         "tpu_kernel": "vitx/kernels/flash_attention.py::_fwd_kernel "
                       "(no probs)",
     },
+    "flash_attention_sm90": {
+        "source": "vitx_torch/kernels/csrc/flash_attention_sm90.cu",
+        "replaces": "vitx/kernels/flash_attention.py:132",
+        "tpu_kernel": "vitx/kernels/flash_attention.py::_fwd_kernel "
+                      "(no probs, bf16 at D 64)",
+    },
     "flash_attention_with_probs": {
         "source": "vitx_torch/kernels/csrc/flash_attention_fwd.cu",
         "replaces": "vitx/kernels/flash_attention.py:132",
@@ -256,6 +300,14 @@ KERNELS = {
         "also_tpu_kernel": "vitx/kernels/mha_block.py::_kernel_hchunk_tome",
     },
 }
+# rows whose count is a second counter of another wrapper: name ->
+# (wrapper, attribute)
+COUNTERS = {"attention_bwd_sm90": ("attention_bwd", "launches_sm90"),
+            "flash_attention_sm90": ("flash_attention", "launches_sm90")}
+# the sources whose SASS the build phase reads: the wgmma (HGMMA) and TMA
+# (UTMALDG) instructions that show the sm90 kernels reach the tensor cores'
+# asynchronous path
+SM90_SOURCES = ("flash_attention_sm90", "attention_bwd_sm90")
 NO_LIBRARY = ("no single PyTorch call returns attention probabilities "
               "(scaled_dot_product_attention returns only the output)")
 NO_ADD_LIBRARY = ("no single PyTorch call adds a residual and normalises "
@@ -334,6 +386,44 @@ def phase_build():
     emit({"phase": "build", "seconds": round(seconds, 2),
           "per_source_s": {n: round(v["seconds"], 2)
                            for n, v in _build.build_log.items()}})
+    sass = {name: sass_counts(_build._target(name)) for name in SM90_SOURCES}
+    emit({"phase": "build", "check": "SASS of the sm90 kernels: wgmma "
+          "(HGMMA) and TMA (UTMALDG) or other async copies (UBLKCP, LDGSTS) "
+          "per kernel", "sass": sass})
+    for name, kernels in sass.items():
+        for kern, n in kernels.items():
+            if not n["HGMMA"] or not (n["UTMALDG"] + n["UBLKCP"]
+                                      + n["LDGSTS"]):
+                raise AssertionError(f"{name}: {kern} has no wgmma or no "
+                                     f"async copy in its SASS: {n}")
+
+
+SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP", "LDGSTS")
+
+
+def sass_counts(so: Path) -> dict:
+    """{kernel: {instruction: count}} of SASS_OPS in a built library, from
+    ``cuobjdump -sass`` (the CUDA toolkit's, beside nvcc)."""
+    import re
+
+    from vitx_torch.kernels import _build
+
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(so)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, kern = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            mangled = line.split("Function :")[1].strip()
+            m = re.search(r"_ZN4vitx(\d+)", mangled)
+            kern = (mangled[m.end():m.end() + int(m.group(1))] if m
+                    else mangled)
+            counts.setdefault(kern, dict.fromkeys(SASS_OPS, 0))
+        elif kern is not None:
+            for op in SASS_OPS:
+                if op in line:
+                    counts[kern][op] += 1
+    return counts
 
 
 def phase_kernels(errs: dict):
@@ -432,6 +522,8 @@ def check_flash(shape, dtype, errs: dict) -> None:
     info = {"shape": list(shape), "dtype": str(dtype)}
     tol, ptol = (BF16_TOL, PROBS_BF16_TOL) if bf else (FP32_TOL, FP32_TOL)
     main = bf and shape[1] == 16 and shape[2] == 577
+    if bf and shape[3] == 64:
+        check_flash_sm90(q, k, v, errs if main else None, info)
     for name, fn, mode in (
             ("flash_attention", flash_attention, None),
             ("flash_attention_with_probs", flash_attention_with_probs,
@@ -442,8 +534,9 @@ def check_flash(shape, dtype, errs: dict) -> None:
         torch.cuda.synchronize()
         ref = flash_attention_fwd_plain(q, k, v, mode)
         if mode is None:
-            check("kernels", name, out, ref, tol, errs if main else None,
-                  name, **info)
+            key = "flash_attention_sm90" if bf and shape[3] == 64 else name
+            check("kernels", key, out, ref, tol, errs if main else None,
+                  key, **info)
             continue
         check("kernels", f"{name} o", out[0], ref[0], tol,
               errs if main else None, name, **info)
@@ -453,6 +546,33 @@ def check_flash(shape, dtype, errs: dict) -> None:
         if mode == "mean" and not torch.equal(fn(q, k, v)[1], out[1]):
             raise AssertionError(f"{name} {info}: two calls differ")
         del out, ref
+
+
+def check_flash_sm90(q, k, v, errs, info) -> None:
+    """B5 without probs on its sm90 route: o and the row statistics it
+    writes for the backward against their plain versions, twice, bit for
+    bit; the earlier kernel on the same bf16 inputs through its
+    launcher."""
+    from vitx_torch.kernels import (attention_stats_plain, flash_attention,
+                                    flash_attention_fwd_plain)
+
+    tflash = attention_module()
+    n90 = flash_attention.launches_sm90
+    o, stats = tflash._fwd(q, k, v, None, flash_attention, want_stats=True)
+    torch.cuda.synchronize()
+    if flash_attention.launches_sm90 != n90 + 1:
+        raise AssertionError(f"flash_attention {info}: not on the sm90 route")
+    ref = flash_attention_fwd_plain(q, k, v)
+    check("kernels", "flash_attention_sm90", o, ref, BF16_TOL, errs,
+          "flash_attention_sm90", **info)
+    check("kernels", "flash_attention_sm90 stats (m, 1/l)", tuple(stats),
+          tuple(attention_stats_plain(q, k)), STATS_TOL, **info)
+    o2, stats2 = tflash._fwd(q, k, v, None, flash_attention, want_stats=True)
+    if not (torch.equal(o, o2) and torch.equal(stats, stats2)):
+        raise AssertionError(f"flash_attention_sm90 {info}: two calls differ")
+    check("kernels", "flash_attention (the earlier kernel)",
+          tflash._fwd_wmma(q, k, v, None), ref, BF16_TOL, errs,
+          "flash_attention", **info)
 
 
 def check_mean_probs_block(B, T, E, H, dtype, tol, errs: dict) -> None:
@@ -550,18 +670,22 @@ def check_block(B, T, E, H, dtype, tol, errs: dict, mha: bool = True):
 
 
 def wrappers() -> dict:
+    """name -> (wrapper, the attribute that counts its launches)."""
     import vitx_torch.kernels as k
 
-    return {name: getattr(k, name) for name in KERNELS}
+    return {name: (getattr(k, COUNTERS.get(name, (name,))[0]),
+                   COUNTERS.get(name, (name, "launches"))[1])
+            for name in KERNELS}
 
 
 def reset_counts():
-    for fn in wrappers().values():
-        fn.launches = 0
+    for fn, attr in wrappers().values():
+        setattr(fn, attr, 0)
 
 
 def counts():
-    return {name: fn.launches for name, fn in wrappers().items()}
+    return {name: getattr(fn, attr)
+            for name, (fn, attr) in wrappers().items()}
 
 
 def launches_of(**per: int) -> dict:
@@ -609,16 +733,54 @@ def seeded(shape, seed, scale=1.0, shift=0.0, dtype=torch.float32,
 
 
 def check_attention_bwd(shape, dtype, tol, errs: dict) -> None:
-    """B2's kernel at (B, H, T, D) against ``attention_bwd_plain``."""
-    from vitx_torch.kernels import attention_bwd, attention_bwd_plain
+    """B2's kernel at (B, H, T, D) against ``attention_bwd_plain``, given
+    the forward's o and row statistics (their plain versions), twice, bit
+    for bit. In bf16 at D 64 that is the sm90 kernel; the earlier kernel,
+    which serves fp32 and other D, is held there too through its launcher,
+    and the sm90 kernel once more on do and o in the fused block's
+    (B, T, H, D) layouts, writing into one (B, T, 3, H, D) buffer."""
+    from vitx_torch.kernels import (attention_bwd, attention_bwd_plain,
+                                    attention_stats_plain,
+                                    flash_attention_fwd_plain)
 
     q, k, v = (seeded(shape, s, 1.5, dtype=dtype) for s in (1, 2, 3))
     do = seeded(shape, 4, 0.1, dtype=dtype)
-    out = attention_bwd(q, k, v, do)
+    o, stats = flash_attention_fwd_plain(q, k, v), attention_stats_plain(q, k)
+    n90 = attention_bwd.launches_sm90
+    out = attention_bwd(q, k, v, do, o, stats)
     torch.cuda.synchronize()
-    check("grad", "attention_bwd", out, attention_bwd_plain(q, k, v, do),
-          tol, errs if dtype == torch.bfloat16 else None, "attention_bwd",
-          shape=list(shape), dtype=str(dtype))
+    on_sm90 = attention_bwd.launches_sm90 > n90
+    name = "attention_bwd_sm90" if on_sm90 else "attention_bwd"
+    bf = dtype == torch.bfloat16
+    ref = attention_bwd_plain(q, k, v, do)
+    info = {"shape": list(shape), "dtype": str(dtype)}
+    check("grad", name, out, ref, tol, errs if bf else None, name, **info)
+    again = attention_bwd(q, k, v, do, o, stats)
+    if not all(torch.equal(a, b) for a, b in zip(out, again)):
+        raise AssertionError(f"{name} {info}: two calls differ")
+    if on_sm90:
+        tflash = attention_module()
+        check("grad", "attention_bwd (the earlier kernel)",
+              tflash._bwd_wmma(q, k, v, do), ref, tol, errs,
+              "attention_bwd", **info)
+        B, H, T, D = shape
+        buf = torch.empty((B, T, 3, H, D), dtype=dtype, device="cuda")
+        views = tuple(buf[:, :, i].transpose(1, 2) for i in range(3))
+        attention_bwd(q, k, v, do.transpose(1, 2).contiguous().transpose(
+            1, 2), o.transpose(1, 2).contiguous().transpose(1, 2), stats,
+            out=views)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(views, out)):
+            raise AssertionError(f"{name} {info}: strided do, o and dqkv "
+                                 f"differ from the contiguous call")
+
+
+def attention_module():
+    """``vitx_torch.kernels.flash_attention`` (the package exports a
+    function of the same name), for the earlier kernels' launchers."""
+    import importlib
+
+    return importlib.import_module("vitx_torch.kernels.flash_attention")
 
 
 def check_entries_backward(shape, dtype, tol, errs: dict) -> None:
@@ -844,15 +1006,23 @@ def synthetic_batch(ds, n: int) -> dict:
             "label": np.array([e[1] for e in ex], np.int32)}
 
 
+def sm90(cfg) -> bool:
+    """Whether ``cfg``'s attention takes the sm90 kernels: bf16 at head
+    width 64 (``vitx_torch.kernels.flash_attention.sm90_route``)."""
+    return cfg.compute_dtype == "bfloat16" and cfg.head_dim == 64
+
+
 def expected_train_launches(cfg, n_leaves: int, steps: int,
                             fused_steps: int) -> dict:
-    """Launches per the code's routing: one K1 and one B2 per block; B3 for
-    LN1 (inside K1's backward) and LN2 of every block, the reference head's
-    LayerNorm and the final norm; K2 off under grad (fuse_mlp "auto"); B12
-    once per leaf in the fused steps."""
+    """Launches per the code's routing: one K1 and one B2 per block, B2 on
+    its sm90 route in bf16 at D 64; B3 for LN1 (inside K1's backward) and
+    LN2 of every block, the reference head's LayerNorm and the final norm;
+    K2 off under grad (fuse_mlp "auto"); B12 once per leaf in the fused
+    steps."""
     b3 = 2 * cfg.depth + (cfg.head_type == "reference") + int(cfg.final_norm)
     return launches_of(fused_mha_block=cfg.depth * steps,
                        attention_bwd=cfg.depth * steps,
+                       attention_bwd_sm90=cfg.depth * steps * sm90(cfg),
                        ln_bwd=b3 * steps,
                        fused_adamw_=n_leaves * fused_steps)
 
@@ -1148,12 +1318,19 @@ def rollout_launches(cfg, calls: int = 1) -> dict:
 
 def gradcam_launches(cfg, calls: int = 1) -> dict:
     """grad_cam: K1 and K2 in every block; the last block's backward runs
-    B2 once and B3 for LN1 (inside K1's backward) and LN2 (inside K2's),
-    and B3 again for the reference head's LayerNorm and the final norm."""
+    B2 once (on its sm90 route in bf16 at D 64) and B3 for LN1 (inside
+    K1's backward) and LN2 (inside K2's), and B3 again for the reference
+    head's LayerNorm and the final norm. With fuse_mha="off" B5 without
+    probs takes K1's place in every block (its sm90 route likewise)."""
     b3 = 2 + (cfg.head_type == "reference") + int(cfg.final_norm)
-    return launches_of(fused_mha_block=cfg.depth * calls,
-                       fused_mlp_block=cfg.depth * calls,
-                       attention_bwd=calls, ln_bwd=b3 * calls)
+    attn = ({"flash_attention": cfg.depth * calls,
+             "flash_attention_sm90": cfg.depth * calls * sm90(cfg)}
+            if cfg.fuse_mha == "off" else
+            {"fused_mha_block": cfg.depth * calls})
+    return launches_of(**attn, fused_mlp_block=cfg.depth * calls,
+                       attention_bwd=calls,
+                       attention_bwd_sm90=calls * sm90(cfg),
+                       ln_bwd=b3 * calls)
 
 
 def add_launches(*dicts) -> dict:
@@ -1262,6 +1439,46 @@ def phase_explain(cfg, params) -> dict:
     del logits, probs, ref_logits, ref_probs
     torch.cuda.empty_cache()
 
+    # (b') the composed path (fuse_mha="off") in bf16 at batch 8: B5
+    # without probs in every block, on its sm90 route; Grad-CAM through it
+    # runs B5's sm90 forward with its statistics and B2's sm90 backward.
+    # Both against the kernel-free route, as (a)
+    off = cfg.replace(fuse_mha="off")
+    imgs = explain_images(cfg, 8, 8)
+    snap = counts()
+    logits = forward(params, imgs, off)
+    torch.cuda.synchronize()
+    got = delta(snap)
+    expect_launches("(b') forward, fuse_mha off", got, launches_of(
+        flash_attention=cfg.depth, flash_attention_sm90=cfg.depth,
+        fused_mlp_block=cfg.depth))
+    expected.append(got)
+    heat, cam_logits = grad_cam(params, imgs, off)
+    torch.cuda.synchronize()
+    got = delta(snap)
+    expect_launches("(b') forward and grad_cam, fuse_mha off", got,
+                    add_launches(expected[-1], gradcam_launches(off)))
+    expected[-1] = got
+    snap = counts()
+    ref_logits = forward(params, imgs, ref_cfg)
+    ref_heat, _ = grad_cam(params, imgs, ref_cfg,
+                           class_idx=cam_logits.argmax(-1))
+    torch.cuda.synchronize()
+    ref_off = delta(snap)
+    expect_launches("(b') reference forward and grad_cam", ref_off,
+                    launches_of(ln_bwd=gradcam_launches(cfg)["ln_bwd"]))
+    errs = {"logits": card_rel_err(logits, ref_logits),
+            "heatmap": card_rel_err(heat, ref_heat)}
+    emit({"phase": "explain", "part": "b': forward and grad_cam b8 bf16, "
+          "fuse_mha off (B5 and B2 on their sm90 routes) vs reference "
+          "route", "rel_err": errs, "launches": got,
+          "tol": {"logits": EXPLAIN_TOL, "heatmap": GRADCAM_TOL}})
+    if not (errs["logits"] <= EXPLAIN_TOL and errs["heatmap"] <= GRADCAM_TOL
+            and bool(torch.isfinite(heat).all())):
+        raise AssertionError(f"(b') fuse_mha off: {errs}")
+    del logits, heat, cam_logits, ref_logits, ref_heat
+    torch.cuda.empty_cache()
+
     # (c) a depth-2 float32 copy, card against CPU
     cfg2 = vitx_torch.get_config("large16_384", depth=2,
                                  compute_dtype="float32")
@@ -1296,8 +1513,9 @@ def phase_explain(cfg, params) -> dict:
     # (d) the server's /explain, 16 requests from 4 threads
     got, *served = phase_explain_serve(cfg, params)
     expected.append(got)
-    # the main path's launches: all but the reference Grad-CAM's
-    total = {k: n - ref_got[k] for k, n in delta(start).items()}
+    # the main path's launches: all but the reference Grad-CAMs'
+    total = {k: n - ref_got[k] - ref_off[k]
+             for k, n in delta(start).items()}
     expect_launches("explain phase", total, add_launches(*expected))
     verify_explains(cfg, params, *served)
     return total
@@ -1530,6 +1748,47 @@ def kernel_row(name, kern, plain, lib, flops, peak, nbytes, launches,
     return row
 
 
+def attention_bwd_rows(shape, seed, launches, errs, per_step=None):
+    """The rows of B2's two kernels at (B, H, T, D) bf16: the sm90 kernel
+    through ``attention_bwd`` with the forward's o and statistics, and the
+    earlier kernel through its launcher; SDPA's backward beside both. The
+    bound is the function's: q, k, v, do in, dq, dk, dv out, 10*B*H*T^2*D
+    operations, whatever a kernel reads besides."""
+    import torch.nn.functional as F
+
+    from vitx_torch.kernels import (attention_bwd, attention_bwd_plain,
+                                    attention_stats_plain,
+                                    flash_attention_fwd_plain)
+
+    B, H, T, D = shape
+    bf = torch.bfloat16
+    q, k, v = (seeded(shape, seed + i, 1.5, dtype=bf) for i in range(3))
+    do = seeded(shape, seed + 3, 0.1, dtype=bf)
+    o, st = flash_attention_fwd_plain(q, k, v), attention_stats_plain(q, k)
+    qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+    o_lib = F.scaled_dot_product_attention(qs, ks, vs)
+    tflash = attention_module()
+    per_step = per_step or {}
+    rows = []
+    for name, kern in (
+            ("attention_bwd_sm90",
+             lambda: attention_bwd(q, k, v, do, o, st)),
+            ("attention_bwd", lambda: tflash._bwd_wmma(q, k, v, do))):
+        extra = {"per_step": per_step[name]} if name in per_step else {}
+        if name == "attention_bwd":
+            extra["timed"] = ("the earlier kernel on bf16 through its "
+                              "launcher; the wrapper sends bf16 at D 64 to "
+                              "attention_bwd_sm90 and this kernel fp32 and "
+                              "other D")
+        rows.append(kernel_row(
+            name, kern, lambda: attention_bwd_plain(q, k, v, do),
+            lambda: torch.autograd.grad(o_lib, (qs, ks, vs), do,
+                                        retain_graph=True),
+            10 * B * H * T * T * D, PEAK_BF16_FLOPS, 7 * B * H * T * D * 2,
+            launches, errs, shape=list(shape), **extra))
+    return rows
+
+
 def phase_train_times(cfg, state, batch, step, launches: dict,
                       train_launches: dict, errs: dict) -> list:
     """The train step at batch 128 bf16 (img/s, profiler split), and the
@@ -1538,8 +1797,7 @@ def phase_train_times(cfg, state, batch, step, launches: dict,
     train path's launches (25 steps, the last 5 fused)."""
     import torch.nn.functional as F
 
-    from vitx_torch.kernels import (adamw_plain, attention_bwd,
-                                    attention_bwd_plain, fused_adamw_,
+    from vitx_torch.kernels import (adamw_plain, fused_adamw_,
                                     fused_mha_block, fused_mlp_block,
                                     ln_bwd, ln_bwd_plain)
     from vitx_torch.train.step import leaves
@@ -1558,19 +1816,12 @@ def phase_train_times(cfg, state, batch, step, launches: dict,
 
     bf = torch.bfloat16
     rows = []
-    # B2 at the step's shapes
-    q, k, v = (seeded((B, H, T, D), s, 1.5, dtype=bf) for s in (21, 22, 23))
-    do = seeded((B, H, T, D), 24, 0.1, dtype=bf)
-    qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
-    o_lib = F.scaled_dot_product_attention(qs, ks, vs)
-    rows.append(kernel_row(
-        "attention_bwd", lambda: attention_bwd(q, k, v, do),
-        lambda: attention_bwd_plain(q, k, v, do),
-        lambda: torch.autograd.grad(o_lib, (qs, ks, vs), do,
-                                    retain_graph=True),
-        10 * B * H * T * T * D, PEAK_BF16_FLOPS, 7 * B * H * T * D * 2,
-        launches, errs, shape=[B, H, T, D],
-        per_step=train_launches.get("attention_bwd", 0) // 25))
+    # B2 at the step's shapes: the sm90 kernel the step runs, and the
+    # earlier kernel (the fp32 / other-D route) on the same bf16 inputs
+    rows += attention_bwd_rows((B, H, T, D), 21, launches, errs,
+                               {name: train_launches.get(name, 0) // 25
+                                for name in ("attention_bwd",
+                                             "attention_bwd_sm90")})
     # B3 at a block's LayerNorm (B, T, E)
     x = seeded((B, T, E), 25, 2.0, 0.5, dtype=bf)
     dy = seeded((B, T, E), 26, 0.1, dtype=bf)
@@ -1667,11 +1918,22 @@ def phase_explain_times(cfg, params, errs: dict, launches: dict) -> list:
 
     rows = []
     q, k, v, flops, nbytes = attn(32)
+    tflash = attention_module()
+    # B5 without probs: the sm90 kernel the bf16 composed path runs, and
+    # the earlier kernel (fp32, other D) on the same bf16 inputs
     rows.append(kernel_row(
-        "flash_attention", lambda: flash_attention(q, k, v),
+        "flash_attention_sm90", lambda: flash_attention(q, k, v),
         lambda: flash_attention_fwd_plain(q, k, v),
         lambda: F.scaled_dot_product_attention(q, k, v), flops,
         PEAK_BF16_FLOPS, nbytes, launches, errs, shape=[32, H, T, D]))
+    rows.append(kernel_row(
+        "flash_attention", lambda: tflash._fwd_wmma(q, k, v, None),
+        lambda: flash_attention_fwd_plain(q, k, v),
+        lambda: F.scaled_dot_product_attention(q, k, v), flops,
+        PEAK_BF16_FLOPS, nbytes, launches, errs, shape=[32, H, T, D],
+        timed="the earlier kernel on bf16 through its launcher; the "
+              "wrapper sends bf16 at D 64 to flash_attention_sm90 and this "
+              "kernel fp32, other D and the probs modes"))
     rows.append(kernel_row(
         "flash_attention_with_mean_probs",
         lambda: flash_attention_with_mean_probs(q, k, v),
@@ -1911,11 +2173,11 @@ def phase_finetune_times(cfg, state, batch, step, launches: dict,
     B2's kernel at its attention shape (32, 12, 1025, 64), where vitx runs
     B6; B10's two rows and B3's kernel on the (R, E) view, B11's function,
     at base16's b256 tokens (256 x 197, 768) bf16. Returns (B10's rows,
-    {name: [shape entries]} for the rows of attention_bwd and ln_bwd)."""
+    {name: [shape entries]} for the rows of B2's two kernels and
+    ln_bwd)."""
     import torch.nn.functional as F
 
-    from vitx_torch.kernels import (attention_bwd, attention_bwd_plain,
-                                    fused_add_layer_norm, fused_layer_norm,
+    from vitx_torch.kernels import (fused_add_layer_norm, fused_layer_norm,
                                     layer_norm_fwd_plain, ln_bwd,
                                     ln_bwd_plain)
 
@@ -1934,18 +2196,8 @@ def phase_finetune_times(cfg, state, batch, step, launches: dict,
     bf = torch.bfloat16
     keep = ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
             "tflops")
-    q, k, v = (seeded((B, H, T, D), s, 1.5, dtype=bf) for s in (41, 42, 43))
-    do = seeded((B, H, T, D), 44, 0.1, dtype=bf)
-    qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
-    o_lib = F.scaled_dot_product_attention(qs, ks, vs)
-    b6 = kernel_row(
-        "attention_bwd", lambda: attention_bwd(q, k, v, do),
-        lambda: attention_bwd_plain(q, k, v, do),
-        lambda: torch.autograd.grad(o_lib, (qs, ks, vs), do,
-                                    retain_graph=True),
-        10 * B * H * T * T * D, PEAK_BF16_FLOPS, 7 * B * H * T * D * 2,
-        launches, errs, shape=[B, H, T, D])
-    del q, k, v, do, qs, ks, vs, o_lib
+    b6 = attention_bwd_rows((B, H, T, D), 41, launches, errs)
+    torch.cuda.empty_cache()
 
     R = 256 * 197
     x = seeded((R, E), 45, 2.0, 0.5, dtype=bf)
@@ -1975,8 +2227,8 @@ def phase_finetune_times(cfg, state, batch, step, launches: dict,
                    launches, errs, shape=[R, E],
                    library_note=NO_ADD_LIBRARY),
     ]
-    shapes = {"attention_bwd": [{k: b6[k] for k in keep}],
-              "ln_bwd": [{k: b11[k] for k in keep}]}
+    shapes = {row["name"]: [{k: row[k] for k in keep}] for row in b6}
+    shapes["ln_bwd"] = [{k: b11[k] for k in keep}]
     return rows, shapes
 
 

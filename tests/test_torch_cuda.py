@@ -20,7 +20,8 @@ import torch
 
 import vitx_torch
 from vitx_torch.kernels import (adamw_plain, attention_bwd,
-                                attention_bwd_plain, flash_attention,
+                                attention_bwd_plain, attention_stats_plain,
+                                flash_attention,
                                 flash_attention_fwd_plain,
                                 flash_attention_with_mean_probs,
                                 flash_attention_with_probs,
@@ -210,12 +211,13 @@ def seeded(shape, seed, scale=1.0, shift=0.0, dtype="float32",
                                   (2, 4, 50, 9), (1, 1, 40, 128)])
 def test_attention_bwd_matches_plain(cuda, dims, dtype):
     """B2 at ViT-B/16 shapes, tiny's, a ragged head (D=9) and the largest
-    head it takes (D=128)."""
+    head it takes (D=128), given the forward's o and statistics (bf16 at
+    D 64 takes the sm90 kernel, which needs them)."""
     q, k, v = (seeded(dims, s, 1.5, dtype=dtype, device=cuda)
                for s in (1, 2, 3))
     do = seeded(dims, 4, 0.1, dtype=dtype, device=cuda)
     n = attention_bwd.launches
-    out = attention_bwd(q, k, v, do)
+    out = attention_bwd(q, k, v, do, *fwd_residuals(q, k, v))
     torch.cuda.synchronize()
     assert attention_bwd.launches == n + 1
     for o, r in zip(out, attention_bwd_plain(q, k, v, do)):
@@ -387,6 +389,108 @@ def test_tome_forward_on_card_matches_cpu(cuda, qkv_bias):
     assert torch.equal(src.cpu(), ref)
 
 
+def fwd_residuals(q, k, v):
+    """The forward's o and row statistics, from their plain versions."""
+    return flash_attention_fwd_plain(q, k, v), attention_stats_plain(q, k)
+
+
+# every shape chip_smoke.py's grad and kernels phases hold B2 and B5 at, at
+# a batch that fits a test, ragged T among them; the forward also at T 1
+# (one key: the backward's gradients are 0 there, so its relative error
+# has no scale)
+SM90_DIMS = [(2, 12, 197, 64), (1, 16, 577, 64), (2, 12, 1025, 64),
+             (1, 16, 1100, 64), (1, 12, 2048, 64), (3, 4, 65, 64),
+             (2, 2, 3, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", SM90_DIMS)
+def test_attention_bwd_sm90_matches_plain(cuda, dims):
+    """B2's sm90 kernel (bf16, D 64) against the plain version; two calls
+    equal bit for bit; do and o read in the fused block's (B, T, H, D)
+    layouts and dq, dk, dv written into one (B, T, 3, H, D) buffer give
+    the same bits."""
+    q, k, v = (seeded(dims, s, 1.5, dtype="bfloat16", device=cuda)
+               for s in (21, 22, 23))
+    do = seeded(dims, 24, 0.1, dtype="bfloat16", device=cuda)
+    o, stats = fwd_residuals(q, k, v)
+    n, n90 = attention_bwd.launches, attention_bwd.launches_sm90
+    out = attention_bwd(q, k, v, do, o, stats)
+    torch.cuda.synchronize()
+    assert (attention_bwd.launches, attention_bwd.launches_sm90) == (
+        n + 1, n90 + 1)
+    for a, r in zip(out, attention_bwd_plain(q, k, v, do)):
+        assert a.dtype == q.dtype and bool(torch.isfinite(a).all())
+        assert rel_err(a, r) <= TOL["bfloat16"]
+    again = attention_bwd(q, k, v, do, o, stats)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    B, H, T, D = dims
+    buf = torch.empty((B, T, 3, H, D), dtype=q.dtype, device=cuda)
+    views = tuple(buf[:, :, i].transpose(1, 2) for i in range(3))
+    bthd = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in (do, o)]
+    attention_bwd(q, k, v, *bthd, stats, out=views)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(views, out))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", SM90_DIMS + [(3, 2, 1, 64)])
+def test_flash_attention_sm90_matches_plain(cuda, dims):
+    """B5 without probs on its sm90 route (bf16, D 64): o and the row
+    statistics its backward reads against their plain versions; two calls
+    equal bit for bit; autograd through it runs B2's sm90 kernel."""
+    q, k, v = (seeded(dims, s, 1.5, dtype="bfloat16", device=cuda)
+               for s in (25, 26, 27))
+    n90 = flash_attention.launches_sm90
+    out = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches_sm90 == n90 + 1
+    assert rel_err(out, flash_attention_fwd_plain(q, k, v)) <= TOL["bfloat16"]
+    assert torch.equal(flash_attention(q, k, v), out)
+    if dims[2] == 1:
+        return
+    ins = [t.detach().requires_grad_() for t in (q, k, v)]
+    do = seeded(dims, 28, 0.1, dtype="bfloat16", device=cuda)
+    nb = attention_bwd.launches_sm90
+    grads = torch.autograd.grad(flash_attention(*ins), ins, do)
+    torch.cuda.synchronize()
+    assert attention_bwd.launches_sm90 == nb + 1
+    for a, r in zip(grads, attention_bwd_plain(q, k, v, do)):
+        assert rel_err(a, r) <= TOL["bfloat16"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,D", [("float32", 64), ("bfloat16", 16),
+                                     ("bfloat16", 128)])
+def test_attention_earlier_routes_unchanged(cuda, dtype, D):
+    """fp32 and other head widths keep the earlier kernels: launches count,
+    launches_sm90 does not, and the results match the plain versions;
+    the backward takes no statistics there."""
+    dims = (2, 3, 197, D)
+    q, k, v = (seeded(dims, s, 1.5, dtype=dtype, device=cuda)
+               for s in (31, 32, 33))
+    do = seeded(dims, 34, 0.1, dtype=dtype, device=cuda)
+    n, n90 = flash_attention.launches, flash_attention.launches_sm90
+    o = flash_attention(q, k, v)
+    nb, nb90 = attention_bwd.launches, attention_bwd.launches_sm90
+    out = attention_bwd(q, k, v, do)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention.launches_sm90) == (
+        n + 1, n90)
+    assert (attention_bwd.launches, attention_bwd.launches_sm90) == (
+        nb + 1, nb90)
+    assert rel_err(o, flash_attention_fwd_plain(q, k, v)) <= TOL[dtype]
+    for a, r in zip(out, attention_bwd_plain(q, k, v, do)):
+        assert rel_err(a, r) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_attention_bwd_sm90_needs_the_forward_residuals(cuda):
+    q = seeded((1, 2, 65, 64), 35, 1.0, dtype="bfloat16", device=cuda)
+    with pytest.raises(ValueError, match="takes the forward's o and stats"):
+        attention_bwd(q, q, q, q)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("dims", [(2, 12, 1025, 64), (1, 2, 2048, 64),
@@ -399,7 +503,7 @@ def test_attention_bwd_long_sequences_match_plain(cuda, dims, dtype):
                for s in (11, 12, 13))
     do = seeded(dims, 14, 0.1, dtype=dtype, device=cuda)
     n = attention_bwd.launches
-    out = attention_bwd(q, k, v, do)
+    out = attention_bwd(q, k, v, do, *fwd_residuals(q, k, v))
     torch.cuda.synchronize()
     assert attention_bwd.launches == n + 1
     for o, r in zip(out, attention_bwd_plain(q, k, v, do)):

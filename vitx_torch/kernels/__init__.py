@@ -14,14 +14,18 @@
   ``flash_attention_with_mean_probs`` (B5, ``csrc/flash_attention_fwd.cu``,
   with ``attention_fwd.cuh`` shared with K1 and B7): the attention forward
   without probs, with full probs and with head-mean probs; replace
-  ``vitx/kernels/flash_attention.py::_fwd_kernel``.
+  ``vitx/kernels/flash_attention.py::_fwd_kernel``. Without probs in bf16
+  at D = 64, ``flash_attention`` runs ``csrc/flash_attention_sm90.cu``
+  (wgmma, TMA, an online softmax) and also returns the row statistics to
+  its backward.
 - ``fused_mlp_block`` (K2, ``csrc/mlp_block.cu``): LN -> W1 -> act -> W2,
   with its stash and a backward; replaces
   ``vitx/kernels/mlp_block.py::_kernel``.
-- ``attention_bwd`` (B2, ``csrc/flash_attention_bwd.cu``): the attention
-  backward at every T; replaces
-  ``vitx/kernels/flash_attention.py::_bwd_kernel_nq1`` and, past T = 1024,
-  the q-chunked ``_bwd_kernel`` (B6).
+- ``attention_bwd`` (B2, ``csrc/attention_bwd_sm90.cu`` in bf16 at D = 64,
+  ``csrc/flash_attention_bwd.cu`` otherwise): the attention backward at
+  every T; replaces ``vitx/kernels/flash_attention.py::_bwd_kernel_nq1``
+  and, past T = 1024, the q-chunked ``_bwd_kernel`` (B6).
+  ``attention_stats_plain`` makes the row statistics its sm90 route reads.
 - ``ln_bwd`` (B3, ``csrc/layer_norm_bwd.cu``): the LayerNorm backward;
   replaces ``vitx/kernels/layer_norm.py::_ln_bwd3_kernel``, and serves the
   function of ``_ln_bwd_kernel`` (B11, the 2-D backward of the entries
@@ -35,12 +39,15 @@
 
 Each wrapper launches its kernel for CUDA tensors (building it with nvcc at
 first use, ``_build.py``) and counts the launches in its ``launches``
-attribute; for CPU tensors it runs the plain torch version beside it.
+attribute (``attention_bwd`` and ``flash_attention`` count their sm90
+route in ``launches_sm90`` as well); for CPU tensors it runs the plain
+torch version beside it.
 """
 
 from vitx_torch.kernels.adamw import adamw_plain, fused_adamw_
 from vitx_torch.kernels.flash_attention import (
-    attention_bwd, attention_bwd_plain, flash_attention,
+    attention_bwd, attention_bwd_plain, attention_stats_plain,
+    flash_attention,
     flash_attention_fwd_plain, flash_attention_with_mean_probs,
     flash_attention_with_probs)
 from vitx_torch.kernels.layer_norm import (fused_add_layer_norm,
@@ -61,6 +68,7 @@ __all__ = ["fused_mha_block", "mha_block_plain",
            "fused_mlp_block", "mlp_block_plain", "flash_attention",
            "flash_attention_with_probs", "flash_attention_with_mean_probs",
            "flash_attention_fwd_plain", "attention_bwd",
-           "attention_bwd_plain", "ln_bwd", "ln_bwd_plain",
+           "attention_bwd_plain", "attention_stats_plain", "ln_bwd",
+           "ln_bwd_plain",
            "fused_layer_norm", "fused_add_layer_norm",
            "layer_norm_fwd_plain", "fused_adamw_", "adamw_plain"]

@@ -37,7 +37,7 @@ _F = ctypes.c_float
 # types
 SIGNATURES = {
     "mha_block": ("mha_block", "vitx_mha_block",
-                  [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                  [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                    _I, _I, _I, _I, _F, _P]),
     "mha_block_mean_probs": ("mha_block", "vitx_mha_block_mean_probs",
                              [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -54,6 +54,11 @@ SIGNATURES = {
     "flash_attention_bwd": ("flash_attention_bwd", "vitx_attention_bwd",
                             [_I, _P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _P]),
+    "flash_attention_fwd_sm90": ("flash_attention_sm90",
+                                 "vitx_attention_fwd_sm90",
+                                 [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    "attention_bwd_sm90": ("attention_bwd_sm90", "vitx_attention_bwd_sm90",
+                           [_P] * 11 + [_I, _I, _I, _P]),
     "layer_norm_bwd": ("layer_norm_bwd", "vitx_ln_bwd",
                        [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P]),
     "layer_norm_fwd": ("layer_norm_fwd", "vitx_ln_fwd",

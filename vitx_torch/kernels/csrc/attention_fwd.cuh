@@ -21,6 +21,8 @@
 // third q k^T instead of a (64, T) fp32 row block in shared memory (148 KB
 // at T = 577, too large at T = 1024): any T runs, the ragged key tail is
 // masked in the kernel (no padding) and T > 1024 needs nothing more.
+// With a.stats (K1 under grad), each row's m and 1 / l are written after
+// pass 2 for the backward.
 // KBIAS (B8, ToMe's proportional attention): an fp32 bias per key,
 // key_bias (B, T), is added to the fp32 logits before the max, in every
 // pass that recomputes s (vitx/kernels/mha_block.py:535); each block stages
@@ -63,6 +65,8 @@ struct AttnArgs {
   long long o_sb, o_sh, o_st;
   float* probs;         // PROBS_FULL (B, H, T, T), PROBS_MEAN (B, T, T) fp32
   const float* key_bias;  // KBIAS: (B, T) fp32, added to the logits over the keys
+  float* stats;         // null, or (2, B*H*T) fp32: each row's m | 1/l, what the
+                        // backward of attention_bwd_sm90.cu reads (PROBS_NONE)
   int B, H, T, D;
   float q_scale;
 };
@@ -195,6 +199,11 @@ attention_kernel(const AttnArgs a) {
       }
     }
     l += __shfl_xor_sync(0xffffffffu, l, 1);
+    if (MODE == PROBS_NONE && a.stats != nullptr && (lane & 1) == 0 && t < ntok) {
+      const size_t n = (size_t)a.B * H * ntok, i = ((size_t)b * H + h) * ntok + t;
+      a.stats[i] = m;
+      a.stats[n + i] = 1.0f / l;
+    }
 
 #pragma unroll
     for (int dt = 0; dt < ND; ++dt) {

@@ -13,7 +13,8 @@
 //
 // What bounds it on the H100: without probs, 4*B*H*T^2*D operations
 // against 4*B*H*T*D elements in and out, ~T/2 operations per byte in bf16
-// -- at T = 577 bound by operations; with full probs the (B, H, T, T) fp32
+// -- at T = 577 just under the card's ridge (~295), so bytes bound it by
+// 2 %; with full probs the (B, H, T, T) fp32
 // write (4 bytes per 4*D operations) bounds it by bytes; the head mean
 // writes H times less and is bound by operations again. The TPU kernel
 // holds a head's whole key block in VMEM and pads T > 1024 to a multiple

@@ -81,7 +81,7 @@ __global__ void head_mean_kernel(const T* __restrict__ k, T* __restrict__ km, in
 template <typename T, int MODE, bool TOME>
 cudaError_t run_mha(const void* x, const void* wqkv, const void* wo, const float* bo,
                     const float* g, const float* b, void* out, void* qkv, void* o_all,
-                    float* stats, float* probs, const float* qkv_bias,
+                    float* stats, float* attn_stats, float* probs, const float* qkv_bias,
                     const float* key_bias, void* k_mean, int B, int T_, int E, int H,
                     float eps, cudaStream_t s) {
   const int M = B * T_, D = E / H;
@@ -109,6 +109,7 @@ cudaError_t run_mha(const void* x, const void* wqkv, const void* wo, const float
   aa.o_sb = (long long)T_ * E; aa.o_sh = D; aa.o_st = E;
   aa.probs = probs;
   aa.key_bias = key_bias;
+  aa.stats = attn_stats;
   aa.B = B; aa.H = H; aa.T = T_; aa.D = D;
   aa.q_scale = static_cast<float>(1.0 / sqrt(static_cast<double>(D)));  // 1.0 / D**0.5
   err = launch_attention<T, MODE, TOME>(aa, s);
@@ -131,22 +132,24 @@ cudaError_t run_mha(const void* x, const void* wqkv, const void* wo, const float
 }  // namespace vitx
 
 // dtype: 0 = float32, 1 = bfloat16. Scratch from the caller: qkv
-// (3*B*T*E elements), o_all (B*T*E), stats (2*B*T fp32). Returns the
-// first CUDA error of the launches (0 when all were accepted).
+// (3*B*T*E elements), o_all (B*T*E), stats (2*B*T fp32). attn_stats: null,
+// or (2*B*H*T fp32) for the attention's row max and 1 / l (the stash of a
+// forward under grad). Returns the first CUDA error of the launches (0
+// when all were accepted).
 extern "C" int vitx_mha_block(int dtype, const void* x, const void* wqkv, const void* wo,
                               const float* bo, const float* g, const float* b, void* out,
-                              void* qkv, void* o_all, float* stats, int B, int T, int E,
-                              int H, float eps, void* stream) {
+                              void* qkv, void* o_all, float* stats, float* attn_stats, int B,
+                              int T, int E, int H, float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 1)
     err = vitx::run_mha<vitx::bf16, vitx::PROBS_NONE, false>(
-        x, wqkv, wo, bo, g, b, out, qkv, o_all, stats, nullptr, nullptr, nullptr, nullptr, B,
-        T, E, H, eps, s);
+        x, wqkv, wo, bo, g, b, out, qkv, o_all, stats, attn_stats, nullptr, nullptr, nullptr,
+        nullptr, B, T, E, H, eps, s);
   else
     err = vitx::run_mha<float, vitx::PROBS_NONE, false>(
-        x, wqkv, wo, bo, g, b, out, qkv, o_all, stats, nullptr, nullptr, nullptr, nullptr, B,
-        T, E, H, eps, s);
+        x, wqkv, wo, bo, g, b, out, qkv, o_all, stats, attn_stats, nullptr, nullptr, nullptr,
+        nullptr, B, T, E, H, eps, s);
   return static_cast<int>(err);
 }
 
@@ -161,12 +164,12 @@ extern "C" int vitx_mha_block_mean_probs(int dtype, const void* x, const void* w
   cudaError_t err;
   if (dtype == 1)
     err = vitx::run_mha<vitx::bf16, vitx::PROBS_MEAN, false>(
-        x, wqkv, wo, bo, g, b, out, qkv, o_all, stats, probs, nullptr, nullptr, nullptr, B, T,
-        E, H, eps, s);
+        x, wqkv, wo, bo, g, b, out, qkv, o_all, stats, nullptr, probs, nullptr, nullptr, nullptr, B,
+        T, E, H, eps, s);
   else
     err = vitx::run_mha<float, vitx::PROBS_MEAN, false>(
-        x, wqkv, wo, bo, g, b, out, qkv, o_all, stats, probs, nullptr, nullptr, nullptr, B, T,
-        E, H, eps, s);
+        x, wqkv, wo, bo, g, b, out, qkv, o_all, stats, nullptr, probs, nullptr, nullptr, nullptr, B,
+        T, E, H, eps, s);
   return static_cast<int>(err);
 }
 
@@ -182,11 +185,11 @@ extern "C" int vitx_mha_block_tome(int dtype, const void* x, const void* wqkv, c
   cudaError_t err;
   if (dtype == 1)
     err = vitx::run_mha<vitx::bf16, vitx::PROBS_NONE, true>(
-        x, wqkv, wo, bo, g, b, out, qkv, o_all, stats, nullptr, bqkv, log_size, k_mean, B, T,
-        E, H, eps, s);
+        x, wqkv, wo, bo, g, b, out, qkv, o_all, stats, nullptr, nullptr, bqkv, log_size, k_mean,
+        B, T, E, H, eps, s);
   else
     err = vitx::run_mha<float, vitx::PROBS_NONE, true>(
-        x, wqkv, wo, bo, g, b, out, qkv, o_all, stats, nullptr, bqkv, log_size, k_mean, B, T,
-        E, H, eps, s);
+        x, wqkv, wo, bo, g, b, out, qkv, o_all, stats, nullptr, nullptr, bqkv, log_size, k_mean,
+        B, T, E, H, eps, s);
   return static_cast<int>(err);
 }

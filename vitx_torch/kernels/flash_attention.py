@@ -9,7 +9,17 @@
   differentiable as vitx's entries are: ``flash_attention``'s backward is
   B2, the probs variants differentiate the plain reference attention
   (``flash_attention.py:516-538``). Each keeps its own ``launches`` count.
-- ``attention_bwd`` launches ``csrc/flash_attention_bwd.cu`` on CUDA
+- Routes on the card, chosen in the open on dtype and head width: bf16
+  at D = 64 (every model the port runs) takes the Hopper kernels on
+  wgmma and TMA, ``csrc/flash_attention_sm90.cu`` for the no-probs
+  forward and ``csrc/attention_bwd_sm90.cu`` for the backward; fp32, any
+  other D and the probs modes keep ``csrc/flash_attention_fwd.cu`` and
+  ``csrc/flash_attention_bwd.cu``. ``launches`` counts every CUDA launch
+  of a wrapper, ``launches_sm90`` those that took the sm90 route. The
+  sm90 backward consumes the forward's o and row statistics (m and 1 / l,
+  ``attention_stats_plain``'s function), which the sm90 forward and K1's
+  stash write.
+- ``attention_bwd`` launches a backward kernel on CUDA
   tensors and runs ``attention_bwd_plain`` on CPU tensors, at every T. It
   replaces both of vitx's attention backwards, which the fused MHA
   block's VJP and ``flash_attention``'s reach through ``_bwd``:
@@ -26,6 +36,8 @@
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from vitx_torch.kernels import _build
@@ -39,6 +51,40 @@ from vitx_torch.nn.layers import matmul32
 MAX_HEAD_DIM = 128    # the backward kernel's shared-memory tiles (csrc note)
 MAX_FWD_HEAD_DIM = 256
 PROBS_MODES = {None: 0, "full": 1, "mean": 2}
+SM90_HEAD_DIM = 64    # the head width of the sm90 kernels' tiles
+
+
+def sm90_route(t) -> bool:
+    """Whether the attention kernels take the sm90 route for ``t`` (q):
+    bf16 at D = 64. The caller has checked that t lies on the card."""
+    return t.dtype == torch.bfloat16 and t.shape[-1] == SM90_HEAD_DIM
+
+
+def attention_stats_plain(q, k):
+    """The row statistics the sm90 backward reads, (2, B, H, T) fp32: the
+    row max m of the fp32 logits s = cast(q * scale) k^T and 1 / l, l the
+    fp32 sum of exp(s - m) -- ``_unnormalized_probs``'s m and l
+    (``flash_attention.py:102-116``). q is unscaled."""
+    dt = q.dtype
+    qs = (q.float() * (1.0 / q.shape[-1] ** 0.5)).to(dt)
+    s = matmul32(qs, k.transpose(-1, -2))
+    m = s.amax(dim=-1)
+    linv = 1.0 / torch.exp(s - m[..., None]).sum(dim=-1)
+    return torch.stack((m, linv))
+
+
+def _view(t):
+    """(t, its (sb, sh, st)) for a TMA read or a kernel store: the last dim
+    contiguous, the other strides multiples of 8 elements (16 bytes), the
+    pointer 16-byte aligned; otherwise a contiguous copy. A dim of size 1
+    gets the stride of T, which no access uses."""
+    ok = (t.stride(3) == 1 and t.data_ptr() % 16 == 0
+          and all(st % 8 == 0 or n == 1
+                  for st, n in zip(t.stride()[:3], t.shape[:3])))
+    if not ok:
+        t = t.contiguous()
+    st = t.stride(2)
+    return t, [s if n > 1 else st for s, n in zip(t.stride()[:3], t.shape[:3])]
 
 
 def attention_bwd_plain(q, k, v, do):
@@ -82,18 +128,9 @@ def _check(q, k, v, do):
         raise ValueError(f"head_dim {D} > {MAX_HEAD_DIM} is not supported")
 
 
-def attention_bwd(q, k, v, do):
-    """The attention backward over (B, H, T, D) q, k, v and do, q unscaled
-    (the fused MHA block's stash), any T: returns dq, dk, dv in q's dtype.
-
-    CUDA tensors go through the kernel and add one to
-    ``attention_bwd.launches``; CPU tensors take the plain version.
-    """
-    _check(q, k, v, do)
-    if q.device.type == "cpu":
-        return attention_bwd_plain(q, k, v, do)
-    if not q.is_cuda:
-        raise ValueError(f"attention_bwd runs on cuda or cpu, not {q.device}")
+def _bwd_wmma(q, k, v, do):
+    """``csrc/flash_attention_bwd.cu`` on contiguous copies: fp32, or any
+    D up to 128. Counts nothing (``attention_bwd`` counts)."""
     B, H, T, D = q.shape
     q, k, v, do = (t.contiguous() for t in (q, k, v, do))
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
@@ -105,11 +142,84 @@ def attention_bwd(q, k, v, do):
                  dv.data_ptr(), stats.data_ptr(), B * H, T, D,
                  torch.cuda.current_stream().cuda_stream)
     _build.check("flash_attention_bwd", err)
-    attention_bwd.launches += 1
     return dq, dk, dv
 
 
+def _bwd_sm90(q, k, v, do, o, stats, out=None):
+    """``csrc/attention_bwd_sm90.cu``: bf16 at D = 64, inputs read and
+    outputs written through their strides (``_view``). Counts nothing."""
+    B, H, T, _ = q.shape
+    ins = [_view(t) for t in (q, k, v, do, o)]
+    if out is None:
+        out = tuple(torch.empty_like(q) for _ in range(3))
+    outs = [_view(t) for t in out]
+    for (t, _), want in zip(outs, out):
+        if t is not want:
+            raise ValueError("attention_bwd: out must have a contiguous "
+                             "last dim and strides of 8-element multiples")
+    stats = stats.contiguous()
+    delta = torch.empty(B * H * T, dtype=torch.float32, device=q.device)
+    views = (ctypes.c_longlong * 24)(*(s for _, st in ins + outs
+                                       for s in st))
+    fn = _build.entry("attention_bwd_sm90")
+    with torch.cuda.device(q.device):
+        err = fn(*(t.data_ptr() for t, _ in ins + outs), stats.data_ptr(),
+                 delta.data_ptr(), views, B, H, T,
+                 torch.cuda.current_stream().cuda_stream)
+    _build.check("attention_bwd_sm90", err)
+    return out
+
+
+def attention_bwd(q, k, v, do, o=None, stats=None, *, out=None):
+    """The attention backward over (B, H, T, D) q, k, v and do, q unscaled
+    (the fused MHA block's stash), any T: returns dq, dk, dv in q's dtype.
+
+    ``o`` is the forward's output and ``stats`` its row statistics
+    (``attention_stats_plain``'s (2, B, H, T) fp32); the sm90 route (bf16,
+    D = 64) needs both, the others ignore them. q, k, v, do and o may be
+    strided views. ``out``, three (B, H, T, D) tensors (views of one
+    buffer, say), receives dq, dk, dv and is returned.
+
+    CUDA tensors go through a kernel, adding one to
+    ``attention_bwd.launches`` and, on the sm90 route, to
+    ``attention_bwd.launches_sm90``; CPU tensors take the plain version.
+    """
+    _check(q, k, v, do)
+    if o is not None and (o.shape != q.shape or o.dtype != q.dtype):
+        raise ValueError(f"o must be {q.dtype} {tuple(q.shape)} like q, got "
+                         f"{o.dtype} {tuple(o.shape)}")
+    if stats is not None and (tuple(stats.shape) != (2, *q.shape[:3])
+                              or stats.dtype != torch.float32):
+        raise ValueError(f"stats must be float32 {(2, *q.shape[:3])}, got "
+                         f"{stats.dtype} {tuple(stats.shape)}")
+    if q.device.type == "cpu":
+        return _into(attention_bwd_plain(q, k, v, do), out)
+    if not q.is_cuda:
+        raise ValueError(f"attention_bwd runs on cuda or cpu, not {q.device}")
+    if sm90_route(q):
+        if o is None or stats is None:
+            raise ValueError("attention_bwd on bf16 at D = 64 (the sm90 "
+                             "route) takes the forward's o and stats")
+        res = _bwd_sm90(q, k, v, do, o, stats, out)
+        attention_bwd.launches_sm90 += 1
+    else:
+        res = _into(_bwd_wmma(q, k, v, do), out)
+    attention_bwd.launches += 1
+    return res
+
+
+def _into(res, out):
+    """``res`` copied into the tensors ``out`` (and ``out`` returned), or
+    ``res`` when there is no ``out``."""
+    if out is None:
+        return res
+    for o, r in zip(out, res):
+        o.copy_(r)
+    return out
+
+
 attention_bwd.launches = 0
+attention_bwd.launches_sm90 = 0
 
 
 # --- B5: the forward --------------------------------------------------------
@@ -161,14 +271,27 @@ def _check_fwd(q, k, v, probs_mode):
                          f"not supported")
 
 
-def _fwd(q, k, v, probs_mode, counter):
-    """B5 on CUDA (adding one to ``counter.launches``), the plain version
-    on the CPU."""
-    if q.device.type == "cpu":
-        return flash_attention_fwd_plain(q, k, v, probs_mode)
-    if not q.is_cuda:
-        raise ValueError(f"flash_attention runs on cuda or cpu, not "
-                         f"{q.device}")
+def _fwd_sm90(q, k, v, want_stats: bool):
+    """``csrc/flash_attention_sm90.cu``: bf16 at D = 64, no probs -> (o,
+    stats (2, B, H, T) fp32 or None). Counts nothing."""
+    B, H, T, _ = q.shape
+    o = torch.empty_like(q)
+    stats = (torch.empty((2, B, H, T), dtype=torch.float32, device=q.device)
+             if want_stats else None)
+    ins = [_view(t) for t in (q, k, v, o)]
+    views = (ctypes.c_longlong * 12)(*(s for _, st in ins for s in st))
+    fn = _build.entry("flash_attention_fwd_sm90")
+    with torch.cuda.device(q.device):
+        err = fn(*(t.data_ptr() for t, _ in ins),
+                 stats.data_ptr() if stats is not None else None, views,
+                 B, H, T, torch.cuda.current_stream().cuda_stream)
+    _build.check("flash_attention_fwd_sm90", err)
+    return o, stats
+
+
+def _fwd_wmma(q, k, v, probs_mode):
+    """``csrc/flash_attention_fwd.cu`` -> o, or (o, probs): fp32, any D
+    up to 256, and the probs modes. Counts nothing."""
     B, H, T, D = q.shape
     o = torch.empty_like(q)
     probs = None
@@ -185,22 +308,44 @@ def _fwd(q, k, v, probs_mode, counter):
                  PROBS_MODES[probs_mode], B, H, T, D,
                  torch.cuda.current_stream().cuda_stream)
     _build.check("flash_attention_fwd", err)
-    counter.launches += 1
     return o if probs is None else (o, probs)
 
 
+def _fwd(q, k, v, probs_mode, counter, want_stats: bool = False):
+    """B5 on CUDA (adding one to ``counter.launches``; no probs in bf16 at
+    D = 64 takes the sm90 kernel and adds one to ``counter.launches_sm90``
+    too), the plain version on the CPU. ``want_stats`` returns (o, stats),
+    stats None off the sm90 route."""
+    if q.device.type == "cpu":
+        o = flash_attention_fwd_plain(q, k, v, probs_mode)
+        return (o, None) if want_stats else o
+    if not q.is_cuda:
+        raise ValueError(f"flash_attention runs on cuda or cpu, not "
+                         f"{q.device}")
+    if probs_mode is None and sm90_route(q):
+        o, stats = _fwd_sm90(q, k, v, want_stats)
+        counter.launches_sm90 += 1
+    else:
+        o, stats = _fwd_wmma(q, k, v, probs_mode), None
+    counter.launches += 1
+    return (o, stats) if want_stats else o
+
+
 class _Flash(torch.autograd.Function):
-    """B5 forward; B2 backward (residuals q, k, v, as vitx's
-    ``_flash_kernel``, ``flash_attention.py:465-479``)."""
+    """B5 forward; B2 backward. The residuals are q, k, v, as vitx's
+    ``_flash_kernel`` keeps (``flash_attention.py:465-479``), plus o and
+    the row statistics that the sm90 backward reads."""
 
     @staticmethod
     def forward(ctx, q, k, v):
-        ctx.save_for_backward(q, k, v)
-        return _fwd(q, k, v, None, flash_attention)
+        o, stats = _fwd(q, k, v, None, flash_attention, want_stats=True)
+        ctx.save_for_backward(q, k, v, o, stats)
+        return o
 
     @staticmethod
     def backward(ctx, do):
-        return attention_bwd(*ctx.saved_tensors, do.contiguous())
+        return attention_bwd(*ctx.saved_tensors[:3], do,
+                             *ctx.saved_tensors[3:])
 
 
 class _FlashProbs(torch.autograd.Function):
@@ -269,5 +414,6 @@ def flash_attention_with_mean_probs(q, k, v):
 
 
 flash_attention.launches = 0
+flash_attention.launches_sm90 = 0
 flash_attention_with_probs.launches = 0
 flash_attention_with_mean_probs.launches = 0

@@ -150,7 +150,8 @@ def _check(x, wqkv, wo, bo, g, b):
 def _launch(x, wqkv, wo, bo, g, b, eps, name="mha_block", extra=()):
     """The ``mha_block.cu`` entry ``name`` on CUDA tensors -> (out, q, k,
     v, o_all): K1, or B7 with ``extra`` its (B, T, T) fp32 probs output, or
-    B8 with ``extra`` (bqkv, log_size, its (B, T, D) k_mean output)."""
+    B8 with ``extra`` (bqkv, log_size, its (B, T, D) k_mean output). K1's
+    ``extra`` is its (2, B, H, T) fp32 attention statistics output."""
     if not x.is_cuda:
         raise ValueError(f"fused_mha_block runs on cuda or cpu, "
                          f"not {x.device}")
@@ -172,17 +173,23 @@ def _launch(x, wqkv, wo, bo, g, b, eps, name="mha_block", extra=()):
 
 
 def _forward(x, wqkv, wo, bo, g, b, eps):
-    """-> (out, q, k, v, o_all): kernel K1 on CUDA, the plain version on
-    the CPU. The stash is free on the card: q|k|v and o_all are the
-    kernel's own intermediates, returned as views."""
+    """-> (out, q, k, v, o_all, stats): kernel K1 on CUDA, the plain
+    version on the CPU (stats None there). The stash is free on the card:
+    q|k|v and o_all are the kernel's own intermediates, returned as views;
+    stats (2, B, H, T) fp32 holds each attention row's max and 1 / l, what
+    the sm90 backward reads."""
     if x.device.type == "cpu":
-        return mha_block_plain(x, wqkv, wo, bo, g, b, eps=eps, stash=True)
-    res = _launch(x, wqkv, wo, bo, g, b, eps)
+        return (*mha_block_plain(x, wqkv, wo, bo, g, b, eps=eps,
+                                 stash=True), None)
+    B, T, _ = x.shape
+    stats = torch.empty((2, B, wqkv.shape[2], T), dtype=torch.float32,
+                        device=x.device)
+    res = _launch(x, wqkv, wo, bo, g, b, eps, extra=(stats,))
     fused_mha_block.launches += 1
-    return res
+    return (*res, stats)
 
 
-def _backward(dout, x, wqkv, wo, g, b, q, k, v, o_all, eps):
+def _backward(dout, x, wqkv, wo, g, b, q, k, v, o_all, stats, eps):
     """``_fused_op_bwd`` (``vitx/kernels/mha_block.py:964-1005``): every
     product accumulates in fp32 and is cast once -- dwo and dwqkv to the
     weights' dtype, do and dh to the activations'; dbo stays fp32."""
@@ -191,13 +198,16 @@ def _backward(dout, x, wqkv, wo, g, b, q, k, v, o_all, eps):
     d2 = dout.reshape(B * T, E)
     dwo = dot(o_all.reshape(B * T, E).t(), d2).to(wo.dtype)
     dbo = dout.float().sum(dim=(0, 1))
+    # do and o as (B, H, T, D) views of their (B, T, E) layouts, and dq,
+    # dk, dv written into dqkv's (B, T, 3, H, D): the three projections
+    # side by side, as the columns of the (E, 3E) flattening of wqkv, so
+    # dwqkv is one product and dh one fp32 sum of the three, cast once
     do = dot(d2, wo.to(dout.dtype).t()).reshape(B, T, H, D).transpose(1, 2)
-    dq, dk, dv = attention_bwd(q, k, v, do.contiguous())
-    # the three projections side by side, as the columns of the (E, 3E)
-    # flattening of wqkv: dwqkv is one product and dh one fp32 sum of the
-    # three, cast once
-    dqkv = torch.stack((dq, dk, dv)).permute(1, 3, 0, 2, 4).reshape(
-        B * T, 3 * E)
+    o = o_all.reshape(B, T, H, D).transpose(1, 2)
+    dqkv = torch.empty((B, T, 3, H, D), dtype=q.dtype, device=q.device)
+    attention_bwd(q, k, v, do, o, stats,
+                  out=tuple(dqkv[:, :, i].transpose(1, 2) for i in range(3)))
+    dqkv = dqkv.reshape(B * T, 3 * E)
     h = layer_norm(x, g, b, eps=eps)
     dwqkv = dot(h.reshape(B * T, E).t(), dqkv).to(wqkv.dtype).reshape(
         E, 3, H, D)
@@ -212,8 +222,8 @@ class _FusedMHA(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, wqkv, wo, bo, g, b, eps):
-        out, q, k, v, o_all = _forward(x, wqkv, wo, bo, g, b, eps)
-        ctx.save_for_backward(x, wqkv, wo, g, b, q, k, v, o_all)
+        out, q, k, v, o_all, stats = _forward(x, wqkv, wo, bo, g, b, eps)
+        ctx.save_for_backward(x, wqkv, wo, g, b, q, k, v, o_all, stats)
         ctx.eps = eps
         return out
 
@@ -239,7 +249,7 @@ def fused_mha_block(x, wqkv, wo, bo, g, b, *, eps: float = 1e-5,
     _check(x, wqkv, wo, bo, g, b)
     if stash:
         with torch.no_grad():
-            return _forward(x, wqkv, wo, bo, g, b, eps)
+            return _forward(x, wqkv, wo, bo, g, b, eps)[:5]
     return _FusedMHA.apply(x, wqkv, wo, bo, g, b, float(eps))
 
 
