@@ -11,13 +11,22 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               ``nvidia-smi --query-gpu=name,power.limit`` gives them.
 2. build   -- builds every kernel from the sources in the checkout
               (vitx_torch/kernels/csrc, one nvcc per source, in parallel)
-              and counts, per kernel of the sm90 sources, the wgmma
-              (HGMMA) and TMA (UTMALDG) instructions in its SASS
-              (cuobjdump -sass); each must have both.
+              and counts, per sm90 kernel (SM90_SOURCES: the sm90 GEMM and
+              B5's sm90 body as mha_block.cu and mlp_block.cu build them,
+              B5's and B2's sm90 kernels), the wgmma (HGMMA), TMA
+              (UTMALDG) and wgmma-wait instructions in its SASS (cuobjdump
+              -sass); each must have wgmma and TMA.
 3. kernels -- K1 (fused MHA block) and K2 (fused MLP block) at ViT-B/16
               shapes, batch 8 and 32, against their plain torch versions
               on the same card: float32 within 1e-4 relative, bfloat16 within
-              BF16_TOL (see below), all three activations. B5 (attention
+              BF16_TOL (see below), all three activations. K1 and K2 on
+              their sm90 route (bf16: the sm90 GEMM, K1's attention on B5's
+              sm90 body) with every stash output (q, k, v, o_all, the
+              attention's statistics, hp) at base16 b8, a ragged M (3 x
+              197), tiny's widths and large16_384's, launches_sm90 one a
+              call, twice bit for bit, and the earlier route (gemm_kernel,
+              attention_fwd.cuh) on the same inputs; B7 and B8 on both
+              routes likewise. B5 (attention
               forward) in its three modes at (2, 16, 577, 64), (2, 12, 197,
               64) and (1, 16, 1100, 64) -- without probs in bf16 its sm90
               kernel, with the row statistics it writes for the backward
@@ -33,7 +42,8 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               (8, 577), (8, 416), B9's range, and (8, 48), the last r=23
               block: float32 1e-4, bfloat16 BF16_TOL; k_mean twice, bit
               for bit; with zero biases its out equal to K1's bit for
-              bit. K2 at the r=13 server's first and last MLP shapes,
+              bit on the attention body they share (attention_fwd.cuh).
+              K2 at the r=13 server's first and last MLP shapes,
               (32, 184) and (32, 41). B10 (fused_layer_norm and
               fused_add_layer_norm) against their plain version at E
               64, 100, 768, 1024, 3072 and R 1, 394, 50432 rows, float32
@@ -64,7 +74,7 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
 5. forward -- the base16 forward (depth 12, bf16) at batch 8 on the card
               against the port's plain forward on the CPU with the same
               weights (relative error < 0.05 on the logits); exactly 12 K1
-              and 12 K2 launches per forward.
+              and 12 K2 launches per forward, all on the sm90 route.
 6. serve   -- main path 1: an InferenceServer for base16 at batch 32
               answers 64 requests from 8 threads; each top-k must equal a
               direct forward of the same images at the same batch shape.
@@ -76,8 +86,9 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               on SyntheticDataset batches: 20 train_steps with
               make_optimizer(lr=1e-4), then 5 with fused=True, on one
               repeated batch; the loss must be finite and fall, the
-              launches per step must be K1 12, B2 12 (all on its sm90
-              route), B3 25, K2 0 and B12 0 or one per leaf; one
+              launches per step must be K1 12 (all on its sm90 route),
+              B2 12 (all on its sm90 route), B3 25, K2 0 and B12 0 or one
+              per leaf; one
               eval_step.
 8. explain -- main path 3, large16_384 (ViT-L/16 at 384², T 577) at full
               width and depth, bf16, random weights from seed 0: (a)
@@ -146,18 +157,22 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               fine-tune step at batch 32 (img/s, profiler split), B2 at
               its (32, 12, 1025, 64), B6's range, and B3 on the 2-D view
               of base16's b256 tokens, B11's function (each under its
-              row's "shapes"), and B10's two rows there. B2 and B5
-              without probs have two rows each: the sm90 kernel
-              (attention_bwd_sm90, flash_attention_sm90) and the earlier
-              kernel on the same bf16 inputs through its launcher
-              (attention_bwd, flash_attention), which the wrappers keep
-              for fp32 and other D.
+              row's "shapes"), and B10's two rows there. B2, B5 without
+              probs, K1, K2, B7 and B8 have two rows each: the sm90 route
+              (attention_bwd_sm90, flash_attention_sm90,
+              fused_mha_block_sm90, ...; the blocks' sm90 rows carry the
+              earlier route's time of the same call as was_ms) and the
+              earlier kernel on the same bf16 inputs through its launcher
+              (attention_bwd, flash_attention, fused_mha_block, ...),
+              which the wrappers keep for fp32 and shapes the sm90 route
+              cannot take.
 
 Each main path runs with the kernels' launch counts set to 0 just before
-it and read just after. ``attention_bwd`` and ``flash_attention`` count
-every launch of their wrappers; ``attention_bwd_sm90`` and
-``flash_attention_sm90`` read the wrappers' ``launches_sm90``, the
-launches on the sm90 route (COUNTERS). The last lines are one JSON
+it and read just after. ``attention_bwd``, ``flash_attention`` and the
+blocks' rows count every launch of their wrappers; ``attention_bwd_sm90``,
+``flash_attention_sm90`` and the blocks' ``*_sm90`` rows read the
+wrappers' ``launches_sm90``, the launches on the sm90 route (COUNTERS).
+The last lines are one JSON
 object listing the kernels and, last, ``{"ok": true, "device": {...}}``.
 ``--phases`` runs a subset (``device,build,grad`` is the quick check
 after editing a kernel); a subset never prints the ok line.
@@ -214,6 +229,23 @@ KERNELS = {
     },
     "fused_mlp_block": {
         "source": "vitx_torch/kernels/csrc/mlp_block.cu",
+        "replaces": "vitx/kernels/mlp_block.py:67",
+        "tpu_kernel": "vitx/kernels/mlp_block.py::_kernel",
+    },
+    # the sm90 route of K1, K2, B7 and B8 (bf16, E a multiple of 8): their
+    # projections on gemm_sm90.cuh, K1's attention at D 64 on
+    # attention_fwd_sm90.cuh; counted in the wrappers' launches_sm90
+    # (COUNTERS), while the rows above count every launch, both routes
+    "fused_mha_block_sm90": {
+        "source": "vitx_torch/kernels/csrc/mha_block.cu",
+        "headers": ["vitx_torch/kernels/csrc/gemm_sm90.cuh",
+                    "vitx_torch/kernels/csrc/attention_fwd_sm90.cuh"],
+        "replaces": "vitx/kernels/mha_block.py:46",
+        "tpu_kernel": "vitx/kernels/mha_block.py::_kernel",
+    },
+    "fused_mlp_block_sm90": {
+        "source": "vitx_torch/kernels/csrc/mlp_block.cu",
+        "headers": ["vitx_torch/kernels/csrc/gemm_sm90.cuh"],
         "replaces": "vitx/kernels/mlp_block.py:67",
         "tpu_kernel": "vitx/kernels/mlp_block.py::_kernel",
     },
@@ -299,15 +331,43 @@ KERNELS = {
         "also_replaces": "vitx/kernels/mha_block.py:686",
         "also_tpu_kernel": "vitx/kernels/mha_block.py::_kernel_hchunk_tome",
     },
+    "fused_mha_block_with_mean_probs_sm90": {
+        "source": "vitx_torch/kernels/csrc/mha_block.cu",
+        "headers": ["vitx_torch/kernels/csrc/gemm_sm90.cuh"],
+        "replaces": "vitx/kernels/mha_block.py:174",
+        "tpu_kernel": "vitx/kernels/mha_block.py::_kernel_hchunk "
+                      "(mean probs)",
+    },
+    "fused_mha_block_tome_sm90": {
+        "source": "vitx_torch/kernels/csrc/mha_block.cu",
+        "headers": ["vitx_torch/kernels/csrc/gemm_sm90.cuh"],
+        "replaces": "vitx/kernels/mha_block.py:507",
+        "tpu_kernel": "vitx/kernels/mha_block.py::_kernel_tome",
+        "also_replaces": "vitx/kernels/mha_block.py:686",
+        "also_tpu_kernel": "vitx/kernels/mha_block.py::_kernel_hchunk_tome",
+    },
 }
+# the rows of the blocks' sm90 route, by the wrapper's own name
+BLOCK_SM90 = {"fused_mha_block": "fused_mha_block_sm90",
+              "fused_mlp_block": "fused_mlp_block_sm90",
+              "fused_mha_block_with_mean_probs":
+                  "fused_mha_block_with_mean_probs_sm90",
+              "fused_mha_block_tome": "fused_mha_block_tome_sm90"}
 # rows whose count is a second counter of another wrapper: name ->
 # (wrapper, attribute)
 COUNTERS = {"attention_bwd_sm90": ("attention_bwd", "launches_sm90"),
-            "flash_attention_sm90": ("flash_attention", "launches_sm90")}
-# the sources whose SASS the build phase reads: the wgmma (HGMMA) and TMA
-# (UTMALDG) instructions that show the sm90 kernels reach the tensor cores'
-# asynchronous path
-SM90_SOURCES = ("flash_attention_sm90", "attention_bwd_sm90")
+            "flash_attention_sm90": ("flash_attention", "launches_sm90"),
+            **{row: (name, "launches_sm90")
+               for name, row in BLOCK_SM90.items()}}
+# the sources whose SASS the build phase reads, and the sm90 kernels each
+# must hold: the wgmma (HGMMA) and TMA (UTMALDG) instructions that show
+# they reach the tensor cores' asynchronous path. mha_block and mlp_block
+# also hold the earlier kernels (ln_stats_kernel, gemm_kernel,
+# attention_kernel, head_mean_kernel), which use neither and are not read
+SM90_SOURCES = {"flash_attention_sm90": ("attention_fwd_sm90",),
+                "attention_bwd_sm90": ("dq_kernel_sm90", "dkdv_kernel_sm90"),
+                "mha_block": ("gemm_sm90_kernel", "attention_fwd_sm90"),
+                "mlp_block": ("gemm_sm90_kernel",)}
 NO_LIBRARY = ("no single PyTorch call returns attention probabilities "
               "(scaled_dot_product_attention returns only the output)")
 NO_ADD_LIBRARY = ("no single PyTorch call adds a residual and normalises "
@@ -386,19 +446,25 @@ def phase_build():
     emit({"phase": "build", "seconds": round(seconds, 2),
           "per_source_s": {n: round(v["seconds"], 2)
                            for n, v in _build.build_log.items()}})
-    sass = {name: sass_counts(_build._target(name)) for name in SM90_SOURCES}
+    sass = {name: {kern: n for kern, n in
+                   sass_counts(_build._target(name)).items()
+                   if kern in wanted}
+            for name, wanted in SM90_SOURCES.items()}
     emit({"phase": "build", "check": "SASS of the sm90 kernels: wgmma "
           "(HGMMA) and TMA (UTMALDG) or other async copies (UBLKCP, LDGSTS) "
-          "per kernel", "sass": sass})
-    for name, kernels in sass.items():
-        for kern, n in kernels.items():
-            if not n["HGMMA"] or not (n["UTMALDG"] + n["UBLKCP"]
-                                      + n["LDGSTS"]):
-                raise AssertionError(f"{name}: {kern} has no wgmma or no "
-                                     f"async copy in its SASS: {n}")
+          "per kernel, and wgmma waits (WARPGROUP.DEPBAR: one per HGMMA "
+          "would mean ptxas serialised them)", "sass": sass})
+    for name, wanted in SM90_SOURCES.items():
+        for kern in wanted:
+            n = sass[name].get(kern)
+            if n is None or not n["HGMMA"] or not (
+                    n["UTMALDG"] + n["UBLKCP"] + n["LDGSTS"]):
+                raise AssertionError(f"{name}: {kern} is missing or has no "
+                                     f"wgmma or no async copy in its SASS: "
+                                     f"{n}")
 
 
-SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP", "LDGSTS")
+SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP", "LDGSTS", "WARPGROUP.DEPBAR")
 
 
 def sass_counts(so: Path) -> dict:
@@ -433,6 +499,13 @@ def phase_kernels(errs: dict):
         for dtype, tol in ((torch.float32, FP32_TOL),
                            (torch.bfloat16, BF16_TOL)):
             check_block(B, T, E, H, dtype, tol, errs)
+    # K1 and K2 on the sm90 route with every stash output, and on the
+    # earlier route on the same inputs: base16 at batch 8, a ragged M (3 x
+    # 197 rows), tiny's widths (QKV N 192, the MLP's 256) and
+    # large16_384's (E 1024, M 4096)
+    for shape in ((8, 197, 768, 12), (3, 197, 768, 12), (2, 65, 64, 4),
+                  (8, 577, 1024, 16)):
+        check_blocks_sm90(*shape, errs)
     # B5 at the rollout's heads, base16's, and past T = 1024
     for shape in ((2, 16, 577, 64), (2, 12, 197, 64), (1, 16, 1100, 64)):
         for dtype in (torch.float32, torch.bfloat16):
@@ -590,9 +663,18 @@ def check_mean_probs_block(B, T, E, H, dtype, tol, errs: dict) -> None:
     bf = dtype == torch.bfloat16
     out = fused_mha_block_with_mean_probs(x, **mha)
     torch.cuda.synchronize()
+    ref = mha_block_mean_probs_plain(x, **mha)
     check("kernels", "fused_mha_block_with_mean_probs (out, probs)", out,
-          mha_block_mean_probs_plain(x, **mha), tol, errs if bf else None,
-          "fused_mha_block_with_mean_probs", **info)
+          ref, tol, errs if bf else None,
+          "fused_mha_block_with_mean_probs_sm90", **info)
+    if bf:   # the earlier route (gemm_kernel) on the same inputs
+        probs = torch.empty_like(out[1])
+        was = block_module()._launch(x, **mha, eps=1e-5,
+                                     name="mha_block_mean_probs",
+                                     extra=(probs,), route=0)
+        check("kernels", "fused_mha_block_with_mean_probs, the earlier "
+              "route (out, probs)", (was[0], probs), ref, tol, errs,
+              "fused_mha_block_with_mean_probs", **info)
     check_rows("fused_mha_block_with_mean_probs", out[1], **info)
     again = fused_mha_block_with_mean_probs(x, **mha)
     if not (torch.equal(again[1], out[1]) and torch.equal(again[0], out[0])):
@@ -600,12 +682,13 @@ def check_mean_probs_block(B, T, E, H, dtype, tol, errs: dict) -> None:
     k1 = fused_mha_block(x, **mha)
     torch.cuda.synchronize()
     check("kernels", "fused_mha_block", k1, mha_block_plain(x, **mha), tol,
-          errs if bf else None, "fused_mha_block", **info)
+          errs if bf else None, "fused_mha_block_sm90", **info)
     k2 = fused_mlp_block(x, **mlp, act="gelu_tanh")
     torch.cuda.synchronize()
     check("kernels", "fused_mlp_block", k2,
           mlp_block_plain(x, **mlp, act="gelu_tanh"), tol,
-          errs if bf else None, "fused_mlp_block", act="gelu_tanh", **info)
+          errs if bf else None, "fused_mlp_block_sm90", act="gelu_tanh",
+          **info)
 
 
 def tome_inputs(B, T, E, H, dtype, seed, device="cuda"):
@@ -624,28 +707,119 @@ def tome_inputs(B, T, E, H, dtype, seed, device="cuda"):
 def check_tome_block(B, T, E, H, dtype, tol, errs: dict) -> None:
     """B8 against ``mha_block_tome_plain`` (out and k_mean); k_mean twice,
     bit for bit; with zero bqkv and log_size, its out equal to K1's bit for
-    bit (the shared GEMM and attention bodies are K1's)."""
-    from vitx_torch.kernels import (fused_mha_block, fused_mha_block_tome,
-                                    mha_block_tome_plain)
+    bit on the bodies they share (the GEMM and attention_fwd.cuh)."""
+    from vitx_torch.kernels import fused_mha_block_tome, mha_block_tome_plain
 
     x, tm = tome_inputs(B, T, E, H, dtype, 60 + T)
     info = {"batch": B, "shape": [B, T, E], "dtype": str(dtype)}
+    bf = dtype == torch.bfloat16
     out = fused_mha_block_tome(x, **tm)
     torch.cuda.synchronize()
-    check("kernels", "fused_mha_block_tome (out, k_mean)", out,
-          mha_block_tome_plain(x, **tm), tol,
-          errs if dtype == torch.bfloat16 else None, "fused_mha_block_tome",
-          **info)
+    ref = mha_block_tome_plain(x, **tm)
+    check("kernels", "fused_mha_block_tome (out, k_mean)", out, ref, tol,
+          errs if bf else None, "fused_mha_block_tome_sm90", **info)
+    if bf:   # the earlier route (gemm_kernel) on the same inputs
+        check("kernels", "fused_mha_block_tome, the earlier route (out, "
+              "k_mean)", tome_earlier(x, tm), ref, tol, errs,
+              "fused_mha_block_tome", **info)
     if not torch.equal(fused_mha_block_tome(x, **tm)[1], out[1]):
         raise AssertionError(f"B8 {info}: two calls' k_mean differ")
     zero = dict(tm, bqkv=torch.zeros_like(tm["bqkv"]),
                 log_size=torch.zeros_like(tm["log_size"]))
-    k1 = fused_mha_block(x, **{k: v for k, v in tm.items()
-                               if k not in ("bqkv", "log_size")})
+    # K1 on its own route with the attention on B8's body
+    # (attention_fwd.cuh): in bf16 at D 64 K1's route takes B5's sm90 body,
+    # whose p rounds at the running max, so bits agree only on the shared one
+    tmha = block_module()
+    route = tmha.mha_route(dtype, E, H, tensors=(x, tm["wqkv"], tm["wo"]))
+    st = torch.empty((2, B, H, T), dtype=torch.float32, device="cuda")
+    k1 = tmha._launch(x, tm["wqkv"], tm["wo"], tm["bo"], tm["g"], tm["b"],
+                      1e-5, extra=(st,),
+                      route=route & ~tmha.ROUTE_ATTN_SM90)[0]
     if not torch.equal(fused_mha_block_tome(x, **zero)[0], k1):
         raise AssertionError(f"B8 {info}: zero biases differ from K1")
     emit({"phase": "kernels", "check": "fused_mha_block_tome k_mean "
-          "bit-identical twice; zero biases bit-equal to K1", **info})
+          "bit-identical twice; zero biases bit-equal to K1 on B8's "
+          "attention body", **info})
+
+
+def block_module():
+    """``vitx_torch.kernels.mha_block`` (the package exports functions of
+    the blocks' names), for the earlier route's launcher."""
+    import importlib
+
+    return importlib.import_module("vitx_torch.kernels.mha_block")
+
+
+def tome_earlier(x, tm, eps=1e-5):
+    """B8 on the earlier route (gemm_kernel) through its launcher -> (out,
+    k_mean); counts nothing."""
+    k_mean = torch.empty((*x.shape[:2], tm["wqkv"].shape[3]), dtype=x.dtype,
+                         device=x.device)
+    out = block_module()._launch(
+        x, tm["wqkv"], tm["wo"], tm["bo"], tm["g"], tm["b"], eps,
+        "mha_block_tome", (tm["bqkv"], tm["log_size"], k_mean), route=0)[0]
+    return out, k_mean
+
+
+def check_blocks_sm90(B, T, E, H, errs: dict) -> None:
+    """K1 and K2 in bf16 on the sm90 route against their plain versions at
+    (B, T, E), every stash output: K1's out, q, k, v, o_all and, at D 64
+    where B5's sm90 body writes them, the attention's statistics (against
+    attention_stats_plain on the kernel's own q and k, STATS_TOL); K2's out
+    and hp in its three activations. Each call adds one to launches_sm90
+    and gives the same bits twice. The earlier route (gemm_kernel,
+    attention_fwd.cuh) on the same inputs through the launchers, against
+    the same plain versions."""
+    import importlib
+
+    from vitx_torch.kernels import (attention_stats_plain, fused_mha_block,
+                                    fused_mlp_block, mha_block_plain,
+                                    mlp_block_plain)
+
+    tmha = block_module()
+    tmlp = importlib.import_module("vitx_torch.kernels.mlp_block")
+    bf = torch.bfloat16
+    x, mha, mlp = block_inputs(B, T, E, H, 4 * E, bf, 70 + B, "cuda")
+    info = {"shape": [B, T, E], "heads": H, "dtype": str(bf)}
+    n90 = fused_mha_block.launches_sm90
+    got = tmha._forward(x, **mha, eps=1e-5)
+    torch.cuda.synchronize()
+    if fused_mha_block.launches_sm90 != n90 + 1:
+        raise AssertionError(f"K1 {info}: not on the sm90 route")
+    ref = mha_block_plain(x, **mha, stash=True)
+    check("kernels", "fused_mha_block sm90 route (out, q, k, v, o_all)",
+          got[:5], ref, BF16_TOL, errs, "fused_mha_block_sm90", **info)
+    if E // H == 64:
+        check("kernels", "fused_mha_block sm90 route: attention stats (m, "
+              "1/l)", tuple(got[5]), tuple(attention_stats_plain(got[1],
+                                                                 got[2])),
+              STATS_TOL, **info)
+    again = tmha._forward(x, **mha, eps=1e-5)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"K1 sm90 {info}: two calls differ")
+    st = torch.empty((2, B, H, T), dtype=torch.float32, device="cuda")
+    was = tmha._launch(x, **mha, eps=1e-5, extra=(st,), route=0)
+    check("kernels", "fused_mha_block earlier route (out, q, k, v, o_all)",
+          was[:5], ref, BF16_TOL, errs, "fused_mha_block", **info)
+    del got, again, was, ref
+    for act in ("gelu", "gelu_tanh", "relu"):
+        n90 = fused_mlp_block.launches_sm90
+        got = fused_mlp_block(x, **mlp, act=act, stash=True)
+        torch.cuda.synchronize()
+        if fused_mlp_block.launches_sm90 != n90 + 1:
+            raise AssertionError(f"K2 {info}: not on the sm90 route")
+        ref = mlp_block_plain(x, **mlp, act=act, stash=True)
+        check("kernels", "fused_mlp_block sm90 route (out, hp)", got, ref,
+              BF16_TOL, errs, "fused_mlp_block_sm90", act=act, **info)
+        again = fused_mlp_block(x, **mlp, act=act, stash=True)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"K2 sm90 {info} {act}: two calls differ")
+        was = tmlp._launch(x, **mlp, act=act, eps=1e-5, stash=True,
+                           route=0)[:2]
+        check("kernels", "fused_mlp_block earlier route (out, hp)", was, ref,
+              BF16_TOL, errs, "fused_mlp_block", act=act, **info)
+    emit({"phase": "kernels", "check": "K1 and K2 sm90 route twice bit for "
+          "bit, launches_sm90 one a call", **info})
 
 
 def check_block(B, T, E, H, dtype, tol, errs: dict, mha: bool = True):
@@ -664,9 +838,11 @@ def check_block(B, T, E, H, dtype, tol, errs: dict, mha: bool = True):
     for name, act, kern, plain in runs:
         out = kern()
         torch.cuda.synchronize()
+        # bf16 at these widths is the sm90 route: its row keeps the error
         check("kernels", name, out, plain(), tol,
               errs if dtype == torch.bfloat16 and act in (None, "gelu_tanh")
-              else None, name, act=act, batch=B, T=T, dtype=str(dtype))
+              else None, BLOCK_SM90[name], act=act, batch=B, T=T,
+              dtype=str(dtype))
 
 
 def wrappers() -> dict:
@@ -693,12 +869,36 @@ def launches_of(**per: int) -> dict:
     return {name: per.get(name, 0) for name in KERNELS}
 
 
+def gemm_sm90(cfg) -> tuple:
+    """(K1/B7/B8, K2): whether ``cfg``'s block kernels run their products on
+    the sm90 GEMM, by the wrappers' own route rules (``mha_route``,
+    ``mlp_route``: bf16, E and the MLP's width multiples of 8)."""
+    import importlib
+
+    mha = importlib.import_module("vitx_torch.kernels.mha_block")
+    mlp = importlib.import_module("vitx_torch.kernels.mlp_block")
+    dt, E = cfg.cdtype(), cfg.embed_dim
+    return (bool(mha.mha_route(dt, E, cfg.num_heads) & mha.ROUTE_GEMM_SM90),
+            bool(mlp.mlp_route(dt, E, cfg.mlp_dim)))
+
+
+def block_launches(cfg, **per: int) -> dict:
+    """``launches_of(**per)`` plus, for each block kernel in ``per``, its
+    sm90 row (BLOCK_SM90) with the same count where ``cfg`` takes the sm90
+    GEMM, else 0."""
+    mha90, mlp90 = gemm_sm90(cfg)
+    sm90_rows = {BLOCK_SM90[k]: n * (mlp90 if k == "fused_mlp_block"
+                                     else mha90)
+                 for k, n in per.items() if k in BLOCK_SM90}
+    return launches_of(**per, **sm90_rows)
+
+
 def forward_launches(cfg, forwards: int) -> dict:
     """Inference launches: one K1 (B8 with ``cfg.tome_r``) and one K2 per
-    block, nothing else."""
+    block, on the sm90 GEMM where ``cfg`` takes it, nothing else."""
     attn = "fused_mha_block_tome" if cfg.tome_r else "fused_mha_block"
-    return launches_of(**{attn: cfg.depth * forwards,
-                          "fused_mlp_block": cfg.depth * forwards})
+    return block_launches(cfg, **{attn: cfg.depth * forwards,
+                                  "fused_mlp_block": cfg.depth * forwards})
 
 
 def check(phase: str, what: str, out, ref, tol: float,
@@ -1020,7 +1220,7 @@ def expected_train_launches(cfg, n_leaves: int, steps: int,
     K2 off under grad (fuse_mlp "auto"); B12 once per leaf in the fused
     steps."""
     b3 = 2 * cfg.depth + (cfg.head_type == "reference") + int(cfg.final_norm)
-    return launches_of(fused_mha_block=cfg.depth * steps,
+    return block_launches(cfg, fused_mha_block=cfg.depth * steps,
                        attention_bwd=cfg.depth * steps,
                        attention_bwd_sm90=cfg.depth * steps * sm90(cfg),
                        ln_bwd=b3 * steps,
@@ -1312,8 +1512,9 @@ def expect_launches(what: str, got: dict, expect: dict) -> None:
 
 def rollout_launches(cfg, calls: int = 1) -> dict:
     """forward_with_rollout on the fused path: B7 and K2 in every block."""
-    return launches_of(fused_mha_block_with_mean_probs=cfg.depth * calls,
-                       fused_mlp_block=cfg.depth * calls)
+    return block_launches(
+        cfg, fused_mha_block_with_mean_probs=cfg.depth * calls,
+        fused_mlp_block=cfg.depth * calls)
 
 
 def gradcam_launches(cfg, calls: int = 1) -> dict:
@@ -1327,10 +1528,10 @@ def gradcam_launches(cfg, calls: int = 1) -> dict:
              "flash_attention_sm90": cfg.depth * calls * sm90(cfg)}
             if cfg.fuse_mha == "off" else
             {"fused_mha_block": cfg.depth * calls})
-    return launches_of(**attn, fused_mlp_block=cfg.depth * calls,
-                       attention_bwd=calls,
-                       attention_bwd_sm90=calls * sm90(cfg),
-                       ln_bwd=b3 * calls)
+    return block_launches(cfg, **attn, fused_mlp_block=cfg.depth * calls,
+                          attention_bwd=calls,
+                          attention_bwd_sm90=calls * sm90(cfg),
+                          ln_bwd=b3 * calls)
 
 
 def add_launches(*dicts) -> dict:
@@ -1420,8 +1621,8 @@ def phase_explain(cfg, params) -> dict:
     logits, probs = forward_with_attn(params, imgs, cfg)
     torch.cuda.synchronize()
     got = delta(snap)
-    expect_launches("(b) forward_with_attn", got, launches_of(
-        flash_attention_with_probs=cfg.depth, fused_mlp_block=cfg.depth))
+    expect_launches("(b) forward_with_attn", got, block_launches(
+        cfg, flash_attention_with_probs=cfg.depth, fused_mlp_block=cfg.depth))
     expected.append(got)
     snap = counts()
     ref_logits, ref_probs = forward_with_attn(params, imgs, ref_cfg)
@@ -1449,8 +1650,8 @@ def phase_explain(cfg, params) -> dict:
     logits = forward(params, imgs, off)
     torch.cuda.synchronize()
     got = delta(snap)
-    expect_launches("(b') forward, fuse_mha off", got, launches_of(
-        flash_attention=cfg.depth, flash_attention_sm90=cfg.depth,
+    expect_launches("(b') forward, fuse_mha off", got, block_launches(
+        cfg, flash_attention=cfg.depth, flash_attention_sm90=cfg.depth,
         fused_mlp_block=cfg.depth))
     expected.append(got)
     heat, cam_logits = grad_cam(params, imgs, off)
@@ -1707,20 +1908,44 @@ def phase_times(cfg, params, errs: dict, launches: dict) -> list:
     k1_bytes = 2 * rows * E * item + 4 * E * E * item + 3 * E * 4
     k2_flops = 4 * rows * E * M
     k2_bytes = 2 * rows * E * item + 2 * E * M * item + (M + 3 * E) * 4
-    return [
-        kernel_row("fused_mha_block",
-                   lambda: fused_mha_block(x, **mha, eps=eps),
-                   lambda: mha_block_plain(x, **mha, eps=eps), lib_mha,
-                   k1_flops, PEAK_BF16_FLOPS, k1_bytes, launches, errs,
-                   shape=[B, T, E]),
-        kernel_row("fused_mlp_block",
-                   lambda: fused_mlp_block(x, **mlp, act=cfg.mlp_act,
-                                           eps=eps),
-                   lambda: mlp_block_plain(x, **mlp, act=cfg.mlp_act,
-                                           eps=eps), lib_mlp,
-                   k2_flops, PEAK_BF16_FLOPS, k2_bytes, launches, errs,
-                   shape=[B, T, E]),
-    ]
+    import importlib
+
+    tmlp = importlib.import_module("vitx_torch.kernels.mlp_block")
+    st = torch.empty((2, B, H, T), dtype=torch.float32, device="cuda")
+    runs = (
+        ("fused_mha_block", lambda: fused_mha_block(x, **mha, eps=eps),
+         lambda: block_module()._launch(x, **mha, eps=eps, extra=(st,),
+                                        route=0),
+         lambda: mha_block_plain(x, **mha, eps=eps), lib_mha, k1_flops,
+         k1_bytes),
+        ("fused_mlp_block",
+         lambda: fused_mlp_block(x, **mlp, act=cfg.mlp_act, eps=eps),
+         lambda: tmlp._launch(x, **mlp, act=cfg.mlp_act, eps=eps,
+                              stash=False, route=0),
+         lambda: mlp_block_plain(x, **mlp, act=cfg.mlp_act, eps=eps),
+         lib_mlp, k2_flops, k2_bytes))
+    out = []
+    for name, kern, earlier, plain, lib, flops, nbytes in runs:
+        out += block_rows(name, kern, earlier, plain, lib, flops, nbytes,
+                          launches, errs, shape=[B, T, E])
+    return out
+
+
+def block_rows(name, kern, earlier, plain, lib, flops, nbytes, launches,
+               errs, **extra) -> list:
+    """A block kernel's two rows on the same bf16 inputs: ``name``, the
+    earlier route (gemm_kernel, attention_fwd.cuh) through its launcher,
+    which the wrapper keeps for fp32 and shapes TMA cannot take; and its
+    sm90 row, the wrapper's own call, with the earlier route's time beside
+    it as ``was_ms``."""
+    was = kernel_row(name, earlier, plain, lib, flops, PEAK_BF16_FLOPS,
+                     nbytes, launches, errs, timed="the earlier route on "
+                     "bf16 through its launcher; the wrapper sends these "
+                     "inputs to " + BLOCK_SM90[name], **extra)
+    now = kernel_row(BLOCK_SM90[name], kern, plain, lib, flops,
+                     PEAK_BF16_FLOPS, nbytes, launches, errs,
+                     was_ms=was["ms"], **extra)
+    return [was, now]
 
 
 def kernel_row(name, kern, plain, lib, flops, peak, nbytes, launches,
@@ -1865,10 +2090,10 @@ def phase_train_times(cfg, state, batch, step, launches: dict,
         per_step=train_launches.get("fused_adamw_", 0) // 5))
     # K1 and K2 with their stash at the step's shapes
     x, mha, mlp = block_inputs(B, T, E, H, cfg.mlp_dim, bf, 28, "cuda")
-    stash = {
-        "fused_mha_block": cuda_ms(
+    stash = {   # the wrappers' calls: the sm90 rows
+        "fused_mha_block_sm90": cuda_ms(
             lambda: fused_mha_block(x, **mha, stash=True), reps=10),
-        "fused_mlp_block": cuda_ms(
+        "fused_mlp_block_sm90": cuda_ms(
             lambda: fused_mlp_block(x, **mlp, act=cfg.mlp_act, stash=True),
             reps=10),
     }
@@ -1955,12 +2180,15 @@ def phase_explain_times(cfg, params, errs: dict, launches: dict) -> list:
                 + 4 * B * H * T * T * D)
     b7_bytes = 2 * rows_ * E * 2 + 4 * E * E * 2 + 3 * E * 4 + B * T * T * 4
     k1_ms = cuda_ms(lambda: fused_mha_block(x, **mha), reps=20)
-    rows.append(kernel_row(
+    probs = torch.empty((B, T, T), dtype=torch.float32, device="cuda")
+    rows += block_rows(
         "fused_mha_block_with_mean_probs",
         lambda: fused_mha_block_with_mean_probs(x, **mha),
+        lambda: block_module()._launch(x, **mha, name="mha_block_mean_probs",
+                                       eps=1e-5, extra=(probs,), route=0),
         lambda: mha_block_mean_probs_plain(x, **mha), None, b7_flops,
-        PEAK_BF16_FLOPS, b7_bytes, launches, errs, shape=[B, T, E],
-        library_note=NO_LIBRARY, k1_ms_same_shape=k1_ms))
+        b7_bytes, launches, errs, shape=[B, T, E], library_note=NO_LIBRARY,
+        k1_ms_same_shape=k1_ms)
     return rows
 
 
@@ -2058,7 +2286,7 @@ def phase_tome(cfg, params, large, large_params) -> dict:
     torch.cuda.synchronize()
     got = delta(snap)
     expect_launches("(b) lossless", got, add_launches(
-        forward_launches(c32, 1), forward_launches(cfg, 1)))
+        forward_launches(c32, 1), forward_launches(c32.replace(tome_r=0), 1)))
     expected.append(got)
     err = card_rel_err(merged, full)
     emit({"phase": "tome", "part": "b: lossless, base16 fp32 b2, constant "
@@ -2096,8 +2324,9 @@ def phase_tome(cfg, params, large, large_params) -> dict:
     return add_launches(total, phase_serve(base13, params, phase="tome"))
 
 
-def tome_kernel_row(base, large, errs: dict, launches: dict) -> dict:
-    """B8's row, bf16: its numbers at base16's first r=13 block (256, 197),
+def tome_kernel_rows(base, large, errs: dict, launches: dict) -> list:
+    """B8's rows (``block_rows``: the earlier route, and the sm90 one), bf16:
+    their numbers at base16's first r=13 block (256, 197),
     and under ``shapes`` those at (256, 197), the last block (256, 54) and
     large16_384's T 577 and 416 at batch 32, where vitx takes B9. The
     library call: F.layer_norm, F.linear with the QKV bias, SDPA with
@@ -2128,15 +2357,18 @@ def tome_kernel_row(base, large, errs: dict, launches: dict) -> dict:
         flops = 2 * B * T * E * 4 * E + 4 * B * H * T * T * D
         nbytes = (2 * B * T * E * 2 + 4 * E * E * 2 + 6 * E * 4 + B * T * 4
                   + B * T * D * 2)
-        rows.append(kernel_row(
+        rows.append(block_rows(
             "fused_mha_block_tome",
             lambda: fused_mha_block_tome(x, **tm, eps=eps),
+            lambda: tome_earlier(x, tm, eps),
             lambda: mha_block_tome_plain(x, **tm, eps=eps), lib, flops,
-            PEAK_BF16_FLOPS, nbytes, launches, errs, shape=[B, T, E]))
+            nbytes, launches, errs, shape=[B, T, E]))
         del x, tm
     keep = ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-            "tflops")
-    return dict(rows[0], shapes=[{k: r[k] for k in keep} for r in rows])
+            "tflops", "was_ms")
+    return [dict(shapes_[0], shapes=[{k: r[k] for k in keep if k in r}
+                                     for r in shapes_])
+            for shapes_ in zip(*rows)]
 
 
 def phase_tome_times(cfg, params, large, large_params, errs: dict,
@@ -2144,7 +2376,7 @@ def phase_tome_times(cfg, params, large, large_params, errs: dict,
     """The ToMe forward at bench configs 6 and 8's operating points
     (base16 b256 at r=13 and (35, 34); large16_384 b32 at r=23 and
     (65, 64 x 6)) in img/s, a profiler split at r=13 and r=23, and B8's
-    row (``tome_kernel_row``)."""
+    rows (``tome_kernel_rows``)."""
     from vitx_torch import forward
 
     gen = torch.Generator("cuda").manual_seed(15)
@@ -2164,7 +2396,7 @@ def phase_tome_times(cfg, params, large, large_params, errs: dict,
             profile_call(what, lambda: forward(p, imgs, c), top=16)
         del imgs
     torch.cuda.empty_cache()
-    return [tome_kernel_row(cfg, large, errs, launches)]
+    return tome_kernel_rows(cfg, large, errs, launches)
 
 
 def phase_finetune_times(cfg, state, batch, step, launches: dict,

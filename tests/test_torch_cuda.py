@@ -14,6 +14,8 @@ probabilities in bf16: 1e-3 -- kernel and plain read the same bf16 q and
 k and differ only in the fp32 order of the logits' sums.
 """
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -35,6 +37,9 @@ from vitx_torch.kernels import (adamw_plain, attention_bwd,
                                 mlp_block_plain)
 from vitx_torch.nn.vit import params_to
 from vitx_torch.train import step as tstep
+
+tmha = importlib.import_module("vitx_torch.kernels.mha_block")
+tmlp = importlib.import_module("vitx_torch.kernels.mlp_block")
 
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
@@ -182,7 +187,8 @@ def test_flash_attention_matches_plain(cuda, dims, dtype):
                                   (3, 65, 64, 4)])
 def test_mha_mean_probs_matches_plain(cuda, dims, dtype):
     """B7 against its plain version at base16, large16_384 and tiny
-    shapes; repeated calls agree bit for bit; its out equals K1's."""
+    shapes; repeated calls agree bit for bit; its out equals K1's on the
+    attention body they share (``k1_on_shared_attention``)."""
     mha, _ = block_args(*dims, dtype, cuda)
     n, n1 = fused_mha_block_with_mean_probs.launches, fused_mha_block.launches
     out, probs = fused_mha_block_with_mean_probs(*mha)
@@ -195,7 +201,20 @@ def test_mha_mean_probs_matches_plain(cuda, dims, dtype):
     assert float((probs.double().sum(-1) - 1).abs().max()) <= 1e-5
     again = fused_mha_block_with_mean_probs(*mha)
     assert torch.equal(again[1], probs) and torch.equal(again[0], out)
-    assert torch.equal(fused_mha_block(*mha), out)
+    assert torch.equal(k1_on_shared_attention(*mha), out)
+
+
+def k1_on_shared_attention(x, wqkv, wo, bo, g, b):
+    """K1's out on its own route but with the attention on
+    ``attention_fwd.cuh``, the body B7 and B8 run: in bf16 at D 64 K1's
+    own route takes B5's sm90 body instead, whose p is rounded after
+    exp(s - running max), so bit equality holds only on the shared body."""
+    B, T, E = x.shape
+    H = wqkv.shape[2]
+    route = tmha.mha_route(x.dtype, E, H, tensors=(x, wqkv, wo))
+    st = torch.empty((2, B, H, T), dtype=torch.float32, device=x.device)
+    return tmha._launch(x, wqkv, wo, bo, g, b, 1e-5, extra=(st,),
+                        route=route & ~tmha.ROUTE_ATTN_SM90)[0]
 
 
 def seeded(shape, seed, scale=1.0, shift=0.0, dtype="float32",
@@ -355,10 +374,11 @@ def test_tome_block_matches_plain(cuda, T, dtype, bias):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("dims", [(2, 197, 768, 12), (3, 65, 64, 4)])
 def test_tome_block_zero_biases_equal_k1(cuda, dims, dtype):
-    """With zero bqkv and log_size, B8's out is K1's bit for bit."""
+    """With zero bqkv and log_size, B8's out is K1's bit for bit, on the
+    attention body they share (``k1_on_shared_attention``)."""
     x, wqkv, bqkv, wo, bo, g, b, ls = tome_args(*dims, dtype, cuda, False)
     out, _ = fused_mha_block_tome(x, wqkv, bqkv, wo, bo, g, b, ls)
-    assert torch.equal(out, fused_mha_block(x, wqkv, wo, bo, g, b))
+    assert torch.equal(out, k1_on_shared_attention(x, wqkv, wo, bo, g, b))
 
 
 @pytest.mark.cuda
@@ -615,3 +635,123 @@ def test_finetune_step_on_card_matches_cpu(cuda, tmp_path):
         optimizer=opt, device="cpu")
     for k in ("loss", "grad_norm"):
         assert rel_err(m_card[k], m_host[k]) <= 1e-4, k
+
+
+# --- K1, K2, B7 and B8 on the sm90 GEMM (csrc/gemm_sm90.cuh), K1's
+# attention on B5's sm90 body (csrc/attention_fwd_sm90.cuh) ----------------
+
+# base16 at batch 8 and at a ragged M (3 x 197 rows), tiny's widths (QKV N
+# 192, the MLP's 256), large16_384's (E 1024, M 4096) and an odd head width
+# on the sm90 GEMM (E 72, D 9: the QKV scatter's scalar stores)
+BLOCK_SM90_DIMS = [(8, 197, 768, 12), (3, 197, 768, 12), (2, 65, 64, 4),
+                   (2, 577, 1024, 16), (1, 40, 72, 8)]
+# the attention's row statistics against attention_stats_plain on the
+# kernel's own q and k: the same bf16 values in fp32, summed in another
+# order (chip_smoke.py STATS_TOL)
+STATS_TOL = 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", BLOCK_SM90_DIMS)
+def test_k1_sm90_matches_plain(cuda, dims):
+    """K1 in bf16 on its sm90 route against its plain version, every stash
+    output included (q, k, v, o_all and the attention's statistics, which
+    the sm90 body writes at D 64); launches_sm90 counts; two calls equal
+    bit for bit."""
+    B, T, E, H = dims
+    mha, _ = block_args(*dims, "bfloat16", cuda)
+    assert tmha.mha_route(torch.bfloat16, E, H) & tmha.ROUTE_GEMM_SM90
+    n, n90 = fused_mha_block.launches, fused_mha_block.launches_sm90
+    got = tmha._forward(*mha, 1e-5)
+    torch.cuda.synchronize()
+    assert (fused_mha_block.launches, fused_mha_block.launches_sm90) == (
+        n + 1, n90 + 1)
+    ref = mha_block_plain(*mha, stash=True)
+    for a, r in zip(got[:5], ref):
+        assert a.shape == r.shape and bool(torch.isfinite(a).all())
+        assert rel_err(a, r) <= TOL["bfloat16"]
+    want = attention_stats_plain(got[1], got[2])   # from the kernel's q, k
+    assert rel_err(got[5][0], want[0]) <= STATS_TOL
+    assert rel_err(got[5][1], want[1]) <= STATS_TOL
+    again = tmha._forward(*mha, 1e-5)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", BLOCK_SM90_DIMS)
+def test_k2_sm90_matches_plain(cuda, dims):
+    """K2 in bf16 on the sm90 GEMM in its three activations against its
+    plain version, out and the stash hp; launches_sm90 counts; two calls
+    equal bit for bit."""
+    _, mlp = block_args(*dims, "bfloat16", cuda)
+    for act in ("gelu", "gelu_tanh", "relu"):
+        n90 = fused_mlp_block.launches_sm90
+        got = fused_mlp_block(*mlp, act=act, stash=True)
+        torch.cuda.synchronize()
+        assert fused_mlp_block.launches_sm90 == n90 + 1
+        for a, r in zip(got, mlp_block_plain(*mlp, act=act, stash=True)):
+            assert a.shape == r.shape and rel_err(a, r) <= TOL["bfloat16"]
+        again = fused_mlp_block(*mlp, act=act, stash=True)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", [(2, 197, 768, 12), (2, 577, 1024, 16),
+                                  (3, 41, 64, 4)])
+def test_b7_b8_on_the_sm90_gemm_match_plain(cuda, dims):
+    """B7 and B8 in bf16: their projections on the sm90 GEMM, their
+    attention on attention_fwd.cuh (head-mean probabilities, key bias)."""
+    B, T, E, H = dims
+    mha, _ = block_args(*dims, "bfloat16", cuda)
+    n7 = fused_mha_block_with_mean_probs.launches_sm90
+    out = fused_mha_block_with_mean_probs(*mha)
+    torch.cuda.synchronize()
+    assert fused_mha_block_with_mean_probs.launches_sm90 == n7 + 1
+    for a, r in zip(out, mha_block_mean_probs_plain(*mha)):
+        assert rel_err(a, r) <= TOL["bfloat16"]
+    bqkv = seeded((3, H, E // H), 41, 0.1, device=cuda)
+    log_size = seeded((B, T), 42, 0.5, 1.0, device=cuda)
+    args = (mha[0], mha[1], bqkv, *mha[2:], log_size)
+    n8 = fused_mha_block_tome.launches_sm90
+    out = fused_mha_block_tome(*args)
+    torch.cuda.synchronize()
+    assert fused_mha_block_tome.launches_sm90 == n8 + 1
+    for a, r in zip(out, mha_block_tome_plain(*args)):
+        assert rel_err(a, r) <= TOL["bfloat16"]
+
+
+@pytest.mark.cuda
+def test_block_routes_are_counted_or_refused(cuda):
+    """fp32 and a bf16 width TMA cannot take (E 36) run the earlier
+    kernels, counted in launches and not in launches_sm90; a route the
+    inputs cannot take is refused by the C entry, before any launch: the
+    sm90 GEMM in fp32, K1's sm90 attention at D 16 or for B7's
+    probabilities."""
+    for dims, dtype in (((2, 50, 768, 12), "float32"),
+                        ((2, 50, 36, 4), "bfloat16")):
+        mha, mlp = block_args(*dims, dtype, cuda)
+        counts = [(f.launches, f.launches_sm90)
+                  for f in (fused_mha_block, fused_mlp_block)]
+        fused_mha_block(*mha)
+        fused_mlp_block(*mlp)
+        torch.cuda.synchronize()
+        assert [(f.launches, f.launches_sm90) for f in (
+            fused_mha_block, fused_mlp_block)] == [(a + 1, b)
+                                                   for a, b in counts]
+    def stats(H):   # K1's statistics output
+        return (torch.empty((2, 2, H, 50), device=cuda),)
+
+    mha, mlp = block_args(2, 50, 768, 12, "float32", cuda)
+    with pytest.raises(RuntimeError, match="refused the route"):
+        tmha._launch(*mha, 1e-5, extra=stats(12),
+                     route=tmha.ROUTE_GEMM_SM90)
+    with pytest.raises(RuntimeError, match="refused the route"):
+        tmlp._launch(*mlp, "gelu", 1e-5, False, route=tmlp.ROUTE_SM90)
+    mha, _ = block_args(2, 50, 64, 4, "bfloat16", cuda)
+    with pytest.raises(RuntimeError, match="refused the route"):
+        tmha._launch(*mha, 1e-5, extra=stats(4), route=tmha.ROUTE_ATTN_SM90)
+    mha, _ = block_args(2, 50, 768, 12, "bfloat16", cuda)
+    probs = torch.empty((2, 50, 50), device=cuda)
+    with pytest.raises(RuntimeError, match="refused the route"):
+        tmha._launch(*mha, 1e-5, "mha_block_mean_probs", (probs,),
+                     route=tmha.ROUTE_GEMM_SM90 | tmha.ROUTE_ATTN_SM90)

@@ -98,14 +98,17 @@ def test_mlp_plain_matches_pallas(shape, act, dtype):
 
 
 def test_cpu_wrappers_run_plain_and_count_no_launch():
+    """bf16 CPU tensors of a shape the sm90 route would take on the card
+    run the plain versions and count nothing, on either route."""
     arrs = block_inputs(*SHAPES["small"])
-    n1, n2 = fused_mha_block.launches, fused_mlp_block.launches
+    wrappers = (fused_mha_block, fused_mlp_block)
+    before = [(f.launches, f.launches_sm90) for f in wrappers]
     args = _as(arrs, MHA, "bfloat16", "torch")
     assert torch.equal(fused_mha_block(*args), mha_block_plain(*args))
     args = _as(arrs, MLP, "bfloat16", "torch")
     assert torch.equal(fused_mlp_block(*args, act="relu"),
                        mlp_block_plain(*args, act="relu"))
-    assert (fused_mha_block.launches, fused_mlp_block.launches) == (n1, n2)
+    assert [(f.launches, f.launches_sm90) for f in wrappers] == before
 
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "vector", "contiguity"])

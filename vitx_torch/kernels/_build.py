@@ -36,18 +36,16 @@ _F = ctypes.c_float
 # each C entry point: its source (csrc/<source>.cu), symbol and argument
 # types
 SIGNATURES = {
+    # (dtype, route, ...): the route bits of csrc/mha_block.cu's Route
     "mha_block": ("mha_block", "vitx_mha_block",
-                  [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                   _I, _I, _I, _I, _F, _P]),
+                  [_I, _I] + [_P] * 11 + [_I, _I, _I, _I, _F, _P]),
     "mha_block_mean_probs": ("mha_block", "vitx_mha_block_mean_probs",
-                             [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                              _P, _I, _I, _I, _I, _F, _P]),
+                             [_I, _I] + [_P] * 11 + [_I, _I, _I, _I, _F,
+                                                     _P]),
     "mha_block_tome": ("mha_block", "vitx_mha_block_tome",
-                       [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                        _P, _P, _P, _I, _I, _I, _I, _F, _P]),
+                       [_I, _I] + [_P] * 13 + [_I, _I, _I, _I, _F, _P]),
     "mlp_block": ("mlp_block", "vitx_mlp_block",
-                  [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                   _I, _I, _I, _I, _F, _P]),
+                  [_I, _I] + [_P] * 11 + [_I, _I, _I, _I, _F, _P]),
     "flash_attention_fwd": ("flash_attention_fwd", "vitx_attention_fwd",
                             [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _P]),
@@ -152,8 +150,36 @@ def entry(name: str):
         return fn
 
 
+# the entry points' own error codes (csrc/sm90.cuh), beyond cudaError_t's
+ERR_NO_ENCODE, ERR_TENSOR_MAP, ERR_ROUTE = 10000, 20000, 30000
+
+
+GEMM_SM90_MAX_LN_K = 4096   # csrc/gemm_sm90.cuh G9_MAX_LN_K
+
+
+def gemm_sm90(dtype, dims, tensors=(), ln_k: int = 0) -> bool:
+    """Whether a product takes ``csrc/gemm_sm90.cuh`` (wgmma fed by TMA):
+    bf16, every K and N in ``dims`` a multiple of 8 (16-byte rows, what
+    TMA addresses), the operands ``tensors`` 16-byte aligned, and the K of
+    a LayerNorm prologue, ``ln_k``, at most ``GEMM_SM90_MAX_LN_K`` (its g
+    and b sit in shared memory). Otherwise it takes ``common.cuh``'s
+    ``gemm_kernel``, which fp32 needs."""
+    return (dtype == torch.bfloat16 and all(d % 8 == 0 for d in dims)
+            and all(t.data_ptr() % 16 == 0 for t in tensors)
+            and ln_k <= GEMM_SM90_MAX_LN_K)
+
+
 def check(name: str, err: int) -> None:
-    """Raise if a kernel's C entry point reported a CUDA error."""
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t "
-                           f"{err}")
+    """Raise if a kernel's C entry point reported an error."""
+    if err == 0:
+        return
+    if err == ERR_ROUTE:
+        raise RuntimeError(f"{name}: the kernel refused the route it was "
+                           f"asked for (the inputs cannot take it)")
+    if err == ERR_NO_ENCODE:
+        raise RuntimeError(f"{name}: cuTensorMapEncodeTiled not found in "
+                           f"the loaded libcuda")
+    if ERR_TENSOR_MAP <= err < ERR_ROUTE:
+        raise RuntimeError(f"{name}: cuTensorMapEncodeTiled failed with "
+                           f"CUresult {err - ERR_TENSOR_MAP}")
+    raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")

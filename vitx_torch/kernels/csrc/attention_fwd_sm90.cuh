@@ -1,0 +1,219 @@
+// The attention forward on Hopper (sm_90a): wgmma, TMA and an online
+// softmax, bf16 at head width 64. One body, two callers: B5 without
+// probabilities (flash_attention_sm90.cu) and K1's attention
+// (mha_block.cu), each of which builds its own copy of it.
+//
+// Over q, k, v (B, H, T, 64) bf16 views, q unscaled -> o (b, h, t, d) at
+// b*o_sb + h*o_sh + t*o_st + d (B5: (B, H, T, 64); K1: straight into
+// o_all (B, T, E)) and, for the backward, the row statistics stats (2, B,
+// H, T) fp32: the row max m of the logits and linv = 1 / l, what
+// attention_bwd_sm90.cu reads.
+//
+// The function, per (b, h) and query row, over 64-key tiles j:
+//   s_j = qs k_j^T (fp32), qs = cast(q * scale)
+//   m_j = max(m_{j-1}, rowmax(s_j)), alpha = exp(m_{j-1} - m_j)
+//   p_j = exp(s_j - m_j), l = l * alpha + rowsum(p_j)        (fp32)
+//   acc = acc * alpha + cast(p_j) v_j                         (fp32)
+//   o = cast(acc / l), the division after the product as in vitx.
+// At D = 64 the scale is 2^-3, so cast(q * scale) is q * scale exactly and
+// s = scale * (q k^T) exactly up to the order of the fp32 sum: the tile is
+// used as it arrives. One rounding point moves against vitx
+// (flash_attention.py:102-157, mha_block.py:74-84): p is cast to bf16
+// after exp(s - m_j), the running max, rather than exp(s - m), the final
+// one; the two differ only where m_j < m, by the rescale of an
+// already-rounded value (an ulp of bf16 at most, then weighted by alpha <
+// 1). Keys past T are masked to -inf in the kernel: TMA fills them with
+// zeros, which are logits of 0.
+//
+// The layout (measured on the H100, PERF.md):
+//   - one block per (b*h, 64 queries): one consumer warpgroup and one
+//     producer warp, under 128 registers a thread, so three blocks share
+//     an SM and one block's softmax runs while another's products do
+//     (faster than two consumer warpgroups a block, and than issuing
+//     tile j's s before tile j-1's p v inside a warpgroup);
+//   - the producer loads the q tile once, then keeps the k and v tiles of a
+//     two-stage ring in flight by TMA, signalling an mbarrier per stage;
+//   - the consumer warpgroup runs s = q k^T as 4 wgmma m64n64k16 from
+//     shared memory, keeps s, the running max and sum and the o
+//     accumulator in registers, turns p into the bf16 A operand of the
+//     p v wgmma without a shared-memory round trip, and releases the stage.
+
+#pragma once
+
+#include "common.cuh"
+#include "sm90.cuh"
+
+namespace vitx {
+
+constexpr int FWD_NS = 2;   // stages of the k/v ring
+constexpr int FWD_THREADS = 128 + 32;   // a consumer warpgroup and a producer warp
+
+struct FwdArgs {
+  bf16* o;                  // (b, h, t, d) at b*o_sb + h*o_sh + t*o_st + d
+  long long o_sb, o_sh, o_st;
+  float* stats;             // null, or (2, B*H*T): m | 1/l
+  int H, T;
+  float scale;
+};
+
+template <int NS> struct FwdSmem {
+  static constexpr int Q = 0;                                  // a (64, 64) tile
+  static constexpr int K = Q + sm90::TILE_BYTES;               // NS tiles
+  static constexpr int V = K + NS * sm90::TILE_BYTES;          // NS tiles
+  static constexpr int BAR = V + NS * sm90::TILE_BYTES;        // q, full[NS], empty[NS]
+  static constexpr int BYTES = BAR + 8 * (1 + 2 * NS) + 1024;  // + the base's alignment
+};
+
+template <int NS>
+__global__ void __launch_bounds__(FWD_THREADS, 1)
+attention_fwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv, const FwdArgs a) {
+  using S = FwdSmem<NS>;
+  using namespace sm90;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = sm90::align_1024(smem_raw);
+  bf16* Qs = reinterpret_cast<bf16*>(smem + S::Q);
+  bf16* Ks = reinterpret_cast<bf16*>(smem + S::K);
+  bf16* Vs = reinterpret_cast<bf16*>(smem + S::V);
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(smem + S::BAR);
+  uint64_t* full = qbar + 1;
+  uint64_t* empty = full + NS;
+  constexpr int TE = TILE_BYTES / 2;   // elements of a tile
+
+  const int T = a.T, H = a.H;
+  const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
+  const int q0 = blockIdx.x * 64;
+  const int nkt = (T + 63) / 64;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);   // the consumer warps
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == 4) {   // the producer
+    if (lane == 0) {
+      mbar_arrive_expect_tx(qbar, TILE_BYTES);
+      tma_load_tile(Qs, &tq, qbar, q0, h, b);
+      for (int j = 0; j < nkt; ++j) {
+        const int s = j % NS;
+        if (j >= NS) mbar_wait(&empty[s], (j / NS - 1) & 1);
+        mbar_arrive_expect_tx(&full[s], 2 * TILE_BYTES);
+        tma_load_tile(Ks + s * TE, &tk, &full[s], 64 * j, h, b);
+        tma_load_tile(Vs + s * TE, &tv, &full[s], 64 * j, h, b);
+      }
+    }
+    return;
+  }
+
+  mbar_wait(qbar, 0);
+  const uint64_t dq = desc_sw128(Qs);
+
+  float o[32], sc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = sc[i] = 0.0f;
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.0f, 0.0f};
+  const int cbase = 2 * (lane & 3);
+
+  for (int j = 0; j < nkt; ++j) {
+    const int s = j % NS;
+    mbar_wait(&full[s], (j / NS) & 1);
+    const uint64_t dk = desc_sw128(Ks + s * TE);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss(sc, desc_kstep(dq, kk), desc_kstep(dk, kk), kk);
+    wg_commit();
+    wg_wait<0>();
+    fence_acc(sc);
+
+    // the fp32 logits, keys past T at -inf; the new running max
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int col = 64 * j + 8 * (i >> 2) + cbase + (i & 1);
+      sc[i] = col < T ? sc[i] * a.scale : -CUDART_INF_F;
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      alpha[r] = exp2f((m[r] - mx[r]) * LOG2E);   // 0 on the first tile
+      m[r] = mx[r];
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1;
+      sc[i] = exp2f((sc[i] - m[r]) * LOG2E);
+      l[r] += sc[i];
+      o[i] *= alpha[r];
+    }
+    uint32_t pa[4][4];
+    acc_to_a(sc, pa);
+
+    const uint64_t dv = desc_sw128(Vs + s * TE);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs(o, pa[kk], desc_rowstep(dv, kk));
+    wg_commit();
+    wg_wait<0>();
+    fence_acc(o);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  const int row0 = q0 + 16 * warp + (lane >> 2);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int t = row0 + 8 * r;
+    if (t >= T) continue;
+    bf16* dst = a.o + b * a.o_sb + h * a.o_sh + (long long)t * a.o_st;
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb) {
+      const float v0 = o[4 * nb + 2 * r] / l[r], v1 = o[4 * nb + 2 * r + 1] / l[r];
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * nb + cbase) = __floats2bfloat162_rn(v0, v1);
+    }
+    if (a.stats != nullptr && (lane & 3) == 0) {
+      const size_t n = (size_t)gridDim.y * T, i = (size_t)bh * T + t;
+      a.stats[i] = m[r];
+      a.stats[n + i] = 1.0f / l[r];
+    }
+  }
+}
+
+// Launch the body over q, k, v bf16 (B, H, T, 64) views at qkv[0..2],
+// element strides strides[3*i .. 3*i+2] = (sb, sh, st) of view i, each a
+// multiple of 8, the last dim contiguous, pointers 16-byte aligned; a.o,
+// its strides and a.stats as FwdArgs says. Returns 0, the CUDA error of
+// the launch, or a tensor-map code of sm90.cuh.
+inline int launch_attention_fwd_sm90(const void* const qkv[3], const long long* strides,
+                                     const FwdArgs& a, int B, cudaStream_t s) {
+  CUtensorMap maps[3];
+  for (int i = 0; i < 3; ++i) {
+    const int err = sm90::make_tile_map(&maps[i], qkv[i], B, a.H, a.T, strides[3 * i],
+                                        strides[3 * i + 1], strides[3 * i + 2]);
+    if (err != 0) return err;
+  }
+  using Sm = FwdSmem<FWD_NS>;
+  auto kern = attention_fwd_sm90<FWD_NS>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Sm::BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((a.T + 63) / 64, B * a.H);
+  kern<<<grid, FWD_THREADS, Sm::BYTES, s>>>(maps[0], maps[1], maps[2], a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace vitx

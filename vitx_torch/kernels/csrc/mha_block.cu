@@ -40,26 +40,43 @@
 // 227 KB of shared memory, so here the products are tiled and the kernel
 // is four launches:
 //   1. ln_stats_kernel: fp32 mean / rstd per row of x;
-//   2. gemm_kernel<EPI_QKV>: LN applied while the A tile is staged, then
-//      x_ln @ Wqkv with fp32 accumulation; q, k, v are cast to the compute
-//      dtype and scattered, unscaled, into (3, B, H, T, D) planes;
-//   3. attention_kernel (attention_fwd.cuh): one block per (b*h, 64
-//      queries) -- per (b, 64 queries) over the heads in order for B7 --
-//      q scaled by 1/sqrt(D) in fp32 and cast again as it is staged; the
-//      rounding points of mha_block.py:74-84 exactly;
-//   4. gemm_kernel<EPI_BIAS>: o_all @ Wo in fp32 plus bo in fp32, one cast;
+//   2. the QKV GEMM with the LN prologue: LN(x), rounded, @ Wqkv with fp32
+//      accumulation; q, k, v are cast to the compute dtype and scattered,
+//      unscaled, into (3, B, H, T, D) planes;
+//   3. the attention, per (b*h, 64 queries) -- per (b, 64 queries) over
+//      the heads in order for B7 -- with the rounding points of
+//      mha_block.py:74-84 (one moved, on the sm90 route: see below);
+//   4. the out-projection GEMM: o_all @ Wo in fp32 plus bo in fp32, one
+//      cast;
 //   5. (B8 only) head_mean_kernel: k_mean = cast(sum_h k_h / H), the fp32
 //      sum over the heads of the k plane that launch 2 wrote, in head order
 //      by one thread per element (no atomics: the same bits every call).
+// Routes, chosen by the caller and passed as ``route`` (an entry refuses
+// one the inputs cannot take with sm90::ERR_ROUTE, before any launch):
+//   - ROUTE_GEMM_SM90 (bf16, E a multiple of 8 and at most 4096, x and
+//     the weights 16-byte aligned): launches 2 and 4 on gemm_sm90.cuh --
+//     wgmma fed by TMA through a ring of stages, the LN applied to the A
+//     fragments in registers, persistent blocks; otherwise common.cuh's
+//     gemm_kernel (mma.sync, register-staged loads), which fp32 needs;
+//   - ROUTE_ATTN_SM90 (K1 only: bf16 at D = 64, no probabilities, no
+//     ToMe biases): launch 3 on B5's sm90 body (attention_fwd_sm90.cuh):
+//     one pass over the keys with an online softmax on wgmma, q, k and v
+//     read by TMA from launch 2's planes, o written straight into o_all
+//     and the row statistics into K1's stash. Its p is rounded after
+//     exp(s - running max) rather than exp(s - final max), the one
+//     rounding point that moves against _kernel, as it does for B5.
+//     Otherwise attention_fwd.cuh (mma.sync, two passes over the keys),
+//     which B7's head mean, B8's key bias, fp32 and other D take.
 // B8 is bound as K1 is: the projections' operations; k_mean reads the k
 // plane once more (B*T*E elements) and writes B*T*D, and the per-key bias
 // adds T floats per 64-key chunk to each attention block.
 // The intermediates qkv (3*B*T*E) and o_all (B*T*E) make a round trip
-// through device memory; keeping them on chip is the first thing a faster
-// version removes. The products use mma.sync through nvcuda::wmma; wgmma,
-// TMA and warp specialisation are not used yet.
+// through device memory; keeping them on chip is the next thing a faster
+// version removes.
 
 #include "attention_fwd.cuh"
+#include "attention_fwd_sm90.cuh"
+#include "gemm_sm90.cuh"
 
 namespace vitx {
 
@@ -76,17 +93,27 @@ __global__ void head_mean_kernel(const T* __restrict__ k, T* __restrict__ km, in
   km[i] = from_f<T>(sum / (float)H);
 }
 
+enum Route { ROUTE_GEMM_SM90 = 1, ROUTE_ATTN_SM90 = 2 };
+
 // MODE: the attention's probabilities (K1, B7); TOME: B8's QKV bias, key
-// bias and k_mean (with PROBS_NONE).
+// bias and k_mean (with PROBS_NONE). route: the Route bits the caller
+// chose; ERR_ROUTE, before any launch, for one the inputs cannot take.
 template <typename T, int MODE, bool TOME>
-cudaError_t run_mha(const void* x, const void* wqkv, const void* wo, const float* bo,
-                    const float* g, const float* b, void* out, void* qkv, void* o_all,
-                    float* stats, float* attn_stats, float* probs, const float* qkv_bias,
-                    const float* key_bias, void* k_mean, int B, int T_, int E, int H,
-                    float eps, cudaStream_t s) {
+int run_mha(int route, const void* x, const void* wqkv, const void* wo, const float* bo,
+            const float* g, const float* b, void* out, void* qkv, void* o_all, float* stats,
+            float* attn_stats, float* probs, const float* qkv_bias, const float* key_bias,
+            void* k_mean, int B, int T_, int E, int H, float eps, cudaStream_t s) {
   const int M = B * T_, D = E / H;
-  cudaError_t err = launch_ln_stats<T>(static_cast<const T*>(x), stats, M, E, eps, s);
-  if (err != cudaSuccess) return err;
+  constexpr bool BF16 = std::is_same<T, bf16>::value;
+  const bool gemm90 = route & ROUTE_GEMM_SM90, attn90 = route & ROUTE_ATTN_SM90;
+  if (route & ~(ROUTE_GEMM_SM90 | ROUTE_ATTN_SM90)) return sm90::ERR_ROUTE;
+  if (gemm90 && !(BF16 && gemm_sm90_ok(x, wqkv, E, 3 * E, true) &&
+                  gemm_sm90_ok(o_all, wo, E, E, false)))
+    return sm90::ERR_ROUTE;
+  if (attn90 && !(BF16 && MODE == PROBS_NONE && !TOME && D == 64)) return sm90::ERR_ROUTE;
+
+  int err = static_cast<int>(launch_ln_stats<T>(static_cast<const T*>(x), stats, M, E, eps, s));
+  if (err != 0) return err;
 
   GemmArgs qa = {};
   qa.a = x; qa.w = wqkv; qa.M = M; qa.N = 3 * E; qa.K = E;
@@ -94,102 +121,112 @@ cudaError_t run_mha(const void* x, const void* wqkv, const void* wo, const float
   qa.out = qkv; qa.T = T_; qa.H = H; qa.D = D;
   if constexpr (TOME) {
     qa.bias = qkv_bias;
-    err = launch_gemm<T, EPI_QKV_BIAS, true>(qa, s);
+    err = gemm_route<T, EPI_QKV_BIAS, true>(qa, gemm90, s);
   } else {
-    err = launch_gemm<T, EPI_QKV, true>(qa, s);
+    err = gemm_route<T, EPI_QKV, true>(qa, gemm90, s);
   }
-  if (err != cudaSuccess) return err;
+  if (err != 0) return err;
 
   const size_t plane = (size_t)B * H * T_ * D;
-  AttnArgs aa = {};
-  aa.q = qkv;
-  aa.k = static_cast<const T*>(qkv) + plane;
-  aa.v = static_cast<const T*>(qkv) + 2 * plane;
-  aa.o = o_all;                       // (B, T, E): head h at columns h*D
-  aa.o_sb = (long long)T_ * E; aa.o_sh = D; aa.o_st = E;
-  aa.probs = probs;
-  aa.key_bias = key_bias;
-  aa.stats = attn_stats;
-  aa.B = B; aa.H = H; aa.T = T_; aa.D = D;
-  aa.q_scale = static_cast<float>(1.0 / sqrt(static_cast<double>(D)));  // 1.0 / D**0.5
-  err = launch_attention<T, MODE, TOME>(aa, s);
-  if (err != cudaSuccess) return err;
+  const void* k_plane = static_cast<const T*>(qkv) + plane;
+  if (attn90) {
+    // q, k, v: the (B, H, T, 64) planes of launch 2; o: o_all (B, T, E)
+    const void* in[3] = {qkv, k_plane, static_cast<const T*>(qkv) + 2 * plane};
+    const long long HTD = (long long)H * T_ * D, TD = (long long)T_ * D;
+    const long long strides[9] = {HTD, TD, D, HTD, TD, D, HTD, TD, D};
+    FwdArgs fa;
+    fa.o = static_cast<bf16*>(o_all);
+    fa.o_sb = (long long)T_ * E; fa.o_sh = D; fa.o_st = E;
+    fa.stats = attn_stats;
+    fa.H = H; fa.T = T_;
+    fa.scale = 0.125f;   // 1 / sqrt(64)
+    err = launch_attention_fwd_sm90(in, strides, fa, B, s);
+  } else {
+    AttnArgs aa = {};
+    aa.q = qkv;
+    aa.k = k_plane;
+    aa.v = static_cast<const T*>(qkv) + 2 * plane;
+    aa.o = o_all;                       // (B, T, E): head h at columns h*D
+    aa.o_sb = (long long)T_ * E; aa.o_sh = D; aa.o_st = E;
+    aa.probs = probs;
+    aa.key_bias = key_bias;
+    aa.stats = attn_stats;
+    aa.B = B; aa.H = H; aa.T = T_; aa.D = D;
+    aa.q_scale = static_cast<float>(1.0 / sqrt(static_cast<double>(D)));  // 1.0 / D**0.5
+    err = static_cast<int>(launch_attention<T, MODE, TOME>(aa, s));
+  }
+  if (err != 0) return err;
 
   GemmArgs oa = {};
   oa.a = o_all; oa.w = wo; oa.M = M; oa.N = E; oa.K = E;
   oa.bias = bo; oa.out = out;
-  err = launch_gemm<T, EPI_BIAS, false>(oa, s);
+  err = gemm_route<T, EPI_BIAS, false>(oa, gemm90, s);
   if constexpr (TOME) {
-    if (err != cudaSuccess) return err;
+    if (err != 0) return err;
     const long long n = (long long)B * T_ * D;
     head_mean_kernel<T><<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
-        static_cast<const T*>(aa.k), static_cast<T*>(k_mean), H, (long long)T_ * D, n);
-    err = cudaGetLastError();
+        static_cast<const T*>(k_plane), static_cast<T*>(k_mean), H, (long long)T_ * D, n);
+    err = static_cast<int>(cudaGetLastError());
   }
   return err;
 }
 
 }  // namespace vitx
 
-// dtype: 0 = float32, 1 = bfloat16. Scratch from the caller: qkv
-// (3*B*T*E elements), o_all (B*T*E), stats (2*B*T fp32). attn_stats: null,
-// or (2*B*H*T fp32) for the attention's row max and 1 / l (the stash of a
-// forward under grad). Returns the first CUDA error of the launches (0
-// when all were accepted).
-extern "C" int vitx_mha_block(int dtype, const void* x, const void* wqkv, const void* wo,
-                              const float* bo, const float* g, const float* b, void* out,
-                              void* qkv, void* o_all, float* stats, float* attn_stats, int B,
-                              int T, int E, int H, float eps, void* stream) {
+// dtype: 0 = float32, 1 = bfloat16. route: the Route bits (above).
+// Scratch from the caller: qkv (3*B*T*E elements), o_all (B*T*E), stats
+// (2*B*T fp32). attn_stats: null, or (2*B*H*T fp32) for the attention's
+// row max and 1 / l (the stash of a forward under grad). Returns the first
+// error of the launches (0 when all were accepted): a cudaError_t, a
+// tensor-map code or ERR_ROUTE of sm90.cuh.
+extern "C" int vitx_mha_block(int dtype, int route, const void* x, const void* wqkv,
+                              const void* wo, const float* bo, const float* g, const float* b,
+                              void* out, void* qkv, void* o_all, float* stats,
+                              float* attn_stats, int B, int T, int E, int H, float eps,
+                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
   if (dtype == 1)
-    err = vitx::run_mha<vitx::bf16, vitx::PROBS_NONE, false>(
-        x, wqkv, wo, bo, g, b, out, qkv, o_all, stats, attn_stats, nullptr, nullptr, nullptr,
-        nullptr, B, T, E, H, eps, s);
-  else
-    err = vitx::run_mha<float, vitx::PROBS_NONE, false>(
-        x, wqkv, wo, bo, g, b, out, qkv, o_all, stats, attn_stats, nullptr, nullptr, nullptr,
-        nullptr, B, T, E, H, eps, s);
-  return static_cast<int>(err);
+    return vitx::run_mha<vitx::bf16, vitx::PROBS_NONE, false>(
+        route, x, wqkv, wo, bo, g, b, out, qkv, o_all, stats, attn_stats, nullptr, nullptr,
+        nullptr, nullptr, B, T, E, H, eps, s);
+  return vitx::run_mha<float, vitx::PROBS_NONE, false>(
+      route, x, wqkv, wo, bo, g, b, out, qkv, o_all, stats, attn_stats, nullptr, nullptr,
+      nullptr, nullptr, B, T, E, H, eps, s);
 }
 
 // B7: vitx_mha_block plus probs (B*T*T fp32), the head mean of the
-// softmax, written in full by the kernel.
-extern "C" int vitx_mha_block_mean_probs(int dtype, const void* x, const void* wqkv,
+// softmax, written in full by the kernel. route: ROUTE_GEMM_SM90 or 0.
+extern "C" int vitx_mha_block_mean_probs(int dtype, int route, const void* x, const void* wqkv,
                                          const void* wo, const float* bo, const float* g,
                                          const float* b, void* out, void* qkv, void* o_all,
                                          float* stats, float* probs, int B, int T, int E,
                                          int H, float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
   if (dtype == 1)
-    err = vitx::run_mha<vitx::bf16, vitx::PROBS_MEAN, false>(
-        x, wqkv, wo, bo, g, b, out, qkv, o_all, stats, nullptr, probs, nullptr, nullptr, nullptr, B,
-        T, E, H, eps, s);
-  else
-    err = vitx::run_mha<float, vitx::PROBS_MEAN, false>(
-        x, wqkv, wo, bo, g, b, out, qkv, o_all, stats, nullptr, probs, nullptr, nullptr, nullptr, B,
-        T, E, H, eps, s);
-  return static_cast<int>(err);
+    return vitx::run_mha<vitx::bf16, vitx::PROBS_MEAN, false>(
+        route, x, wqkv, wo, bo, g, b, out, qkv, o_all, stats, nullptr, probs, nullptr,
+        nullptr, nullptr, B, T, E, H, eps, s);
+  return vitx::run_mha<float, vitx::PROBS_MEAN, false>(
+      route, x, wqkv, wo, bo, g, b, out, qkv, o_all, stats, nullptr, probs, nullptr, nullptr,
+      nullptr, B, T, E, H, eps, s);
 }
 
 // B8: vitx_mha_block with bqkv ((3, H, D) fp32, added before the QKV cast),
 // log_size ((B, T) fp32, added to the logits over each key) and k_mean
-// (B*T*D elements, written in full: the head mean of the cast k).
-extern "C" int vitx_mha_block_tome(int dtype, const void* x, const void* wqkv, const void* wo,
-                                   const float* bo, const float* g, const float* b, void* out,
-                                   void* qkv, void* o_all, float* stats, const float* bqkv,
-                                   const float* log_size, void* k_mean, int B, int T, int E,
-                                   int H, float eps, void* stream) {
+// (B*T*D elements, written in full: the head mean of the cast k). route:
+// ROUTE_GEMM_SM90 or 0.
+extern "C" int vitx_mha_block_tome(int dtype, int route, const void* x, const void* wqkv,
+                                   const void* wo, const float* bo, const float* g,
+                                   const float* b, void* out, void* qkv, void* o_all,
+                                   float* stats, const float* bqkv, const float* log_size,
+                                   void* k_mean, int B, int T, int E, int H, float eps,
+                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
   if (dtype == 1)
-    err = vitx::run_mha<vitx::bf16, vitx::PROBS_NONE, true>(
-        x, wqkv, wo, bo, g, b, out, qkv, o_all, stats, nullptr, nullptr, bqkv, log_size, k_mean,
-        B, T, E, H, eps, s);
-  else
-    err = vitx::run_mha<float, vitx::PROBS_NONE, true>(
-        x, wqkv, wo, bo, g, b, out, qkv, o_all, stats, nullptr, nullptr, bqkv, log_size, k_mean,
-        B, T, E, H, eps, s);
-  return static_cast<int>(err);
+    return vitx::run_mha<vitx::bf16, vitx::PROBS_NONE, true>(
+        route, x, wqkv, wo, bo, g, b, out, qkv, o_all, stats, nullptr, nullptr, bqkv,
+        log_size, k_mean, B, T, E, H, eps, s);
+  return vitx::run_mha<float, vitx::PROBS_NONE, true>(
+      route, x, wqkv, wo, bo, g, b, out, qkv, o_all, stats, nullptr, nullptr, bqkv, log_size,
+      k_mean, B, T, E, H, eps, s);
 }

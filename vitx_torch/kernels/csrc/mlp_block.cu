@@ -13,58 +13,66 @@
 // per grid step; here the products are tiled and the kernel is three
 // launches:
 //   1. ln_stats_kernel: fp32 mean / rstd per row of x;
-//   2. gemm_kernel<EPI_BIAS_ACT>: LN applied while the A tile is staged,
-//      then x_ln @ W1 in fp32, + b1 in fp32, cast to the compute dtype,
-//      the activation in fp32 (mlp_block.py:34-64: the A-S polynomial erf
-//      for gelu, tanh through exp for gelu_tanh), cast -> ha (B*T, M);
-//      with the stash, the cast pre-activation hp as well;
-//   3. gemm_kernel<EPI_BIAS>: ha @ W2 in fp32, + b2 in fp32, one cast.
+//   2. the W1 GEMM with the LN prologue (EPI_BIAS_ACT): LN(x), rounded, @
+//      W1 in fp32, + b1 in fp32, cast to the compute dtype, the activation
+//      in fp32 (mlp_block.py:34-64: the A-S polynomial erf for gelu, tanh
+//      through exp for gelu_tanh), cast -> ha (B*T, M); with the stash, the
+//      cast pre-activation hp as well;
+//   3. the W2 GEMM (EPI_BIAS): ha @ W2 in fp32, + b2 in fp32, one cast.
+// route 1 (bf16, E and M multiples of 8, E at most 4096, x and the weights
+// 16-byte aligned)
+// runs launches 2 and 3 on gemm_sm90.cuh: wgmma fed by TMA through a ring
+// of stages, the LN applied to the A fragments in registers, persistent
+// blocks, W1 and W2 read in place; route 0 on common.cuh's gemm_kernel
+// (mma.sync, register-staged loads), which fp32 needs. The caller chooses;
+// a route the inputs cannot take returns sm90::ERR_ROUTE before any launch.
 // The hidden activation ha (B*T*M elements, 4x the block's input) makes a
-// round trip through device memory; keeping it on chip is the first thing
-// a faster version removes. Products use mma.sync through nvcuda::wmma.
+// round trip through device memory; keeping it on chip is the next thing a
+// faster version removes.
 
-#include "common.cuh"
+#include "gemm_sm90.cuh"
 
 namespace vitx {
 
 template <typename T>
-cudaError_t run_mlp(const void* x, const void* w1, const float* b1, const void* w2,
-                    const float* b2, const float* g, const float* b, void* out, void* ha,
-                    void* hp, float* stats, int rows, int E, int Mh, int act, float eps,
-                    cudaStream_t s) {
-  cudaError_t err = launch_ln_stats<T>(static_cast<const T*>(x), stats, rows, E, eps, s);
-  if (err != cudaSuccess) return err;
+int run_mlp(int route, const void* x, const void* w1, const float* b1, const void* w2,
+            const float* b2, const float* g, const float* b, void* out, void* ha, void* hp,
+            float* stats, int rows, int E, int Mh, int act, float eps, cudaStream_t s) {
+  const bool use90 = route == 1;
+  if (route != 0 && !(use90 && std::is_same<T, bf16>::value && gemm_sm90_ok(x, w1, E, Mh, true) &&
+                      gemm_sm90_ok(ha, w2, Mh, E, false)))
+    return sm90::ERR_ROUTE;
+  int err = static_cast<int>(launch_ln_stats<T>(static_cast<const T*>(x), stats, rows, E, eps, s));
+  if (err != 0) return err;
 
   GemmArgs up = {};
   up.a = x; up.w = w1; up.M = rows; up.N = Mh; up.K = E;
   up.ln_stats = stats; up.ln_g = g; up.ln_b = b;
   up.bias = b1; up.act = act; up.out = ha; up.pre_act = hp;
-  err = launch_gemm<T, EPI_BIAS_ACT, true>(up, s);
-  if (err != cudaSuccess) return err;
+  err = gemm_route<T, EPI_BIAS_ACT, true>(up, use90, s);
+  if (err != 0) return err;
 
   GemmArgs down = {};
   down.a = ha; down.w = w2; down.M = rows; down.N = E; down.K = Mh;
   down.bias = b2; down.out = out;
-  return launch_gemm<T, EPI_BIAS, false>(down, s);
+  return gemm_route<T, EPI_BIAS, false>(down, use90, s);
 }
 
 }  // namespace vitx
 
-// dtype: 0 = float32, 1 = bfloat16; act: 0 gelu, 1 gelu_tanh, 2 relu.
-// Scratch from the caller: ha (rows*Mh elements), stats (2*rows fp32).
-// hp (rows*Mh elements) receives the stash, or is null for none.
-// Returns the first CUDA error of the launches (0 when all were accepted).
-extern "C" int vitx_mlp_block(int dtype, const void* x, const void* w1, const float* b1,
-                              const void* w2, const float* b2, const float* g,
+// dtype: 0 = float32, 1 = bfloat16; route: 1 the sm90 GEMM, 0 gemm_kernel;
+// act: 0 gelu, 1 gelu_tanh, 2 relu. Scratch from the caller: ha (rows*Mh
+// elements), stats (2*rows fp32). hp (rows*Mh elements) receives the
+// stash, or is null for none. Returns the first error of the launches (0
+// when all were accepted): a cudaError_t, a tensor-map code or ERR_ROUTE.
+extern "C" int vitx_mlp_block(int dtype, int route, const void* x, const void* w1,
+                              const float* b1, const void* w2, const float* b2, const float* g,
                               const float* b, void* out, void* ha, void* hp, float* stats,
                               int rows, int E, int Mh, int act, float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
   if (dtype == 1)
-    err = vitx::run_mlp<vitx::bf16>(x, w1, b1, w2, b2, g, b, out, ha, hp, stats, rows, E,
-                                    Mh, act, eps, s);
-  else
-    err = vitx::run_mlp<float>(x, w1, b1, w2, b2, g, b, out, ha, hp, stats, rows, E, Mh,
-                               act, eps, s);
-  return static_cast<int>(err);
+    return vitx::run_mlp<vitx::bf16>(route, x, w1, b1, w2, b2, g, b, out, ha, hp, stats, rows,
+                                     E, Mh, act, eps, s);
+  return vitx::run_mlp<float>(route, x, w1, b1, w2, b2, g, b, out, ha, hp, stats, rows, E, Mh,
+                              act, eps, s);
 }

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks of the attention kernels
-// attention_bwd_sm90.cu and flash_attention_sm90.cu.
+// (attention_fwd_sm90.cuh, attention_bwd_sm90.cu) and of the LN-prologue
+// GEMM (gemm_sm90.cuh).
 //
 // - Tiles arrive by TMA (cp.async.bulk.tensor) into shared memory with the
 //   128-byte swizzle: a (64 rows, 64 bf16) box, one 128-byte row per
@@ -98,6 +99,17 @@ __device__ __forceinline__ void tma_load_tile(void* dst, const CUtensorMap* map,
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(0), "r"(t0), "r"(h), "r"(b)
+      : "memory");
+}
+
+// One (64 rows, 64 columns) box of a 2-D map at column c0, row r0 into
+// dst (the GEMM's A and W tiles).
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int r0) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(r0)
       : "memory");
 }
 
@@ -227,6 +239,7 @@ inline EncodeTiled encode_tiled() {
 // Error codes of the entry points beyond cudaError_t's range.
 constexpr int ERR_NO_ENCODE = 10000;     // cuTensorMapEncodeTiled not found
 constexpr int ERR_TENSOR_MAP = 20000;    // + the CUresult of the encode
+constexpr int ERR_ROUTE = 30000;         // a route asked for that the inputs cannot take
 
 // The map of a bf16 (B, H, T, 64) view with element strides sb, sh, st (the
 // last dim contiguous), boxes of (64 tokens, 64 channels) with the 128-byte
@@ -240,6 +253,23 @@ inline int make_tile_map(CUtensorMap* map, const void* base, int B, int H, int T
   const cuuint32_t box[4] = {64, TILE_ROWS, 1, 1};
   const cuuint32_t estr[4] = {1, 1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                        strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ERR_TENSOR_MAP + (int)r;
+}
+
+// The map of a row-major bf16 (rows, cols) matrix, cols a multiple of 8
+// (16-byte rows), boxes of (64 rows, 64 columns) with the 128-byte swizzle
+// and zeros outside the matrix. Returns 0 or one of the codes above.
+inline int make_matrix_map(CUtensorMap* map, const void* base, int rows, int cols) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return ERR_NO_ENCODE;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {64, TILE_ROWS};
+  const cuuint32_t estr[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
                         strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

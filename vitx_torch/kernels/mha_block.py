@@ -18,6 +18,17 @@ projections, B5 forward, B6 backward). Both routes compute the same
 function; in Pallas interpret mode vitx runs the fused block as the port
 does.
 
+Routes on the card, chosen here in the open and passed to the kernel,
+which refuses one the inputs cannot take (``mha_route``): in bf16 with E
+a multiple of 8 the projections run on the Hopper GEMM
+``csrc/gemm_sm90.cuh`` (wgmma fed by TMA, the LayerNorm applied to the A
+operand in registers), and K1's attention at head width 64 on B5's sm90
+body (``csrc/attention_fwd_sm90.cuh``); fp32, other shapes, B7's
+probabilities and B8's biases keep the earlier kernels (``common.cuh``'s
+``gemm_kernel``, ``attention_fwd.cuh``). ``launches`` counts every CUDA
+launch of a wrapper, ``launches_sm90`` those whose projections ran on the
+sm90 GEMM.
+
 ``fused_mha_block_with_mean_probs`` (B7, the same source's second entry)
 also returns the head-mean attention probabilities; it replaces
 ``_kernel_hchunk`` in its mean-probs mode (``_chunked_fwd``,
@@ -44,11 +55,32 @@ import torch
 
 from vitx_torch.kernels import _build
 from vitx_torch.kernels._build import DTYPE_CODES
-from vitx_torch.kernels.flash_attention import attention_bwd
+from vitx_torch.kernels.flash_attention import SM90_HEAD_DIM, attention_bwd
 from vitx_torch.kernels.layer_norm import ln_bwd
 from vitx_torch.nn.layers import dot, layer_norm, matmul32
 
 MAX_HEAD_DIM = 256
+# the route bits of csrc/mha_block.cu's entries
+ROUTE_GEMM_SM90 = 1   # both projections on csrc/gemm_sm90.cuh
+ROUTE_ATTN_SM90 = 2   # K1's attention on csrc/attention_fwd_sm90.cuh
+
+
+def mha_route(dtype, E: int, H: int, *, attention_sm90: bool = True,
+              tensors=()) -> int:
+    """The route of a K1, B7 or B8 launch: ``ROUTE_GEMM_SM90`` where the
+    projections can take the sm90 GEMM (``_build.gemm_sm90``: bf16, E a
+    multiple of 8 and at most 4096, ``tensors`` -- x and the weights --
+    16-byte aligned), plus ``ROUTE_ATTN_SM90`` where the attention can
+    take B5's sm90 body: bf16 at head width 64
+    (``flash_attention.sm90_route``), and only for K1
+    (``attention_sm90``): B7's probabilities and B8's key bias keep the
+    earlier attention. 0 is the earlier kernels throughout."""
+    route = (ROUTE_GEMM_SM90 if _build.gemm_sm90(dtype, (E,), tensors, ln_k=E)
+             else 0)
+    if (attention_sm90 and dtype == torch.bfloat16
+            and E // H == SM90_HEAD_DIM):
+        route |= ROUTE_ATTN_SM90
+    return route
 
 
 def _plain(x, wqkv, wo, bo, g, b, eps, probs: bool, bqkv=None,
@@ -147,29 +179,40 @@ def _check(x, wqkv, wo, bo, g, b):
             raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(x, wqkv, wo, bo, g, b, eps, name="mha_block", extra=()):
+def _launch(x, wqkv, wo, bo, g, b, eps, name="mha_block", extra=(),
+            route=None):
     """The ``mha_block.cu`` entry ``name`` on CUDA tensors -> (out, q, k,
-    v, o_all): K1, or B7 with ``extra`` its (B, T, T) fp32 probs output, or
-    B8 with ``extra`` (bqkv, log_size, its (B, T, D) k_mean output). K1's
-    ``extra`` is its (2, B, H, T) fp32 attention statistics output."""
+    v, o_all, route): K1, or B7 with ``extra`` its (B, T, T) fp32 probs
+    output, or B8 with ``extra`` (bqkv, log_size, its (B, T, D) k_mean
+    output). K1's ``extra`` is its (2, B, H, T) fp32 attention statistics
+    output. ``route`` defaults to ``mha_route``'s; the caller counts."""
     if not x.is_cuda:
         raise ValueError(f"fused_mha_block runs on cuda or cpu, "
                          f"not {x.device}")
     B, T, E = x.shape
     H = wqkv.shape[2]
+    if route is None:
+        route = mha_route(x.dtype, E, H, attention_sm90=name == "mha_block",
+                          tensors=(x, wqkv, wo))
     fn = _build.entry(name)
     out = torch.empty_like(x)
     qkv = torch.empty((3, B, H, T, E // H), dtype=x.dtype, device=x.device)
     o_all = torch.empty_like(x)
     stats = torch.empty((2, B * T), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        err = fn(DTYPE_CODES[x.dtype], x.data_ptr(), wqkv.data_ptr(),
+        err = fn(DTYPE_CODES[x.dtype], route, x.data_ptr(), wqkv.data_ptr(),
                  wo.data_ptr(), bo.data_ptr(), g.data_ptr(), b.data_ptr(),
                  out.data_ptr(), qkv.data_ptr(), o_all.data_ptr(),
                  stats.data_ptr(), *(t.data_ptr() for t in extra), B, T, E,
                  H, float(eps), torch.cuda.current_stream().cuda_stream)
     _build.check(name, err)
-    return out, qkv[0], qkv[1], qkv[2], o_all
+    return out, qkv[0], qkv[1], qkv[2], o_all, route
+
+
+def _count(wrapper, route) -> None:
+    wrapper.launches += 1
+    if route & ROUTE_GEMM_SM90:
+        wrapper.launches_sm90 += 1
 
 
 def _forward(x, wqkv, wo, bo, g, b, eps):
@@ -184,8 +227,8 @@ def _forward(x, wqkv, wo, bo, g, b, eps):
     B, T, _ = x.shape
     stats = torch.empty((2, B, wqkv.shape[2], T), dtype=torch.float32,
                         device=x.device)
-    res = _launch(x, wqkv, wo, bo, g, b, eps, extra=(stats,))
-    fused_mha_block.launches += 1
+    *res, route = _launch(x, wqkv, wo, bo, g, b, eps, extra=(stats,))
+    _count(fused_mha_block, route)
     return (*res, stats)
 
 
@@ -243,8 +286,9 @@ def fused_mha_block(x, wqkv, wo, bo, g, b, *, eps: float = 1e-5,
     ``stash=True`` returns (out, q, k, v, o_all) as vitx's
     ``_fused_fwd(stash=True)`` does -- q, k, v (B, H, T, D) with q
     unscaled, o_all (B, T, E) -- and records no gradient. CUDA tensors go
-    through kernel K1 and add one to ``fused_mha_block.launches``; CPU
-    tensors take the plain version.
+    through kernel K1 and add one to ``fused_mha_block.launches`` (and to
+    ``launches_sm90`` on the sm90 GEMM, ``mha_route``); CPU tensors take
+    the plain version.
     """
     _check(x, wqkv, wo, bo, g, b)
     if stash:
@@ -254,6 +298,7 @@ def fused_mha_block(x, wqkv, wo, bo, g, b, *, eps: float = 1e-5,
 
 
 fused_mha_block.launches = 0
+fused_mha_block.launches_sm90 = 0
 
 
 # --- B7: the block with head-mean probabilities ------------------------------
@@ -264,10 +309,10 @@ def _forward_mean_probs(x, wqkv, wo, bo, g, b, eps):
         return mha_block_mean_probs_plain(x, wqkv, wo, bo, g, b, eps=eps)
     B, T, _ = x.shape
     probs = torch.empty((B, T, T), dtype=torch.float32, device=x.device)
-    out = _launch(x, wqkv, wo, bo, g, b, eps, "mha_block_mean_probs",
-                  (probs,))[0]
-    fused_mha_block_with_mean_probs.launches += 1
-    return out, probs
+    res = _launch(x, wqkv, wo, bo, g, b, eps, "mha_block_mean_probs",
+                  (probs,))
+    _count(fused_mha_block_with_mean_probs, res[-1])
+    return res[0], probs
 
 
 def _composed_with_mean_probs(x, wqkv, wo, bo, g, b, eps):
@@ -308,8 +353,9 @@ def fused_mha_block_with_mean_probs(x, wqkv, wo, bo, g, b, *,
     probabilities: (out (B, T, E) in x's dtype, probs (B, T, T) fp32), the
     rollout path's input. The head sum has one fixed order, so repeated
     calls agree bit for bit. CUDA tensors go through kernel B7 and add one
-    to ``fused_mha_block_with_mean_probs.launches``; CPU tensors take the
-    plain version. Differentiable through the composed path.
+    to ``fused_mha_block_with_mean_probs.launches`` (and to
+    ``launches_sm90`` on the sm90 GEMM); CPU tensors take the plain
+    version. Differentiable through the composed path.
     """
     _check(x, wqkv, wo, bo, g, b)
     if not torch.is_grad_enabled() or not any(
@@ -319,6 +365,7 @@ def fused_mha_block_with_mean_probs(x, wqkv, wo, bo, g, b, *,
 
 
 fused_mha_block_with_mean_probs.launches = 0
+fused_mha_block_with_mean_probs.launches_sm90 = 0
 
 
 # --- B8: ToMe's attention half (and B9's function) ---------------------------
@@ -392,10 +439,10 @@ def _forward_tome(x, wqkv, bqkv, wo, bo, g, b, log_size, eps):
     B, T, _ = x.shape
     k_mean = torch.empty((B, T, wqkv.shape[3]), dtype=x.dtype,
                          device=x.device)
-    out = _launch(x, wqkv, wo, bo, g, b, eps, "mha_block_tome",
-                  (bqkv, log_size, k_mean))[0]
-    fused_mha_block_tome.launches += 1
-    return out, k_mean
+    res = _launch(x, wqkv, wo, bo, g, b, eps, "mha_block_tome",
+                  (bqkv, log_size, k_mean))
+    _count(fused_mha_block_tome, res[-1])
+    return res[0], k_mean
 
 
 class _FusedMHATome(torch.autograd.Function):
@@ -430,7 +477,8 @@ def fused_mha_block_tome(x, wqkv, bqkv, wo, bo, g, b, log_size, *,
     k_mean (B, T, D)), both in x's dtype, differentiable in every input
     through ``composed_tome``. CUDA tensors go through kernel B8 (any T;
     it serves B9's head-chunked function too) and add one to
-    ``fused_mha_block_tome.launches``; CPU tensors take the plain version.
+    ``fused_mha_block_tome.launches`` (and to ``launches_sm90`` on the sm90
+    GEMM); CPU tensors take the plain version.
     """
     _check_tome(x, wqkv, bqkv, wo, bo, g, b, log_size)
     args = (x, wqkv, bqkv, wo, bo, g, b, log_size)
@@ -440,3 +488,4 @@ def fused_mha_block_tome(x, wqkv, bqkv, wo, bo, g, b, log_size, *,
 
 
 fused_mha_block_tome.launches = 0
+fused_mha_block_tome.launches_sm90 = 0

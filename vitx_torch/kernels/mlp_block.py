@@ -8,6 +8,14 @@ plain torch, as ``_fused_op_bwd`` is XLA math (``mlp_block.py:185-208``),
 apart from the LayerNorm backward, which is B3 (``ln_bwd``). The source
 note in the ``.cu`` file says what bounds the kernel on the H100 and how it
 is laid out.
+
+Routes on the card, chosen here in the open and passed to the kernel,
+which refuses one the inputs cannot take (``mlp_route``): in bf16 with E
+and M multiples of 8 both products run on the Hopper GEMM
+``csrc/gemm_sm90.cuh`` (wgmma fed by TMA, the LayerNorm applied to the A
+operand in registers); fp32 and other shapes keep ``common.cuh``'s
+``gemm_kernel``. ``fused_mlp_block.launches`` counts every CUDA launch,
+``launches_sm90`` those on the sm90 GEMM.
 """
 
 from __future__ import annotations
@@ -21,6 +29,16 @@ from vitx_torch.nn.layers import (activation, dot, gelu_erf_poly,
                                   gelu_tanh_exp, layer_norm, matmul32)
 
 ACT_CODES = {"gelu": 0, "gelu_tanh": 1, "relu": 2}
+ROUTE_SM90 = 1   # csrc/mlp_block.cu's route: both products on gemm_sm90.cuh
+
+
+def mlp_route(dtype, E: int, M: int, tensors=()) -> int:
+    """``ROUTE_SM90`` where K2's products can take the sm90 GEMM
+    (``_build.gemm_sm90``: bf16, E and M multiples of 8, E at most 4096,
+    ``tensors`` -- x and the weights -- 16-byte aligned), else 0:
+    ``gemm_kernel``."""
+    return (ROUTE_SM90 if _build.gemm_sm90(dtype, (E, M), tensors, ln_k=E)
+            else 0)
 
 
 def _act_kernel(x, act: str):
@@ -82,31 +100,41 @@ def _check(x, w1, b1, w2, b2, g, b, act):
             raise ValueError(f"{name} must be contiguous")
 
 
-def _forward(x, w1, b1, w2, b2, g, b, act, eps, stash):
-    """-> out, or (out, hp) with the stash: kernel K2 on CUDA, the plain
-    version on the CPU."""
-    if x.device.type == "cpu":
-        return mlp_block_plain(x, w1, b1, w2, b2, g, b, act=act, eps=eps,
-                               stash=stash)
+def _launch(x, w1, b1, w2, b2, g, b, act, eps, stash, route=None):
+    """``mlp_block.cu`` on CUDA tensors -> (out, hp or None, route);
+    ``route`` defaults to ``mlp_route``'s. Counts nothing."""
     if not x.is_cuda:
         raise ValueError(f"fused_mlp_block runs on cuda or cpu, "
                          f"not {x.device}")
     B, T, E = x.shape
     M = w1.shape[1]
+    if route is None:
+        route = mlp_route(x.dtype, E, M, (x, w1, w2))
     fn = _build.entry("mlp_block")
     out = torch.empty_like(x)
     ha = torch.empty((B, T, M), dtype=x.dtype, device=x.device)
     hp = torch.empty_like(ha) if stash else None
     stats = torch.empty((2, B * T), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        err = fn(DTYPE_CODES[x.dtype], x.data_ptr(), w1.data_ptr(),
+        err = fn(DTYPE_CODES[x.dtype], route, x.data_ptr(), w1.data_ptr(),
                  b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), g.data_ptr(),
                  b.data_ptr(), out.data_ptr(), ha.data_ptr(),
                  hp.data_ptr() if stash else None, stats.data_ptr(), B * T,
                  E, M, ACT_CODES[act], float(eps),
                  torch.cuda.current_stream().cuda_stream)
     _build.check("mlp_block", err)
+    return out, hp, route
+
+
+def _forward(x, w1, b1, w2, b2, g, b, act, eps, stash):
+    """-> out, or (out, hp) with the stash: kernel K2 on CUDA, the plain
+    version on the CPU."""
+    if x.device.type == "cpu":
+        return mlp_block_plain(x, w1, b1, w2, b2, g, b, act=act, eps=eps,
+                               stash=stash)
+    out, hp, route = _launch(x, w1, b1, w2, b2, g, b, act, eps, stash)
     fused_mlp_block.launches += 1
+    fused_mlp_block.launches_sm90 += route == ROUTE_SM90
     return (out, hp) if stash else out
 
 
@@ -161,7 +189,8 @@ def fused_mlp_block(x, w1, b1, w2, b2, g, b, *, act: str = "gelu",
     in every input. With ``stash=True`` returns (out, hp), hp the cast
     pre-activation (B, T, M) as vitx's ``_fused_fwd(stash=True)`` does, and
     records no gradient. CUDA tensors go through kernel K2 and add one to
-    ``fused_mlp_block.launches``; CPU tensors take the plain version.
+    ``fused_mlp_block.launches`` (and to ``launches_sm90`` on the sm90
+    GEMM, ``mlp_route``); CPU tensors take the plain version.
     """
     _check(x, w1, b1, w2, b2, g, b, act)
     if stash:
@@ -174,3 +203,4 @@ def fused_mlp_block(x, w1, b1, w2, b2, g, b, *, act: str = "gelu",
 
 
 fused_mlp_block.launches = 0
+fused_mlp_block.launches_sm90 = 0
