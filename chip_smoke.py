@@ -13,9 +13,12 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               (vitx_torch/kernels/csrc, one nvcc per source, in parallel)
               and counts, per sm90 kernel (SM90_SOURCES: the sm90 GEMM and
               B5's sm90 body as mha_block.cu and mlp_block.cu build them,
-              B5's and B2's sm90 kernels), the wgmma (HGMMA), TMA
-              (UTMALDG) and wgmma-wait instructions in its SASS (cuobjdump
-              -sass); each must have wgmma and TMA.
+              the body's KBIAS instantiation, B8's, B5's and B2's sm90
+              kernels), the wgmma (HGMMA), TMA (UTMALDG) and wgmma-wait
+              instructions in its SASS (cuobjdump -sass); each must have
+              wgmma and TMA. B12's multi-leaf kernel must have no wgmma.
+              The body without the key bias must be the same instructions
+              in mha_block's library as in flash_attention_sm90's.
 3. kernels -- K1 (fused MHA block) and K2 (fused MLP block) at ViT-B/16
               shapes, batch 8 and 32, against their plain torch versions
               on the same card: float32 within 1e-4 relative, bfloat16 within
@@ -36,13 +39,16 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               and 8; float32 and bfloat16; B5's head mean and B7 twice,
               bit for bit; probability rows summing to 1 within 1e-5.
               B8 (the ToMe block, with a random QKV bias and log_size in
-              [0, log 6]) against its plain version at the base16 r=13
+              [0, log 40]) against its plain version at the base16 r=13
               server's blocks (32, 197) first, (32, 119) and (32, 54)
               last, and at (8, 197), (8, 41), (2, 13); at large16_384's
               (8, 577), (8, 416), B9's range, and (8, 48), the last r=23
-              block: float32 1e-4, bfloat16 BF16_TOL; k_mean twice, bit
-              for bit; with zero biases its out equal to K1's bit for
-              bit on the attention body they share (attention_fwd.cuh).
+              block: float32 1e-4, bfloat16 BF16_TOL -- in bf16 on the
+              sm90 attention (launches_attn_sm90 one a call), and on its
+              GEMM-only route (the sm90 GEMM with attention_fwd.cuh) and
+              the earlier kernels on the same inputs; k_mean twice, bit for
+              bit; with zero biases its out equal to K1's on K1's full
+              route, bit for bit.
               K2 at the r=13 server's first and last MLP shapes,
               (32, 184) and (32, 41). B10 (fused_layer_norm and
               fused_add_layer_norm) against their plain version at E
@@ -55,7 +61,11 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               (attention backward), B3 (LayerNorm backward at E 768 and the
               head's 3072), the K1 and K2 stashes, and torch.autograd.grad
               through both fused blocks on the card against the same on the
-              CPU (plain versions); B12 (AdamW) on a base16 leaf. B2 is
+              CPU (plain versions); B12 (AdamW) bit for bit against its
+              plain version: the one-leaf kernel on a base16 leaf, the
+              multi-leaf kernel over every base16 leaf (one launch) and
+              over ragged views at element offsets 0-2 with fp32 and bf16
+              gradients (one launch per dtype). B2 is
               given the forward's o and row statistics and called twice,
               bit for bit; in bf16 at D 64 that is its sm90 kernel, also
               on do and o in the fused block's (B, T, H, D) layouts
@@ -87,9 +97,9 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               make_optimizer(lr=1e-4), then 5 with fused=True, on one
               repeated batch; the loss must be finite and fall, the
               launches per step must be K1 12 (all on its sm90 route),
-              B2 12 (all on its sm90 route), B3 25, K2 0 and B12 0 or one
-              per leaf; one
-              eval_step.
+              B2 12 (all on its sm90 route), B3 25, K2 0 and B12's
+              multi-leaf kernel one per fused step and gradient dtype
+              (its one-leaf kernel 0); one eval_step.
 8. explain -- main path 3, large16_384 (ViT-L/16 at 384², T 577) at full
               width and depth, bf16, random weights from seed 0: (a)
               forward_with_rollout at batch 8 on the kernels against the
@@ -115,17 +125,18 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               call, with the launches Grad-CAM's routing gives.
 9. tome    -- main path 4, ToMe token merging at full width and depth,
               random weights from seed 0: (a) base16 tome_r=13 at batch
-              8, bf16, on the kernels: finite logits, launches B8 12, K2
-              12, nothing else; reported, not held to a bar: the logits'
-              distance from the kernel-free route (fuse_mha="off",
-              fuse_mlp="off") and how many images the two routes
-              partition alike (bf16 rounding tips near-tie merges); (a')
+              8, bf16, on the kernels: finite logits, launches B8 12 (its
+              sm90 attention 12), K2 12, nothing else; reported, not held
+              to a bar: the logits' distance from the kernel-free route
+              (fuse_mha="off", fuse_mlp="off") and how many images the two
+              routes partition alike (bf16 rounding tips near-tie merges);
+              (a')
               the same model in float32 at batch 2, card against the
               CPU's plain versions: logits 1e-4, the merges' sources
               equal; (b) lossless: base16 fp32 batch 2, a constant image
               and zero pos_embed, ToMe logits equal to full-token logits
               within 1e-4; (c), (c') large16_384 tome_r=23 as (a), (a'),
-              B8 24, K2 24; (d) a depth-2 fp32 large16_384 copy with a
+              B8 24 (sm90 attention 24), K2 24; (d) a depth-2 fp32 large16_384 copy with a
               random QKV bias at tome_r=(65, 64) as (a'); (e) an
               InferenceServer for base16 tome_r=13 at batch 32 answering
               64 requests from 8 threads, each top-k equal to a direct
@@ -161,17 +172,24 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               probs, K1, K2, B7 and B8 have two rows each: the sm90 route
               (attention_bwd_sm90, flash_attention_sm90,
               fused_mha_block_sm90, ...; the blocks' sm90 rows carry the
-              earlier route's time of the same call as was_ms) and the
-              earlier kernel on the same bf16 inputs through its launcher
+              earlier route's time of the same call as was_ms, B8's that of
+              its GEMM-only route, the sm90 GEMM with attention_fwd.cuh)
+              and the earlier kernel on the same bf16 inputs through its
+              launcher
               (attention_bwd, flash_attention, fused_mha_block, ...),
               which the wrappers keep for fp32 and shapes the sm90 route
-              cannot take.
+              cannot take. B12 has two rows over every leaf of the base16
+              state: fused_adamw_, a launch per leaf, and
+              fused_adamw_multi_, the train step's one launch, with the
+              former's time as was_ms.
 
 Each main path runs with the kernels' launch counts set to 0 just before
 it and read just after. ``attention_bwd``, ``flash_attention`` and the
 blocks' rows count every launch of their wrappers; ``attention_bwd_sm90``,
 ``flash_attention_sm90`` and the blocks' ``*_sm90`` rows read the
-wrappers' ``launches_sm90``, the launches on the sm90 route (COUNTERS).
+wrappers' ``launches_sm90``, the launches on the sm90 route (COUNTERS);
+B8's launches on the sm90 attention are counted beside them
+(EXTRA_COUNTERS) and reported in its sm90 row.
 The last lines are one JSON
 object listing the kernels and, last, ``{"ok": true, "device": {...}}``.
 ``--phases`` runs a subset (``device,build,grad`` is the quick check
@@ -233,7 +251,7 @@ KERNELS = {
         "tpu_kernel": "vitx/kernels/mlp_block.py::_kernel",
     },
     # the sm90 route of K1, K2, B7 and B8 (bf16, E a multiple of 8): their
-    # projections on gemm_sm90.cuh, K1's attention at D 64 on
+    # projections on gemm_sm90.cuh, K1's and B8's attention at D 64 on
     # attention_fwd_sm90.cuh; counted in the wrappers' launches_sm90
     # (COUNTERS), while the rows above count every launch, both routes
     "fused_mha_block_sm90": {
@@ -292,6 +310,13 @@ KERNELS = {
         "replaces": "vitx/kernels/adamw.py:56",
         "tpu_kernel": "vitx/kernels/adamw.py::_kernel",
     },
+    # B12 over every leaf of a step, one launch per gradient dtype
+    # (adamw_multi_kernel): what AdamW.update(fused=True) runs
+    "fused_adamw_multi_": {
+        "source": "vitx_torch/kernels/csrc/adamw.cu",
+        "replaces": "vitx/kernels/adamw.py:56",
+        "tpu_kernel": "vitx/kernels/adamw.py::_kernel",
+    },
     "flash_attention": {
         "source": "vitx_torch/kernels/csrc/flash_attention_fwd.cu",
         "replaces": "vitx/kernels/flash_attention.py:132",
@@ -340,7 +365,8 @@ KERNELS = {
     },
     "fused_mha_block_tome_sm90": {
         "source": "vitx_torch/kernels/csrc/mha_block.cu",
-        "headers": ["vitx_torch/kernels/csrc/gemm_sm90.cuh"],
+        "headers": ["vitx_torch/kernels/csrc/gemm_sm90.cuh",
+                    "vitx_torch/kernels/csrc/attention_fwd_sm90.cuh"],
         "replaces": "vitx/kernels/mha_block.py:507",
         "tpu_kernel": "vitx/kernels/mha_block.py::_kernel_tome",
         "also_replaces": "vitx/kernels/mha_block.py:686",
@@ -359,15 +385,26 @@ COUNTERS = {"attention_bwd_sm90": ("attention_bwd", "launches_sm90"),
             "flash_attention_sm90": ("flash_attention", "launches_sm90"),
             **{row: (name, "launches_sm90")
                for name, row in BLOCK_SM90.items()}}
+# counts that are no row of their own, read and expected beside the rows':
+# B8's launches whose attention ran on the sm90 body (its KBIAS form)
+EXTRA_COUNTERS = {"fused_mha_block_tome_attn_sm90":
+                  ("fused_mha_block_tome", "launches_attn_sm90")}
 # the sources whose SASS the build phase reads, and the sm90 kernels each
 # must hold: the wgmma (HGMMA) and TMA (UTMALDG) instructions that show
 # they reach the tensor cores' asynchronous path. mha_block and mlp_block
 # also hold the earlier kernels (ln_stats_kernel, gemm_kernel,
-# attention_kernel, head_mean_kernel), which use neither and are not read
-SM90_SOURCES = {"flash_attention_sm90": ("attention_fwd_sm90",),
+# attention_kernel, head_mean_kernel), which use neither and are not read.
+# A kernel named with its template arguments is that instantiation
+# (attention_fwd_sm90<2, true>: B8's KBIAS body); a bare name sums them all
+SM90_SOURCES = {"flash_attention_sm90": ("attention_fwd_sm90<2, false>",),
                 "attention_bwd_sm90": ("dq_kernel_sm90", "dkdv_kernel_sm90"),
-                "mha_block": ("gemm_sm90_kernel", "attention_fwd_sm90"),
+                "mha_block": ("gemm_sm90_kernel",
+                              "attention_fwd_sm90<2, false>",
+                              "attention_fwd_sm90<2, true>"),
                 "mlp_block": ("gemm_sm90_kernel",)}
+# kernels whose SASS is read and must hold no wgmma: B12's multi-leaf
+# update streams bytes and does no matrix product
+NO_WGMMA_SOURCES = {"adamw": ("adamw_multi_kernel",)}
 NO_LIBRARY = ("no single PyTorch call returns attention probabilities "
               "(scaled_dot_product_attention returns only the output)")
 NO_ADD_LIBRARY = ("no single PyTorch call adds a residual and normalises "
@@ -446,14 +483,16 @@ def phase_build():
     emit({"phase": "build", "seconds": round(seconds, 2),
           "per_source_s": {n: round(v["seconds"], 2)
                            for n, v in _build.build_log.items()}})
-    sass = {name: {kern: n for kern, n in
-                   sass_counts(_build._target(name)).items()
-                   if kern in wanted}
+    funcs = {name: sass_functions(_build._target(name))
+             for name in (*SM90_SOURCES, *NO_WGMMA_SOURCES)}
+    counts_ = {name: sass_counts(f) for name, f in funcs.items()}
+    sass = {name: {kern: sass_of(counts_[name], kern) for kern in wanted}
             for name, wanted in SM90_SOURCES.items()}
     emit({"phase": "build", "check": "SASS of the sm90 kernels: wgmma "
           "(HGMMA) and TMA (UTMALDG) or other async copies (UBLKCP, LDGSTS) "
           "per kernel, and wgmma waits (WARPGROUP.DEPBAR: one per HGMMA "
-          "would mean ptxas serialised them)", "sass": sass})
+          "would mean ptxas serialised them); attention_fwd_sm90<2, true> "
+          "is B8's KBIAS instantiation", "sass": sass})
     for name, wanted in SM90_SOURCES.items():
         for kern in wanted:
             n = sass[name].get(kern)
@@ -462,14 +501,41 @@ def phase_build():
                 raise AssertionError(f"{name}: {kern} is missing or has no "
                                      f"wgmma or no async copy in its SASS: "
                                      f"{n}")
+    plain = {name: {kern: sass_of(counts_[name], kern) for kern in wanted}
+             for name, wanted in NO_WGMMA_SOURCES.items()}
+    emit({"phase": "build", "check": "SASS of B12's multi-leaf kernel "
+          "(both gradient dtypes): HGMMA, UTMALDG and WARPGROUP.DEPBAR "
+          "expected 0 -- it streams 16-byte vectors through ordinary "
+          "loads and does no matrix product", "sass": plain})
+    for name, wanted in NO_WGMMA_SOURCES.items():
+        for kern in wanted:
+            n = plain[name][kern]
+            if n is None or n["HGMMA"] or n["WARPGROUP.DEPBAR"]:
+                raise AssertionError(f"{name}: {kern} is missing or holds "
+                                     f"wgmma: {n}")
+    # the body without the key bias is one code in both sources: K1's copy
+    # (mha_block) and B5's (flash_attention_sm90), instruction for
+    # instruction, so the KBIAS flag leaves them as they were
+    body = "attention_fwd_sm90<2, false>"
+    same = funcs["mha_block"].get(body) == funcs["flash_attention_sm90"].get(
+        body)
+    emit({"phase": "build", "check": f"{body}: mha_block's SASS equal to "
+          f"flash_attention_sm90's", "equal": same,
+          "instructions": len(funcs["mha_block"].get(body) or [])})
+    if not same:
+        raise AssertionError(f"{body} differs between mha_block and "
+                             f"flash_attention_sm90")
 
 
 SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP", "LDGSTS", "WARPGROUP.DEPBAR")
 
 
-def sass_counts(so: Path) -> dict:
-    """{kernel: {instruction: count}} of SASS_OPS in a built library, from
-    ``cuobjdump -sass`` (the CUDA toolkit's, beside nvcc)."""
+def sass_functions(so: Path) -> dict:
+    """{kernel: its SASS lines} of a built library, from ``cuobjdump
+    -sass`` (the CUDA toolkit's, beside nvcc). A kernel templated on
+    integer or bool literals only is named with them
+    (``attention_fwd_sm90<2, true>``), any other by its bare name (its
+    instantiations' lines joined)."""
     import re
 
     from vitx_torch.kernels import _build
@@ -477,19 +543,43 @@ def sass_counts(so: Path) -> dict:
     tool = Path(_build._nvcc()).parent / "cuobjdump"
     text = subprocess.run([str(tool), "-sass", str(so)], capture_output=True,
                           text=True, check=True, timeout=300).stdout
-    counts, kern = {}, None
+    funcs, kern = {}, None
     for line in text.splitlines():
         if "Function :" in line:
             mangled = line.split("Function :")[1].strip()
             m = re.search(r"_ZN4vitx(\d+)", mangled)
-            kern = (mangled[m.end():m.end() + int(m.group(1))] if m
-                    else mangled)
-            counts.setdefault(kern, dict.fromkeys(SASS_OPS, 0))
+            if m:
+                end = m.end() + int(m.group(1))
+                kern = mangled[m.end():end]
+                t = re.match(r"I((?:L[a-z]\d+E)+)E", mangled[end:])
+                if t:
+                    args = re.findall(r"L([a-z])(\d+)E", t.group(1))
+                    kern += "<" + ", ".join(
+                        ({"0": "false", "1": "true"}[v] if ty == "b" else v)
+                        for ty, v in args) + ">"
+            else:
+                kern = mangled
+            funcs.setdefault(kern, [])
         elif kern is not None:
-            for op in SASS_OPS:
-                if op in line:
-                    counts[kern][op] += 1
-    return counts
+            funcs[kern].append(" ".join(line.split()))
+    return funcs
+
+
+def sass_counts(funcs: dict) -> dict:
+    """{kernel: {instruction: count}} of SASS_OPS in ``sass_functions``'
+    kernels."""
+    return {kern: {op: sum(op in line for line in lines) for op in SASS_OPS}
+            for kern, lines in funcs.items()}
+
+
+def sass_of(counts_: dict, kern: str):
+    """``kern``'s counts: its own, or, for a bare name, the sum over its
+    instantiations; None where the library has no such kernel."""
+    hits = [c for k, c in counts_.items()
+            if k == kern or ("<" not in kern and k.startswith(kern + "<"))]
+    if not hits:
+        return None
+    return {op: sum(c[op] for c in hits) for op in SASS_OPS}
 
 
 def phase_kernels(errs: dict):
@@ -693,10 +783,12 @@ def check_mean_probs_block(B, T, E, H, dtype, tol, errs: dict) -> None:
 
 def tome_inputs(B, T, E, H, dtype, seed, device="cuda"):
     """x and B8's other inputs at (B, T, E): random nonzero bqkv, and
-    log_size in [0, log 6] (tokens standing for 1 to 6 originals)."""
+    log_size in [0, log 40] (tokens standing for 1 to 40 originals, as
+    large16_384's last ToMe blocks reach: a row's max moves between key
+    tiles, so the sm90 body's rescale runs)."""
     x, mha, _ = block_inputs(B, T, E, H, E, dtype, seed, device)
     rng = np.random.default_rng(seed + 1)
-    sizes = 1.0 + 5.0 * rng.random((B, T))
+    sizes = 1.0 + 39.0 * rng.random((B, T))
     tome = dict(mha, bqkv=seeded((3, H, E // H), seed + 2, 0.1,
                                  device=device),
                 log_size=torch.from_numpy(np.log(sizes).astype(np.float32))
@@ -705,41 +797,56 @@ def tome_inputs(B, T, E, H, dtype, seed, device="cuda"):
 
 
 def check_tome_block(B, T, E, H, dtype, tol, errs: dict) -> None:
-    """B8 against ``mha_block_tome_plain`` (out and k_mean); k_mean twice,
-    bit for bit; with zero bqkv and log_size, its out equal to K1's bit for
-    bit on the bodies they share (the GEMM and attention_fwd.cuh)."""
+    """B8 against ``mha_block_tome_plain`` (out and k_mean): the wrapper's
+    route (in bf16 at D 64 the sm90 GEMM and the KBIAS sm90 attention,
+    counted in launches_attn_sm90), and in bf16 the GEMM-only route (the
+    sm90 GEMM with attention_fwd.cuh) and the earlier kernels (route 0) on
+    the same
+    inputs; k_mean twice, bit for bit; with zero bqkv and log_size, its out
+    equal to K1's on K1's own full route bit for bit."""
     from vitx_torch.kernels import fused_mha_block_tome, mha_block_tome_plain
 
+    tmha = block_module()
     x, tm = tome_inputs(B, T, E, H, dtype, 60 + T)
     info = {"batch": B, "shape": [B, T, E], "dtype": str(dtype)}
     bf = dtype == torch.bfloat16
+    route = tmha.mha_route(dtype, E, H, tensors=(x, tm["wqkv"], tm["wo"]))
+    n90 = fused_mha_block_tome.launches_attn_sm90
     out = fused_mha_block_tome(x, **tm)
     torch.cuda.synchronize()
+    attn90 = fused_mha_block_tome.launches_attn_sm90 - n90
+    if attn90 != bool(route & tmha.ROUTE_ATTN_SM90):
+        raise AssertionError(f"B8 {info}: {attn90} sm90 attention launches "
+                             f"on route {route}")
     ref = mha_block_tome_plain(x, **tm)
     check("kernels", "fused_mha_block_tome (out, k_mean)", out, ref, tol,
-          errs if bf else None, "fused_mha_block_tome_sm90", **info)
-    if bf:   # the earlier route (gemm_kernel) on the same inputs
-        check("kernels", "fused_mha_block_tome, the earlier route (out, "
-              "k_mean)", tome_earlier(x, tm), ref, tol, errs,
-              "fused_mha_block_tome", **info)
+          errs if bf else None, "fused_mha_block_tome_sm90", route=route,
+          **info)
+    if bf:   # the GEMM-only route and the earlier kernels, same inputs
+        check("kernels", "fused_mha_block_tome, the earlier route: the "
+              "sm90 GEMM with attention_fwd.cuh (out, k_mean)",
+              tome_earlier(x, tm, route=tmha.ROUTE_GEMM_SM90), ref, tol,
+              **info)
+        check("kernels", "fused_mha_block_tome, the earlier kernels: "
+              "gemm_kernel and attention_fwd.cuh (out, k_mean)",
+              tome_earlier(x, tm), ref, tol, errs, "fused_mha_block_tome",
+              **info)
     if not torch.equal(fused_mha_block_tome(x, **tm)[1], out[1]):
         raise AssertionError(f"B8 {info}: two calls' k_mean differ")
     zero = dict(tm, bqkv=torch.zeros_like(tm["bqkv"]),
                 log_size=torch.zeros_like(tm["log_size"]))
-    # K1 on its own route with the attention on B8's body
-    # (attention_fwd.cuh): in bf16 at D 64 K1's route takes B5's sm90 body,
-    # whose p rounds at the running max, so bits agree only on the shared one
-    tmha = block_module()
-    route = tmha.mha_route(dtype, E, H, tensors=(x, tm["wqkv"], tm["wo"]))
+    # K1 on its own full route: in bf16 at D 64 the same sm90 GEMM and
+    # attention body, without the key bias
     st = torch.empty((2, B, H, T), dtype=torch.float32, device="cuda")
-    k1 = tmha._launch(x, tm["wqkv"], tm["wo"], tm["bo"], tm["g"], tm["b"],
-                      1e-5, extra=(st,),
-                      route=route & ~tmha.ROUTE_ATTN_SM90)[0]
+    k1, *_, k1_route = tmha._launch(x, tm["wqkv"], tm["wo"], tm["bo"],
+                                    tm["g"], tm["b"], 1e-5, extra=(st,))
+    if k1_route != route:
+        raise AssertionError(f"B8 {info}: route {route}, K1's {k1_route}")
     if not torch.equal(fused_mha_block_tome(x, **zero)[0], k1):
         raise AssertionError(f"B8 {info}: zero biases differ from K1")
     emit({"phase": "kernels", "check": "fused_mha_block_tome k_mean "
-          "bit-identical twice; zero biases bit-equal to K1 on B8's "
-          "attention body", **info})
+          "bit-identical twice; zero biases bit-equal to K1 on K1's full "
+          "route", "route": route, "attn_sm90_launches": attn90, **info})
 
 
 def block_module():
@@ -750,14 +857,17 @@ def block_module():
     return importlib.import_module("vitx_torch.kernels.mha_block")
 
 
-def tome_earlier(x, tm, eps=1e-5):
-    """B8 on the earlier route (gemm_kernel) through its launcher -> (out,
-    k_mean); counts nothing."""
+def tome_earlier(x, tm, eps=1e-5, route=0):
+    """B8 on an earlier route through its launcher -> (out, k_mean): the
+    earlier kernels (gemm_kernel, attention_fwd.cuh) by default, the
+    GEMM-only route (the sm90 GEMM, attention_fwd.cuh) with ``route``
+    ROUTE_GEMM_SM90; counts nothing."""
     k_mean = torch.empty((*x.shape[:2], tm["wqkv"].shape[3]), dtype=x.dtype,
                          device=x.device)
     out = block_module()._launch(
         x, tm["wqkv"], tm["wo"], tm["bo"], tm["g"], tm["b"], eps,
-        "mha_block_tome", (tm["bqkv"], tm["log_size"], k_mean), route=0)[0]
+        "mha_block_tome", (tm["bqkv"], tm["log_size"], k_mean),
+        route=route)[0]
     return out, k_mean
 
 
@@ -846,12 +956,14 @@ def check_block(B, T, E, H, dtype, tol, errs: dict, mha: bool = True):
 
 
 def wrappers() -> dict:
-    """name -> (wrapper, the attribute that counts its launches)."""
+    """name -> (wrapper, the attribute that counts its launches), for the
+    rows and EXTRA_COUNTERS."""
     import vitx_torch.kernels as k
 
-    return {name: (getattr(k, COUNTERS.get(name, (name,))[0]),
-                   COUNTERS.get(name, (name, "launches"))[1])
-            for name in KERNELS}
+    every = {**COUNTERS, **EXTRA_COUNTERS}
+    return {name: (getattr(k, every.get(name, (name,))[0]),
+                   every.get(name, (name, "launches"))[1])
+            for name in (*KERNELS, *EXTRA_COUNTERS)}
 
 
 def reset_counts():
@@ -865,8 +977,9 @@ def counts():
 
 
 def launches_of(**per: int) -> dict:
-    """A launch count for every kernel: ``per``'s, else 0."""
-    return {name: per.get(name, 0) for name in KERNELS}
+    """A launch count for every kernel and extra counter: ``per``'s, else
+    0."""
+    return {name: per.get(name, 0) for name in (*KERNELS, *EXTRA_COUNTERS)}
 
 
 def gemm_sm90(cfg) -> tuple:
@@ -885,11 +998,19 @@ def gemm_sm90(cfg) -> tuple:
 def block_launches(cfg, **per: int) -> dict:
     """``launches_of(**per)`` plus, for each block kernel in ``per``, its
     sm90 row (BLOCK_SM90) with the same count where ``cfg`` takes the sm90
-    GEMM, else 0."""
+    GEMM, else 0; and B8's sm90 attention launches, where ``cfg`` takes
+    that attention (``mha_route``: bf16 at D 64)."""
+    import importlib
+
+    mha = importlib.import_module("vitx_torch.kernels.mha_block")
     mha90, mlp90 = gemm_sm90(cfg)
     sm90_rows = {BLOCK_SM90[k]: n * (mlp90 if k == "fused_mlp_block"
                                      else mha90)
                  for k, n in per.items() if k in BLOCK_SM90}
+    attn90 = bool(mha.mha_route(cfg.cdtype(), cfg.embed_dim, cfg.num_heads)
+                  & mha.ROUTE_ATTN_SM90)
+    sm90_rows["fused_mha_block_tome_attn_sm90"] = per.get(
+        "fused_mha_block_tome", 0) * attn90
     return launches_of(**per, **sm90_rows)
 
 
@@ -1112,19 +1233,95 @@ def phase_grad(errs: dict):
           "seconds": time.perf_counter() - t0})
     # B12 on a base16 leaf (the stacked block W1), float32 and bf16 grads
     shape = (12, E, 4 * E)
+    kw = dict(lr=1e-4, c1=0.271, c2=0.002997, b1=0.9, b2=0.999, eps=1e-8,
+              wd=1e-4)
     for gdt in (torch.float32, torch.bfloat16):
         p = seeded(shape, 10, 0.02)
         g = seeded(shape, 11, 1e-3, dtype=gdt)
         mu = seeded(shape, 12, 1e-4)
         nu = seeded(shape, 13, 1e-6).abs()
-        kw = dict(lr=1e-4, c1=0.271, c2=0.002997, b1=0.9, b2=0.999,
-                  eps=1e-8, wd=1e-4)
         ref = adamw_plain(p, g, mu, nu, **kw)
         fused_adamw_(p, g, mu, nu, **kw)
         torch.cuda.synchronize()
         check("grad", "fused_adamw_ (p, mu, nu)", (p, mu, nu), ref,
               FP32_TOL, errs, "fused_adamw_", grad_dtype=str(gdt),
               elements=p.numel())
+        bitwise("grad", "fused_adamw_ (p, mu, nu)", (p, mu, nu), ref)
+    del p, g, mu, nu, ref
+    check_adamw_multi(kw, errs)
+
+
+def bitwise(phase: str, what: str, out, ref, **info) -> None:
+    """Raise unless ``out`` and ``ref`` (sequences of tensors) agree bit
+    for bit."""
+    same = all(torch.equal(o, r) for o, r in zip(out, ref))
+    emit({"phase": phase, "check": f"{what} bit for bit", "equal": same,
+          **info})
+    if not same:
+        raise AssertionError(f"{what} {info}: not bit-identical")
+
+
+def check_adamw_multi(kw, errs: dict) -> None:
+    """B12's multi-leaf kernel against adamw_multi_plain, bit for bit, one
+    launch per call: every leaf of the base16 state, with fp32 and with
+    bf16 gradients; then leaves of ragged sizes as views at element
+    offsets 0-2 (scalar heads and tails, and pointers not co-aligned),
+    with fp32 and bf16 gradients together: one launch per dtype."""
+    import vitx_torch
+    from vitx_torch.kernels import adamw_multi_plain, fused_adamw_multi_
+    from vitx_torch.nn.vit import init_params
+    from vitx_torch.train.step import leaves
+
+    ps = leaves(init_params(0, vitx_torch.get_config("base16")))
+    n = sum(t.numel() for t in ps)
+    gen = torch.Generator("cuda").manual_seed(30)
+
+    def rand(t, scale):
+        return torch.randn(t.shape, device="cuda", generator=gen) * scale
+
+    for gdt in (torch.float32, torch.bfloat16):
+        gs = [rand(t, 1e-3).to(gdt) for t in ps]
+        mus = [rand(t, 1e-4) for t in ps]
+        nus = [rand(t, 1e-6).abs() for t in ps]
+        ref = adamw_multi_plain(ps, gs, mus, nus, **kw)
+        n0 = fused_adamw_multi_.launches
+        fused_adamw_multi_(ps, gs, mus, nus, **kw)
+        torch.cuda.synchronize()
+        got = fused_adamw_multi_.launches - n0
+        info = {"grad_dtype": str(gdt), "leaves": len(ps), "elements": n,
+                "launches": got}
+        check("grad", "fused_adamw_multi_ (p, mu, nu), every base16 leaf",
+              [*ps, *mus, *nus], [*ref[0], *ref[1], *ref[2]], FP32_TOL,
+              errs, "fused_adamw_multi_", **info)
+        bitwise("grad", "fused_adamw_multi_, every base16 leaf",
+                [*ps, *mus, *nus], [*ref[0], *ref[1], *ref[2]], **info)
+        if got != 1:
+            raise AssertionError(f"fused_adamw_multi_ {info}: {got} "
+                                 f"launches, expected 1")
+        del gs, mus, nus, ref
+    del ps
+    sizes = (1, 3, 5, 1025, 65536 + 5, 3 * 768 * 768)
+    for off in (0, 1, 2):
+        def leaf(i, m, seed, scale, dtype=torch.float32, o=off):
+            return seeded((m + 4,), seed + i, scale, dtype=dtype)[o:o + m]
+        ps = [leaf(i, m, 200, 0.02) for i, m in enumerate(sizes)]
+        # alternate leaves' gradients bf16, at another offset
+        gs = [leaf(i, m, 210, 1e-3, torch.bfloat16 if i % 2 else
+                   torch.float32, (off + i) % 3) for i, m in enumerate(sizes)]
+        mus = [leaf(i, m, 220, 1e-4) for i, m in enumerate(sizes)]
+        nus = [leaf(i, m, 230, 1e-6).abs() for i, m in enumerate(sizes)]
+        ref = adamw_multi_plain(ps, gs, mus, nus, **kw)
+        n0 = fused_adamw_multi_.launches
+        fused_adamw_multi_(ps, gs, mus, nus, **kw)
+        torch.cuda.synchronize()
+        got = fused_adamw_multi_.launches - n0
+        bitwise("grad", "fused_adamw_multi_, ragged views", [*ps, *mus, *nus],
+                [*ref[0], *ref[1], *ref[2]], offset=off, sizes=list(sizes),
+                launches=got)
+        if got != 2:
+            raise AssertionError(f"fused_adamw_multi_ at offset {off}: {got} "
+                                 f"launches, expected 2 (fp32 and bf16 "
+                                 f"gradients)")
 
 
 def phase_forward(cfg, params):
@@ -1212,19 +1409,19 @@ def sm90(cfg) -> bool:
     return cfg.compute_dtype == "bfloat16" and cfg.head_dim == 64
 
 
-def expected_train_launches(cfg, n_leaves: int, steps: int,
-                            fused_steps: int) -> dict:
+def expected_train_launches(cfg, steps: int, fused_steps: int,
+                            grad_dtypes: int = 1) -> dict:
     """Launches per the code's routing: one K1 and one B2 per block, B2 on
     its sm90 route in bf16 at D 64; B3 for LN1 (inside K1's backward) and
     LN2 of every block, the reference head's LayerNorm and the final norm;
-    K2 off under grad (fuse_mlp "auto"); B12 once per leaf in the fused
-    steps."""
+    K2 off under grad (fuse_mlp "auto"); B12's multi-leaf kernel once per
+    gradient dtype in the fused steps, its one-leaf kernel never."""
     b3 = 2 * cfg.depth + (cfg.head_type == "reference") + int(cfg.final_norm)
     return block_launches(cfg, fused_mha_block=cfg.depth * steps,
                        attention_bwd=cfg.depth * steps,
                        attention_bwd_sm90=cfg.depth * steps * sm90(cfg),
                        ln_bwd=b3 * steps,
-                       fused_adamw_=n_leaves * fused_steps)
+                       fused_adamw_multi_=grad_dtypes * fused_steps)
 
 
 def leaf_names(tree, prefix: str = "") -> list:
@@ -1336,7 +1533,8 @@ def phase_train(ds) -> tuple:
     fused = make_optimizer(lr=1e-4, fused=True)
     state = create_train_state(0, cfg, opt)
     step, fused_step = (make_train_step(cfg, o) for o in (opt, fused))
-    n_leaves = len(leaves(state.params))
+    # the gradients take their params' dtypes
+    grad_dtypes = len({t.dtype for t in leaves(state.params)})
     losses = []
     reset_counts()
     t0 = time.perf_counter()
@@ -1347,7 +1545,7 @@ def phase_train(ds) -> tuple:
     wall = time.perf_counter() - t0
     launches = counts()
     losses = [float(v) for v in losses]
-    expect = expected_train_launches(cfg, n_leaves, 25, 5)
+    expect = expected_train_launches(cfg, 25, 5, grad_dtypes)
     cm, eval_loss = eval_step(state.params, batch, cfg=cfg)
     emit({"phase": "train", "part": "b: base16 bf16 batch 128, 20 + 5 "
           "fused steps", "losses": losses, "launches": launches,
@@ -1396,7 +1594,6 @@ def phase_finetune(ds) -> tuple:
     from vitx_torch.nn.vit import init_params
     from vitx_torch.train import (TrainState, eval_step, make_optimizer,
                                   make_train_step)
-    from vitx_torch.train.step import leaves
 
     src = vitx_torch.get_config("base16")
     cfg = src.replace(image_size=512)
@@ -1439,7 +1636,6 @@ def phase_finetune(ds) -> tuple:
     opt = make_optimizer(lr=1e-4)
     state = TrainState(0, card, opt.init(card))
     step = make_train_step(cfg, opt)
-    n_leaves = len(leaves(card))
     losses = []
     reset_counts()
     t0 = time.perf_counter()
@@ -1450,7 +1646,7 @@ def phase_finetune(ds) -> tuple:
     wall = time.perf_counter() - t0
     got = counts()
     losses = [float(v) for v in losses]
-    expect = expected_train_launches(cfg, n_leaves, 10, 0)
+    expect = expected_train_launches(cfg, 10, 0)
     cm, eval_loss = eval_step(state.params, batch, cfg=cfg)
     emit({"phase": "finetune", "part": "c: base16 512² bf16 batch 32, 10 "
           "steps", "losses": losses, "launches": got, "expected": expect,
@@ -1502,7 +1698,7 @@ def card_rel_err(a, b) -> float:
 def delta(before: dict) -> dict:
     """The launches since the ``counts()`` snapshot ``before``."""
     now = counts()
-    return {k: now[k] - before[k] for k in KERNELS}
+    return {k: now[k] - before[k] for k in now}
 
 
 def expect_launches(what: str, got: dict, expect: dict) -> None:
@@ -1535,7 +1731,8 @@ def gradcam_launches(cfg, calls: int = 1) -> dict:
 
 
 def add_launches(*dicts) -> dict:
-    return {k: sum(d.get(k, 0) for d in dicts) for k in KERNELS}
+    return {k: sum(d.get(k, 0) for d in dicts)
+            for k in (*KERNELS, *EXTRA_COUNTERS)}
 
 
 def explain_images(cfg, n: int, seed: int) -> np.ndarray:
@@ -1932,20 +2129,26 @@ def phase_times(cfg, params, errs: dict, launches: dict) -> list:
 
 
 def block_rows(name, kern, earlier, plain, lib, flops, nbytes, launches,
-               errs, **extra) -> list:
+               errs, was=None, was_what=None, **extra) -> list:
     """A block kernel's two rows on the same bf16 inputs: ``name``, the
     earlier route (gemm_kernel, attention_fwd.cuh) through its launcher,
     which the wrapper keeps for fp32 and shapes TMA cannot take; and its
     sm90 row, the wrapper's own call, with the earlier route's time beside
-    it as ``was_ms``."""
-    was = kernel_row(name, earlier, plain, lib, flops, PEAK_BF16_FLOPS,
-                     nbytes, launches, errs, timed="the earlier route on "
-                     "bf16 through its launcher; the wrapper sends these "
-                     "inputs to " + BLOCK_SM90[name], **extra)
+    it as ``was_ms`` -- or, given ``was`` (described by ``was_what``), that
+    call's time, taken between the two rows."""
+    base = kernel_row(name, earlier, plain, lib, flops, PEAK_BF16_FLOPS,
+                      nbytes, launches, errs, timed="the earlier route on "
+                      "bf16 through its launcher; the wrapper sends these "
+                      "inputs to " + BLOCK_SM90[name], **extra)
+    more = {"was_ms": base["ms"]}
+    if was is not None:
+        runs = [cuda_ms(was, reps=20), cuda_ms(was, reps=20)]
+        more = {"was_ms": min(runs), "was": was_what, "was_ms_runs": runs,
+                "earlier_kernels_ms": base["ms"]}
     now = kernel_row(BLOCK_SM90[name], kern, plain, lib, flops,
-                     PEAK_BF16_FLOPS, nbytes, launches, errs,
-                     was_ms=was["ms"], **extra)
-    return [was, now]
+                     PEAK_BF16_FLOPS, nbytes, launches, errs, **more,
+                     **extra)
+    return [base, now]
 
 
 def kernel_row(name, kern, plain, lib, flops, peak, nbytes, launches,
@@ -2018,13 +2221,15 @@ def phase_train_times(cfg, state, batch, step, launches: dict,
                       train_launches: dict, errs: dict) -> list:
     """The train step at batch 128 bf16 (img/s, profiler split), and the
     training kernels' rows at its shapes: B2 and B3 per call, B12 per step
-    over every leaf; K1 and K2 with their stash. ``per_step`` is from the
-    train path's launches (25 steps, the last 5 fused)."""
+    over every leaf (fused_adamw_, a launch per leaf; fused_adamw_multi_,
+    the step's one launch, with the former's time as was_ms); K1 and K2
+    with their stash. ``per_step`` is from the train path's launches (25
+    steps, the last 5 fused)."""
     import torch.nn.functional as F
 
-    from vitx_torch.kernels import (adamw_plain, fused_adamw_,
-                                    fused_mha_block, fused_mlp_block,
-                                    ln_bwd, ln_bwd_plain)
+    from vitx_torch.kernels import (adamw_multi_plain, fused_adamw_,
+                                    fused_adamw_multi_, fused_mha_block,
+                                    fused_mlp_block, ln_bwd, ln_bwd_plain)
     from vitx_torch.train.step import leaves
 
     B = batch["image"].shape[0]
@@ -2075,19 +2280,27 @@ def phase_train_times(cfg, state, batch, step, launches: dict,
     for prm, g in zip(lib_opt.param_groups[0]["params"], gs):
         prm.grad = g
 
-    def fused_all():
+    def per_leaf():
         for a, b, c, d in zip(ps, gs, mus, nus):
             fused_adamw_(a, b, c, d, **kw)
 
     def plain_all():
-        for a, b, c, d in zip(ps, gs, mus, nus):
-            adamw_plain(a, b, c, d, **kw)
+        adamw_multi_plain(ps, gs, mus, nus, **kw)
 
-    rows.append(kernel_row(
-        "fused_adamw_", fused_all, plain_all, lib_opt.step,
+    was = kernel_row(
+        "fused_adamw_", per_leaf, plain_all, lib_opt.step,
         15 * n, PEAK_FP32_FLOPS, 7 * 4 * n, launches, errs,
         leaves=len(ps), elements=n,
-        per_step=train_launches.get("fused_adamw_", 0) // 5))
+        per_step=train_launches.get("fused_adamw_", 0) // 5,
+        timed="a launch per leaf, the step's update before the multi-leaf "
+              "kernel")
+    rows += [was, kernel_row(
+        "fused_adamw_multi_",
+        lambda: fused_adamw_multi_(ps, gs, mus, nus, **kw), plain_all,
+        lib_opt.step, 15 * n, PEAK_FP32_FLOPS, 7 * 4 * n, launches, errs,
+        leaves=len(ps), elements=n, was_ms=was["ms"],
+        per_step=train_launches.get("fused_adamw_multi_", 0) // 5,
+        entry_ms=adamw_entry_ms(ps, gs, mus, nus, kw))]
     # K1 and K2 with their stash at the step's shapes
     x, mha, mlp = block_inputs(B, T, E, H, cfg.mlp_dim, bf, 28, "cuda")
     stash = {   # the wrappers' calls: the sm90 rows
@@ -2099,6 +2312,29 @@ def phase_train_times(cfg, state, batch, step, launches: dict,
     }
     emit({"phase": "times", "what": "stash", "batch": B, "ms": stash})
     return rows, stash
+
+
+def adamw_entry_ms(ps, gs, mus, nus, kw) -> list:
+    """Two medians of B12's multi-leaf C entry alone over fp32-gradient
+    leaves, its pointer table built once: the kernel without the
+    wrapper's per-leaf checks in Python."""
+    import ctypes
+
+    from vitx_torch.kernels import _build
+
+    fn = _build.entry("adamw_multi")
+    ptrs = (ctypes.c_longlong * (4 * len(ps)))(
+        *(t.data_ptr() for leaf in zip(ps, gs, mus, nus) for t in leaf))
+    numels = (ctypes.c_longlong * len(ps))(*(t.numel() for t in ps))
+    args = (0, len(ps), ctypes.addressof(ptrs), ctypes.addressof(numels),
+            kw["lr"], kw["c1"], kw["c2"], kw["b1"], 1.0 - kw["b1"],
+            kw["b2"], 1.0 - kw["b2"], kw["eps"], kw["wd"],
+            torch.cuda.current_stream().cuda_stream)
+
+    def call():
+        _build.check("adamw_multi", fn(*args))
+
+    return [cuda_ms(call, reps=20), cuda_ms(call, reps=20)]
 
 
 def phase_explain_times(cfg, params, errs: dict, launches: dict) -> list:
@@ -2325,15 +2561,19 @@ def phase_tome(cfg, params, large, large_params) -> dict:
 
 
 def tome_kernel_rows(base, large, errs: dict, launches: dict) -> list:
-    """B8's rows (``block_rows``: the earlier route, and the sm90 one), bf16:
-    their numbers at base16's first r=13 block (256, 197),
-    and under ``shapes`` those at (256, 197), the last block (256, 54) and
-    large16_384's T 577 and 416 at batch 32, where vitx takes B9. The
-    library call: F.layer_norm, F.linear with the QKV bias, SDPA with
-    log_size as its additive mask, F.linear, and k's mean over the heads."""
+    """B8's rows (``block_rows``: the earlier kernels, and the sm90 route
+    with the sm90 attention, the GEMM-only route -- the sm90 GEMM with
+    attention_fwd.cuh -- as its was_ms), bf16: their numbers at base16's
+    first r=13 block (256, 197), and under ``shapes`` those at (256, 197),
+    the last block (256, 54) and large16_384's T 577 and 416 at batch 32,
+    where vitx takes B9. The library call: F.layer_norm, F.linear with the
+    QKV bias, SDPA with log_size as its additive mask, F.linear, and k's
+    mean over the heads."""
     import torch.nn.functional as F
 
     from vitx_torch.kernels import fused_mha_block_tome, mha_block_tome_plain
+
+    tmha = block_module()
 
     bf = torch.bfloat16
     rows = []
@@ -2362,13 +2602,21 @@ def tome_kernel_rows(base, large, errs: dict, launches: dict) -> list:
             lambda: fused_mha_block_tome(x, **tm, eps=eps),
             lambda: tome_earlier(x, tm, eps),
             lambda: mha_block_tome_plain(x, **tm, eps=eps), lib, flops,
-            nbytes, launches, errs, shape=[B, T, E]))
+            nbytes, launches, errs,
+            was=lambda: tome_earlier(x, tm, eps,
+                                     route=tmha.ROUTE_GEMM_SM90),
+            was_what="the GEMM-only route: the sm90 GEMM with "
+                     "attention_fwd.cuh",
+            shape=[B, T, E]))
         del x, tm
     keep = ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-            "tflops", "was_ms")
-    return [dict(shapes_[0], shapes=[{k: r[k] for k in keep if k in r}
-                                     for r in shapes_])
-            for shapes_ in zip(*rows)]
+            "tflops", "was_ms", "earlier_kernels_ms")
+    out = [dict(shapes_[0], shapes=[{k: r[k] for k in keep if k in r}
+                                    for r in shapes_])
+           for shapes_ in zip(*rows)]
+    out[1]["launches_attn_sm90"] = launches.get(
+        "fused_mha_block_tome_attn_sm90")
+    return out
 
 
 def phase_tome_times(cfg, params, large, large_params, errs: dict,
@@ -2376,7 +2624,13 @@ def phase_tome_times(cfg, params, large, large_params, errs: dict,
     """The ToMe forward at bench configs 6 and 8's operating points
     (base16 b256 at r=13 and (35, 34); large16_384 b32 at r=23 and
     (65, 64 x 6)) in img/s, a profiler split at r=13 and r=23, and B8's
-    rows (``tome_kernel_rows``)."""
+    rows (``tome_kernel_rows``). At r=13 and r=23 the same forward with
+    B8 on its GEMM-only route (``gemm_only_tome_route``) in turns with
+    this one (now, was, now, was), each profiled once: the device's busy
+    share before and after; and B8's host time a call on both routes at a
+    small shape,
+    where the card waits for the host (the sm90 attention encodes three
+    tensor maps a launch)."""
     from vitx_torch import forward
 
     gen = torch.Generator("cuda").manual_seed(15)
@@ -2389,14 +2643,65 @@ def phase_tome_times(cfg, params, large, large_params, errs: dict,
                            generator=gen).to(torch.bfloat16)
         ms = cuda_ms(lambda: forward(p, imgs, c), reps=10)
         what = f"tome_forward {c.image_size} r={c.tome_r}"
-        emit({"phase": "times", "what": what, "batch": B, "ms": ms,
-              "img_per_s": B / (ms / 1000.0),
-              "tokens_last_block": c.seq_len - sum(c.tome_schedule[:-1])})
+        row = {"phase": "times", "what": what, "batch": B, "ms": ms,
+               "img_per_s": B / (ms / 1000.0),
+               "tokens_last_block": c.seq_len - sum(c.tome_schedule[:-1])}
         if isinstance(c.tome_r, int):
             profile_call(what, lambda: forward(p, imgs, c), top=16)
+            runs, was = [ms], []
+            for i in range(3):
+                if i % 2 == 0:
+                    with gemm_only_tome_route():
+                        was.append(cuda_ms(lambda: forward(p, imgs, c),
+                                           reps=10))
+                else:
+                    runs.append(cuda_ms(lambda: forward(p, imgs, c),
+                                        reps=10))
+            with gemm_only_tome_route():
+                profile_call(f"{what}, B8 on the GEMM-only route",
+                             lambda: forward(p, imgs, c), top=16)
+            row.update(ms_runs=runs, was_ms_runs=was, was="B8 on the "
+                       "GEMM-only route (the sm90 GEMM with "
+                       "attention_fwd.cuh)")
+        emit(row)
         del imgs
     torch.cuda.empty_cache()
+    host = {}
+    x, tm = tome_inputs(1, 48, large.embed_dim, large.num_heads,
+                        torch.bfloat16, 9)
+    tmha = block_module()
+    now = tmha.ROUTE_GEMM_SM90 | tmha.ROUTE_ATTN_SM90
+    for name, route in (("sm90 attention", now),
+                        ("GEMM-only route", tmha.ROUTE_GEMM_SM90),
+                        ("sm90 attention again", now)):
+        for _ in range(5):
+            tome_earlier(x, tm, route=route)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            tome_earlier(x, tm, route=route)
+        host[name] = (time.perf_counter() - t0) / 200 * 1e6
+        torch.cuda.synchronize()
+    emit({"phase": "times", "what": "B8 host time a call, us, (1, 48, "
+          "1024) bf16 through the launcher (allocations, tensor maps, "
+          "five launches)", "us": host})
+    del x, tm
     return tome_kernel_rows(cfg, large, errs, launches)
+
+
+class gemm_only_tome_route:
+    """A context in which B8's wrapper keeps its attention on
+    attention_fwd.cuh (the GEMM-only route: the sm90 GEMM, the earlier
+    attention), for a comparison inside one call."""
+
+    def __enter__(self):
+        self.tmha = block_module()
+        self.saved = self.tmha.ATTN_SM90_ENTRIES
+        self.tmha.ATTN_SM90_ENTRIES = tuple(
+            e for e in self.saved if e != "mha_block_tome")
+
+    def __exit__(self, *exc):
+        self.tmha.ATTN_SM90_ENTRIES = self.saved
 
 
 def phase_finetune_times(cfg, state, batch, step, launches: dict,

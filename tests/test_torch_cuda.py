@@ -21,13 +21,15 @@ import pytest
 import torch
 
 import vitx_torch
-from vitx_torch.kernels import (adamw_plain, attention_bwd,
+from vitx_torch.kernels import (adamw_multi_plain, adamw_plain,
+                                attention_bwd,
                                 attention_bwd_plain, attention_stats_plain,
                                 flash_attention,
                                 flash_attention_fwd_plain,
                                 flash_attention_with_mean_probs,
                                 flash_attention_with_probs,
                                 fused_add_layer_norm, fused_adamw_,
+                                fused_adamw_multi_,
                                 fused_layer_norm, fused_mha_block,
                                 fused_mha_block_tome,
                                 fused_mha_block_with_mean_probs,
@@ -279,6 +281,77 @@ def test_fused_adamw_matches_plain(cuda, numel, gdtype):
         assert rel_err(o, r) <= TOL["float32"]
 
 
+def ragged_leaves(offset, device, gdtypes=("float32", "bfloat16")):
+    """AdamW leaves of ragged sizes as views ``offset`` elements into
+    their buffers (p, mu, nu), the gradients at other offsets and in
+    turn of ``gdtypes``: scalar heads and tails, and pointers that are not
+    co-aligned."""
+    sizes = (1, 3, 5, 1025, 65536 + 5, 4 * 768 + 2)
+
+    def leaf(i, m, seed, scale, dtype="float32", o=offset):
+        return seeded((m + 4,), seed + i, scale, dtype=dtype,
+                      device=device)[o:o + m]
+
+    ps = [leaf(i, m, 100, 0.02) for i, m in enumerate(sizes)]
+    gs = [leaf(i, m, 110, 1e-3, gdtypes[i % len(gdtypes)], (offset + i) % 3)
+          for i, m in enumerate(sizes)]
+    mus = [leaf(i, m, 120, 1e-4) for i, m in enumerate(sizes)]
+    nus = [leaf(i, m, 130, 1e-6).abs() for i, m in enumerate(sizes)]
+    return ps, gs, mus, nus
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gdtypes", [("float32",), ("bfloat16",),
+                                     ("float32", "bfloat16")],
+                         ids=["f32", "bf16", "mixed"])
+@pytest.mark.parametrize("offset", [0, 1, 2])
+def test_fused_adamw_multi_matches_plain(cuda, offset, gdtypes):
+    """B12's multi-leaf kernel bit for bit against ``adamw_multi_plain``
+    over views at an element offset, one launch per gradient dtype."""
+    ps, gs, mus, nus = ragged_leaves(offset, cuda, gdtypes)
+    kw = dict(lr=1e-3, c1=0.19, c2=0.001999, b1=0.9, b2=0.999, eps=1e-8,
+              wd=1e-4)
+    ref = adamw_multi_plain(ps, gs, mus, nus, **kw)
+    n = fused_adamw_multi_.launches
+    fused_adamw_multi_(ps, gs, mus, nus, **kw)
+    torch.cuda.synchronize()
+    assert fused_adamw_multi_.launches == n + len(gdtypes)
+    for got, want in zip((ps, mus, nus), ref):
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_fused_adamw_multi_refuses_what_it_cannot_take(cuda):
+    """A leaf the kernel cannot take raises before any launch: fp64 or
+    non-contiguous moments, a leaf on the CPU."""
+    ps, gs, mus, nus = ragged_leaves(0, cuda)
+    kw = dict(lr=1e-3, c1=0.19, c2=0.001999)
+    n = fused_adamw_multi_.launches
+    for bad in (dict(mus=mus[:-1] + [mus[-1].double()]),
+                dict(nus=nus[:-1] + [torch.zeros(2 * nus[-1].numel(),
+                                                 device=cuda)[::2]]),
+                dict(ps=ps[:-1] + [ps[-1].cpu()])):
+        lists = {**dict(ps=ps, gs=gs, mus=mus, nus=nus), **bad}
+        with pytest.raises((TypeError, ValueError)):
+            fused_adamw_multi_(lists["ps"], lists["gs"], lists["mus"],
+                               lists["nus"], **kw)
+    assert fused_adamw_multi_.launches == n
+
+
+@pytest.mark.cuda
+def test_adamw_plain_divides_as_on_cpu(cuda):
+    """adamw_plain on the card gives the CPU's bits: its bias corrections
+    divide (a Python divisor would make torch multiply by the reciprocal on
+    the card), as vitx's update and the kernels do."""
+    ps, gs, mus, nus = ragged_leaves(0, cuda)
+    kw = dict(lr=1e-3, c1=0.19, c2=0.001999, b1=0.9, b2=0.999, eps=1e-8,
+              wd=1e-4)
+    for p, g, mu, nu in zip(ps, gs, mus, nus):
+        card = adamw_plain(p, g, mu, nu, **kw)
+        host = adamw_plain(p.cpu(), g.cpu(), mu.cpu(), nu.cpu(), **kw)
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(card, host))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_stash_matches_plain(cuda, dtype):
@@ -309,21 +382,22 @@ def test_train_step_on_card_matches_cpu(cuda, fuse_mlp):
         (4, cfg.image_size, cfg.image_size, 3)).astype(np.float32),
         "label": rng.integers(0, cfg.num_classes, 4).astype(np.int32)}
     names = ("fused_mha_block", "fused_mlp_block", "attention_bwd",
-             "ln_bwd", "fused_adamw_")
+             "ln_bwd", "fused_adamw_", "fused_adamw_multi_")
     fns = (fused_mha_block, fused_mlp_block, attention_bwd, ln_bwd,
-           fused_adamw_)
+           fused_adamw_, fused_adamw_multi_)
     before = [f.launches for f in fns]
     on_card = params_to(host, cuda)
     card, m_card = tstep.train_step(
         tstep.TrainState(0, on_card, opt.init(on_card)), batch, cfg=cfg,
         optimizer=opt)
     torch.cuda.synchronize()
-    n_leaves = len(tstep.leaves(host))
     k2 = cfg.depth if fuse_mlp == "on" else 0
+    # B12: one launch over every leaf (the gradients are fp32, as the
+    # params), none a leaf
     assert {n: f.launches - b for n, f, b in zip(names, fns, before)} == {
         "fused_mha_block": cfg.depth, "fused_mlp_block": k2,
         "attention_bwd": cfg.depth, "ln_bwd": 2 * cfg.depth + 1,
-        "fused_adamw_": n_leaves}
+        "fused_adamw_": 0, "fused_adamw_multi_": 1}
     ref, m_ref = tstep.train_step(
         tstep.TrainState(0, host, opt.init(host)), batch, cfg=cfg,
         optimizer=opt, device="cpu")
@@ -335,14 +409,14 @@ def test_train_step_on_card_matches_cpu(cuda, fuse_mlp):
     assert float((dp > 0.01).float().mean()) <= 1e-3
 
 
-def tome_args(B, T, E, H, dtype, device, bias=True, seed=5):
+def tome_args(B, T, E, H, dtype, device, bias=True, seed=5, sizes=6.0):
     """B8's inputs: block_args' attention half plus bqkv (3, H, D) and
-    log_size (B, T) in [0, log 6], or zeros for both."""
+    log_size (B, T) in [0, log ``sizes``], or zeros for both."""
     (x, wqkv, wo, bo, g, b), _ = block_args(B, T, E, H, dtype, device, seed)
     rng = np.random.default_rng(seed + 1)
     bqkv = seeded((3, H, E // H), seed + 2, 0.1, device=device)
-    ls = torch.from_numpy(np.log(1.0 + 5.0 * rng.random((B, T))).astype(
-        np.float32)).to(device)
+    ls = torch.from_numpy(np.log(1.0 + (sizes - 1.0) * rng.random(
+        (B, T))).astype(np.float32)).to(device)
     if not bias:
         bqkv, ls = torch.zeros_like(bqkv), torch.zeros_like(ls)
     return x, wqkv, bqkv, wo, bo, g, b, ls
@@ -374,11 +448,38 @@ def test_tome_block_matches_plain(cuda, T, dtype, bias):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("dims", [(2, 197, 768, 12), (3, 65, 64, 4)])
 def test_tome_block_zero_biases_equal_k1(cuda, dims, dtype):
-    """With zero bqkv and log_size, B8's out is K1's bit for bit, on the
-    attention body they share (``k1_on_shared_attention``)."""
+    """With zero bqkv and log_size, B8's out is K1's bit for bit, K1 on its
+    own full route: B8 takes K1's GEMM and attention (in bf16 at D 64 the
+    sm90 body, whose KBIAS form adds a zero)."""
     x, wqkv, bqkv, wo, bo, g, b, ls = tome_args(*dims, dtype, cuda, False)
     out, _ = fused_mha_block_tome(x, wqkv, bqkv, wo, bo, g, b, ls)
-    assert torch.equal(out, k1_on_shared_attention(x, wqkv, wo, bo, g, b))
+    B, T, E = x.shape
+    st = torch.empty((2, B, wqkv.shape[2], T), device=cuda)
+    assert torch.equal(out, tmha._launch(x, wqkv, wo, bo, g, b, 1e-5,
+                                         extra=(st,))[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", [(768, 12), (1024, 16)],
+                         ids=["base16", "large16_384"])
+@pytest.mark.parametrize("T", [1, 48, 63, 65, 197, 416, 577])
+def test_tome_block_sm90_matches_plain(cuda, T, dims):
+    """B8 in bf16 at D 64 on the sm90 attention (one launch counted in
+    ``launches_attn_sm90``) against its plain version, with log(size) from
+    log 1 to log 40 -- a row's max moves between key tiles -- at T on
+    either side of the 64-key tile and ToMe's shapes of both models; the
+    last image's keys end the bias buffer, so a read past T would fault
+    or show; k_mean twice, bit for bit."""
+    E, H = dims
+    args = tome_args(3, T, E, H, "bfloat16", cuda, seed=T, sizes=40.0)
+    n = fused_mha_block_tome.launches_attn_sm90
+    out, k_mean = fused_mha_block_tome(*args)
+    torch.cuda.synchronize()
+    assert fused_mha_block_tome.launches_attn_sm90 == n + 1
+    ref_out, ref_km = mha_block_tome_plain(*args)
+    assert rel_err(out, ref_out) <= TOL["bfloat16"]
+    assert rel_err(k_mean, ref_km) <= TOL["bfloat16"]
+    assert torch.equal(fused_mha_block_tome(*args)[1], k_mean)
 
 
 @pytest.mark.cuda
@@ -699,8 +800,9 @@ def test_k2_sm90_matches_plain(cuda, dims):
 @pytest.mark.parametrize("dims", [(2, 197, 768, 12), (2, 577, 1024, 16),
                                   (3, 41, 64, 4)])
 def test_b7_b8_on_the_sm90_gemm_match_plain(cuda, dims):
-    """B7 and B8 in bf16: their projections on the sm90 GEMM, their
-    attention on attention_fwd.cuh (head-mean probabilities, key bias)."""
+    """B7 and B8 in bf16: their projections on the sm90 GEMM; B7's
+    attention on attention_fwd.cuh (head-mean probabilities), B8's at D 64
+    on the sm90 body with the key bias, at D 16 on attention_fwd.cuh."""
     B, T, E, H = dims
     mha, _ = block_args(*dims, "bfloat16", cuda)
     n7 = fused_mha_block_with_mean_probs.launches_sm90
@@ -713,9 +815,11 @@ def test_b7_b8_on_the_sm90_gemm_match_plain(cuda, dims):
     log_size = seeded((B, T), 42, 0.5, 1.0, device=cuda)
     args = (mha[0], mha[1], bqkv, *mha[2:], log_size)
     n8 = fused_mha_block_tome.launches_sm90
+    a8 = fused_mha_block_tome.launches_attn_sm90
     out = fused_mha_block_tome(*args)
     torch.cuda.synchronize()
     assert fused_mha_block_tome.launches_sm90 == n8 + 1
+    assert fused_mha_block_tome.launches_attn_sm90 == a8 + (E // H == 64)
     for a, r in zip(out, mha_block_tome_plain(*args)):
         assert rel_err(a, r) <= TOL["bfloat16"]
 

@@ -12,8 +12,10 @@ against vitx's Pallas kernels run in interpret mode (the CPU backend
 - ``torch.autograd.grad`` through ``fused_mha_block`` and
   ``fused_mlp_block`` vs ``jax.vjp`` of vitx's, whose custom VJPs run the
   flash backward in interpret mode;
-- B12 ``fused_adamw_`` vs ``vitx.kernels.adamw.fused_adamw``, and the
-  port's ``make_optimizer`` vs vitx's (optax) over 3 steps.
+- B12 ``fused_adamw_`` vs ``vitx.kernels.adamw.fused_adamw``,
+  ``adamw_multi_plain`` (what ``fused_adamw_multi_``'s kernel computes) vs
+  the same bit for bit over leaves of ragged sizes, and the port's
+  ``make_optimizer`` vs vitx's (optax) over 3 steps.
 
 Tolerances are max |a - b| over max |b|: float32 1e-4, the repo's parity
 bar. bfloat16 bars, each for one kernel against its Pallas twin:
@@ -41,8 +43,9 @@ from vitx.kernels import layer_norm as jln
 from vitx.kernels import mha_block as jmha
 from vitx.kernels import mlp_block as jmlp
 from vitx.train import step as jstep
-from vitx_torch.kernels import (attention_bwd, fused_adamw_, fused_mha_block,
-                                fused_mlp_block, ln_bwd)
+from vitx_torch.kernels import (adamw_multi_plain, attention_bwd,
+                                fused_adamw_, fused_adamw_multi_,
+                                fused_mha_block, fused_mlp_block, ln_bwd)
 from vitx_torch.nn.layers import drop_path, dropout
 from vitx_torch.train import step as tstep
 
@@ -260,6 +263,93 @@ def test_fused_adamw_matches_pallas():
     assert rel_err(tp.numpy(), np.asarray(jp)) <= TOL["float32"]
     assert rel_err(mu.numpy(), np.asarray(state.mu)) <= TOL["float32"]
     assert rel_err(nu.numpy(), np.asarray(state.nu)) <= TOL["float32"]
+
+
+# leaf sizes no (8, 128) tiling takes: vitx's fused_adamw updates them with
+# _update_math outside jit, one IEEE rounding an operation. (Its Pallas
+# kernel, which a 65536-element leaf takes, runs fused by XLA in interpret
+# mode and rounds elsewhere in ~5 % of p's elements, a few ulps:
+# test_fused_adamw_matches_pallas holds it at 1e-4.)
+RAGGED = (1, 3, 1025, 65536 + 5)
+
+
+@pytest.mark.parametrize("gdtype", ["float32", "bfloat16"])
+def test_adamw_multi_plain_matches_vitx_bitwise(gdtype):
+    """``adamw_multi_plain`` over a list of leaves of ragged sizes, 3 steps,
+    bit for bit against vitx's ``fused_adamw``, gradients fp32 or bf16;
+    ``fused_adamw_multi_`` on the CPU writes the same bits in place and
+    launches nothing."""
+    rng = np.random.default_rng(8)
+    ps = [normal(rng, (n,), 0.05) for n in RAGGED]
+    lr, wd = 1e-3, 1e-4
+    tx = jadamw.fused_adamw(lr, weight_decay=wd)
+    jp = {str(i): jnp.asarray(p) for i, p in enumerate(ps)}
+    state = tx.init(jp)
+    tp = [torch.from_numpy(p.copy()) for p in ps]
+    mu = [torch.zeros_like(t) for t in tp]
+    nu = [torch.zeros_like(t) for t in tp]
+    wp, wmu, wnu = ([t.clone() for t in ts] for ts in (tp, mu, nu))
+    n = fused_adamw_multi_.launches
+    for t in range(1, 4):
+        gs = [normal(rng, (m,), 1e-3) for m in RAGGED]
+        jg = {str(i): jnp.asarray(g, getattr(jnp, gdtype))
+              for i, g in enumerate(gs)}
+        jp, state = tx.update(jg, state, jp)
+        tg = [torch.from_numpy(g).to(getattr(torch, gdtype)) for g in gs]
+        kw = dict(lr=lr, c1=float(np.float32(1) - np.float32(0.9)
+                                  ** np.float32(t)),
+                  c2=float(np.float32(1) - np.float32(0.999)
+                           ** np.float32(t)), b1=0.9, b2=0.999, eps=1e-8,
+                  wd=wd)
+        tp, mu, nu = adamw_multi_plain(tp, tg, mu, nu, **kw)
+        fused_adamw_multi_(wp, tg, wmu, wnu, **kw)
+    assert fused_adamw_multi_.launches == n
+    for i in range(len(RAGGED)):
+        for got in (tp[i], wp[i]):
+            np.testing.assert_array_equal(got.numpy(),
+                                          np.asarray(jp[str(i)]))
+        for got, want in ((mu[i], state.mu[str(i)]), (wmu[i], state.mu[
+                str(i)]), (nu[i], state.nu[str(i)]),
+                          (wnu[i], state.nu[str(i)])):
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_fused_update_keeps_its_bits_on_cpu():
+    """``AdamW(fused=True).update`` on the CPU (``fused_adamw_multi_``'s
+    plain version) writes what the update wrote leaf by leaf before it
+    took one call -- the formula with Python divisors and a float64 root,
+    bit for bit -- and the same as ``fused=False``."""
+    rng = np.random.default_rng(9)
+    shapes = {"a": (256, 33), "b": (300,), "c": {"d": (7,)}}
+    params = tstep.tree_map(lambda s: torch.from_numpy(normal(rng, s, 0.05)),
+                            shapes)
+    grads = [torch.from_numpy(normal(rng, tuple(t.shape), 1e-3))
+             for t in tstep.leaves(params)]
+    out = {}
+    for fused in (True, False):
+        opt = tstep.make_optimizer(lr=1e-3, fused=fused)
+        p = tstep.tree_map(torch.clone, params)
+        state = opt.init(p)
+        for _ in range(2):
+            p, state = opt.update(list(grads), state, p)
+        out[fused] = tstep.leaves(p) + tstep.leaves(state.mu) + \
+            tstep.leaves(state.nu)
+    # the update as it was written before: Python scalars throughout
+    p = [t.clone() for t in tstep.leaves(params)]
+    m = [torch.zeros_like(t) for t in p]
+    v = [torch.zeros_like(t) for t in p]
+    f32 = np.float32
+    for count in (1, 2):
+        c1 = float(f32(1.0) - f32(0.9) ** f32(count))
+        c2 = float(f32(1.0) - f32(0.999) ** f32(count))
+        lr = float(f32(1e-3))
+        for i, g in enumerate(grads):
+            m[i] = 0.9 * m[i] + (1.0 - 0.9) * g
+            v[i] = 0.999 * v[i] + (1.0 - 0.999) * g * g
+            root = torch.sqrt((v[i] / c2).double()).float()
+            p[i] = p[i] - lr * ((m[i] / c1) / (root + 1e-8) + 1e-4 * p[i])
+    for a, b, c in zip(out[True], out[False], p + m + v):
+        assert torch.equal(a, b) and torch.equal(a, c)
 
 
 @pytest.mark.parametrize("fused", [False, True])

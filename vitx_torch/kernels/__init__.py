@@ -34,17 +34,21 @@
   ``csrc/layer_norm_fwd.cu``): the LayerNorm forward, plain and after a
   residual add, with B11 (through ``ln_bwd``) as backward; replace
   ``vitx/kernels/layer_norm.py::_ln_kernel``.
-- ``fused_adamw_`` (B12, ``csrc/adamw.cu``): one in-place AdamW pass over
-  an fp32 leaf; replaces ``vitx/kernels/adamw.py::_kernel``.
+- ``fused_adamw_multi_`` (B12, ``csrc/adamw.cu``): one in-place AdamW pass
+  over a list of fp32 leaves, one launch per gradient dtype, and
+  ``fused_adamw_``, the same over one leaf; replace
+  ``vitx/kernels/adamw.py::_kernel``.
 
 Each wrapper launches its kernel for CUDA tensors (building it with nvcc at
 first use, ``_build.py``) and counts the launches in its ``launches``
-attribute (``attention_bwd`` and ``flash_attention`` count their sm90
-route in ``launches_sm90`` as well); for CPU tensors it runs the plain
+attribute (``attention_bwd``, ``flash_attention`` and the blocks count
+their sm90 route in ``launches_sm90`` as well, B8 its sm90 attention in
+``launches_attn_sm90``); for CPU tensors it runs the plain
 torch version beside it.
 """
 
-from vitx_torch.kernels.adamw import adamw_plain, fused_adamw_
+from vitx_torch.kernels.adamw import (adamw_multi_plain, adamw_plain,
+                                     fused_adamw_, fused_adamw_multi_)
 from vitx_torch.kernels.flash_attention import (
     attention_bwd, attention_bwd_plain, attention_stats_plain,
     flash_attention,
@@ -71,4 +75,5 @@ __all__ = ["fused_mha_block", "mha_block_plain",
            "attention_bwd_plain", "attention_stats_plain", "ln_bwd",
            "ln_bwd_plain",
            "fused_layer_norm", "fused_add_layer_norm",
-           "layer_norm_fwd_plain", "fused_adamw_", "adamw_plain"]
+           "layer_norm_fwd_plain", "fused_adamw_", "adamw_plain",
+           "fused_adamw_multi_", "adamw_multi_plain"]

@@ -63,6 +63,8 @@ SIGNATURES = {
                        [_I, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P]),
     "adamw": ("adamw", "vitx_adamw",
               [_I, _P, _P, _P, _P, _L] + [_F] * 9 + [_P]),
+    "adamw_multi": ("adamw", "vitx_adamw_multi",
+                    [_I, _I, _P, _P] + [_F] * 9 + [_P]),
 }
 SOURCES = sorted({source for source, _, _ in SIGNATURES.values()})
 

@@ -1,15 +1,22 @@
-"""Fused AdamW (B12): one in-place pass over one fp32 parameter leaf.
+"""Fused AdamW (B12): one in-place pass over fp32 parameter leaves.
 
-``fused_adamw_`` launches the Hopper kernel ``csrc/adamw.cu`` on CUDA
-tensors and runs ``adamw_plain``, the same math in plain torch, on CPU
-tensors, writing p, mu and nu in place either way. It replaces
-``vitx/kernels/adamw.py::_kernel``, which ``make_optimizer(fused=True)``
-selects. vitx's rule that only leaves of >= 65536 elements in rows of 1024
-take the kernel (``adamw.py:69-90``) is a fact of the TPU's tiling: here
-every fp32 leaf takes it.
+``fused_adamw_multi_`` updates a list of leaves with one launch of the
+Hopper kernel ``csrc/adamw.cu`` per gradient dtype (``adamw_multi_kernel``:
+a table of the leaves, persistent blocks over chunks that cross the
+leaves' boundaries); ``AdamW.update`` with ``fused=True`` calls it once a
+step. ``fused_adamw_`` updates one leaf a launch (``adamw_kernel``). On CPU
+tensors both run the same math in plain torch (``adamw_plain``,
+``adamw_multi_plain``), writing p, mu and nu in place either way. They
+replace ``vitx/kernels/adamw.py::_kernel``, which
+``make_optimizer(fused=True)`` selects. vitx's rule that only leaves of >=
+65536 elements in rows of 1024 take the kernel (``adamw.py:69-90``) is a
+fact of the TPU's tiling: here every fp32 leaf takes it.
 """
 
 from __future__ import annotations
+
+import ctypes
+from collections import defaultdict
 
 import torch
 
@@ -20,14 +27,29 @@ from vitx_torch.kernels._build import DTYPE_CODES
 def adamw_plain(p, g, mu, nu, *, lr, c1, c2, b1, b2, eps, wd):
     """The update of ``adamw.py:46-53`` in fp32, in its order of operations
     (weight decay reads the old p); returns new (p, mu, nu). ``lr``, ``c1``
-    and ``c2`` are fp32 scalars: c1 = 1 - b1^t, c2 = 1 - b2^t."""
+    and ``c2`` are fp32 scalars: c1 = 1 - b1^t, c2 = 1 - b2^t. Every
+    operation rounds once, as IEEE fp32 does (vitx's update outside jit,
+    and the kernels): the bias corrections divide by 0-dim fp32 tensors on
+    p's device (with a Python divisor torch's CUDA division multiplies by
+    the reciprocal), and on the CPU the square root goes through float64
+    (torch's CPU sqrt is within 0.5001 ulp, not correctly rounded; the
+    card's is, and a double root rounds back to the fp32 one exactly)."""
     g = g.float()
     mu2 = b1 * mu + (1.0 - b1) * g
     nu2 = b2 * nu + (1.0 - b2) * g * g
-    mu_hat = mu2 / c1
-    nu_hat = nu2 / c2
-    p2 = p - lr * (mu_hat / (torch.sqrt(nu_hat) + eps) + wd * p)
+    mu_hat = mu2 / torch.full((), c1, dtype=torch.float32, device=mu.device)
+    nu_hat = nu2 / torch.full((), c2, dtype=torch.float32, device=nu.device)
+    root = (torch.sqrt(nu_hat.double()).float() if nu_hat.device.type == "cpu"
+            else torch.sqrt(nu_hat))
+    p2 = p - lr * (mu_hat / (root + eps) + wd * p)
     return p2, mu2, nu2
+
+
+def adamw_multi_plain(ps, gs, mus, nus, **kw):
+    """``adamw_plain`` over matching lists of leaves -> lists of new (p,
+    mu, nu); ``kw`` as ``adamw_plain`` takes it."""
+    out = [adamw_plain(*leaf, **kw) for leaf in zip(ps, gs, mus, nus)]
+    return ([o[0] for o in out], [o[1] for o in out], [o[2] for o in out])
 
 
 def _check(p, g, mu, nu):
@@ -79,3 +101,67 @@ def fused_adamw_(p, g, mu, nu, *, lr: float, c1: float, c2: float,
 
 
 fused_adamw_.launches = 0
+
+
+MULTI_MAX_LEAVES = 64   # csrc/adamw.cu ADAM_MAX_LEAVES: leaves a launch
+
+
+@torch.no_grad()
+def fused_adamw_multi_(ps, gs, mus, nus, *, lr: float, c1: float, c2: float,
+                       b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                       wd: float = 1e-4) -> None:
+    """One AdamW step on every leaf of matching lists, in place: p, mu, nu
+    fp32 and contiguous; g fp32 or bf16 (upcast). On CUDA tensors, one
+    launch per gradient dtype (per ``MULTI_MAX_LEAVES`` leaves of it),
+    each adding one to ``fused_adamw_multi_.launches``; a leaf the kernel
+    cannot take raises, before any launch. CPU tensors take the plain
+    version."""
+    if not (len(ps) == len(gs) == len(mus) == len(nus)):
+        raise ValueError(f"fused_adamw_multi_ needs matching lists, got "
+                         f"{len(ps)}, {len(gs)}, {len(mus)}, {len(nus)}")
+    if not ps:
+        return
+    dev, f32 = ps[0].device, torch.float32
+    for p, g, mu, nu in zip(ps, gs, mus, nus):
+        # one pass of cheap tests a step; _check names what is wrong
+        if not (p.dtype == mu.dtype == nu.dtype == f32
+                and g.dtype in DTYPE_CODES
+                and p.shape == g.shape == mu.shape == nu.shape
+                and p.device == g.device == mu.device == nu.device
+                and p.is_contiguous() and mu.is_contiguous()
+                and nu.is_contiguous()):
+            _check(p, g, mu, nu)
+        if p.device != dev:
+            raise ValueError(f"every leaf must be on {dev}, one is on "
+                             f"{p.device}")
+    kw = dict(lr=lr, c1=c1, c2=c2, b1=b1, b2=b2, eps=eps, wd=wd)
+    if dev.type == "cpu":   # leaf by leaf, as adamw_multi_plain loops
+        for p, g, mu, nu in zip(ps, gs, mus, nus):
+            for dst, new in zip((p, mu, nu), adamw_plain(p, g, mu, nu, **kw)):
+                dst.copy_(new)
+        return
+    if dev.type != "cuda":
+        raise ValueError(f"fused_adamw_multi_ runs on cuda or cpu, not {dev}")
+    groups = defaultdict(list)   # gradient dtype -> its leaves, in order
+    for p, g, mu, nu in zip(ps, gs, mus, nus):
+        if p.numel():
+            groups[g.dtype].append((p, g.contiguous(), mu, nu))
+    fn = _build.entry("adamw_multi")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        for gdt, leaves in groups.items():
+            for i in range(0, len(leaves), MULTI_MAX_LEAVES):
+                part = leaves[i:i + MULTI_MAX_LEAVES]
+                ptrs = (ctypes.c_longlong * (4 * len(part)))(
+                    *(t.data_ptr() for leaf in part for t in leaf))
+                numels = (ctypes.c_longlong * len(part))(
+                    *(leaf[0].numel() for leaf in part))
+                err = fn(DTYPE_CODES[gdt], len(part), ctypes.addressof(ptrs),
+                         ctypes.addressof(numels), float(lr), float(c1),
+                         float(c2), float(b1), float(1.0 - b1), float(b2),
+                         float(1.0 - b2), float(eps), float(wd), stream)
+                _build.check("adamw_multi", err)
+                fused_adamw_multi_.launches += 1
+
+
+fused_adamw_multi_.launches = 0

@@ -1,7 +1,7 @@
 // The attention forward on Hopper (sm_90a): wgmma, TMA and an online
-// softmax, bf16 at head width 64. One body, two callers: B5 without
-// probabilities (flash_attention_sm90.cu) and K1's attention
-// (mha_block.cu), each of which builds its own copy of it.
+// softmax, bf16 at head width 64. One body, three callers: B5 without
+// probabilities (flash_attention_sm90.cu), K1's attention and, with the
+// KBIAS flag, B8's (mha_block.cu); each source builds its own copies.
 //
 // Over q, k, v (B, H, T, 64) bf16 views, q unscaled -> o (b, h, t, d) at
 // b*o_sb + h*o_sh + t*o_st + d (B5: (B, H, T, 64); K1: straight into
@@ -24,6 +24,18 @@
 // already-rounded value (an ulp of bf16 at most, then weighted by alpha <
 // 1). Keys past T are masked to -inf in the kernel: TMA fills them with
 // zeros, which are logits of 0.
+// KBIAS (B8, ToMe's proportional attention, vitx/kernels/mha_block.py:
+// 529-536): an fp32 bias per key, key_bias (B, T), joins each logit after
+// the scale and before the max: s = scale * (q k^T) + kb[key], the order of
+// vitx's cast(q * scale) k^T + log_size. B8 then shares K1's moved
+// rounding point above. A (B, T) fp32 row is 4T bytes, a multiple of 16
+// only where T % 4 == 0 (not at 197, 54, 577), so TMA cannot load it: each
+// consumer thread reads its 16 keys of a tile from device memory (the
+// whole bias is B*T*4 bytes, ~200 KB at b256, and stays in L2) a tile
+// ahead, so their latency hides under the softmax and p v of the tile
+// before rather than under the tile's own s = q k^T alone (PERF.md), each
+// load guarded by key < T so that no read falls past row b. Without
+// KBIAS (K1, B5) the code is as before.
 //
 // The layout (measured on the H100, PERF.md):
 //   - one block per (b*h, 64 queries): one consumer warpgroup and one
@@ -54,6 +66,8 @@ struct FwdArgs {
   float* stats;             // null, or (2, B*H*T): m | 1/l
   int H, T;
   float scale;
+  const float* key_bias;    // KBIAS: (B, T) fp32, added to the logits over the keys
+                            // (last, so the fields before keep their offsets)
 };
 
 template <int NS> struct FwdSmem {
@@ -64,7 +78,7 @@ template <int NS> struct FwdSmem {
   static constexpr int BYTES = BAR + 8 * (1 + 2 * NS) + 1024;  // + the base's alignment
 };
 
-template <int NS>
+template <int NS, bool KBIAS>
 __global__ void __launch_bounds__(FWD_THREADS, 1)
 attention_fwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv, const FwdArgs a) {
@@ -120,6 +134,22 @@ attention_fwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant
   float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.0f, 0.0f};
   const int cbase = 2 * (lane & 3);
 
+  // KBIAS: this thread's 16 key biases of tile jt, kb[n] for the keys 8n +
+  // cbase and 8n + cbase + 1, loaded a tile ahead (under the softmax and
+  // the p v product of the tile before); keys past T are not read
+  float kb[KBIAS ? 16 : 1];
+  const float* kb_row = KBIAS ? a.key_bias + (size_t)b * T : nullptr;
+  auto load_kb = [&](int jt) {
+    if constexpr (KBIAS) {
+#pragma unroll
+      for (int n = 0; n < 16; ++n) {
+        const int col = 64 * jt + 8 * (n >> 1) + cbase + (n & 1);
+        kb[n] = col < T ? kb_row[col] : 0.0f;
+      }
+    }
+  };
+  load_kb(0);
+
   for (int j = 0; j < nkt; ++j) {
     const int s = j % NS;
     mbar_wait(&full[s], (j / NS) & 1);
@@ -131,14 +161,20 @@ attention_fwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant
     wg_wait<0>();
     fence_acc(sc);
 
-    // the fp32 logits, keys past T at -inf; the new running max
+    // the fp32 logits (plus the key bias), keys past T at -inf; the new
+    // running max
     float mx[2] = {m[0], m[1]};
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       const int col = 64 * j + 8 * (i >> 2) + cbase + (i & 1);
-      sc[i] = col < T ? sc[i] * a.scale : -CUDART_INF_F;
+      if constexpr (KBIAS)
+        sc[i] = col < T ? __fadd_rn(sc[i] * a.scale, kb[2 * (i >> 2) + (i & 1)])
+                        : -CUDART_INF_F;
+      else
+        sc[i] = col < T ? sc[i] * a.scale : -CUDART_INF_F;
       mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
     }
+    if (j + 1 < nkt) load_kb(j + 1);
     float alpha[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -196,10 +232,11 @@ attention_fwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant
 // Launch the body over q, k, v bf16 (B, H, T, 64) views at qkv[0..2],
 // element strides strides[3*i .. 3*i+2] = (sb, sh, st) of view i, each a
 // multiple of 8, the last dim contiguous, pointers 16-byte aligned; a.o,
-// its strides and a.stats as FwdArgs says. Returns 0, the CUDA error of
-// the launch, or a tensor-map code of sm90.cuh.
-inline int launch_attention_fwd_sm90(const void* const qkv[3], const long long* strides,
-                                     const FwdArgs& a, int B, cudaStream_t s) {
+// its strides, a.stats and (KBIAS) a.key_bias as FwdArgs says. Returns 0,
+// the CUDA error of the launch, or a tensor-map code of sm90.cuh.
+template <bool KBIAS>
+int launch_attention_fwd_sm90(const void* const qkv[3], const long long* strides,
+                              const FwdArgs& a, int B, cudaStream_t s) {
   CUtensorMap maps[3];
   for (int i = 0; i < 3; ++i) {
     const int err = sm90::make_tile_map(&maps[i], qkv[i], B, a.H, a.T, strides[3 * i],
@@ -207,7 +244,7 @@ inline int launch_attention_fwd_sm90(const void* const qkv[3], const long long* 
     if (err != 0) return err;
   }
   using Sm = FwdSmem<FWD_NS>;
-  auto kern = attention_fwd_sm90<FWD_NS>;
+  auto kern = attention_fwd_sm90<FWD_NS, KBIAS>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Sm::BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -32,11 +32,12 @@ extern "C" int vitx_attention_fwd_sm90(const void* q, const void* k, const void*
                                        int T, void* stream) {
   using namespace vitx;
   const void* in[3] = {q, k, v};
-  FwdArgs a;
+  FwdArgs a = {};
   a.o = static_cast<bf16*>(o);
   a.o_sb = views[9]; a.o_sh = views[10]; a.o_st = views[11];
   a.stats = stats;
   a.H = H; a.T = T;
   a.scale = 0.125f;   // 1 / sqrt(64)
-  return launch_attention_fwd_sm90(in, views, a, B, static_cast<cudaStream_t>(stream));
+  return launch_attention_fwd_sm90<false>(in, views, a, B,
+                                         static_cast<cudaStream_t>(stream));
 }

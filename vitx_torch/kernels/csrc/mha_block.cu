@@ -21,8 +21,9 @@
 // _kernel_tome (launched by _tome_fwd, entry fused_mha_block_tome), ToMe's
 // attention half: K1 with an fp32 QKV bias added to the accumulator before
 // the cast (the EPI_QKV_BIAS epilogue), an fp32 bias per key, log(size),
-// added to the fp32 logits (the KBIAS attention, attention_fwd.cuh), and
-// k_mean (B, T, D), the head mean of the cast k, the merge metric. It also
+// added to the fp32 logits (the KBIAS attention: attention_fwd_sm90.cuh on
+// the sm90 route, attention_fwd.cuh otherwise), and k_mean (B, T, D), the
+// head mean of the cast k, the merge metric. It also
 // serves _kernel_hchunk_tome (B9, launched by _chunked_tome_fwd), which is
 // _kernel_tome cut into head chunks, with out and k_mean summed across the
 // chunks in fp32 scratch, only because ViT-L@384's weights and fp32 qkv
@@ -58,18 +59,19 @@
 //     wgmma fed by TMA through a ring of stages, the LN applied to the A
 //     fragments in registers, persistent blocks; otherwise common.cuh's
 //     gemm_kernel (mma.sync, register-staged loads), which fp32 needs;
-//   - ROUTE_ATTN_SM90 (K1 only: bf16 at D = 64, no probabilities, no
-//     ToMe biases): launch 3 on B5's sm90 body (attention_fwd_sm90.cuh):
-//     one pass over the keys with an online softmax on wgmma, q, k and v
-//     read by TMA from launch 2's planes, o written straight into o_all
-//     and the row statistics into K1's stash. Its p is rounded after
-//     exp(s - running max) rather than exp(s - final max), the one
-//     rounding point that moves against _kernel, as it does for B5.
+//   - ROUTE_ATTN_SM90 (K1 and B8: bf16 at D = 64, no probabilities):
+//     launch 3 on B5's sm90 body (attention_fwd_sm90.cuh): one pass over
+//     the keys with an online softmax on wgmma, q, k and v read by TMA
+//     from launch 2's planes, o written straight into o_all and (K1) the
+//     row statistics into the stash; B8's key bias is its KBIAS form, one
+//     fp32 add per logit after the scale. Its p is rounded after exp(s -
+//     running max) rather than exp(s - final max), the one rounding point
+//     that moves against _kernel and _kernel_tome, as it does for B5.
 //     Otherwise attention_fwd.cuh (mma.sync, two passes over the keys),
-//     which B7's head mean, B8's key bias, fp32 and other D take.
+//     which B7's head mean, fp32 and other D take.
 // B8 is bound as K1 is: the projections' operations; k_mean reads the k
 // plane once more (B*T*E elements) and writes B*T*D, and the per-key bias
-// adds T floats per 64-key chunk to each attention block.
+// adds 16 floats per 64-key tile to each consumer thread's reads (L2).
 // The intermediates qkv (3*B*T*E) and o_all (B*T*E) make a round trip
 // through device memory; keeping them on chip is the next thing a faster
 // version removes.
@@ -110,7 +112,7 @@ int run_mha(int route, const void* x, const void* wqkv, const void* wo, const fl
   if (gemm90 && !(BF16 && gemm_sm90_ok(x, wqkv, E, 3 * E, true) &&
                   gemm_sm90_ok(o_all, wo, E, E, false)))
     return sm90::ERR_ROUTE;
-  if (attn90 && !(BF16 && MODE == PROBS_NONE && !TOME && D == 64)) return sm90::ERR_ROUTE;
+  if (attn90 && !(BF16 && MODE == PROBS_NONE && D == 64)) return sm90::ERR_ROUTE;
 
   int err = static_cast<int>(launch_ln_stats<T>(static_cast<const T*>(x), stats, M, E, eps, s));
   if (err != 0) return err;
@@ -134,13 +136,14 @@ int run_mha(int route, const void* x, const void* wqkv, const void* wo, const fl
     const void* in[3] = {qkv, k_plane, static_cast<const T*>(qkv) + 2 * plane};
     const long long HTD = (long long)H * T_ * D, TD = (long long)T_ * D;
     const long long strides[9] = {HTD, TD, D, HTD, TD, D, HTD, TD, D};
-    FwdArgs fa;
+    FwdArgs fa = {};
     fa.o = static_cast<bf16*>(o_all);
     fa.o_sb = (long long)T_ * E; fa.o_sh = D; fa.o_st = E;
     fa.stats = attn_stats;
+    fa.key_bias = key_bias;
     fa.H = H; fa.T = T_;
     fa.scale = 0.125f;   // 1 / sqrt(64)
-    err = launch_attention_fwd_sm90(in, strides, fa, B, s);
+    err = launch_attention_fwd_sm90<TOME>(in, strides, fa, B, s);
   } else {
     AttnArgs aa = {};
     aa.q = qkv;
@@ -214,7 +217,7 @@ extern "C" int vitx_mha_block_mean_probs(int dtype, int route, const void* x, co
 // B8: vitx_mha_block with bqkv ((3, H, D) fp32, added before the QKV cast),
 // log_size ((B, T) fp32, added to the logits over each key) and k_mean
 // (B*T*D elements, written in full: the head mean of the cast k). route:
-// ROUTE_GEMM_SM90 or 0.
+// the Route bits, as for vitx_mha_block.
 extern "C" int vitx_mha_block_tome(int dtype, int route, const void* x, const void* wqkv,
                                    const void* wo, const float* bo, const float* g,
                                    const float* b, void* out, void* qkv, void* o_all,

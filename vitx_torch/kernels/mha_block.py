@@ -22,12 +22,14 @@ Routes on the card, chosen here in the open and passed to the kernel,
 which refuses one the inputs cannot take (``mha_route``): in bf16 with E
 a multiple of 8 the projections run on the Hopper GEMM
 ``csrc/gemm_sm90.cuh`` (wgmma fed by TMA, the LayerNorm applied to the A
-operand in registers), and K1's attention at head width 64 on B5's sm90
-body (``csrc/attention_fwd_sm90.cuh``); fp32, other shapes, B7's
-probabilities and B8's biases keep the earlier kernels (``common.cuh``'s
-``gemm_kernel``, ``attention_fwd.cuh``). ``launches`` counts every CUDA
-launch of a wrapper, ``launches_sm90`` those whose projections ran on the
-sm90 GEMM.
+operand in registers), and K1's and B8's attention at head width 64 on
+B5's sm90 body (``csrc/attention_fwd_sm90.cuh``; B8's per-key bias is one
+fp32 add per logit there); fp32, other shapes and B7's probabilities keep
+the earlier kernels (``common.cuh``'s ``gemm_kernel``,
+``attention_fwd.cuh``). ``launches`` counts every CUDA launch of a
+wrapper, ``launches_sm90`` those whose projections ran on the sm90 GEMM,
+and B8's ``launches_attn_sm90`` those whose attention ran on the sm90
+body.
 
 ``fused_mha_block_with_mean_probs`` (B7, the same source's second entry)
 also returns the head-mean attention probabilities; it replaces
@@ -62,7 +64,10 @@ from vitx_torch.nn.layers import dot, layer_norm, matmul32
 MAX_HEAD_DIM = 256
 # the route bits of csrc/mha_block.cu's entries
 ROUTE_GEMM_SM90 = 1   # both projections on csrc/gemm_sm90.cuh
-ROUTE_ATTN_SM90 = 2   # K1's attention on csrc/attention_fwd_sm90.cuh
+ROUTE_ATTN_SM90 = 2   # K1's and B8's attention on csrc/attention_fwd_sm90.cuh
+# the entries whose attention can take ROUTE_ATTN_SM90 (B7's probabilities
+# keep attention_fwd.cuh)
+ATTN_SM90_ENTRIES = ("mha_block", "mha_block_tome")
 
 
 def mha_route(dtype, E: int, H: int, *, attention_sm90: bool = True,
@@ -72,9 +77,9 @@ def mha_route(dtype, E: int, H: int, *, attention_sm90: bool = True,
     multiple of 8 and at most 4096, ``tensors`` -- x and the weights --
     16-byte aligned), plus ``ROUTE_ATTN_SM90`` where the attention can
     take B5's sm90 body: bf16 at head width 64
-    (``flash_attention.sm90_route``), and only for K1
-    (``attention_sm90``): B7's probabilities and B8's key bias keep the
-    earlier attention. 0 is the earlier kernels throughout."""
+    (``flash_attention.sm90_route``), for K1 and B8 (``attention_sm90``):
+    B7's probabilities keep the earlier attention. 0 is the earlier
+    kernels throughout."""
     route = (ROUTE_GEMM_SM90 if _build.gemm_sm90(dtype, (E,), tensors, ln_k=E)
              else 0)
     if (attention_sm90 and dtype == torch.bfloat16
@@ -192,7 +197,8 @@ def _launch(x, wqkv, wo, bo, g, b, eps, name="mha_block", extra=(),
     B, T, E = x.shape
     H = wqkv.shape[2]
     if route is None:
-        route = mha_route(x.dtype, E, H, attention_sm90=name == "mha_block",
+        route = mha_route(x.dtype, E, H,
+                          attention_sm90=name in ATTN_SM90_ENTRIES,
                           tensors=(x, wqkv, wo))
     fn = _build.entry(name)
     out = torch.empty_like(x)
@@ -442,6 +448,8 @@ def _forward_tome(x, wqkv, bqkv, wo, bo, g, b, log_size, eps):
     res = _launch(x, wqkv, wo, bo, g, b, eps, "mha_block_tome",
                   (bqkv, log_size, k_mean))
     _count(fused_mha_block_tome, res[-1])
+    if res[-1] & ROUTE_ATTN_SM90:
+        fused_mha_block_tome.launches_attn_sm90 += 1
     return res[0], k_mean
 
 
@@ -478,7 +486,8 @@ def fused_mha_block_tome(x, wqkv, bqkv, wo, bo, g, b, log_size, *,
     through ``composed_tome``. CUDA tensors go through kernel B8 (any T;
     it serves B9's head-chunked function too) and add one to
     ``fused_mha_block_tome.launches`` (and to ``launches_sm90`` on the sm90
-    GEMM); CPU tensors take the plain version.
+    GEMM, to ``launches_attn_sm90`` on the sm90 attention); CPU tensors
+    take the plain version.
     """
     _check_tome(x, wqkv, bqkv, wo, bo, g, b, log_size)
     args = (x, wqkv, bqkv, wo, bo, g, b, log_size)
@@ -489,3 +498,4 @@ def fused_mha_block_tome(x, wqkv, bqkv, wo, bo, g, b, log_size, *,
 
 fused_mha_block_tome.launches = 0
 fused_mha_block_tome.launches_sm90 = 0
+fused_mha_block_tome.launches_attn_sm90 = 0

@@ -7,8 +7,8 @@ The counterpart of ``vitx/train/step.py``: AdamW with optax's semantics
 through the model's forward (``vitx_torch.nn.vit.model_logits``): on a CUDA
 device the attention halves run K1 with its stash and their backward runs
 B2 and B3, every LayerNorm backward runs B3, and ``make_optimizer(fused=
-True)`` updates each leaf with B12. The unfused update is plain torch, as
-it is XLA in vitx.
+True)`` updates every leaf with one B12 launch. The unfused update is plain
+torch, as it is XLA in vitx.
 
 The state is updated in place -- vitx's jitted step donates its state
 (``make_train_step``), so the same buffers are reused there too.
@@ -24,7 +24,7 @@ import torch
 
 from vitx_torch.core.config import ViTConfig
 from vitx_torch.core.device import resolve_device
-from vitx_torch.kernels.adamw import adamw_plain, fused_adamw_
+from vitx_torch.kernels.adamw import adamw_plain, fused_adamw_multi_
 from vitx_torch.metrics.metrics import confusion_matrix
 from vitx_torch.nn.vit import init_params, model_logits
 
@@ -87,8 +87,9 @@ class AdamW:
     learning rate (or schedule) is read at the pre-increment count, the bias
     corrections at the incremented one. ``grad_clip`` first scales the
     gradients to that global norm when they exceed it. ``fused`` updates
-    each leaf in one in-place pass (B12, ``fused_adamw_``) with the order
-    of operations of ``vitx/kernels/adamw.py:46-53``; otherwise the same
+    every leaf in one in-place pass, one launch a step per gradient dtype
+    (B12, ``fused_adamw_multi_``), with the order of operations of
+    ``vitx/kernels/adamw.py:46-53``; otherwise the same
     arithmetic runs as plain torch (``adamw_plain``). Either way ``update``
     writes the params and moments in place and returns them.
     """
@@ -131,10 +132,10 @@ class AdamW:
         c2 = float(f32(1.0) - f32(self.b2) ** f32(count))
         kw = dict(lr=lr, c1=c1, c2=c2, b1=self.b1, b2=self.b2, eps=self.eps,
                   wd=self.weight_decay)
-        for p, g, mu, nu in zip(pl, gl, ml, nl):
-            if self.fused:
-                fused_adamw_(p, g, mu, nu, **kw)
-            else:
+        if self.fused:
+            fused_adamw_multi_(pl, gl, ml, nl, **kw)
+        else:
+            for p, g, mu, nu in zip(pl, gl, ml, nl):
                 p2, mu2, nu2 = adamw_plain(p, g, mu, nu, **kw)
                 p.copy_(p2)
                 mu.copy_(mu2)
