@@ -13,8 +13,9 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               (vitx_torch/kernels/csrc, one nvcc per source, in parallel)
               and counts, per sm90 kernel (SM90_SOURCES: the sm90 GEMM and
               B5's sm90 body as mha_block.cu and mlp_block.cu build them,
-              the body's KBIAS instantiation, B8's, B5's and B2's sm90
-              kernels), the wgmma (HGMMA), TMA (UTMALDG) and wgmma-wait
+              the body's KBIAS instantiation, B7's head-mean pass, B8's,
+              B5's and B2's sm90 kernels), the wgmma (HGMMA), TMA (UTMALDG)
+              and wgmma-wait
               instructions in its SASS (cuobjdump -sass); each must have
               wgmma and TMA. B12's multi-leaf kernel must have no wgmma.
               The body without the key bias must be the same instructions
@@ -29,7 +30,10 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               197), tiny's widths and large16_384's, launches_sm90 one a
               call, twice bit for bit, and the earlier route (gemm_kernel,
               attention_fwd.cuh) on the same inputs; B7 and B8 on both
-              routes likewise. B5 (attention
+              routes likewise (B7 in bf16 at D 64 on the sm90 attention and
+              its head-mean pass, launches_attn_sm90 one a call, its out
+              bit-equal to K1's on K1's full route, its probabilities within
+              PROBS_BF16_TOL of the plain version's). B5 (attention
               forward) in its three modes at (2, 16, 577, 64), (2, 12, 197,
               64) and (1, 16, 1100, 64) -- without probs in bf16 its sm90
               kernel, with the row statistics it writes for the backward
@@ -59,7 +63,9 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               their plain versions: batch 8 in float32 (1e-4) and bfloat16,
               and the train main path's batch 128 in bfloat16: B2
               (attention backward), B3 (LayerNorm backward at E 768 and the
-              head's 3072), the K1 and K2 stashes, and torch.autograd.grad
+              head's 3072, on its one-pass route, twice bit for bit, and its
+              earlier kernel on the same inputs), the K1 and K2 stashes, and
+              torch.autograd.grad
               through both fused blocks on the card against the same on the
               CPU (plain versions); B12 (AdamW) bit for bit against its
               plain version: the one-leaf kernel on a base16 leaf, the
@@ -97,7 +103,8 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               make_optimizer(lr=1e-4), then 5 with fused=True, on one
               repeated batch; the loss must be finite and fall, the
               launches per step must be K1 12 (all on its sm90 route),
-              B2 12 (all on its sm90 route), B3 25, K2 0 and B12's
+              B2 12 (all on its sm90 route), B3 25 (all on its one-pass
+              route), K2 0 and B12's
               multi-leaf kernel one per fused step and gradient dtype
               (its one-leaf kernel 0); one eval_step.
 8. explain -- main path 3, large16_384 (ViT-L/16 at 384², T 577) at full
@@ -105,7 +112,8 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               forward_with_rollout at batch 8 on the kernels against the
               same call with attn_impl="reference", fuse_mha="off",
               fuse_mlp="off" (no kernel) on the card: logits and rollout
-              weights within 0.05, launches B7 24, K2 24, K1 0, B5 0;
+              weights within 0.05, launches B7 24 (all on its sm90
+              attention), K2 24, K1 0, B5 0;
               grad_cam at batch 8 against the same route (heatmap and
               logits within GRADCAM_TOL; that route's only launches are
               B3's LayerNorm backwards); (b) forward_with_attn(
@@ -166,9 +174,14 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               paths (B8 at base16's first and last r=13 blocks, and at
               large16_384's T 577 and 416, where vitx takes B9); the
               fine-tune step at batch 32 (img/s, profiler split), B2 at
-              its (32, 12, 1025, 64), B6's range, and B3 on the 2-D view
-              of base16's b256 tokens, B11's function (each under its
-              row's "shapes"), and B10's two rows there. B2, B5 without
+              its (32, 12, 1025, 64), B6's range, B3 at (32, 1025, 768) and
+              on the 2-D view of base16's b256 tokens, B11's function (each
+              under its row's "shapes"), and B10's two rows there. B3 has
+              two rows: ln_bwd_onepass, the wrapper's one-pass route, with
+              the earlier kernel's time of the same call as was_ms, and
+              ln_bwd, that earlier kernel through its launcher. B7's sm90
+              row carries its GEMM-only route (the sm90 GEMM with
+              attention_fwd.cuh) as was_ms. B2, B5 without
               probs, K1, K2, B7 and B8 have two rows each: the sm90 route
               (attention_bwd_sm90, flash_attention_sm90,
               fused_mha_block_sm90, ...; the blocks' sm90 rows carry the
@@ -187,9 +200,10 @@ Each main path runs with the kernels' launch counts set to 0 just before
 it and read just after. ``attention_bwd``, ``flash_attention`` and the
 blocks' rows count every launch of their wrappers; ``attention_bwd_sm90``,
 ``flash_attention_sm90`` and the blocks' ``*_sm90`` rows read the
-wrappers' ``launches_sm90``, the launches on the sm90 route (COUNTERS);
-B8's launches on the sm90 attention are counted beside them
-(EXTRA_COUNTERS) and reported in its sm90 row.
+wrappers' ``launches_sm90``, the launches on the sm90 route, and
+``ln_bwd_onepass`` B3's ``launches_onepass`` (COUNTERS); B7's and B8's
+launches on the sm90 attention are counted beside them (EXTRA_COUNTERS)
+and reported in their sm90 rows.
 The last lines are one JSON
 object listing the kernels and, last, ``{"ok": true, "device": {...}}``.
 ``--phases`` runs a subset (``device,build,grad`` is the quick check
@@ -295,6 +309,16 @@ KERNELS = {
         "also_replaces": "vitx/kernels/layer_norm.py:114",
         "also_tpu_kernel": "vitx/kernels/layer_norm.py::_ln_bwd_kernel",
     },
+    # B3's one-pass route (E a multiple of the 16-byte vector, at most
+    # 4096): counted in ln_bwd.launches_onepass (COUNTERS), while ln_bwd
+    # counts every launch, both routes
+    "ln_bwd_onepass": {
+        "source": "vitx_torch/kernels/csrc/layer_norm_bwd.cu",
+        "replaces": "vitx/kernels/layer_norm.py:173",
+        "tpu_kernel": "vitx/kernels/layer_norm.py::_ln_bwd3_kernel",
+        "also_replaces": "vitx/kernels/layer_norm.py:114",
+        "also_tpu_kernel": "vitx/kernels/layer_norm.py::_ln_bwd_kernel",
+    },
     "fused_layer_norm": {
         "source": "vitx_torch/kernels/csrc/layer_norm_fwd.cu",
         "replaces": "vitx/kernels/layer_norm.py:59",
@@ -358,7 +382,9 @@ KERNELS = {
     },
     "fused_mha_block_with_mean_probs_sm90": {
         "source": "vitx_torch/kernels/csrc/mha_block.cu",
-        "headers": ["vitx_torch/kernels/csrc/gemm_sm90.cuh"],
+        "headers": ["vitx_torch/kernels/csrc/gemm_sm90.cuh",
+                    "vitx_torch/kernels/csrc/attention_fwd_sm90.cuh",
+                    "vitx_torch/kernels/csrc/head_mean_probs_sm90.cuh"],
         "replaces": "vitx/kernels/mha_block.py:174",
         "tpu_kernel": "vitx/kernels/mha_block.py::_kernel_hchunk "
                       "(mean probs)",
@@ -383,24 +409,34 @@ BLOCK_SM90 = {"fused_mha_block": "fused_mha_block_sm90",
 # (wrapper, attribute)
 COUNTERS = {"attention_bwd_sm90": ("attention_bwd", "launches_sm90"),
             "flash_attention_sm90": ("flash_attention", "launches_sm90"),
+            "ln_bwd_onepass": ("ln_bwd", "launches_onepass"),
             **{row: (name, "launches_sm90")
                for name, row in BLOCK_SM90.items()}}
 # counts that are no row of their own, read and expected beside the rows':
-# B8's launches whose attention ran on the sm90 body (its KBIAS form)
-EXTRA_COUNTERS = {"fused_mha_block_tome_attn_sm90":
+# B7's and B8's launches whose attention ran on the sm90 body (B7's with
+# its head-mean pass, B8's in the body's KBIAS form)
+EXTRA_COUNTERS = {"fused_mha_block_with_mean_probs_attn_sm90":
+                  ("fused_mha_block_with_mean_probs", "launches_attn_sm90"),
+                  "fused_mha_block_tome_attn_sm90":
                   ("fused_mha_block_tome", "launches_attn_sm90")}
+# the blocks whose attention can take the sm90 body, by their extra counter
+ATTN_SM90_COUNTERS = {"fused_mha_block_with_mean_probs":
+                      "fused_mha_block_with_mean_probs_attn_sm90",
+                      "fused_mha_block_tome": "fused_mha_block_tome_attn_sm90"}
 # the sources whose SASS the build phase reads, and the sm90 kernels each
 # must hold: the wgmma (HGMMA) and TMA (UTMALDG) instructions that show
 # they reach the tensor cores' asynchronous path. mha_block and mlp_block
 # also hold the earlier kernels (ln_stats_kernel, gemm_kernel,
 # attention_kernel, head_mean_kernel), which use neither and are not read.
 # A kernel named with its template arguments is that instantiation
-# (attention_fwd_sm90<2, true>: B8's KBIAS body); a bare name sums them all
+# (attention_fwd_sm90<2, true>: B8's KBIAS body); a bare name sums them all.
+# head_mean_probs_sm90 is B7's head-mean pass
 SM90_SOURCES = {"flash_attention_sm90": ("attention_fwd_sm90<2, false>",),
                 "attention_bwd_sm90": ("dq_kernel_sm90", "dkdv_kernel_sm90"),
                 "mha_block": ("gemm_sm90_kernel",
                               "attention_fwd_sm90<2, false>",
-                              "attention_fwd_sm90<2, true>"),
+                              "attention_fwd_sm90<2, true>",
+                              "head_mean_probs_sm90"),
                 "mlp_block": ("gemm_sm90_kernel",)}
 # kernels whose SASS is read and must hold no wgmma: B12's multi-leaf
 # update streams bytes and does no matrix product
@@ -492,7 +528,8 @@ def phase_build():
           "(HGMMA) and TMA (UTMALDG) or other async copies (UBLKCP, LDGSTS) "
           "per kernel, and wgmma waits (WARPGROUP.DEPBAR: one per HGMMA "
           "would mean ptxas serialised them); attention_fwd_sm90<2, true> "
-          "is B8's KBIAS instantiation", "sass": sass})
+          "is B8's KBIAS instantiation, head_mean_probs_sm90 B7's head-mean "
+          "pass", "sass": sass})
     for name, wanted in SM90_SOURCES.items():
         for kern in wanted:
             n = sass[name].get(kern)
@@ -739,38 +776,75 @@ def check_flash_sm90(q, k, v, errs, info) -> None:
 
 
 def check_mean_probs_block(B, T, E, H, dtype, tol, errs: dict) -> None:
-    """B7 against ``mha_block_mean_probs_plain``, K1 against
-    ``mha_block_plain`` and K2 (gelu_tanh, width 4E) against
-    ``mlp_block_plain`` at (B, T, E); B7 twice, bit for bit."""
-    from vitx_torch.kernels import (fused_mha_block,
+    """B7 against ``mha_block_mean_probs_plain`` (out and probs within
+    ``tol``; on the sm90 attention and its head-mean pass where
+    ``mha_route`` gives it, launches_attn_sm90 one a call) and, in bf16,
+    its probabilities against the plain head mean of its own q and k within
+    PROBS_BF16_TOL; K1
+    against ``mha_block_plain`` and K2 (gelu_tanh, width 4E) against
+    ``mlp_block_plain`` at (B, T, E); in bf16 also B7 on its GEMM-only route (the
+    sm90 GEMM with attention_fwd.cuh) and on the earlier kernels, same
+    inputs; B7 twice, bit for bit; its out bit-equal to K1's on K1's own
+    route (in bf16 at D 64 the same GEMMs and sm90 attention body)."""
+    from vitx_torch.kernels import (flash_attention_fwd_plain,
+                                    fused_mha_block,
                                     fused_mha_block_with_mean_probs,
                                     fused_mlp_block,
                                     mha_block_mean_probs_plain,
                                     mha_block_plain, mlp_block_plain)
 
+    tmha = block_module()
     x, mha, mlp = block_inputs(B, T, E, H, 4 * E, dtype, 40 + B, "cuda")
     info = {"batch": B, "shape": [B, T, E], "dtype": str(dtype)}
     bf = dtype == torch.bfloat16
+    route = tmha.mha_route(dtype, E, H, tensors=(x, mha["wqkv"], mha["wo"]))
+    n90 = fused_mha_block_with_mean_probs.launches_attn_sm90
     out = fused_mha_block_with_mean_probs(x, **mha)
     torch.cuda.synchronize()
+    attn90 = fused_mha_block_with_mean_probs.launches_attn_sm90 - n90
+    if attn90 != bool(route & tmha.ROUTE_ATTN_SM90):
+        raise AssertionError(f"B7 {info}: {attn90} sm90 attention launches "
+                             f"on route {route}")
     ref = mha_block_mean_probs_plain(x, **mha)
+    key = "fused_mha_block_with_mean_probs_sm90"
     check("kernels", "fused_mha_block_with_mean_probs (out, probs)", out,
-          ref, tol, errs if bf else None,
-          "fused_mha_block_with_mean_probs_sm90", **info)
-    if bf:   # the earlier route (gemm_kernel) on the same inputs
-        probs = torch.empty_like(out[1])
-        was = block_module()._launch(x, **mha, eps=1e-5,
-                                     name="mha_block_mean_probs",
-                                     extra=(probs,), route=0)
-        check("kernels", "fused_mha_block_with_mean_probs, the earlier "
-              "route (out, probs)", (was[0], probs), ref, tol, errs,
-              "fused_mha_block_with_mean_probs", **info)
+          ref, tol, errs if bf else None, key, route=route, **info)
+    # the probabilities from the kernel's own q and k against B5's plain
+    # head mean of them: the attention and the pass alone, without the
+    # projections' bf16 roundings, which move q and k by an ulp here and
+    # there on either side
+    _, probs, q, k, v, _ = tmha._launch_mean_probs(x, **mha, eps=1e-5)
+    check("kernels", "fused_mha_block_with_mean_probs probs vs the plain "
+          "head mean of its own q and k", probs,
+          flash_attention_fwd_plain(q, k, v, "mean")[1],
+          PROBS_BF16_TOL if bf else tol, route=route, **info)
+    if not torch.equal(probs, out[1]):
+        raise AssertionError(f"B7 {info}: launcher and wrapper differ")
+    del probs, q, k, v
+    if bf:   # the GEMM-only route and the earlier kernels, same inputs
+        for what, r, k in (
+                ("the GEMM-only route: the sm90 GEMM with attention_fwd.cuh",
+                 tmha.ROUTE_GEMM_SM90, None),
+                ("the earlier kernels: gemm_kernel and attention_fwd.cuh", 0,
+                 "fused_mha_block_with_mean_probs")):
+            was = tmha._launch_mean_probs(x, **mha, eps=1e-5, route=r)
+            check("kernels", f"fused_mha_block_with_mean_probs, {what} (out, "
+                  f"probs)", was[:2], ref, tol, errs if k else None, k,
+                  **info)
+            del was
     check_rows("fused_mha_block_with_mean_probs", out[1], **info)
     again = fused_mha_block_with_mean_probs(x, **mha)
     if not (torch.equal(again[1], out[1]) and torch.equal(again[0], out[0])):
         raise AssertionError(f"B7 {info}: two calls differ")
+    del again
     k1 = fused_mha_block(x, **mha)
     torch.cuda.synchronize()
+    if not torch.equal(k1, out[0]):
+        raise AssertionError(f"B7 {info}: out differs from K1's on K1's "
+                             f"route")
+    emit({"phase": "kernels", "check": "fused_mha_block_with_mean_probs "
+          "twice bit for bit; out bit-equal to K1's on K1's own route",
+          "route": route, "attn_sm90_launches": attn90, **info})
     check("kernels", "fused_mha_block", k1, mha_block_plain(x, **mha), tol,
           errs if bf else None, "fused_mha_block_sm90", **info)
     k2 = fused_mlp_block(x, **mlp, act="gelu_tanh")
@@ -978,7 +1052,10 @@ def counts():
 
 def launches_of(**per: int) -> dict:
     """A launch count for every kernel and extra counter: ``per``'s, else
-    0."""
+    0; B3's one-pass row, unless given, B3's count: every LayerNorm
+    backward of the paths has E 768, 1024, 3072 or 4096, which the
+    one-pass route takes in both dtypes (``ln_bwd_route``)."""
+    per.setdefault("ln_bwd_onepass", per.get("ln_bwd", 0))
     return {name: per.get(name, 0) for name in (*KERNELS, *EXTRA_COUNTERS)}
 
 
@@ -998,8 +1075,8 @@ def gemm_sm90(cfg) -> tuple:
 def block_launches(cfg, **per: int) -> dict:
     """``launches_of(**per)`` plus, for each block kernel in ``per``, its
     sm90 row (BLOCK_SM90) with the same count where ``cfg`` takes the sm90
-    GEMM, else 0; and B8's sm90 attention launches, where ``cfg`` takes
-    that attention (``mha_route``: bf16 at D 64)."""
+    GEMM, else 0; and B7's and B8's sm90 attention launches, where ``cfg``
+    takes that attention (``mha_route``: bf16 at D 64)."""
     import importlib
 
     mha = importlib.import_module("vitx_torch.kernels.mha_block")
@@ -1009,8 +1086,8 @@ def block_launches(cfg, **per: int) -> dict:
                  for k, n in per.items() if k in BLOCK_SM90}
     attn90 = bool(mha.mha_route(cfg.cdtype(), cfg.embed_dim, cfg.num_heads)
                   & mha.ROUTE_ATTN_SM90)
-    sm90_rows["fused_mha_block_tome_attn_sm90"] = per.get(
-        "fused_mha_block_tome", 0) * attn90
+    for block, extra in ATTN_SM90_COUNTERS.items():
+        sm90_rows[extra] = per.get(block, 0) * attn90
     return launches_of(**per, **sm90_rows)
 
 
@@ -1124,8 +1201,8 @@ def check_entries_backward(shape, dtype, tol, errs: dict) -> None:
     torch.cuda.synchronize()
     dx, dsc, dbi = ln_bwd_plain(x.reshape(-1, E), sc, dy.reshape(-1, E))
     check("grad", "fused_layer_norm backward (dx, dscale, dbias)", grads,
-          (dx.reshape(shape), dsc, dbi), tol, errs if bf else None, "ln_bwd",
-          **info)
+          (dx.reshape(shape), dsc, dbi), tol, errs if bf else None,
+          "ln_bwd_onepass", **info)
     ta = [t.detach().requires_grad_() for t in (x, r, sc, bi)]
     s, y = fused_add_layer_norm(*ta)
     grads = torch.autograd.grad((s, y), ta, (ds, dy))
@@ -1136,14 +1213,19 @@ def check_entries_backward(shape, dtype, tol, errs: dict) -> None:
                                 dy.reshape(-1, E))
     check("grad", "fused_add_layer_norm backward (dx, dscale, dbias)",
           grads[1:], (dx.reshape(shape) + ds, dsc, dbi), tol,
-          errs if bf else None, "ln_bwd", **info)
+          errs if bf else None, "ln_bwd_onepass", **info)
 
 
 def check_backward_kernels(B, T, E, H, dtype, tol, errs: dict):
     """B2 at (B, H, T, E / H) and B3 at (B, T, E) and the head's (B, 4E)
-    against their plain versions in ``dtype``."""
+    against their plain versions in ``dtype``: B3 through ``ln_bwd`` on its
+    one-pass route (launches_onepass one a call), twice bit for bit, and its
+    earlier kernel on the same inputs through the launcher."""
+    import importlib
+
     from vitx_torch.kernels import ln_bwd, ln_bwd_plain
 
+    tln = importlib.import_module("vitx_torch.kernels.layer_norm")
     bf = dtype == torch.bfloat16
     info = {"dtype": str(dtype), "batch": B}
     check_attention_bwd((B, H, T, E // H), dtype, tol, errs)
@@ -1151,9 +1233,22 @@ def check_backward_kernels(B, T, E, H, dtype, tol, errs: dict):
         x = seeded(shape, 5, 2.0, 0.5, dtype=dtype)
         dy = seeded(shape, 6, 0.1, dtype=dtype)
         sc = seeded(shape[-1:], 7, 0.1, 1.0)
+        n1 = ln_bwd.launches_onepass
         out = ln_bwd(x, sc, dy)
         torch.cuda.synchronize()
-        check("grad", "ln_bwd", out, ln_bwd_plain(x, sc, dy), tol,
+        if ln_bwd.launches_onepass != n1 + 1:
+            raise AssertionError(f"ln_bwd {shape} {dtype}: not on the "
+                                 f"one-pass route")
+        ref = ln_bwd_plain(x, sc, dy)
+        check("grad", "ln_bwd, one-pass route", out, ref, tol,
+              errs if bf else None, "ln_bwd_onepass", shape=list(shape),
+              **info)
+        bitwise("grad", "ln_bwd, one-pass route, twice", ln_bwd(x, sc, dy),
+                out, shape=list(shape), **info)
+        En = shape[-1]
+        was = tln._launch(x.reshape(-1, En), sc, dy.reshape(-1, En), 1e-5, 0)
+        check("grad", "ln_bwd, the earlier kernel", (was[0].reshape(shape),
+                                                     *was[1:]), ref, tol,
               errs if bf else None, "ln_bwd", shape=list(shape), **info)
 
 
@@ -2032,16 +2127,19 @@ def verify_explains(cfg, params, imgs, queries, results) -> None:
           "direct calls", "requests": len(queries)})
 
 
-def profile_call(what: str, fn, top: int = 12) -> None:
-    """Device time by kernel name over one call of ``fn`` (torch.profiler),
-    and the device's busy share of the call's wall time."""
+def profile_call(what: str, fn, top: int = 12, calls: int = 1):
+    """Device time by kernel name over ``calls`` calls of ``fn``
+    (torch.profiler), and the device's busy share of their wall time.
+    Returns the device time a call, ms, or None where the profiler saw no
+    device time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fn()
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
@@ -2054,11 +2152,16 @@ def profile_call(what: str, fn, top: int = 12) -> None:
             rows.append((dev_us / 1e3, ev.count, ev.key[:90]))
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
-    emit({"phase": "profile", "what": what, "wall_ms": wall_ms,
+    # a call's device time: each kernel's mean launch times its launches a
+    # call (the trace can miss the window's first launch, 4 of 5 counted)
+    per_call = sum(ms / n * max(1, round(n / calls)) for ms, n, _ in rows)
+    emit({"phase": "profile", "what": what, "calls": calls,
+          "wall_ms": wall_ms,
           "device_busy_ms": busy_ms if rows else "not measured",
           "busy_share": busy_ms / wall_ms if rows else "not measured",
           "top": [{"ms": ms, "count": n, "kernel": k}
                   for ms, n, k in rows[:top]]})
+    return per_call if rows else None
 
 
 def phase_times(cfg, params, errs: dict, launches: dict) -> list:
@@ -2154,22 +2257,29 @@ def block_rows(name, kern, earlier, plain, lib, flops, nbytes, launches,
 def kernel_row(name, kern, plain, lib, flops, peak, nbytes, launches,
                errs, **extra) -> dict:
     """Time ``kern`` twice between two runs of ``plain`` (compare only
-    within this call), and ``lib``; profile one call of ``kern``; the bound
-    is max(flops / peak, bytes / HBM rate)."""
+    within this call), and ``lib``; profile five calls of ``kern``, whose
+    device time a call is ``device_ms`` (``ms`` also holds the host's time
+    between the two events where the wrapper's Python outlasts the
+    kernels); the bound is max(flops / peak, bytes / HBM rate)."""
     plain_ms = cuda_ms(plain, reps=3, warmup=1)
     ms = cuda_ms(kern, reps=20)
     ms2 = cuda_ms(kern, reps=20)
     plain_ms2 = cuda_ms(plain, reps=3, warmup=1)
     lib_ms = cuda_ms(lib, reps=20) if lib is not None else None
-    profile_call(name, kern)
+    device_ms = profile_call(name, kern, calls=5)
     t_ops = flops / peak * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
+    bound = max(t_ops, t_bytes)
     row = {"name": name, "route": "cuda", **KERNELS[name],
            "launches": launches.get(name), "max_abs_err": errs.get(name),
            "ms": min(ms, ms2), "plain_ms": min(plain_ms, plain_ms2),
-           "bound_ms": max(t_ops, t_bytes),
+           "bound_ms": bound,
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-           "library_ms": lib_ms, "flops": flops, "bytes": nbytes,
+           "share_of_bound": bound / min(ms, ms2),
+           "device_share_of_bound": (bound / device_ms if device_ms
+                                     else "not measured"),
+           "library_ms": lib_ms, "device_ms": device_ms or "not measured",
+           "flops": flops, "bytes": nbytes,
            "tflops": flops / (min(ms, ms2) * 1e-3) / 1e12, **extra}
     emit({"phase": "times", "what": name, "ms_runs": [ms, ms2],
           "plain_ms_runs": [plain_ms, plain_ms2], **row})
@@ -2217,6 +2327,51 @@ def attention_bwd_rows(shape, seed, launches, errs, per_step=None):
     return rows
 
 
+def ln_bwd_rows(shape, seed, eps, launches, errs, per_step=None) -> list:
+    """B3's two rows on the same bf16 (..., E) inputs: ``ln_bwd``, the
+    earlier kernel through its launcher (route 0: the three launches), and
+    ``ln_bwd_onepass``, the wrapper's one-pass route, with the former's
+    time as was_ms; F.layer_norm's backward beside both. The bound is the
+    function's: x and dy read and dx written once in bf16, the fp32 scale,
+    dscale and dbias."""
+    import importlib
+
+    import torch.nn.functional as F
+
+    from vitx_torch.kernels import ln_bwd, ln_bwd_plain
+
+    tln = importlib.import_module("vitx_torch.kernels.layer_norm")
+    bf = torch.bfloat16
+    E = shape[-1]
+    n = int(np.prod(shape))
+    x = seeded(shape, seed, 2.0, 0.5, dtype=bf)
+    dy = seeded(shape, seed + 1, 0.1, dtype=bf)
+    sc = seeded((E,), seed + 2, 0.1, 1.0)
+    xs, scs = x.detach().requires_grad_(), sc.detach().to(bf).requires_grad_()
+    bs = torch.zeros(E, dtype=bf, device="cuda", requires_grad=True)
+    y_lib = F.layer_norm(xs, (E,), scs, bs, eps)
+    per_step = per_step or {}
+
+    def lib():
+        return torch.autograd.grad(y_lib, (xs, scs, bs), dy,
+                                   retain_graph=True)
+
+    def row(name, kern, **more):
+        if name in per_step:
+            more["per_step"] = per_step[name]
+        return kernel_row(name, kern, lambda: ln_bwd_plain(x, sc, dy, eps=eps),
+                          lib, 20 * n, PEAK_FP32_FLOPS, 3 * n * 2 + 3 * E * 4,
+                          launches, errs, shape=list(shape), **more)
+
+    base = row("ln_bwd", lambda: tln._launch(x.reshape(-1, E), sc,
+                                             dy.reshape(-1, E), eps, 0),
+               timed="the earlier kernel (three launches) on bf16 through "
+                     "its launcher; the wrapper sends these inputs to "
+                     "ln_bwd_onepass")
+    return [base, row("ln_bwd_onepass", lambda: ln_bwd(x, sc, dy, eps=eps),
+                      was_ms=base["ms"])]
+
+
 def phase_train_times(cfg, state, batch, step, launches: dict,
                       train_launches: dict, errs: dict) -> list:
     """The train step at batch 128 bf16 (img/s, profiler split), and the
@@ -2225,11 +2380,9 @@ def phase_train_times(cfg, state, batch, step, launches: dict,
     the step's one launch, with the former's time as was_ms); K1 and K2
     with their stash. ``per_step`` is from the train path's launches (25
     steps, the last 5 fused)."""
-    import torch.nn.functional as F
-
     from vitx_torch.kernels import (adamw_multi_plain, fused_adamw_,
                                     fused_adamw_multi_, fused_mha_block,
-                                    fused_mlp_block, ln_bwd, ln_bwd_plain)
+                                    fused_mlp_block)
     from vitx_torch.train.step import leaves
 
     B = batch["image"].shape[0]
@@ -2252,20 +2405,11 @@ def phase_train_times(cfg, state, batch, step, launches: dict,
                                {name: train_launches.get(name, 0) // 25
                                 for name in ("attention_bwd",
                                              "attention_bwd_sm90")})
-    # B3 at a block's LayerNorm (B, T, E)
-    x = seeded((B, T, E), 25, 2.0, 0.5, dtype=bf)
-    dy = seeded((B, T, E), 26, 0.1, dtype=bf)
-    sc = seeded((E,), 27, 0.1, 1.0)
-    xs, scs = x.detach().requires_grad_(), sc.detach().to(bf).requires_grad_()
-    bs = torch.zeros(E, dtype=bf, device="cuda", requires_grad=True)
-    y_lib = F.layer_norm(xs, (E,), scs, bs, cfg.layer_norm_eps)
-    rows.append(kernel_row(
-        "ln_bwd", lambda: ln_bwd(x, sc, dy), lambda: ln_bwd_plain(x, sc, dy),
-        lambda: torch.autograd.grad(y_lib, (xs, scs, bs), dy,
-                                    retain_graph=True),
-        20 * B * T * E, PEAK_FP32_FLOPS, 3 * B * T * E * 2 + 3 * E * 4,
-        launches, errs, shape=[B, T, E],
-        per_step=train_launches.get("ln_bwd", 0) // 25))
+    # B3 at a block's LayerNorm (B, T, E): its one-pass route and the
+    # earlier kernel
+    rows += ln_bwd_rows((B, T, E), 25, cfg.layer_norm_eps, launches, errs,
+                        {name: train_launches.get(name, 0) // 25
+                         for name in ("ln_bwd", "ln_bwd_onepass")})
     # B12 over every leaf of the base16 state, per step
     ps = [t.detach().clone() for t in leaves(holder[0].params)]
     gs = [torch.randn_like(t) * 1e-3 for t in ps]
@@ -2416,15 +2560,21 @@ def phase_explain_times(cfg, params, errs: dict, launches: dict) -> list:
                 + 4 * B * H * T * T * D)
     b7_bytes = 2 * rows_ * E * 2 + 4 * E * E * 2 + 3 * E * 4 + B * T * T * 4
     k1_ms = cuda_ms(lambda: fused_mha_block(x, **mha), reps=20)
-    probs = torch.empty((B, T, T), dtype=torch.float32, device="cuda")
+    tmha = block_module()
     rows += block_rows(
         "fused_mha_block_with_mean_probs",
         lambda: fused_mha_block_with_mean_probs(x, **mha),
-        lambda: block_module()._launch(x, **mha, name="mha_block_mean_probs",
-                                       eps=1e-5, extra=(probs,), route=0),
+        lambda: tmha._launch_mean_probs(x, **mha, eps=1e-5, route=0),
         lambda: mha_block_mean_probs_plain(x, **mha), None, b7_flops,
-        b7_bytes, launches, errs, shape=[B, T, E], library_note=NO_LIBRARY,
+        b7_bytes, launches, errs,
+        was=lambda: tmha._launch_mean_probs(x, **mha, eps=1e-5,
+                                            route=tmha.ROUTE_GEMM_SM90),
+        was_what="the GEMM-only route: the sm90 GEMM with "
+                 "attention_fwd.cuh's head-mean mode", shape=[B, T, E],
+        library_note=NO_LIBRARY,
         k1_ms_same_shape=k1_ms)
+    rows[-1]["launches_attn_sm90"] = launches.get(
+        "fused_mha_block_with_mean_probs_attn_sm90")
     return rows
 
 
@@ -2708,15 +2858,14 @@ def phase_finetune_times(cfg, state, batch, step, launches: dict,
                          errs: dict) -> tuple:
     """The fine-tune step at batch 32 bf16 (ms, img/s, profiler split);
     B2's kernel at its attention shape (32, 12, 1025, 64), where vitx runs
-    B6; B10's two rows and B3's kernel on the (R, E) view, B11's function,
-    at base16's b256 tokens (256 x 197, 768) bf16. Returns (B10's rows,
-    {name: [shape entries]} for the rows of B2's two kernels and
-    ln_bwd)."""
+    B6; B3's two rows at its tokens (32, 1025, 768); B10's two rows and
+    B3's on the (R, E) view, B11's function, at base16's b256 tokens (256
+    x 197, 768) bf16. Returns (B10's rows, {name: [shape entries]} for the
+    rows of B2's and B3's two kernels)."""
     import torch.nn.functional as F
 
     from vitx_torch.kernels import (fused_add_layer_norm, fused_layer_norm,
-                                    layer_norm_fwd_plain, ln_bwd,
-                                    ln_bwd_plain)
+                                    layer_norm_fwd_plain)
 
     B = batch["image"].shape[0]
     T, E, H, D = cfg.seq_len, cfg.embed_dim, cfg.num_heads, cfg.head_dim
@@ -2731,25 +2880,21 @@ def phase_finetune_times(cfg, state, batch, step, launches: dict,
     profile_call("finetune_step", one_step, top=16)
 
     bf = torch.bfloat16
-    keep = ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-            "tflops")
+    keep = ("shape", "ms", "device_ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by", "tflops")
     b6 = attention_bwd_rows((B, H, T, D), 41, launches, errs)
     torch.cuda.empty_cache()
 
+    # B3 at the fine-tune's tokens, and B11's function on the (R, E) view
+    # of base16's b256 tokens
+    b3 = ln_bwd_rows((B, T, E), 55, cfg.layer_norm_eps, launches, errs)
+    torch.cuda.empty_cache()
     R = 256 * 197
+    b11 = ln_bwd_rows((R, E), 45, cfg.layer_norm_eps, launches, errs)
+    torch.cuda.empty_cache()
     x = seeded((R, E), 45, 2.0, 0.5, dtype=bf)
     r = seeded((R, E), 46, 1.0, dtype=bf)
-    dy = seeded((R, E), 47, 0.1, dtype=bf)
     sc, bi = seeded((E,), 48, 0.1, 1.0), seeded((E,), 49, 0.1)
-    xs, scs, bs = (t.detach().to(bf).requires_grad_() for t in (x, sc, bi))
-    y_lib = F.layer_norm(xs, (E,), scs, bs, cfg.layer_norm_eps)
-    b11 = kernel_row(
-        "ln_bwd", lambda: ln_bwd(x, sc, dy), lambda: ln_bwd_plain(x, sc, dy),
-        lambda: torch.autograd.grad(y_lib, (xs, scs, bs), dy,
-                                    retain_graph=True),
-        20 * R * E, PEAK_FP32_FLOPS, 3 * R * E * 2 + 3 * E * 4, launches,
-        errs, shape=[R, E])
-    del xs, scs, bs, y_lib
     rows = [
         kernel_row("fused_layer_norm", lambda: fused_layer_norm(x, sc, bi),
                    lambda: layer_norm_fwd_plain(x, sc, bi),
@@ -2765,7 +2910,9 @@ def phase_finetune_times(cfg, state, batch, step, launches: dict,
                    library_note=NO_ADD_LIBRARY),
     ]
     shapes = {row["name"]: [{k: row[k] for k in keep}] for row in b6}
-    shapes["ln_bwd"] = [{k: b11[k] for k in keep}]
+    for row in b3 + b11:
+        entry = {k: row[k] for k in (*keep, "was_ms") if k in row}
+        shapes.setdefault(row["name"], []).append(entry)
     return rows, shapes
 
 

@@ -17,8 +17,8 @@ on the card. What can be held here, on inputs from
   K) and places it by the wgmma register layout, bit for bit against
   ``layer_norm`` at a ragged K;
 - which GEMM and which attention K1, B7, B8 and K2 take for each preset and
-  dtype (``mha_route``, ``mlp_route``): B8's attention takes the sm90 body
-  wherever K1's does, B7's never.
+  dtype (``mha_route``, ``mlp_route``): B7's and B8's attention take the
+  sm90 body wherever K1's does.
 
 Bars are max |a - b| over max |b|: float32 1e-4, bfloat16 1e-2
 (``tests/test_torch_kernels.py``); the statistics 1e-5
@@ -216,15 +216,15 @@ def test_ln_prologue_mirror_is_layer_norm(M, K, dtype):
 
 def expected_routes(cfg, dtype):
     """(K1, B7, B8, K2) routes by the rule of the source notes: the sm90
-    GEMM for bf16 with E (and the MLP's M) a multiple of 8; K1's and B8's
-    attention on the sm90 body for bf16 at D 64, B7's never."""
+    GEMM for bf16 with E (and the MLP's M) a multiple of 8; K1's, B7's and
+    B8's attention on the sm90 body for bf16 at D 64 (B7's followed by its
+    head-mean pass)."""
     bf = dtype == torch.bfloat16
     gemm = bf and cfg.embed_dim % 8 == 0
     k1 = (tmha.ROUTE_GEMM_SM90 if gemm else 0) | (
         tmha.ROUTE_ATTN_SM90 if bf and cfg.head_dim == 64 else 0)
-    b7 = tmha.ROUTE_GEMM_SM90 if gemm else 0
     k2 = tmlp.ROUTE_SM90 if gemm and cfg.mlp_dim % 8 == 0 else 0
-    return k1, b7, k1, k2
+    return k1, k1, k1, k2
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -245,10 +245,9 @@ def test_routes_per_preset(preset, dtype):
     if dtype == torch.float32:
         assert k1 == b7 == b8 == k2 == 0       # fp32 is never sm90
     if preset in ("base16", "large16_384") and dtype == torch.bfloat16:
-        # the models of the main paths: all on the sm90 route, B8's
-        # attention (ToMe) on the sm90 body as K1's
-        assert k1 == b8 == tmha.ROUTE_GEMM_SM90 | tmha.ROUTE_ATTN_SM90
-        assert b7 == tmha.ROUTE_GEMM_SM90
+        # the models of the main paths: all on the sm90 route, B7's
+        # attention (the rollout) and B8's (ToMe) on the sm90 body as K1's
+        assert k1 == b7 == b8 == tmha.ROUTE_GEMM_SM90 | tmha.ROUTE_ATTN_SM90
         assert k2 == tmlp.ROUTE_SM90
     if preset == "tiny" and dtype == torch.bfloat16:
         # the sm90 GEMM (N 192 and 256) and the earlier attention (D 16)

@@ -42,8 +42,10 @@ from vitx_torch.train import step as tstep
 
 tmha = importlib.import_module("vitx_torch.kernels.mha_block")
 tmlp = importlib.import_module("vitx_torch.kernels.mlp_block")
+tln = importlib.import_module("vitx_torch.kernels.layer_norm")
 
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+PROBS_BF16_TOL = 1e-3
 
 
 @pytest.fixture
@@ -189,21 +191,74 @@ def test_flash_attention_matches_plain(cuda, dims, dtype):
                                   (3, 65, 64, 4)])
 def test_mha_mean_probs_matches_plain(cuda, dims, dtype):
     """B7 against its plain version at base16, large16_384 and tiny
-    shapes; repeated calls agree bit for bit; its out equals K1's on the
-    attention body they share (``k1_on_shared_attention``)."""
+    shapes; repeated calls agree bit for bit. Where B7 takes the sm90
+    attention and its head-mean pass (bf16 at D 64) its out equals K1's on
+    K1's full route, the same GEMMs and attention body; elsewhere K1's on
+    the attention body they share (``k1_on_shared_attention``)."""
     mha, _ = block_args(*dims, dtype, cuda)
-    n, n1 = fused_mha_block_with_mean_probs.launches, fused_mha_block.launches
-    out, probs = fused_mha_block_with_mean_probs(*mha)
+    f = fused_mha_block_with_mean_probs
+    n, n1, n90 = f.launches, fused_mha_block.launches, f.launches_attn_sm90
+    out, probs = f(*mha)
     torch.cuda.synchronize()
-    assert fused_mha_block_with_mean_probs.launches == n + 1
+    assert f.launches == n + 1
     assert fused_mha_block.launches == n1
+    sm90 = dtype == "bfloat16" and dims[2] // dims[3] == 64
+    assert f.launches_attn_sm90 == n90 + sm90
     ref_out, ref_probs = mha_block_mean_probs_plain(*mha)
     assert rel_err(out, ref_out) <= TOL[dtype]
     assert rel_err(probs, ref_probs) <= TOL[dtype]
     assert float((probs.double().sum(-1) - 1).abs().max()) <= 1e-5
-    again = fused_mha_block_with_mean_probs(*mha)
+    again = f(*mha)
     assert torch.equal(again[1], probs) and torch.equal(again[0], out)
-    assert torch.equal(k1_on_shared_attention(*mha), out)
+    if sm90:
+        assert torch.equal(fused_mha_block(*mha), out)
+    else:
+        assert torch.equal(k1_on_shared_attention(*mha), out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", [(2, 577, 1024, 16), (8, 577, 1024, 16),
+                                  (2, 197, 768, 12)])
+def test_mha_mean_probs_sm90_matches_plain(cuda, dims):
+    """B7 in bf16 on the sm90 attention and its head-mean pass, against its
+    plain version (out 2e-2; probs 2e-2 as a block, and 1e-3 against the
+    plain head mean of the kernel's own q and k), against its GEMM-only route
+    (the sm90 GEMM with attention_fwd.cuh) and the earlier kernels on the
+    same inputs; twice bit for bit; its out bit-equal to K1's."""
+    mha, _ = block_args(*dims, "bfloat16", cuda)
+    out, probs, q, k, v, route = tmha._launch_mean_probs(*mha, 1e-5)
+    torch.cuda.synchronize()
+    assert route == tmha.ROUTE_GEMM_SM90 | tmha.ROUTE_ATTN_SM90
+    ref_out, ref_probs = mha_block_mean_probs_plain(*mha)
+    assert rel_err(out, ref_out) <= TOL["bfloat16"]
+    assert rel_err(probs, ref_probs) <= TOL["bfloat16"]
+    own = flash_attention_fwd_plain(q, k, v, "mean")[1]
+    assert rel_err(probs, own) <= PROBS_BF16_TOL
+    assert float((probs.double().sum(-1) - 1).abs().max()) <= 1e-5
+    for r in (tmha.ROUTE_GEMM_SM90, 0):
+        was = tmha._launch_mean_probs(*mha, 1e-5, route=r)
+        assert rel_err(was[0], ref_out) <= TOL["bfloat16"]
+        assert rel_err(was[1], ref_probs) <= TOL["bfloat16"]
+    again = fused_mha_block_with_mean_probs(*mha)
+    assert torch.equal(again[0], out) and torch.equal(again[1], probs)
+    assert torch.equal(fused_mha_block(*mha), out)
+
+
+@pytest.mark.cuda
+def test_rollout_runs_b7_on_the_sm90_attention(cuda):
+    """forward_with_rollout at large16_384 in bf16: B7 in every one of the
+    24 blocks, each on the sm90 attention and its head-mean pass."""
+    cfg = vitx_torch.get_config("large16_384")
+    params = vitx_torch.init_params(0, cfg, device=cuda)
+    x = np.random.default_rng(1).standard_normal(
+        (1, cfg.image_size, cfg.image_size, 3)).astype(np.float32)
+    f = fused_mha_block_with_mean_probs
+    n, n90 = f.launches, f.launches_attn_sm90
+    logits, weights = vitx_torch.forward_with_rollout(params, x, cfg)
+    torch.cuda.synchronize()
+    assert (f.launches - n, f.launches_attn_sm90 - n90) == (24, 24)
+    assert bool(torch.isfinite(logits).all())
+    assert float((weights.double().sum(-1) - 1).abs().max()) <= 1e-4
 
 
 def k1_on_shared_attention(x, wqkv, wo, bo, g, b):
@@ -251,15 +306,58 @@ def test_attention_bwd_matches_plain(cuda, dims, dtype):
 @pytest.mark.parametrize("shape", [(2, 197, 768), (2, 3072), (3, 5, 36),
                                    (130, 64)])
 def test_ln_bwd_matches_plain(cuda, shape, dtype):
+    """B3 on the route ``ln_bwd_route`` gives (the one-pass route, counted
+    in launches_onepass, except bf16 at E 36, not a multiple of 8)."""
     x = seeded(shape, 5, 2.0, 0.5, dtype=dtype, device=cuda)
     dy = seeded(shape, 6, 0.1, dtype=dtype, device=cuda)
     sc = seeded(shape[-1:], 7, 0.1, 1.0, device=cuda)
-    n = ln_bwd.launches
+    n, n1 = ln_bwd.launches, ln_bwd.launches_onepass
     out = ln_bwd(x, sc, dy)
     torch.cuda.synchronize()
     assert ln_bwd.launches == n + 1
+    onepass = tln.ln_bwd_route(x.dtype, shape[-1], (x, dy)) == 1
+    assert onepass == (dtype == "float32" or shape[-1] % 8 == 0)
+    assert ln_bwd.launches_onepass == n1 + onepass
     for o, r in zip(out, ln_bwd_plain(x, sc, dy)):
         assert rel_err(o, r) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(128, 197, 768), (32, 1025, 768),
+                                   (8, 577, 1024), (128, 3072), (32, 4096),
+                                   (50432, 768)])
+def test_ln_bwd_onepass_matches_plain(cuda, shape, dtype):
+    """B3's one-pass route at the train and fine-tune steps' tokens, E
+    1024, the reference head's (B, 4E) and B11's (R, E) view: against the
+    plain version and the earlier kernel on the same inputs, twice bit for
+    bit."""
+    x = seeded(shape, 15, 2.0, 0.5, dtype=dtype, device=cuda)
+    dy = seeded(shape, 16, 0.1, dtype=dtype, device=cuda)
+    sc = seeded(shape[-1:], 17, 0.1, 1.0, device=cuda)
+    n1 = ln_bwd.launches_onepass
+    out = ln_bwd(x, sc, dy)
+    torch.cuda.synchronize()
+    assert ln_bwd.launches_onepass == n1 + 1
+    ref = ln_bwd_plain(x, sc, dy)
+    E = shape[-1]
+    was = tln._launch(x.reshape(-1, E), sc, dy.reshape(-1, E), 1e-5, 0)
+    for o, w, r in zip(out, was, ref):
+        assert rel_err(o, r) <= TOL[dtype]
+        assert rel_err(w.reshape(r.shape), r) <= TOL[dtype]
+    assert all(torch.equal(a, b) for a, b in zip(ln_bwd(x, sc, dy), out))
+
+
+@pytest.mark.cuda
+def test_ln_bwd_refuses_what_the_onepass_route_cannot_take(cuda):
+    """The entry refuses the one-pass route, before any launch, at a width
+    off the 16-byte vector or past 4096, or on rows off 16 bytes."""
+    for E, off in ((100, 0), (4104, 0), (768, 1)):
+        buf = seeded((4 * E + off,), 18, dtype="bfloat16", device=cuda)
+        x = buf[off:off + 4 * E].view(4, E)
+        sc = seeded((E,), 19, device=cuda)
+        with pytest.raises(RuntimeError, match="refused the route"):
+            tln._launch(x, sc, x, 1e-5, tln.LN_ROUTE_ONEPASS)
 
 
 @pytest.mark.cuda
@@ -800,15 +898,18 @@ def test_k2_sm90_matches_plain(cuda, dims):
 @pytest.mark.parametrize("dims", [(2, 197, 768, 12), (2, 577, 1024, 16),
                                   (3, 41, 64, 4)])
 def test_b7_b8_on_the_sm90_gemm_match_plain(cuda, dims):
-    """B7 and B8 in bf16: their projections on the sm90 GEMM; B7's
-    attention on attention_fwd.cuh (head-mean probabilities), B8's at D 64
-    on the sm90 body with the key bias, at D 16 on attention_fwd.cuh."""
+    """B7 and B8 in bf16: their projections on the sm90 GEMM; their
+    attention at D 64 on the sm90 body (B7's with its head-mean pass, B8's
+    with the key bias), at D 16 on attention_fwd.cuh."""
     B, T, E, H = dims
     mha, _ = block_args(*dims, "bfloat16", cuda)
     n7 = fused_mha_block_with_mean_probs.launches_sm90
+    a7 = fused_mha_block_with_mean_probs.launches_attn_sm90
     out = fused_mha_block_with_mean_probs(*mha)
     torch.cuda.synchronize()
     assert fused_mha_block_with_mean_probs.launches_sm90 == n7 + 1
+    assert fused_mha_block_with_mean_probs.launches_attn_sm90 == a7 + (
+        E // H == 64)
     for a, r in zip(out, mha_block_mean_probs_plain(*mha)):
         assert rel_err(a, r) <= TOL["bfloat16"]
     bqkv = seeded((3, H, E // H), 41, 0.1, device=cuda)
@@ -829,8 +930,8 @@ def test_block_routes_are_counted_or_refused(cuda):
     """fp32 and a bf16 width TMA cannot take (E 36) run the earlier
     kernels, counted in launches and not in launches_sm90; a route the
     inputs cannot take is refused by the C entry, before any launch: the
-    sm90 GEMM in fp32, K1's sm90 attention at D 16 or for B7's
-    probabilities."""
+    sm90 GEMM in fp32, K1's and B7's sm90 attention at D 16, and B7's
+    without the scratch for its row statistics."""
     for dims, dtype in (((2, 50, 768, 12), "float32"),
                         ((2, 50, 36, 4), "bfloat16")):
         mha, mlp = block_args(*dims, dtype, cuda)
@@ -854,8 +955,11 @@ def test_block_routes_are_counted_or_refused(cuda):
     mha, _ = block_args(2, 50, 64, 4, "bfloat16", cuda)
     with pytest.raises(RuntimeError, match="refused the route"):
         tmha._launch(*mha, 1e-5, extra=stats(4), route=tmha.ROUTE_ATTN_SM90)
-    mha, _ = block_args(2, 50, 768, 12, "bfloat16", cuda)
     probs = torch.empty((2, 50, 50), device=cuda)
     with pytest.raises(RuntimeError, match="refused the route"):
-        tmha._launch(*mha, 1e-5, "mha_block_mean_probs", (probs,),
+        tmha._launch(*mha, 1e-5, "mha_block_mean_probs",
+                     (probs, stats(4)[0]), route=tmha.ROUTE_ATTN_SM90)
+    mha, _ = block_args(2, 50, 768, 12, "bfloat16", cuda)
+    with pytest.raises(RuntimeError, match="refused the route"):
+        tmha._launch(*mha, 1e-5, "mha_block_mean_probs", (probs, None),
                      route=tmha.ROUTE_GEMM_SM90 | tmha.ROUTE_ATTN_SM90)

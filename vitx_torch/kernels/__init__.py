@@ -4,7 +4,8 @@
   -> out-projection, with its stash and a backward;
   replaces ``vitx/kernels/mha_block.py::_kernel``.
 - ``fused_mha_block_with_mean_probs`` (B7, ``csrc/mha_block.cu``): K1 plus
-  the head-mean attention probabilities; replaces
+  the head-mean attention probabilities (in bf16 at D = 64 K1's sm90
+  attention, then ``csrc/head_mean_probs_sm90.cuh``); replaces
   ``vitx/kernels/mha_block.py::_kernel_hchunk`` (mean-probs mode).
 - ``fused_mha_block_tome`` (B8, ``csrc/mha_block.cu``): K1 with a QKV
   bias and a per-key logit bias, plus the head-mean key; replaces
@@ -26,10 +27,11 @@
   every T; replaces ``vitx/kernels/flash_attention.py::_bwd_kernel_nq1``
   and, past T = 1024, the q-chunked ``_bwd_kernel`` (B6).
   ``attention_stats_plain`` makes the row statistics its sm90 route reads.
-- ``ln_bwd`` (B3, ``csrc/layer_norm_bwd.cu``): the LayerNorm backward;
-  replaces ``vitx/kernels/layer_norm.py::_ln_bwd3_kernel``, and serves the
-  function of ``_ln_bwd_kernel`` (B11, the 2-D backward of the entries
-  below).
+- ``ln_bwd`` (B3, ``csrc/layer_norm_bwd.cu``): the LayerNorm backward,
+  one pass over x and dy where E is a multiple of the 16-byte vector and
+  at most 4096 (``ln_bwd_route``); replaces
+  ``vitx/kernels/layer_norm.py::_ln_bwd3_kernel``, and serves the function
+  of ``_ln_bwd_kernel`` (B11, the 2-D backward of the entries below).
 - ``fused_layer_norm``, ``fused_add_layer_norm`` (B10,
   ``csrc/layer_norm_fwd.cu``): the LayerNorm forward, plain and after a
   residual add, with B11 (through ``ln_bwd``) as backward; replace
@@ -42,8 +44,9 @@
 Each wrapper launches its kernel for CUDA tensors (building it with nvcc at
 first use, ``_build.py``) and counts the launches in its ``launches``
 attribute (``attention_bwd``, ``flash_attention`` and the blocks count
-their sm90 route in ``launches_sm90`` as well, B8 its sm90 attention in
-``launches_attn_sm90``); for CPU tensors it runs the plain
+their sm90 route in ``launches_sm90`` as well, B7 and B8 their sm90
+attention in ``launches_attn_sm90``, ``ln_bwd`` its one-pass route in
+``launches_onepass``); for CPU tensors it runs the plain
 torch version beside it.
 """
 

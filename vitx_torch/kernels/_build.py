@@ -40,7 +40,7 @@ SIGNATURES = {
     "mha_block": ("mha_block", "vitx_mha_block",
                   [_I, _I] + [_P] * 11 + [_I, _I, _I, _I, _F, _P]),
     "mha_block_mean_probs": ("mha_block", "vitx_mha_block_mean_probs",
-                             [_I, _I] + [_P] * 11 + [_I, _I, _I, _I, _F,
+                             [_I, _I] + [_P] * 12 + [_I, _I, _I, _I, _F,
                                                      _P]),
     "mha_block_tome": ("mha_block", "vitx_mha_block_tome",
                        [_I, _I] + [_P] * 13 + [_I, _I, _I, _I, _F, _P]),
@@ -57,8 +57,9 @@ SIGNATURES = {
                                  [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "attention_bwd_sm90": ("attention_bwd_sm90", "vitx_attention_bwd_sm90",
                            [_P] * 11 + [_I, _I, _I, _P]),
+    # (dtype, route, ...): the route of csrc/layer_norm_bwd.cu
     "layer_norm_bwd": ("layer_norm_bwd", "vitx_ln_bwd",
-                       [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P]),
+                       [_I, _I] + [_P] * 8 + [_I, _I, _I, _I, _F, _P]),
     "layer_norm_fwd": ("layer_norm_fwd", "vitx_ln_fwd",
                        [_I, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P]),
     "adamw": ("adamw", "vitx_adamw",

@@ -14,9 +14,12 @@
 // softmax. The TPU kernel's head chunks, per-chunk (q, k, v) column order
 // and LN cached in scratch exist because ViT-L@384's weights and fp32 qkv
 // overflow VMEM (mha_block.py:167-172); here K1 already tiles the
-// products, so B7 is K1's pipeline with the attention launch in its
-// PROBS_MEAN form (attention_fwd.cuh). _kernel_hchunk's no-probs mode is
-// the function of _kernel, and K1 serves it at every shape.
+// products, so B7 is K1's pipeline with its attention launch in a
+// probabilities form: on the sm90 route K1's own attention (B5's sm90
+// body, its row statistics into a scratch) followed by the head-mean pass
+// of head_mean_probs_sm90.cuh (launch 3b below); otherwise the PROBS_MEAN
+// form of attention_fwd.cuh. _kernel_hchunk's no-probs mode is the
+// function of _kernel, and K1 serves it at every shape.
 // B8 (entry vitx_mha_block_tome) replaces vitx/kernels/mha_block.py::
 // _kernel_tome (launched by _tome_fwd, entry fused_mha_block_tome), ToMe's
 // attention half: K1 with an fp32 QKV bias added to the accumulator before
@@ -44,9 +47,13 @@
 //   2. the QKV GEMM with the LN prologue: LN(x), rounded, @ Wqkv with fp32
 //      accumulation; q, k, v are cast to the compute dtype and scattered,
 //      unscaled, into (3, B, H, T, D) planes;
-//   3. the attention, per (b*h, 64 queries) -- per (b, 64 queries) over
-//      the heads in order for B7 -- with the rounding points of
-//      mha_block.py:74-84 (one moved, on the sm90 route: see below);
+//   3. the attention, per (b*h, 64 queries) -- on the earlier route per
+//      (b, 64 queries) over the heads in order for B7 -- with the rounding
+//      points of mha_block.py:74-84 (one moved, on the sm90 route: see
+//      below);
+//   3b. (B7 on the sm90 route) head_mean_probs_sm90: per (b, 64 queries,
+//      128 keys), the heads in order, probs from q k^T and launch 3's row
+//      statistics, written once (its source note says how it rounds);
 //   4. the out-projection GEMM: o_all @ Wo in fp32 plus bo in fp32, one
 //      cast;
 //   5. (B8 only) head_mean_kernel: k_mean = cast(sum_h k_h / H), the fp32
@@ -59,16 +66,18 @@
 //     wgmma fed by TMA through a ring of stages, the LN applied to the A
 //     fragments in registers, persistent blocks; otherwise common.cuh's
 //     gemm_kernel (mma.sync, register-staged loads), which fp32 needs;
-//   - ROUTE_ATTN_SM90 (K1 and B8: bf16 at D = 64, no probabilities):
-//     launch 3 on B5's sm90 body (attention_fwd_sm90.cuh): one pass over
-//     the keys with an online softmax on wgmma, q, k and v read by TMA
-//     from launch 2's planes, o written straight into o_all and (K1) the
-//     row statistics into the stash; B8's key bias is its KBIAS form, one
-//     fp32 add per logit after the scale. Its p is rounded after exp(s -
+//   - ROUTE_ATTN_SM90 (K1, B7 and B8: bf16 at D = 64): launch 3 on B5's
+//     sm90 body (attention_fwd_sm90.cuh): one pass over the keys with an
+//     online softmax on wgmma, q, k and v read by TMA from launch 2's
+//     planes, o written straight into o_all and the row statistics into
+//     K1's stash or B7's scratch; B8's key bias is its KBIAS form, one fp32
+//     add per logit after the scale. Its p is rounded after exp(s -
 //     running max) rather than exp(s - final max), the one rounding point
-//     that moves against _kernel and _kernel_tome, as it does for B5.
-//     Otherwise attention_fwd.cuh (mma.sync, two passes over the keys),
-//     which B7's head mean, fp32 and other D take.
+//     that moves against _kernel and _kernel_tome, as it does for B5. B7's
+//     out is then K1's on its full route, bit for bit, and launch 3b adds
+//     the probabilities. Otherwise attention_fwd.cuh (mma.sync, two passes
+//     over the keys, a third for B7's probabilities), which fp32 and other
+//     D take.
 // B8 is bound as K1 is: the projections' operations; k_mean reads the k
 // plane once more (B*T*E elements) and writes B*T*D, and the per-key bias
 // adds 16 floats per 64-key tile to each consumer thread's reads (L2).
@@ -79,6 +88,7 @@
 #include "attention_fwd.cuh"
 #include "attention_fwd_sm90.cuh"
 #include "gemm_sm90.cuh"
+#include "head_mean_probs_sm90.cuh"
 
 namespace vitx {
 
@@ -99,7 +109,9 @@ enum Route { ROUTE_GEMM_SM90 = 1, ROUTE_ATTN_SM90 = 2 };
 
 // MODE: the attention's probabilities (K1, B7); TOME: B8's QKV bias, key
 // bias and k_mean (with PROBS_NONE). route: the Route bits the caller
-// chose; ERR_ROUTE, before any launch, for one the inputs cannot take.
+// chose; ERR_ROUTE, before any launch, for one the inputs cannot take (B7
+// on ROUTE_ATTN_SM90 also needs attn_stats, the body's (2, B*H*T) fp32
+// statistics, which its pass reads).
 template <typename T, int MODE, bool TOME>
 int run_mha(int route, const void* x, const void* wqkv, const void* wo, const float* bo,
             const float* g, const float* b, void* out, void* qkv, void* o_all, float* stats,
@@ -112,7 +124,9 @@ int run_mha(int route, const void* x, const void* wqkv, const void* wo, const fl
   if (gemm90 && !(BF16 && gemm_sm90_ok(x, wqkv, E, 3 * E, true) &&
                   gemm_sm90_ok(o_all, wo, E, E, false)))
     return sm90::ERR_ROUTE;
-  if (attn90 && !(BF16 && MODE == PROBS_NONE && D == 64)) return sm90::ERR_ROUTE;
+  if (attn90 && !(BF16 && D == 64 &&
+                  (MODE == PROBS_NONE || (MODE == PROBS_MEAN && attn_stats != nullptr))))
+    return sm90::ERR_ROUTE;
 
   int err = static_cast<int>(launch_ln_stats<T>(static_cast<const T*>(x), stats, M, E, eps, s));
   if (err != 0) return err;
@@ -144,6 +158,11 @@ int run_mha(int route, const void* x, const void* wqkv, const void* wo, const fl
     fa.H = H; fa.T = T_;
     fa.scale = 0.125f;   // 1 / sqrt(64)
     err = launch_attention_fwd_sm90<TOME>(in, strides, fa, B, s);
+    if constexpr (MODE == PROBS_MEAN) {
+      if (err != 0) return err;
+      err = launch_head_mean_probs_sm90(qkv, k_plane, attn_stats, probs, B, H, T_, fa.scale,
+                                        s);
+    }
   } else {
     AttnArgs aa = {};
     aa.q = qkv;
@@ -198,20 +217,22 @@ extern "C" int vitx_mha_block(int dtype, int route, const void* x, const void* w
 }
 
 // B7: vitx_mha_block plus probs (B*T*T fp32), the head mean of the
-// softmax, written in full by the kernel. route: ROUTE_GEMM_SM90 or 0.
+// softmax, written in full by the kernels. route: the Route bits, as for
+// vitx_mha_block; ROUTE_ATTN_SM90 needs attn_stats, a (2*B*H*T fp32)
+// scratch for the attention's row statistics (null otherwise).
 extern "C" int vitx_mha_block_mean_probs(int dtype, int route, const void* x, const void* wqkv,
                                          const void* wo, const float* bo, const float* g,
                                          const float* b, void* out, void* qkv, void* o_all,
-                                         float* stats, float* probs, int B, int T, int E,
-                                         int H, float eps, void* stream) {
+                                         float* stats, float* probs, float* attn_stats, int B,
+                                         int T, int E, int H, float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
     return vitx::run_mha<vitx::bf16, vitx::PROBS_MEAN, false>(
-        route, x, wqkv, wo, bo, g, b, out, qkv, o_all, stats, nullptr, probs, nullptr,
+        route, x, wqkv, wo, bo, g, b, out, qkv, o_all, stats, attn_stats, probs, nullptr,
         nullptr, nullptr, B, T, E, H, eps, s);
   return vitx::run_mha<float, vitx::PROBS_MEAN, false>(
-      route, x, wqkv, wo, bo, g, b, out, qkv, o_all, stats, nullptr, probs, nullptr, nullptr,
-      nullptr, B, T, E, H, eps, s);
+      route, x, wqkv, wo, bo, g, b, out, qkv, o_all, stats, attn_stats, probs, nullptr,
+      nullptr, nullptr, B, T, E, H, eps, s);
 }
 
 // B8: vitx_mha_block with bqkv ((3, H, D) fp32, added before the QKV cast),

@@ -7,7 +7,11 @@ forward behind the ``fused_layer_norm`` entries (B10).
   (entry ``ln_bwd``), which every LayerNorm backward of vitx's train step
   runs through on the TPU. vitx gates it on ``E % 128 == 0``
   (``nn/layers.py:48``), a fact of the TPU's lanes: here every width takes
-  the kernel.
+  the kernel, on one of two routes chosen here in the open
+  (``ln_bwd_route``): the one-pass route (x and dy read once, 16-byte
+  vectors held in registers, column partials per block, then one small
+  reduction launch) where E is a multiple of the 16-byte vector and at
+  most 4096, the earlier three launches elsewhere.
 - ``fused_layer_norm(x, scale, bias)`` and ``fused_add_layer_norm(x, r,
   scale, bias) -> (x + r, LN(x + r))`` launch ``csrc/layer_norm_fwd.cu`` on
   CUDA tensors and run ``layer_norm_fwd_plain`` on CPU tensors, any leading
@@ -29,7 +33,13 @@ from vitx_torch.kernels._build import DTYPE_CODES
 from vitx_torch.nn.layers import (_add_ln_forward, _AddLayerNorm,
                                   _LayerNorm, _ln_forward)
 
-ROWS_PER_CHUNK = 64   # rows per partial column sum (csrc/layer_norm_bwd.cu)
+# csrc/layer_norm_bwd.cu's routes
+LN_ROUTE_ONEPASS = 1
+ONEPASS_MAX_E = 4096     # LN1_MAX_E
+ONEPASS_MAX_NV = 4       # LN1_MAX_NV: 16-byte vectors of a row a thread holds
+ONEPASS_THREADS = 256    # LN1_NT
+ONEPASS_BLOCKS_PER_SM = 2
+ROWS_PER_CHUNK = 64   # rows per partial column sum on the earlier route
 
 
 def ln_bwd_plain(x, scale, dy, *, eps: float = 1e-5):
@@ -68,12 +78,88 @@ def _check(x, scale, dy):
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
 
 
+def ln_bwd_route(dtype, E: int, tensors=()) -> int:
+    """The route of an ``ln_bwd`` launch: ``LN_ROUTE_ONEPASS`` for float32
+    or bfloat16 rows whose width E is a multiple of the 16-byte vector (4
+    or 8 elements) and at most ``ONEPASS_MAX_E``, ``tensors`` (x and dy)
+    16-byte aligned; 0, the earlier three launches, otherwise."""
+    if dtype not in DTYPE_CODES:
+        return 0
+    vec = 16 // (torch.finfo(dtype).bits // 8)
+    ok = (E % vec == 0 and E <= ONEPASS_MAX_E
+          and all(t.data_ptr() % 16 == 0 for t in tensors))
+    return LN_ROUTE_ONEPASS if ok else 0
+
+
+def onepass_grid(R: int, E: int, dtype, sms: int) -> dict:
+    """The one-pass route's layout for R rows of width E on a card of
+    ``sms`` SMs, as ``csrc/layer_norm_bwd.cu`` takes it: ``wpr`` warps a
+    row (the fewest of 1, 2, 4, 8 whose threads hold a row in at most
+    ``ONEPASS_MAX_NV`` 16-byte vectors each), ``nv`` vectors a thread,
+    ``groups`` rows in flight a block; ``blocks`` blocks (at most
+    ``ONEPASS_BLOCKS_PER_SM`` an SM) of ``rows_per_block`` contiguous rows,
+    group g of a block taking its rows g, g + groups, ...."""
+    vec = 16 // (torch.finfo(dtype).bits // 8)
+    nvec = E // vec
+    wpr = 1
+    while nvec > ONEPASS_MAX_NV * 32 * wpr:
+        wpr *= 2
+    groups = ONEPASS_THREADS // (32 * wpr)
+    blocks = max(1, min(sms * ONEPASS_BLOCKS_PER_SM, -(-R // groups)))
+    rows_per_block = -(-R // blocks)
+    return {"wpr": wpr, "nv": -(-nvec // (32 * wpr)), "groups": groups,
+            "blocks": -(-R // rows_per_block),
+            "rows_per_block": rows_per_block}
+
+
+_sm_counts: dict = {}
+
+
+def _sms(device) -> int:
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _sm_counts:
+        _sm_counts[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _sm_counts[idx]
+
+
+def _launch(x2, s, dy2, eps, route):
+    """``csrc/layer_norm_bwd.cu`` on (R, E) contiguous CUDA rows and an
+    fp32 scale -> (dx, dscale, dbias), on ``route``; counts nothing."""
+    R, E = x2.shape
+    dev = x2.device
+    dx = torch.empty_like(x2)
+    dscale = torch.empty(E, dtype=torch.float32, device=dev)
+    dbias = torch.empty(E, dtype=torch.float32, device=dev)
+    if route == LN_ROUTE_ONEPASS:
+        grid = onepass_grid(R, E, x2.dtype, _sms(dev))
+        blocks, rpb = grid["blocks"], grid["rows_per_block"]
+        stats = None
+        part = torch.empty(blocks * 2 * E, dtype=torch.float32, device=dev)
+    else:
+        blocks = rpb = 0
+        stats = torch.empty(2 * R, dtype=torch.float32, device=dev)
+        part = torch.empty(-(-R // ROWS_PER_CHUNK) * 2 * E,
+                           dtype=torch.float32, device=dev)
+    fn = _build.entry("layer_norm_bwd")
+    with torch.cuda.device(dev):
+        err = fn(DTYPE_CODES[x2.dtype], route, x2.data_ptr(), s.data_ptr(),
+                 dy2.data_ptr(), dx.data_ptr(), dscale.data_ptr(),
+                 dbias.data_ptr(), None if stats is None else stats.data_ptr(),
+                 part.data_ptr(), R, E, blocks, rpb, float(eps),
+                 torch.cuda.current_stream().cuda_stream)
+    _build.check("layer_norm_bwd", err)
+    return dx, dscale, dbias
+
+
 def ln_bwd(x, scale, dy, *, eps: float = 1e-5):
     """LayerNorm backward over the last axis of (..., E) x and dy (any rank
     >= 2: (B, T, E) for the blocks, (B, 4E) for the reference head).
 
     Returns (dx in x's dtype, dscale fp32 (E,), dbias fp32 (E,)). CUDA
-    tensors go through the kernel and add one to ``ln_bwd.launches``; CPU
+    tensors go through the kernel and add one to ``ln_bwd.launches`` (and
+    to ``launches_onepass`` on the one-pass route, ``ln_bwd_route``); CPU
     tensors take the plain version.
     """
     _check(x, scale, dy)
@@ -84,26 +170,17 @@ def ln_bwd(x, scale, dy, *, eps: float = 1e-5):
     E = x.shape[-1]
     x2 = x.reshape(-1, E).contiguous()
     dy2 = dy.reshape(-1, E).contiguous()
-    s = scale.float().contiguous()
-    R = x2.shape[0]
-    chunks = -(-R // ROWS_PER_CHUNK)
-    dx = torch.empty_like(x2)
-    dscale = torch.empty(E, dtype=torch.float32, device=x.device)
-    dbias = torch.empty(E, dtype=torch.float32, device=x.device)
-    stats = torch.empty(2 * R, dtype=torch.float32, device=x.device)
-    part = torch.empty(chunks * 2 * E, dtype=torch.float32, device=x.device)
-    fn = _build.entry("layer_norm_bwd")
-    with torch.cuda.device(x.device):
-        err = fn(DTYPE_CODES[x.dtype], x2.data_ptr(), s.data_ptr(),
-                 dy2.data_ptr(), dx.data_ptr(), dscale.data_ptr(),
-                 dbias.data_ptr(), stats.data_ptr(), part.data_ptr(), R, E,
-                 float(eps), torch.cuda.current_stream().cuda_stream)
-    _build.check("layer_norm_bwd", err)
+    route = ln_bwd_route(x.dtype, E, (x2, dy2))
+    dx, dscale, dbias = _launch(x2, scale.float().contiguous(), dy2, eps,
+                                route)
     ln_bwd.launches += 1
+    if route == LN_ROUTE_ONEPASS:
+        ln_bwd.launches_onepass += 1
     return dx.reshape(x.shape), dscale, dbias
 
 
 ln_bwd.launches = 0
+ln_bwd.launches_onepass = 0
 
 
 # --- B10: the forward entries, and B11 through B3 ---------------------------

@@ -22,14 +22,15 @@ Routes on the card, chosen here in the open and passed to the kernel,
 which refuses one the inputs cannot take (``mha_route``): in bf16 with E
 a multiple of 8 the projections run on the Hopper GEMM
 ``csrc/gemm_sm90.cuh`` (wgmma fed by TMA, the LayerNorm applied to the A
-operand in registers), and K1's and B8's attention at head width 64 on
-B5's sm90 body (``csrc/attention_fwd_sm90.cuh``; B8's per-key bias is one
-fp32 add per logit there); fp32, other shapes and B7's probabilities keep
-the earlier kernels (``common.cuh``'s ``gemm_kernel``,
-``attention_fwd.cuh``). ``launches`` counts every CUDA launch of a
-wrapper, ``launches_sm90`` those whose projections ran on the sm90 GEMM,
-and B8's ``launches_attn_sm90`` those whose attention ran on the sm90
-body.
+operand in registers), and K1's, B7's and B8's attention at head width
+64 on B5's sm90 body (``csrc/attention_fwd_sm90.cuh``; B8's per-key bias
+is one fp32 add per logit there; B7's head-mean probabilities a second
+pass, ``csrc/head_mean_probs_sm90.cuh``, from the body's row statistics);
+fp32 and other shapes keep the earlier kernels (``common.cuh``'s
+``gemm_kernel``, ``attention_fwd.cuh``). ``launches`` counts every CUDA
+launch of a wrapper, ``launches_sm90`` those whose projections ran on the
+sm90 GEMM, and B7's and B8's ``launches_attn_sm90`` those whose attention
+ran on the sm90 body.
 
 ``fused_mha_block_with_mean_probs`` (B7, the same source's second entry)
 also returns the head-mean attention probabilities; it replaces
@@ -64,10 +65,11 @@ from vitx_torch.nn.layers import dot, layer_norm, matmul32
 MAX_HEAD_DIM = 256
 # the route bits of csrc/mha_block.cu's entries
 ROUTE_GEMM_SM90 = 1   # both projections on csrc/gemm_sm90.cuh
-ROUTE_ATTN_SM90 = 2   # K1's and B8's attention on csrc/attention_fwd_sm90.cuh
-# the entries whose attention can take ROUTE_ATTN_SM90 (B7's probabilities
-# keep attention_fwd.cuh)
-ATTN_SM90_ENTRIES = ("mha_block", "mha_block_tome")
+# the attention on csrc/attention_fwd_sm90.cuh (B7's probabilities then on
+# csrc/head_mean_probs_sm90.cuh)
+ROUTE_ATTN_SM90 = 2
+# the entries whose attention can take ROUTE_ATTN_SM90
+ATTN_SM90_ENTRIES = ("mha_block", "mha_block_mean_probs", "mha_block_tome")
 
 
 def mha_route(dtype, E: int, H: int, *, attention_sm90: bool = True,
@@ -77,9 +79,11 @@ def mha_route(dtype, E: int, H: int, *, attention_sm90: bool = True,
     multiple of 8 and at most 4096, ``tensors`` -- x and the weights --
     16-byte aligned), plus ``ROUTE_ATTN_SM90`` where the attention can
     take B5's sm90 body: bf16 at head width 64
-    (``flash_attention.sm90_route``), for K1 and B8 (``attention_sm90``):
-    B7's probabilities keep the earlier attention. 0 is the earlier
-    kernels throughout."""
+    (``flash_attention.sm90_route``) and ``attention_sm90``, which every
+    entry of ``ATTN_SM90_ENTRIES`` asks for -- K1, B8, and B7, whose
+    head-mean probabilities then come from a second pass over q, k and the
+    body's row statistics (``csrc/head_mean_probs_sm90.cuh``). 0 is the
+    earlier kernels throughout."""
     route = (ROUTE_GEMM_SM90 if _build.gemm_sm90(dtype, (E,), tensors, ln_k=E)
              else 0)
     if (attention_sm90 and dtype == torch.bfloat16
@@ -187,10 +191,12 @@ def _check(x, wqkv, wo, bo, g, b):
 def _launch(x, wqkv, wo, bo, g, b, eps, name="mha_block", extra=(),
             route=None):
     """The ``mha_block.cu`` entry ``name`` on CUDA tensors -> (out, q, k,
-    v, o_all, route): K1, or B7 with ``extra`` its (B, T, T) fp32 probs
-    output, or B8 with ``extra`` (bqkv, log_size, its (B, T, D) k_mean
-    output). K1's ``extra`` is its (2, B, H, T) fp32 attention statistics
-    output. ``route`` defaults to ``mha_route``'s; the caller counts."""
+    v, o_all, route): K1, or B7 with ``extra`` (its (B, T, T) fp32 probs
+    output, its (2, B, H, T) fp32 statistics scratch or None; see
+    ``_launch_mean_probs``), or B8 with ``extra`` (bqkv, log_size, its (B,
+    T, D) k_mean output). K1's ``extra`` is its (2, B, H, T) fp32
+    attention statistics output. ``route`` defaults to ``mha_route``'s;
+    the caller counts."""
     if not x.is_cuda:
         raise ValueError(f"fused_mha_block runs on cuda or cpu, "
                          f"not {x.device}")
@@ -209,8 +215,10 @@ def _launch(x, wqkv, wo, bo, g, b, eps, name="mha_block", extra=(),
         err = fn(DTYPE_CODES[x.dtype], route, x.data_ptr(), wqkv.data_ptr(),
                  wo.data_ptr(), bo.data_ptr(), g.data_ptr(), b.data_ptr(),
                  out.data_ptr(), qkv.data_ptr(), o_all.data_ptr(),
-                 stats.data_ptr(), *(t.data_ptr() for t in extra), B, T, E,
-                 H, float(eps), torch.cuda.current_stream().cuda_stream)
+                 stats.data_ptr(),
+                 *(None if t is None else t.data_ptr() for t in extra),
+                 B, T, E, H, float(eps),
+                 torch.cuda.current_stream().cuda_stream)
     _build.check(name, err)
     return out, qkv[0], qkv[1], qkv[2], o_all, route
 
@@ -309,16 +317,35 @@ fused_mha_block.launches_sm90 = 0
 
 # --- B7: the block with head-mean probabilities ------------------------------
 
+def _launch_mean_probs(x, wqkv, wo, bo, g, b, eps, route=None):
+    """B7's entry on CUDA tensors -> (out, probs, q, k, v, route), q, k, v
+    the kernel's own (B, H, T, D) planes (q unscaled): ``route`` defaults to
+    ``mha_route``'s; on ``ROUTE_ATTN_SM90`` the attention's row statistics
+    go to a (2, B, H, T) fp32 scratch, which the head-mean pass reads. The
+    caller counts."""
+    B, T, E = x.shape
+    H = wqkv.shape[2]
+    if route is None:
+        route = mha_route(x.dtype, E, H, tensors=(x, wqkv, wo))
+    probs = torch.empty((B, T, T), dtype=torch.float32, device=x.device)
+    scratch = (torch.empty((2, B, H, T), dtype=torch.float32,
+                           device=x.device)
+               if route & ROUTE_ATTN_SM90 else None)
+    out, q, k, v, _, _ = _launch(x, wqkv, wo, bo, g, b, eps,
+                                 "mha_block_mean_probs", (probs, scratch),
+                                 route)
+    return out, probs, q, k, v, route
+
+
 def _forward_mean_probs(x, wqkv, wo, bo, g, b, eps):
     """-> (out, probs): kernel B7 on CUDA, the plain version on the CPU."""
     if x.device.type == "cpu":
         return mha_block_mean_probs_plain(x, wqkv, wo, bo, g, b, eps=eps)
-    B, T, _ = x.shape
-    probs = torch.empty((B, T, T), dtype=torch.float32, device=x.device)
-    res = _launch(x, wqkv, wo, bo, g, b, eps, "mha_block_mean_probs",
-                  (probs,))
-    _count(fused_mha_block_with_mean_probs, res[-1])
-    return res[0], probs
+    out, probs, *_, route = _launch_mean_probs(x, wqkv, wo, bo, g, b, eps)
+    _count(fused_mha_block_with_mean_probs, route)
+    if route & ROUTE_ATTN_SM90:
+        fused_mha_block_with_mean_probs.launches_attn_sm90 += 1
+    return out, probs
 
 
 def _composed_with_mean_probs(x, wqkv, wo, bo, g, b, eps):
@@ -360,8 +387,10 @@ def fused_mha_block_with_mean_probs(x, wqkv, wo, bo, g, b, *,
     rollout path's input. The head sum has one fixed order, so repeated
     calls agree bit for bit. CUDA tensors go through kernel B7 and add one
     to ``fused_mha_block_with_mean_probs.launches`` (and to
-    ``launches_sm90`` on the sm90 GEMM); CPU tensors take the plain
-    version. Differentiable through the composed path.
+    ``launches_sm90`` on the sm90 GEMM, to ``launches_attn_sm90`` on the
+    sm90 attention and head-mean pass: bf16 at head width 64, where its
+    out is K1's bit for bit); CPU tensors take the plain version.
+    Differentiable through the composed path.
     """
     _check(x, wqkv, wo, bo, g, b)
     if not torch.is_grad_enabled() or not any(
@@ -372,6 +401,7 @@ def fused_mha_block_with_mean_probs(x, wqkv, wo, bo, g, b, *,
 
 fused_mha_block_with_mean_probs.launches = 0
 fused_mha_block_with_mean_probs.launches_sm90 = 0
+fused_mha_block_with_mean_probs.launches_attn_sm90 = 0
 
 
 # --- B8: ToMe's attention half (and B9's function) ---------------------------
