@@ -13,13 +13,15 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               (vitx_torch/kernels/csrc, one nvcc per source, in parallel)
               and counts, per sm90 kernel (SM90_SOURCES: the sm90 GEMM and
               B5's sm90 body as mha_block.cu and mlp_block.cu build them,
-              the body's KBIAS instantiation, B7's head-mean pass, B8's,
-              B5's and B2's sm90 kernels), the wgmma (HGMMA), TMA (UTMALDG)
-              and wgmma-wait
+              the body's KBIAS instantiation, the probability pass in its
+              head-mean (B7's, B5's mean mode) and full (B5's full mode)
+              instantiations, B8's, B5's and B2's sm90 kernels), the wgmma
+              (HGMMA), TMA (UTMALDG) and wgmma-wait
               instructions in its SASS (cuobjdump -sass); each must have
               wgmma and TMA. B12's multi-leaf kernel must have no wgmma.
-              The body without the key bias must be the same instructions
-              in mha_block's library as in flash_attention_sm90's.
+              The body without the key bias and the head-mean pass must
+              be the same instructions in mha_block's library as in
+              flash_attention_sm90's.
 3. kernels -- K1 (fused MHA block) and K2 (fused MLP block) at ViT-B/16
               shapes, batch 8 and 32, against their plain torch versions
               on the same card: float32 within 1e-4 relative, bfloat16 within
@@ -38,7 +40,15 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               64) and (1, 16, 1100, 64) -- without probs in bf16 its sm90
               kernel, with the row statistics it writes for the backward
               (STATS_TOL), twice bit for bit, and the earlier kernel on
-              the same inputs; B7 (block with head-mean probs),
+              the same inputs; in bf16 its two probability modes on the
+              sm90 route (the body, then the probability pass), also at
+              a ragged (2, 4, 65, 64) and, the head mean, at the
+              rollout's (32, 16, 577, 64): o within BF16_TOL and
+              bit-equal to the no-probs sm90 o, the probabilities within
+              PROBS_BF16_TOL, launches_sm90 one a call, twice bit for
+              bit, the full mode's head mean within HEAD_MEAN_TOL of the
+              mean mode's, and the earlier kernel on the same inputs;
+              B7 (block with head-mean probs),
               K1 and K2 (gelu_tanh) at large16_384 block shapes, batch 2
               and 8; float32 and bfloat16; B5's head mean and B7 twice,
               bit for bit; probability rows summing to 1 within 1e-5.
@@ -57,8 +67,10 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               (32, 184) and (32, 41). B10 (fused_layer_norm and
               fused_add_layer_norm) against their plain version at E
               64, 100, 768, 1024, 3072 and R 1, 394, 50432 rows, float32
-              1e-4 and bfloat16 BF16_TOL; the add variant's sum equal to
-              x + r bit for bit; each twice, bit for bit.
+              1e-4 and bfloat16 BF16_TOL, on the one-pass route where
+              ln_fwd_route gives it (launches_onepass one a call) and the
+              earlier kernel on the same inputs; the add variant's sum
+              equal to x + r bit for bit; each twice, bit for bit.
 4. grad    -- the training kernels at ViT-B/16 shapes (T 197) against
               their plain versions: batch 8 in float32 (1e-4) and bfloat16,
               and the train main path's batch 128 in bfloat16: B2
@@ -117,12 +129,18 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               grad_cam at batch 8 against the same route (heatmap and
               logits within GRADCAM_TOL; that route's only launches are
               B3's LayerNorm backwards); (b) forward_with_attn(
-              probs_mode="full") at batch 2: B5 24, K2 24, logits and
-              probs against the same reference route (no launches);
+              probs_mode="full") at batch 2: B5 24 (its sm90 route 24),
+              K2 24, logits and probs against the same reference route
+              (no launches);
               (b') with fuse_mha="off" at batch 8: the forward (B5 without
               probs in every block, on its sm90 route) and Grad-CAM
               through it (B5's sm90 forward with its statistics, B2's
               sm90 backward) against the reference route;
+              (e) the model with QKV biases (a random bias from seed 0)
+              at batch 8: forward_with_rollout and forward_with_attn(
+              probs_mode="mean") through the composed block in every
+              layer against the reference route (EXPLAIN_TOL), launches
+              B5's head mean 24 (its sm90 route 24), K2 24, K1 0, B7 0;
               (c) a depth-2 float32 copy, card against CPU (1e-4):
               rollout, Grad-CAM, and with fuse_mha="off" the forward (B5
               without probs) and forward_with_attn("mean") (B5 head
@@ -164,8 +182,10 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               the plain version, launches B10 1 + 1, B3 2.
 11. times  -- CUDA-event medians: the base16 forward at batch 256 bf16
               (img/s), the train step at batch 128 bf16 (img/s), the
-              large16_384 rollout forward at batch 32 bf16 (img/s) and
-              forward_with_attn("full") at batch 2, the ToMe forward at
+              large16_384 rollout forward at batch 32 bf16 (img/s), the
+              same with QKV biases and forward_with_attn("full") at
+              batch 2 (these two also with B5's probability modes on the
+              earlier kernel, in turns, as was_ms_runs), the ToMe forward at
               base16 b256 (r=13 and (35, 34)) and large16_384 b32 (r=23
               and (65, 64 x 6)), each with a torch.profiler split (ToMe:
               r=13 and r=23); for each kernel its time, its bound, its
@@ -176,10 +196,13 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               fine-tune step at batch 32 (img/s, profiler split), B2 at
               its (32, 12, 1025, 64), B6's range, B3 at (32, 1025, 768) and
               on the 2-D view of base16's b256 tokens, B11's function (each
-              under its row's "shapes"), and B10's two rows there. B3 has
-              two rows: ln_bwd_onepass, the wrapper's one-pass route, with
-              the earlier kernel's time of the same call as was_ms, and
-              ln_bwd, that earlier kernel through its launcher. B7's sm90
+              under its row's "shapes"), and B10's rows there. B3 and
+              B10's two variants have two rows each: *_onepass, the
+              wrapper's one-pass route, with the earlier kernel's time of
+              the same call as was_ms, and the plain name, that earlier
+              kernel through its launcher (route 0). B5's probability
+              modes likewise: *_sm90 the wrapper's sm90 route, the plain
+              name the earlier kernel (_launch_probs(route=0)). B7's sm90
               row carries its GEMM-only route (the sm90 GEMM with
               attention_fwd.cuh) as was_ms. B2, B5 without
               probs, K1, K2, B7 and B8 have two rows each: the sm90 route
@@ -200,8 +223,8 @@ Each main path runs with the kernels' launch counts set to 0 just before
 it and read just after. ``attention_bwd``, ``flash_attention`` and the
 blocks' rows count every launch of their wrappers; ``attention_bwd_sm90``,
 ``flash_attention_sm90`` and the blocks' ``*_sm90`` rows read the
-wrappers' ``launches_sm90``, the launches on the sm90 route, and
-``ln_bwd_onepass`` B3's ``launches_onepass`` (COUNTERS); B7's and B8's
+wrappers' ``launches_sm90``, the launches on the sm90 route, and the
+``*_onepass`` rows B3's and B10's ``launches_onepass`` (COUNTERS); B7's and B8's
 launches on the sm90 attention are counted beside them (EXTRA_COUNTERS)
 and reported in their sm90 rows.
 The last lines are one JSON
@@ -329,6 +352,19 @@ KERNELS = {
         "replaces": "vitx/kernels/layer_norm.py:59",
         "tpu_kernel": "vitx/kernels/layer_norm.py::_ln_kernel (with_add)",
     },
+    # B10's one-pass route (E a multiple of the 16-byte vector, at most
+    # 4096): counted in the entries' launches_onepass (COUNTERS), while the
+    # two rows above count every launch, both routes
+    "fused_layer_norm_onepass": {
+        "source": "vitx_torch/kernels/csrc/layer_norm_fwd.cu",
+        "replaces": "vitx/kernels/layer_norm.py:59",
+        "tpu_kernel": "vitx/kernels/layer_norm.py::_ln_kernel (plain)",
+    },
+    "fused_add_layer_norm_onepass": {
+        "source": "vitx_torch/kernels/csrc/layer_norm_fwd.cu",
+        "replaces": "vitx/kernels/layer_norm.py:59",
+        "tpu_kernel": "vitx/kernels/layer_norm.py::_ln_kernel (with_add)",
+    },
     "fused_adamw_": {
         "source": "vitx_torch/kernels/csrc/adamw.cu",
         "replaces": "vitx/kernels/adamw.py:56",
@@ -365,6 +401,26 @@ KERNELS = {
         "tpu_kernel": "vitx/kernels/flash_attention.py::_fwd_kernel "
                       "(head-mean probs)",
     },
+    # B5's probability modes on the sm90 route (bf16 at D 64, contiguous
+    # planes): the body, then the probability pass; counted in the
+    # wrappers' launches_sm90 (COUNTERS), while the two rows above count
+    # every launch, both routes
+    "flash_attention_with_probs_sm90": {
+        "source": "vitx_torch/kernels/csrc/flash_attention_sm90.cu",
+        "headers": ["vitx_torch/kernels/csrc/attention_fwd_sm90.cuh",
+                    "vitx_torch/kernels/csrc/attention_probs_sm90.cuh"],
+        "replaces": "vitx/kernels/flash_attention.py:132",
+        "tpu_kernel": "vitx/kernels/flash_attention.py::_fwd_kernel "
+                      "(full probs, bf16 at D 64)",
+    },
+    "flash_attention_with_mean_probs_sm90": {
+        "source": "vitx_torch/kernels/csrc/flash_attention_sm90.cu",
+        "headers": ["vitx_torch/kernels/csrc/attention_fwd_sm90.cuh",
+                    "vitx_torch/kernels/csrc/attention_probs_sm90.cuh"],
+        "replaces": "vitx/kernels/flash_attention.py:132",
+        "tpu_kernel": "vitx/kernels/flash_attention.py::_fwd_kernel "
+                      "(head-mean probs, bf16 at D 64)",
+    },
     "fused_mha_block_with_mean_probs": {
         "source": "vitx_torch/kernels/csrc/mha_block.cu",
         "replaces": "vitx/kernels/mha_block.py:174",
@@ -384,7 +440,7 @@ KERNELS = {
         "source": "vitx_torch/kernels/csrc/mha_block.cu",
         "headers": ["vitx_torch/kernels/csrc/gemm_sm90.cuh",
                     "vitx_torch/kernels/csrc/attention_fwd_sm90.cuh",
-                    "vitx_torch/kernels/csrc/head_mean_probs_sm90.cuh"],
+                    "vitx_torch/kernels/csrc/attention_probs_sm90.cuh"],
         "replaces": "vitx/kernels/mha_block.py:174",
         "tpu_kernel": "vitx/kernels/mha_block.py::_kernel_hchunk "
                       "(mean probs)",
@@ -409,7 +465,15 @@ BLOCK_SM90 = {"fused_mha_block": "fused_mha_block_sm90",
 # (wrapper, attribute)
 COUNTERS = {"attention_bwd_sm90": ("attention_bwd", "launches_sm90"),
             "flash_attention_sm90": ("flash_attention", "launches_sm90"),
+            "flash_attention_with_probs_sm90": ("flash_attention_with_probs",
+                                                "launches_sm90"),
+            "flash_attention_with_mean_probs_sm90": (
+                "flash_attention_with_mean_probs", "launches_sm90"),
             "ln_bwd_onepass": ("ln_bwd", "launches_onepass"),
+            "fused_layer_norm_onepass": ("fused_layer_norm",
+                                         "launches_onepass"),
+            "fused_add_layer_norm_onepass": ("fused_add_layer_norm",
+                                             "launches_onepass"),
             **{row: (name, "launches_sm90")
                for name, row in BLOCK_SM90.items()}}
 # counts that are no row of their own, read and expected beside the rows':
@@ -430,13 +494,16 @@ ATTN_SM90_COUNTERS = {"fused_mha_block_with_mean_probs":
 # attention_kernel, head_mean_kernel), which use neither and are not read.
 # A kernel named with its template arguments is that instantiation
 # (attention_fwd_sm90<2, true>: B8's KBIAS body); a bare name sums them all.
-# head_mean_probs_sm90 is B7's head-mean pass
-SM90_SOURCES = {"flash_attention_sm90": ("attention_fwd_sm90<2, false>",),
+# attention_probs_sm90<true> is the head-mean probability pass (B7's in
+# mha_block, B5's mean mode in flash_attention_sm90), <false> B5's full mode
+SM90_SOURCES = {"flash_attention_sm90": ("attention_fwd_sm90<2, false>",
+                                         "attention_probs_sm90<true>",
+                                         "attention_probs_sm90<false>"),
                 "attention_bwd_sm90": ("dq_kernel_sm90", "dkdv_kernel_sm90"),
                 "mha_block": ("gemm_sm90_kernel",
                               "attention_fwd_sm90<2, false>",
                               "attention_fwd_sm90<2, true>",
-                              "head_mean_probs_sm90"),
+                              "attention_probs_sm90<true>"),
                 "mlp_block": ("gemm_sm90_kernel",)}
 # kernels whose SASS is read and must hold no wgmma: B12's multi-leaf
 # update streams bytes and does no matrix product
@@ -528,8 +595,9 @@ def phase_build():
           "(HGMMA) and TMA (UTMALDG) or other async copies (UBLKCP, LDGSTS) "
           "per kernel, and wgmma waits (WARPGROUP.DEPBAR: one per HGMMA "
           "would mean ptxas serialised them); attention_fwd_sm90<2, true> "
-          "is B8's KBIAS instantiation, head_mean_probs_sm90 B7's head-mean "
-          "pass", "sass": sass})
+          "is B8's KBIAS instantiation, attention_probs_sm90<true> the "
+          "head-mean probability pass (B7's, B5's mean mode), <false> B5's "
+          "full mode", "sass": sass})
     for name, wanted in SM90_SOURCES.items():
         for kern in wanted:
             n = sass[name].get(kern)
@@ -550,18 +618,19 @@ def phase_build():
             if n is None or n["HGMMA"] or n["WARPGROUP.DEPBAR"]:
                 raise AssertionError(f"{name}: {kern} is missing or holds "
                                      f"wgmma: {n}")
-    # the body without the key bias is one code in both sources: K1's copy
-    # (mha_block) and B5's (flash_attention_sm90), instruction for
-    # instruction, so the KBIAS flag leaves them as they were
-    body = "attention_fwd_sm90<2, false>"
-    same = funcs["mha_block"].get(body) == funcs["flash_attention_sm90"].get(
-        body)
-    emit({"phase": "build", "check": f"{body}: mha_block's SASS equal to "
-          f"flash_attention_sm90's", "equal": same,
-          "instructions": len(funcs["mha_block"].get(body) or [])})
-    if not same:
-        raise AssertionError(f"{body} differs between mha_block and "
-                             f"flash_attention_sm90")
+    # the body without the key bias and the head-mean pass are one code in
+    # both sources: K1's and B7's copies (mha_block) and B5's
+    # (flash_attention_sm90), instruction for instruction, so the KBIAS
+    # flag and the full mode's instantiation leave them as they were
+    for kern in ("attention_fwd_sm90<2, false>", "attention_probs_sm90<true>"):
+        same = (funcs["mha_block"].get(kern)
+                == funcs["flash_attention_sm90"].get(kern))
+        emit({"phase": "build", "check": f"{kern}: mha_block's SASS equal "
+              f"to flash_attention_sm90's", "equal": same,
+              "instructions": len(funcs["mha_block"].get(kern) or [])})
+        if not same:
+            raise AssertionError(f"{kern} differs between mha_block and "
+                                 f"flash_attention_sm90")
 
 
 SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP", "LDGSTS", "WARPGROUP.DEPBAR")
@@ -637,6 +706,17 @@ def phase_kernels(errs: dict):
     for shape in ((2, 16, 577, 64), (2, 12, 197, 64), (1, 16, 1100, 64)):
         for dtype in (torch.float32, torch.bfloat16):
             check_flash(shape, dtype, errs)
+    # B5's probability modes on the sm90 route at a ragged T (65: a last
+    # key tile of one key, one query tile's rows mostly past T), and the
+    # head mean at the rollout's batch 32
+    for shape, modes in (((2, 4, 65, 64), ("full", "mean")),
+                         ((32, 16, 577, 64), ("mean",))):
+        q, k, v = (seeded(shape, s, 1.5, dtype=torch.bfloat16)
+                   for s in (34, 35, 36))
+        check_probs_sm90(q, k, v, errs if shape[0] == 32 else None,
+                         {"shape": list(shape), "dtype": "torch.bfloat16"},
+                         modes)
+        del q, k, v
     # B7 and K1 at large16_384 block shapes
     for B in (2, 8):
         for dtype, tol in ((torch.float32, FP32_TOL),
@@ -667,37 +747,67 @@ def phase_kernels(errs: dict):
                 check_layer_norm_fwd(R, E_, dtype, errs)
     emit({"phase": "kernels", "check": "fused_layer_norm and "
           "fused_add_layer_norm twice bit for bit, the add variant's sum "
-          "equal to x + r, at every shape above"})
+          "equal to x + r, at every shape above; the one-pass route where "
+          "ln_fwd_route gives it (every shape but bf16 at E 100), the "
+          "earlier kernel beside it on the same inputs"})
 
 
 def check_layer_norm_fwd(R, E, dtype, errs: dict) -> None:
-    """B10 in both variants against ``layer_norm_fwd_plain`` on (R, E);
-    the add variant's sum equal to the plain sum bit for bit; each variant
-    twice, bit for bit."""
+    """B10 in both variants against ``layer_norm_fwd_plain`` on (R, E):
+    the wrappers' route (the one-pass route where ``ln_fwd_route`` gives
+    it, counted in launches_onepass one a call) and the earlier kernel on
+    the same inputs through its launcher (route 0); the add variant's sum
+    equal to the plain sum bit for bit on both; each variant twice, bit
+    for bit."""
+    import importlib
+
     from vitx_torch.kernels import (fused_add_layer_norm, fused_layer_norm,
                                     layer_norm_fwd_plain)
 
+    tln = importlib.import_module("vitx_torch.kernels.layer_norm")
     bf = dtype == torch.bfloat16
     tol = BF16_TOL if bf else FP32_TOL
     x = seeded((R, E), 80 + E, 3.0, 0.5, dtype=dtype)
     r = seeded((R, E), 81 + E, 1.0, dtype=dtype)
     sc, bi = seeded((E,), 82, 0.1, 1.0), seeded((E,), 83, 0.1)
-    info = {"shape": [R, E], "dtype": str(dtype)}
+    route = tln.ln_fwd_route(dtype, E, (x, r, sc, bi))
+    onepass = route == tln.LN_ROUTE_ONEPASS
+    info = {"shape": [R, E], "dtype": str(dtype), "route": route}
     main = bf and (R, E) == (256 * 197, 768)      # the timed shape
+    fast = "_onepass" if onepass else ""
+    n = (fused_layer_norm.launches_onepass,
+         fused_add_layer_norm.launches_onepass)
     y = fused_layer_norm(x, sc, bi)
     s, ya = fused_add_layer_norm(x, r, sc, bi)
     torch.cuda.synchronize()
-    check("kernels", "fused_layer_norm", y, layer_norm_fwd_plain(x, sc, bi),
-          tol, errs if main else None, "fused_layer_norm", **info)
-    ref_s, ref_y = layer_norm_fwd_plain(x, sc, bi, r)
-    check("kernels", "fused_add_layer_norm (sum, y)", (s, ya),
-          (ref_s, ref_y), tol, errs if main else None,
-          "fused_add_layer_norm", **info)
+    got = (fused_layer_norm.launches_onepass - n[0],
+           fused_add_layer_norm.launches_onepass - n[1])
+    if got != (int(onepass), int(onepass)):
+        raise AssertionError(f"B10 {info}: {got} one-pass launches")
+    ref_y = layer_norm_fwd_plain(x, sc, bi)
+    check("kernels", f"fused_layer_norm{fast}", y, ref_y, tol,
+          errs if main else None, f"fused_layer_norm{fast}", **info)
+    ref_s, ref_ya = layer_norm_fwd_plain(x, sc, bi, r)
+    check("kernels", f"fused_add_layer_norm{fast} (sum, y)", (s, ya),
+          (ref_s, ref_ya), tol, errs if main else None,
+          f"fused_add_layer_norm{fast}", **info)
     if not torch.equal(s, ref_s):
         raise AssertionError(f"B10 {info}: the sum differs from x + r")
     if not (torch.equal(fused_layer_norm(x, sc, bi), y)
             and torch.equal(fused_add_layer_norm(x, r, sc, bi)[1], ya)):
         raise AssertionError(f"B10 {info}: two calls differ")
+    if onepass:   # the earlier kernel on the same inputs
+        was_y = tln._launch_fwd(x, None, sc, bi, 1e-5, route=0)[0]
+        was_ya, was_s, _ = tln._launch_fwd(x, r, sc, bi, 1e-5, route=0)
+        check("kernels", "fused_layer_norm (the earlier kernel)", was_y,
+              ref_y, tol, errs if main else None, "fused_layer_norm",
+              **info)
+        check("kernels", "fused_add_layer_norm (the earlier kernel) (sum, "
+              "y)", (was_s, was_ya), (ref_s, ref_ya), tol,
+              errs if main else None, "fused_add_layer_norm", **info)
+        if not torch.equal(was_s, ref_s):
+            raise AssertionError(f"B10 {info}: the earlier kernel's sum "
+                                 f"differs from x + r")
 
 
 def check_rows(what: str, probs, **info) -> None:
@@ -711,7 +821,8 @@ def check_rows(what: str, probs, **info) -> None:
 
 def check_flash(shape, dtype, errs: dict) -> None:
     """B5 in each mode against ``flash_attention_fwd_plain``; the head
-    mean twice, bit for bit."""
+    mean twice, bit for bit. In bf16 at D 64 every mode is on its sm90
+    route: ``check_flash_sm90`` and ``check_probs_sm90`` hold them."""
     from vitx_torch.kernels import (flash_attention,
                                     flash_attention_fwd_plain,
                                     flash_attention_with_mean_probs,
@@ -720,10 +831,12 @@ def check_flash(shape, dtype, errs: dict) -> None:
     bf = dtype == torch.bfloat16
     q, k, v = (seeded(shape, s, 1.5, dtype=dtype) for s in (31, 32, 33))
     info = {"shape": list(shape), "dtype": str(dtype)}
-    tol, ptol = (BF16_TOL, PROBS_BF16_TOL) if bf else (FP32_TOL, FP32_TOL)
     main = bf and shape[1] == 16 and shape[2] == 577
     if bf and shape[3] == 64:
         check_flash_sm90(q, k, v, errs if main else None, info)
+        check_probs_sm90(q, k, v, errs if main else None, info)
+        return
+    tol, ptol = (BF16_TOL, PROBS_BF16_TOL) if bf else (FP32_TOL, FP32_TOL)
     for name, fn, mode in (
             ("flash_attention", flash_attention, None),
             ("flash_attention_with_probs", flash_attention_with_probs,
@@ -734,18 +847,89 @@ def check_flash(shape, dtype, errs: dict) -> None:
         torch.cuda.synchronize()
         ref = flash_attention_fwd_plain(q, k, v, mode)
         if mode is None:
-            key = "flash_attention_sm90" if bf and shape[3] == 64 else name
-            check("kernels", key, out, ref, tol, errs if main else None,
-                  key, **info)
+            check("kernels", name, out, ref, tol, None, **info)
             continue
-        check("kernels", f"{name} o", out[0], ref[0], tol,
-              errs if main else None, name, **info)
-        check("kernels", f"{name} probs", out[1], ref[1], ptol,
-              errs if main else None, name, **info)
+        check("kernels", f"{name} o", out[0], ref[0], tol, None, **info)
+        check("kernels", f"{name} probs", out[1], ref[1], ptol, None,
+              **info)
         check_rows(name, out[1], **info)
         if mode == "mean" and not torch.equal(fn(q, k, v)[1], out[1]):
             raise AssertionError(f"{name} {info}: two calls differ")
         del out, ref
+
+
+# the full mode's head mean (summed in head order, / H) against the mean
+# mode's probabilities on the same inputs: the two differ by the fp32
+# rounding of each head's product exp(s - m) * linv, which the mean mode
+# fuses into its sum
+HEAD_MEAN_TOL = 1e-6
+
+
+def check_probs_sm90(q, k, v, errs, info, modes=("full", "mean")) -> None:
+    """B5's probability ``modes`` on their sm90 route (bf16, D 64): o
+    within BF16_TOL and the probabilities within PROBS_BF16_TOL of the
+    plain version, rows summing to 1 within 1e-5, launches_sm90 one a call,
+    twice bit for bit, o bit-equal to ``flash_attention``'s sm90 o; the
+    full mode's head mean within HEAD_MEAN_TOL of the mean mode's; the
+    earlier kernel (attention_fwd.cuh) on the same inputs through
+    ``_launch_probs(route=0)``."""
+    from vitx_torch.kernels import (flash_attention,
+                                    flash_attention_fwd_plain,
+                                    flash_attention_with_mean_probs,
+                                    flash_attention_with_probs)
+
+    tflash = attention_module()
+    o90 = flash_attention(q, k, v)
+    fns = {"full": ("flash_attention_with_probs", flash_attention_with_probs),
+           "mean": ("flash_attention_with_mean_probs",
+                    flash_attention_with_mean_probs)}
+    probs = {}
+    for mode in modes:
+        name, fn = fns[mode]
+        n, n90 = fn.launches, fn.launches_sm90
+        out = fn(q, k, v)
+        torch.cuda.synchronize()
+        if (fn.launches, fn.launches_sm90) != (n + 1, n90 + 1):
+            raise AssertionError(f"{name} {info}: not one launch on the "
+                                 f"sm90 route")
+        ref = flash_attention_fwd_plain(q, k, v, mode)
+        key = f"{name}_sm90"
+        check("kernels", f"{key} o", out[0], ref[0], BF16_TOL, errs, key,
+              **info)
+        check("kernels", f"{key} probs", out[1], ref[1], PROBS_BF16_TOL,
+              errs, key, **info)
+        check_rows(key, out[1], **info)
+        again = fn(q, k, v)
+        if not (torch.equal(again[0], out[0])
+                and torch.equal(again[1], out[1])):
+            raise AssertionError(f"{key} {info}: two calls differ")
+        if not torch.equal(out[0], o90):
+            raise AssertionError(f"{key} {info}: o differs from "
+                                 f"flash_attention's sm90 o")
+        del again
+        was = tflash._launch_probs(q, k, v, mode, route=0)
+        check("kernels", f"{name} (the earlier kernel) o", was[0], ref[0],
+              BF16_TOL, errs, name, **info)
+        check("kernels", f"{name} (the earlier kernel) probs", was[1],
+              ref[1], PROBS_BF16_TOL, errs, name, **info)
+        del was, ref
+        probs[mode] = out[1]
+        del out
+    if len(probs) == 2:
+        full = probs["full"]
+        acc = full[:, 0]
+        for h in range(1, full.shape[1]):
+            acc = acc + full[:, h]
+        err = card_rel_err(acc / full.shape[1], probs["mean"])
+        emit({"phase": "kernels", "check": "the full mode's head mean (head "
+              "order, / H) vs the mean mode's probabilities, sm90 route",
+              "rel_err": err, "tol": HEAD_MEAN_TOL, **info})
+        if err > HEAD_MEAN_TOL:
+            raise AssertionError(f"B5 {info}: the full mode's head mean is "
+                                 f"{err} from the mean mode's")
+    emit({"phase": "kernels", "check": "B5's probability modes on the sm90 "
+          "route: launches_sm90 one a call, twice bit for bit, o bit-equal "
+          "to flash_attention's sm90 o", "modes": list(modes), **info})
 
 
 def check_flash_sm90(q, k, v, errs, info) -> None:
@@ -1052,10 +1236,12 @@ def counts():
 
 def launches_of(**per: int) -> dict:
     """A launch count for every kernel and extra counter: ``per``'s, else
-    0; B3's one-pass row, unless given, B3's count: every LayerNorm
-    backward of the paths has E 768, 1024, 3072 or 4096, which the
-    one-pass route takes in both dtypes (``ln_bwd_route``)."""
-    per.setdefault("ln_bwd_onepass", per.get("ln_bwd", 0))
+    0; B3's and B10's one-pass rows, unless given, their wrappers' counts:
+    every LayerNorm of the paths has E 768, 1024, 3072 or 4096, which the
+    one-pass routes take in both dtypes (``ln_bwd_route``,
+    ``ln_fwd_route``)."""
+    for name in ("ln_bwd", "fused_layer_norm", "fused_add_layer_norm"):
+        per.setdefault(f"{name}_onepass", per.get(name, 0))
     return {name: per.get(name, 0) for name in (*KERNELS, *EXTRA_COUNTERS)}
 
 
@@ -1914,7 +2100,9 @@ def phase_explain(cfg, params) -> dict:
     torch.cuda.synchronize()
     got = delta(snap)
     expect_launches("(b) forward_with_attn", got, block_launches(
-        cfg, flash_attention_with_probs=cfg.depth, fused_mlp_block=cfg.depth))
+        cfg, flash_attention_with_probs=cfg.depth,
+        flash_attention_with_probs_sm90=cfg.depth * sm90(cfg),
+        fused_mlp_block=cfg.depth))
     expected.append(got)
     snap = counts()
     ref_logits, ref_probs = forward_with_attn(params, imgs, ref_cfg)
@@ -1972,6 +2160,12 @@ def phase_explain(cfg, params) -> dict:
     del logits, heat, cam_logits, ref_logits, ref_heat
     torch.cuda.empty_cache()
 
+    # (e) the model with QKV biases (the original ViT-L/16's and timm's),
+    # at full width and depth, bf16, batch 8: every block takes the
+    # composed path, its attention B5's head-mean mode on the sm90 route;
+    # rollout and forward_with_attn("mean") against the reference route
+    expected.append(explain_qkv_bias(cfg, params, ref_cfg))
+
     # (c) a depth-2 float32 copy, card against CPU
     cfg2 = vitx_torch.get_config("large16_384", depth=2,
                                  compute_dtype="float32")
@@ -2012,6 +2206,84 @@ def phase_explain(cfg, params) -> dict:
     expect_launches("explain phase", total, add_launches(*expected))
     verify_explains(cfg, params, *served)
     return total
+
+
+def qkv_bias_model(cfg, params) -> tuple:
+    """(cfg with QKV biases, ``params`` with a random bqkv from seed 0):
+    the same weights plus a bias of a projection's scale in every block."""
+    D = cfg.embed_dim // cfg.num_heads
+    blocks = dict(params["blocks"],
+                  bqkv=seeded((cfg.depth, 3, cfg.num_heads, D), 0, 0.1))
+    return cfg.replace(qkv_bias=True), dict(params, blocks=blocks)
+
+
+def bias_rollout_launches(cfg, calls: int = 1) -> dict:
+    """forward_with_rollout (or forward_with_attn("mean")) with QKV biases:
+    the composed block, B5's head mean and K2 in every block, B5 on its
+    sm90 route in bf16 at D 64."""
+    n = cfg.depth * calls
+    return block_launches(
+        cfg, flash_attention_with_mean_probs=n,
+        flash_attention_with_mean_probs_sm90=n * sm90(cfg),
+        fused_mlp_block=n)
+
+
+def explain_qkv_bias(cfg, params, ref_cfg) -> dict:
+    """Explain (e): large16_384 with QKV biases, bf16, batch 8, rollout and
+    forward_with_attn("mean") on the kernels against the kernel-free route
+    (EXPLAIN_TOL), launches B5's head mean 24 (sm90 24), K2 24, nothing
+    else. Returns the launches."""
+    from vitx_torch import forward_with_attn, forward_with_rollout
+
+    bcfg, bparams = qkv_bias_model(cfg, params)
+    bref = ref_cfg.replace(qkv_bias=True)
+    imgs = explain_images(cfg, 8, 11)
+    snap = counts()
+    logits, weights = forward_with_rollout(bparams, imgs, bcfg)
+    torch.cuda.synchronize()
+    got = delta(snap)
+    expect_launches("(e) rollout, QKV biases", got,
+                    bias_rollout_launches(bcfg))
+    snap = counts()
+    ref_logits, ref_weights = forward_with_rollout(bparams, imgs, bref)
+    torch.cuda.synchronize()
+    expect_launches("(e) reference rollout", delta(snap), launches_of())
+    errs = {"logits": card_rel_err(logits, ref_logits),
+            "rollout": card_rel_err(weights, ref_weights)}
+    sums = float((weights.double().sum(-1) - 1).abs().max())
+    emit({"phase": "explain", "part": "e: rollout b8 bf16 with QKV biases "
+          "(composed path, B5's head mean), kernels vs reference route",
+          "rel_err": errs, "row_sum_dev": sums, "launches": got,
+          "tol": EXPLAIN_TOL, "shape": list(weights.shape)})
+    if not (max(errs.values()) <= EXPLAIN_TOL and sums <= 1e-4
+            and weights.shape == (8, cfg.num_patches)
+            and bool(torch.isfinite(logits).all())):
+        raise AssertionError(f"(e) rollout: {errs}, row sums +- {sums}")
+    del logits, weights, ref_logits, ref_weights
+    snap = counts()
+    logits, probs = forward_with_attn(bparams, imgs, bcfg, probs_mode="mean")
+    torch.cuda.synchronize()
+    got_attn = delta(snap)
+    expect_launches("(e) forward_with_attn mean, QKV biases", got_attn,
+                    bias_rollout_launches(bcfg))
+    snap = counts()
+    ref_logits, ref_probs = forward_with_attn(bparams, imgs, bref,
+                                              probs_mode="mean")
+    torch.cuda.synchronize()
+    expect_launches("(e) reference forward_with_attn", delta(snap),
+                    launches_of())
+    errs = {"logits": card_rel_err(logits, ref_logits),
+            "probs": card_rel_err(probs, ref_probs)}
+    shape = (cfg.depth, 8, cfg.seq_len, cfg.seq_len)
+    emit({"phase": "explain", "part": "e: forward_with_attn mean b8 bf16 "
+          "with QKV biases, kernels vs reference route", "rel_err": errs,
+          "launches": got_attn, "tol": EXPLAIN_TOL,
+          "shape": list(probs.shape)})
+    if not (max(errs.values()) <= EXPLAIN_TOL and probs.shape == shape):
+        raise AssertionError(f"(e) forward_with_attn mean: {errs}")
+    del logits, probs, ref_logits, ref_probs, bparams
+    torch.cuda.empty_cache()
+    return add_launches(got, got_attn)
 
 
 def phase_explain_serve(cfg, params) -> tuple:
@@ -2504,16 +2776,35 @@ def phase_explain_times(cfg, params, errs: dict, launches: dict) -> list:
     imgs = {B: torch.randn(B, cfg.image_size, cfg.image_size, 3,
                            device="cuda", generator=gen).to(bf)
             for B in (32, 2)}
+    bcfg, bparams = qkv_bias_model(cfg, params)
     for what, B, fn in (
             ("rollout_forward", 32,
              lambda: forward_with_rollout(params, imgs[32], cfg)),
+            ("rollout_forward_qkv_bias", 32,
+             lambda: forward_with_rollout(bparams, imgs[32], bcfg)),
             ("forward_with_attn_full", 2,
              lambda: forward_with_attn(params, imgs[2], cfg))):
         ms = cuda_ms(fn, reps=10)
-        emit({"phase": "times", "what": what, "batch": B, "ms": ms,
-              "img_per_s": B / (ms / 1000.0)})
+        row = {"phase": "times", "what": what, "batch": B, "ms": ms,
+               "img_per_s": B / (ms / 1000.0)}
+        if what != "rollout_forward":
+            # the same call with B5's probability modes on the earlier
+            # kernel, in turns with this one (now, was, now, was)
+            runs, was = [ms], []
+            for i in range(3):
+                if i % 2 == 0:
+                    with earlier_probs_route():
+                        was.append(cuda_ms(fn, reps=5))
+                else:
+                    runs.append(cuda_ms(fn, reps=10))
+            with earlier_probs_route():
+                was.append(cuda_ms(fn, reps=5))
+            row.update(ms_runs=runs, was_ms_runs=was, was="B5's "
+                       "probability modes on the earlier kernel "
+                       "(attention_fwd.cuh)")
+        emit(row)
         profile_call(what, fn, top=14)
-    del imgs
+    del imgs, bparams
     torch.cuda.empty_cache()
 
     def attn(B):
@@ -2539,19 +2830,13 @@ def phase_explain_times(cfg, params, errs: dict, launches: dict) -> list:
         timed="the earlier kernel on bf16 through its launcher; the "
               "wrapper sends bf16 at D 64 to flash_attention_sm90 and this "
               "kernel fp32, other D and the probs modes"))
-    rows.append(kernel_row(
-        "flash_attention_with_mean_probs",
-        lambda: flash_attention_with_mean_probs(q, k, v),
-        lambda: flash_attention_fwd_plain(q, k, v, "mean"), None, flops,
-        PEAK_BF16_FLOPS, nbytes + 32 * T * T * 4, launches, errs,
-        shape=[32, H, T, D], library_note=NO_LIBRARY))
+    rows += probs_rows("flash_attention_with_mean_probs",
+                       flash_attention_with_mean_probs, "mean", q, k, v,
+                       flops, nbytes + 32 * T * T * 4, launches, errs)
     q, k, v, flops, nbytes = attn(2)
-    rows.append(kernel_row(
-        "flash_attention_with_probs",
-        lambda: flash_attention_with_probs(q, k, v),
-        lambda: flash_attention_fwd_plain(q, k, v, "full"), None, flops,
-        PEAK_BF16_FLOPS, nbytes + 2 * H * T * T * 4, launches, errs,
-        shape=[2, H, T, D], library_note=NO_LIBRARY))
+    rows += probs_rows("flash_attention_with_probs",
+                       flash_attention_with_probs, "full", q, k, v, flops,
+                       nbytes + 2 * H * T * T * 4, launches, errs)
     del q, k, v
     B = 32
     x, mha, _ = block_inputs(B, T, E, H, cfg.mlp_dim, bf, 54, "cuda")
@@ -2576,6 +2861,35 @@ def phase_explain_times(cfg, params, errs: dict, launches: dict) -> list:
     rows[-1]["launches_attn_sm90"] = launches.get(
         "fused_mha_block_with_mean_probs_attn_sm90")
     return rows
+
+
+def probs_rows(name, fn, mode, q, k, v, flops, nbytes, launches,
+               errs) -> list:
+    """B5's probability mode ``mode``, two rows on the same bf16 inputs:
+    ``name``, the earlier kernel (attention_fwd.cuh) through its launcher
+    (``_launch_probs(route=0)``), which the wrapper keeps for fp32 and
+    other D; and ``name``_sm90, the wrapper's call (the sm90 body and the
+    probability pass), with the former's time as was_ms. No PyTorch call
+    returns attention probabilities."""
+    from vitx_torch.kernels import flash_attention_fwd_plain
+
+    tflash = attention_module()
+    shape = list(q.shape)
+
+    def plain():
+        return flash_attention_fwd_plain(q, k, v, mode)
+
+    base = kernel_row(
+        name, lambda: tflash._launch_probs(q, k, v, mode, route=0), plain,
+        None, flops, PEAK_BF16_FLOPS, nbytes, launches, errs, shape=shape,
+        library_note=NO_LIBRARY,
+        timed="the earlier kernel on bf16 through its launcher (route 0); "
+              f"the wrapper sends these inputs to {name}_sm90")
+    return [base, kernel_row(
+        f"{name}_sm90", lambda: fn(q, k, v), plain, None, flops,
+        PEAK_BF16_FLOPS, nbytes, launches, errs, shape=shape,
+        library_note=NO_LIBRARY, was_ms=base["ms"],
+        was_device_ms=base["device_ms"])]
 
 
 def tome_logits_sources(params, imgs, cfg, device):
@@ -2839,6 +3153,19 @@ def phase_tome_times(cfg, params, large, large_params, errs: dict,
     return tome_kernel_rows(cfg, large, errs, launches)
 
 
+class earlier_probs_route:
+    """A context in which B5's probability modes keep the earlier kernel
+    (attention_fwd.cuh), for a comparison inside one call."""
+
+    def __enter__(self):
+        self.tflash = attention_module()
+        self.saved = self.tflash.probs_route
+        self.tflash.probs_route = lambda q, k, v: 0
+
+    def __exit__(self, *exc):
+        self.tflash.probs_route = self.saved
+
+
 class gemm_only_tome_route:
     """A context in which B8's wrapper keeps its attention on
     attention_fwd.cuh (the GEMM-only route: the sm90 GEMM, the earlier
@@ -2862,6 +3189,8 @@ def phase_finetune_times(cfg, state, batch, step, launches: dict,
     B3's on the (R, E) view, B11's function, at base16's b256 tokens (256
     x 197, 768) bf16. Returns (B10's rows, {name: [shape entries]} for the
     rows of B2's and B3's two kernels)."""
+    import importlib
+
     import torch.nn.functional as F
 
     from vitx_torch.kernels import (fused_add_layer_norm, fused_layer_norm,
@@ -2895,20 +3224,33 @@ def phase_finetune_times(cfg, state, batch, step, launches: dict,
     x = seeded((R, E), 45, 2.0, 0.5, dtype=bf)
     r = seeded((R, E), 46, 1.0, dtype=bf)
     sc, bi = seeded((E,), 48, 0.1, 1.0), seeded((E,), 49, 0.1)
-    rows = [
-        kernel_row("fused_layer_norm", lambda: fused_layer_norm(x, sc, bi),
-                   lambda: layer_norm_fwd_plain(x, sc, bi),
-                   lambda: F.layer_norm(x, (E,), sc.to(bf), bi.to(bf),
-                                        cfg.layer_norm_eps),
-                   8 * R * E, PEAK_FP32_FLOPS, 2 * R * E * 2 + 2 * E * 4,
-                   launches, errs, shape=[R, E]),
-        kernel_row("fused_add_layer_norm",
-                   lambda: fused_add_layer_norm(x, r, sc, bi),
-                   lambda: layer_norm_fwd_plain(x, sc, bi, r), None,
-                   9 * R * E, PEAK_FP32_FLOPS, 4 * R * E * 2 + 2 * E * 4,
-                   launches, errs, shape=[R, E],
-                   library_note=NO_ADD_LIBRARY),
-    ]
+    eps = cfg.layer_norm_eps
+    tln = importlib.import_module("vitx_torch.kernels.layer_norm")
+    rows = []
+    # B10's two variants: the earlier kernel through its launcher (route
+    # 0), then the wrapper's one-pass route with that time as was_ms
+    for name, wrapper, earlier, plain, lib, flops, nbytes, more in (
+            ("fused_layer_norm", lambda: fused_layer_norm(x, sc, bi),
+             lambda: tln._launch_fwd(x, None, sc, bi, eps, route=0),
+             lambda: layer_norm_fwd_plain(x, sc, bi),
+             lambda: F.layer_norm(x, (E,), sc.to(bf), bi.to(bf), eps),
+             8 * R * E, 2 * R * E * 2 + 2 * E * 4, {}),
+            ("fused_add_layer_norm",
+             lambda: fused_add_layer_norm(x, r, sc, bi),
+             lambda: tln._launch_fwd(x, r, sc, bi, eps, route=0),
+             lambda: layer_norm_fwd_plain(x, sc, bi, r), None,
+             9 * R * E, 4 * R * E * 2 + 2 * E * 4,
+             {"library_note": NO_ADD_LIBRARY})):
+        base = kernel_row(
+            name, earlier, plain, lib, flops, PEAK_FP32_FLOPS, nbytes,
+            launches, errs, shape=[R, E],
+            timed="the earlier kernel on bf16 through its launcher (route "
+                  f"0); the wrapper sends these inputs to {name}_onepass",
+            **more)
+        rows += [base, kernel_row(
+            f"{name}_onepass", wrapper, plain, lib, flops, PEAK_FP32_FLOPS,
+            nbytes, launches, errs, shape=[R, E], was_ms=base["ms"],
+            was_device_ms=base["device_ms"], **more)]
     shapes = {row["name"]: [{k: row[k] for k in keep}] for row in b6}
     for row in b3 + b11:
         entry = {k: row[k] for k in (*keep, "was_ms") if k in row}

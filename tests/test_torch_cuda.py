@@ -15,6 +15,7 @@ k and differ only in the fp32 order of the logits' sums.
 """
 
 import importlib
+import threading
 
 import numpy as np
 import pytest
@@ -963,3 +964,225 @@ def test_block_routes_are_counted_or_refused(cuda):
     with pytest.raises(RuntimeError, match="refused the route"):
         tmha._launch(*mha, 1e-5, "mha_block_mean_probs", (probs, None),
                      route=tmha.ROUTE_GEMM_SM90 | tmha.ROUTE_ATTN_SM90)
+
+
+tflash = importlib.import_module("vitx_torch.kernels.flash_attention")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", [(2, 16, 577, 64), (2, 12, 197, 64),
+                                  (1, 16, 1100, 64), (2, 4, 65, 64),
+                                  (3, 2, 1, 64)])
+def test_flash_attention_probs_sm90_match_plain(cuda, dims):
+    """B5's two probability modes on their sm90 route (bf16, D 64): o and
+    the probabilities against the plain version, rows summing to 1,
+    launches_sm90 one a call, two calls equal bit for bit, o bit-equal to
+    flash_attention's sm90 o, the full mode's head mean (head order, / H)
+    within 1e-6 of the mean mode's; the earlier kernel on the same
+    inputs."""
+    q, k, v = (seeded(dims, s, 1.5, dtype="bfloat16", device=cuda)
+               for s in (41, 42, 43))
+    o90 = flash_attention(q, k, v)
+    got = {}
+    for fn, mode in ((flash_attention_with_probs, "full"),
+                     (flash_attention_with_mean_probs, "mean")):
+        n, n90 = fn.launches, fn.launches_sm90
+        out = fn(q, k, v)
+        torch.cuda.synchronize()
+        assert (fn.launches, fn.launches_sm90) == (n + 1, n90 + 1)
+        ref = flash_attention_fwd_plain(q, k, v, mode)
+        assert rel_err(out[0], ref[0]) <= TOL["bfloat16"]
+        assert rel_err(out[1], ref[1]) <= PROBS_BF16_TOL
+        rows = out[1].double().sum(-1)
+        assert float((rows - 1).abs().max()) <= 1e-5
+        again = fn(q, k, v)
+        assert torch.equal(again[0], out[0]) and torch.equal(again[1], out[1])
+        assert torch.equal(out[0], o90)
+        was = tflash._launch_probs(q, k, v, mode, route=0)
+        assert was[2] == 0
+        assert rel_err(was[0], ref[0]) <= TOL["bfloat16"]
+        assert rel_err(was[1], ref[1]) <= PROBS_BF16_TOL
+        got[mode] = out[1]
+    acc = got["full"][:, 0]
+    for h in range(1, dims[1]):
+        acc = acc + got["full"][:, h]
+    assert rel_err(acc / dims[1], got["mean"]) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_flash_attention_probs_off_the_sm90_route(cuda):
+    """fp32, another head width and a q that is not 16-byte aligned keep
+    the earlier kernel: launches count, launches_sm90 does not."""
+    base = seeded((2 * 3 * 65 * 64 + 1,), 44, 1.5, dtype="bfloat16",
+                  device=cuda)
+    for q in (seeded((2, 3, 65, 64), 45, 1.5, device=cuda),
+              seeded((2, 3, 65, 32), 46, 1.5, dtype="bfloat16", device=cuda),
+              base[1:].view(2, 3, 65, 64)):
+        for fn, mode in ((flash_attention_with_probs, "full"),
+                         (flash_attention_with_mean_probs, "mean")):
+            n, n90 = fn.launches, fn.launches_sm90
+            out = fn(q, q, q)
+            torch.cuda.synchronize()
+            assert (fn.launches, fn.launches_sm90) == (n + 1, n90)
+            ref = flash_attention_fwd_plain(q, q, q, mode)
+            tol = TOL["float32"] if q.dtype == torch.float32 else \
+                PROBS_BF16_TOL
+            assert rel_err(out[1], ref[1]) <= tol
+
+
+@pytest.mark.cuda
+def test_rollout_with_qkv_bias_runs_b5_mean_on_sm90(cuda):
+    """forward_with_rollout at large16_384 with QKV biases, bf16, depth 2:
+    the composed block in both, B5's head mean on its sm90 route and K2;
+    the rollout weights against the kernel-free route on the card."""
+    cfg = vitx_torch.get_config("large16_384", depth=2, qkv_bias=True)
+    params = vitx_torch.init_params(0, cfg, device=cuda)
+    params["blocks"]["bqkv"] = seeded(params["blocks"]["bqkv"].shape, 47,
+                                      0.1, device=cuda)
+    x = np.random.default_rng(2).standard_normal(
+        (2, cfg.image_size, cfg.image_size, 3)).astype(np.float32)
+    fns = (flash_attention_with_mean_probs, fused_mlp_block,
+           fused_mha_block_with_mean_probs)
+    before = [(f.launches, f.launches_sm90) for f in fns]
+    logits, weights = vitx_torch.forward_with_rollout(params, x, cfg)
+    torch.cuda.synchronize()
+    assert [(f.launches - a, f.launches_sm90 - b)
+            for f, (a, b) in zip(fns, before)] == [(2, 2), (2, 2), (0, 0)]
+    ref_cfg = cfg.replace(attn_impl="reference", fuse_mha="off",
+                          fuse_mlp="off")
+    ref_logits, ref_w = vitx_torch.forward_with_rollout(params, x, ref_cfg)
+    assert rel_err(logits, ref_logits) < 0.05
+    assert rel_err(weights, ref_w) < 0.05
+    assert float((weights.double().sum(-1) - 1).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 197, 768), (1025, 1024), (3, 3072),
+                                   (2, 9, 4096)])
+def test_fused_layer_norm_onepass_matches_plain(cuda, shape, dtype):
+    """B10's one-pass route at the models' widths, the reference head's
+    3072 and the widest it takes: counted in launches_onepass, against the
+    plain version, the sum equal to x + r, two calls equal bit for bit; the
+    earlier kernel on the same inputs."""
+    E = shape[-1]
+    x = seeded(shape, 48, 3.0, 0.5, dtype=dtype, device=cuda)
+    r = seeded(shape, 49, 1.0, dtype=dtype, device=cuda)
+    sc = seeded((E,), 50, 0.1, 1.0, device=cuda)
+    bi = seeded((E,), 51, 0.1, device=cuda)
+    n = (fused_layer_norm.launches_onepass,
+         fused_add_layer_norm.launches_onepass)
+    y = fused_layer_norm(x, sc, bi)
+    s, ya = fused_add_layer_norm(x, r, sc, bi)
+    torch.cuda.synchronize()
+    assert (fused_layer_norm.launches_onepass,
+            fused_add_layer_norm.launches_onepass) == (n[0] + 1, n[1] + 1)
+    assert rel_err(y, layer_norm_fwd_plain(x, sc, bi)) <= TOL[dtype]
+    ref_s, ref_y = layer_norm_fwd_plain(x, sc, bi, r)
+    assert torch.equal(s, ref_s) and torch.equal(s, x + r)
+    assert rel_err(ya, ref_y) <= TOL[dtype]
+    assert torch.equal(fused_layer_norm(x, sc, bi), y)
+    assert torch.equal(fused_add_layer_norm(x, r, sc, bi)[1], ya)
+    was_y = tln._launch_fwd(x, None, sc, bi, 1e-5, route=0)[0]
+    assert rel_err(was_y, layer_norm_fwd_plain(x, sc, bi)) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_fused_layer_norm_routes_are_counted_or_refused(cuda):
+    """A width off the 16-byte vector keeps the earlier kernel (not
+    counted in launches_onepass); the C entry refuses the one-pass route
+    for it before any launch."""
+    x = seeded((3, 100), 52, dtype="bfloat16", device=cuda)
+    sc, bi = torch.ones(100, device=cuda), torch.zeros(100, device=cuda)
+    n, n1 = fused_layer_norm.launches, fused_layer_norm.launches_onepass
+    fused_layer_norm(x, sc, bi)
+    torch.cuda.synchronize()
+    assert (fused_layer_norm.launches, fused_layer_norm.launches_onepass) \
+        == (n + 1, n1)
+    with pytest.raises(RuntimeError, match="refused the route"):
+        tln._launch_fwd(x, None, sc, bi, 1e-5, route=tln.LN_ROUTE_ONEPASS)
+
+
+def unaligned(shape, seed, dtype, device, scale=1.0):
+    """A contiguous seeded tensor whose data starts one element past a
+    16-byte boundary (a view into a larger buffer)."""
+    n = int(np.prod(shape))
+    buf = seeded((n + 1,), seed, scale, dtype=dtype, device=device)
+    t = buf[1:].view(shape)
+    assert t.is_contiguous() and t.data_ptr() % 16 != 0
+    return t
+
+
+@pytest.mark.cuda
+def test_kernels_take_inputs_off_a_16_byte_boundary(cuda):
+    """Fault C4 (ROADMAP): contiguous inputs whose data does not start on
+    a 16-byte boundary reached kernels that read rows in 16-byte vectors
+    from the base pointer (the earlier attention kernels, the earlier
+    GEMM of K1 and K2) and faulted with a misaligned address; vitx takes
+    any array. Each wrapper against its plain version on such views."""
+    for dtype, D in (("float32", 64), ("bfloat16", 64), ("bfloat16", 32)):
+        q, k, v = (unaligned((2, 3, 65, D), 53 + i, dtype, cuda, 1.5)
+                   for i in range(3))
+        do = unaligned((2, 3, 65, D), 56, dtype, cuda, 0.1)
+        tol = TOL[dtype]
+        assert rel_err(flash_attention(q, k, v),
+                       flash_attention_fwd_plain(q, k, v)) <= tol
+        for fn, mode in ((flash_attention_with_probs, "full"),
+                         (flash_attention_with_mean_probs, "mean")):
+            out, ref = fn(q, k, v), flash_attention_fwd_plain(q, k, v, mode)
+            assert rel_err(out[0], ref[0]) <= tol
+            assert rel_err(out[1], ref[1]) <= (
+                PROBS_BF16_TOL if dtype == "bfloat16" else tol)
+        res = flash_attention_fwd_plain(q, k, v), attention_stats_plain(q, k)
+        for a, r in zip(attention_bwd(q, k, v, do, *res),
+                        attention_bwd_plain(q, k, v, do)):
+            assert rel_err(a, r) <= tol
+        torch.cuda.synchronize()
+    for dtype in ("float32", "bfloat16"):
+        mha, mlp = block_args(2, 50, 768, 12, dtype, cuda)
+        x = unaligned(tuple(mha[0].shape), 57, dtype, cuda)
+        assert rel_err(fused_mha_block(x, *mha[1:]),
+                       mha_block_plain(x, *mha[1:])) <= TOL[dtype]
+        assert rel_err(fused_mlp_block(x, *mlp[1:], act="gelu"),
+                       mlp_block_plain(x, *mlp[1:], act="gelu")) <= TOL[dtype]
+        torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_sm90_kernels_launch_from_a_fresh_thread(cuda):
+    """Fault C5 (ROADMAP): the sm90 kernels encode their TMA maps with a
+    driver call that needs a current context, which a thread has only
+    after its first runtime call that makes one (autograd's backward
+    thread had none when its first work was B2's sm90 kernel and its
+    buffers came from the caching allocator). B5, B2, K1 and K2 on the
+    sm90 route from a new thread, after the same calls on this one, equal
+    to them bit for bit."""
+    dims = (2, 4, 197, 64)
+    q, k, v = (seeded(dims, s, 1.5, dtype="bfloat16", device=cuda)
+               for s in (61, 62, 63))
+    do = seeded(dims, 64, 0.1, dtype="bfloat16", device=cuda)
+    res = fwd_residuals(q, k, v)
+    mha, mlp = block_args(2, 197, 768, 12, "bfloat16", cuda)
+
+    def calls():
+        return (flash_attention(q, k, v),
+                *attention_bwd(q, k, v, do, *res), fused_mha_block(*mha),
+                fused_mlp_block(*mlp, act="gelu"))
+
+    calls()
+    torch.cuda.synchronize()   # the caching allocator keeps these blocks
+    got, errors = [], []
+
+    def worker():
+        try:
+            got.extend(calls())
+            torch.cuda.synchronize()
+        except Exception as e:   # raised in the thread, asserted below
+            errors.append(e)
+
+    t = threading.Thread(target=worker)
+    t.start()
+    t.join()
+    assert not errors, errors
+    want = calls()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))

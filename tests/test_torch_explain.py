@@ -9,7 +9,9 @@ the flash-attention forward (vitx's Pallas kernel in interpret mode, the
 port's B5 wrappers on their plain versions). Bars: fp32, 1e-4 relative
 (``tests/test_parity_torch.py:58``) on logits, probabilities, rollout
 weights and heatmaps, on ``tiny`` and on ``large16_384`` (ViT-L/16 at
-384², T = 577) cut to depth 2 at batch 1.
+384², T = 577) cut to depth 2 at batch 1, without and with QKV biases
+(with them every block takes the composed path, where the head-mean
+probabilities are B5's mean mode).
 """
 
 import jax
@@ -47,12 +49,17 @@ def setup(preset, batch, seed=0, **over):
 
 
 CASES = {"tiny": ("tiny", 2, {}),
-         "large16_384_d2": ("large16_384", 1, {"depth": 2})}
+         "large16_384_d2": ("large16_384", 1, {"depth": 2}),
+         # the original ViT-L/16's QKV biases: every block takes the
+         # composed path, its head-mean probabilities B5's mean mode
+         "large16_384_d2_qkv_bias": ("large16_384", 1,
+                                     {"depth": 2, "qkv_bias": True})}
 
 
 @pytest.mark.parametrize("probs_mode", ["full", "mean"])
 @pytest.mark.parametrize("case,impl", [("tiny", "auto"), ("tiny", "flash"),
-                                       ("large16_384_d2", "flash")])
+                                       ("large16_384_d2", "flash"),
+                                       ("large16_384_d2_qkv_bias", "flash")])
 def test_forward_with_attn_matches_vitx(case, impl, probs_mode):
     preset, batch, over = CASES[case]
     jcfg, tcfg, jp, tp, x = setup(preset, batch, attn_impl=impl, **over)
@@ -67,7 +74,8 @@ def test_forward_with_attn_matches_vitx(case, impl, probs_mode):
 
 
 @pytest.mark.parametrize("impl", ["auto", "flash"])
-@pytest.mark.parametrize("case", ["tiny", "large16_384_d2"])
+@pytest.mark.parametrize("case", ["tiny", "large16_384_d2",
+                                  "large16_384_d2_qkv_bias"])
 def test_forward_with_rollout_matches_vitx(case, impl):
     preset, batch, over = CASES[case]
     jcfg, tcfg, jp, tp, x = setup(preset, batch, seed=1, attn_impl=impl,

@@ -5,7 +5,7 @@
   replaces ``vitx/kernels/mha_block.py::_kernel``.
 - ``fused_mha_block_with_mean_probs`` (B7, ``csrc/mha_block.cu``): K1 plus
   the head-mean attention probabilities (in bf16 at D = 64 K1's sm90
-  attention, then ``csrc/head_mean_probs_sm90.cuh``); replaces
+  attention, then ``csrc/attention_probs_sm90.cuh``); replaces
   ``vitx/kernels/mha_block.py::_kernel_hchunk`` (mean-probs mode).
 - ``fused_mha_block_tome`` (B8, ``csrc/mha_block.cu``): K1 with a QKV
   bias and a per-key logit bias, plus the head-mean key; replaces
@@ -15,10 +15,11 @@
   ``flash_attention_with_mean_probs`` (B5, ``csrc/flash_attention_fwd.cu``,
   with ``attention_fwd.cuh`` shared with K1 and B7): the attention forward
   without probs, with full probs and with head-mean probs; replace
-  ``vitx/kernels/flash_attention.py::_fwd_kernel``. Without probs in bf16
-  at D = 64, ``flash_attention`` runs ``csrc/flash_attention_sm90.cu``
-  (wgmma, TMA, an online softmax) and also returns the row statistics to
-  its backward.
+  ``vitx/kernels/flash_attention.py::_fwd_kernel``. In bf16 at D = 64
+  all three run ``csrc/flash_attention_sm90.cu`` (wgmma, TMA, an online
+  softmax): ``flash_attention`` also returns the row statistics to its
+  backward, the probability modes hand them to
+  ``csrc/attention_probs_sm90.cuh``'s pass (``probs_route``).
 - ``fused_mlp_block`` (K2, ``csrc/mlp_block.cu``): LN -> W1 -> act -> W2,
   with its stash and a backward; replaces
   ``vitx/kernels/mlp_block.py::_kernel``.
@@ -34,7 +35,9 @@
   of ``_ln_bwd_kernel`` (B11, the 2-D backward of the entries below).
 - ``fused_layer_norm``, ``fused_add_layer_norm`` (B10,
   ``csrc/layer_norm_fwd.cu``): the LayerNorm forward, plain and after a
-  residual add, with B11 (through ``ln_bwd``) as backward; replace
+  residual add, each row read once into registers where E is a multiple
+  of the 16-byte vector and at most 4096 (``ln_fwd_route``), with B11
+  (through ``ln_bwd``) as backward; replace
   ``vitx/kernels/layer_norm.py::_ln_kernel``.
 - ``fused_adamw_multi_`` (B12, ``csrc/adamw.cu``): one in-place AdamW pass
   over a list of fp32 leaves, one launch per gradient dtype, and
@@ -43,10 +46,11 @@
 
 Each wrapper launches its kernel for CUDA tensors (building it with nvcc at
 first use, ``_build.py``) and counts the launches in its ``launches``
-attribute (``attention_bwd``, ``flash_attention`` and the blocks count
+attribute (``attention_bwd``, the three B5 entries and the blocks count
 their sm90 route in ``launches_sm90`` as well, B7 and B8 their sm90
-attention in ``launches_attn_sm90``, ``ln_bwd`` its one-pass route in
-``launches_onepass``); for CPU tensors it runs the plain
+attention in ``launches_attn_sm90``, ``ln_bwd`` and the two B10 entries
+their one-pass route in ``launches_onepass``); for CPU tensors it runs
+the plain
 torch version beside it.
 """
 

@@ -55,13 +55,18 @@ SIGNATURES = {
     "flash_attention_fwd_sm90": ("flash_attention_sm90",
                                  "vitx_attention_fwd_sm90",
                                  [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    # (q, k, v, o, stats, probs, mode, B, H, T, stream)
+    "flash_attention_fwd_probs_sm90": ("flash_attention_sm90",
+                                       "vitx_attention_fwd_probs_sm90",
+                                       [_P] * 6 + [_I] * 4 + [_P]),
     "attention_bwd_sm90": ("attention_bwd_sm90", "vitx_attention_bwd_sm90",
                            [_P] * 11 + [_I, _I, _I, _P]),
     # (dtype, route, ...): the route of csrc/layer_norm_bwd.cu
     "layer_norm_bwd": ("layer_norm_bwd", "vitx_ln_bwd",
                        [_I, _I] + [_P] * 8 + [_I, _I, _I, _I, _F, _P]),
+    # (dtype, route, ...): the route of csrc/layer_norm_fwd.cu
     "layer_norm_fwd": ("layer_norm_fwd", "vitx_ln_fwd",
-                       [_I, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P]),
+                       [_I, _I] + [_P] * 6 + [_I, _I, _I, _I, _F, _P]),
     "adamw": ("adamw", "vitx_adamw",
               [_I, _P, _P, _P, _P, _L] + [_F] * 9 + [_P]),
     "adamw_multi": ("adamw", "vitx_adamw_multi",
@@ -170,6 +175,20 @@ def gemm_sm90(dtype, dims, tensors=(), ln_k: int = 0) -> bool:
     return (dtype == torch.bfloat16 and all(d % 8 == 0 for d in dims)
             and all(t.data_ptr() % 16 == 0 for t in tensors)
             and ln_k <= GEMM_SM90_MAX_LN_K)
+
+
+def aligned(*ts):
+    """``ts``, each copied where its data does not start on a 16-byte
+    boundary (a view at an odd element offset): the kernels read rows from
+    the base pointer in 16-byte vectors or through TMA maps, which fault on
+    such a base."""
+    return [t.clone() if t.data_ptr() % 16 else t for t in ts]
+
+
+def needs_grad(*ts) -> bool:
+    """Whether autograd records a call on ``ts``: the wrappers skip their
+    ``torch.autograd.Function`` when it does not."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
 def check(name: str, err: int) -> None:

@@ -1,8 +1,9 @@
 // The attention forward on Hopper (sm_90a): wgmma, TMA and an online
-// softmax, bf16 at head width 64. One body, four callers: B5 without
-// probabilities (flash_attention_sm90.cu), K1's attention, B7's (followed
-// by head_mean_probs_sm90.cuh, which reads the row statistics) and, with
-// the KBIAS flag, B8's (mha_block.cu); each source builds its own copies.
+// softmax, bf16 at head width 64. One body, five callers: B5
+// (flash_attention_sm90.cu; in its probability modes followed by
+// attention_probs_sm90.cuh, which reads the row statistics), K1's
+// attention, B7's (followed by the same pass's head mean) and, with the
+// KBIAS flag, B8's (mha_block.cu); each source builds its own copies.
 //
 // Over q, k, v (B, H, T, 64) bf16 views, q unscaled -> o (b, h, t, d) at
 // b*o_sb + h*o_sh + t*o_st + d (B5: (B, H, T, 64); K1: straight into

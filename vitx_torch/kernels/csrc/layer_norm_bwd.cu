@@ -150,37 +150,6 @@ constexpr int LN1_NT = 256;       // threads of a block
 constexpr int LN1_MAX_E = 4096;
 constexpr int LN1_MAX_NV = 4;     // 16-byte vectors of x (and of dy) a thread holds
 
-// 16 bytes of bf16 (8) or fp32 (4) as floats, and back
-__device__ __forceinline__ void unpack16(const uint4& v, float (&f)[8]) {
-  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 t = __bfloat1622float2(p[i]);
-    f[2 * i] = t.x;
-    f[2 * i + 1] = t.y;
-  }
-}
-__device__ __forceinline__ void unpack16(const uint4& v, float (&f)[4]) {
-  f[0] = __uint_as_float(v.x);
-  f[1] = __uint_as_float(v.y);
-  f[2] = __uint_as_float(v.z);
-  f[3] = __uint_as_float(v.w);
-}
-__device__ __forceinline__ uint4 pack16(const float (&f)[8]) {
-  uint4 v;
-  uint32_t* p = reinterpret_cast<uint32_t*>(&v);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    __nv_bfloat162 t = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
-    p[i] = *reinterpret_cast<uint32_t*>(&t);
-  }
-  return v;
-}
-__device__ __forceinline__ uint4 pack16(const float (&f)[4]) {
-  return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
-                    __float_as_uint(f[3]));
-}
-
 // Shared memory of onepass_kernel, in floats: the scale (E), the block's
 // column sums (2 x E) and the row groups' cross-warp sums (3 rounds x
 // groups x WPR pairs).

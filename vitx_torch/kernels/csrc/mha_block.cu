@@ -17,7 +17,7 @@
 // products, so B7 is K1's pipeline with its attention launch in a
 // probabilities form: on the sm90 route K1's own attention (B5's sm90
 // body, its row statistics into a scratch) followed by the head-mean pass
-// of head_mean_probs_sm90.cuh (launch 3b below); otherwise the PROBS_MEAN
+// of attention_probs_sm90.cuh (launch 3b below); otherwise the PROBS_MEAN
 // form of attention_fwd.cuh. _kernel_hchunk's no-probs mode is the
 // function of _kernel, and K1 serves it at every shape.
 // B8 (entry vitx_mha_block_tome) replaces vitx/kernels/mha_block.py::
@@ -51,7 +51,7 @@
 //      (b, 64 queries) over the heads in order for B7 -- with the rounding
 //      points of mha_block.py:74-84 (one moved, on the sm90 route: see
 //      below);
-//   3b. (B7 on the sm90 route) head_mean_probs_sm90: per (b, 64 queries,
+//   3b. (B7 on the sm90 route) attention_probs_sm90<true>: per (b, 64 queries,
 //      128 keys), the heads in order, probs from q k^T and launch 3's row
 //      statistics, written once (its source note says how it rounds);
 //   4. the out-projection GEMM: o_all @ Wo in fp32 plus bo in fp32, one
@@ -88,7 +88,7 @@
 #include "attention_fwd.cuh"
 #include "attention_fwd_sm90.cuh"
 #include "gemm_sm90.cuh"
-#include "head_mean_probs_sm90.cuh"
+#include "attention_probs_sm90.cuh"
 
 namespace vitx {
 
@@ -160,8 +160,8 @@ int run_mha(int route, const void* x, const void* wqkv, const void* wo, const fl
     err = launch_attention_fwd_sm90<TOME>(in, strides, fa, B, s);
     if constexpr (MODE == PROBS_MEAN) {
       if (err != 0) return err;
-      err = launch_head_mean_probs_sm90(qkv, k_plane, attn_stats, probs, B, H, T_, fa.scale,
-                                        s);
+      err = launch_attention_probs_sm90<true>(qkv, k_plane, attn_stats, probs, B, H, T_,
+                                              fa.scale, s);
     }
   } else {
     AttnArgs aa = {};

@@ -236,6 +236,17 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
+// Make the primary context of the calling thread's device current on the
+// thread, as the runtime does at a thread's first call that needs one. The
+// encode is a driver call and needs a current context; a thread that has
+// made no such runtime call yet has none (autograd's backward thread when
+// its first kernel is one of these, its buffers all from the caching
+// allocator).
+inline void bind_primary_context() {
+  int dev = 0;
+  if (cudaGetDevice(&dev) == cudaSuccess) cudaSetDevice(dev);
+}
+
 // Error codes of the entry points beyond cudaError_t's range.
 constexpr int ERR_NO_ENCODE = 10000;     // cuTensorMapEncodeTiled not found
 constexpr int ERR_TENSOR_MAP = 20000;    // + the CUresult of the encode
@@ -248,6 +259,7 @@ inline int make_tile_map(CUtensorMap* map, const void* base, int B, int H, int T
                          long long sh, long long st) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return ERR_NO_ENCODE;
+  bind_primary_context();
   const cuuint64_t dims[4] = {64, (cuuint64_t)T, (cuuint64_t)H, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)st * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
   const cuuint32_t box[4] = {64, TILE_ROWS, 1, 1};
@@ -265,6 +277,7 @@ inline int make_tile_map(CUtensorMap* map, const void* base, int B, int H, int T
 inline int make_matrix_map(CUtensorMap* map, const void* base, int rows, int cols) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return ERR_NO_ENCODE;
+  bind_primary_context();
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
   const cuuint32_t box[2] = {64, TILE_ROWS};

@@ -1,24 +1,26 @@
 """Attention forward (B5) and backward (B2) over (B, H, T, D) q, k, v.
 
 - ``flash_attention`` / ``flash_attention_with_probs`` /
-  ``flash_attention_with_mean_probs`` launch the Hopper kernel
-  ``csrc/flash_attention_fwd.cu`` on CUDA tensors and run
-  ``flash_attention_fwd_plain``, the same math in plain torch, on CPU
-  tensors. They replace ``vitx/kernels/flash_attention.py::_fwd_kernel``
-  in its three output modes (none, full probs, head-mean probs) and are
-  differentiable as vitx's entries are: ``flash_attention``'s backward is
-  B2, the probs variants differentiate the plain reference attention
+  ``flash_attention_with_mean_probs`` launch a Hopper kernel on CUDA
+  tensors and run ``flash_attention_fwd_plain``, the same math in plain
+  torch, on CPU tensors. They replace
+  ``vitx/kernels/flash_attention.py::_fwd_kernel`` in its three output
+  modes (none, full probs, head-mean probs) and are differentiable as
+  vitx's entries are: ``flash_attention``'s backward is B2, the probs
+  variants differentiate the plain reference attention
   (``flash_attention.py:516-538``). Each keeps its own ``launches`` count.
 - Routes on the card, chosen in the open on dtype and head width: bf16
   at D = 64 (every model the port runs) takes the Hopper kernels on
-  wgmma and TMA, ``csrc/flash_attention_sm90.cu`` for the no-probs
-  forward and ``csrc/attention_bwd_sm90.cu`` for the backward; fp32, any
-  other D and the probs modes keep ``csrc/flash_attention_fwd.cu`` and
-  ``csrc/flash_attention_bwd.cu``. ``launches`` counts every CUDA launch
-  of a wrapper, ``launches_sm90`` those that took the sm90 route. The
-  sm90 backward consumes the forward's o and row statistics (m and 1 / l,
-  ``attention_stats_plain``'s function), which the sm90 forward and K1's
-  stash write.
+  wgmma and TMA, ``csrc/flash_attention_sm90.cu`` for the forward in all
+  three modes (the probability modes: the online-softmax body, then the
+  probability pass ``csrc/attention_probs_sm90.cuh``, where q, k and v are
+  contiguous 16-byte-aligned planes, ``probs_route``) and
+  ``csrc/attention_bwd_sm90.cu`` for the backward; fp32 and any other D
+  keep ``csrc/flash_attention_fwd.cu`` and ``csrc/flash_attention_bwd.cu``.
+  ``launches`` counts every CUDA launch of a wrapper, ``launches_sm90``
+  those that took the sm90 route. The sm90 backward consumes the
+  forward's o and row statistics (m and 1 / l, ``attention_stats_plain``'s
+  function), which the sm90 forward and K1's stash write.
 - ``attention_bwd`` launches a backward kernel on CUDA
   tensors and runs ``attention_bwd_plain`` on CPU tensors, at every T. It
   replaces both of vitx's attention backwards, which the fused MHA
@@ -76,13 +78,14 @@ def attention_stats_plain(q, k):
 def _view(t):
     """(t, its (sb, sh, st)) for a TMA read or a kernel store: the last dim
     contiguous, the other strides multiples of 8 elements (16 bytes), the
-    pointer 16-byte aligned; otherwise a contiguous copy. A dim of size 1
-    gets the stride of T, which no access uses."""
+    pointer 16-byte aligned; otherwise a contiguous copy on a 16-byte
+    boundary. A dim of size 1 gets the stride of T, which no access
+    uses."""
     ok = (t.stride(3) == 1 and t.data_ptr() % 16 == 0
           and all(st % 8 == 0 or n == 1
                   for st, n in zip(t.stride()[:3], t.shape[:3])))
     if not ok:
-        t = t.contiguous()
+        t, = _build.aligned(t.contiguous())
     st = t.stride(2)
     return t, [s if n > 1 else st for s, n in zip(t.stride()[:3], t.shape[:3])]
 
@@ -132,7 +135,7 @@ def _bwd_wmma(q, k, v, do):
     """``csrc/flash_attention_bwd.cu`` on contiguous copies: fp32, or any
     D up to 128. Counts nothing (``attention_bwd`` counts)."""
     B, H, T, D = q.shape
-    q, k, v, do = (t.contiguous() for t in (q, k, v, do))
+    q, k, v, do = _build.aligned(*(t.contiguous() for t in (q, k, v, do)))
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     stats = torch.empty(3 * B * H * T, dtype=torch.float32, device=q.device)
     fn = _build.entry("flash_attention_bwd")
@@ -289,10 +292,61 @@ def _fwd_sm90(q, k, v, want_stats: bool):
     return o, stats
 
 
+ROUTE_SM90 = 1   # _launch_probs's route: the sm90 body and the probability pass
+
+
+def probs_route(q, k, v) -> int:
+    """The route of a probability-mode launch on CUDA q, k, v: ``ROUTE_SM90``
+    for bf16 at D = 64 with contiguous (B, H, T, 64) planes on 16-byte
+    boundaries (the pass's TMA maps) and B * H at most 65535 (the grids'
+    second and third dimensions); 0, ``csrc/flash_attention_fwd.cu``,
+    otherwise."""
+    ok = (sm90_route(q) and q.shape[0] * q.shape[1] <= 65535
+          and all(t.is_contiguous() and t.data_ptr() % 16 == 0
+                  for t in (q, k, v)))
+    return ROUTE_SM90 if ok else 0
+
+
+def _fwd_probs_sm90(q, k, v, probs_mode):
+    """``csrc/flash_attention_sm90.cu``'s probability entry -> (o, probs):
+    the body with its row statistics in a scratch, then the pass. Counts
+    nothing."""
+    B, H, T, _ = q.shape
+    o = torch.empty_like(q)
+    stats = torch.empty((2, B, H, T), dtype=torch.float32, device=q.device)
+    shape = (B, H, T, T) if probs_mode == "full" else (B, T, T)
+    probs = torch.empty(shape, dtype=torch.float32, device=q.device)
+    fn = _build.entry("flash_attention_fwd_probs_sm90")
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 stats.data_ptr(), probs.data_ptr(), PROBS_MODES[probs_mode],
+                 B, H, T, torch.cuda.current_stream().cuda_stream)
+    _build.check("flash_attention_fwd_probs_sm90", err)
+    return o, probs
+
+
+def _launch_probs(q, k, v, probs_mode, route=None):
+    """B5's probability modes on CUDA tensors -> (o, probs, route):
+    ``route`` defaults to ``probs_route``'s; ``ROUTE_SM90`` runs the sm90
+    body and pass, 0 the earlier kernel. Counts nothing."""
+    fits = probs_route(q, k, v)
+    if route is None:
+        route = fits
+    if route == ROUTE_SM90:
+        if not fits:
+            raise ValueError("the sm90 probability route takes bf16 "
+                             "contiguous 16-byte-aligned planes at D = 64")
+        return (*_fwd_probs_sm90(q, k, v, probs_mode), route)
+    if route != 0:
+        raise ValueError(f"route must be 0 or {ROUTE_SM90}, got {route}")
+    return (*_fwd_wmma(q, k, v, probs_mode), route)
+
+
 def _fwd_wmma(q, k, v, probs_mode):
     """``csrc/flash_attention_fwd.cu`` -> o, or (o, probs): fp32, any D
     up to 256, and the probs modes. Counts nothing."""
     B, H, T, D = q.shape
+    q, k, v = _build.aligned(q, k, v)
     o = torch.empty_like(q)
     probs = None
     if probs_mode == "full":
@@ -312,9 +366,9 @@ def _fwd_wmma(q, k, v, probs_mode):
 
 
 def _fwd(q, k, v, probs_mode, counter, want_stats: bool = False):
-    """B5 on CUDA (adding one to ``counter.launches``; no probs in bf16 at
-    D = 64 takes the sm90 kernel and adds one to ``counter.launches_sm90``
-    too), the plain version on the CPU. ``want_stats`` returns (o, stats),
+    """B5 on CUDA (adding one to ``counter.launches``; in bf16 at D = 64 the
+    sm90 kernels, which add one to ``counter.launches_sm90`` too), the
+    plain version on the CPU. ``want_stats`` (no probs) returns (o, stats),
     stats None off the sm90 route."""
     if q.device.type == "cpu":
         o = flash_attention_fwd_plain(q, k, v, probs_mode)
@@ -322,11 +376,16 @@ def _fwd(q, k, v, probs_mode, counter, want_stats: bool = False):
     if not q.is_cuda:
         raise ValueError(f"flash_attention runs on cuda or cpu, not "
                          f"{q.device}")
-    if probs_mode is None and sm90_route(q):
+    if probs_mode is not None:
+        *res, route = _launch_probs(q, k, v, probs_mode)
+        counter.launches_sm90 += int(route == ROUTE_SM90)
+        counter.launches += 1
+        return tuple(res)
+    if sm90_route(q):
         o, stats = _fwd_sm90(q, k, v, want_stats)
         counter.launches_sm90 += 1
     else:
-        o, stats = _fwd_wmma(q, k, v, probs_mode), None
+        o, stats = _fwd_wmma(q, k, v, None), None
     counter.launches += 1
     return (o, stats) if want_stats else o
 
@@ -374,10 +433,6 @@ class _FlashProbs(torch.autograd.Function):
         return (*grads, None, None)
 
 
-def _needs_grad(*ts) -> bool:
-    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
-
-
 def flash_attention(q, k, v):
     """Non-causal attention over (B, H, T, D) q, k, v, q unscaled -> o
     (B, H, T, D) in q's dtype, differentiable (B2 backward).
@@ -386,14 +441,14 @@ def flash_attention(q, k, v):
     CPU tensors take the plain version. Any T runs, forward and backward.
     """
     _check_fwd(q, k, v, None)
-    if not _needs_grad(q, k, v):
+    if not _build.needs_grad(q, k, v):
         return _fwd(q, k, v, None, flash_attention)
     return _Flash.apply(q, k, v)
 
 
 def _with_probs(q, k, v, probs_mode, counter):
     _check_fwd(q, k, v, probs_mode)
-    if not _needs_grad(q, k, v):
+    if not _build.needs_grad(q, k, v):
         return _fwd(q, k, v, probs_mode, counter)
     return _FlashProbs.apply(q, k, v, probs_mode, counter)
 
@@ -401,7 +456,8 @@ def _with_probs(q, k, v, probs_mode, counter):
 def flash_attention_with_probs(q, k, v):
     """(o, probs (B, H, T, T) fp32): B5 with the full probabilities, the
     attention-map path. CUDA launches count in
-    ``flash_attention_with_probs.launches``."""
+    ``flash_attention_with_probs.launches``, those on the sm90 route
+    (``probs_route``) in ``launches_sm90`` too."""
     return _with_probs(q, k, v, "full", flash_attention_with_probs)
 
 
@@ -409,11 +465,14 @@ def flash_attention_with_mean_probs(q, k, v):
     """(o, head-mean probs (B, T, T) fp32): B5 writing H times fewer
     probability bytes, what rollout reads. The head sum has one fixed
     order, so repeated calls agree bit for bit. CUDA launches count in
-    ``flash_attention_with_mean_probs.launches``."""
+    ``flash_attention_with_mean_probs.launches``, those on the sm90 route
+    (``probs_route``) in ``launches_sm90`` too."""
     return _with_probs(q, k, v, "mean", flash_attention_with_mean_probs)
 
 
 flash_attention.launches = 0
 flash_attention.launches_sm90 = 0
 flash_attention_with_probs.launches = 0
+flash_attention_with_probs.launches_sm90 = 0
 flash_attention_with_mean_probs.launches = 0
+flash_attention_with_mean_probs.launches_sm90 = 0

@@ -16,7 +16,11 @@ forward behind the ``fused_layer_norm`` entries (B10).
   scale, bias) -> (x + r, LN(x + r))`` launch ``csrc/layer_norm_fwd.cu`` on
   CUDA tensors and run ``layer_norm_fwd_plain`` on CPU tensors, any leading
   dims. They replace vitx's entries of the same names
-  (``layer_norm.py:273-321``) and their kernel ``_ln_kernel`` (B10). Their
+  (``layer_norm.py:273-321``) and their kernel ``_ln_kernel`` (B10), on
+  one of two routes (``ln_fwd_route``): the one-pass route (each row read
+  once into registers as 16-byte vectors, the next row in flight while it
+  reduces, scale and bias held in registers) on B3's rule, the earlier
+  kernel (one warp walking a row three times) elsewhere. Their
   backward is vitx's ``_ln_bwd_kernel`` (B11): B3's function on the 2-D
   (R, E) view, its per-block partials summed outside, which ``ln_bwd``
   computes at any rank -- B3's kernel on CUDA. As in vitx, the model does
@@ -216,31 +220,70 @@ def _check_fwd(x, scale, bias, r):
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
 
 
+def ln_fwd_route(dtype, E: int, tensors=()) -> int:
+    """The route of a B10 launch: ``LN_ROUTE_ONEPASS`` on the same rule as
+    ``ln_bwd_route`` -- float32 or bfloat16 rows whose width E is a
+    multiple of the 16-byte vector and at most ``ONEPASS_MAX_E``, every
+    tensor in ``tensors`` (x, y, scale, bias, and r and the sum) 16-byte
+    aligned; 0, the earlier kernel, otherwise. Its grid is
+    ``onepass_grid``'s, whose blocks do not change a bit of the result:
+    each row is reduced by one row group."""
+    return ln_bwd_route(dtype, E, tensors)
+
+
+def _launch_fwd(x, r, scale, bias, eps, route=None):
+    """``csrc/layer_norm_fwd.cu`` on contiguous CUDA (..., E) x (and r) and
+    contiguous fp32 scale and bias -> (y, s or None, route): ``route``
+    defaults to ``ln_fwd_route``'s; counts nothing."""
+    E = x.shape[-1]
+    R = x.numel() // E
+    y = torch.empty_like(x)
+    s = None if r is None else torch.empty_like(x)
+    if route is None:
+        ts = (x, y, scale, bias) if r is None else (x, y, scale, bias, r, s)
+        route = ln_fwd_route(x.dtype, E, ts)
+    blocks = rpb = 0
+    if route == LN_ROUTE_ONEPASS:
+        grid = onepass_grid(R, E, x.dtype, _sms(x.device))
+        blocks, rpb = grid["blocks"], grid["rows_per_block"]
+    fn = _build.entry("layer_norm_fwd")
+    with torch.cuda.device(x.device):
+        err = fn(DTYPE_CODES[x.dtype], route, x.data_ptr(),
+                 None if r is None else r.data_ptr(), scale.data_ptr(),
+                 bias.data_ptr(), None if s is None else s.data_ptr(),
+                 y.data_ptr(), R, E, blocks, rpb, float(eps),
+                 torch.cuda.current_stream().cuda_stream)
+    _build.check("layer_norm_fwd", err)
+    return y, s, route
+
+
+def _f32(t):
+    """t as contiguous fp32, t itself where it already is."""
+    if t.dtype == torch.float32 and t.is_contiguous():
+        return t
+    return t.float().contiguous()
+
+
 def _b10(x, scale, bias, eps, r=None):
-    """B10 on CUDA (adding one to the entry's ``launches``), the plain
-    version on the CPU: y, or (s, y) with ``r``."""
+    """B10 on CUDA (adding one to the entry's ``launches``, and to its
+    ``launches_onepass`` on the one-pass route), the plain version on the
+    CPU: y, or (s, y) with ``r``. Contiguous x, r and fp32 scale and bias
+    are used as they are."""
     if x.device.type == "cpu":
         return layer_norm_fwd_plain(x, scale, bias, r, eps=eps)
     if not x.is_cuda:
         raise ValueError(f"fused_layer_norm runs on cuda or cpu, not "
                          f"{x.device}")
-    E = x.shape[-1]
-    x2 = x.reshape(-1, E).contiguous()
-    r2 = None if r is None else r.reshape(-1, E).contiguous()
-    sc, bi = scale.float().contiguous(), bias.float().contiguous()
-    y = torch.empty_like(x2)
-    s = None if r is None else torch.empty_like(x2)
-    fn = _build.entry("layer_norm_fwd")
-    with torch.cuda.device(x.device):
-        err = fn(DTYPE_CODES[x.dtype], x2.data_ptr(),
-                 None if r2 is None else r2.data_ptr(), sc.data_ptr(),
-                 bi.data_ptr(), None if s is None else s.data_ptr(),
-                 y.data_ptr(), x2.shape[0], E, float(eps),
-                 torch.cuda.current_stream().cuda_stream)
-    _build.check("layer_norm_fwd", err)
-    (fused_layer_norm if r is None else fused_add_layer_norm).launches += 1
-    y = y.reshape(x.shape)
-    return y if s is None else (s.reshape(x.shape), y)
+    if not x.is_contiguous():
+        x = x.contiguous()
+    if r is not None and not r.is_contiguous():
+        r = r.contiguous()
+    y, s, route = _launch_fwd(x, r, _f32(scale), _f32(bias), eps)
+    entry = fused_layer_norm if r is None else fused_add_layer_norm
+    entry.launches += 1
+    if route == LN_ROUTE_ONEPASS:
+        entry.launches_onepass += 1
+    return y if s is None else (s, y)
 
 
 def _b10_add(x, r, scale, bias, eps):
@@ -258,11 +301,14 @@ def _b10_add(x, r, scale, bias, eps):
 def fused_layer_norm(x, scale, bias, eps: float = 1e-5):
     """LayerNorm over the last axis of (..., E) x, any leading dims, in
     x's dtype; scale and bias (E,). Differentiable (B11 backward). CUDA
-    tensors go through B10 and add one to ``fused_layer_norm.launches``;
+    tensors go through B10 and add one to ``fused_layer_norm.launches``
+    (and to ``launches_onepass`` on the one-pass route, ``ln_fwd_route``);
     CPU tensors take the plain version."""
     _check_fwd(x, scale, bias, None)
     if x.dim() == 1:
         return fused_layer_norm(x[None], scale, bias, eps)[0]
+    if not _build.needs_grad(x, scale, bias):
+        return _b10(x, scale, bias, eps)
     return _LayerNorm.apply(x, scale, bias, float(eps), _b10)
 
 
@@ -270,14 +316,18 @@ def fused_add_layer_norm(x, r, scale, bias, eps: float = 1e-5):
     """-> (x + r, LN(x + r)) in one pass, the pre-LN residual pattern: the
     sum is cast to x's dtype and normalised as cast. Differentiable (B11
     backward). CUDA tensors go through B10 and add one to
-    ``fused_add_layer_norm.launches``; CPU tensors take the plain
-    version."""
+    ``fused_add_layer_norm.launches`` (and to ``launches_onepass`` on the
+    one-pass route); CPU tensors take the plain version."""
     _check_fwd(x, scale, bias, r)
     if x.dim() == 1:
         s, y = fused_add_layer_norm(x[None], r[None], scale, bias, eps)
         return s[0], y[0]
+    if not _build.needs_grad(x, r, scale, bias):
+        return _b10(x, scale, bias, eps, r)
     return _AddLayerNorm.apply(x, r, scale, bias, float(eps), _b10_add)
 
 
 fused_layer_norm.launches = 0
+fused_layer_norm.launches_onepass = 0
 fused_add_layer_norm.launches = 0
+fused_add_layer_norm.launches_onepass = 0

@@ -202,6 +202,7 @@ def _launch(x, wqkv, wo, bo, g, b, eps, name="mha_block", extra=(),
                          f"not {x.device}")
     B, T, E = x.shape
     H = wqkv.shape[2]
+    x, wqkv, wo, bo, g, b = _build.aligned(x, wqkv, wo, bo, g, b)
     if route is None:
         route = mha_route(x.dtype, E, H,
                           attention_sm90=name in ATTN_SM90_ENTRIES,

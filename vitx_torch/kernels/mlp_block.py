@@ -108,6 +108,7 @@ def _launch(x, w1, b1, w2, b2, g, b, act, eps, stash, route=None):
                          f"not {x.device}")
     B, T, E = x.shape
     M = w1.shape[1]
+    x, w1, b1, w2, b2, g, b = _build.aligned(x, w1, b1, w2, b2, g, b)
     if route is None:
         route = mlp_route(x.dtype, E, M, (x, w1, w2))
     fn = _build.entry("mlp_block")
