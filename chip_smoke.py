@@ -29,7 +29,9 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               their sm90 route (bf16: the sm90 GEMM, K1's attention on B5's
               sm90 body) with every stash output (q, k, v, o_all, the
               attention's statistics, hp) at base16 b8, a ragged M (3 x
-              197), tiny's widths and large16_384's, launches_sm90 one a
+              197), tiny's widths, large16_384's and the small16 recipe's
+              (b128 and a ragged 3 x 197: E 384, 6 heads, M 1536, QKV N
+              1152 and N 384 against 256-wide tiles), launches_sm90 one a
               call, twice bit for bit, and the earlier route (gemm_kernel,
               attention_fwd.cuh) on the same inputs; B7 and B8 on both
               routes likewise (B7 in bf16 at D 64 on the sm90 attention and
@@ -73,9 +75,11 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               equal to x + r bit for bit; each twice, bit for bit.
 4. grad    -- the training kernels at ViT-B/16 shapes (T 197) against
               their plain versions: batch 8 in float32 (1e-4) and bfloat16,
-              and the train main path's batch 128 in bfloat16: B2
+              and the train main path's batch 128 in bfloat16, and the
+              small16 recipe's (128, 197, 384), 6 heads, in bfloat16: B2
               (attention backward), B3 (LayerNorm backward at E 768 and the
-              head's 3072, on its one-pass route, twice bit for bit, and its
+              head's 3072, at E 384 and 1536, on its one-pass route, twice
+              bit for bit, and its
               earlier kernel on the same inputs), the K1 and K2 stashes, and
               torch.autograd.grad
               through both fused blocks on the card against the same on the
@@ -180,7 +184,38 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               eval_step; (d) fused_add_layer_norm then fused_layer_norm
               at the fine-tune's tokens with their gradients, against
               the plain version, launches B10 1 + 1, B3 2.
-11. times  -- CUDA-event medians: the base16 forward at batch 256 bf16
+11. recipe -- main path 6, CONVERGENCE.md's ViT-S/16 recipe without
+              ToMe-train: (a) small16 at depth 2 in float32, card vs CPU
+              from the same params: the first step as train (a) (gradients
+              1e-4, params within param_gap's allowance), then two epochs
+              of Trainer (cosine, EMA, wd_exclude, clipping, no
+              augmentation): every step's loss and grad_norm within 1e-4,
+              val accuracies equal, the params and the EMA within
+              RECIPE_PARAM_BAR (0.05) of the peak lr; (b) the recipe at small16's full
+              width and depth (bf16, b128) through
+              vitx_torch.cli.train.main on procedural:2048,512 with
+              --device-cache --randaug 5 --ema-decay 0.999 --wd-exclude
+              --early-stop 10 --schedule cosine, 3 epochs; cut to size:
+              the split (2048 + 512, not 12800 + 2560), --warmup-steps 10
+              (not 300), --log-every 4, 3 epochs. Launches asserted: per
+              step K1 12, B2 12 (all sm90), B3 25 (all one-pass), K2 0,
+              B12 0; per eval batch K1 12 and K2 12 (sm90); finite losses
+              whose last 4 fall below the first 4; three .ckpt files whose
+              meta names ema_decay and the schedule. (c) the CLI's 3-epoch
+              trainer stopped after 2 epochs (its cosine's horizon is
+              --epochs x the epoch's steps), then a call with --epochs 3
+              on the same directory: its last checkpoint equal to (b)'s
+              bit for bit. (d) vitx_torch.cli.eval on (b)'s
+              directory reports exactly the val accuracy the trainer
+              logged. (e) load_server on (b)'s last .ckpt (the EMA shadow)
+              answers 32 requests from 4 threads, top-1 equal to direct
+              forwards on the EMA params, launches as a forward's. (f)
+              times beside nvidia-smi's name and power limit: img/s per
+              epoch, the preprocessing's share of a step (CUDA events
+              around preprocess and train_step over an epoch), the
+              profiler's device busy share over the next epoch, launches
+              a step, eval img/s.
+12. times  -- CUDA-event medians: the base16 forward at batch 256 bf16
               (img/s), the train step at batch 128 bf16 (img/s), the
               large16_384 rollout forward at batch 32 bf16 (img/s), the
               same with QKV biases and forward_with_attn("full") at
@@ -274,7 +309,7 @@ PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 (data sheet)
 PEAK_FP32_FLOPS = 67e12       # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
 PHASES = ("device", "build", "kernels", "grad", "forward", "serve", "train",
-          "explain", "tome", "finetune", "times")
+          "explain", "tome", "finetune", "recipe", "times")
 
 KERNELS = {
     "fused_mha_block": {
@@ -697,10 +732,12 @@ def phase_kernels(errs: dict):
             check_block(B, T, E, H, dtype, tol, errs)
     # K1 and K2 on the sm90 route with every stash output, and on the
     # earlier route on the same inputs: base16 at batch 8, a ragged M (3 x
-    # 197 rows), tiny's widths (QKV N 192, the MLP's 256) and
-    # large16_384's (E 1024, M 4096)
+    # 197 rows), tiny's widths (QKV N 192, the MLP's 256), large16_384's
+    # (E 1024, M 4096) and the small16 recipe's (E 384, 6 heads, M 1536:
+    # QKV N 1152, the out-projection's and W2's N 384 against 256-wide
+    # tiles) at its batch 128 and a ragged M
     for shape in ((8, 197, 768, 12), (3, 197, 768, 12), (2, 65, 64, 4),
-                  (8, 577, 1024, 16)):
+                  (8, 577, 1024, 16), (128, 197, 384, 6), (3, 197, 384, 6)):
         check_blocks_sm90(*shape, errs)
     # B5 at the rollout's heads, base16's, and past T = 1024
     for shape in ((2, 16, 577, 64), (2, 12, 197, 64), (1, 16, 1100, 64)):
@@ -1485,6 +1522,11 @@ def phase_grad(errs: dict):
                                 (128, torch.bfloat16, BF16_TOL,
                                  GRAD_BF16_TOL)):
         check_training_kernels(B, 197, E, 12, dtype, tol, gtol, errs)
+    # the small16 recipe's train step: B2 at (128, 6, 197, 64), B3 at
+    # (128, 197, 384) and the head's (128, 1536), the stashes and autograd
+    # through both blocks
+    check_training_kernels(128, 197, 384, 6, torch.bfloat16, BF16_TOL,
+                           GRAD_BF16_TOL, errs)
     # B2 and B3 at Grad-CAM's large16_384 shapes: batch 1 (served) and 8
     for B in (1, 8):
         for dtype, tol in ((torch.float32, FP32_TOL),
@@ -1968,6 +2010,379 @@ def phase_finetune(ds) -> tuple:
         raise AssertionError("(d) entries: gradients not finite")
     del x, r, s, h, y, grads
     return add_launches(got, got_d), cfg, state, batch, step
+
+
+# the small16 recipe of CONVERGENCE.md without ToMe-train: the train CLI's
+# flags; the cuts for a card run are its split (2048 + 512 images, not
+# 12800 + 2560), --warmup-steps 10 (not 300: 48 steps in all) and 3 epochs
+RECIPE_DATA = "procedural:2048,512"
+RECIPE_ARGS = ["--preset", "small16", "--data", RECIPE_DATA,
+               "--device-cache", "--batch-size", "128", "--lr", "3e-4",
+               "--schedule", "cosine", "--warmup-steps", "10",
+               "--weight-decay", "0.05", "--wd-exclude", "--randaug", "5",
+               "--ema-decay", "0.999", "--early-stop", "10", "--seed", "0",
+               "--log-every", "4"]
+RECIPE_EPOCHS, RECIPE_TRAIN, RECIPE_VAL = 3, 2048, 512
+# recipe (a)'s params and EMA after 8 steps, card vs CPU, in units of the
+# peak lr: the bar tests/test_torch_train.py holds a trajectory to
+RECIPE_PARAM_BAR = 0.05
+
+
+def smi() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def run_cli(main_fn, argv) -> dict:
+    """``main_fn(argv)`` with its printed lines passed on; its last line
+    (a JSON object) returned. A non-zero exit raises."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main_fn(argv)
+    text = buf.getvalue()
+    print(text, end="", flush=True)
+    if rc != 0:
+        raise AssertionError(f"{main_fn.__module__} {argv}: exit {rc}")
+    return json.loads(text.strip().splitlines()[-1])
+
+
+def read_scalars(log_dir: Path, tag: str) -> list:
+    """(step, value) of ``tag`` as the trainer's ScalarWriter logged it:
+    its scalars.jsonl, or its TensorBoard events where tensorboard
+    imports."""
+    jsonl = log_dir / "scalars.jsonl"
+    if jsonl.exists():
+        rows = [json.loads(x) for x in jsonl.read_text().splitlines()]
+        return [(r["step"], r["value"]) for r in rows if r["tag"] == tag]
+    from tensorboard.backend.event_processing.event_accumulator import \
+        EventAccumulator
+
+    acc = EventAccumulator(str(log_dir))
+    acc.Reload()
+    return [(e.step, e.value) for e in acc.Scalars(tag)]
+
+
+def ckpt_leaves(path) -> list:
+    with np.load(path) as z:
+        return [z[f"leaf_{i}"] for i in range(len(z.files) - 1)]
+
+
+def recipe_step_launches(cfg, steps: int, eval_batches: int) -> dict:
+    """A recipe run's launches: per train step K1 and B2 in every block
+    (sm90 in bf16 at D 64) and B3 for both LayerNorms of every block and
+    the reference head's; per eval batch K1 and K2 in every block; B12
+    never (the EMA and wd_exclude keep the plain update, vitx's rule)."""
+    b3 = 2 * cfg.depth + (cfg.head_type == "reference") + int(cfg.final_norm)
+    return block_launches(
+        cfg, fused_mha_block=cfg.depth * (steps + eval_batches),
+        fused_mlp_block=cfg.depth * eval_batches,
+        attention_bwd=cfg.depth * steps,
+        attention_bwd_sm90=cfg.depth * steps * sm90(cfg),
+        ln_bwd=b3 * steps)
+
+
+class LossRecorder:
+    """A Trainer mixin that keeps every flushed (loss, grad_norm)."""
+
+    def _flush(self, pending, writer):
+        self.__dict__.setdefault("recorded", []).extend(
+            (float(m["loss"]), float(m["grad_norm"])) for _, m in pending)
+        return super()._flush(pending, writer)
+
+
+def recipe_card_vs_cpu(root: Path) -> None:
+    """(a) small16 at depth 2, fp32, card against CPU (plain versions)
+    from the same params: the first step as train (a) holds it
+    (``check_step_card_vs_cpu``: gradients within FP32_TOL, params within
+    ``param_gap``'s allowance), then two epochs of Trainer with the
+    recipe's optimizer (cosine, EMA, wd_exclude) and clipping, no
+    augmentation: every step's loss and grad_norm within FP32_TOL, val
+    accuracies equal, the params and the EMA within RECIPE_PARAM_BAR.
+    ``param_gap`` bounds one Adam step from zero moments; past it the
+    moments carry each step's gradient error into the next update, so the
+    run is held as ``tests/test_torch_train.py`` holds a trajectory: in
+    units of the step size."""
+    import vitx_torch
+    from vitx_torch.data import BatchLoader, ProceduralShapes, make_preprocess
+    from vitx_torch.nn.vit import init_params, params_to
+    from vitx_torch.train import TrainState, make_optimizer, warmup_cosine
+    from vitx_torch.train.loop import Trainer, TrainerConfig
+    from vitx_torch.train.step import leaves, tree_map
+
+    cfg = vitx_torch.get_config("small16", depth=2, compute_dtype="float32",
+                                num_classes=10)
+    train_ds = ProceduralShapes(num_examples=32, seed=0)
+    val_ds = ProceduralShapes(num_examples=16, seed=1)
+    host = init_params(1, cfg, device="cpu")
+    pre = make_preprocess(out_size=224, mean=(0.5,) * 3, std=(0.5,) * 3,
+                          random_flip=False)
+    lr, steps = 3e-4, 8
+    first = next(iter(BatchLoader(train_ds, 8, shuffle=True, seed=0)))
+    first["image"] = pre(torch.from_numpy(first["image"]), None,
+                         train=False).numpy()
+    check_step_card_vs_cpu("recipe", "a: small16 depth 2 fp32, the first "
+                           "step, card vs CPU", cfg, params_to(host, "cuda"),
+                           tree_map(torch.clone, host), first, lr)
+    sched = warmup_cosine(lr, steps, 2)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        params = params_to(host, dev)
+        opt = make_optimizer(lr=lr, schedule=sched, weight_decay=0.05,
+                             grad_clip=1.0, ema_decay=0.9, wd_exclude=True)
+        tcfg = TrainerConfig(epochs=2, lr=lr, weight_decay=0.05,
+                             wd_exclude=True, grad_clip=1.0, ema_decay=0.9,
+                             log_every=1, checkpoint_dir=str(root / dev))
+        tr = type("Recording", (LossRecorder, Trainer), {})(
+            cfg, tcfg, preprocess=pre, optimizer=opt, lr_schedule=sched,
+            init_state=TrainState(0, params, opt.init(params)), device=dev)
+        t0 = time.perf_counter()
+        hist = tr.fit(BatchLoader(train_ds, 8, shuffle=True, seed=0),
+                      BatchLoader(val_ds, 8))
+        runs[dev] = (tr, hist, time.perf_counter() - t0)
+    (card, hc, card_s), (cpu, hh, cpu_s) = runs["cuda"], runs["cpu"]
+    lc, lh = np.array(card.recorded), np.array(cpu.recorded)
+    step_err = float((np.abs(lc - lh) / np.abs(lh)).max())
+    accs = [[h["val_accuracy"] for h in hist] for hist in (hc, hh)]
+    names = leaf_names(host)
+    gaps = {}
+    for what, a, b in (("params", card.state.params, cpu.state.params),
+                       ("ema", card.state.opt_state.ema,
+                        cpu.state.opt_state.ema)):
+        per_leaf = [float((x.cpu() - y).abs().max())
+                    for x, y in zip(leaves(a), leaves(b))]
+        i = int(np.argmax(per_leaf))
+        gaps[what] = {"max_abs": per_leaf[i], "leaf": names[i],
+                      "in_lr": per_leaf[i] / lr}
+    emit({"phase": "recipe", "part": "a: small16 depth 2 fp32, two epochs "
+          "of Trainer, card vs CPU", "steps": len(lc),
+          "loss_grad_norm_rel_err": step_err, "val_accuracy": accs,
+          "losses_card": lc[:, 0].tolist(), "gaps": gaps,
+          "param_bar": RECIPE_PARAM_BAR * lr, "tol": FP32_TOL,
+          "card_s": card_s, "cpu_s": cpu_s})
+    if not (len(lc) == len(lh) == steps and step_err <= FP32_TOL
+            and accs[0] == accs[1]
+            and all(g["max_abs"] <= RECIPE_PARAM_BAR * lr
+                    for g in gaps.values())):
+        raise AssertionError(f"recipe (a): steps {step_err}, accs {accs}, "
+                             f"gaps {gaps}")
+
+
+def recipe_times(args: list, cfg) -> None:
+    """(f) The recipe's times on this card: the preprocessing's share of a
+    step (CUDA events around ``preprocess`` and around ``train_step``, one
+    epoch), the profiler's device busy share over the next epoch, the
+    eval's img/s."""
+    import vitx_torch.cli.train as train_cli
+
+    parser = train_cli.build_argparser()
+    tr, train_loader, eval_loader = train_cli.build_trainer(
+        parser.parse_args(args + ["--epochs", "2"]), parser)
+    pre, step = tr.preprocess, tr.train_step
+    events = {"preprocess": [], "train_step": []}
+
+    def timed(name, fn):
+        def call(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*a, **kw)
+            end.record()
+            events[name].append((start, end))
+            return out
+        return call
+
+    tr.preprocess = timed("preprocess", pre)
+    tr.train_step = timed("train_step", step)
+    t0 = time.perf_counter()
+    tr._train_epoch(train_loader, 0, None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ms = {k: sum(s.elapsed_time(e) for s, e in v) for k, v in events.items()}
+    tr.preprocess, tr.train_step = pre, step
+    busy_ms = profile_call("recipe train epoch (16 steps)",
+                           lambda: tr._train_epoch(train_loader, 1, None),
+                           top=16)
+    t0 = time.perf_counter()
+    em = tr.evaluate(eval_loader)
+    eval_s = time.perf_counter() - t0
+    # (b) asserted its launches equal to these
+    per_step = {k: v for k, v in recipe_step_launches(cfg, 1, 0).items()
+                if v}
+    per_eval = {k: v for k, v in recipe_step_launches(cfg, 0, 1).items()
+                if v}
+    emit({"phase": "times", "what": "recipe", "card": smi(),
+          "epoch_wall_s": wall, "steps": len(events["train_step"]),
+          "preprocess_ms": ms["preprocess"],
+          "train_step_ms": ms["train_step"],
+          "preprocess_share": ms["preprocess"] / (ms["preprocess"]
+                                                  + ms["train_step"]),
+          "epoch_device_ms": busy_ms,
+          "eval_img_per_s": RECIPE_VAL / eval_s, "eval_s": eval_s,
+          "eval_accuracy": em["accuracy"], "launches_per_step": per_step,
+          "launches_per_eval_batch": per_eval})
+
+
+def phase_recipe() -> dict:
+    """Main path 6, CONVERGENCE.md's ViT-S/16 recipe without ToMe-train:
+    (a) card vs CPU at depth 2 (``recipe_card_vs_cpu``); (b) the recipe at
+    small16's full width and depth through ``vitx_torch.cli.train.main``,
+    3 epochs, launches asserted; (c) a resume: 2 epochs, then ``--epochs
+    3`` on the same directory, equal to (b) bit for bit; (d) the eval CLI
+    on (b)'s directory reports the accuracy the trainer logged; (e) a
+    server from (b)'s last .ckpt answers 32 requests as direct calls on
+    the EMA params do; (f) times (``recipe_times``). Returns (b)'s
+    launches."""
+    import os
+    import shutil
+
+    import vitx_torch.cli.eval as eval_cli
+    import vitx_torch.cli.train as train_cli
+    from vitx_torch import forward
+    from vitx_torch.data import make_preprocess
+    from vitx_torch.data.procedural import ProceduralShapes
+    from vitx_torch.serve import load_server
+    from vitx_torch.train import checkpoint as ckpt
+    from vitx_torch.train.step import leaves
+
+    root = BUILD / "recipe"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    os.environ.setdefault("VITX_PROC_CACHE", str(BUILD / "procdata"))
+    recipe_card_vs_cpu(root / "a")
+
+    # (b) the recipe at full small16
+    t0 = time.perf_counter()
+    for n, seed in ((RECIPE_TRAIN, 0), (RECIPE_VAL, 1)):   # the disk cache
+        ProceduralShapes(num_examples=n, seed=seed,
+                         cache_dir=os.environ["VITX_PROC_CACHE"]
+                         ).materialize()
+    gen_s = time.perf_counter() - t0
+    b_dir, logs = root / "b", root / "b_logs"
+    reset_counts()
+    t0 = time.perf_counter()
+    final = run_cli(train_cli.main, RECIPE_ARGS + [
+        "--epochs", str(RECIPE_EPOCHS), "--checkpoint-dir", str(b_dir),
+        "--log-dir", str(logs)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    cfg = ckpt.resolve_artifact_config(b_dir, None, "small16")
+    steps = RECIPE_EPOCHS * (RECIPE_TRAIN // 128)
+    eval_batches = RECIPE_EPOCHS * (RECIPE_VAL // 128)
+    expect = recipe_step_launches(cfg, steps, eval_batches)
+    losses = [v for _, v in read_scalars(logs, "Loss/train_batch")]
+    rates = [v for _, v in read_scalars(logs, "Throughput/images_per_sec")]
+    val = [v for _, v in read_scalars(logs, "val?acc")]
+    metas = [ckpt.peek_meta(b_dir / f"{e}.ckpt")
+             for e in range(RECIPE_EPOCHS)]
+    emit({"phase": "recipe", "part": "b: small16 bf16 b128, the recipe "
+          "through vitx_torch.cli.train.main", "card": smi(),
+          "argv": RECIPE_ARGS, "epochs": RECIPE_EPOCHS,
+          "cuts": {"split": RECIPE_DATA, "warmup_steps": 10,
+                   "epochs": RECIPE_EPOCHS, "log_every": 4},
+          "generate_s": gen_s, "wall_s": wall, "launches": launches,
+          "expected": expect, "losses": losses, "val_accuracy": val,
+          "img_per_s_by_epoch": rates,
+          "steady_img_per_s": statistics.mean(rates[1:]), "final": final})
+    expect_launches("recipe (b)", launches, expect)
+    first, last = np.mean(losses[:4]), np.mean(losses[-4:])
+    if not (len(losses) == steps and np.all(np.isfinite(losses))
+            and last < first):
+        raise AssertionError(f"recipe (b): losses {losses}")
+    for m in metas:
+        if not (m["ema_decay"] == 0.999 and m["schedule"]
+                and m["config"]["embed_dim"] == 384):
+            raise AssertionError(f"recipe (b): checkpoint meta {m}")
+
+    # (c) resume: the CLI's 3-epoch trainer stopped after 2 epochs (a
+    # second call with --epochs 2 would anneal the cosine over 32 steps,
+    # not 48: its horizon is --epochs x the epoch's steps, vitx's rule),
+    # then --epochs 3 on the same directory
+    import dataclasses
+
+    c_dir = root / "c"
+    parser = train_cli.build_argparser()
+    tr, train_loader, eval_loader = train_cli.build_trainer(
+        parser.parse_args(RECIPE_ARGS + ["--epochs", str(RECIPE_EPOCHS),
+                                         "--checkpoint-dir", str(c_dir)]),
+        parser)
+    tr.tcfg = dataclasses.replace(tr.tcfg, epochs=RECIPE_EPOCHS - 1)
+    tr.fit(train_loader, eval_loader)
+    del tr, train_loader, eval_loader
+    run_cli(train_cli.main, RECIPE_ARGS + ["--epochs", str(RECIPE_EPOCHS),
+                                           "--checkpoint-dir", str(c_dir)])
+    last_ckpt = f"{RECIPE_EPOCHS - 1}.ckpt"
+    got, want = ckpt_leaves(c_dir / last_ckpt), ckpt_leaves(b_dir / last_ckpt)
+    differ = [i for i, (a, b) in enumerate(zip(got, want))
+              if not np.array_equal(a, b)]
+    meta_c = ckpt.peek_meta(c_dir / last_ckpt)
+    emit({"phase": "recipe", "part": "c: 2 of 3 epochs, then a resumed "
+          "call with --epochs 3, vs (b)",
+          "leaves": len(want), "differ": differ[:20],
+          "max_abs_gap": max((float(np.abs(got[i] - want[i]).max())
+                              for i in differ), default=0.0),
+          "step": meta_c["step"]})
+    if differ or meta_c["step"] != steps or len(got) != len(want):
+        raise AssertionError(f"recipe (c): leaves {differ[:20]} differ "
+                             f"from the uninterrupted run")
+
+    # (d) the eval CLI on (b)'s directory
+    report = run_cli(eval_cli.main, [
+        "--preset", "small16", "--checkpoint", str(b_dir), "--data",
+        RECIPE_DATA, "--batch-size", "128"])
+    emit({"phase": "recipe", "part": "d: vitx_torch.cli.eval on (b)",
+          "accuracy": report["accuracy"], "logged": val[-1],
+          "epoch": report["epoch"]})
+    if not (report["accuracy"] == val[-1] == final["val_accuracy"]
+            and report["epoch"] == RECIPE_EPOCHS - 1
+            and report["num_examples"] == RECIPE_VAL):
+        raise AssertionError(f"recipe (d): eval {report}, logged {val}")
+
+    # (e) a server from the last .ckpt: the EMA shadow
+    ema, _ = ckpt.restore_eval_params(b_dir / last_ckpt, cfg)
+    u8 = ProceduralShapes(num_examples=32, seed=1).materialize()[0]
+    imgs = make_preprocess(out_size=224, mean=(0.5,) * 3, std=(0.5,) * 3)(
+        torch.from_numpy(u8).cuda(), None, train=False).cpu().numpy()
+    results = [None] * 32
+    reset_counts()
+    with load_server(b_dir / last_ckpt, cfg, batch_size=32, top_k=5,
+                     max_delay_ms=20.0) as srv:
+        def client(c):
+            for i in range(c * 8, c * 8 + 8):
+                results[i] = srv.predict(imgs[i])
+
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        if any(t.is_alive() for t in threads):
+            raise AssertionError("recipe (e): clients did not finish")
+        stats = srv.stats.summary()
+        same = all(torch.equal(a, b) for a, b in zip(
+            leaves(srv._params), leaves(ema)))
+    served = counts()
+    expect_launches("recipe (e): server", served,
+                    forward_launches(cfg, 1 + stats["batches"]))
+    direct = forward(ema, imgs, cfg).argmax(-1).tolist()
+    top1 = [r["classes"][0] for r in results]
+    emit({"phase": "recipe", "part": "e: load_server on the last .ckpt, "
+          "32 requests from 4 threads", "stats": stats, "launches": served,
+          "top1_equal": top1 == direct, "serves_ema": same})
+    if top1 != direct or not same:
+        raise AssertionError(f"recipe (e): served {top1}, direct {direct}, "
+                             f"EMA served {same}")
+
+    # (f) times
+    recipe_times(RECIPE_ARGS, cfg)
+    return launches
 
 
 def card_rel_err(a, b) -> float:
@@ -3289,7 +3704,7 @@ def main(argv=None) -> int:
     if "forward" in phases:
         phase_forward(cfg, params)
     serve_launches, train_launches, explain_launches = {}, {}, {}
-    tome_launches, finetune_launches = {}, {}
+    tome_launches, finetune_launches, recipe_launches = {}, {}, {}
     train = finetune = None
     if "serve" in phases:
         serve_launches = phase_serve(cfg, params)
@@ -3313,8 +3728,10 @@ def main(argv=None) -> int:
         ds512 = SyntheticDataset(num_examples=32, image_size=512,
                                  num_classes=cfg.num_classes, seed=0)
         finetune_launches, *finetune = phase_finetune(ds512)
+    if "recipe" in phases:
+        recipe_launches = phase_recipe()
     launches = add_launches(serve_launches, train_launches, explain_launches,
-                            tome_launches, finetune_launches)
+                            tome_launches, finetune_launches, recipe_launches)
     if "times" in phases:
         rows = phase_times(cfg, params, errs, launches)
         if tome_launches:
@@ -3345,7 +3762,8 @@ def main(argv=None) -> int:
                 "train": train_launches.get(row["name"], 0),
                 "explain": explain_launches.get(row["name"], 0),
                 "tome": tome_launches.get(row["name"], 0),
-                "finetune": finetune_launches.get(row["name"], 0)}
+                "finetune": finetune_launches.get(row["name"], 0),
+                "recipe": recipe_launches.get(row["name"], 0)}
             if row["name"] in stash:
                 row["stash_ms_b128"] = stash[row["name"]]
         missing = sorted(set(KERNELS) - {row["name"] for row in rows})

@@ -285,11 +285,13 @@ def seeded(shape, seed, scale=1.0, shift=0.0, dtype="float32",
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("dims", [(2, 12, 197, 64), (3, 4, 65, 16),
-                                  (2, 4, 50, 9), (1, 1, 40, 128)])
+                                  (2, 4, 50, 9), (1, 1, 40, 128),
+                                  (128, 6, 197, 64)])
 def test_attention_bwd_matches_plain(cuda, dims, dtype):
-    """B2 at ViT-B/16 shapes, tiny's, a ragged head (D=9) and the largest
-    head it takes (D=128), given the forward's o and statistics (bf16 at
-    D 64 takes the sm90 kernel, which needs them)."""
+    """B2 at ViT-B/16 shapes, tiny's, a ragged head (D=9), the largest
+    head it takes (D=128) and the small16 recipe's train batch, given the
+    forward's o and statistics (bf16 at D 64 takes the sm90 kernel, which
+    needs them)."""
     q, k, v = (seeded(dims, s, 1.5, dtype=dtype, device=cuda)
                for s in (1, 2, 3))
     do = seeded(dims, 4, 0.1, dtype=dtype, device=cuda)
@@ -327,10 +329,12 @@ def test_ln_bwd_matches_plain(cuda, shape, dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", [(128, 197, 768), (32, 1025, 768),
                                    (8, 577, 1024), (128, 3072), (32, 4096),
-                                   (50432, 768)])
+                                   (50432, 768), (128, 197, 384),
+                                   (128, 1536)])
 def test_ln_bwd_onepass_matches_plain(cuda, shape, dtype):
     """B3's one-pass route at the train and fine-tune steps' tokens, E
-    1024, the reference head's (B, 4E) and B11's (R, E) view: against the
+    1024, the reference head's (B, 4E), B11's (R, E) view and the small16
+    recipe's tokens and head (E 384, 4E 1536): against the
     plain version and the earlier kernel on the same inputs, twice bit for
     bit."""
     x = seeded(shape, 15, 2.0, 0.5, dtype=dtype, device=cuda)
@@ -841,10 +845,14 @@ def test_finetune_step_on_card_matches_cpu(cuda, tmp_path):
 # attention on B5's sm90 body (csrc/attention_fwd_sm90.cuh) ----------------
 
 # base16 at batch 8 and at a ragged M (3 x 197 rows), tiny's widths (QKV N
-# 192, the MLP's 256), large16_384's (E 1024, M 4096) and an odd head width
-# on the sm90 GEMM (E 72, D 9: the QKV scatter's scalar stores)
+# 192, the MLP's 256), large16_384's (E 1024, M 4096), an odd head width
+# on the sm90 GEMM (E 72, D 9: the QKV scatter's scalar stores) and the
+# small16 recipe's (E 384, 6 heads, M 1536: QKV N 1152 and the
+# out-projection's and W2's N 384, ragged against 256-wide tiles) at its
+# train batch and a ragged M
 BLOCK_SM90_DIMS = [(8, 197, 768, 12), (3, 197, 768, 12), (2, 65, 64, 4),
-                   (2, 577, 1024, 16), (1, 40, 72, 8)]
+                   (2, 577, 1024, 16), (1, 40, 72, 8), (128, 197, 384, 6),
+                   (3, 197, 384, 6)]
 # the attention's row statistics against attention_stats_plain on the
 # kernel's own q and k: the same bf16 values in fp32, summed in another
 # order (chip_smoke.py STATS_TOL)
@@ -1186,3 +1194,68 @@ def test_sm90_kernels_launch_from_a_fresh_thread(cuda):
     assert not errors, errors
     want = calls()
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+# --- the training driver on the card (procedural data, the device cache,
+# RandAugment, the EMA, .ckpt) ---------------------------------------------
+
+@pytest.mark.cuda
+def test_device_loader_on_card_matches_cpu(cuda):
+    """DeviceBatchLoader on the card: the batches of the CPU loader, bit
+    for bit, the ragged tail's padding zeroed."""
+    from vitx_torch.data import DeviceBatchLoader, ProceduralShapes
+
+    ds = ProceduralShapes(num_examples=10, image_size=32, seed=1)
+    card = DeviceBatchLoader(ds, 4, shuffle=True, seed=2, device=cuda)
+    host = DeviceBatchLoader(ds, 4, shuffle=True, seed=2, device="cpu")
+    for epoch in (0, 1):
+        card.set_epoch(epoch)
+        host.set_epoch(epoch)
+        for a, b in zip(card, host):
+            assert a["image"].is_cuda
+            for k in ("image", "label", "mask"):
+                assert torch.equal(a[k].cpu(), b[k]), k
+
+
+@pytest.mark.cuda
+def test_recipe_epoch_on_card(cuda, tmp_path):
+    """One epoch of the recipe's Trainer (small16 widths at depth 2, bf16,
+    RandAugment, EMA, wd_exclude, cosine) on the card: finite losses, K1,
+    B2 and B3 a step on their sm90 and one-pass routes, a .ckpt whose EMA
+    the eval path restores."""
+    from vitx_torch.data import DeviceBatchLoader, ProceduralShapes, \
+        make_preprocess
+    from vitx_torch.train import checkpoint as tckpt
+    from vitx_torch.train.loop import Trainer, TrainerConfig
+
+    cfg = vitx_torch.get_config("small16", depth=2, num_classes=10)
+    train = DeviceBatchLoader(ProceduralShapes(num_examples=64, seed=0),
+                              32, shuffle=True, device=cuda)
+    val = DeviceBatchLoader(ProceduralShapes(num_examples=32, seed=1), 32,
+                            device=cuda)
+    sched = tstep.warmup_cosine(3e-4, 2, 1)
+    opt = tstep.make_optimizer(lr=3e-4, schedule=sched, weight_decay=0.05,
+                               ema_decay=0.999, wd_exclude=True)
+    tcfg = TrainerConfig(epochs=1, lr=3e-4, weight_decay=0.05,
+                         wd_exclude=True, ema_decay=0.999, log_every=1,
+                         checkpoint_dir=str(tmp_path))
+    pre = make_preprocess(out_size=224, mean=(0.5,) * 3, std=(0.5,) * 3,
+                          randaug_layers=2, randaug_magnitude=5.0)
+    tr = Trainer(cfg, tcfg, preprocess=pre, optimizer=opt,
+                 lr_schedule=sched)
+    fns = (fused_mha_block, attention_bwd, ln_bwd, fused_mlp_block)
+    before = [(f.launches, getattr(f, "launches_sm90",
+                                   getattr(f, "launches_onepass", 0)))
+              for f in fns]
+    hist = tr.fit(train, val)
+    torch.cuda.synchronize()
+    got = [(f.launches - a, getattr(f, "launches_sm90",
+                                    getattr(f, "launches_onepass", 0)) - b)
+           for f, (a, b) in zip(fns, before)]
+    # 2 steps of 2 blocks; one eval batch: K1 and K2 in both blocks
+    assert got == [(6, 6), (4, 4), (10, 10), (2, 2)]
+    assert np.isfinite(hist[0]["loss"]) and hist[0]["val_accuracy"] >= 0
+    params, meta = tckpt.restore_eval_params(tmp_path, cfg)
+    assert meta["ema_decay"] == 0.999 and meta["schedule"]
+    for a, b in zip(tstep.leaves(params), tstep.leaves(tr.eval_params())):
+        assert torch.equal(a, b)

@@ -351,8 +351,9 @@ def test_server_predicts_from_the_merged_encoder():
     forward at the server's batch shape, which differs from the full-token
     forward; ``--tome-r to128`` parses into vitx's schedule."""
     from vitx.train.checkpoint import resolve_artifact_config
-    from vitx_torch.cli.serve import resolve_serve_config
     from vitx_torch.serve import InferenceServer
+    from vitx_torch.train.checkpoint import \
+        resolve_artifact_config as resolve_serve_config
 
     cfg = vitx_torch.ViTConfig(**dict(TINY, tome_r=8))
     params = vitx_torch.init_params(0, cfg, device="cpu")
@@ -370,7 +371,7 @@ def test_server_predicts_from_the_merged_encoder():
     np.testing.assert_allclose(results[0]["probs"], probs.numpy(),
                                rtol=1e-6, atol=1e-9)
     assert float((tome - full).abs().max()) > 1e-6
-    got = resolve_serve_config(None, "base16",
+    got = resolve_serve_config(None, None, "base16",
                                vitx_torch.parse_tome_r("to128"))
     ref = resolve_artifact_config(None, preset="base16", tome_r="to128")
     assert got.tome_r == ref.tome_r and got.tome_r[:2] == (35, 34)

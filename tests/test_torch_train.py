@@ -282,8 +282,8 @@ def test_confusion_matrix_matches_vitx():
 
 @pytest.mark.parametrize("call,item", [
     ("optimizer=sgd", "A12"), ("optimizer=lion", "A12"),
-    ("accum_steps", "A12"), ("ema_decay", "A12"), ("llrd", "A12"),
-    ("trainable", "A12"), ("mu_dtype", "A12"), ("wd_exclude", "A12"),
+    ("accum_steps", "A12"), ("llrd", "A12"),
+    ("trainable", "A12"), ("mu_dtype", "A12"),
     ("loss=bce", "A12"), ("mixup", "A12"), ("cutmix", "A12"),
     ("sam", "A12"), ("train_filter", "A12"), ("grad_shardings", "A13"),
     ("patch_drop", "A12"),
@@ -293,11 +293,9 @@ def test_unported_knobs_raise(call, item):
     opt_kw = {"optimizer=sgd": {"optimizer": "sgd"},
               "optimizer=lion": {"optimizer": "lion"},
               "accum_steps": {"accum_steps": 2},
-              "ema_decay": {"ema_decay": 0.99},
               "llrd": {"llrd": 0.75, "llrd_depth": 4},
               "trainable": {"trainable": "head"},
-              "mu_dtype": {"mu_dtype": "bfloat16"},
-              "wd_exclude": {"wd_exclude": True}}
+              "mu_dtype": {"mu_dtype": "bfloat16"}}
     if call in opt_kw:
         with pytest.raises(NotImplementedError, match=item):
             tstep.make_optimizer(**opt_kw[call])

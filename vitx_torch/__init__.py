@@ -14,7 +14,10 @@ forward behind ``fused_layer_norm`` / ``fused_add_layer_norm``; the rest
 is plain torch. A 224² export fine-tunes at a larger image size
 (``params_from_jax`` resizes its positional grid, ``resize_pos_embed``);
 the attention backward takes every sequence length (ViT-B/16 at 512²,
-T 1025).
+T 1025). vitx's training driver runs on the card too: procedural data
+resident there, RandAugment as torch ops (``vitx_torch.data``), the EMA
+and the weight-decay mask, ``Trainer`` with vitx's ``.ckpt`` files
+(``vitx_torch.train``), and the train and eval CLIs.
 It imports neither ``jax`` nor ``vitx``.
 
 Entry points run on a CUDA device unless the caller passes

@@ -35,9 +35,10 @@ from urllib.parse import parse_qs, urlparse
 
 import numpy as np
 
-from vitx_torch.core.config import PRESETS, ViTConfig, get_config
-from vitx_torch.nn.tome import aligned_schedule, parse_tome_r
+from vitx_torch.core.config import PRESETS
+from vitx_torch.nn.tome import parse_tome_r
 from vitx_torch.serve import ServerOverloaded, load_server
+from vitx_torch.train.checkpoint import resolve_artifact_config
 
 
 def make_handler(server):
@@ -115,27 +116,16 @@ def make_handler(server):
     return Handler
 
 
-def resolve_serve_config(config_json, preset, tome_r=0) -> ViTConfig:
-    """An explicit ``--config-json`` wins over the preset; ``tome_r`` (a
-    ``parse_tome_r`` value) applies last, a ``toN`` resolved against the
-    final geometry (``vitx/train/checkpoint.py:480-485``)."""
-    if config_json:
-        with open(config_json) as f:
-            cfg = ViTConfig.from_json(f.read())
-    else:
-        cfg = get_config(preset)
-    if isinstance(tome_r, str):
-        tome_r = aligned_schedule(cfg, target_tokens=int(tome_r[2:]))
-    return cfg.replace(tome_r=tome_r) if tome_r else cfg
-
-
 def main(argv=None):
     p = argparse.ArgumentParser(prog="vitx_torch.serve")
     p.add_argument("--preset", default="tiny", choices=sorted(PRESETS))
     p.add_argument("--config-json", default=None)
     p.add_argument("--checkpoint", default=None,
-                   help="bare vitx params .npz (vitx.cli.pretrain "
-                        "--export-vit); omit for fresh params")
+                   help="vitx checkpoint directory or {epoch}.ckpt (the "
+                        "EMA shadow where the run kept one; the config "
+                        "from its meta), or a bare params .npz "
+                        "(vitx.cli.pretrain --export-vit); omit for fresh "
+                        "params")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8808)
     p.add_argument("--batch-size", type=int, default=32)
@@ -151,7 +141,8 @@ def main(argv=None):
                         "'toN' (e.g. to128)")
     args = p.parse_args(argv)
 
-    cfg = resolve_serve_config(args.config_json, args.preset, args.tome_r)
+    cfg = resolve_artifact_config(args.checkpoint, args.config_json,
+                                  args.preset, args.tome_r)
     server = load_server(args.checkpoint, cfg, batch_size=args.batch_size,
                          top_k=args.top_k, max_delay_ms=args.max_delay_ms,
                          temperature=args.temperature, device=args.device)

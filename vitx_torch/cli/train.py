@@ -1,0 +1,302 @@
+"""Training CLI: ``python -m vitx_torch.cli.train --preset small16 ...``.
+
+The counterpart of ``vitx/cli/train.py``, with its flags under the same
+names and defaults plus ``--device`` (default ``cuda``; without a CUDA
+device it exits unless ``--device cpu`` is given). It trains on
+``synthetic`` or ``procedural[:<ntrain>,<nval>]`` data (vitx's splits and
+seeds; ``VITX_PROC_CACHE`` names the procedural cache directory, default
+``.procdata``), through ``BatchLoader`` or, with ``--device-cache``,
+``DeviceBatchLoader``, with vitx's device-side preprocessing (normalise
+with 0.5 / 0.5, flips, and the augmentation flags) and ``Trainer``. Every
+other flag set away from its default exits non-zero, naming the ROADMAP
+item that brings it (``UNPORTED``).
+
+``CONVERGENCE.md``'s ViT-S/16 recipe without ToMe-train::
+
+    python -m vitx_torch.cli.train --preset small16 --data procedural \\
+      --device-cache --batch-size 128 --lr 3e-4 --schedule cosine \\
+      --warmup-steps 300 --weight-decay 0.05 --wd-exclude --randaug 5 \\
+      --ema-decay 0.999 --early-stop 10 --checkpoint-dir ckpt
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+from vitx_torch.core.config import PRESETS, ViTConfig, get_config
+from vitx_torch.data import (BatchLoader, DeviceBatchLoader, ProceduralShapes,
+                             SyntheticDataset, make_preprocess)
+from vitx_torch.train.loop import NonFiniteLossError, Trainer, TrainerConfig
+
+# flags the port does not take yet -> the ROADMAP item that brings them;
+# each is refused when set away from its default
+UNPORTED = {
+    "class_weights": "A12", "loss": "A12", "optimizer": "A12",
+    "mu_dtype": "A12", "lora_rank": "A12", "lora_alpha": "A12",
+    "lora_targets": "A12", "freeze_backbone": "A12", "mixup_alpha": "A12",
+    "cutmix_alpha": "A12", "patch_drop": "A12", "tome_r": "A10",
+    "tome_train": "A10", "layerscale": "A12", "mlp_act": "A12",
+    "pos_embed": "A12", "qk_norm": "A12", "head_type": "A12",
+    "global_pool": "A12", "sam_rho": "A12", "distill_from": "A12",
+    "distill_alpha": "A12", "distill_tau": "A12", "distill_hard": "A12",
+    "distill_token": "A12", "accum_steps": "A12", "num_registers": "A12",
+    "llrd": "A12", "steps_per_dispatch": "A12", "dp": "A13", "tp": "A13",
+    "zero": "A13", "moe_experts": "A12", "moe_blocks": "A12",
+    "moe_slots": "A12", "ep": "A13", "sp": "A13", "pp": "A13",
+    "pp_microbatches": "A13", "pp_schedule": "A13",
+}
+
+
+def build_argparser():
+    p = argparse.ArgumentParser(
+        prog="vitx_torch.train",
+        description="Train a ViT classifier on a CUDA device")
+    a = p.add_argument
+    a("--preset", default="tiny", choices=sorted(PRESETS))
+    a("--config-json", default=None,
+      help="path to a ViTConfig JSON (overrides --preset)")
+    a("--class-weights", default=None)
+    a("--image-size", type=int, default=None,
+      help="override the config's input resolution")
+    a("--data", default="synthetic",
+      help="'synthetic' or 'procedural[:<ntrain>,<nval>]' (default "
+           "12800,2560); cifar10:/folder:/shards: wait for ROADMAP A7")
+    a("--epochs", type=int, default=10)
+    a("--batch-size", type=int, default=64)
+    a("--lr", type=float, default=1e-4)
+    a("--loss", default="ce", choices=["ce", "bce"])
+    a("--optimizer", default="adamw",
+      choices=["adamw", "sgd", "lion", "adafactor"])
+    a("--mu-dtype", default=None, choices=["float32", "bfloat16"])
+    a("--weight-decay", type=float, default=1e-4)
+    a("--wd-exclude", action="store_true",
+      help="weight decay on the matrix weights only (timm's no-decay rule)")
+    a("--checkpoint-dir", default=None)
+    a("--keep-checkpoints", type=int, default=None, metavar="N",
+      help="prune to the N newest {epoch}.ckpt (the best epoch is kept)")
+    a("--log-dir", default=None)
+    a("--async-checkpoint", action="store_true",
+      help="write epoch checkpoints on a background thread")
+    a("--eval-every", type=int, default=1)
+    a("--log-every", type=int, default=50)
+    a("--seed", type=int, default=0)
+    a("--device-cache", action="store_true",
+      help="keep both splits on the device as uint8; batches are gathers "
+           "there, in the host loader's order")
+    a("--cache-decoded", action="store_true",
+      help="keep decoded examples in host RAM after their first read")
+    a("--no-augment", action="store_true",
+      help="no normalisation and no flips")
+    a("--random-crop", action="store_true")
+    a("--color-jitter", type=float, default=None)
+    a("--randaug", type=float, default=None, metavar="M",
+      help="RandAugment magnitude (timm rand-mM-n2), on the device")
+    a("--randaug-layers", type=int, default=2)
+    a("--random-erase", type=float, default=None, metavar="P")
+    a("--init-from", default=None,
+      help="initialise the params from a bare vitx params .npz "
+           "(--export-vit); other artifacts wait for ROADMAP A3/A14")
+    a("--lora-rank", type=int, default=0)
+    a("--lora-alpha", type=float, default=0.0)
+    a("--lora-targets", default="attn", choices=["attn", "all"])
+    a("--freeze-backbone", action="store_true")
+    a("--compute-dtype", default=None, choices=["float32", "bfloat16"])
+    a("--label-smoothing", type=float, default=0.0)
+    a("--mixup-alpha", type=float, default=None)
+    a("--cutmix-alpha", type=float, default=None)
+    a("--drop-path", type=float, default=0.0)
+    a("--patch-drop", type=float, default=0.0)
+    a("--tome-r", default=0)
+    a("--tome-train", action="store_true")
+    a("--layerscale", type=float, default=0.0)
+    a("--mlp-act", default=None,
+      choices=["gelu", "gelu_tanh", "relu", "swiglu"])
+    a("--pos-embed", default=None, choices=["learned", "sincos2d", "rope"])
+    a("--qk-norm", action="store_true")
+    a("--head-type", default=None, choices=["reference", "standard", "map"])
+    a("--global-pool", default=None, choices=["cls", "gap"])
+    a("--sam-rho", type=float, default=None)
+    a("--distill-from", default=None)
+    a("--distill-alpha", type=float, default=0.5)
+    a("--distill-tau", type=float, default=1.0)
+    a("--distill-hard", action="store_true")
+    a("--distill-token", action="store_true")
+    a("--grad-clip", type=float, default=None)
+    a("--accum-steps", type=int, default=1)
+    a("--schedule", default="const", choices=["const", "cosine"],
+      help="constant lr, or linear warmup then cosine decay over the run")
+    a("--warmup-steps", type=int, default=0)
+    a("--ema-decay", type=float, default=None,
+      help="EMA of the params (kept in the optimizer state); eval uses it")
+    a("--num-registers", type=int, default=0)
+    a("--llrd", type=float, default=None)
+    a("--early-stop", type=int, default=None, metavar="PATIENCE",
+      help="stop after this many consecutive evals without a val-accuracy "
+           "gain of more than --early-stop-delta")
+    a("--early-stop-delta", type=float, default=0.0)
+    a("--progress", action="store_true")
+    a("--steps-per-dispatch", type=int, default=1)
+    a("--dp", type=int, default=None)
+    a("--tp", type=int, default=1)
+    a("--zero", type=int, default=0, choices=[0, 1, 2, 3])
+    a("--moe-experts", type=int, default=0)
+    a("--moe-blocks", type=int, default=0)
+    a("--moe-slots", type=int, default=0)
+    a("--ep", type=int, default=1)
+    a("--sp", action="store_true")
+    a("--pp", type=int, default=1)
+    a("--pp-microbatches", type=int, default=4)
+    a("--pp-schedule", default="gpipe", choices=("gpipe", "1f1b"))
+    a("--device", default="cuda",
+      help="torch device to train on (default: cuda)")
+    return p
+
+
+def make_datasets(spec: str, cfg: ViTConfig, seed: int):
+    """(train, val) datasets of ``--data``, with vitx's sizes and seeds
+    (``vitx/cli/train.py:278-306``)."""
+    if spec == "synthetic":
+        common = dict(image_size=cfg.image_size, num_classes=cfg.num_classes,
+                      num_channels=cfg.num_channels)
+        return (SyntheticDataset(num_examples=2048, seed=seed, **common),
+                SyntheticDataset(num_examples=512, seed=seed + 1, **common))
+    kind, _, arg = spec.partition(":")
+    if kind == "procedural":
+        n_train, n_val = 12800, 2560
+        if arg:
+            parts = [int(x) for x in arg.split(",")]
+            n_train = parts[0]
+            n_val = parts[1] if len(parts) > 1 else max(parts[0] // 5, 1)
+        cache = os.environ.get("VITX_PROC_CACHE", ".procdata")
+        return (ProceduralShapes(num_examples=n_train, seed=seed,
+                                 image_size=cfg.image_size, cache_dir=cache),
+                ProceduralShapes(num_examples=n_val, seed=seed + 1,
+                                 image_size=cfg.image_size, cache_dir=cache))
+    if spec == "synthetic-ml":
+        raise SystemExit("error: --data synthetic-ml (multi-label) is not "
+                         "ported to vitx_torch yet (ROADMAP A12)")
+    if kind in ("cifar10", "folder", "shards"):
+        raise SystemExit(f"error: --data {kind}: is not ported to "
+                         f"vitx_torch yet (ROADMAP A7)")
+    raise SystemExit(f"error: unknown --data spec {spec!r}")
+
+
+def refuse_unported(args, parser) -> None:
+    """Exit naming the ROADMAP item of the first flag set away from its
+    default that the port does not take."""
+    for dest, item in UNPORTED.items():
+        if getattr(args, dest) != parser.get_default(dest):
+            flag = "--" + dest.replace("_", "-")
+            raise SystemExit(f"error: {flag} is not ported to vitx_torch "
+                             f"yet (ROADMAP {item})")
+    src = args.init_from
+    if src is not None and not (src.endswith(".npz")
+                                and not src.endswith(".quant.npz")):
+        raise SystemExit("error: --init-from takes a bare params .npz; "
+                         "checkpoints and other artifacts wait for ROADMAP "
+                         "A3/A14 (transfer_params)")
+
+
+def build_trainer(args, parser=None):
+    """-> (trainer, train_loader, eval_loader) for parsed ``args``."""
+    parser = parser or build_argparser()
+    refuse_unported(args, parser)
+    if args.config_json:
+        with open(args.config_json) as f:
+            cfg = ViTConfig.from_json(f.read())
+    else:
+        cfg = get_config(args.preset)
+    if args.compute_dtype:
+        cfg = cfg.replace(compute_dtype=args.compute_dtype)
+    if args.image_size:
+        cfg = cfg.replace(image_size=args.image_size)
+    train_ds, eval_ds = make_datasets(args.data, cfg, args.seed)
+    if train_ds.num_classes != cfg.num_classes:
+        cfg = cfg.replace(num_classes=train_ds.num_classes)
+    if args.drop_path:
+        cfg = cfg.replace(drop_path=args.drop_path)
+
+    if args.device_cache:
+        train_loader = DeviceBatchLoader(train_ds, args.batch_size,
+                                         shuffle=True, seed=args.seed,
+                                         device=args.device)
+        eval_loader = DeviceBatchLoader(eval_ds, args.batch_size,
+                                        device=args.device)
+        print(f"device-cache: {train_loader.nbytes / 1e9:.2f} GB train + "
+              f"{eval_loader.nbytes / 1e9:.2f} GB val resident on "
+              f"{train_loader.device}")
+    else:
+        train_loader = BatchLoader(train_ds, args.batch_size, shuffle=True,
+                                   seed=args.seed,
+                                   cache_decoded=args.cache_decoded)
+        eval_loader = BatchLoader(eval_ds, args.batch_size,
+                                  cache_decoded=args.cache_decoded)
+    aug = not args.no_augment
+    pre = make_preprocess(
+        out_size=cfg.image_size,
+        mean=(0.5, 0.5, 0.5) if aug else None,
+        std=(0.5, 0.5, 0.5) if aug else None,
+        random_flip=aug, random_crop=args.random_crop and aug,
+        color_jitter=args.color_jitter if aug else None,
+        randaug_layers=(args.randaug_layers
+                        if args.randaug is not None and aug else 0),
+        randaug_magnitude=args.randaug if args.randaug is not None else 9.0,
+        random_erase=args.random_erase if aug else None)
+
+    from vitx_torch.train.step import (TrainState, make_optimizer,
+                                       warmup_cosine)
+
+    lr_schedule = None
+    if args.schedule == "cosine":
+        lr_schedule = warmup_cosine(args.lr,
+                                    max(1, args.epochs * len(train_loader)),
+                                    args.warmup_steps)
+    optimizer = make_optimizer(
+        lr=args.lr, schedule=lr_schedule, weight_decay=args.weight_decay,
+        grad_clip=args.grad_clip, ema_decay=args.ema_decay,
+        wd_exclude=args.wd_exclude)
+    init_state = None
+    if args.init_from:
+        from vitx_torch.interop.jax_params import params_from_jax
+
+        # a bare --export-vit npz comes from an encoder that normalises its
+        # output (vitx/cli/train.py:493-498)
+        cfg = cfg.replace(final_norm=True)
+        params = params_from_jax(args.init_from, cfg, device=args.device)
+        init_state = TrainState(0, params, optimizer.init(params))
+    tcfg = TrainerConfig(
+        epochs=args.epochs, lr=args.lr, weight_decay=args.weight_decay,
+        wd_exclude=args.wd_exclude, grad_clip=args.grad_clip,
+        label_smoothing=args.label_smoothing, progress=args.progress,
+        checkpoint_dir=args.checkpoint_dir, log_dir=args.log_dir,
+        keep_checkpoints=args.keep_checkpoints, eval_every=args.eval_every,
+        log_every=args.log_every, ema_decay=args.ema_decay, seed=args.seed,
+        early_stop_patience=args.early_stop,
+        early_stop_min_delta=args.early_stop_delta,
+        async_checkpoint=args.async_checkpoint)
+    trainer = Trainer(cfg, tcfg, preprocess=pre, init_state=init_state,
+                      optimizer=optimizer, lr_schedule=lr_schedule,
+                      device=args.device)
+    return trainer, train_loader, eval_loader
+
+
+def main(argv=None):
+    parser = build_argparser()
+    args = parser.parse_args(argv)
+    trainer, train_loader, eval_loader = build_trainer(args, parser)
+    try:
+        history = trainer.fit(train_loader, eval_loader)
+    except NonFiniteLossError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    if history:
+        print(json.dumps({k: v for k, v in history[-1].items()
+                          if isinstance(v, (int, float, str))}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,5 +1,10 @@
-"""Datasets of the port (numpy only, as in ``vitx.data``)."""
+"""Datasets, loaders and device-side preprocessing of the port."""
 
+from vitx_torch.data.device_cache import DeviceBatchLoader
+from vitx_torch.data.loader import BatchLoader
+from vitx_torch.data.pipeline import make_preprocess
+from vitx_torch.data.procedural import ProceduralShapes
 from vitx_torch.data.synthetic import SyntheticDataset
 
-__all__ = ["SyntheticDataset"]
+__all__ = ["BatchLoader", "DeviceBatchLoader", "ProceduralShapes",
+           "SyntheticDataset", "make_preprocess"]

@@ -5,8 +5,8 @@ is an oriented sinusoidal grating with a class-dependent frequency plus
 seeded noise. numpy only, from ``default_rng(seed)`` for the labels and
 ``default_rng((seed, i))`` for example i, so for a seed it gives the same
 uint8 images and labels as vitx's and both packages train on the same
-batches. (vitx's ``cache`` option and class-name tables have no caller in
-the port yet.)
+batches, with vitx's class names (``class_0``, ...). (vitx's ``cache``
+option has no caller in the port yet.)
 """
 
 from __future__ import annotations
@@ -26,6 +26,8 @@ class SyntheticDataset:
         rng = np.random.default_rng(seed)
         self.labels = rng.integers(0, num_classes,
                                    size=num_examples).astype(np.int32)
+        self.classes = [f"class_{i}" for i in range(num_classes)]
+        self.class_encoding = dict(enumerate(self.classes))
 
     def __len__(self):
         return len(self.labels)

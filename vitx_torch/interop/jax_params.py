@@ -40,8 +40,9 @@ def _put(tree, path, leaf):
 
 
 def _leaf(arr, cfg: ViTConfig, dev):
-    return torch.from_numpy(np.asarray(arr, np.float32)).to(
-        cfg.pdtype()).to(dev)
+    # a copy: the train step updates its params in place, and the caller's
+    # arrays must not change with them
+    return torch.tensor(np.asarray(arr, np.float32)).to(cfg.pdtype()).to(dev)
 
 
 def _resized_pos_embed(saved: np.ndarray, cfg: ViTConfig):

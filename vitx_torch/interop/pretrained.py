@@ -10,7 +10,8 @@ fine-tune at 384² or 512² from a 224² checkpoint.
 its triangle kernel widens by the scale. ``F.interpolate`` does the same
 only with ``antialias=True`` (without it, a 24 -> 14 shrink lands up to
 2.1 away from vitx's table); upsampling is plain bilinear with half-pixel
-centres in both. The resize runs in fp32.
+centres in both. The resize runs in fp32. ``resize_bilinear`` is the
+same resize on NHWC images.
 """
 
 from __future__ import annotations
@@ -19,6 +20,15 @@ import torch
 import torch.nn.functional as F
 
 from vitx_torch.core.config import ViTConfig
+
+
+def resize_bilinear(x, size) -> torch.Tensor:
+    """(B, H, W, C) -> (B, size[0], size[1], C) as ``jax.image.resize(...,
+    "bilinear")`` computes it (antialiased when shrinking), in ``x``'s
+    dtype; the positional grid's resize and the eval images' share it."""
+    y = F.interpolate(x.permute(0, 3, 1, 2), size=tuple(size),
+                      mode="bilinear", align_corners=False, antialias=True)
+    return y.permute(0, 2, 3, 1)
 
 
 def resize_pos_embed(params: dict, cfg_from: ViTConfig,
@@ -31,10 +41,7 @@ def resize_pos_embed(params: dict, cfg_from: ViTConfig,
     g_from, g_to = cfg_from.grid_size, cfg_to.grid_size
     E = pe.shape[-1]
     grid = pe[:, n_prefix:].float().reshape(1, g_from, g_from, E)
-    grid = F.interpolate(grid.permute(0, 3, 1, 2), size=(g_to, g_to),
-                         mode="bilinear", align_corners=False,
-                         antialias=True)
-    grid = grid.permute(0, 2, 3, 1).reshape(1, g_to * g_to, E)
+    grid = resize_bilinear(grid, (g_to, g_to)).reshape(1, g_to * g_to, E)
     out = dict(params)
     out["pos_embed"] = torch.cat([pe[:, :n_prefix], grid.to(pe.dtype)],
                                  dim=1)

@@ -20,7 +20,6 @@ import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from pathlib import Path
 
 import numpy as np
 import torch
@@ -289,34 +288,19 @@ class InferenceServer:
             item.event.set()
 
 
-# artifact kinds of vitx.serve.load_server that the port cannot read yet
-_NOT_PORTED = (
-    (".quant.npz", "int8 .quant.npz artifacts", "A11"),
-    (".stablehlo", ".stablehlo deployment artifacts", "A11"),
-    (".pt", "reference .pt checkpoints", "A14"),
-)
-
-
 def load_server(checkpoint, cfg: ViTConfig, *, device="cuda",
                 **kw) -> InferenceServer:
-    """A server from ``None`` (fresh parameters, seed 0) or a bare vitx
-    params ``.npz`` (``vitx.cli.pretrain --export-vit``). The other
-    artifact kinds of ``vitx.serve.load_server`` raise, naming the ROADMAP
-    item that brings each."""
-    from vitx_torch.interop.jax_params import params_from_jax
+    """A server from ``None`` (fresh parameters, seed 0), a vitx checkpoint
+    directory or ``{epoch}.ckpt`` (the EMA shadow where the run kept one)
+    or a bare params ``.npz`` (``vitx.cli.pretrain --export-vit``), by the
+    eval CLI's loading rule (``train.checkpoint.load_artifact_params``).
+    The other artifact kinds of ``vitx.serve.load_server`` raise, naming
+    the ROADMAP item that brings each; orbax directories need JAX."""
+    from vitx_torch.train.checkpoint import load_artifact_params
 
     dev = resolve_device(device)
     if checkpoint is None:
-        return InferenceServer(init_params(0, cfg, device=dev), cfg,
-                               device=dev, **kw)
-    name = Path(checkpoint).name
-    for suffix, what, item in _NOT_PORTED:
-        if name.endswith(suffix):
-            raise NotImplementedError(
-                f"{what} are not readable by vitx_torch yet (ROADMAP {item})")
-    if name.endswith(".npz"):
-        return InferenceServer(params_from_jax(checkpoint, cfg, device=dev),
-                               cfg, device=dev, **kw)
-    raise NotImplementedError(
-        f"{checkpoint}: vitx .ckpt / orbax checkpoints are not readable by "
-        f"vitx_torch yet (ROADMAP A3); export a bare params .npz instead")
+        params = init_params(0, cfg, device=dev)
+    else:
+        params, _ = load_artifact_params(checkpoint, cfg, device=dev)
+    return InferenceServer(params, cfg, device=dev, **kw)

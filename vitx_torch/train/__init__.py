@@ -5,6 +5,7 @@ from vitx_torch.train.step import (
     create_train_state,
     cross_entropy_loss,
     eval_step,
+    get_ema_params,
     make_eval_step,
     make_optimizer,
     make_train_step,
@@ -17,6 +18,7 @@ __all__ = [
     "create_train_state",
     "cross_entropy_loss",
     "eval_step",
+    "get_ema_params",
     "make_eval_step",
     "make_optimizer",
     "make_train_step",

@@ -1,0 +1,415 @@
+"""vitx's ``.ckpt`` checkpoints, written and read without JAX.
+
+The counterpart of the npz half of ``vitx/train/checkpoint.py``: one file
+per epoch, ``{epoch}.ckpt``, newest = the largest integer stem. A file is
+an npz of ``leaf_{i}`` arrays plus ``__meta__`` (JSON as uint8 bytes). The
+leaves are vitx's ``TrainState(step, params, opt_state)`` in
+``jax.tree_util.tree_flatten`` order, which for the AdamW chains vitx's
+``make_optimizer`` builds (clipping, optax's adamw with a constant lr or a
+schedule, masked weight decay or not, the EMA link last) is:
+
+    step, params..., adam count, mu..., nu..., [schedule count], [ema...]
+
+with every tree's leaves in sorted-key order (``leaves``), the counts and
+the step int32 scalars, everything else fp32. Clipping and the weight-decay
+mask keep no leaves. A port state is an ``AdamWState``: its one count
+stands for both of vitx's counts, which no chain of the port lets differ.
+``tests/test_torch_checkpoint.py`` derives the order from vitx's own
+flatten for each chain and round-trips files both ways.
+
+Writes are atomic (a temporary file, then a rename); ``keep`` prunes to
+the newest files, never the ``protect``ed epoch; ``restore_latest``
+quarantines an unreadable file as ``<name>.corrupt`` and tries the epoch
+before. vitx's orbax directories (``{epoch}.orbax``) are listed but not
+read: they need the JAX stack.
+"""
+
+from __future__ import annotations
+
+import json
+import pathlib
+import re
+import threading
+import warnings
+import zipfile
+
+import numpy as np
+import torch
+
+from vitx_torch.core.config import ViTConfig
+from vitx_torch.core.device import resolve_device
+from vitx_torch.train.step import AdamWState, TrainState, leaves
+
+_STEM_RE = re.compile(r"^(\d+)$")
+SUFFIX = ".ckpt"
+ORBAX_SUFFIX = ".orbax"
+# what reading a torn or foreign file raises
+_UNREADABLE = (zipfile.BadZipFile, OSError, EOFError, ValueError,
+               json.JSONDecodeError)
+
+
+def _orbax_error(path) -> NotImplementedError:
+    return NotImplementedError(
+        f"{path}: orbax checkpoints need the JAX stack (vitx); vitx_torch "
+        f"reads and writes the npz .ckpt format only")
+
+
+def state_leaves(state: TrainState, schedule: bool) -> list:
+    """The leaves of ``state`` in vitx's checkpoint order (module
+    docstring); ``schedule``: the chain has an lr schedule, whose count
+    leaf follows nu."""
+    opt = state.opt_state
+    out = [state.step, *leaves(state.params), opt.count, *leaves(opt.mu),
+           *leaves(opt.nu)]
+    if schedule:
+        out.append(opt.count)
+    if opt.ema is not None:
+        out += leaves(opt.ema)
+    return out
+
+
+def _host(leaf) -> np.ndarray:
+    if torch.is_tensor(leaf):
+        return leaf.detach().cpu().numpy()
+    if isinstance(leaf, (int, np.integer)):
+        return np.asarray(leaf, np.int32)
+    return np.asarray(leaf)
+
+
+def snapshot(state: TrainState, schedule: bool) -> list:
+    """The state's leaves copied to host numpy arrays (int32 step and
+    counts): what a save writes, taken before the next step changes the
+    tensors in place."""
+    return [_host(x) for x in state_leaves(state, schedule)]
+
+
+def _ckpt_path(ckpt_dir, epoch: int) -> pathlib.Path:
+    ckpt_dir = pathlib.Path(ckpt_dir)
+    orbax = ckpt_dir / f"{epoch}{ORBAX_SUFFIX}"
+    return orbax if orbax.is_dir() else ckpt_dir / f"{epoch}{SUFFIX}"
+
+
+def save_checkpoint(ckpt_dir, arrays: list, epoch: int,
+                    meta: dict | None = None, keep: int | None = None,
+                    protect: int | None = None) -> pathlib.Path:
+    """Write ``{epoch}.ckpt`` from ``arrays`` (``snapshot``'s list) and
+    ``meta`` (JSON-serialisable; ``epoch`` is added), atomically. ``keep``:
+    then delete all but the newest ``keep`` checkpoints, except the epoch
+    ``protect``."""
+    ckpt_dir = pathlib.Path(ckpt_dir)
+    ckpt_dir.mkdir(parents=True, exist_ok=True)
+    meta = dict(meta or {}, epoch=epoch)
+    payload = {"__meta__": np.frombuffer(json.dumps(meta).encode(),
+                                         dtype=np.uint8)}
+    payload.update({f"leaf_{i}": np.asarray(a) for i, a in enumerate(arrays)})
+    path = ckpt_dir / f"{epoch}{SUFFIX}"
+    tmp = path.with_suffix(".tmp.npz")
+    with open(tmp, "wb") as f:
+        np.savez(f, **payload)
+    tmp.replace(path)
+    if keep is not None:
+        for old in list_checkpoints(ckpt_dir)[:-keep]:
+            if old == protect:
+                continue
+            stale = _ckpt_path(ckpt_dir, old)
+            if stale.is_dir():
+                import shutil
+
+                shutil.rmtree(stale)
+            else:
+                stale.unlink(missing_ok=True)
+    return path
+
+
+class AsyncCheckpointWriter:
+    """``save_checkpoint`` on a background thread, one save in flight: a
+    second ``save`` waits for the first. The caller hands over host arrays
+    (``snapshot``). ``wait()`` drains the writer and re-raises its error;
+    call it before exit."""
+
+    def __init__(self):
+        self._thread = None
+        self._exc = None
+
+    def save(self, ckpt_dir, arrays: list, epoch: int, **kw):
+        self.wait()
+
+        def run():
+            try:
+                save_checkpoint(ckpt_dir, arrays, epoch, **kw)
+            except BaseException as e:  # noqa: BLE001 -- re-raised in wait()
+                self._exc = e
+
+        self._thread = threading.Thread(
+            target=run, name=f"ckpt-writer-{epoch}", daemon=True)
+        self._thread.start()
+
+    def wait(self):
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._exc is not None:
+            exc, self._exc = self._exc, None
+            raise exc
+
+
+def list_checkpoints(ckpt_dir) -> list[int]:
+    """The epochs with a ``{epoch}.ckpt`` file or ``{epoch}.orbax``
+    directory, ascending."""
+    ckpt_dir = pathlib.Path(ckpt_dir)
+    if not ckpt_dir.is_dir():
+        return []
+    out = set()
+    for p in ckpt_dir.glob(f"*{SUFFIX}"):
+        if _STEM_RE.match(p.stem):
+            out.add(int(p.stem))
+    for p in ckpt_dir.glob(f"*{ORBAX_SUFFIX}"):
+        if _STEM_RE.match(p.stem) and p.is_dir():
+            out.add(int(p.stem))
+    return sorted(out)
+
+
+def find_latest(ckpt_dir) -> int | None:
+    """The newest epoch in the directory, or None."""
+    found = list_checkpoints(ckpt_dir)
+    return found[-1] if found else None
+
+
+def _read_meta(path) -> dict:
+    path = pathlib.Path(path)
+    if path.is_dir():
+        raise _orbax_error(path)
+    with np.load(path) as z:
+        return json.loads(bytes(z["__meta__"]).decode())
+
+
+def _newest_readable(ckpt_dir):
+    """(path, meta) of the newest readable checkpoint, skipping unreadable
+    ones with a warning and touching nothing, or (None, None)."""
+    for epoch in reversed(list_checkpoints(ckpt_dir)):
+        path = _ckpt_path(ckpt_dir, epoch)
+        try:
+            return path, _read_meta(path)
+        except (KeyError, *_UNREADABLE) as e:
+            warnings.warn(f"checkpoint {path} is unreadable "
+                          f"({type(e).__name__}); skipping")
+    return None, None
+
+
+def peek_meta(path_or_dir):
+    """The meta of a ``.ckpt`` file, or of the newest readable one in a
+    directory, without a template state; None when there is none."""
+    p = pathlib.Path(path_or_dir)
+    if p.suffix == ORBAX_SUFFIX:
+        raise _orbax_error(p)
+    if p.is_file():
+        try:
+            return _read_meta(p)
+        except (KeyError, *_UNREADABLE):
+            return None
+    return _newest_readable(p)[1]
+
+
+def _read(path):
+    """(meta, leaf arrays) of a ``.ckpt`` file; a torn or foreign file
+    raises one of ``_UNREADABLE`` (or ``KeyError`` without ``__meta__``)."""
+    path = pathlib.Path(path)
+    if path.is_dir():
+        raise _orbax_error(path)
+    with np.load(path) as z:
+        meta = json.loads(bytes(z["__meta__"]).decode())
+        n = sum(1 for k in z.files if k.startswith("leaf_"))
+        return meta, [z[f"leaf_{i}"] for i in range(n)]
+
+
+def _fill(template: TrainState, arrays: list, schedule: bool, path):
+    """``arrays`` in ``template``'s structure: new tensors of its dtypes on
+    its devices. Raises ``KeyError`` on another leaf count and
+    ``ValueError`` on another shape: another model or optimizer chain."""
+    tmpl = state_leaves(template, schedule)
+    if len(arrays) != len(tmpl):
+        raise KeyError(f"{path} holds {len(arrays)} leaves, the template "
+                       f"{len(tmpl)}: another model or optimizer chain")
+    for i, (a, t) in enumerate(zip(arrays, tmpl)):
+        shape = tuple(t.shape) if torch.is_tensor(t) else ()
+        if a.shape != shape:
+            raise ValueError(f"{path}: leaf_{i} has shape {a.shape}, the "
+                             f"template {shape}")
+    it = iter(arrays)
+
+    def take_tree(tree):
+        if isinstance(tree, dict):
+            return {k: take_tree(tree[k]) for k in sorted(tree)}
+        return torch.from_numpy(np.asarray(next(it))).to(
+            device=tree.device, dtype=tree.dtype)
+
+    opt = template.opt_state
+    step = int(next(it))
+    params = take_tree(template.params)
+    count = int(next(it))
+    mu, nu = take_tree(opt.mu), take_tree(opt.nu)
+    if schedule and int(next(it)) != count:
+        raise ValueError(f"{path}: the schedule's count differs from "
+                         f"Adam's (gradient accumulation is not ported, "
+                         f"ROADMAP A12)")
+    ema = take_tree(opt.ema) if opt.ema is not None else None
+    return TrainState(step, params, AdamWState(count, mu, nu, ema))
+
+
+def restore_checkpoint(path, template: TrainState, schedule: bool):
+    """Load ``path`` into ``template``'s structure (its tensors are
+    replaced, not written) -> (state, meta): the leaves cast to the
+    template's dtypes on its devices; the two counts of a scheduled chain
+    must agree."""
+    meta, arrays = _read(path)
+    return _fill(template, arrays, schedule, path), meta
+
+
+def restore_latest(ckpt_dir, template: TrainState, schedule: bool):
+    """Resume from the newest checkpoint -> (state, meta), or (template,
+    None) when there is none. A file that cannot be read is quarantined as
+    ``<name>.corrupt`` and the previous epoch tried; one that reads but
+    does not fit the template raises: that is another model or optimizer,
+    not corruption."""
+    for epoch in reversed(list_checkpoints(ckpt_dir)):
+        path = _ckpt_path(ckpt_dir, epoch)
+        try:
+            meta, arrays = _read(path)
+        except _UNREADABLE as e:
+            quarantine = path.with_name(path.name + ".corrupt")
+            warnings.warn(
+                f"checkpoint {path} is unreadable ({type(e).__name__}: {e});"
+                f" quarantined to {quarantine.name}, trying epoch {epoch - 1}")
+            try:
+                path.replace(quarantine)
+            except OSError:
+                pass
+            continue
+        return _fill(template, arrays, schedule, path), meta
+    return template, None
+
+
+def _params_template(cfg: ViTConfig, device):
+    from vitx_torch.nn.vit import param_spec
+
+    def build(spec):
+        return {k: build(v) if isinstance(v, dict) else
+                torch.empty(v[0], dtype=cfg.pdtype(), device=device)
+                for k, v in spec.items()}
+    return build(param_spec(cfg))
+
+
+def _unported_meta(meta: dict) -> None:
+    if meta.get("optimizer", "adamw") != "adamw":
+        raise NotImplementedError(
+            f"checkpoints of optimizer={meta['optimizer']!r} are not "
+            f"readable by vitx_torch yet (ROADMAP A12)")
+    for key, what in (("accum_steps", "gradient accumulation"),
+                      ("train_filter", "frozen-parameter runs"),
+                      ("loss_type", "multi-label (bce) runs")):
+        if meta.get(key) not in (None, 1):
+            raise NotImplementedError(
+                f"checkpoints of {what} ({key}={meta[key]!r}) are not "
+                f"readable by vitx_torch yet (ROADMAP A12)")
+
+
+def restore_eval_params(path_or_dir, cfg: ViTConfig, device="cuda"):
+    """-> (params, meta) for evaluation or serving: the EMA shadow when the
+    run kept one, else the live params; (None, None) when nothing is
+    there (``vitx/train/checkpoint.py:289-369``). A directory gives its
+    newest readable checkpoint, touching nothing. Where the meta omits
+    ``ema_decay`` or ``schedule``, the leaf count decides, as in vitx: the
+    EMA adds one leaf per param leaf, a schedule one count."""
+    dev = resolve_device(device)
+    path = pathlib.Path(path_or_dir)
+    if not path.exists():
+        return None, None
+    if path.suffix == ORBAX_SUFFIX:
+        raise _orbax_error(path)
+    if path.is_dir():
+        path, meta = _newest_readable(path)
+        if path is None:
+            return None, None
+    else:
+        meta = _read_meta(path)
+    _unported_meta(meta)
+    params = _params_template(cfg, dev)
+    n_params = len(leaves(params))
+    has_ema = meta.get("ema_decay") is not None
+    has_schedule = bool(meta.get("schedule"))
+    if not has_ema or not has_schedule:
+        with np.load(path) as z:
+            n_saved = sum(1 for k in z.files if k.startswith("leaf_"))
+        extra = n_saved - (3 * n_params + 2)
+        if extra > 0:
+            has_ema = has_ema or extra >= n_params
+            has_schedule = has_schedule or extra % n_params == 1
+    # the template's tensors give only shapes, dtypes and the device
+    template = TrainState(0, params, AdamWState(
+        0, params, params, params if has_ema else None))
+    state, meta = restore_checkpoint(path, template, has_schedule)
+    ema = state.opt_state.ema
+    return (ema if ema is not None else state.params), meta
+
+
+_NOT_PORTED_ARTIFACTS = (
+    (".quant.npz", "int8 .quant.npz artifacts", "A11"),
+    (".stablehlo", ".stablehlo deployment artifacts", "A11"),
+    (".pt", "reference .pt checkpoints", "A14"),
+)
+
+
+def _refuse_unported(path: pathlib.Path) -> None:
+    for suffix, what, item in _NOT_PORTED_ARTIFACTS:
+        if path.name.endswith(suffix):
+            raise NotImplementedError(
+                f"{what} are not readable by vitx_torch yet (ROADMAP {item})")
+    if path.suffix == ORBAX_SUFFIX:
+        raise _orbax_error(path)
+
+
+def resolve_artifact_config(checkpoint, config_json=None, preset="tiny",
+                            tome_r=0) -> ViTConfig:
+    """The config rule eval and serve share
+    (``vitx/train/checkpoint.py:445-490``): an explicit ``config_json``
+    wins, then the config a checkpoint's meta records (with the train-time
+    ToMe knobs dropped: merging at inference is the caller's ``tome_r``),
+    then the preset. ``tome_r`` (a ``parse_tome_r`` value) applies last."""
+    from vitx_torch.core.config import get_config
+    from vitx_torch.nn.tome import aligned_schedule
+
+    if config_json:
+        with open(config_json) as f:
+            cfg = ViTConfig.from_json(f.read())
+    else:
+        cfg = get_config(preset)
+    if checkpoint and not config_json:
+        p = pathlib.Path(checkpoint)
+        _refuse_unported(p)
+        saved = None if p.suffix == ".npz" else peek_meta(p)
+        if saved and "config" in saved:
+            cfg = ViTConfig.from_json(json.dumps(saved["config"]))
+            if cfg.tome_r or cfg.tome_train:
+                cfg = cfg.replace(tome_r=0, tome_train=False)
+    if isinstance(tome_r, str):
+        tome_r = aligned_schedule(cfg, target_tokens=int(tome_r[2:]))
+    return cfg.replace(tome_r=tome_r) if tome_r else cfg
+
+
+def load_artifact_params(checkpoint, cfg: ViTConfig, device="cuda"):
+    """-> (params, meta) from a checkpoint directory or ``{epoch}.ckpt``
+    (``restore_eval_params``: the EMA shadow where there is one) or a bare
+    params ``.npz`` (``params_from_jax``); raises ``FileNotFoundError``
+    when nothing is there and ``NotImplementedError`` for the artifact
+    kinds the port cannot read yet (``vitx/train/checkpoint.py:
+    493-528``)."""
+    from vitx_torch.interop.jax_params import params_from_jax
+
+    p = pathlib.Path(checkpoint)
+    _refuse_unported(p)
+    if p.suffix == ".npz" and p.is_file():
+        return params_from_jax(p, cfg, device=device), {"epoch": -1}
+    params, meta = restore_eval_params(p, cfg, device=device)
+    if meta is None:
+        raise FileNotFoundError(f"no checkpoint under {p}")
+    return params, meta

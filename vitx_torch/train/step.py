@@ -46,10 +46,13 @@ class TrainState(NamedTuple):
 
 class AdamWState(NamedTuple):
     """optax's ``ScaleByAdamState`` / vitx's ``FusedAdamWState``: steps
-    applied, and fp32 first and second moments shaped like the params."""
+    applied, and fp32 first and second moments shaped like the params;
+    with ``ema_decay``, ``ema`` holds vitx's ``EmaState`` shadow of the
+    params (``vitx/train/step.py:42-69``), else None."""
     count: int
     mu: dict
     nu: dict
+    ema: dict | None = None
 
 
 def leaves(tree) -> list:
@@ -65,6 +68,32 @@ def tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     return fn(tree)
+
+
+# The leaves weight decay touches under ``wd_exclude``: the matrix weights
+# (``vitx/train/step.py:157-172``, timm's no-decay rule). Biases, norm
+# scales, LayerScale gains and token / positional embeddings are exempt.
+WD_DECAY_LEAVES = frozenset({
+    "kernel", "wqkv", "wo", "w1", "w2", "w3", "w",
+    "wq", "wk", "wv", "wo_p", "mw1", "mw2", "ew1", "ew2", "phi",
+})
+
+
+def weight_decay_mask(params) -> list:
+    """One bool per leaf of ``leaves(params)``: True where weight decay
+    applies under ``wd_exclude`` (vitx's ``weight_decay_mask``)."""
+    def names(tree, last=""):
+        if isinstance(tree, dict):
+            return [n for k in sorted(tree) for n in names(tree[k], k)]
+        return [last]
+    return [n in WD_DECAY_LEAVES or n.startswith("lora_")
+            for n in names(params)]
+
+
+def get_ema_params(opt_state):
+    """The EMA shadow params of an ``AdamWState``, or None when the
+    optimizer keeps none (``vitx/train/step.py:139-146``)."""
+    return getattr(opt_state, "ema", None)
 
 
 def global_norm(tensors) -> torch.Tensor:
@@ -83,10 +112,14 @@ class AdamW:
 
         p <- p - lr * (mu_hat / (sqrt(nu_hat) + eps) + wd * p)
 
-    b1 0.9, b2 0.999, eps 1e-8, eps_root 0, decay on every leaf; the
+    b1 0.9, b2 0.999, eps 1e-8, eps_root 0, decay on every leaf (on the
+    matrix weights only with ``wd_exclude``, ``weight_decay_mask``); the
     learning rate (or schedule) is read at the pre-increment count, the bias
     corrections at the incremented one. ``grad_clip`` first scales the
-    gradients to that global norm when they exceed it. ``fused`` updates
+    gradients to that global norm when they exceed it. ``ema_decay`` keeps
+    an fp32 exponential moving average of the updated params in the state,
+    last in the chain as vitx's ``params_ema``: ema <- decay * ema +
+    (1 - decay) * p. ``fused`` updates
     every leaf in one in-place pass, one launch a step per gradient dtype
     (B12, ``fused_adamw_multi_``), with the order of operations of
     ``vitx/kernels/adamw.py:46-53``; otherwise the same
@@ -98,15 +131,23 @@ class AdamW:
 
     def __init__(self, lr: float = 1e-4, weight_decay: float = 1e-4,
                  schedule: Callable | None = None,
-                 grad_clip: float | None = None, fused: bool = False):
+                 grad_clip: float | None = None, fused: bool = False,
+                 ema_decay: float | None = None, wd_exclude: bool = False):
+        if fused and (ema_decay is not None or wd_exclude):
+            raise ValueError("the fused update (B12) takes neither "
+                             "ema_decay nor wd_exclude")
         self.lr, self.weight_decay = lr, weight_decay
         self.schedule, self.grad_clip, self.fused = schedule, grad_clip, fused
+        self.ema_decay, self.wd_exclude = ema_decay, wd_exclude
 
     def init(self, params) -> AdamWState:
         zeros = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
                      params)
+        ema = None
+        if self.ema_decay is not None:
+            ema = tree_map(lambda p: p.detach().float().clone(), params)
         return AdamWState(count=0, mu=zeros,
-                          nu=tree_map(torch.clone, zeros))
+                          nu=tree_map(torch.clone, zeros), ema=ema)
 
     def learning_rate(self, count: int) -> float:
         """The step size at ``count`` steps applied, as fp32."""
@@ -135,12 +176,21 @@ class AdamW:
         if self.fused:
             fused_adamw_multi_(pl, gl, ml, nl, **kw)
         else:
-            for p, g, mu, nu in zip(pl, gl, ml, nl):
-                p2, mu2, nu2 = adamw_plain(p, g, mu, nu, **kw)
+            decays = (weight_decay_mask(params) if self.wd_exclude
+                      else [True] * len(pl))
+            for p, g, mu, nu, dec in zip(pl, gl, ml, nl, decays):
+                p2, mu2, nu2 = adamw_plain(
+                    p, g, mu, nu, **dict(kw, wd=kw["wd"] if dec else 0.0))
                 p.copy_(p2)
                 mu.copy_(mu2)
                 nu.copy_(nu2)
-        return params, AdamWState(count=count, mu=state.mu, nu=state.nu)
+        if state.ema is not None:
+            f32 = np.float32
+            d, rest = float(f32(self.ema_decay)), float(
+                f32(1.0 - self.ema_decay))
+            for e, p in zip(leaves(state.ema), pl):
+                e.copy_(e * d + p.float() * rest)
+        return params, state._replace(count=count)
 
 
 def make_optimizer(lr: float = 1e-4, weight_decay: float = 1e-4,
@@ -152,12 +202,14 @@ def make_optimizer(lr: float = 1e-4, weight_decay: float = 1e-4,
                    mu_dtype: str | None = None,
                    wd_exclude: bool = False) -> AdamW:
     """AdamW as vitx builds it (``vitx/train/step.py:175-287``), with the
-    same defaults: lr 1e-4, weight decay 1e-4 on every leaf, an optional
-    ``schedule`` (e.g. ``warmup_cosine``) and ``grad_clip`` (global norm).
-    ``fused=True`` routes the update to B12 under vitx's conditions
-    (``step.py:225-228``), which hold whenever the knobs below are at their
-    defaults; ``"auto"`` and False keep the plain update. The other
-    optimizers and knobs are not ported yet and raise."""
+    same defaults: lr 1e-4, weight decay 1e-4 on every leaf (the matrix
+    weights only with ``wd_exclude``), an optional ``schedule`` (e.g.
+    ``warmup_cosine``), ``grad_clip`` (global norm) and ``ema_decay`` (the
+    params' EMA in the state). ``fused=True`` routes the update to B12
+    under vitx's conditions (``step.py:225-228``): every knob below at its
+    default, no EMA and no ``wd_exclude``; otherwise, and with ``"auto"``
+    or False, the plain update runs. The other optimizers and knobs are
+    not ported yet and raise."""
     if optimizer not in OPTIMIZERS:
         raise ValueError(f"unknown optimizer {optimizer!r}; "
                          f"have {', '.join(OPTIMIZERS)}")
@@ -166,18 +218,18 @@ def make_optimizer(lr: float = 1e-4, weight_decay: float = 1e-4,
     unported = (
         (optimizer != "adamw", f"optimizer={optimizer!r}"),
         (accum_steps > 1, "gradient accumulation (accum_steps > 1)"),
-        (ema_decay is not None, "the parameter EMA (ema_decay)"),
         (llrd is not None or llrd_depth is not None,
          "layer-wise lr decay (llrd)"),
         (trainable not in (None, "all"), f"trainable={trainable!r}"),
         (mu_dtype is not None, "mu_dtype"),
-        (wd_exclude, "the weight-decay exclusion mask (wd_exclude)"),
     )
     for cond, what in unported:
         if cond:
             raise _not_ported(what)
+    use_fused = fused is True and ema_decay is None and not wd_exclude
     return AdamW(lr=lr, weight_decay=weight_decay, schedule=schedule,
-                 grad_clip=grad_clip, fused=fused is True)
+                 grad_clip=grad_clip, fused=use_fused, ema_decay=ema_decay,
+                 wd_exclude=wd_exclude)
 
 
 def warmup_cosine(lr: float, total_steps: int, warmup_steps: int = 0,
@@ -354,7 +406,7 @@ def eval_step(params, batch, *, cfg: ViTConfig, device="cuda"):
         # padded rows go to (pred 0, label 0) and are subtracted there
         mask = batch["mask"].long()
         cm = confusion_matrix(preds * mask, labels * mask, C)
-        cm[0, 0] -= int((1 - mask).sum())
+        cm[0, 0] -= (1 - mask).sum().to(cm.dtype)
     else:
         cm = confusion_matrix(preds, labels, C)
     loss = cross_entropy_loss(logits, labels, batch.get("mask"))
