@@ -102,7 +102,14 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               64), (1, 12, 2048, 64) and, in float32, (32, 12, 1025, 64);
               the fused_layer_norm entries' backward (B11, through B3)
               against ln_bwd_plain on the 2-D view at (2, 1025, 768) and
-              (256, 197, 768); float32 and bfloat16.
+              (256, 197, 768); float32 and bfloat16. B8 under grad as the
+              recipe's ToMe-train step runs it (the kernel forward,
+              composed_tome's backward with B3 for its LayerNorm; x and
+              the weights requiring grad, the zero QKV bias and log_size
+              not, k_mean's cotangent zero) at (128, 197, 384) and
+              (128, 162, 384), 6 heads: in bf16 against composed_tome's
+              autograd on the card (GRAD_BF16_TOL), in float32 against
+              the CPU (1e-4); one B8 and one B3 launch a call.
 5. forward -- the base16 forward (depth 12, bf16) at batch 8 on the card
               against the port's plain forward on the CPU with the same
               weights (relative error < 0.05 on the logits); exactly 12 K1
@@ -184,8 +191,8 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               eval_step; (d) fused_add_layer_norm then fused_layer_norm
               at the fine-tune's tokens with their gradients, against
               the plain version, launches B10 1 + 1, B3 2.
-11. recipe -- main path 6, CONVERGENCE.md's ViT-S/16 recipe without
-              ToMe-train: (a) small16 at depth 2 in float32, card vs CPU
+11. recipe -- main paths 6-8, CONVERGENCE.md's ViT-S/16 recipe and its
+              two variants: (a) small16 at depth 2 in float32, card vs CPU
               from the same params: the first step as train (a) (gradients
               1e-4, params within param_gap's allowance), then two epochs
               of Trainer (cosine, EMA, wd_exclude, clipping, no
@@ -214,7 +221,21 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               epoch, the preprocessing's share of a step (CUDA events
               around preprocess and train_step over an epoch), the
               profiler's device busy share over the next epoch, launches
-              a step, eval img/s.
+              a step, eval img/s. (g) ToMe-train (--tome-r to128
+              --tome-train: (35, 34)) and (h) patch drop (--patch-drop
+              0.5: T 99), the flags of examples/convergence.py's VARIANTS,
+              each first as (a) at depth 2 (g: the merges' sources equal
+              on the first batch; h: the noise drawn alike on both
+              devices), then through vitx_torch.cli.train.main as (b),
+              3 epochs. Launches asserted: (g) per step B8 12 (sm90 and
+              sm90 attention 12), B3 25, K1, B2, K2, B12 0, per (merged)
+              eval batch B8 12 and K2 12; (h) as (b). Losses fall; the
+              .ckpt meta names the variant. (g) only: vitx_torch.cli.eval
+              on its .ckpt runs every token by default (K1 and K2 12 a
+              batch), its accuracy equal to direct eval_step calls, and
+              with --tome-r to128 merges (B8 and K2 12 a batch), its
+              accuracy the one the trainer logged; a server from the
+              .ckpt as (e). Then each variant's times as (f).
 12. times  -- CUDA-event medians: the base16 forward at batch 256 bf16
               (img/s), the train step at batch 128 bf16 (img/s), the
               large16_384 rollout forward at batch 32 bf16 (img/s), the
@@ -252,7 +273,13 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               cannot take. B12 has two rows over every leaf of the base16
               state: fused_adamw_, a launch per leaf, and
               fused_adamw_multi_, the train step's one launch, with the
-              former's time as was_ms.
+              former's time as was_ms. After the recipe, the rows take
+              more "shapes" at its variants' own: B8 at the ToMe-train
+              step's (128, 197, 384), K1 with its stash (the sm90 row) and
+              B2 at the patch-drop step's T 99 (small16, 6 heads); and a
+              block's attention half under grad at (128, 197) and (128,
+              128): B8 with its composed backward against K1 with its
+              stash then B2 and B3, forward and backward apart.
 
 Each main path runs with the kernels' launch counts set to 0 just before
 it and read just after. ``attention_bwd``, ``flash_attention`` and the
@@ -271,6 +298,7 @@ after editing a kernel); a subset never prints the ok line.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import statistics
 import subprocess
@@ -1512,6 +1540,51 @@ def check_training_kernels(B, T, E, H, dtype, tol, gtol, errs: dict):
               grads[1], gtol, **info)
 
 
+def check_tome_autograd(B, T, E, H, dtype, tol, errs: dict) -> None:
+    """B8 under grad as a ToMe-train step runs it: autograd through
+    ``fused_mha_block_tome`` (the kernel forward, ``composed_tome``'s
+    backward on autograd's thread, its LayerNorm's backward B3) with x and
+    the weights requiring grad, the zero QKV bias and log_size not, and
+    k_mean's cotangent zero (it feeds only the merge's selection). In bf16
+    against ``composed_tome``'s own autograd on the card (out within
+    BF16_TOL, gradients within ``tol``); in fp32 against the same on the
+    CPU (plain versions). One B8 and one B3 launch a call."""
+    from vitx_torch.kernels import (composed_tome, fused_mha_block_tome,
+                                    ln_bwd)
+
+    x, tm = tome_inputs(B, T, E, H, dtype, 80 + T)
+    tm = dict(tm, bqkv=torch.zeros_like(tm["bqkv"]))
+    names = ("x", "wqkv", "wo", "bo", "g", "b")
+    w_out = seeded((B, T, E), 81 + T, 0.1, dtype=dtype)
+    info = {"shape": [B, T, E], "heads": H, "dtype": str(dtype)}
+
+    def grads_of(fn, device):
+        ins = {k: (x if k == "x" else tm[k]).detach().to(device)
+               .requires_grad_() for k in names}
+        rest = {k: tm[k].to(device) for k in ("bqkv", "log_size")}
+        out, k_mean = fn(ins["x"], ins["wqkv"], rest["bqkv"], ins["wo"],
+                         ins["bo"], ins["g"], ins["b"], rest["log_size"])
+        loss = (out.float() * w_out.to(device).float()).sum()
+        return out.detach(), k_mean.detach(), torch.autograd.grad(
+            loss, list(ins.values()))
+
+    n8, n3 = fused_mha_block_tome.launches, ln_bwd.launches
+    out, k_mean, grads = grads_of(fused_mha_block_tome, "cuda")
+    torch.cuda.synchronize()
+    got = (fused_mha_block_tome.launches - n8, ln_bwd.launches - n3)
+    if got != (1, 1):
+        raise AssertionError(f"B8 autograd {info}: launches (B8, B3) {got}")
+    ref_dev = "cuda" if dtype == torch.bfloat16 else "cpu"
+    r_out, r_km, r_grads = grads_of(composed_tome, ref_dev)
+    against = ("composed_tome's autograd on the card"
+               if ref_dev == "cuda" else "the CPU's plain versions")
+    check("grad", f"fused_mha_block_tome forward (out, k_mean) vs "
+          f"{against}", (out, k_mean), (r_out, r_km),
+          BF16_TOL if dtype == torch.bfloat16 else FP32_TOL, **info)
+    check("grad", f"fused_mha_block_tome autograd.grad ({', '.join(names)}) "
+          f"vs {against}", grads, r_grads, tol, **info)
+
+
 def phase_grad(errs: dict):
     from vitx_torch.kernels import adamw_plain, fused_adamw_
 
@@ -1527,6 +1600,13 @@ def phase_grad(errs: dict):
     # through both blocks
     check_training_kernels(128, 197, 384, 6, torch.bfloat16, BF16_TOL,
                            GRAD_BF16_TOL, errs)
+    # the recipe's ToMe-train step: B8 under grad at its first two blocks'
+    # tokens ((35, 34) merges: T 197, then 162), in bf16 against the
+    # composed path's autograd, in fp32 against the CPU
+    for T in (197, 162):
+        check_tome_autograd(128, T, 384, 6, torch.bfloat16, GRAD_BF16_TOL,
+                            errs)
+        check_tome_autograd(128, T, 384, 6, torch.float32, FP32_TOL, errs)
     # B2 and B3 at Grad-CAM's large16_384 shapes: batch 1 (served) and 8
     for B in (1, 8):
         for dtype, tol in ((torch.float32, FP32_TOL),
@@ -1800,23 +1880,31 @@ def param_gap(gc, gh, pc, ph, lr: float, eps: float, names) -> dict:
             "elements": total}
 
 
-def check_step_card_vs_cpu(phase, part, cfg, card, host, batch, lr) -> None:
+def check_step_card_vs_cpu(phase, part, cfg, card, host, batch, lr,
+                           seed=None) -> None:
     """One fp32 train_step of ``cfg`` from the same params on the card and
     on the CPU (plain versions): the loss, grad_norm and the gradients of
     the step's loss agree to FP32_TOL of each leaf's largest; each param
-    within its ``param_gap`` allowance. The steps update both trees."""
+    within its ``param_gap`` allowance. The steps update both trees. With
+    ``seed``, the loss and the step each get a generator seeded with it
+    (patch dropout, under ``host_drawn_patch_noise``)."""
     from vitx_torch.train import TrainState, make_optimizer, train_step
     from vitx_torch.train.step import leaves, loss_fn, tree_map
 
     opt = make_optimizer(lr=lr)
     out = []
     for params, dev in ((card, "cuda"), (host, "cpu")):
+        def gen():
+            return (None if seed is None else
+                    torch.Generator(device=dev).manual_seed(seed))
+
         t0 = time.perf_counter()
         req = tree_map(lambda t: t.detach().requires_grad_(), params)
         b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
-        grads = torch.autograd.grad(loss_fn(req, b, cfg)[0], leaves(req))
+        grads = torch.autograd.grad(loss_fn(req, b, cfg, gen())[0],
+                                    leaves(req))
         state = TrainState(0, params, opt.init(params))
-        state, m = train_step(state, batch, cfg=cfg, optimizer=opt,
+        state, m = train_step(state, batch, gen(), cfg=cfg, optimizer=opt,
                               device=dev)
         out.append(([g.cpu() for g in grads], [t.cpu() for t in
                                                 leaves(state.params)],
@@ -2023,6 +2111,12 @@ RECIPE_ARGS = ["--preset", "small16", "--data", RECIPE_DATA,
                "--ema-decay", "0.999", "--early-stop", "10", "--seed", "0",
                "--log-every", "4"]
 RECIPE_EPOCHS, RECIPE_TRAIN, RECIPE_VAL = 3, 2048, 512
+# CONVERGENCE.md's two other variants of the recipe, with the flags of
+# examples/convergence.py:51-55 (VARIANTS), and the phase's part for each
+RECIPE_VARIANTS = {"tome": ("g", ["--tome-r", "to128", "--tome-train"]),
+                   "pdrop": ("h", ["--patch-drop", "0.5"])}
+# the recipe's main paths, by the name their launches are reported under
+RECIPE_PATHS = ("recipe", *(f"recipe_{v}" for v in RECIPE_VARIANTS))
 # recipe (a)'s params and EMA after 8 steps, card vs CPU, in units of the
 # peak lr: the bar tests/test_torch_train.py holds a trajectory to
 RECIPE_PARAM_BAR = 0.05
@@ -2077,8 +2171,16 @@ def recipe_step_launches(cfg, steps: int, eval_batches: int) -> dict:
     """A recipe run's launches: per train step K1 and B2 in every block
     (sm90 in bf16 at D 64) and B3 for both LayerNorms of every block and
     the reference head's; per eval batch K1 and K2 in every block; B12
-    never (the EMA and wd_exclude keep the plain update, vitx's rule)."""
+    never (the EMA and wd_exclude keep the plain update, vitx's rule).
+    Patch dropout changes the tokens, not the launches. Under
+    ``tome_train`` B8 takes K1's place in the step (its backward is the
+    composed path's, whose LayerNorm runs B3; no B2) and in the eval
+    batches, which merge."""
     b3 = 2 * cfg.depth + (cfg.head_type == "reference") + int(cfg.final_norm)
+    if cfg.tome_train:
+        return block_launches(
+            cfg, fused_mha_block_tome=cfg.depth * (steps + eval_batches),
+            fused_mlp_block=cfg.depth * eval_batches, ln_bwd=b3 * steps)
     return block_launches(
         cfg, fused_mha_block=cfg.depth * (steps + eval_batches),
         fused_mlp_block=cfg.depth * eval_batches,
@@ -2096,7 +2198,29 @@ class LossRecorder:
         return super()._flush(pending, writer)
 
 
-def recipe_card_vs_cpu(root: Path) -> None:
+@contextlib.contextmanager
+def host_drawn_patch_noise():
+    """Patch dropout's noise drawn on the CPU from the seed of the step's
+    generator, then moved to the tokens' device: the same kept tokens on
+    the card and on the CPU, whose generators draw different streams (the
+    trainer seeds each step's generator alike on every device)."""
+    import vitx_torch.nn.vit as tvit
+
+    orig = tvit._patch_drop
+
+    def drop(x, cfg, gen=None, noise=None):
+        host = torch.Generator().manual_seed(gen.initial_seed())
+        noise = torch.rand((x.shape[0], cfg.num_patches), generator=host)
+        return orig(x, cfg, noise=noise.to(x.device))
+
+    tvit._patch_drop = drop
+    try:
+        yield
+    finally:
+        tvit._patch_drop = orig
+
+
+def recipe_card_vs_cpu(root: Path, variant: str | None = None) -> None:
     """(a) small16 at depth 2, fp32, card against CPU (plain versions)
     from the same params: the first step as train (a) holds it
     (``check_step_card_vs_cpu``: gradients within FP32_TOL, params within
@@ -2107,16 +2231,26 @@ def recipe_card_vs_cpu(root: Path) -> None:
     ``param_gap`` bounds one Adam step from zero moments; past it the
     moments carry each step's gradient error into the next update, so the
     run is held as ``tests/test_torch_train.py`` holds a trajectory: in
-    units of the step size."""
+    units of the step size. ``variant`` "tome" trains through ToMe at the
+    recipe's (35, 34) schedule, its merges' sources first held equal on
+    the first batch; "pdrop" drops half the patches, the noise drawn alike
+    on both devices (``host_drawn_patch_noise``)."""
     import vitx_torch
     from vitx_torch.data import BatchLoader, ProceduralShapes, make_preprocess
+    from vitx_torch.nn.tome import aligned_schedule, encode_tome
     from vitx_torch.nn.vit import init_params, params_to
-    from vitx_torch.train import TrainState, make_optimizer, warmup_cosine
-    from vitx_torch.train.loop import Trainer, TrainerConfig
-    from vitx_torch.train.step import leaves, tree_map
+    from vitx_torch.train.step import tree_map
 
     cfg = vitx_torch.get_config("small16", depth=2, compute_dtype="float32",
                                 num_classes=10)
+    part = "a" if variant is None else RECIPE_VARIANTS[variant][0] + "/a"
+    what = f"{part}: small16 depth 2 fp32" + {
+        None: "", "tome": ", tome_train (35, 34)",
+        "pdrop": ", patch_drop 0.5"}[variant]
+    if variant == "tome":
+        cfg = cfg.replace(tome_r=aligned_schedule(cfg, 128), tome_train=True)
+    elif variant == "pdrop":
+        cfg = cfg.replace(patch_drop=0.5)
     train_ds = ProceduralShapes(num_examples=32, seed=0)
     val_ds = ProceduralShapes(num_examples=16, seed=1)
     host = init_params(1, cfg, device="cpu")
@@ -2126,9 +2260,37 @@ def recipe_card_vs_cpu(root: Path) -> None:
     first = next(iter(BatchLoader(train_ds, 8, shuffle=True, seed=0)))
     first["image"] = pre(torch.from_numpy(first["image"]), None,
                          train=False).numpy()
-    check_step_card_vs_cpu("recipe", "a: small16 depth 2 fp32, the first "
-                           "step, card vs CPU", cfg, params_to(host, "cuda"),
-                           tree_map(torch.clone, host), first, lr)
+    if variant == "tome":
+        with torch.no_grad():
+            src = [encode_tome(params_to(host, dev), torch.from_numpy(
+                first["image"]).to(dev), cfg, return_sources=True)[1].cpu()
+                for dev in ("cuda", "cpu")]
+        same = torch.equal(*src)
+        emit({"phase": "recipe", "part": f"{what}: the merges' sources on "
+              "the first batch, card vs CPU", "schedule": cfg.tome_r,
+              "equal": same})
+        if not same:
+            raise AssertionError(f"recipe {part}: the card merges other "
+                                 f"tokens than the CPU")
+    with host_drawn_patch_noise():
+        check_step_card_vs_cpu("recipe", f"{what}, the first step, card vs "
+                               "CPU", cfg, params_to(host, "cuda"),
+                               tree_map(torch.clone, host), first, lr,
+                               seed=0 if variant == "pdrop" else None)
+        recipe_trainers_card_vs_cpu(root, cfg, host, what, train_ds, val_ds,
+                                    pre, lr, steps)
+
+
+def recipe_trainers_card_vs_cpu(root, cfg, host, what, train_ds, val_ds,
+                                pre, lr, steps) -> None:
+    """Two epochs of the recipe's Trainer from ``host`` on the card and on
+    the CPU, held as ``recipe_card_vs_cpu`` says."""
+    from vitx_torch.data import BatchLoader
+    from vitx_torch.nn.vit import params_to
+    from vitx_torch.train import TrainState, make_optimizer, warmup_cosine
+    from vitx_torch.train.loop import Trainer, TrainerConfig
+    from vitx_torch.train.step import leaves
+
     sched = warmup_cosine(lr, steps, 2)
     runs = {}
     for dev in ("cuda", "cpu"):
@@ -2151,16 +2313,16 @@ def recipe_card_vs_cpu(root: Path) -> None:
     accs = [[h["val_accuracy"] for h in hist] for hist in (hc, hh)]
     names = leaf_names(host)
     gaps = {}
-    for what, a, b in (("params", card.state.params, cpu.state.params),
+    for tree, a, b in (("params", card.state.params, cpu.state.params),
                        ("ema", card.state.opt_state.ema,
                         cpu.state.opt_state.ema)):
         per_leaf = [float((x.cpu() - y).abs().max())
                     for x, y in zip(leaves(a), leaves(b))]
         i = int(np.argmax(per_leaf))
-        gaps[what] = {"max_abs": per_leaf[i], "leaf": names[i],
+        gaps[tree] = {"max_abs": per_leaf[i], "leaf": names[i],
                       "in_lr": per_leaf[i] / lr}
-    emit({"phase": "recipe", "part": "a: small16 depth 2 fp32, two epochs "
-          "of Trainer, card vs CPU", "steps": len(lc),
+    emit({"phase": "recipe", "part": f"{what}, two epochs of Trainer, "
+          "card vs CPU", "steps": len(lc),
           "loss_grad_norm_rel_err": step_err, "val_accuracy": accs,
           "losses_card": lc[:, 0].tolist(), "gaps": gaps,
           "param_bar": RECIPE_PARAM_BAR * lr, "tol": FP32_TOL,
@@ -2169,15 +2331,16 @@ def recipe_card_vs_cpu(root: Path) -> None:
             and accs[0] == accs[1]
             and all(g["max_abs"] <= RECIPE_PARAM_BAR * lr
                     for g in gaps.values())):
-        raise AssertionError(f"recipe (a): steps {step_err}, accs {accs}, "
-                             f"gaps {gaps}")
+        raise AssertionError(f"recipe {what}: steps {step_err}, accs "
+                             f"{accs}, gaps {gaps}")
 
 
-def recipe_times(args: list, cfg) -> None:
-    """(f) The recipe's times on this card: the preprocessing's share of a
-    step (CUDA events around ``preprocess`` and around ``train_step``, one
-    epoch), the profiler's device busy share over the next epoch, the
-    eval's img/s."""
+def recipe_times(args: list, cfg, what: str = "recipe") -> None:
+    """(f) The recipe's times on this card (``args``: the train CLI's, a
+    variant's flags included; ``cfg`` the config they train): the
+    preprocessing's share of a step (CUDA events around ``preprocess`` and
+    around ``train_step``, one epoch), the profiler's device busy share
+    over the next epoch, the eval's img/s."""
     import vitx_torch.cli.train as train_cli
 
     parser = train_cli.build_argparser()
@@ -2205,7 +2368,7 @@ def recipe_times(args: list, cfg) -> None:
     wall = time.perf_counter() - t0
     ms = {k: sum(s.elapsed_time(e) for s, e in v) for k, v in events.items()}
     tr.preprocess, tr.train_step = pre, step
-    busy_ms = profile_call("recipe train epoch (16 steps)",
+    busy_ms = profile_call(f"{what} train epoch (16 steps)",
                            lambda: tr._train_epoch(train_loader, 1, None),
                            top=16)
     t0 = time.perf_counter()
@@ -2216,8 +2379,9 @@ def recipe_times(args: list, cfg) -> None:
                 if v}
     per_eval = {k: v for k, v in recipe_step_launches(cfg, 0, 1).items()
                 if v}
-    emit({"phase": "times", "what": "recipe", "card": smi(),
-          "epoch_wall_s": wall, "steps": len(events["train_step"]),
+    emit({"phase": "times", "what": what, "card": smi(),
+          "epoch_wall_s": wall, "img_per_s": RECIPE_TRAIN / wall,
+          "steps": len(events["train_step"]),
           "preprocess_ms": ms["preprocess"],
           "train_step_ms": ms["train_step"],
           "preprocess_share": ms["preprocess"] / (ms["preprocess"]
@@ -2229,26 +2393,24 @@ def recipe_times(args: list, cfg) -> None:
 
 
 def phase_recipe() -> dict:
-    """Main path 6, CONVERGENCE.md's ViT-S/16 recipe without ToMe-train:
+    """Main path 6, CONVERGENCE.md's ViT-S/16 recipe and its variants:
     (a) card vs CPU at depth 2 (``recipe_card_vs_cpu``); (b) the recipe at
     small16's full width and depth through ``vitx_torch.cli.train.main``,
     3 epochs, launches asserted; (c) a resume: 2 epochs, then ``--epochs
     3`` on the same directory, equal to (b) bit for bit; (d) the eval CLI
     on (b)'s directory reports the accuracy the trainer logged; (e) a
     server from (b)'s last .ckpt answers 32 requests as direct calls on
-    the EMA params do; (f) times (``recipe_times``). Returns (b)'s
-    launches."""
+    the EMA params do (``serve_ckpt``); (f) times (``recipe_times``);
+    (g) and (h) the ToMe-train and patch-drop variants
+    (``recipe_variant``). Returns the launches of (b), (g) and (h) by
+    path name ("recipe", "recipe_tome", "recipe_pdrop")."""
     import os
     import shutil
 
     import vitx_torch.cli.eval as eval_cli
     import vitx_torch.cli.train as train_cli
-    from vitx_torch import forward
-    from vitx_torch.data import make_preprocess
     from vitx_torch.data.procedural import ProceduralShapes
-    from vitx_torch.serve import load_server
     from vitx_torch.train import checkpoint as ckpt
-    from vitx_torch.train.step import leaves
 
     root = BUILD / "recipe"
     shutil.rmtree(root, ignore_errors=True)
@@ -2346,12 +2508,33 @@ def phase_recipe() -> dict:
 
     # (e) a server from the last .ckpt: the EMA shadow
     ema, _ = ckpt.restore_eval_params(b_dir / last_ckpt, cfg)
+    serve_ckpt("e", b_dir / last_ckpt, cfg, ema)
+
+    # (f) times
+    recipe_times(RECIPE_ARGS, cfg)
+    out = {"recipe": launches}
+    # (g), (h): the recipe's ToMe-train and patch-drop variants
+    for name in RECIPE_VARIANTS:
+        out[f"recipe_{name}"] = recipe_variant(root, name)
+    return out
+
+
+def serve_ckpt(part: str, path: Path, cfg, ema) -> None:
+    """``load_server`` on the .ckpt ``path`` answers 32 requests from 4
+    threads: top-1 equal to direct forwards on ``ema`` (the run's EMA
+    shadow, which it must serve bit for bit), launches as a forward's."""
+    from vitx_torch import forward
+    from vitx_torch.data import make_preprocess
+    from vitx_torch.data.procedural import ProceduralShapes
+    from vitx_torch.serve import load_server
+    from vitx_torch.train.step import leaves
+
     u8 = ProceduralShapes(num_examples=32, seed=1).materialize()[0]
     imgs = make_preprocess(out_size=224, mean=(0.5,) * 3, std=(0.5,) * 3)(
         torch.from_numpy(u8).cuda(), None, train=False).cpu().numpy()
     results = [None] * 32
     reset_counts()
-    with load_server(b_dir / last_ckpt, cfg, batch_size=32, top_k=5,
+    with load_server(path, cfg, batch_size=32, top_k=5,
                      max_delay_ms=20.0) as srv:
         def client(c):
             for i in range(c * 8, c * 8 + 8):
@@ -2364,24 +2547,139 @@ def phase_recipe() -> dict:
         for t in threads:
             t.join(timeout=600)
         if any(t.is_alive() for t in threads):
-            raise AssertionError("recipe (e): clients did not finish")
+            raise AssertionError(f"recipe ({part}): clients did not finish")
         stats = srv.stats.summary()
         same = all(torch.equal(a, b) for a, b in zip(
             leaves(srv._params), leaves(ema)))
     served = counts()
-    expect_launches("recipe (e): server", served,
+    expect_launches(f"recipe ({part}): server", served,
                     forward_launches(cfg, 1 + stats["batches"]))
     direct = forward(ema, imgs, cfg).argmax(-1).tolist()
     top1 = [r["classes"][0] for r in results]
-    emit({"phase": "recipe", "part": "e: load_server on the last .ckpt, "
-          "32 requests from 4 threads", "stats": stats, "launches": served,
-          "top1_equal": top1 == direct, "serves_ema": same})
+    emit({"phase": "recipe", "part": f"{part}: load_server on "
+          f"{path.parent.name}/{path.name}, 32 requests from 4 threads",
+          "stats": stats, "launches": served, "top1_equal": top1 == direct,
+          "serves_ema": same})
     if top1 != direct or not same:
-        raise AssertionError(f"recipe (e): served {top1}, direct {direct}, "
-                             f"EMA served {same}")
+        raise AssertionError(f"recipe ({part}): served {top1}, direct "
+                             f"{direct}, EMA served {same}")
 
-    # (f) times
-    recipe_times(RECIPE_ARGS, cfg)
+
+def direct_accuracy(params, cfg) -> float:
+    """The val split's accuracy by direct ``eval_step`` calls at batch 128,
+    the eval CLI's preprocessing (normalise, no flips)."""
+    import os
+
+    from vitx_torch.data import BatchLoader, make_preprocess
+    from vitx_torch.data.procedural import ProceduralShapes
+    from vitx_torch.metrics import confusion_to_metrics
+    from vitx_torch.train.step import eval_step
+
+    ds = ProceduralShapes(num_examples=RECIPE_VAL, seed=1,
+                          cache_dir=os.environ["VITX_PROC_CACHE"])
+    pre = make_preprocess(out_size=224, mean=(0.5,) * 3, std=(0.5,) * 3,
+                          random_flip=False)
+    cm = None
+    for b in BatchLoader(ds, 128):
+        img = pre(torch.from_numpy(b["image"]).cuda(), None, train=False)
+        c, _ = eval_step(params, {"image": img, "label": b["label"],
+                                  "mask": b["mask"]}, cfg=cfg)
+        cm = c if cm is None else cm + c
+    return float(confusion_to_metrics(cm)["accuracy"])
+
+
+def recipe_variant(root: Path, name: str) -> dict:
+    """(g) ToMe-train, (h) patch drop: the recipe with the variant's flags
+    (``RECIPE_VARIANTS``), first card vs CPU at depth 2
+    (``recipe_card_vs_cpu``), then at small16's full width and depth
+    through ``vitx_torch.cli.train.main`` for RECIPE_EPOCHS epochs, its
+    launches asserted (``recipe_step_launches``), its losses falling, its
+    checkpoints' meta naming the variant. (g) only: ``cli.eval`` on the
+    .ckpt runs every token by default (K1 and K2 a block), its accuracy
+    that of direct calls, and merges with ``--tome-r to128`` (B8 and K2
+    a block), its accuracy the one the trainer logged; a server from the
+    .ckpt answers as direct calls do. Then the times (``recipe_times``).
+    Returns the run's launches."""
+    import vitx_torch.cli.eval as eval_cli
+    import vitx_torch.cli.train as train_cli
+    from vitx_torch.core.config import ViTConfig
+    from vitx_torch.nn.tome import aligned_schedule
+    from vitx_torch.train import checkpoint as ckpt
+
+    part, flags = RECIPE_VARIANTS[name]
+    recipe_card_vs_cpu(root / f"{part}_a", name)
+    v_dir, logs = root / part, root / f"{part}_logs"
+    reset_counts()
+    t0 = time.perf_counter()
+    final = run_cli(train_cli.main, RECIPE_ARGS + flags + [
+        "--epochs", str(RECIPE_EPOCHS), "--checkpoint-dir", str(v_dir),
+        "--log-dir", str(logs)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    metas = [ckpt.peek_meta(v_dir / f"{e}.ckpt")
+             for e in range(RECIPE_EPOCHS)]
+    cfg = ViTConfig.from_json(json.dumps(metas[-1]["config"]))
+    steps = RECIPE_EPOCHS * (RECIPE_TRAIN // 128)
+    eval_batches = RECIPE_EPOCHS * (RECIPE_VAL // 128)
+    expect = recipe_step_launches(cfg, steps, eval_batches)
+    losses = [v for _, v in read_scalars(logs, "Loss/train_batch")]
+    rates = [v for _, v in read_scalars(logs, "Throughput/images_per_sec")]
+    val = [v for _, v in read_scalars(logs, "val?acc")]
+    emit({"phase": "recipe", "part": f"{part}: small16 bf16 b128, the "
+          f"recipe with {' '.join(flags)} through vitx_torch.cli.train.main",
+          "card": smi(), "argv": RECIPE_ARGS + flags,
+          "epochs": RECIPE_EPOCHS, "tome_r": cfg.tome_r,
+          "patch_keep": cfg.patch_keep_count, "wall_s": wall,
+          "launches": launches, "expected": expect, "losses": losses,
+          "val_accuracy": val, "img_per_s_by_epoch": rates,
+          "steady_img_per_s": statistics.mean(rates[1:]), "final": final})
+    expect_launches(f"recipe ({part})", launches, expect)
+    first, last = np.mean(losses[:4]), np.mean(losses[-4:])
+    if not (len(losses) == steps and np.all(np.isfinite(losses))
+            and last < first):
+        raise AssertionError(f"recipe ({part}): losses {losses}")
+    if name == "tome":
+        want = aligned_schedule(cfg.replace(tome_r=0, tome_train=False), 128)
+        named = cfg.tome_train and cfg.tome_schedule[:len(want)] == want
+    else:
+        named = cfg.patch_drop == 0.5 and not cfg.tome_r
+    for m in metas:
+        if not (named and m["ema_decay"] == 0.999 and m["schedule"]
+                and m["config"] == metas[-1]["config"]):
+            raise AssertionError(f"recipe ({part}): checkpoint meta {m}")
+    if name != "tome":
+        recipe_times(RECIPE_ARGS + flags, cfg, f"recipe_{name}")
+        return launches
+
+    # the eval CLI: every token by default, merged with --tome-r to128
+    last_ckpt = v_dir / f"{RECIPE_EPOCHS - 1}.ckpt"
+    full = ckpt.resolve_artifact_config(v_dir, None, "small16")
+    ema, _ = ckpt.restore_eval_params(last_ckpt, full)
+    argv = ["--preset", "small16", "--checkpoint", str(v_dir), "--data",
+            RECIPE_DATA, "--batch-size", "128"]
+    batches = RECIPE_VAL // 128
+    reports = {}
+    for merged, extra in ((False, []), (True, ["--tome-r", "to128"])):
+        reset_counts()
+        reports[merged] = run_cli(eval_cli.main, argv + extra)
+        expect_launches(f"recipe ({part}): cli.eval {' '.join(extra)}",
+                        counts(), forward_launches(
+                            cfg if merged else full, batches))
+    direct = direct_accuracy(ema, full)
+    emit({"phase": "recipe", "part": f"{part}: vitx_torch.cli.eval on "
+          "the ToMe-train .ckpt, every token and --tome-r to128",
+          "full_token": reports[False]["accuracy"], "direct": direct,
+          "merged": reports[True]["accuracy"], "logged": val[-1],
+          "epoch": reports[True]["epoch"]})
+    if not (reports[False]["accuracy"] == direct
+            and reports[True]["accuracy"] == val[-1]
+            == final["val_accuracy"] and not full.tome_r
+            and reports[True]["epoch"] == RECIPE_EPOCHS - 1):
+        raise AssertionError(f"recipe ({part}): eval {reports}, direct "
+                             f"{direct}, logged {val}")
+    serve_ckpt(part, last_ckpt, full, ema)
+    recipe_times(RECIPE_ARGS + flags, cfg, f"recipe_{name}")
     return launches
 
 
@@ -2872,17 +3170,8 @@ def phase_times(cfg, params, errs: dict, launches: dict) -> list:
     x, mha, mlp = block_inputs(B, T, E, H, M, torch.bfloat16, 4, "cuda")
     bf = torch.bfloat16
     eps = cfg.layer_norm_eps
-    wqkv_t = mha["wqkv"].reshape(E, 3 * E).t().contiguous()
-    wo_t = mha["wo"].t().contiguous()
     w1_t, w2_t = mlp["w1"].t().contiguous(), mlp["w2"].t().contiguous()
-
-    def lib_mha():
-        h = F.layer_norm(x, (E,), mha["g"].to(bf), mha["b"].to(bf), eps)
-        q, k, v = F.linear(h, wqkv_t).view(B, T, 3, H, D).permute(
-            2, 0, 3, 1, 4)
-        o = F.scaled_dot_product_attention(q, k, v)
-        return F.linear(o.transpose(1, 2).reshape(B, T, E), wo_t,
-                        mha["bo"].to(bf))
+    lib_mha = sdpa_mha(x, mha, H, eps)
 
     def lib_mlp():
         h = F.layer_norm(x, (E,), mlp["g"].to(bf), mlp["b"].to(bf), eps)
@@ -3440,62 +3729,161 @@ def phase_tome(cfg, params, large, large_params) -> dict:
 
 
 def tome_kernel_rows(base, large, errs: dict, launches: dict) -> list:
-    """B8's rows (``block_rows``: the earlier kernels, and the sm90 route
-    with the sm90 attention, the GEMM-only route -- the sm90 GEMM with
-    attention_fwd.cuh -- as its was_ms), bf16: their numbers at base16's
+    """B8's rows (``tome_rows_at``), bf16: their numbers at base16's
     first r=13 block (256, 197), and under ``shapes`` those at (256, 197),
     the last block (256, 54) and large16_384's T 577 and 416 at batch 32,
-    where vitx takes B9. The library call: F.layer_norm, F.linear with the
-    QKV bias, SDPA with log_size as its additive mask, F.linear, and k's
-    mean over the heads."""
+    where vitx takes B9."""
+    rows = [tome_rows_at(c, B, T, launches, errs)
+            for c, B, T in ((base, 256, 197), (base, 256, 54),
+                            (large, 32, 577), (large, 32, 416))]
+    out = [dict(shapes_[0], shapes=[shape_entry(r) for r in shapes_])
+           for shapes_ in zip(*rows)]
+    out[1]["launches_attn_sm90"] = launches.get(
+        "fused_mha_block_tome_attn_sm90")
+    return out
+
+
+SHAPE_KEYS = ("shape", "ms", "device_ms", "plain_ms", "library_ms",
+              "bound_ms", "bound_by", "tflops", "was_ms",
+              "earlier_kernels_ms")
+
+
+def shape_entry(row: dict) -> dict:
+    """A row's numbers at its shape, for another row's ``shapes``."""
+    return {k: row[k] for k in SHAPE_KEYS if k in row}
+
+
+def tome_rows_at(c, B, T, launches, errs) -> list:
+    """B8's two rows (``block_rows``: the earlier kernels, and the sm90
+    route with the sm90 attention, the GEMM-only route -- the sm90 GEMM
+    with attention_fwd.cuh -- as its was_ms) at (B, T, ``c``'s width),
+    bf16. The library call: F.layer_norm, F.linear with the QKV bias, SDPA
+    with log_size as its additive mask, F.linear, and k's mean over the
+    heads."""
     import torch.nn.functional as F
 
     from vitx_torch.kernels import fused_mha_block_tome, mha_block_tome_plain
 
     tmha = block_module()
-
     bf = torch.bfloat16
-    rows = []
-    for c, B, T in ((base, 256, 197), (base, 256, 54), (large, 32, 577),
-                    (large, 32, 416)):
-        E, H, D, eps = c.embed_dim, c.num_heads, c.head_dim, c.layer_norm_eps
-        x, tm = tome_inputs(B, T, E, H, bf, 70 + T)
-        wqkv_t = tm["wqkv"].reshape(E, 3 * E).t().contiguous()
-        bqkv = tm["bqkv"].reshape(3 * E).to(bf)
-        wo_t = tm["wo"].t().contiguous()
-        mask = tm["log_size"].to(bf)[:, None, None, :]
+    E, H, D, eps = c.embed_dim, c.num_heads, c.head_dim, c.layer_norm_eps
+    x, tm = tome_inputs(B, T, E, H, bf, 70 + T)
+    wqkv_t = tm["wqkv"].reshape(E, 3 * E).t().contiguous()
+    bqkv = tm["bqkv"].reshape(3 * E).to(bf)
+    wo_t = tm["wo"].t().contiguous()
+    mask = tm["log_size"].to(bf)[:, None, None, :]
 
-        def lib():
-            h = F.layer_norm(x, (E,), tm["g"].to(bf), tm["b"].to(bf), eps)
-            q, k, v = F.linear(h, wqkv_t, bqkv).view(B, T, 3, H, D).permute(
-                2, 0, 3, 1, 4)
-            o = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
-            return (F.linear(o.transpose(1, 2).reshape(B, T, E), wo_t,
-                             tm["bo"].to(bf)), k.mean(dim=1))
+    def lib():
+        h = F.layer_norm(x, (E,), tm["g"].to(bf), tm["b"].to(bf), eps)
+        q, k, v = F.linear(h, wqkv_t, bqkv).view(B, T, 3, H, D).permute(
+            2, 0, 3, 1, 4)
+        o = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+        return (F.linear(o.transpose(1, 2).reshape(B, T, E), wo_t,
+                         tm["bo"].to(bf)), k.mean(dim=1))
 
-        flops = 2 * B * T * E * 4 * E + 4 * B * H * T * T * D
-        nbytes = (2 * B * T * E * 2 + 4 * E * E * 2 + 6 * E * 4 + B * T * 4
-                  + B * T * D * 2)
-        rows.append(block_rows(
-            "fused_mha_block_tome",
-            lambda: fused_mha_block_tome(x, **tm, eps=eps),
-            lambda: tome_earlier(x, tm, eps),
-            lambda: mha_block_tome_plain(x, **tm, eps=eps), lib, flops,
-            nbytes, launches, errs,
-            was=lambda: tome_earlier(x, tm, eps,
-                                     route=tmha.ROUTE_GEMM_SM90),
-            was_what="the GEMM-only route: the sm90 GEMM with "
-                     "attention_fwd.cuh",
-            shape=[B, T, E]))
-        del x, tm
-    keep = ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-            "tflops", "was_ms", "earlier_kernels_ms")
-    out = [dict(shapes_[0], shapes=[{k: r[k] for k in keep if k in r}
-                                    for r in shapes_])
-           for shapes_ in zip(*rows)]
-    out[1]["launches_attn_sm90"] = launches.get(
-        "fused_mha_block_tome_attn_sm90")
-    return out
+    flops = 2 * B * T * E * 4 * E + 4 * B * H * T * T * D
+    nbytes = (2 * B * T * E * 2 + 4 * E * E * 2 + 6 * E * 4 + B * T * 4
+              + B * T * D * 2)
+    return block_rows(
+        "fused_mha_block_tome",
+        lambda: fused_mha_block_tome(x, **tm, eps=eps),
+        lambda: tome_earlier(x, tm, eps),
+        lambda: mha_block_tome_plain(x, **tm, eps=eps), lib, flops,
+        nbytes, launches, errs,
+        was=lambda: tome_earlier(x, tm, eps, route=tmha.ROUTE_GEMM_SM90),
+        was_what="the GEMM-only route: the sm90 GEMM with "
+                 "attention_fwd.cuh",
+        shape=[B, T, E])
+
+
+def sdpa_mha(x, mha, H, eps):
+    """K1's function as PyTorch library calls on K1's inputs:
+    F.layer_norm, F.linear, SDPA, F.linear."""
+    import torch.nn.functional as F
+
+    B, T, E = x.shape
+    D, dt = E // H, x.dtype
+    wqkv_t = mha["wqkv"].reshape(E, 3 * E).t().contiguous()
+    wo_t = mha["wo"].t().contiguous()
+
+    def lib():
+        h = F.layer_norm(x, (E,), mha["g"].to(dt), mha["b"].to(dt), eps)
+        q, k, v = F.linear(h, wqkv_t).view(B, T, 3, H, D).permute(
+            2, 0, 3, 1, 4)
+        o = F.scaled_dot_product_attention(q, k, v)
+        return F.linear(o.transpose(1, 2).reshape(B, T, E), wo_t,
+                        mha["bo"].to(dt))
+    return lib
+
+
+def recipe_kernel_shapes(launches: dict, errs: dict) -> dict:
+    """The recipe variants' own kernel shapes (small16: E 384, 6 heads of
+    D 64), bf16, as more ``shapes`` of the kernels' rows: B8's two rows at
+    the ToMe-train step's first block (128, 197); K1's sm90 row, the
+    wrapper with its stash as the patch-drop step calls it, and B2's two
+    rows at that step's T 99. Returns row name -> [entries]."""
+    import vitx_torch
+    from vitx_torch.kernels import fused_mha_block, mha_block_plain
+
+    c = vitx_torch.get_config("small16")
+    B, E, H, D, eps = 128, c.embed_dim, c.num_heads, c.head_dim, \
+        c.layer_norm_eps
+    rows = tome_rows_at(c, B, c.seq_len, launches, errs)
+    T = 1 + c.replace(patch_drop=0.5).patch_keep_count
+    x, mha, _ = block_inputs(B, T, E, H, c.mlp_dim, torch.bfloat16, 32,
+                             "cuda")
+    rows.append(kernel_row(
+        "fused_mha_block_sm90",
+        lambda: fused_mha_block(x, **mha, eps=eps, stash=True),
+        lambda: mha_block_plain(x, **mha, eps=eps, stash=True),
+        sdpa_mha(x, mha, H, eps),
+        2 * B * T * E * 4 * E + 4 * B * H * T * T * D, PEAK_BF16_FLOPS,
+        # x in, out and the stash's q, k, v, o_all out, the weights, the
+        # row statistics
+        6 * B * T * E * 2 + 4 * E * E * 2 + 3 * E * 4 + 2 * B * H * T * 4,
+        launches, errs, shape=[B, T, E], stash=True))
+    rows += attention_bwd_rows((B, H, T, D), 33, launches, errs)
+    extra: dict = {}
+    for row in rows:
+        extra.setdefault(row["name"], []).append(shape_entry(row))
+    for T in (c.seq_len, 128):
+        attention_half_under_grad(c, B, T)
+    return extra
+
+
+def attention_half_under_grad(c, B, T) -> None:
+    """A block's attention half under grad at (B, T, ``c``'s width), bf16,
+    as the recipe's steps run it: B8 (ToMe-train: the kernel forward, then
+    ``composed_tome``'s recompute and backward) against K1 with its stash
+    then B2 and B3 (every other step). CUDA events around the forward with
+    grad-requiring inputs, and around forward + backward; the backward is
+    their difference. The profiler's device time of forward + backward."""
+    from vitx_torch.kernels import fused_mha_block, fused_mha_block_tome
+
+    E, H, eps = c.embed_dim, c.num_heads, c.layer_norm_eps
+    x, tm = tome_inputs(B, T, E, H, torch.bfloat16, 90 + T)
+    bqkv = torch.zeros_like(tm["bqkv"])
+    dout = seeded((B, T, E), 91 + T, 0.1, dtype=torch.bfloat16)
+    req = [t.detach().requires_grad_()
+           for t in (x, tm["wqkv"], tm["wo"], tm["bo"], tm["g"], tm["b"])]
+    out = {}
+    for name, fn in (
+            ("fused_mha_block_tome", lambda: fused_mha_block_tome(
+                req[0], req[1], bqkv, *req[2:], tm["log_size"],
+                eps=eps)[0]),
+            ("fused_mha_block", lambda: fused_mha_block(*req, eps=eps))):
+        def fwd_bwd():
+            torch.autograd.grad(fn(), req, dout)
+
+        fwd_ms, both_ms = cuda_ms(fn, reps=10), cuda_ms(fwd_bwd, reps=10)
+        out[name] = {"forward_ms": fwd_ms, "forward_backward_ms": both_ms,
+                     "backward_ms": both_ms - fwd_ms,
+                     "forward_backward_device_ms": profile_call(
+                         f"{name} under grad {[B, T, E]}", fwd_bwd,
+                         calls=5)}
+    emit({"phase": "times", "what": "attention half under grad: B8 "
+          "(composed backward) vs K1 with its stash (B2, B3)",
+          "card": smi(), "shape": [B, T, E], "heads": H, **out})
 
 
 def phase_tome_times(cfg, params, large, large_params, errs: dict,
@@ -3704,7 +4092,8 @@ def main(argv=None) -> int:
     if "forward" in phases:
         phase_forward(cfg, params)
     serve_launches, train_launches, explain_launches = {}, {}, {}
-    tome_launches, finetune_launches, recipe_launches = {}, {}, {}
+    tome_launches, finetune_launches = {}, {}
+    recipe_launches = {path: {} for path in RECIPE_PATHS}
     train = finetune = None
     if "serve" in phases:
         serve_launches = phase_serve(cfg, params)
@@ -3731,7 +4120,8 @@ def main(argv=None) -> int:
     if "recipe" in phases:
         recipe_launches = phase_recipe()
     launches = add_launches(serve_launches, train_launches, explain_launches,
-                            tome_launches, finetune_launches, recipe_launches)
+                            tome_launches, finetune_launches,
+                            *recipe_launches.values())
     if "times" in phases:
         rows = phase_times(cfg, params, errs, launches)
         if tome_launches:
@@ -3756,6 +4146,14 @@ def main(argv=None) -> int:
                     row["shapes"] = [{k: row[k] for k in extra[
                         row["name"]][0]}] + extra[row["name"]]
         del finetune
+        if recipe_launches["recipe"]:
+            # the recipe variants' own shapes, after the rows' own numbers
+            extra = recipe_kernel_shapes(launches, errs)
+            for row in rows:
+                if row["name"] in extra:
+                    row["shapes"] = (row.get("shapes")
+                                     or [shape_entry(row)]) + extra[
+                                         row["name"]]
         for row in rows:
             row["launches_by_path"] = {
                 "serve": serve_launches.get(row["name"], 0),
@@ -3763,7 +4161,8 @@ def main(argv=None) -> int:
                 "explain": explain_launches.get(row["name"], 0),
                 "tome": tome_launches.get(row["name"], 0),
                 "finetune": finetune_launches.get(row["name"], 0),
-                "recipe": recipe_launches.get(row["name"], 0)}
+                **{path: got.get(row["name"], 0)
+                   for path, got in recipe_launches.items()}}
             if row["name"] in stash:
                 row["stash_ms_b128"] = stash[row["name"]]
         missing = sorted(set(KERNELS) - {row["name"] for row in rows})

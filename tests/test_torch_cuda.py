@@ -1259,3 +1259,73 @@ def test_recipe_epoch_on_card(cuda, tmp_path):
     assert meta["ema_decay"] == 0.999 and meta["schedule"]
     for a, b in zip(tstep.leaves(params), tstep.leaves(tr.eval_params())):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["tome", "pdrop"])
+def test_recipe_variant_epoch_on_card(cuda, tmp_path, variant):
+    """One epoch of the recipe's two variants (small16 widths at depth 2,
+    bf16): ToMe-train at (35, 34) runs B8 a block under grad (kernel
+    forward, composed backward with B3), no K1 or B2, and merges in the
+    eval (B8 and K2); patch drop runs K1 and B2 at T 99 and every token
+    in the eval. Finite losses."""
+    from vitx_torch.data import DeviceBatchLoader, ProceduralShapes, \
+        make_preprocess
+    from vitx_torch.nn.tome import aligned_schedule
+    from vitx_torch.train.loop import Trainer, TrainerConfig
+
+    cfg = vitx_torch.get_config("small16", depth=2, num_classes=10)
+    cfg = (cfg.replace(tome_r=aligned_schedule(cfg, 128), tome_train=True)
+           if variant == "tome" else cfg.replace(patch_drop=0.5))
+    train = DeviceBatchLoader(ProceduralShapes(num_examples=64, seed=0),
+                              32, shuffle=True, device=cuda)
+    val = DeviceBatchLoader(ProceduralShapes(num_examples=32, seed=1), 32,
+                            device=cuda)
+    opt = tstep.make_optimizer(lr=3e-4, weight_decay=0.05, ema_decay=0.999,
+                               wd_exclude=True)
+    tcfg = TrainerConfig(epochs=1, lr=3e-4, weight_decay=0.05,
+                         wd_exclude=True, ema_decay=0.999, log_every=1,
+                         checkpoint_dir=str(tmp_path))
+    pre = make_preprocess(out_size=224, mean=(0.5,) * 3, std=(0.5,) * 3)
+    tr = Trainer(cfg, tcfg, preprocess=pre, optimizer=opt)
+    fns = (fused_mha_block_tome, fused_mha_block, attention_bwd, ln_bwd,
+           fused_mlp_block)
+    attr = ("launches_sm90", "launches_sm90", "launches_sm90",
+            "launches_onepass", "launches_sm90")
+
+    def now():
+        return [(f.launches, getattr(f, a)) for f, a in zip(fns, attr)]
+
+    before = now()
+    hist = tr.fit(train, val)
+    torch.cuda.synchronize()
+    got = [(a - c, b - d) for (a, b), (c, d) in zip(now(), before)]
+    # 2 steps of 2 blocks (B3: both LayerNorms a block and the head's);
+    # one eval batch
+    want = {"tome": [(6, 6), (0, 0), (0, 0), (10, 10), (2, 2)],
+            "pdrop": [(0, 0), (6, 6), (4, 4), (10, 10), (2, 2)]}[variant]
+    assert got == want
+    assert np.isfinite(hist[0]["loss"]) and hist[0]["val_accuracy"] >= 0
+
+
+@pytest.mark.cuda
+def test_tome_backward_from_autograds_thread(cuda):
+    """B8's backward recomputes ``composed_tome`` on autograd's device
+    thread, where its LayerNorm's B3 may be that thread's first work
+    (fault C5's setting): the gradients equal those of composed_tome's own
+    autograd on the same bf16 inputs, bit for bit."""
+    from vitx_torch.kernels import composed_tome
+
+    mha, _ = block_args(4, 162, 384, 6, "bfloat16", cuda)
+    x, wqkv, wo, bo, g, b = mha
+    bqkv = torch.zeros(3, 6, 64, device=cuda)
+    log_size = torch.log(1.0 + 3.0 * torch.rand(4, 162, device=cuda))
+    w_out = seeded((4, 162, 384), 71, 0.1, dtype="bfloat16", device=cuda)
+    grads = []
+    for fn in (fused_mha_block_tome, composed_tome):
+        ins = [t.detach().clone().requires_grad_() for t in (x, wqkv, wo)]
+        out, _ = fn(ins[0], ins[1], bqkv, ins[2], bo, g, b, log_size)
+        (out.float() * w_out.float()).sum().backward()
+        grads.append([t.grad for t in ins])
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(*grads))

@@ -172,7 +172,6 @@ def test_init_params_tree_matches_vitx():
     ({"lora_rank": 2}, "A12"),
     ({"head_type": "map"}, "A12"),
     ({"pos_embed": "sincos2d"}, "A12"),
-    ({"tome_r": 2, "tome_train": True}, "A10"),
 ])
 def test_unported_features_raise(over, item):
     cfg = vitx_torch.get_config("tiny", **over)

@@ -286,7 +286,6 @@ def test_confusion_matrix_matches_vitx():
     ("trainable", "A12"), ("mu_dtype", "A12"),
     ("loss=bce", "A12"), ("mixup", "A12"), ("cutmix", "A12"),
     ("sam", "A12"), ("train_filter", "A12"), ("grad_shardings", "A13"),
-    ("patch_drop", "A12"),
 ])
 def test_unported_knobs_raise(call, item):
     cfg = vitx_torch.get_config("tiny", compute_dtype="float32")
@@ -303,18 +302,13 @@ def test_unported_knobs_raise(call, item):
     step_kw = {"loss=bce": {"loss": "bce"}, "mixup": {"mixup_alpha": 0.2},
                "cutmix": {"cutmix_alpha": 1.0}, "sam": {"sam_rho": 0.05},
                "train_filter": {"train_filter": "lora"},
-               "grad_shardings": {"grad_shardings": object()},
-               "patch_drop": {}}
-    gen = None
-    if call == "patch_drop":
-        cfg = cfg.replace(patch_drop=0.5)
-        gen = torch.Generator().manual_seed(0)
+               "grad_shardings": {"grad_shardings": object()}}
     opt = tstep.make_optimizer()
     state = tstep.create_train_state(0, cfg, opt, device="cpu")
     b = batches(1, 2, seed=0)[0]
     with pytest.raises(NotImplementedError, match=item):
-        tstep.train_step(state, b, gen, cfg=cfg, optimizer=opt,
-                         device="cpu", **step_kw[call])
+        tstep.train_step(state, b, cfg=cfg, optimizer=opt, device="cpu",
+                         **step_kw[call])
 
 
 def test_train_entry_points_default_to_cuda():

@@ -255,14 +255,13 @@ def test_port_recipe_cli_checkpoints_read_by_vitx(tmp_path, capsys,
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--tome-train", "--tome-r", "4"], "A10"),
     (["--data", "cifar10:/nowhere"], "A7"),
     (["--data", "synthetic-ml"], "A12"),
     (["--mixup-alpha", "0.2"], "A12"),
     (["--optimizer", "sgd"], "A12"),
     (["--dp", "2"], "A13"),
     (["--init-from", "run/3.ckpt"], "A3"),
-], ids=["tome", "cifar", "multilabel", "mixup", "sgd", "dp", "init_ckpt"])
+], ids=["cifar", "multilabel", "mixup", "sgd", "dp", "init_ckpt"])
 def test_train_cli_refuses_unported(argv, item):
     with pytest.raises(SystemExit, match=item):
         ttrain.main(argv + ["--device", "cpu"])

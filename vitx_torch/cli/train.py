@@ -11,12 +11,15 @@ with 0.5 / 0.5, flips, and the augmentation flags) and ``Trainer``. Every
 other flag set away from its default exits non-zero, naming the ROADMAP
 item that brings it (``UNPORTED``).
 
-``CONVERGENCE.md``'s ViT-S/16 recipe without ToMe-train::
+``CONVERGENCE.md``'s ViT-S/16 recipe (``examples/convergence.py``)::
 
     python -m vitx_torch.cli.train --preset small16 --data procedural \\
       --device-cache --batch-size 128 --lr 3e-4 --schedule cosine \\
       --warmup-steps 300 --weight-decay 0.05 --wd-exclude --randaug 5 \\
-      --ema-decay 0.999 --early-stop 10 --checkpoint-dir ckpt
+      --ema-decay 0.999 --early-stop 10 --seed 0 --checkpoint-dir ckpt
+
+and its two variants: add ``--tome-r to128 --tome-train`` (merge tokens
+in training too; the two flags go together) or ``--patch-drop 0.5``.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import sys
 from vitx_torch.core.config import PRESETS, ViTConfig, get_config
 from vitx_torch.data import (BatchLoader, DeviceBatchLoader, ProceduralShapes,
                              SyntheticDataset, make_preprocess)
+from vitx_torch.nn.tome import aligned_schedule, parse_tome_r
 from vitx_torch.train.loop import NonFiniteLossError, Trainer, TrainerConfig
 
 # flags the port does not take yet -> the ROADMAP item that brings them;
@@ -37,8 +41,7 @@ UNPORTED = {
     "class_weights": "A12", "loss": "A12", "optimizer": "A12",
     "mu_dtype": "A12", "lora_rank": "A12", "lora_alpha": "A12",
     "lora_targets": "A12", "freeze_backbone": "A12", "mixup_alpha": "A12",
-    "cutmix_alpha": "A12", "patch_drop": "A12", "tome_r": "A10",
-    "tome_train": "A10", "layerscale": "A12", "mlp_act": "A12",
+    "cutmix_alpha": "A12", "layerscale": "A12", "mlp_act": "A12",
     "pos_embed": "A12", "qk_norm": "A12", "head_type": "A12",
     "global_pool": "A12", "sam_rho": "A12", "distill_from": "A12",
     "distill_alpha": "A12", "distill_tau": "A12", "distill_hard": "A12",
@@ -108,9 +111,15 @@ def build_argparser():
     a("--mixup-alpha", type=float, default=None)
     a("--cutmix-alpha", type=float, default=None)
     a("--drop-path", type=float, default=0.0)
-    a("--patch-drop", type=float, default=0.0)
-    a("--tome-r", default=0)
-    a("--tome-train", action="store_true")
+    a("--patch-drop", type=float, default=0.0,
+      help="drop this share of the patch tokens in every train step "
+           "(patch dropout); eval runs every token")
+    a("--tome-r", type=parse_tome_r, default=0,
+      help="token merging in training (with --tome-train): a constant r, a "
+           "per-block schedule '35,34' or 'toN'; the eval CLI's --tome-r "
+           "merges at inference")
+    a("--tome-train", action="store_true",
+      help="train through the merging encoder (needs --tome-r)")
     a("--layerscale", type=float, default=0.0)
     a("--mlp-act", default=None,
       choices=["gelu", "gelu_tanh", "relu", "swiglu"])
@@ -218,6 +227,19 @@ def build_trainer(args, parser=None):
         cfg = cfg.replace(num_classes=train_ds.num_classes)
     if args.drop_path:
         cfg = cfg.replace(drop_path=args.drop_path)
+    if args.patch_drop:
+        cfg = cfg.replace(patch_drop=args.patch_drop)
+    if args.tome_train or args.tome_r:
+        if not (args.tome_train and args.tome_r):
+            raise SystemExit("error: --tome-r and --tome-train go together "
+                             "for training-time token merging (eval-time "
+                             "merging is the eval CLI's --tome-r)")
+        # a "toN" schedule resolves against the final geometry, after
+        # every knob that changes the token count (vitx/cli/train.py:441)
+        tr = args.tome_r
+        if isinstance(tr, str):
+            tr = aligned_schedule(cfg, int(tr[2:]))
+        cfg = cfg.replace(tome_r=tr, tome_train=True)
 
     if args.device_cache:
         train_loader = DeviceBatchLoader(train_ds, args.batch_size,

@@ -486,7 +486,11 @@ def _forward_tome(x, wqkv, bqkv, wo, bo, g, b, log_size, eps):
 
 class _FusedMHATome(torch.autograd.Function):
     """B8 forward; the backward differentiates ``composed_tome``, as
-    vitx's ``_make_tome_op`` does (``mha_block.py:658-677``)."""
+    vitx's ``_make_tome_op`` does (``mha_block.py:658-677``), for the
+    inputs that need a gradient (in a ToMe-train step ``log_size`` and the
+    zero QKV bias need none). ``k_mean`` feeds only the merge's selection,
+    so its cotangent arrives as zeros; it is passed on all the same, as
+    vitx's VJP takes both. The recompute's LayerNorm backward is B3."""
 
     @staticmethod
     def forward(ctx, x, wqkv, bqkv, wo, bo, g, b, log_size, eps):
@@ -496,11 +500,14 @@ class _FusedMHATome(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout, dk_mean):
+        need = ctx.needs_input_grad[:8]
         with torch.enable_grad():
-            ins = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            ins = [t.detach().requires_grad_(n)
+                   for t, n in zip(ctx.saved_tensors, need)]
             outs = composed_tome(*ins, eps=ctx.eps)
-        grads = torch.autograd.grad(outs, ins, (dout, dk_mean))
-        return (*grads, None)
+        wrt = [t for t, n in zip(ins, need) if n]
+        grads = iter(torch.autograd.grad(outs, wrt, (dout, dk_mean)))
+        return (*(next(grads) if n else None for n in need), None)
 
 
 def fused_mha_block_tome(x, wqkv, bqkv, wo, bo, g, b, log_size, *,

@@ -1,4 +1,4 @@
-"""Token merging (ToMe, Bolya et al. 2023) at inference.
+"""Token merging (ToMe, Bolya et al. 2023) at inference and in training.
 
 The counterpart of ``vitx/nn/tome.py``: between the attention and the MLP
 of block ``l``, the ``cfg.tome_schedule[l]`` most similar pairs of patch
@@ -16,7 +16,11 @@ index first among equal scores; ``torch.topk`` promises no order) and the
 scatter of merged tokens as fp32 one-hot products, which repeat bit for
 bit where an ``index_add_`` would add duplicates with atomics.
 
-Training through ToMe (``cfg.tome_train``) is not ported (ROADMAP A10).
+Training through ToMe (``cfg.tome_train``, the paper's section 4) runs
+the same encoder under autograd with dropout and drop-path from one
+``torch.Generator``: gradients flow through the size-weighted merges, the
+selection is routing and carries none. On CUDA B8's backward
+differentiates ``composed_tome`` (its LayerNorm's backward B3).
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ import torch
 from vitx_torch.core.config import ViTConfig
 from vitx_torch.kernels.mha_block import composed_tome, fused_mha_block_tome
 from vitx_torch.kernels.mlp_block import fused_mlp_block
-from vitx_torch.nn.layers import layer_norm, mlp
+from vitx_torch.nn.layers import drop_path, dropout, layer_norm, mlp
 from vitx_torch.nn.vit import (_final_norm, _use_fused_mlp, check_ported,
                                embed_tokens, unstack)
 
@@ -156,18 +160,28 @@ def merge_tokens(x, sizes, metric, r: int, n_prefix: int, n_reg: int,
 
 
 def encode_tome(params, images, cfg: ViTConfig,
-                return_sources: bool = False):
-    """The ToMe encoder at inference (``vitx/nn/tome.py:185-312``): images
-    -> final tokens (B, T', E), and with ``return_sources`` also the
-    (B, T', T0) fp32 partition of the original tokens among them.
+                return_sources: bool = False, *, rng=None,
+                deterministic: bool = True):
+    """The ToMe encoder (``vitx/nn/tome.py:185-312``): images -> final
+    tokens (B, T', E), and with ``return_sources`` also the (B, T', T0)
+    fp32 partition of the original tokens among them.
 
     Block ``l``: the attention half (B8 on CUDA, else ``composed_tome``,
     by ``_use_fused_tome_attn``) on the tokens and log(sizes), the
     layer-scale multiply, ``x + attn_out``, ``merge_tokens`` with r =
     ``cfg.tome_schedule[l]``, the MLP half (K2 on CUDA), ``x + mlp_out``:
-    the residual adds in vitx's order, not ``_encoder_block``'s carry."""
+    the residual adds in vitx's order, not ``_encoder_block``'s carry.
+
+    Training mode (``cfg.tome_train``): with a generator ``rng`` and
+    ``deterministic=False``, dropout on the embedded tokens, then on each
+    branch dropout and drop-path at ``linspace(0, cfg.drop_path,
+    depth)[l]`` before its residual add, drawn in that order (vitx splits
+    its key the same way, ``tome.py:213-256``; the streams differ)."""
     check_ported(cfg)
     x = embed_tokens(params, images, cfg)
+    stochastic = rng is not None and not deterministic
+    if stochastic:
+        x = dropout(x, cfg.dropout, rng, deterministic=False)
     B, T, E = x.shape
     dt, dev = x.dtype, x.device
     use_attn = _use_fused_tome_attn(cfg, x)
@@ -180,7 +194,18 @@ def encode_tome(params, images, cfg: ViTConfig,
                           dtype=torch.float32, device=dev)
     zeros_o = torch.zeros(E, dtype=torch.float32, device=dev)
     n_pre, n_reg = cfg.num_prefix_tokens, cfg.num_registers
-    for bp, r in zip(unstack(params["blocks"]), cfg.tome_schedule):
+    dp_rates = torch.linspace(0.0, cfg.drop_path, cfg.depth).tolist()
+
+    def branch(out, rate):
+        if not stochastic:
+            return out
+        out = dropout(out, cfg.dropout, rng, deterministic=False)
+        if cfg.drop_path:
+            out = drop_path(out, rate, rng, deterministic=False)
+        return out
+
+    for bp, r, rate in zip(unstack(params["blocks"]), cfg.tome_schedule,
+                           dp_rates):
         attn_out, k_mean = attn_fn(
             x, bp["wqkv"].to(dt), bp["bqkv"].float() if "bqkv" in bp
             else zeros_q, bp["wo"].to(dt),
@@ -189,7 +214,7 @@ def encode_tome(params, images, cfg: ViTConfig,
             torch.log(sizes), eps=cfg.layer_norm_eps)
         if "ls1" in bp:
             attn_out = attn_out * bp["ls1"].to(dt)
-        x = x + attn_out
+        x = x + branch(attn_out, rate)
         if r and sources is not None:
             x, sizes, sources = merge_tokens(x, sizes, k_mean, r, n_pre,
                                              n_reg, sources=sources)
@@ -208,7 +233,7 @@ def encode_tome(params, images, cfg: ViTConfig,
                           act=cfg.mlp_act, w3=bp.get("w3"), b3=bp.get("b3"))
         if "ls2" in bp:
             mlp_out = mlp_out * bp["ls2"].to(dt)
-        x = x + mlp_out
+        x = x + branch(mlp_out, rate)
     x = _final_norm(params, x, cfg)
     return (x, sources) if return_sources else x
 

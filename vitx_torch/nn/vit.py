@@ -44,7 +44,6 @@ def check_ported(cfg: ViTConfig) -> None:
         (cfg.lora_rank, "LoRA adapters", "A12"),
         (cfg.head_type == "map", "the MAP head", "A12"),
         (cfg.pos_embed != "learned", f"pos_embed={cfg.pos_embed!r}", "A12"),
-        (cfg.tome_train, "training through ToMe (tome_train)", "A10"),
     )
     for cond, what, item in missing:
         if cond:
@@ -193,6 +192,22 @@ def embed_tokens(params: Params, images, cfg: ViTConfig):
     return add_pos_embed(params, x, cfg)
 
 
+def _patch_drop(x, cfg: ViTConfig, gen=None, noise=None):
+    """Patch dropout (FLIP; ``vitx/nn/vit.py:665-685``): each row keeps
+    ``cfg.patch_keep_count`` of its patch tokens, the first of a per-row
+    stable argsort of uniform noise, put back in ascending order so that
+    the tokens stay in their positional order. Prefix and register tokens
+    pass through. ``noise`` (B, num_patches) replaces the draw from
+    ``gen``, so that a test can feed vitx's."""
+    p, n = cfg.num_prefix_tokens, cfg.num_patches
+    if noise is None:
+        noise = torch.rand((x.shape[0], n), generator=gen, device=x.device)
+    idx = torch.argsort(noise, dim=1, stable=True)[:, :cfg.patch_keep_count]
+    idx = torch.sort(idx, dim=1).values
+    kept = x[:, p:p + n].gather(1, idx[..., None].expand(-1, -1, x.shape[2]))
+    return torch.cat([x[:, :p], kept, x[:, p + n:]], dim=1)
+
+
 def _use_fused_mha(cfg: ViTConfig, bp, x,
                    return_probs: bool = False) -> bool:
     """vitx's rule (``vitx/nn/vit.py:287-304``) with "is this a TPU" read
@@ -327,8 +342,9 @@ def _final_norm(params: Params, x, cfg: ViTConfig):
 def encode(params: Params, images, cfg: ViTConfig, *, rng=None,
            deterministic: bool = True, return_probs: bool = False,
            probs_mode: str = "full"):
-    """Images -> encoder output tokens (B, T, E). With a generator, dropout
-    on the embedded tokens and in every block (``vitx/nn/vit.py:699-722``).
+    """Images -> encoder output tokens (B, T, E). With a generator, patch
+    dropout (``cfg.patch_drop``, when not deterministic), then dropout on
+    the embedded tokens and in every block (``vitx/nn/vit.py:699-722``).
     With ``return_probs``, (tokens, per-block probs): (depth, B, H, T, T)
     fp32, or (depth, B, T, T) for ``probs_mode="mean"``.
     """
@@ -336,9 +352,7 @@ def encode(params: Params, images, cfg: ViTConfig, *, rng=None,
     x = embed_tokens(params, images, cfg)
     if rng is not None:
         if cfg.patch_drop and not deterministic:
-            raise NotImplementedError(
-                "patch dropout (patch_drop) is not ported to vitx_torch yet "
-                "(ROADMAP A12)")
+            x = _patch_drop(x, cfg, rng)
         x = dropout(x, cfg.dropout, rng, deterministic=deterministic)
     x, probs = run_blocks(params["blocks"], x, cfg, rng=rng,
                           deterministic=deterministic,
@@ -378,12 +392,15 @@ def model_logits(params: Params, images, cfg: ViTConfig, *, rng=None,
     its ``loss_fn`` and eval step run. ``rng`` (a ``torch.Generator`` on
     that device) drives dropout and drop-path when ``deterministic`` is
     False. With ``cfg.tome_r``, deterministic calls run the ToMe encoder
-    (``vitx_torch.nn.tome.encode_tome``); training runs every token."""
-    if cfg.tome_r and deterministic:
+    (``vitx_torch.nn.tome.encode_tome``); training runs every token, or,
+    with ``cfg.tome_train``, the merging encoder with its stochastic
+    pieces (vit.py:845)."""
+    if cfg.tome_r and (deterministic or cfg.tome_train):
         # imported here: vitx_torch.nn.tome imports this module
         from vitx_torch.nn.tome import encode_tome
 
-        x = encode_tome(params, images, cfg)
+        x = encode_tome(params, images, cfg, rng=rng,
+                        deterministic=deterministic)
     else:
         x = encode(params, images, cfg, rng=rng, deterministic=deterministic)
     return classify(params, x, cfg)

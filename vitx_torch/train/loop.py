@@ -3,11 +3,13 @@
 The counterpart of ``vitx/train/loop.py``: ``Trainer.fit`` runs epochs of
 train steps over a ``BatchLoader`` or ``DeviceBatchLoader``, evaluates on
 ``eval_params()`` (the EMA shadow when the optimizer keeps one) every
-``eval_every`` epochs, stops early when val accuracy stalls, logs
-vitx's scalar tags, and writes a self-describing ``{epoch}.ckpt`` per
-epoch (meta: ``loss``, ``step``, ``config``, ``ema_decay``, ``schedule``,
-``partial``) that it resumes from. SIGTERM and SIGINT end the epoch early
-and save it as ``partial``, which a resume runs again.
+``eval_every`` epochs (through the merging encoder when the config sets
+``tome_r``, as vitx's eval step does), stops early when val accuracy
+stalls, logs vitx's scalar tags, and writes a self-describing
+``{epoch}.ckpt`` per epoch (meta: ``loss``, ``step``, ``config`` -- with
+``tome_r`` as the resolved schedule and ``tome_train`` --, ``ema_decay``,
+``schedule``, ``partial``) that it resumes from. SIGTERM and SIGINT end
+the epoch early and save it as ``partial``, which a resume runs again.
 
 Randomness differs from vitx by design (torch cannot draw threefry's
 streams): each step's preprocessing and dropout draw from generators
@@ -138,7 +140,11 @@ class Trainer:
             class_weights=tcfg.class_weights)
         self.eval_step = make_eval_step(cfg, device=self.device)
         self.preprocess = preprocess
-        self._stochastic = bool(cfg.dropout or cfg.drop_path)
+        # a generator for the steps whose forward draws: dropout,
+        # drop-path, patch dropout (with none the step is deterministic, the
+        # merging encoder of tome_train included)
+        self._stochastic = bool(cfg.dropout or cfg.drop_path
+                                or cfg.patch_drop)
         self.start_epoch = 0
         self.history: list[dict[str, Any]] = []
         self._preempted = False
