@@ -236,7 +236,41 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               with --tome-r to128 merges (B8 and K2 12 a batch), its
               accuracy the one the trainer logged; a server from the
               .ckpt as (e). Then each variant's times as (f).
-12. times  -- CUDA-event medians: the base16 forward at batch 256 bf16
+12. transfer -- main path 7, training and transfer fine-tuning on image
+              data from disk: (a) a CIFAR-10 copy in the torchvision
+              layout (5 x 256 + 256 seeded images, each class a colour
+              behind the noise) trains base16 at 224² (the pipeline
+              resizes 32²) bf16 b128 for one epoch through
+              vitx_torch.cli.train.main --data cifar10:DIR, launches as
+              the recipe's (K1 12, B2 12, B3 25 a step; K1 and K2 12 an
+              eval batch); (b) vitx_torch.cli.pack --data
+              procedural:512,128 --format raw --image-size 384 (10
+              classes), and write_shards of its first 4 classes (no PIL);
+              (c) the train CLI's trainer (build_trainer) fine-tunes
+              base16 at 384² (T 577) b32 from (a)'s .ckpt (--init-from,
+              transfer_params) for one epoch on each: every grafted leaf
+              bit-equal to the source's, pos_embed within 1e-6 of
+              resize_pos_embed of its table on the CPU, no leaf fresh on
+              the 10-class shards and exactly the head's class-sized
+              leaves on the 4-class ones, finite losses, launches a step
+              K1 12, B2 12 (sm90), B3 25 (one-pass), B12 0; (d) the same
+              transfer on the card and on the CPU, then its first step at
+              depth 2 fp32, card vs CPU, as train (a); (e)
+              vitx_torch.cli.eval on (c)'s .ckpt equals the logged
+              accuracy, and on one shard directory counts the classes
+              split_indices gives; (f) (c)'s params through a reference
+              .pt: load_reference_pt bit-equal, cli.eval --predict and a
+              server's top-1 equal to direct calls, --init-from the .pt
+              equal to transfer_params; (g) a Training/Testing folder of
+              512 + 128 256² PNG images in 4 classes (the brain-tumour
+              layout) fine-tuned as (c) on --data folder:DIR (PIL decodes
+              and resizes to 384² on the host), the eval CLI's accuracy
+              the logged one. The times phase adds (h): the fine-tune
+              step at 384² b32, the loader alone (raw shards, the CIFAR
+              copy, the PNG folder; 8 threads), each source's epoch img/s
+              and device busy share, the host's cores; and K1 with its
+              stash, B2 and B3 at T 577 as more "shapes" of their rows.
+13. times  -- CUDA-event medians: the base16 forward at batch 256 bf16
               (img/s), the train step at batch 128 bf16 (img/s), the
               large16_384 rollout forward at batch 32 bf16 (img/s), the
               same with QKV biases and forward_with_attn("full") at
@@ -337,7 +371,7 @@ PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 (data sheet)
 PEAK_FP32_FLOPS = 67e12       # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
 PHASES = ("device", "build", "kernels", "grad", "forward", "serve", "train",
-          "explain", "tome", "finetune", "recipe", "times")
+          "explain", "tome", "finetune", "recipe", "transfer", "times")
 
 KERNELS = {
     "fused_mha_block": {
@@ -763,9 +797,11 @@ def phase_kernels(errs: dict):
     # 197 rows), tiny's widths (QKV N 192, the MLP's 256), large16_384's
     # (E 1024, M 4096) and the small16 recipe's (E 384, 6 heads, M 1536:
     # QKV N 1152, the out-projection's and W2's N 384 against 256-wide
-    # tiles) at its batch 128 and a ragged M
+    # tiles) at its batch 128 and a ragged M, and the transfer fine-tune's
+    # base16 at 384² (T 577) batch 32
     for shape in ((8, 197, 768, 12), (3, 197, 768, 12), (2, 65, 64, 4),
-                  (8, 577, 1024, 16), (128, 197, 384, 6), (3, 197, 384, 6)):
+                  (8, 577, 1024, 16), (128, 197, 384, 6), (3, 197, 384, 6),
+                  (32, 577, 768, 12)):
         check_blocks_sm90(*shape, errs)
     # B5 at the rollout's heads, base16's, and past T = 1024
     for shape in ((2, 16, 577, 64), (2, 12, 197, 64), (1, 16, 1100, 64)):
@@ -1634,6 +1670,14 @@ def phase_grad(errs: dict):
     check_attention_bwd((32, 12, 1025, 64), torch.float32, FP32_TOL, errs)
     emit({"phase": "grad", "part": "fine-tune shapes, batch 32",
           "seconds": time.perf_counter() - t0})
+    # the transfer fine-tune's step, base16 at 384² (T 577) bf16 batch 32:
+    # K1's stash, B2 at (32, 12, 577, 64), B3 at (32, 577, 768) and the
+    # head's (32, 3072), autograd through both blocks
+    t0 = time.perf_counter()
+    check_training_kernels(32, 577, E, 12, torch.bfloat16, BF16_TOL,
+                           GRAD_BF16_TOL, errs)
+    emit({"phase": "grad", "part": "transfer shapes, T 577 batch 32",
+          "seconds": time.perf_counter() - t0})
     # B12 on a base16 leaf (the stacked block W1), float32 and bf16 grads
     shape = (12, E, 4 * E)
     kw = dict(lr=1e-4, c1=0.271, c2=0.002997, b1=0.9, b2=0.999, eps=1e-8,
@@ -2031,14 +2075,9 @@ def phase_finetune(ds) -> tuple:
     # (b) depth 2 fp32, batch 2, T 1025: card against CPU, the first two
     # blocks of the export
     cfg2 = cfg.replace(depth=2, compute_dtype="float32")
-
-    def depth2(p):
-        return dict(p, blocks={k: v[:2].clone()
-                               for k, v in p["blocks"].items()})
-
     check_step_card_vs_cpu("finetune", "b: base16 512² depth 2 fp32 b2, "
-                           "card vs CPU", cfg2, depth2(card), depth2(host),
-                           synthetic_batch(ds, 2), 1e-4)
+                           "card vs CPU", cfg2, first_blocks(card),
+                           first_blocks(host), synthetic_batch(ds, 2), 1e-4)
     del host
 
     # (c) the main path: full base16 at 512², bf16, batch 32, one batch
@@ -2519,19 +2558,24 @@ def phase_recipe() -> dict:
     return out
 
 
-def serve_ckpt(part: str, path: Path, cfg, ema) -> None:
-    """``load_server`` on the .ckpt ``path`` answers 32 requests from 4
-    threads: top-1 equal to direct forwards on ``ema`` (the run's EMA
-    shadow, which it must serve bit for bit), launches as a forward's."""
+def serve_ckpt(part: str, path: Path, cfg, ema, imgs=None,
+               phase: str = "recipe") -> None:
+    """``load_server`` on the artifact ``path`` answers 32 requests from 4
+    threads: top-1 equal to direct forwards on ``ema`` (the params it must
+    serve bit for bit: the run's EMA shadow for a .ckpt), launches as a
+    forward's. ``imgs``: 32 preprocessed float32 images, by default the
+    procedural val split's first at 224²."""
     from vitx_torch import forward
     from vitx_torch.data import make_preprocess
     from vitx_torch.data.procedural import ProceduralShapes
     from vitx_torch.serve import load_server
     from vitx_torch.train.step import leaves
 
-    u8 = ProceduralShapes(num_examples=32, seed=1).materialize()[0]
-    imgs = make_preprocess(out_size=224, mean=(0.5,) * 3, std=(0.5,) * 3)(
-        torch.from_numpy(u8).cuda(), None, train=False).cpu().numpy()
+    if imgs is None:
+        u8 = ProceduralShapes(num_examples=32, seed=1).materialize()[0]
+        imgs = make_preprocess(out_size=224, mean=(0.5,) * 3,
+                               std=(0.5,) * 3)(
+            torch.from_numpy(u8).cuda(), None, train=False).cpu().numpy()
     results = [None] * 32
     reset_counts()
     with load_server(path, cfg, batch_size=32, top_k=5,
@@ -2547,22 +2591,22 @@ def serve_ckpt(part: str, path: Path, cfg, ema) -> None:
         for t in threads:
             t.join(timeout=600)
         if any(t.is_alive() for t in threads):
-            raise AssertionError(f"recipe ({part}): clients did not finish")
+            raise AssertionError(f"{phase} ({part}): clients did not finish")
         stats = srv.stats.summary()
         same = all(torch.equal(a, b) for a, b in zip(
             leaves(srv._params), leaves(ema)))
     served = counts()
-    expect_launches(f"recipe ({part}): server", served,
+    expect_launches(f"{phase} ({part}): server", served,
                     forward_launches(cfg, 1 + stats["batches"]))
     direct = forward(ema, imgs, cfg).argmax(-1).tolist()
     top1 = [r["classes"][0] for r in results]
-    emit({"phase": "recipe", "part": f"{part}: load_server on "
+    emit({"phase": phase, "part": f"{part}: load_server on "
           f"{path.parent.name}/{path.name}, 32 requests from 4 threads",
           "stats": stats, "launches": served, "top1_equal": top1 == direct,
-          "serves_ema": same})
+          "serves_params": same})
     if top1 != direct or not same:
-        raise AssertionError(f"recipe ({part}): served {top1}, direct "
-                             f"{direct}, EMA served {same}")
+        raise AssertionError(f"{phase} ({part}): served {top1}, direct "
+                             f"{direct}, params served {same}")
 
 
 def direct_accuracy(params, cfg) -> float:
@@ -2681,6 +2725,530 @@ def recipe_variant(root: Path, name: str) -> dict:
     serve_ckpt(part, last_ckpt, full, ema)
     recipe_times(RECIPE_ARGS + flags, cfg, f"recipe_{name}")
     return launches
+
+
+# the transfer path: pre-training on a CIFAR-10 copy at 224², then
+# fine-tuning base16 from its .ckpt at 384² (T 577) on packed shards. The
+# cuts: CIFAR-10 5 x 256 + 256 images (from 5 x 10000 + 10000),
+# procedural:512,128 for the shards (from 12800 + 2560), one epoch each.
+TRANSFER_CIFAR = 256              # images per CIFAR batch file
+TRANSFER_DATA = "procedural:512,128"
+TRANSFER_FOUR = 4                 # the second fine-tune's classes
+
+
+def write_cifar_copy(root: Path, n: int, seed: int = 0) -> None:
+    """CIFAR-10 in the torchvision layout under ``root``
+    (``cifar-10-batches-py/data_batch_1..5``, ``test_batch``: protocol-2
+    pickles of {b"data": (n, 3072) uint8 planes, b"labels": [...]}),
+    seeded; each class is a colour of its own behind the noise, so the
+    labels can be learned."""
+    import pickle
+
+    rng = np.random.default_rng(seed)
+    palette = rng.integers(40, 216, (10, 3)).astype(np.float32)
+    d = root / "cifar-10-batches-py"
+    d.mkdir(parents=True, exist_ok=True)
+    for name in [f"data_batch_{i}" for i in range(1, 6)] + ["test_batch"]:
+        labels = rng.integers(0, 10, n)
+        img = palette[labels][:, :, None, None] + rng.normal(
+            0.0, 32.0, (n, 3, 32, 32))
+        with open(d / name, "wb") as f:
+            pickle.dump({b"data": np.clip(img, 0, 255).astype(
+                np.uint8).reshape(n, 3072), b"labels": labels.tolist()}, f,
+                protocol=2)
+
+
+class ClassSubset:
+    """The examples of ``ds`` whose label is below ``n``: a dataset of its
+    first ``n`` classes."""
+
+    def __init__(self, ds, n: int):
+        self.ds, self.idx = ds, np.flatnonzero(ds.labels < n)
+        self.classes = list(ds.classes[:n])
+        self.labels = ds.labels[self.idx]
+
+    def __len__(self):
+        return len(self.idx)
+
+    def get_example(self, i: int):
+        return self.ds.get_example(int(self.idx[i]))
+
+
+TRANSFER_FOLDER = (512, 128)      # PNG images in Training/, Testing/
+FOLDER_CLASSES = ("glioma", "meningioma", "notumor", "pituitary")
+
+
+def write_png_folder(root: Path, seed: int = 1) -> None:
+    """The brain-tumour layout under ``root``: ``Training/<class>/`` and
+    ``Testing/<class>/`` hold TRANSFER_FOLDER 256² RGB PNG images, seeded;
+    each class a tint of its own under a smooth random field and a little
+    noise. The arrays are drawn in order, the PNGs encoded by 8 threads."""
+    import concurrent.futures as cf
+
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    tint = rng.integers(60, 196, (len(FOLDER_CLASSES), 3))
+    jobs = []
+    for split, n in zip(("Training", "Testing"), TRANSFER_FOLDER):
+        for c in FOLDER_CLASSES:
+            (root / split / c).mkdir(parents=True)
+        for i, k in enumerate(rng.integers(0, len(FOLDER_CLASSES), n)):
+            field = np.kron(rng.normal(0.0, 40.0, (16, 16, 3)),
+                            np.ones((16, 16, 1)))
+            img = tint[k] + field + rng.normal(0.0, 8.0, (256, 256, 3))
+            jobs.append((np.clip(img, 0, 255).astype(np.uint8),
+                         root / split / FOLDER_CLASSES[k] / f"{i:05d}.png"))
+    with cf.ThreadPoolExecutor(8) as pool:
+        for f in [pool.submit(Image.fromarray(a).save, p) for a, p in jobs]:
+            f.result()
+
+
+def first_blocks(params: dict, n: int = 2) -> dict:
+    """``params`` with only its first ``n`` encoder blocks."""
+    return dict(params, blocks={k: v[:n].clone()
+                                for k, v in params["blocks"].items()})
+
+
+def transfer_args(src, data: str, out: Path | None, logs: Path | None,
+                  epochs: int = 1) -> list:
+    """The train CLI's flags of a transfer fine-tune of base16 at 384²
+    b32 from ``src``."""
+    argv = ["--preset", "base16", "--image-size", "384", "--init-from",
+            str(src), "--data", data, "--batch-size", "32", "--epochs",
+            str(epochs), "--seed", "0", "--log-every", "1"]
+    if out is not None:
+        argv += ["--checkpoint-dir", str(out)]
+    if logs is not None:
+        argv += ["--log-dir", str(logs)]
+    return argv
+
+
+def build_quietly(argv):
+    """``build_trainer`` on ``argv`` -> (trainer, train loader, eval
+    loader, the warnings it raised)."""
+    import warnings
+
+    import vitx_torch.cli.train as train_cli
+
+    parser = train_cli.build_argparser()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        built = train_cli.build_trainer(parser.parse_args(argv), parser)
+    return (*built, [str(w.message) for w in caught])
+
+
+def transfer_fine_tune(part: str, src: Path, data: str, root: Path,
+                       want_fresh: list) -> tuple:
+    """(c): the train CLI's trainer (``build_trainer``) fine-tunes base16
+    at 384² b32 from the 224² .ckpt ``src`` on ``data`` for one epoch.
+    Its initial params: every grafted leaf bit-equal to the source's eval
+    params, pos_embed within 1e-6 of ``resize_pos_embed`` of the source's
+    table on the CPU, the leaves kept fresh exactly ``want_fresh`` (the
+    transfer's one warning). Then launches a step and an eval batch as
+    the recipe's, finite losses. Returns (launches, trainer, the epoch's
+    history row, the checkpoint directory)."""
+    from vitx_torch.interop import resize_pos_embed
+    from vitx_torch.train import checkpoint as ckpt
+    from vitx_torch.train.step import leaves
+
+    out, logs = root / part, root / f"{part}_logs"
+    tr, train_loader, eval_loader, notes = build_quietly(
+        transfer_args(src, data, out, logs))
+    cfg = tr.cfg
+    src_cfg = ckpt.resolve_artifact_config(src)
+    source, _ = ckpt.restore_eval_params(src, src_cfg)
+    want_pe = resize_pos_embed({"pos_embed": source["pos_embed"].cpu()},
+                               src_cfg, cfg)["pos_embed"]
+    init = tr.state.params
+    names = leaf_names(init)
+    src_leaves = dict(zip(leaf_names(source), leaves(source)))
+    fresh = [n for n in notes if "fresh init kept" in n]
+    grafted, unequal = 0, []
+    for name, leaf in zip(names, leaves(init)):
+        if name == "pos_embed":
+            pe_gap = float((leaf.cpu() - want_pe).abs().max())
+        elif name not in want_fresh:
+            grafted += 1
+            if not torch.equal(leaf, src_leaves[name]):
+                unequal.append(name)
+    named = (fresh[0].split("fresh init kept for ")[1].split(" (")[0]
+             if fresh else "[]")
+    del source, src_leaves
+    reset_counts()
+    t0 = time.perf_counter()
+    hist = tr.fit(train_loader, eval_loader)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    expect = recipe_step_launches(cfg, len(train_loader), len(eval_loader))
+    losses = [v for _, v in read_scalars(logs, "Loss/train_batch")]
+    emit({"phase": "transfer", "part": f"{part[0]}: base16 384² bf16 b32 "
+          f"from the 224² CIFAR .ckpt on {data.split('/')[-1]}, one epoch "
+          "through build_trainer", "card": smi(), "warnings": notes,
+          "fresh": named, "grafted": grafted, "unequal": unequal,
+          "pos_embed_gap": pe_gap, "tol": 1e-6, "T": cfg.seq_len,
+          "classes": cfg.num_classes, "steps": len(train_loader),
+          "eval_batches": len(eval_loader), "launches": launches,
+          "expected": expect, "losses": losses, "wall_s": wall,
+          "final": {k: v for k, v in hist[-1].items()
+                    if isinstance(v, (int, float))}})
+    expect_launches(f"transfer ({part})", launches, expect)
+    if (unequal or pe_gap > 1e-6 or named != str(want_fresh)
+            or len(fresh) > 1 or cfg.seq_len != 577
+            or not any("pos_embed resized from 197 to 577" in n
+                       for n in notes)):
+        raise AssertionError(f"transfer ({part}): unequal {unequal}, gap "
+                             f"{pe_gap}, fresh {named}, notes {notes}")
+    if not (len(losses) == len(train_loader)
+            and np.all(np.isfinite(losses))):
+        raise AssertionError(f"transfer ({part}): losses {losses}")
+    return launches, tr, hist[-1], out
+
+
+def phase_transfer() -> tuple:
+    """Main path 7, transfer: (a) base16 pre-trained at 224² b128 for one
+    epoch on a CIFAR-10 copy through ``vitx_torch.cli.train.main``; (b)
+    ``vitx_torch.cli.pack`` packs procedural:512,128 at 384² as raw
+    shards (10 classes), ``write_shards`` a 4-class subset of them; (c)
+    the fine-tune at 384² b32 from (a)'s .ckpt on each
+    (``transfer_fine_tune``); (d) the transfer and its first step at depth
+    2 fp32, card vs CPU; (e) the eval CLI on (c)'s .ckpt, on the val
+    shards and on one shard directory (the stratified split); (f) (c)'s
+    params through a reference .pt: bit-equal back, the eval CLI's and a
+    server's top-1 equal to direct calls, ``--init-from`` the .pt equal
+    to ``transfer_params``; (g) a PNG folder in the brain-tumour layout
+    (``write_png_folder``), fine-tuned as (c), then the eval CLI on it.
+    Returns (the launches of (c) and (g), and what the times need)."""
+    import io
+    import os
+    import shutil
+    import warnings
+
+    import vitx_torch.cli.eval as eval_cli
+    import vitx_torch.cli.pack as pack_cli
+    import vitx_torch.cli.train as train_cli
+    from vitx_torch import forward
+    from vitx_torch.data import BatchLoader, make_preprocess
+    from vitx_torch.data.folder import split_indices
+    from vitx_torch.data.shards import ShardDataset, write_shards
+    from vitx_torch.train import checkpoint as ckpt
+    from vitx_torch.train.step import leaves
+
+    root = BUILD / "transfer"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    os.environ.setdefault("VITX_PROC_CACHE", str(BUILD / "procdata"))
+
+    # (a) pre-training on CIFAR-10 at 224², one epoch
+    cifar = root / "cifar"
+    write_cifar_copy(cifar, TRANSFER_CIFAR)
+    a_dir, a_logs = root / "a", root / "a_logs"
+    reset_counts()
+    t0 = time.perf_counter()
+    final = run_cli(train_cli.main, [
+        "--preset", "base16", "--data", f"cifar10:{cifar}", "--epochs", "1",
+        "--batch-size", "128", "--seed", "0", "--log-every", "1",
+        "--checkpoint-dir", str(a_dir), "--log-dir", str(a_logs)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = counts()
+    src = a_dir / "0.ckpt"
+    src_cfg = ckpt.resolve_artifact_config(src)
+    steps, evals = 5 * TRANSFER_CIFAR // 128, TRANSFER_CIFAR // 128
+    expect = recipe_step_launches(src_cfg, steps, evals)
+    losses = [v for _, v in read_scalars(a_logs, "Loss/train_batch")]
+    emit({"phase": "transfer", "part": "a: base16 224² bf16 b128, one "
+          "epoch on a CIFAR-10 copy through vitx_torch.cli.train.main",
+          "images": [5 * TRANSFER_CIFAR, TRANSFER_CIFAR], "wall_s": wall,
+          "launches": got, "expected": expect, "losses": losses,
+          "final": final})
+    expect_launches("transfer (a)", got, expect)
+    if not (src_cfg.num_classes == 10 and src_cfg.image_size == 224
+            and len(losses) == steps and np.all(np.isfinite(losses))):
+        raise AssertionError(f"transfer (a): {src_cfg}, losses {losses}")
+
+    # (b) the shards: the pack CLI, then a 4-class subset by write_shards
+    out, out4 = root / "shards", root / "shards4"
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = pack_cli.main(["--data", TRANSFER_DATA, "--format", "raw",
+                            "--image-size", "384", "--out", str(out)])
+    packed = [json.loads(x) for x in buf.getvalue().splitlines()]
+    pack_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for split in ("train", "val"):
+        write_shards(ClassSubset(ShardDataset(out / split, test_size=None),
+                                 TRANSFER_FOUR), out4 / split,
+                     image_format="raw")
+    sub_s = time.perf_counter() - t0
+    sizes = {str(d.relative_to(root)): len(ShardDataset(d, test_size=None))
+             for d in (out / "train", out / "val", out4 / "train",
+                       out4 / "val")}
+    emit({"phase": "transfer", "part": "b: vitx_torch.cli.pack "
+          f"--data {TRANSFER_DATA} --format raw --image-size 384, and a "
+          f"{TRANSFER_FOUR}-class subset by write_shards", "pack": packed,
+          "pack_s": pack_s, "subset_s": sub_s, "images": sizes})
+    if rc != 0 or [p["images"] for p in packed] != [512, 128]:
+        raise AssertionError(f"transfer (b): pack exit {rc}, {packed}")
+
+    # (c) the fine-tunes: the same head shape (10 classes), then a new one
+    launches, tr, last, c_dir = transfer_fine_tune(
+        "c10", src, f"shards:{out}", root, [])
+    cfg = tr.cfg
+    launches4, tr4, _, _ = transfer_fine_tune(
+        "c4", src, f"shards:{out4}", root, ["head/b2", "head/w2"])
+    del tr4
+
+    # (d) the same transfer on the card and on the CPU, then its first
+    # step at depth 2 in fp32
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        card = ckpt.transfer_params(src, cfg, 0)
+        host = ckpt.transfer_params(src, cfg, 0, device="cpu")
+    gaps = {n: float((a.cpu() - b).abs().max()) for n, a, b in zip(
+        leaf_names(host), leaves(card), leaves(host))}
+    off = {n: g for n, g in gaps.items() if g and n != "pos_embed"}
+    emit({"phase": "transfer", "part": "d: transfer_params of (a)'s .ckpt "
+          "into 384², card vs CPU", "pos_embed_gap": gaps["pos_embed"],
+          "other_leaves_off": off, "tol": 1e-6})
+    if off or gaps["pos_embed"] > 1e-6:
+        raise AssertionError(f"transfer (d): {off}, {gaps['pos_embed']}")
+    shards_train = ShardDataset(out / "train", test_size=None)
+    two = [shards_train.get_example(i) for i in range(2)]
+    batch = {"image": np.stack([e[0] for e in two]),
+             "label": np.array([e[1] for e in two], np.int32)}
+    check_step_card_vs_cpu(
+        "transfer", "d: base16 384² depth 2 fp32 b2 from the transfer, card "
+        "vs CPU", cfg.replace(depth=2, compute_dtype="float32"),
+        first_blocks(card), first_blocks(host), batch, 1e-4)
+    del card, host
+
+    # (e) the eval CLI on (c)'s checkpoint: the val shards, then one shard
+    # directory, which the stratified split divides
+    argv = ["--preset", "base16", "--checkpoint", str(c_dir), "--batch-size",
+            "32"]
+    report = run_cli(eval_cli.main, argv + ["--data", f"shards:{out}"])
+    split = run_cli(eval_cli.main, argv + ["--data",
+                                           f"shards:{out / 'train'}"])
+    labels = shards_train.labels
+    want = np.bincount(labels[split_indices(
+        labels, train=False, test_size=0.2, random_state=42)],
+        minlength=10).tolist()
+    got_counts = np.array(split["confusion_matrix"]).sum(axis=1).tolist()
+    emit({"phase": "transfer", "part": "e: vitx_torch.cli.eval on (c)'s "
+          ".ckpt, shards:OUT and shards:OUT/train", "accuracy":
+          report["accuracy"], "logged": last["val_accuracy"],
+          "split_counts": got_counts, "split_indices_counts": want})
+    if not (report["accuracy"] == last["val_accuracy"]
+            and report["num_examples"] == 128 and got_counts == want):
+        raise AssertionError(f"transfer (e): {report}, {split}, {want}")
+
+    # (f) the reference .pt
+    params = tr.state.params
+    pt, cfg_json = root / "ft.pt", root / "ft.json"
+    ckpt.save_reference_pt(pt, params, cfg, epoch=0, batch_size=32)
+    cfg_json.write_text(cfg.to_json())
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")        # corrected-parity imports
+        back, meta = ckpt.load_reference_pt(pt, cfg)
+        differ = [n for n, a, b in zip(leaf_names(params), leaves(params),
+                                       leaves(back)) if not torch.equal(a, b)]
+        preds = root / "ft_preds.jsonl"
+        pt_report = run_cli(eval_cli.main, [
+            "--config-json", str(cfg_json), "--checkpoint", str(pt),
+            "--data", f"shards:{out}", "--batch-size", "32", "--predict",
+            str(preds)])
+        val = ShardDataset(out / "val", test_size=None)
+        pre = make_preprocess(out_size=384, mean=(0.5,) * 3, std=(0.5,) * 3,
+                              random_flip=False)
+        direct, imgs = [], None
+        for b in BatchLoader(val, 32):
+            x = pre(torch.from_numpy(b["image"]).cuda(), None, train=False)
+            direct += forward(params, x, cfg).argmax(-1).tolist()
+            if imgs is None:
+                imgs = x.cpu().numpy()
+        names = [json.loads(x)["pred"] for x in preds.read_text()
+                 .splitlines()]
+        cli_top1 = [val.classes.index(n) for n in names]
+        serve_ckpt("f", pt, cfg, params, imgs=imgs, phase="transfer")
+        tr_pt, _, _, _ = build_quietly(transfer_args(pt, f"shards:{out}",
+                                                     None, None))
+        want_init = ckpt.transfer_params(pt, tr_pt.cfg, 0)
+    init_differ = [n for n, a, b in zip(
+        leaf_names(want_init), leaves(tr_pt.state.params),
+        leaves(want_init)) if not torch.equal(a, b)]
+    emit({"phase": "transfer", "part": "f: (c)'s params through a "
+          "reference .pt: load_reference_pt, cli.eval --predict, "
+          "--init-from", "meta": meta, "differ": differ,
+          "eval_top1_equal": cli_top1 == direct,
+          "accuracy": pt_report["accuracy"], "init_differ": init_differ})
+    if differ or cli_top1 != direct or init_differ or meta["epoch"] != 0:
+        raise AssertionError(f"transfer (f): differ {differ}, eval "
+                             f"{cli_top1 == direct}, init {init_differ}")
+    del tr_pt, want_init
+
+    # (g) a folder of PNG images (the brain-tumour layout), decoded and
+    # resized 256² -> 384² by PIL on the host: one epoch from (a)'s .ckpt
+    # (4 classes: a new head), then the eval CLI on it
+    folder = root / "folder"
+    t0 = time.perf_counter()
+    write_png_folder(folder)
+    write_s = time.perf_counter() - t0
+    launches_g, tr_g, last_g, g_dir = transfer_fine_tune(
+        "g", src, f"folder:{folder}", root, ["head/b2", "head/w2"])
+    del tr_g
+    report = run_cli(eval_cli.main, ["--preset", "base16", "--checkpoint",
+                                     str(g_dir), "--data", f"folder:{folder}",
+                                     "--batch-size", "32"])
+    emit({"phase": "transfer", "part": "g: vitx_torch.cli.eval on the PNG "
+          "folder's .ckpt", "write_s": write_s,
+          "accuracy": report["accuracy"], "logged": last_g["val_accuracy"],
+          "num_examples": report["num_examples"],
+          "classes": list(report["per_class_f1"])})
+    if not (report["accuracy"] == last_g["val_accuracy"]
+            and report["num_examples"] == TRANSFER_FOLDER[1]
+            and tuple(report["per_class_f1"]) == FOLDER_CLASSES):
+        raise AssertionError(f"transfer (g): eval {report}, logged "
+                             f"{last_g}")
+    return add_launches(launches, launches4, launches_g), {
+        "cifar": cifar, "shards": out, "src": src, "cfg": cfg,
+        "folder": folder,
+        "batch": {"image": np.stack([shards_train.get_example(i)[0]
+                                     for i in range(32)]),
+                  "label": shards_train.labels[:32].astype(np.int32)}}
+
+
+def loader_rate(ds, batch: int) -> dict:
+    """``BatchLoader`` alone over ``ds`` at 8 threads, twice (the second
+    with the files in the page cache): img/s."""
+    from vitx_torch.data import BatchLoader
+
+    rates = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        n = sum(int(b["mask"].sum()) for b in BatchLoader(
+            ds, batch, shuffle=True, num_threads=8))
+        rates.append(n / (time.perf_counter() - t0))
+    return {"img_per_s_runs": rates, "batch": batch, "threads": 8}
+
+
+def epoch_rate(what: str, argv: list) -> dict:
+    """A train-CLI trainer on ``argv`` through ``Trainer.fit``, one epoch
+    a call (no eval): a warm-up epoch; the next on the host clock to its
+    end on the card (img/s); a third under the profiler, whose device time
+    and wall time are both of that one epoch (the busy share; its wall
+    includes the profiler's own host cost)."""
+    tr, train_loader, _, _ = build_quietly(argv + ["--epochs", "3"])
+    n = len(train_loader.dataset)
+
+    def epoch(i):
+        tr.start_epoch, tr.tcfg.epochs = i, i + 1
+        return tr.fit(train_loader)[-1]
+
+    epoch(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = epoch(1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    prof = profile_call(f"{what} train epoch", lambda: epoch(2), top=12,
+                        wall=True)
+    busy_ms, prof_wall_ms = prof if prof else (None, None)
+    return {"epoch_s": wall, "img_per_s": n / wall, "images": n,
+            "trainer_img_per_s": stats["images_per_sec"],
+            "profiled_epoch_s": prof_wall_ms / 1e3 if prof
+            else "not measured",
+            "epoch_device_ms": busy_ms if prof else "not measured",
+            "device_share": busy_ms / prof_wall_ms if prof
+            else "not measured"}
+
+
+def phase_transfer_times(info: dict) -> None:
+    """(h) The transfer path's times on this card: the fine-tune step at
+    384² b32 (CUDA events, median of 5 after 1 warm-up; profiler split),
+    the loader alone for the raw shards, the CIFAR copy and the PNG
+    folder (decoded and resized by PIL), each source's epoch img/s and the
+    device busy share over an epoch (``epoch_rate``), and the host's
+    cores."""
+    import os
+    import warnings
+
+    from vitx_torch.data import CIFAR10, FolderDataset
+    from vitx_torch.data.shards import ShardDataset
+    from vitx_torch.train import (TrainState, checkpoint, make_optimizer,
+                                  make_train_step)
+
+    cfg, batch = info["cfg"], info["batch"]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        params = checkpoint.transfer_params(info["src"], cfg, 0)
+    opt = make_optimizer(lr=1e-4)
+    holder = [TrainState(0, params, opt.init(params))]
+    step = make_train_step(cfg, opt)
+
+    def one_step():
+        holder[0], _ = step(holder[0], batch)
+
+    step_ms = cuda_ms(one_step, reps=5, warmup=1)
+    step_device_ms = profile_call("transfer fine-tune step 384² b32",
+                                  one_step, top=16)
+    del holder, params
+    shards = info["shards"]
+    loaders = {
+        "shards_raw_384": loader_rate(
+            ShardDataset(shards / "train", test_size=None), 32),
+        "cifar10_32": loader_rate(CIFAR10(info["cifar"]), 128),
+        "folder_png_256_to_384": loader_rate(FolderDataset(
+            info["folder"] / "Training", test_size=None, image_size=384),
+            32)}
+    epochs = {
+        "shards_raw_384_b32": epoch_rate(
+            "transfer shards", transfer_args(info["src"], f"shards:{shards}",
+                                             None, None)),
+        "cifar10_224_b128": epoch_rate("transfer CIFAR-10", [
+            "--preset", "base16", "--data", f"cifar10:{info['cifar']}",
+            "--batch-size", "128", "--seed", "0"]),
+        "folder_png_384_b32": epoch_rate(
+            "transfer PNG folder", transfer_args(
+                info["src"], f"folder:{info['folder']}", None, None))}
+    emit({"phase": "times", "what": "transfer", "card": smi(),
+          "host_cpus": os.cpu_count(), "finetune_step_ms": step_ms,
+          "finetune_step_img_per_s": 32 / (step_ms / 1e3),
+          "finetune_step_device_ms": step_device_ms or "not measured",
+          "T": cfg.seq_len, "loader": loaders, "epoch": epochs})
+
+
+def transfer_kernel_shapes(launches: dict, errs: dict) -> dict:
+    """The transfer step's kernel shapes (base16 at 384², T 577, b32,
+    bf16) as more ``shapes`` of the rows: K1's sm90 row with its stash,
+    B2's two rows at (32, 12, 577, 64), B3's two at (32, 577, 768).
+    Returns row name -> [entries]."""
+    import vitx_torch
+    from vitx_torch.kernels import fused_mha_block, mha_block_plain
+
+    c = vitx_torch.get_config("base16", image_size=384)
+    B, T, E, H, D = 32, c.seq_len, c.embed_dim, c.num_heads, c.head_dim
+    eps = c.layer_norm_eps
+    x, mha, _ = block_inputs(B, T, E, H, c.mlp_dim, torch.bfloat16, 61,
+                             "cuda")
+    rows = [kernel_row(
+        "fused_mha_block_sm90",
+        lambda: fused_mha_block(x, **mha, eps=eps, stash=True),
+        lambda: mha_block_plain(x, **mha, eps=eps, stash=True),
+        sdpa_mha(x, mha, H, eps),
+        2 * B * T * E * 4 * E + 4 * B * H * T * T * D, PEAK_BF16_FLOPS,
+        6 * B * T * E * 2 + 4 * E * E * 2 + 3 * E * 4 + 2 * B * H * T * 4,
+        launches, errs, shape=[B, T, E], stash=True)]
+    del x, mha
+    rows += attention_bwd_rows((B, H, T, D), 63, launches, errs)
+    rows += ln_bwd_rows((B, T, E), 65, eps, launches, errs)
+    torch.cuda.empty_cache()
+    extra: dict = {}
+    for row in rows:
+        extra.setdefault(row["name"], []).append(shape_entry(row))
+    return extra
 
 
 def card_rel_err(a, b) -> float:
@@ -3112,11 +3680,12 @@ def verify_explains(cfg, params, imgs, queries, results) -> None:
           "direct calls", "requests": len(queries)})
 
 
-def profile_call(what: str, fn, top: int = 12, calls: int = 1):
+def profile_call(what: str, fn, top: int = 12, calls: int = 1,
+                 wall: bool = False):
     """Device time by kernel name over ``calls`` calls of ``fn``
     (torch.profiler), and the device's busy share of their wall time.
-    Returns the device time a call, ms, or None where the profiler saw no
-    device time."""
+    Returns the device time a call, ms (with ``wall``: and the window's
+    wall time, ms), or None where the profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -3146,7 +3715,9 @@ def profile_call(what: str, fn, top: int = 12, calls: int = 1):
           "busy_share": busy_ms / wall_ms if rows else "not measured",
           "top": [{"ms": ms, "count": n, "kernel": k}
                   for ms, n, k in rows[:top]]})
-    return per_call if rows else None
+    if not rows:
+        return None
+    return (per_call, wall_ms) if wall else per_call
 
 
 def phase_times(cfg, params, errs: dict, launches: dict) -> list:
@@ -4076,6 +4647,7 @@ def main(argv=None) -> int:
     import vitx_torch                   # fails outside a checkout
     from vitx_torch.nn.vit import init_params
 
+    t_start = time.perf_counter()
     phase_device()
 
     if "build" in phases:
@@ -4092,9 +4664,9 @@ def main(argv=None) -> int:
     if "forward" in phases:
         phase_forward(cfg, params)
     serve_launches, train_launches, explain_launches = {}, {}, {}
-    tome_launches, finetune_launches = {}, {}
+    tome_launches, finetune_launches, transfer_launches = {}, {}, {}
     recipe_launches = {path: {} for path in RECIPE_PATHS}
-    train = finetune = None
+    train = finetune = transfer = None
     if "serve" in phases:
         serve_launches = phase_serve(cfg, params)
     if "train" in phases:
@@ -4119,9 +4691,11 @@ def main(argv=None) -> int:
         finetune_launches, *finetune = phase_finetune(ds512)
     if "recipe" in phases:
         recipe_launches = phase_recipe()
+    if "transfer" in phases:
+        transfer_launches, transfer = phase_transfer()
     launches = add_launches(serve_launches, train_launches, explain_launches,
                             tome_launches, finetune_launches,
-                            *recipe_launches.values())
+                            *recipe_launches.values(), transfer_launches)
     if "times" in phases:
         rows = phase_times(cfg, params, errs, launches)
         if tome_launches:
@@ -4146,9 +4720,14 @@ def main(argv=None) -> int:
                     row["shapes"] = [{k: row[k] for k in extra[
                         row["name"]][0]}] + extra[row["name"]]
         del finetune
+        extras = []
         if recipe_launches["recipe"]:
             # the recipe variants' own shapes, after the rows' own numbers
-            extra = recipe_kernel_shapes(launches, errs)
+            extras.append(recipe_kernel_shapes(launches, errs))
+        if transfer:
+            phase_transfer_times(transfer)
+            extras.append(transfer_kernel_shapes(launches, errs))
+        for extra in extras:
             for row in rows:
                 if row["name"] in extra:
                     row["shapes"] = (row.get("shapes")
@@ -4162,12 +4741,14 @@ def main(argv=None) -> int:
                 "tome": tome_launches.get(row["name"], 0),
                 "finetune": finetune_launches.get(row["name"], 0),
                 **{path: got.get(row["name"], 0)
-                   for path, got in recipe_launches.items()}}
+                   for path, got in recipe_launches.items()},
+                "transfer": transfer_launches.get(row["name"], 0)}
             if row["name"] in stash:
                 row["stash_ms_b128"] = stash[row["name"]]
         missing = sorted(set(KERNELS) - {row["name"] for row in rows})
         if missing and phases == list(PHASES):
             raise AssertionError(f"no times row for {missing}")
+        emit({"phase": "total", "wall_s": time.perf_counter() - t_start})
         emit({"kernels": rows})
     if phases != list(PHASES):
         return 0

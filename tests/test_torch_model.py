@@ -200,11 +200,22 @@ def test_default_device_is_cuda():
 
 def test_imports_without_jax():
     """vitx_torch imports with jax made unimportable, and pulls in no part
-    of the vitx package."""
+    of the vitx package; the stratified split runs with scikit-learn made
+    unimportable too."""
     code = ("import sys; sys.modules['jax'] = None\n"
+            "sys.modules['sklearn'] = None\n"
             "import vitx_torch, vitx_torch.serve, vitx_torch.cli.serve\n"
             "import vitx_torch.train, vitx_torch.data, vitx_torch.metrics\n"
             "import vitx_torch.kernels._build\n"
+            "import vitx_torch.data.folder, vitx_torch.data.cifar\n"
+            "import vitx_torch.data.shards, vitx_torch.cli.pack\n"
+            "import vitx_torch.interop.torch_ref, vitx_torch.nn.flexivit\n"
+            "from vitx_torch.data.folder import split_indices\n"
+            "labels = [0] * 6 + [1] * 4\n"
+            "te = split_indices(labels, train=False, test_size=0.2, "
+            "random_state=42)\n"
+            "assert len(te) == 2 and sorted(labels[i] for i in te) == "
+            "[0, 1], te\n"
             "bad = [m for m in sys.modules if m == 'vitx' or "
             "m.startswith('vitx.')]\n"
             "assert not bad, bad\n")

@@ -200,7 +200,6 @@ def test_load_server_from_export_npz(tmp_path, params):
 
 @pytest.mark.parametrize("name,item", [("m.quant.npz", "A11"),
                                        ("m.stablehlo", "A11"),
-                                       ("m.pt", "A14"),
                                        ("3.orbax", "JAX stack")])
 def test_load_server_unported_artifacts(name, item):
     with pytest.raises(NotImplementedError, match=item):

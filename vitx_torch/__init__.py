@@ -17,8 +17,11 @@ the attention backward takes every sequence length (ViT-B/16 at 512²,
 T 1025). vitx's training driver runs on the card too: procedural data
 resident there, RandAugment as torch ops (``vitx_torch.data``), the EMA
 and the weight-decay mask, ``Trainer`` with vitx's ``.ckpt`` files
-(``vitx_torch.train``), and the train and eval CLIs.
-It imports neither ``jax`` nor ``vitx``.
+(``vitx_torch.train``), and the train and eval CLIs; so do vitx's
+on-disk sources (class folders, CIFAR-10, tar shards and the pack CLI)
+and transfer fine-tuning from any vitx or reference ``.pt`` artifact
+(``train.checkpoint.transfer_params``). It imports neither ``jax`` nor
+``vitx``.
 
 Entry points run on a CUDA device unless the caller passes
 ``device="cpu"``, where the kernels' plain torch versions run instead.

@@ -2,8 +2,11 @@
 
 The counterpart of ``vitx/cli/eval.py``: restores a ``.ckpt`` file or the
 newest one in a directory (the EMA shadow when the run kept one; the
-model config from the checkpoint's meta), or a bare params ``.npz``, and
-prints vitx's JSON report -- accuracy, weighted precision and recall,
+model config from the checkpoint's meta), a bare params ``.npz`` or a
+reference ``.pt`` (imported at the preset's or ``--config-json``'s
+geometry), evaluates it on the val split of any ``--data`` spec the train
+CLI takes (``make_datasets``: also ``cifar10:``, ``folder:`` and
+``shards:`` directories), and prints vitx's JSON report -- accuracy, weighted precision and recall,
 macro F1, per-class accuracy and F1, the example count and, for up to 10
 classes, the confusion matrix -- from one confusion matrix. ``--predict``
 writes per-example predictions, ``--tta`` averages the logits over the
@@ -38,10 +41,13 @@ def main(argv=None):
     p.add_argument("--preset", default="tiny", choices=sorted(PRESETS))
     p.add_argument("--config-json", default=None)
     p.add_argument("--checkpoint", required=True,
-                   help="checkpoint directory (newest epoch), {epoch}.ckpt "
-                        "or a bare params .npz")
+                   help="checkpoint directory (newest epoch), "
+                        "{epoch}.ckpt, a bare params .npz or a reference "
+                        ".pt")
     p.add_argument("--data", default="synthetic",
-                   help="'synthetic' or 'procedural[:<ntrain>,<nval>]'")
+                   help="any spec the train CLI takes: 'synthetic', "
+                        "'procedural[:<ntrain>,<nval>]', 'cifar10:DIR', "
+                        "'folder:DIR' or 'shards:DIR' (the val split)")
     p.add_argument("--batch-size", type=int, default=64)
     p.add_argument("--no-normalize", action="store_true")
     p.add_argument("--predict", default=None, metavar="OUT.jsonl",

@@ -123,9 +123,10 @@ def main(argv=None):
     p.add_argument("--checkpoint", default=None,
                    help="vitx checkpoint directory or {epoch}.ckpt (the "
                         "EMA shadow where the run kept one; the config "
-                        "from its meta), or a bare params .npz "
-                        "(vitx.cli.pretrain --export-vit); omit for fresh "
-                        "params")
+                        "from its meta), a bare params .npz "
+                        "(vitx.cli.pretrain --export-vit) or a reference "
+                        ".pt (at --preset's or --config-json's geometry); "
+                        "omit for fresh params")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8808)
     p.add_argument("--batch-size", type=int, default=32)

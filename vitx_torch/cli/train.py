@@ -3,13 +3,16 @@
 The counterpart of ``vitx/cli/train.py``, with its flags under the same
 names and defaults plus ``--device`` (default ``cuda``; without a CUDA
 device it exits unless ``--device cpu`` is given). It trains on
-``synthetic`` or ``procedural[:<ntrain>,<nval>]`` data (vitx's splits and
-seeds; ``VITX_PROC_CACHE`` names the procedural cache directory, default
-``.procdata``), through ``BatchLoader`` or, with ``--device-cache``,
+``synthetic``, ``procedural[:<ntrain>,<nval>]`` (``VITX_PROC_CACHE`` names
+the procedural cache directory, default ``.procdata``), ``cifar10:DIR``,
+``folder:DIR`` or ``shards:DIR`` data (vitx's splits and seeds,
+``make_datasets``), through ``BatchLoader`` or, with ``--device-cache``,
 ``DeviceBatchLoader``, with vitx's device-side preprocessing (normalise
-with 0.5 / 0.5, flips, and the augmentation flags) and ``Trainer``. Every
-other flag set away from its default exits non-zero, naming the ROADMAP
-item that brings it (``UNPORTED``).
+with 0.5 / 0.5, flips, and the augmentation flags) and ``Trainer``.
+``--init-from`` starts a transfer fine-tune from any artifact the port
+reads (``train.checkpoint.transfer_params``). Every other flag set away
+from its default exits non-zero, naming the ROADMAP item that brings it
+(``UNPORTED``).
 
 ``CONVERGENCE.md``'s ViT-S/16 recipe (``examples/convergence.py``)::
 
@@ -27,10 +30,12 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import pathlib
 import sys
 
 from vitx_torch.core.config import PRESETS, ViTConfig, get_config
-from vitx_torch.data import (BatchLoader, DeviceBatchLoader, ProceduralShapes,
+from vitx_torch.data import (CIFAR10, BatchLoader, DeviceBatchLoader,
+                             FolderDataset, ProceduralShapes, ShardDataset,
                              SyntheticDataset, make_preprocess)
 from vitx_torch.nn.tome import aligned_schedule, parse_tome_r
 from vitx_torch.train.loop import NonFiniteLossError, Trainer, TrainerConfig
@@ -65,8 +70,11 @@ def build_argparser():
     a("--image-size", type=int, default=None,
       help="override the config's input resolution")
     a("--data", default="synthetic",
-      help="'synthetic' or 'procedural[:<ntrain>,<nval>]' (default "
-           "12800,2560); cifar10:/folder:/shards: wait for ROADMAP A7")
+      help="'synthetic', 'procedural[:<ntrain>,<nval>]' (default "
+           "12800,2560), 'cifar10:DIR' (local python batches), "
+           "'folder:DIR' (one subfolder per class) or 'shards:DIR' (tar "
+           "shards, e.g. from vitx_torch.cli.pack); a folder or shard "
+           "directory with train/ and val/ (or test/) takes those splits")
     a("--epochs", type=int, default=10)
     a("--batch-size", type=int, default=64)
     a("--lr", type=float, default=1e-4)
@@ -100,8 +108,11 @@ def build_argparser():
     a("--randaug-layers", type=int, default=2)
     a("--random-erase", type=float, default=None, metavar="P")
     a("--init-from", default=None,
-      help="initialise the params from a bare vitx params .npz "
-           "(--export-vit); other artifacts wait for ROADMAP A3/A14")
+      help="initialise the params from an artifact for transfer "
+           "fine-tuning (transfer_params): a checkpoint directory, an "
+           "{epoch}.ckpt, a bare params .npz (--export-vit) or a "
+           "reference .pt; leaves graft by path and shape, pos_embed is "
+           "resized to the new grid, the rest keeps a fresh init")
     a("--lora-rank", type=int, default=0)
     a("--lora-alpha", type=float, default=0.0)
     a("--lora-targets", default="attn", choices=["attn", "all"])
@@ -165,8 +176,14 @@ def build_argparser():
 
 
 def make_datasets(spec: str, cfg: ViTConfig, seed: int):
-    """(train, val) datasets of ``--data``, with vitx's sizes and seeds
-    (``vitx/cli/train.py:278-306``)."""
+    """(train, val) datasets of ``--data``, with vitx's sizes, seeds and
+    split rules (``vitx/cli/train.py:278-351``): ``synthetic``,
+    ``procedural[:<ntrain>,<nval>]``, ``cifar10:DIR`` (local batches),
+    ``folder:DIR`` and ``shards:DIR``. A folder or shard directory with
+    ``train/`` and ``val/`` (or ``test/``; for folders also
+    ``Training/`` and ``Testing/``) takes those splits whole, and they must
+    name the same classes; otherwise the reference's stratified split
+    (``split_indices``) divides the one directory."""
     if spec == "synthetic":
         common = dict(image_size=cfg.image_size, num_classes=cfg.num_classes,
                       num_channels=cfg.num_channels)
@@ -187,9 +204,31 @@ def make_datasets(spec: str, cfg: ViTConfig, seed: int):
     if spec == "synthetic-ml":
         raise SystemExit("error: --data synthetic-ml (multi-label) is not "
                          "ported to vitx_torch yet (ROADMAP A12)")
-    if kind in ("cifar10", "folder", "shards"):
-        raise SystemExit(f"error: --data {kind}: is not ported to "
-                         f"vitx_torch yet (ROADMAP A7)")
+    if kind == "cifar10":
+        return CIFAR10(arg, train=True), CIFAR10(arg, train=False)
+    if kind in ("folder", "shards"):
+        # predefined split directories (the Kaggle brain-tumour layout
+        # ships Training/ + Testing/) beat the internal stratified split
+        ds_cls, pairs = {
+            "folder": (FolderDataset, (("train", "val"), ("train", "test"),
+                                       ("Training", "Testing"))),
+            "shards": (ShardDataset, (("train", "val"), ("train", "test"))),
+        }[kind]
+        root = pathlib.Path(arg)
+        for tr_name, te_name in pairs:
+            tr, te = root / tr_name, root / te_name
+            if tr.is_dir() and te.is_dir():
+                train_ds = ds_cls(tr, test_size=None,
+                                  image_size=cfg.image_size)
+                eval_ds = ds_cls(te, test_size=None,
+                                 image_size=cfg.image_size)
+                if train_ds.classes != eval_ds.classes:
+                    raise ValueError(
+                        f"{tr} and {te} disagree on classes: "
+                        f"{train_ds.classes} vs {eval_ds.classes}")
+                return train_ds, eval_ds
+        return (ds_cls(root, train=True, image_size=cfg.image_size),
+                ds_cls(root, train=False, image_size=cfg.image_size))
     raise SystemExit(f"error: unknown --data spec {spec!r}")
 
 
@@ -201,12 +240,6 @@ def refuse_unported(args, parser) -> None:
             flag = "--" + dest.replace("_", "-")
             raise SystemExit(f"error: {flag} is not ported to vitx_torch "
                              f"yet (ROADMAP {item})")
-    src = args.init_from
-    if src is not None and not (src.endswith(".npz")
-                                and not src.endswith(".quant.npz")):
-        raise SystemExit("error: --init-from takes a bare params .npz; "
-                         "checkpoints and other artifacts wait for ROADMAP "
-                         "A3/A14 (transfer_params)")
 
 
 def build_trainer(args, parser=None):
@@ -223,8 +256,10 @@ def build_trainer(args, parser=None):
     if args.image_size:
         cfg = cfg.replace(image_size=args.image_size)
     train_ds, eval_ds = make_datasets(args.data, cfg, args.seed)
-    if train_ds.num_classes != cfg.num_classes:
-        cfg = cfg.replace(num_classes=train_ds.num_classes)
+    # the folder, CIFAR and shard datasets name their classes only
+    n_classes = getattr(train_ds, "num_classes", len(train_ds.classes))
+    if n_classes != cfg.num_classes:
+        cfg = cfg.replace(num_classes=n_classes)
     if args.drop_path:
         cfg = cfg.replace(drop_path=args.drop_path)
     if args.patch_drop:
@@ -282,12 +317,16 @@ def build_trainer(args, parser=None):
         wd_exclude=args.wd_exclude)
     init_state = None
     if args.init_from:
-        from vitx_torch.interop.jax_params import params_from_jax
+        from vitx_torch.train.checkpoint import (is_bare_params_npz,
+                                                 transfer_params)
 
-        # a bare --export-vit npz comes from an encoder that normalises its
-        # output (vitx/cli/train.py:493-498)
-        cfg = cfg.replace(final_norm=True)
-        params = params_from_jax(args.init_from, cfg, device=args.device)
+        if is_bare_params_npz(args.init_from):
+            # a bare --export-vit npz comes from an encoder that normalises
+            # its output; checkpoints and .pt keep the user's config
+            # (vitx/cli/train.py:493-498)
+            cfg = cfg.replace(final_norm=True)
+        params = transfer_params(args.init_from, cfg, args.seed,
+                                 device=args.device)
         init_state = TrainState(0, params, optimizer.init(params))
     tcfg = TrainerConfig(
         epochs=args.epochs, lr=args.lr, weight_decay=args.weight_decay,

@@ -45,10 +45,10 @@ def _leaf(arr, cfg: ViTConfig, dev):
     return torch.tensor(np.asarray(arr, np.float32)).to(cfg.pdtype()).to(dev)
 
 
-def _resized_pos_embed(saved: np.ndarray, cfg: ViTConfig):
-    """A saved (1, prefix + g², E) table resized to ``cfg``'s grid, or None
-    where the mismatch is not a pure change of square grid
-    (``vitx/cli/pretrain.py:306-328``). ``parity="bug_exact"`` stores the
+def _resized_pos_embed(saved, cfg: ViTConfig):
+    """A saved (1, prefix + g², E) table (an array, or a tensor on any
+    device) resized in fp32 to ``cfg``'s grid, or None where the mismatch
+    is not a pure change of square grid (``vitx/cli/pretrain.py:306-328``). ``parity="bug_exact"`` stores the
     CLS row after the patches, which the resize would blend into the grid,
     so it keeps the fresh init too."""
     if cfg.parity == "bug_exact":
@@ -61,12 +61,12 @@ def _resized_pos_embed(saved: np.ndarray, cfg: ViTConfig):
     if g <= 0 or g * g != n_patches or g == cfg.grid_size:
         return None
     cfg_from = cfg.replace(image_size=g * cfg.patch_size)
-    table = torch.from_numpy(np.asarray(saved, np.float32))
+    table = torch.as_tensor(saved).float()
     return resize_pos_embed({"pos_embed": table}, cfg_from,
                             cfg)["pos_embed"]
 
 
-def params_from_jax(tree, cfg: ViTConfig, device="cuda") -> dict:
+def params_from_jax(tree, cfg: ViTConfig, device="cuda", rng=0) -> dict:
     """The port's parameter tree from vitx's.
 
     ``tree`` is either vitx's nested dict (leaves: numpy arrays, or
@@ -78,14 +78,15 @@ def params_from_jax(tree, cfg: ViTConfig, device="cuda") -> dict:
     grid (``resize_pos_embed``) with a warning naming the two position
     counts; any other leaf the file lacks or holds in another shape --
     and a table that is no pure grid change, or any table under
-    ``parity="bug_exact"`` -- keeps a fresh init (seed 0), named in one
-    warning.
+    ``parity="bug_exact"`` -- keeps a fresh init drawn from ``rng`` (a
+    seed or a ``torch.Generator``), named in one warning.
     """
     dev = resolve_device(device)
     spec = param_spec(cfg)
     out: dict = {}
     if isinstance(tree, (str, os.PathLike)):
-        gen = torch.Generator().manual_seed(0)
+        gen = rng if isinstance(rng, torch.Generator) else \
+            torch.Generator().manual_seed(int(rng))
         fresh = []
         with np.load(tree) as data:
             for path, (shape, init) in _walk(spec):

@@ -291,11 +291,12 @@ class InferenceServer:
 def load_server(checkpoint, cfg: ViTConfig, *, device="cuda",
                 **kw) -> InferenceServer:
     """A server from ``None`` (fresh parameters, seed 0), a vitx checkpoint
-    directory or ``{epoch}.ckpt`` (the EMA shadow where the run kept one)
-    or a bare params ``.npz`` (``vitx.cli.pretrain --export-vit``), by the
-    eval CLI's loading rule (``train.checkpoint.load_artifact_params``).
-    The other artifact kinds of ``vitx.serve.load_server`` raise, naming
-    the ROADMAP item that brings each; orbax directories need JAX."""
+    directory or ``{epoch}.ckpt`` (the EMA shadow where the run kept one),
+    a bare params ``.npz`` (``vitx.cli.pretrain --export-vit``) or a
+    reference ``.pt``, by the eval CLI's loading rule
+    (``train.checkpoint.load_artifact_params``). ``.quant.npz`` and
+    ``.stablehlo`` raise, naming ROADMAP A11; orbax directories need
+    JAX."""
     from vitx_torch.train.checkpoint import load_artifact_params
 
     dev = resolve_device(device)

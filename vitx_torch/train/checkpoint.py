@@ -22,6 +22,10 @@ the newest files, never the ``protect``ed epoch; ``restore_latest``
 quarantines an unreadable file as ``<name>.corrupt`` and tries the epoch
 before. vitx's orbax directories (``{epoch}.orbax``) are listed but not
 read: they need the JAX stack.
+
+The reference model's ``.pt`` files are written and read here too
+(``save_reference_pt``, ``load_reference_pt``), and ``transfer_params``
+starts a fine-tune from any of these artifacts at a new geometry.
 """
 
 from __future__ import annotations
@@ -355,7 +359,6 @@ def restore_eval_params(path_or_dir, cfg: ViTConfig, device="cuda"):
 _NOT_PORTED_ARTIFACTS = (
     (".quant.npz", "int8 .quant.npz artifacts", "A11"),
     (".stablehlo", ".stablehlo deployment artifacts", "A11"),
-    (".pt", "reference .pt checkpoints", "A14"),
 )
 
 
@@ -368,13 +371,73 @@ def _refuse_unported(path: pathlib.Path) -> None:
         raise _orbax_error(path)
 
 
+def save_reference_pt(path, params, cfg: ViTConfig, *, epoch: int,
+                      loss: float = 0.0, step: int = 0, batch_size: int = 1,
+                      opt_state: AdamWState | None = None, lr: float = 1e-4,
+                      weight_decay: float = 1e-4) -> None:
+    """Write a reference-layout ``{epoch}.pt``: ``{'epoch',
+    'model_state_dict', 'optimizer_state_dict', 'loss', 'step'}``
+    (``vitx/train/checkpoint.py:372-427``), tensors on the CPU. With
+    ``opt_state`` (an ``AdamWState``) the AdamW moments go out in the
+    reference's layout, so its resume (``train.py:73``) continues with the
+    same state; without, a fresh AdamW state dict (its param group, no
+    moments). ``cfg`` must be one the port runs (``check_ported``: LoRA,
+    whose adapters vitx folds in first, raises)."""
+    from vitx_torch.interop.torch_ref import (
+        export_reference_optimizer_state, export_reference_state_dict,
+        optimizer_param_groups)
+    from vitx_torch.nn.vit import check_ported
+
+    check_ported(cfg)
+
+    def host(tree):
+        return {k: host(v) if isinstance(v, dict) else v.cpu()
+                for k, v in tree.items()}
+
+    sd = host(export_reference_state_dict(params, cfg,
+                                          batch_size=batch_size))
+    if opt_state is not None:
+        osd = export_reference_optimizer_state(
+            opt_state, cfg, lr=lr, weight_decay=weight_decay,
+            batch_size=batch_size)
+        osd["state"] = {i: host(st) for i, st in osd["state"].items()}
+    else:
+        osd = {"state": {}, "param_groups": optimizer_param_groups(
+            cfg, lr=lr, weight_decay=weight_decay)}
+    torch.save({"epoch": epoch, "model_state_dict": sd,
+                "optimizer_state_dict": osd, "loss": loss, "step": step},
+               path)
+
+
+def load_reference_pt(path, cfg: ViTConfig, device="cuda"):
+    """A reference ``.pt`` (a ``torch.save`` dict with
+    ``model_state_dict``, or a bare state dict) -> (params, meta): the
+    tree imported on ``device`` at ``cfg``'s geometry
+    (``import_reference_state_dict``) in ``cfg.param_dtype``, and the
+    file's epoch, loss and step. The file is read with ``weights_only``:
+    tensors and plain containers, never code."""
+    from vitx_torch.interop.torch_ref import import_reference_state_dict
+
+    dev = resolve_device(device)
+    ckpt = torch.load(path, map_location=dev, weights_only=True)
+    sd = ckpt.get("model_state_dict", ckpt)
+    params = import_reference_state_dict(sd, cfg)
+
+    def cast(tree):
+        return {k: cast(v) if isinstance(v, dict) else v.to(cfg.pdtype())
+                for k, v in tree.items()}
+    meta = {k: ckpt[k] for k in ("epoch", "loss", "step") if k in ckpt}
+    return cast(params), meta
+
+
 def resolve_artifact_config(checkpoint, config_json=None, preset="tiny",
                             tome_r=0) -> ViTConfig:
     """The config rule eval and serve share
     (``vitx/train/checkpoint.py:445-490``): an explicit ``config_json``
     wins, then the config a checkpoint's meta records (with the train-time
     ToMe knobs dropped: merging at inference is the caller's ``tome_r``),
-    then the preset. ``tome_r`` (a ``parse_tome_r`` value) applies last."""
+    then the preset (a bare ``.npz`` and a reference ``.pt`` record none).
+    ``tome_r`` (a ``parse_tome_r`` value) applies last."""
     from vitx_torch.core.config import get_config
     from vitx_torch.nn.tome import aligned_schedule
 
@@ -386,7 +449,7 @@ def resolve_artifact_config(checkpoint, config_json=None, preset="tiny",
     if checkpoint and not config_json:
         p = pathlib.Path(checkpoint)
         _refuse_unported(p)
-        saved = None if p.suffix == ".npz" else peek_meta(p)
+        saved = None if p.suffix in (".npz", ".pt") else peek_meta(p)
         if saved and "config" in saved:
             cfg = ViTConfig.from_json(json.dumps(saved["config"]))
             if cfg.tome_r or cfg.tome_train:
@@ -396,20 +459,135 @@ def resolve_artifact_config(checkpoint, config_json=None, preset="tiny",
     return cfg.replace(tome_r=tome_r) if tome_r else cfg
 
 
+def is_bare_params_npz(checkpoint) -> bool:
+    """An ``--export-vit`` file: flat "a/b/c" leaves with ``pos_embed``
+    and no ``__meta__``. The one rule for a bare ``.npz`` in eval, serve,
+    ``transfer_params`` and the train CLI's ``final_norm``: an ``.npz``
+    that carries ``__meta__`` is a checkpoint and transfers through the
+    config it records, where vitx's suffix test in ``transfer_params``
+    would graft nothing from it."""
+    p = pathlib.Path(checkpoint)
+    if p.suffix != ".npz" or not p.is_file():
+        return False
+    with np.load(p) as data:
+        return "__meta__" not in data.files and "pos_embed" in data.files
+
+
 def load_artifact_params(checkpoint, cfg: ViTConfig, device="cuda"):
     """-> (params, meta) from a checkpoint directory or ``{epoch}.ckpt``
-    (``restore_eval_params``: the EMA shadow where there is one) or a bare
-    params ``.npz`` (``params_from_jax``); raises ``FileNotFoundError``
-    when nothing is there and ``NotImplementedError`` for the artifact
-    kinds the port cannot read yet (``vitx/train/checkpoint.py:
-    493-528``)."""
+    (``restore_eval_params``: the EMA shadow where there is one), a bare
+    params ``.npz`` (``params_from_jax``) or a reference ``.pt``
+    (``load_reference_pt``, at ``cfg``'s geometry); raises
+    ``FileNotFoundError`` when nothing is there and ``NotImplementedError``
+    for the artifact kinds the port cannot read yet (``vitx/train/
+    checkpoint.py:493-528``)."""
     from vitx_torch.interop.jax_params import params_from_jax
 
     p = pathlib.Path(checkpoint)
     _refuse_unported(p)
-    if p.suffix == ".npz" and p.is_file():
+    if p.suffix == ".pt":
+        return load_reference_pt(p, cfg, device=device)
+    if is_bare_params_npz(p):
         return params_from_jax(p, cfg, device=device), {"epoch": -1}
     params, meta = restore_eval_params(p, cfg, device=device)
     if meta is None:
         raise FileNotFoundError(f"no checkpoint under {p}")
     return params, meta
+
+
+def _sorted_leaves(tree, prefix=()):
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from _sorted_leaves(tree[k], prefix + (k,))
+        else:
+            yield prefix + (k,), tree[k]
+
+
+def _graft(key: str, node, leaf, src_cfg: ViTConfig, cfg: ViTConfig, p):
+    """The source leaf ``node`` as the target's ``leaf`` (shape and dtype),
+    or None where it does not transfer."""
+    if tuple(node.shape) == tuple(leaf.shape):
+        return node.to(device=leaf.device, dtype=leaf.dtype)
+    if key == "pos_embed":
+        from vitx_torch.interop.jax_params import _resized_pos_embed
+
+        resized = _resized_pos_embed(node, cfg)
+        if resized is not None:
+            warnings.warn(f"transfer from {p}: pos_embed resized from "
+                          f"{node.shape[1]} to {cfg.pos_len} positions "
+                          f"(grid {cfg.grid_size}x{cfg.grid_size})")
+            return resized.to(device=leaf.device, dtype=leaf.dtype)
+    if (key == "patch_embed/kernel"
+            and src_cfg.stem == "patch" and cfg.stem == "patch"
+            and src_cfg.num_channels == cfg.num_channels
+            and node.ndim == 2 and node.shape[1] == leaf.shape[1]
+            and node.shape[0] == src_cfg.patch_size ** 2
+            * src_cfg.num_channels):
+        from vitx_torch.nn.flexivit import pi_resize_patch_kernel
+
+        warnings.warn(f"transfer from {p}: patchify kernel PI-resized from "
+                      f"patch {src_cfg.patch_size} to {cfg.patch_size}")
+        return pi_resize_patch_kernel(node, src_cfg.patch_size,
+                                      cfg.patch_size, cfg.num_channels).to(
+            device=leaf.device, dtype=leaf.dtype)
+    return None
+
+
+def transfer_params(checkpoint, cfg: ViTConfig, rng=0, *, device="cuda"):
+    """A ``cfg``-shaped param tree from any artifact the port reads, for
+    transfer fine-tuning: a new class head, image size or patch size
+    (``vitx/train/checkpoint.py:565-665``). ``rng`` (a seed or a
+    ``torch.Generator``) draws the fresh init.
+
+    The source's geometry is the config its meta records; a reference
+    ``.pt`` records none and is imported at ``cfg``'s geometry, and a
+    source with no config raises ``ValueError``. A bare params ``.npz``
+    goes to ``params_from_jax``'s file route (vitx's ``load_vit_init``).
+    Leaves graft by (path, shape). A ``pos_embed`` of another square grid
+    is resized bilinearly, except across parities (``bug_exact`` stores
+    the CLS row last, so the same shape holds other rows: it stays
+    fresh); the patchify kernel is PI-resized across patch sizes; every
+    other leaf keeps its fresh init, named in one warning."""
+    from vitx_torch.interop.jax_params import params_from_jax
+    from vitx_torch.nn.vit import init_params
+
+    p = pathlib.Path(checkpoint)
+    _refuse_unported(p)
+    if not p.exists():
+        raise FileNotFoundError(f"transfer from {p}: no such artifact")
+    if is_bare_params_npz(p):
+        return params_from_jax(p, cfg, device=device, rng=rng)
+    if p.suffix == ".pt":
+        src_cfg = cfg
+    else:
+        saved = peek_meta(p)
+        if not saved or "config" not in saved:
+            raise ValueError(
+                f"transfer from {p}: the artifact records no model config "
+                f"(e.g. an MAE pretraining checkpoint directory: export a "
+                f"fine-tune init with `pretrain --export-vit` instead), so "
+                f"the source geometry cannot be restored safely")
+        src_cfg = ViTConfig.from_json(json.dumps(saved["config"]))
+    src, _ = load_artifact_params(p, src_cfg, device=device)
+    out = init_params(rng, cfg, device=device)
+    fresh = []
+    for path, leaf in _sorted_leaves(out):
+        key = "/".join(path)
+        node = src
+        for k in path:
+            node = node.get(k) if isinstance(node, dict) else None
+        if key == "pos_embed" and src_cfg.parity != cfg.parity:
+            node = None
+        got = None if node is None else _graft(key, node, leaf, src_cfg,
+                                               cfg, p)
+        if got is None:
+            fresh.append(key)
+            continue
+        tree = out
+        for k in path[:-1]:
+            tree = tree[k]
+        tree[path[-1]] = got
+    if fresh:
+        warnings.warn(f"transfer from {p}: fresh init kept for {fresh} "
+                      "(missing or shape-mismatched in the source)")
+    return out
