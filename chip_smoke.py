@@ -270,7 +270,31 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               copy, the PNG folder; 8 threads), each source's epoch img/s
               and device busy share, the host's cores; and K1 with its
               stash, B2 and B3 at T 577 as more "shapes" of their rows.
-13. times  -- CUDA-event medians: the base16 forward at batch 256 bf16
+13. artifacts -- main path 8, the model shipped (base16 bf16 at full
+              width): (a) an int8 .quant.npz of the params, about 1/4 of
+              their fp32 bytes, quantization_error at most 1/254, a
+              server on it answering 32 requests with the top-1 of direct
+              forwards on the dequantized params; (b) a symbolic-batch
+              torch.export program made on the card, saved, loaded and
+              called at batch 1, 8 and 256: K1 and K2 12 launches each a
+              call (all sm90), logits within BF16_TOL of the eager forward
+              with equal top-1, b256 timed against eager in turns; (c) a
+              ToMe r=13 program pinned at b32: B8 and K2 12 a call; (d) a
+              QKV-bias program: B5 12 a call (sm90), K2 12; (e) a .pt2
+              server, top-1 equal to direct forwards, /explain refused;
+              (f) depth 2 fp32, card vs CPU: forward_features (both pools)
+              within 1e-4 and the probe CLI on a .quant.npz over
+              procedural:128,64, reports and features alike. Its
+              launches are the kernels line's "export" path.
+14. bench  -- main path 9, vitx's bench configurations on the card: K1
+              (with and without its stash), K2, B2 and B3 at huge14's
+              shapes (E 1280, 10 heads of D 128: the earlier attention
+              kernels, the sm90 GEMM) held to their plain versions in
+              bf16, then vitx_torch.cli.bench configs 3, 7 and 13 (the
+              last the "huge14" path: its launches asserted), then
+              vitx_torch.cli.tune --mode infer on base16 at 64, 128 and
+              256 with no error row.
+15. times  -- CUDA-event medians: the base16 forward at batch 256 bf16
               (img/s), the train step at batch 128 bf16 (img/s), the
               large16_384 rollout forward at batch 32 bf16 (img/s), the
               same with QKV biases and forward_with_attn("full") at
@@ -313,7 +337,10 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               B2 at the patch-drop step's T 99 (small16, 6 heads); and a
               block's attention half under grad at (128, 197) and (128,
               128): B8 with its composed backward against K1 with its
-              stash then B2 and B3, forward and backward apart.
+              stash then B2 and B3, forward and backward apart. After the
+              bench phase, K1's and K2's rows at huge14's (32, 257, 1280),
+              B2's earlier kernel at (8, 10, 257, 128) and B3's at (8, 257,
+              1280), as more "shapes".
 
 Each main path runs with the kernels' launch counts set to 0 just before
 it and read just after. ``attention_bwd``, ``flash_attention`` and the
@@ -323,7 +350,9 @@ wrappers' ``launches_sm90``, the launches on the sm90 route, and the
 ``*_onepass`` rows B3's and B10's ``launches_onepass`` (COUNTERS); B7's and B8's
 launches on the sm90 attention are counted beside them (EXTRA_COUNTERS)
 and reported in their sm90 rows.
-The last lines are one JSON
+Each phase's end is printed on the script's clock (``{"phase": ...,
+"ended_at_s": ...}``; ``times`` ends at the ``total`` line). The last
+lines are one JSON
 object listing the kernels and, last, ``{"ok": true, "device": {...}}``.
 ``--phases`` runs a subset (``device,build,grad`` is the quick check
 after editing a kernel); a subset never prints the ok line.
@@ -370,8 +399,12 @@ GRADCAM_TOL = GRAD_BF16_TOL
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 (data sheet)
 PEAK_FP32_FLOPS = 67e12       # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
+PROFILE_LEAD = 1024           # spin kernels that open profile_call's window
+PROFILE_LEAD_KEPT = 960       # of them a window must keep to be read
+PROFILE_TRIES = 3             # windows profile_call traces at most
 PHASES = ("device", "build", "kernels", "grad", "forward", "serve", "train",
-          "explain", "tome", "finetune", "recipe", "transfer", "times")
+          "explain", "tome", "finetune", "recipe", "transfer", "artifacts",
+          "bench", "times")
 
 KERNELS = {
     "fused_mha_block": {
@@ -1503,11 +1536,13 @@ def check_entries_backward(shape, dtype, tol, errs: dict) -> None:
           errs if bf else None, "ln_bwd_onepass", **info)
 
 
-def check_backward_kernels(B, T, E, H, dtype, tol, errs: dict):
+def check_backward_kernels(B, T, E, H, dtype, tol, errs: dict,
+                           phase: str = "grad"):
     """B2 at (B, H, T, E / H) and B3 at (B, T, E) and the head's (B, 4E)
-    against their plain versions in ``dtype``: B3 through ``ln_bwd`` on its
-    one-pass route (launches_onepass one a call), twice bit for bit, and its
-    earlier kernel on the same inputs through the launcher."""
+    against their plain versions in ``dtype``: B3 through ``ln_bwd`` on
+    the route ``ln_bwd_route`` gives the width (one-pass up to E 4096,
+    launches_onepass one a call), twice bit for bit, and its earlier
+    kernel on the same inputs through the launcher."""
     import importlib
 
     from vitx_torch.kernels import ln_bwd, ln_bwd_plain
@@ -1520,23 +1555,26 @@ def check_backward_kernels(B, T, E, H, dtype, tol, errs: dict):
         x = seeded(shape, 5, 2.0, 0.5, dtype=dtype)
         dy = seeded(shape, 6, 0.1, dtype=dtype)
         sc = seeded(shape[-1:], 7, 0.1, 1.0)
+        En = shape[-1]
+        onepass = tln.ln_bwd_route(dtype, En, (x, dy)) != 0
+        name = "ln_bwd_onepass" if onepass else "ln_bwd"
         n1 = ln_bwd.launches_onepass
         out = ln_bwd(x, sc, dy)
         torch.cuda.synchronize()
-        if ln_bwd.launches_onepass != n1 + 1:
-            raise AssertionError(f"ln_bwd {shape} {dtype}: not on the "
-                                 f"one-pass route")
+        if (ln_bwd.launches_onepass == n1 + 1) != onepass:
+            raise AssertionError(f"ln_bwd {shape} {dtype}: one-pass route "
+                                 f"taken {not onepass}")
         ref = ln_bwd_plain(x, sc, dy)
-        check("grad", "ln_bwd, one-pass route", out, ref, tol,
-              errs if bf else None, "ln_bwd_onepass", shape=list(shape),
-              **info)
-        bitwise("grad", "ln_bwd, one-pass route, twice", ln_bwd(x, sc, dy),
-                out, shape=list(shape), **info)
-        En = shape[-1]
-        was = tln._launch(x.reshape(-1, En), sc, dy.reshape(-1, En), 1e-5, 0)
-        check("grad", "ln_bwd, the earlier kernel", (was[0].reshape(shape),
-                                                     *was[1:]), ref, tol,
-              errs if bf else None, "ln_bwd", shape=list(shape), **info)
+        check(phase, f"ln_bwd, the wrapper's route ({name})", out, ref, tol,
+              errs if bf else None, name, shape=list(shape), **info)
+        bitwise(phase, f"ln_bwd ({name}), twice", ln_bwd(x, sc, dy), out,
+                shape=list(shape), **info)
+        if onepass:
+            was = tln._launch(x.reshape(-1, En), sc, dy.reshape(-1, En),
+                              1e-5, 0)
+            check(phase, "ln_bwd, the earlier kernel",
+                  (was[0].reshape(shape), *was[1:]), ref, tol,
+                  errs if bf else None, "ln_bwd", shape=list(shape), **info)
 
 
 def check_training_kernels(B, T, E, H, dtype, tol, gtol, errs: dict):
@@ -1796,6 +1834,27 @@ def phase_forward(cfg, params):
         raise AssertionError(f"forward vs plain: rel err {err}")
 
 
+def concurrent_predict(srv, imgs, threads: int = 8,
+                       what: str = "serve") -> list:
+    """Every image of ``imgs`` through ``srv.predict``, from ``threads``
+    client threads."""
+    results = [None] * len(imgs)
+
+    def client(c):
+        for i in range(c, len(imgs), threads):
+            results[i] = srv.predict(imgs[i])
+
+    pool = [threading.Thread(target=client, args=(c,))
+            for c in range(threads)]
+    for t in pool:
+        t.start()
+    for t in pool:
+        t.join(timeout=600)
+    if any(t.is_alive() for t in pool):
+        raise AssertionError(f"{what}: clients did not finish")
+    return results
+
+
 def phase_serve(cfg, params, phase: str = "serve") -> dict:
     from vitx_torch import forward
     from vitx_torch.serve import InferenceServer
@@ -1803,22 +1862,10 @@ def phase_serve(cfg, params, phase: str = "serve") -> dict:
     rng = np.random.default_rng(2)
     imgs = rng.standard_normal(
         (64, cfg.image_size, cfg.image_size, 3)).astype(np.float32)
-    results = [None] * 64
     reset_counts()
     with InferenceServer(params, cfg, batch_size=32, top_k=5,
                          max_delay_ms=20.0) as srv:
-        def client(c):
-            for i in range(c * 8, c * 8 + 8):
-                results[i] = srv.predict(imgs[i])
-
-        threads = [threading.Thread(target=client, args=(c,))
-                   for c in range(8)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=600)
-        if any(t.is_alive() for t in threads):
-            raise AssertionError("serve: clients did not finish")
+        results = concurrent_predict(srv, imgs, what=phase)
         stats = srv.stats.summary()
     launches = counts()
     forwards = 1 + stats["batches"]            # the warm-up, then batches
@@ -2576,22 +2623,11 @@ def serve_ckpt(part: str, path: Path, cfg, ema, imgs=None,
         imgs = make_preprocess(out_size=224, mean=(0.5,) * 3,
                                std=(0.5,) * 3)(
             torch.from_numpy(u8).cuda(), None, train=False).cpu().numpy()
-    results = [None] * 32
     reset_counts()
     with load_server(path, cfg, batch_size=32, top_k=5,
                      max_delay_ms=20.0) as srv:
-        def client(c):
-            for i in range(c * 8, c * 8 + 8):
-                results[i] = srv.predict(imgs[i])
-
-        threads = [threading.Thread(target=client, args=(c,))
-                   for c in range(4)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=600)
-        if any(t.is_alive() for t in threads):
-            raise AssertionError(f"{phase} ({part}): clients did not finish")
+        results = concurrent_predict(srv, imgs, threads=4,
+                                     what=f"{phase} ({part})")
         stats = srv.stats.summary()
         same = all(torch.equal(a, b) for a, b in zip(
             leaves(srv._params), leaves(ema)))
@@ -3685,32 +3721,52 @@ def profile_call(what: str, fn, top: int = 12, calls: int = 1,
     """Device time by kernel name over ``calls`` calls of ``fn``
     (torch.profiler), and the device's busy share of their wall time.
     Returns the device time a call, ms (with ``wall``: and the window's
-    wall time, ms), or None where the profiler saw no device time."""
+    wall time, ms), or None where the profiler saw no device time.
+
+    The trace drops a window's first activity records, more of them the
+    longer the process has run, and where it drops many it also shrinks
+    the durations it keeps (PERF.md, Findings, PR 14): PROFILE_LEAD spin
+    kernels open the window, finished before ``fn`` runs, and are left
+    out of the rows. A window that kept fewer than PROFILE_LEAD_KEPT of
+    them is traced again, up to PROFILE_TRIES windows in all, and reads
+    as not measured if none kept enough."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
+    for tries in range(1, PROFILE_TRIES + 1):
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for ev in prof.key_averages():
-        # device kernels only: an aten:: op's row repeats its kernels' time
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        dev_us = ev.self_device_time_total
-        if dev_us > 0:
-            rows.append((dev_us / 1e3, ev.count, ev.key[:90]))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_LEAD):
+                torch.cuda._sleep(100)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        rows, lead_kept = [], 0
+        for ev in prof.key_averages():
+            # device kernels only: an aten:: op's row repeats its kernels'
+            # time
+            if ev.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            if "spin_kernel" in ev.key:
+                lead_kept += ev.count
+                continue
+            dev_us = ev.self_device_time_total
+            if dev_us > 0:
+                rows.append((dev_us / 1e3, ev.count, ev.key[:90]))
+        if lead_kept >= PROFILE_LEAD_KEPT:
+            break
+    else:
+        rows = []
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
     # a call's device time: each kernel's mean launch times its launches a
-    # call (the trace can miss the window's first launch, 4 of 5 counted)
+    # call
     per_call = sum(ms / n * max(1, round(n / calls)) for ms, n, _ in rows)
     emit({"phase": "profile", "what": what, "calls": calls,
-          "wall_ms": wall_ms,
+          "wall_ms": wall_ms, "lead_kept": lead_kept, "tries": tries,
           "device_busy_ms": busy_ms if rows else "not measured",
           "busy_share": busy_ms / wall_ms if rows else "not measured",
           "top": [{"ms": ms, "count": n, "kernel": k}
@@ -3718,6 +3774,34 @@ def profile_call(what: str, fn, top: int = 12, calls: int = 1,
     if not rows:
         return None
     return (per_call, wall_ms) if wall else per_call
+
+
+def profile_window_check(what: str, fn, calls: int = 5) -> None:
+    """The records the trace keeps at this point of the run of ``calls``
+    calls of ``fn``: in a bare window, and in one opened by PROFILE_LEAD
+    spin kernels as ``profile_call`` opens it (the spin kernels it kept
+    beside)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    kept = {}
+    for lead in (0, PROFILE_LEAD):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(lead):
+                torch.cuda._sleep(100)
+            torch.cuda.synchronize()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        kept[lead] = [sum(e.count for e in evs if "spin_kernel" not in e.key),
+                      sum(e.count for e in evs if "spin_kernel" in e.key)]
+    emit({"phase": "times", "what": f"profiler window: {what}",
+          "calls": calls, "kernel_records_bare": kept[0][0],
+          "kernel_records_led": kept[PROFILE_LEAD][0],
+          "lead": PROFILE_LEAD, "lead_records_kept": kept[PROFILE_LEAD][1]})
 
 
 def phase_times(cfg, params, errs: dict, launches: dict) -> list:
@@ -3741,6 +3825,8 @@ def phase_times(cfg, params, errs: dict, launches: dict) -> list:
     x, mha, mlp = block_inputs(B, T, E, H, M, torch.bfloat16, 4, "cuda")
     bf = torch.bfloat16
     eps = cfg.layer_norm_eps
+    profile_window_check("fused_mha_block b256",
+                         lambda: fused_mha_block(x, **mha, eps=eps))
     w1_t, w2_t = mlp["w1"].t().contiguous(), mlp["w2"].t().contiguous()
     lib_mha = sdpa_mha(x, mha, H, eps)
 
@@ -4632,6 +4718,336 @@ def phase_finetune_times(cfg, state, batch, step, launches: dict,
     return rows, shapes
 
 
+ARTIFACTS = BUILD / "artifacts"
+# huge14's shapes in vitx's bench 13: inference at batch 32, the train
+# step at batch 8, T 257 (16 x 16 patches of 14 and the CLS)
+HUGE_B, HUGE_TRAIN_B = 32, 8
+
+
+def same_top1(what: str, results, logits) -> None:
+    want = logits.float().argmax(-1).tolist()
+    got = [r["classes"][0] for r in results]
+    if got != want:
+        raise AssertionError(f"{what}: served top-1 {got}, direct {want}")
+
+
+def program_call(what, module, x, ref, expect, launches) -> None:
+    """One call of an exported program's module on ``x`` with the counts
+    set to 0 just before it: ``expect``'s launches, logits within BF16_TOL
+    of ``ref`` (the eager forward) with equal top-1. Adds its launches to
+    ``launches``."""
+    reset_counts()
+    out = module(x)
+    torch.cuda.synchronize()
+    got = counts()
+    expect_launches(f"artifacts: {what}", got, expect)
+    for k, n in got.items():
+        launches[k] = launches.get(k, 0) + n
+    check("artifacts", what, out, ref, BF16_TOL, batch=x.shape[0])
+    if not torch.equal(out.argmax(-1), ref.float().argmax(-1)):
+        raise AssertionError(f"{what}: top-1 differs from the eager forward")
+
+
+def program_ops(program) -> dict:
+    names = [str(n.target) for n in program.graph.nodes
+             if n.op == "call_function"]
+    return {n: names.count(n) for n in set(names)
+            if n.startswith("vitx_torch.")}
+
+
+def phase_artifacts(cfg, params) -> dict:
+    """Main path 8 (module docstring): .quant.npz, .pt2 programs on the
+    card, their servers, and the depth-2 fp32 features and probe, card
+    vs CPU. Returns the exported programs' and their server's launches."""
+    import os
+
+    from vitx_torch import forward, forward_features
+    from vitx_torch.cli import probe
+    from vitx_torch.export import (export_forward, load_exported,
+                                   save_exported)
+    from vitx_torch.nn.vit import init_params, param_spec, params_to
+    from vitx_torch.quant import (load_quantized, quantization_error,
+                                  save_quantized)
+    from vitx_torch.serve import load_server
+    from vitx_torch.train.step import leaves
+
+    ARTIFACTS.mkdir(parents=True, exist_ok=True)
+    S, dt = cfg.image_size, cfg.cdtype()
+    imgs = np.random.default_rng(20).standard_normal(
+        (256, S, S, 3)).astype(np.float32)
+    x256 = torch.from_numpy(imgs).cuda().to(dt)
+    card = smi()
+
+    # (a) the int8 artifact and its server
+    t0 = time.perf_counter()
+    qpath = ARTIFACTS / "base16.quant.npz"
+    save_quantized(qpath, params, meta={"config": json.loads(cfg.to_json()),
+                                        "epoch": 0})
+    save_s = time.perf_counter() - t0
+    fp32 = sum(t.numel() * 4 for t in leaves(params))
+    ratio = qpath.stat().st_size / fp32
+    worst = max(quantization_error(params).values())
+    deq, _ = load_quantized(qpath, param_spec(cfg))
+    with load_server(str(qpath), cfg, batch_size=32) as srv:
+        results = concurrent_predict(srv, imgs[:32], what="artifacts")
+    same_top1("artifacts (a): .quant.npz server", results,
+              forward(deq, x256[:32], cfg))
+    emit({"phase": "artifacts", "part": "(a) .quant.npz", "bytes":
+          qpath.stat().st_size, "fp32_bytes": fp32, "ratio": ratio,
+          "quantization_error_max": worst, "bound": 1 / 254 + 1e-6,
+          "save_s": save_s})
+    if not (0.24 < ratio < 0.3 and worst <= 1 / 254 + 1e-6):
+        raise AssertionError(f"artifacts (a): size ratio {ratio}, "
+                             f"quantization error {worst}")
+    del deq
+
+    # (b) a symbolic-batch program made on the card, saved and loaded
+    launches: dict = {}
+    ppath = ARTIFACTS / "base16.pt2"
+    t0 = time.perf_counter()
+    nbytes = save_exported(ppath, params, cfg)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    program = load_exported(ppath)
+    module = program.module()
+    load_s = time.perf_counter() - t0
+    ops = program_ops(program)
+    if ops != {"vitx_torch.mha_block.default": cfg.depth,
+               "vitx_torch.mlp_block.default": cfg.depth}:
+        raise AssertionError(f"artifacts (b): the program's ops {ops}")
+    for b in (1, 8, 256):
+        program_call(f"(b) .pt2 b{b}", module, x256[:b],
+                     forward(params, x256[:b], cfg),
+                     forward_launches(cfg, 1), launches)
+    runs = {"eager": [], "program": []}
+    for name in ("eager", "program", "program", "eager"):
+        fn = ((lambda: forward(params, x256, cfg)) if name == "eager"
+              else (lambda: module(x256)))
+        runs[name].append(cuda_ms(fn, reps=10))
+    eager_ms, prog_ms = min(runs["eager"]), min(runs["program"])
+    emit({"phase": "artifacts", "part": "(b) .pt2 symbolic batch",
+          "card": card, "bytes": nbytes, "export_and_save_s": export_s,
+          "load_s": load_s, "ops": ops, "b256_eager_ms": eager_ms,
+          "b256_program_ms": prog_ms, "runs_ms": runs,
+          "program_over_eager": prog_ms / eager_ms})
+
+    # (c) ToMe r=13, the batch pinned at 32
+    tcfg = cfg.replace(tome_r=13)
+    tprog = export_forward(params, tcfg, batch_size=32)
+    if program_ops(tprog)["vitx_torch.mha_block_tome.default"] != cfg.depth:
+        raise AssertionError(f"artifacts (c): ops {program_ops(tprog)}")
+    program_call("(c) ToMe r=13 .pt2 b32", tprog.module(), x256[:32],
+                 forward(params, x256[:32], tcfg), forward_launches(tcfg, 1),
+                 launches)
+    del tprog
+
+    # (d) QKV biases: the composed path, B5 in every block
+    bcfg = cfg.replace(qkv_bias=True)
+    L, H, D = cfg.depth, cfg.num_heads, cfg.head_dim
+    bparams = {**params, "blocks": {**params["blocks"], "bqkv": seeded(
+        (L, 3, H, D), 21, 0.1)}}
+    bprog = export_forward(bparams, bcfg)
+    program_call("(d) QKV-bias .pt2 b8", bprog.module(), x256[:8],
+                 forward(bparams, x256[:8], bcfg),
+                 block_launches(bcfg, flash_attention=L,
+                                flash_attention_sm90=L * sm90(bcfg),
+                                fused_mlp_block=L), launches)
+    del bprog, bparams
+
+    # (e) the program's server
+    reset_counts()
+    with load_server(str(ppath), cfg, batch_size=32) as srv:
+        results = concurrent_predict(srv, imgs[32:64], what="artifacts")
+        try:
+            srv.explain(imgs[0])
+        except RuntimeError as e:
+            refused = str(e)
+        else:
+            raise AssertionError("artifacts (e): /explain was not refused")
+        stats = srv.stats.summary()
+    got = counts()
+    expect_launches("artifacts (e): .pt2 server", got,
+                    forward_launches(cfg, 1 + stats["batches"]))
+    for k, n in got.items():
+        launches[k] = launches.get(k, 0) + n
+    same_top1("artifacts (e): .pt2 server", results,
+              forward(params, x256[32:64], cfg))
+    emit({"phase": "artifacts", "part": "(e) .pt2 server", "stats": stats,
+          "explain": refused})
+    del module, program
+
+    # (f) depth 2, fp32: the features and the probe CLI, card vs CPU
+    # the procedural task's 10 classes: the probe sizes the head to the data
+    c2 = cfg.replace(depth=2, compute_dtype="float32", num_classes=10)
+    p2 = init_params(1, c2)
+    x8 = imgs[:8]
+    for pool in ("cls", "gap"):
+        check("artifacts", f"(f) forward_features pool={pool}, card vs CPU",
+              forward_features(p2, x8, c2, pool=pool),
+              forward_features(params_to(p2, "cpu"), x8, c2, pool=pool,
+                               device="cpu"), FP32_TOL)
+    os.environ.setdefault("VITX_PROC_CACHE", str(BUILD / "procdata"))
+    art = ARTIFACTS / "depth2.quant.npz"
+    save_quantized(art, p2, meta={"config": json.loads(c2.to_json())})
+    argv = ["--checkpoint", str(art), "--data", "procedural:128,64",
+            "--batch-size", "64", "--knn", "5"]
+    reports = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        reports[dev] = run_cli(probe.main, argv + [
+            "--device", dev, "--features", str(ARTIFACTS / f"{dev}.npz")])
+        reports[dev]["seconds"] = time.perf_counter() - t0
+    gpu, cpu = reports["cuda"], reports["cpu"]
+    for k in ("pool", "dim", "num_train", "num_val", "knn_k"):
+        if gpu[k] != cpu[k]:
+            raise AssertionError(f"artifacts (f): probe {k} {gpu[k]} vs "
+                                 f"{cpu[k]}")
+    for k in ("linear_probe_train_acc", "linear_probe_val_acc",
+              "knn_val_acc"):
+        if abs(gpu[k] - cpu[k]) > 1 / gpu["num_val"] + 1e-9:
+            raise AssertionError(f"artifacts (f): probe {k} {gpu[k]} vs "
+                                 f"{cpu[k]}")
+    with np.load(ARTIFACTS / "cuda.npz") as g, \
+            np.load(ARTIFACTS / "cpu.npz") as c:
+        for k in ("train_features", "val_features"):
+            check("artifacts", f"(f) probe {k}, card vs CPU",
+                  torch.from_numpy(g[k]), torch.from_numpy(c[k]), FP32_TOL)
+    emit({"phase": "artifacts", "part": "(f) probe CLI", **reports})
+    return launches
+
+
+def phase_bench(errs: dict) -> tuple:
+    """Main path 9 (module docstring). Returns bench 13's launches, the
+    huge14 path, and the block inputs K1 and K2 were held on at huge14's
+    shapes, which ``huge14_kernel_shapes`` times."""
+    import vitx_torch
+    from vitx_torch.cli import bench, tune
+    from vitx_torch.kernels import (fused_mha_block, fused_mlp_block,
+                                    mha_block_plain, mlp_block_plain)
+
+    huge = vitx_torch.get_config("huge14")
+    B, T, E, H = HUGE_B, huge.seq_len, huge.embed_dim, huge.num_heads
+    M, D, eps = huge.mlp_dim, huge.head_dim, huge.layer_norm_eps
+    bf = torch.bfloat16
+    x, mha, mlp = block_inputs(B, T, E, H, M, bf, 140, "cuda")
+    info = {"batch": B, "T": T, "E": E, "heads": H, "head_dim": D}
+    n90 = fused_mha_block.launches_sm90
+    check("bench", "fused_mha_block at huge14", fused_mha_block(
+        x, **mha, eps=eps), mha_block_plain(x, **mha, eps=eps), BF16_TOL,
+        errs, "fused_mha_block_sm90", **info)
+    check("bench", "fused_mha_block stash at huge14", fused_mha_block(
+        x, **mha, eps=eps, stash=True)[:5], mha_block_plain(
+        x, **mha, eps=eps, stash=True), BF16_TOL, errs,
+        "fused_mha_block_sm90", **info)
+    check("bench", "fused_mlp_block at huge14", fused_mlp_block(
+        x, **mlp, act=huge.mlp_act, eps=eps), mlp_block_plain(
+        x, **mlp, act=huge.mlp_act, eps=eps), BF16_TOL, errs,
+        "fused_mlp_block_sm90", M=M, **info)
+    if fused_mha_block.launches_sm90 != n90 + 2:
+        raise AssertionError("K1 at huge14 left the sm90 GEMM")
+    check_backward_kernels(HUGE_TRAIN_B, T, E, H, bf, BF16_TOL, errs,
+                           phase="bench")
+    torch.cuda.empty_cache()
+
+    card = smi()
+    for n in (3, 7):
+        emit({"phase": "bench", "card": card, **bench.BENCHES[n]()})
+    reset_counts()
+    res = bench.BENCHES[13]()
+    got = counts()
+    forwards, steps = 1 + 3 * 10, 1 + 3 * 5   # bench_13's warm-ups + reps
+    want = forward_launches(huge, forwards)
+    trained = expected_train_launches(huge, steps, 0)
+    # the head's LayerNorm (E 5120) is past B3's one-pass route
+    trained["ln_bwd_onepass"] = 2 * huge.depth * steps
+    want = {k: want[k] + trained[k] for k in want}
+    expect_launches("bench 13 (huge14)", got, want)
+    emit({"phase": "bench", "card": card, **res, "launches": got})
+    torch.cuda.empty_cache()
+
+    out = BUILD / "tune.json"
+    run_cli(tune.main, ["--mode", "infer", "--preset", "base16",
+                        "--batches", "64,128,256", "--iters", "10",
+                        "--reps", "3", "--out", str(out)])
+    rows = json.loads(out.read_text())["results"]
+    if any("error" in r for r in rows) or len(rows) != 3:
+        raise AssertionError(f"tune: {rows}")
+    return got, (x, mha, mlp)
+
+
+def huge14_kernel_shapes(inputs, launches: dict, errs: dict) -> dict:
+    """huge14's kernel shapes (bench 13: E 1280, 10 heads of D 128, M
+    5120, T 257), bf16, as more ``shapes`` of the rows: K1's and K2's two
+    rows at b32 on ``inputs``, the (x, mha, mlp) ``phase_bench`` held
+    them on (the earlier route, and the wrapper's: the sm90 GEMM with the
+    earlier attention at D 128), B2's earlier kernel through its wrapper
+    at the train step's (8, 10, 257, 128), B3's two at (8, 257, 1280).
+    Returns row name -> [entries]."""
+    import importlib
+
+    import torch.nn.functional as F
+
+    import vitx_torch
+    from vitx_torch.kernels import (attention_bwd, attention_bwd_plain,
+                                    attention_stats_plain,
+                                    flash_attention_fwd_plain,
+                                    fused_mha_block, fused_mlp_block,
+                                    mha_block_plain, mlp_block_plain)
+
+    c = vitx_torch.get_config("huge14")
+    B, T, E, H = HUGE_B, c.seq_len, c.embed_dim, c.num_heads
+    M, D, eps = c.mlp_dim, c.head_dim, c.layer_norm_eps
+    bf = torch.bfloat16
+    x, mha, mlp = inputs
+    st = torch.empty((2, B, H, T), dtype=torch.float32, device="cuda")
+    w1_t, w2_t = mlp["w1"].t().contiguous(), mlp["w2"].t().contiguous()
+    tmlp = importlib.import_module("vitx_torch.kernels.mlp_block")
+
+    def lib_mlp():
+        h = F.layer_norm(x, (E,), mlp["g"].to(bf), mlp["b"].to(bf), eps)
+        h = F.gelu(F.linear(h, w1_t, mlp["b1"].to(bf)), approximate="tanh")
+        return F.linear(h, w2_t, mlp["b2"].to(bf))
+
+    rows = block_rows(
+        "fused_mha_block", lambda: fused_mha_block(x, **mha, eps=eps),
+        lambda: block_module()._launch(x, **mha, eps=eps, extra=(st,),
+                                       route=0),
+        lambda: mha_block_plain(x, **mha, eps=eps), sdpa_mha(x, mha, H, eps),
+        2 * B * T * E * 4 * E + 4 * B * H * T * T * D,
+        2 * B * T * E * 2 + 4 * E * E * 2 + 3 * E * 4, launches, errs,
+        shape=[B, T, E])
+    rows += block_rows(
+        "fused_mlp_block",
+        lambda: fused_mlp_block(x, **mlp, act=c.mlp_act, eps=eps),
+        lambda: tmlp._launch(x, **mlp, act=c.mlp_act, eps=eps, stash=False,
+                             route=0),
+        lambda: mlp_block_plain(x, **mlp, act=c.mlp_act, eps=eps), lib_mlp,
+        4 * B * T * E * M, 2 * B * T * E * 2 + 2 * E * M * 2
+        + (M + 3 * E) * 4, launches, errs, shape=[B, T, E])
+    del x, mha, mlp
+    shape = (HUGE_TRAIN_B, H, T, D)
+    q, k, v = (seeded(shape, 170 + i, 1.5, dtype=bf) for i in range(3))
+    do = seeded(shape, 173, 0.1, dtype=bf)
+    o, stats = flash_attention_fwd_plain(q, k, v), attention_stats_plain(q, k)
+    qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+    o_lib = F.scaled_dot_product_attention(qs, ks, vs)
+    Bt = HUGE_TRAIN_B
+    rows.append(kernel_row(
+        "attention_bwd", lambda: attention_bwd(q, k, v, do, o, stats),
+        lambda: attention_bwd_plain(q, k, v, do),
+        lambda: torch.autograd.grad(o_lib, (qs, ks, vs), do,
+                                    retain_graph=True),
+        10 * Bt * H * T * T * D, PEAK_BF16_FLOPS, 7 * Bt * H * T * D * 2,
+        launches, errs, shape=list(shape),
+        timed="the wrapper: at D 128 bf16 takes the earlier kernel"))
+    rows += ln_bwd_rows((Bt, T, E), 175, eps, launches, errs)
+    torch.cuda.empty_cache()
+    extra: dict = {}
+    for row in rows:
+        extra.setdefault(row["name"], []).append(shape_entry(row))
+    return extra
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--phases", default=",".join(PHASES),
@@ -4648,54 +5064,80 @@ def main(argv=None) -> int:
     from vitx_torch.nn.vit import init_params
 
     t_start = time.perf_counter()
+
+    def lap(name: str) -> None:
+        """The script's clock when phase ``name`` ended: the phases' costs
+        are the differences."""
+        if name in phases:
+            emit({"phase": name, "ended_at_s": time.perf_counter() - t_start})
+
     phase_device()
 
     if "build" in phases:
         phase_build()
+    lap("build")
     errs: dict = {}
     if "kernels" in phases:
         phase_kernels(errs)
+    lap("kernels")
     if "grad" in phases:
         phase_grad(errs)
+    lap("grad")
     cfg = vitx_torch.get_config("base16")
     params = None
-    if {"forward", "serve", "tome", "times"} & set(phases):
+    if {"forward", "serve", "tome", "artifacts", "times"} & set(phases):
         params = init_params(0, cfg)
     if "forward" in phases:
         phase_forward(cfg, params)
+    lap("forward")
     serve_launches, train_launches, explain_launches = {}, {}, {}
     tome_launches, finetune_launches, transfer_launches = {}, {}, {}
     recipe_launches = {path: {} for path in RECIPE_PATHS}
     train = finetune = transfer = None
     if "serve" in phases:
         serve_launches = phase_serve(cfg, params)
+    lap("serve")
     if "train" in phases:
         from vitx_torch.data import SyntheticDataset
 
         ds = SyntheticDataset(num_examples=128, image_size=cfg.image_size,
                               num_classes=cfg.num_classes, seed=0)
         train_launches, *train = phase_train(ds)
+    lap("train")
     large = large_params = None
     if {"explain", "tome"} & set(phases):
         large = vitx_torch.get_config("large16_384")
         large_params = init_params(0, large)
     if "explain" in phases:
         explain_launches = phase_explain(large, large_params)
+    lap("explain")
     if "tome" in phases:
         tome_launches = phase_tome(cfg, params, large, large_params)
+    lap("tome")
     if "finetune" in phases:
         from vitx_torch.data import SyntheticDataset
 
         ds512 = SyntheticDataset(num_examples=32, image_size=512,
                                  num_classes=cfg.num_classes, seed=0)
         finetune_launches, *finetune = phase_finetune(ds512)
+    lap("finetune")
     if "recipe" in phases:
         recipe_launches = phase_recipe()
+    lap("recipe")
     if "transfer" in phases:
         transfer_launches, transfer = phase_transfer()
+    lap("transfer")
+    export_launches, huge14_launches, huge14_inputs = {}, {}, None
+    if "artifacts" in phases:
+        export_launches = phase_artifacts(cfg, params)
+    lap("artifacts")
+    if "bench" in phases:
+        huge14_launches, huge14_inputs = phase_bench(errs)
+    lap("bench")
     launches = add_launches(serve_launches, train_launches, explain_launches,
                             tome_launches, finetune_launches,
-                            *recipe_launches.values(), transfer_launches)
+                            *recipe_launches.values(), transfer_launches,
+                            export_launches, huge14_launches)
     if "times" in phases:
         rows = phase_times(cfg, params, errs, launches)
         if tome_launches:
@@ -4727,6 +5169,10 @@ def main(argv=None) -> int:
         if transfer:
             phase_transfer_times(transfer)
             extras.append(transfer_kernel_shapes(launches, errs))
+        if huge14_launches:
+            extras.append(huge14_kernel_shapes(huge14_inputs, launches,
+                                               errs))
+        del huge14_inputs
         for extra in extras:
             for row in rows:
                 if row["name"] in extra:
@@ -4742,7 +5188,9 @@ def main(argv=None) -> int:
                 "finetune": finetune_launches.get(row["name"], 0),
                 **{path: got.get(row["name"], 0)
                    for path, got in recipe_launches.items()},
-                "transfer": transfer_launches.get(row["name"], 0)}
+                "transfer": transfer_launches.get(row["name"], 0),
+                "export": export_launches.get(row["name"], 0),
+                "huge14": huge14_launches.get(row["name"], 0)}
             if row["name"] in stash:
                 row["stash_ms_b128"] = stash[row["name"]]
         missing = sorted(set(KERNELS) - {row["name"] for row in rows})

@@ -257,8 +257,10 @@ def test_orbax_and_unported_artifacts_refused(tmp_path):
         tckpt.restore_eval_params(tmp_path / "3.orbax", TCFG, device="cpu")
     with pytest.raises(NotImplementedError, match="JAX stack"):
         tckpt.restore_eval_params(tmp_path, TCFG, device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
-        tckpt.load_artifact_params(tmp_path / "m.quant.npz", TCFG, "cpu")
+    with pytest.raises(NotImplementedError, match=r"\.pt2"):
+        tckpt.load_artifact_params(tmp_path / "m.stablehlo", TCFG, "cpu")
+    with pytest.raises(ValueError, match="no parameters"):
+        tckpt.load_artifact_params(tmp_path / "m.pt2", TCFG, "cpu")
     with pytest.raises(FileNotFoundError):
         tckpt.load_artifact_params(tmp_path / "none", TCFG, "cpu")
     (tmp_path / "0.ckpt").write_text("{}")

@@ -1329,3 +1329,82 @@ def test_tome_backward_from_autograds_thread(cuda):
         grads.append([t.grad for t in ins])
     torch.cuda.synchronize()
     assert all(torch.equal(a, c) for a, c in zip(*grads))
+
+
+def _op_cases(cuda):
+    """(wrapper's counter, op call, the wrapper's eager call) per op of
+    ``vitx_torch/kernels/ops.py``, at base16's block widths in bf16."""
+    bf = torch.bfloat16
+    rng = np.random.default_rng(40)
+
+    def t(shape, scale=1.0, dt=bf, shift=0.0):
+        a = shift + scale * rng.standard_normal(shape)
+        return torch.from_numpy(a.astype(np.float32)).to(cuda, dt)
+
+    B, T, E, H, M = 4, 197, 768, 12, 3072
+    x = t((B, T, E))
+    mha = (t((E, 3, H, E // H), 0.03), t((E, E), 0.03),
+           t((E,), 0.1, torch.float32), t((E,), 0.1, torch.float32, 1.0),
+           t((E,), 0.1, torch.float32))
+    mlp = (t((E, M), 0.03), t((M,), 0.1, torch.float32), t((M, E), 0.03),
+           t((E,), 0.1, torch.float32), t((E,), 0.1, torch.float32, 1.0),
+           t((E,), 0.1, torch.float32))
+    bqkv = t((3, H, E // H), 0.1, torch.float32)
+    log_size = t((B, T), 0.5, torch.float32).abs()
+    q, k, v = (t((B, H, T, E // H)) for _ in range(3))
+    ops = torch.ops.vitx_torch
+    return {
+        "mha_block": (fused_mha_block, lambda: ops.mha_block(x, *mha, 1e-6),
+                      lambda: fused_mha_block(x, *mha, eps=1e-6)),
+        "mlp_block": (fused_mlp_block,
+                      lambda: ops.mlp_block(x, *mlp, "gelu_tanh", 1e-6),
+                      lambda: fused_mlp_block(x, *mlp, act="gelu_tanh",
+                                              eps=1e-6)),
+        "mha_block_tome": (
+            fused_mha_block_tome,
+            lambda: ops.mha_block_tome(x, mha[0], bqkv, *mha[1:], log_size,
+                                       1e-6),
+            lambda: fused_mha_block_tome(x, mha[0], bqkv, *mha[1:], log_size,
+                                         eps=1e-6)),
+        "attention_fwd": (flash_attention, lambda: ops.attention_fwd(q, k, v),
+                          lambda: flash_attention(q, k, v)),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["mha_block", "mlp_block", "mha_block_tome",
+                                  "attention_fwd"])
+def test_kernel_op_is_its_wrappers_launch(cuda, name):
+    """Each ``vitx_torch::`` op on CUDA tensors launches its kernel once,
+    counted as the wrapper counts it, and returns the wrapper's output bit
+    for bit, in fresh tensors."""
+    counter, op, eager = _op_cases(cuda)[name]
+    n = counter.launches
+    got = op()
+    torch.cuda.synchronize()
+    assert counter.launches == n + 1
+    want = eager()
+    got = got if isinstance(got, (tuple, list)) else (got,)
+    want = want if isinstance(want, (tuple, list)) else (want,)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_exported_program_runs_the_kernels(cuda, tmp_path):
+    """A depth-2 base16 program exported on the card, saved and loaded:
+    K1 and K2 twice a call (on the sm90 GEMM), logits within 2e-2 of the
+    eager forward at batches 1 and 3."""
+    from vitx_torch.export import load_exported, save_exported
+
+    cfg = vitx_torch.get_config("base16", depth=2)
+    params = vitx_torch.init_params(0, cfg)
+    save_exported(tmp_path / "m.pt2", params, cfg)
+    module = load_exported(tmp_path / "m.pt2").module()
+    for b in (1, 3):
+        x = torch.randn(b, 224, 224, 3, device=cuda).to(torch.bfloat16)
+        k1, k2 = fused_mha_block.launches_sm90, fused_mlp_block.launches_sm90
+        out = module(x)
+        torch.cuda.synchronize()
+        assert (fused_mha_block.launches_sm90 - k1,
+                fused_mlp_block.launches_sm90 - k2) == (2, 2)
+        assert rel_err(out, vitx_torch.forward(params, x, cfg)) < 2e-2

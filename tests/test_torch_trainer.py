@@ -271,8 +271,8 @@ def test_train_cli_refuses_unported(argv, exc, item):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--soup", "a"], "A12"), (["--export-quantized", "m.quant.npz"], "A11"),
-    (["--export-stablehlo", "m.stablehlo"], "A11")])
+    (["--soup", "a"], "A12"), (["--patch-size", "8"], "A12"),
+    (["--export-stablehlo", "m.stablehlo"], "--export-pt2")])
 def test_eval_cli_refuses_unported(argv, item):
     with pytest.raises(SystemExit, match=item):
         teval.main(["--checkpoint", "x", "--device", "cpu", *argv])

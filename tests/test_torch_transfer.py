@@ -11,8 +11,8 @@ vitx state within 1e-6, ``.pt`` files read bit for bit across the
 packages, and the port's ``.pt`` in ``tests/torch_reference.py``'s oracle
 within 1e-4 of the port's forward under ``bug_exact``. The eval CLI and a
 server on a ``.pt`` equal direct calls; the train CLI's ``--init-from``
-takes every kind; ``.quant.npz`` and ``.stablehlo`` still raise, naming
-A11. The counterparts of ``tests/test_checkpoint.py:158-470``.
+takes every kind; ``.stablehlo`` raises, naming the port's ``.pt2``.
+The counterparts of ``tests/test_checkpoint.py:158-470``.
 """
 
 import ast
@@ -180,9 +180,10 @@ def test_transfer_params_special_cases(tmp_path, case):
 
 def test_transfer_params_refuses_configless_and_unported(tmp_path):
     """A source whose meta holds no config raises ValueError in both
-    packages; a missing one FileNotFoundError; ``.quant.npz`` and
-    ``.stablehlo`` raise naming A11 in every artifact entry of the
-    port."""
+    packages; a missing one FileNotFoundError, a missing ``.quant.npz``
+    too; vitx's ``.stablehlo`` raises naming the port's ``.pt2`` in every
+    artifact entry that loads parameters, while its config resolves
+    from the preset (no sidecar)."""
     tckpt.save_checkpoint(tmp_path / "mae", [np.zeros(2, np.float32)], 0,
                           meta={"kind": "mae"})
     with pytest.raises(ValueError, match="no model config"):
@@ -191,14 +192,19 @@ def test_transfer_params_refuses_configless_and_unported(tmp_path):
         tckpt.transfer_params(tmp_path / "mae", TCFG, device="cpu")
     with pytest.raises(FileNotFoundError):
         tckpt.transfer_params(tmp_path / "nowhere", TCFG, device="cpu")
-    for name in ("m.quant.npz", "m.stablehlo"):
+    for name, exc, match in (
+            ("m.quant.npz", FileNotFoundError, "m.quant.npz"),
+            (str(tmp_path / "m.stablehlo"), NotImplementedError, r"\.pt2")):
         for call in (lambda: tckpt.transfer_params(name, TCFG, device="cpu"),
                      lambda: tckpt.load_artifact_params(name, TCFG, "cpu"),
-                     lambda: tckpt.resolve_artifact_config(name),
                      lambda: ttrain.main(["--init-from", name, "--device",
                                           "cpu", "--epochs", "1"])):
-            with pytest.raises(NotImplementedError, match="A11"):
+            with pytest.raises(exc, match=match):
                 call()
+    with pytest.raises(FileNotFoundError):
+        tckpt.resolve_artifact_config("m.quant.npz")
+    assert tckpt.resolve_artifact_config(str(tmp_path / "m.stablehlo")) \
+        == tckpt.resolve_artifact_config(None)
 
 
 # ------------------------------------------------------------- torch_ref

@@ -20,7 +20,11 @@ and the weight-decay mask, ``Trainer`` with vitx's ``.ckpt`` files
 (``vitx_torch.train``), and the train and eval CLIs; so do vitx's
 on-disk sources (class folders, CIFAR-10, tar shards and the pack CLI)
 and transfer fine-tuning from any vitx or reference ``.pt`` artifact
-(``train.checkpoint.transfer_params``). It imports neither ``jax`` nor
+(``train.checkpoint.transfer_params``). It ships models in vitx's forms
+and its own: int8 ``.quant.npz`` artifacts both packages read
+(``vitx_torch.quant``) and ``torch.export`` programs that carry the
+kernels as custom ops (``vitx_torch.export``, ``.pt2``), and it has
+vitx's probe, tune and bench CLIs. It imports neither ``jax`` nor
 ``vitx``.
 
 Entry points run on a CUDA device unless the caller passes
@@ -50,8 +54,8 @@ from vitx_torch.nn.tome import (aligned_schedule, encode_tome,  # noqa: E402
                                 merge_tokens, parse_tome_r,
                                 tome_patch_assignment)
 from vitx_torch.nn.vit import (classify, encode, forward,  # noqa: E402
-                               forward_with_attn, forward_with_rollout,
-                               init_params)
+                               forward_features, forward_with_attn,
+                               forward_with_rollout, init_params)
 
 __version__ = "0.1.0"
 
@@ -61,6 +65,7 @@ __all__ = [
     "get_config",
     "init_params",
     "forward",
+    "forward_features",
     "forward_with_attn",
     "forward_with_rollout",
     "attention_rollout",

@@ -11,9 +11,16 @@ macro F1, per-class accuracy and F1, the example count and, for up to 10
 classes, the confusion matrix -- from one confusion matrix. ``--predict``
 writes per-example predictions, ``--tta`` averages the logits over the
 horizontal flip, ``--calibrate`` adds ECE and temperature scaling, and
-``--tome-r`` merges tokens at inference. ``--device`` defaults to
-``cuda``. ``--soup`` (ROADMAP A12), ``--export-quantized`` and
-``--export-stablehlo`` (A11) and ``--patch-size`` (A12) are refused.
+``--tome-r`` merges tokens at inference. ``--export-quantized OUT``
+writes the loaded parameters as an int8 ``.quant.npz`` (vitx reads it
+too) and ``--export-pt2 OUT`` as a ``torch.export`` program, the
+counterpart of vitx's ``--export-stablehlo`` (the batch pinned to
+``--batch-size`` under ToMe); both store the config without the
+inference-only ``--tome-r``. Any artifact the loading rule takes is
+evaluated, ``.quant.npz`` included. ``--device`` defaults to ``cuda``.
+``--soup`` and ``--patch-size`` (ROADMAP A12) are refused, and
+``--export-stablehlo``, whose StableHLO only JAX runs, names
+``--export-pt2``.
 """
 
 from __future__ import annotations
@@ -32,8 +39,7 @@ from vitx_torch.metrics import confusion_matrix, confusion_to_metrics
 from vitx_torch.nn.tome import aligned_schedule, parse_tome_r
 from vitx_torch.nn.vit import model_logits
 
-UNPORTED = {"soup": "A12", "export_quantized": "A11",
-            "export_stablehlo": "A11", "patch_size": "A12"}
+UNPORTED = {"soup": "A12", "patch_size": "A12"}
 
 
 def main(argv=None):
@@ -42,8 +48,8 @@ def main(argv=None):
     p.add_argument("--config-json", default=None)
     p.add_argument("--checkpoint", required=True,
                    help="checkpoint directory (newest epoch), "
-                        "{epoch}.ckpt, a bare params .npz or a reference "
-                        ".pt")
+                        "{epoch}.ckpt, an int8 .quant.npz, a bare params "
+                        ".npz or a reference .pt")
     p.add_argument("--data", default="synthetic",
                    help="any spec the train CLI takes: 'synthetic', "
                         "'procedural[:<ntrain>,<nval>]', 'cifar10:DIR', "
@@ -59,8 +65,14 @@ def main(argv=None):
                    help="fit temperature scaling on this set and report "
                         "ECE/NLL before and after")
     p.add_argument("--soup", nargs="+", default=None)
-    p.add_argument("--export-quantized", default=None)
-    p.add_argument("--export-stablehlo", default=None)
+    p.add_argument("--export-quantized", default=None, metavar="OUT",
+                   help="also write the params as an int8 .quant.npz")
+    p.add_argument("--export-pt2", default=None, metavar="OUT.pt2",
+                   help="also write a torch.export program with the params "
+                        "baked in (symbolic batch; pinned under ToMe)")
+    p.add_argument("--export-stablehlo", default=None,
+                   help="vitx's StableHLO export: JAX only; see "
+                        "--export-pt2")
     p.add_argument("--patch-size", type=int, default=None)
     p.add_argument("--tome-r", type=parse_tome_r, default=0,
                    help="ToMe token merging at inference")
@@ -71,6 +83,10 @@ def main(argv=None):
             flag = "--" + dest.replace("_", "-")
             raise SystemExit(f"error: {flag} is not ported to vitx_torch "
                              f"yet (ROADMAP {item})")
+    if args.export_stablehlo is not None:
+        raise SystemExit("error: --export-stablehlo writes a StableHLO "
+                         "program, which only JAX runs; vitx_torch's "
+                         "deployment program is --export-pt2 OUT.pt2")
     dev = resolve_device(args.device)
 
     from vitx_torch.cli.train import make_datasets
@@ -96,6 +112,26 @@ def main(argv=None):
         print(f"error: no checkpoint under {args.checkpoint}",
               file=sys.stderr)
         return 1
+    if args.export_quantized:
+        from vitx_torch.quant import save_quantized
+
+        # the config without inference-only overrides: this eval's
+        # --tome-r must not switch on in every later use of the artifact
+        save_quantized(args.export_quantized, params,
+                       meta={"config": json.loads(
+                                 cfg.replace(tome_r=0).to_json()),
+                             "epoch": meta.get("epoch")})
+        print(f"wrote int8 artifact {args.export_quantized}",
+              file=sys.stderr)
+    if args.export_pt2:
+        from vitx_torch.export import save_exported
+
+        # ToMe's merges are traced at static token counts: pin the batch
+        nbytes = save_exported(
+            args.export_pt2, params, cfg,
+            batch_size=args.batch_size if cfg.tome_r else None)
+        print(f"wrote torch.export program {args.export_pt2} "
+              f"({nbytes / 1e6:.1f} MB)", file=sys.stderr)
     pre = make_preprocess(
         out_size=cfg.image_size,
         mean=None if args.no_normalize else (0.5, 0.5, 0.5),

@@ -15,8 +15,13 @@ counterpart of ``vitx/cli/serve.py``. Endpoints:
 - ``GET /metrics``: the same counters in Prometheus text format.
 - ``GET /healthz``: 200 once the model is warmed up and serving.
 
+``--checkpoint`` takes any artifact the eval CLI reads (an int8
+``.quant.npz`` serves dequantized) or a ``.pt2`` program from ``eval
+--export-pt2`` (served through the program; ``/explain`` then answers
+400, and a ToMe program's pinned batch must be ``--batch-size``).
 ``--device`` selects the device (default ``cuda``; the server refuses to
-start without one unless ``--device cpu`` is given). ``--tome-r`` serves
+start without one unless ``--device cpu`` is given). ``--dp`` (serving
+over several cards) is refused, naming ROADMAP A13. ``--tome-r`` serves
 ``/predict`` from the ToMe encoder: ``13`` merges 13 token pairs in every
 block, ``35,34`` follows a per-block schedule, ``to128`` resolves to
 vitx's schedule reaching 128 tokens (``aligned_schedule``); ``/explain``
@@ -123,7 +128,8 @@ def main(argv=None):
     p.add_argument("--checkpoint", default=None,
                    help="vitx checkpoint directory or {epoch}.ckpt (the "
                         "EMA shadow where the run kept one; the config "
-                        "from its meta), a bare params .npz "
+                        "from its meta), an int8 .quant.npz, a .pt2 "
+                        "program (eval --export-pt2), a bare params .npz "
                         "(vitx.cli.pretrain --export-vit) or a reference "
                         ".pt (at --preset's or --config-json's geometry); "
                         "omit for fresh params")
@@ -132,6 +138,9 @@ def main(argv=None):
     p.add_argument("--batch-size", type=int, default=32)
     p.add_argument("--top-k", type=int, default=5)
     p.add_argument("--max-delay-ms", type=float, default=5.0)
+    p.add_argument("--dp", type=int, default=None,
+                   help="serve over a data-parallel mesh: not ported "
+                        "(ROADMAP A13)")
     p.add_argument("--temperature", type=float, default=None,
                    help="temperature-scale the served probabilities")
     p.add_argument("--device", default="cuda",
@@ -141,6 +150,9 @@ def main(argv=None):
                         "block, a comma-separated per-block schedule, or "
                         "'toN' (e.g. to128)")
     args = p.parse_args(argv)
+    if args.dp is not None:
+        raise SystemExit("error: --dp is not ported to vitx_torch yet "
+                         "(ROADMAP A13)")
 
     cfg = resolve_artifact_config(args.checkpoint, args.config_json,
                                   args.preset, args.tome_r)

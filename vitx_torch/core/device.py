@@ -18,3 +18,12 @@ def resolve_device(device="cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"vitx_torch runs on cuda or cpu, not {dev}")
     return dev
+
+
+def card_routes(x) -> bool:
+    """Whether the model takes the card's routes (the kernels and the
+    rules that choose them) for the tensor ``x``: ``x`` lies on a CUDA
+    device, or a ``torch.export`` trace is running. An exported program is
+    the card's forward wherever it is traced, as vitx exports the TPU's;
+    on the CPU its kernel ops run their plain versions."""
+    return x.is_cuda or torch.compiler.is_exporting()

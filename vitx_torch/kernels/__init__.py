@@ -44,6 +44,11 @@
   ``fused_adamw_``, the same over one leaf; replace
   ``vitx/kernels/adamw.py::_kernel``.
 
+``ops`` registers the inference entries of K1, K2, B8 and B5 as
+``torch.library`` custom ops (``vitx_torch::mha_block``, ``mlp_block``,
+``mha_block_tome``, ``attention_fwd``), which the wrappers call inside a
+``torch.export`` trace, so that an exported program carries the kernels.
+
 Each wrapper launches its kernel for CUDA tensors (building it with nvcc at
 first use, ``_build.py``) and counts the launches in its ``launches``
 attribute (``attention_bwd``, the three B5 entries and the blocks count
@@ -72,6 +77,8 @@ from vitx_torch.kernels.mha_block import (composed_tome, fused_mha_block,
                                           mha_block_plain,
                                           mha_block_tome_plain)
 from vitx_torch.kernels.mlp_block import fused_mlp_block, mlp_block_plain
+# registers the vitx_torch:: custom ops the wrappers call inside a trace
+from vitx_torch.kernels import ops  # noqa: E402,F401  isort: skip
 
 __all__ = ["fused_mha_block", "mha_block_plain",
            "fused_mha_block_with_mean_probs", "mha_block_mean_probs_plain",

@@ -191,6 +191,14 @@ def needs_grad(*ts) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
+def tracing() -> bool:
+    """Whether a ``torch.export`` (or ``torch.compile``) trace is running:
+    the inference wrappers then call their ``torch.library`` ops
+    (``kernels/ops.py``), whose fake versions take tensors without data,
+    so that the kernels are nodes of the traced graph."""
+    return torch.compiler.is_compiling()
+
+
 def check(name: str, err: int) -> None:
     """Raise if a kernel's C entry point reported an error."""
     if err == 0:

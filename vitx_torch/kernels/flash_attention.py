@@ -439,9 +439,13 @@ def flash_attention(q, k, v):
 
     CUDA tensors go through B5 and add one to ``flash_attention.launches``;
     CPU tensors take the plain version. Any T runs, forward and backward.
+    Inside a ``torch.export`` trace, where nothing needs a gradient, the
+    call is the op ``vitx_torch::attention_fwd`` (``kernels/ops.py``).
     """
     _check_fwd(q, k, v, None)
     if not _build.needs_grad(q, k, v):
+        if _build.tracing():
+            return torch.ops.vitx_torch.attention_fwd(q, k, v)
         return _fwd(q, k, v, None, flash_attention)
     return _Flash.apply(q, k, v)
 

@@ -247,6 +247,17 @@ def _forward(x, wqkv, wo, bo, g, b, eps):
     return (*res, stats)
 
 
+def _infer(x, wqkv, wo, bo, g, b, eps):
+    """-> out: K1 without its stash (no attention statistics either) on
+    CUDA, the plain version on the CPU; what inference calls, eagerly and
+    as the op ``vitx_torch::mha_block`` (``kernels/ops.py``)."""
+    if x.device.type == "cpu":
+        return mha_block_plain(x, wqkv, wo, bo, g, b, eps=eps)
+    out, *_, route = _launch(x, wqkv, wo, bo, g, b, eps, extra=(None,))
+    _count(fused_mha_block, route)
+    return out
+
+
 def _backward(dout, x, wqkv, wo, g, b, q, k, v, o_all, stats, eps):
     """``_fused_op_bwd`` (``vitx/kernels/mha_block.py:964-1005``): every
     product accumulates in fp32 and is cast once -- dwo and dwqkv to the
@@ -303,12 +314,19 @@ def fused_mha_block(x, wqkv, wo, bo, g, b, *, eps: float = 1e-5,
     unscaled, o_all (B, T, E) -- and records no gradient. CUDA tensors go
     through kernel K1 and add one to ``fused_mha_block.launches`` (and to
     ``launches_sm90`` on the sm90 GEMM, ``mha_route``); CPU tensors take
-    the plain version.
+    the plain version. Where nothing needs a gradient the call is K1
+    without its stash, and inside a ``torch.export`` trace it is the op
+    ``vitx_torch::mha_block`` (``kernels/ops.py``).
     """
     _check(x, wqkv, wo, bo, g, b)
     if stash:
         with torch.no_grad():
             return _forward(x, wqkv, wo, bo, g, b, eps)[:5]
+    if not _build.needs_grad(x, wqkv, wo, bo, g, b):
+        if _build.tracing():
+            return torch.ops.vitx_torch.mha_block(x, wqkv, wo, bo, g, b,
+                                                  float(eps))
+        return _infer(x, wqkv, wo, bo, g, b, eps)
     return _FusedMHA.apply(x, wqkv, wo, bo, g, b, float(eps))
 
 
@@ -525,11 +543,16 @@ def fused_mha_block_tome(x, wqkv, bqkv, wo, bo, g, b, log_size, *,
     it serves B9's head-chunked function too) and add one to
     ``fused_mha_block_tome.launches`` (and to ``launches_sm90`` on the sm90
     GEMM, to ``launches_attn_sm90`` on the sm90 attention); CPU tensors
-    take the plain version.
+    take the plain version. Inside a ``torch.export`` trace, where nothing
+    needs a gradient, the call is the op ``vitx_torch::mha_block_tome``
+    (``kernels/ops.py``).
     """
     _check_tome(x, wqkv, bqkv, wo, bo, g, b, log_size)
     args = (x, wqkv, bqkv, wo, bo, g, b, log_size)
-    if not torch.is_grad_enabled() or not any(t.requires_grad for t in args):
+    if not _build.needs_grad(*args):
+        if _build.tracing():
+            return tuple(torch.ops.vitx_torch.mha_block_tome(*args,
+                                                             float(eps)))
         return _forward_tome(*args, eps)
     return _FusedMHATome.apply(*args, float(eps))
 

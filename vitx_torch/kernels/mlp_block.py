@@ -191,14 +191,18 @@ def fused_mlp_block(x, w1, b1, w2, b2, g, b, *, act: str = "gelu",
     pre-activation (B, T, M) as vitx's ``_fused_fwd(stash=True)`` does, and
     records no gradient. CUDA tensors go through kernel K2 and add one to
     ``fused_mlp_block.launches`` (and to ``launches_sm90`` on the sm90
-    GEMM, ``mlp_route``); CPU tensors take the plain version.
+    GEMM, ``mlp_route``); CPU tensors take the plain version. Inside a
+    ``torch.export`` trace, where nothing needs a gradient, the call is
+    the op ``vitx_torch::mlp_block`` (``kernels/ops.py``).
     """
     _check(x, w1, b1, w2, b2, g, b, act)
     if stash:
         with torch.no_grad():
             return _forward(x, w1, b1, w2, b2, g, b, act, eps, stash=True)
-    if not torch.is_grad_enabled() or not any(
-            t.requires_grad for t in (x, w1, b1, w2, b2, g, b)):
+    if not _build.needs_grad(x, w1, b1, w2, b2, g, b):
+        if _build.tracing():
+            return torch.ops.vitx_torch.mlp_block(x, w1, b1, w2, b2, g, b,
+                                                  act, float(eps))
         return _forward(x, w1, b1, w2, b2, g, b, act, eps, stash=False)
     return _FusedMLP.apply(x, w1, b1, w2, b2, g, b, act, float(eps))
 

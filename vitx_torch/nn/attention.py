@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from vitx_torch.core.device import card_routes
 from vitx_torch.kernels.flash_attention import (
     flash_attention, flash_attention_with_mean_probs,
     flash_attention_with_probs)
@@ -47,14 +48,15 @@ def _qk_layer_norm(t, scale, eps):
 
 def use_flash(impl: str, x, head_dim: int, scale=None) -> bool:
     """vitx's rule (``vitx/nn/attention.py:102-111``) with "on a TPU" read
-    as "x on a CUDA device": B5 for ``impl="flash"``, or for ``"auto"`` on
-    CUDA with D >= 32 and T >= 128; never with a non-standard scale."""
+    as ``card_routes`` (x on a CUDA device, or an export's trace): B5 for
+    ``impl="flash"``, or for ``"auto"`` there with D >= 32 and T >= 128;
+    never with a non-standard scale."""
     if scale is not None:
         return False
     if impl == "flash":
         return True
     if impl == "auto":
-        return x.is_cuda and head_dim >= 32 and x.shape[1] >= 128
+        return card_routes(x) and head_dim >= 32 and x.shape[1] >= 128
     return False
 
 

@@ -79,16 +79,25 @@ class _AddLayerNorm(torch.autograd.Function):
         return dx, dx, dscale, dbias, None, None
 
 
+def _records_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def layer_norm(x, scale, bias, *, eps: float = 1e-5):
     """LayerNorm over the last axis with fp32 two-pass stats; returns
     ``x.dtype`` (``vitx/nn/layers.py:16-23``). Differentiable: the
-    backward is B3."""
+    backward is B3 (the autograd Function is entered only where a
+    gradient is recorded)."""
+    if not _records_grad(x, scale, bias):
+        return _ln_forward(x, scale, bias, float(eps))
     return _LayerNorm.apply(x, scale, bias, float(eps), _ln_forward)
 
 
 def add_layer_norm(x, r, scale, bias, *, eps: float = 1e-5):
     """-> (x + r, LN(x + r)): the pre-LN residual pattern. Its backward
     returns dx + g_sum for both x and r (``vitx/nn/layers.py:96-101``)."""
+    if not _records_grad(x, r, scale, bias):
+        return _add_ln_forward(x, r, scale, bias, float(eps))
     return _AddLayerNorm.apply(x, r, scale, bias, float(eps),
                                _add_ln_forward)
 

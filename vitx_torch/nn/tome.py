@@ -28,11 +28,12 @@ from __future__ import annotations
 import torch
 
 from vitx_torch.core.config import ViTConfig
+from vitx_torch.core.device import card_routes
 from vitx_torch.kernels.mha_block import composed_tome, fused_mha_block_tome
 from vitx_torch.kernels.mlp_block import fused_mlp_block
 from vitx_torch.nn.layers import drop_path, dropout, layer_norm, mlp
 from vitx_torch.nn.vit import (_final_norm, _use_fused_mlp, check_ported,
-                               embed_tokens, unstack)
+                               drop_path_rates, embed_tokens, unstack)
 
 
 def parse_tome_r(s):
@@ -78,13 +79,14 @@ def aligned_schedule(cfg: ViTConfig, target_tokens: int = 128) -> tuple:
 
 def _use_fused_tome_attn(cfg: ViTConfig, x) -> bool:
     """vitx's rule (``vitx/nn/tome.py:82-91``) with "is this a TPU" read as
-    "are the tensors on a CUDA device". B8 takes a QKV bias, so, unlike
-    K1's rule, ``bqkv`` does not force the composed path."""
+    ``card_routes`` (a CUDA device, or an export's trace). B8 takes a QKV
+    bias, so, unlike K1's rule, ``bqkv`` does not force the composed
+    path."""
     if cfg.parity == "bug_exact" or cfg.fuse_mha == "off":
         return False
     if cfg.fuse_mha == "on":
         return True
-    return cfg.attn_impl in ("auto", "flash") and x.is_cuda
+    return cfg.attn_impl in ("auto", "flash") and card_routes(x)
 
 
 def _norm(m):
@@ -194,7 +196,7 @@ def encode_tome(params, images, cfg: ViTConfig,
                           dtype=torch.float32, device=dev)
     zeros_o = torch.zeros(E, dtype=torch.float32, device=dev)
     n_pre, n_reg = cfg.num_prefix_tokens, cfg.num_registers
-    dp_rates = torch.linspace(0.0, cfg.drop_path, cfg.depth).tolist()
+    dp_rates = drop_path_rates(cfg, cfg.depth, not stochastic)
 
     def branch(out, rate):
         if not stochastic:

@@ -10,8 +10,9 @@ MLP half kernel K2 (``vitx_torch/kernels``).
 Everything else -- patch embedding, residual adds, the head, the rollout
 chain -- is plain torch, as it is XLA in vitx. ``model_logits`` is the
 differentiable forward the train step runs (dropout and drop-path from an
-explicit ``torch.Generator``); ``forward``, ``forward_with_attn`` and
-``forward_with_rollout`` are inference, under ``torch.inference_mode``.
+explicit ``torch.Generator``); ``forward``, ``forward_features``,
+``forward_with_attn`` and ``forward_with_rollout`` are inference, under
+``torch.inference_mode``.
 vitx's ``remat`` is accepted and ignored: autograd keeps the activations.
 """
 
@@ -21,7 +22,7 @@ import numpy as np
 import torch
 
 from vitx_torch.core.config import ViTConfig
-from vitx_torch.core.device import resolve_device
+from vitx_torch.core.device import card_routes, resolve_device
 from vitx_torch.kernels.mha_block import (fused_mha_block,
                                           fused_mha_block_with_mean_probs)
 from vitx_torch.kernels.mlp_block import fused_mlp_block
@@ -211,7 +212,8 @@ def _patch_drop(x, cfg: ViTConfig, gen=None, noise=None):
 def _use_fused_mha(cfg: ViTConfig, bp, x,
                    return_probs: bool = False) -> bool:
     """vitx's rule (``vitx/nn/vit.py:287-304``) with "is this a TPU" read
-    as "are the tensors on a CUDA device"."""
+    as ``card_routes``: "are the tensors on a CUDA device, or is an export
+    tracing the card's program"."""
     if cfg.parity == "bug_exact":
         return False
     if return_probs or "bqkv" in bp or cfg.fuse_mha == "off":
@@ -220,16 +222,17 @@ def _use_fused_mha(cfg: ViTConfig, bp, x,
         return False
     if cfg.fuse_mha == "on":
         return True
-    return cfg.attn_impl in ("auto", "flash") and x.is_cuda
+    return cfg.attn_impl in ("auto", "flash") and card_routes(x)
 
 
 def _use_fused_mlp(cfg: ViTConfig, x) -> bool:
-    """vitx's rule (``vitx/nn/vit.py:307-316``), CUDA in place of TPU."""
+    """vitx's rule (``vitx/nn/vit.py:307-316``), ``card_routes`` in place
+    of TPU."""
     if cfg.mlp_act == "swiglu" or cfg.fuse_mlp == "off":
         return False
     if cfg.fuse_mlp == "on":
         return True
-    return cfg.attn_impl in ("auto", "flash") and x.is_cuda
+    return cfg.attn_impl in ("auto", "flash") and card_routes(x)
 
 
 def _encoder_block(x, pending, bp, cfg: ViTConfig, *, rng=None,
@@ -312,6 +315,16 @@ def unstack(blocks: Params):
     return [{k: v[i] for k, v in layers.items()} for i in range(depth)]
 
 
+def drop_path_rates(cfg: ViTConfig, n: int, deterministic: bool) -> list:
+    """The blocks' drop-path rates, rising linearly from 0 to
+    ``cfg.drop_path`` (fp32, as vitx's ``jnp.linspace``); all 0 when
+    deterministic, where none is drawn (and an export traces no
+    data-dependent value)."""
+    if deterministic or not cfg.drop_path:
+        return [0.0] * n
+    return torch.linspace(0.0, cfg.drop_path, n).tolist()
+
+
 def run_blocks(blocks: Params, x, cfg: ViTConfig, *, rng=None,
                deterministic: bool = True, return_probs: bool = False,
                probs_mode: str = "full"):
@@ -321,7 +334,7 @@ def run_blocks(blocks: Params, x, cfg: ViTConfig, *, rng=None,
     is the stack's. Drop-path rates rise linearly from 0 at the first
     block to ``cfg.drop_path`` at the last (vit.py:464-468)."""
     layers = unstack(blocks)
-    rates = torch.linspace(0.0, cfg.drop_path, len(layers)).tolist()
+    rates = drop_path_rates(cfg, len(layers), deterministic)
     pending = torch.zeros_like(x)
     probs = []
     for bp, rate in zip(layers, rates):
@@ -426,6 +439,26 @@ def forward(params: Params, images, cfg: ViTConfig, *, device="cuda"):
     params, images = on_device(params, images, device)
     with torch.inference_mode():
         return model_logits(params, images, cfg)
+
+
+def forward_features(params: Params, images, cfg: ViTConfig, *,
+                     pool: str = "cls", device="cuda"):
+    """Images -> (B, E) fp32 feature embeddings, the representation before
+    the head (``vitx/nn/vit.py:859-882``), what ``vitx_torch.cli.probe``
+    reads. ``pool="cls"``: token 0 of the encoder output, what
+    ``classify`` reads; ``"gap"``: the mean over the patch tokens only
+    (``bug_exact`` keeps the reference's layout, the patches first and the
+    CLS after them). Always every token: no ToMe merging. Devices as
+    ``forward``."""
+    if pool not in ("cls", "gap"):
+        raise ValueError(f"unknown pool {pool!r} (expected 'cls' or 'gap')")
+    params, images = on_device(params, images, device)
+    with torch.inference_mode():
+        x = encode(params, images, cfg)
+        if pool == "cls":
+            return x[:, 0, :].float()
+        s = 0 if cfg.parity == "bug_exact" else cfg.num_prefix_tokens
+        return x[:, s:s + cfg.num_patches, :].float().mean(dim=1)
 
 
 def forward_with_attn(params: Params, images, cfg: ViTConfig, *,

@@ -10,7 +10,10 @@ host. The server warms up at start (which also builds the CUDA kernels),
 tracks p50/p90/p99 latency with drift against a recent window, and bounds
 its queue (``max_queue``) so overload raises ``ServerOverloaded`` instead of
 growing the latency tail. ``explain`` answers one image with a heatmap
-(attention rollout or Grad-CAM) outside the batcher.
+(attention rollout or Grad-CAM) outside the batcher. ``logits_fn`` serves
+a program with the parameters baked in (a ``.pt2`` from
+``vitx_torch.export``) in place of the forward; an int8 ``.quant.npz``
+serves dequantized to float, as vitx's does.
 """
 
 from __future__ import annotations
@@ -108,12 +111,16 @@ class InferenceServer:
     def __init__(self, params, cfg: ViTConfig, *, batch_size: int = 32,
                  top_k: int = 5, max_delay_ms: float = 5.0,
                  max_queue: int | None = None,
-                 temperature: float | None = None, device="cuda"):
+                 temperature: float | None = None, device="cuda",
+                 logits_fn=None):
         """``max_queue``: beyond this many queued requests ``predict``
         raises ``ServerOverloaded`` (the HTTP front end answers 503).
         Default: 8 device batches. ``temperature`` scales the logits before
         the softmax (calibrated confidences; the top-k order is unchanged).
         ``device``: a CUDA device by default; raises when there is none.
+        ``logits_fn``: images -> fp32 logits with the parameters baked in
+        (an exported program's ``module()``), run in place of the forward;
+        ``params`` is then ignored and ``explain`` refused.
         """
         self.device = resolve_device(device)
         check_ported(cfg)
@@ -128,7 +135,9 @@ class InferenceServer:
         self._queue: queue.Queue[_Pending] = queue.Queue(
             maxsize=self.max_queue)
         self._stop = threading.Event()
-        self._params = params_to(params, self.device)
+        self._logits_fn = logits_fn
+        self._params = ({} if logits_fn is not None
+                        else params_to(params, self.device))
         self._inv_t = 1.0 / temperature if temperature else 1.0
         # warm-up at the serving shape: the first request must not pay for
         # building the kernels or for allocator growth
@@ -148,6 +157,8 @@ class InferenceServer:
         vitx's server runs ``vitx.nn.vit.forward``), fp32 softmax and top-k
         on the device."""
         with torch.inference_mode():
+            if self._logits_fn is not None:
+                return self._topk(self._logits_fn(images))
             return self._topk(model_logits(self._params, images, self.cfg))
 
     def _topk(self, logits):
@@ -169,6 +180,11 @@ class InferenceServer:
         ((grid*grid,) patch-raster weights), ``method`` and ``grid``; the
         HTTP front end serves it as ``POST /explain``.
         """
+        if self._logits_fn is not None:
+            raise RuntimeError(
+                "explain() needs the model's forward; an exported program "
+                "bakes only the logits -- serve the checkpoint itself to use "
+                "/explain")
         if method not in ("rollout", "gradcam"):
             raise ValueError(f"unknown explain method {method!r} "
                              "(rollout or gradcam)")
@@ -292,14 +308,34 @@ def load_server(checkpoint, cfg: ViTConfig, *, device="cuda",
                 **kw) -> InferenceServer:
     """A server from ``None`` (fresh parameters, seed 0), a vitx checkpoint
     directory or ``{epoch}.ckpt`` (the EMA shadow where the run kept one),
-    a bare params ``.npz`` (``vitx.cli.pretrain --export-vit``) or a
-    reference ``.pt``, by the eval CLI's loading rule
-    (``train.checkpoint.load_artifact_params``). ``.quant.npz`` and
-    ``.stablehlo`` raise, naming ROADMAP A11; orbax directories need
+    an int8 ``.quant.npz`` (dequantized), a bare params ``.npz``
+    (``vitx.cli.pretrain --export-vit``) or a reference ``.pt``, by the
+    eval CLI's loading rule (``train.checkpoint.load_artifact_params``),
+    or a ``.pt2`` program (``vitx_torch.export``, served through its
+    module with vitx's guards, ``vitx/serve.py:403-419``: a program that
+    returns probabilities is refused, a pinned batch must be the
+    server's). vitx's ``.stablehlo`` programs and orbax directories need
     JAX."""
     from vitx_torch.train.checkpoint import load_artifact_params
 
     dev = resolve_device(device)
+    if checkpoint is not None and str(checkpoint).endswith(".pt2"):
+        from vitx_torch.export import load_exported
+        from vitx_torch.export import peek_meta as peek_export_meta
+
+        meta = peek_export_meta(checkpoint) or {}
+        if meta.get("with_softmax"):
+            raise ValueError(
+                "this program was exported with_softmax=True (it returns "
+                "probabilities); export logits for serving -- the server "
+                "applies softmax and temperature itself")
+        pinned = meta.get("batch_size")
+        if pinned is not None and pinned != kw.get("batch_size", 32):
+            raise ValueError(
+                f"program pins batch_size={pinned} (ToMe export); pass "
+                f"batch_size={pinned} to serve it")
+        program = load_exported(checkpoint).module()
+        return InferenceServer({}, cfg, device=dev, logits_fn=program, **kw)
     if checkpoint is None:
         params = init_params(0, cfg, device=dev)
     else:

@@ -356,17 +356,24 @@ def restore_eval_params(path_or_dir, cfg: ViTConfig, device="cuda"):
     return (ema if ema is not None else state.params), meta
 
 
-_NOT_PORTED_ARTIFACTS = (
-    (".quant.npz", "int8 .quant.npz artifacts", "A11"),
-    (".stablehlo", ".stablehlo deployment artifacts", "A11"),
-)
-
-
 def _refuse_unported(path: pathlib.Path) -> None:
-    for suffix, what, item in _NOT_PORTED_ARTIFACTS:
-        if path.name.endswith(suffix):
-            raise NotImplementedError(
-                f"{what} are not readable by vitx_torch yet (ROADMAP {item})")
+    """Raise for the artifacts that hold no parameters the port can read:
+    vitx's ``.stablehlo`` programs (JAX only; the port's deployment
+    program is a ``.pt2``), ``.pt2`` programs themselves (the logits
+    program alone, as vitx's ``.stablehlo``: serve one, evaluate the
+    checkpoint it was exported from) and orbax directories."""
+    if path.suffix == ".stablehlo":
+        raise NotImplementedError(
+            f"{path}: .stablehlo artifacts are StableHLO programs that only "
+            f"JAX runs; vitx_torch's deployment program is a torch.export "
+            f".pt2 (vitx_torch.export, `eval --export-pt2`), made from the "
+            f"checkpoint the .stablehlo was exported from")
+    if path.suffix == ".pt2":
+        raise ValueError(
+            f"{path}: a .pt2 program bakes only the logits program -- there "
+            f"are no parameters to load; evaluate or probe the checkpoint "
+            f"it was exported from (serving it works: serve --checkpoint "
+            f"m.pt2)")
     if path.suffix == ORBAX_SUFFIX:
         raise _orbax_error(path)
 
@@ -448,8 +455,19 @@ def resolve_artifact_config(checkpoint, config_json=None, preset="tiny",
         cfg = get_config(preset)
     if checkpoint and not config_json:
         p = pathlib.Path(checkpoint)
-        _refuse_unported(p)
-        saved = None if p.suffix in (".npz", ".pt") else peek_meta(p)
+        if p.name.endswith(".quant.npz"):
+            from vitx_torch.quant import peek_meta as peek_quant_meta
+
+            saved = peek_quant_meta(p)
+        elif p.suffix in (".stablehlo", ".pt2"):
+            # the program's <path>.json sidecar, either package's
+            from vitx_torch.export import peek_meta as peek_export_meta
+
+            saved = peek_export_meta(p)
+        elif p.suffix == ORBAX_SUFFIX:
+            raise _orbax_error(p)
+        else:
+            saved = None if p.suffix in (".npz", ".pt") else peek_meta(p)
         if saved and "config" in saved:
             cfg = ViTConfig.from_json(json.dumps(saved["config"]))
             if cfg.tome_r or cfg.tome_train:
@@ -475,16 +493,23 @@ def is_bare_params_npz(checkpoint) -> bool:
 
 def load_artifact_params(checkpoint, cfg: ViTConfig, device="cuda"):
     """-> (params, meta) from a checkpoint directory or ``{epoch}.ckpt``
-    (``restore_eval_params``: the EMA shadow where there is one), a bare
+    (``restore_eval_params``: the EMA shadow where there is one), an int8
+    ``.quant.npz`` artifact (``load_quantized``, dequantized), a bare
     params ``.npz`` (``params_from_jax``) or a reference ``.pt``
     (``load_reference_pt``, at ``cfg``'s geometry); raises
-    ``FileNotFoundError`` when nothing is there and ``NotImplementedError``
-    for the artifact kinds the port cannot read yet (``vitx/train/
-    checkpoint.py:493-528``)."""
+    ``FileNotFoundError`` when nothing is there, ``ValueError`` for a
+    ``.pt2`` program and ``NotImplementedError`` for vitx's ``.stablehlo``
+    and orbax artifacts (``vitx/train/checkpoint.py:493-528``)."""
     from vitx_torch.interop.jax_params import params_from_jax
 
     p = pathlib.Path(checkpoint)
     _refuse_unported(p)
+    if p.name.endswith(".quant.npz"):
+        from vitx_torch.nn.vit import param_spec
+        from vitx_torch.quant import load_quantized
+
+        params, user = load_quantized(p, param_spec(cfg), device=device)
+        return params, {"epoch": user.get("epoch", -1)}
     if p.suffix == ".pt":
         return load_reference_pt(p, cfg, device=device)
     if is_bare_params_npz(p):
@@ -560,7 +585,12 @@ def transfer_params(checkpoint, cfg: ViTConfig, rng=0, *, device="cuda"):
     if p.suffix == ".pt":
         src_cfg = cfg
     else:
-        saved = peek_meta(p)
+        if p.name.endswith(".quant.npz"):
+            from vitx_torch.quant import peek_meta as peek_quant_meta
+
+            saved = peek_quant_meta(p)
+        else:
+            saved = peek_meta(p)
         if not saved or "config" not in saved:
             raise ValueError(
                 f"transfer from {p}: the artifact records no model config "
