@@ -270,7 +270,35 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               copy, the PNG folder; 8 threads), each source's epoch img/s
               and device busy share, the host's cores; and K1 with its
               stash, B2 and B3 at T 577 as more "shapes" of their rows.
-13. artifacts -- main path 8, the model shipped (base16 bf16 at full
+13. pretrained -- main path 10, fine-tuning from public pretrained ViTs
+              on the CIFAR-10 copy (5 x 128 + 128 images): (a) timm,
+              HF and DeiT-distilled ViT-B/16 state dicts drawn from a
+              seed, imported (QKV biases, erf GELU, eps 1e-6 / 1e-12, T
+              197 / 198) and run at b64: bf16 (B5 and K2 12 each)
+              against the CPU's fp32 forward on two rows, fp32 against a
+              module-by-module timm / HF ViT in torch.nn; a base16 .ckpt
+              trained one epoch at b128 through cli.train.main; (b) LoRA
+              rank 8 from it at b128 (K1 12, B2 12, B3 24 a step: the
+              first block's LN1 asks for no gradient) and from the timm
+              import via --config-json (B5 for K1); (c) --llrd 0.65
+              --accum-steps 2 --mixup-alpha 0.8 --cutmix-alpha 1.0 at b64
+              micro-batches, and --freeze-backbone at b128 (K1 without
+              its stash, B3 1 a step), a frozen step timed beside a full
+              one; (d) small16 with the distillation token (T 198) at
+              b128 from the base16 .ckpt, soft and hard (the teacher's K1
+              and K2, the student's with their stashes, B2, B3 26 a
+              step); every run two epochs through build_trainer, its
+              launches asserted and printed a step, its losses finite and
+              falling, frozen leaves bit-unchanged and the rest moved;
+              the depth-2 fp32 copies of (b)-(d), card vs CPU, as train
+              (a) (the distillation's with B12 on the card); (e) the eval
+              CLI and a server on the LoRA (merged) and distill-token
+              .ckpts, top-1 equal to direct calls, the merged LoRA
+              forward within BF16_TOL of the adapted; (f) csrc/vitc.c and
+              trainc.c built with gcc: the port's fp32 tiny forward on
+              the card within 1e-4 of vitc's, one train step of
+              trainc's case within its test's bars.
+14. artifacts -- main path 8, the model shipped (base16 bf16 at full
               width): (a) an int8 .quant.npz of the params, about 1/4 of
               their fp32 bytes, quantization_error at most 1/254, a
               server on it answering 32 requests with the top-1 of direct
@@ -286,7 +314,7 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               within 1e-4 and the probe CLI on a .quant.npz over
               procedural:128,64, reports and features alike. Its
               launches are the kernels line's "export" path.
-14. bench  -- main path 9, vitx's bench configurations on the card: K1
+15. bench  -- main path 9, vitx's bench configurations on the card: K1
               (with and without its stash), K2, B2 and B3 at huge14's
               shapes (E 1280, 10 heads of D 128: the earlier attention
               kernels, the sm90 GEMM) held to their plain versions in
@@ -294,7 +322,7 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               last the "huge14" path: its launches asserted), then
               vitx_torch.cli.tune --mode infer on base16 at 64, 128 and
               256 with no error row.
-15. times  -- CUDA-event medians: the base16 forward at batch 256 bf16
+16. times  -- CUDA-event medians: the base16 forward at batch 256 bf16
               (img/s), the train step at batch 128 bf16 (img/s), the
               large16_384 rollout forward at batch 32 bf16 (img/s), the
               same with QKV biases and forward_with_attn("full") at
@@ -403,8 +431,8 @@ PROFILE_LEAD = 1024           # spin kernels that open profile_call's window
 PROFILE_LEAD_KEPT = 960       # of them a window must keep to be read
 PROFILE_TRIES = 3             # windows profile_call traces at most
 PHASES = ("device", "build", "kernels", "grad", "forward", "serve", "train",
-          "explain", "tome", "finetune", "recipe", "transfer", "artifacts",
-          "bench", "times")
+          "explain", "tome", "finetune", "recipe", "transfer", "pretrained",
+          "artifacts", "bench", "times")
 
 KERNELS = {
     "fused_mha_block": {
@@ -2606,12 +2634,13 @@ def phase_recipe() -> dict:
 
 
 def serve_ckpt(part: str, path: Path, cfg, ema, imgs=None,
-               phase: str = "recipe") -> None:
+               phase: str = "recipe") -> dict:
     """``load_server`` on the artifact ``path`` answers 32 requests from 4
     threads: top-1 equal to direct forwards on ``ema`` (the params it must
-    serve bit for bit: the run's EMA shadow for a .ckpt), launches as a
-    forward's. ``imgs``: 32 preprocessed float32 images, by default the
-    procedural val split's first at 224²."""
+    serve bit for bit: the run's EMA shadow for a .ckpt, a LoRA run's
+    merged weights), launches as a forward's, which it returns.
+    ``imgs``: 32 preprocessed float32 images, by default the procedural
+    val split's first at 224²."""
     from vitx_torch import forward
     from vitx_torch.data import make_preprocess
     from vitx_torch.data.procedural import ProceduralShapes
@@ -2643,6 +2672,7 @@ def serve_ckpt(part: str, path: Path, cfg, ema, imgs=None,
     if top1 != direct or not same:
         raise AssertionError(f"{phase} ({part}): served {top1}, direct "
                              f"{direct}, params served {same}")
+    return served
 
 
 def direct_accuracy(params, cfg) -> float:
@@ -3154,6 +3184,704 @@ def phase_transfer() -> tuple:
         "batch": {"image": np.stack([shards_train.get_example(i)[0]
                                      for i in range(32)]),
                   "label": shards_train.labels[:32].astype(np.int32)}}
+
+
+PRETRAINED_CIFAR = 128      # images per CIFAR batch file: 640 train, 128 val
+PRETRAINED_FWD_B = 64       # the imports' forward batch
+PRETRAINED_CPU_ROWS = 2     # of its rows, those held to the CPU's fp32
+PRETRAINED_EPOCHS = 2       # of each full-width run: 10 steps at b128
+
+
+def vit_b_state_dict(seed: int, layout: str) -> dict:
+    """A ViT-B/16 state dict of fp32 CPU tensors drawn from ``seed``:
+    timm's ``vit_base_patch16_224`` keys (``layout="timm"``: one fused
+    qkv matrix), DeiT's ``deit_base_distilled_patch16_224`` (``"deit"``:
+    ``dist_token``, ``head_dist``, T 198) or HF's ``ViTForImageClassification``
+    (``"hf"``: query, key and value apart). Weights N(0, 0.02), biases
+    N(0, 0.02), LayerNorm scales 1 + N(0, 0.1), 1000 classes."""
+    g = torch.Generator().manual_seed(seed)
+    E, L, P = 768, 12, 16
+
+    def r(*shape, base=0.0, std=0.02):
+        return base + std * torch.randn(shape, generator=g)
+
+    T = 196 + (2 if layout == "deit" else 1)
+    sd = {"cls_token": r(1, 1, E), "pos_embed": r(1, T, E),
+          "patch_embed.proj.weight": r(E, 3, P, P),
+          "patch_embed.proj.bias": r(E), "norm.weight": r(E, base=1, std=0.1),
+          "norm.bias": r(E), "head.weight": r(1000, E), "head.bias": r(1000)}
+    for i in range(L):
+        t = f"blocks.{i}."
+        sd.update({t + "attn.qkv.weight": r(3 * E, E),
+                   t + "attn.qkv.bias": r(3 * E),
+                   t + "attn.proj.weight": r(E, E), t + "attn.proj.bias": r(E),
+                   t + "norm1.weight": r(E, base=1, std=0.1),
+                   t + "norm1.bias": r(E),
+                   t + "norm2.weight": r(E, base=1, std=0.1),
+                   t + "norm2.bias": r(E),
+                   t + "mlp.fc1.weight": r(4 * E, E),
+                   t + "mlp.fc1.bias": r(4 * E),
+                   t + "mlp.fc2.weight": r(E, 4 * E),
+                   t + "mlp.fc2.bias": r(E)})
+    if layout == "deit":
+        sd.update({"dist_token": r(1, 1, E), "head_dist.weight": r(1000, E),
+                   "head_dist.bias": r(1000)})
+    if layout != "hf":
+        return sd
+    hf = {"vit.embeddings.cls_token": sd["cls_token"],
+          "vit.embeddings.position_embeddings": sd["pos_embed"],
+          "vit.embeddings.patch_embeddings.projection.weight":
+              sd["patch_embed.proj.weight"],
+          "vit.embeddings.patch_embeddings.projection.bias":
+              sd["patch_embed.proj.bias"],
+          "vit.layernorm.weight": sd["norm.weight"],
+          "vit.layernorm.bias": sd["norm.bias"],
+          "classifier.weight": sd["head.weight"],
+          "classifier.bias": sd["head.bias"]}
+    for i in range(L):
+        t, h = f"blocks.{i}.", f"vit.encoder.layer.{i}."
+        for j, m in enumerate(("query", "key", "value")):
+            hf[f"{h}attention.attention.{m}.weight"] = sd[
+                t + "attn.qkv.weight"][j * E:(j + 1) * E]
+            hf[f"{h}attention.attention.{m}.bias"] = sd[
+                t + "attn.qkv.bias"][j * E:(j + 1) * E]
+        for src, dst in (("attn.proj", "attention.output.dense"),
+                         ("norm1", "layernorm_before"),
+                         ("norm2", "layernorm_after"),
+                         ("mlp.fc1", "intermediate.dense"),
+                         ("mlp.fc2", "output.dense")):
+            hf[h + dst + ".weight"] = sd[t + src + ".weight"]
+            hf[h + dst + ".bias"] = sd[t + src + ".bias"]
+    return hf
+
+
+class RefViT(torch.nn.Module):
+    """timm's or HF's ViT-B/16 written module by module in fp32 with
+    ``nn.Conv2d``, ``nn.Linear``, ``nn.LayerNorm`` and ``F.gelu`` (erf),
+    loaded from ``vit_b_state_dict``'s tensors, independent of the port's
+    import: pre-LN blocks with the attention's q, k, v from one fused
+    Linear (timm) or three (HF), the final LayerNorm, the head on the CLS
+    token and, for DeiT, the mean of it and the distillation head on token
+    1. Takes NCHW images, returns logits."""
+
+    def __init__(self, sd: dict, layout: str, eps: float):
+        super().__init__()
+        nn = torch.nn
+        E, self.H, self.layout = 768, 12, layout
+        hf = layout == "hf"
+        key = (lambda k: {"cls_token": "vit.embeddings.cls_token",
+                          "pos_embed": "vit.embeddings.position_embeddings",
+                          "patch_embed.proj": "vit.embeddings."
+                          "patch_embeddings.projection",
+                          "norm": "vit.layernorm",
+                          "head": "classifier"}.get(k, k)) if hf else \
+            (lambda k: k)
+        self.proj = nn.Conv2d(3, E, 16, stride=16)
+        self.blocks = nn.ModuleList()
+        for _ in range(12):
+            b = nn.Module()
+            b.norm1, b.norm2 = nn.LayerNorm(E, eps=eps), nn.LayerNorm(E,
+                                                                     eps=eps)
+            if hf:
+                b.q, b.k, b.v = (nn.Linear(E, E) for _ in range(3))
+            else:
+                b.qkv = nn.Linear(E, 3 * E)
+            b.out, b.fc1, b.fc2 = (nn.Linear(E, E), nn.Linear(E, 4 * E),
+                                   nn.Linear(4 * E, E))
+            self.blocks.append(b)
+        self.norm = nn.LayerNorm(E, eps=eps)
+        self.head = nn.Linear(E, 1000)
+        self.tokens = [key("cls_token")] + (["dist_token"]
+                                            if layout == "deit" else [])
+        self.head_dist = nn.Linear(E, 1000) if layout == "deit" else None
+
+        def put(mod, name):
+            mod.weight.data.copy_(sd[name + ".weight"])
+            mod.bias.data.copy_(sd[name + ".bias"])
+
+        with torch.no_grad():
+            put(self.proj, key("patch_embed.proj"))
+            put(self.norm, key("norm"))
+            put(self.head, key("head"))
+            if self.head_dist is not None:
+                put(self.head_dist, "head_dist")
+            self.prefix = nn.Parameter(torch.cat([sd[k] for k in
+                                                  self.tokens], dim=1))
+            self.pos = nn.Parameter(sd[key("pos_embed")].clone())
+            for i, b in enumerate(self.blocks):
+                if hf:
+                    h = f"vit.encoder.layer.{i}."
+                    for mod, m in ((b.q, "query"), (b.k, "key"),
+                                   (b.v, "value")):
+                        put(mod, f"{h}attention.attention.{m}")
+                    for mod, m in ((b.out, "attention.output.dense"),
+                                   (b.norm1, "layernorm_before"),
+                                   (b.norm2, "layernorm_after"),
+                                   (b.fc1, "intermediate.dense"),
+                                   (b.fc2, "output.dense")):
+                        put(mod, h + m)
+                else:
+                    t = f"blocks.{i}."
+                    for mod, m in ((b.qkv, "attn.qkv"), (b.out, "attn.proj"),
+                                   (b.norm1, "norm1"), (b.norm2, "norm2"),
+                                   (b.fc1, "mlp.fc1"), (b.fc2, "mlp.fc2")):
+                        put(mod, t + m)
+
+    def forward(self, x):
+        F = torch.nn.functional
+        t = self.proj(x).flatten(2).transpose(1, 2)
+        B, _, E = t.shape
+        H, D = self.H, E // self.H
+        t = torch.cat([self.prefix.expand(B, -1, -1), t], dim=1) + self.pos
+        T = t.shape[1]
+        for b in self.blocks:
+            h = b.norm1(t)
+            if self.layout == "hf":
+                q, k, v = (m(h).reshape(B, T, H, D).transpose(1, 2)
+                           for m in (b.q, b.k, b.v))
+            else:
+                q, k, v = b.qkv(h).reshape(B, T, 3, H, D).permute(
+                    2, 0, 3, 1, 4)
+            a = torch.softmax(q @ k.transpose(-1, -2) / D ** 0.5, dim=-1) @ v
+            t = t + b.out(a.transpose(1, 2).reshape(B, T, E))
+            t = t + b.fc2(F.gelu(b.fc1(b.norm2(t))))
+        t = self.norm(t)
+        logits = self.head(t[:, 0])
+        if self.head_dist is not None:
+            logits = 0.5 * (logits + self.head_dist(t[:, 1]))
+        return logits
+
+
+def pretrained_imports(errs: dict) -> tuple:
+    """(a) timm ViT-B/16, HF ViT-B/16 and DeiT-B/16-distilled state dicts
+    imported (``import_pretrained_state_dict``) and run at b64: bf16 on
+    the card (B5 and K2 in every block), held to the CPU's fp32 plain
+    forward on its first rows (EXPLAIN_TOL) and, in fp32 on the card, to
+    ``RefViT`` (FP32_TOL). Returns (the bf16 forwards' launches, the timm
+    config, its params on the card)."""
+    from vitx_torch import forward
+    from vitx_torch.interop import (import_pretrained_state_dict,
+                                    vit_config_for_pretrained)
+    from vitx_torch.nn.vit import params_to
+
+    x = np.random.default_rng(11).standard_normal(
+        (PRETRAINED_FWD_B, 224, 224, 3)).astype(np.float32)
+    xc = torch.from_numpy(x).cuda()
+    launches, keep = {k: 0 for k in (*KERNELS, *EXTRA_COUNTERS)}, None
+    for layout in ("timm", "hf", "deit"):
+        eps = 1e-12 if layout == "hf" else 1e-6
+        cfg = vit_config_for_pretrained(
+            image_size=224, patch_size=16, num_classes=1000, embed_dim=768,
+            depth=12, num_heads=12, layer_norm_eps=eps,
+            distill_token=layout == "deit")
+        sd = vit_b_state_dict(21, layout)
+        t0 = time.perf_counter()
+        params = import_pretrained_state_dict(sd, cfg)
+        import_s = time.perf_counter() - t0
+        reset_counts()
+        logits = forward(params, xc, cfg)
+        torch.cuda.synchronize()
+        got = counts()
+        launches = add_launches(launches, got)
+        expect = block_launches(cfg, flash_attention=12,
+                                flash_attention_sm90=12, fused_mlp_block=12)
+        expect_launches(f"pretrained (a) {layout}", got, expect)
+        what = f"a: {layout} ViT-B/16 (T {cfg.seq_len}, eps {eps:g})"
+        n = PRETRAINED_CPU_ROWS
+        host = forward(params_to(params, "cpu"), x[:n],
+                       cfg.replace(compute_dtype="float32"), device="cpu")
+        check("pretrained", f"{what} bf16 b{PRETRAINED_FWD_B} on the card "
+              f"vs CPU fp32 (rows 0-{n - 1})", logits[:n], host, EXPLAIN_TOL,
+              import_s=import_s)
+        ref = RefViT(sd, layout, eps).cuda()
+        with torch.no_grad():
+            want = ref(xc.permute(0, 3, 1, 2))
+        got32 = forward(params, xc, cfg.replace(compute_dtype="float32"))
+        check("pretrained", f"{what} fp32 on the card vs the module-by-module "
+              f"{layout} ViT", got32, want, FP32_TOL, errs, "pretrained_fp32")
+        del ref, want, got32, host
+        if layout == "timm":
+            keep = (cfg, params)
+    return launches, *keep
+
+
+def lora_launches(cfg, steps: int, evals: int, composed: bool) -> dict:
+    """A LoRA run's launches (attention adapters): per step K1 with its
+    stash (B5 on the composed path of a QKV-bias model) and B2 in every
+    block; B3 for LN2 of every block, LN1 of every block but the first
+    (its input and parameters are frozen: nothing asks for that
+    gradient) and the head's LayerNorm. Per eval batch K1 (B5) and K2
+    in every block."""
+    L = cfg.depth
+    b3 = (L - 1) + L + 1
+    if composed:
+        return block_launches(
+            cfg, flash_attention=L * (steps + evals),
+            flash_attention_sm90=L * (steps + evals) * sm90(cfg),
+            fused_mlp_block=L * evals, attention_bwd=L * steps,
+            attention_bwd_sm90=L * steps * sm90(cfg), ln_bwd=b3 * steps)
+    return block_launches(
+        cfg, fused_mha_block=L * (steps + evals), fused_mlp_block=L * evals,
+        attention_bwd=L * steps, attention_bwd_sm90=L * steps * sm90(cfg),
+        ln_bwd=b3 * steps)
+
+
+def freeze_launches(cfg, steps: int, evals: int) -> dict:
+    """A frozen backbone's run: the encoder records no gradient, so K1
+    runs without its stash in every block of a step, no B2; B3 for the
+    head's LayerNorm only. Per eval batch K1 and K2 in every block."""
+    L = cfg.depth
+    return block_launches(cfg, fused_mha_block=L * (steps + evals),
+                          fused_mlp_block=L * evals, ln_bwd=steps)
+
+
+def distill_launches(cfg, tcfg, steps: int, evals: int) -> dict:
+    """A distillation run with the token: per step the teacher's K1 and
+    K2 (no stash) in every block and the student's, with their stashes
+    (the step runs the model's forward with fuse_mlp "auto", as vitx's
+    does); B2 in every student block; B3 for LN1 (K1's backward) and LN2
+    (K2's) of every block and the two heads' LayerNorms. Per eval batch
+    the student's K1 and K2."""
+    L, Lt = cfg.depth, tcfg.depth
+    student = block_launches(cfg, fused_mha_block=L * (steps + evals),
+                             fused_mlp_block=L * (steps + evals),
+                             attention_bwd=L * steps,
+                             attention_bwd_sm90=L * steps * sm90(cfg),
+                             ln_bwd=(2 * L + 2) * steps)
+    return add_launches(student, forward_launches(tcfg, steps))
+
+
+def knob_run(part: str, argv: list, root: Path, expect_fn, frozen=None):
+    """One full-width run of the train CLI's trainer (``build_trainer`` on
+    ``argv``, then ``fit``) on the CIFAR copy: its launches against
+    ``expect_fn(cfg, steps, evals)``, printed a step; finite losses whose
+    last third is below the first; with ``frozen`` (a predicate on leaf
+    names), those leaves bit-unchanged and every other one moved. Returns
+    (launches, trainer, its checkpoint directory, wall seconds)."""
+    from vitx_torch.train.step import leaves
+
+    out, logs = root / part, root / f"{part}_logs"
+    tr, train_loader, eval_loader, notes = build_quietly(
+        argv + ["--checkpoint-dir", str(out), "--log-dir", str(logs),
+                "--epochs", str(PRETRAINED_EPOCHS), "--seed", "0",
+                "--log-every", "1"])
+    names = leaf_names(tr.state.params)
+    before = ([t.clone() for t in leaves(tr.state.params)]
+              if frozen is not None else None)
+    reset_counts()
+    t0 = time.perf_counter()
+    tr.fit(train_loader, eval_loader)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = counts()
+    steps = PRETRAINED_EPOCHS * len(train_loader)
+    evals = PRETRAINED_EPOCHS * len(eval_loader)
+    expect = expect_fn(tr.cfg, steps, evals)
+    at_eval = expect_fn(tr.cfg, 0, evals)
+    losses = [v for _, v in read_scalars(logs, "Loss/train_batch")]
+    third = max(1, len(losses) // 3)
+    emit({"phase": "pretrained", "part": f"{part}: {' '.join(argv)}",
+          "T": tr.cfg.seq_len, "steps": steps, "eval_batches": evals,
+          "launches": got, "launches_per_step": {
+              k: (got[k] - at_eval[k]) / steps for k in (
+                  "fused_mha_block", "fused_mlp_block", "attention_bwd",
+                  "ln_bwd", "flash_attention", "fused_adamw_multi_")},
+          "expected": expect, "losses": losses, "wall_s": wall,
+          "warnings": notes})
+    expect_launches(f"pretrained ({part})", got, expect)
+    if not (len(losses) == steps and np.all(np.isfinite(losses))
+            and np.mean(losses[-third:]) < np.mean(losses[:third])):
+        raise AssertionError(f"pretrained ({part}): losses {losses}")
+    if frozen is not None:
+        moved = [n for n, a, b in zip(names, before, leaves(tr.state.params))
+                 if not torch.equal(a, b)]
+        wrong = [n for n in names if frozen(n) == (n in moved)]
+        emit({"phase": "pretrained", "part": f"{part}: frozen leaves",
+              "moved": moved, "wrong": wrong})
+        if wrong:
+            raise AssertionError(f"pretrained ({part}): frozen leaves "
+                                 f"moved or trainable ones did not: {wrong}")
+    return got, tr, out, wall
+
+
+def knob_card_vs_cpu(part: str, cfg, host, batches, opt_kw, *,
+                     train_filter=None, mixes=None, teacher=None,
+                     lr: float = 1e-4) -> None:
+    """A fine-tuning knob at depth 2 in fp32 from the same params on the
+    card and on the CPU, as train (a) holds the plain step: each
+    micro-batch's loss, grad_norm and gradients (of the trainable leaves)
+    within FP32_TOL; the params after the update within ``param_gap``'s
+    allowance of the mean gradient; frozen leaves bit-unchanged on both.
+    ``mixes``: the (perm, map) of each micro-batch, fed to both devices;
+    ``teacher`` (cfg, params on the CPU): a distillation step, whose
+    gradients come from ``distill_loss`` on ``model_logits``' heads."""
+    from vitx_torch.nn.vit import model_logits, params_to
+    from vitx_torch.train import make_optimizer, train_step
+    from vitx_torch.train.distill import distill_loss, distill_train_step
+    from vitx_torch.train.step import (TrainState, cross_entropy_loss,
+                                       leaves, loss_fn, trainable_params,
+                                       tree_map)
+
+    out = []
+    for dev in ("cuda", "cpu"):
+        params = tree_map(lambda t: t.clone().to(dev), host)
+        opt = make_optimizer(lr=lr, **opt_kw)
+        state = TrainState(0, params, opt.init(params))
+        start = [t.clone() for t in leaves(params)]
+        grads, metrics = [], []
+        for i, b in enumerate(batches):
+            tb = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+            mix = None if mixes is None else tuple(
+                torch.from_numpy(np.asarray(m)).to(dev) for m in mixes[i])
+            req, wrt = trainable_params(state.params, train_filter)
+            if teacher is None:
+                loss = loss_fn(req, tb, cfg, mix=mix,
+                               mixup_alpha=0.8 if mix else None)[0]
+            else:
+                tcfg, tparams = teacher
+                tp = params_to(tparams, dev)
+                with torch.no_grad():
+                    tl = model_logits(tp, tb["image"], tcfg)
+                cls, dist = model_logits(req, tb["image"], cfg, heads=True)
+                loss = 0.5 * cross_entropy_loss(cls, tb["label"]) + \
+                    0.5 * distill_loss(dist, tl, tb["label"], alpha=1.0)
+            grads.append([g.cpu() for g in torch.autograd.grad(
+                loss, [t for t, w in zip(leaves(req), wrt) if w])])
+            if teacher is None:
+                state, m = train_step(state, b, cfg=cfg, optimizer=opt,
+                                      device=dev, train_filter=train_filter,
+                                      mix=mix,
+                                      mixup_alpha=0.8 if mix else None)
+            else:
+                state, m = distill_train_step(
+                    state, b, tp, cfg=cfg, teacher_cfg=tcfg, optimizer=opt,
+                    alpha=0.5, tau=1.0, hard=False, device=dev)
+            metrics.append({k: float(v) for k, v in m.items()})
+        out.append((grads, [t.cpu() for t in leaves(state.params)],
+                    [t.cpu() for t in start], metrics, wrt))
+    (gc, pc, sc, mc, wrt), (gh, ph, sh, mh, _) = out
+    errs = {k: max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(mc, mh))
+            for k in ("loss", "grad_norm")}
+    errs["grads"] = max(rel_err(a, b) for ga, gb in zip(gc, gh)
+                        for a, b in zip(ga, gb))
+    names = [n for n, w in zip(leaf_names(host), wrt) if w]
+
+    def mean(gs):                     # MultiSteps' running mean
+        m = gs[0]
+        for k, g in enumerate(gs[1:], start=1):
+            m = [a + (b - a) / (k + 1) for a, b in zip(m, g)]
+        return m
+    train_c = [p for p, w in zip(pc, wrt) if w]
+    train_h = [p for p, w in zip(ph, wrt) if w]
+    p_err = param_gap(mean(gc), mean(gh), train_c, train_h, lr, 1e-8, names)
+    frozen_moved = [n for n, a, b, c, d, w in zip(leaf_names(host), pc, sc,
+                                                  ph, sh, wrt)
+                    if not w and not (torch.equal(a, b) and torch.equal(c, d))]
+    emit({"phase": "pretrained", "part": f"{part}, card vs CPU",
+          "card": mc, "cpu": mh, "rel_err": errs, "params": p_err,
+          "frozen_moved": frozen_moved, "tol": FP32_TOL})
+    if not (max(errs.values()) <= FP32_TOL and p_err["worst"] <= 1.0
+            and not frozen_moved):
+        raise AssertionError(f"pretrained {part}: {errs}, {p_err}, "
+                             f"{frozen_moved}")
+
+
+def with_adapters(params, seed: int):
+    """``params`` with its adapters' zero B factors drawn (N(0, 0.02)), so
+    that the adapters act in a forward."""
+    g = torch.Generator().manual_seed(seed)
+    blocks = dict(params["blocks"])
+    for k in sorted(blocks):
+        if k.startswith("lora_") and k.endswith("_b"):
+            blocks[k] = 0.02 * torch.randn(blocks[k].shape, generator=g).to(
+                blocks[k].device)
+    return dict(params, blocks=blocks)
+
+
+def save_params_ckpt(path_dir: Path, params, cfg) -> Path:
+    """``params`` as a self-describing epoch-0 ``.ckpt`` (fresh AdamW
+    moments), what ``--init-from`` and ``--distill-from`` read."""
+    from vitx_torch.train import make_optimizer
+    from vitx_torch.train import checkpoint as ckpt
+    from vitx_torch.train.step import TrainState
+
+    state = TrainState(0, params, make_optimizer().init(params))
+    return ckpt.save_checkpoint(path_dir, ckpt.snapshot(state, False), 0,
+                                meta={"config": json.loads(cfg.to_json())})
+
+
+def c_oracle_on_card(root: Path, errs: dict) -> None:
+    """(f) ``csrc/vitc.c`` and ``csrc/trainc.c`` built with gcc into the
+    build directory; the port's fp32 forward on the card on ``tiny``
+    against vitc (FP32_TOL), and one train step of
+    ``tests/test_c_oracle.py``'s case (16² images, E 16, depth 2, 2
+    heads; lr 1e-3, weight decay 1e-4) against trainc's: the loss within
+    5e-4, the params within 5e-3 relative + 2e-5 absolute."""
+    import vitx_torch
+    from vitx_torch.interop import cbin
+    from vitx_torch.nn.vit import init_params
+    from vitx_torch.train import make_optimizer, train_step
+    from vitx_torch.train.step import TrainState
+
+    src = Path(__file__).resolve().parent / "csrc"
+    out = root / "cbin"
+    out.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    vitc = cbin.build_vitc(src / "vitc.c", out / "vitc")
+    trainc = cbin.build_vitc(src / "trainc.c", out / "trainc")
+    build_s = time.perf_counter() - t0
+    cfg = vitx_torch.get_config("tiny", compute_dtype="float32")
+    params = init_params(5, cfg)
+    x = np.random.default_rng(6).standard_normal(
+        (4, 64, 64, 3)).astype(np.float32)
+    m, i, o = out / "m.bin", out / "i.bin", out / "o.bin"
+    cbin.write_model_bin(m, params, cfg)
+    cbin.write_input_bin(i, x)
+    cbin.run_vitc(vitc, m, i, o)
+    want = torch.from_numpy(cbin.read_output_bin(o, 4, cfg.num_classes))
+    got = vitx_torch.forward(params, x, cfg)
+    check("pretrained", "f: tiny fp32 on the card vs vitc", got, want,
+          FP32_TOL, errs, "c_oracle", build_s=build_s)
+    cfg = vitx_torch.ViTConfig(image_size=16, patch_size=4, num_classes=4,
+                               embed_dim=16, depth=2, num_heads=2,
+                               compute_dtype="float32", mlp_act="gelu")
+    params = init_params(3, cfg)
+    x = np.random.default_rng(4).standard_normal(
+        (4, 16, 16, 3)).astype(np.float32)
+    labels = np.array([0, 3, 1, 2], np.int32)
+    d, m_out, ours = out / "d.bin", out / "m_out.bin", out / "ours.bin"
+    cbin.write_model_bin(m, params, cfg)
+    cbin.write_train_bin(d, x, labels)
+    c_loss = cbin.run_trainc(trainc, m, d, 1, 1e-3, 1e-4, m_out)[0]
+    opt = make_optimizer(lr=1e-3, weight_decay=1e-4)
+    state, metrics = train_step(TrainState(0, params, opt.init(params)),
+                                {"image": x, "label": labels}, cfg=cfg,
+                                optimizer=opt)
+    cbin.write_model_bin(ours, state.params, cfg)
+    a, b = cbin.read_model_bin(ours, cfg), cbin.read_model_bin(m_out, cfg)
+    gap = float(np.max(np.abs(a - b) - (2e-5 + 5e-3 * np.abs(b))))
+    loss_err = abs(float(metrics["loss"]) - c_loss) / abs(c_loss)
+    emit({"phase": "pretrained", "part": "f: one train step of the card vs "
+          "trainc", "loss": float(metrics["loss"]), "trainc_loss": c_loss,
+          "loss_rel_err": loss_err, "params_over_tol": gap})
+    if loss_err > 5e-4 or gap > 0:
+        raise AssertionError(f"pretrained (f): loss {loss_err}, params "
+                             f"{gap}")
+
+
+def step_times(tr, batch, reps: int = 5) -> float:
+    """Median ms of ``tr.train_step`` on ``batch`` (host clock around each
+    step, synchronised)."""
+    ts = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.state, _ = tr.train_step(tr.state, batch, None)
+        torch.cuda.synchronize()
+        ts.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(ts[1:])
+
+
+def phase_pretrained(errs: dict) -> tuple:
+    """Main path 10, fine-tuning from public pretrained ViTs: (a) the
+    imports (``pretrained_imports``); a base16 .ckpt trained one epoch on
+    a CIFAR-10 copy at b128 through the train CLI; (b) LoRA rank 8 from
+    it at b128, and from the imported timm ViT-B/16 (``--config-json``);
+    (c) --llrd 0.65 --accum-steps 2 --mixup-alpha 0.8 --cutmix-alpha 1.0
+    at b64 micro-batches, and --freeze-backbone at b128, with a frozen
+    step's time beside a full step's; (d) small16 with the distillation
+    token at b128 from the base16 .ckpt, soft and hard; the depth-2 fp32
+    copies of (b)-(d), card vs CPU (``knob_card_vs_cpu``); (e) the eval
+    CLI and a server on the LoRA and the distill-token .ckpts, top-1
+    equal to direct calls, and the merged LoRA forward within BF16_TOL of
+    the adapted one; (f) the C oracle (``c_oracle_on_card``). Returns
+    (the launches of (a)-(e), the times' data)."""
+    import os
+    import shutil
+    import warnings
+    from types import SimpleNamespace
+
+    import vitx_torch
+    import vitx_torch.cli.eval as eval_cli
+    import vitx_torch.cli.train as train_cli
+    from vitx_torch import forward
+    from vitx_torch.data import CIFAR10, BatchLoader, make_preprocess
+    from vitx_torch.nn.lora import merge_lora_params
+    from vitx_torch.nn.vit import init_params
+    from vitx_torch.train import checkpoint as ckpt
+    from vitx_torch.train import make_optimizer, make_train_step
+    from vitx_torch.train.step import TrainState, tree_map
+
+    root = BUILD / "pretrained"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    os.environ.setdefault("VITX_PROC_CACHE", str(BUILD / "procdata"))
+    launches, timm_cfg, timm_params = pretrained_imports(errs)
+    cifar = root / "cifar"
+    write_cifar_copy(cifar, PRETRAINED_CIFAR)
+    data = ["--data", f"cifar10:{cifar}"]
+
+    # the base16 source: one epoch at b128 through the train CLI
+    base_dir = root / "base"
+    reset_counts()
+    run_cli(train_cli.main, ["--preset", "base16", *data, "--epochs", "1",
+                             "--batch-size", "128", "--seed", "0",
+                             "--checkpoint-dir", str(base_dir)])
+    launches = add_launches(launches, counts())
+    base = base_dir / "0.ckpt"
+    timm_json, timm_src = root / "timm.json", root / "timm"
+    timm_json.write_text(timm_cfg.to_json())
+    save_params_ckpt(timm_src, timm_params, timm_cfg)
+    del timm_params
+
+    # (b) LoRA
+    lora = ["--lora-rank", "8", "--batch-size", "128", "--lr", "1e-3", *data]
+    adapted = lambda n: not n.startswith(("head/", "blocks/lora_"))
+    got, tr_lora, lora_dir, _ = knob_run(
+        "b1", ["--preset", "base16", "--init-from", str(base), *lora], root,
+        lambda c, s, e: lora_launches(c, s, e, False), frozen=adapted)
+    launches = add_launches(launches, got)
+    got, tr, _, _ = knob_run(
+        "b2", ["--config-json", str(timm_json), "--init-from",
+               str(timm_src), *lora], root,
+        lambda c, s, e: lora_launches(c, s, e, True), frozen=adapted)
+    launches = add_launches(launches, got)
+    del tr
+
+    # (c) the recipe knobs, then a frozen backbone
+    got, tr, _, _ = knob_run(
+        "c1", ["--preset", "base16", "--init-from", str(base), "--llrd",
+               "0.65", "--accum-steps", "2", "--mixup-alpha", "0.8",
+               "--cutmix-alpha", "1.0", "--batch-size", "64", "--lr", "3e-4",
+               *data], root,
+        lambda c, s, e: recipe_step_launches(c, s, e))
+    launches = add_launches(launches, got)
+    del tr
+    got, tr, _, _ = knob_run(
+        "c2", ["--preset", "base16", "--init-from", str(base),
+               "--freeze-backbone", "--batch-size", "128", "--lr", "1e-3",
+               *data], root, freeze_launches,
+        frozen=lambda n: not n.startswith("head/"))
+    launches = add_launches(launches, got)
+    pre = make_preprocess(out_size=224, mean=(0.5,) * 3, std=(0.5,) * 3,
+                          random_flip=False)
+    val = CIFAR10(cifar, train=False)
+    b = next(iter(BatchLoader(val, 128)))
+    batch = {"image": pre(torch.from_numpy(b["image"]).cuda(), None,
+                          train=False), "label": torch.from_numpy(
+                              b["label"]).cuda()}
+    full_opt = make_optimizer(lr=1e-3)
+    p = tree_map(torch.clone, tr.state.params)
+    full = SimpleNamespace(state=TrainState(0, p, full_opt.init(p)),
+                           train_step=make_train_step(tr.cfg, full_opt))
+    q = tree_map(torch.clone, tr_lora.state.params)
+    lora_step = SimpleNamespace(
+        state=TrainState(0, q, tr_lora.optimizer.init(q)),
+        train_step=tr_lora.train_step)
+    frozen_ms = [step_times(tr, batch)]
+    full_ms = [step_times(full, batch)]
+    lora_ms = [step_times(lora_step, batch), step_times(lora_step, batch)]
+    full_ms.append(step_times(full, batch))
+    frozen_ms.append(step_times(tr, batch))
+    emit({"phase": "pretrained", "part": "c2: a frozen backbone's step and "
+          "a LoRA step against a full step, base16 b128 bf16, in turns "
+          "(host clock, synchronised, median of 5 each)", "card": smi(),
+          "frozen_ms": frozen_ms, "lora_ms": lora_ms, "full_ms": full_ms})
+    del tr, full, p, lora_step, q
+
+    # (d) distillation with the token, soft and hard
+    dist = ["--preset", "small16", "--distill-token", "--distill-from",
+            str(base), "--batch-size", "128", "--lr", "1e-3", *data]
+    teacher_cfg = ckpt.resolve_artifact_config(base)
+    got, tr_dist, dist_dir, _ = knob_run(
+        "d1", dist, root,
+        lambda c, s, e: distill_launches(c, teacher_cfg, s, e))
+    launches = add_launches(launches, got)
+    got, tr, _, _ = knob_run(
+        "d2", dist + ["--distill-hard"], root,
+        lambda c, s, e: distill_launches(c, teacher_cfg, s, e))
+    launches = add_launches(launches, got)
+    del tr
+
+    # the depth-2 fp32 copies, card vs CPU
+    b2 = {"image": batch["image"][:2].cpu().numpy(),
+          "label": b["label"][:2].astype(np.int32)}
+    b2b = {"image": batch["image"][2:4].cpu().numpy(),
+           "label": b["label"][2:4].astype(np.int32)}
+    c32 = vitx_torch.get_config("base16", depth=2, compute_dtype="float32",
+                                num_classes=10)
+    lc = c32.replace(lora_rank=8)
+    knob_card_vs_cpu("b: LoRA rank 8, base16 depth 2 fp32 b2", lc,
+                     with_adapters(init_params(1, lc, device="cpu"), 2),
+                     [b2], {"trainable": "lora"}, train_filter="lora",
+                     lr=1e-3)
+    tc = timm_cfg.replace(depth=2, compute_dtype="float32", num_classes=10,
+                          lora_rank=8)
+    knob_card_vs_cpu("b: LoRA rank 8, timm ViT-B/16 depth 2 fp32 b2", tc,
+                     with_adapters(init_params(3, tc, device="cpu"), 4),
+                     [b2], {"trainable": "lora"}, train_filter="lora",
+                     lr=1e-3)
+    box = np.ones((1, 224, 224, 1), np.float32)
+    box[:, 40:150, 60:170] = 0.0
+    mixes = [(np.array([1, 0]), np.full((1, 224, 224, 1), 0.7, np.float32)),
+             (np.array([1, 0]), box)]
+    knob_card_vs_cpu("c: LLRD 0.65, accumulation 2, mixup then cutmix maps, "
+                     "base16 depth 2 fp32 b2 x 2", c32,
+                     init_params(1, c32, device="cpu"), [b2, b2b],
+                     {"llrd": 0.65, "llrd_depth": 2, "accum_steps": 2},
+                     mixes=mixes)
+    knob_card_vs_cpu("c: frozen backbone, base16 depth 2 fp32 b2", c32,
+                     init_params(1, c32, device="cpu"), [b2],
+                     {"trainable": "head"}, train_filter="head", lr=1e-3)
+    sc = vitx_torch.get_config("small16", depth=2, compute_dtype="float32",
+                               num_classes=10, distill_token=True)
+    knob_card_vs_cpu("d: distillation token, small16 depth 2 fp32 b2 from "
+                     "a base16 depth 2 teacher, B12 on the card", sc,
+                     init_params(1, sc, device="cpu"), [b2],
+                     {"fused": True},
+                     teacher=(c32, init_params(7, c32, device="cpu")))
+
+    # (e) eval and serving: LoRA merged, the distill token's mean heads
+    imgs = batch["image"][:32].cpu().numpy()
+    for part, tr, out in (("e1", tr_lora, lora_dir), ("e2", tr_dist,
+                                                      dist_dir)):
+        cfg = tr.cfg
+        params, mcfg = merge_lora_params(tr.state.params, cfg)
+        preds = root / f"{part}_preds.jsonl"
+        reset_counts()
+        report = run_cli(eval_cli.main, ["--checkpoint", str(out), *data,
+                                         "--batch-size", "64", "--predict",
+                                         str(preds)])
+        launches = add_launches(launches, counts())
+        direct = []
+        for vb in BatchLoader(val, 64):
+            x = pre(torch.from_numpy(vb["image"]).cuda(), None, train=False)
+            direct += forward(params, x, mcfg).argmax(-1).tolist()
+        cli_top1 = [val.classes.index(json.loads(r)["pred"])
+                    for r in preds.read_text().splitlines()]
+        emit({"phase": "pretrained", "part": f"{part}: cli.eval on "
+              f"{out.name}'s .ckpt", "accuracy": report["accuracy"],
+              "top1_equal": cli_top1 == direct})
+        if cli_top1 != direct:
+            raise AssertionError(f"pretrained ({part}): eval top-1 differs")
+        launches = add_launches(launches, serve_ckpt(
+            part, out / f"{PRETRAINED_EPOCHS - 1}.ckpt", cfg, params,
+            imgs=imgs, phase="pretrained"))
+    with torch.no_grad():
+        x = torch.from_numpy(imgs).cuda()
+        adapted_logits = forward(tr_lora.state.params, x, tr_lora.cfg)
+        merged, mcfg = merge_lora_params(tr_lora.state.params, tr_lora.cfg)
+        check("pretrained", "e: the merged LoRA forward vs the adapted one, "
+              "base16 bf16 b32", forward(merged, x, mcfg), adapted_logits,
+              BF16_TOL)
+    del tr_lora, tr_dist, merged
+
+    # (f) the C oracle
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        c_oracle_on_card(root, errs)
+    return launches, {"frozen_ms": frozen_ms, "lora_ms": lora_ms,
+                      "full_ms": full_ms}
 
 
 def loader_rate(ds, batch: int) -> dict:
@@ -5127,6 +5855,10 @@ def main(argv=None) -> int:
     if "transfer" in phases:
         transfer_launches, transfer = phase_transfer()
     lap("transfer")
+    pretrained_launches = {}
+    if "pretrained" in phases:
+        pretrained_launches, _ = phase_pretrained(errs)
+    lap("pretrained")
     export_launches, huge14_launches, huge14_inputs = {}, {}, None
     if "artifacts" in phases:
         export_launches = phase_artifacts(cfg, params)
@@ -5137,7 +5869,8 @@ def main(argv=None) -> int:
     launches = add_launches(serve_launches, train_launches, explain_launches,
                             tome_launches, finetune_launches,
                             *recipe_launches.values(), transfer_launches,
-                            export_launches, huge14_launches)
+                            pretrained_launches, export_launches,
+                            huge14_launches)
     if "times" in phases:
         rows = phase_times(cfg, params, errs, launches)
         if tome_launches:
@@ -5189,6 +5922,7 @@ def main(argv=None) -> int:
                 **{path: got.get(row["name"], 0)
                    for path, got in recipe_launches.items()},
                 "transfer": transfer_launches.get(row["name"], 0),
+                "pretrained": pretrained_launches.get(row["name"], 0),
                 "export": export_launches.get(row["name"], 0),
                 "huge14": huge14_launches.get(row["name"], 0)}
             if row["name"] in stash:

@@ -167,9 +167,9 @@ def test_init_params_tree_matches_vitx():
 @pytest.mark.parametrize("over,item", [
     ({"stem": "conv"}, "A12"),
     ({"num_registers": 4}, "A12"),
-    ({"distill_token": True}, "A12"),
+    ({"pos_embed": "rope"}, "A12"),
     ({"moe_experts": 2}, "A12"),
-    ({"lora_rank": 2}, "A12"),
+    ({"num_registers": 1, "head_type": "standard"}, "A12"),
     ({"head_type": "map"}, "A12"),
     ({"pos_embed": "sincos2d"}, "A12"),
 ])

@@ -282,31 +282,45 @@ def test_confusion_matrix_matches_vitx():
 
 @pytest.mark.parametrize("call,item", [
     ("optimizer=sgd", "A12"), ("optimizer=lion", "A12"),
-    ("accum_steps", "A12"), ("llrd", "A12"),
-    ("trainable", "A12"), ("mu_dtype", "A12"),
-    ("loss=bce", "A12"), ("mixup", "A12"), ("cutmix", "A12"),
-    ("sam", "A12"), ("train_filter", "A12"), ("grad_shardings", "A13"),
+    ("accum_steps", "ValueError"), ("llrd", "ValueError"),
+    ("trainable", "ValueError"), ("mu_dtype", "A12"),
+    ("loss=bce", "A12"), ("mixup", "ported"), ("cutmix", "ported"),
+    ("sam", "A12"), ("train_filter", "ValueError"), ("grad_shardings", "A13"),
 ])
 def test_unported_knobs_raise(call, item):
+    """The knobs still unported raise naming their item. Accumulation,
+    LLRD, the freeze policies and mixup / cutmix are ported (their parity
+    is ``tests/test_torch_finetune_knobs.py``'s): here their invalid forms
+    raise ``ValueError``, and a mixing step without a generator or a map
+    is the plain step, as vitx's ``loss_fn`` without an rng is."""
     cfg = vitx_torch.get_config("tiny", compute_dtype="float32")
     opt_kw = {"optimizer=sgd": {"optimizer": "sgd"},
               "optimizer=lion": {"optimizer": "lion"},
-              "accum_steps": {"accum_steps": 2},
-              "llrd": {"llrd": 0.75, "llrd_depth": 4},
-              "trainable": {"trainable": "head"},
+              "accum_steps": {"accum_steps": 0},
+              "llrd": {"llrd": 0.75},
+              "trainable": {"trainable": "backbone"},
               "mu_dtype": {"mu_dtype": "bfloat16"}}
+    exc = ValueError if item == "ValueError" else NotImplementedError
+    match = None if item == "ValueError" else item
     if call in opt_kw:
-        with pytest.raises(NotImplementedError, match=item):
+        with pytest.raises(exc, match=match):
             tstep.make_optimizer(**opt_kw[call])
         return
     step_kw = {"loss=bce": {"loss": "bce"}, "mixup": {"mixup_alpha": 0.2},
                "cutmix": {"cutmix_alpha": 1.0}, "sam": {"sam_rho": 0.05},
-               "train_filter": {"train_filter": "lora"},
+               "train_filter": {"train_filter": "backbone"},
                "grad_shardings": {"grad_shardings": object()}}
     opt = tstep.make_optimizer()
     state = tstep.create_train_state(0, cfg, opt, device="cpu")
     b = batches(1, 2, seed=0)[0]
-    with pytest.raises(NotImplementedError, match=item):
+    if item == "ported":
+        plain = tstep.loss_fn(state.params, {k: torch.from_numpy(v) for k, v
+                                             in b.items()}, cfg)[0]
+        _, m = tstep.train_step(state, b, cfg=cfg, optimizer=opt,
+                                device="cpu", **step_kw[call])
+        assert float(m["loss"]) == float(plain)
+        return
+    with pytest.raises(exc, match=match):
         tstep.train_step(state, b, cfg=cfg, optimizer=opt, device="cpu",
                          **step_kw[call])
 

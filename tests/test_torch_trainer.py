@@ -257,11 +257,11 @@ def test_port_recipe_cli_checkpoints_read_by_vitx(tmp_path, capsys,
 @pytest.mark.parametrize("argv,exc,item", [
     (["--data", "cifar10:/nowhere"], FileNotFoundError, "nowhere"),
     (["--data", "synthetic-ml"], SystemExit, "A12"),
-    (["--mixup-alpha", "0.2"], SystemExit, "A12"),
+    (["--sam-rho", "0.05"], SystemExit, "A12"),
     (["--optimizer", "sgd"], SystemExit, "A12"),
     (["--dp", "2"], SystemExit, "A13"),
     (["--init-from", "run/3.ckpt"], FileNotFoundError, "run/3.ckpt"),
-], ids=["cifar", "multilabel", "mixup", "sgd", "dp", "init_ckpt"])
+], ids=["cifar", "multilabel", "sam", "sgd", "dp", "init_ckpt"])
 def test_train_cli_refuses_unported(argv, exc, item):
     """Unported flags exit naming their ROADMAP item. CIFAR-10 and
     ``--init-from`` a checkpoint are ported now (A7, A3): those two cases
@@ -280,7 +280,7 @@ def test_eval_cli_refuses_unported(argv, item):
 
 @pytest.mark.parametrize("field,value,item", [
     ("steps_per_dispatch", 4, "A12"), ("profile_epoch", 0, "A12"),
-    ("pp_schedule", "1f1b", "A13"), ("accum_steps", 2, "A12")])
+    ("pp_schedule", "1f1b", "A13"), ("mu_dtype", "bfloat16", "A12")])
 def test_trainer_refuses_unported(field, value, item):
     tcfg = tloop.TrainerConfig(**{field: value})
     with pytest.raises(NotImplementedError, match=item):

@@ -53,8 +53,10 @@ from vitx_torch.nn.saliency import grad_cam  # noqa: E402
 from vitx_torch.nn.tome import (aligned_schedule, encode_tome,  # noqa: E402
                                 merge_tokens, parse_tome_r,
                                 tome_patch_assignment)
-from vitx_torch.nn.vit import (classify, encode, forward,  # noqa: E402
-                               forward_features, forward_with_attn,
+from vitx_torch.nn.lora import merge_lora_params  # noqa: E402
+from vitx_torch.nn.vit import (classify, classify_dist,  # noqa: E402
+                               encode, forward, forward_features,
+                               forward_heads, forward_with_attn,
                                forward_with_rollout, init_params)
 
 __version__ = "0.1.0"
@@ -72,6 +74,9 @@ __all__ = [
     "grad_cam",
     "encode",
     "classify",
+    "classify_dist",
+    "forward_heads",
+    "merge_lora_params",
     "encode_tome",
     "merge_tokens",
     "aligned_schedule",

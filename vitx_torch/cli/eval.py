@@ -90,6 +90,7 @@ def main(argv=None):
     dev = resolve_device(args.device)
 
     from vitx_torch.cli.train import make_datasets
+    from vitx_torch.nn.lora import merge_lora_params
     from vitx_torch.train.checkpoint import (load_artifact_params,
                                              resolve_artifact_config)
 
@@ -112,6 +113,8 @@ def main(argv=None):
         print(f"error: no checkpoint under {args.checkpoint}",
               file=sys.stderr)
         return 1
+    # a LoRA run is evaluated (and exported) with its adapters folded in
+    params, cfg = merge_lora_params(params, cfg)
     if args.export_quantized:
         from vitx_torch.quant import save_quantized
 

@@ -10,9 +10,15 @@ the procedural cache directory, default ``.procdata``), ``cifar10:DIR``,
 ``DeviceBatchLoader``, with vitx's device-side preprocessing (normalise
 with 0.5 / 0.5, flips, and the augmentation flags) and ``Trainer``.
 ``--init-from`` starts a transfer fine-tune from any artifact the port
-reads (``train.checkpoint.transfer_params``). Every other flag set away
-from its default exits non-zero, naming the ROADMAP item that brings it
-(``UNPORTED``).
+reads (``train.checkpoint.transfer_params``). The fine-tuning knobs are
+vitx's: ``--lora-rank/--lora-alpha/--lora-targets`` (adapters and head
+train, the base frozen), ``--freeze-backbone`` (the head alone),
+``--llrd``, ``--accum-steps`` (the schedule's horizon in optimizer
+updates), ``--mixup-alpha/--cutmix-alpha`` and
+``--distill-from/--distill-alpha/--distill-tau/--distill-hard/
+--distill-token`` (DeiT distillation from a self-describing checkpoint).
+Every other flag set away from its default exits non-zero, naming the
+ROADMAP item that brings it (``UNPORTED``).
 
 ``CONVERGENCE.md``'s ViT-S/16 recipe (``examples/convergence.py``)::
 
@@ -44,14 +50,10 @@ from vitx_torch.train.loop import NonFiniteLossError, Trainer, TrainerConfig
 # each is refused when set away from its default
 UNPORTED = {
     "class_weights": "A12", "loss": "A12", "optimizer": "A12",
-    "mu_dtype": "A12", "lora_rank": "A12", "lora_alpha": "A12",
-    "lora_targets": "A12", "freeze_backbone": "A12", "mixup_alpha": "A12",
-    "cutmix_alpha": "A12", "layerscale": "A12", "mlp_act": "A12",
+    "mu_dtype": "A12", "layerscale": "A12", "mlp_act": "A12",
     "pos_embed": "A12", "qk_norm": "A12", "head_type": "A12",
-    "global_pool": "A12", "sam_rho": "A12", "distill_from": "A12",
-    "distill_alpha": "A12", "distill_tau": "A12", "distill_hard": "A12",
-    "distill_token": "A12", "accum_steps": "A12", "num_registers": "A12",
-    "llrd": "A12", "steps_per_dispatch": "A12", "dp": "A13", "tp": "A13",
+    "global_pool": "A12", "sam_rho": "A12", "num_registers": "A12",
+    "steps_per_dispatch": "A12", "dp": "A13", "tp": "A13",
     "zero": "A13", "moe_experts": "A12", "moe_blocks": "A12",
     "moe_slots": "A12", "ep": "A13", "sp": "A13", "pp": "A13",
     "pp_microbatches": "A13", "pp_schedule": "A13",
@@ -264,6 +266,12 @@ def build_trainer(args, parser=None):
         cfg = cfg.replace(drop_path=args.drop_path)
     if args.patch_drop:
         cfg = cfg.replace(patch_drop=args.patch_drop)
+    if args.distill_token:
+        cfg = cfg.replace(distill_token=True)
+    if args.lora_rank:
+        cfg = cfg.replace(lora_rank=args.lora_rank,
+                          lora_alpha=args.lora_alpha,
+                          lora_targets=args.lora_targets)
     if args.tome_train or args.tome_r:
         if not (args.tome_train and args.tome_r):
             raise SystemExit("error: --tome-r and --tome-train go together "
@@ -275,10 +283,28 @@ def build_trainer(args, parser=None):
         if isinstance(tr, str):
             tr = aligned_schedule(cfg, int(tr[2:]))
         cfg = cfg.replace(tome_r=tr, tome_train=True)
+    if args.freeze_backbone and args.lora_rank:
+        raise SystemExit("error: --freeze-backbone conflicts with "
+                         "--lora-rank (LoRA already freezes the backbone "
+                         "and trains the adapters + head)")
+    # the freeze policy: LoRA implies a frozen backbone
+    train_filter = ("head" if args.freeze_backbone
+                    else "lora" if args.lora_rank else None)
+    if args.distill_from and (args.mixup_alpha or args.cutmix_alpha):
+        raise SystemExit("error: --distill-from builds its own train step; "
+                         "--mixup-alpha/--cutmix-alpha are not applied "
+                         "there (combine via the library API instead)")
+    if args.distill_from and train_filter is not None:
+        raise SystemExit("error: --distill-from builds its own train step, "
+                         "which has no freeze policy -- --lora-rank/"
+                         "--freeze-backbone are not applied there")
+    # mixing pairs rows of one batch: no padded remainder batch
+    mixing = bool(args.mixup_alpha or args.cutmix_alpha)
 
     if args.device_cache:
         train_loader = DeviceBatchLoader(train_ds, args.batch_size,
                                          shuffle=True, seed=args.seed,
+                                         drop_last=mixing,
                                          device=args.device)
         eval_loader = DeviceBatchLoader(eval_ds, args.batch_size,
                                         device=args.device)
@@ -287,7 +313,7 @@ def build_trainer(args, parser=None):
               f"{train_loader.device}")
     else:
         train_loader = BatchLoader(train_ds, args.batch_size, shuffle=True,
-                                   seed=args.seed,
+                                   seed=args.seed, drop_last=mixing,
                                    cache_decoded=args.cache_decoded)
         eval_loader = BatchLoader(eval_ds, args.batch_size,
                                   cache_decoded=args.cache_decoded)
@@ -308,13 +334,17 @@ def build_trainer(args, parser=None):
 
     lr_schedule = None
     if args.schedule == "cosine":
-        lr_schedule = warmup_cosine(args.lr,
-                                    max(1, args.epochs * len(train_loader)),
-                                    args.warmup_steps)
+        # the horizon in optimizer updates: accumulation ticks the schedule
+        # once per accum_steps micro-batches (vitx/cli/train.py:466-480)
+        lr_schedule = warmup_cosine(
+            args.lr, max(1, args.epochs * len(train_loader)
+                         // args.accum_steps),
+            args.warmup_steps // args.accum_steps)
     optimizer = make_optimizer(
         lr=args.lr, schedule=lr_schedule, weight_decay=args.weight_decay,
         grad_clip=args.grad_clip, ema_decay=args.ema_decay,
-        wd_exclude=args.wd_exclude)
+        wd_exclude=args.wd_exclude, accum_steps=args.accum_steps,
+        llrd=args.llrd, llrd_depth=cfg.depth, trainable=train_filter)
     init_state = None
     if args.init_from:
         from vitx_torch.train.checkpoint import (is_bare_params_npz,
@@ -328,6 +358,9 @@ def build_trainer(args, parser=None):
         params = transfer_params(args.init_from, cfg, args.seed,
                                  device=args.device)
         init_state = TrainState(0, params, optimizer.init(params))
+    train_step = None
+    if args.distill_from:
+        train_step = distill_step(args, cfg, optimizer)
     tcfg = TrainerConfig(
         epochs=args.epochs, lr=args.lr, weight_decay=args.weight_decay,
         wd_exclude=args.wd_exclude, grad_clip=args.grad_clip,
@@ -337,11 +370,41 @@ def build_trainer(args, parser=None):
         log_every=args.log_every, ema_decay=args.ema_decay, seed=args.seed,
         early_stop_patience=args.early_stop,
         early_stop_min_delta=args.early_stop_delta,
-        async_checkpoint=args.async_checkpoint)
+        async_checkpoint=args.async_checkpoint,
+        mixup_alpha=args.mixup_alpha, cutmix_alpha=args.cutmix_alpha,
+        llrd=args.llrd, accum_steps=args.accum_steps,
+        train_filter=train_filter)
     trainer = Trainer(cfg, tcfg, preprocess=pre, init_state=init_state,
                       optimizer=optimizer, lr_schedule=lr_schedule,
-                      device=args.device)
+                      train_step=train_step, device=args.device)
     return trainer, train_loader, eval_loader
+
+
+def distill_step(args, cfg: ViTConfig, optimizer):
+    """The distillation step of ``--distill-from`` as ``(state, batch,
+    rng) -> (state, metrics)``: the teacher's geometry from its
+    checkpoint's meta, its eval params (the EMA shadow where it kept one)
+    on the device; a teacher of another class count is refused
+    (``vitx/cli/train.py:517-581``)."""
+    from vitx_torch.train.checkpoint import peek_meta, restore_eval_params
+    from vitx_torch.train.distill import make_distill_train_step
+
+    tmeta = peek_meta(args.distill_from)
+    if tmeta is None:
+        raise SystemExit(f"error: no checkpoint under {args.distill_from}")
+    teacher_cfg = (ViTConfig.from_json(json.dumps(tmeta["config"]))
+                   if "config" in tmeta else cfg)
+    if teacher_cfg.num_classes != cfg.num_classes:
+        raise SystemExit(f"error: teacher has {teacher_cfg.num_classes} "
+                         f"classes, student {cfg.num_classes}")
+    teacher_params, _ = restore_eval_params(args.distill_from, teacher_cfg,
+                                            device=args.device)
+    step = make_distill_train_step(
+        cfg, teacher_cfg, optimizer, alpha=args.distill_alpha,
+        tau=args.distill_tau, hard=args.distill_hard,
+        label_smoothing=args.label_smoothing, device=args.device)
+    return lambda state, batch, rng=None: step(state, batch, teacher_params,
+                                               rng)
 
 
 def main(argv=None):

@@ -115,6 +115,9 @@ def export_reference_state_dict(params: dict, cfg: ViTConfig,
     P, C = cfg.patch_size, cfg.num_channels
     if "w1" not in params.get("head", {}):
         raise ValueError("export requires head_type='reference' params")
+    if cfg.distill_token:
+        raise ValueError("the reference layout has no distillation token; "
+                         "export requires distill_token=False")
     if cfg.pos_embed != "learned":
         raise ValueError("the reference layout stores a learned positional "
                          "table; sincos2d/rope models have none to export")

@@ -24,10 +24,12 @@ from vitx_torch.kernels import _build
 from vitx_torch.kernels._build import DTYPE_CODES
 
 
-def adamw_plain(p, g, mu, nu, *, lr, c1, c2, b1, b2, eps, wd):
+def adamw_plain(p, g, mu, nu, *, lr, c1, c2, b1, b2, eps, wd, factor=None):
     """The update of ``adamw.py:46-53`` in fp32, in its order of operations
     (weight decay reads the old p); returns new (p, mu, nu). ``lr``, ``c1``
-    and ``c2`` are fp32 scalars: c1 = 1 - b1^t, c2 = 1 - b2^t. Every
+    and ``c2`` are fp32 scalars: c1 = 1 - b1^t, c2 = 1 - b2^t. ``factor``
+    (an fp32 tensor broadcasting against p) scales the whole step before
+    it is applied, as layer-wise lr decay does after optax's adamw. Every
     operation rounds once, as IEEE fp32 does (vitx's update outside jit,
     and the kernels): the bias corrections divide by 0-dim fp32 tensors on
     p's device (with a Python divisor torch's CUDA division multiplies by
@@ -41,7 +43,8 @@ def adamw_plain(p, g, mu, nu, *, lr, c1, c2, b1, b2, eps, wd):
     nu_hat = nu2 / torch.full((), c2, dtype=torch.float32, device=nu.device)
     root = (torch.sqrt(nu_hat.double()).float() if nu_hat.device.type == "cpu"
             else torch.sqrt(nu_hat))
-    p2 = p - lr * (mu_hat / (root + eps) + wd * p)
+    step = lr * (mu_hat / (root + eps) + wd * p)
+    p2 = p - (step if factor is None else step * factor)
     return p2, mu2, nu2
 
 

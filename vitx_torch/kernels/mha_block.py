@@ -258,15 +258,22 @@ def _infer(x, wqkv, wo, bo, g, b, eps):
     return out
 
 
-def _backward(dout, x, wqkv, wo, g, b, q, k, v, o_all, stats, eps):
+def _backward(dout, x, wqkv, wo, g, b, q, k, v, o_all, stats, eps,
+              need=(True,) * 6):
     """``_fused_op_bwd`` (``vitx/kernels/mha_block.py:964-1005``): every
     product accumulates in fp32 and is cast once -- dwo and dwqkv to the
-    weights' dtype, do and dh to the activations'; dbo stays fp32."""
+    weights' dtype, do and dh to the activations'; dbo stays fp32.
+    ``need`` (x, wqkv, wo, bo, g, b): the gradients to compute, None for
+    the rest -- a frozen weight's product is never formed, as vitx's
+    ``stop_gradient`` leaves it out of the traced backward."""
     B, T, E = x.shape
     H, D = wqkv.shape[2], wqkv.shape[3]
+    n_x, n_wqkv, n_wo, n_bo, n_g, n_b = need
     d2 = dout.reshape(B * T, E)
-    dwo = dot(o_all.reshape(B * T, E).t(), d2).to(wo.dtype)
-    dbo = dout.float().sum(dim=(0, 1))
+    dwo = dot(o_all.reshape(B * T, E).t(), d2).to(wo.dtype) if n_wo else None
+    dbo = dout.float().sum(dim=(0, 1)) if n_bo else None
+    if not (n_x or n_wqkv or n_g or n_b):
+        return None, None, dwo, dbo, None, None
     # do and o as (B, H, T, D) views of their (B, T, E) layouts, and dq,
     # dk, dv written into dqkv's (B, T, 3, H, D): the three projections
     # side by side, as the columns of the (E, 3E) flattening of wqkv, so
@@ -277,17 +284,23 @@ def _backward(dout, x, wqkv, wo, g, b, q, k, v, o_all, stats, eps):
     attention_bwd(q, k, v, do, o, stats,
                   out=tuple(dqkv[:, :, i].transpose(1, 2) for i in range(3)))
     dqkv = dqkv.reshape(B * T, 3 * E)
-    h = layer_norm(x, g, b, eps=eps)
-    dwqkv = dot(h.reshape(B * T, E).t(), dqkv).to(wqkv.dtype).reshape(
-        E, 3, H, D)
+    dwqkv = None
+    if n_wqkv:
+        h = layer_norm(x, g, b, eps=eps)
+        dwqkv = dot(h.reshape(B * T, E).t(), dqkv).to(wqkv.dtype).reshape(
+            E, 3, H, D)
+    if not (n_x or n_g or n_b):
+        return None, dwqkv, dwo, dbo, None, None
     w = wqkv.reshape(E, 3 * E).to(dqkv.dtype)
     dh = dot(dqkv, w.t()).to(x.dtype).reshape(B, T, E)
     dx, dg, db = ln_bwd(x, g, dh, eps=eps)
-    return dx, dwqkv, dwo, dbo, dg.to(g.dtype), db.to(b.dtype)
+    return (dx if n_x else None, dwqkv, dwo, dbo,
+            dg.to(g.dtype) if n_g else None, db.to(b.dtype) if n_b else None)
 
 
 class _FusedMHA(torch.autograd.Function):
-    """K1 forward with its stash; the backward of ``_backward``."""
+    """K1 forward with its stash; the backward of ``_backward``, for the
+    inputs that need a gradient."""
 
     @staticmethod
     def forward(ctx, x, wqkv, wo, bo, g, b, eps):
@@ -298,7 +311,8 @@ class _FusedMHA(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout):
-        grads = _backward(dout.contiguous(), *ctx.saved_tensors, ctx.eps)
+        grads = _backward(dout.contiguous(), *ctx.saved_tensors, ctx.eps,
+                          need=ctx.needs_input_grad[:6])
         return (*grads, None)
 
 

@@ -139,32 +139,44 @@ def _forward(x, w1, b1, w2, b2, g, b, act, eps, stash):
     return (out, hp) if stash else out
 
 
-def _backward(dout, x, w1, w2, g, b, hp, act, eps):
+def _backward(dout, x, w1, w2, g, b, hp, act, eps, need=(True,) * 7):
     """``_fused_op_bwd`` (``vitx/kernels/mlp_block.py:185-208``): the
     activation is differentiated in its true form (``activation``), not
     the kernel's polynomial; every product accumulates in fp32 and is cast
-    once; db1 and db2 stay fp32."""
+    once; db1 and db2 stay fp32. ``need`` (x, w1, b1, w2, b2, g, b): the
+    gradients to compute, None for the rest (a frozen weight's product is
+    never formed)."""
     B, T, E = x.shape
     M = hp.shape[-1]
+    n_x, n_w1, n_b1, n_w2, n_b2, n_g, n_b = need
     with torch.enable_grad():
         hp_ = hp.detach().requires_grad_()
         ha = activation(hp_, act)
     d2 = dout.reshape(B * T, E)
-    dw2 = dot(ha.detach().reshape(B * T, M).t(), d2).to(w2.dtype)
-    db2 = dout.float().sum(dim=(0, 1))
+    dw2 = (dot(ha.detach().reshape(B * T, M).t(), d2).to(w2.dtype)
+           if n_w2 else None)
+    db2 = dout.float().sum(dim=(0, 1)) if n_b2 else None
+    if not (n_x or n_w1 or n_b1 or n_g or n_b):
+        return None, None, None, dw2, db2, None, None
     dha = dot(d2, w2.to(dout.dtype).t()).to(hp.dtype).reshape(B, T, M)
     (dhp,) = torch.autograd.grad(ha, hp_, dha)
-    h = layer_norm(x, g, b, eps=eps)
     dhp2 = dhp.reshape(B * T, M)
-    dw1 = dot(h.reshape(B * T, E).t(), dhp2).to(w1.dtype)
-    db1 = dhp.float().sum(dim=(0, 1))
+    dw1 = None
+    if n_w1:
+        h = layer_norm(x, g, b, eps=eps)
+        dw1 = dot(h.reshape(B * T, E).t(), dhp2).to(w1.dtype)
+    db1 = dhp.float().sum(dim=(0, 1)) if n_b1 else None
+    if not (n_x or n_g or n_b):
+        return None, dw1, db1, dw2, db2, None, None
     dh = dot(dhp2, w1.to(dhp.dtype).t()).to(x.dtype).reshape(B, T, E)
     dx, dg, db = ln_bwd(x, g, dh, eps=eps)
-    return dx, dw1, db1, dw2, db2, dg.to(g.dtype), db.to(b.dtype)
+    return (dx if n_x else None, dw1, db1, dw2, db2,
+            dg.to(g.dtype) if n_g else None, db.to(b.dtype) if n_b else None)
 
 
 class _FusedMLP(torch.autograd.Function):
-    """K2 forward with its stash; the backward of ``_backward``."""
+    """K2 forward with its stash; the backward of ``_backward``, for the
+    inputs that need a gradient."""
 
     @staticmethod
     def forward(ctx, x, w1, b1, w2, b2, g, b, act, eps):
@@ -176,7 +188,7 @@ class _FusedMLP(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         grads = _backward(dout.contiguous(), *ctx.saved_tensors, ctx.act,
-                          ctx.eps)
+                          ctx.eps, need=ctx.needs_input_grad[:7])
         return (*grads, None, None)
 
 

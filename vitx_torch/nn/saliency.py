@@ -19,7 +19,7 @@ import torch
 
 from vitx_torch.core.config import ViTConfig
 from vitx_torch.nn.vit import (_encoder_block, _final_norm, check_ported,
-                               classify, embed_tokens, on_device,
+                               embed_tokens, head_logits, on_device,
                                run_blocks)
 
 
@@ -61,7 +61,8 @@ def grad_cam(params, images, cfg: ViTConfig, *, class_idx=None,
     with torch.enable_grad():
         f = f.detach().requires_grad_()
         x, mlp_out, _ = _encoder_block(f, torch.zeros_like(f), last, cfg)
-        logits = classify(params, _final_norm(params, x + mlp_out, cfg), cfg)
+        logits = head_logits(params, _final_norm(params, x + mlp_out, cfg),
+                             cfg)
         idx = _class_index(class_idx, logits.detach(), cfg)
         picked = logits.gather(1, idx[:, None]).sum()
         (grads,) = torch.autograd.grad(picked, f)

@@ -32,6 +32,7 @@ from vitx_torch.core.device import card_routes
 from vitx_torch.kernels.mha_block import composed_tome, fused_mha_block_tome
 from vitx_torch.kernels.mlp_block import fused_mlp_block
 from vitx_torch.nn.layers import drop_path, dropout, layer_norm, mlp
+from vitx_torch.nn.lora import merge_block
 from vitx_torch.nn.vit import (_final_norm, _use_fused_mlp, check_ported,
                                drop_path_rates, embed_tokens, unstack)
 
@@ -208,6 +209,8 @@ def encode_tome(params, images, cfg: ViTConfig,
 
     for bp, r, rate in zip(unstack(params["blocks"]), cfg.tome_schedule,
                            dp_rates):
+        if cfg.lora_rank:
+            bp = merge_block(bp, cfg)
         attn_out, k_mean = attn_fn(
             x, bp["wqkv"].to(dt), bp["bqkv"].float() if "bqkv" in bp
             else zeros_q, bp["wo"].to(dt),

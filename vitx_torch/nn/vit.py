@@ -27,6 +27,7 @@ from vitx_torch.kernels.mha_block import (fused_mha_block,
                                           fused_mha_block_with_mean_probs)
 from vitx_torch.kernels.mlp_block import fused_mlp_block
 from vitx_torch.nn.attention import multi_head_attention
+from vitx_torch.nn.lora import lora_spec, merge_block
 from vitx_torch.nn.layers import (activation, add_layer_norm, dot,
                                   drop_path, dropout, layer_norm, matmul32,
                                   mlp)
@@ -40,9 +41,7 @@ def check_ported(cfg: ViTConfig) -> None:
     missing = (
         (cfg.stem == "conv", "the conv stem (stem='conv')", "A12"),
         (cfg.num_registers, "register tokens", "A12"),
-        (cfg.distill_token, "the distillation token", "A12"),
         (cfg.moe_experts, "Soft-MoE blocks", "A12"),
-        (cfg.lora_rank, "LoRA adapters", "A12"),
         (cfg.head_type == "map", "the MAP head", "A12"),
         (cfg.pos_embed != "learned", f"pos_embed={cfg.pos_embed!r}", "A12"),
     )
@@ -85,13 +84,22 @@ def param_spec(cfg: ViTConfig) -> dict:
     if cfg.layerscale_init:
         blocks["ls1"] = ((L, E), cfg.layerscale_init)
         blocks["ls2"] = ((L, E), cfg.layerscale_init)
+    blocks.update(lora_spec(cfg))
     spec = {
         "patch_embed": {"kernel": ((P * P * C, E), "normal"),
                         "bias": ((E,), 0.0)},
         "cls_token": ((1, 1, E), "normal"),
         "pos_embed": ((1, cfg.pos_len, E), "normal"),
-        "blocks": blocks,
     }
+    if cfg.distill_token:
+        # DeiT: a second learned token (position 1) with its own standard
+        # head, trained against the teacher, averaged with CLS at eval
+        spec["dist_token"] = ((1, 1, E), "normal")
+        spec["dist_head"] = {
+            "ln_scale": ((E,), 1.0), "ln_bias": ((E,), 0.0),
+            "w": ((E, cfg.num_classes), 0.0), "b": ((cfg.num_classes,), 0.0),
+        }
+    spec["blocks"] = blocks
     if cfg.final_norm:
         spec["final_norm"] = {"scale": ((E,), 1.0), "bias": ((E,), 0.0)}
     if cfg.head_type == "reference":
@@ -164,7 +172,8 @@ def patch_embed(params: Params, images, cfg: ViTConfig):
 
 
 def _join_cls(params: Params, tokens, cfg: ViTConfig, B: int):
-    """Prepend the CLS token; ``parity="bug_exact"`` appends it, honouring
+    """Prepend the CLS token, and after it the distillation token where
+    the config has one; ``parity="bug_exact"`` appends the CLS, honouring
     a per-batch-slot CLS (``vitx/nn/vit.py:555-583``)."""
     cls_p = params["cls_token"].to(cfg.cdtype())
     E = cfg.embed_dim
@@ -178,7 +187,10 @@ def _join_cls(params: Params, tokens, cfg: ViTConfig, B: int):
                 f"bug_exact parity: checkpoint carries {cls_p.shape[0]} "
                 f"per-slot CLS tokens but the batch has {B} rows")
         return torch.cat([tokens, cls], dim=1)
-    return torch.cat([cls_p.expand(B, 1, E), tokens], dim=1)
+    prefix = [cls_p.expand(B, 1, E)]
+    if cfg.distill_token:
+        prefix.append(params["dist_token"].to(cls_p.dtype).expand(B, 1, E))
+    return torch.cat([*prefix, tokens], dim=1)
 
 
 def add_pos_embed(params: Params, x, cfg: ViTConfig):
@@ -241,7 +253,9 @@ def _encoder_block(x, pending, bp, cfg: ViTConfig, *, rng=None,
     """Pre-LN block: x + MHA(LN1(x)); x + MLP(LN2(x)). The previous block's
     MLP output arrives as ``pending`` and the block returns its own as the
     new pending (``vitx/nn/vit.py:319-436``). Dropout, then drop-path at
-    this block's ``dp_rate``, on both branches when training. Returns
+    this block's ``dp_rate``, on both branches when training. LoRA
+    adapters fold into the dense weights first (``merge_block``), so every
+    route below sees dense weights. Returns
     (x, pending, probs): probs (B, H, T, T) fp32, their head mean (B, T, T)
     for ``probs_mode="mean"``, or None without ``return_probs``.
 
@@ -250,6 +264,8 @@ def _encoder_block(x, pending, bp, cfg: ViTConfig, *, rng=None,
     its VMEM limits, to its composed fallback (vit.py:348-377) -- the same
     function; on the CPU, as in vitx's interpret mode, they take the
     composed path."""
+    if cfg.lora_rank:
+        bp = merge_block(bp, cfg)
     dt = x.dtype
     fused_mean_probs = (return_probs and probs_mode == "mean" and x.is_cuda
                         and _use_fused_mha(cfg, bp, x))
@@ -398,8 +414,28 @@ def classify(params: Params, x, cfg: ViTConfig):
     return logits.float()
 
 
+def classify_dist(params: Params, x, cfg: ViTConfig):
+    """Encoder tokens -> the distillation head's fp32 logits (B, classes),
+    reading token 1, the distillation token (``vitx/nn/vit.py:810-820``):
+    always the standard LN -> Linear head."""
+    hp = params["dist_head"]
+    h = layer_norm(x[:, 1, :], hp["ln_scale"], hp["ln_bias"],
+                   eps=cfg.layer_norm_eps)
+    return (matmul32(h, hp["w"].to(h.dtype)) + hp["b"].float()).float()
+
+
+def head_logits(params: Params, x, cfg: ViTConfig):
+    """The model's logits from its encoder tokens: ``classify``, averaged
+    with ``classify_dist`` for a ``distill_token`` model (DeiT's
+    inference, ``vitx/nn/vit.py:854-856``)."""
+    logits = classify(params, x, cfg)
+    if cfg.distill_token:
+        logits = 0.5 * (logits + classify_dist(params, x, cfg))
+    return logits
+
+
 def model_logits(params: Params, images, cfg: ViTConfig, *, rng=None,
-                 deterministic: bool = True):
+                 deterministic: bool = True, heads: bool = False):
     """Images (B, H, W, C) -> fp32 logits on the tensors' own device,
     differentiable: vitx's ``forward`` (``vitx/nn/vit.py:834-856``), what
     its ``loss_fn`` and eval step run. ``rng`` (a ``torch.Generator`` on
@@ -407,7 +443,16 @@ def model_logits(params: Params, images, cfg: ViTConfig, *, rng=None,
     False. With ``cfg.tome_r``, deterministic calls run the ToMe encoder
     (``vitx_torch.nn.tome.encode_tome``); training runs every token, or,
     with ``cfg.tome_train``, the merging encoder with its stochastic
-    pieces (vit.py:845)."""
+    pieces (vit.py:845). With ``cfg.distill_token`` the logits are the
+    mean of the CLS and distillation heads (DeiT's inference); ``heads``
+    returns the two apart, (cls_logits, dist_logits), from every token:
+    the training form of the distillation step (vitx's
+    ``forward_heads``)."""
+    if heads:
+        if not cfg.distill_token:
+            raise ValueError("heads=True needs cfg.distill_token")
+        x = encode(params, images, cfg, rng=rng, deterministic=deterministic)
+        return classify(params, x, cfg), classify_dist(params, x, cfg)
     if cfg.tome_r and (deterministic or cfg.tome_train):
         # imported here: vitx_torch.nn.tome imports this module
         from vitx_torch.nn.tome import encode_tome
@@ -416,7 +461,17 @@ def model_logits(params: Params, images, cfg: ViTConfig, *, rng=None,
                         deterministic=deterministic)
     else:
         x = encode(params, images, cfg, rng=rng, deterministic=deterministic)
-    return classify(params, x, cfg)
+    return head_logits(params, x, cfg)
+
+
+def forward_heads(params: Params, images, cfg: ViTConfig, *, rng=None,
+                  deterministic: bool = True):
+    """(cls_logits, dist_logits) of a ``distill_token`` model, both fp32
+    and differentiable (``vitx/nn/vit.py:823-831``): the distillation step
+    puts the cross-entropy on the first and the teacher's term on the
+    second."""
+    return model_logits(params, images, cfg, rng=rng,
+                        deterministic=deterministic, heads=True)
 
 
 def on_device(params: Params, images, device):
@@ -476,7 +531,7 @@ def forward_with_attn(params: Params, images, cfg: ViTConfig, *,
     with torch.inference_mode():
         x, probs = encode(params, images, cfg, return_probs=True,
                           probs_mode=probs_mode)
-        return classify(params, x, cfg), probs
+        return head_logits(params, x, cfg), probs
 
 
 def forward_with_rollout(params: Params, images, cfg: ViTConfig, *,
@@ -513,4 +568,4 @@ def forward_with_rollout(params: Params, images, cfg: ViTConfig, *,
             cls_to_patches = rollout[:, 0, p:p + cfg.num_patches]
         denom = cls_to_patches.sum(dim=-1, keepdim=True)
         weights = cls_to_patches / denom.clamp_min(1e-12)
-        return classify(params, x, cfg), weights
+        return head_logits(params, x, cfg), weights

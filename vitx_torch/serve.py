@@ -310,7 +310,8 @@ def load_server(checkpoint, cfg: ViTConfig, *, device="cuda",
     directory or ``{epoch}.ckpt`` (the EMA shadow where the run kept one),
     an int8 ``.quant.npz`` (dequantized), a bare params ``.npz``
     (``vitx.cli.pretrain --export-vit``) or a reference ``.pt``, by the
-    eval CLI's loading rule (``train.checkpoint.load_artifact_params``),
+    eval CLI's loading rule (``train.checkpoint.load_artifact_params``;
+    a LoRA run's adapters folded into its weights),
     or a ``.pt2`` program (``vitx_torch.export``, served through its
     module with vitx's guards, ``vitx/serve.py:403-419``: a program that
     returns probabilities is refused, a pinned batch must be the
@@ -339,5 +340,9 @@ def load_server(checkpoint, cfg: ViTConfig, *, device="cuda",
     if checkpoint is None:
         params = init_params(0, cfg, device=dev)
     else:
+        from vitx_torch.nn.lora import merge_lora_params
+
         params, _ = load_artifact_params(checkpoint, cfg, device=dev)
+        # a LoRA run's adapters fold in once, not in every forward
+        params, cfg = merge_lora_params(params, cfg)
     return InferenceServer(params, cfg, device=dev, **kw)

@@ -6,16 +6,23 @@ an npz of ``leaf_{i}`` arrays plus ``__meta__`` (JSON as uint8 bytes). The
 leaves are vitx's ``TrainState(step, params, opt_state)`` in
 ``jax.tree_util.tree_flatten`` order, which for the AdamW chains vitx's
 ``make_optimizer`` builds (clipping, optax's adamw with a constant lr or a
-schedule, masked weight decay or not, the EMA link last) is:
+schedule, masked weight decay or not, a freeze policy's ``optax.masked``,
+layer-wise lr decay, the EMA link last, all inside ``optax.MultiSteps``
+with accumulation) is:
 
-    step, params..., adam count, mu..., nu..., [schedule count], [ema...]
+    step, params..., [mini_step, gradient_step], adam count, mu..., nu...,
+    [schedule count], [ema...], [acc_grads...]
 
 with every tree's leaves in sorted-key order (``leaves``), the counts and
-the step int32 scalars, everything else fp32. Clipping and the weight-decay
-mask keep no leaves. A port state is an ``AdamWState``: its one count
-stands for both of vitx's counts, which no chain of the port lets differ.
-``tests/test_torch_checkpoint.py`` derives the order from vitx's own
-flatten for each chain and round-trips files both ways.
+the step int32 scalars, everything else fp32. Clipping, the weight-decay
+mask, LLRD and the masks' ``MaskedNode``s keep no leaves, so under a
+freeze policy mu and nu hold the trainable leaves only; the EMA and the
+accumulated gradients hold every leaf. A port state is an
+``AdamWState``: its one count stands for vitx's adam count, schedule
+count and ``gradient_step``, which no chain lets differ.
+``tests/test_torch_checkpoint.py`` and ``tests/test_torch_finetune_knobs.py``
+derive the order from vitx's own flatten for each chain and round-trip
+files both ways.
 
 Writes are atomic (a temporary file, then a rename); ``keep`` prunes to
 the newest files, never the ``protect``ed epoch; ``restore_latest``
@@ -63,12 +70,16 @@ def state_leaves(state: TrainState, schedule: bool) -> list:
     docstring); ``schedule``: the chain has an lr schedule, whose count
     leaf follows nu."""
     opt = state.opt_state
-    out = [state.step, *leaves(state.params), opt.count, *leaves(opt.mu),
-           *leaves(opt.nu)]
+    out = [state.step, *leaves(state.params)]
+    if opt.acc is not None:
+        out += [opt.mini_step, opt.count]
+    out += [opt.count, *leaves(opt.mu), *leaves(opt.nu)]
     if schedule:
         out.append(opt.count)
     if opt.ema is not None:
         out += leaves(opt.ema)
+    if opt.acc is not None:
+        out += leaves(opt.acc)
     return out
 
 
@@ -250,21 +261,27 @@ def _fill(template: TrainState, arrays: list, schedule: bool, path):
     opt = template.opt_state
     step = int(next(it))
     params = take_tree(template.params)
+    counts, mini_step = [], 0
+    if opt.acc is not None:
+        mini_step = int(next(it))
+        counts.append(int(next(it)))        # MultiSteps' gradient_step
     count = int(next(it))
     mu, nu = take_tree(opt.mu), take_tree(opt.nu)
-    if schedule and int(next(it)) != count:
-        raise ValueError(f"{path}: the schedule's count differs from "
-                         f"Adam's (gradient accumulation is not ported, "
-                         f"ROADMAP A12)")
+    if schedule:
+        counts.append(int(next(it)))
+    if any(c != count for c in counts):
+        raise ValueError(f"{path}: the chain's counts {[count, *counts]} "
+                         f"differ")
     ema = take_tree(opt.ema) if opt.ema is not None else None
-    return TrainState(step, params, AdamWState(count, mu, nu, ema))
+    acc = take_tree(opt.acc) if opt.acc is not None else None
+    return TrainState(step, params, AdamWState(count, mu, nu, ema, acc,
+                                               mini_step))
 
 
 def restore_checkpoint(path, template: TrainState, schedule: bool):
     """Load ``path`` into ``template``'s structure (its tensors are
     replaced, not written) -> (state, meta): the leaves cast to the
-    template's dtypes on its devices; the two counts of a scheduled chain
-    must agree."""
+    template's dtypes on its devices; the chain's counts must agree."""
     meta, arrays = _read(path)
     return _fill(template, arrays, schedule, path), meta
 
@@ -308,13 +325,25 @@ def _unported_meta(meta: dict) -> None:
         raise NotImplementedError(
             f"checkpoints of optimizer={meta['optimizer']!r} are not "
             f"readable by vitx_torch yet (ROADMAP A12)")
-    for key, what in (("accum_steps", "gradient accumulation"),
-                      ("train_filter", "frozen-parameter runs"),
-                      ("loss_type", "multi-label (bce) runs")):
-        if meta.get(key) not in (None, 1):
-            raise NotImplementedError(
-                f"checkpoints of {what} ({key}={meta[key]!r}) are not "
-                f"readable by vitx_torch yet (ROADMAP A12)")
+    if meta.get("loss_type") not in (None, "ce"):
+        raise NotImplementedError(
+            f"checkpoints of multi-label (bce) runs (loss_type="
+            f"{meta['loss_type']!r}) are not readable by vitx_torch yet "
+            f"(ROADMAP A12)")
+
+
+def state_template(params, *, ema: bool = False,
+                   train_filter: str | None = None,
+                   accum_steps: int = 1) -> TrainState:
+    """A ``TrainState`` whose structure (not values) is that of a run with
+    these knobs: what ``restore_checkpoint`` fills. The template's
+    tensors are ``params``' own, shared across its trees."""
+    from vitx_torch.train.step import prune, trainable_flags
+
+    train = prune(params, trainable_flags(params, train_filter))
+    return TrainState(0, params, AdamWState(
+        0, train, train, params if ema else None,
+        params if accum_steps > 1 else None))
 
 
 def restore_eval_params(path_or_dir, cfg: ViTConfig, device="cuda"):
@@ -323,7 +352,9 @@ def restore_eval_params(path_or_dir, cfg: ViTConfig, device="cuda"):
     there (``vitx/train/checkpoint.py:289-369``). A directory gives its
     newest readable checkpoint, touching nothing. Where the meta omits
     ``ema_decay`` or ``schedule``, the leaf count decides, as in vitx: the
-    EMA adds one leaf per param leaf, a schedule one count."""
+    EMA adds one leaf per param leaf, a schedule one count. A freeze
+    policy (``train_filter``) and accumulation (``accum_steps``) shape the
+    template as they shaped the run's state."""
     dev = resolve_device(device)
     path = pathlib.Path(path_or_dir)
     if not path.exists():
@@ -341,16 +372,18 @@ def restore_eval_params(path_or_dir, cfg: ViTConfig, device="cuda"):
     n_params = len(leaves(params))
     has_ema = meta.get("ema_decay") is not None
     has_schedule = bool(meta.get("schedule"))
+    knobs = dict(train_filter=meta.get("train_filter"),
+                 accum_steps=meta.get("accum_steps", 1))
     if not has_ema or not has_schedule:
         with np.load(path) as z:
             n_saved = sum(1 for k in z.files if k.startswith("leaf_"))
-        extra = n_saved - (3 * n_params + 2)
+        plain = state_template(params, **knobs)
+        extra = n_saved - len(state_leaves(plain, False))
         if extra > 0:
             has_ema = has_ema or extra >= n_params
             has_schedule = has_schedule or extra % n_params == 1
     # the template's tensors give only shapes, dtypes and the device
-    template = TrainState(0, params, AdamWState(
-        0, params, params, params if has_ema else None))
+    template = state_template(params, ema=has_ema, **knobs)
     state, meta = restore_checkpoint(path, template, has_schedule)
     ema = state.opt_state.ema
     return (ema if ema is not None else state.params), meta
@@ -388,14 +421,20 @@ def save_reference_pt(path, params, cfg: ViTConfig, *, epoch: int,
     ``opt_state`` (an ``AdamWState``) the AdamW moments go out in the
     reference's layout, so its resume (``train.py:73``) continues with the
     same state; without, a fresh AdamW state dict (its param group, no
-    moments). ``cfg`` must be one the port runs (``check_ported``: LoRA,
-    whose adapters vitx folds in first, raises)."""
+    moments). LoRA adapters fold into the dense weights first and the
+    moments are dropped, as vitx does (``checkpoint.py:393-401``): they
+    describe the adapters, not the merged weights. ``cfg`` must be one the
+    port runs (``check_ported``)."""
     from vitx_torch.interop.torch_ref import (
         export_reference_optimizer_state, export_reference_state_dict,
         optimizer_param_groups)
+    from vitx_torch.nn.lora import merge_lora_params
     from vitx_torch.nn.vit import check_ported
 
     check_ported(cfg)
+    if cfg.lora_rank:
+        params, cfg = merge_lora_params(params, cfg)
+        opt_state = None
 
     def host(tree):
         return {k: host(v) if isinstance(v, dict) else v.cpu()

@@ -8,7 +8,10 @@ train steps over a ``BatchLoader`` or ``DeviceBatchLoader``, evaluates on
 stalls, logs vitx's scalar tags, and writes a self-describing
 ``{epoch}.ckpt`` per epoch (meta: ``loss``, ``step``, ``config`` -- with
 ``tome_r`` as the resolved schedule and ``tome_train`` --, ``ema_decay``,
-``schedule``, ``partial``) that it resumes from. SIGTERM and SIGINT end
+``schedule``, ``accum_steps``, ``train_filter``, ``partial``) that it
+resumes from. A LoRA config trains its adapters and heads only
+(``train_filter`` defaults to "lora"); ``llrd``, ``accum_steps`` and the
+mixing knobs go to ``make_optimizer`` and the train step as in vitx. SIGTERM and SIGINT end
 the epoch early and save it as ``partial``, which a resume runs again.
 
 Randomness differs from vitx by design (torch cannot draw threefry's
@@ -82,11 +85,10 @@ class TrainerConfig:
 
 
 # TrainerConfig fields the port does not take yet -> the ROADMAP item
-UNPORTED = {"mixup_alpha": "A12", "cutmix_alpha": "A12", "sam_rho": "A12",
-            "loss": "A12", "optimizer": "A12", "mu_dtype": "A12",
-            "train_filter": "A12", "llrd": "A12", "accum_steps": "A12",
-            "steps_per_dispatch": "A12", "profile_epoch": "A12",
-            "pp_microbatches": "A13", "pp_schedule": "A13"}
+UNPORTED = {"sam_rho": "A12", "loss": "A12", "optimizer": "A12",
+            "mu_dtype": "A12", "steps_per_dispatch": "A12",
+            "profile_epoch": "A12", "pp_microbatches": "A13",
+            "pp_schedule": "A13"}
 
 
 class NonFiniteLossError(RuntimeError):
@@ -109,19 +111,25 @@ class Trainer:
     (e.g. with ``warmup_cosine``); by default ``make_optimizer`` from the
     config's knobs. ``init_state``: a ``TrainState`` to start from in place
     of fresh params (seed ``tcfg.seed``). ``lr_schedule``: the schedule
-    logged as ``LR`` each epoch. vitx's mesh arguments wait for ROADMAP
-    A13, its injected train and eval steps for the distillation of A12."""
+    logged as ``LR`` each epoch (at the optimizer's update count: a
+    step's count over ``accum_steps``). ``train_step``: a step of
+    ``make_train_step``'s signature to run in place of the config's (the
+    train CLI's distillation step). vitx's mesh arguments wait for ROADMAP
+    A13."""
 
     def __init__(self, cfg: ViTConfig, tcfg: TrainerConfig, *,
                  preprocess: Callable | None = None,
                  init_state: TrainState | None = None, optimizer=None,
-                 lr_schedule=None, device="cuda"):
+                 lr_schedule=None, train_step=None, device="cuda"):
         default = TrainerConfig()
         for name, item in UNPORTED.items():
             if getattr(tcfg, name) != getattr(default, name):
                 raise NotImplementedError(
                     f"TrainerConfig.{name}={getattr(tcfg, name)!r} is not "
                     f"ported to vitx_torch yet (ROADMAP {item})")
+        if tcfg.train_filter is None and cfg.lora_rank:
+            # LoRA means a frozen base (vitx/train/loop.py:173-177)
+            tcfg = dataclasses.replace(tcfg, train_filter="lora")
         self.cfg, self.tcfg = cfg, tcfg
         self.device = resolve_device(device)
         self._ckpt_writer = AsyncCheckpointWriter()
@@ -129,22 +137,28 @@ class Trainer:
         self.optimizer = optimizer if optimizer is not None else \
             make_optimizer(lr=tcfg.lr, weight_decay=tcfg.weight_decay,
                            grad_clip=tcfg.grad_clip, ema_decay=tcfg.ema_decay,
-                           wd_exclude=tcfg.wd_exclude)
+                           wd_exclude=tcfg.wd_exclude, llrd=tcfg.llrd,
+                           llrd_depth=cfg.depth,
+                           accum_steps=tcfg.accum_steps,
+                           trainable=tcfg.train_filter)
         self._schedule = self.optimizer.schedule is not None
         self.state = (init_state if init_state is not None else
                       create_train_state(tcfg.seed, cfg, self.optimizer,
                                          device=self.device))
-        self.train_step = make_train_step(
+        self.train_step = train_step or make_train_step(
             cfg, self.optimizer, device=self.device,
             label_smoothing=tcfg.label_smoothing,
-            class_weights=tcfg.class_weights)
+            mixup_alpha=tcfg.mixup_alpha, cutmix_alpha=tcfg.cutmix_alpha,
+            class_weights=tcfg.class_weights,
+            train_filter=tcfg.train_filter)
         self.eval_step = make_eval_step(cfg, device=self.device)
         self.preprocess = preprocess
-        # a generator for the steps whose forward draws: dropout,
-        # drop-path, patch dropout (with none the step is deterministic, the
-        # merging encoder of tome_train included)
+        # a generator for the steps whose forward or mixing draws: dropout,
+        # drop-path, patch dropout, mixup / cutmix (with none the step is
+        # deterministic, the merging encoder of tome_train included)
         self._stochastic = bool(cfg.dropout or cfg.drop_path
-                                or cfg.patch_drop)
+                                or cfg.patch_drop or tcfg.mixup_alpha
+                                or tcfg.cutmix_alpha)
         self.start_epoch = 0
         self.history: list[dict[str, Any]] = []
         self._preempted = False
@@ -212,6 +226,10 @@ class Trainer:
                 "config": json.loads(self.cfg.to_json())}
         if self.tcfg.ema_decay is not None:
             meta["ema_decay"] = self.tcfg.ema_decay
+        if self.tcfg.accum_steps > 1:
+            meta["accum_steps"] = self.tcfg.accum_steps
+        if self.tcfg.train_filter:
+            meta["train_filter"] = self.tcfg.train_filter
         if self._schedule:
             meta["schedule"] = True
         if self._preempted:
@@ -259,8 +277,11 @@ class Trainer:
                         writer.add_scalar("Val/recall_weighted",
                                           em["recall_weighted"], epoch)
                 if writer and self._lr_schedule is not None:
+                    # the schedule's horizon is in optimizer updates: one
+                    # per accum_steps micro-batches (vitx/train/loop.py:505)
                     writer.add_scalar(
-                        "LR", float(self._lr_schedule(self.state.step)),
+                        "LR", float(self._lr_schedule(
+                            self.state.step // max(1, self.tcfg.accum_steps))),
                         epoch)
                 if tcfg.checkpoint_dir is not None:
                     arrays = snapshot(self.state, self._schedule)
