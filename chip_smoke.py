@@ -298,7 +298,40 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               trainc.c built with gcc: the port's fp32 tiny forward on
               the card within 1e-4 of vitc's, one train step of
               trainc's case within its test's bars.
-14. artifacts -- main path 8, the model shipped (base16 bf16 at full
+14. families -- main path 11, vitx's other model families: (a) the conv
+              stem, 4 registers, the MAP head, sincos2d, RoPE, Soft-MoE
+              (2 experts over the last block) and registers + MAP +
+              sincos2d, each at base16's width, depth 2, fp32, batch 4:
+              the forward and one train step card vs CPU as train (a);
+              (b) vitx's bench 10, base16 with Soft-MoE blocks (8
+              experts over the last 6, 24 slots an expert, 290.4 M
+              params) in bf16: the forward's launches (K1 12, K2 6, all
+              sm90), its b4 logits against the CPU's plain forward
+              (EXPLAIN_TOL), the forward at b256 (CUDA events, median of
+              10) and the fused train step at b128 (median of 5 after 1
+              warm-up; K1 12, B2 12, B3 25, B12 1 a step), the step's
+              profiler split and the mixtures' share of it (one MoE
+              block's mixture forward and backward, CUDA events, times
+              6); (c) the other families at base16's width and depth,
+              bf16 b32: the forward on the kernels against the
+              kernel-free route on the card (EXPLAIN_TOL; K1 12 -- B5 12
+              for RoPE -- and K2 12), and RoPE's train step (B5 12, B2
+              12, B3 25); (d) the train CLI at small16 on
+              procedural:512,128, 2 epochs at b128: --moe-experts 8
+              --moe-blocks 6 and --num-registers 4 --head-type map
+              --pos-embed sincos2d, launches exact, losses falling; the
+              eval CLI on each .ckpt equal to the trainer's accuracy; the
+              MoE model's .quant.npz and .pt2 (from eval
+              --export-quantized / --export-pt2) within 2e-2 of its
+              eager forward with equal top-1, and a server on its .ckpt
+              as recipe (e); eval --patch-size 8 on the patch-16
+              registers model equal to direct calls on
+              resize_patch_embed's params at 112²; (e) rollout and
+              Grad-CAM at b8 on (b)'s MoE model and (c)'s registers
+              model against the kernel-free route (EXPLAIN_TOL,
+              GRADCAM_TOL), launches exact. Its launches, (b) to (e), are
+              the kernels line's "families" path.
+15. artifacts -- main path 8, the model shipped (base16 bf16 at full
               width): (a) an int8 .quant.npz of the params, about 1/4 of
               their fp32 bytes, quantization_error at most 1/254, a
               server on it answering 32 requests with the top-1 of direct
@@ -314,7 +347,7 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               within 1e-4 and the probe CLI on a .quant.npz over
               procedural:128,64, reports and features alike. Its
               launches are the kernels line's "export" path.
-15. bench  -- main path 9, vitx's bench configurations on the card: K1
+16. bench  -- main path 9, vitx's bench configurations on the card: K1
               (with and without its stash), K2, B2 and B3 at huge14's
               shapes (E 1280, 10 heads of D 128: the earlier attention
               kernels, the sm90 GEMM) held to their plain versions in
@@ -322,7 +355,7 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               last the "huge14" path: its launches asserted), then
               vitx_torch.cli.tune --mode infer on base16 at 64, 128 and
               256 with no error row.
-16. times  -- CUDA-event medians: the base16 forward at batch 256 bf16
+17. times  -- CUDA-event medians: the base16 forward at batch 256 bf16
               (img/s), the train step at batch 128 bf16 (img/s), the
               large16_384 rollout forward at batch 32 bf16 (img/s), the
               same with QKV biases and forward_with_attn("full") at
@@ -432,7 +465,7 @@ PROFILE_LEAD_KEPT = 960       # of them a window must keep to be read
 PROFILE_TRIES = 3             # windows profile_call traces at most
 PHASES = ("device", "build", "kernels", "grad", "forward", "serve", "train",
           "explain", "tome", "finetune", "recipe", "transfer", "pretrained",
-          "artifacts", "bench", "times")
+          "families", "artifacts", "bench", "times")
 
 KERNELS = {
     "fused_mha_block": {
@@ -1439,12 +1472,24 @@ def block_launches(cfg, **per: int) -> dict:
     return launches_of(**per, **sm90_rows)
 
 
+def attention_launches(cfg, n: int) -> dict:
+    """``n`` attention halves: K1, or on RoPE's composed path B5 without
+    probs (its sm90 route in bf16 at D 64)."""
+    if cfg.pos_embed == "rope":
+        return {"flash_attention": n, "flash_attention_sm90": n * sm90(cfg)}
+    return {"fused_mha_block": n}
+
+
 def forward_launches(cfg, forwards: int) -> dict:
-    """Inference launches: one K1 (B8 with ``cfg.tome_r``) and one K2 per
-    block, on the sm90 GEMM where ``cfg`` takes it, nothing else."""
-    attn = "fused_mha_block_tome" if cfg.tome_r else "fused_mha_block"
-    return block_launches(cfg, **{attn: cfg.depth * forwards,
-                                  "fused_mlp_block": cfg.depth * forwards})
+    """Inference launches: one K1 per block (B8 with ``cfg.tome_r``, B5 on
+    RoPE's composed path) and one K2 per dense block (a Soft-MoE block's
+    MLP is its mixture of products), on the sm90 routes where ``cfg``
+    takes them, nothing else."""
+    n = cfg.depth * forwards
+    attn = ({"fused_mha_block_tome": n} if cfg.tome_r
+            else attention_launches(cfg, n))
+    return block_launches(cfg, **attn,
+                          fused_mlp_block=cfg.dense_block_count * forwards)
 
 
 def check(phase: str, what: str, out, ref, tol: float,
@@ -1774,6 +1819,30 @@ def bitwise(phase: str, what: str, out, ref, **info) -> None:
         raise AssertionError(f"{what} {info}: not bit-identical")
 
 
+def hold_adamw_multi(phase: str, what: str, ps, gs, mus, nus, kw,
+                     errs: dict | None = None, **info) -> None:
+    """B12's multi-leaf kernel over the leaves (ps, gs, mus, nus) against
+    adamw_multi_plain on the same inputs: within FP32_TOL, then bit for
+    bit, in one launch. Updates ps, mus and nus in place."""
+    from vitx_torch.kernels import adamw_multi_plain, fused_adamw_multi_
+
+    ref = adamw_multi_plain(ps, gs, mus, nus, **kw)
+    n0 = fused_adamw_multi_.launches
+    fused_adamw_multi_(ps, gs, mus, nus, **kw)
+    torch.cuda.synchronize()
+    got = fused_adamw_multi_.launches - n0
+    info = {**info, "leaves": len(ps),
+            "elements": sum(t.numel() for t in ps),
+            "largest_leaf": max(t.numel() for t in ps), "launches": got}
+    out, want = [*ps, *mus, *nus], [*ref[0], *ref[1], *ref[2]]
+    check(phase, f"fused_adamw_multi_ (p, mu, nu), {what}", out, want,
+          FP32_TOL, errs, "fused_adamw_multi_", **info)
+    bitwise(phase, f"fused_adamw_multi_, {what}", out, want, **info)
+    if got != 1:
+        raise AssertionError(f"fused_adamw_multi_ {what} {info}: {got} "
+                             f"launches, expected 1")
+
+
 def check_adamw_multi(kw, errs: dict) -> None:
     """B12's multi-leaf kernel against adamw_multi_plain, bit for bit, one
     launch per call: every leaf of the base16 state, with fp32 and with
@@ -1786,7 +1855,6 @@ def check_adamw_multi(kw, errs: dict) -> None:
     from vitx_torch.train.step import leaves
 
     ps = leaves(init_params(0, vitx_torch.get_config("base16")))
-    n = sum(t.numel() for t in ps)
     gen = torch.Generator("cuda").manual_seed(30)
 
     def rand(t, scale):
@@ -1796,22 +1864,9 @@ def check_adamw_multi(kw, errs: dict) -> None:
         gs = [rand(t, 1e-3).to(gdt) for t in ps]
         mus = [rand(t, 1e-4) for t in ps]
         nus = [rand(t, 1e-6).abs() for t in ps]
-        ref = adamw_multi_plain(ps, gs, mus, nus, **kw)
-        n0 = fused_adamw_multi_.launches
-        fused_adamw_multi_(ps, gs, mus, nus, **kw)
-        torch.cuda.synchronize()
-        got = fused_adamw_multi_.launches - n0
-        info = {"grad_dtype": str(gdt), "leaves": len(ps), "elements": n,
-                "launches": got}
-        check("grad", "fused_adamw_multi_ (p, mu, nu), every base16 leaf",
-              [*ps, *mus, *nus], [*ref[0], *ref[1], *ref[2]], FP32_TOL,
-              errs, "fused_adamw_multi_", **info)
-        bitwise("grad", "fused_adamw_multi_, every base16 leaf",
-                [*ps, *mus, *nus], [*ref[0], *ref[1], *ref[2]], **info)
-        if got != 1:
-            raise AssertionError(f"fused_adamw_multi_ {info}: {got} "
-                                 f"launches, expected 1")
-        del gs, mus, nus, ref
+        hold_adamw_multi("grad", "every base16 leaf", ps, gs, mus, nus, kw,
+                         errs, grad_dtype=str(gdt))
+        del gs, mus, nus
     del ps
     sizes = (1, 3, 5, 1025, 65536 + 5, 3 * 768 * 768)
     for off in (0, 1, 2):
@@ -1931,15 +1986,23 @@ def sm90(cfg) -> bool:
     return cfg.compute_dtype == "bfloat16" and cfg.head_dim == 64
 
 
+def head_lns(cfg) -> int:
+    """The head's LayerNorms: the MAP head's input, MLP and output norms;
+    one for the reference and standard heads."""
+    return 3 if cfg.head_type == "map" else 1
+
+
 def expected_train_launches(cfg, steps: int, fused_steps: int,
                             grad_dtypes: int = 1) -> dict:
-    """Launches per the code's routing: one K1 and one B2 per block, B2 on
-    its sm90 route in bf16 at D 64; B3 for LN1 (inside K1's backward) and
-    LN2 of every block, the reference head's LayerNorm and the final norm;
-    K2 off under grad (fuse_mlp "auto"); B12's multi-leaf kernel once per
-    gradient dtype in the fused steps, its one-leaf kernel never."""
-    b3 = 2 * cfg.depth + (cfg.head_type == "reference") + int(cfg.final_norm)
-    return block_launches(cfg, fused_mha_block=cfg.depth * steps,
+    """Launches per the code's routing: one K1 (B5 on RoPE's composed
+    path) and one B2 per block, B2 on its sm90 route in bf16 at D 64; B3
+    for LN1 (inside K1's backward, or the composed path's add-LayerNorm)
+    and LN2 of every block (a Soft-MoE block's too), the head's
+    LayerNorms and the final norm; K2 off under grad (fuse_mlp "auto");
+    B12's multi-leaf kernel once per gradient dtype in the fused steps,
+    its one-leaf kernel never."""
+    b3 = 2 * cfg.depth + head_lns(cfg) + int(cfg.final_norm)
+    return block_launches(cfg, **attention_launches(cfg, cfg.depth * steps),
                        attention_bwd=cfg.depth * steps,
                        attention_bwd_sm90=cfg.depth * steps * sm90(cfg),
                        ln_bwd=b3 * steps,
@@ -2642,16 +2705,11 @@ def serve_ckpt(part: str, path: Path, cfg, ema, imgs=None,
     ``imgs``: 32 preprocessed float32 images, by default the procedural
     val split's first at 224²."""
     from vitx_torch import forward
-    from vitx_torch.data import make_preprocess
-    from vitx_torch.data.procedural import ProceduralShapes
     from vitx_torch.serve import load_server
     from vitx_torch.train.step import leaves
 
     if imgs is None:
-        u8 = ProceduralShapes(num_examples=32, seed=1).materialize()[0]
-        imgs = make_preprocess(out_size=224, mean=(0.5,) * 3,
-                               std=(0.5,) * 3)(
-            torch.from_numpy(u8).cuda(), None, train=False).cpu().numpy()
+        imgs = serve_images()
     reset_counts()
     with load_server(path, cfg, batch_size=32, top_k=5,
                      max_delay_ms=20.0) as srv:
@@ -4033,24 +4091,27 @@ def expect_launches(what: str, got: dict, expect: dict) -> None:
 
 
 def rollout_launches(cfg, calls: int = 1) -> dict:
-    """forward_with_rollout on the fused path: B7 and K2 in every block."""
+    """forward_with_rollout on the fused path: B7 in every block, K2 in
+    every dense one."""
     return block_launches(
         cfg, fused_mha_block_with_mean_probs=cfg.depth * calls,
-        fused_mlp_block=cfg.depth * calls)
+        fused_mlp_block=cfg.dense_block_count * calls)
 
 
 def gradcam_launches(cfg, calls: int = 1) -> dict:
-    """grad_cam: K1 and K2 in every block; the last block's backward runs
-    B2 once (on its sm90 route in bf16 at D 64) and B3 for LN1 (inside
-    K1's backward) and LN2 (inside K2's), and B3 again for the reference
-    head's LayerNorm and the final norm. With fuse_mha="off" B5 without
-    probs takes K1's place in every block (its sm90 route likewise)."""
-    b3 = 2 + (cfg.head_type == "reference") + int(cfg.final_norm)
+    """grad_cam: K1 in every block and K2 in every dense one; the last
+    block's backward runs B2 once (on its sm90 route in bf16 at D 64) and
+    B3 for LN1 (inside K1's backward) and LN2 (inside K2's, or a Soft-MoE
+    block's add-LayerNorm), and B3 again for the head's LayerNorms and the
+    final norm. With fuse_mha="off" B5 without probs takes K1's place in
+    every block (its sm90 route likewise)."""
+    b3 = 2 + head_lns(cfg) + int(cfg.final_norm)
     attn = ({"flash_attention": cfg.depth * calls,
              "flash_attention_sm90": cfg.depth * calls * sm90(cfg)}
             if cfg.fuse_mha == "off" else
             {"fused_mha_block": cfg.depth * calls})
-    return block_launches(cfg, **attn, fused_mlp_block=cfg.depth * calls,
+    return block_launches(cfg, **attn,
+                          fused_mlp_block=cfg.dense_block_count * calls,
                           attention_bwd=calls,
                           attention_bwd_sm90=calls * sm90(cfg),
                           ln_bwd=b3 * calls)
@@ -5776,6 +5837,428 @@ def huge14_kernel_shapes(inputs, launches: dict, errs: dict) -> dict:
     return extra
 
 
+FAMILIES = {
+    "conv_stem": {"stem": "conv"},
+    "registers": {"num_registers": 4},
+    "map_head": {"head_type": "map"},
+    "sincos2d": {"pos_embed": "sincos2d"},
+    "rope": {"pos_embed": "rope"},
+    "soft_moe": {"moe_experts": 2, "moe_blocks": 1},
+    "registers_map_sincos2d": {"num_registers": 4, "head_type": "map",
+                               "pos_embed": "sincos2d"},
+}
+BENCH10 = {"moe_experts": 8, "moe_blocks": 6}   # vitx/cli/bench.py:371-414
+FAMILY_DATA = "procedural:512,128"
+FAMILY_CLI = {"moe": ["--moe-experts", "8", "--moe-blocks", "6"],
+              "regmap": ["--num-registers", "4", "--head-type", "map",
+                         "--pos-embed", "sincos2d"]}
+FAMILY_ARTIFACT_TOL = 2e-2      # int8 weights against the eager forward
+
+
+def nudged(params, seed: int):
+    """A CPU parameter tree with N(0, 0.02) noise on every leaf, so that
+    the zero-initialised heads and biases take part."""
+    g = torch.Generator().manual_seed(seed)
+    if isinstance(params, dict):
+        return {k: nudged(params[k], seed + i)
+                for i, k in enumerate(sorted(params))}
+    return params + 0.02 * torch.randn(params.shape, generator=g).to(
+        params.dtype)
+
+
+def reference_route(cfg):
+    """``cfg`` with no kernel in its forward: the plain attention, the
+    composed blocks."""
+    return cfg.replace(attn_impl="reference", fuse_mha="off", fuse_mlp="off")
+
+
+def card_images(n: int, size: int, seed: int, dtype=torch.bfloat16):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn((n, size, size, 3), generator=g, device="cuda").to(
+        dtype)
+
+
+def families_card_vs_cpu(ds) -> None:
+    """(a): each family at base16's width, depth 2, fp32, batch 4: the
+    forward and one train step on the card against the CPU's."""
+    import vitx_torch
+    from vitx_torch.nn.vit import init_params, params_to
+
+    batch = synthetic_batch(ds, 4)
+    x = torch.from_numpy(batch["image"])
+    for name, over in FAMILIES.items():
+        cfg = vitx_torch.get_config("base16", depth=2,
+                                    compute_dtype="float32", **over)
+        host = nudged(init_params(1, cfg, device="cpu"), 2)
+        card = params_to(host, "cuda")
+        check("families", f"a: {name} depth 2 fp32 forward, card vs CPU",
+              vitx_torch.forward(card, x, cfg),
+              vitx_torch.forward(host, x, cfg, device="cpu"), FP32_TOL)
+        check_step_card_vs_cpu("families", f"a: {name} depth 2 fp32 step, "
+                               "card vs CPU", cfg, card, host, batch, 1e-4)
+
+
+def moe_mlp_share(cfg, params, batch: int, step_ms: float) -> dict:
+    """One MoE block's mixture forward and backward at the step's (batch,
+    T, E) bf16 tokens, CUDA events, times the MoE blocks: its share of the
+    step."""
+    from vitx_torch.nn.moe import soft_moe_mlp
+    from vitx_torch.nn.vit import unstack
+
+    bp = {k: v.detach().requires_grad_()
+          for k, v in unstack(params["moe_blocks"])[0].items()
+          if k in ("phi", "router_scale", "ew1", "eb1", "ew2", "eb2")}
+    h = (0.5 * torch.randn((batch, cfg.seq_len, cfg.embed_dim),
+                           device="cuda")).to(torch.bfloat16)
+    h.requires_grad_()
+    dy = torch.randn_like(h)
+
+    def fwd_bwd():
+        out = soft_moe_mlp(h, bp, cfg)
+        torch.autograd.grad(out, [h, *bp.values()], dy)
+
+    ms = cuda_ms(fwd_bwd, reps=5)
+    return {"moe_mlp_fwdbwd_ms": ms,
+            "moe_mlps_in_step_ms": ms * cfg.moe_block_count,
+            "moe_mlps_share": ms * cfg.moe_block_count / step_ms}
+
+
+def families_bench10(ds) -> tuple:
+    """(b): bench 10's Soft-MoE ViT-B at full width: launches, the b4 bf16
+    logits against the CPU's plain forward, the forward at b256 and the
+    fused train step at b128 timed, the step's profile and its MoE share.
+    Returns (launches, cfg, params)."""
+    import vitx_torch
+    from vitx_torch.nn.vit import init_params, params_to
+    from vitx_torch.train import TrainState, make_optimizer, make_train_step
+    from vitx_torch.train.step import leaves
+
+    cfg = vitx_torch.get_config("base16", **BENCH10)
+    params = nudged(init_params(0, cfg, device="cpu"), 3)
+    host = params
+    params = params_to(params, "cuda")
+    n_params = sum(t.numel() for t in leaves(params))
+    x256 = card_images(256, cfg.image_size, 1)
+    reset_counts()
+    vitx_torch.forward(params, x256, cfg)
+    torch.cuda.synchronize()
+    fwd = counts()
+    expect_launches("families (b): bench 10 forward", fwd,
+                    forward_launches(cfg, 1))
+    check("families", "b: bench 10 bf16 b4 logits, card vs the CPU's plain "
+          "forward", vitx_torch.forward(params, x256[:4], cfg),
+          vitx_torch.forward(host, x256[:4].cpu(), cfg, device="cpu"),
+          EXPLAIN_TOL)
+    del host
+    fwd_ms = [cuda_ms(lambda: vitx_torch.forward(params, x256, cfg), reps=1,
+                      warmup=0) for _ in range(10)]
+    opt = make_optimizer(lr=1e-4, fused=True)
+    state = TrainState(0, params, opt.init(params))
+    step = make_train_step(cfg, opt)
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in synthetic_batch(ds, 128).items()}
+    reset_counts()
+    losses, step_ms = [], []
+    for i in range(6):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, m = step(state, batch)
+        end.record()
+        end.synchronize()
+        losses.append(float(m["loss"]))
+        if i:
+            step_ms.append(start.elapsed_time(end))
+    got = counts()
+    expect_launches("families (b): bench 10 train steps", got,
+                    expected_train_launches(cfg, 6, 6))
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"families (b): losses {losses}")
+    bench10_adamw(cfg, opt, state, batch)
+    f_ms, s_ms = statistics.median(fwd_ms), statistics.median(step_ms)
+    emit({"phase": "families", "part": "b: bench 10, base16 Soft-MoE "
+          "8 experts x 6 blocks, bf16", "card": smi(),
+          "params_millions": n_params / 1e6, "T": cfg.seq_len,
+          "slots_per_expert": cfg.moe_slot_count,
+          "forward_b256_ms": f_ms, "forward_b256_ms_runs": fwd_ms,
+          "forward_images_per_sec": 256 / (f_ms / 1e3),
+          "train_b128_ms": s_ms, "train_b128_ms_runs": step_ms,
+          "train_images_per_sec": 128 / (s_ms / 1e3), "losses": losses,
+          "launches_forward": fwd, "launches_6_steps": got,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+          **moe_mlp_share(cfg, params, 128, s_ms)})
+    profile_call("families: bench 10 train step b128",
+                 lambda: step(state, batch), top=16)
+    return add_launches(fwd, got), cfg, state.params
+
+
+def bench10_adamw(cfg, opt, state, batch) -> None:
+    """B12 at bench 10's leaf set (ew1 and ew2 at 113 M elements each): a
+    copy of the state the fused steps left, one step's gradients on the
+    batch, and the update the next step would make, against
+    adamw_multi_plain bit for bit, in one launch."""
+    from vitx_torch.train.step import leaves, loss_fn, trainable_params
+
+    params, _ = trainable_params(state.params)
+    loss_v, _ = loss_fn(params, batch, cfg)
+    req = leaves(params)
+    gs = [torch.zeros_like(t) if g is None else g for t, g in zip(
+        req, torch.autograd.grad(loss_v, req, allow_unused=True))]
+    del params, loss_v, req
+
+    def copy(tree):
+        return [t.detach().clone() for t in leaves(tree)]
+    hold_adamw_multi("families", "b: bench 10's leaves after six fused "
+                     "steps, this batch's gradients", copy(state.params), gs,
+                     copy(state.opt_state.mu), copy(state.opt_state.nu),
+                     opt.update_kw(state.opt_state.count),
+                     count=state.opt_state.count)
+
+
+def families_other_forwards() -> tuple:
+    """(c): the other families at base16's width and depth, bf16, batch
+    32: the forward on the kernels against the kernel-free route on the
+    card, launches exact; RoPE's train step. Returns (launches, the
+    registers model's (cfg, params))."""
+    import vitx_torch
+    from vitx_torch.nn.vit import init_params, params_to
+    from vitx_torch.train import TrainState, make_optimizer, train_step
+
+    x = card_images(32, 224, 2)
+    launches, registers = {}, None
+    for name, over in FAMILIES.items():
+        if name == "soft_moe":
+            continue                  # (b) runs bench 10's Soft-MoE model
+        cfg = vitx_torch.get_config("base16", **over)
+        params = params_to(nudged(init_params(0, cfg, device="cpu"), 4),
+                           "cuda")
+        reset_counts()
+        out = vitx_torch.forward(params, x, cfg)
+        torch.cuda.synchronize()
+        got = counts()
+        expect_launches(f"families (c): {name} forward", got,
+                        forward_launches(cfg, 1))
+        launches = add_launches(launches, got)
+        check("families", f"c: {name} base16 bf16 b32 forward, kernels vs "
+              "the kernel-free route", out,
+              vitx_torch.forward(params, x, reference_route(cfg)),
+              EXPLAIN_TOL, T=cfg.seq_len, launches=got)
+        if name == "rope":
+            opt = make_optimizer(lr=1e-4)
+            batch = {"image": x, "label": torch.arange(
+                32, device="cuda", dtype=torch.int32)}
+            reset_counts()
+            _, m = train_step(TrainState(0, params, opt.init(params)), batch,
+                              cfg=cfg, optimizer=opt)
+            torch.cuda.synchronize()
+            got = counts()
+            expect_launches("families (c): rope train step", got,
+                            expected_train_launches(cfg, 1, 0))
+            launches = add_launches(launches, got)
+            emit({"phase": "families", "part": "c: rope base16 bf16 b32 "
+                  "train step", "loss": float(m["loss"]), "launches": got})
+            if not np.isfinite(float(m["loss"])):
+                raise AssertionError(f"families (c): rope loss {m}")
+        if name == "registers":
+            registers = (cfg, params)
+    return launches, registers
+
+
+def family_eval_accuracy(params, cfg) -> float:
+    """The val split of FAMILY_DATA at ``cfg``'s image size by direct
+    ``eval_step`` calls at batch 128 (the eval CLI's preprocessing)."""
+    from vitx_torch.cli.train import make_datasets
+    from vitx_torch.data import BatchLoader, make_preprocess
+    from vitx_torch.metrics import confusion_to_metrics
+    from vitx_torch.train.step import eval_step
+
+    pre = make_preprocess(out_size=cfg.image_size, mean=(0.5,) * 3,
+                          std=(0.5,) * 3, random_flip=False)
+    cm = None
+    for b in BatchLoader(make_datasets(FAMILY_DATA, cfg, 0)[1], 128):
+        img = pre(torch.from_numpy(b["image"]).cuda(), None, train=False)
+        c, _ = eval_step(params, {"image": img, "label": b["label"],
+                                  "mask": b["mask"]}, cfg=cfg)
+        cm = c if cm is None else cm + c
+    return float(confusion_to_metrics(cm)["accuracy"])
+
+
+def families_cli() -> dict:
+    """(d): the train CLI at small16 on FAMILY_DATA, two epochs each of a
+    Soft-MoE model and a registers + MAP + sincos2d one, launches exact;
+    the eval CLI on each .ckpt reports the trainer's accuracy; the MoE
+    model's .quant.npz and .pt2 against its eager forward; a server on its
+    .ckpt; eval --patch-size 8 on the patch-16 registers model against
+    direct calls on resize_patch_embed's params. Returns the launches."""
+    import os
+    import shutil
+
+    import vitx_torch.cli.eval as eval_cli
+    from vitx_torch import forward
+    from vitx_torch.export import load_exported
+    from vitx_torch.nn.flexivit import resize_patch_embed
+    from vitx_torch.nn.vit import param_spec
+    from vitx_torch.quant import load_quantized
+    from vitx_torch.train.checkpoint import (resolve_artifact_config,
+                                             restore_eval_params)
+
+    os.environ.setdefault("VITX_PROC_CACHE", str(BUILD / "procdata"))
+    root = BUILD / "families"
+    shutil.rmtree(root, ignore_errors=True)
+    base = ["--preset", "small16", "--data", FAMILY_DATA, "--device-cache",
+            "--batch-size", "128", "--epochs", "2", "--lr", "3e-4",
+            "--seed", "0", "--log-every", "1"]
+    evals = ["--data", FAMILY_DATA, "--batch-size", "128"]
+    launches = {}
+    for name, flags in FAMILY_CLI.items():
+        ck, logs = root / name, root / f"{name}_logs"
+        tr, train_loader, eval_loader, notes = build_quietly(
+            base + flags + ["--checkpoint-dir", str(ck), "--log-dir",
+                            str(logs)])
+        reset_counts()
+        t0 = time.perf_counter()
+        history = tr.fit(train_loader, eval_loader)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = counts()
+        steps, n_eval = 2 * len(train_loader), 2 * len(eval_loader)
+        expect_launches(f"families (d): {name} run", got, add_launches(
+            expected_train_launches(tr.cfg, steps, 0),
+            forward_launches(tr.cfg, n_eval)))
+        launches = add_launches(launches, got)
+        losses = [v for _, v in read_scalars(logs, "Loss/train_batch")]
+        logged = history[-1]["val_accuracy"]
+        extra = []
+        if name == "moe":
+            extra = ["--export-quantized", str(root / "moe.quant.npz"),
+                     "--export-pt2", str(root / "moe.pt2")]
+        reset_counts()
+        out = run_cli(eval_cli.main, ["--checkpoint", str(ck)] + evals +
+                      extra)
+        launches = add_launches(launches, counts())
+        emit({"phase": "families", "part": f"d: {name}: train CLI "
+              f"{' '.join(flags)}, 2 epochs, then the eval CLI",
+              "T": tr.cfg.seq_len, "steps": steps, "eval_batches": n_eval,
+              "launches": got, "losses": losses, "wall_s": wall,
+              "val_accuracy": logged, "eval_cli_accuracy": out["accuracy"],
+              "warnings": notes})
+        if not (len(losses) == steps and np.all(np.isfinite(losses))
+                and np.mean(losses[-steps // 2:]) < np.mean(
+                    losses[:steps // 2])):
+            raise AssertionError(f"families (d): {name} losses {losses}")
+        if out["accuracy"] != logged:
+            raise AssertionError(f"families (d): {name} eval CLI "
+                                 f"{out['accuracy']}, trainer {logged}")
+    # the MoE model's artifacts and server
+    ck = root / "moe"
+    cfg = resolve_artifact_config(str(ck), None, "small16")
+    params, _ = restore_eval_params(ck, cfg)
+    imgs = serve_images()
+    x = torch.from_numpy(imgs).cuda()
+    eager = forward(params, x, cfg)
+    deq, _ = load_quantized(root / "moe.quant.npz", param_spec(cfg))
+    program = load_exported(root / "moe.pt2").module()
+    for what, out in ((".quant.npz", forward(deq, x, cfg)),
+                      (".pt2", program(x.to(cfg.cdtype())))):
+        check("families", f"d: moe {what} against the eager forward", out,
+              eager, FAMILY_ARTIFACT_TOL)
+        if not torch.equal(out.argmax(-1), eager.argmax(-1)):
+            raise AssertionError(f"families (d): moe {what} top-1 differs")
+    newest = sorted(ck.glob("*.ckpt"), key=lambda q: int(q.stem))[-1]
+    launches = add_launches(launches, serve_ckpt(
+        "d: moe", newest, cfg, params, imgs, phase="families"))
+    # FlexiViT: the patch-16 registers model at patch 8 (input 112²)
+    ck = root / "regmap"
+    reset_counts()
+    out = run_cli(eval_cli.main, ["--checkpoint", str(ck), "--patch-size",
+                                  "8"] + evals)
+    launches = add_launches(launches, counts())
+    cfg = resolve_artifact_config(str(ck), None, "small16")
+    params, _ = restore_eval_params(ck, cfg)
+    params, cfg8 = resize_patch_embed(params, cfg, patch_size=8)
+    direct = family_eval_accuracy(params, cfg8)
+    emit({"phase": "families", "part": "d: eval --patch-size 8 on the "
+          "patch-16 registers + MAP + sincos2d .ckpt", "image_size":
+          cfg8.image_size, "eval_cli_accuracy": out["accuracy"],
+          "direct_accuracy": direct})
+    if out["accuracy"] != direct:
+        raise AssertionError(f"families (d): --patch-size 8 "
+                             f"{out['accuracy']}, direct {direct}")
+    return launches
+
+
+def serve_images() -> np.ndarray:
+    """32 preprocessed float32 images of the procedural val split at
+    224², as ``serve_ckpt`` serves them."""
+    from vitx_torch.data import make_preprocess
+    from vitx_torch.data.procedural import ProceduralShapes
+
+    u8 = ProceduralShapes(num_examples=32, seed=1).materialize()[0]
+    return make_preprocess(out_size=224, mean=(0.5,) * 3, std=(0.5,) * 3)(
+        torch.from_numpy(u8).cuda(), None, train=False).cpu().numpy()
+
+
+def families_explain(models) -> dict:
+    """(e): rollout and Grad-CAM at batch 8 on bench 10's Soft-MoE model
+    and the 4-registers model, on the kernels against the kernel-free
+    route on the card, launches exact. Returns the launches."""
+    from vitx_torch import forward_with_rollout, grad_cam
+
+    launches = {}
+    for name, cfg, params in models:
+        x = card_images(8, cfg.image_size, 5)
+        ref = reference_route(cfg)
+        reset_counts()
+        logits, w = forward_with_rollout(params, x, cfg)
+        torch.cuda.synchronize()
+        got = counts()
+        expect_launches(f"families (e): {name} rollout", got,
+                        rollout_launches(cfg))
+        launches = add_launches(launches, got)
+        check("families", f"e: {name} rollout b8, kernels vs the "
+              "kernel-free route", (logits, w),
+              forward_with_rollout(params, x, ref), EXPLAIN_TOL)
+        reset_counts()
+        cam, logits = grad_cam(params, x, cfg, class_idx=1)
+        torch.cuda.synchronize()
+        got = counts()
+        expect_launches(f"families (e): {name} grad_cam", got,
+                        gradcam_launches(cfg))
+        launches = add_launches(launches, got)
+        check("families", f"e: {name} grad_cam b8, kernels vs the "
+              "kernel-free route", (cam, logits),
+              grad_cam(params, x, ref, class_idx=1), GRADCAM_TOL)
+    return launches
+
+
+def phase_families() -> dict:
+    """Main path 11 (module docstring): vitx's other model families.
+    Returns the launches of parts (b) to (e)."""
+    import vitx_torch
+    from vitx_torch.data import SyntheticDataset
+
+    t0 = time.perf_counter()
+    ds = SyntheticDataset(num_examples=128, image_size=224,
+                          num_classes=vitx_torch.get_config(
+                              "base16").num_classes, seed=0)
+    families_card_vs_cpu(ds)
+    t_a = time.perf_counter()
+    bench, cfg, params = families_bench10(ds)
+    t_b = time.perf_counter()
+    other, (reg_cfg, reg_params) = families_other_forwards()
+    t_c = time.perf_counter()
+    cli = families_cli()
+    t_d = time.perf_counter()
+    explain = families_explain((("soft_moe", cfg, params),
+                                ("registers", reg_cfg, reg_params)))
+    emit({"phase": "families", "part": "seconds", "a": t_a - t0,
+          "b": t_b - t_a, "c": t_c - t_b, "d": t_d - t_c,
+          "e": time.perf_counter() - t_d})
+    return add_launches(bench, other, cli, explain)
+
+
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--phases", default=",".join(PHASES),
@@ -5859,6 +6342,10 @@ def main(argv=None) -> int:
     if "pretrained" in phases:
         pretrained_launches, _ = phase_pretrained(errs)
     lap("pretrained")
+    families_launches = {}
+    if "families" in phases:
+        families_launches = phase_families()
+    lap("families")
     export_launches, huge14_launches, huge14_inputs = {}, {}, None
     if "artifacts" in phases:
         export_launches = phase_artifacts(cfg, params)
@@ -5869,8 +6356,8 @@ def main(argv=None) -> int:
     launches = add_launches(serve_launches, train_launches, explain_launches,
                             tome_launches, finetune_launches,
                             *recipe_launches.values(), transfer_launches,
-                            pretrained_launches, export_launches,
-                            huge14_launches)
+                            pretrained_launches, families_launches,
+                            export_launches, huge14_launches)
     if "times" in phases:
         rows = phase_times(cfg, params, errs, launches)
         if tome_launches:
@@ -5923,6 +6410,7 @@ def main(argv=None) -> int:
                    for path, got in recipe_launches.items()},
                 "transfer": transfer_launches.get(row["name"], 0),
                 "pretrained": pretrained_launches.get(row["name"], 0),
+                "families": families_launches.get(row["name"], 0),
                 "export": export_launches.get(row["name"], 0),
                 "huge14": huge14_launches.get(row["name"], 0)}
             if row["name"] in stash:

@@ -1408,3 +1408,104 @@ def test_exported_program_runs_the_kernels(cuda, tmp_path):
         assert (fused_mha_block.launches_sm90 - k1,
                 fused_mlp_block.launches_sm90 - k2) == (2, 2)
         assert rel_err(out, vitx_torch.forward(params, x, cfg)) < 2e-2
+
+
+# --- vitx's other model families ------------------------------------------
+
+FAMILIES = {
+    "conv_stem": {"stem": "conv"},
+    "registers": {"num_registers": 4},
+    "map_head": {"head_type": "map"},
+    "sincos2d": {"pos_embed": "sincos2d"},
+    "rope": {"pos_embed": "rope"},
+    "soft_moe": {"moe_experts": 2, "moe_blocks": 1},
+    "registers_map_sincos2d": {"num_registers": 4, "head_type": "map",
+                               "pos_embed": "sincos2d"},
+}
+
+
+def _nudged(params, seed):
+    g = torch.Generator().manual_seed(seed)
+    return tstep.tree_map(
+        lambda t: t + 0.02 * torch.randn(t.shape, generator=g), params)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_family_card_vs_cpu(cuda, family):
+    """Each family at small16's widths, depth 2, fp32: the logits and the
+    gradients of one batch's loss on the card (its kernels) against the
+    CPU's plain versions, 1e-4 of each leaf's largest."""
+    cfg = vitx_torch.get_config("small16", depth=2, num_classes=10,
+                                compute_dtype="float32", **FAMILIES[family])
+    host = _nudged(vitx_torch.init_params(0, cfg, device="cpu"), 1)
+    rng = np.random.default_rng(2)
+    batch = {"image": torch.from_numpy(rng.standard_normal(
+        (2, 224, 224, 3)).astype(np.float32)),
+             "label": torch.tensor([1, 7])}
+    out = {}
+    for dev in ("cpu", cuda):
+        p = tstep.tree_map(lambda t: t.detach().to(dev).requires_grad_(),
+                           host)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        loss, logits = tstep.loss_fn(p, b, cfg)
+        out[str(dev)] = [logits.detach(),
+                         *torch.autograd.grad(loss, tstep.leaves(p))]
+    for i, (a, b) in enumerate(zip(out["cuda"], out["cpu"])):
+        assert rel_err(a, b) <= 1e-4, i
+
+
+@pytest.mark.cuda
+def test_bench10_forward_on_the_kernels(cuda):
+    """bench 10's Soft-MoE ViT-B in bf16 at batch 2: K1 in all 12 blocks
+    and K2 in the 6 dense ones, on their sm90 routes; logits within 0.05
+    of the CPU's plain forward."""
+    cfg = vitx_torch.get_config("base16", moe_experts=8, moe_blocks=6)
+    host = _nudged(vitx_torch.init_params(0, cfg, device="cpu"), 3)
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (2, 224, 224, 3)).astype(np.float32))
+    card = params_to(host, cuda)
+    before = [(f.launches, f.launches_sm90)
+              for f in (fused_mha_block, fused_mlp_block)]
+    logits = vitx_torch.forward(card, x, cfg, device=cuda)
+    torch.cuda.synchronize()
+    got = [(f.launches - a, f.launches_sm90 - b) for f, (a, b) in
+           zip((fused_mha_block, fused_mlp_block), before)]
+    assert got == [(12, 12), (6, 6)]
+    want = vitx_torch.forward(host, x, cfg, device="cpu")
+    assert rel_err(logits, want) <= 0.05
+
+
+@pytest.mark.cuda
+def test_block_kernels_at_registers_t201(cuda):
+    """K1 with its stash and K2 at base16's widths with 4 registers (T
+    201), bf16 on the sm90 route, against their plain versions."""
+    mha, mlp = block_args(4, 201, 768, 12, "bfloat16", cuda)
+    n = fused_mha_block.launches_sm90
+    out = fused_mha_block(*mha, eps=1e-6)
+    assert fused_mha_block.launches_sm90 == n + 1
+    assert rel_err(out, mha_block_plain(*mha, eps=1e-6)) <= TOL["bfloat16"]
+    out = fused_mlp_block(*mlp, act="gelu_tanh", eps=1e-6)
+    assert rel_err(out, mlp_block_plain(*mlp, act="gelu_tanh", eps=1e-6)) \
+        <= TOL["bfloat16"]
+
+
+@pytest.mark.cuda
+def test_rope_step_runs_b5_and_b2(cuda):
+    """A RoPE model's train step (base16 widths, depth 2, bf16, b4): its
+    attention takes the composed path, B5 forward and B2 backward, both
+    on their sm90 routes; no K1."""
+    cfg = vitx_torch.get_config("base16", depth=2, pos_embed="rope")
+    opt = tstep.make_optimizer(lr=1e-4)
+    state = tstep.create_train_state(0, cfg, opt, device=cuda)
+    batch = {"image": torch.randn((4, 224, 224, 3), device=cuda),
+             "label": torch.arange(4, device=cuda)}
+    fns = (flash_attention, attention_bwd, fused_mha_block)
+    before = [(f.launches, getattr(f, "launches_sm90", 0)) for f in fns]
+    _, m = tstep.train_step(state, batch, cfg=cfg, optimizer=opt,
+                            device=cuda)
+    torch.cuda.synchronize()
+    got = [(f.launches - a, getattr(f, "launches_sm90", 0) - b)
+           for f, (a, b) in zip(fns, before)]
+    assert got == [(2, 2), (2, 2), (0, 0)]
+    assert np.isfinite(float(m["loss"]))

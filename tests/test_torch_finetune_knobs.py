@@ -467,9 +467,16 @@ def test_still_unported_refuse(call, item):
         with pytest.raises(NotImplementedError, match=item):
             tloop.Trainer(tcfg, tloop.TrainerConfig(sam_rho=0.05),
                           device="cpu")
+    elif call == "cli_layerscale":
+        # ported since: the flag reaches the config and its gains the tree
+        p = ttrain.build_argparser()
+        tr, _, _ = ttrain.build_trainer(p.parse_args(
+            ["--layerscale", "0.1", "--device", "cpu"]), p)
+        assert tr.cfg.layerscale_init == 0.1
+        assert float(tr.state.params["blocks"]["ls1"][0, 0]) == \
+            pytest.approx(0.1)
     else:
         flag = {"cli_sam": ["--sam-rho", "0.05"],
-                "cli_layerscale": ["--layerscale", "0.1"],
                 "cli_tp": ["--tp", "2"]}[call]
         with pytest.raises(SystemExit, match=item):
             ttrain.main(flag + ["--device", "cpu"])

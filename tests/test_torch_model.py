@@ -174,9 +174,18 @@ def test_init_params_tree_matches_vitx():
     ({"pos_embed": "sincos2d"}, "A12"),
 ])
 def test_unported_features_raise(over, item):
+    """The features the port refused until ROADMAP ``item`` brought them
+    now initialise and run: tiny's forward gives finite logits, and a
+    depth-2 fp32 train step gives vitx's loss and gradients within 1e-4
+    (``test_torch_families.grads_match``)."""
+    from test_torch_families import grads_match
+
     cfg = vitx_torch.get_config("tiny", **over)
-    with pytest.raises(NotImplementedError, match=item):
-        vitx_torch.init_params(0, cfg, device="cpu")
+    params = vitx_torch.init_params(0, cfg, device="cpu")
+    logits = vitx_torch.forward(params, images(cfg), cfg, device="cpu")
+    assert logits.shape == (2, 4) and bool(torch.isfinite(logits).all())
+    assert item == "A12"
+    grads_match(over)
 
 
 def test_default_device_is_cuda():

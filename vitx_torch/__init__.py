@@ -24,8 +24,11 @@ and transfer fine-tuning from any vitx or reference ``.pt`` artifact
 and its own: int8 ``.quant.npz`` artifacts both packages read
 (``vitx_torch.quant``) and ``torch.export`` programs that carry the
 kernels as custom ops (``vitx_torch.export``, ``.pt2``), and it has
-vitx's probe, tune and bench CLIs. It imports neither ``jax`` nor
-``vitx``.
+vitx's probe, tune and bench CLIs. vitx's model families run through all
+of it: the conv stem, register tokens, the MAP head, the sincos2d and
+RoPE positions and Soft-MoE blocks (``vitx_torch.nn.moe``), and a model
+runs at another patch size (``nn.flexivit.resize_patch_embed``). It
+imports neither ``jax`` nor ``vitx``.
 
 Entry points run on a CUDA device unless the caller passes
 ``device="cpu"``, where the kernels' plain torch versions run instead.

@@ -11,14 +11,16 @@ macro F1, per-class accuracy and F1, the example count and, for up to 10
 classes, the confusion matrix -- from one confusion matrix. ``--predict``
 writes per-example predictions, ``--tta`` averages the logits over the
 horizontal flip, ``--calibrate`` adds ECE and temperature scaling, and
-``--tome-r`` merges tokens at inference. ``--export-quantized OUT``
+``--tome-r`` merges tokens at inference and ``--patch-size P`` runs the
+model at another patch size (FlexiViT's PI-resize of the patchify kernel,
+the input scaled with it, ``resize_patch_embed``). ``--export-quantized OUT``
 writes the loaded parameters as an int8 ``.quant.npz`` (vitx reads it
 too) and ``--export-pt2 OUT`` as a ``torch.export`` program, the
 counterpart of vitx's ``--export-stablehlo`` (the batch pinned to
 ``--batch-size`` under ToMe); both store the config without the
 inference-only ``--tome-r``. Any artifact the loading rule takes is
 evaluated, ``.quant.npz`` included. ``--device`` defaults to ``cuda``.
-``--soup`` and ``--patch-size`` (ROADMAP A12) are refused, and
+``--soup`` (ROADMAP A12) is refused, and
 ``--export-stablehlo``, whose StableHLO only JAX runs, names
 ``--export-pt2``.
 """
@@ -39,7 +41,7 @@ from vitx_torch.metrics import confusion_matrix, confusion_to_metrics
 from vitx_torch.nn.tome import aligned_schedule, parse_tome_r
 from vitx_torch.nn.vit import model_logits
 
-UNPORTED = {"soup": "A12", "patch_size": "A12"}
+UNPORTED = {"soup": "A12"}
 
 
 def main(argv=None):
@@ -73,7 +75,10 @@ def main(argv=None):
     p.add_argument("--export-stablehlo", default=None,
                    help="vitx's StableHLO export: JAX only; see "
                         "--export-pt2")
-    p.add_argument("--patch-size", type=int, default=None)
+    p.add_argument("--patch-size", type=int, default=None, metavar="P",
+                   help="FlexiViT PI-resize: run the checkpoint at patch "
+                        "size P, the input scaled with it (the token grid "
+                        "unchanged)")
     p.add_argument("--tome-r", type=parse_tome_r, default=0,
                    help="ToMe token merging at inference")
     p.add_argument("--device", default="cuda")
@@ -115,6 +120,16 @@ def main(argv=None):
         return 1
     # a LoRA run is evaluated (and exported) with its adapters folded in
     params, cfg = merge_lora_params(params, cfg)
+    if args.patch_size and args.patch_size != cfg.patch_size:
+        from vitx_torch.nn.flexivit import resize_patch_embed
+
+        params, cfg = resize_patch_embed(params, cfg,
+                                         patch_size=args.patch_size)
+        # the input resolution scaled with the patch: the val split again
+        # at the new size
+        _, eval_ds = make_datasets(args.data, cfg, seed=0)
+        print(f"PI-resized patchify to patch {cfg.patch_size} "
+              f"(input {cfg.image_size}px)", file=sys.stderr)
     if args.export_quantized:
         from vitx_torch.quant import save_quantized
 

@@ -17,6 +17,10 @@ train, the base frozen), ``--freeze-backbone`` (the head alone),
 updates), ``--mixup-alpha/--cutmix-alpha`` and
 ``--distill-from/--distill-alpha/--distill-tau/--distill-hard/
 --distill-token`` (DeiT distillation from a self-describing checkpoint).
+The model's geometry flags are vitx's too: ``--layerscale``, ``--mlp-act``,
+``--pos-embed`` (learned, sincos2d, rope), ``--qk-norm``, ``--head-type``
+(reference, standard, map), ``--global-pool``, ``--num-registers`` and
+``--moe-experts/--moe-blocks/--moe-slots`` (Soft-MoE blocks last).
 Every other flag set away from its default exits non-zero, naming the
 ROADMAP item that brings it (``UNPORTED``).
 
@@ -50,13 +54,9 @@ from vitx_torch.train.loop import NonFiniteLossError, Trainer, TrainerConfig
 # each is refused when set away from its default
 UNPORTED = {
     "class_weights": "A12", "loss": "A12", "optimizer": "A12",
-    "mu_dtype": "A12", "layerscale": "A12", "mlp_act": "A12",
-    "pos_embed": "A12", "qk_norm": "A12", "head_type": "A12",
-    "global_pool": "A12", "sam_rho": "A12", "num_registers": "A12",
-    "steps_per_dispatch": "A12", "dp": "A13", "tp": "A13",
-    "zero": "A13", "moe_experts": "A12", "moe_blocks": "A12",
-    "moe_slots": "A12", "ep": "A13", "sp": "A13", "pp": "A13",
-    "pp_microbatches": "A13", "pp_schedule": "A13",
+    "mu_dtype": "A12", "sam_rho": "A12", "steps_per_dispatch": "A12",
+    "dp": "A13", "tp": "A13", "zero": "A13", "ep": "A13", "sp": "A13",
+    "pp": "A13", "pp_microbatches": "A13", "pp_schedule": "A13",
 }
 
 
@@ -266,19 +266,40 @@ def build_trainer(args, parser=None):
         cfg = cfg.replace(drop_path=args.drop_path)
     if args.patch_drop:
         cfg = cfg.replace(patch_drop=args.patch_drop)
+    if (args.tome_train or args.tome_r) and not (args.tome_train
+                                                 and args.tome_r):
+        raise SystemExit("error: --tome-r and --tome-train go together "
+                         "for training-time token merging (eval-time "
+                         "merging is the eval CLI's --tome-r)")
+    # the model's geometry, in vitx's order (vitx/cli/train.py:418-440)
+    if args.layerscale:
+        cfg = cfg.replace(layerscale_init=args.layerscale)
+    if args.mlp_act:
+        cfg = cfg.replace(mlp_act=args.mlp_act)
+    if args.pos_embed:
+        cfg = cfg.replace(pos_embed=args.pos_embed)
+    if args.qk_norm:
+        cfg = cfg.replace(qk_norm=True)
+    if args.head_type:
+        cfg = cfg.replace(head_type=args.head_type)
+    if args.global_pool:
+        cfg = cfg.replace(global_pool=args.global_pool)
     if args.distill_token:
         cfg = cfg.replace(distill_token=True)
+    if args.num_registers:
+        cfg = cfg.replace(num_registers=args.num_registers)
+    if args.moe_experts:
+        cfg = cfg.replace(moe_experts=args.moe_experts,
+                          moe_blocks=args.moe_blocks,
+                          moe_slots=args.moe_slots)
     if args.lora_rank:
         cfg = cfg.replace(lora_rank=args.lora_rank,
                           lora_alpha=args.lora_alpha,
                           lora_targets=args.lora_targets)
-    if args.tome_train or args.tome_r:
-        if not (args.tome_train and args.tome_r):
-            raise SystemExit("error: --tome-r and --tome-train go together "
-                             "for training-time token merging (eval-time "
-                             "merging is the eval CLI's --tome-r)")
+    if args.tome_train:
         # a "toN" schedule resolves against the final geometry, after
-        # every knob that changes the token count (vitx/cli/train.py:441)
+        # every knob that changes the token count, registers among them
+        # (vitx/cli/train.py:442)
         tr = args.tome_r
         if isinstance(tr, str):
             tr = aligned_schedule(cfg, int(tr[2:]))

@@ -13,7 +13,7 @@ carries the config's ``remat`` and ``scan_unroll``; an explicit
 activation checkpointing waits.
 
 A candidate the port refuses before it runs (``check_candidate``: a
-batch below 1, a model feature not ported), or one that runs out of
+batch below 1, a config asking for vitx's sharding), or one that runs out of
 device memory (the cache is freed before the next), becomes a row with
 an ``"error"`` field; any other error raised while it times, a kernel
 wrapper's ``ValueError`` among them, propagates. Timing, as the bench CLI's (``cli/bench.py``:
@@ -34,16 +34,20 @@ import torch
 
 from vitx_torch.cli.bench import device_name, forward_timing, train_timing
 from vitx_torch.core.device import resolve_device
-from vitx_torch.nn.vit import check_ported
 
 
 def check_candidate(cfg, batch: int) -> None:
     """Raise for a candidate the port refuses before it runs: a batch
-    below 1 (ValueError) or a model feature not ported yet
-    (NotImplementedError, ``check_ported``)."""
+    below 1 (ValueError), or a config whose throughput is that of a
+    sharded run, expert (``ep``) or sequence (``sp``) parallel, which
+    waits for ROADMAP A13 (NotImplementedError): one card would time
+    another program."""
     if batch < 1:
         raise ValueError(f"batch {batch} must be positive")
-    check_ported(cfg)
+    if cfg.ep or cfg.sp:
+        raise NotImplementedError(
+            "expert- and sequence-parallel configs (ep, sp) shard over a "
+            "mesh, which is not ported to vitx_torch yet (ROADMAP A13)")
 
 
 def run_sweep(cfg, mode, batches, iters, reps, emit=print, device="cuda"):

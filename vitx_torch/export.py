@@ -83,9 +83,6 @@ def export_forward(params, cfg: ViTConfig, *, batch_size: int | None = None,
     if batch_size is None and cfg.tome_r:
         raise ValueError("tome_r exports need a pinned batch_size (the "
                          "merge scatter shapes depend on it)")
-    from vitx_torch.nn.vit import check_ported
-
-    check_ported(cfg)
     module = _Forward(params, cfg, with_softmax)
     dev = next(iter(module.buffers())).device
     b = batch_size or _TRACE_BATCH

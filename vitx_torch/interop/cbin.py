@@ -47,6 +47,10 @@ def write_model_bin(path, params, cfg: ViTConfig) -> None:
         raise ValueError("vitc's attention always adds a projection bias")
     if cfg.num_registers:
         raise ValueError("vitc has no register tokens")
+    if cfg.stem != "patch":
+        raise ValueError("vitc has no conv stem")
+    if cfg.moe_experts:
+        raise ValueError("vitc has no Soft-MoE blocks")
     if cfg.qk_norm:
         raise ValueError("vitc has no QK-Norm")
     if cfg.pos_embed != "learned":

@@ -121,6 +121,15 @@ def export_reference_state_dict(params: dict, cfg: ViTConfig,
     if cfg.pos_embed != "learned":
         raise ValueError("the reference layout stores a learned positional "
                          "table; sincos2d/rope models have none to export")
+    if "kernel" not in params["patch_embed"]:
+        raise ValueError("export requires stem='patch' params (the "
+                         "reference has no conv-stem equivalent)")
+    if "reg_tokens" in params:
+        raise ValueError("export requires num_registers=0 params (the "
+                         "reference has no register tokens)")
+    if "moe_blocks" in params:
+        raise ValueError("the reference layout has no Soft-MoE blocks; "
+                         "export requires moe_experts=0")
     b = params["blocks"]
     for key, why in (("w3", "swiglu gate weights have no export slot (the "
                             "reference FeedForward is Linear->act->Linear)"),

@@ -4,7 +4,7 @@ The counterpart of ``vitx/nn/attention.py``. Dense models on a CUDA device
 run their attention half through the fused block kernels
 (``vitx_torch.kernels.mha_block``) instead; this composed path serves
 what those do not cover (a QKV bias, QK-Norm, a non-standard logit scale,
-the full attention probabilities, ``fuse_mha="off"``). Its attention is
+the full attention probabilities, RoPE, ``fuse_mha="off"``). Its attention is
 the flash-attention kernel B5 (``vitx_torch.kernels.flash_attention``) or
 the plain reference, by vitx's rule.
 
@@ -46,6 +46,14 @@ def _qk_layer_norm(t, scale, eps):
     return (normed * scale.float()[None, :, None, :]).to(t.dtype)
 
 
+def apply_rope(t, cos, sin):
+    """Rotate (B, H, T, D) q or k by the (T, D) tables: pairs (i, i + D/2)
+    rotate together, the rotate-half form (``vitx/nn/vit.py:635-640``)."""
+    D = t.shape[-1]
+    rot = torch.cat([-t[..., D // 2:], t[..., :D // 2]], dim=-1)
+    return t * cos + rot * sin
+
+
 def use_flash(impl: str, x, head_dim: int, scale=None) -> bool:
     """vitx's rule (``vitx/nn/attention.py:102-111``) with "on a TPU" read
     as ``card_routes`` (x on a CUDA device, or an export's trace): B5 for
@@ -64,7 +72,7 @@ def multi_head_attention(x, wqkv, bqkv, wo, bo, *, num_heads: int,
                          impl: str = "auto", return_probs: bool = False,
                          probs_mode: str = "full",
                          scale: float | None = None, qk_scales=None,
-                         qk_eps: float = 1e-5):
+                         qk_eps: float = 1e-5, rope=None):
     """Composed multi-head self-attention over (B, T, E) tokens.
 
     wqkv: (E, 3, H, D); bqkv: (3, H, D) or None; wo: (E, E); bo: (E,) or
@@ -72,6 +80,9 @@ def multi_head_attention(x, wqkv, bqkv, wo, bo, *, num_heads: int,
     ``impl``: "auto" | "flash" | "reference" (``use_flash``).
     ``return_probs``: also return the attention probabilities, (B, H, T, T)
     fp32, or their head mean (B, T, T) for ``probs_mode="mean"``.
+    ``rope``: the (cos, sin) (T, D) tables of 2-D axial RoPE
+    (``vitx_torch.nn.vit.rope_tables``), or None; q and k rotate after the
+    projection and after QK-Norm (``vitx/nn/attention.py:133-138``).
     Returns (out (B, T, E), probs or None).
     """
     B, T, E = x.shape
@@ -90,6 +101,9 @@ def multi_head_attention(x, wqkv, bqkv, wo, bo, *, num_heads: int,
     if qk_scales is not None:
         q = _qk_layer_norm(q, qk_scales[0], qk_eps)
         k = _qk_layer_norm(k, qk_scales[1], qk_eps)
+    if rope is not None:
+        cos, sin = (t.to(q.dtype) for t in rope)
+        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
     if use_flash(impl, x, D, scale):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         if not return_probs:

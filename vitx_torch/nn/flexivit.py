@@ -16,7 +16,8 @@ from __future__ import annotations
 
 import torch
 
-from vitx_torch.interop.pretrained import resize_bilinear
+from vitx_torch.core.config import ViTConfig
+from vitx_torch.interop.pretrained import resize_bilinear, resize_pos_embed
 
 
 def _resize_operator_t(old_p: int, new_p: int) -> torch.Tensor:
@@ -48,3 +49,34 @@ def pi_resize_patch_kernel(kernel, old_p: int, new_p: int,
     w_new = torch.linalg.pinv(_resize_operator_t(old_p, new_p)) @ w
     return w_new.reshape(new_p * new_p * channels, E).to(
         device=kernel.device, dtype=kernel.dtype)
+
+
+def resize_patch_embed(params: dict, cfg: ViTConfig, *, patch_size: int,
+                       image_size: int | None = None):
+    """Re-target a trained model to ``patch_size`` -> (params, cfg), the
+    patchify kernel PI-resized (``vitx/nn/flexivit.py:68-110``).
+    ``image_size=None`` scales the input with the patch, so the token grid
+    stays (FlexiViT's protocol); an explicit ``image_size`` changes the
+    grid, and a learned positional table is resized bilinearly to it
+    (sincos2d and RoPE regenerate theirs from the new grid). The other
+    leaves are shared with ``params``."""
+    if cfg.stem != "patch":
+        raise ValueError("resize_patch_embed needs stem='patch' (the conv "
+                         "stem has no patchify kernel to PI-resize)")
+    old_p = cfg.patch_size
+    if image_size is None:
+        image_size = cfg.image_size // old_p * patch_size
+    new_cfg = cfg.replace(patch_size=patch_size, image_size=image_size)
+    if new_cfg.grid_size != cfg.grid_size and cfg.parity == "bug_exact":
+        raise ValueError(
+            "bug_exact parity stores pos_embed as [patches..., CLS] "
+            "(reference vit.py:41); only grid-preserving patch resizes are "
+            "supported -- pass image_size = old_image_size * new_p / old_p")
+    out = dict(params)
+    out["patch_embed"] = dict(params["patch_embed"], kernel=
+                              pi_resize_patch_kernel(
+                                  params["patch_embed"]["kernel"], old_p,
+                                  patch_size, cfg.num_channels))
+    if new_cfg.grid_size != cfg.grid_size and cfg.pos_embed == "learned":
+        out = resize_pos_embed(out, cfg, new_cfg)
+    return out, new_cfg

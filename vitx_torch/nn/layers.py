@@ -131,6 +131,15 @@ def dot(a, b):
     return matmul32(a, b).to(a.dtype)
 
 
+def einsum_cast(eq: str, a, b):
+    """``torch.einsum(eq, a, b)`` accumulated in fp32 and cast once to
+    ``a.dtype``, as ``dot``: vitx's ``einsum(...,
+    preferred_element_type=float32).astype(...)``."""
+    if a.is_cuda:
+        return torch.einsum(eq, a, b)
+    return torch.einsum(eq, a.float(), b.float()).to(a.dtype)
+
+
 def mlp(x, w1, b1, w2, b2, *, act: str, w3=None, b3=None):
     """Position-wise MLP Linear -> act -> Linear, with ``act="swiglu"``
     gating by the extra ``w3`` projection (``vitx/nn/layers.py:128-157``).

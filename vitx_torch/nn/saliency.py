@@ -5,7 +5,7 @@ The counterpart of ``vitx/nn/saliency.py``. The head reads only the CLS
 token, so the gradient of a class logit with respect to the encoder's
 output patches is zero; the last block's attention is what carries patch
 evidence into CLS. So blocks 0..L-2 run without autograd, and the last
-block and the head run under it with respect to its input f: the
+block (a Soft-MoE model's last MoE block) and the head run under it with respect to its input f: the
 per-channel weights are the mean over the patches of d logit / d f, and
 the heatmap is ReLU(sum over channels of weight * f). Cost: one forward
 plus a one-block backward (on CUDA: K1, K2, and B2 and B3 in their
@@ -18,9 +18,9 @@ import numpy as np
 import torch
 
 from vitx_torch.core.config import ViTConfig
-from vitx_torch.nn.vit import (_encoder_block, _final_norm, check_ported,
-                               embed_tokens, head_logits, on_device,
-                               run_blocks)
+from vitx_torch.nn.vit import (_encoder_block, _final_norm, block_rope,
+                               embed_tokens, encoder_layers, head_logits,
+                               on_device, run_blocks)
 
 
 def _class_index(class_idx, logits, cfg: ViTConfig):
@@ -50,17 +50,16 @@ def grad_cam(params, images, cfg: ViTConfig, *, class_idx=None,
     heatmap is non-negative, in patch-raster order (reshape to
     (grid, grid) to overlay). Devices as ``forward``.
     """
-    check_ported(cfg)
     params, images = on_device(params, images, device)
-    blocks = params["blocks"]
+    layers = encoder_layers(params)
     with torch.no_grad():
         x0 = embed_tokens(params, images, cfg)
-        head = {k: v[:-1] for k, v in blocks.items()}
-        f, _ = run_blocks(head, x0, cfg)
-    last = {k: v[-1] for k, v in blocks.items()}
+        f, _ = run_blocks(layers[:-1], x0, cfg)
+    last = layers[-1]
     with torch.enable_grad():
         f = f.detach().requires_grad_()
-        x, mlp_out, _ = _encoder_block(f, torch.zeros_like(f), last, cfg)
+        x, mlp_out, _ = _encoder_block(f, torch.zeros_like(f), last, cfg,
+                                       rope=block_rope(cfg, f))
         logits = head_logits(params, _final_norm(params, x + mlp_out, cfg),
                              cfg)
         idx = _class_index(class_idx, logits.detach(), cfg)

@@ -33,8 +33,8 @@ from vitx_torch.kernels.mha_block import composed_tome, fused_mha_block_tome
 from vitx_torch.kernels.mlp_block import fused_mlp_block
 from vitx_torch.nn.layers import drop_path, dropout, layer_norm, mlp
 from vitx_torch.nn.lora import merge_block
-from vitx_torch.nn.vit import (_final_norm, _use_fused_mlp, check_ported,
-                               drop_path_rates, embed_tokens, unstack)
+from vitx_torch.nn.vit import (_final_norm, _use_fused_mlp, drop_path_rates,
+                               embed_tokens, unstack)
 
 
 def parse_tome_r(s):
@@ -180,7 +180,6 @@ def encode_tome(params, images, cfg: ViTConfig,
     branch dropout and drop-path at ``linspace(0, cfg.drop_path,
     depth)[l]`` before its residual add, drawn in that order (vitx splits
     its key the same way, ``tome.py:213-256``; the streams differ)."""
-    check_ported(cfg)
     x = embed_tokens(params, images, cfg)
     stochastic = rng is not None and not deterministic
     if stochastic:

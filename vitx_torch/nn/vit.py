@@ -7,8 +7,11 @@ run as a Python loop; on a CUDA device each block's attention half is
 kernel K1 (B7 when head-mean probabilities are asked for; B5 inside the
 composed path; B8 in the ToMe encoder, ``vitx_torch/nn/tome.py``) and its
 MLP half kernel K2 (``vitx_torch/kernels``).
-Everything else -- patch embedding, residual adds, the head, the rollout
-chain -- is plain torch, as it is XLA in vitx. ``model_logits`` is the
+A Soft-MoE block's MLP half is ``vitx_torch.nn.moe.soft_moe_mlp``; RoPE
+and QK-Norm send the attention half to the composed path.
+Everything else -- patch embedding (the conv stem: cuDNN's convolutions),
+the positions, register tokens, residual adds, the heads (MAP pooling
+among them), the rollout chain -- is plain torch, as it is XLA in vitx. ``model_logits`` is the
 differentiable forward the train step runs (dropout and drop-path from an
 explicit ``torch.Generator``); ``forward``, ``forward_features``,
 ``forward_with_attn`` and ``forward_with_rollout`` are inference, under
@@ -29,41 +32,21 @@ from vitx_torch.kernels.mlp_block import fused_mlp_block
 from vitx_torch.nn.attention import multi_head_attention
 from vitx_torch.nn.lora import lora_spec, merge_block
 from vitx_torch.nn.layers import (activation, add_layer_norm, dot,
-                                  drop_path, dropout, layer_norm, matmul32,
-                                  mlp)
+                                  drop_path, dropout, einsum_cast,
+                                  layer_norm, matmul32, mlp)
+from vitx_torch.nn.moe import soft_moe_mlp
 
 Params = dict
-
-
-def check_ported(cfg: ViTConfig) -> None:
-    """Raise for the model features the port does not have yet, naming the
-    ROADMAP item that brings each."""
-    missing = (
-        (cfg.stem == "conv", "the conv stem (stem='conv')", "A12"),
-        (cfg.num_registers, "register tokens", "A12"),
-        (cfg.moe_experts, "Soft-MoE blocks", "A12"),
-        (cfg.head_type == "map", "the MAP head", "A12"),
-        (cfg.pos_embed != "learned", f"pos_embed={cfg.pos_embed!r}", "A12"),
-    )
-    for cond, what, item in missing:
-        if cond:
-            raise NotImplementedError(
-                f"{what} is not ported to vitx_torch yet (ROADMAP {item})")
 
 
 # ---------------------------------------------------------------------------
 # Initialization
 # ---------------------------------------------------------------------------
 
-def param_spec(cfg: ViTConfig) -> dict:
-    """The parameter tree of ``cfg`` as nested dicts of (shape, init) leaves,
-    where init is "normal" (trunc-normal, ``cfg.init_std``) or a constant.
-    The same tree and shapes as ``vitx/nn/vit.py:44-223`` for the features
-    the port has."""
-    check_ported(cfg)
-    E, H, D, M, L = (cfg.embed_dim, cfg.num_heads, cfg.head_dim, cfg.mlp_dim,
-                     cfg.depth)
-    P, C = cfg.patch_size, cfg.num_channels
+def block_spec(cfg: ViTConfig, L: int) -> dict:
+    """The leaves of ``L`` stacked dense blocks as (shape, init)
+    (``vitx/nn/vit.py:44-97``)."""
+    E, H, D, M = cfg.embed_dim, cfg.num_heads, cfg.head_dim, cfg.mlp_dim
     blocks = {
         "ln1_scale": ((L, E), 1.0), "ln1_bias": ((L, E), 0.0),
         "wqkv": ((L, E, 3, H, D), "normal"), "wo": ((L, E, E), "normal"),
@@ -84,13 +67,84 @@ def param_spec(cfg: ViTConfig) -> dict:
     if cfg.layerscale_init:
         blocks["ls1"] = ((L, E), cfg.layerscale_init)
         blocks["ls2"] = ((L, E), cfg.layerscale_init)
-    blocks.update(lora_spec(cfg))
-    spec = {
-        "patch_embed": {"kernel": ((P * P * C, E), "normal"),
-                        "bias": ((E,), 0.0)},
-        "cls_token": ((1, 1, E), "normal"),
-        "pos_embed": ((1, cfg.pos_len, E), "normal"),
-    }
+    return blocks
+
+
+def moe_block_spec(cfg: ViTConfig) -> dict:
+    """The trailing Soft-MoE blocks (``vitx/nn/moe.py:44-66``): a dense
+    block's attention and LayerNorm leaves, the router ``phi`` (k, E, n,
+    s) and ``router_scale`` (k,) and the experts' ``ew1/eb1/ew2/eb2`` in
+    place of ``w1/b1/w2/b2``."""
+    k, n, s = cfg.moe_block_count, cfg.moe_experts, cfg.moe_slot_count
+    E, M = cfg.embed_dim, cfg.mlp_dim
+    blocks = block_spec(cfg, k)
+    for name in ("w1", "b1", "w2", "b2"):
+        del blocks[name]
+    blocks.update({
+        "phi": ((k, E, n, s), "normal"), "router_scale": ((k,), 1.0),
+        "ew1": ((k, n, E, M), "normal"), "eb1": ((k, n, M), 0.0),
+        "ew2": ((k, n, M, E), "normal"), "eb2": ((k, n, E), 0.0)})
+    return blocks
+
+
+def stem_spec(cfg: ViTConfig) -> dict:
+    """``patch_embed``: the patchify kernel (P*P*C, E), or the conv stem's
+    log2(P) 3x3 stride-2 convolutions, widths doubling up to E, and a 1x1
+    projection, kernels in HWIO (``vitx/nn/vit.py:110-132``)."""
+    E, P, C = cfg.embed_dim, cfg.patch_size, cfg.num_channels
+    if cfg.stem != "conv":
+        return {"kernel": ((P * P * C, E), "normal"), "bias": ((E,), 0.0)}
+    n = P.bit_length() - 1
+    stem, in_ch = {}, C
+    for i in range(n):
+        w = max(E >> (n - 1 - i), 8)
+        stem[f"conv{i}"] = {"kernel": ((3, 3, in_ch, w), "normal"),
+                            "bias": ((w,), 0.0)}
+        in_ch = w
+    stem["proj"] = {"kernel": ((1, 1, in_ch, E), "normal"),
+                    "bias": ((E,), 0.0)}
+    return stem
+
+
+def head_spec(cfg: ViTConfig) -> dict:
+    """The classifier head: the reference's Linear -> GELU -> LN -> Linear,
+    the MAP head (probe attention, its MLP residual, then LN -> Linear) or
+    the standard LN -> Linear (``vitx/nn/vit.py:179-222``)."""
+    E, K = cfg.embed_dim, cfg.num_classes
+    if cfg.head_type == "reference":
+        return {"w1": ((E, 4 * E), "normal"), "b1": ((4 * E,), 0.0),
+                "ln_scale": ((4 * E,), 1.0), "ln_bias": ((4 * E,), 0.0),
+                "w2": ((4 * E, K), "normal"), "b2": ((K,), 0.0)}
+    head = {}
+    if cfg.head_type == "map":
+        M = cfg.mlp_dim
+        head = {"in_ln_scale": ((E,), 1.0), "in_ln_bias": ((E,), 0.0),
+                "probe": ((1, 1, E), "normal"),
+                "wq": ((E, E), "normal"), "wk": ((E, E), "normal"),
+                "wv": ((E, E), "normal"), "wo_p": ((E, E), "normal"),
+                "bo_p": ((E,), 0.0),
+                "mlp_ln_scale": ((E,), 1.0), "mlp_ln_bias": ((E,), 0.0),
+                "mw1": ((E, M), "normal"), "mb1": ((M,), 0.0),
+                "mw2": ((M, E), "normal"), "mb2": ((E,), 0.0)}
+    head.update({"ln_scale": ((E,), 1.0), "ln_bias": ((E,), 0.0),
+                 "w": ((E, K), 0.0), "b": ((K,), 0.0)})
+    return head
+
+
+def param_spec(cfg: ViTConfig) -> dict:
+    """The parameter tree of ``cfg`` as nested dicts of (shape, init) leaves,
+    where init is "normal" (trunc-normal, ``cfg.init_std``) or a constant.
+    The same tree and shapes as ``vitx/nn/vit.py:100-223``: no
+    ``pos_embed`` leaf for the sincos2d and RoPE positions, which are
+    functions of the grid; a Soft-MoE model's dense blocks (the first
+    ``cfg.dense_block_count``) under ``blocks`` and its MoE blocks under
+    ``moe_blocks``."""
+    E = cfg.embed_dim
+    spec = {"patch_embed": stem_spec(cfg), "cls_token": ((1, 1, E), "normal")}
+    if cfg.pos_embed == "learned":
+        spec["pos_embed"] = ((1, cfg.pos_len, E), "normal")
+    if cfg.num_registers:
+        spec["reg_tokens"] = ((1, cfg.num_registers, E), "normal")
     if cfg.distill_token:
         # DeiT: a second learned token (position 1) with its own standard
         # head, trained against the teacher, averaged with CLS at eval
@@ -99,21 +153,13 @@ def param_spec(cfg: ViTConfig) -> dict:
             "ln_scale": ((E,), 1.0), "ln_bias": ((E,), 0.0),
             "w": ((E, cfg.num_classes), 0.0), "b": ((cfg.num_classes,), 0.0),
         }
-    spec["blocks"] = blocks
+    spec["blocks"] = {**block_spec(cfg, cfg.dense_block_count),
+                      **lora_spec(cfg)}
+    if cfg.moe_experts:
+        spec["moe_blocks"] = moe_block_spec(cfg)
     if cfg.final_norm:
         spec["final_norm"] = {"scale": ((E,), 1.0), "bias": ((E,), 0.0)}
-    if cfg.head_type == "reference":
-        spec["head"] = {
-            "w1": ((E, 4 * E), "normal"), "b1": ((4 * E,), 0.0),
-            "ln_scale": ((4 * E,), 1.0), "ln_bias": ((4 * E,), 0.0),
-            "w2": ((4 * E, cfg.num_classes), "normal"),
-            "b2": ((cfg.num_classes,), 0.0),
-        }
-    else:
-        spec["head"] = {
-            "ln_scale": ((E,), 1.0), "ln_bias": ((E,), 0.0),
-            "w": ((E, cfg.num_classes), 0.0), "b": ((cfg.num_classes,), 0.0),
-        }
+    spec["head"] = head_spec(cfg)
     return spec
 
 
@@ -159,9 +205,50 @@ def params_to(params: Params, device) -> Params:
 # Forward
 # ---------------------------------------------------------------------------
 
+def _conv(x, w, stride: int):
+    """NCHW ``x`` convolved with HWIO ``w`` under XLA's "SAME" padding
+    (the extra row and column after, never before: at stride 2 on an even
+    size, (0, 1)), accumulated in fp32 and cast once to x's dtype (cuDNN
+    accumulates bf16 in fp32; fp32 operands on the CPU)."""
+    k = w.shape[0]
+    pads = []
+    for size in x.shape[:1:-1]:                # W, then H (F.pad's order)
+        out = -(-size // stride)
+        total = max((out - 1) * stride + k - size, 0)
+        pads += [total // 2, total - total // 2]
+    wt = w.permute(3, 2, 0, 1)                 # HWIO -> OIHW
+    xp = torch.nn.functional.pad(x, pads)
+    if x.is_cuda:
+        return torch.nn.functional.conv2d(xp, wt.to(x.dtype), stride=stride)
+    return torch.nn.functional.conv2d(xp.float(), wt.float(),
+                                      stride=stride).to(x.dtype)
+
+
+def _conv_stem(params: Params, images, cfg: ViTConfig):
+    """The conv stem (``cfg.stem="conv"``, ``vitx/nn/vit.py:234-259``):
+    log2(P) 3x3 stride-2 convolutions, each rounded to the compute dtype,
+    its bias added there and vitx's default (tanh) GELU applied, then a
+    1x1 projection and its bias -> (B, N, E) tokens in raster order.
+    cuDNN's convolutions on a card, as XLA's in vitx."""
+    cdt = cfg.cdtype()
+    pe = params["patch_embed"]
+    x = images.to(cdt).permute(0, 3, 1, 2)     # NHWC -> NCHW
+    for i in range(cfg.patch_size.bit_length() - 1):
+        p = pe[f"conv{i}"]
+        x = _conv(x, p["kernel"], 2) + p["bias"].to(cdt)[:, None, None]
+        x = activation(x, "gelu_tanh")
+    x = _conv(x, pe["proj"]["kernel"], 1) + pe["proj"]["bias"].to(cdt)[
+        :, None, None]
+    B = x.shape[0]
+    return x.permute(0, 2, 3, 1).reshape(B, cfg.num_patches, cfg.embed_dim)
+
+
 def patch_embed(params: Params, images, cfg: ViTConfig):
     """(B, H, W, C) images -> (B, N, E) patch tokens: space-to-depth with
-    rows ordered (P, P, C), then one matmul (``vitx/nn/vit.py:262-284``)."""
+    rows ordered (P, P, C), then one matmul (``vitx/nn/vit.py:262-284``),
+    or the conv stem."""
+    if cfg.stem == "conv":
+        return _conv_stem(params, images, cfg)
     B = images.shape[0]
     P, g, C = cfg.patch_size, cfg.grid_size, cfg.num_channels
     x = images.to(cfg.cdtype())
@@ -193,16 +280,83 @@ def _join_cls(params: Params, tokens, cfg: ViTConfig, B: int):
     return torch.cat([*prefix, tokens], dim=1)
 
 
+def sincos_pos_embed(cfg: ViTConfig, device=None):
+    """The fixed 2-D sine-cosine table of ``pos_embed="sincos2d"`` (MAE):
+    (1, pos_len, E) fp32, the prefix rows zero; E/2 dims encode the
+    patch's row, E/2 its column, each half [sin, cos] over E/4
+    frequencies 1/10000^(4i/E) (``vitx/nn/vit.py:586-606``)."""
+    E = cfg.embed_dim
+    q = E // 4
+    omega = 1.0 / (10000.0 ** (torch.arange(q, dtype=torch.float32,
+                                            device=device) / q))
+    g = cfg.grid_size
+    pos = torch.arange(g, dtype=torch.float32, device=device)
+    a = pos[:, None] * omega[None, :]
+    axis = torch.cat([torch.sin(a), torch.cos(a)], -1)     # (g, E/2)
+    table = torch.cat([axis.repeat_interleave(g, dim=0), axis.repeat(g, 1)],
+                      -1)
+    prefix = torch.zeros((cfg.num_prefix_tokens, E), device=device)
+    return torch.cat([prefix, table], 0)[None]
+
+
+def rope_tables(cfg: ViTConfig, dtype=torch.float32, device=None):
+    """(cos, sin), each (seq_len, head_dim), of 2-D axial RoPE
+    (``pos_embed="rope"``; EVA-02, Heo et al. 2024): D/2 angles a token,
+    the first quarter's frequencies rope_base^(-4i/D) scaled by the
+    patch's row, the second's by its column, duplicated for the
+    rotate-half pairs (i, i + D/2); prefix and register tokens get zero
+    angles (``vitx/nn/vit.py:609-632``)."""
+    D = cfg.head_dim
+    q = D // 4
+    freqs = cfg.rope_base ** (-torch.arange(q, dtype=torch.float32,
+                                            device=device) / q)
+    g = cfg.grid_size
+    a = torch.arange(g, dtype=torch.float32, device=device)[:, None] * \
+        freqs[None, :]                                      # (g, D/4)
+    half = torch.cat([a.repeat_interleave(g, dim=0), a.repeat(g, 1)], -1)
+    ang = torch.cat([torch.zeros((cfg.num_prefix_tokens, D // 2),
+                                 device=device), half,
+                     torch.zeros((cfg.num_registers, D // 2),
+                                 device=device)], 0)
+    ang = torch.cat([ang, ang], -1)
+    return torch.cos(ang).to(dtype), torch.sin(ang).to(dtype)
+
+
+def block_rope(cfg: ViTConfig, x):
+    """The (cos, sin) tables every block of a forward over tokens x shares
+    under ``pos_embed="rope"``, else None."""
+    if cfg.pos_embed != "rope":
+        return None
+    return rope_tables(cfg, x.dtype, x.device)
+
+
 def add_pos_embed(params: Params, x, cfg: ViTConfig):
-    """Add the learned positional table (the only kind the port has)."""
+    """Add the positions to the prefix and patch tokens: the learned
+    table, the fixed sincos2d table, or nothing for RoPE, which rotates q
+    and k in every attention instead (``vitx/nn/vit.py:643-651``)."""
+    if cfg.pos_embed == "rope":
+        return x
+    if cfg.pos_embed == "sincos2d":
+        return x + sincos_pos_embed(cfg, x.device).to(x.dtype)
     return x + params["pos_embed"].to(x.dtype)
 
 
+def _append_registers(params: Params, x, cfg: ViTConfig):
+    """The register tokens (Darcet et al. 2023) after the patches, past the
+    positional add, so they carry no position (``vitx/nn/vit.py:654-662``)."""
+    if not cfg.num_registers:
+        return x
+    reg = params["reg_tokens"].to(x.dtype).expand(
+        x.shape[0], cfg.num_registers, cfg.embed_dim)
+    return torch.cat([x, reg], dim=1)
+
+
 def embed_tokens(params: Params, images, cfg: ViTConfig):
-    """Images -> the token sequence the first block reads."""
+    """Images -> the token sequence the first block reads: [prefix |
+    patches | registers]."""
     tokens = patch_embed(params, images, cfg)
     x = _join_cls(params, tokens, cfg, tokens.shape[0])
-    return add_pos_embed(params, x, cfg)
+    return _append_registers(params, add_pos_embed(params, x, cfg), cfg)
 
 
 def _patch_drop(x, cfg: ViTConfig, gen=None, noise=None):
@@ -249,7 +403,8 @@ def _use_fused_mlp(cfg: ViTConfig, x) -> bool:
 
 def _encoder_block(x, pending, bp, cfg: ViTConfig, *, rng=None,
                    deterministic: bool = True, dp_rate: float = 0.0,
-                   return_probs: bool = False, probs_mode: str = "full"):
+                   return_probs: bool = False, probs_mode: str = "full",
+                   rope=None):
     """Pre-LN block: x + MHA(LN1(x)); x + MLP(LN2(x)). The previous block's
     MLP output arrives as ``pending`` and the block returns its own as the
     new pending (``vitx/nn/vit.py:319-436``). Dropout, then drop-path at
@@ -263,7 +418,9 @@ def _encoder_block(x, pending, bp, cfg: ViTConfig, *, rng=None,
     shape K1 takes, where vitx sends them to ``_kernel_hchunk`` or, past
     its VMEM limits, to its composed fallback (vit.py:348-377) -- the same
     function; on the CPU, as in vitx's interpret mode, they take the
-    composed path."""
+    composed path. A Soft-MoE block (``"phi" in bp``) runs the same
+    attention half and ``soft_moe_mlp`` for its MLP half. ``rope`` is
+    ``block_rope``'s tables for the forward."""
     if cfg.lora_rank:
         bp = merge_block(bp, cfg)
     dt = x.dtype
@@ -294,7 +451,8 @@ def _encoder_block(x, pending, bp, cfg: ViTConfig, *, rng=None,
                    if cfg.parity == "bug_exact" else None),
             qk_scales=((bp["lnq_scale"], bp["lnk_scale"])
                        if cfg.qk_norm else None),
-            qk_eps=cfg.layer_norm_eps)
+            qk_eps=cfg.layer_norm_eps,
+            rope=rope)
     if "ls1" in bp:
         attn_out = attn_out * bp["ls1"].to(dt)
     attn_out = dropout(attn_out, cfg.dropout, rng,
@@ -303,7 +461,13 @@ def _encoder_block(x, pending, bp, cfg: ViTConfig, *, rng=None,
         attn_out = drop_path(attn_out, dp_rate, rng,
                              deterministic=deterministic)
 
-    if _use_fused_mlp(cfg, x):
+    if "phi" in bp:
+        # a Soft-MoE block: the expert mixture in place of the dense MLP
+        # (and of K2), after the plain add-LayerNorm
+        x, h = add_layer_norm(x, attn_out, bp["ln2_scale"], bp["ln2_bias"],
+                              eps=cfg.layer_norm_eps)
+        mlp_out = soft_moe_mlp(h, bp, cfg)
+    elif _use_fused_mlp(cfg, x):
         x = x + attn_out
         mlp_out = fused_mlp_block(
             x, bp["w1"].to(dt), bp["b1"].float(), bp["w2"].to(dt),
@@ -331,6 +495,15 @@ def unstack(blocks: Params):
     return [{k: v[i] for k, v in layers.items()} for i in range(depth)]
 
 
+def encoder_layers(params: Params) -> list:
+    """One parameter dict per encoder block, in order: the dense blocks,
+    then a Soft-MoE model's MoE blocks."""
+    layers = unstack(params["blocks"])
+    if "moe_blocks" in params:
+        layers += unstack(params["moe_blocks"])
+    return layers
+
+
 def drop_path_rates(cfg: ViTConfig, n: int, deterministic: bool) -> list:
     """The blocks' drop-path rates, rising linearly from 0 to
     ``cfg.drop_path`` (fp32, as vitx's ``jnp.linspace``); all 0 when
@@ -341,22 +514,26 @@ def drop_path_rates(cfg: ViTConfig, n: int, deterministic: bool) -> list:
     return torch.linspace(0.0, cfg.drop_path, n).tolist()
 
 
-def run_blocks(blocks: Params, x, cfg: ViTConfig, *, rng=None,
+def run_blocks(layers: list, x, cfg: ViTConfig, *, rng=None,
                deterministic: bool = True, return_probs: bool = False,
                probs_mode: str = "full"):
-    """Run the stacked blocks over tokens x (B, T, E): a Python loop in
-    place of vitx's ``lax.scan``; returns (x + pending, probs stacked over
-    the blocks or None) (``vitx/nn/vit.py:439-515``). The number of blocks
-    is the stack's. Drop-path rates rise linearly from 0 at the first
-    block to ``cfg.drop_path`` at the last (vit.py:464-468)."""
-    layers = unstack(blocks)
+    """Run the blocks ``layers`` (``encoder_layers``) over tokens x (B, T,
+    E): a Python loop in place of vitx's ``lax.scan``; returns (x +
+    pending, probs stacked over the blocks or None) (``vitx/nn/vit.py:
+    439-552``). Drop-path rates rise linearly from 0 at the first block to
+    ``cfg.drop_path`` at the last, over the dense and MoE blocks alike
+    (vit.py:537). vitx scans a MoE model's two stacks apart and hands the
+    second ``(x + pending, 0)``: the next block reads only that sum, which
+    is the one the carry forms here, so the loop is the same function."""
     rates = drop_path_rates(cfg, len(layers), deterministic)
     pending = torch.zeros_like(x)
+    rope = block_rope(cfg, x)
     probs = []
     for bp, rate in zip(layers, rates):
         x, pending, p = _encoder_block(
             x, pending, bp, cfg, rng=rng, deterministic=deterministic,
-            dp_rate=rate, return_probs=return_probs, probs_mode=probs_mode)
+            dp_rate=rate, return_probs=return_probs, probs_mode=probs_mode,
+            rope=rope)
         probs.append(p)
     return x + pending, (torch.stack(probs) if return_probs else None)
 
@@ -377,29 +554,63 @@ def encode(params: Params, images, cfg: ViTConfig, *, rng=None,
     With ``return_probs``, (tokens, per-block probs): (depth, B, H, T, T)
     fp32, or (depth, B, T, T) for ``probs_mode="mean"``.
     """
-    check_ported(cfg)
     x = embed_tokens(params, images, cfg)
     if rng is not None:
         if cfg.patch_drop and not deterministic:
             x = _patch_drop(x, cfg, rng)
         x = dropout(x, cfg.dropout, rng, deterministic=deterministic)
-    x, probs = run_blocks(params["blocks"], x, cfg, rng=rng,
+    x, probs = run_blocks(encoder_layers(params), x, cfg, rng=rng,
                           deterministic=deterministic,
                           return_probs=return_probs, probs_mode=probs_mode)
     x = _final_norm(params, x, cfg)
     return (x, probs) if return_probs else x
 
 
-def classify(params: Params, x, cfg: ViTConfig):
-    """Encoder tokens (B, T, E) -> fp32 logits (B, classes): token 0 (or the
-    patch mean for ``global_pool="gap"``) through the reference head
-    (Linear -> erf GELU -> LayerNorm(4E) -> Linear) or the standard head
-    (LN -> Linear), as at ``vitx/nn/vit.py:780-807``."""
+def _map_pool(hp: Params, x, cfg: ViTConfig):
+    """MAP pooling (Zhai et al. 2022; ``vitx/nn/vit.py:725-764``): the
+    tokens without the registers through the head's input LayerNorm, a
+    learned probe's single-query attention over them (fp32 logits and
+    softmax), the output projection and its bias, then a pre-LN MLP
+    residual with the erf GELU. (B, T, E) -> (B, E) in x's dtype."""
+    H, D, E = cfg.num_heads, cfg.head_dim, cfg.embed_dim
+    dt = x.dtype
+    if cfg.num_registers:
+        # contiguous: the LayerNorm's backward (B3) reads it
+        x = x[:, :x.shape[1] - cfg.num_registers].contiguous()
+    x = layer_norm(x, hp["in_ln_scale"], hp["in_ln_bias"],
+                   eps=cfg.layer_norm_eps)
+    q = dot(hp["probe"][0].to(dt), hp["wq"].to(dt)).reshape(H, D)
+    k = einsum_cast("bte,ehd->bhtd", x, hp["wk"].to(dt).reshape(E, H, D))
+    v = einsum_cast("bte,ehd->bhtd", x, hp["wv"].to(dt).reshape(E, H, D))
+    logits = torch.einsum("hd,bhtd->bht", q.float(), k.float())
+    probs = torch.softmax(logits * (1.0 / D ** 0.5), dim=-1)
+    pooled = einsum_cast("bht,bhtd->bhd", probs.to(dt), v)
+    a = einsum_cast("bhd,hde->be", pooled, hp["wo_p"].to(dt).reshape(H, D, E))
+    a = a + hp["bo_p"].to(dt)
+    h = layer_norm(a, hp["mlp_ln_scale"], hp["mlp_ln_bias"],
+                   eps=cfg.layer_norm_eps)
+    return a + mlp(h, hp["mw1"], hp["mb1"], hp["mw2"], hp["mb2"], act="gelu")
+
+
+def _head_input(params: Params, x, cfg: ViTConfig):
+    """The (B, E) vector the head reads (``vitx/nn/vit.py:767-777``): the
+    MAP pooling, the mean of the patch tokens (``global_pool="gap"``: the
+    tokens between the prefix and the registers, merged ones too), or
+    token 0."""
+    if cfg.head_type == "map":
+        return _map_pool(params["head"], x, cfg)
     if cfg.global_pool == "gap":
         s = cfg.num_prefix_tokens
-        cls = x[:, s:, :].mean(dim=1)
-    else:
-        cls = x[:, 0, :]
+        return x[:, s:x.shape[1] - cfg.num_registers, :].mean(dim=1)
+    return x[:, 0, :]
+
+
+def classify(params: Params, x, cfg: ViTConfig):
+    """Encoder tokens (B, T, E) -> fp32 logits (B, classes): ``_head_input``
+    through the reference head (Linear -> erf GELU -> LayerNorm(4E) ->
+    Linear) or LN -> Linear (the standard and MAP heads), as at
+    ``vitx/nn/vit.py:780-807``."""
+    cls = _head_input(params, x, cfg)
     hp = params["head"]
     if cfg.head_type == "reference":
         h = dot(cls, hp["w1"].to(cls.dtype)) + hp["b1"].to(cls.dtype)
@@ -545,7 +756,6 @@ def forward_with_rollout(params: Params, images, cfg: ViTConfig, *,
     (depth, B, T, T) stack is never held. The chain is a plain fp32
     ``torch.matmul`` (TF32 off). Matches
     ``attention_rollout(head_fusion="mean")``. Devices as ``forward``."""
-    check_ported(cfg)
     params, images = on_device(params, images, device)
     with torch.inference_mode():
         x = embed_tokens(params, images, cfg)
@@ -553,9 +763,11 @@ def forward_with_rollout(params: Params, images, cfg: ViTConfig, *,
         rollout = torch.eye(T, dtype=torch.float32,
                             device=x.device).expand(B, T, T)
         pending = torch.zeros_like(x)
-        for bp in unstack(params["blocks"]):
+        rope = block_rope(cfg, x)
+        for bp in encoder_layers(params):
             x, pending, probs = _encoder_block(
-                x, pending, bp, cfg, return_probs=True, probs_mode="mean")
+                x, pending, bp, cfg, return_probs=True, probs_mode="mean",
+                rope=rope)
             r2 = 0.5 * torch.matmul(probs, rollout) + 0.5 * rollout
             rollout = r2 / r2.sum(dim=-1, keepdim=True)
         x = _final_norm(params, x + pending, cfg)

@@ -30,8 +30,8 @@ import torch
 from vitx_torch.core.config import ViTConfig
 from vitx_torch.core.device import resolve_device
 from vitx_torch.nn.saliency import grad_cam
-from vitx_torch.nn.vit import check_ported, forward_with_rollout, \
-    init_params, model_logits, params_to
+from vitx_torch.nn.vit import forward_with_rollout, init_params, \
+    model_logits, params_to
 
 
 class ServerOverloaded(RuntimeError):
@@ -123,7 +123,6 @@ class InferenceServer:
         ``params`` is then ignored and ``explain`` refused.
         """
         self.device = resolve_device(device)
-        check_ported(cfg)
         self.cfg = cfg
         self.batch_size = batch_size
         self.top_k = min(top_k, cfg.num_classes)

@@ -423,15 +423,14 @@ def save_reference_pt(path, params, cfg: ViTConfig, *, epoch: int,
     same state; without, a fresh AdamW state dict (its param group, no
     moments). LoRA adapters fold into the dense weights first and the
     moments are dropped, as vitx does (``checkpoint.py:393-401``): they
-    describe the adapters, not the merged weights. ``cfg`` must be one the
-    port runs (``check_ported``)."""
+    describe the adapters, not the merged weights. Params the reference
+    layout has no slot for raise ``ValueError``
+    (``export_reference_state_dict``)."""
     from vitx_torch.interop.torch_ref import (
         export_reference_optimizer_state, export_reference_state_dict,
         optimizer_param_groups)
     from vitx_torch.nn.lora import merge_lora_params
-    from vitx_torch.nn.vit import check_ported
 
-    check_ported(cfg)
     if cfg.lora_rank:
         params, cfg = merge_lora_params(params, cfg)
         opt_state = None

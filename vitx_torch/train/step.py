@@ -138,13 +138,30 @@ def trainable_flags(params, train_filter: str | None) -> list:
     return [True] * len(leaves(params)) if mask is None else mask(params)
 
 
+def check_llrd_depth(params, depth: int) -> None:
+    """vitx's layer-wise decay factors span the whole depth, so a Soft-MoE
+    model, whose ``blocks`` hold only its dense blocks, fails there (a
+    shape error at the first or second step); here it raises
+    ``ValueError``."""
+    for path, p in zip(leaf_paths(params), leaves(params)):
+        if path[0] == "blocks" and p.shape[0] != depth:
+            raise ValueError(
+                f"llrd's per-block factors span the depth {depth}, but "
+                f"blocks/{path[-1]} stacks {p.shape[0]} blocks (a "
+                f"Soft-MoE model's dense blocks): vitx's layer-wise "
+                f"decay does not take Soft-MoE models")
+
+
 def llrd_factors(params, decay: float, depth: int) -> list:
     """Layer-wise lr decay (``vitx/train/step.py:71-106``, the BEiT/MAE
     fine-tune recipe): one factor per leaf of ``leaves(params)`` -- for a
     stacked block leaf an fp32 (depth, 1, ...) tensor of decay**(depth -
     l) for block l, 1 (None) for the heads and final norm, and
-    decay**(depth + 1) for everything else (the patch embedding, the CLS
-    and distillation tokens, the positional table)."""
+    decay**(depth + 1) for everything else (the patch embedding, the CLS,
+    distillation and register tokens, the positional table, a Soft-MoE
+    model's ``moe_blocks``, as vitx's rule has it). A Soft-MoE tree raises
+    (``check_llrd_depth``)."""
+    check_llrd_depth(params, depth)
     block = torch.tensor([decay ** (depth - i) for i in range(depth)],
                          dtype=torch.float32)
     embed = torch.tensor(decay ** (depth + 1), dtype=torch.float32)
@@ -248,6 +265,8 @@ class AdamW:
         self.accum_steps = accum_steps
 
     def init(self, params) -> AdamWState:
+        if self.llrd is not None:
+            check_llrd_depth(params, self.llrd_depth)
         train = prune(params, trainable_flags(params, self.trainable))
         zeros = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
                          train)
@@ -264,6 +283,18 @@ class AdamW:
         if self.schedule is None:
             return float(np.float32(self.lr))
         return float(np.float32(self.schedule(count)))
+
+    def update_kw(self, count: int) -> dict:
+        """The scalars of the update after ``count`` steps applied, as
+        ``adamw_plain`` and B12 take them: the step size, the bias
+        corrections at step count + 1 (fp32), the betas, eps and wd."""
+        f32 = np.float32
+        n = f32(count + 1)
+        return dict(lr=self.learning_rate(count),
+                    c1=float(f32(1.0) - f32(self.b1) ** n),
+                    c2=float(f32(1.0) - f32(self.b2) ** n),
+                    b1=self.b1, b2=self.b2, eps=self.eps,
+                    wd=self.weight_decay)
 
     @torch.no_grad()
     def update(self, grads, state: AdamWState, params):
@@ -296,13 +327,7 @@ class AdamW:
             gl = [None if g is None else torch.where(
                 keep, g, (g / g_norm.to(g.dtype)) * self.grad_clip)
                 for g in gl]
-        lr = self.learning_rate(state.count)
-        count = state.count + 1
-        f32 = np.float32
-        c1 = float(f32(1.0) - f32(self.b1) ** f32(count))
-        c2 = float(f32(1.0) - f32(self.b2) ** f32(count))
-        kw = dict(lr=lr, c1=c1, c2=c2, b1=self.b1, b2=self.b2, eps=self.eps,
-                  wd=self.weight_decay)
+        kw = self.update_kw(state.count)
         ml, nl = leaves(state.mu), leaves(state.nu)
         if self.fused:
             fused_adamw_multi_(pl, gl, ml, nl, **kw)
@@ -328,7 +353,7 @@ class AdamW:
                 f32(1.0 - self.ema_decay))
             for e, p in zip(leaves(state.ema), pl):
                 e.copy_(e * d + p.float() * rest)
-        return params, state._replace(count=count)
+        return params, state._replace(count=state.count + 1)
 
 
 def make_optimizer(lr: float = 1e-4, weight_decay: float = 1e-4,
