@@ -331,7 +331,36 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               model against the kernel-free route (EXPLAIN_TOL,
               GRADCAM_TOL), launches exact. Its launches, (b) to (e), are
               the kernels line's "families" path.
-15. artifacts -- main path 8, the model shipped (base16 bf16 at full
+15. optim  -- main path 12, vitx's remaining training knobs: (a) base16
+              at depth 2, fp32, batch 4: SGD, Lion, Adafactor, AdamW with
+              a bf16 first moment, SAM (rho 0.05), the multi-label BCE
+              loss on SyntheticMultiLabelDataset batches and class-weighted
+              CE, three steps each on the card and on the CPU from the
+              same state: loss and grad_norm within FP32_TOL, the
+              gradients the optimizer was fed within FP32_TOL, the first
+              step's params within param_gap's allowance (Adafactor's
+              aside) and every step's within 1e-4 lr, 1e-6 of the update
+              and an ulp of the CPU's update of the card's gradients
+              (replay_gap); each remat mode with dropout and
+              drop-path 0.1 from a card generator against "none" (1e-6;
+              bit for bit said), then without dropout one step card vs
+              CPU; (b) base16 bf16 at b128, one step of AdamW (B12),
+              AdamW with a bf16 first moment, SGD, Lion, Adafactor, SAM,
+              BCE and remat block, dots and save_stash: the median of 5
+              after a warm-up by CUDA events, launches exact (K1 12, 24
+              under block and dots; B2 12 and B3 25, twice under SAM; B12
+              1 on fused AdamW, else 0) and the peak memory per remat
+              mode (block and save_stash below none); (c) the CLIs:
+              small16 train --optimizer adafactor --steps-per-dispatch 4
+              with profile_epoch 0, its trace holding K1's and B2's sm90
+              kernels; tiny train --data synthetic-ml --loss bce, eval on
+              it (its mAP the trainer's), eval --soup of it and a nudged
+              copy (the report of their averaged params);
+              tune --mode train --remat none,block,save_stash at base16
+              b64; bench 1 with its dispatch rows k 1, 4, 16. Launches of
+              (b) and (c) exact; they are the kernels line's "optim"
+              path.
+16. artifacts -- main path 8, the model shipped (base16 bf16 at full
               width): (a) an int8 .quant.npz of the params, about 1/4 of
               their fp32 bytes, quantization_error at most 1/254, a
               server on it answering 32 requests with the top-1 of direct
@@ -347,7 +376,7 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               within 1e-4 and the probe CLI on a .quant.npz over
               procedural:128,64, reports and features alike. Its
               launches are the kernels line's "export" path.
-16. bench  -- main path 9, vitx's bench configurations on the card: K1
+17. bench  -- main path 9, vitx's bench configurations on the card: K1
               (with and without its stash), K2, B2 and B3 at huge14's
               shapes (E 1280, 10 heads of D 128: the earlier attention
               kernels, the sm90 GEMM) held to their plain versions in
@@ -355,7 +384,7 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               last the "huge14" path: its launches asserted), then
               vitx_torch.cli.tune --mode infer on base16 at 64, 128 and
               256 with no error row.
-17. times  -- CUDA-event medians: the base16 forward at batch 256 bf16
+18. times  -- CUDA-event medians: the base16 forward at batch 256 bf16
               (img/s), the train step at batch 128 bf16 (img/s), the
               large16_384 rollout forward at batch 32 bf16 (img/s), the
               same with QKV biases and forward_with_attn("full") at
@@ -465,7 +494,7 @@ PROFILE_LEAD_KEPT = 960       # of them a window must keep to be read
 PROFILE_TRIES = 3             # windows profile_call traces at most
 PHASES = ("device", "build", "kernels", "grad", "forward", "serve", "train",
           "explain", "tome", "finetune", "recipe", "transfer", "pretrained",
-          "families", "artifacts", "bench", "times")
+          "families", "optim", "artifacts", "bench", "times")
 
 KERNELS = {
     "fused_mha_block": {
@@ -1992,21 +2021,34 @@ def head_lns(cfg) -> int:
     return 3 if cfg.head_type == "map" else 1
 
 
+def attention_passes(cfg) -> int:
+    """The forward passes of a block's attention half in a train step: two
+    where ``cfg.remat`` recomputes it in the backward ("block", "dots";
+    "save_stash" off K1's route, where it keeps no stash), else one."""
+    if cfg.remat in ("block", "dots"):
+        return 2
+    return 2 if cfg.remat == "save_stash" and cfg.pos_embed == "rope" else 1
+
+
 def expected_train_launches(cfg, steps: int, fused_steps: int,
-                            grad_dtypes: int = 1) -> dict:
+                            grad_dtypes: int = 1, passes: int = 1) -> dict:
     """Launches per the code's routing: one K1 (B5 on RoPE's composed
     path) and one B2 per block, B2 on its sm90 route in bf16 at D 64; B3
     for LN1 (inside K1's backward, or the composed path's add-LayerNorm)
     and LN2 of every block (a Soft-MoE block's too), the head's
     LayerNorms and the final norm; K2 off under grad (fuse_mlp "auto");
     B12's multi-leaf kernel once per gradient dtype in the fused steps,
-    its one-leaf kernel never."""
+    its one-leaf kernel never. ``cfg.remat`` runs K1 again in the
+    backward (``attention_passes``); ``passes`` forward and backward
+    passes a step (SAM's 2) multiply all but B12."""
     b3 = 2 * cfg.depth + head_lns(cfg) + int(cfg.final_norm)
-    return block_launches(cfg, **attention_launches(cfg, cfg.depth * steps),
-                       attention_bwd=cfg.depth * steps,
-                       attention_bwd_sm90=cfg.depth * steps * sm90(cfg),
-                       ln_bwd=b3 * steps,
-                       fused_adamw_multi_=grad_dtypes * fused_steps)
+    n = cfg.depth * steps * passes
+    return block_launches(cfg, **attention_launches(
+                              cfg, n * attention_passes(cfg)),
+                          attention_bwd=n,
+                          attention_bwd_sm90=n * sm90(cfg),
+                          ln_bwd=b3 * steps * passes,
+                          fused_adamw_multi_=grad_dtypes * fused_steps)
 
 
 def leaf_names(tree, prefix: str = "") -> list:
@@ -3788,7 +3830,8 @@ def phase_pretrained(errs: dict) -> tuple:
     launches = add_launches(launches, counts())
     base = base_dir / "0.ckpt"
     timm_json, timm_src = root / "timm.json", root / "timm"
-    timm_json.write_text(timm_cfg.to_json())
+    # measured without remat, as before vitx's default "block" took effect
+    timm_json.write_text(timm_cfg.replace(remat="none").to_json())
     save_params_ckpt(timm_src, timm_params, timm_cfg)
     del timm_params
 
@@ -6259,6 +6302,415 @@ def phase_families() -> dict:
 
 
 
+# --- phase optim: vitx's remaining training knobs --------------------------
+
+OPTIM_LR = 1e-4
+# (a)'s variants: name -> (make_optimizer knobs, train_step knobs); the
+# class weights are drawn in optim_card_vs_cpu
+OPTIM_KNOBS = {"sgd": ({"optimizer": "sgd"}, {}),
+               "lion": ({"optimizer": "lion"}, {}),
+               "adafactor": ({"optimizer": "adafactor"}, {}),
+               "adamw_mu_bf16": ({"mu_dtype": "bfloat16"}, {}),
+               "sam": ({}, {"sam_rho": 0.05}),
+               "bce": ({}, {"loss": "bce"}),
+               "class_weights": ({}, {"class_weights": True})}
+REMAT_MODES = ("none", "block", "dots", "save_stash")
+# (b)'s variants at base16 bf16 b128: name -> (make_optimizer knobs,
+# train_step knobs, remat)
+OPTIM_TIMED = {"adamw": ({"fused": True}, {}, "none"),
+               "adamw_mu_bf16": ({"fused": True, "mu_dtype": "bfloat16"},
+                                 {}, "none"),
+               "sgd": ({"optimizer": "sgd"}, {}, "none"),
+               "lion": ({"optimizer": "lion"}, {}, "none"),
+               "adafactor": ({"optimizer": "adafactor"}, {}, "none"),
+               "sam": ({"fused": True}, {"sam_rho": 0.05}, "none"),
+               "bce": ({"fused": True}, {"loss": "bce"}, "none"),
+               "remat_block": ({"fused": True}, {}, "block"),
+               "remat_dots": ({"fused": True}, {}, "dots"),
+               "remat_save_stash": ({"fused": True}, {}, "save_stash")}
+OPTIM_TIMED_B = 128
+
+
+class RecordingOptimizer:
+    """An optimizer that keeps a copy of the gradients each ``update`` is
+    given: the ones a train step (SAM's second pass included) feeds it."""
+
+    def __init__(self, opt):
+        self.opt, self.grads = opt, None
+
+    def update(self, grads, state, params):
+        self.grads = [None if g is None else g.detach().clone()
+                      for g in grads]
+        return self.opt.update(grads, state, params)
+
+    def __getattr__(self, name):
+        return getattr(self.opt, name)
+
+
+def copy_state(state, device):
+    """A ``TrainState`` with every tensor copied to ``device``."""
+    from vitx_torch.train.step import TrainState, tree_map
+
+    def cp(t):
+        return t.detach().to(device, copy=True)
+    opt = state.opt_state
+    trees = {n: tree_map(cp, getattr(opt, n))
+             for n in (*opt.SLOTS, "ema", "acc")
+             if getattr(opt, n) is not None}
+    return TrainState(state.step, tree_map(cp, state.params),
+                      opt._replace(**trees))
+
+
+def replay_gap(p_card, p_ref, p_start, lr: float) -> float:
+    """max over elements of |card - replay| / (1e-4 lr + 1e-6 of the
+    replayed update + one ulp of the replayed param): the card's update
+    against the CPU's update of the same gradients from the same state.
+    The update's own share covers an Adafactor step, which can be many
+    lr where a row's and a column's second moments are small against the
+    leaf's mean, and whose means the card sums in another order."""
+    worst = 0.0
+    for a, b, p in zip(p_card, p_ref, p_start):
+        size = b.abs()
+        ulp = torch.nextafter(size, torch.full_like(size, np.inf)) - size
+        allow = lr * 1e-4 + 1e-6 * (b - p).abs() + ulp
+        worst = max(worst, float(((a - b).abs() / allow).max()))
+    return worst
+
+
+def optim_batches(n: int, size: int = 224, classes: int = 1000) -> tuple:
+    """(single-label, multi-label) batches of ``n`` synthetic examples:
+    uint8 images as the loaders give them, int32 labels, (n, classes)
+    multi-hot ones for the second."""
+    from vitx_torch.data import SyntheticDataset, SyntheticMultiLabelDataset
+
+    kw = dict(num_examples=n, image_size=size, num_classes=classes, seed=0)
+    ml = SyntheticMultiLabelDataset(**kw)
+    ex = [ml.get_example(i) for i in range(n)]
+    return (synthetic_batch(SyntheticDataset(**kw), n),
+            {"image": np.stack([e[0] for e in ex]),
+             "label": np.stack([e[1] for e in ex]).astype(np.int32)})
+
+
+def optim_card_vs_cpu(ce, ml) -> None:
+    """(a): base16 at depth 2, fp32, batch 4: each OPTIM_KNOBS variant
+    three steps on the card and on the CPU, each step from the same state
+    (the CPU's, copied): loss and grad_norm within FP32_TOL, the gradients
+    the optimizer was fed within FP32_TOL of each leaf's largest, the
+    first step's params within ``param_gap``'s allowance, and every
+    step's params within 1e-4 lr, 1e-6 of the update and an ulp of the
+    CPU's update of the card's gradients from the same state
+    (``replay_gap``). Lion's first
+    step is the sign of g, Adam's g / (|g| + eps) with eps -> 0: its
+    ``param_gap`` takes eps 1e-30, so that an element whose gradient is
+    within the leaf's gap of 0 may take the other sign. Adafactor's first
+    step on a factored leaf is g over a rank-1 rms, whose sensitivity to
+    g is not bounded by Adam's form: it is held by the replay and the
+    gradients alone."""
+    import vitx_torch
+    from vitx_torch.nn.vit import init_params
+    from vitx_torch.train import make_optimizer, train_step
+    from vitx_torch.train.step import TrainState, leaves, tree_map
+
+    cfg = vitx_torch.get_config("base16", depth=2, compute_dtype="float32")
+    host0 = nudged(init_params(1, cfg, device="cpu"), 2)
+    names = leaf_names(host0)
+    weights = tuple(float(w) for w in np.random.default_rng(5).uniform(
+        0.5, 2.0, cfg.num_classes))
+    for name, (opt_kw, step_kw) in OPTIM_KNOBS.items():
+        t0 = time.perf_counter()
+        step_kw = dict(step_kw)
+        if step_kw.get("class_weights"):
+            step_kw["class_weights"] = weights
+        batch = ml if step_kw.get("loss") == "bce" else ce
+        opt = make_optimizer(lr=OPTIM_LR, **opt_kw)
+        p = tree_map(torch.clone, host0)
+        host = TrainState(0, p, opt.init(p))
+        rows = []
+        for i in range(3):
+            start = copy_state(host, "cpu")
+            card = copy_state(host, "cuda")
+            rc, rh = RecordingOptimizer(opt), RecordingOptimizer(opt)
+            card, mc = train_step(card, batch, cfg=cfg, optimizer=rc,
+                                  device="cuda", **step_kw)
+            host, mh = train_step(host, batch, cfg=cfg, optimizer=rh,
+                                  device="cpu", **step_kw)
+            gc = [g.cpu() for g in rc.grads]
+            pc = [t.cpu() for t in leaves(card.params)]
+            p0 = [t.clone() for t in leaves(start.params)]
+            ref, _ = opt.update(gc, start.opt_state, start.params)
+            row = {k: abs(float(mc[k]) - float(mh[k])) / abs(float(mh[k]))
+                   for k in ("loss", "grad_norm")}
+            row["accuracy_gap"] = abs(float(mc["accuracy"])
+                                      - float(mh["accuracy"]))
+            row["grads"] = max(rel_err(a, b) for a, b in zip(gc, rh.grads))
+            row["replay"] = replay_gap(pc, leaves(ref), p0, OPTIM_LR)
+            if i == 0 and name != "adafactor":
+                row["param_gap"] = param_gap(
+                    gc, rh.grads, pc, leaves(host.params), OPTIM_LR,
+                    1e-30 if name == "lion" else 1e-8, names)["worst"]
+            rows.append(row)
+        emit({"phase": "optim", "part": f"a: {name}, base16 depth 2 fp32 "
+              "b4, 3 steps card vs CPU", "steps": rows,
+              "tol": FP32_TOL, "s": time.perf_counter() - t0})
+        for row in rows:
+            if not (max(row["loss"], row["grad_norm"], row["grads"])
+                    <= FP32_TOL and row["replay"] <= 1.0
+                    and row.get("param_gap", 0.0) <= 1.0
+                    and row["accuracy_gap"] <= 0.25 + 1e-6):
+                raise AssertionError(f"optim (a) {name}: {rows}")
+
+
+def optim_remat_on_card(ce) -> None:
+    """(a) for remat: base16 at depth 2, fp32, batch 4, dropout and
+    drop-path 0.1 from a card generator: each mode's loss and gradients
+    within 1e-6 of "none"'s (the line says whether bit for bit) and the
+    stream where "none" leaves it; then, without dropout (the card's and
+    the CPU's generators draw other masks), one step of each mode card vs
+    CPU (``check_step_card_vs_cpu``)."""
+    import vitx_torch
+    from vitx_torch.nn.vit import init_params, params_to
+    from vitx_torch.train.step import leaves, loss_fn, tree_map
+
+    cfg = vitx_torch.get_config("base16", depth=2, compute_dtype="float32",
+                                dropout=0.1, drop_path=0.1)
+    host = nudged(init_params(1, cfg, device="cpu"), 2)
+    card = params_to(host, "cuda")
+    b = {k: torch.from_numpy(v).cuda() for k, v in ce.items()}
+    out = {}
+    for mode in REMAT_MODES:
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        req = tree_map(lambda t: t.detach().requires_grad_(), card)
+        loss = loss_fn(req, b, cfg.replace(remat=mode), gen)[0]
+        out[mode] = (loss.detach(), torch.autograd.grad(loss, leaves(req)),
+                     gen.get_state())
+    l0, g0, s0 = out["none"]
+    for mode in REMAT_MODES[1:]:
+        l1, g1, s1 = out[mode]
+        err = max(abs(float(l1) - float(l0)) / abs(float(l0)),
+                  max(rel_err(a, c) for a, c in zip(g1, g0)))
+        bit = bool(torch.equal(l1, l0) and all(
+            torch.equal(a, c) for a, c in zip(g1, g0)))
+        emit({"phase": "optim", "part": f"a: remat {mode} vs none, base16 "
+              "depth 2 fp32 b4, dropout and drop-path 0.1", "rel_err": err,
+              "bit_equal": bit, "same_stream": bool(torch.equal(s1, s0))})
+        if err > 1e-6 or not torch.equal(s1, s0):
+            raise AssertionError(f"optim (a): remat {mode} {err}")
+    det = cfg.replace(dropout=0.0, drop_path=0.0)
+    for mode in REMAT_MODES:
+        c = tree_map(torch.clone, card)
+        h = tree_map(torch.clone, host)
+        check_step_card_vs_cpu("optim", f"a: remat {mode} depth 2 fp32 step, "
+                               "card vs CPU", det.replace(remat=mode), c, h,
+                               ce, OPTIM_LR)
+
+
+def optim_step_times(ce, ml) -> tuple:
+    """(b): base16 bf16 at b128, each OPTIM_TIMED variant: 6 steps (the
+    median of the last 5 by CUDA events), launches exact, the peak memory
+    from a fresh state. Returns (launches, {variant: row})."""
+    import vitx_torch
+    from vitx_torch.nn.vit import init_params
+    from vitx_torch.train import TrainState, make_optimizer, make_train_step
+    from vitx_torch.train.step import tree_map
+
+    base = vitx_torch.get_config("base16")
+    params0 = init_params(0, base)
+    batches = {k: {n: torch.from_numpy(v).cuda() for n, v in b.items()}
+               for k, b in (("ce", ce), ("ml", ml))}
+    card, launches, rows = smi(), {}, {}
+    for name, (opt_kw, step_kw, remat) in OPTIM_TIMED.items():
+        cfg = base.replace(remat=remat)
+        opt = make_optimizer(lr=OPTIM_LR, **opt_kw)
+        p = tree_map(torch.clone, params0)
+        state = TrainState(0, p, opt.init(p))
+        step = make_train_step(cfg, opt, **step_kw)
+        batch = batches["ml" if step_kw.get("loss") == "bce" else "ce"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        ms, losses = [], []
+        for i in range(6):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, m = step(state, batch)
+            end.record()
+            end.synchronize()
+            losses.append(float(m["loss"]))
+            if i:
+                ms.append(start.elapsed_time(end))
+        got = counts()
+        fused = 6 if opt.fused else 0
+        expect_launches(f"optim (b): {name}", got, expected_train_launches(
+            cfg, 6, fused, passes=2 if "sam_rho" in step_kw else 1))
+        if not np.all(np.isfinite(losses)):
+            raise AssertionError(f"optim (b) {name}: losses {losses}")
+        launches = add_launches(launches, got)
+        med = statistics.median(ms)
+        rows[name] = {"step_ms": med, "step_ms_runs": ms,
+                      "images_per_sec": OPTIM_TIMED_B / (med / 1e3),
+                      "peak_memory_gb": torch.cuda.max_memory_allocated()
+                      / 1e9, "remat": remat,
+                      "launches_per_step": {k: v // 6 for k, v in
+                                            got.items() if v}}
+        del state, step
+        torch.cuda.empty_cache()
+    peaks = {m: rows["adamw" if m == "none" else f"remat_{m}"][
+        "peak_memory_gb"] for m in REMAT_MODES}
+    emit({"phase": "optim", "part": "b: base16 bf16 b128, one step a "
+          "variant", "card": card, "rows": rows,
+          "peak_memory_gb_by_remat": peaks})
+    for m in ("block", "save_stash"):
+        if not peaks[m] < peaks["none"]:
+            raise AssertionError(f"optim (b): remat {m} peaks at "
+                                 f"{peaks[m]} GB, none at {peaks['none']}")
+    return launches, rows
+
+
+def profile_kernel_names(trace: Path) -> set:
+    """The GPU kernels' names in a Chrome trace of ``torch.profiler``."""
+    events = json.loads(trace.read_text())["traceEvents"]
+    return {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+
+
+def optim_cli() -> dict:
+    """(c): the CLIs. small16 on FAMILY_DATA: train --optimizer adafactor
+    --steps-per-dispatch 4 with TrainerConfig.profile_epoch 0, launches
+    exact, its trace holding K1's (gemm_sm90_kernel, attention_fwd_sm90)
+    and B2's (dq_kernel_sm90, dkdv_kernel_sm90) kernels; tiny: train
+    --data synthetic-ml --loss bce, launches exact, eval on it equal to
+    the trainer's val mAP, eval --soup of it and a nudged copy of its
+    params equal to the report of their averaged params; tune --mode
+    train --remat
+    none,block,save_stash at base16 b64; bench 1's dispatch rows. Returns
+    the launches."""
+    import dataclasses
+    import os
+    import shutil
+
+    import vitx_torch.cli.eval as eval_cli
+    from vitx_torch.cli import bench, tune
+    from vitx_torch.data import SyntheticMultiLabelDataset, make_preprocess
+    from vitx_torch.nn.vit import params_to
+    from vitx_torch.train.checkpoint import restore_eval_params
+
+    os.environ.setdefault("VITX_PROC_CACHE", str(BUILD / "procdata"))
+    root = BUILD / "optim"
+    shutil.rmtree(root, ignore_errors=True)
+    launches = {}
+
+    logs = root / "profile"
+    tr, train_loader, eval_loader, _ = build_quietly(
+        ["--preset", "small16", "--data", FAMILY_DATA, "--device-cache",
+         "--batch-size", "128", "--epochs", "1", "--lr", "1e-4",
+         "--optimizer", "adafactor", "--steps-per-dispatch", "4",
+         "--seed", "0", "--log-dir", str(logs)])
+    tr.tcfg = dataclasses.replace(tr.tcfg, profile_epoch=0)
+    reset_counts()
+    t0 = time.perf_counter()
+    hist = tr.fit(train_loader, eval_loader)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = counts()
+    expect_launches("optim (c): adafactor k 4 run", got, add_launches(
+        expected_train_launches(tr.cfg, len(train_loader), 0),
+        forward_launches(tr.cfg, len(eval_loader))))
+    launches = add_launches(launches, got)
+    names = profile_kernel_names(logs / "profile_epoch0.json")
+    want = ("gemm_sm90_kernel", "attention_fwd_sm90", "dq_kernel_sm90",
+            "dkdv_kernel_sm90")
+    found = {w: sorted(n for n in names if w in n)[:2] for w in want}
+    emit({"phase": "optim", "part": "c: train small16 --optimizer adafactor "
+          "--steps-per-dispatch 4, profile_epoch 0", "wall_s": wall,
+          "loss": hist[-1]["loss"], "val_accuracy": hist[-1]["val_accuracy"],
+          "kernels_in_trace": len(names), "found": found})
+    if not all(found.values()) or not np.isfinite(hist[-1]["loss"]):
+        raise AssertionError(f"optim (c): trace kernels {found}")
+
+    ck = root / "ml"
+    tr, train_loader, eval_loader, _ = build_quietly(
+        ["--preset", "tiny", "--data", "synthetic-ml", "--loss", "bce",
+         "--epochs", "1", "--batch-size", "64", "--lr", "1e-3", "--seed",
+         "0", "--checkpoint-dir", str(ck)])
+    reset_counts()
+    hist = tr.fit(train_loader, eval_loader)
+    got = counts()
+    expect_launches("optim (c): bce run", got, add_launches(
+        expected_train_launches(tr.cfg, len(train_loader), 0),
+        forward_launches(tr.cfg, len(eval_loader))))
+    launches = add_launches(launches, got)
+    logged = hist[-1]["val_mAP"]
+    # the soup's second ingredient: the run's params moved by N(0, 0.02)
+    other = root / "ml_nudged"
+    save_params_ckpt(other, params_to(nudged(params_to(
+        tr.state.params, "cpu"), 7), "cuda"), tr.cfg)
+    ckpts = [ck, other]
+    data = ["--data", "synthetic-ml", "--batch-size", "128"]
+    report = run_cli(eval_cli.main, ["--checkpoint", str(ckpts[0]), *data])
+    souped = run_cli(eval_cli.main, ["--checkpoint", str(ckpts[0]),
+                                     "--soup", str(ckpts[1]), *data])
+    cfg = tr.cfg
+    a, _ = restore_eval_params(ckpts[0], cfg)
+    b, _ = restore_eval_params(ckpts[1], cfg)
+
+    def average(x, y):
+        if isinstance(x, dict):
+            return {k: average(x[k], y[k]) for k in x}
+        return ((x.float() + y.float()) / 2).to(x.dtype)
+    mean = average(a, b)
+    by_hand = eval_cli.multilabel_report(
+        mean, cfg, SyntheticMultiLabelDataset(
+            num_examples=512, seed=1, image_size=cfg.image_size,
+            num_classes=cfg.num_classes),
+        make_preprocess(out_size=cfg.image_size, mean=(0.5,) * 3,
+                        std=(0.5,) * 3, random_flip=False), 128,
+        torch.device("cuda"))
+    emit({"phase": "optim", "part": "c: eval of a bce .ckpt and eval --soup "
+          "of it and a nudged copy", "report": {k: report[k] for k in ("mAP", "f1_micro",
+                                                       "f1_macro", "loss")},
+          "trainer_val_mAP": logged, "soup": {k: souped[k] for k in (
+              "mAP", "f1_micro", "f1_macro", "loss")}})
+    keys = ("mAP", "f1_micro", "f1_macro", "accuracy", "loss")
+    if abs(report["mAP"] - logged) > 1e-6 or any(
+            abs(souped[k] - by_hand[k]) > 1e-6 for k in keys):
+        raise AssertionError(f"optim (c): eval {report['mAP']} vs {logged};"
+                             f" soup {souped} vs {by_hand}")
+    del a, b, mean
+
+    out = root / "tune.json"
+    run_cli(tune.main, ["--mode", "train", "--preset", "base16",
+                        "--batches", "64", "--remat", "none,block,save_stash",
+                        "--iters", "3", "--reps", "2", "--out", str(out)])
+    rows = json.loads(out.read_text())["results"]
+    if [r.get("remat") for r in rows if "error" not in r] != [
+            "none", "block", "save_stash"]:
+        raise AssertionError(f"optim (c): tune rows {rows}")
+    res = bench.BENCHES[1]()
+    emit({"phase": "optim", "part": "c: bench 1 with its dispatch rows",
+          "card": smi(), **res})
+    if not all(f"train_step_ms_k{k}" in res for k in (1, 4, 16)):
+        raise AssertionError(f"optim (c): bench 1 {res}")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_optim() -> dict:
+    """Main path 12 (module docstring): vitx's remaining training knobs.
+    Returns the launches of parts (b) and (c)."""
+    t0 = time.perf_counter()
+    ce, ml = optim_batches(4)
+    optim_card_vs_cpu(ce, ml)
+    optim_remat_on_card(ce)
+    t_a = time.perf_counter()
+    ce, ml = optim_batches(OPTIM_TIMED_B)
+    timed, _ = optim_step_times(ce, ml)
+    t_b = time.perf_counter()
+    cli = optim_cli()
+    emit({"phase": "optim", "part": "seconds", "a": t_a - t0,
+          "b": t_b - t_a, "c": time.perf_counter() - t_b})
+    return add_launches(timed, cli)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--phases", default=",".join(PHASES),
@@ -6346,6 +6798,10 @@ def main(argv=None) -> int:
     if "families" in phases:
         families_launches = phase_families()
     lap("families")
+    optim_launches = {}
+    if "optim" in phases:
+        optim_launches = phase_optim()
+    lap("optim")
     export_launches, huge14_launches, huge14_inputs = {}, {}, None
     if "artifacts" in phases:
         export_launches = phase_artifacts(cfg, params)
@@ -6357,7 +6813,7 @@ def main(argv=None) -> int:
                             tome_launches, finetune_launches,
                             *recipe_launches.values(), transfer_launches,
                             pretrained_launches, families_launches,
-                            export_launches, huge14_launches)
+                            optim_launches, export_launches, huge14_launches)
     if "times" in phases:
         rows = phase_times(cfg, params, errs, launches)
         if tome_launches:
@@ -6411,6 +6867,7 @@ def main(argv=None) -> int:
                 "transfer": transfer_launches.get(row["name"], 0),
                 "pretrained": pretrained_launches.get(row["name"], 0),
                 "families": families_launches.get(row["name"], 0),
+                "optim": optim_launches.get(row["name"], 0),
                 "export": export_launches.get(row["name"], 0),
                 "huge14": huge14_launches.get(row["name"], 0)}
             if row["name"] in stash:

@@ -1509,3 +1509,130 @@ def test_rope_step_runs_b5_and_b2(cuda):
            for f, (a, b) in zip(fns, before)]
     assert got == [(2, 2), (2, 2), (0, 0)]
     assert np.isfinite(float(m["loss"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat,k1_per_block", [
+    ("none", 1), ("block", 2), ("dots", 2), ("save_stash", 1)])
+def test_remat_on_card(cuda, remat, k1_per_block):
+    """Each remat policy on the card (tiny, fp32, dropout and drop-path
+    0.1 from a card generator): K1 runs once a block, twice where the
+    policy recomputes it; loss and gradients within 1e-6 of "none"'s;
+    the generator's stream where "none" leaves it."""
+    cfg = vitx_torch.get_config("tiny", compute_dtype="float32", dropout=0.1,
+                                drop_path=0.1)
+    params = vitx_torch.init_params(0, cfg, device=cuda)
+    b = {"image": torch.randn((4, 64, 64, 3), device=cuda),
+         "label": torch.arange(4, device=cuda)}
+    out = []
+    for mode in ("none", remat):
+        req = tstep.tree_map(lambda t: t.detach().requires_grad_(), params)
+        gen = torch.Generator(device=cuda).manual_seed(3)
+        n = fused_mha_block.launches
+        loss = tstep.loss_fn(req, b, cfg.replace(remat=mode), gen)[0]
+        grads = torch.autograd.grad(loss, tstep.leaves(req))
+        torch.cuda.synchronize()
+        out.append((loss, grads, gen.get_state(),
+                    fused_mha_block.launches - n))
+    (l0, g0, s0, _), (l1, g1, s1, k1) = out
+    assert k1 == k1_per_block * cfg.depth
+    assert rel_err(l1, l0) <= 1e-6
+    assert all(rel_err(a, c) <= 1e-6 for a, c in zip(g1, g0))
+    assert torch.equal(s1, s0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("optimizer,mu_dtype", [
+    ("sgd", None), ("lion", None), ("adafactor", None),
+    ("adamw", "bfloat16")])
+def test_optimizer_on_card_replays_on_cpu(cuda, optimizer, mu_dtype):
+    """Three tiny fp32 steps of each optimizer on the card, each from the
+    CPU's state: every step's params equal the CPU's update of the card's
+    gradients from that state within 1e-4 lr and an ulp, and B12 never
+    runs (vitx's rule: only plain AdamW takes it)."""
+    cfg = vitx_torch.get_config("tiny", compute_dtype="float32")
+    opt = tstep.make_optimizer(lr=1e-3, optimizer=optimizer,
+                               mu_dtype=mu_dtype, fused=True)
+    host = vitx_torch.init_params(0, cfg, device="cpu")
+    state = tstep.TrainState(0, host, opt.init(host))
+    rng = np.random.default_rng(1)
+    n12 = fused_adamw_multi_.launches
+    for _ in range(3):
+        batch = {"image": rng.standard_normal((4, 64, 64, 3)).astype(
+            np.float32), "label": rng.integers(0, 4, 4).astype(np.int32)}
+        card = tstep.TrainState(state.step, params_to(
+            tstep.tree_map(torch.clone, state.params), cuda),
+            state.opt_state._replace(**{
+                n: tstep.tree_map(lambda t: t.to(cuda, copy=True),
+                                  getattr(state.opt_state, n))
+                for n in state.opt_state.SLOTS}))
+        seen = {}
+
+        class Recording:
+            def update(self, grads, st, params):
+                seen["g"] = [g.cpu() for g in grads]
+                return opt.update(grads, st, params)
+
+            def __getattr__(self, name):
+                return getattr(opt, name)
+        card, _ = tstep.train_step(card, batch, cfg=cfg,
+                                   optimizer=Recording(), device=cuda)
+        params, opt_state = opt.update(seen["g"], state.opt_state,
+                                       state.params)
+        state = tstep.TrainState(card.step, params, opt_state)
+        for a, p in zip(tstep.leaves(card.params),
+                        tstep.leaves(state.params)):
+            ulp = torch.nextafter(p.abs(), torch.full_like(p, np.inf)) \
+                - p.abs()
+            assert bool(((a.cpu() - p).abs() <= 1e-7 + ulp).all())
+    assert fused_adamw_multi_.launches == n12
+
+
+@pytest.mark.cuda
+def test_sam_on_card_doubles_the_passes(cuda):
+    """A SAM step on the card (tiny bf16, fused AdamW): two forward and
+    backward passes -- K1 and B2 twice a block, B3 twice its LayerNorms --
+    and one B12 launch; loss and grad_norm the clean pass's."""
+    cfg = vitx_torch.get_config("tiny")
+    opt = tstep.make_optimizer(lr=1e-3, fused=True)
+    state = tstep.create_train_state(0, cfg, opt, device=cuda)
+    b = {"image": torch.randn((4, 64, 64, 3), device=cuda).to(cfg.cdtype()),
+         "label": torch.arange(4, device=cuda)}
+    req = tstep.tree_map(lambda t: t.detach().requires_grad_(),
+                         state.params)
+    plain = tstep.loss_fn(req, b, cfg)[0]
+    fns = (fused_mha_block, attention_bwd, ln_bwd, fused_adamw_multi_)
+    before = [f.launches for f in fns]
+    _, m = tstep.train_step(state, b, cfg=cfg, optimizer=opt, device=cuda,
+                            sam_rho=0.05)
+    torch.cuda.synchronize()
+    got = [f.launches - n for f, n in zip(fns, before)]
+    assert got == [2 * cfg.depth, 2 * cfg.depth, 2 * (2 * cfg.depth + 1), 1]
+    assert float(m["loss"]) == float(plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", ["block", "dots", "save_stash"])
+def test_remat_on_the_composed_path(cuda, remat):
+    """A QKV-bias model takes the composed path (B5 forward, B2 backward)
+    and every policy recomputes it whole (vitx's names save nothing
+    there): B5 twice a block, loss and gradients within 1e-6 of "none"'s
+    -- B5's backward unpacks its saved tensors once, as checkpointing
+    requires."""
+    cfg = vitx_torch.get_config("tiny", compute_dtype="float32",
+                                qkv_bias=True, attn_impl="flash")
+    params = vitx_torch.init_params(0, cfg, device=cuda)
+    b = {"image": torch.randn((4, 64, 64, 3), device=cuda),
+         "label": torch.arange(4, device=cuda)}
+    out = []
+    for mode in ("none", remat):
+        req = tstep.tree_map(lambda t: t.detach().requires_grad_(), params)
+        n = flash_attention.launches
+        loss = tstep.loss_fn(req, b, cfg.replace(remat=mode))[0]
+        grads = torch.autograd.grad(loss, tstep.leaves(req))
+        torch.cuda.synchronize()
+        out.append((loss, grads, flash_attention.launches - n))
+    (l0, g0, n0), (l1, g1, n1) = out
+    assert (n0, n1) == (cfg.depth, 2 * cfg.depth)
+    assert rel_err(l1, l0) <= 1e-6
+    assert all(rel_err(a, c) <= 1e-6 for a, c in zip(g1, g0))

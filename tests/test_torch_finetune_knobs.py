@@ -439,34 +439,54 @@ def test_block_backward_needs_input_grad(kernel):
             assert torch.equal(g, want[i]), (kernel, sub, i)
 
 
-# --- what stays unported --------------------------------------------------
+# --- the A12 knobs with the fine-tuning ones -------------------------------
 
 @pytest.mark.parametrize("call,item", [
     ("optimizer=adafactor", "A12"), ("mu_dtype", "A12"), ("sam", "A12"),
     ("loss=bce", "A12"), ("trainer_sam", "A12"),
     ("cli_sam", "A12"), ("cli_layerscale", "A12"), ("cli_tp", "A13")])
 def test_still_unported_refuse(call, item):
+    """Once refused (A12), now composed with the fine-tuning knobs: a
+    head-only Adafactor keeps factored state for the trainable leaves
+    only and leaves the frozen ones bit-unchanged; a bf16 first moment
+    under LLRD; SAM and the multi-label loss under a freeze policy, the
+    frozen leaves unchanged; SAM through the Trainer and the train CLI.
+    ``--tp`` (A13) is still refused; ``--layerscale`` is ported."""
     from vitx_torch.cli import train as ttrain
     from vitx_torch.train import loop as tloop
 
     _, tcfg = configs()
-    if call == "optimizer=adafactor":
-        with pytest.raises(NotImplementedError, match=item):
-            tstep.make_optimizer(optimizer="adafactor")
-    elif call == "mu_dtype":
-        with pytest.raises(NotImplementedError, match=item):
-            tstep.make_optimizer(mu_dtype="bfloat16")
-    elif call in ("sam", "loss=bce"):
-        opt = tstep.make_optimizer()
+    if call in ("optimizer=adafactor", "mu_dtype", "sam", "loss=bce"):
+        kw = {"optimizer=adafactor": {"optimizer": "adafactor",
+                                      "trainable": "head"},
+              "mu_dtype": {"mu_dtype": "bfloat16", "llrd": 0.75,
+                           "llrd_depth": tcfg.depth}}.get(
+                  call, {"trainable": "head"})
+        opt = tstep.make_optimizer(**kw)
         state = tstep.create_train_state(0, tcfg, opt, device="cpu")
-        kw = {"sam": {"sam_rho": 0.05}, "loss=bce": {"loss": "bce"}}[call]
-        with pytest.raises(NotImplementedError, match=item):
-            tstep.train_step(state, batch(2), cfg=tcfg, optimizer=opt,
-                             device="cpu", **kw)
-    elif call == "trainer_sam":
-        with pytest.raises(NotImplementedError, match=item):
-            tloop.Trainer(tcfg, tloop.TrainerConfig(sam_rho=0.05),
-                          device="cpu")
+        before = tstep.tree_map(torch.clone, state.params)
+        b = batch(2)
+        step_kw = {"sam": {"sam_rho": 0.05, "train_filter": "head"},
+                   "loss=bce": {"loss": "bce", "train_filter": "head"}}.get(
+                       call, {"train_filter": kw.get("trainable")})
+        if call == "loss=bce":
+            b["label"] = np.eye(4, dtype=np.int32)[b["label"]]
+        state, m = tstep.train_step(state, b, cfg=tcfg, optimizer=opt,
+                                    device="cpu", **step_kw)
+        assert np.isfinite(float(m["loss"]))
+        flags = tstep.trainable_flags(before, step_kw["train_filter"])
+        for f, x, y in zip(flags, tstep.leaves(before),
+                           tstep.leaves(state.params)):
+            assert torch.equal(x, y) != f
+        if call == "optimizer=adafactor":
+            trained = {q for q, f in zip(tstep.leaf_paths(before), flags)
+                       if f}
+            assert set(tstep.leaf_paths(state.opt_state.v)) == trained
+        return
+    if call == "trainer_sam":
+        tr = tloop.Trainer(tcfg, tloop.TrainerConfig(sam_rho=0.05),
+                           device="cpu")
+        assert tr.tcfg.sam_rho == 0.05
     elif call == "cli_layerscale":
         # ported since: the flag reaches the config and its gains the tree
         p = ttrain.build_argparser()
@@ -475,11 +495,14 @@ def test_still_unported_refuse(call, item):
         assert tr.cfg.layerscale_init == 0.1
         assert float(tr.state.params["blocks"]["ls1"][0, 0]) == \
             pytest.approx(0.1)
+    elif call == "cli_sam":
+        p = ttrain.build_argparser()
+        tr, _, _ = ttrain.build_trainer(p.parse_args(
+            ["--sam-rho", "0.05", "--device", "cpu"]), p)
+        assert tr.tcfg.sam_rho == 0.05
     else:
-        flag = {"cli_sam": ["--sam-rho", "0.05"],
-                "cli_tp": ["--tp", "2"]}[call]
         with pytest.raises(SystemExit, match=item):
-            ttrain.main(flag + ["--device", "cpu"])
+            ttrain.main(["--tp", "2", "--device", "cpu"])
 
 
 def test_cli_fine_tune_conflicts(tmp_path):

@@ -3,10 +3,10 @@
 the CPU against vitx's: tune at tiny with ``--device cpu`` (batches 2 and
 4, one iteration) printing vitx's keys and ``{"best": ...}`` line, a bad
 candidate or an unported config as a row, an error while timing
-propagated, ``--remat``/``--unroll`` refused naming A12;
+propagated, ``--remat`` sweeping the policies and ``--unroll`` refused;
 ``BENCHES``' numbers and ``config`` strings equal vitx's, bench 10
-(Soft-MoE) refused naming A12, bench 1 run on the CPU at reduced
-iterations; ``param_summary`` and ``dump_params`` giving vitx's text."""
+(Soft-MoE) and bench 1 (with its dispatch rows) run on the CPU at reduced
+sizes; ``param_summary`` and ``dump_params`` giving vitx's text."""
 
 import io
 import json
@@ -93,9 +93,25 @@ def test_tune_timing_error_propagates(monkeypatch):
 
 
 @pytest.mark.parametrize("flag", ["--remat", "--unroll"])
-def test_tune_refuses_remat_and_unroll(flag):
-    with pytest.raises(SystemExit, match="A12"):
-        ttune.main(["--preset", "tiny", "--device", "cpu", flag, "none"])
+def test_tune_refuses_remat_and_unroll(flag, capsys):
+    """``--unroll`` exits: the port has no scan to unroll. ``--remat``,
+    refused until the policies were ported, sweeps them: a row per
+    (batch, policy) with vitx's keys, the unknown policy an error row."""
+    argv = ["--preset", "tiny", "--device", "cpu", "--mode", "train",
+            "--batches", "2", "--iters", "1", "--reps", "1"]
+    if flag == "--unroll":
+        with pytest.raises(SystemExit, match="no scan to unroll"):
+            ttune.main(argv + [flag, "1"])
+        return
+    assert ttune.main(argv + [flag, "none,block,save_stash,bogus"]) == 0
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    rows, best = lines[:-1], lines[-1]
+    assert [r["remat"] for r in rows] == ["none", "block", "save_stash",
+                                          "bogus"]
+    assert all(set(r) == {"batch", "remat", "scan_unroll", "step_ms",
+                          "images_per_sec"} for r in rows[:3])
+    assert "unknown remat" in rows[3]["error"]
+    assert best["candidates"] == 4 and best["failed"] == 1
 
 
 def _configs(src: str) -> dict:
@@ -132,14 +148,19 @@ def test_benches_are_vitx_benches(monkeypatch):
 
 
 def test_bench_1_on_cpu():
-    """bench 1 at one iteration a timing: vitx's keys (its dispatch-folding
-    k rows aside), each with its median, on the named device."""
+    """bench 1 at one iteration (one dispatch) a timing: vitx's keys, its
+    dispatch rows k 1, 4 and 16 included, each with its median, on the
+    named device."""
     out = tbench.bench_1(device="cpu", iters=1, reps=2)
     assert out["config"] == "1:vit-tiny-64" and out["device"] == "cpu"
-    for k in ("forward_ms", "train_step_ms"):
+    for k in ("forward_ms", "train_step_ms", "train_step_ms_k1",
+              "train_step_ms_k4", "train_step_ms_k16"):
         assert 0 < out[k] <= out[f"{k}_median"]
     assert out["train_images_per_sec"] == pytest.approx(
         8 / out["train_step_ms"] * 1e3)
+    for k in (1, 4, 16):
+        assert out[f"train_images_per_sec_k{k}"] == pytest.approx(
+            8 / out[f"train_step_ms_k{k}"] * 1e3)
 
 
 def test_timed_counts_calls():

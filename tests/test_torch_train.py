@@ -288,9 +288,12 @@ def test_confusion_matrix_matches_vitx():
     ("sam", "A12"), ("train_filter", "ValueError"), ("grad_shardings", "A13"),
 ])
 def test_unported_knobs_raise(call, item):
-    """The knobs still unported raise naming their item. Accumulation,
-    LLRD, the freeze policies and mixup / cutmix are ported (their parity
-    is ``tests/test_torch_finetune_knobs.py``'s): here their invalid forms
+    """The knobs that waited for ROADMAP A12 are ported (their parity is
+    ``tests/test_torch_optim.py``'s and ``tests/test_torch_sam_bce.py``'s):
+    here the optimizers and ``mu_dtype`` build their states, and one step
+    with ``loss="bce"`` or ``sam_rho`` runs, its loss the clean pass's.
+    Sharded gradients still raise naming A13. Accumulation, LLRD, the
+    freeze policies and mixup / cutmix are ported too: their invalid forms
     raise ``ValueError``, and a mixing step without a generator or a map
     is the plain step, as vitx's ``loss_fn`` without an rng is."""
     cfg = vitx_torch.get_config("tiny", compute_dtype="float32")
@@ -300,11 +303,21 @@ def test_unported_knobs_raise(call, item):
               "llrd": {"llrd": 0.75},
               "trainable": {"trainable": "backbone"},
               "mu_dtype": {"mu_dtype": "bfloat16"}}
-    exc = ValueError if item == "ValueError" else NotImplementedError
-    match = None if item == "ValueError" else item
     if call in opt_kw:
-        with pytest.raises(exc, match=match):
-            tstep.make_optimizer(**opt_kw[call])
+        if item == "ValueError":
+            with pytest.raises(ValueError):
+                tstep.make_optimizer(**opt_kw[call])
+            return
+        opt = tstep.make_optimizer(**opt_kw[call])
+        state = tstep.create_train_state(0, cfg, opt, device="cpu")
+        slot = state.opt_state._asdict()[state.opt_state.SLOTS[0]]
+        want = torch.bfloat16 if call == "mu_dtype" else torch.float32
+        assert slot["pos_embed"].dtype == want, call
+        before = state.params["pos_embed"].clone()
+        state, m = tstep.train_step(state, batches(1, 2, seed=0)[0],
+                                    cfg=cfg, optimizer=opt, device="cpu")
+        assert np.isfinite(float(m["loss"]))
+        assert not torch.equal(state.params["pos_embed"], before), call
         return
     step_kw = {"loss=bce": {"loss": "bce"}, "mixup": {"mixup_alpha": 0.2},
                "cutmix": {"cutmix_alpha": 1.0}, "sam": {"sam_rho": 0.05},
@@ -313,14 +326,19 @@ def test_unported_knobs_raise(call, item):
     opt = tstep.make_optimizer()
     state = tstep.create_train_state(0, cfg, opt, device="cpu")
     b = batches(1, 2, seed=0)[0]
-    if item == "ported":
+    if call == "loss=bce":
+        b = dict(b, label=np.eye(cfg.num_classes, dtype=np.int32)[
+            b["label"]])
+    if item in ("ported", "A12"):
         plain = tstep.loss_fn(state.params, {k: torch.from_numpy(v) for k, v
-                                             in b.items()}, cfg)[0]
+                                             in b.items()}, cfg,
+                              loss=step_kw[call].get("loss", "ce"))[0]
         _, m = tstep.train_step(state, b, cfg=cfg, optimizer=opt,
                                 device="cpu", **step_kw[call])
         assert float(m["loss"]) == float(plain)
         return
-    with pytest.raises(exc, match=match):
+    exc = ValueError if item == "ValueError" else NotImplementedError
+    with pytest.raises(exc, match=None if item == "ValueError" else item):
         tstep.train_step(state, b, cfg=cfg, optimizer=opt, device="cpu",
                          **step_kw[call])
 

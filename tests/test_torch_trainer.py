@@ -256,16 +256,30 @@ def test_port_recipe_cli_checkpoints_read_by_vitx(tmp_path, capsys,
 
 @pytest.mark.parametrize("argv,exc,item", [
     (["--data", "cifar10:/nowhere"], FileNotFoundError, "nowhere"),
-    (["--data", "synthetic-ml"], SystemExit, "A12"),
-    (["--sam-rho", "0.05"], SystemExit, "A12"),
-    (["--optimizer", "sgd"], SystemExit, "A12"),
+    (["--data", "synthetic-ml", "--loss", "bce"], None, "loss"),
+    (["--sam-rho", "0.05"], None, "sam_rho"),
+    (["--optimizer", "sgd"], None, "optimizer"),
     (["--dp", "2"], SystemExit, "A13"),
     (["--init-from", "run/3.ckpt"], FileNotFoundError, "run/3.ckpt"),
 ], ids=["cifar", "multilabel", "sam", "sgd", "dp", "init_ckpt"])
 def test_train_cli_refuses_unported(argv, exc, item):
-    """Unported flags exit naming their ROADMAP item. CIFAR-10 and
-    ``--init-from`` a checkpoint are ported now (A7, A3): those two cases
-    hold that a source that is not there is refused, naming its path."""
+    """Unported flags exit naming their ROADMAP item (``--dp``, A13).
+    CIFAR-10 and ``--init-from`` a checkpoint are ported (A7, A3): those
+    two cases hold that a source that is not there is refused, naming its
+    path. The multi-label data and loss, SAM and the optimizers, refused
+    until A12 brought them, reach the Trainer: its config, its step's
+    optimizer, and (B, C) multi-hot batches."""
+    if exc is None:
+        p = ttrain.build_argparser()
+        tr, train_loader, _ = ttrain.build_trainer(
+            p.parse_args(argv + ["--device", "cpu"]), p)
+        want = {"loss": "bce", "sam_rho": 0.05, "optimizer": "sgd"}[item]
+        assert getattr(tr.tcfg, item) == want
+        assert isinstance(tr.optimizer, tstep.SGD) == (item == "optimizer")
+        labels = next(iter(train_loader))["label"]
+        assert labels.shape == ((64, tr.cfg.num_classes) if item == "loss"
+                                else (64,))
+        return
     with pytest.raises(exc, match=item):
         ttrain.main(argv + ["--device", "cpu"])
 
@@ -274,10 +288,10 @@ def test_train_cli_refuses_unported(argv, exc, item):
     (["--soup", "a"], "A12"), (["--patch-size", "8"], "A12"),
     (["--export-stablehlo", "m.stablehlo"], "--export-pt2")])
 def test_eval_cli_refuses_unported(argv, item, capsys):
-    """``--soup`` (ROADMAP A12) and vitx's StableHLO export are refused.
-    ``--patch-size``, refused until A12 brought FlexiViT's resize, is
+    """vitx's StableHLO export is refused. ``--soup`` and ``--patch-size``,
+    refused until A12 brought the model soup and FlexiViT's resize, are
     taken now: the run gets as far as the missing checkpoint."""
-    if argv[0] == "--patch-size":
+    if argv[0] in ("--patch-size", "--soup"):
         assert teval.main(["--checkpoint", "x", "--device", "cpu",
                            *argv]) == 1
         assert "no checkpoint under x" in capsys.readouterr().err
@@ -290,9 +304,20 @@ def test_eval_cli_refuses_unported(argv, item, capsys):
     ("steps_per_dispatch", 4, "A12"), ("profile_epoch", 0, "A12"),
     ("pp_schedule", "1f1b", "A13"), ("mu_dtype", "bfloat16", "A12")])
 def test_trainer_refuses_unported(field, value, item):
+    """Pipeline parallelism (A13) is refused; the fields A12 brought are
+    taken (``tests/test_torch_remat_dispatch.py`` holds what they do): the
+    dispatch width, the profiled epoch, and the bf16 first moment in the
+    optimizer's state."""
     tcfg = tloop.TrainerConfig(**{field: value})
-    with pytest.raises(NotImplementedError, match=item):
-        tloop.Trainer(TCFG, tcfg, device="cpu")
+    if item == "A13":
+        with pytest.raises(NotImplementedError, match=item):
+            tloop.Trainer(TCFG, tcfg, device="cpu")
+        return
+    tr = tloop.Trainer(TCFG, tcfg, device="cpu")
+    assert getattr(tr.tcfg, field) == value
+    mu = tr.state.opt_state.mu["pos_embed"]
+    assert mu.dtype == (torch.bfloat16 if field == "mu_dtype"
+                        else torch.float32)
 
 
 def test_entry_points_default_to_cuda():

@@ -47,7 +47,7 @@ torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 from vitx_torch.core.config import PRESETS, ViTConfig, get_config  # noqa: E402
 from vitx_torch.interop.jax_params import (  # noqa: E402
-    adamw_state_from_jax, params_from_jax)
+    adamw_state_from_jax, opt_state_from_jax, params_from_jax)
 from vitx_torch.interop.pretrained import resize_pos_embed  # noqa: E402
 from vitx_torch.kernels.layer_norm import (  # noqa: E402
     fused_add_layer_norm, fused_layer_norm, layer_norm_fwd_plain)
@@ -87,6 +87,7 @@ __all__ = [
     "tome_patch_assignment",
     "params_from_jax",
     "adamw_state_from_jax",
+    "opt_state_from_jax",
     "resize_pos_embed",
     "fused_layer_norm",
     "fused_add_layer_norm",

@@ -132,11 +132,14 @@ def forward_timing(cfg, batch_size, iters, reps, dev, seed=1):
 
 
 def bench_1(device="cuda", iters=None, reps=3):
-    """ViT-Tiny b8: the forward and the train step. Every step of the
-    port is one host call, what vitx's ``k1`` row pays; its k > 1 rows fold
-    k steps into one dispatch (``steps_per_dispatch``, ROADMAP A12) and
-    are left out."""
+    """ViT-Tiny b8: the forward and the train step, then vitx's dispatch
+    rows (``vitx/cli/bench.py:114-135``): for k in 1, 4, 16 the Trainer's
+    ``steps_per_dispatch`` path (``Trainer.dispatch_steps``: k batches
+    stacked and placed once, k steps issued back to back) over max(64 //
+    k, 4) dispatches, per step; their k copies of the batch are on the
+    card, as vitx's are."""
     from vitx_torch.core.config import get_config
+    from vitx_torch.train.loop import Trainer, TrainerConfig
 
     dev = resolve_device(device)
     cfg = get_config("tiny")
@@ -146,6 +149,16 @@ def bench_1(device="cuda", iters=None, reps=3):
     dt = _put(out, "train_step_ms", train_timing(cfg, 8, _n(iters, 100),
                                                   reps, dev))
     _rate(out, "train_images_per_sec", 8, dt)
+    batch = {"image": _images(8, cfg.image_size, dev, 1, cfg.cdtype()),
+             "label": torch.zeros((8,), dtype=torch.int32, device=dev)}
+    for k in (1, 4, 16):
+        tr = Trainer(cfg, TrainerConfig(lr=1e-4, steps_per_dispatch=k),
+                     device=dev)
+        n_disp = max(64 // k, 4) if iters is None else iters
+        runs = timed(lambda: tr.dispatch_steps([batch] * k, 0, 0), n_disp,
+                     reps, dev)
+        dt = _put(out, f"train_step_ms_k{k}", [r / k for r in runs])
+        _rate(out, f"train_images_per_sec_k{k}", 8, dt)
     return out
 
 

@@ -19,10 +19,15 @@ too) and ``--export-pt2 OUT`` as a ``torch.export`` program, the
 counterpart of vitx's ``--export-stablehlo`` (the batch pinned to
 ``--batch-size`` under ToMe); both store the config without the
 inference-only ``--tome-r``. Any artifact the loading rule takes is
-evaluated, ``.quant.npz`` included. ``--device`` defaults to ``cuda``.
-``--soup`` (ROADMAP A12) is refused, and
-``--export-stablehlo``, whose StableHLO only JAX runs, names
-``--export-pt2``.
+evaluated, ``.quant.npz`` included. ``--soup A B ...`` averages the
+checkpoint's params with those of further artifacts of its geometry
+(``soup_params``, a uniform model soup) before anything else reads them. A
+checkpoint trained with ``--loss bce`` (meta ``loss_type``) gets vitx's
+multi-label report instead -- micro and macro F1, mAP, the per-class F1
+and AP, the element accuracy and the BCE loss -- and refuses ``--predict``,
+``--calibrate`` and ``--tta``, which are single-label.
+``--device`` defaults to ``cuda``. ``--export-stablehlo``, whose StableHLO
+only JAX runs, names ``--export-pt2``.
 """
 
 from __future__ import annotations
@@ -40,8 +45,6 @@ from vitx_torch.data import BatchLoader, make_preprocess
 from vitx_torch.metrics import confusion_matrix, confusion_to_metrics
 from vitx_torch.nn.tome import aligned_schedule, parse_tome_r
 from vitx_torch.nn.vit import model_logits
-
-UNPORTED = {"soup": "A12"}
 
 
 def main(argv=None):
@@ -66,7 +69,9 @@ def main(argv=None):
     p.add_argument("--calibrate", action="store_true",
                    help="fit temperature scaling on this set and report "
                         "ECE/NLL before and after")
-    p.add_argument("--soup", nargs="+", default=None)
+    p.add_argument("--soup", nargs="+", default=None, metavar="CKPT",
+                   help="average the params with these artifacts' (same "
+                        "geometry): a uniform model soup")
     p.add_argument("--export-quantized", default=None, metavar="OUT",
                    help="also write the params as an int8 .quant.npz")
     p.add_argument("--export-pt2", default=None, metavar="OUT.pt2",
@@ -83,11 +88,6 @@ def main(argv=None):
                    help="ToMe token merging at inference")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
-    for dest, item in UNPORTED.items():
-        if getattr(args, dest) is not None:
-            flag = "--" + dest.replace("_", "-")
-            raise SystemExit(f"error: {flag} is not ported to vitx_torch "
-                             f"yet (ROADMAP {item})")
     if args.export_stablehlo is not None:
         raise SystemExit("error: --export-stablehlo writes a StableHLO "
                          "program, which only JAX runs; vitx_torch's "
@@ -118,6 +118,11 @@ def main(argv=None):
         print(f"error: no checkpoint under {args.checkpoint}",
               file=sys.stderr)
         return 1
+    if args.soup:
+        from vitx_torch.train.checkpoint import soup_params
+
+        params = soup_params(params, cfg, args.soup, device=dev)
+        print(f"souped {1 + len(args.soup)} models", file=sys.stderr)
     # a LoRA run is evaluated (and exported) with its adapters folded in
     params, cfg = merge_lora_params(params, cfg)
     if args.patch_size and args.patch_size != cfg.patch_size:
@@ -155,6 +160,16 @@ def main(argv=None):
         mean=None if args.no_normalize else (0.5, 0.5, 0.5),
         std=None if args.no_normalize else (0.5, 0.5, 0.5),
         random_flip=False)
+
+    if meta.get("loss_type") == "bce":
+        if args.predict or args.calibrate or args.tta:
+            print("error: --predict/--calibrate/--tta are single-label "
+                  "surfaces; this checkpoint was trained with --loss bce",
+                  file=sys.stderr)
+            return 1
+        print(json.dumps(multilabel_report(params, cfg, eval_ds, pre,
+                                           args.batch_size, dev)))
+        return 0
 
     @torch.no_grad()
     def logits_of(x):
@@ -233,6 +248,32 @@ def main(argv=None):
             np.concatenate(cal_logits), np.concatenate(cal_labels))
     print(json.dumps(out))
     return 0
+
+
+def multilabel_report(params, cfg, eval_ds, pre, batch_size: int,
+                      dev) -> dict:
+    """vitx's multi-label report (``vitx/cli/eval.py:162-195``):
+    ``multilabel_eval`` over the split, floats rounded to 6 places, NaN (a
+    class with no positive) as null."""
+    from vitx_torch.train.loop import multilabel_eval
+
+    def batches():
+        for batch in BatchLoader(eval_ds, batch_size):
+            yield (pre(torch.from_numpy(batch["image"]).to(dev), None,
+                       train=False),
+                   torch.from_numpy(batch["label"]).to(dev),
+                   torch.from_numpy(batch["mask"]).to(dev))
+    report = multilabel_eval(params, cfg, batches())
+    out = {}
+    for k, v in report.items():
+        if isinstance(v, int):
+            out[k] = v
+        elif np.isscalar(v):
+            out[k] = round(float(v), 6)
+        else:
+            arr = np.round(np.asarray(v, np.float64), 6)
+            out[k] = [None if np.isnan(x) else x for x in arr.tolist()]
+    return out
 
 
 if __name__ == "__main__":

@@ -21,8 +21,12 @@ The model's geometry flags are vitx's too: ``--layerscale``, ``--mlp-act``,
 ``--pos-embed`` (learned, sincos2d, rope), ``--qk-norm``, ``--head-type``
 (reference, standard, map), ``--global-pool``, ``--num-registers`` and
 ``--moe-experts/--moe-blocks/--moe-slots`` (Soft-MoE blocks last).
-Every other flag set away from its default exits non-zero, naming the
-ROADMAP item that brings it (``UNPORTED``).
+So are the training knobs: ``--optimizer`` (adamw, sgd, lion, adafactor),
+``--mu-dtype``, ``--sam-rho``, ``--loss bce`` (multi-label, with ``--data
+synthetic-ml``), ``--class-weights`` (a list or ``balanced``) and
+``--steps-per-dispatch``. The parallelism flags set away from their
+defaults exit non-zero, naming the ROADMAP item that brings them
+(``UNPORTED``).
 
 ``CONVERGENCE.md``'s ViT-S/16 recipe (``examples/convergence.py``)::
 
@@ -43,18 +47,19 @@ import os
 import pathlib
 import sys
 
+import numpy as np
+
 from vitx_torch.core.config import PRESETS, ViTConfig, get_config
 from vitx_torch.data import (CIFAR10, BatchLoader, DeviceBatchLoader,
                              FolderDataset, ProceduralShapes, ShardDataset,
-                             SyntheticDataset, make_preprocess)
+                             SyntheticDataset, SyntheticMultiLabelDataset,
+                             make_preprocess)
 from vitx_torch.nn.tome import aligned_schedule, parse_tome_r
 from vitx_torch.train.loop import NonFiniteLossError, Trainer, TrainerConfig
 
 # flags the port does not take yet -> the ROADMAP item that brings them;
 # each is refused when set away from its default
 UNPORTED = {
-    "class_weights": "A12", "loss": "A12", "optimizer": "A12",
-    "mu_dtype": "A12", "sam_rho": "A12", "steps_per_dispatch": "A12",
     "dp": "A13", "tp": "A13", "zero": "A13", "ep": "A13", "sp": "A13",
     "pp": "A13", "pp_microbatches": "A13", "pp_schedule": "A13",
 }
@@ -68,7 +73,9 @@ def build_argparser():
     a("--preset", default="tiny", choices=sorted(PRESETS))
     a("--config-json", default=None,
       help="path to a ViTConfig JSON (overrides --preset)")
-    a("--class-weights", default=None)
+    a("--class-weights", default=None,
+      help="per-class loss weights: 'balanced' (n / (C * count_c) from the "
+           "train split) or C comma-separated floats")
     a("--image-size", type=int, default=None,
       help="override the config's input resolution")
     a("--data", default="synthetic",
@@ -80,10 +87,17 @@ def build_argparser():
     a("--epochs", type=int, default=10)
     a("--batch-size", type=int, default=64)
     a("--lr", type=float, default=1e-4)
-    a("--loss", default="ce", choices=["ce", "bce"])
+    a("--loss", default="ce", choices=["ce", "bce"],
+      help="'ce' single-label softmax cross-entropy; 'bce' multi-label "
+           "sigmoid BCE over (B, C) multi-hot labels (eval reports micro "
+           "and macro F1 and mAP; try --data synthetic-ml)")
     a("--optimizer", default="adamw",
-      choices=["adamw", "sgd", "lion", "adafactor"])
-    a("--mu-dtype", default=None, choices=["float32", "bfloat16"])
+      choices=["adamw", "sgd", "lion", "adafactor"],
+      help="adamw; sgd (momentum 0.9, decoupled wd); lion (~10x lower lr, "
+           "3-10x higher wd than adamw); adafactor (factored second "
+           "moments)")
+    a("--mu-dtype", default=None, choices=["float32", "bfloat16"],
+      help="storage dtype of adamw's first moment")
     a("--weight-decay", type=float, default=1e-4)
     a("--wd-exclude", action="store_true",
       help="weight decay on the matrix weights only (timm's no-decay rule)")
@@ -140,7 +154,10 @@ def build_argparser():
     a("--qk-norm", action="store_true")
     a("--head-type", default=None, choices=["reference", "standard", "map"])
     a("--global-pool", default=None, choices=["cls", "gap"])
-    a("--sam-rho", type=float, default=None)
+    a("--sam-rho", type=float, default=None,
+      help="sharpness-aware minimization radius (~0.05): the update from "
+           "the gradient at params + rho g/|g|, a second forward and "
+           "backward a step")
     a("--distill-from", default=None)
     a("--distill-alpha", type=float, default=0.5)
     a("--distill-tau", type=float, default=1.0)
@@ -160,7 +177,9 @@ def build_argparser():
            "gain of more than --early-stop-delta")
     a("--early-stop-delta", type=float, default=0.0)
     a("--progress", action="store_true")
-    a("--steps-per-dispatch", type=int, default=1)
+    a("--steps-per-dispatch", type=int, default=1,
+      help="stack k batches, place them once and issue their k steps "
+           "back to back")
     a("--dp", type=int, default=None)
     a("--tp", type=int, default=1)
     a("--zero", type=int, default=0, choices=[0, 1, 2, 3])
@@ -180,17 +199,20 @@ def build_argparser():
 def make_datasets(spec: str, cfg: ViTConfig, seed: int):
     """(train, val) datasets of ``--data``, with vitx's sizes, seeds and
     split rules (``vitx/cli/train.py:278-351``): ``synthetic``,
+    ``synthetic-ml`` (multi-label),
     ``procedural[:<ntrain>,<nval>]``, ``cifar10:DIR`` (local batches),
     ``folder:DIR`` and ``shards:DIR``. A folder or shard directory with
     ``train/`` and ``val/`` (or ``test/``; for folders also
     ``Training/`` and ``Testing/``) takes those splits whole, and they must
     name the same classes; otherwise the reference's stratified split
     (``split_indices``) divides the one directory."""
-    if spec == "synthetic":
+    if spec in ("synthetic", "synthetic-ml"):
+        ds_cls = (SyntheticDataset if spec == "synthetic"
+                  else SyntheticMultiLabelDataset)
         common = dict(image_size=cfg.image_size, num_classes=cfg.num_classes,
                       num_channels=cfg.num_channels)
-        return (SyntheticDataset(num_examples=2048, seed=seed, **common),
-                SyntheticDataset(num_examples=512, seed=seed + 1, **common))
+        return (ds_cls(num_examples=2048, seed=seed, **common),
+                ds_cls(num_examples=512, seed=seed + 1, **common))
     kind, _, arg = spec.partition(":")
     if kind == "procedural":
         n_train, n_val = 12800, 2560
@@ -203,9 +225,6 @@ def make_datasets(spec: str, cfg: ViTConfig, seed: int):
                                  image_size=cfg.image_size, cache_dir=cache),
                 ProceduralShapes(num_examples=n_val, seed=seed + 1,
                                  image_size=cfg.image_size, cache_dir=cache))
-    if spec == "synthetic-ml":
-        raise SystemExit("error: --data synthetic-ml (multi-label) is not "
-                         "ported to vitx_torch yet (ROADMAP A12)")
     if kind == "cifar10":
         return CIFAR10(arg, train=True), CIFAR10(arg, train=False)
     if kind in ("folder", "shards"):
@@ -311,14 +330,32 @@ def build_trainer(args, parser=None):
     # the freeze policy: LoRA implies a frozen backbone
     train_filter = ("head" if args.freeze_backbone
                     else "lora" if args.lora_rank else None)
-    if args.distill_from and (args.mixup_alpha or args.cutmix_alpha):
+    if args.distill_from and args.steps_per_dispatch > 1:
+        raise SystemExit("error: --distill-from is a single-device "
+                         "single-step path (use the library step for mesh "
+                         "runs)")
+    if args.distill_from and (args.mixup_alpha or args.cutmix_alpha
+                              or args.sam_rho):
         raise SystemExit("error: --distill-from builds its own train step; "
-                         "--mixup-alpha/--cutmix-alpha are not applied "
-                         "there (combine via the library API instead)")
+                         "--mixup-alpha/--cutmix-alpha/--sam-rho are not "
+                         "applied there (combine via the library API "
+                         "instead)")
     if args.distill_from and train_filter is not None:
         raise SystemExit("error: --distill-from builds its own train step, "
                          "which has no freeze policy -- --lora-rank/"
                          "--freeze-backbone are not applied there")
+    if args.loss == "bce":
+        if args.label_smoothing or args.class_weights:
+            raise SystemExit("--loss bce does not compose with "
+                             "--label-smoothing / --class-weights "
+                             "(single-label softmax knobs)")
+        if args.distill_from or args.distill_token:
+            raise SystemExit("--loss bce does not compose with "
+                             "distillation (the distill step computes "
+                             "single-label CE on the class head)")
+    class_weights = (parse_class_weights(args.class_weights, train_ds,
+                                         cfg.num_classes)
+                     if args.class_weights else None)
     # mixing pairs rows of one batch: no padded remainder batch
     mixing = bool(args.mixup_alpha or args.cutmix_alpha)
 
@@ -365,7 +402,8 @@ def build_trainer(args, parser=None):
         lr=args.lr, schedule=lr_schedule, weight_decay=args.weight_decay,
         grad_clip=args.grad_clip, ema_decay=args.ema_decay,
         wd_exclude=args.wd_exclude, accum_steps=args.accum_steps,
-        llrd=args.llrd, llrd_depth=cfg.depth, trainable=train_filter)
+        llrd=args.llrd, llrd_depth=cfg.depth, optimizer=args.optimizer,
+        trainable=train_filter, mu_dtype=args.mu_dtype)
     init_state = None
     if args.init_from:
         from vitx_torch.train.checkpoint import (is_bare_params_npz,
@@ -383,6 +421,7 @@ def build_trainer(args, parser=None):
     if args.distill_from:
         train_step = distill_step(args, cfg, optimizer)
     tcfg = TrainerConfig(
+        loss=args.loss, class_weights=class_weights,
         epochs=args.epochs, lr=args.lr, weight_decay=args.weight_decay,
         wd_exclude=args.wd_exclude, grad_clip=args.grad_clip,
         label_smoothing=args.label_smoothing, progress=args.progress,
@@ -394,11 +433,33 @@ def build_trainer(args, parser=None):
         async_checkpoint=args.async_checkpoint,
         mixup_alpha=args.mixup_alpha, cutmix_alpha=args.cutmix_alpha,
         llrd=args.llrd, accum_steps=args.accum_steps,
-        train_filter=train_filter)
+        train_filter=train_filter, sam_rho=args.sam_rho,
+        optimizer=args.optimizer, mu_dtype=args.mu_dtype,
+        steps_per_dispatch=args.steps_per_dispatch)
     trainer = Trainer(cfg, tcfg, preprocess=pre, init_state=init_state,
                       optimizer=optimizer, lr_schedule=lr_schedule,
                       train_step=train_step, device=args.device)
     return trainer, train_loader, eval_loader
+
+
+def parse_class_weights(spec: str, train_ds, num_classes: int) -> tuple:
+    """``--class-weights`` (``vitx/cli/train.py:585-606``): "balanced",
+    scikit-learn's n / (C * count_c) from the train split's labels (a
+    class with no example counts 1), or C comma-separated floats."""
+    if spec == "balanced":
+        labels = getattr(train_ds, "labels", None)
+        if labels is None:
+            raise SystemExit("error: --class-weights balanced needs a "
+                             "dataset exposing .labels")
+        counts = np.bincount(np.asarray(labels), minlength=num_classes)
+        w = len(labels) / (num_classes
+                           * np.maximum(counts, 1)).astype(np.float64)
+    else:
+        w = np.array([float(x) for x in spec.split(",")])
+        if len(w) != num_classes:
+            raise SystemExit(f"error: --class-weights needs {num_classes} "
+                             f"comma-separated values, got {len(w)}")
+    return tuple(float(x) for x in w)
 
 
 def distill_step(args, cfg: ViTConfig, optimizer):

@@ -1,16 +1,14 @@
 """Throughput autotuner: ``python -m vitx_torch.cli.tune --preset base16 --mode train``.
 
 The counterpart of ``vitx/cli/tune.py``: measures images/s of every
-per-device batch size on the current card and reports one JSON line per
-candidate (vitx's keys: ``batch``, ``remat``, ``scan_unroll``,
-``step_ms``, ``images_per_sec``), then a ``{"best": ...}`` line.
-
-The port runs its blocks as a Python loop with autograd keeping the
-activations: it has neither vitx's remat policies nor its scan unroll
-(``vitx_torch/nn/vit.py``), so it sweeps batches only and each row
-carries the config's ``remat`` and ``scan_unroll``; an explicit
-``--remat`` or ``--unroll`` grid exits naming ROADMAP A12, where remat as
-activation checkpointing waits.
+(per-device batch, remat policy) candidate on the current card and
+reports one JSON line per candidate (vitx's keys: ``batch``, ``remat``,
+``scan_unroll``, ``step_ms``, ``images_per_sec``), then a ``{"best":
+...}`` line. ``--remat`` sweeps the policies (activation checkpointing
+per block, ``vitx_torch/nn/vit.py``; default ``none,block`` for train,
+the config's for infer, where nothing is checkpointed). The port runs its
+blocks as a Python loop, so there is no scan to unroll: each row carries
+the config's ``scan_unroll`` and ``--unroll`` exits saying so.
 
 A candidate the port refuses before it runs (``check_candidate``: a
 batch below 1, a config asking for vitx's sharding), or one that runs out of
@@ -27,6 +25,7 @@ rng.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import sys
 
@@ -50,24 +49,27 @@ def check_candidate(cfg, batch: int) -> None:
             "mesh, which is not ported to vitx_torch yet (ROADMAP A13)")
 
 
-def run_sweep(cfg, mode, batches, iters, reps, emit=print, device="cuda"):
-    """Measure every batch of ``batches``; returns the result rows
-    (dicts). A candidate ``check_candidate`` refuses, or one that runs out
-    of device memory, makes a row with an "error" field; an error raised
-    while timing propagates."""
+def run_sweep(cfg, mode, batches, iters, reps, emit=print, device="cuda",
+              remats=None):
+    """Measure every (batch, remat) candidate of ``batches`` and
+    ``remats`` (default: the config's policy); returns the result rows
+    (dicts). A candidate ``check_candidate`` refuses, an unknown policy,
+    or one that runs out of device memory, makes a row with an "error"
+    field; an error raised while timing propagates."""
     dev = resolve_device(device)
     timing = train_timing if mode == "train" else forward_timing
     results = []
-    for batch in batches:
-        cand = {"batch": batch, "remat": cfg.remat,
+    for batch, remat in itertools.product(batches, remats or [cfg.remat]):
+        cand = {"batch": batch, "remat": remat,
                 "scan_unroll": cfg.scan_unroll}
         try:
-            check_candidate(cfg, batch)
+            c = cfg.replace(remat=remat)
+            check_candidate(c, batch)
         except (ValueError, NotImplementedError) as e:
             row = {**cand, "error": f"{type(e).__name__}: {e}"[:200]}
         else:
             try:
-                ms = min(timing(cfg, batch, iters, reps, dev))
+                ms = min(timing(c, batch, iters, reps, dev))
                 row = {**cand, "step_ms": ms,
                        "images_per_sec": batch / (ms / 1e3)}
             except torch.OutOfMemoryError as e:
@@ -87,10 +89,11 @@ def main(argv=None):
     p.add_argument("--batches", default="32,64,128,256",
                    help="comma-separated per-device batch sizes")
     p.add_argument("--remat", default=None,
-                   help="remat policies to sweep: not ported (ROADMAP A12)")
+                   help="comma-separated remat policies to sweep (default: "
+                        "train sweeps none,block; infer uses the config's)")
     p.add_argument("--unroll", default=None,
-                   help="scan_unroll values to sweep: the port has no scan "
-                        "(ROADMAP A12)")
+                   help="scan_unroll values: the port has no scan to "
+                        "unroll, so this exits")
     p.add_argument("--iters", type=int, default=20,
                    help="back-to-back calls a timing")
     p.add_argument("--reps", type=int, default=3,
@@ -99,12 +102,10 @@ def main(argv=None):
                    help="also write the rows + best to this JSON file")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
-    for flag, value in (("--remat", args.remat), ("--unroll", args.unroll)):
-        if value is not None:
-            raise SystemExit(
-                f"error: {flag} is not ported to vitx_torch: it has no remat "
-                f"or scan to sweep (ROADMAP A12, remat as activation "
-                f"checkpointing)")
+    if args.unroll is not None:
+        raise SystemExit("error: --unroll sweeps vitx's scan_unroll; "
+                         "vitx_torch runs its blocks as a Python loop and "
+                         "has no scan to unroll")
 
     from vitx_torch.core.config import ViTConfig, get_config
 
@@ -115,8 +116,12 @@ def main(argv=None):
     else:
         cfg = get_config(args.preset)
     batches = [int(b) for b in args.batches.split(",")]
+    if args.remat:
+        remats = args.remat.split(",")
+    else:
+        remats = ["none", "block"] if args.mode == "train" else [cfg.remat]
     results = run_sweep(cfg, args.mode, batches, args.iters, args.reps,
-                        device=dev)
+                        device=dev, remats=remats)
     ok = [r for r in results if "error" not in r]
     best = max(ok, key=lambda r: r["images_per_sec"]) if ok else None
     summary = {"best": best, "mode": args.mode,

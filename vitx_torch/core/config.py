@@ -6,9 +6,12 @@ so a config written by either package loads in the other. Only the dtype
 names map to ``torch`` dtypes.
 
 Fields that mean nothing to an eager PyTorch forward are accepted and
-ignored: ``scan_unroll`` (the port runs the blocks as a Python loop),
-``remat`` (no training in the port yet) and ``sp``/``ep`` (sharding
-annotations). ``attn_impl``/``fuse_mha``/``fuse_mlp`` keep their meaning:
+ignored: ``scan_unroll`` (the port runs the blocks as a Python loop, with
+no scan to unroll) and ``sp``/``ep`` (sharding annotations). ``remat`` is
+activation checkpointing per block where autograd records the blocks
+(``vitx_torch.nn.vit.run_blocks``): "block" recomputes each block in the
+backward, "dots" keeps the 2-D products' outputs, "save_stash" keeps K1's
+stash and recomputes the MLP half, "none" keeps every activation. ``attn_impl``/``fuse_mha``/``fuse_mlp`` keep their meaning:
 on a CUDA device "auto" and "on" select the Hopper kernels of
 ``vitx_torch.kernels`` (see ``vitx_torch.nn.vit._use_fused_mha``).
 """

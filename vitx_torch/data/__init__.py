@@ -7,8 +7,10 @@ from vitx_torch.data.loader import BatchLoader
 from vitx_torch.data.pipeline import make_preprocess
 from vitx_torch.data.procedural import ProceduralShapes
 from vitx_torch.data.shards import ShardDataset, write_shards
-from vitx_torch.data.synthetic import SyntheticDataset
+from vitx_torch.data.synthetic import (SyntheticDataset,
+                                        SyntheticMultiLabelDataset)
 
 __all__ = ["BatchLoader", "CIFAR10", "DeviceBatchLoader", "FolderDataset",
            "ProceduralShapes", "ShardDataset", "SyntheticDataset",
+           "SyntheticMultiLabelDataset",
            "make_preprocess", "write_shards"]

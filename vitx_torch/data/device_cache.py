@@ -37,8 +37,9 @@ class DeviceBatchLoader:
     ``dataset``: anything with ``materialize() -> (images u8, labels)``
     (``ProceduralShapes``) or ``get_example``/``__len__``
     (``SyntheticDataset``), whose examples are stacked on the host once.
-    Yields ``{"image": (B, H, W, C) uint8, "label": (B,) int32, "mask":
-    (B,) int32}``, all on the device.
+    Yields ``{"image": (B, H, W, C) uint8, "label": (B,) int32 -- (B, C)
+    multi-hot for a multi-label dataset --, "mask": (B,) int32}``, all on
+    the device.
     """
 
     def __init__(self, dataset, batch_size: int, *, shuffle: bool = False,
@@ -102,5 +103,6 @@ def gather(images, labels, idx, mask) -> dict:
     ``mask`` is 0 zeroed (``vitx/data/device_cache.py:51-59``)."""
     img = images.index_select(0, idx)
     img = img * mask.to(img.dtype)[:, None, None, None]
-    lab = labels.index_select(0, idx) * mask.to(labels.dtype)
+    lab = labels.index_select(0, idx)
+    lab = lab * mask.to(lab.dtype).reshape((-1,) + (1,) * (lab.dim() - 1))
     return {"image": img, "label": lab, "mask": mask}

@@ -6,7 +6,8 @@ seeded noise. numpy only, from ``default_rng(seed)`` for the labels and
 ``default_rng((seed, i))`` for example i, so for a seed it gives the same
 uint8 images and labels as vitx's and both packages train on the same
 batches, with vitx's class names (``class_0``, ...). (vitx's ``cache``
-option has no caller in the port yet.)
+option has no caller in the port yet.) ``SyntheticMultiLabelDataset`` is
+vitx's multi-label variant, with (C,) multi-hot labels.
 """
 
 from __future__ import annotations
@@ -53,3 +54,33 @@ class SyntheticDataset:
             self.noise * rng.standard_normal((S, S, self.num_channels))
         img = np.clip(img, 0.0, 1.0)
         return (img * 255).astype(np.uint8), label
+
+
+class SyntheticMultiLabelDataset(SyntheticDataset):
+    """The multi-label variant (``vitx/data/synthetic.py:63-97``): each
+    image superimposes the gratings of a random 1..``max_active`` subset of
+    the classes, scaled by 1/sqrt(k), and its label is the (C,) multi-hot
+    int32 set; the same numpy draws as vitx's, so images and labels are
+    equal bit for bit. It drives ``loss="bce"``."""
+
+    def __init__(self, *, max_active: int = 3, **kw):
+        super().__init__(**kw)
+        n = len(self.labels)
+        rng = np.random.default_rng(self._seed + 0x31)
+        hot = np.zeros((n, self.num_classes), np.int32)
+        for i in range(n):
+            k = int(rng.integers(1, min(max_active, self.num_classes) + 1))
+            hot[i, rng.choice(self.num_classes, size=k, replace=False)] = 1
+        self.labels = hot
+
+    def _generate(self, i: int):
+        hot = self.labels[i]
+        rng = np.random.default_rng((self._seed, i, 0x31))
+        S = self.image_size
+        active = np.flatnonzero(hot)
+        wave = np.sum([self._wave(int(c)) for c in active],
+                      axis=0) / np.sqrt(len(active))
+        img = 0.5 + 0.35 * wave[..., None] + \
+            self.noise * rng.standard_normal((S, S, self.num_channels))
+        img = np.clip(img, 0.0, 1.0)
+        return (img * 255).astype(np.uint8), hot

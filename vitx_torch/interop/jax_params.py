@@ -1,13 +1,15 @@
-"""vitx parameters and AdamW state -> the port's.
+"""vitx parameters and optimizer states -> the port's.
 
 vitx keeps its parameters as a nested dict of arrays (``vitx/nn/vit.py:100``)
 and ``vitx.cli.pretrain --export-vit`` writes them to a bare ``.npz`` of
 flat ``"a/b/c"`` keys (``vitx/cli/pretrain.py:286-288``). The port uses the
 same tree, so conversion is a copy into torch tensors with the shapes
-checked against ``param_spec``. AdamW's moments are trees of the same
-shape (``adamw_state_from_jax``). An export read into a config of another
-image size gets its positional grid resized, as vitx's ``load_vit_init``
-does (``vitx/cli/pretrain.py:306-368``).
+checked against ``param_spec``. The optimizers' states -- AdamW's
+moments (mu fp32 or bf16), SGD's trace, Lion's momentum, Adafactor's
+factored moments -- are trees of the same keys (``opt_state_from_jax``).
+An export read into a config of another image size gets its positional
+grid resized, as vitx's ``load_vit_init`` does
+(``vitx/cli/pretrain.py:306-368``).
 """
 
 from __future__ import annotations
@@ -131,38 +133,91 @@ def params_from_jax(tree, cfg: ViTConfig, device="cuda", rng=0) -> dict:
     return out
 
 
-def _adam_node(state):
-    """The (count, mu, nu) node inside an optax state: optax's
-    ``ScaleByAdamState`` or vitx's ``FusedAdamWState``, found by its
-    fields wherever the chain nests it."""
-    if all(hasattr(state, f) for f in ("count", "mu", "nu")):
-        return state
+# the optimizer nodes of vitx's chains, by the fields of their optax
+# state: -> (the port's optimizer name, the slot fields)
+_OPT_NODES = (("adafactor", ("count", "v_row", "v_col", "v")),
+              ("adamw", ("count", "mu", "nu")),
+              ("lion", ("count", "mu")),
+              ("sgd", ("trace",)))
+
+
+def _opt_node(state):
+    """(name, node): the optimizer's own state inside an optax state --
+    optax's ``ScaleByAdamState`` or vitx's ``FusedAdamWState``,
+    ``TraceState``, ``ScaleByLionState`` or ``FactoredState`` -- found by
+    its fields wherever the chain nests it; None when there is none."""
+    have = set(getattr(state, "_fields", ()))
+    for name, fields in _OPT_NODES:
+        if have.issuperset(fields):
+            return name, state
     if isinstance(state, (tuple, list)):
-        found = [n for n in (_adam_node(s) for s in state) if n is not None]
+        found = [n for n in (_opt_node(s) for s in state) if n is not None]
         if len(found) > 1:
-            raise ValueError("the optimizer state holds more than one Adam "
-                             "state")
+            raise ValueError("the optimizer state holds more than one "
+                             "optimizer state")
         return found[0] if found else None
     return None
 
 
-def adamw_state_from_jax(opt_state, cfg: ViTConfig, device="cuda"):
-    """The port's ``AdamWState`` from the state of vitx's
-    ``make_optimizer()`` (plain or ``fused=True``; a schedule and
-    ``grad_clip`` keep no moments of their own). mu and nu must be fp32
-    trees of the params' shapes."""
-    from vitx_torch.train.step import AdamWState
+def _slot_tree(tree, dtype, dev):
+    """A slot tree (nested dict of arrays, shapes as they are) as tensors
+    of ``dtype`` on ``dev``."""
+    if isinstance(tree, dict):
+        return {k: _slot_tree(v, dtype, dev) for k, v in tree.items()}
+    return torch.tensor(np.asarray(tree, np.float32)).to(dtype).to(dev)
 
-    node = _adam_node(opt_state)
-    if node is None:
-        raise ValueError("no Adam state (count, mu, nu) in the optimizer "
-                         "state")
-    for name in ("mu", "nu"):
-        dt = {np.asarray(a).dtype for _, a in _walk(getattr(node, name))}
-        if dt != {np.dtype(np.float32)}:
-            raise ValueError(f"{name} must be float32 (mu_dtype is not "
-                             f"ported, ROADMAP A12), got "
-                             f"{sorted(map(str, dt))}")
-    return AdamWState(count=int(np.asarray(node.count)),
-                      mu=params_from_jax(node.mu, cfg, device),
-                      nu=params_from_jax(node.nu, cfg, device))
+
+def opt_state_from_jax(opt_state, cfg: ViTConfig, device="cuda"):
+    """The port's optimizer state from the state of vitx's
+    ``make_optimizer(optimizer=...)``: an ``AdamWState`` (plain or
+    ``fused=True``; mu fp32, or bf16 under ``mu_dtype="bfloat16"``), an
+    ``SGDState``, a ``LionState`` or an ``AdafactorState``. A schedule and
+    ``grad_clip`` keep no state of their own; the count of an SGD trace,
+    which keeps none, is 0. The slots must be fp32 trees of the params'
+    shapes (Adafactor's factored and placeholder shapes as the port's
+    ``init`` makes them for ``cfg``)."""
+    from vitx_torch.train.step import leaf_paths, leaves, make_optimizer
+
+    found = _opt_node(opt_state)
+    if found is None:
+        raise ValueError("no optimizer state (adamw, sgd, lion or "
+                         "adafactor) in the optimizer state")
+    name, node = found
+    dev = resolve_device(device)
+    mu_dtype = None
+    if name == "adamw":
+        dt = {np.asarray(a).dtype.name for _, a in _walk(node.mu)}
+        if dt == {"bfloat16"}:
+            mu_dtype = "bfloat16"
+        elif dt != {"float32"}:
+            raise ValueError(f"mu must be float32 or bfloat16, got "
+                             f"{sorted(dt)}")
+    def shapes(spec):
+        return {k: shapes(v) if isinstance(v, dict) else
+                torch.empty(v[0], dtype=torch.float32, device="meta")
+                for k, v in spec.items()}
+    template = make_optimizer(optimizer=name, mu_dtype=mu_dtype).init(
+        shapes(param_spec(cfg)))
+    slots = {}
+    for field in template.SLOTS:
+        want = getattr(template, field)
+        got = getattr(node, field)
+        for path, t in zip(leaf_paths(want), leaves(want)):
+            arr = got
+            for k in path:
+                arr = arr[k]
+            if tuple(np.asarray(arr).shape) != tuple(t.shape):
+                raise ValueError(f"{field}/{'/'.join(path)}: shape "
+                                 f"{np.asarray(arr).shape}, the config "
+                                 f"needs {tuple(t.shape)}")
+        dtype = (torch.bfloat16 if field == "mu" and mu_dtype
+                 else torch.float32)
+        slots[field] = _slot_tree(got, dtype, dev)
+    count = int(np.asarray(node.count)) if template.COUNTED else 0
+    return type(template)(count=count, **slots)
+
+
+def adamw_state_from_jax(opt_state, cfg: ViTConfig, device="cuda"):
+    """``opt_state_from_jax`` for vitx's ``make_optimizer()`` AdamW state
+    (the name the port's callers use)."""
+    return opt_state_from_jax(opt_state, cfg, device)

@@ -403,8 +403,9 @@ class _Flash(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
-        return attention_bwd(*ctx.saved_tensors[:3], do,
-                             *ctx.saved_tensors[3:])
+        # unpacked once: activation checkpointing refuses a second unpack
+        q, k, v, o, stats = ctx.saved_tensors
+        return attention_bwd(q, k, v, do, o, stats)
 
 
 class _FlashProbs(torch.autograd.Function):

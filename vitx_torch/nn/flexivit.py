@@ -8,8 +8,7 @@ fine-tuning needs: a kernel trained at patch size ``p`` becomes one for
 correspondingly resized input; downsampling is the least-squares optimum.
 ``B`` is built by resizing one-hot patches with ``resize_bilinear``, the
 resize ``jax.image.resize(..., "bilinear")`` computes (antialiased when it
-shrinks). Running a model at another patch size (``resize_patch_embed``)
-and FlexiViT training are not ported (ROADMAP A12).
+shrinks). ``resize_patch_embed`` runs a model at another patch size.
 """
 
 from __future__ import annotations

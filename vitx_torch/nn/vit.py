@@ -16,10 +16,18 @@ differentiable forward the train step runs (dropout and drop-path from an
 explicit ``torch.Generator``); ``forward``, ``forward_features``,
 ``forward_with_attn`` and ``forward_with_rollout`` are inference, under
 ``torch.inference_mode``.
-vitx's ``remat`` is accepted and ignored: autograd keeps the activations.
+vitx's ``remat`` is activation checkpointing here: where autograd records
+the blocks (training, gradients of the input), ``run_blocks`` checkpoints
+each block as ``cfg.remat`` says -- "block" recomputes it whole, K1
+included, "dots" keeps the 2-D products' outputs, "save_stash" keeps K1's
+stash and recomputes the MLP half, "none" keeps everything -- with the
+same dropout and drop-path masks on the recompute; ``scan_unroll`` is
+accepted and ignored (there is no scan to unroll).
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -423,6 +431,21 @@ def _encoder_block(x, pending, bp, cfg: ViTConfig, *, rng=None,
     ``block_rope``'s tables for the forward."""
     if cfg.lora_rank:
         bp = merge_block(bp, cfg)
+    x, attn_out, probs = _attention_half(
+        x, pending, bp, cfg, return_probs=return_probs,
+        probs_mode=probs_mode, rope=rope)
+    x, mlp_out = _mlp_half(x, attn_out, bp, cfg, rng=rng,
+                           deterministic=deterministic, dp_rate=dp_rate)
+    return x, mlp_out, probs
+
+
+def _attention_half(x, pending, bp, cfg: ViTConfig, *,
+                    return_probs: bool = False, probs_mode: str = "full",
+                    rope=None):
+    """The block's attention half -> (x + pending, attn_out, probs): K1
+    (B7 for head-mean probabilities), or LN1 and the composed attention;
+    ``bp`` has its LoRA adapters folded in. It draws nothing: dropout and
+    drop-path on ``attn_out`` are the MLP half's first steps."""
     dt = x.dtype
     fused_mean_probs = (return_probs and probs_mode == "mean" and x.is_cuda
                         and _use_fused_mha(cfg, bp, x))
@@ -453,6 +476,16 @@ def _encoder_block(x, pending, bp, cfg: ViTConfig, *, rng=None,
                        if cfg.qk_norm else None),
             qk_eps=cfg.layer_norm_eps,
             rope=rope)
+    return x, attn_out, probs
+
+
+def _mlp_half(x, attn_out, bp, cfg: ViTConfig, *, rng=None,
+              deterministic: bool = True, dp_rate: float = 0.0):
+    """The rest of the block -> (x + attn_out, mlp_out): LayerScale,
+    dropout and drop-path on the attention's output, then LN2 and the MLP
+    (K2, a Soft-MoE mixture or the composed products) and the same on
+    its output."""
+    dt = x.dtype
     if "ls1" in bp:
         attn_out = attn_out * bp["ls1"].to(dt)
     attn_out = dropout(attn_out, cfg.dropout, rng,
@@ -484,7 +517,7 @@ def _encoder_block(x, pending, bp, cfg: ViTConfig, *, rng=None,
     if cfg.drop_path:
         mlp_out = drop_path(mlp_out, dp_rate, rng,
                             deterministic=deterministic)
-    return x, mlp_out, probs
+    return x, mlp_out
 
 
 def unstack(blocks: Params):
@@ -514,6 +547,97 @@ def drop_path_rates(cfg: ViTConfig, n: int, deterministic: bool) -> list:
     return torch.linspace(0.0, cfg.drop_path, n).tolist()
 
 
+class _Replay:
+    """``fn`` for ``torch.utils.checkpoint``: its first call draws from
+    ``rng`` as an unwrapped call would; a re-run (the backward's
+    recompute) first sets ``rng`` back to the state the first call
+    started from, so dropout and drop-path draw the same masks, then puts
+    the stream back where it was, so nothing after it draws twice.
+    Checkpointing restores the default generators, never an explicit one."""
+
+    def __init__(self, fn, rng):
+        self.fn, self.rng, self.ran = fn, rng, False
+        self.start = None if rng is None else rng.get_state()
+
+    def __call__(self, *args):
+        if not self.ran or self.rng is None:
+            self.ran = True
+            return self.fn(*args)
+        now = self.rng.get_state()
+        self.rng.set_state(self.start)
+        try:
+            return self.fn(*args)
+        finally:
+            self.rng.set_state(now)
+
+
+# vitx's "dots" policy (jax.checkpoint_policies.
+# dots_with_no_batch_dims_saveable) as torch's selective checkpointing: the
+# outputs of the 2-D products -- the projections and the MLP's -- are
+# kept; the attention's batched products and K1, whose products no policy
+# sees, are recomputed, as in vitx.
+_SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_PRODUCTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_mode(cfg: ViTConfig, x, layers: list) -> str:
+    """The remat policy ``run_blocks`` applies: ``cfg.remat`` where autograd
+    records the blocks (grad enabled, and x or a block leaf requiring
+    grad), else "none": inference, ``torch.no_grad`` and exports never
+    checkpoint."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return "none"
+    if x.requires_grad or any(t.requires_grad for bp in layers
+                              for t in bp.values()):
+        return cfg.remat
+    return "none"
+
+
+def _checkpointed_block(mode: str, x, pending, bp, cfg: ViTConfig, *,
+                        rng=None, deterministic: bool = True,
+                        dp_rate: float = 0.0, return_probs: bool = False,
+                        probs_mode: str = "full", rope=None):
+    """``_encoder_block`` under activation checkpointing
+    (``torch.utils.checkpoint``, non-reentrant), vitx's ``remat`` policies
+    (``vitx/nn/vit.py:494-515``): "block" recomputes the whole block in
+    the backward, K1 included (vitx's remat of a ``custom_vjp`` re-runs
+    its forward rule); "dots" keeps the 2-D products' outputs
+    (``_dots_policy``) and recomputes the rest, K1 included; "save_stash"
+    keeps K1's stash (its output and q, k, v, o_all, vitx's saved names,
+    with the attention's statistics) by running K1 outside the
+    checkpointed region, which recomputes the MLP half -- a block off the
+    fused route saves no stash and recomputes whole, as vitx's names save
+    nothing there."""
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+
+    kw = dict(use_reentrant=False, preserve_rng_state=False)
+    if (mode == "save_stash" and not return_probs
+            and _use_fused_mha(cfg, bp, x)):
+        if cfg.lora_rank:
+            bp = merge_block(bp, cfg)
+        x, attn_out, _ = _attention_half(x, pending, bp, cfg)
+        half = functools.partial(_mlp_half, bp=bp, cfg=cfg, rng=rng,
+                                 deterministic=deterministic,
+                                 dp_rate=dp_rate)
+        x, mlp_out = checkpoint(_Replay(half, rng), x, attn_out, **kw)
+        return x, mlp_out, None
+    if mode == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+    block = functools.partial(
+        _encoder_block, bp=bp, cfg=cfg, rng=rng, deterministic=deterministic,
+        dp_rate=dp_rate, return_probs=return_probs, probs_mode=probs_mode,
+        rope=rope)
+    return checkpoint(_Replay(block, rng), x, pending, **kw)
+
+
 def run_blocks(layers: list, x, cfg: ViTConfig, *, rng=None,
                deterministic: bool = True, return_probs: bool = False,
                probs_mode: str = "full"):
@@ -524,13 +648,19 @@ def run_blocks(layers: list, x, cfg: ViTConfig, *, rng=None,
     ``cfg.drop_path`` at the last, over the dense and MoE blocks alike
     (vit.py:537). vitx scans a MoE model's two stacks apart and hands the
     second ``(x + pending, 0)``: the next block reads only that sum, which
-    is the one the carry forms here, so the loop is the same function."""
+    is the one the carry forms here, so the loop is the same function.
+    Where autograd records the blocks, each runs under ``cfg.remat``'s
+    activation checkpointing (``remat_mode``, ``_checkpointed_block``):
+    the same values, less memory, more compute."""
     rates = drop_path_rates(cfg, len(layers), deterministic)
     pending = torch.zeros_like(x)
     rope = block_rope(cfg, x)
+    mode = remat_mode(cfg, x, layers)
+    run = (_encoder_block if mode == "none" else
+           functools.partial(_checkpointed_block, mode))
     probs = []
     for bp, rate in zip(layers, rates):
-        x, pending, p = _encoder_block(
+        x, pending, p = run(
             x, pending, bp, cfg, rng=rng, deterministic=deterministic,
             dp_rate=rate, return_probs=return_probs, probs_mode=probs_mode,
             rope=rope)

@@ -4,25 +4,39 @@ The counterpart of the npz half of ``vitx/train/checkpoint.py``: one file
 per epoch, ``{epoch}.ckpt``, newest = the largest integer stem. A file is
 an npz of ``leaf_{i}`` arrays plus ``__meta__`` (JSON as uint8 bytes). The
 leaves are vitx's ``TrainState(step, params, opt_state)`` in
-``jax.tree_util.tree_flatten`` order, which for the AdamW chains vitx's
-``make_optimizer`` builds (clipping, optax's adamw with a constant lr or a
-schedule, masked weight decay or not, a freeze policy's ``optax.masked``,
-layer-wise lr decay, the EMA link last, all inside ``optax.MultiSteps``
-with accumulation) is:
+``jax.tree_util.tree_flatten`` order, which for the chains vitx's
+``make_optimizer`` builds (clipping, adamw, sgd, lion or adafactor with a
+constant lr or a schedule, masked weight decay or not, a freeze policy's
+``optax.masked``, layer-wise lr decay, the EMA link last, all inside
+``optax.MultiSteps`` with accumulation) is:
 
-    step, params..., [mini_step, gradient_step], adam count, mu..., nu...,
+    step, params..., [mini_step, gradient_step], [count], slots...,
     [schedule count], [ema...], [acc_grads...]
 
-with every tree's leaves in sorted-key order (``leaves``), the counts and
-the step int32 scalars, everything else fp32. Clipping, the weight-decay
-mask, LLRD and the masks' ``MaskedNode``s keep no leaves, so under a
-freeze policy mu and nu hold the trainable leaves only; the EMA and the
-accumulated gradients hold every leaf. A port state is an
-``AdamWState``: its one count stands for vitx's adam count, schedule
-count and ``gradient_step``, which no chain lets differ.
-``tests/test_torch_checkpoint.py`` and ``tests/test_torch_finetune_knobs.py``
-derive the order from vitx's own flatten for each chain and round-trip
-files both ways.
+with the optimizer's own state in the middle:
+
+    adamw      count, mu..., nu...                (ScaleByAdamState)
+    sgd        trace...                           (TraceState: no count)
+    lion       count, mu...                       (ScaleByLionState)
+    adafactor  count, v_row..., v_col..., v...    (FactoredState)
+
+every tree's leaves in sorted-key order (``leaves``), the counts and the
+step int32 scalars, everything else fp32 except a ``mu_dtype="bfloat16"``
+first moment, which is stored as vitx's ``np.savez`` stores a JAX
+bfloat16 array: its 2-byte bit pattern, read back as void (``|V2``).
+Adafactor keeps (1,) placeholders: ``v`` on a factored leaf, ``v_row``
+and ``v_col`` on the others. Clipping, the weight-decay mask, LLRD and
+the masks' ``MaskedNode``s keep no leaves, so under a freeze policy the
+slots hold the trainable leaves only; the EMA and the accumulated
+gradients hold every leaf. A port state (``AdamWState``, ``SGDState``,
+``LionState``, ``AdafactorState``, whose ``SLOTS`` and ``COUNTED`` give
+the middle part) has one count, which stands for vitx's optimizer count,
+schedule count and ``gradient_step``, which no chain lets differ.
+``tests/test_torch_checkpoint.py``, ``tests/test_torch_finetune_knobs.py``
+and ``tests/test_torch_optim.py`` derive the order from vitx's own
+flatten for each chain and round-trip files both ways. (vitx cannot read
+a ``|V2`` leaf back: its restore casts each array with ``astype``, which
+numpy refuses for void; the port reads it as bfloat16.)
 
 Writes are atomic (a temporary file, then a rename); ``keep`` prunes to
 the newest files, never the ``protect``ed epoch; ``restore_latest``
@@ -68,12 +82,15 @@ def _orbax_error(path) -> NotImplementedError:
 def state_leaves(state: TrainState, schedule: bool) -> list:
     """The leaves of ``state`` in vitx's checkpoint order (module
     docstring); ``schedule``: the chain has an lr schedule, whose count
-    leaf follows nu."""
+    leaf follows the optimizer's own state."""
     opt = state.opt_state
     out = [state.step, *leaves(state.params)]
     if opt.acc is not None:
         out += [opt.mini_step, opt.count]
-    out += [opt.count, *leaves(opt.mu), *leaves(opt.nu)]
+    if opt.COUNTED:
+        out.append(opt.count)
+    for name in opt.SLOTS:
+        out += leaves(getattr(opt, name))
     if schedule:
         out.append(opt.count)
     if opt.ema is not None:
@@ -84,11 +101,26 @@ def state_leaves(state: TrainState, schedule: bool) -> list:
 
 
 def _host(leaf) -> np.ndarray:
+    """A leaf as the numpy array vitx's ``np.savez`` writes: a bfloat16
+    tensor (a ``mu_dtype`` moment) as its 2-byte bit pattern (``|V2``),
+    as numpy stores JAX's bfloat16 arrays; ints as int32."""
     if torch.is_tensor(leaf):
-        return leaf.detach().cpu().numpy()
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view("V2")
+        return t.numpy()
     if isinstance(leaf, (int, np.integer)):
         return np.asarray(leaf, np.int32)
     return np.asarray(leaf)
+
+
+def _tensor(a: np.ndarray) -> torch.Tensor:
+    """A saved leaf as a tensor: a ``|V2`` array (bfloat16 bits) as
+    bfloat16."""
+    if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int16)).view(
+            torch.bfloat16)
+    return torch.from_numpy(np.asarray(a))
 
 
 def snapshot(state: TrainState, schedule: bool) -> list:
@@ -255,8 +287,7 @@ def _fill(template: TrainState, arrays: list, schedule: bool, path):
     def take_tree(tree):
         if isinstance(tree, dict):
             return {k: take_tree(tree[k]) for k in sorted(tree)}
-        return torch.from_numpy(np.asarray(next(it))).to(
-            device=tree.device, dtype=tree.dtype)
+        return _tensor(next(it)).to(device=tree.device, dtype=tree.dtype)
 
     opt = template.opt_state
     step = int(next(it))
@@ -265,17 +296,20 @@ def _fill(template: TrainState, arrays: list, schedule: bool, path):
     if opt.acc is not None:
         mini_step = int(next(it))
         counts.append(int(next(it)))        # MultiSteps' gradient_step
-    count = int(next(it))
-    mu, nu = take_tree(opt.mu), take_tree(opt.nu)
+    if opt.COUNTED:
+        counts.append(int(next(it)))
+    slots = {name: take_tree(getattr(opt, name)) for name in opt.SLOTS}
     if schedule:
         counts.append(int(next(it)))
-    if any(c != count for c in counts):
-        raise ValueError(f"{path}: the chain's counts {[count, *counts]} "
-                         f"differ")
+    if any(c != counts[0] for c in counts):
+        raise ValueError(f"{path}: the chain's counts {counts} differ")
     ema = take_tree(opt.ema) if opt.ema is not None else None
     acc = take_tree(opt.acc) if opt.acc is not None else None
-    return TrainState(step, params, AdamWState(count, mu, nu, ema, acc,
-                                               mini_step))
+    # an SGD chain without a schedule or accumulation keeps no count: the
+    # step is the number of updates applied
+    count = counts[0] if counts else step
+    return TrainState(step, params, type(opt)(
+        count=count, **slots, ema=ema, acc=acc, mini_step=mini_step))
 
 
 def restore_checkpoint(path, template: TrainState, schedule: bool):
@@ -320,30 +354,26 @@ def _params_template(cfg: ViTConfig, device):
     return build(param_spec(cfg))
 
 
-def _unported_meta(meta: dict) -> None:
-    if meta.get("optimizer", "adamw") != "adamw":
-        raise NotImplementedError(
-            f"checkpoints of optimizer={meta['optimizer']!r} are not "
-            f"readable by vitx_torch yet (ROADMAP A12)")
-    if meta.get("loss_type") not in (None, "ce"):
-        raise NotImplementedError(
-            f"checkpoints of multi-label (bce) runs (loss_type="
-            f"{meta['loss_type']!r}) are not readable by vitx_torch yet "
-            f"(ROADMAP A12)")
-
-
 def state_template(params, *, ema: bool = False,
-                   train_filter: str | None = None,
-                   accum_steps: int = 1) -> TrainState:
+                   train_filter: str | None = None, accum_steps: int = 1,
+                   optimizer: str = "adamw",
+                   mu_dtype: str | None = None) -> TrainState:
     """A ``TrainState`` whose structure (not values) is that of a run with
-    these knobs: what ``restore_checkpoint`` fills. The template's
-    tensors are ``params``' own, shared across its trees."""
-    from vitx_torch.train.step import prune, trainable_flags
+    these knobs: what ``restore_checkpoint`` fills. Its tensors hold no
+    memory of their own: the params' own, and expanded 0-dim tensors of
+    the optimizer's slot shapes."""
+    from vitx_torch.train.step import make_optimizer
 
-    train = prune(params, trainable_flags(params, train_filter))
-    return TrainState(0, params, AdamWState(
-        0, train, train, params if ema else None,
-        params if accum_steps > 1 else None))
+    opt = make_optimizer(optimizer=optimizer, trainable=train_filter,
+                         mu_dtype=mu_dtype)
+
+    def alloc(shape, dtype, like):
+        return torch.empty((), dtype=dtype, device=like.device).expand(
+            tuple(shape))
+    state = opt.init(params, alloc)
+    return TrainState(0, params, state._replace(
+        ema=params if ema else None,
+        acc=params if accum_steps > 1 else None))
 
 
 def restore_eval_params(path_or_dir, cfg: ViTConfig, device="cuda"):
@@ -367,13 +397,13 @@ def restore_eval_params(path_or_dir, cfg: ViTConfig, device="cuda"):
             return None, None
     else:
         meta = _read_meta(path)
-    _unported_meta(meta)
     params = _params_template(cfg, dev)
     n_params = len(leaves(params))
     has_ema = meta.get("ema_decay") is not None
     has_schedule = bool(meta.get("schedule"))
     knobs = dict(train_filter=meta.get("train_filter"),
-                 accum_steps=meta.get("accum_steps", 1))
+                 accum_steps=meta.get("accum_steps", 1),
+                 optimizer=meta.get("optimizer", "adamw"))
     if not has_ema or not has_schedule:
         with np.load(path) as z:
             n_saved = sum(1 for k in z.files if k.startswith("leaf_"))
@@ -556,6 +586,68 @@ def load_artifact_params(checkpoint, cfg: ViTConfig, device="cuda"):
     if meta is None:
         raise FileNotFoundError(f"no checkpoint under {p}")
     return params, meta
+
+
+def _key_path(path) -> tuple:
+    """A leaf's path as vitx's ``tree_leaves_with_path`` keys print."""
+    return tuple(f"[{k!r}]" for k in path)
+
+
+def soup_params(params, cfg: ViTConfig, extra_checkpoints, device="cuda"):
+    """A uniform model soup (Wortsman et al. 2022;
+    ``vitx/train/checkpoint.py:530-561``): ``params`` averaged with the
+    params of ``extra_checkpoints`` -- any artifact
+    ``load_artifact_params`` reads, of the same geometry. Each leaf is the
+    fp32 sum of the ingredients in order, divided by their count and cast
+    back to the leaf's dtype; an ingredient of another tree is refused
+    with vitx's message (a checkpoint that records its config is read at
+    that geometry first)."""
+    def shapes(tree):
+        return {_key_path(path): tuple(leaf.shape)
+                for path, leaf in _sorted_leaves(tree)}
+
+    base = shapes(params)
+    trees = [params]
+    for c in extra_checkpoints:
+        # a checkpoint is read at the geometry it records, so that one of
+        # another geometry is named as vitx names it, not failed on read
+        saved = (peek_meta(c) if pathlib.Path(c).suffix in ("", SUFFIX)
+                 else None)
+        src_cfg = (ViTConfig.from_json(json.dumps(saved["config"]))
+                   if saved and "config" in saved else cfg)
+        extra, _ = load_artifact_params(c, src_cfg, device=device)
+        other = shapes(extra)
+        if other != base:
+            only_b = sorted(set(base) - set(other))[:3]
+            only_o = sorted(set(other) - set(base))[:3]
+            mismatched = sorted(k for k in base
+                                if k in other and base[k] != other[k])[:3]
+            raise ValueError(
+                f"soup ingredient {c} has a different parameter tree "
+                f"(missing: {only_b}, extra: {only_o}, shape mismatches: "
+                f"{mismatched}) — soup models must share one geometry")
+        trees.append(extra)
+    n = float(len(trees))
+
+    def avg(path):
+        xs = []
+        for tree in trees:
+            node = tree
+            for k in path:
+                node = node[k]
+            xs.append(node)
+        acc = 0
+        for x in xs:
+            acc = acc + x.float().to(xs[0].device)
+        return (acc / n).to(xs[0].dtype)
+
+    out: dict = {}
+    for path, _ in _sorted_leaves(params):
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = avg(path)
+    return out
 
 
 def _sorted_leaves(tree, prefix=()):

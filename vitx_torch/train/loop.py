@@ -4,20 +4,29 @@ The counterpart of ``vitx/train/loop.py``: ``Trainer.fit`` runs epochs of
 train steps over a ``BatchLoader`` or ``DeviceBatchLoader``, evaluates on
 ``eval_params()`` (the EMA shadow when the optimizer keeps one) every
 ``eval_every`` epochs (through the merging encoder when the config sets
-``tome_r``, as vitx's eval step does), stops early when val accuracy
-stalls, logs vitx's scalar tags, and writes a self-describing
-``{epoch}.ckpt`` per epoch (meta: ``loss``, ``step``, ``config`` -- with
-``tome_r`` as the resolved schedule and ``tome_train`` --, ``ema_decay``,
-``schedule``, ``accum_steps``, ``train_filter``, ``partial``) that it
+``tome_r``, as vitx's eval step does; a multi-label run, ``loss="bce"``,
+reports micro and macro F1 and mAP from the gathered logits), stops early
+when val accuracy stalls, logs vitx's scalar tags, and writes a
+self-describing ``{epoch}.ckpt`` per epoch (meta: ``loss``, ``step``,
+``config`` -- with ``tome_r`` as the resolved schedule and
+``tome_train`` --, ``loss_type``, ``ema_decay``, ``schedule``,
+``accum_steps``, ``optimizer``, ``train_filter``, ``partial``) that it
 resumes from. A LoRA config trains its adapters and heads only
-(``train_filter`` defaults to "lora"); ``llrd``, ``accum_steps`` and the
-mixing knobs go to ``make_optimizer`` and the train step as in vitx. SIGTERM and SIGINT end
-the epoch early and save it as ``partial``, which a resume runs again.
+(``train_filter`` defaults to "lora"); the optimizer (adamw, sgd, lion,
+adafactor; ``mu_dtype``), ``llrd``, ``accum_steps``, SAM (``sam_rho``),
+the loss and the mixing knobs go to ``make_optimizer`` and the train step
+as in vitx. ``steps_per_dispatch`` k > 1 stacks k batches, places them on
+the device once and issues their k steps back to back with no host read
+between them (the epoch's remainder under k runs step by step);
+``profile_epoch`` writes a ``torch.profiler`` trace of that epoch (CPU
+and CUDA activities) under ``log_dir``. SIGTERM and SIGINT end the epoch
+early and save it as ``partial``, which a resume runs again.
 
 Randomness differs from vitx by design (torch cannot draw threefry's
 streams): each step's preprocessing and dropout draw from generators
 seeded by ``(seed, epoch, step)``, so a resumed run draws exactly what an
-uninterrupted one would. Scalars stay on the device until a flush every
+uninterrupted one would, and the trajectory does not depend on
+``steps_per_dispatch``. Scalars stay on the device until a flush every
 ``log_every`` steps.
 """
 
@@ -25,6 +34,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import pathlib
 import signal
 import time
 from typing import Any, Callable
@@ -34,21 +44,24 @@ import torch
 
 from vitx_torch.core.config import ViTConfig
 from vitx_torch.core.device import resolve_device
-from vitx_torch.metrics import confusion_to_metrics
+from vitx_torch.metrics import confusion_to_metrics, multilabel_metrics
+from vitx_torch.nn.vit import model_logits
 from vitx_torch.train.checkpoint import (AsyncCheckpointWriter,
                                          restore_latest, save_checkpoint,
                                          snapshot)
 from vitx_torch.train.logging import ScalarWriter
 from vitx_torch.train.step import (TrainState, create_train_state,
                                    get_ema_params, make_eval_step,
-                                   make_optimizer, make_train_step)
+                                   make_optimizer, make_train_step,
+                                   sigmoid_bce_loss)
 
 
 @dataclasses.dataclass
 class TrainerConfig:
     """vitx's ``TrainerConfig`` (``vitx/train/loop.py:34-132``): every field
-    with its name and default. The fields ``Trainer`` does not take yet
-    raise when set away from their default (``UNPORTED``)."""
+    with its name and default. The fields ``Trainer`` does not take yet,
+    pipeline parallelism's, raise when set away from their default
+    (``UNPORTED``)."""
     epochs: int = 10
     lr: float = 1e-4
     weight_decay: float = 1e-4
@@ -85,10 +98,34 @@ class TrainerConfig:
 
 
 # TrainerConfig fields the port does not take yet -> the ROADMAP item
-UNPORTED = {"sam_rho": "A12", "loss": "A12", "optimizer": "A12",
-            "mu_dtype": "A12", "steps_per_dispatch": "A12",
-            "profile_epoch": "A12", "pp_microbatches": "A13",
-            "pp_schedule": "A13"}
+UNPORTED = {"pp_microbatches": "A13", "pp_schedule": "A13"}
+
+
+@torch.no_grad()
+def multilabel_eval(params, cfg: ViTConfig, batches) -> dict:
+    """The multi-label evaluation of ``batches`` ((images, (B, C) labels,
+    mask or None) on the params' device): the valid rows' logits and
+    targets gathered to the host batch by batch, ``multilabel_metrics``
+    over them, and the mean BCE loss weighted by each batch's valid rows
+    (vitx's trainer and eval CLI compute the same); {} without a batch."""
+    scores, targets = [], []
+    loss_sum, n = 0.0, 0
+    for images, labels, mask in batches:
+        logits = model_logits(params, images, cfg)
+        keep = (torch.ones(logits.shape[0], dtype=torch.bool,
+                           device=logits.device) if mask is None
+                else mask > 0)
+        k = int(keep.sum())
+        loss_sum += float(sigmoid_bce_loss(logits, labels, mask)) * k
+        n += k
+        scores.append(logits[keep].float().cpu().numpy())
+        targets.append(labels[keep].cpu().numpy())
+    if not scores:
+        return {}
+    metrics = multilabel_metrics(np.concatenate(scores),
+                                 np.concatenate(targets))
+    metrics["loss"] = loss_sum / max(n, 1)
+    return metrics
 
 
 class NonFiniteLossError(RuntimeError):
@@ -115,7 +152,7 @@ class Trainer:
     step's count over ``accum_steps``). ``train_step``: a step of
     ``make_train_step``'s signature to run in place of the config's (the
     train CLI's distillation step). vitx's mesh arguments wait for ROADMAP
-    A13."""
+    A13 (so does its refusal of ``steps_per_dispatch`` on a mesh)."""
 
     def __init__(self, cfg: ViTConfig, tcfg: TrainerConfig, *,
                  preprocess: Callable | None = None,
@@ -140,7 +177,9 @@ class Trainer:
                            wd_exclude=tcfg.wd_exclude, llrd=tcfg.llrd,
                            llrd_depth=cfg.depth,
                            accum_steps=tcfg.accum_steps,
-                           trainable=tcfg.train_filter)
+                           optimizer=tcfg.optimizer,
+                           trainable=tcfg.train_filter,
+                           mu_dtype=tcfg.mu_dtype)
         self._schedule = self.optimizer.schedule is not None
         self.state = (init_state if init_state is not None else
                       create_train_state(tcfg.seed, cfg, self.optimizer,
@@ -149,8 +188,11 @@ class Trainer:
             cfg, self.optimizer, device=self.device,
             label_smoothing=tcfg.label_smoothing,
             mixup_alpha=tcfg.mixup_alpha, cutmix_alpha=tcfg.cutmix_alpha,
-            class_weights=tcfg.class_weights,
-            train_filter=tcfg.train_filter)
+            sam_rho=tcfg.sam_rho, class_weights=tcfg.class_weights,
+            train_filter=tcfg.train_filter, loss=tcfg.loss)
+        if tcfg.steps_per_dispatch < 1:
+            raise ValueError(f"steps_per_dispatch must be >= 1, got "
+                             f"{tcfg.steps_per_dispatch}")
         self.eval_step = make_eval_step(cfg, device=self.device)
         self.preprocess = preprocess
         # a generator for the steps whose forward or mixing draws: dropout,
@@ -203,7 +245,10 @@ class Trainer:
     def evaluate(self, eval_loader) -> dict:
         """One confusion matrix over the loader on ``eval_params()``, one
         host transfer at the end; the loss is weighted by each batch's
-        valid rows."""
+        valid rows. A multi-label run (``loss="bce"``) reports
+        ``evaluate_multilabel``'s metrics instead."""
+        if self.tcfg.loss == "bce":
+            return self.evaluate_multilabel(eval_loader)
         cm = loss_sum = None
         params = self.eval_params()
         for batch in eval_loader:
@@ -221,13 +266,29 @@ class Trainer:
         metrics["confusion_matrix"] = cm_host
         return metrics
 
+    def evaluate_multilabel(self, eval_loader) -> dict:
+        """vitx's ``_evaluate_multilabel`` (``vitx/train/loop.py:
+        419-445``): ``multilabel_eval`` of ``eval_params()`` over the
+        loader."""
+        def batches():
+            for batch in eval_loader:
+                prepped = self._prep(self._on_device(batch), None,
+                                     train=False)
+                yield (prepped["image"], prepped["label"],
+                       prepped.get("mask"))
+        return multilabel_eval(self.eval_params(), self.cfg, batches())
+
     def _meta(self, stats: dict) -> dict:
         meta = {"loss": stats.get("loss", 0.0), "step": int(self.state.step),
                 "config": json.loads(self.cfg.to_json())}
+        if self.tcfg.loss != "ce":
+            meta["loss_type"] = self.tcfg.loss
         if self.tcfg.ema_decay is not None:
             meta["ema_decay"] = self.tcfg.ema_decay
         if self.tcfg.accum_steps > 1:
             meta["accum_steps"] = self.tcfg.accum_steps
+        if self.tcfg.optimizer != "adamw":
+            meta["optimizer"] = self.tcfg.optimizer
         if self.tcfg.train_filter:
             meta["train_filter"] = self.tcfg.train_filter
         if self._schedule:
@@ -256,8 +317,11 @@ class Trainer:
                     break
         best_acc, best_epoch, stale_evals = -1.0, None, 0
         stop_early = False
+        profiler = None
         try:
             for epoch in range(self.start_epoch, tcfg.epochs):
+                if tcfg.profile_epoch == epoch and tcfg.log_dir:
+                    profiler = self._start_profile()
                 stats = self._train_epoch(train_loader, epoch, writer)
                 if eval_loader is not None and not self._preempted and \
                         (epoch + 1) % tcfg.eval_every == 0:
@@ -272,10 +336,16 @@ class Trainer:
                                   if not isinstance(v, np.ndarray)})
                     if writer:
                         writer.add_scalar("val?acc", em["accuracy"], epoch)
-                        writer.add_scalar("Val/precision_weighted",
-                                          em["precision_weighted"], epoch)
-                        writer.add_scalar("Val/recall_weighted",
-                                          em["recall_weighted"], epoch)
+                        if "precision_weighted" in em:
+                            writer.add_scalar("Val/precision_weighted",
+                                              em["precision_weighted"],
+                                              epoch)
+                            writer.add_scalar("Val/recall_weighted",
+                                              em["recall_weighted"], epoch)
+                        if "mAP" in em:        # multi-label (loss="bce")
+                            writer.add_scalar("Val/mAP", em["mAP"], epoch)
+                            writer.add_scalar("Val/f1_micro",
+                                              em["f1_micro"], epoch)
                 if writer and self._lr_schedule is not None:
                     # the schedule's horizon is in optimizer updates: one
                     # per accum_steps micro-batches (vitx/train/loop.py:505)
@@ -283,6 +353,9 @@ class Trainer:
                         "LR", float(self._lr_schedule(
                             self.state.step // max(1, self.tcfg.accum_steps))),
                         epoch)
+                if profiler is not None:
+                    self._stop_profile(profiler, epoch)
+                    profiler = None
                 if tcfg.checkpoint_dir is not None:
                     arrays = snapshot(self.state, self._schedule)
                     kw = dict(meta=self._meta(stats),
@@ -307,6 +380,8 @@ class Trainer:
                           f"(best {best_acc:.4f} at epoch {best_epoch})")
                     break
         finally:
+            if profiler is not None:        # an epoch that raised
+                profiler.stop()
             # the async writer first: a preempted run keeps its last save
             self._ckpt_writer.wait()
             if writer:
@@ -314,6 +389,53 @@ class Trainer:
             for sig, h in old_handlers.items():
                 signal.signal(sig, h)
         return self.history
+
+    def _start_profile(self):
+        """A ``torch.profiler`` session of the CPU and, on a card, CUDA
+        activities (vitx's ``jax.profiler.start_trace``)."""
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(activities=acts)
+        profiler.start()
+        return profiler
+
+    def _stop_profile(self, profiler, epoch: int) -> None:
+        """End the session and write its Chrome trace as
+        ``{log_dir}/profile_epoch{epoch}.json``."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        profiler.stop()
+        path = pathlib.Path(self.tcfg.log_dir) / f"profile_epoch{epoch}.json"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        profiler.export_chrome_trace(str(path))
+        print(f"profile of epoch {epoch}: {path}")
+
+    def _step(self, batch: dict, epoch: int, step: int) -> dict:
+        """One train step on a placed batch, its generators seeded from
+        (seed, epoch, step); -> its metrics, left on the device."""
+        gen = (self._generator(epoch, step, 0)
+               if self.preprocess is not None else None)
+        prepped = self._prep(batch, gen, train=True)
+        rng = self._generator(epoch, step, 1) if self._stochastic else None
+        self.state, metrics = self.train_step(self.state, prepped, rng)
+        return metrics
+
+    def dispatch_steps(self, batches: list, epoch: int, step: int) -> tuple:
+        """``steps_per_dispatch``'s k steps from global step ``step``: the
+        k batches (host arrays or device tensors) stacked and placed once,
+        then their steps issued back to back, no host read between them
+        -> (the stacked batch, {name: (k,) metrics on the device})."""
+        stacked = {}
+        for key in batches[0]:
+            vals = [b[key] for b in batches]
+            stacked[key] = (torch.stack(vals) if torch.is_tensor(vals[0])
+                            else torch.from_numpy(np.stack(vals)))
+        stacked = self._on_device(stacked)
+        ms = [self._step({key: v[i] for key, v in stacked.items()}, epoch,
+                         step + i) for i in range(len(batches))]
+        return stacked, {key: torch.stack([m[key] for m in ms])
+                         for key in ms[0]}
 
     def _train_epoch(self, train_loader, epoch: int, writer) -> dict:
         if hasattr(train_loader, "set_epoch"):
@@ -323,22 +445,36 @@ class Trainer:
         running_loss, last_metrics = 0.0, None
         pending = []             # (step, metrics) still on the device
         step = int(self.state.step)
-        for batch in train_loader:
-            if self._preempted:
-                break
-            batch = self._on_device(batch)
-            gen = (self._generator(epoch, step, 0)
-                   if self.preprocess is not None else None)
-            prepped = self._prep(batch, gen, train=True)
-            rng = self._generator(epoch, step, 1) if self._stochastic \
-                else None
-            self.state, metrics = self.train_step(self.state, prepped, rng)
-            step += 1
+        k = self.tcfg.steps_per_dispatch
+        buf = []
+
+        def count(batch):
+            nonlocal n_images
             if "mask" in batch:
                 n_valid.append(batch["mask"].sum())
             else:
-                n_images += batch["image"].shape[0]
-            pending.append((step, metrics))
+                # (B, H, W, C), or (k, B, H, W, C) stacked
+                n_images += int(np.prod(batch["image"].shape[:-3]))
+
+        for batch in train_loader:
+            if self._preempted:
+                break
+            if k > 1:
+                buf.append(batch)
+                if len(buf) < k:
+                    continue
+                stacked, ms = self.dispatch_steps(buf, epoch, step)
+                for i in range(k):
+                    pending.append((step + i + 1,
+                                    {key: v[i] for key, v in ms.items()}))
+                step += k
+                buf = []
+                count(stacked)
+            else:
+                batch = self._on_device(batch)
+                pending.append((step + 1, self._step(batch, epoch, step)))
+                step += 1
+                count(batch)
             if len(pending) >= self.tcfg.log_every:
                 running_loss += self._flush(pending, writer)
                 last_metrics = pending[-1][1]
@@ -351,6 +487,13 @@ class Trainer:
                     print(f"\r  epoch {epoch} step {step}: "
                           f"loss={float(last_metrics['loss']):.4f} "
                           f"{rate:.1f} img/s", end="", flush=True)
+        # the epoch's remainder under a whole dispatch: step by step
+        if not self._preempted:
+            for batch in buf:
+                batch = self._on_device(batch)
+                pending.append((step + 1, self._step(batch, epoch, step)))
+                step += 1
+                count(batch)
         if pending:
             running_loss += self._flush(pending, writer)
             last_metrics = pending[-1][1]

@@ -1,20 +1,25 @@
 """The train and eval steps of the port.
 
-The counterpart of ``vitx/train/step.py``: AdamW with optax's semantics
-(``make_optimizer``), the cross-entropy loss, ``train_step`` and
-``eval_step``, and the closures ``make_train_step`` / ``make_eval_step``
-(plain Python: no jit, no ``torch.compile``); the fine-tuning knobs of
-vitx's chain: a freeze policy (``make_trainable_mask``: LoRA, head-only),
-layer-wise lr decay, gradient accumulation as ``optax.MultiSteps`` and
-mixup / cutmix. Gradients come from autograd
-through the model's forward (``vitx_torch.nn.vit.model_logits``): on a CUDA
-device the attention halves run K1 with its stash and their backward runs
-B2 and B3, every LayerNorm backward runs B3, and ``make_optimizer(fused=
-True)`` updates every leaf with one B12 launch (vitx's conditions: no
-LLRD, accumulation or freeze). The unfused update is plain torch, as it
-is XLA in vitx. Frozen leaves enter the loss without ``requires_grad``,
-the counterpart of vitx's ``lax.stop_gradient``: autograd forms none of
-their products (K1's and K2's backward skip them too).
+The counterpart of ``vitx/train/step.py``: the optimizers with optax's
+semantics (``make_optimizer``: AdamW, with its first moment in bf16 under
+``mu_dtype``, SGD with momentum, Lion and Adafactor, each a small state
+class in plain torch), the cross-entropy and multi-label (sigmoid BCE)
+losses, ``train_step`` (with sharpness-aware minimization, ``sam_rho``)
+and ``eval_step``, and the closures ``make_train_step`` /
+``make_eval_step`` (plain Python: no jit, no ``torch.compile``); the
+fine-tuning knobs of vitx's chain, which compose with every optimizer: a
+freeze policy (``make_trainable_mask``: LoRA, head-only), layer-wise lr
+decay, gradient accumulation as ``optax.MultiSteps`` and mixup / cutmix.
+Gradients come from autograd through the model's forward
+(``vitx_torch.nn.vit.model_logits``): on a CUDA device the attention
+halves run K1 with its stash and their backward runs B2 and B3, every
+LayerNorm backward runs B3, and ``make_optimizer(fused=True)`` updates
+every leaf with one B12 launch (vitx's conditions: AdamW without
+``mu_dtype``, LLRD, accumulation or freeze). Every other update is plain
+torch, as it is XLA in vitx. Frozen leaves enter the loss without
+``requires_grad``, the counterpart of vitx's ``lax.stop_gradient``:
+autograd forms none of their products (K1's and K2's backward skip them
+too).
 
 The state is updated in place -- vitx's jitted step donates its state
 (``make_train_step``), so the same buffers are reused there too.
@@ -27,6 +32,7 @@ from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from vitx_torch.core.config import ViTConfig
 from vitx_torch.core.device import resolve_device
@@ -34,10 +40,7 @@ from vitx_torch.kernels.adamw import adamw_plain, fused_adamw_multi_
 from vitx_torch.metrics.metrics import confusion_matrix
 from vitx_torch.nn.vit import init_params, model_logits
 
-OPTIMIZERS = ("adamw", "sgd", "lion", "adafactor")
-
-
-def _not_ported(what: str, item: str = "A12"):
+def _not_ported(what: str, item: str = "A13"):
     return NotImplementedError(
         f"{what} is not ported to vitx_torch yet (ROADMAP {item})")
 
@@ -52,20 +55,65 @@ class TrainState(NamedTuple):
 
 class AdamWState(NamedTuple):
     """optax's ``ScaleByAdamState`` / vitx's ``FusedAdamWState``: updates
-    applied, and fp32 first and second moments shaped like the params --
-    like the trainable ones only under a freeze policy (``optax.masked``
-    keeps none for frozen leaves); with ``ema_decay``, ``ema`` holds
-    vitx's ``EmaState`` shadow of every param (``vitx/train/step.py:42-69``),
-    else None. With ``accum_steps`` k > 1, optax's ``MultiStepsState``:
-    ``acc`` the running mean of the micro-batches' gradients (every leaf)
-    and ``mini_step`` the micro-batches in it; ``count`` is its
-    ``gradient_step`` too."""
+    applied, and the first and second moments shaped like the params (fp32;
+    mu bf16 under ``mu_dtype="bfloat16"``) -- like the trainable ones only
+    under a freeze policy (``optax.masked`` keeps none for frozen leaves);
+    with ``ema_decay``, ``ema`` holds vitx's ``EmaState`` shadow of every
+    param (``vitx/train/step.py:42-69``), else None. With ``accum_steps`` k
+    > 1, optax's ``MultiStepsState``: ``acc`` the running mean of the
+    micro-batches' gradients (every leaf) and ``mini_step`` the
+    micro-batches in it; ``count`` is its ``gradient_step`` too. ``SLOTS``
+    name the per-leaf trees in vitx's flatten order; ``COUNTED``: the
+    optimizer keeps a count of its own (a schedule's count is another)."""
     count: int
     mu: dict
     nu: dict
     ema: dict | None = None
     acc: dict | None = None
     mini_step: int = 0
+    SLOTS = ("mu", "nu")
+    COUNTED = True
+
+
+class SGDState(NamedTuple):
+    """``SGD``'s state: optax's ``TraceState`` (the momentum trace, fp32,
+    no count of its own: ``count`` is the port's, what a schedule and
+    accumulation read), then ``AdamWState``'s ema, acc and mini_step."""
+    count: int
+    trace: dict
+    ema: dict | None = None
+    acc: dict | None = None
+    mini_step: int = 0
+    SLOTS = ("trace",)
+    COUNTED = False
+
+
+class LionState(NamedTuple):
+    """``Lion``'s state: optax's ``ScaleByLionState(count, mu)``, then
+    ``AdamWState``'s ema, acc and mini_step."""
+    count: int
+    mu: dict
+    ema: dict | None = None
+    acc: dict | None = None
+    mini_step: int = 0
+    SLOTS = ("mu",)
+    COUNTED = True
+
+
+class AdafactorState(NamedTuple):
+    """``Adafactor``'s state: optax's ``FactoredState(count, v_row, v_col,
+    v)`` -- a factored leaf's row and column moments with a (1,) ``v``, an
+    unfactored leaf's full ``v`` with (1,) row and column placeholders --
+    then ``AdamWState``'s ema, acc and mini_step."""
+    count: int
+    v_row: dict
+    v_col: dict
+    v: dict
+    ema: dict | None = None
+    acc: dict | None = None
+    mini_step: int = 0
+    SLOTS = ("v_row", "v_col", "v")
+    COUNTED = True
 
 
 def leaves(tree) -> list:
@@ -209,74 +257,78 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-class AdamW:
-    """AdamW with optax's semantics (``optax.adamw``: scale_by_adam ->
-    add_decayed_weights -> scale_by_learning_rate, then apply_updates):
-
-        p <- p - lr * (mu_hat / (sqrt(nu_hat) + eps) + wd * p)
-
-    b1 0.9, b2 0.999, eps 1e-8, eps_root 0, decay on every leaf (on the
-    matrix weights only with ``wd_exclude``, ``weight_decay_mask``); the
-    learning rate (or schedule) is read at the pre-increment count, the bias
-    corrections at the incremented one. ``grad_clip`` first scales the
-    gradients to that global norm when they exceed it. ``trainable`` (a
-    ``make_trainable_mask`` policy) keeps moments, weight decay and steps
+class _Chain:
+    """What vitx's chain composes around each optimizer
+    (``vitx/train/step.py:225-287``), shared by the four: ``grad_clip``
+    first scales the gradients to that global norm when they exceed it;
+    the learning rate (or ``schedule``) is read at the pre-increment
+    count; weight decay on every leaf, or on the matrix weights only with
+    ``wd_exclude`` (``weight_decay_mask``); ``trainable`` (a
+    ``make_trainable_mask`` policy) keeps state, weight decay and steps
     for the trainable leaves only and leaves the frozen ones bit-unchanged
-    (vitx's ``optax.masked`` pair). ``llrd`` multiplies each leaf's whole
-    update by its ``llrd_factors`` factor, after AdamW as vitx's chain
-    does. ``ema_decay`` keeps
-    an fp32 exponential moving average of the updated params in the state,
-    last in the chain as vitx's ``params_ema``: ema <- decay * ema +
-    (1 - decay) * p. ``accum_steps`` k > 1 is ``optax.MultiSteps``: each
-    call folds its gradients into a running mean (Welford's form, as
-    optax), and every k-th runs the chain above on that mean and clears
-    it; the other calls leave the params as they are. ``fused`` updates
-    every leaf in one in-place pass, one launch a step per gradient dtype
-    (B12, ``fused_adamw_multi_``), with the order of operations of
-    ``vitx/kernels/adamw.py:46-53``; otherwise the same
-    arithmetic runs as plain torch (``adamw_plain``). Either way ``update``
-    writes the params and moments in place and returns them.
-    """
+    (vitx's ``optax.masked`` pair); ``llrd`` multiplies each leaf's whole
+    update by its ``llrd_factors`` factor, after the optimizer as vitx's
+    chain does; ``ema_decay`` keeps an fp32 exponential moving average of
+    the updated params in the state, last in the chain as vitx's
+    ``params_ema``: ema <- decay * ema + (1 - decay) * p; ``accum_steps``
+    k > 1 is ``optax.MultiSteps``: each call folds its gradients into a
+    running mean (Welford's form, as optax), and every k-th runs the chain
+    on that mean and clears it; the other calls leave the params as they
+    are. ``update`` writes the params and the state's tensors in place and
+    returns them.
 
-    b1, b2, eps = 0.9, 0.999, 1e-8
+    A subclass names its state (``State``, whose ``SLOTS`` are its
+    per-leaf trees in vitx's flatten order and ``COUNTED`` whether the
+    chain keeps a count of its own besides a schedule's), makes the slots
+    of one leaf (``init_leaf``) and updates one leaf in place
+    (``step_leaf``)."""
+
+    fused = False
+    State: type
 
     def __init__(self, lr: float = 1e-4, weight_decay: float = 1e-4,
                  schedule: Callable | None = None,
-                 grad_clip: float | None = None, fused: bool = False,
+                 grad_clip: float | None = None,
                  ema_decay: float | None = None, wd_exclude: bool = False,
                  trainable: str | None = None, llrd: float | None = None,
                  llrd_depth: int | None = None, accum_steps: int = 1):
-        if fused and (ema_decay is not None or wd_exclude
-                      or trainable not in (None, "all") or llrd is not None
-                      or accum_steps > 1):
-            raise ValueError("the fused update (B12) takes neither "
-                             "ema_decay, wd_exclude, a freeze policy, llrd "
-                             "nor accumulation")
         if llrd is not None and llrd_depth is None:
             raise ValueError("llrd requires llrd_depth (the encoder depth)")
         if accum_steps < 1:
             raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
         make_trainable_mask(trainable)          # validates the policy
         self.lr, self.weight_decay = lr, weight_decay
-        self.schedule, self.grad_clip, self.fused = schedule, grad_clip, fused
+        self.schedule, self.grad_clip = schedule, grad_clip
         self.ema_decay, self.wd_exclude = ema_decay, wd_exclude
         self.trainable = None if trainable == "all" else trainable
         self.llrd, self.llrd_depth = llrd, llrd_depth
         self.accum_steps = accum_steps
 
-    def init(self, params) -> AdamWState:
+    def init_leaf(self, p, alloc) -> tuple:
+        """The state slots of one trainable leaf, made by ``alloc(shape,
+        dtype)``."""
+        raise NotImplementedError
+
+    def init(self, params, alloc=None):
+        """The zero state of ``params``. ``alloc(shape, dtype, like)``
+        makes each slot tensor (zeros on the leaf's device by default; a
+        checkpoint template passes one that allocates nothing)."""
         if self.llrd is not None:
             check_llrd_depth(params, self.llrd_depth)
+        if alloc is None:
+            def alloc(shape, dtype, like):
+                return torch.zeros(shape, dtype=dtype, device=like.device)
         train = prune(params, trainable_flags(params, self.trainable))
-        zeros = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
-                         train)
+        per_leaf = tree_map(
+            lambda p: self.init_leaf(p, lambda s, d: alloc(s, d, p)), train)
+        slots = {name: tree_map(lambda t, i=i: t[i], per_leaf)
+                 for i, name in enumerate(self.State.SLOTS)}
         ema = acc = None
         if self.ema_decay is not None:
             ema = tree_map(lambda p: p.detach().float().clone(), params)
         if self.accum_steps > 1:
             acc = tree_map(lambda p: torch.zeros_like(p), params)
-        return AdamWState(count=0, mu=zeros,
-                          nu=tree_map(torch.clone, zeros), ema=ema, acc=acc)
+        return self.State(count=0, **slots, ema=ema, acc=acc)
 
     def learning_rate(self, count: int) -> float:
         """The step size at ``count`` steps applied, as fp32."""
@@ -284,20 +336,34 @@ class AdamW:
             return float(np.float32(self.lr))
         return float(np.float32(self.schedule(count)))
 
-    def update_kw(self, count: int) -> dict:
-        """The scalars of the update after ``count`` steps applied, as
-        ``adamw_plain`` and B12 take them: the step size, the bias
-        corrections at step count + 1 (fp32), the betas, eps and wd."""
-        f32 = np.float32
-        n = f32(count + 1)
-        return dict(lr=self.learning_rate(count),
-                    c1=float(f32(1.0) - f32(self.b1) ** n),
-                    c2=float(f32(1.0) - f32(self.b2) ** n),
-                    b1=self.b1, b2=self.b2, eps=self.eps,
-                    wd=self.weight_decay)
+    def scalars(self, count: int) -> dict:
+        """The step's scalars after ``count`` updates, computed once a
+        step: the step size (fp32)."""
+        return {"lr": self.learning_rate(count)}
+
+    def step_leaf(self, p, g, slots: tuple, count: int, wd: float, factor,
+                  scalars: dict) -> None:
+        """One leaf's update in place: ``slots`` its state tensors,
+        ``count`` the updates applied before, ``wd`` 0 where the mask
+        exempts it, ``factor`` its LLRD factor or None, ``scalars`` the
+        step's (``scalars``)."""
+        raise NotImplementedError
+
+    def step_leaves(self, pl, gl, state, flags, params) -> None:
+        decays = (weight_decay_mask(params) if self.wd_exclude
+                  else [True] * len(pl))
+        factors = (llrd_factors(params, self.llrd, self.llrd_depth)
+                   if self.llrd is not None else [None] * len(pl))
+        scalars = self.scalars(state.count)
+        slots = iter(zip(*(leaves(getattr(state, name))
+                           for name in self.State.SLOTS)))
+        for p, g, dec, f, on in zip(pl, gl, decays, factors, flags):
+            if on:
+                self.step_leaf(p, g.float(), next(slots), state.count,
+                               self.weight_decay if dec else 0.0, f, scalars)
 
     @torch.no_grad()
-    def update(self, grads, state: AdamWState, params):
+    def update(self, grads, state, params):
         """One step over matching trees (or leaf lists, in ``leaves``
         order) of grads and params -> (params, new state). A frozen leaf's
         gradient may be None (a train step computes none); a trainable
@@ -327,26 +393,7 @@ class AdamW:
             gl = [None if g is None else torch.where(
                 keep, g, (g / g_norm.to(g.dtype)) * self.grad_clip)
                 for g in gl]
-        kw = self.update_kw(state.count)
-        ml, nl = leaves(state.mu), leaves(state.nu)
-        if self.fused:
-            fused_adamw_multi_(pl, gl, ml, nl, **kw)
-        else:
-            decays = (weight_decay_mask(params) if self.wd_exclude
-                      else [True] * len(pl))
-            factors = (llrd_factors(params, self.llrd, self.llrd_depth)
-                       if self.llrd is not None else [None] * len(pl))
-            moments = iter(zip(ml, nl))
-            for p, g, dec, f, on in zip(pl, gl, decays, factors, flags):
-                if not on:
-                    continue
-                mu, nu = next(moments)
-                p2, mu2, nu2 = adamw_plain(
-                    p, g, mu, nu, factor=f,
-                    **dict(kw, wd=kw["wd"] if dec else 0.0))
-                p.copy_(p2)
-                mu.copy_(mu2)
-                nu.copy_(nu2)
+        self.step_leaves(pl, gl, state, flags, params)
         if state.ema is not None:
             f32 = np.float32
             d, rest = float(f32(self.ema_decay)), float(
@@ -356,6 +403,211 @@ class AdamW:
         return params, state._replace(count=state.count + 1)
 
 
+class AdamW(_Chain):
+    """AdamW with optax's semantics (``optax.adamw``: scale_by_adam ->
+    add_decayed_weights -> scale_by_learning_rate, then apply_updates):
+
+        p <- p - lr * (mu_hat / (sqrt(nu_hat) + eps) + wd * p)
+
+    b1 0.9, b2 0.999, eps 1e-8, eps_root 0; the bias corrections at the
+    incremented count; the rest of the chain is ``_Chain``'s.
+    ``mu_dtype="bfloat16"`` stores the first moment in bf16 as optax's
+    ``scale_by_adam(mu_dtype=...)`` does: the new moment (1 - b1) g + b1
+    mu is formed in fp32 with b1 rounded to bf16 (JAX's weak-typed scalar
+    takes mu's dtype; XLA keeps the product in fp32 under jit, as vitx's
+    step runs), the step reads it in fp32, and it is stored rounded to
+    bf16 afterwards. ``fused`` updates every leaf in one
+    in-place pass, one launch a step per gradient dtype (B12,
+    ``fused_adamw_multi_``), with the order of operations of
+    ``vitx/kernels/adamw.py:46-53``; otherwise the same arithmetic runs as
+    plain torch (``adamw_plain``).
+    """
+
+    State = AdamWState
+    b1, b2, eps = 0.9, 0.999, 1e-8
+
+    def __init__(self, lr: float = 1e-4, weight_decay: float = 1e-4,
+                 schedule: Callable | None = None,
+                 grad_clip: float | None = None, fused: bool = False,
+                 ema_decay: float | None = None, wd_exclude: bool = False,
+                 trainable: str | None = None, llrd: float | None = None,
+                 llrd_depth: int | None = None, accum_steps: int = 1,
+                 mu_dtype: str | None = None):
+        if fused and (ema_decay is not None or wd_exclude
+                      or trainable not in (None, "all") or llrd is not None
+                      or accum_steps > 1 or mu_dtype is not None):
+            raise ValueError("the fused update (B12) takes neither "
+                             "ema_decay, wd_exclude, a freeze policy, llrd, "
+                             "accumulation nor mu_dtype")
+        if mu_dtype not in (None, "float32", "bfloat16"):
+            raise ValueError(f"unknown mu_dtype {mu_dtype!r}; have "
+                             f"'float32', 'bfloat16'")
+        super().__init__(lr=lr, weight_decay=weight_decay, schedule=schedule,
+                         grad_clip=grad_clip, ema_decay=ema_decay,
+                         wd_exclude=wd_exclude, trainable=trainable,
+                         llrd=llrd, llrd_depth=llrd_depth,
+                         accum_steps=accum_steps)
+        self.fused, self.mu_dtype = fused, mu_dtype
+        self._mu_dtype = (torch.bfloat16 if mu_dtype == "bfloat16"
+                          else torch.float32)
+
+    def init_leaf(self, p, alloc) -> tuple:
+        return alloc(p.shape, self._mu_dtype), alloc(p.shape, torch.float32)
+
+    def update_kw(self, count: int) -> dict:
+        """The scalars of the update after ``count`` steps applied, as
+        ``adamw_plain`` and B12 take them: the step size, the bias
+        corrections at step count + 1 (fp32), the betas, eps and wd."""
+        f32 = np.float32
+        n = f32(count + 1)
+        return dict(lr=self.learning_rate(count),
+                    c1=float(f32(1.0) - f32(self.b1) ** n),
+                    c2=float(f32(1.0) - f32(self.b2) ** n),
+                    b1=self.b1, b2=self.b2, eps=self.eps,
+                    wd=self.weight_decay)
+
+    def step_leaves(self, pl, gl, state, flags, params) -> None:
+        if self.fused:
+            fused_adamw_multi_(pl, gl, leaves(state.mu), leaves(state.nu),
+                               **self.update_kw(state.count))
+            return
+        super().step_leaves(pl, gl, state, flags, params)
+
+    scalars = update_kw
+
+    def step_leaf(self, p, g, slots, count, wd, factor, scalars) -> None:
+        mu, nu = slots
+        kw = dict(scalars, wd=wd)
+        if mu.dtype != torch.float32:
+            # optax's (1 - b1) g + b1 mu as vitx's jitted step computes it:
+            # b1 rounded to mu's dtype (JAX's weak-typed scalar), the
+            # product and sum in fp32; b1 = 1 then passes it through
+            b1 = float(torch.tensor(self.b1, dtype=mu.dtype))
+            mu = (1.0 - self.b1) * g + b1 * mu.float()
+            kw["b1"] = 1.0
+        p2, mu2, nu2 = adamw_plain(p, g, mu, nu, factor=factor, **kw)
+        p.copy_(p2)
+        slots[0].copy_(mu2)
+        nu.copy_(nu2)
+
+
+class SGD(_Chain):
+    """SGD with momentum 0.9 and decoupled weight decay
+    (``vitx/train/step.py:237-245``: ``optax.trace(0.9)``, then
+    ``add_decayed_weights`` (masked under ``wd_exclude``), then
+    ``scale_by_learning_rate``):
+
+        trace <- g + 0.9 trace;  p <- p - lr * (trace + wd * p)
+
+    The trace keeps no count (optax's ``TraceState``)."""
+
+    State = SGDState
+    momentum = 0.9
+
+    def init_leaf(self, p, alloc) -> tuple:
+        return (alloc(p.shape, torch.float32),)
+
+    def step_leaf(self, p, g, slots, count, wd, factor, scalars) -> None:
+        (trace,) = slots
+        trace.copy_(g + self.momentum * trace)
+        step = scalars["lr"] * (trace + wd * p)
+        p.copy_(p - (step if factor is None else step * factor))
+
+
+class Lion(_Chain):
+    """Lion (``optax.lion``, ``vitx/train/step.py:246-248``): b1 0.9, b2
+    0.99, the sign of the interpolated momentum, then decoupled weight
+    decay and the learning rate:
+
+        p <- p - lr * (sign((1 - b1) g + b1 mu) + wd * p)
+        mu <- (1 - b2) g + b2 mu"""
+
+    State = LionState
+    b1, b2 = 0.9, 0.99
+
+    def init_leaf(self, p, alloc) -> tuple:
+        return (alloc(p.shape, torch.float32),)
+
+    def step_leaf(self, p, g, slots, count, wd, factor, scalars) -> None:
+        (mu,) = slots
+        direction = torch.sign((1.0 - self.b1) * g + self.b1 * mu)
+        mu.copy_((1.0 - self.b2) * g + self.b2 * mu)
+        step = scalars["lr"] * (direction + wd * p)
+        p.copy_(p - (step if factor is None else step * factor))
+
+
+def factored_dims(shape) -> tuple | None:
+    """optax's ``_factored_dims`` with vitx's settings (factored, at least
+    128): (d1, d0), the second largest and the largest axis, or None when
+    the leaf has under two axes or its second largest is below 128."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < Adafactor.min_dim_size_to_factor:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+class Adafactor(_Chain):
+    """Adafactor as vitx builds it (``optax.adafactor`` with
+    ``multiply_by_parameter_scale=False``, ``clipping_threshold=None``,
+    ``weight_decay_rate=weight_decay or None``; ``vitx/train/step.py:
+    249-256``): optax's ``scale_by_factored_rms`` (decay 1 - (t+1)^-0.8 at
+    t updates applied, eps 1e-30 added to g², factored second moments on
+    leaves whose two largest axes are at least 128: a row and a column
+    mean, the full moment elsewhere), then the learning rate, then
+    decoupled weight decay (not scaled by lr, as optax's order has it),
+    then the sign flip:
+
+        p <- p - (lr * g * rsqrt(v) + wd * p)
+
+    The state is optax's ``FactoredState(count, v_row, v_col, v)``, with
+    (1,) placeholders where a leaf keeps the other form."""
+
+    State = AdafactorState
+    decay_rate, eps = 0.8, 1e-30
+    min_dim_size_to_factor = 128
+
+    def init_leaf(self, p, alloc) -> tuple:
+        dims = factored_dims(tuple(p.shape))
+        one = (1,)
+        if dims is None:
+            return alloc(one, p.dtype), alloc(one, p.dtype), \
+                alloc(p.shape, p.dtype)
+        d1, d0 = dims
+        shape = list(p.shape)
+        return (alloc(tuple(np.delete(shape, d0)), p.dtype),
+                alloc(tuple(np.delete(shape, d1)), p.dtype),
+                alloc(one, p.dtype))
+
+    def step_leaf(self, p, g, slots, count, wd, factor, scalars) -> None:
+        v_row, v_col, v = slots
+        t = torch.full((), count + 1, dtype=torch.float32, device=p.device)
+        rate = 1.0 - t ** (-self.decay_rate)
+        grad_sqr = g * g + self.eps
+        dims = factored_dims(tuple(p.shape))
+        if dims is None:
+            v.copy_(rate * v + (1.0 - rate) * grad_sqr)
+            u = g * v ** -0.5
+        else:
+            d1, d0 = dims
+            v_row.copy_(rate * v_row + (1.0 - rate) * grad_sqr.mean(dim=d0))
+            v_col.copy_(rate * v_col + (1.0 - rate) * grad_sqr.mean(dim=d1))
+            reduced_d1 = d1 - 1 if d1 > d0 else d1
+            row_col_mean = v_row.mean(dim=reduced_d1, keepdim=True)
+            row_factor = (v_row / row_col_mean) ** -0.5
+            col_factor = v_col ** -0.5
+            u = g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
+        u = scalars["lr"] * u
+        if self.weight_decay:
+            u = u + wd * p
+        p.copy_(p - (u if factor is None else u * factor))
+
+
+OPTIMIZERS = {"adamw": AdamW, "sgd": SGD, "lion": Lion,
+              "adafactor": Adafactor}
+
+
 def make_optimizer(lr: float = 1e-4, weight_decay: float = 1e-4,
                    schedule=None, grad_clip: float | None = None,
                    accum_steps: int = 1, fused: bool | str = "auto",
@@ -363,37 +615,35 @@ def make_optimizer(lr: float = 1e-4, weight_decay: float = 1e-4,
                    llrd: float | None = None, llrd_depth: int | None = None,
                    optimizer: str = "adamw", trainable: str | None = None,
                    mu_dtype: str | None = None,
-                   wd_exclude: bool = False) -> AdamW:
-    """AdamW as vitx builds it (``vitx/train/step.py:175-287``), with the
-    same defaults: lr 1e-4, weight decay 1e-4 on every leaf (the matrix
-    weights only with ``wd_exclude``), an optional ``schedule`` (e.g.
-    ``warmup_cosine``), ``grad_clip`` (global norm), ``ema_decay`` (the
-    params' EMA in the state), ``trainable`` (a freeze policy, vitx's
-    ``optax.masked``), ``llrd`` with ``llrd_depth`` (layer-wise lr decay)
-    and ``accum_steps`` (``optax.MultiSteps``). ``fused=True`` routes the
-    update to B12 under vitx's conditions (``step.py:225-228``): no EMA,
-    ``wd_exclude``, freeze, LLRD or accumulation; otherwise, and with
-    ``"auto"`` or False, the plain update runs. The other optimizers and
-    ``mu_dtype`` are not ported yet and raise."""
+                   wd_exclude: bool = False) -> _Chain:
+    """The optimizer as vitx builds it (``vitx/train/step.py:175-287``),
+    with the same defaults: ``optimizer`` "adamw" (``AdamW``), "sgd"
+    (``SGD``), "lion" (``Lion``) or "adafactor" (``Adafactor``), lr 1e-4,
+    weight decay 1e-4 on every leaf (the matrix weights only with
+    ``wd_exclude``), an optional ``schedule`` (e.g. ``warmup_cosine``),
+    ``grad_clip`` (global norm), ``ema_decay`` (the params' EMA in the
+    state), ``trainable`` (a freeze policy, vitx's ``optax.masked``),
+    ``llrd`` with ``llrd_depth`` (layer-wise lr decay), ``accum_steps``
+    (``optax.MultiSteps``) and, for adamw, ``mu_dtype`` (the first
+    moment's storage). ``fused=True`` routes the update to B12 under
+    vitx's conditions (``step.py:225-228``): adamw with no EMA,
+    ``wd_exclude``, freeze, LLRD, accumulation or ``mu_dtype``; otherwise,
+    and with ``"auto"`` or False, the plain update runs."""
     if optimizer not in OPTIMIZERS:
         raise ValueError(f"unknown optimizer {optimizer!r}; "
                          f"have {', '.join(OPTIMIZERS)}")
     if mu_dtype is not None and optimizer != "adamw":
         raise ValueError("mu_dtype applies to the adamw moments only")
-    unported = (
-        (optimizer != "adamw", f"optimizer={optimizer!r}"),
-        (mu_dtype is not None, "mu_dtype"),
-    )
-    for cond, what in unported:
-        if cond:
-            raise _not_ported(what)
+    kw = dict(lr=lr, weight_decay=weight_decay, schedule=schedule,
+              grad_clip=grad_clip, ema_decay=ema_decay,
+              wd_exclude=wd_exclude, trainable=trainable, llrd=llrd,
+              llrd_depth=llrd_depth, accum_steps=accum_steps)
+    if optimizer != "adamw":
+        return OPTIMIZERS[optimizer](**kw)
     use_fused = (fused is True and accum_steps == 1 and ema_decay is None
                  and llrd is None and trainable in (None, "all")
-                 and not wd_exclude)
-    return AdamW(lr=lr, weight_decay=weight_decay, schedule=schedule,
-                 grad_clip=grad_clip, fused=use_fused, ema_decay=ema_decay,
-                 wd_exclude=wd_exclude, trainable=trainable,
-                 llrd=llrd, llrd_depth=llrd_depth, accum_steps=accum_steps)
+                 and mu_dtype is None and not wd_exclude)
+    return AdamW(fused=use_fused, mu_dtype=mu_dtype, **kw)
 
 
 def warmup_cosine(lr: float, total_steps: int, warmup_steps: int = 0,
@@ -423,7 +673,7 @@ def warmup_cosine(lr: float, total_steps: int, warmup_steps: int = 0,
     return schedule
 
 
-def create_train_state(rng, cfg: ViTConfig, optimizer: AdamW, *,
+def create_train_state(rng, cfg: ViTConfig, optimizer: _Chain, *,
                        device="cuda") -> TrainState:
     """Fresh parameters (``init_params``; ``rng`` a ``torch.Generator`` or
     an int seed) on ``device`` -- a CUDA device by default, raising when
@@ -466,6 +716,22 @@ def cross_entropy_loss(logits, labels, mask=None, label_smoothing=0.0,
     mask = mask.float()
     denom = mask.sum() if denom_w is None else (denom_w * mask).sum()
     return (nll * mask).sum() / denom.clamp_min(1e-9)
+
+
+def sigmoid_bce_loss(logits, targets, mask=None):
+    """The multi-label loss (``vitx/train/step.py:347-358``): sigmoid
+    binary cross-entropy in fp32 against (B, C) multi-hot (or mixed, soft)
+    targets, optax's ``-t log sigmoid(x) - (1 - t) log sigmoid(-x)``,
+    averaged over the classes, then over the rows (``mask`` excludes
+    padding rows)."""
+    x = logits.float()
+    t = targets.float()
+    per = -t * F.logsigmoid(x) - (1.0 - t) * F.logsigmoid(-x)
+    per = per.mean(dim=-1)
+    if mask is None:
+        return per.mean()
+    m = mask.float()
+    return (per * m).sum() / m.sum().clamp_min(1e-9)
 
 
 def _host_rng(gen: torch.Generator) -> np.random.Generator:
@@ -524,12 +790,17 @@ def loss_fn(params, batch, cfg: ViTConfig, rng=None, *,
     mix with a permutation of the batch through ``mix_weight_map``'s map
     w, in fp32: w * x + (1 - w) * x[perm], and the loss is lam * CE(labels)
     + (1 - lam) * CE(labels[perm]) with lam = mean(w). ``mix`` = (perm,
-    w) replaces the draws, so that a test can feed vitx's."""
+    w) replaces the draws, so that a test can feed vitx's. ``loss="bce"``
+    takes (B, C) multi-hot labels through ``sigmoid_bce_loss`` (mixing
+    mixes the targets) and refuses label smoothing and class weights, as
+    vitx does."""
     if cfg.fuse_mlp == "auto":
         cfg = cfg.replace(fuse_mlp="off")
     if loss == "bce":
-        raise _not_ported("the multi-label loss (loss='bce')")
-    if loss != "ce":
+        if label_smoothing or class_weights is not None:
+            raise ValueError("loss='bce' does not compose with "
+                             "label_smoothing / class_weights")
+    elif loss != "ce":
         raise ValueError(f"unknown loss {loss!r} (have 'ce', 'bce')")
     image, mask = batch["image"], batch.get("mask")
     if (mixup_alpha or cutmix_alpha) and (rng is not None or mix is not None):
@@ -547,6 +818,11 @@ def loss_fn(params, batch, cfg: ViTConfig, rng=None, *,
                  ).to(image.dtype)
         logits = model_logits(params, image, cfg, rng=rng,
                               deterministic=rng is None)
+        if loss == "bce":
+            # BCE is affine in the target: mix the multi-hot targets
+            t = batch["label"].float()
+            mixed = lam * t + (1.0 - lam) * t[perm]
+            return sigmoid_bce_loss(logits, mixed, mask), logits
         labels = batch["label"].long()
         loss_v = (lam * cross_entropy_loss(logits, labels, mask,
                                            label_smoothing, class_weights)
@@ -556,6 +832,8 @@ def loss_fn(params, batch, cfg: ViTConfig, rng=None, *,
         return loss_v, logits
     logits = model_logits(params, image, cfg, rng=rng,
                           deterministic=rng is None)
+    if loss == "bce":
+        return sigmoid_bce_loss(logits, batch["label"], mask), logits
     loss_v = cross_entropy_loss(logits, batch["label"], mask,
                                 label_smoothing, class_weights)
     return loss_v, logits
@@ -577,7 +855,7 @@ def _check_on(params, dev: torch.device):
 
 
 def train_step(state: TrainState, batch, rng=None, *, cfg: ViTConfig,
-               optimizer: AdamW, device="cuda",
+               optimizer: _Chain, device="cuda",
                label_smoothing: float = 0.0,
                mixup_alpha: float | None = None,
                cutmix_alpha: float | None = None,
@@ -585,32 +863,71 @@ def train_step(state: TrainState, batch, rng=None, *, cfg: ViTConfig,
                grad_shardings=None, train_filter: str | None = None,
                loss: str = "ce", mix=None):
     """One optimizer step (``vitx/train/step.py:458-547``). ``batch``:
-    {"image": (B, H, W, C), "label": (B,), optional "mask": (B,) 0/1},
-    numpy or tensors. ``rng``: a ``torch.Generator`` on ``device`` for
-    dropout/drop-path and mixing, or None for a deterministic step
-    (``mix`` as ``loss_fn`` takes it). The state must live on ``device``
-    (a CUDA device by default). ``train_filter`` ("lora", "head"): the
-    frozen leaves enter the loss without ``requires_grad`` and get no
-    gradient (vitx's ``stop_gradient``); pair it with an optimizer of the
-    same ``trainable``. Updates the state's tensors in place; returns
-    (state, metrics) with fp32 0-dim tensors ``loss``, ``accuracy`` and
-    ``grad_norm`` (the gradients' global norm, before clipping) left on
-    the device."""
+    {"image": (B, H, W, C), "label": (B,) -- (B, C) multi-hot with
+    ``loss="bce"`` --, optional "mask": (B,) 0/1}, numpy or tensors.
+    ``rng``: a ``torch.Generator`` on ``device`` for dropout/drop-path and
+    mixing, or None for a deterministic step (``mix`` as ``loss_fn``
+    takes it). The state must live on ``device`` (a CUDA device by
+    default). ``train_filter`` ("lora", "head"): the frozen leaves enter
+    the loss without ``requires_grad`` and get no gradient (vitx's
+    ``stop_gradient``); pair it with an optimizer of the same
+    ``trainable``. ``sam_rho``: sharpness-aware minimization, the update
+    from the gradient at p + rho * g / (|g| + 1e-12) (``sam_gradients``).
+    Updates the state's tensors in place; returns (state, metrics) with
+    fp32 0-dim tensors ``loss``, ``accuracy`` (per element of the 0.5
+    decisions for multi-hot labels) and ``grad_norm`` (the clean
+    gradients' global norm, before clipping) left on the device."""
     dev = resolve_device(device)
-    if sam_rho:
-        raise _not_ported("sharpness-aware minimization (sam_rho)")
     if grad_shardings is not None:
-        raise _not_ported("sharded gradients (grad_shardings)", "A13")
+        raise _not_ported("sharded gradients (grad_shardings)")
     _check_on(state.params, dev)
     batch = _to_device(batch, dev)
     params, wrt = trainable_params(state.params, train_filter)
-    loss_v, logits = loss_fn(params, batch, cfg, rng,
-                             label_smoothing=label_smoothing,
-                             mixup_alpha=mixup_alpha,
-                             cutmix_alpha=cutmix_alpha,
-                             class_weights=class_weights, loss=loss, mix=mix)
-    return apply_gradients(state, optimizer, loss_v, logits, params, wrt,
-                           batch)
+    # SAM's second pass draws the same dropout, drop-path and mixing
+    rng_state = rng.get_state() if sam_rho and rng is not None else None
+
+    def loss_of(p):
+        return loss_fn(p, batch, cfg, rng, label_smoothing=label_smoothing,
+                       mixup_alpha=mixup_alpha, cutmix_alpha=cutmix_alpha,
+                       class_weights=class_weights, loss=loss, mix=mix)
+
+    loss_v, logits = loss_of(params)
+    grads = gradients(loss_v, params, wrt)
+    grad_norm = global_norm(grads)
+    if sam_rho:
+        grads = sam_gradients(loss_of, state.params, wrt, grads, grad_norm,
+                              sam_rho, rng, rng_state)
+    return finish_step(state, optimizer, grads, grad_norm, loss_v, logits,
+                       wrt, batch)
+
+
+def sam_gradients(loss_of, params, wrt: list, grads: list, grad_norm,
+                  rho: float, rng=None, rng_state=None) -> list:
+    """First-order SAM (``vitx/train/step.py:511-519``): the gradients of
+    ``loss_of`` at the ascent point p + (rho / (|g| + 1e-12) * g) cast to
+    p's dtype, for the leaves flagged in ``wrt`` (``grads`` theirs at p,
+    ``grad_norm`` their global norm); frozen leaves stay where they are,
+    as vitx's zero gradients leave them. ``rng`` is set back to
+    ``rng_state`` first, so the second pass draws the clean pass's
+    dropout, drop-path and mixing."""
+    scale = rho / (grad_norm + 1e-12)
+    it = iter(grads)
+
+    def ascend(p, w):
+        if not w:
+            return p.detach()
+        return (p.detach() + (scale * next(it)).to(p.dtype)).requires_grad_()
+    flat = iter(zip(leaves(params), wrt))
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(node[k]) for k in sorted(node)}
+        return ascend(*next(flat))
+    adv = walk(params)
+    if rng is not None:
+        rng.set_state(rng_state)
+    loss_adv, _ = loss_of(adv)
+    return gradients(loss_adv, adv, wrt)
 
 
 def trainable_params(params, train_filter: str | None = None):
@@ -627,24 +944,45 @@ def trainable_params(params, train_filter: str | None = None):
     return walk(params), flags
 
 
-def apply_gradients(state: TrainState, optimizer: AdamW, loss_v, logits,
+def gradients(loss_v, params, wrt: list) -> list:
+    """The gradients of ``loss_v`` for the leaves of ``params`` flagged in
+    ``wrt``, in ``leaves`` order (zeros where the loss does not reach a
+    leaf)."""
+    req = [t for t, w in zip(leaves(params), wrt) if w]
+    return [torch.zeros_like(t) if g is None else g for t, g in zip(
+        req, torch.autograd.grad(loss_v, req, allow_unused=True))]
+
+
+def apply_gradients(state: TrainState, optimizer: _Chain, loss_v, logits,
                     params, wrt: list, batch: dict,
                     extra: dict | None = None):
     """The gradients of ``loss_v`` for the leaves of ``params`` (the tree
     the loss read) flagged in ``wrt`` (None for the rest), one optimizer
-    update of the state, and the step's metrics -> (state, metrics):
+    update of the state, and the step's metrics (``finish_step``)."""
+    grads = gradients(loss_v, params, wrt)
+    return finish_step(state, optimizer, grads, global_norm(grads), loss_v,
+                       logits, wrt, batch, extra)
+
+
+def finish_step(state: TrainState, optimizer: _Chain, grads: list,
+                grad_norm, loss_v, logits, wrt: list, batch: dict,
+                extra: dict | None = None):
+    """One optimizer update of the state from ``grads`` (the flagged
+    leaves' gradients), and the step's metrics -> (state, metrics):
     ``loss``, ``accuracy`` of ``logits`` against ``batch["label"]``
-    (masked), ``grad_norm``, and ``extra``'s entries."""
-    req = [t for t, w in zip(leaves(params), wrt) if w]
-    grads = [torch.zeros_like(t) if g is None else g for t, g in zip(
-        req, torch.autograd.grad(loss_v, req, allow_unused=True))]
-    grad_norm = global_norm(grads)
+    (masked; for (B, C) multi-hot labels the mean agreement of the logits'
+    signs with the labels' 0.5 decisions, vitx's multi-label accuracy),
+    ``grad_norm`` and ``extra``'s entries."""
     it = iter(grads)
     full = [next(it) if w else None for w in wrt]
     new_params, opt_state = optimizer.update(full, state.opt_state,
                                              state.params)
     with torch.no_grad():
-        correct = (logits.argmax(dim=-1) == batch["label"].long()).float()
+        labels = batch["label"]
+        if labels.dim() == 2:
+            correct = ((logits > 0) == (labels > 0.5)).float().mean(dim=-1)
+        else:
+            correct = (logits.argmax(dim=-1) == labels.long()).float()
         if "mask" in batch:
             m = batch["mask"].float()
             acc = (correct * m).sum() / m.sum().clamp_min(1.0)
@@ -679,7 +1017,7 @@ def eval_step(params, batch, *, cfg: ViTConfig, device="cuda"):
     return cm, loss
 
 
-def make_train_step(cfg: ViTConfig, optimizer: AdamW, *, device="cuda",
+def make_train_step(cfg: ViTConfig, optimizer: _Chain, *, device="cuda",
                     label_smoothing: float = 0.0,
                     mixup_alpha: float | None = None,
                     cutmix_alpha: float | None = None,
