@@ -82,8 +82,9 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               bit for bit, and its
               earlier kernel on the same inputs), the K1 and K2 stashes, and
               torch.autograd.grad
-              through both fused blocks on the card against the same on the
-              CPU (plain versions); B12 (AdamW) bit for bit against its
+              through both fused blocks on the card against the plain
+              versions' on the CPU (batches up to 8; larger ones against
+              the plain versions' on the card); B12 (AdamW) bit for bit against its
               plain version: the one-leaf kernel on a base16 leaf, the
               multi-leaf kernel over every base16 leaf (one launch) and
               over ragged views at element offsets 0-2 with fp32 and bf16
@@ -200,10 +201,10 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               val accuracies equal, the params and the EMA within
               RECIPE_PARAM_BAR (0.05) of the peak lr; (b) the recipe at small16's full
               width and depth (bf16, b128) through
-              vitx_torch.cli.train.main on procedural:2048,512 with
+              vitx_torch.cli.train.main on procedural:1024,256 with
               --device-cache --randaug 5 --ema-decay 0.999 --wd-exclude
               --early-stop 10 --schedule cosine, 3 epochs; cut to size:
-              the split (2048 + 512, not 12800 + 2560), --warmup-steps 10
+              the split (1024 + 256, not 12800 + 2560), --warmup-steps 10
               (not 300), --log-every 4, 3 epochs. Launches asserted: per
               step K1 12, B2 12 (all sm90), B3 25 (all one-pass), K2 0,
               B12 0; per eval batch K1 12 and K2 12 (sm90); finite losses
@@ -244,7 +245,7 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               vitx_torch.cli.train.main --data cifar10:DIR, launches as
               the recipe's (K1 12, B2 12, B3 25 a step; K1 and K2 12 an
               eval batch); (b) vitx_torch.cli.pack --data
-              procedural:512,128 --format raw --image-size 384 (10
+              procedural:256,64 --format raw --image-size 384 (10
               classes), and write_shards of its first 4 classes (no PIL);
               (c) the train CLI's trainer (build_trainer) fine-tunes
               base16 at 384² (T 577) b32 from (a)'s .ckpt (--init-from,
@@ -262,7 +263,7 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               .pt: load_reference_pt bit-equal, cli.eval --predict and a
               server's top-1 equal to direct calls, --init-from the .pt
               equal to transfer_params; (g) a Training/Testing folder of
-              512 + 128 256² PNG images in 4 classes (the brain-tumour
+              256 + 64 256² PNG images in 4 classes (the brain-tumour
               layout) fine-tuned as (c) on --data folder:DIR (PIL decodes
               and resizes to 384² on the host), the eval CLI's accuracy
               the logged one. The times phase adds (h): the fine-tune
@@ -357,10 +358,44 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               it (its mAP the trainer's), eval --soup of it and a nudged
               copy (the report of their averaged params);
               tune --mode train --remat none,block,save_stash at base16
-              b64; bench 1 with its dispatch rows k 1, 4, 16. Launches of
+              b64; bench 1 with its dispatch rows k 1, 4, 16 (16
+              iterations, 2 repeats). Launches of
               (b) and (c) exact; they are the kernels line's "optim"
               path.
-16. artifacts -- main path 8, the model shipped (base16 bf16 at full
+16. pretrain -- main path 13, vitx's self-supervised pretraining (MAE,
+              DINO, SimCLR; every block K1 and K2 with their stashes under
+              grad, B2, B3): (a) each family at base16's widths, depth 2
+              (MAE's decoder 512 x 2 x 16: D 32), fp32, batch 4 (DINO 2
+              images, 2 locals), card vs CPU from the same state with the
+              same draws: loss, monitors and every gradient within 1e-4,
+              one step's params within param_gap's allowance, DINO's
+              teacher and centre, its prototypes frozen and pinned; (b)
+              each at full width in bf16 (MAE b128 with the 512 x 8 x 16
+              decoder, DINO b32 with 2 x 224² + 6 x 96² views and 4096
+              prototypes, SimCLR b128): the loss on its first rows (8, 4,
+              8) against the CPU's fp32 at the same weights (0.05), ten
+              steps on one batch with the same draws (MAE's and SimCLR's
+              losses fall, DINO's finite with the teacher's entropy in (0,
+              log K]), six more, the median of the last 5 by CUDA events,
+              the peak memory of a fresh state's step, launches exact (a
+              step: MAE K1 and K2 20, B2 20 of which 12 sm90, B3 42; DINO
+              K1 and K2 36, the teacher's 12 without stash, B2 24, B3 50;
+              SimCLR K1 and K2 12, B2 12, B3 25); (c) K1 with its stash,
+              K2 with its stash, B2 and B3 at MAE's decoder (128, 197,
+              512), 16 heads of D 32 (the sm90 GEMM with the earlier
+              attention, B2's earlier kernel), K1 with its stash, B2 (its
+              sm90 kernel in bf16) and B3 at MAE's visible tokens (128,
+              50, 768) and DINO's locals (192, 37, 768), against their
+              plain versions in fp32 (1e-4) and bf16 (BF16_TOL), each
+              twice bit for bit, then their times as more "shapes" of the
+              kernels line's rows; (d) cli.pretrain on tiny
+              (procedural:256,64, b64) for each method, 2 epochs then a
+              resume to 3, launches exact, the export equal to the last
+              .ckpt's encoder (the teacher's for DINO); cli.train
+              --init-from the MAE export for an epoch (launches exact) and
+              cli.probe on it. Its launches, (b) and (d), are the kernels
+              line's "pretrain" path.
+17. artifacts -- main path 8, the model shipped (base16 bf16 at full
               width): (a) an int8 .quant.npz of the params, about 1/4 of
               their fp32 bytes, quantization_error at most 1/254, a
               server on it answering 32 requests with the top-1 of direct
@@ -376,7 +411,7 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               within 1e-4 and the probe CLI on a .quant.npz over
               procedural:128,64, reports and features alike. Its
               launches are the kernels line's "export" path.
-17. bench  -- main path 9, vitx's bench configurations on the card: K1
+18. bench  -- main path 9, vitx's bench configurations on the card: K1
               (with and without its stash), K2, B2 and B3 at huge14's
               shapes (E 1280, 10 heads of D 128: the earlier attention
               kernels, the sm90 GEMM) held to their plain versions in
@@ -384,7 +419,7 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               last the "huge14" path: its launches asserted), then
               vitx_torch.cli.tune --mode infer on base16 at 64, 128 and
               256 with no error row.
-18. times  -- CUDA-event medians: the base16 forward at batch 256 bf16
+19. times  -- CUDA-event medians: the base16 forward at batch 256 bf16
               (img/s), the train step at batch 128 bf16 (img/s), the
               large16_384 rollout forward at batch 32 bf16 (img/s), the
               same with QKV biases and forward_with_attn("full") at
@@ -430,7 +465,12 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               stash then B2 and B3, forward and backward apart. After the
               bench phase, K1's and K2's rows at huge14's (32, 257, 1280),
               B2's earlier kernel at (8, 10, 257, 128) and B3's at (8, 257,
-              1280), as more "shapes".
+              1280), as more "shapes"; and the pretrain phase's (c): K1's
+              sm90 row at (128, 197, 512) (D 32), (128, 50, 768) and (192,
+              37, 768), K2's at (128, 197, 512), M 2048, B2's wrapper at
+              (128, 16, 197, 32) (its earlier kernel), B2's sm90 row at
+              (128, 12, 50, 64) and (192, 12, 37, 64), and B3's one-pass
+              row at (128, 197, 512) and (128, 50, 768).
 
 Each main path runs with the kernels' launch counts set to 0 just before
 it and read just after. ``attention_bwd``, ``flash_attention`` and the
@@ -441,7 +481,8 @@ wrappers' ``launches_sm90``, the launches on the sm90 route, and the
 launches on the sm90 attention are counted beside them (EXTRA_COUNTERS)
 and reported in their sm90 rows.
 Each phase's end is printed on the script's clock (``{"phase": ...,
-"ended_at_s": ...}``; ``times`` ends at the ``total`` line). The last
+"ended_at_s": ...}``; ``times`` ends at the ``total`` line), and every
+phase line carries ``t_s``, that clock when it was printed. The last
 lines are one JSON
 object listing the kernels and, last, ``{"ok": true, "device": {...}}``.
 ``--phases`` runs a subset (``device,build,grad`` is the quick check
@@ -494,7 +535,7 @@ PROFILE_LEAD_KEPT = 960       # of them a window must keep to be read
 PROFILE_TRIES = 3             # windows profile_call traces at most
 PHASES = ("device", "build", "kernels", "grad", "forward", "serve", "train",
           "explain", "tome", "finetune", "recipe", "transfer", "pretrained",
-          "families", "optim", "artifacts", "bench", "times")
+          "families", "optim", "pretrain", "artifacts", "bench", "times")
 
 KERNELS = {
     "fused_mha_block": {
@@ -735,7 +776,14 @@ NO_ADD_LIBRARY = ("no single PyTorch call adds a residual and normalises "
 BUILD = Path(__file__).resolve().parent / "build"
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """Prints ``obj`` as one JSON line; a phase's line carries ``t_s``, the
+    script's clock when it was printed."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": round(time.perf_counter() - T_START, 2)}
     print(json.dumps(obj), flush=True)
 
 
@@ -763,13 +811,14 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
 
 
 def block_inputs(B, T, E, H, M, dtype, seed, device):
-    """Seeded inputs of one block at (B, T, E), weights in ``dtype``."""
-    rng = np.random.default_rng(seed)
+    """Seeded inputs of one block at (B, T, E), weights in ``dtype``, drawn
+    on the card (the same values whatever ``device`` they are placed on)."""
+    gen = torch.Generator("cuda").manual_seed(seed)
     D = E // H
 
     def t(shape, scale, dt=dtype, shift=0.0):
-        a = (shift + scale * rng.standard_normal(shape)).astype(np.float32)
-        return torch.from_numpy(a).to(device=device, dtype=dt)
+        a = torch.randn(shape, generator=gen, device="cuda")
+        return (shift + scale * a).to(device=device, dtype=dt)
 
     f32 = torch.float32
     x = t((B, T, E), 1.0)
@@ -806,8 +855,12 @@ def phase_build():
     emit({"phase": "build", "seconds": round(seconds, 2),
           "per_source_s": {n: round(v["seconds"], 2)
                            for n, v in _build.build_log.items()}})
-    funcs = {name: sass_functions(_build._target(name))
-             for name in (*SM90_SOURCES, *NO_WGMMA_SOURCES)}
+    from concurrent.futures import ThreadPoolExecutor
+
+    names = (*SM90_SOURCES, *NO_WGMMA_SOURCES)
+    with ThreadPoolExecutor(len(names)) as pool:   # one cuobjdump each
+        funcs = dict(zip(names, pool.map(
+            lambda n: sass_functions(_build._target(n)), names)))
     counts_ = {name: sass_counts(f) for name, f in funcs.items()}
     sass = {name: {kern: sass_of(counts_[name], kern) for kern in wanted}
             for name, wanted in SM90_SOURCES.items()}
@@ -1548,11 +1601,15 @@ def check(phase: str, what: str, out, ref, tol: float,
 
 def seeded(shape, seed, scale=1.0, shift=0.0, dtype=torch.float32,
            device="cuda"):
-    a = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
-    return torch.from_numpy(shift + scale * a).to(device=device, dtype=dtype)
+    """shift + scale * N(0, 1) of ``shape``, drawn on the card from
+    ``seed`` (the same values whatever ``device`` it is placed on)."""
+    gen = torch.Generator("cuda").manual_seed(seed)
+    a = torch.randn(shape, generator=gen, device="cuda")
+    return (shift + scale * a).to(device=device, dtype=dtype)
 
 
-def check_attention_bwd(shape, dtype, tol, errs: dict) -> None:
+def check_attention_bwd(shape, dtype, tol, errs: dict,
+                        phase: str = "grad") -> None:
     """B2's kernel at (B, H, T, D) against ``attention_bwd_plain``, given
     the forward's o and row statistics (their plain versions), twice, bit
     for bit. In bf16 at D 64 that is the sm90 kernel; the earlier kernel,
@@ -1574,13 +1631,13 @@ def check_attention_bwd(shape, dtype, tol, errs: dict) -> None:
     bf = dtype == torch.bfloat16
     ref = attention_bwd_plain(q, k, v, do)
     info = {"shape": list(shape), "dtype": str(dtype)}
-    check("grad", name, out, ref, tol, errs if bf else None, name, **info)
+    check(phase, name, out, ref, tol, errs if bf else None, name, **info)
     again = attention_bwd(q, k, v, do, o, stats)
     if not all(torch.equal(a, b) for a, b in zip(out, again)):
         raise AssertionError(f"{name} {info}: two calls differ")
     if on_sm90:
         tflash = attention_module()
-        check("grad", "attention_bwd (the earlier kernel)",
+        check(phase, "attention_bwd (the earlier kernel)",
               tflash._bwd_wmma(q, k, v, do), ref, tol, errs,
               "attention_bwd", **info)
         B, H, T, D = shape
@@ -1652,7 +1709,7 @@ def check_backward_kernels(B, T, E, H, dtype, tol, errs: dict,
     tln = importlib.import_module("vitx_torch.kernels.layer_norm")
     bf = dtype == torch.bfloat16
     info = {"dtype": str(dtype), "batch": B}
-    check_attention_bwd((B, H, T, E // H), dtype, tol, errs)
+    check_attention_bwd((B, H, T, E // H), dtype, tol, errs, phase)
     for shape in ((B, T, E), (B, 4 * E)):
         x = seeded(shape, 5, 2.0, 0.5, dtype=dtype)
         dy = seeded(shape, 6, 0.1, dtype=dtype)
@@ -1679,9 +1736,15 @@ def check_backward_kernels(B, T, E, H, dtype, tol, errs: dict,
                   errs if bf else None, "ln_bwd", shape=list(shape), **info)
 
 
+# batches up to this hold autograd through the fused blocks against the
+# CPU; larger ones against the plain versions' autograd on the card
+GRAD_CPU_MAX_B = 8
+
+
 def check_training_kernels(B, T, E, H, dtype, tol, gtol, errs: dict):
     """``check_backward_kernels``, the K1 and K2 stashes and autograd
-    through both blocks (card against CPU) at (B, T, E) in ``dtype``."""
+    through both blocks at (B, T, E) in ``dtype``: against the plain
+    versions on the CPU up to GRAD_CPU_MAX_B, on the card past it."""
     from vitx_torch.kernels import (fused_mha_block, fused_mlp_block,
                                     mha_block_plain, mlp_block_plain)
 
@@ -1699,20 +1762,24 @@ def check_training_kernels(B, T, E, H, dtype, tol, gtol, errs: dict):
           **info)
     del out
     dout = seeded((B, T, E), 9, 0.1, dtype=dtype)
-    for name, fn, args in (
-            ("fused_mha_block", fused_mha_block, mha),
+    on_cpu = B <= GRAD_CPU_MAX_B
+    for name, fn, plain, args in (
+            ("fused_mha_block", fused_mha_block, mha_block_plain, mha),
             ("fused_mlp_block",
              lambda x, **a: fused_mlp_block(x, **a, act="gelu_tanh"),
+             lambda x, **a: mlp_block_plain(x, **a, act="gelu_tanh"),
              mlp)):
         card = [x, *args.values()]
-        host = [t.detach().cpu() for t in card]
+        dev = "cpu" if on_cpu else "cuda"
+        ref = [t.detach().to(dev) for t in card]
         grads = []
-        for ts, d in ((card, dout), (host, dout.cpu())):
+        for f, ts, d in ((fn, card, dout), (plain, ref, dout.to(dev))):
             ts = [t.detach().requires_grad_() for t in ts]
-            y = fn(ts[0], **dict(zip(args, ts[1:])))
+            y = f(ts[0], **dict(zip(args, ts[1:])))
             grads.append(torch.autograd.grad(y, ts, d))
         torch.cuda.synchronize()
-        check("grad", f"{name} autograd.grad, card vs CPU", grads[0],
+        against = "CPU" if on_cpu else "the plain versions on the card"
+        check("grad", f"{name} autograd.grad, card vs {against}", grads[0],
               grads[1], gtol, **info)
 
 
@@ -2320,16 +2387,16 @@ def phase_finetune(ds) -> tuple:
 
 
 # the small16 recipe of CONVERGENCE.md without ToMe-train: the train CLI's
-# flags; the cuts for a card run are its split (2048 + 512 images, not
-# 12800 + 2560), --warmup-steps 10 (not 300: 48 steps in all) and 3 epochs
-RECIPE_DATA = "procedural:2048,512"
+# flags; the cuts for a card run are its split (1024 + 256 images, not
+# 12800 + 2560), --warmup-steps 10 (not 300: 24 steps in all) and 3 epochs
+RECIPE_DATA = "procedural:1024,256"
 RECIPE_ARGS = ["--preset", "small16", "--data", RECIPE_DATA,
                "--device-cache", "--batch-size", "128", "--lr", "3e-4",
                "--schedule", "cosine", "--warmup-steps", "10",
                "--weight-decay", "0.05", "--wd-exclude", "--randaug", "5",
                "--ema-decay", "0.999", "--early-stop", "10", "--seed", "0",
                "--log-every", "4"]
-RECIPE_EPOCHS, RECIPE_TRAIN, RECIPE_VAL = 3, 2048, 512
+RECIPE_EPOCHS, RECIPE_TRAIN, RECIPE_VAL = 3, 1024, 256
 # CONVERGENCE.md's two other variants of the recipe, with the flags of
 # examples/convergence.py:51-55 (VARIANTS), and the phase's part for each
 RECIPE_VARIANTS = {"tome": ("g", ["--tome-r", "to128", "--tome-train"]),
@@ -2587,7 +2654,8 @@ def recipe_times(args: list, cfg, what: str = "recipe") -> None:
     wall = time.perf_counter() - t0
     ms = {k: sum(s.elapsed_time(e) for s, e in v) for k, v in events.items()}
     tr.preprocess, tr.train_step = pre, step
-    busy_ms = profile_call(f"{what} train epoch (16 steps)",
+    busy_ms = profile_call(f"{what} train epoch ({RECIPE_TRAIN // 128} "
+                           "steps)",
                            lambda: tr._train_epoch(train_loader, 1, None),
                            top=16)
     t0 = time.perf_counter()
@@ -2682,8 +2750,8 @@ def phase_recipe() -> dict:
             raise AssertionError(f"recipe (b): checkpoint meta {m}")
 
     # (c) resume: the CLI's 3-epoch trainer stopped after 2 epochs (a
-    # second call with --epochs 2 would anneal the cosine over 32 steps,
-    # not 48: its horizon is --epochs x the epoch's steps, vitx's rule),
+    # second call with --epochs 2 would anneal the cosine over 16 steps,
+    # not 24: its horizon is --epochs x the epoch's steps, vitx's rule),
     # then --epochs 3 on the same directory
     import dataclasses
 
@@ -2896,9 +2964,10 @@ def recipe_variant(root: Path, name: str) -> dict:
 # the transfer path: pre-training on a CIFAR-10 copy at 224², then
 # fine-tuning base16 from its .ckpt at 384² (T 577) on packed shards. The
 # cuts: CIFAR-10 5 x 256 + 256 images (from 5 x 10000 + 10000),
-# procedural:512,128 for the shards (from 12800 + 2560), one epoch each.
+# procedural:256,64 for the shards (from 12800 + 2560), one epoch each.
 TRANSFER_CIFAR = 256              # images per CIFAR batch file
-TRANSFER_DATA = "procedural:512,128"
+TRANSFER_SPLIT = (256, 64)        # the packed shards' train, val images
+TRANSFER_DATA = "procedural:{},{}".format(*TRANSFER_SPLIT)
 TRANSFER_FOUR = 4                 # the second fine-tune's classes
 
 
@@ -2940,7 +3009,7 @@ class ClassSubset:
         return self.ds.get_example(int(self.idx[i]))
 
 
-TRANSFER_FOLDER = (512, 128)      # PNG images in Training/, Testing/
+TRANSFER_FOLDER = (256, 64)       # PNG images in Training/, Testing/
 FOLDER_CLASSES = ("glioma", "meningioma", "notumor", "pituitary")
 
 
@@ -3075,7 +3144,7 @@ def transfer_fine_tune(part: str, src: Path, data: str, root: Path,
 def phase_transfer() -> tuple:
     """Main path 7, transfer: (a) base16 pre-trained at 224² b128 for one
     epoch on a CIFAR-10 copy through ``vitx_torch.cli.train.main``; (b)
-    ``vitx_torch.cli.pack`` packs procedural:512,128 at 384² as raw
+    ``vitx_torch.cli.pack`` packs procedural:256,64 at 384² as raw
     shards (10 classes), ``write_shards`` a 4-class subset of them; (c)
     the fine-tune at 384² b32 from (a)'s .ckpt on each
     (``transfer_fine_tune``); (d) the transfer and its first step at depth
@@ -3156,7 +3225,7 @@ def phase_transfer() -> tuple:
           f"--data {TRANSFER_DATA} --format raw --image-size 384, and a "
           f"{TRANSFER_FOUR}-class subset by write_shards", "pack": packed,
           "pack_s": pack_s, "subset_s": sub_s, "images": sizes})
-    if rc != 0 or [p["images"] for p in packed] != [512, 128]:
+    if rc != 0 or [p["images"] for p in packed] != list(TRANSFER_SPLIT):
         raise AssertionError(f"transfer (b): pack exit {rc}, {packed}")
 
     # (c) the fine-tunes: the same head shape (10 classes), then a new one
@@ -3208,7 +3277,8 @@ def phase_transfer() -> tuple:
           report["accuracy"], "logged": last["val_accuracy"],
           "split_counts": got_counts, "split_indices_counts": want})
     if not (report["accuracy"] == last["val_accuracy"]
-            and report["num_examples"] == 128 and got_counts == want):
+            and report["num_examples"] == TRANSFER_SPLIT[1]
+            and got_counts == want):
         raise AssertionError(f"transfer (e): {report}, {split}, {want}")
 
     # (f) the reference .pt
@@ -4548,6 +4618,24 @@ def verify_explains(cfg, params, imgs, queries, results) -> None:
           "direct calls", "requests": len(queries)})
 
 
+def device_records(prof) -> dict:
+    """{name: [device ms, records]} over a finished trace's device records
+    (kernels, copies, sets), read from the profiler's raw records as
+    ``key_averages()`` reads them (its device rows, synchronous records
+    only). ``key_averages()`` itself first builds an event for every host
+    record, which over a train epoch takes tens of seconds."""
+    rows = {}
+    for ev in prof.profiler.kineto_results.events():
+        if (ev.device_type() != torch.autograd.DeviceType.CUDA
+                or ev.is_async()
+                or ev.start_thread_id() != ev.end_thread_id()):
+            continue
+        row = rows.setdefault(ev.name(), [0.0, 0])
+        row[0] += (ev.end_ns() - ev.start_ns()) / 1e6
+        row[1] += 1
+    return rows
+
+
 def profile_call(what: str, fn, top: int = 12, calls: int = 1,
                  wall: bool = False):
     """Device time by kernel name over ``calls`` calls of ``fn``
@@ -4577,17 +4665,11 @@ def profile_call(what: str, fn, top: int = 12, calls: int = 1,
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         rows, lead_kept = [], 0
-        for ev in prof.key_averages():
-            # device kernels only: an aten:: op's row repeats its kernels'
-            # time
-            if ev.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            if "spin_kernel" in ev.key:
-                lead_kept += ev.count
-                continue
-            dev_us = ev.self_device_time_total
-            if dev_us > 0:
-                rows.append((dev_us / 1e3, ev.count, ev.key[:90]))
+        for key, (ms, n) in device_records(prof).items():
+            if "spin_kernel" in key:
+                lead_kept += n
+            elif ms > 0:
+                rows.append((ms, n, key[:90]))
         if lead_kept >= PROFILE_LEAD_KEPT:
             break
     else:
@@ -4626,10 +4708,11 @@ def profile_window_check(what: str, fn, calls: int = 5) -> None:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        evs = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-        kept[lead] = [sum(e.count for e in evs if "spin_kernel" not in e.key),
-                      sum(e.count for e in evs if "spin_kernel" in e.key)]
+        evs = device_records(prof)
+        kept[lead] = [sum(n for k, (_, n) in evs.items()
+                          if "spin_kernel" not in k),
+                      sum(n for k, (_, n) in evs.items()
+                          if "spin_kernel" in k)]
     emit({"phase": "times", "what": f"profiler window: {what}",
           "calls": calls, "kernel_records_bare": kept[0][0],
           "kernel_records_led": kept[PROFILE_LEAD][0],
@@ -4751,12 +4834,14 @@ def kernel_row(name, kern, plain, lib, flops, peak, nbytes, launches,
     return row
 
 
-def attention_bwd_rows(shape, seed, launches, errs, per_step=None):
+def attention_bwd_rows(shape, seed, launches, errs, per_step=None,
+                       only=None):
     """The rows of B2's two kernels at (B, H, T, D) bf16: the sm90 kernel
     through ``attention_bwd`` with the forward's o and statistics, and the
     earlier kernel through its launcher; SDPA's backward beside both. The
     bound is the function's: q, k, v, do in, dq, dk, dv out, 10*B*H*T^2*D
-    operations, whatever a kernel reads besides."""
+    operations, whatever a kernel reads besides. ``only``: that row
+    alone."""
     import torch.nn.functional as F
 
     from vitx_torch.kernels import (attention_bwd, attention_bwd_plain,
@@ -4777,6 +4862,8 @@ def attention_bwd_rows(shape, seed, launches, errs, per_step=None):
             ("attention_bwd_sm90",
              lambda: attention_bwd(q, k, v, do, o, st)),
             ("attention_bwd", lambda: tflash._bwd_wmma(q, k, v, do))):
+        if only not in (None, name):
+            continue
         extra = {"per_step": per_step[name]} if name in per_step else {}
         if name == "attention_bwd":
             extra["timed"] = ("the earlier kernel on bf16 through its "
@@ -4792,13 +4879,15 @@ def attention_bwd_rows(shape, seed, launches, errs, per_step=None):
     return rows
 
 
-def ln_bwd_rows(shape, seed, eps, launches, errs, per_step=None) -> list:
+def ln_bwd_rows(shape, seed, eps, launches, errs, per_step=None,
+                only=None) -> list:
     """B3's two rows on the same bf16 (..., E) inputs: ``ln_bwd``, the
     earlier kernel through its launcher (route 0: the three launches), and
     ``ln_bwd_onepass``, the wrapper's one-pass route, with the former's
     time as was_ms; F.layer_norm's backward beside both. The bound is the
     function's: x and dy read and dx written once in bf16, the fp32 scale,
-    dscale and dbias."""
+    dscale and dbias. ``only="ln_bwd_onepass"``: that row alone, without
+    was_ms."""
     import importlib
 
     import torch.nn.functional as F
@@ -4828,13 +4917,18 @@ def ln_bwd_rows(shape, seed, eps, launches, errs, per_step=None) -> list:
                           lib, 20 * n, PEAK_FP32_FLOPS, 3 * n * 2 + 3 * E * 4,
                           launches, errs, shape=list(shape), **more)
 
+    def onepass(**more):
+        return row("ln_bwd_onepass", lambda: ln_bwd(x, sc, dy, eps=eps),
+                   **more)
+
+    if only == "ln_bwd_onepass":
+        return [onepass()]
     base = row("ln_bwd", lambda: tln._launch(x.reshape(-1, E), sc,
                                              dy.reshape(-1, E), eps, 0),
                timed="the earlier kernel (three launches) on bf16 through "
                      "its launcher; the wrapper sends these inputs to "
                      "ln_bwd_onepass")
-    return [base, row("ln_bwd_onepass", lambda: ln_bwd(x, sc, dy, eps=eps),
-                      was_ms=base["ms"])]
+    return [base, onepass(was_ms=base["ms"])]
 
 
 def phase_train_times(cfg, state, batch, step, launches: dict,
@@ -6685,7 +6779,7 @@ def optim_cli() -> dict:
     if [r.get("remat") for r in rows if "error" not in r] != [
             "none", "block", "save_stash"]:
         raise AssertionError(f"optim (c): tune rows {rows}")
-    res = bench.BENCHES[1]()
+    res = bench.BENCHES[1](iters=16, reps=2)
     emit({"phase": "optim", "part": "c: bench 1 with its dispatch rows",
           "card": smi(), **res})
     if not all(f"train_step_ms_k{k}" in res for k in (1, 4, 16)):
@@ -6709,6 +6803,607 @@ def phase_optim() -> dict:
     emit({"phase": "optim", "part": "seconds", "a": t_a - t0,
           "b": t_b - t_a, "c": time.perf_counter() - t_b})
     return add_launches(timed, cli)
+
+
+
+PRETRAIN_LR = 1.5e-4             # the pretrain CLI's default
+PRETRAIN_B = {"mae": 128, "dino": 32, "simclr": 128}
+# (b)'s rows whose bf16 loss is held to the CPU's fp32 (a cut: the CPU
+# takes seconds a row at full depth)
+PRETRAIN_CPU_ROWS = {"mae": 8, "dino": 4, "simclr": 8}
+PRETRAIN_STEPS = 10
+PRETRAIN_DATA = "procedural:256,64"
+PRETRAIN_CLI_B = 64
+# the bf16 loss against the CPU's fp32 at the same weights: the repo's
+# bf16 parity bar (tests/test_parity_torch.py:80)
+PRETRAIN_LOSS_TOL = 0.05
+
+
+def pretrain_config(name: str, depth: int | None = None,
+                    dtype: str = "bfloat16"):
+    """A family's config at base16's width: the encoder base16 (cut to
+    ``depth`` blocks), MAE's decoder 512 x 8 x 16 (``depth`` blocks),
+    DINO's 2 x 224² + 6 x 96² views (2 locals at ``depth``), 4096
+    prototypes, SimCLR's 2048 -> 128 head: the pretrain CLI's defaults."""
+    import vitx_torch
+    from vitx_torch.nn.dino import DINOConfig
+    from vitx_torch.nn.mae import MAEConfig
+    from vitx_torch.nn.simclr import SimCLRConfig
+
+    kw = {} if depth is None else {"depth": depth}
+    enc = vitx_torch.get_config("base16", compute_dtype=dtype, **kw)
+    if name == "mae":
+        return MAEConfig(encoder=enc, decoder_depth=depth or 8)
+    if name == "dino":
+        return DINOConfig(encoder=enc, n_local=2 if depth else 6)
+    return SimCLRConfig(encoder=enc)
+
+
+class Family:
+    """One family's entry points over a common interface: ``state`` (a
+    fresh train state on a device), ``draws`` (the step's random draws,
+    from a CPU generator, so that both devices get the same),
+    ``loss`` ((loss, extras) of the state's params on ``x`` with those
+    draws, differentiable in ``params``) and ``step`` (one train step with
+    those draws)."""
+
+    def __init__(self, name: str, fcfg, lr: float = PRETRAIN_LR,
+                 freeze_last_steps: int = 0, total_steps: int = 100):
+        from vitx_torch.train import make_optimizer
+
+        self.name, self.fcfg = name, fcfg
+        self.opt = make_optimizer(lr=lr, weight_decay=0.05)
+        self.freeze, self.total = freeze_last_steps, total_steps
+
+    def state(self, seed: int, device):
+        import vitx_torch.nn.dino as d
+        import vitx_torch.nn.mae as m
+        import vitx_torch.nn.simclr as s
+
+        make = {"mae": m.create_mae_train_state,
+                "dino": d.create_dino_train_state,
+                "simclr": s.create_simclr_train_state}[self.name]
+        return make(seed, self.fcfg, self.opt, device=device)
+
+    def draws(self, x, seed: int):
+        from vitx_torch.nn.dino import multi_crop_draws
+        from vitx_torch.nn.simclr import simclr_view_draws
+
+        gen = torch.Generator().manual_seed(seed)
+        xc = x.cpu()
+        if self.name == "mae":
+            return torch.rand((x.shape[0], self.fcfg.num_patches),
+                              generator=gen)
+        if self.name == "dino":
+            return multi_crop_draws(gen, xc, self.fcfg)
+        return simclr_view_draws(gen, xc, self.fcfg)
+
+    def loss(self, state, params, x, draws):
+        from vitx_torch.nn.dino import dino_loss_fn, multi_crop
+        from vitx_torch.nn.mae import mae_loss_fn
+        from vitx_torch.nn.simclr import simclr_loss_fn, simclr_views
+
+        if self.name == "mae":
+            return mae_loss_fn(params, {"image": x}, self.fcfg,
+                               noise=draws.to(x.device))[0], {}
+        if self.name == "dino":
+            g, l = multi_crop(x, self.fcfg, draws=draws)
+            loss, (_, probs) = dino_loss_fn(params, state.teacher,
+                                            state.center, g, l, self.fcfg)
+            ent = (-(probs * torch.log(probs + 1e-12)).sum(-1)).mean()
+            return loss, {"teacher_entropy": ent}
+        loss, acc = simclr_loss_fn(params, simclr_views(
+            x, self.fcfg, draws=draws), self.fcfg)
+        return loss, {"contrast_acc": acc}
+
+    def step(self, state, x, draws, device):
+        import vitx_torch.nn.dino as d
+        import vitx_torch.nn.mae as m
+        import vitx_torch.nn.simclr as s
+
+        batch = {"image": x}
+        if self.name == "mae":
+            return m.mae_train_step(state, batch, mcfg=self.fcfg,
+                                    optimizer=self.opt, device=device,
+                                    noise=draws)
+        if self.name == "dino":
+            return d.dino_train_step(
+                state, batch, dcfg=self.fcfg, optimizer=self.opt,
+                total_steps=self.total, freeze_last_steps=self.freeze,
+                device=device, draws=draws)
+        return s.simclr_train_step(state, batch, scfg=self.fcfg,
+                                   optimizer=self.opt, device=device,
+                                   draws=draws)
+
+
+def pretrain_images(name: str, n: int, size: int = 224, seed: int = 0):
+    """(n, size, size, 3) fp32 images on the CPU as each family's host
+    pipeline gives them (``cli/pretrain.py``): SyntheticDataset's uint8
+    gratings scaled to [0, 1] for DINO and SimCLR, and normalised with
+    ImageNet's statistics for MAE."""
+    from vitx_torch.data import SyntheticDataset
+    from vitx_torch.data.pipeline import IMAGENET_MEAN, IMAGENET_STD
+
+    ds = SyntheticDataset(num_examples=n, image_size=size, seed=seed)
+    x = torch.from_numpy(synthetic_batch(ds, n)["image"]).float() / 255.0
+    if name == "mae":
+        x = (x - torch.tensor(IMAGENET_MEAN)) / torch.tensor(IMAGENET_STD)
+    return x
+
+
+def copy_family_state(state, device):
+    """A family's state (``TrainState`` or ``DINOState``) with every
+    tensor copied to ``device``."""
+    from vitx_torch.train.step import tree_map
+
+    out = copy_state(state, device)
+    if hasattr(state, "teacher"):
+        return state._replace(params=out.params, opt_state=out.opt_state,
+                              teacher=tree_map(lambda t: t.detach().to(
+                                  device, copy=True), state.teacher),
+                              center=state.center.to(device, copy=True))
+    return out
+
+
+# leaves whose gradient is zero but for rounding: SimCLR's batch
+# standardisation of fc1's output cancels any shift of its input, so fc1's
+# bias and the encoder's final-norm bias (a shift of the CLS feature) get
+# none
+ZERO_GRAD_LEAVES = {"simclr": ("encoder/final_norm/bias", "head/fc1/bias")}
+
+
+def grads_rel_err(gc, gh, names, zero=()) -> tuple:
+    """(the worst leaf's max |card - CPU| over its largest |CPU| gradient,
+    that leaf's name); over the largest gradient of all leaves for the
+    ``zero`` leaves, whose rounding noise has no relative error to speak
+    of (tests/torch_pretrain_helpers.py::grads_close holds the CPU tests
+    to vitx the same way)."""
+    top = max(float(b.abs().max()) for b in gh)
+    return max((float((a - b).abs().max())
+                / (top if n in zero else max(float(b.abs().max()), 1e-30)), n)
+               for n, a, b in zip(names, gc, gh))
+
+
+def pretrain_card_vs_cpu(name: str) -> None:
+    """(a): the family at base16's widths, depth 2 (MAE's decoder 512 x 2
+    x 16: D 32), fp32, batch 4 (DINO 2 images: 4 global and 4 local
+    views), the same params, state and draws on the card and on the CPU:
+    the loss and the monitors within FP32_TOL, every leaf's gradient
+    within FP32_TOL (``grads_rel_err``), then one step: the params
+    within ``param_gap``'s allowance (AdamW without clipping; DINO's
+    prototypes frozen for this step, their gradient zeroed and weights
+    pinned on both), DINO's teacher and centre within FP32_TOL."""
+    from vitx_torch.train.step import leaves, tree_map
+
+    fam = Family(name, pretrain_config(name, depth=2, dtype="float32"),
+                 lr=1e-4, freeze_last_steps=1)
+    host = fam.state(1, "cpu")
+    host = host._replace(params=nudged(host.params, 2))
+    if name == "dino":
+        host = host._replace(teacher=nudged(host.teacher, 3),
+                             center=0.1 * torch.randn(
+                                 fam.fcfg.out_dim,
+                                 generator=torch.Generator().manual_seed(4)))
+    x = pretrain_images(name, 2 if name == "dino" else 4)
+    draws = fam.draws(x, 5)
+    names = leaf_names(host.params)
+    out = []
+    t0 = time.perf_counter()
+    for dev in ("cuda", "cpu"):
+        state = copy_family_state(host, dev)
+        xd = x.to(dev)
+        req = tree_map(lambda t: t.detach().requires_grad_(), state.params)
+        loss, extra = fam.loss(state, req, xd, draws)
+        grads = [g.cpu() for g in torch.autograd.grad(loss, leaves(req))]
+        state, m = fam.step(state, xd, draws, dev)
+        out.append((grads, state, {**{k: float(v) for k, v in m.items()},
+                                   **{f"loss_fn_{k}": float(v)
+                                      for k, v in extra.items()}}))
+    (gc, sc, mc), (gh, sh, mh) = out
+    errs = {k: abs(mc[k] - mh[k]) / max(abs(mh[k]), 1e-12) for k in mh}
+    errs["grads"], worst_leaf = grads_rel_err(
+        gc, gh, names, ZERO_GRAD_LEAVES.get(name, ()))
+    if name == "dino":
+        i = names.index("head/last")
+        gc[i], gh[i] = gc[i] * 0.0, gh[i] * 0.0
+        errs["teacher"] = max(rel_err(a.cpu(), b) for a, b in zip(
+            leaves(sc.teacher), leaves(sh.teacher)))
+        errs["center"] = rel_err(sc.center.cpu(), sh.center)
+        pinned = bool(torch.equal(sc.params["head"]["last"].cpu(),
+                                  host.params["head"]["last"]))
+    gap = param_gap(gc, gh, [t.cpu() for t in leaves(sc.params)],
+                    leaves(sh.params), 1e-4, 1e-8, names)
+    emit({"phase": "pretrain", "part": f"a: {name} base16 widths depth 2 "
+          "fp32, card vs CPU", "card": mc, "cpu": mh, "rel_err": errs,
+          "grads_worst_leaf": worst_leaf, "params": gap, "tol": FP32_TOL,
+          "s": time.perf_counter() - t0,
+          **({"prototypes_pinned": pinned} if name == "dino" else {})})
+    if not (max(errs.values()) <= FP32_TOL and gap["worst"] <= 1.0):
+        raise AssertionError(f"pretrain (a) {name}: {errs}, {gap}")
+    if name == "dino" and not pinned:
+        raise AssertionError("pretrain (a) dino: the prototypes moved")
+
+
+def pretrain_step_launches(fcfg, steps: int) -> dict:
+    """A family's train-step launches per the code's routing, every block
+    on the fused kernels with their stashes (the families keep
+    fuse_mlp="auto" under grad): K1 and K2 once a block, forward only in
+    DINO's teacher; B2 once a block under grad (its sm90 kernel at D 64:
+    the encoder's, not MAE's decoder at D 32); B3 for both LayerNorms of
+    every block under grad and each final norm (MAE's encoder and
+    decoder; DINO's two student passes). No B12: the pretrain CLI's
+    optimizer keeps the plain update (vitx's ``fused="auto"``)."""
+    enc = fcfg.encoder
+    L = enc.depth
+    mha90, mlp90 = gemm_sm90(enc)
+    if hasattr(fcfg, "decoder_cfg"):
+        dec = fcfg.decoder_cfg
+        Ld = dec.depth
+        dmha, dmlp = gemm_sm90(dec)
+        blocks = L + Ld
+        per = dict(fused_mha_block=blocks, fused_mlp_block=blocks,
+                   fused_mha_block_sm90=L * mha90 + Ld * dmha,
+                   fused_mlp_block_sm90=L * mlp90 + Ld * dmlp,
+                   attention_bwd=blocks,
+                   attention_bwd_sm90=L * sm90(enc) + Ld * sm90(dec),
+                   ln_bwd=2 * blocks + 2)
+    else:
+        passes = 2 if getattr(fcfg, "n_local", 0) else 1
+        fwd = L * (passes + hasattr(fcfg, "n_local"))
+        per = dict(fused_mha_block=fwd, fused_mlp_block=fwd,
+                   fused_mha_block_sm90=fwd * mha90,
+                   fused_mlp_block_sm90=fwd * mlp90,
+                   attention_bwd=L * passes,
+                   attention_bwd_sm90=L * passes * sm90(enc),
+                   ln_bwd=passes * (2 * L + 1))
+    return launches_of(**{k: v * steps for k, v in per.items()})
+
+
+def pretrain_full_width(name: str) -> tuple:
+    """(b): the family at full width and depth in bf16 at PRETRAIN_B[name]
+    (MAE b128, decoder 512 x 8 x 16; DINO b32, 2 x 224² + 6 x 96², 4096
+    prototypes; SimCLR b128, 256 views), seeded random weights: the bf16
+    loss on the first PRETRAIN_CPU_ROWS[name] rows against the CPU's
+    fp32 at the same weights and draws (PRETRAIN_LOSS_TOL); then, counted,
+    PRETRAIN_STEPS steps on one batch with the same draws each step (MAE's
+    and SimCLR's losses fall, DINO's stay finite with the teacher's
+    entropy in (0, log K]) and 6 more, the median of the last 5 by CUDA
+    events and the peak memory from a fresh state's first step; then one
+    step under the profiler (its kernels by device time). Returns
+    (launches, row)."""
+    fam = Family(name, pretrain_config(name))
+    B = PRETRAIN_B[name]
+    state = fam.state(0, "cuda")
+    x = pretrain_images(name, B)
+    R = PRETRAIN_CPU_ROWS[name]
+    draws = fam.draws(x[:R], 11)
+    with torch.no_grad():
+        card_loss = float(fam.loss(state, state.params, x[:R].cuda(),
+                                   draws)[0])
+        f32 = Family(name, pretrain_config(name, dtype="float32"))
+        host = copy_family_state(state, "cpu")
+        cpu_loss = float(f32.loss(host, host.params, x[:R], draws)[0])
+    del host
+    gap = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    draws = fam.draws(x, 12)
+    xd = x.cuda()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    mets, ms = [], []
+    for i in range(PRETRAIN_STEPS + 6):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, m = fam.step(state, xd, draws, "cuda")
+        end.record()
+        end.synchronize()
+        if i == 0:
+            peak = torch.cuda.max_memory_allocated() / 1e9
+        if i < PRETRAIN_STEPS:
+            mets.append({k: float(v) for k, v in m.items()})
+        elif i > PRETRAIN_STEPS:
+            ms.append(start.elapsed_time(end))
+    got = counts()
+    expect = pretrain_step_launches(fam.fcfg, PRETRAIN_STEPS + 6)
+    # where a step's time goes, by kernel (after the counted window)
+    device_ms, wall_ms = profile_call(
+        f"pretrain {name} step b{B}", lambda: fam.step(state, xd, draws,
+                                                       "cuda"),
+        top=16, wall=True) or ("not measured", "not measured")
+    losses = [m["loss"] for m in mets]
+    med = statistics.median(ms)
+    row = {"batch": B, "step_ms": med, "step_ms_runs": ms,
+           "profiled_device_ms": device_ms, "profiled_wall_ms": wall_ms,
+           "images_per_sec": B / (med / 1e3), "peak_memory_gb": peak,
+           "losses": losses, "loss_bf16_vs_cpu_fp32": {
+               "card": card_loss, "cpu": cpu_loss, "rel": gap, "rows": R},
+           "launches_per_step": {k: v // (PRETRAIN_STEPS + 6)
+                                 for k, v in got.items() if v}}
+    if name == "dino":
+        row["teacher_entropy"] = [m["teacher_entropy"] for m in mets]
+    if name == "simclr":
+        row["contrast_acc"] = [m["contrast_acc"] for m in mets]
+    emit({"phase": "pretrain", "part": f"b: {name} base16 bf16 b{B}",
+          "card": smi(), **row})
+    expect_launches(f"pretrain (b): {name}", got, expect)
+    if gap > PRETRAIN_LOSS_TOL:
+        raise AssertionError(f"pretrain (b) {name}: bf16 loss {card_loss} "
+                             f"vs the CPU's fp32 {cpu_loss}")
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"pretrain (b) {name}: losses {losses}")
+    if name == "dino":
+        ents = row["teacher_entropy"]
+        if not all(0.0 < e <= np.log(fam.fcfg.out_dim) + 1e-4
+                   for e in ents):
+            raise AssertionError(f"pretrain (b) dino: entropy {ents}")
+    elif not losses[-1] < losses[0]:
+        raise AssertionError(f"pretrain (b) {name}: losses {losses}")
+    del state
+    torch.cuda.empty_cache()
+    return got, row
+
+
+def check_pretrain_kernels(errs: dict) -> None:
+    """(c): the kernels at the families' new shapes against their plain
+    versions on the card, float32 (1e-4) and bfloat16 (BF16_TOL), each
+    twice bit for bit: at MAE's decoder (128, 197, 512), 16 heads of D
+    32, K1 with its stash (the sm90 GEMM in bf16 with the earlier
+    attention), K2 with its stash (M 2048), B2 (its earlier kernel) and
+    B3; at MAE's visible tokens (128, 50, 768) and DINO's locals (192,
+    37, 768), K1 with its stash, B2 (the sm90 kernel in bf16: T under one
+    64-row tile) and B3 (``check_backward_kernels``, which also holds B3
+    at the (B, 4E) view)."""
+    from vitx_torch.kernels import (fused_mha_block, fused_mlp_block,
+                                    mha_block_plain, mlp_block_plain)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = BF16_TOL if dtype == torch.bfloat16 else FP32_TOL
+        bf = dtype == torch.bfloat16
+        for B, T, E, H, mlp in ((128, 197, 512, 16, True),
+                                (128, 50, 768, 12, False),
+                                (192, 37, 768, 12, False)):
+            info = {"dtype": str(dtype), "shape": [B, T, E], "heads": H}
+            x, mha, mlpw = block_inputs(B, T, E, H, 4 * E, dtype, 40 + T,
+                                        "cuda")
+            n90 = fused_mha_block.launches_sm90
+            out = fused_mha_block(x, **mha, stash=True)
+            torch.cuda.synchronize()
+            name = ("fused_mha_block_sm90"
+                    if fused_mha_block.launches_sm90 > n90
+                    else "fused_mha_block")
+            check("pretrain", f"{name} with its stash (out, q, k, v, "
+                  "o_all)", out, mha_block_plain(x, **mha, stash=True), tol,
+                  errs if bf else None, name, **info)
+            bitwise("pretrain", f"{name} with its stash, twice",
+                    fused_mha_block(x, **mha, stash=True), out, **info)
+            if mlp:
+                n90 = fused_mlp_block.launches_sm90
+                out = fused_mlp_block(x, **mlpw, act="gelu_tanh",
+                                      stash=True)
+                torch.cuda.synchronize()
+                name = ("fused_mlp_block_sm90"
+                        if fused_mlp_block.launches_sm90 > n90
+                        else "fused_mlp_block")
+                check("pretrain", f"{name} with its stash (out, hp)", out,
+                      mlp_block_plain(x, **mlpw, act="gelu_tanh",
+                                      stash=True), tol,
+                      errs if bf else None, name, M=4 * E, **info)
+                bitwise("pretrain", f"{name} with its stash, twice",
+                        fused_mlp_block(x, **mlpw, act="gelu_tanh",
+                                        stash=True), out, M=4 * E, **info)
+            del x, mha, mlpw, out
+            check_backward_kernels(B, T, E, H, dtype, tol, errs, "pretrain")
+        torch.cuda.empty_cache()
+
+
+def pretrain_kernel_shapes(launches: dict, errs: dict) -> dict:
+    """The families' new kernel shapes, bf16, as more ``shapes`` of the
+    rows: K1's sm90 row with its stash at MAE's decoder (128, 197, 512;
+    D 32: the sm90 GEMM and the earlier attention), its visible tokens
+    (128, 50, 768) and DINO's locals (192, 37, 768); B2 through its
+    wrapper at the decoder's (128, 16, 197, 32) (the earlier kernel: the
+    sm90 backward takes D 64 only) and B2's sm90 row at (128, 12, 50, 64)
+    and (192, 12, 37, 64); K2's sm90 row with its stash at the decoder's
+    (128, 197, 512), M 2048; B3's one-pass row at (128, 197, 512) and
+    (128, 50, 768). Library calls: SDPA compositions, SDPA's backward,
+    F.layer_norm / F.linear / GELU / F.linear, F.layer_norm's
+    backward."""
+    import torch.nn.functional as F
+
+    from vitx_torch.kernels import (attention_bwd, attention_bwd_plain,
+                                    attention_stats_plain,
+                                    flash_attention_fwd_plain,
+                                    fused_mha_block, fused_mlp_block,
+                                    mha_block_plain, mlp_block_plain)
+
+    bf = torch.bfloat16
+    eps = 1e-5
+    rows = []
+    for B, T, E, H in ((128, 197, 512, 16), (128, 50, 768, 12),
+                       (192, 37, 768, 12)):
+        D = E // H
+        x, mha, mlp = block_inputs(B, T, E, H, 4 * E, bf, 50 + T, "cuda")
+        rows.append(kernel_row(
+            "fused_mha_block_sm90",
+            lambda: fused_mha_block(x, **mha, eps=eps, stash=True),
+            lambda: mha_block_plain(x, **mha, eps=eps, stash=True),
+            sdpa_mha(x, mha, H, eps),
+            2 * B * T * E * 4 * E + 4 * B * H * T * T * D, PEAK_BF16_FLOPS,
+            6 * B * T * E * 2 + 4 * E * E * 2 + 3 * E * 4
+            + 2 * B * H * T * 4, launches, errs, shape=[B, T, E],
+            heads=H, stash=True))
+        if E == 512:
+            M = 4 * E
+            w1t, w2t = (mlp[k].t().contiguous() for k in ("w1", "w2"))
+
+            def lib():
+                h = F.layer_norm(x, (E,), mlp["g"].to(bf), mlp["b"].to(bf),
+                                 eps)
+                h = F.gelu(F.linear(h, w1t, mlp["b1"].to(bf)),
+                           approximate="tanh")
+                return F.linear(h, w2t, mlp["b2"].to(bf))
+            rows.append(kernel_row(
+                "fused_mlp_block_sm90",
+                lambda: fused_mlp_block(x, **mlp, act="gelu_tanh", eps=eps,
+                                        stash=True),
+                lambda: mlp_block_plain(x, **mlp, act="gelu_tanh", eps=eps,
+                                        stash=True),
+                lib, 4 * B * T * E * M, PEAK_BF16_FLOPS,
+                2 * B * T * E * 2 + B * T * M * 2 + 2 * E * M * 2
+                + (M + 3 * E) * 4, launches, errs, shape=[B, T, E], M=M,
+                stash=True))
+            shape = (B, H, T, D)
+            q, k, v = (seeded(shape, 60 + i, 1.5, dtype=bf)
+                       for i in range(3))
+            do = seeded(shape, 63, 0.1, dtype=bf)
+            o, st = (flash_attention_fwd_plain(q, k, v),
+                     attention_stats_plain(q, k))
+            qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+            o_lib = F.scaled_dot_product_attention(qs, ks, vs)
+            rows.append(kernel_row(
+                "attention_bwd", lambda: attention_bwd(q, k, v, do, o, st),
+                lambda: attention_bwd_plain(q, k, v, do),
+                lambda: torch.autograd.grad(o_lib, (qs, ks, vs), do,
+                                            retain_graph=True),
+                10 * B * H * T * T * D, PEAK_BF16_FLOPS,
+                7 * B * H * T * D * 2, launches, errs, shape=list(shape),
+                timed="the wrapper: bf16 at D 32 takes the earlier kernel"))
+            del q, k, v, do, o, st, qs, ks, vs, o_lib
+        else:
+            rows += attention_bwd_rows((B, H, T, D), 60 + T, launches,
+                                       errs, only="attention_bwd_sm90")
+        if B == 128:
+            rows += ln_bwd_rows((B, T, E), 65 + T, eps, launches, errs,
+                                only="ln_bwd_onepass")
+        del x, mha, mlp
+        torch.cuda.empty_cache()
+    extra: dict = {}
+    for row in rows:
+        extra.setdefault(row["name"], []).append(shape_entry(row))
+    return extra
+
+
+def pretrain_cli() -> dict:
+    """(d): ``vitx_torch.cli.pretrain`` on tiny with PRETRAIN_DATA at
+    b64 (4 steps an epoch), each method with the CLI's defaults: 2 epochs,
+    then a rerun to 3 on the same directory (the resume message; 4 more
+    steps), launches exact; the export (the teacher for DINO) read by
+    ``params_from_jax``, the last ``.ckpt``'s encoder leaves equal to it;
+    then ``cli.train --init-from`` the MAE export for one epoch (launches
+    exact) and ``cli.probe`` on it. Returns the launches."""
+    import contextlib
+    import io
+    import os
+    import shutil
+
+    import vitx_torch
+    from vitx_torch.cli import pretrain, probe
+    from vitx_torch.interop.jax_params import params_from_jax
+    from vitx_torch.train.checkpoint import restore_latest
+    from vitx_torch.train.step import leaf_paths, leaves
+
+    os.environ.setdefault("VITX_PROC_CACHE", str(BUILD / "procdata"))
+    root = BUILD / "pretrain"
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = vitx_torch.get_config("tiny")
+    ft_cfg = cfg.replace(final_norm=True)
+    ft_json = root / "tiny_final_norm.json"
+    root.mkdir(parents=True)
+    ft_json.write_text(ft_cfg.to_json())
+    launches, exports = {}, {}
+    steps_per_epoch = int(PRETRAIN_DATA.split(":")[1].split(",")[0]) \
+        // PRETRAIN_CLI_B
+    for method in ("mae", "dino", "simclr"):
+        ck, out = root / method, root / f"{method}.npz"
+        argv = ["--preset", "tiny", "--method", method, "--data",
+                PRETRAIN_DATA, "--batch-size", str(PRETRAIN_CLI_B),
+                "--checkpoint-dir", str(ck)]
+        # the family config the CLI builds with its default flags
+        fcfg = pretrain.family_config(
+            pretrain.build_argparser().parse_args(["--method", method]), cfg)
+        for epochs, more in ((2, []), (3, ["--export-vit", str(out)])):
+            reset_counts()
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = pretrain.main(argv + ["--epochs", str(epochs), *more])
+            torch.cuda.synchronize()
+            got = counts()
+            text = buf.getvalue()
+            print(text, end="", flush=True)
+            last = json.loads(text.strip().splitlines()[-1])
+            steps = steps_per_epoch * (2 if epochs == 2 else 1)
+            expect_launches(f"pretrain (d): {method} --epochs {epochs}",
+                            got, pretrain_step_launches(fcfg, steps))
+            launches = add_launches(launches, got)
+            if rc != 0 or not np.isfinite(last["loss"]):
+                raise AssertionError(f"pretrain (d) {method}: {last}")
+        if f"resumed {method.upper()} pretraining at epoch 2" not in text:
+            raise AssertionError(f"pretrain (d) {method}: no resume")
+        exported = params_from_jax(str(out), ft_cfg)
+        template = Family(method, fcfg).state(0, "cuda")
+        state, _ = restore_latest(ck, template, False)
+        enc = (state.teacher if method == "dino" else state.params)[
+            "encoder"]
+        for path, t in zip(leaf_paths(enc), leaves(enc)):
+            node = exported
+            for k in path:
+                node = node[k]
+            if not torch.equal(node, t):
+                raise AssertionError(f"pretrain (d) {method}: exported "
+                                     f"{'/'.join(path)} differs")
+        exports[method] = last
+    emit({"phase": "pretrain", "part": "d: cli.pretrain tiny, each method "
+          "2 epochs then a resume to 3, exports", "last": exports})
+
+    tr, train_loader, eval_loader, _ = build_quietly(
+        ["--preset", "tiny", "--data", PRETRAIN_DATA, "--batch-size",
+         str(PRETRAIN_CLI_B), "--epochs", "1", "--init-from",
+         str(root / "mae.npz"), "--checkpoint-dir", str(root / "ft")])
+    reset_counts()
+    hist = tr.fit(train_loader, eval_loader)
+    torch.cuda.synchronize()
+    got = counts()
+    expect_launches("pretrain (d): train --init-from the MAE export", got,
+                    add_launches(expected_train_launches(
+                        tr.cfg, len(train_loader), 0),
+                        forward_launches(tr.cfg, len(eval_loader))))
+    launches = add_launches(launches, got)
+    report = run_cli(probe.main, ["--checkpoint", str(root / "mae.npz"),
+                                  "--config-json", str(ft_json), "--data",
+                                  PRETRAIN_DATA, "--knn", "5"])
+    emit({"phase": "pretrain", "part": "d: train --init-from the MAE "
+          "export, 1 epoch; probe on the export",
+          "loss": hist[-1]["loss"], "val_accuracy": hist[-1]["val_accuracy"],
+          "final_norm": tr.cfg.final_norm, "probe": report})
+    if not (tr.cfg.final_norm and np.isfinite(hist[-1]["loss"])):
+        raise AssertionError(f"pretrain (d): fine-tune {hist[-1]}")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_pretrain(errs: dict) -> tuple:
+    """Main path 13 (module docstring): vitx's self-supervised
+    pretraining. Returns (the launches of parts (b) and (d), the new
+    kernel shapes' entries for the kernels line)."""
+    t0 = time.perf_counter()
+    for name in ("mae", "dino", "simclr"):
+        pretrain_card_vs_cpu(name)
+    t_a = time.perf_counter()
+    launches, rows = {}, {}
+    for name in ("mae", "dino", "simclr"):
+        got, rows[name] = pretrain_full_width(name)
+        launches = add_launches(launches, got)
+    t_b = time.perf_counter()
+    check_pretrain_kernels(errs)
+    extra = pretrain_kernel_shapes({}, errs)
+    t_c = time.perf_counter()
+    launches = add_launches(launches, pretrain_cli())
+    emit({"phase": "pretrain", "part": "seconds", "a": t_a - t0,
+          "b": t_b - t_a, "c": t_c - t_b, "d": time.perf_counter() - t_c,
+          "step_ms": {k: r["step_ms"] for k, r in rows.items()},
+          "peak_memory_gb": {k: r["peak_memory_gb"] for k, r in rows.items()}})
+    return launches, extra
 
 
 def main(argv=None) -> int:
@@ -6802,6 +7497,10 @@ def main(argv=None) -> int:
     if "optim" in phases:
         optim_launches = phase_optim()
     lap("optim")
+    pretrain_launches, pretrain_extra = {}, {}
+    if "pretrain" in phases:
+        pretrain_launches, pretrain_extra = phase_pretrain(errs)
+    lap("pretrain")
     export_launches, huge14_launches, huge14_inputs = {}, {}, None
     if "artifacts" in phases:
         export_launches = phase_artifacts(cfg, params)
@@ -6813,7 +7512,8 @@ def main(argv=None) -> int:
                             tome_launches, finetune_launches,
                             *recipe_launches.values(), transfer_launches,
                             pretrained_launches, families_launches,
-                            optim_launches, export_launches, huge14_launches)
+                            optim_launches, pretrain_launches,
+                            export_launches, huge14_launches)
     if "times" in phases:
         rows = phase_times(cfg, params, errs, launches)
         if tome_launches:
@@ -6848,6 +7548,8 @@ def main(argv=None) -> int:
         if huge14_launches:
             extras.append(huge14_kernel_shapes(huge14_inputs, launches,
                                                errs))
+        if pretrain_extra:
+            extras.append(pretrain_extra)
         del huge14_inputs
         for extra in extras:
             for row in rows:
@@ -6868,6 +7570,7 @@ def main(argv=None) -> int:
                 "pretrained": pretrained_launches.get(row["name"], 0),
                 "families": families_launches.get(row["name"], 0),
                 "optim": optim_launches.get(row["name"], 0),
+                "pretrain": pretrain_launches.get(row["name"], 0),
                 "export": export_launches.get(row["name"], 0),
                 "huge14": huge14_launches.get(row["name"], 0)}
             if row["name"] in stash:

@@ -1636,3 +1636,102 @@ def test_remat_on_the_composed_path(cuda, remat):
     assert (n0, n1) == (cfg.depth, 2 * cfg.depth)
     assert rel_err(l1, l0) <= 1e-6
     assert all(rel_err(a, c) <= 1e-6 for a, c in zip(g1, g0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dims", [(2, 197, 512, 16), (2, 50, 768, 12),
+                                  (3, 37, 768, 12)])
+def test_pretrain_shapes_match_plain(cuda, dims, dtype):
+    """The pretraining families' new shapes: K1 with its stash at MAE's
+    decoder (E 512, 16 heads of D 32: the sm90 GEMM in bf16 with the
+    earlier attention), its visible tokens (T 50) and DINO's locals (T
+    37); at the decoder's width also K2 with its stash (M 2048) and B2 at
+    D 32 (the earlier kernel). Each against its plain version, and twice
+    bit for bit."""
+    B, T, E, H = dims
+    mha, mlp = block_args(B, T, E, H, dtype, cuda)
+    out = fused_mha_block(*mha, stash=True)
+    for o, r in zip(out, mha_block_plain(*mha, stash=True)):
+        assert o.shape == r.shape and rel_err(o, r) <= TOL[dtype]
+    assert all(torch.equal(a, b) for a, b in zip(
+        out, fused_mha_block(*mha, stash=True)))
+    if E != 512:
+        return
+    out = fused_mlp_block(*mlp, act="gelu_tanh", stash=True)
+    for o, r in zip(out, mlp_block_plain(*mlp, act="gelu_tanh",
+                                         stash=True)):
+        assert o.shape == r.shape and rel_err(o, r) <= TOL[dtype]
+    assert all(torch.equal(a, b) for a, b in zip(
+        out, fused_mlp_block(*mlp, act="gelu_tanh", stash=True)))
+    shape = (B, H, T, E // H)
+    q, k, v = (seeded(shape, s, 1.5, dtype=dtype, device=cuda)
+               for s in (1, 2, 3))
+    do = seeded(shape, 4, 0.1, dtype=dtype, device=cuda)
+    o, st = flash_attention_fwd_plain(q, k, v), attention_stats_plain(q, k)
+    n90 = attention_bwd.launches_sm90
+    got = attention_bwd(q, k, v, do, o, st)
+    assert attention_bwd.launches_sm90 == n90      # D 32: the earlier kernel
+    for a, r in zip(got, attention_bwd_plain(q, k, v, do)):
+        assert rel_err(a, r) <= TOL[dtype]
+    assert all(torch.equal(a, b) for a, b in zip(
+        got, attention_bwd(q, k, v, do, o, st)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["mae", "dino", "simclr"])
+def test_pretrain_step_on_card_matches_cpu(cuda, family):
+    """A depth-2 fp32 tiny copy of each pretraining family, card against
+    CPU from the same state with the same draws: the loss and the
+    gradients' global norm within 1e-4, one step's params within 2 lr
+    (Adam's first step; a wrong update moves a large share), and the
+    step's launches:
+    K1 and K2 with their stashes in every block (DINO's teacher
+    without), B2 in every block under grad, B3 for its LayerNorms."""
+    from vitx_torch.nn import dino, mae, simclr
+
+    enc = vitx_torch.get_config("tiny", compute_dtype="float32", depth=2,
+                                image_size=32)
+    fcfg = {"mae": mae.MAEConfig(encoder=enc, decoder_dim=32,
+                                 decoder_depth=2, decoder_heads=2),
+            "dino": dino.DINOConfig(encoder=enc, local_size=16, n_local=2,
+                                    out_dim=32, head_hidden=32,
+                                    head_bottleneck=16),
+            "simclr": simclr.SimCLRConfig(encoder=enc, proj_hidden=24,
+                                          proj_dim=12)}[family]
+    opt = tstep.make_optimizer(lr=1e-3)
+    create = {"mae": mae.create_mae_train_state,
+              "dino": dino.create_dino_train_state,
+              "simclr": simclr.create_simclr_train_state}[family]
+    x = torch.rand((4, 32, 32, 3), generator=torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    if family == "mae":
+        draws = {"noise": torch.rand((4, fcfg.num_patches), generator=gen)}
+        step = mae.make_mae_train_step(fcfg, opt, device=cuda)
+        host_step = mae.make_mae_train_step(fcfg, opt, device="cpu")
+        per = dict(K1=4, K2=4, B2=4, B3=10)
+    elif family == "dino":
+        draws = {"draws": dino.multi_crop_draws(gen, x, fcfg)}
+        step = dino.make_dino_train_step(fcfg, opt, 10, device=cuda)
+        host_step = dino.make_dino_train_step(fcfg, opt, 10, device="cpu")
+        per = dict(K1=6, K2=6, B2=4, B3=10)
+    else:
+        draws = {"draws": simclr.simclr_view_draws(gen, x, fcfg)}
+        step = simclr.make_simclr_train_step(fcfg, opt, device=cuda)
+        host_step = simclr.make_simclr_train_step(fcfg, opt, device="cpu")
+        per = dict(K1=2, K2=2, B2=2, B3=5)
+    host = create(0, fcfg, opt, device="cpu")
+    card = create(0, fcfg, opt, device=cuda)
+    fns = (fused_mha_block, fused_mlp_block, attention_bwd, ln_bwd)
+    before = [f.launches for f in fns]
+    card, mc = step(card, {"image": x}, **draws)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(fns, before)] == [
+        per["K1"], per["K2"], per["B2"], per["B3"]]
+    host, mh = host_step(host, {"image": x}, **draws)
+    assert rel_err(mc["loss"], mh["loss"]) <= 1e-4
+    assert rel_err(mc["grad_norm"], mh["grad_norm"]) <= 1e-4
+    dp = torch.cat([(a.cpu() - b).abs().flatten() for a, b in zip(
+        tstep.leaves(card.params), tstep.leaves(host.params))]) / 1e-3
+    assert float(dp.max()) <= 2.0
+    assert float((dp > 0.01).float().mean()) <= 1e-3

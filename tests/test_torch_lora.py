@@ -147,3 +147,18 @@ def test_trainer_lora_run_eval_and_serve(tmp_path):
     assert not torch.load(pt, weights_only=True)["optimizer_state_dict"][
         "state"]
     assert json.loads(json.dumps(meta["config"]))["lora_rank"] == 2
+
+
+def test_init_lora_leaves_devices(monkeypatch):
+    """The adapters' initialiser runs where ``init_params`` does: on the
+    card by default (raising without one), on the CPU when asked."""
+    from vitx_torch.nn.lora import init_lora_leaves, lora_spec
+
+    cfg = vitx_torch.get_config("tiny", lora_rank=4)
+    got = init_lora_leaves(0, cfg, device="cpu")
+    assert sorted(got) == sorted(lora_spec(cfg))
+    assert all(t.device.type == "cpu" for t in got.values())
+    assert not got["lora_wqkv_b"].any() and got["lora_wqkv_a"].any()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_lora_leaves(0, cfg)

@@ -27,7 +27,9 @@ kernels as custom ops (``vitx_torch.export``, ``.pt2``), and it has
 vitx's probe, tune and bench CLIs. vitx's model families run through all
 of it: the conv stem, register tokens, the MAP head, the sincos2d and
 RoPE positions and Soft-MoE blocks (``vitx_torch.nn.moe``), and a model
-runs at another patch size (``nn.flexivit.resize_patch_embed``). It
+runs at another patch size (``nn.flexivit.resize_patch_embed``). vitx's
+self-supervised pretraining runs too: MAE, DINO and SimCLR
+(``vitx_torch.nn.{mae,dino,simclr}``, ``vitx_torch.cli.pretrain``). It
 imports neither ``jax`` nor ``vitx``.
 
 Entry points run on a CUDA device unless the caller passes
@@ -57,6 +59,8 @@ from vitx_torch.nn.tome import (aligned_schedule, encode_tome,  # noqa: E402
                                 merge_tokens, parse_tome_r,
                                 tome_patch_assignment)
 from vitx_torch.nn.lora import merge_lora_params  # noqa: E402
+from vitx_torch.nn.mae import (MAEConfig, init_mae_params,  # noqa: E402
+                               mae_forward, mae_to_vit_params)
 from vitx_torch.nn.vit import (classify, classify_dist,  # noqa: E402
                                encode, forward, forward_features,
                                forward_heads, forward_with_attn,
@@ -80,6 +84,10 @@ __all__ = [
     "classify_dist",
     "forward_heads",
     "merge_lora_params",
+    "MAEConfig",
+    "init_mae_params",
+    "mae_forward",
+    "mae_to_vit_params",
     "encode_tome",
     "merge_tokens",
     "aligned_schedule",

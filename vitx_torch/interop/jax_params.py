@@ -9,7 +9,9 @@ moments (mu fp32 or bf16), SGD's trace, Lion's momentum, Adafactor's
 factored moments -- are trees of the same keys (``opt_state_from_jax``).
 An export read into a config of another image size gets its positional
 grid resized, as vitx's ``load_vit_init`` does
-(``vitx/cli/pretrain.py:306-368``).
+(``vitx/cli/pretrain.py:306-368``). The pretraining families' trees
+(MAE, DINO with its teacher and centre, SimCLR) come across the same way
+(``mae_params_from_jax``, ``dino_state_from_jax``, ...).
 """
 
 from __future__ import annotations
@@ -113,6 +115,15 @@ def params_from_jax(tree, cfg: ViTConfig, device="cuda", rng=0) -> dict:
                           f"shape-mismatched in the file)")
         return out
 
+    return tree_from_jax(tree, spec, cfg, dev)
+
+
+def tree_from_jax(tree, spec: dict, cfg: ViTConfig, device="cuda") -> dict:
+    """vitx's nested dict ``tree`` (numpy leaves) as the port's tensors in
+    ``cfg.param_dtype`` on ``device``: it must hold exactly the leaves of
+    ``spec`` (``param_spec``'s form), each of its shape."""
+    dev = resolve_device(device)
+    out: dict = {}
     seen = set()
     for path, (shape, _) in _walk(spec):
         node = tree
@@ -131,6 +142,47 @@ def params_from_jax(tree, cfg: ViTConfig, device="cuda", rng=0) -> dict:
         raise ValueError(f"vitx params carry leaves the config does not "
                          f"have (or the port lacks): {extra}")
     return out
+
+
+def mae_params_from_jax(tree, mcfg, device="cuda") -> dict:
+    """vitx's MAE tree ``{"encoder", "decoder"}`` (``vitx/nn/mae.py:
+    92-125``) as the port's (``nn/mae.py::mae_param_spec``)."""
+    from vitx_torch.nn.mae import mae_param_spec
+
+    return tree_from_jax(tree, mae_param_spec(mcfg), mcfg.encoder, device)
+
+
+def dino_params_from_jax(tree, dcfg, device="cuda") -> dict:
+    """vitx's DINO tree ``{"encoder", "head"}`` (student or teacher,
+    ``vitx/nn/dino.py:138-169``) as the port's."""
+    from vitx_torch.nn.dino import dino_param_spec
+
+    return tree_from_jax(tree, dino_param_spec(dcfg), dcfg.encoder, device)
+
+
+def simclr_params_from_jax(tree, scfg, device="cuda") -> dict:
+    """vitx's SimCLR tree ``{"encoder", "head"}`` (``vitx/nn/simclr.py:
+    115-144``) as the port's."""
+    from vitx_torch.nn.simclr import simclr_param_spec
+
+    return tree_from_jax(tree, simclr_param_spec(scfg), scfg.encoder,
+                         device)
+
+
+def dino_state_from_jax(state, dcfg, device="cuda"):
+    """vitx's ``DINOState`` (``vitx/nn/dino.py:121-131``) as the port's:
+    the student, its optimizer state (``opt_state_from_jax`` over the
+    DINO tree), the teacher and the centre."""
+    from vitx_torch.nn.dino import DINOState, dino_param_spec
+
+    dev = resolve_device(device)
+    return DINOState(
+        step=int(np.asarray(state.step)),
+        params=dino_params_from_jax(state.params, dcfg, dev),
+        opt_state=opt_state_from_jax(state.opt_state, dcfg.encoder, dev,
+                                     spec=dino_param_spec(dcfg)),
+        teacher=dino_params_from_jax(state.teacher, dcfg, dev),
+        center=torch.tensor(np.asarray(state.center, np.float32)).to(dev))
 
 
 # the optimizer nodes of vitx's chains, by the fields of their optax
@@ -167,7 +219,8 @@ def _slot_tree(tree, dtype, dev):
     return torch.tensor(np.asarray(tree, np.float32)).to(dtype).to(dev)
 
 
-def opt_state_from_jax(opt_state, cfg: ViTConfig, device="cuda"):
+def opt_state_from_jax(opt_state, cfg: ViTConfig, device="cuda", *,
+                       spec: dict | None = None):
     """The port's optimizer state from the state of vitx's
     ``make_optimizer(optimizer=...)``: an ``AdamWState`` (plain or
     ``fused=True``; mu fp32, or bf16 under ``mu_dtype="bfloat16"``), an
@@ -175,7 +228,9 @@ def opt_state_from_jax(opt_state, cfg: ViTConfig, device="cuda"):
     ``grad_clip`` keep no state of their own; the count of an SGD trace,
     which keeps none, is 0. The slots must be fp32 trees of the params'
     shapes (Adafactor's factored and placeholder shapes as the port's
-    ``init`` makes them for ``cfg``)."""
+    ``init`` makes them for ``cfg``). ``spec`` gives another tree than
+    ``param_spec(cfg)``'s (a pretraining family's, e.g.
+    ``nn/mae.py::mae_param_spec``)."""
     from vitx_torch.train.step import leaf_paths, leaves, make_optimizer
 
     found = _opt_node(opt_state)
@@ -197,7 +252,7 @@ def opt_state_from_jax(opt_state, cfg: ViTConfig, device="cuda"):
                 torch.empty(v[0], dtype=torch.float32, device="meta")
                 for k, v in spec.items()}
     template = make_optimizer(optimizer=name, mu_dtype=mu_dtype).init(
-        shapes(param_spec(cfg)))
+        shapes(param_spec(cfg) if spec is None else spec))
     slots = {}
     for field in template.SLOTS:
         want = getattr(template, field)

@@ -21,6 +21,7 @@ import math
 import torch
 
 from vitx_torch.core.config import ViTConfig
+from vitx_torch.core.device import resolve_device
 
 # target -> (A's trailing shape, B's trailing shape), per layer; A maps the
 # base weight's first axis to the rank, B the rank to its other axes
@@ -55,14 +56,17 @@ def lora_spec(cfg: ViTConfig) -> dict:
     return spec
 
 
-def init_lora_leaves(rng, cfg: ViTConfig, *, device="cpu") -> dict:
+def init_lora_leaves(rng, cfg: ViTConfig, *, device="cuda") -> dict:
     """Fresh adapter leaves to insert into ``params["blocks"]`` (``rng`` a
-    ``torch.Generator`` or an int seed; the draws differ from vitx's)."""
+    ``torch.Generator`` or an int seed; the draws differ from vitx's) on
+    ``device``: a CUDA device by default, as ``init_params``' leaves,
+    raising when there is none (``device="cpu"`` for the CPU)."""
     from vitx_torch.nn.vit import init_leaf
 
+    dev = resolve_device(device)
     gen = rng if isinstance(rng, torch.Generator) else \
         torch.Generator().manual_seed(int(rng))
-    return {k: init_leaf(shape, init, cfg, gen).to(device)
+    return {k: init_leaf(shape, init, cfg, gen).to(dev)
             for k, (shape, init) in lora_spec(cfg).items()}
 
 

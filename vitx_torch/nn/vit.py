@@ -183,12 +183,10 @@ def init_leaf(shape, init, cfg: ViTConfig, gen: torch.Generator):
     return t.to(cfg.pdtype())
 
 
-def init_params(rng, cfg: ViTConfig, *, device="cuda") -> Params:
-    """Fresh parameters: trunc-normal (``cfg.init_std``, cut at 2 std)
-    weights, zero biases, unit LN scales. ``rng`` is a ``torch.Generator``
-    or an int seed; the values are drawn on the CPU, so a seed gives the
-    same parameters on every device (but not vitx's: JAX's generator
-    differs)."""
+def init_from_spec(rng, spec: dict, cfg: ViTConfig, device="cuda") -> Params:
+    """Fresh leaves of ``spec`` (``param_spec``'s form), drawn in its order
+    on the CPU by ``init_leaf`` and moved to ``device``; ``rng`` is a
+    ``torch.Generator`` or an int seed."""
     dev = resolve_device(device)
     gen = rng if isinstance(rng, torch.Generator) else \
         torch.Generator().manual_seed(int(rng))
@@ -199,7 +197,16 @@ def init_params(rng, cfg: ViTConfig, *, device="cuda") -> Params:
         shape, init = node
         return init_leaf(shape, init, cfg, gen).to(dev)
 
-    return build(param_spec(cfg))
+    return build(spec)
+
+
+def init_params(rng, cfg: ViTConfig, *, device="cuda") -> Params:
+    """Fresh parameters: trunc-normal (``cfg.init_std``, cut at 2 std)
+    weights, zero biases, unit LN scales. ``rng`` is a ``torch.Generator``
+    or an int seed; the values are drawn on the CPU, so a seed gives the
+    same parameters on every device (but not vitx's: JAX's generator
+    differs)."""
+    return init_from_spec(rng, param_spec(cfg), cfg, device)
 
 
 def params_to(params: Params, device) -> Params:

@@ -20,7 +20,11 @@ with the optimizer's own state in the middle:
     lion       count, mu...                       (ScaleByLionState)
     adafactor  count, v_row..., v_col..., v...    (FactoredState)
 
-every tree's leaves in sorted-key order (``leaves``), the counts and the
+and, for DINO's ``DINOState(step, params, opt_state, teacher, center)``
+(``nn/dino.py``), the teacher's leaves and the centre last. The
+pretraining families' params are ``{"encoder", "decoder"}`` (MAE) or
+``{"encoder", "head"}`` (DINO, SimCLR), flattened like any tree. Here
+every tree's leaves are in sorted-key order (``leaves``), the counts and the
 step int32 scalars, everything else fp32 except a ``mu_dtype="bfloat16"``
 first moment, which is stored as vitx's ``np.savez`` stores a JAX
 bfloat16 array: its 2-byte bit pattern, read back as void (``|V2``).
@@ -97,6 +101,10 @@ def state_leaves(state: TrainState, schedule: bool) -> list:
         out += leaves(opt.ema)
     if opt.acc is not None:
         out += leaves(opt.acc)
+    # a state's fields past the optimizer's (DINO's teacher and centre)
+    # follow it in field order, as vitx flattens a NamedTuple
+    for name in state._fields[3:]:
+        out += leaves(getattr(state, name))
     return out
 
 
@@ -308,8 +316,12 @@ def _fill(template: TrainState, arrays: list, schedule: bool, path):
     # an SGD chain without a schedule or accumulation keeps no count: the
     # step is the number of updates applied
     count = counts[0] if counts else step
-    return TrainState(step, params, type(opt)(
-        count=count, **slots, ema=ema, acc=acc, mini_step=mini_step))
+    opt_state = type(opt)(count=count, **slots, ema=ema, acc=acc,
+                          mini_step=mini_step)
+    more = {name: take_tree(getattr(template, name))
+            for name in template._fields[3:]}
+    return template._replace(step=step, params=params, opt_state=opt_state,
+                             **more)
 
 
 def restore_checkpoint(path, template: TrainState, schedule: bool):
