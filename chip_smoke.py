@@ -395,7 +395,33 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               --init-from the MAE export for an epoch (launches exact) and
               cli.probe on it. Its launches, (b) and (d), are the kernels
               line's "pretrain" path.
-17. artifacts -- main path 8, the model shipped (base16 bf16 at full
+17. parallel -- main path 14, data, ZeRO, tensor, sequence and expert
+              parallelism (vitx_torch.parallel) in rank processes that
+              share the card (gloo, by the backend rule, printed): (a) at
+              base16's widths, depth 2, fp32, b8 global: dp2, zero1,
+              zero2, zero3, tp2 with sp and ep2 (8 experts over the last
+              block), each one step on two ranks against one process on
+              the CPU from the same weights: loss, grad_norm and every
+              reduced gradient within FP32_TOL, the params within
+              param_gap's allowance; (b) at full width in bf16, b128
+              global, fused AdamW: the same six runs (ep2 on bench 10's
+              Soft-MoE ViT-B), one warm-up and 5 steps on one batch: the
+              first step's loss and grad_norm within PARALLEL_TOL of one
+              process's step on the card, the losses falling, each rank's
+              step ms (host clock around synchronised steps, median of 5)
+              and peak memory beside one process's, launches exact in
+              every rank (K1 12, B2 12, B3 25, B12 1 a step; B5 in K1's
+              place under tp, the composed path as vitx); (c) K1 and K2
+              with their stashes, B2 and B3 at a dp 2 rank's (64, 197,
+              768) and an MAE rank's (64, 50, 768) in fp32 and bf16, and
+              B12 over rank 0's ZeRO-1 slices of base16, against their
+              plain versions, each twice bit for bit, then their times as
+              more "shapes" of the kernels line's rows; (d) nccl with one
+              rank (a card of its own): its dp 1 step of the depth-2 bf16
+              copy bit for bit one process's; (e) python -m
+              vitx_torch.parallel.dryrun 4 on the card. Rank 0's launches
+              of (b) are the kernels line's "parallel" path.
+18. artifacts -- main path 8, the model shipped (base16 bf16 at full
               width): (a) an int8 .quant.npz of the params, about 1/4 of
               their fp32 bytes, quantization_error at most 1/254, a
               server on it answering 32 requests with the top-1 of direct
@@ -411,7 +437,7 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               within 1e-4 and the probe CLI on a .quant.npz over
               procedural:128,64, reports and features alike. Its
               launches are the kernels line's "export" path.
-18. bench  -- main path 9, vitx's bench configurations on the card: K1
+19. bench  -- main path 9, vitx's bench configurations on the card: K1
               (with and without its stash), K2, B2 and B3 at huge14's
               shapes (E 1280, 10 heads of D 128: the earlier attention
               kernels, the sm90 GEMM) held to their plain versions in
@@ -419,7 +445,7 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               last the "huge14" path: its launches asserted), then
               vitx_torch.cli.tune --mode infer on base16 at 64, 128 and
               256 with no error row.
-19. times  -- CUDA-event medians: the base16 forward at batch 256 bf16
+20. times  -- CUDA-event medians: the base16 forward at batch 256 bf16
               (img/s), the train step at batch 128 bf16 (img/s), the
               large16_384 rollout forward at batch 32 bf16 (img/s), the
               same with QKV biases and forward_with_attn("full") at
@@ -470,7 +496,11 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               37, 768), K2's at (128, 197, 512), M 2048, B2's wrapper at
               (128, 16, 197, 32) (its earlier kernel), B2's sm90 row at
               (128, 12, 50, 64) and (192, 12, 37, 64), and B3's one-pass
-              row at (128, 197, 512) and (128, 50, 768).
+              row at (128, 197, 512) and (128, 50, 768); and the parallel
+              phase's (c): K1's sm90 row at a dp 2 rank's (64, 197, 768),
+              B2's sm90 row at (64, 12, 197, 64), B3's one-pass row at
+              (64, 197, 768) and B12's multi-leaf row over rank 0's ZeRO-1
+              slices of base16 (45.6 M elements).
 
 Each main path runs with the kernels' launch counts set to 0 just before
 it and read just after. ``attention_bwd``, ``flash_attention`` and the
@@ -535,7 +565,8 @@ PROFILE_LEAD_KEPT = 960       # of them a window must keep to be read
 PROFILE_TRIES = 3             # windows profile_call traces at most
 PHASES = ("device", "build", "kernels", "grad", "forward", "serve", "train",
           "explain", "tome", "finetune", "recipe", "transfer", "pretrained",
-          "families", "optim", "pretrain", "artifacts", "bench", "times")
+          "families", "optim", "pretrain", "parallel", "artifacts", "bench",
+          "times")
 
 KERNELS = {
     "fused_mha_block": {
@@ -7406,6 +7437,559 @@ def phase_pretrain(errs: dict) -> tuple:
     return launches, extra
 
 
+# the sharded runs of phase parallel: name -> (dp, tp, ep, ZeRO stage, sp)
+PARALLEL = {"dp2": (2, 1, 1, 0, False), "zero1": (2, 1, 1, 1, False),
+            "zero2": (2, 1, 1, 2, False), "zero3": (2, 1, 1, 3, False),
+            "tp2_sp": (1, 2, 1, 0, True), "ep2": (1, 1, 2, 0, False)}
+PARALLEL_A_B = 8        # (a)'s global batch, depth-2 fp32 copies
+PARALLEL_B = 128        # (b)'s global batch at full width, bf16
+PARALLEL_STEPS = 5      # (b)'s timed steps, after one warm-up
+PARALLEL_LR = 1e-4
+PARALLEL_DRAW = "cuda"  # where the phase's batches are drawn (same values
+                        # in every rank and in the parent)
+# (b): the sharded step's loss and grad_norm against the single-process
+# step on the card, bf16 (BF16_TOL: the order of the gradient sums moves
+# with the ranks)
+PARALLEL_TOL = BF16_TOL
+
+
+def parallel_cfg(name: str, depth: int | None = None,
+                 dtype: str = "bfloat16"):
+    """base16 at ``dtype`` (cut to ``depth``); for ep2 bench 10's
+    Soft-MoE model (8 experts over the last 6 blocks; over the last one
+    at a cut depth)."""
+    import vitx_torch
+
+    kw = {"compute_dtype": dtype}
+    if depth is not None:
+        kw["depth"] = depth
+    if name == "ep2":
+        kw.update(moe_experts=8, moe_blocks=1 if depth else 6)
+    return vitx_torch.get_config("base16", **kw)
+
+
+def parallel_batch(n: int, seed: int, device) -> dict:
+    """n images at 224² and labels, drawn on the card from ``seed`` (the
+    same on every rank and in the parent), on ``device``."""
+    g = torch.Generator(device=PARALLEL_DRAW).manual_seed(seed)
+    x = torch.randn((n, 224, 224, 3), generator=g, device=PARALLEL_DRAW)
+    y = torch.randint(0, 4, (n,), generator=g, device=PARALLEL_DRAW)
+    return {"image": x.to(device), "label": y.to(torch.int32).to(device)}
+
+
+def parallel_params_a(name: str, device):
+    """(a)'s weights: the depth-2 fp32 copy's init, nudged (CPU draws)."""
+    from vitx_torch.nn.vit import init_params
+    from vitx_torch.train.step import tree_map
+
+    host = nudged(init_params(0, parallel_cfg(name, 2, "float32"),
+                              device="cpu"), 2)
+    return tree_map(lambda t: t.to(device), host)
+
+
+def parallel_setup(name: str, mesh, params, opt, cfg):
+    """-> (the rank's cfg, state, specs, grad specs) of a PARALLEL run."""
+    from vitx_torch.parallel import sharded
+    from vitx_torch.train.step import TrainState
+
+    dp, tp, ep, zero, sp = PARALLEL[name]
+    run_cfg = sharded.ep_cfg(sharded.sp_cfg(sharded.tp_safe_cfg(
+        cfg, tp > 1), tp > 1, sp), mesh, ep > 1)
+    whole = TrainState(0, params, opt.init(params))
+    specs = sharded.state_sharding(whole, run_cfg, mesh, tp > 1,
+                                   zero in (1, 2), zero == 3, ep=ep > 1)
+    gspecs = (sharded.grad_sharding(params, run_cfg, mesh, tp > 1, ep > 1)
+              if zero == 2 else None)
+    state = sharded.place_state(whole, run_cfg, mesh, specs=specs)
+    step = sharded.make_parallel_train_step(
+        run_cfg, opt, mesh, tp=tp > 1, zero1=zero in (1, 2), zero3=zero == 3,
+        sp=sp, ep=ep > 1, state_shardings=specs, grad_shardings=gspecs)
+    return run_cfg, state, specs, gspecs, step
+
+
+def gloo_collectives(ctx) -> dict:
+    """Which collectives the group's backend takes on CUDA tensors, each
+    tried once on the world group: "ok" or the error it raised (the
+    port's ``comm`` avoids what gloo lacks, its module doc)."""
+    import torch.distributed as dist
+
+    x = torch.arange(4, dtype=torch.float32, device=ctx.device) + ctx.rank
+    two = [torch.empty(2, device=ctx.device) for _ in range(ctx.world)]
+    tries = {
+        "all_reduce": lambda: dist.all_reduce(x.clone()),
+        "all_gather": lambda: dist.all_gather(
+            [torch.empty_like(x) for _ in range(ctx.world)], x),
+        "reduce_scatter": lambda: dist.reduce_scatter(
+            torch.empty(2, device=ctx.device), [x[:2].clone(),
+                                                x[2:].clone()]),
+        "all_to_all": lambda: dist.all_to_all(two, [x[:2].clone(),
+                                                    x[2:].clone()]),
+        "broadcast": lambda: dist.broadcast(x.clone(), 0),
+    }
+    out = {}
+    for name, fn in tries.items():
+        try:
+            fn()
+            torch.cuda.synchronize()
+            out[name] = "ok"
+        except RuntimeError as e:
+            out[name] = str(e).splitlines()[0]
+    return out
+
+
+def parallel_rank(ctx, a_cases, b_cases) -> dict:
+    """Phase parallel's (a) and (b) on one rank of two sharing the card
+    (gloo, by the backend rule): which collectives gloo takes on CUDA
+    tensors; (a) each case's reduced gradients, loss, grad_norm and
+    params after one step, gathered whole (rank 0); (b) each run's losses
+    and grad norms, step times, peak memory and the launches counted in
+    this rank over its steps."""
+    from vitx_torch.parallel import make_mesh, sharded
+    from vitx_torch.train.step import (create_train_state, gradients,
+                                       leaves, loss_fn, make_optimizer,
+                                       trainable_params)
+
+    out = {"a": {}, "b": {}, "backend": ctx.backend,
+           "collectives": gloo_collectives(ctx)}
+    for name in a_cases:
+        dp, tp, ep, zero, sp = PARALLEL[name]
+        mesh = make_mesh(dp, tp, ep, device=ctx.device)
+        opt = make_optimizer(lr=1e-4)
+        cfg, state, specs, gspecs, step = parallel_setup(
+            name, mesh, parallel_params_a(name, mesh.device), opt,
+            parallel_cfg(name, 2, "float32"))
+        batch = sharded.shard_batch(parallel_batch(PARALLEL_A_B, 7,
+                                                   mesh.device), mesh)
+        plan = sharded.Plan(specs, mesh, state.params, gspecs)
+        p, wrt = trainable_params(state.params)
+        loss_v, _ = loss_fn(sharded.forward_params(p, specs.params, mesh),
+                            batch, cfg, mesh=mesh)
+        grads, gs = plan.reduce(gradients(loss_v, p, wrt), wrt, final=False)
+        grads = [sharded.gather_part(g, s, mesh).cpu()
+                 for g, s in zip(grads, gs)]
+        state, m = step(state, batch)
+        whole = sharded.gather_state(state, specs, mesh)
+        if ctx.rank == 0:
+            out["a"][name] = {
+                "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                "grads": [g.numpy() for g in grads],
+                "params": [t.cpu().numpy() for t in leaves(whole.params)]}
+        del state, whole, grads, p, loss_v
+        torch.cuda.empty_cache()
+    for name in b_cases:
+        dp, tp, ep, zero, sp = PARALLEL[name]
+        mesh = make_mesh(dp, tp, ep, device=ctx.device)
+        opt = make_optimizer(lr=PARALLEL_LR, fused=True)
+        base = parallel_cfg(name)
+        whole = create_train_state(0, base, opt, device=mesh.device)
+        cfg, state, specs, _, step = parallel_setup(name, mesh, whole.params,
+                                                    opt, base)
+        del whole
+        torch.cuda.empty_cache()
+        batch = sharded.shard_batch(parallel_batch(PARALLEL_B, 11,
+                                                   mesh.device), mesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        losses, norms, ms = [], [], []
+        for _ in range(1 + PARALLEL_STEPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t))
+            norms.append(float(m["grad_norm"]))
+        out["b"][name] = {
+            "losses": losses, "grad_norms": norms, "warmup_ms": ms[0],
+            "ms": ms[1:], "step_ms": statistics.median(ms[1:]),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": counts(),
+            "rank_params_m": sum(t.numel() for t in leaves(state.params))
+            / 1e6}
+        del state, batch, m
+        torch.cuda.empty_cache()
+    return out
+
+
+def parallel_reference_a(name: str) -> dict:
+    """(a)'s single-process step on the CPU: the gradients, loss,
+    grad_norm and params after one plain AdamW step."""
+    from vitx_torch.train.step import (TrainState, gradients, leaves,
+                                       loss_fn, make_optimizer, train_step,
+                                       trainable_params)
+
+    cfg = parallel_cfg(name, 2, "float32")
+    params = parallel_params_a(name, "cpu")
+    batch = parallel_batch(PARALLEL_A_B, 7, "cpu")
+    p, wrt = trainable_params(params)
+    grads = gradients(loss_fn(p, batch, cfg)[0], p, wrt)
+    opt = make_optimizer(lr=1e-4)
+    state, m = train_step(TrainState(0, params, opt.init(params)), batch,
+                          cfg=cfg, optimizer=opt, device="cpu")
+    return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+            "grads": grads, "params": leaves(state.params),
+            "names": leaf_names(params)}
+
+
+def parallel_reference_b(name: str) -> dict:
+    """(b)'s single-process step on the card at the global batch: the
+    first step's loss and grad_norm, the losses of 1 + PARALLEL_STEPS
+    steps and the median step time after the warm-up, its peak memory."""
+    from vitx_torch.train.step import (create_train_state, make_optimizer,
+                                       train_step)
+
+    cfg = parallel_cfg(name)
+    opt = make_optimizer(lr=PARALLEL_LR, fused=True)
+    state = create_train_state(0, cfg, opt)
+    batch = parallel_batch(PARALLEL_B, 11, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, ms = [], [], []
+    for _ in range(1 + PARALLEL_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = train_step(state, batch, cfg=cfg, optimizer=opt)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t))
+        norms.append(float(m["grad_norm"]))
+    out = {"losses": losses, "grad_norms": norms, "ms": ms[1:],
+           "step_ms": statistics.median(ms[1:]),
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del state, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def parallel_expected(name: str, steps: int) -> dict:
+    """A rank's launches over ``steps`` (b) steps, per the code's routing:
+    dp, ZeRO and ep as the single-process step at the rank's batch (K1
+    12, B2 12 on its sm90 route, B3 25, B12 1 a step); tp2 with sp the
+    composed block, as vitx (fuse "auto" -> "off" under tp): B5 12 on its
+    sm90 route in K1's place, B2 12, B3 25, B12 1."""
+    cfg = parallel_cfg(name)
+    if PARALLEL[name][1] == 1:
+        return expected_train_launches(cfg, steps, steps)
+    n = cfg.depth * steps
+    b3 = 2 * cfg.depth + head_lns(cfg) + int(cfg.final_norm)
+    return block_launches(cfg, flash_attention=n,
+                          flash_attention_sm90=n * sm90(cfg),
+                          attention_bwd=n, attention_bwd_sm90=n * sm90(cfg),
+                          ln_bwd=b3 * steps, fused_adamw_multi_=steps)
+
+
+def parallel_a(got: dict) -> None:
+    """(a): each sharded depth-2 fp32 run on the card against the
+    single-process step on the CPU: loss, grad_norm and every gradient
+    within FP32_TOL, the params after the step within ``param_gap``."""
+    refs = {}
+    for name, card in got.items():
+        key = "ep2" if name == "ep2" else "dense"
+        if key not in refs:
+            refs[key] = parallel_reference_a(name)
+        ref = refs[key]
+        gc = [torch.from_numpy(g) for g in card["grads"]]
+        errs = {k: abs(card[k] - ref[k]) / max(abs(ref[k]), 1e-12)
+                for k in ("loss", "grad_norm")}
+        errs["grads"], worst = grads_rel_err(gc, ref["grads"], ref["names"])
+        gap = param_gap(gc, ref["grads"],
+                        [torch.from_numpy(t) for t in card["params"]],
+                        ref["params"], 1e-4, 1e-8, ref["names"])
+        emit({"phase": "parallel", "part": f"a: {name} base16 widths depth "
+              "2 fp32, 2 ranks on the card vs one process on the CPU",
+              "mesh": dict(zip(("dp", "tp", "ep", "zero", "sp"),
+                               PARALLEL[name])),
+              "card": {k: card[k] for k in ("loss", "grad_norm")},
+              "cpu": {k: ref[k] for k in ("loss", "grad_norm")},
+              "rel_err": errs, "grads_worst_leaf": worst, "params": gap,
+              "tol": FP32_TOL})
+        if not (max(errs.values()) <= FP32_TOL and gap["worst"] <= 1.0):
+            raise AssertionError(f"parallel (a) {name}: {errs}, {gap}")
+
+
+def parallel_b(ranks: list, refs: dict) -> dict:
+    """(b): each full-width run against the single-process card step:
+    the first step's loss and grad_norm within PARALLEL_TOL, the losses
+    falling over the steps, launches exact in every rank; -> rank 0's
+    launches summed over the runs."""
+    launches = {}
+    for name in ranks[0]["b"]:
+        mine = [r["b"][name] for r in ranks]
+        ref = refs[PARALLEL_REF[name]]
+        errs = {k: abs(mine[0][key][0] - ref[key][0]) / abs(ref[key][0])
+                for k, key in (("loss", "losses"),
+                               ("grad_norm", "grad_norms"))}
+        expect = parallel_expected(name, 1 + PARALLEL_STEPS)
+        for r, m in enumerate(mine):
+            expect_launches(f"parallel (b) {name} rank {r}", m["launches"],
+                            expect)
+        emit({"phase": "parallel", "part": f"b: {name} full width bf16 at "
+              f"b{PARALLEL_B} global, 2 ranks sharing the card (gloo)",
+              "card": smi(), "mesh": dict(zip(("dp", "tp", "ep", "zero",
+                                              "sp"), PARALLEL[name])),
+              "losses": mine[0]["losses"], "grad_norms": mine[0][
+                  "grad_norms"], "one_process": {
+                      "losses": ref["losses"], "grad_norms":
+                      ref["grad_norms"]}, "rel_err": errs,
+              "tol": PARALLEL_TOL,
+              "step_ms_per_rank": [m["step_ms"] for m in mine],
+              "step_ms_runs_rank0": mine[0]["ms"],
+              "warmup_ms_per_rank": [m["warmup_ms"] for m in mine],
+              "peak_memory_gb_per_rank": [m["peak_memory_gb"] for m in mine],
+              "rank_params_m": [m["rank_params_m"] for m in mine],
+              "one_process_step_ms": ref["step_ms"],
+              "one_process_peak_memory_gb": ref["peak_memory_gb"],
+              "launches_per_step_rank0": {
+                  k: v // (1 + PARALLEL_STEPS)
+                  for k, v in mine[0]["launches"].items() if v}})
+        if max(errs.values()) > PARALLEL_TOL:
+            raise AssertionError(f"parallel (b) {name}: {errs}")
+        for m in mine:
+            if not (np.isfinite(m["losses"]).all()
+                    and m["losses"][-1] < m["losses"][0]):
+                raise AssertionError(f"parallel (b) {name}: losses "
+                                     f"{m['losses']}")
+        launches = add_launches(launches, mine[0]["launches"])
+    return launches
+
+
+# (b)'s runs -> the single-process step each is held to
+PARALLEL_REF = {"dp2": "dense", "zero1": "dense", "zero2": "dense",
+                "zero3": "dense", "tp2_sp": "dense", "ep2": "ep2"}
+
+
+def parallel_shards(cfg):
+    """Rank 0's ZeRO-1 update slices of base16 at dp 2 (the moments'
+    specs, ``Plan.update``): owned contiguous fp32 tensors of the shapes
+    the rank's B12 launch reads, drawn on the card."""
+    from vitx_torch.parallel import Mesh, sharded
+    from vitx_torch.train.step import TrainState, make_optimizer, leaves
+
+    from vitx_torch.nn.vit import param_spec
+
+    def meta(spec):
+        return {k: meta(v) if isinstance(v, dict) else
+                torch.empty(v[0], device="meta") for k, v in spec.items()}
+    mesh = Mesh({"data": 2, "model": 1}, 0, "cuda", "gloo")
+    p = meta(param_spec(cfg))
+    specs = sharded.state_sharding(
+        TrainState(0, p, make_optimizer().init(p)), cfg, mesh, zero1=True)
+    plan = sharded.Plan(specs, mesh, p)
+    shapes = []
+    for t, spec in zip(leaves(p), plan.update):
+        shape = list(t.shape)
+        for d, a in sharded.spec_dims(spec).items():
+            shape[d] //= mesh.size(a)
+        shapes.append(tuple(shape))
+    return [seeded(s, 300 + i, 0.02) for i, s in enumerate(shapes)], shapes
+
+
+def check_parallel_kernels(errs: dict) -> None:
+    """(c): the kernels at a rank's shapes against their plain versions,
+    fp32 (FP32_TOL) and bf16 (BF16_TOL), each twice bit for bit: K1 and K2
+    with their stashes, B2 and B3 at a dp 2 rank's (64, 197, 768) and at
+    an MAE rank's visible tokens (64, 50, 768); B12 over rank 0's ZeRO-1
+    slices of base16 at dp 2 (fp32 and bf16 gradients)."""
+    from vitx_torch.kernels import (fused_mha_block, fused_mlp_block,
+                                    mha_block_plain, mlp_block_plain)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = BF16_TOL if dtype == torch.bfloat16 else FP32_TOL
+        bf = dtype == torch.bfloat16
+        for B, T, E, H in ((64, 197, 768, 12), (64, 50, 768, 12)):
+            info = {"dtype": str(dtype), "shape": [B, T, E], "heads": H}
+            x, mha, mlpw = block_inputs(B, T, E, H, 4 * E, dtype, 80 + T,
+                                        "cuda")
+            for kern, plain, w, key, extra in (
+                    (fused_mha_block, mha_block_plain, mha,
+                     "fused_mha_block", {}),
+                    (fused_mlp_block, mlp_block_plain, mlpw,
+                     "fused_mlp_block", {"act": "gelu_tanh"})):
+                n90 = kern.launches_sm90
+                out = kern(x, **w, **extra, stash=True)
+                torch.cuda.synchronize()
+                name = key + ("_sm90" if kern.launches_sm90 > n90 else "")
+                check("parallel", f"{name} with its stash", out,
+                      plain(x, **w, **extra, stash=True), tol,
+                      errs if bf else None, name, **info)
+                bitwise("parallel", f"{name} with its stash, twice",
+                        kern(x, **w, **extra, stash=True), out, **info)
+            del x, mha, mlpw, out
+            check_backward_kernels(B, T, E, H, dtype, tol, errs, "parallel")
+        torch.cuda.empty_cache()
+    import vitx_torch
+
+    ps, shapes = parallel_shards(vitx_torch.get_config("base16"))
+    kw = dict(lr=1e-4, c1=0.1, c2=0.001, b1=0.9, b2=0.999, eps=1e-8,
+              wd=1e-4)
+    for gdt in (torch.float32, torch.bfloat16):
+        gs = [seeded(s, 400 + i, 1e-3, dtype=gdt)
+              for i, s in enumerate(shapes)]
+        mus = [seeded(s, 500 + i, 1e-4) for i, s in enumerate(shapes)]
+        nus = [seeded(s, 600 + i, 1e-6).abs() for i, s in enumerate(shapes)]
+        hold_adamw_multi("parallel", "rank 0's ZeRO-1 slices of base16 at "
+                         "dp 2", [p.clone() for p in ps], gs, mus, nus, kw,
+                         errs, grad_dtype=str(gdt))
+    torch.cuda.empty_cache()
+
+
+def parallel_kernel_shapes(launches: dict, errs: dict) -> dict:
+    """A dp 2 rank's shapes as more ``shapes`` of the rows, bf16: K1's
+    sm90 row with its stash at (64, 197, 768); B2's sm90 row at (64, 12,
+    197, 64); B3's one-pass row at (64, 197, 768); B12 over rank 0's
+    ZeRO-1 slices of base16 (torch.optim.AdamW(fused=True) on the same
+    slices the library call)."""
+    import vitx_torch
+    from vitx_torch.kernels import (adamw_multi_plain, fused_mha_block,
+                                    fused_adamw_multi_, mha_block_plain)
+
+    bf = torch.bfloat16
+    eps = 1e-5
+    B, T, E, H = 64, 197, 768, 12
+    x, mha, _ = block_inputs(B, T, E, H, 4 * E, bf, 90, "cuda")
+    rows = [kernel_row(
+        "fused_mha_block_sm90",
+        lambda: fused_mha_block(x, **mha, eps=eps, stash=True),
+        lambda: mha_block_plain(x, **mha, eps=eps, stash=True),
+        sdpa_mha(x, mha, H, eps),
+        2 * B * T * E * 4 * E + 4 * B * H * T * T * (E // H),
+        PEAK_BF16_FLOPS, 6 * B * T * E * 2 + 4 * E * E * 2 + 3 * E * 4
+        + 2 * B * H * T * 4, launches, errs, shape=[B, T, E], heads=H,
+        stash=True, of="a dp 2 rank's batch")]
+    del x, mha
+    rows += attention_bwd_rows((B, H, T, E // H), 91, launches, errs,
+                               only="attention_bwd_sm90")
+    rows += ln_bwd_rows((B, T, E), 92, eps, launches, errs,
+                        only="ln_bwd_onepass")
+    ps, shapes = parallel_shards(vitx_torch.get_config("base16"))
+    gs = [seeded(s, 700 + i, 1e-3) for i, s in enumerate(shapes)]
+    mus = [torch.zeros_like(t) for t in ps]
+    nus = [torch.zeros_like(t) for t in ps]
+    n = sum(t.numel() for t in ps)
+    kw = dict(lr=1e-4, c1=0.1, c2=0.001, b1=0.9, b2=0.999, eps=1e-8,
+              wd=1e-4)
+    lib_opt = torch.optim.AdamW(
+        [torch.nn.Parameter(t.clone()) for t in ps], lr=1e-4, eps=1e-8,
+        weight_decay=1e-4, fused=True)
+    for prm, g in zip(lib_opt.param_groups[0]["params"], gs):
+        prm.grad = g
+    rows.append(kernel_row(
+        "fused_adamw_multi_",
+        lambda: fused_adamw_multi_(ps, gs, mus, nus, **kw),
+        lambda: adamw_multi_plain(ps, gs, mus, nus, **kw), lib_opt.step,
+        15 * n, PEAK_FP32_FLOPS, 7 * 4 * n, launches, errs,
+        leaves=len(ps), elements=n, of="rank 0's ZeRO-1 slices of base16 "
+        "at dp 2"))
+    del ps, gs, mus, nus, lib_opt
+    torch.cuda.empty_cache()
+    extra: dict = {}
+    for row in rows:
+        extra.setdefault(row["name"], []).append(shape_entry(row))
+    return extra
+
+
+def parallel_nccl_rank(ctx) -> dict:
+    """(d) in one rank with a card of its own (nccl, by the backend rule):
+    one dp 1 sharded step of the depth-2 bf16 copy at b16."""
+    from vitx_torch.parallel import make_mesh, sharded
+    from vitx_torch.train.step import (create_train_state, leaves,
+                                       make_optimizer)
+
+    import torch.distributed as dist
+
+    mesh = make_mesh(1, device="cuda")
+    cfg = parallel_cfg("dp2", 2)
+    opt = make_optimizer(lr=PARALLEL_LR, fused=True)
+    whole = create_train_state(0, cfg, opt, device=mesh.device)
+    specs = sharded.state_sharding(whole, cfg, mesh)
+    state = sharded.place_state(whole, cfg, mesh, specs=specs)
+    step = sharded.make_parallel_train_step(cfg, opt, mesh,
+                                            state_shardings=specs)
+    state, m = step(state, parallel_batch(16, 13, mesh.device))
+    return {"backend": dist.get_backend(), "loss": float(m["loss"]),
+            "grad_norm": float(m["grad_norm"]),
+            "params": [t.cpu().numpy() for t in leaves(state.params)]}
+
+
+def parallel_nccl() -> None:
+    """(d): nccl with one rank, its step bit for bit the single-process
+    step on the card (loss, grad_norm, every param)."""
+    from vitx_torch.parallel import spawn
+    from vitx_torch.train.step import (create_train_state, leaves,
+                                       make_optimizer, train_step)
+
+    got = spawn(parallel_nccl_rank, 1, device="cuda")[0]
+    cfg = parallel_cfg("dp2", 2)
+    opt = make_optimizer(lr=PARALLEL_LR, fused=True)
+    state, m = train_step(create_train_state(0, cfg, opt),
+                          parallel_batch(16, 13, "cuda"), cfg=cfg,
+                          optimizer=opt)
+    same = (got["loss"] == float(m["loss"])
+            and got["grad_norm"] == float(m["grad_norm"])
+            and all(np.array_equal(a, b.cpu().numpy())
+                    for a, b in zip(got["params"], leaves(state.params))))
+    emit({"phase": "parallel", "part": "d: nccl, one rank, a dp 1 step of "
+          "the depth-2 bf16 copy at b16 against one process", "backend":
+          got["backend"], "loss": got["loss"], "grad_norm":
+          got["grad_norm"], "bit_for_bit": same})
+    if got["backend"] != "nccl" or not same:
+        raise AssertionError(f"parallel (d): backend {got['backend']}, "
+                             f"bit for bit {same}")
+
+
+def parallel_dryrun() -> str:
+    """(e): ``python -m vitx_torch.parallel.dryrun 4`` on the card (four
+    ranks share it: gloo), its summary line."""
+    env_path = str(Path(__file__).resolve().parent)
+    run = subprocess.run([sys.executable, "-m", "vitx_torch.parallel.dryrun",
+                          "4"], capture_output=True, text=True,
+                         cwd=env_path, timeout=600)
+    print(run.stdout, end="", flush=True)
+    line = run.stdout.strip().splitlines()[-1] if run.stdout.strip() else ""
+    emit({"phase": "parallel", "part": "e: python -m "
+          "vitx_torch.parallel.dryrun 4", "rc": run.returncode,
+          "summary": line})
+    if run.returncode != 0 or not line.startswith("dryrun_multichip ok") \
+            or "nan" in line:
+        raise AssertionError(f"parallel (e): rc {run.returncode}\n"
+                             f"{run.stderr[-4000:]}")
+    return line
+
+
+def phase_parallel(errs: dict) -> tuple:
+    """Main path 14 (module docstring): data, ZeRO, tensor, sequence and
+    expert parallelism. Returns (rank 0's launches of (b), the rank
+    shapes' entries for the kernels line)."""
+    from vitx_torch.parallel import spawn
+
+    t0 = time.perf_counter()
+    refs = {k: parallel_reference_b(k) for k in ("dense", "ep2")
+            if k in PARALLEL_REF.values()}
+    t_ref = time.perf_counter()
+    ranks = spawn(parallel_rank, 2, (list(PARALLEL), list(PARALLEL)),
+                  device="cuda")
+    t_spawn = time.perf_counter()
+    emit({"phase": "parallel", "backend": ranks[0]["backend"],
+          "card": smi(), "collectives_on_cuda_tensors":
+          ranks[0]["collectives"]})
+    parallel_a(ranks[0]["a"])
+    launches = parallel_b(ranks, refs)
+    del ranks
+    t_b = time.perf_counter()
+    check_parallel_kernels(errs)
+    extra = parallel_kernel_shapes({}, errs)
+    t_c = time.perf_counter()
+    parallel_nccl()
+    t_d = time.perf_counter()
+    parallel_dryrun()
+    emit({"phase": "parallel", "part": "seconds",
+          "one_process_refs": t_ref - t0, "ranks_a_b": t_spawn - t_ref,
+          "held": t_b - t_spawn, "c": t_c - t_b, "d": t_d - t_c,
+          "e": time.perf_counter() - t_d})
+    return launches, extra
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--phases", default=",".join(PHASES),
@@ -7501,6 +8085,10 @@ def main(argv=None) -> int:
     if "pretrain" in phases:
         pretrain_launches, pretrain_extra = phase_pretrain(errs)
     lap("pretrain")
+    parallel_launches, parallel_extra = {}, {}
+    if "parallel" in phases:
+        parallel_launches, parallel_extra = phase_parallel(errs)
+    lap("parallel")
     export_launches, huge14_launches, huge14_inputs = {}, {}, None
     if "artifacts" in phases:
         export_launches = phase_artifacts(cfg, params)
@@ -7513,7 +8101,8 @@ def main(argv=None) -> int:
                             *recipe_launches.values(), transfer_launches,
                             pretrained_launches, families_launches,
                             optim_launches, pretrain_launches,
-                            export_launches, huge14_launches)
+                            parallel_launches, export_launches,
+                            huge14_launches)
     if "times" in phases:
         rows = phase_times(cfg, params, errs, launches)
         if tome_launches:
@@ -7550,6 +8139,8 @@ def main(argv=None) -> int:
                                                errs))
         if pretrain_extra:
             extras.append(pretrain_extra)
+        if parallel_extra:
+            extras.append(parallel_extra)
         del huge14_inputs
         for extra in extras:
             for row in rows:
@@ -7571,6 +8162,7 @@ def main(argv=None) -> int:
                 "families": families_launches.get(row["name"], 0),
                 "optim": optim_launches.get(row["name"], 0),
                 "pretrain": pretrain_launches.get(row["name"], 0),
+                "parallel": parallel_launches.get(row["name"], 0),
                 "export": export_launches.get(row["name"], 0),
                 "huge14": huge14_launches.get(row["name"], 0)}
             if row["name"] in stash:

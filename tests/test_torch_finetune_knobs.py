@@ -444,14 +444,16 @@ def test_block_backward_needs_input_grad(kernel):
 @pytest.mark.parametrize("call,item", [
     ("optimizer=adafactor", "A12"), ("mu_dtype", "A12"), ("sam", "A12"),
     ("loss=bce", "A12"), ("trainer_sam", "A12"),
-    ("cli_sam", "A12"), ("cli_layerscale", "A12"), ("cli_tp", "A13")])
+    ("cli_sam", "A12"), ("cli_layerscale", "A12"), ("cli_tp", "A13.2")])
 def test_still_unported_refuse(call, item):
     """Once refused (A12), now composed with the fine-tuning knobs: a
     head-only Adafactor keeps factored state for the trainable leaves
     only and leaves the frozen ones bit-unchanged; a bf16 first moment
     under LLRD; SAM and the multi-label loss under a freeze policy, the
     frozen leaves unchanged; SAM through the Trainer and the train CLI.
-    ``--tp`` (A13) is still refused; ``--layerscale`` is ported."""
+    ``--tp`` is ported (A13.1): it asks for a mesh of one data rank, and
+    pipeline parallelism beside it is refused, naming A13.2;
+    ``--layerscale`` is ported."""
     from vitx_torch.cli import train as ttrain
     from vitx_torch.train import loop as tloop
 
@@ -501,8 +503,12 @@ def test_still_unported_refuse(call, item):
             ["--sam-rho", "0.05", "--device", "cpu"]), p)
         assert tr.tcfg.sam_rho == 0.05
     else:
+        p = ttrain.build_argparser()
+        args = p.parse_args(["--tp", "2", "--device", "cpu"])
+        ttrain.check_parallel(args)
+        assert ttrain.parallel(args) and ttrain.mesh_dp(args) == 1
         with pytest.raises(SystemExit, match=item):
-            ttrain.main(["--tp", "2", "--device", "cpu"])
+            ttrain.main(["--tp", "2", "--pp", "2", "--device", "cpu"])
 
 
 def test_cli_fine_tune_conflicts(tmp_path):

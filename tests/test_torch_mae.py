@@ -252,5 +252,5 @@ def test_pretrain_cli_mae(setup, tmp_path, monkeypatch, capsys):
     with np.load(tmp_path / "v.npz") as z:
         for k, v in flat(tree).items():
             assert np.array_equal(z[k], v), k
-    with pytest.raises(SystemExit, match="A13"):
-        pretrain.main(argv + ["--dp", "2"])
+    with pytest.raises(SystemExit, match="divisible by --dp 3"):
+        pretrain.main(argv + ["--dp", "3"])

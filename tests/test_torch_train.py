@@ -285,14 +285,16 @@ def test_confusion_matrix_matches_vitx():
     ("accum_steps", "ValueError"), ("llrd", "ValueError"),
     ("trainable", "ValueError"), ("mu_dtype", "A12"),
     ("loss=bce", "A12"), ("mixup", "ported"), ("cutmix", "ported"),
-    ("sam", "A12"), ("train_filter", "ValueError"), ("grad_shardings", "A13"),
+    ("sam", "A12"), ("train_filter", "ValueError"),
+    ("grad_shardings", "ValueError"),
 ])
 def test_unported_knobs_raise(call, item):
     """The knobs that waited for ROADMAP A12 are ported (their parity is
     ``tests/test_torch_optim.py``'s and ``tests/test_torch_sam_bce.py``'s):
     here the optimizers and ``mu_dtype`` build their states, and one step
     with ``loss="bce"`` or ``sam_rho`` runs, its loss the clean pass's.
-    Sharded gradients still raise naming A13. Accumulation, LLRD, the
+    Sharded gradients (A13.1) need the rank's mesh: without one they
+    raise ``ValueError``. Accumulation, LLRD, the
     freeze policies and mixup / cutmix are ported too: their invalid forms
     raise ``ValueError``, and a mixing step without a generator or a map
     is the plain step, as vitx's ``loss_fn`` without an rng is."""

@@ -259,11 +259,12 @@ def test_port_recipe_cli_checkpoints_read_by_vitx(tmp_path, capsys,
     (["--data", "synthetic-ml", "--loss", "bce"], None, "loss"),
     (["--sam-rho", "0.05"], None, "sam_rho"),
     (["--optimizer", "sgd"], None, "optimizer"),
-    (["--dp", "2"], SystemExit, "A13"),
+    (["--dp", "2", "--sp"], SystemExit, "requires --tp"),
     (["--init-from", "run/3.ckpt"], FileNotFoundError, "run/3.ckpt"),
 ], ids=["cifar", "multilabel", "sam", "sgd", "dp", "init_ckpt"])
 def test_train_cli_refuses_unported(argv, exc, item):
-    """Unported flags exit naming their ROADMAP item (``--dp``, A13).
+    """Refused flags exit with vitx's message (``--dp`` with ``--sp``
+    but no ``--tp``: sequence parallelism needs a model axis).
     CIFAR-10 and ``--init-from`` a checkpoint are ported (A7, A3): those
     two cases hold that a source that is not there is refused, naming its
     path. The multi-label data and loss, SAM and the optimizers, refused

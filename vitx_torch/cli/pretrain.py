@@ -24,7 +24,11 @@ teacher's for DINO) as a bare fine-tune-ready ``.npz`` that vitx's
 
 Each step's draws (masking, views, dropout) come from generators seeded
 by (seed, epoch, step), so a resumed run draws what an uninterrupted one
-would. ``--dp`` is not ported (ROADMAP A13).
+would. ``--dp N`` pretrains data-parallel over N rank processes
+(``vitx_torch.parallel.spawn``, or the group ``torchrun`` describes):
+the state whole on every rank, each rank loading its block of every
+batch, the families' global-batch semantics kept (``nn/{mae,dino,
+simclr}.py``, ``mesh=``), rank 0 printing, writing and exporting.
 """
 
 from __future__ import annotations
@@ -97,7 +101,8 @@ def build_argparser():
       help="after training, write a fine-tune-ready classifier tree (npz) "
            "with the pretrained encoder's weights")
     a("--dp", type=int, default=None,
-      help="data-parallel pretraining: not ported (ROADMAP A13)")
+      help="data-parallel size: shard pretraining batches over a mesh "
+           "(params/moments replicated)")
     a("--device", default="cuda",
       help="torch device to pretrain on (default: cuda)")
     return p
@@ -137,9 +142,11 @@ def family_config(args, cfg: ViTConfig):
                      norm_pix_loss=not args.no_norm_pix)
 
 
-def build_family(args, cfg: ViTConfig, steps_per_epoch: int, device):
+def build_family(args, cfg: ViTConfig, steps_per_epoch: int, device,
+                 mesh=None):
     """-> (family config, state, step, host preprocess, train flag) for
-    ``args.method`` (``vitx/cli/pretrain.py:133-197``)."""
+    ``args.method`` (``vitx/cli/pretrain.py:133-197``); ``mesh``: a rank
+    of a data-parallel run."""
     from vitx_torch.data import make_preprocess
     from vitx_torch.train.step import make_optimizer
 
@@ -160,7 +167,7 @@ def build_family(args, cfg: ViTConfig, steps_per_epoch: int, device):
         step = make_dino_train_step(
             fcfg, opt, total_steps=args.epochs * steps_per_epoch,
             freeze_last_steps=args.freeze_last_epochs * steps_per_epoch,
-            device=device)
+            device=device, mesh=mesh)
         return fcfg, state, step, raw, False
     if args.method == "simclr":
         from vitx_torch.nn.simclr import (create_simclr_train_state,
@@ -168,12 +175,13 @@ def build_family(args, cfg: ViTConfig, steps_per_epoch: int, device):
 
         state = create_simclr_train_state(args.seed, fcfg, opt,
                                           device=device)
-        return fcfg, state, make_simclr_train_step(fcfg, opt,
-                                                   device=device), raw, False
+        return fcfg, state, make_simclr_train_step(
+            fcfg, opt, device=device, mesh=mesh), raw, False
     from vitx_torch.nn.mae import create_mae_train_state, make_mae_train_step
 
     state = create_mae_train_state(args.seed, fcfg, opt, device=device)
-    return (fcfg, state, make_mae_train_step(fcfg, opt, device=device),
+    return (fcfg, state, make_mae_train_step(fcfg, opt, device=device,
+                                             mesh=mesh),
             make_preprocess(out_size=cfg.image_size), True)
 
 
@@ -194,6 +202,33 @@ def export_vit(path, args, cfg: ViTConfig, state) -> None:
 
 
 def main(argv=None):
+    args = build_argparser().parse_args(argv)
+    if args.dp is None:
+        return run(args)
+    if args.batch_size % args.dp:
+        raise SystemExit(f"--batch-size {args.batch_size} must be "
+                         f"divisible by --dp {args.dp}")
+    import os
+
+    from vitx_torch import parallel as par
+
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        return rank_main(par.from_env(args.device), argv)
+    argv = sys.argv[1:] if argv is None else list(argv)
+    return max(par.spawn(rank_main, args.dp, (argv,), device=args.device))
+
+
+def rank_main(ctx, argv) -> int:
+    """One rank of ``--dp`` pretraining (``vitx_torch.parallel.spawn``)."""
+    from vitx_torch.parallel import make_mesh
+
+    args = build_argparser().parse_args(argv)
+    return run(args, make_mesh(args.dp, device=ctx.device))
+
+
+def run(args, mesh=None) -> int:
+    """Pretrain as ``args`` say, on one device or as a rank of ``mesh``
+    (a data-parallel mesh: rank 0 alone prints, logs and writes)."""
     from vitx_torch.cli.train import make_datasets
     from vitx_torch.data import BatchLoader
     from vitx_torch.train.checkpoint import (find_latest, restore_latest,
@@ -201,10 +236,11 @@ def main(argv=None):
     from vitx_torch.train.logging import ScalarWriter
     from vitx_torch.train.loop import step_seed
 
-    args = build_argparser().parse_args(argv)
-    if args.dp is not None:
-        raise SystemExit("error: --dp is not ported to vitx_torch yet "
-                         "(ROADMAP A13)")
+    rank0 = mesh is None or mesh.rank == 0
+    rows, stream = None, 0
+    if mesh is not None:
+        rows = (mesh.index("data"), mesh.dp)
+        stream = 2 + rows[0]     # the host preprocessing's draws per rank
     if args.config_json:
         with open(args.config_json) as f:
             cfg = ViTConfig.from_json(f.read())
@@ -212,27 +248,28 @@ def main(argv=None):
         cfg = get_config(args.preset)
     if args.compute_dtype:
         cfg = cfg.replace(compute_dtype=args.compute_dtype)
-    dev = resolve_device(args.device)
+    dev = resolve_device(args.device) if mesh is None else mesh.device
 
     train_ds, _ = make_datasets(args.data, cfg, args.seed)
     loader = BatchLoader(train_ds, args.batch_size, shuffle=True,
-                         seed=args.seed, drop_last=True)
+                         seed=args.seed, drop_last=True, rows=rows)
     steps_per_epoch = len(loader)
-    _, state, step_fn, pre, pre_train = build_family(args, cfg,
-                                                     steps_per_epoch, dev)
+    _, state, step_fn, pre, pre_train = build_family(
+        args, cfg, steps_per_epoch, dev, mesh)
 
     start_epoch = 0
     if args.checkpoint_dir and find_latest(args.checkpoint_dir) is not None:
         state, meta = restore_latest(args.checkpoint_dir, state, False)
         start_epoch = int(meta.get("epoch", -1)) + 1
-        print(f"resumed {args.method.upper()} pretraining at "
-              f"epoch {start_epoch}")
+        if rank0:
+            print(f"resumed {args.method.upper()} pretraining at "
+                  f"epoch {start_epoch}")
 
     def gen(epoch: int, step: int, stream: int):
         return torch.Generator(device=dev).manual_seed(
             step_seed(args.seed, epoch, step, stream))
 
-    writer = ScalarWriter(args.log_dir) if args.log_dir else None
+    writer = ScalarWriter(args.log_dir) if args.log_dir and rank0 else None
     last: dict = {}
     for epoch in range(start_epoch, args.epochs):
         loader.set_epoch(epoch)
@@ -242,7 +279,7 @@ def main(argv=None):
         for batch in loader:
             g = int(state.step)
             u8 = torch.from_numpy(batch["image"]).to(dev)
-            images = pre(u8, gen(epoch, g, 0), train=pre_train)
+            images = pre(u8, gen(epoch, g, stream), train=pre_train)
             state, metrics = step_fn(state, {"image": images},
                                      gen(epoch, g, 1))
             pending.append(metrics["loss"])
@@ -277,22 +314,24 @@ def main(argv=None):
             extra = f" contrast_acc {acc:.3f}"
             if writer:
                 writer.add_scalar("SimCLR/contrast_acc", acc, epoch)
-        print(f"epoch {epoch}: {args.method}_loss {mean_loss:.4f}{extra} "
-              f"({imgs_per_sec:.0f} img/s)")
+        if rank0:
+            print(f"epoch {epoch}: {args.method}_loss {mean_loss:.4f}"
+                  f"{extra} ({imgs_per_sec:.0f} img/s)")
         if writer:
             writer.add_scalar("Loss/pretrain_epoch", mean_loss, epoch)
-        if args.checkpoint_dir:
+        if args.checkpoint_dir and rank0:
             save_checkpoint(args.checkpoint_dir, snapshot(state, False),
                             epoch, meta={"epoch": epoch, "loss": mean_loss,
                                          "kind": args.method})
 
-    if args.export_vit:
+    if args.export_vit and rank0:
         export_vit(args.export_vit, args, cfg, state)
         print(f"exported fine-tune-ready encoder to {args.export_vit} "
               f"(load with vitx_torch.cli.train --init-from)")
     if writer:
         writer.close()
-    print(json.dumps(last))
+    if rank0:
+        print(json.dumps(last))
     return 0
 
 

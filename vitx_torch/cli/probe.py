@@ -17,7 +17,7 @@ CLI evaluates works here, by the same rules
 ``.ckpt`` files and directories (the EMA shadow where there is one), int8
 ``.quant.npz`` artifacts, bare params ``.npz`` and reference ``.pt``. A
 ``.pt2`` program is refused (it holds only the logits program, as vitx
-refuses ``.stablehlo``), and so is ``--dp`` (ROADMAP A13).
+refuses ``.stablehlo``), and so is ``--dp`` (ROADMAP A13.2).
 
     python -m vitx_torch.cli.probe --checkpoint ckpt/run --data folder:data \\
         --pool cls --knn 20 --features /tmp/feats.npz
@@ -128,12 +128,12 @@ def main(argv=None):
                    help="also export raw features+labels for both splits")
     p.add_argument("--no-normalize", action="store_true")
     p.add_argument("--dp", type=int, default=None,
-                   help="a data-parallel mesh: not ported (ROADMAP A13)")
+                   help="a data-parallel mesh: not ported (ROADMAP A13.2)")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
     if args.dp is not None:
         raise SystemExit("error: --dp is not ported to vitx_torch yet "
-                         "(ROADMAP A13)")
+                         "(ROADMAP A13.2)")
     dev = resolve_device(args.device)
 
     from vitx_torch.cli.train import make_datasets

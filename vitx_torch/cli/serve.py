@@ -21,7 +21,7 @@ counterpart of ``vitx/cli/serve.py``. Endpoints:
 400, and a ToMe program's pinned batch must be ``--batch-size``).
 ``--device`` selects the device (default ``cuda``; the server refuses to
 start without one unless ``--device cpu`` is given). ``--dp`` (serving
-over several cards) is refused, naming ROADMAP A13. ``--tome-r`` serves
+over several cards) is refused, naming ROADMAP A13.2. ``--tome-r`` serves
 ``/predict`` from the ToMe encoder: ``13`` merges 13 token pairs in every
 block, ``35,34`` follows a per-block schedule, ``to128`` resolves to
 vitx's schedule reaching 128 tokens (``aligned_schedule``); ``/explain``
@@ -140,7 +140,7 @@ def main(argv=None):
     p.add_argument("--max-delay-ms", type=float, default=5.0)
     p.add_argument("--dp", type=int, default=None,
                    help="serve over a data-parallel mesh: not ported "
-                        "(ROADMAP A13)")
+                        "(ROADMAP A13.2)")
     p.add_argument("--temperature", type=float, default=None,
                    help="temperature-scale the served probabilities")
     p.add_argument("--device", default="cuda",
@@ -152,7 +152,7 @@ def main(argv=None):
     args = p.parse_args(argv)
     if args.dp is not None:
         raise SystemExit("error: --dp is not ported to vitx_torch yet "
-                         "(ROADMAP A13)")
+                         "(ROADMAP A13.2)")
 
     cfg = resolve_artifact_config(args.checkpoint, args.config_json,
                                   args.preset, args.tome_r)

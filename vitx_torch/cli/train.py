@@ -24,9 +24,14 @@ The model's geometry flags are vitx's too: ``--layerscale``, ``--mlp-act``,
 So are the training knobs: ``--optimizer`` (adamw, sgd, lion, adafactor),
 ``--mu-dtype``, ``--sam-rho``, ``--loss bce`` (multi-label, with ``--data
 synthetic-ml``), ``--class-weights`` (a list or ``balanced``) and
-``--steps-per-dispatch``. The parallelism flags set away from their
-defaults exit non-zero, naming the ROADMAP item that brings them
-(``UNPORTED``).
+``--steps-per-dispatch``. The parallelism flags are vitx's too: ``--dp``,
+``--tp``, ``--zero 0-3``, ``--ep`` and ``--sp`` (with vitx's checks and
+messages) start one rank process per mesh position
+(``vitx_torch.parallel.spawn``; under ``torchrun`` each process joins
+the group its environment describes), each loading its block of every
+batch; rank 0 logs, prints and writes the checkpoints. Pipeline
+parallelism's flags set away from their defaults exit non-zero, naming
+the ROADMAP item that brings them (``UNPORTED``).
 
 ``CONVERGENCE.md``'s ViT-S/16 recipe (``examples/convergence.py``)::
 
@@ -59,10 +64,8 @@ from vitx_torch.train.loop import NonFiniteLossError, Trainer, TrainerConfig
 
 # flags the port does not take yet -> the ROADMAP item that brings them;
 # each is refused when set away from its default
-UNPORTED = {
-    "dp": "A13", "tp": "A13", "zero": "A13", "ep": "A13", "sp": "A13",
-    "pp": "A13", "pp_microbatches": "A13", "pp_schedule": "A13",
-}
+UNPORTED = {"pp": "A13.2", "pp_microbatches": "A13.2",
+            "pp_schedule": "A13.2"}
 
 
 def build_argparser():
@@ -180,14 +183,22 @@ def build_argparser():
     a("--steps-per-dispatch", type=int, default=1,
       help="stack k batches, place them once and issue their k steps "
            "back to back")
-    a("--dp", type=int, default=None)
-    a("--tp", type=int, default=1)
-    a("--zero", type=int, default=0, choices=[0, 1, 2, 3])
+    a("--dp", type=int, default=None,
+      help="data-parallel size (default: single device)")
+    a("--tp", type=int, default=1, help="tensor-parallel size")
+    a("--zero", type=int, default=0, choices=[0, 1, 2, 3],
+      help="ZeRO stage: 1 = moments, 2 = moments + reduce-scattered "
+           "grads, 3 = params + moments")
     a("--moe-experts", type=int, default=0)
     a("--moe-blocks", type=int, default=0)
     a("--moe-slots", type=int, default=0)
-    a("--ep", type=int, default=1)
-    a("--sp", action="store_true")
+    a("--ep", type=int, default=1,
+      help="expert-parallel mesh axis size: MoE expert weights and slots "
+           "shard over it (requires --moe-experts divisible by it)")
+    a("--sp", action="store_true",
+      help="sequence parallelism (Megatron SP): residual stream "
+           "token-sharded over the model axis between blocks; requires "
+           "--tp > 1")
     a("--pp", type=int, default=1)
     a("--pp-microbatches", type=int, default=4)
     a("--pp-schedule", default="gpipe", choices=("gpipe", "1f1b"))
@@ -263,10 +274,48 @@ def refuse_unported(args, parser) -> None:
                              f"yet (ROADMAP {item})")
 
 
-def build_trainer(args, parser=None):
-    """-> (trainer, train_loader, eval_loader) for parsed ``args``."""
+def parallel(args) -> bool:
+    """Whether ``args`` ask for a mesh (vitx/cli/train.py:655)."""
+    return args.dp is not None or args.tp > 1 or args.ep > 1
+
+
+def check_parallel(args) -> None:
+    """vitx's checks of the parallelism flags (``vitx/cli/train.py:
+    629-645``), and the batch's split over the data x expert ranks."""
+    if args.sp and args.tp <= 1:
+        raise SystemExit("--sp requires --tp > 1 (sequence parallelism "
+                         "shards the residual stream over the model axis)")
+    if args.ep > 1 and not args.moe_experts:
+        raise SystemExit("--ep > 1 requires --moe-experts (expert "
+                         "parallelism shards MoE expert weights)")
+    if parallel(args):
+        if args.distill_from:
+            raise SystemExit("error: --distill-from builds a single-device "
+                             "step; it does not run with --dp/--tp/--ep")
+        n = mesh_dp(args) * args.ep
+        if args.batch_size % n:
+            raise SystemExit(f"--batch-size {args.batch_size} must be "
+                             f"divisible by --dp {mesh_dp(args)} x --ep "
+                             f"{args.ep}")
+
+
+def mesh_dp(args) -> int:
+    """``--dp``, or vitx's default: the devices over tp x ep (one rank on
+    the CPU)."""
+    if args.dp is not None:
+        return args.dp
+    import torch
+
+    n = torch.cuda.device_count() if args.device != "cpu" else 1
+    return max(1, n // (args.tp * args.ep))
+
+
+def build_trainer(args, parser=None, mesh=None):
+    """-> (trainer, train_loader, eval_loader) for parsed ``args``; on a
+    rank of ``mesh``, its loaders and sharded trainer."""
     parser = parser or build_argparser()
     refuse_unported(args, parser)
+    check_parallel(args)
     if args.config_json:
         with open(args.config_json) as f:
             cfg = ViTConfig.from_json(f.read())
@@ -358,23 +407,32 @@ def build_trainer(args, parser=None):
                      if args.class_weights else None)
     # mixing pairs rows of one batch: no padded remainder batch
     mixing = bool(args.mixup_alpha or args.cutmix_alpha)
+    rows = None
+    device = args.device if mesh is None else mesh.device
+    if mesh is not None:
+        from vitx_torch.parallel import sharded
+
+        axes = sharded.BATCH_AXES
+        rows = (mesh.index(axes), mesh.size(axes))
 
     if args.device_cache:
         train_loader = DeviceBatchLoader(train_ds, args.batch_size,
                                          shuffle=True, seed=args.seed,
-                                         drop_last=mixing,
-                                         device=args.device)
+                                         drop_last=mixing, device=device,
+                                         rows=rows)
         eval_loader = DeviceBatchLoader(eval_ds, args.batch_size,
-                                        device=args.device)
+                                        device=device, rows=rows)
         print(f"device-cache: {train_loader.nbytes / 1e9:.2f} GB train + "
               f"{eval_loader.nbytes / 1e9:.2f} GB val resident on "
               f"{train_loader.device}")
     else:
         train_loader = BatchLoader(train_ds, args.batch_size, shuffle=True,
                                    seed=args.seed, drop_last=mixing,
-                                   cache_decoded=args.cache_decoded)
+                                   cache_decoded=args.cache_decoded,
+                                   rows=rows)
         eval_loader = BatchLoader(eval_ds, args.batch_size,
-                                  cache_decoded=args.cache_decoded)
+                                  cache_decoded=args.cache_decoded,
+                                  rows=rows)
     aug = not args.no_augment
     pre = make_preprocess(
         out_size=cfg.image_size,
@@ -415,7 +473,7 @@ def build_trainer(args, parser=None):
             # (vitx/cli/train.py:493-498)
             cfg = cfg.replace(final_norm=True)
         params = transfer_params(args.init_from, cfg, args.seed,
-                                 device=args.device)
+                                 device=device)
         init_state = TrainState(0, params, optimizer.init(params))
     train_step = None
     if args.distill_from:
@@ -438,7 +496,10 @@ def build_trainer(args, parser=None):
         steps_per_dispatch=args.steps_per_dispatch)
     trainer = Trainer(cfg, tcfg, preprocess=pre, init_state=init_state,
                       optimizer=optimizer, lr_schedule=lr_schedule,
-                      train_step=train_step, device=args.device)
+                      train_step=train_step, device=device, mesh=mesh,
+                      tp=args.tp > 1, zero1=args.zero == 1,
+                      zero2=args.zero == 2, zero3=args.zero == 3,
+                      sp=args.sp, ep=args.ep > 1)
     return trainer, train_loader, eval_loader
 
 
@@ -489,19 +550,46 @@ def distill_step(args, cfg: ViTConfig, optimizer):
                                                rng)
 
 
-def main(argv=None):
-    parser = build_argparser()
-    args = parser.parse_args(argv)
-    trainer, train_loader, eval_loader = build_trainer(args, parser)
+def run(args, parser, mesh=None) -> int:
+    """Build the trainer and fit; -> the exit code (rank 0 prints the
+    last epoch's line)."""
+    trainer, train_loader, eval_loader = build_trainer(args, parser, mesh)
     try:
         history = trainer.fit(train_loader, eval_loader)
     except NonFiniteLossError as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
-    if history:
+    if history and trainer.rank0:
         print(json.dumps({k: v for k, v in history[-1].items()
                           if isinstance(v, (int, float, str))}))
     return 0
+
+
+def rank_main(ctx, argv) -> int:
+    """One rank of a sharded run (``vitx_torch.parallel.spawn``)."""
+    from vitx_torch.parallel import make_mesh
+
+    parser = build_argparser()
+    args = parser.parse_args(argv)
+    mesh = make_mesh(mesh_dp(args), args.tp, args.ep, device=ctx.device)
+    return run(args, parser, mesh)
+
+
+def main(argv=None):
+    parser = build_argparser()
+    args = parser.parse_args(argv)
+    if not parallel(args):
+        return run(args, parser)
+    refuse_unported(args, parser)
+    check_parallel(args)
+    from vitx_torch import parallel as par
+
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        return rank_main(par.from_env(args.device), argv)
+    argv = sys.argv[1:] if argv is None else list(argv)
+    world = mesh_dp(args) * args.tp * args.ep
+    codes = par.spawn(rank_main, world, (argv,), device=args.device)
+    return max(codes)
 
 
 if __name__ == "__main__":

@@ -38,15 +38,16 @@ from vitx_torch.core.device import resolve_device
 def check_candidate(cfg, batch: int) -> None:
     """Raise for a candidate the port refuses before it runs: a batch
     below 1 (ValueError), or a config whose throughput is that of a
-    sharded run, expert (``ep``) or sequence (``sp``) parallel, which
-    waits for ROADMAP A13 (NotImplementedError): one card would time
-    another program."""
+    sharded run, expert (``ep``) or sequence (``sp``) parallel
+    (NotImplementedError): the sweep times one process on one card, and
+    the sharded benches wait for ROADMAP A13.2."""
     if batch < 1:
         raise ValueError(f"batch {batch} must be positive")
     if cfg.ep or cfg.sp:
         raise NotImplementedError(
             "expert- and sequence-parallel configs (ep, sp) shard over a "
-            "mesh, which is not ported to vitx_torch yet (ROADMAP A13)")
+            "mesh of rank processes; the sweep times one process "
+            "(sharded benches: ROADMAP A13.2)")
 
 
 def run_sweep(cfg, mode, batches, iters, reps, emit=print, device="cuda",

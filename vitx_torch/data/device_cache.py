@@ -43,8 +43,16 @@ class DeviceBatchLoader:
     """
 
     def __init__(self, dataset, batch_size: int, *, shuffle: bool = False,
-                 seed: int = 0, drop_last: bool = False, device="cuda"):
+                 seed: int = 0, drop_last: bool = False, device="cuda",
+                 rows: tuple | None = None):
+        """``rows = (index, count)``: a data-parallel rank's block of each
+        global batch, as ``BatchLoader`` takes it (the split is resident
+        whole on each rank's device)."""
         self.device = resolve_device(device)
+        if rows is not None and batch_size % rows[1]:
+            raise ValueError(f"batch size {batch_size} does not split into "
+                             f"{rows[1]} ranks' rows")
+        self.rows = rows
         if hasattr(dataset, "materialize"):
             images, labels = dataset.materialize()
         else:
@@ -89,12 +97,16 @@ class DeviceBatchLoader:
         # one upload of the epoch's order, padded to whole batches
         order = torch.from_numpy(np.concatenate(
             [order[:stop], np.zeros(pad, order.dtype)])).to(self.device)
+        lo, size = 0, B
+        if self.rows is not None:
+            size = B // self.rows[1]
+            lo = self.rows[0] * size
         for start in range(0, stop, B):
-            idx = order[start:start + B]
-            mask = self._ones
-            if start + B > stop:
-                mask = (torch.arange(B, device=self.device)
-                        < stop - start).to(torch.int32)
+            idx = order[start + lo:start + lo + size]
+            mask = self._ones[:size]
+            if start + lo + size > stop:
+                mask = (torch.arange(size, device=self.device)
+                        < stop - start - lo).to(torch.int32)
             yield gather(self._images, self._labels, idx, mask)
 
 

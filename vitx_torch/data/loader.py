@@ -24,14 +24,24 @@ class BatchLoader:
     def __init__(self, dataset, batch_size: int, *, shuffle: bool = False,
                  seed: int = 0, drop_last: bool = False,
                  num_threads: int = 8, prefetch: int = 2,
-                 cache_decoded: bool = False):
+                 cache_decoded: bool = False, rows: tuple | None = None):
         """``cache_decoded``: keep every decoded (image, label) example in
         RAM after its first read, so epoch >= 1 serves from memory with no
         disk IO or decode at all — the standard small/medium-dataset trick
         when host RAM exceeds the decoded dataset (e.g. 5k images at
         224x224x3 = 0.75 GB). Decode rates being the few-core host's
         bottleneck (docs/data.md), this removes them entirely for datasets
-        that fit; leave it off for datasets larger than RAM."""
+        that fit; leave it off for datasets larger than RAM.
+
+        ``rows = (index, count)``: a rank of a data-parallel run loads
+        only its block of each global batch of ``batch_size`` rows, block
+        ``index`` of ``count`` (the order and the batches stay the
+        global ones, so the ranks' blocks put together are the batch one
+        process would load; a ragged last batch pads each block, masked)."""
+        if rows is not None and batch_size % rows[1]:
+            raise ValueError(f"batch size {batch_size} does not split into "
+                             f"{rows[1]} ranks' rows")
+        self.rows = rows
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -72,13 +82,24 @@ class BatchLoader:
             yield order[start:start + self.batch_size]
 
     def _assemble(self, pool, idx):
+        size = self.batch_size
+        if self.rows is not None:
+            size //= self.rows[1]
+            idx = idx[self.rows[0] * size:(self.rows[0] + 1) * size]
+            if len(idx) == 0:         # a block of padding only
+                ex = self._get_example(0)
+                lab = np.zeros_like(np.array(ex[1], np.int32))
+                return {"image": np.zeros((size,) + np.shape(ex[0]),
+                                          np.asarray(ex[0]).dtype),
+                        "label": np.zeros((size,) + lab.shape, np.int32),
+                        "mask": np.zeros(size, np.int32)}
         examples = list(pool.map(self._get_example, idx))
         images = np.stack([e[0] for e in examples])
         # labels: (B,) ints for single-label, (B, C) multi-hot for
         # multi-label datasets — padding rows are zeros either way
         labels = np.array([e[1] for e in examples], np.int32)
-        pad = self.batch_size - len(idx)
-        mask = np.ones(self.batch_size, np.int32)
+        pad = size - len(idx)
+        mask = np.ones(size, np.int32)
         if pad:
             images = np.concatenate(
                 [images, np.zeros((pad,) + images.shape[1:], images.dtype)])

@@ -1,9 +1,10 @@
 """Interchange with the JAX package's parameters, the reference model's
 state dicts, public pretrained ViTs (timm, HuggingFace), the C oracle's
-binary files, and the positional table's resize for fine-tuning at
-another image size."""
+binary files, the positional table's resize for fine-tuning at another
+image size, and a sharded vitx state's parts as a rank's local state."""
 
 from vitx_torch.interop.jax_params import (adamw_state_from_jax,
+                                           local_state_from_jax,
                                            opt_state_from_jax, params_from_jax)
 from vitx_torch.interop.pretrained import (detect_format,
                                            import_hf_state_dict,
@@ -17,6 +18,7 @@ from vitx_torch.interop.torch_ref import (export_reference_optimizer_state,
                                           reference_parameter_order)
 
 __all__ = ["params_from_jax", "adamw_state_from_jax", "opt_state_from_jax",
+           "local_state_from_jax",
            "resize_pos_embed",
            "import_reference_state_dict", "export_reference_state_dict",
            "export_reference_optimizer_state", "reference_parameter_order",

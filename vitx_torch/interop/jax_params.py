@@ -276,3 +276,48 @@ def adamw_state_from_jax(opt_state, cfg: ViTConfig, device="cuda"):
     """``opt_state_from_jax`` for vitx's ``make_optimizer()`` AdamW state
     (the name the port's callers use)."""
     return opt_state_from_jax(opt_state, cfg, device)
+
+
+def shard_of(leaf, device) -> np.ndarray:
+    """The part of a sharded array that ``device`` holds (a
+    ``jax.Array``'s ``addressable_shards`` entry; read by duck typing:
+    the port imports no JAX)."""
+    for s in leaf.addressable_shards:
+        if s.device == device:
+            return np.asarray(s.data)
+    raise ValueError(f"no shard of the array on {device}")
+
+
+def local_state_from_jax(state, device, *, to="cuda"):
+    """A vitx ``TrainState`` placed with ``vitx.parallel.state_sharding``
+    (or ``place_state``) -> the port's local ``TrainState`` of the rank at
+    ``device``'s mesh position (``mesh.devices`` row-major is the port's
+    rank order): each param and optimizer slot the part that device holds
+    (``shard_of``), the optimizer's state as ``opt_state_from_jax`` reads
+    it (AdamW, SGD, Lion, Adafactor; fp32 slots, mu bf16 where vitx keeps
+    it so). What ``vitx_torch.parallel.place_state`` gives that rank."""
+    from vitx_torch.train.step import OPTIMIZERS, TrainState
+
+    dev = resolve_device(to)
+
+    def tree(t):
+        if isinstance(t, dict):
+            return {k: tree(v) for k, v in t.items()}
+        a = shard_of(t, device)
+        dt = torch.bfloat16 if a.dtype.name == "bfloat16" else None
+        if dt is not None:
+            a = a.astype(np.float32)
+        out = torch.from_numpy(np.array(a)).to(dev)
+        return out.to(dt) if dt is not None else out
+
+    found = _opt_node(state.opt_state)
+    if found is None:
+        raise ValueError("no optimizer state (adamw, sgd, lion or "
+                         "adafactor) in the optimizer state")
+    name, node = found
+    cls = OPTIMIZERS[name].State
+    slots = {f: tree(getattr(node, f)) for f in cls.SLOTS}
+    count = int(np.asarray(shard_of(node.count, device))) \
+        if cls.COUNTED else 0
+    return TrainState(int(np.asarray(shard_of(state.step, device))),
+                      tree(state.params), cls(count=count, **slots))

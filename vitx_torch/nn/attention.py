@@ -75,8 +75,9 @@ def multi_head_attention(x, wqkv, bqkv, wo, bo, *, num_heads: int,
                          qk_eps: float = 1e-5, rope=None):
     """Composed multi-head self-attention over (B, T, E) tokens.
 
-    wqkv: (E, 3, H, D); bqkv: (3, H, D) or None; wo: (E, E); bo: (E,) or
-    None; ``qk_scales``: the (H, D) QK-Norm scales of q and k, or None.
+    wqkv: (E, 3, H, D); bqkv: (3, H, D) or None; wo: (H * D, E); bo:
+    (E,) or None (a tensor-parallel rank holds H of the heads and their
+    rows of ``wo``); ``qk_scales``: the (H, D) QK-Norm scales of q and k, or None.
     ``impl``: "auto" | "flash" | "reference" (``use_flash``).
     ``return_probs``: also return the attention probabilities, (B, H, T, T)
     fp32, or their head mean (B, T, T) for ``probs_mode="mean"``.
@@ -87,7 +88,7 @@ def multi_head_attention(x, wqkv, bqkv, wo, bo, *, num_heads: int,
     """
     B, T, E = x.shape
     H = num_heads
-    D = E // H
+    D = wqkv.shape[-1]
     w = wqkv.to(x.dtype)
 
     def proj(s):
@@ -117,7 +118,7 @@ def multi_head_attention(x, wqkv, bqkv, wo, bo, *, num_heads: int,
                                          scale=scale)
         if probs is not None and probs_mode == "mean":
             probs = probs.mean(dim=1)
-    out = out.transpose(1, 2).reshape(B, T, E)
+    out = out.transpose(1, 2).reshape(B, T, H * D)
     out = dot(out, wo.to(x.dtype))
     if bo is not None:
         out = out + bo.to(x.dtype)

@@ -29,6 +29,7 @@ import torch
 
 from vitx_torch.core.config import ViTConfig
 from vitx_torch.core.device import resolve_device
+from vitx_torch.core.draws import rand
 from vitx_torch.data.pipeline import (IMAGENET_MEAN, IMAGENET_STD,
                                       crop_resize, flip, jitter)
 from vitx_torch.interop.pretrained import resize_bilinear
@@ -242,7 +243,7 @@ class ViewDraws:
 
 
 def _uniform(gen, n, lo=0.0, hi=1.0):
-    return lo + (hi - lo) * torch.rand(n, generator=gen, device=gen.device)
+    return lo + (hi - lo) * rand((n,), gen, gen.device)
 
 
 def view_draws(gen, B: int, H: int, W: int, cfg, *, scale,
@@ -352,22 +353,29 @@ def multi_crop(images, dcfg: DINOConfig, gen=None, *, draws=None):
 # Loss and step
 # ---------------------------------------------------------------------------
 
-def dino_loss(student_logits, teacher_logits, center, dcfg: DINOConfig):
+def dino_loss(student_logits, teacher_logits, center, dcfg: DINOConfig,
+              reduce=None):
     """The cross-entropy of the teacher's targets against the student's
     predictions over every (teacher global view, student view) pair of
     different views (``vitx/nn/dino.py:340-364``). student_logits (V, B,
     K), teacher_logits (2, B, K); the targets softmax((t - center) /
-    teacher_temp), without gradient. -> (loss, teacher probs)."""
+    teacher_temp), without gradient. -> (loss, teacher probs).
+    ``reduce``: a data-parallel rank's hook for the global batch size
+    (``cross_entropy_loss`` takes the same)."""
     t = torch.softmax((teacher_logits - center[None, None, :])
                       / dcfg.teacher_temp, dim=-1).detach()
     s_logp = torch.log_softmax(student_logits / dcfg.student_temp, dim=-1)
     V = student_logits.shape[0]
+    B = student_logits.shape[1]
+    n = None if reduce is None else reduce(
+        torch.tensor(float(B), device=student_logits.device))
     total, n_terms = 0.0, 0
     for iq in range(2):
         for v in range(V):
             if v == iq:
                 continue
-            total = total + (-(t[iq] * s_logp[v]).sum(dim=-1)).mean()
+            ce = -(t[iq] * s_logp[v]).sum(dim=-1)
+            total = total + (ce.mean() if n is None else ce.sum() / n)
             n_terms += 1
     return total / n_terms, t
 
@@ -383,7 +391,7 @@ def _teacher_momentum(step: int, total_steps: int, dcfg: DINOConfig) -> float:
 
 
 def dino_loss_fn(params, teacher, center, g_crops, l_crops,
-                 dcfg: DINOConfig, rng=None):
+                 dcfg: DINOConfig, rng=None, reduce=None):
     """The step's loss (``vitx/nn/dino.py:390-404``): the student's
     logits over every view (globals, then locals; dropout from ``rng``)
     against the teacher's on the globals, without gradient -> (loss,
@@ -397,13 +405,14 @@ def dino_loss_fn(params, teacher, center, g_crops, l_crops,
                                       dcfg.n_local, B, -1))
     with torch.no_grad():
         t_g = dino_forward(teacher, g_crops, dcfg).reshape(2, B, -1)
-    loss, t_probs = dino_loss(torch.cat(views, dim=0), t_g, center, dcfg)
+    loss, t_probs = dino_loss(torch.cat(views, dim=0), t_g, center, dcfg,
+                              reduce)
     return loss, (t_g, t_probs)
 
 
 def dino_train_step(state: DINOState, batch, rng=None, *, dcfg: DINOConfig,
                     optimizer, total_steps: int, freeze_last_steps: int = 0,
-                    device="cuda", draws=None):
+                    device="cuda", draws=None, mesh=None):
     """One DINO step (``vitx/nn/dino.py:377-455``): the crops, the
     student's forwards (globals and locals) and the teacher's (globals,
     without gradient), the loss, the student's update, then the teacher's
@@ -412,19 +421,34 @@ def dino_train_step(state: DINOState, batch, rng=None, *, dcfg: DINOConfig,
     decay cannot move them either). ``rng`` (a ``torch.Generator`` on
     ``device``) draws the views and dropout; ``draws`` gives the views'
     draws. Updates the state's tensors in place -> (state, {"loss",
-    "teacher_entropy", "ema_momentum", "grad_norm"})."""
+    "teacher_entropy", "ema_momentum", "grad_norm"}). ``mesh``: a rank of
+    a data-parallel step (its device, its rows of the batch and of
+    ``draws``, the state whole on every rank): the draws made for the
+    global batch, the loss and the teacher's entropy means over it, the
+    centre updated from its mean, the gradients summed over the ranks."""
     from vitx_torch.train.step import (_check_on, _to_device, global_norm,
                                        gradients, leaves, trainable_params)
 
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else mesh.device
     _check_on(state.params, dev)
     batch = _to_device(batch, dev)
-    g_crops, l_crops = multi_crop(batch["image"].float(), dcfg, rng,
+    gen, reduce = rng, None
+    if mesh is not None:
+        from vitx_torch.parallel import sharded
+
+        gen, reduce = sharded.family_step_parts(rng, batch["image"].shape[0],
+                                                mesh)
+    g_crops, l_crops = multi_crop(batch["image"].float(), dcfg, gen,
                                   draws=draws)
     params, wrt = trainable_params(state.params)
     loss, (t_g, t_probs) = dino_loss_fn(params, state.teacher, state.center,
-                                        g_crops, l_crops, dcfg, rng)
+                                        g_crops, l_crops, dcfg, gen, reduce)
     grads = gradients(loss, params, wrt)
+    if mesh is not None:
+        grads = sharded.all_reduce_grads(grads, mesh)
+        loss = sharded.global_sum(loss, mesh)
+        if rng is not None:
+            rng.set_state(gen.get_state())
 
     frozen = freeze_last_steps > 0 and state.step < freeze_last_steps
     last = state.params["head"]["last"]
@@ -451,8 +475,15 @@ def dino_train_step(state: DINOState, batch, rng=None, *, dcfg: DINOConfig,
             if e is not t:
                 t.copy_(e)
         cm = dcfg.center_momentum
-        center = cm * state.center + (1.0 - cm) * t_g.mean(dim=(0, 1))
-        ent = (-(t_probs * torch.log(t_probs + 1e-12)).sum(dim=-1)).mean()
+        ent = -(t_probs * torch.log(t_probs + 1e-12)).sum(dim=-1)
+        if mesh is None:
+            t_mean, ent = t_g.mean(dim=(0, 1)), ent.mean()
+        else:
+            n = sharded.global_sum(torch.tensor(
+                float(ent.numel()), device=dev), mesh)
+            t_mean = sharded.global_sum(t_g.sum(dim=(0, 1)), mesh) / n
+            ent = sharded.global_sum(ent.sum(), mesh) / n
+        center = cm * state.center + (1.0 - cm) * t_mean
     new_state = DINOState(state.step + 1, new_params, opt_state,
                           state.teacher, center)
     return new_state, {"loss": loss.detach(), "teacher_entropy": ent,
@@ -461,7 +492,8 @@ def dino_train_step(state: DINOState, batch, rng=None, *, dcfg: DINOConfig,
 
 
 def make_dino_train_step(dcfg: DINOConfig, optimizer, total_steps: int,
-                         freeze_last_steps: int = 0, *, device="cuda"):
+                         freeze_last_steps: int = 0, *, device="cuda",
+                         mesh=None):
     """``(state, batch, rng=None, draws=None) -> (state, metrics)`` bound
     to the config, optimizer and schedule (a plain closure: vitx jits
     here)."""
@@ -469,7 +501,7 @@ def make_dino_train_step(dcfg: DINOConfig, optimizer, total_steps: int,
         return dino_train_step(state, batch, rng, dcfg=dcfg,
                                optimizer=optimizer, total_steps=total_steps,
                                freeze_last_steps=freeze_last_steps,
-                               device=device, draws=draws)
+                               device=device, draws=draws, mesh=mesh)
     return step
 
 

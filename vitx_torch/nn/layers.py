@@ -16,6 +16,8 @@ import math
 
 import torch
 
+from vitx_torch.core.draws import rand
+
 
 def _ln_forward(x, scale, bias, eps):
     x32 = x.float()
@@ -175,18 +177,21 @@ def gelu_tanh_exp(x):
     return 0.5 * x * (1.0 + t)
 
 
-def dropout(x, rate: float, rng, *, deterministic: bool):
+def dropout(x, rate: float, rng, *, deterministic: bool,
+            tokens: tuple | None = None):
     """Inverted dropout (``vitx/nn/layers.py:160-166``): keep each element
     with probability 1 - rate and scale it by 1/keep. Identity when
     deterministic or rate == 0. ``rng`` is a ``torch.Generator`` on x's
-    device; vitx's and torch's generators draw different masks."""
+    device; vitx's and torch's generators draw different masks. The mask
+    is drawn by ``core.draws.rand`` (at the global shape on a sharded
+    rank; ``tokens`` as it takes them)."""
     if deterministic or rate == 0.0:
         return x
     if rng is None:
         raise ValueError("dropout needs a torch.Generator when not "
                          "deterministic")
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=rng, device=x.device) < keep
+    mask = rand(x.shape, rng, x.device, tokens=tokens) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -199,6 +204,6 @@ def drop_path(x, rate: float, rng, *, deterministic: bool):
         return x
     keep = 1.0 - rate
     shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-    mask = torch.rand(shape, generator=rng, device=x.device) < keep
+    mask = rand(shape, rng, x.device) < keep
     kept = x / torch.tensor(keep, dtype=x.dtype, device=x.device)
     return torch.where(mask, kept, torch.zeros_like(x))

@@ -24,6 +24,7 @@ import torch
 
 from vitx_torch.core.config import ViTConfig
 from vitx_torch.core.device import resolve_device
+from vitx_torch.core.draws import rand
 from vitx_torch.nn.layers import dot, layer_norm, matmul32
 from vitx_torch.nn.lora import lora_spec
 from vitx_torch.nn.pretrain_common import (encoder_spec,
@@ -123,7 +124,7 @@ def random_masking(gen, batch: int, mcfg: MAEConfig, noise=None,
     row, drawn from ``gen`` on its device, or ``noise`` (B, N) as given."""
     N, K = mcfg.num_patches, mcfg.num_visible
     if noise is None:
-        noise = torch.rand((batch, N), generator=gen, device=gen.device)
+        noise = rand((batch, N), gen, gen.device)
     else:
         noise = torch.as_tensor(noise)
     if device is not None:
@@ -179,13 +180,15 @@ def mae_encode(params: Params, images, mcfg: MAEConfig, *, ids_keep,
 
 
 def mae_forward(params: Params, images, mcfg: MAEConfig, rng=None, *,
-                deterministic: bool = False, noise=None):
+                deterministic: bool = False, noise=None, reduce=None):
     """The whole MAE pass -> (loss, pred (B, N, P*P*C) fp32, mask (B, N))
     (``vitx/nn/mae.py:189-237``): the loss is the mean squared error over
     the masked patches, against per-patch normalised pixels with
     ``norm_pix_loss``. ``rng`` (a ``torch.Generator`` on the images'
     device) draws the masking noise, unless ``noise`` (B, N) is given, and
-    the encoder's dropout and drop-path when not ``deterministic``."""
+    the encoder's dropout and drop-path when not ``deterministic``.
+    ``reduce``: a data-parallel rank's hook for the global count of masked
+    patches (``cross_entropy_loss`` takes the same)."""
     enc_cfg = mcfg.encoder
     cdt = enc_cfg.cdtype()
     dec = params["decoder"]
@@ -216,48 +219,68 @@ def mae_forward(params: Params, images, mcfg: MAEConfig, rng=None, *,
         var = target.var(dim=-1, unbiased=False, keepdim=True)
         target = (target - mean) * torch.rsqrt(var + 1e-6)
     per_patch = (pred - target).square().mean(dim=-1)
-    loss = (per_patch * mask).sum() / mask.sum().clamp_min(1.0)
+    count = mask.sum() if reduce is None else reduce(mask.sum())
+    loss = (per_patch * mask).sum() / count.clamp_min(1.0)
     return loss, pred, mask
 
 
-def mae_loss_fn(params, batch, mcfg: MAEConfig, rng=None, noise=None):
-    loss, _, _ = mae_forward(params, batch["image"], mcfg, rng, noise=noise)
+def mae_loss_fn(params, batch, mcfg: MAEConfig, rng=None, noise=None,
+                reduce=None):
+    loss, _, _ = mae_forward(params, batch["image"], mcfg, rng, noise=noise,
+                             reduce=reduce)
     return loss, ()
 
 
 def mae_train_step(state, batch, rng=None, *, mcfg: MAEConfig, optimizer,
-                   device="cuda", noise=None):
+                   device="cuda", noise=None, mesh=None):
     """One MAE step (``vitx/nn/mae.py:244-268``): the loss, its gradients
     for every leaf and one optimizer update of the state, in place ->
     (state, {"loss", "grad_norm"}). ``rng`` (a ``torch.Generator`` on
     ``device``) draws the masking and the encoder's dropout, or
-    ``noise`` gives the masking's draws."""
+    ``noise`` gives the masking's draws. ``mesh``: a rank of a
+    data-parallel step (``vitx_torch.parallel``; its device, its rows of
+    the batch and of ``noise``, the state whole on every rank): the noise
+    drawn for the global batch, the loss the mean over the global batch's
+    masked patches, the gradients summed over the ranks."""
     from vitx_torch.train.step import (TrainState, _check_on, _to_device,
                                        global_norm, gradients,
                                        trainable_params)
 
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else mesh.device
     if rng is None and noise is None:
         raise ValueError("the MAE step draws its masking from a "
                          "torch.Generator: pass rng (or noise)")
     _check_on(state.params, dev)
     batch = _to_device(batch, dev)
+    gen, reduce = rng, None
+    if mesh is not None:
+        from vitx_torch.parallel import sharded
+
+        gen, reduce = sharded.family_step_parts(rng, batch["image"].shape[0],
+                                                mesh)
     params, wrt = trainable_params(state.params)
-    loss, _ = mae_loss_fn(params, batch, mcfg, rng, noise)
+    loss, _ = mae_loss_fn(params, batch, mcfg, gen, noise, reduce)
     grads = gradients(loss, params, wrt)
+    if mesh is not None:
+        grads = sharded.all_reduce_grads(grads, mesh)
+        loss = sharded.global_sum(loss, mesh)
+        if rng is not None:
+            rng.set_state(gen.get_state())
     new_params, opt_state = optimizer.update(grads, state.opt_state,
                                              state.params)
     return TrainState(state.step + 1, new_params, opt_state), {
         "loss": loss.detach(), "grad_norm": global_norm(grads)}
 
 
-def make_mae_train_step(mcfg: MAEConfig, optimizer, *, device="cuda"):
+def make_mae_train_step(mcfg: MAEConfig, optimizer, *, device="cuda",
+                        mesh=None):
     """``(state, batch, rng=None, noise=None) -> (state, metrics)`` bound
-    to the config and optimizer (a plain closure: vitx jits here)."""
+    to the config and optimizer (a plain closure: vitx jits here);
+    ``mesh`` as ``mae_train_step`` takes it."""
     def step(state, batch, rng=None, noise=None):
         return mae_train_step(state, batch, rng, mcfg=mcfg,
                               optimizer=optimizer, device=device,
-                              noise=noise)
+                              noise=noise, mesh=mesh)
     return step
 
 

@@ -111,15 +111,25 @@ def simclr_encode(params: Params, images, scfg: SimCLRConfig, *, rng=None,
     return x[:, 0]
 
 
-def simclr_project(params: Params, feats, scfg: SimCLRConfig):
+def simclr_project(params: Params, feats, scfg: SimCLRConfig, mesh=None):
     """(B, E) -> (B, D) L2-normalised projections in fp32
     (``vitx/nn/simclr.py:175-195``): fc1, the hidden standardised across
     the batch (biased variance, eps 1e-5) and its affine, tanh-GELU,
-    fc2."""
+    fc2. ``mesh``: a data-parallel rank's rows, standardised by the global
+    batch's moments (sums all-reduced both ways, vitx/nn/simclr.py:32-40)."""
     h = params["head"]
     x = feats.float() @ h["fc1"]["kernel"].float() + h["fc1"]["bias"].float()
-    mu = x.mean(dim=0, keepdim=True)
-    var = x.var(dim=0, unbiased=False, keepdim=True)
+    if mesh is not None:
+        from vitx_torch.parallel import comm, sharded
+
+        n = x.shape[0] * mesh.size(sharded.BATCH_AXES)
+        mu = comm.all_reduce_sum(x.sum(dim=0, keepdim=True), mesh,
+                                 sharded.BATCH_AXES) / n
+        var = comm.all_reduce_sum((x - mu).square().sum(dim=0, keepdim=True),
+                                  mesh, sharded.BATCH_AXES) / n
+    else:
+        mu = x.mean(dim=0, keepdim=True)
+        var = x.var(dim=0, unbiased=False, keepdim=True)
     x = (x - mu) * torch.rsqrt(var + 1e-5)
     x = x * h["bn"]["scale"].float() + h["bn"]["bias"].float()
     x = gelu(x) @ h["fc2"]["kernel"].float()
@@ -127,9 +137,10 @@ def simclr_project(params: Params, feats, scfg: SimCLRConfig):
 
 
 def simclr_forward(params: Params, images, scfg: SimCLRConfig, *, rng=None,
-                   deterministic: bool = True):
+                   deterministic: bool = True, mesh=None):
     return simclr_project(params, simclr_encode(
-        params, images, scfg, rng=rng, deterministic=deterministic), scfg)
+        params, images, scfg, rng=rng, deterministic=deterministic), scfg,
+        mesh)
 
 
 def simclr_view_draws(gen, images, scfg: SimCLRConfig) -> list:
@@ -167,31 +178,56 @@ def nt_xent_loss(z, temperature: float):
     return loss, acc
 
 
-def simclr_loss_fn(params, views, scfg: SimCLRConfig, rng=None):
+def simclr_loss_fn(params, views, scfg: SimCLRConfig, rng=None, mesh=None):
     """The step's loss (``vitx/nn/simclr.py:258-261``): NT-Xent of the
-    views' projections (dropout from ``rng``) -> (loss, accuracy)."""
-    z = simclr_forward(params, views, scfg, rng=rng, deterministic=False)
+    views' projections (dropout from ``rng``) -> (loss, accuracy).
+    ``mesh``: a data-parallel rank's two views of its rows; NT-Xent runs
+    over the global batch's projections, gathered view by view into the
+    global layout (the gather's backward keeps the rank's rows: every
+    rank computes the same loss), so the negatives are global."""
+    z = simclr_forward(params, views, scfg, rng=rng, deterministic=False,
+                       mesh=mesh)
+    if mesh is not None:
+        from vitx_torch.parallel import comm, sharded
+
+        half = z.shape[0] // 2
+        z = torch.cat([comm.gather_replicated(v, mesh, sharded.BATCH_AXES, 0)
+                       for v in (z[:half], z[half:])], dim=0)
     return nt_xent_loss(z, scfg.temperature)
 
 
 def simclr_train_step(state, batch, rng=None, *, scfg: SimCLRConfig,
-                      optimizer, device="cuda", draws=None):
+                      optimizer, device="cuda", draws=None, mesh=None):
     """One SimCLR step (``vitx/nn/simclr.py:252-284``): the views, the
     fused forward, NT-Xent and one optimizer update, in place -> (state,
     {"loss", "contrast_acc", "grad_norm"}). ``rng`` (a
     ``torch.Generator`` on ``device``) draws the views and dropout;
-    ``draws`` gives the views' draws."""
+    ``draws`` gives the views' draws. ``mesh``: a rank of a data-parallel
+    step (its device, its rows of the batch and of ``draws``, the state
+    whole on every rank): the draws made for the global batch, the batch
+    moments and the negatives global, the gradients summed over the
+    ranks."""
     from vitx_torch.train.step import (TrainState, _check_on, _to_device,
                                        global_norm, gradients,
                                        trainable_params)
 
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else mesh.device
     _check_on(state.params, dev)
     batch = _to_device(batch, dev)
-    views = simclr_views(batch["image"].float(), scfg, rng, draws=draws)
+    gen = rng
+    if mesh is not None:
+        from vitx_torch.parallel import sharded
+
+        gen, _ = sharded.family_step_parts(rng, batch["image"].shape[0],
+                                           mesh)
+    views = simclr_views(batch["image"].float(), scfg, gen, draws=draws)
     params, wrt = trainable_params(state.params)
-    loss, acc = simclr_loss_fn(params, views, scfg, rng)
+    loss, acc = simclr_loss_fn(params, views, scfg, gen, mesh)
     grads = gradients(loss, params, wrt)
+    if mesh is not None:
+        grads = sharded.all_reduce_grads(grads, mesh)
+        if rng is not None:
+            rng.set_state(gen.get_state())
     new_params, opt_state = optimizer.update(grads, state.opt_state,
                                              state.params)
     return TrainState(state.step + 1, new_params, opt_state), {
@@ -199,13 +235,15 @@ def simclr_train_step(state, batch, rng=None, *, scfg: SimCLRConfig,
         "grad_norm": global_norm(grads)}
 
 
-def make_simclr_train_step(scfg: SimCLRConfig, optimizer, *, device="cuda"):
+def make_simclr_train_step(scfg: SimCLRConfig, optimizer, *, device="cuda",
+                           mesh=None):
     """``(state, batch, rng=None, draws=None) -> (state, metrics)`` (a
-    plain closure: vitx jits here)."""
+    plain closure: vitx jits here); ``mesh`` as ``simclr_train_step``
+    takes it."""
     def step(state, batch, rng=None, draws=None):
         return simclr_train_step(state, batch, rng, scfg=scfg,
                                  optimizer=optimizer, device=device,
-                                 draws=draws)
+                                 draws=draws, mesh=mesh)
     return step
 
 

@@ -23,6 +23,10 @@ included, "dots" keeps the 2-D products' outputs, "save_stash" keeps K1's
 stash and recomputes the MLP half, "none" keeps everything -- with the
 same dropout and drop-path masks on the recompute; ``scan_unroll`` is
 accepted and ignored (there is no scan to unroll).
+On a rank of a ``vitx_torch.parallel`` mesh (``mesh=``) the blocks run
+tensor-parallel over its ``model`` axis (``_tp_block``, the composed
+path as vitx under tp, with sequence parallelism under ``cfg.sp``), and
+the Soft-MoE mixture expert-parallel over its ``expert`` axis.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ import torch
 
 from vitx_torch.core.config import ViTConfig
 from vitx_torch.core.device import card_routes, resolve_device
+from vitx_torch.core.draws import rand
 from vitx_torch.kernels.mha_block import (fused_mha_block,
                                           fused_mha_block_with_mean_probs)
 from vitx_torch.kernels.mlp_block import fused_mlp_block
@@ -43,6 +48,8 @@ from vitx_torch.nn.layers import (activation, add_layer_norm, dot,
                                   drop_path, dropout, einsum_cast,
                                   layer_norm, matmul32, mlp)
 from vitx_torch.nn.moe import soft_moe_mlp
+from vitx_torch.parallel import comm
+from vitx_torch.parallel.mesh import MODEL_AXIS
 
 Params = dict
 
@@ -383,7 +390,7 @@ def _patch_drop(x, cfg: ViTConfig, gen=None, noise=None):
     ``gen``, so that a test can feed vitx's."""
     p, n = cfg.num_prefix_tokens, cfg.num_patches
     if noise is None:
-        noise = torch.rand((x.shape[0], n), generator=gen, device=x.device)
+        noise = rand((x.shape[0], n), gen, x.device)
     idx = torch.argsort(noise, dim=1, stable=True)[:, :cfg.patch_keep_count]
     idx = torch.sort(idx, dim=1).values
     kept = x[:, p:p + n].gather(1, idx[..., None].expand(-1, -1, x.shape[2]))
@@ -419,7 +426,7 @@ def _use_fused_mlp(cfg: ViTConfig, x) -> bool:
 def _encoder_block(x, pending, bp, cfg: ViTConfig, *, rng=None,
                    deterministic: bool = True, dp_rate: float = 0.0,
                    return_probs: bool = False, probs_mode: str = "full",
-                   rope=None):
+                   rope=None, mesh=None, tokens=None):
     """Pre-LN block: x + MHA(LN1(x)); x + MLP(LN2(x)). The previous block's
     MLP output arrives as ``pending`` and the block returns its own as the
     new pending (``vitx/nn/vit.py:319-436``). Dropout, then drop-path at
@@ -435,14 +442,22 @@ def _encoder_block(x, pending, bp, cfg: ViTConfig, *, rng=None,
     function; on the CPU, as in vitx's interpret mode, they take the
     composed path. A Soft-MoE block (``"phi" in bp``) runs the same
     attention half and ``soft_moe_mlp`` for its MLP half. ``rope`` is
-    ``block_rope``'s tables for the forward."""
+    ``block_rope``'s tables for the forward. On a ``mesh`` with a
+    ``model`` axis the block is ``_tp_block`` (``tokens``: the
+    sequence-parallel carrier's); an expert axis reaches the Soft-MoE
+    mixture."""
+    if _tp(mesh):
+        return _tp_block(x, pending, bp, cfg, mesh, rng=rng,
+                         deterministic=deterministic, dp_rate=dp_rate,
+                         rope=rope, tokens=tokens)
     if cfg.lora_rank:
         bp = merge_block(bp, cfg)
     x, attn_out, probs = _attention_half(
         x, pending, bp, cfg, return_probs=return_probs,
         probs_mode=probs_mode, rope=rope)
     x, mlp_out = _mlp_half(x, attn_out, bp, cfg, rng=rng,
-                           deterministic=deterministic, dp_rate=dp_rate)
+                           deterministic=deterministic, dp_rate=dp_rate,
+                           mesh=mesh)
     return x, mlp_out, probs
 
 
@@ -487,7 +502,7 @@ def _attention_half(x, pending, bp, cfg: ViTConfig, *,
 
 
 def _mlp_half(x, attn_out, bp, cfg: ViTConfig, *, rng=None,
-              deterministic: bool = True, dp_rate: float = 0.0):
+              deterministic: bool = True, dp_rate: float = 0.0, mesh=None):
     """The rest of the block -> (x + attn_out, mlp_out): LayerScale,
     dropout and drop-path on the attention's output, then LN2 and the MLP
     (K2, a Soft-MoE mixture or the composed products) and the same on
@@ -506,7 +521,7 @@ def _mlp_half(x, attn_out, bp, cfg: ViTConfig, *, rng=None,
         # (and of K2), after the plain add-LayerNorm
         x, h = add_layer_norm(x, attn_out, bp["ln2_scale"], bp["ln2_bias"],
                               eps=cfg.layer_norm_eps)
-        mlp_out = soft_moe_mlp(h, bp, cfg)
+        mlp_out = soft_moe_mlp(h, bp, cfg, mesh=mesh)
     elif _use_fused_mlp(cfg, x):
         x = x + attn_out
         mlp_out = fused_mlp_block(
@@ -525,6 +540,156 @@ def _mlp_half(x, attn_out, bp, cfg: ViTConfig, *, rng=None,
         mlp_out = drop_path(mlp_out, dp_rate, rng,
                             deterministic=deterministic)
     return x, mlp_out
+
+
+def _tp(mesh) -> bool:
+    return mesh is not None and mesh.tp > 1
+
+
+# the replicated LoRA factors whose product with a model-sharded factor
+# gives each rank a part of their gradient (vitx/parallel/sharded.py:61-75)
+_TP_PARTIAL_LORA = ("lora_wqkv_a", "lora_w1_a", "lora_wo_b", "lora_w2_b")
+
+
+def _tp_block(x, pending, bp, cfg: ViTConfig, mesh, *, rng=None,
+              deterministic: bool = True, dp_rate: float = 0.0, rope=None,
+              tokens=None):
+    """One block on a rank of a ``model`` axis (Megatron tensor
+    parallelism, vitx's composed block under ``tp``): the rank holds H/tp
+    heads of ``wqkv`` (with ``bqkv`` and the QK-Norm scales) and their
+    rows of ``wo``, the columns of ``w1``/``b1`` (``w3``/``b3``) and the
+    rows of ``w2`` (a Soft-MoE block: its experts' hidden columns). Its
+    input enters through ``copy_to`` (f); the partial out-projection and
+    second MLP product leave through ``reduce_from`` (g), one all-reduce
+    each, before ``bo`` and ``b2``.
+
+    ``tokens = (start, T)``: sequence parallelism (``cfg.sp``, vitx's
+    constraint at ``vitx/nn/vit.py:477-491``). x and pending are this
+    rank's chunk of the residual stream, padded from T to a multiple of
+    tp with zero tokens (vitx's constraint pads likewise); LN1 and LN2
+    run on the chunk, an all-gather over ``model`` (backward
+    reduce-scatter) brings the whole sequence to the attention (the
+    padding cut off) and to the MLP, and a reduce-scatter (backward
+    all-gather) takes each product back to the chunk. The replicated
+    leaves that touch the chunk (LayerNorms, ``bo``, ``b2``, LayerScale)
+    enter through ``copy_to``, so their gradients sum over the ranks'
+    tokens. A ``fuse_mha``/``fuse_mlp`` of "on" (vitx honours it under
+    tp by gathering the weights) gathers the rank's shards and runs the
+    dense block, without sequence parallelism."""
+    dt = x.dtype
+    sp = tokens is not None
+    if cfg.lora_rank:
+        bp = {k: (comm.copy_to(v, mesh, MODEL_AXIS)
+                  if k in _TP_PARTIAL_LORA else v) for k, v in bp.items()}
+        bp = merge_block(bp, cfg)
+    if cfg.fuse_mha == "on" or (cfg.fuse_mlp == "on" and "phi" not in bp):
+        if sp or mesh.ep > 1:
+            raise ValueError("sequence and expert parallelism run the "
+                             "composed block: fuse_mha/fuse_mlp='on' does "
+                             "not compose with sp or ep")
+        return _encoder_block(x, pending, gather_model_shards(bp, cfg, mesh),
+                              cfg, rng=rng, deterministic=deterministic,
+                              dp_rate=dp_rate, rope=rope)
+
+    def rep(name):
+        t = bp.get(name)
+        if t is None or not sp:
+            return t
+        return comm.copy_to(t, mesh, MODEL_AXIS)
+
+    def enter(h, cut: bool):
+        if not sp:
+            return comm.copy_to(h, mesh, MODEL_AXIS)
+        h = comm.gather(h, mesh, MODEL_AXIS, 1)
+        return h[:, :tokens[1]] if cut else h
+
+    def leave(y):
+        if not sp:
+            return comm.reduce_from(y, mesh, MODEL_AXIS)
+        pad = x.shape[1] * mesh.tp - y.shape[1]
+        if pad:
+            y = torch.nn.functional.pad(y, (0, 0, 0, pad))
+        return comm.reduce_scatter(y, mesh, MODEL_AXIS, 1)
+
+    eps = cfg.layer_norm_eps
+    x, h = add_layer_norm(x, pending, rep("ln1_scale"), rep("ln1_bias"),
+                          eps=eps)
+    attn_out, _ = multi_head_attention(
+        enter(h, True), bp["wqkv"], bp.get("bqkv"), bp["wo"], None,
+        num_heads=bp["wqkv"].shape[-2], impl=cfg.attn_impl,
+        scale=(float(cfg.head_dim) ** 0.5
+               if cfg.parity == "bug_exact" else None),
+        qk_scales=((bp["lnq_scale"], bp["lnk_scale"])
+                   if cfg.qk_norm else None),
+        qk_eps=eps, rope=rope)
+    attn_out = leave(attn_out)
+    if "bo" in bp:
+        attn_out = attn_out + rep("bo").to(dt)
+    if "ls1" in bp:
+        attn_out = attn_out * rep("ls1").to(dt)
+    attn_out = dropout(attn_out, cfg.dropout, rng,
+                       deterministic=deterministic, tokens=tokens)
+    if cfg.drop_path:
+        attn_out = drop_path(attn_out, dp_rate, rng,
+                             deterministic=deterministic)
+    x, h = add_layer_norm(x, attn_out, rep("ln2_scale"), rep("ln2_bias"),
+                          eps=eps)
+    if "phi" in bp:
+        # the router reads every token on every rank; the mixture is whole
+        # on each rank after soft_moe_mlp's own all-reduce
+        if sp:
+            full = comm.gather_replicated(h, mesh, MODEL_AXIS, 1)
+            mlp_out = soft_moe_mlp(full[:, :tokens[1]], bp, cfg, mesh=mesh)
+            mlp_out = comm.scatter(_pad_tokens(mlp_out, x.shape[1] * mesh.tp),
+                                   mesh, MODEL_AXIS, 1)
+        else:
+            mlp_out = soft_moe_mlp(h, bp, cfg, mesh=mesh)
+    else:
+        mlp_out = mlp(enter(h, False), bp["w1"], bp["b1"], bp["w2"],
+                      torch.zeros_like(bp["b2"]), act=cfg.mlp_act,
+                      w3=bp.get("w3"), b3=bp.get("b3"))
+        mlp_out = leave(mlp_out) + rep("b2").to(dt)
+    if "ls2" in bp:
+        mlp_out = mlp_out * rep("ls2").to(dt)
+    mlp_out = dropout(mlp_out, cfg.dropout, rng, deterministic=deterministic,
+                      tokens=tokens)
+    if cfg.drop_path:
+        mlp_out = drop_path(mlp_out, dp_rate, rng,
+                            deterministic=deterministic)
+    return x, mlp_out, None
+
+
+def _pad_tokens(y, length: int):
+    """y (B, T, E) zero-padded along the tokens to ``length``."""
+    pad = length - y.shape[1]
+    return torch.nn.functional.pad(y, (0, 0, 0, pad)) if pad else y
+
+
+# the dim of each block leaf a model-axis rank holds a part of (the
+# model-axis entries of vitx's _block_specs / _moe_block_specs)
+MODEL_DIMS = {"wqkv": 3, "wo": 1, "w1": 2, "b1": 1, "w2": 1, "w3": 2,
+              "b3": 1, "bqkv": 2, "lnq_scale": 1, "lnk_scale": 1,
+              "ew1": 3, "eb1": 2, "ew2": 2}
+
+
+def gather_model_shards(bp: dict, cfg: ViTConfig, mesh) -> dict:
+    """One block's leaves with the model-axis shards gathered whole (a
+    gather every rank consumes alike: its backward keeps the rank's
+    slice). ``bp`` is one layer (stacked dims dropped)."""
+    out = {}
+    for k, v in bp.items():
+        d = MODEL_DIMS.get(k)
+        out[k] = v if d is None else comm.gather_replicated(
+            v, mesh, MODEL_AXIS, d - 1)
+    return out
+
+
+def to_carrier(x, mesh):
+    """Full tokens (B, T, E), the same on every model rank -> this rank's
+    chunk of the sequence-parallel residual stream, T zero-padded to a
+    multiple of tp (backward: the chunks' gradients all-gathered)."""
+    return comm.scatter(_pad_tokens(x, -(-x.shape[1] // mesh.tp) * mesh.tp),
+                        mesh, MODEL_AXIS, 1)
 
 
 def unstack(blocks: Params):
@@ -609,7 +774,8 @@ def remat_mode(cfg: ViTConfig, x, layers: list) -> str:
 def _checkpointed_block(mode: str, x, pending, bp, cfg: ViTConfig, *,
                         rng=None, deterministic: bool = True,
                         dp_rate: float = 0.0, return_probs: bool = False,
-                        probs_mode: str = "full", rope=None):
+                        probs_mode: str = "full", rope=None, mesh=None,
+                        tokens=None):
     """``_encoder_block`` under activation checkpointing
     (``torch.utils.checkpoint``, non-reentrant), vitx's ``remat`` policies
     (``vitx/nn/vit.py:494-515``): "block" recomputes the whole block in
@@ -620,19 +786,20 @@ def _checkpointed_block(mode: str, x, pending, bp, cfg: ViTConfig, *,
     with the attention's statistics) by running K1 outside the
     checkpointed region, which recomputes the MLP half -- a block off the
     fused route saves no stash and recomputes whole, as vitx's names save
-    nothing there."""
+    nothing there (so does a tensor-parallel block, composed as in vitx).
+    The recompute repeats a block's collectives on every rank alike."""
     from torch.utils.checkpoint import (checkpoint,
                                         create_selective_checkpoint_contexts)
 
     kw = dict(use_reentrant=False, preserve_rng_state=False)
-    if (mode == "save_stash" and not return_probs
+    if (mode == "save_stash" and not return_probs and not _tp(mesh)
             and _use_fused_mha(cfg, bp, x)):
         if cfg.lora_rank:
             bp = merge_block(bp, cfg)
         x, attn_out, _ = _attention_half(x, pending, bp, cfg)
         half = functools.partial(_mlp_half, bp=bp, cfg=cfg, rng=rng,
                                  deterministic=deterministic,
-                                 dp_rate=dp_rate)
+                                 dp_rate=dp_rate, mesh=mesh)
         x, mlp_out = checkpoint(_Replay(half, rng), x, attn_out, **kw)
         return x, mlp_out, None
     if mode == "dots":
@@ -641,13 +808,13 @@ def _checkpointed_block(mode: str, x, pending, bp, cfg: ViTConfig, *,
     block = functools.partial(
         _encoder_block, bp=bp, cfg=cfg, rng=rng, deterministic=deterministic,
         dp_rate=dp_rate, return_probs=return_probs, probs_mode=probs_mode,
-        rope=rope)
+        rope=rope, mesh=mesh, tokens=tokens)
     return checkpoint(_Replay(block, rng), x, pending, **kw)
 
 
 def run_blocks(layers: list, x, cfg: ViTConfig, *, rng=None,
                deterministic: bool = True, return_probs: bool = False,
-               probs_mode: str = "full"):
+               probs_mode: str = "full", mesh=None):
     """Run the blocks ``layers`` (``encoder_layers``) over tokens x (B, T,
     E): a Python loop in place of vitx's ``lax.scan``; returns (x +
     pending, probs stacked over the blocks or None) (``vitx/nn/vit.py:
@@ -658,11 +825,24 @@ def run_blocks(layers: list, x, cfg: ViTConfig, *, rng=None,
     is the one the carry forms here, so the loop is the same function.
     Where autograd records the blocks, each runs under ``cfg.remat``'s
     activation checkpointing (``remat_mode``, ``_checkpointed_block``):
-    the same values, less memory, more compute."""
+    the same values, less memory, more compute. ``mesh``: a rank of a
+    sharded step (``vitx_torch.parallel``): a model axis runs
+    ``_tp_block``, with ``cfg.sp`` over the token-sharded residual stream
+    (``to_carrier``; gathered whole again at the end, a gather every rank
+    consumes alike); an expert axis reaches the Soft-MoE blocks."""
     rates = drop_path_rates(cfg, len(layers), deterministic)
-    pending = torch.zeros_like(x)
     rope = block_rope(cfg, x)
     mode = remat_mode(cfg, x, layers)
+    tokens = T = None
+    if _tp(mesh):
+        if return_probs:
+            raise ValueError("attention probabilities are not returned "
+                             "on a tensor-parallel mesh")
+        if cfg.sp:
+            T = x.shape[1]
+            x = to_carrier(x, mesh)
+            tokens = (mesh.index(MODEL_AXIS) * x.shape[1], T)
+    pending = torch.zeros_like(x)
     run = (_encoder_block if mode == "none" else
            functools.partial(_checkpointed_block, mode))
     probs = []
@@ -670,9 +850,12 @@ def run_blocks(layers: list, x, cfg: ViTConfig, *, rng=None,
         x, pending, p = run(
             x, pending, bp, cfg, rng=rng, deterministic=deterministic,
             dp_rate=rate, return_probs=return_probs, probs_mode=probs_mode,
-            rope=rope)
+            rope=rope, mesh=mesh, tokens=tokens)
         probs.append(p)
-    return x + pending, (torch.stack(probs) if return_probs else None)
+    x = x + pending
+    if T is not None:
+        x = comm.gather_replicated(x, mesh, MODEL_AXIS, 1)[:, :T]
+    return x, (torch.stack(probs) if return_probs else None)
 
 
 def _final_norm(params: Params, x, cfg: ViTConfig):
@@ -684,7 +867,7 @@ def _final_norm(params: Params, x, cfg: ViTConfig):
 
 def encode(params: Params, images, cfg: ViTConfig, *, rng=None,
            deterministic: bool = True, return_probs: bool = False,
-           probs_mode: str = "full"):
+           probs_mode: str = "full", mesh=None):
     """Images -> encoder output tokens (B, T, E). With a generator, patch
     dropout (``cfg.patch_drop``, when not deterministic), then dropout on
     the embedded tokens and in every block (``vitx/nn/vit.py:699-722``).
@@ -698,7 +881,8 @@ def encode(params: Params, images, cfg: ViTConfig, *, rng=None,
         x = dropout(x, cfg.dropout, rng, deterministic=deterministic)
     x, probs = run_blocks(encoder_layers(params), x, cfg, rng=rng,
                           deterministic=deterministic,
-                          return_probs=return_probs, probs_mode=probs_mode)
+                          return_probs=return_probs, probs_mode=probs_mode,
+                          mesh=mesh)
     x = _final_norm(params, x, cfg)
     return (x, probs) if return_probs else x
 
@@ -783,7 +967,8 @@ def head_logits(params: Params, x, cfg: ViTConfig):
 
 
 def model_logits(params: Params, images, cfg: ViTConfig, *, rng=None,
-                 deterministic: bool = True, heads: bool = False):
+                 deterministic: bool = True, heads: bool = False,
+                 mesh=None):
     """Images (B, H, W, C) -> fp32 logits on the tensors' own device,
     differentiable: vitx's ``forward`` (``vitx/nn/vit.py:834-856``), what
     its ``loss_fn`` and eval step run. ``rng`` (a ``torch.Generator`` on
@@ -795,20 +980,26 @@ def model_logits(params: Params, images, cfg: ViTConfig, *, rng=None,
     mean of the CLS and distillation heads (DeiT's inference); ``heads``
     returns the two apart, (cls_logits, dist_logits), from every token:
     the training form of the distillation step (vitx's
-    ``forward_heads``)."""
+    ``forward_heads``). ``mesh``: a rank of a sharded step, whose
+    params are the rank's shards (``run_blocks``)."""
     if heads:
         if not cfg.distill_token:
             raise ValueError("heads=True needs cfg.distill_token")
-        x = encode(params, images, cfg, rng=rng, deterministic=deterministic)
+        x = encode(params, images, cfg, rng=rng, deterministic=deterministic,
+                   mesh=mesh)
         return classify(params, x, cfg), classify_dist(params, x, cfg)
     if cfg.tome_r and (deterministic or cfg.tome_train):
+        if _tp(mesh):
+            raise ValueError("the merging encoder (tome_r) does not run on "
+                             "a tensor-parallel mesh")
         # imported here: vitx_torch.nn.tome imports this module
         from vitx_torch.nn.tome import encode_tome
 
         x = encode_tome(params, images, cfg, rng=rng,
                         deterministic=deterministic)
     else:
-        x = encode(params, images, cfg, rng=rng, deterministic=deterministic)
+        x = encode(params, images, cfg, rng=rng, deterministic=deterministic,
+                   mesh=mesh)
     return head_logits(params, x, cfg)
 
 

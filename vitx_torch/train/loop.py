@@ -22,6 +22,17 @@ between them (the epoch's remainder under k runs step by step);
 and CUDA activities) under ``log_dir``. SIGTERM and SIGINT end the epoch
 early and save it as ``partial``, which a resume runs again.
 
+On a rank of a ``mesh`` (``vitx_torch.parallel.make_mesh``; vitx's mesh
+branches, ``vitx/train/loop.py:157-294``) the state is placed as the
+flags say (``tp``, ``zero1``/``zero2``/``zero3``, ``sp``, ``ep``), the
+steps are ``make_parallel_train_step`` / ``make_parallel_eval_step``,
+the loaders are the rank's own (``BatchLoader(rows=...)``), the metrics
+those of the global batch; rank 0 alone logs, prints and writes the
+``.ckpt`` files, in the single-process format, from the gathered state
+(every rank takes part in the gather), and a resume places the restored
+state again. ``steps_per_dispatch`` > 1 is refused there, as vitx
+refuses it; pipeline parallelism's fields wait for ROADMAP A13.2.
+
 Randomness differs from vitx by design (torch cannot draw threefry's
 streams): each step's preprocessing and dropout draw from generators
 seeded by ``(seed, epoch, step)``, so a resumed run draws exactly what an
@@ -98,20 +109,32 @@ class TrainerConfig:
 
 
 # TrainerConfig fields the port does not take yet -> the ROADMAP item
-UNPORTED = {"pp_microbatches": "A13", "pp_schedule": "A13"}
+UNPORTED = {"pp_microbatches": "A13.2", "pp_schedule": "A13.2"}
 
 
 @torch.no_grad()
-def multilabel_eval(params, cfg: ViTConfig, batches) -> dict:
+def multilabel_eval(params, cfg: ViTConfig, batches, mesh=None,
+                    param_specs=None) -> dict:
     """The multi-label evaluation of ``batches`` ((images, (B, C) labels,
     mask or None) on the params' device): the valid rows' logits and
     targets gathered to the host batch by batch, ``multilabel_metrics``
     over them, and the mean BCE loss weighted by each batch's valid rows
-    (vitx's trainer and eval CLI compute the same); {} without a batch."""
+    (vitx's trainer and eval CLI compute the same); {} without a batch.
+    On a rank of a ``mesh`` the params are its parts (``param_specs``)
+    and each batch's rows are gathered from every rank first."""
     scores, targets = [], []
     loss_sum, n = 0.0, 0
+    if mesh is not None:
+        from vitx_torch.parallel import sharded
+
+        params = sharded.forward_params(params, param_specs, mesh)
     for images, labels, mask in batches:
-        logits = model_logits(params, images, cfg)
+        logits = model_logits(params, images, cfg, mesh=mesh)
+        if mesh is not None:
+            logits, labels = (sharded.gather_batch(t, mesh)
+                              for t in (logits, labels))
+            if mask is not None:
+                mask = sharded.gather_batch(mask, mesh)
         keep = (torch.ones(logits.shape[0], dtype=torch.bool,
                            device=logits.device) if mask is None
                 else mask > 0)
@@ -151,13 +174,17 @@ class Trainer:
     logged as ``LR`` each epoch (at the optimizer's update count: a
     step's count over ``accum_steps``). ``train_step``: a step of
     ``make_train_step``'s signature to run in place of the config's (the
-    train CLI's distillation step). vitx's mesh arguments wait for ROADMAP
-    A13 (so does its refusal of ``steps_per_dispatch`` on a mesh)."""
+    train CLI's distillation step). ``mesh`` and the flags after it: a
+    rank of a sharded run (the module's doc); ``init_state`` is then the
+    whole state, the same on every rank, and ``device`` the mesh's."""
 
     def __init__(self, cfg: ViTConfig, tcfg: TrainerConfig, *,
                  preprocess: Callable | None = None,
                  init_state: TrainState | None = None, optimizer=None,
-                 lr_schedule=None, train_step=None, device="cuda"):
+                 lr_schedule=None, train_step=None, device="cuda",
+                 mesh=None, tp: bool = False, zero1: bool = False,
+                 zero2: bool = False, zero3: bool = False, sp: bool = False,
+                 ep: bool = False):
         default = TrainerConfig()
         for name, item in UNPORTED.items():
             if getattr(tcfg, name) != getattr(default, name):
@@ -168,7 +195,8 @@ class Trainer:
             # LoRA means a frozen base (vitx/train/loop.py:173-177)
             tcfg = dataclasses.replace(tcfg, train_filter="lora")
         self.cfg, self.tcfg = cfg, tcfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(device) if mesh is None else mesh.device
         self._ckpt_writer = AsyncCheckpointWriter()
         self._lr_schedule = lr_schedule
         self.optimizer = optimizer if optimizer is not None else \
@@ -184,16 +212,25 @@ class Trainer:
         self.state = (init_state if init_state is not None else
                       create_train_state(tcfg.seed, cfg, self.optimizer,
                                          device=self.device))
-        self.train_step = train_step or make_train_step(
-            cfg, self.optimizer, device=self.device,
-            label_smoothing=tcfg.label_smoothing,
-            mixup_alpha=tcfg.mixup_alpha, cutmix_alpha=tcfg.cutmix_alpha,
-            sam_rho=tcfg.sam_rho, class_weights=tcfg.class_weights,
-            train_filter=tcfg.train_filter, loss=tcfg.loss)
+        self.specs = None
         if tcfg.steps_per_dispatch < 1:
             raise ValueError(f"steps_per_dispatch must be >= 1, got "
                              f"{tcfg.steps_per_dispatch}")
-        self.eval_step = make_eval_step(cfg, device=self.device)
+        if tcfg.steps_per_dispatch > 1 and mesh is not None:
+            raise ValueError("steps_per_dispatch > 1 is a single-device "
+                             "dispatch-overhead optimization; mesh runs are "
+                             "compute-bound — use per-device batch size")
+        if mesh is not None:
+            self._place(tp, zero1 or zero2, zero3, sp, ep, zero2, train_step)
+        else:
+            self.train_step = train_step or make_train_step(
+                cfg, self.optimizer, device=self.device,
+                label_smoothing=tcfg.label_smoothing,
+                mixup_alpha=tcfg.mixup_alpha,
+                cutmix_alpha=tcfg.cutmix_alpha, sam_rho=tcfg.sam_rho,
+                class_weights=tcfg.class_weights,
+                train_filter=tcfg.train_filter, loss=tcfg.loss)
+            self.eval_step = make_eval_step(cfg, device=self.device)
         self.preprocess = preprocess
         # a generator for the steps whose forward or mixing draws: dropout,
         # drop-path, patch dropout, mixup / cutmix (with none the step is
@@ -205,6 +242,48 @@ class Trainer:
         self.history: list[dict[str, Any]] = []
         self._preempted = False
 
+    def _place(self, tp, zero1, zero3, sp, ep, zero2, train_step) -> None:
+        """The mesh branch of ``__init__``: the whole state placed, the
+        sharded steps (``vitx/train/loop.py:234-265``)."""
+        from vitx_torch.parallel import sharded
+
+        if train_step is not None:
+            raise ValueError("a custom train_step does not run on a mesh "
+                             "(use the library's sharded step)")
+        cfg, tcfg, mesh = self.cfg, self.tcfg, self.mesh
+        whole = self.state.params
+        self.specs = sharded.state_sharding(self.state, cfg, mesh, tp,
+                                            zero1, zero3, ep=ep)
+        gshard = (sharded.grad_sharding(whole, cfg, mesh, tp, ep)
+                  if zero2 and not zero3 else None)
+        self.state = sharded.place_state(self.state, cfg, mesh,
+                                         specs=self.specs)
+        self.train_step = sharded.make_parallel_train_step(
+            cfg, self.optimizer, mesh, tp=tp, zero1=zero1, zero3=zero3,
+            sp=sp, ep=ep, state_shardings=self.specs, grad_shardings=gshard,
+            label_smoothing=tcfg.label_smoothing,
+            mixup_alpha=tcfg.mixup_alpha, cutmix_alpha=tcfg.cutmix_alpha,
+            sam_rho=tcfg.sam_rho, class_weights=tcfg.class_weights,
+            train_filter=tcfg.train_filter, loss=tcfg.loss)
+        self.eval_step = sharded.make_parallel_eval_step(
+            cfg, mesh, tp=tp, sp=sp, ep=ep, param_specs=self.specs.params)
+        self.eval_cfg = sharded.ep_cfg(sharded.sp_cfg(
+            sharded.tp_safe_cfg(cfg, tp), tp, sp), mesh, ep)
+
+    @property
+    def rank0(self) -> bool:
+        """Whether this process logs and writes (rank 0 of a mesh)."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    def whole_state(self) -> TrainState:
+        """The whole state (gathered from every rank on a mesh: each rank
+        must call it)."""
+        if self.mesh is None:
+            return self.state
+        from vitx_torch.parallel import sharded
+
+        return sharded.gather_state(self.state, self.specs, self.mesh)
+
     def _generator(self, epoch: int, step: int, stream: int):
         gen = torch.Generator(device=self.device)
         return gen.manual_seed(step_seed(self.tcfg.seed, epoch, step, stream))
@@ -214,8 +293,16 @@ class Trainer:
         again. Returns its meta, or None."""
         if self.tcfg.checkpoint_dir is None:
             return None
-        self.state, meta = restore_latest(self.tcfg.checkpoint_dir,
-                                          self.state, self._schedule)
+        if self.mesh is not None:
+            from vitx_torch.parallel import sharded
+
+            whole, meta = restore_latest(self.tcfg.checkpoint_dir,
+                                         self.whole_state(), self._schedule)
+            self.state = sharded.place_state(whole, self.cfg, self.mesh,
+                                             specs=self.specs)
+        else:
+            self.state, meta = restore_latest(self.tcfg.checkpoint_dir,
+                                              self.state, self._schedule)
         if meta is not None:
             self.start_epoch = int(meta["epoch"]) + (
                 0 if meta.get("partial") else 1)
@@ -238,9 +325,18 @@ class Trainer:
         return out
 
     def eval_params(self):
-        """The EMA shadow when the optimizer keeps one, else the params."""
+        """The EMA shadow when the optimizer keeps one, else the params
+        (on a mesh: the shadow at the params' specs, its ZeRO slices
+        gathered)."""
         ema = get_ema_params(self.state.opt_state)
-        return ema if ema is not None else self.state.params
+        if ema is None:
+            return self.state.params
+        if self.mesh is None:
+            return ema
+        from vitx_torch.parallel import sharded
+
+        return sharded.respec(ema, self.specs.opt_state.ema,
+                              self.specs.params, self.mesh)
 
     def evaluate(self, eval_loader) -> dict:
         """One confusion matrix over the loader on ``eval_params()``, one
@@ -276,7 +372,10 @@ class Trainer:
                                      train=False)
                 yield (prepped["image"], prepped["label"],
                        prepped.get("mask"))
-        return multilabel_eval(self.eval_params(), self.cfg, batches())
+        if self.mesh is None:
+            return multilabel_eval(self.eval_params(), self.cfg, batches())
+        return multilabel_eval(self.eval_params(), self.eval_cfg, batches(),
+                               self.mesh, self.specs.params)
 
     def _meta(self, stats: dict) -> dict:
         meta = {"loss": stats.get("loss", 0.0), "step": int(self.state.step),
@@ -299,9 +398,10 @@ class Trainer:
 
     def fit(self, train_loader, eval_loader=None) -> list:
         tcfg = self.tcfg
-        writer = ScalarWriter(tcfg.log_dir) if tcfg.log_dir else None
+        writer = (ScalarWriter(tcfg.log_dir) if tcfg.log_dir and self.rank0
+                  else None)
         resumed = self.maybe_resume()
-        if resumed is not None:
+        if resumed is not None and self.rank0:
             print(f"resumed from epoch {resumed['epoch']}")
         old_handlers = {}
         if tcfg.preemption_safe and tcfg.checkpoint_dir is not None:
@@ -357,10 +457,12 @@ class Trainer:
                     self._stop_profile(profiler, epoch)
                     profiler = None
                 if tcfg.checkpoint_dir is not None:
-                    arrays = snapshot(self.state, self._schedule)
+                    arrays = snapshot(self.whole_state(), self._schedule)
                     kw = dict(meta=self._meta(stats),
                               keep=tcfg.keep_checkpoints, protect=best_epoch)
-                    if tcfg.async_checkpoint:
+                    if not self.rank0:
+                        pass
+                    elif tcfg.async_checkpoint:
                         self._ckpt_writer.save(tcfg.checkpoint_dir, arrays,
                                                epoch, **kw)
                     else:
@@ -369,15 +471,19 @@ class Trainer:
                 self.history.append({"epoch": epoch, **stats})
                 msg = ", ".join(f"{k}={v:.4f}" for k, v in stats.items()
                                 if isinstance(v, (int, float)))
-                print(f"epoch {epoch}: {msg}")
+                if self.rank0:
+                    print(f"epoch {epoch}: {msg}")
                 if self._preempted:
-                    print(f"preemption signal received: checkpointed "
-                          f"epoch {epoch}, exiting cleanly")
+                    if self.rank0:
+                        print(f"preemption signal received: checkpointed "
+                              f"epoch {epoch}, exiting cleanly")
                     break
                 if stop_early:
-                    print(f"early stop at epoch {epoch}: val accuracy "
-                          f"stale for {stale_evals} evals "
-                          f"(best {best_acc:.4f} at epoch {best_epoch})")
+                    if self.rank0:
+                        print(f"early stop at epoch {epoch}: val accuracy "
+                              f"stale for {stale_evals} evals "
+                              f"(best {best_acc:.4f} at epoch "
+                              f"{best_epoch})")
                     break
         finally:
             if profiler is not None:        # an epoch that raised
@@ -413,8 +519,16 @@ class Trainer:
 
     def _step(self, batch: dict, epoch: int, step: int) -> dict:
         """One train step on a placed batch, its generators seeded from
-        (seed, epoch, step); -> its metrics, left on the device."""
-        gen = (self._generator(epoch, step, 0)
+        (seed, epoch, step); -> its metrics, left on the device. On a
+        mesh the preprocessing's stream is the rank's batch block's own
+        (its draws are per image, not global), the step's the same on
+        every rank (it draws at the global shape)."""
+        stream = 0
+        if self.mesh is not None:
+            from vitx_torch.parallel import sharded
+
+            stream = 2 + self.mesh.index(sharded.BATCH_AXES)
+        gen = (self._generator(epoch, step, stream)
                if self.preprocess is not None else None)
         prepped = self._prep(batch, gen, train=True)
         rng = self._generator(epoch, step, 1) if self._stochastic else None
@@ -457,7 +571,7 @@ class Trainer:
                 n_images += int(np.prod(batch["image"].shape[:-3]))
 
         for batch in train_loader:
-            if self._preempted:
+            if self._preempted_anywhere():
                 break
             if k > 1:
                 buf.append(batch)
@@ -502,6 +616,10 @@ class Trainer:
         if self.tcfg.progress:
             print()
         dt = time.time() - t0
+        if self.mesh is not None:    # every batch block's images
+            from vitx_torch.parallel import sharded
+
+            n_images *= self.mesh.size(sharded.BATCH_AXES)
         stats = {"loss": (float(last_metrics["loss"]) if last_metrics
                           else float("nan")),
                  "epoch_loss_sum": running_loss,
@@ -510,6 +628,18 @@ class Trainer:
             writer.add_scalar("Throughput/images_per_sec",
                               stats["images_per_sec"], epoch)
         return stats
+
+    def _preempted_anywhere(self) -> bool:
+        """The preemption flag; on a mesh, set on any rank (every rank
+        then leaves the epoch at the same step)."""
+        if self.mesh is None:
+            return self._preempted
+        from vitx_torch.parallel import comm
+
+        flag = torch.tensor([float(self._preempted)], device=self.device)
+        comm.all_reduce_(flag, self.mesh, self.mesh.axis_names)
+        self._preempted = bool(flag.item())
+        return self._preempted
 
     def _flush(self, pending, writer) -> float:
         """Copy the pending losses to the host in one transfer, log them

@@ -40,11 +40,6 @@ from vitx_torch.kernels.adamw import adamw_plain, fused_adamw_multi_
 from vitx_torch.metrics.metrics import confusion_matrix
 from vitx_torch.nn.vit import init_params, model_logits
 
-def _not_ported(what: str, item: str = "A13"):
-    return NotImplementedError(
-        f"{what} is not ported to vitx_torch yet (ROADMAP {item})")
-
-
 class TrainState(NamedTuple):
     """The training state: the global step, the parameter tree and the
     optimizer state (``vitx/train/step.py:27-31``)."""
@@ -342,32 +337,40 @@ class _Chain:
         return {"lr": self.learning_rate(count)}
 
     def step_leaf(self, p, g, slots: tuple, count: int, wd: float, factor,
-                  scalars: dict) -> None:
+                  scalars: dict, shard=None) -> None:
         """One leaf's update in place: ``slots`` its state tensors,
         ``count`` the updates applied before, ``wd`` 0 where the mask
         exempts it, ``factor`` its LLRD factor or None, ``scalars`` the
-        step's (``scalars``)."""
+        step's (``scalars``), ``shard`` where the leaf is a rank's part
+        (``vitx_torch.parallel.sharded.LeafShard``) or None."""
         raise NotImplementedError
 
-    def step_leaves(self, pl, gl, state, flags, params) -> None:
+    def step_leaves(self, pl, gl, state, flags, params, shards=None) -> None:
         decays = (weight_decay_mask(params) if self.wd_exclude
                   else [True] * len(pl))
         factors = (llrd_factors(params, self.llrd, self.llrd_depth)
                    if self.llrd is not None else [None] * len(pl))
+        shards = shards or [None] * len(pl)
         scalars = self.scalars(state.count)
         slots = iter(zip(*(leaves(getattr(state, name))
                            for name in self.State.SLOTS)))
-        for p, g, dec, f, on in zip(pl, gl, decays, factors, flags):
+        for p, g, dec, f, on, sh in zip(pl, gl, decays, factors, flags,
+                                        shards):
             if on:
                 self.step_leaf(p, g.float(), next(slots), state.count,
-                               self.weight_decay if dec else 0.0, f, scalars)
+                               self.weight_decay if dec else 0.0, f, scalars,
+                               shard=sh)
 
     @torch.no_grad()
-    def update(self, grads, state, params):
+    def update(self, grads, state, params, *, norm=None, shards=None):
         """One step over matching trees (or leaf lists, in ``leaves``
         order) of grads and params -> (params, new state). A frozen leaf's
         gradient may be None (a train step computes none); a trainable
-        leaf's None counts as zeros, vitx's ``stop_gradient`` gradient."""
+        leaf's None counts as zeros, vitx's ``stop_gradient`` gradient.
+        On a rank of a sharded step the params and state are the rank's
+        parts: ``norm`` (the gradient list -> its global norm) replaces
+        the clipping norm, and ``shards`` (one per leaf) says where each
+        leaf is split."""
         gl = grads if isinstance(grads, list) else leaves(grads)
         pl = leaves(params)
         flags = trainable_flags(params, self.trainable)
@@ -388,12 +391,13 @@ class _Chain:
                 a.zero_()
             state = state._replace(mini_step=0)
         if self.grad_clip is not None:
-            g_norm = global_norm([g for g in gl if g is not None])
+            g_norm = (global_norm([g for g in gl if g is not None])
+                      if norm is None else norm(gl))
             keep = g_norm < self.grad_clip
             gl = [None if g is None else torch.where(
                 keep, g, (g / g_norm.to(g.dtype)) * self.grad_clip)
                 for g in gl]
-        self.step_leaves(pl, gl, state, flags, params)
+        self.step_leaves(pl, gl, state, flags, params, shards)
         if state.ema is not None:
             f32 = np.float32
             d, rest = float(f32(self.ema_decay)), float(
@@ -466,16 +470,17 @@ class AdamW(_Chain):
                     b1=self.b1, b2=self.b2, eps=self.eps,
                     wd=self.weight_decay)
 
-    def step_leaves(self, pl, gl, state, flags, params) -> None:
+    def step_leaves(self, pl, gl, state, flags, params, shards=None) -> None:
         if self.fused:
             fused_adamw_multi_(pl, gl, leaves(state.mu), leaves(state.nu),
                                **self.update_kw(state.count))
             return
-        super().step_leaves(pl, gl, state, flags, params)
+        super().step_leaves(pl, gl, state, flags, params, shards)
 
     scalars = update_kw
 
-    def step_leaf(self, p, g, slots, count, wd, factor, scalars) -> None:
+    def step_leaf(self, p, g, slots, count, wd, factor, scalars,
+                  shard=None) -> None:
         mu, nu = slots
         kw = dict(scalars, wd=wd)
         if mu.dtype != torch.float32:
@@ -507,7 +512,8 @@ class SGD(_Chain):
     def init_leaf(self, p, alloc) -> tuple:
         return (alloc(p.shape, torch.float32),)
 
-    def step_leaf(self, p, g, slots, count, wd, factor, scalars) -> None:
+    def step_leaf(self, p, g, slots, count, wd, factor, scalars,
+                  shard=None) -> None:
         (trace,) = slots
         trace.copy_(g + self.momentum * trace)
         step = scalars["lr"] * (trace + wd * p)
@@ -528,7 +534,8 @@ class Lion(_Chain):
     def init_leaf(self, p, alloc) -> tuple:
         return (alloc(p.shape, torch.float32),)
 
-    def step_leaf(self, p, g, slots, count, wd, factor, scalars) -> None:
+    def step_leaf(self, p, g, slots, count, wd, factor, scalars,
+                  shard=None) -> None:
         (mu,) = slots
         direction = torch.sign((1.0 - self.b1) * g + self.b1 * mu)
         mu.copy_((1.0 - self.b2) * g + self.b2 * mu)
@@ -562,7 +569,11 @@ class Adafactor(_Chain):
         p <- p - (lr * g * rsqrt(v) + wd * p)
 
     The state is optax's ``FactoredState(count, v_row, v_col, v)``, with
-    (1,) placeholders where a leaf keeps the other form."""
+    (1,) placeholders where a leaf keeps the other form. On a rank that
+    holds a part of a leaf (``shard``), the factoring follows the whole
+    leaf's shape and the row and column means over a split dim are
+    averaged across its ranks; each moment is then the part of the whole
+    one that the rank's part of the leaf reads."""
 
     State = AdafactorState
     decay_rate, eps = 0.8, 1e-30
@@ -580,21 +591,30 @@ class Adafactor(_Chain):
                 alloc(tuple(np.delete(shape, d1)), p.dtype),
                 alloc(one, p.dtype))
 
-    def step_leaf(self, p, g, slots, count, wd, factor, scalars) -> None:
+    def step_leaf(self, p, g, slots, count, wd, factor, scalars,
+                  shard=None) -> None:
         v_row, v_col, v = slots
         t = torch.full((), count + 1, dtype=torch.float32, device=p.device)
         rate = 1.0 - t ** (-self.decay_rate)
         grad_sqr = g * g + self.eps
-        dims = factored_dims(tuple(p.shape))
+        dims = factored_dims(tuple(p.shape) if shard is None
+                             else shard.shape)
         if dims is None:
             v.copy_(rate * v + (1.0 - rate) * grad_sqr)
             u = g * v ** -0.5
         else:
             d1, d0 = dims
-            v_row.copy_(rate * v_row + (1.0 - rate) * grad_sqr.mean(dim=d0))
-            v_col.copy_(rate * v_col + (1.0 - rate) * grad_sqr.mean(dim=d1))
+
+            def mean(x, d, part, keepdim=False):
+                return (x.mean(dim=d, keepdim=keepdim) if part is None
+                        else part.mean(x, d, keepdim))
+            v_row.copy_(rate * v_row + (1.0 - rate) * mean(grad_sqr, d0,
+                                                           shard))
+            v_col.copy_(rate * v_col + (1.0 - rate) * mean(grad_sqr, d1,
+                                                           shard))
             reduced_d1 = d1 - 1 if d1 > d0 else d1
-            row_col_mean = v_row.mean(dim=reduced_d1, keepdim=True)
+            row_col_mean = mean(v_row, reduced_d1, None if shard is None
+                                else shard.without(d0), keepdim=True)
             row_factor = (v_row / row_col_mean) ** -0.5
             col_factor = v_col ** -0.5
             u = g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
@@ -683,12 +703,14 @@ def create_train_state(rng, cfg: ViTConfig, optimizer: _Chain, *,
 
 
 def cross_entropy_loss(logits, labels, mask=None, label_smoothing=0.0,
-                       class_weights=None):
+                       class_weights=None, reduce=None):
     """Mean softmax cross-entropy in fp32 (``vitx/train/step.py:307-344``):
     ``mask`` (0/1 per row) excludes padding rows from the mean;
     ``label_smoothing`` mixes in the uniform target; ``class_weights`` (C,)
     scale each row by its target class's weight and normalise by their
-    sum."""
+    sum. ``reduce``: a rank's share of a global mean -- the rows' sum over
+    ``reduce(the local denominator)``, the global one
+    (``vitx_torch.parallel.sharded.denominator``)."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     labels = labels.long()
     nll = -logp.gather(-1, labels[:, None])[:, 0]
@@ -709,6 +731,10 @@ def cross_entropy_loss(logits, labels, mask=None, label_smoothing=0.0,
         else:
             nll = wy * nll
         denom_w = wy
+    if reduce is not None:
+        m = torch.ones_like(nll) if mask is None else mask.float()
+        denom = m.sum() if denom_w is None else (denom_w * m).sum()
+        return (nll * m).sum() / reduce(denom).clamp_min(1e-9)
     if mask is None:
         if denom_w is None:
             return nll.mean()
@@ -718,16 +744,19 @@ def cross_entropy_loss(logits, labels, mask=None, label_smoothing=0.0,
     return (nll * mask).sum() / denom.clamp_min(1e-9)
 
 
-def sigmoid_bce_loss(logits, targets, mask=None):
+def sigmoid_bce_loss(logits, targets, mask=None, reduce=None):
     """The multi-label loss (``vitx/train/step.py:347-358``): sigmoid
     binary cross-entropy in fp32 against (B, C) multi-hot (or mixed, soft)
     targets, optax's ``-t log sigmoid(x) - (1 - t) log sigmoid(-x)``,
     averaged over the classes, then over the rows (``mask`` excludes
-    padding rows)."""
+    padding rows; ``reduce`` as ``cross_entropy_loss`` takes it)."""
     x = logits.float()
     t = targets.float()
     per = -t * F.logsigmoid(x) - (1.0 - t) * F.logsigmoid(-x)
     per = per.mean(dim=-1)
+    if reduce is not None:
+        m = torch.ones_like(per) if mask is None else mask.float()
+        return (per * m).sum() / reduce(m.sum()).clamp_min(1e-9)
     if mask is None:
         return per.mean()
     m = mask.float()
@@ -780,7 +809,7 @@ def mix_weight_map(gen: torch.Generator, image_shape, mixup_alpha,
 def loss_fn(params, batch, cfg: ViTConfig, rng=None, *,
             label_smoothing: float = 0.0, mixup_alpha: float | None = None,
             cutmix_alpha: float | None = None, class_weights=None,
-            loss: str = "ce", mix=None):
+            loss: str = "ce", mix=None, mesh=None):
     """-> (loss, logits) (``vitx/train/step.py:399-455``). Dropout and
     drop-path run when ``rng`` (a ``torch.Generator``) is given. As in
     vitx, ``fuse_mlp="auto"`` becomes "off" under grad: the MLP halves
@@ -793,7 +822,11 @@ def loss_fn(params, batch, cfg: ViTConfig, rng=None, *,
     w) replaces the draws, so that a test can feed vitx's. ``loss="bce"``
     takes (B, C) multi-hot labels through ``sigmoid_bce_loss`` (mixing
     mixes the targets) and refuses label smoothing and class weights, as
-    vitx does."""
+    vitx does. ``mesh``: a rank of a sharded step with its rows of the
+    batch -- the loss is its share of the global mean, the permutation
+    one of the global batch (``perm`` indexes it; the partner rows are
+    gathered from the other ranks), and the model runs the rank's
+    shards."""
     if cfg.fuse_mlp == "auto":
         cfg = cfg.replace(fuse_mlp="off")
     if loss == "bce":
@@ -803,9 +836,17 @@ def loss_fn(params, batch, cfg: ViTConfig, rng=None, *,
     elif loss != "ce":
         raise ValueError(f"unknown loss {loss!r} (have 'ce', 'bce')")
     image, mask = batch["image"], batch.get("mask")
+    reduce = rows = None
+    if mesh is not None:
+        from vitx_torch.parallel import sharded
+
+        if mesh.size(sharded.BATCH_AXES) > 1:
+            reduce = sharded.denominator(mesh)
+            rows = sharded.batch_rows(mesh, image.shape[0])
     if (mixup_alpha or cutmix_alpha) and (rng is not None or mix is not None):
+        n = image.shape[0] if rows is None else rows[1]
         if mix is None:
-            perm = torch.randperm(image.shape[0], generator=rng,
+            perm = torch.randperm(n, generator=rng,
                                   device=rng.device).to(image.device)
             w = mix_weight_map(rng, image.shape, mixup_alpha, cutmix_alpha,
                                image.device)
@@ -813,29 +854,36 @@ def loss_fn(params, batch, cfg: ViTConfig, rng=None, *,
             perm, w = (torch.as_tensor(np.array(t) if not torch.is_tensor(t)
                                        else t).to(image.device) for t in mix)
             perm = perm.long()
+
+        def partner(t):
+            if rows is None:
+                return t[perm]
+            whole = sharded.gather_batch(t, mesh)
+            return whole[perm[rows[0]:rows[0] + image.shape[0]]]
         lam = w.float().mean()
-        image = (w * image.float() + (1.0 - w) * image[perm].float()
+        image = (w * image.float() + (1.0 - w) * partner(image).float()
                  ).to(image.dtype)
         logits = model_logits(params, image, cfg, rng=rng,
-                              deterministic=rng is None)
+                              deterministic=rng is None, mesh=mesh)
         if loss == "bce":
             # BCE is affine in the target: mix the multi-hot targets
             t = batch["label"].float()
-            mixed = lam * t + (1.0 - lam) * t[perm]
-            return sigmoid_bce_loss(logits, mixed, mask), logits
+            mixed = lam * t + (1.0 - lam) * partner(t)
+            return sigmoid_bce_loss(logits, mixed, mask, reduce), logits
         labels = batch["label"].long()
         loss_v = (lam * cross_entropy_loss(logits, labels, mask,
-                                           label_smoothing, class_weights)
+                                           label_smoothing, class_weights,
+                                           reduce)
                   + (1.0 - lam) * cross_entropy_loss(
-                      logits, labels[perm], mask, label_smoothing,
-                      class_weights))
+                      logits, partner(labels), mask, label_smoothing,
+                      class_weights, reduce))
         return loss_v, logits
     logits = model_logits(params, image, cfg, rng=rng,
-                          deterministic=rng is None)
+                          deterministic=rng is None, mesh=mesh)
     if loss == "bce":
-        return sigmoid_bce_loss(logits, batch["label"], mask), logits
+        return sigmoid_bce_loss(logits, batch["label"], mask, reduce), logits
     loss_v = cross_entropy_loss(logits, batch["label"], mask,
-                                label_smoothing, class_weights)
+                                label_smoothing, class_weights, reduce)
     return loss_v, logits
 
 
@@ -861,7 +909,7 @@ def train_step(state: TrainState, batch, rng=None, *, cfg: ViTConfig,
                cutmix_alpha: float | None = None,
                sam_rho: float | None = None, class_weights=None,
                grad_shardings=None, train_filter: str | None = None,
-               loss: str = "ce", mix=None):
+               loss: str = "ce", mix=None, mesh=None, state_specs=None):
     """One optimizer step (``vitx/train/step.py:458-547``). ``batch``:
     {"image": (B, H, W, C), "label": (B,) -- (B, C) multi-hot with
     ``loss="bce"`` --, optional "mask": (B,) 0/1}, numpy or tensors.
@@ -876,10 +924,28 @@ def train_step(state: TrainState, batch, rng=None, *, cfg: ViTConfig,
     Updates the state's tensors in place; returns (state, metrics) with
     fp32 0-dim tensors ``loss``, ``accuracy`` (per element of the 0.5
     decisions for multi-hot labels) and ``grad_norm`` (the clean
-    gradients' global norm, before clipping) left on the device."""
-    dev = resolve_device(device)
+    gradients' global norm, before clipping) left on the device.
+
+    ``mesh`` (``vitx_torch.parallel.make_mesh``): one rank of a sharded
+    step (``vitx_torch.parallel.sharded.sharded_train_step``) -- the
+    state this rank's parts (``place_state``) with ``state_specs`` their
+    specs, the batch its rows, the device the mesh's; ``grad_shardings``
+    (``grad_sharding``) reduce-scatters the gradients onto ZeRO-2's
+    slices."""
+    if mesh is not None:
+        from vitx_torch.parallel.sharded import sharded_train_step
+
+        return sharded_train_step(
+            state, batch, rng, cfg=cfg, optimizer=optimizer, mesh=mesh,
+            state_specs=state_specs, label_smoothing=label_smoothing,
+            mixup_alpha=mixup_alpha, cutmix_alpha=cutmix_alpha,
+            sam_rho=sam_rho, class_weights=class_weights,
+            grad_shardings=grad_shardings, train_filter=train_filter,
+            loss=loss, mix=mix)
     if grad_shardings is not None:
-        raise _not_ported("sharded gradients (grad_shardings)")
+        raise ValueError("grad_shardings split the gradients over a mesh's "
+                         "data axis: pass the rank's mesh")
+    dev = resolve_device(device)
     _check_on(state.params, dev)
     batch = _to_device(batch, dev)
     params, wrt = trainable_params(state.params, train_filter)
