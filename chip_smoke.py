@@ -419,9 +419,45 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               more "shapes" of the kernels line's rows; (d) nccl with one
               rank (a card of its own): its dp 1 step of the depth-2 bf16
               copy bit for bit one process's; (e) python -m
-              vitx_torch.parallel.dryrun 4 on the card. Rank 0's launches
-              of (b) are the kernels line's "parallel" path.
-18. artifacts -- main path 8, the model shipped (base16 bf16 at full
+              vitx_torch.parallel.dryrun 4 on the card, its line with
+              vitx's pipeline keys (GPipe and 1F1B at 2 data x 2 stage;
+              pp x tp, which takes 8 ranks, nan as vitx prints it). Rank
+              0's launches of (b) are the kernels line's "parallel" path.
+18. pipeline -- main path 15, pipeline parallelism (GPipe and 1F1B,
+              vitx_torch.parallel.pipeline) in rank processes that share
+              the card (gloo): first a probe of dist.send/recv on CUDA
+              tensors in two ranks of its own, printed (the handoff is
+              a broadcast over the link's two-rank group on every
+              backend, whatever it prints); (a) at base16's widths, depth 2, fp32, b8 global in
+              2 microbatches a data row, on four ranks: GPipe and 1F1B on
+              (2 data x 2 stage), 1F1B on (1 data x 2 stage x 2 model),
+              each one step against one process on the CPU from the same
+              weights: loss, grad_norm and every reduced gradient within
+              FP32_TOL (the prediction, 5e-6, printed beside), the params
+              within param_gap's allowance, B5 launched in every pp x tp
+              rank (its local heads: T 197, D 64, vitx's rule); (b) at
+              full width in bf16 (depth 12, 6 + 6 blocks), b128 global in
+              4 microbatches of 32 on (1 data x 2 stage), fused AdamW:
+              GPipe, then 1F1B, one warm-up and 3 steps on one batch: the
+              first step's loss and grad_norm within PARALLEL_TOL of one
+              process's step on the card, each rank's step ms (host clock
+              around synchronised steps, median of 3), peak memory and
+              held stage inputs, launches exact in each rank (K1 and K2
+              with their stashes 24, B2 24, B3 48 and the head's 4 on the
+              last stage, B12 1 a step; 1F1B's stage 0 K1 and K2 24 more
+              without stash); (c) K1 with and without its stash, K2 with
+              its stash, B2 and B3 at a microbatch's (32, 197, 768) in bf16
+              and B5 at pp x tp's local heads (32, 6, 197, 64) bf16 and
+              (4, 6, 197, 64) fp32, B12 over a (b) rank's update leaves
+              (6 of the 12 blocks, the other leaves whole; fp32 and bf16
+              gradients), against their plain versions, each
+              twice bit for bit, then their times as more "shapes" of the
+              kernels line's rows; (d) python -m vitx_torch.cli.serve
+              --preset base16 --dp 2 (batch 8): two ranks answer six
+              requests over HTTP with a direct forward's top-1, and stop
+              on SIGINT. (b)'s launches, both ranks', are the kernels
+              line's "pipeline" path.
+19. artifacts -- main path 8, the model shipped (base16 bf16 at full
               width): (a) an int8 .quant.npz of the params, about 1/4 of
               their fp32 bytes, quantization_error at most 1/254, a
               server on it answering 32 requests with the top-1 of direct
@@ -437,7 +473,7 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               within 1e-4 and the probe CLI on a .quant.npz over
               procedural:128,64, reports and features alike. Its
               launches are the kernels line's "export" path.
-19. bench  -- main path 9, vitx's bench configurations on the card: K1
+20. bench  -- main path 9, vitx's bench configurations on the card: K1
               (with and without its stash), K2, B2 and B3 at huge14's
               shapes (E 1280, 10 heads of D 128: the earlier attention
               kernels, the sm90 GEMM) held to their plain versions in
@@ -445,7 +481,7 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               last the "huge14" path: its launches asserted), then
               vitx_torch.cli.tune --mode infer on base16 at 64, 128 and
               256 with no error row.
-20. times  -- CUDA-event medians: the base16 forward at batch 256 bf16
+21. times  -- CUDA-event medians: the base16 forward at batch 256 bf16
               (img/s), the train step at batch 128 bf16 (img/s), the
               large16_384 rollout forward at batch 32 bf16 (img/s), the
               same with QKV biases and forward_with_attn("full") at
@@ -500,7 +536,11 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               phase's (c): K1's sm90 row at a dp 2 rank's (64, 197, 768),
               B2's sm90 row at (64, 12, 197, 64), B3's one-pass row at
               (64, 197, 768) and B12's multi-leaf row over rank 0's ZeRO-1
-              slices of base16 (45.6 M elements).
+              slices of base16 (45.6 M elements); and the pipeline phase's
+              (c): K1's sm90 row with and without its stash and K2's with
+              its stash at a microbatch's (32, 197, 768), B2's sm90 row at
+              (32, 12, 197, 64), B3's one-pass row at (32, 197, 768) and
+              B5's sm90 row at pp x tp's (32, 6, 197, 64).
 
 Each main path runs with the kernels' launch counts set to 0 just before
 it and read just after. ``attention_bwd``, ``flash_attention`` and the
@@ -565,8 +605,8 @@ PROFILE_LEAD_KEPT = 960       # of them a window must keep to be read
 PROFILE_TRIES = 3             # windows profile_call traces at most
 PHASES = ("device", "build", "kernels", "grad", "forward", "serve", "train",
           "explain", "tome", "finetune", "recipe", "transfer", "pretrained",
-          "families", "optim", "pretrain", "parallel", "artifacts", "bench",
-          "times")
+          "families", "optim", "pretrain", "parallel", "pipeline",
+          "artifacts", "bench", "times")
 
 KERNELS = {
     "fused_mha_block": {
@@ -7759,10 +7799,11 @@ PARALLEL_REF = {"dp2": "dense", "zero1": "dense", "zero2": "dense",
                 "zero3": "dense", "tp2_sp": "dense", "ep2": "ep2"}
 
 
-def parallel_shards(cfg):
-    """Rank 0's ZeRO-1 update slices of base16 at dp 2 (the moments'
-    specs, ``Plan.update``): owned contiguous fp32 tensors of the shapes
-    the rank's B12 launch reads, drawn on the card."""
+def rank_shards(cfg, shape: dict, specs_of):
+    """Rank 0's update leaves of ``cfg`` on a mesh of ``shape`` whose
+    state specs are ``specs_of(state, cfg, mesh)`` (the moments' specs,
+    ``Plan.update``): owned contiguous fp32 tensors of the shapes the
+    rank's B12 launch reads, drawn on the card, and those shapes."""
     from vitx_torch.parallel import Mesh, sharded
     from vitx_torch.train.step import TrainState, make_optimizer, leaves
 
@@ -7771,10 +7812,9 @@ def parallel_shards(cfg):
     def meta(spec):
         return {k: meta(v) if isinstance(v, dict) else
                 torch.empty(v[0], device="meta") for k, v in spec.items()}
-    mesh = Mesh({"data": 2, "model": 1}, 0, "cuda", "gloo")
+    mesh = Mesh(shape, 0, "cuda", "gloo")
     p = meta(param_spec(cfg))
-    specs = sharded.state_sharding(
-        TrainState(0, p, make_optimizer().init(p)), cfg, mesh, zero1=True)
+    specs = specs_of(TrainState(0, p, make_optimizer().init(p)), cfg, mesh)
     plan = sharded.Plan(specs, mesh, p)
     shapes = []
     for t, spec in zip(leaves(p), plan.update):
@@ -7783,6 +7823,25 @@ def parallel_shards(cfg):
             shape[d] //= mesh.size(a)
         shapes.append(tuple(shape))
     return [seeded(s, 300 + i, 0.02) for i, s in enumerate(shapes)], shapes
+
+
+def parallel_shards(cfg):
+    """Rank 0's ZeRO-1 update slices of ``cfg`` at dp 2 (``rank_shards``)."""
+    from vitx_torch.parallel import sharded
+
+    return rank_shards(cfg, {"data": 2, "model": 1},
+                       lambda st, c, m: sharded.state_sharding(
+                           st, c, m, zero1=True))
+
+
+def pipeline_shards(cfg):
+    """Stage 0's update leaves of ``cfg`` on (b)'s (1 data x 2 stage)
+    mesh (``rank_shards``): its half of every stacked block leaf and the
+    whole of each other leaf, as each rank of (b) updates them."""
+    from vitx_torch.parallel import pipeline
+
+    return rank_shards(cfg, {"data": 1, "stage": 2},
+                       pipeline.pp_state_sharding)
 
 
 def check_parallel_kernels(errs: dict) -> None:
@@ -7834,6 +7893,32 @@ def check_parallel_kernels(errs: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def adamw_row(shards, launches: dict, errs: dict, of: str) -> dict:
+    """B12's row over a rank's update leaves (``rank_shards``), fp32
+    gradients from zero moments, torch.optim.AdamW(fused=True) on the same
+    leaves the library call."""
+    from vitx_torch.kernels import adamw_multi_plain, fused_adamw_multi_
+
+    ps, shapes = shards
+    gs = [seeded(s, 700 + i, 1e-3) for i, s in enumerate(shapes)]
+    mus = [torch.zeros_like(t) for t in ps]
+    nus = [torch.zeros_like(t) for t in ps]
+    n = sum(t.numel() for t in ps)
+    kw = dict(lr=1e-4, c1=0.1, c2=0.001, b1=0.9, b2=0.999, eps=1e-8,
+              wd=1e-4)
+    lib_opt = torch.optim.AdamW(
+        [torch.nn.Parameter(t.clone()) for t in ps], lr=1e-4, eps=1e-8,
+        weight_decay=1e-4, fused=True)
+    for prm, g in zip(lib_opt.param_groups[0]["params"], gs):
+        prm.grad = g
+    return kernel_row(
+        "fused_adamw_multi_",
+        lambda: fused_adamw_multi_(ps, gs, mus, nus, **kw),
+        lambda: adamw_multi_plain(ps, gs, mus, nus, **kw), lib_opt.step,
+        15 * n, PEAK_FP32_FLOPS, 7 * 4 * n, launches, errs,
+        leaves=len(ps), elements=n, of=of)
+
+
 def parallel_kernel_shapes(launches: dict, errs: dict) -> dict:
     """A dp 2 rank's shapes as more ``shapes`` of the rows, bf16: K1's
     sm90 row with its stash at (64, 197, 768); B2's sm90 row at (64, 12,
@@ -7841,8 +7926,7 @@ def parallel_kernel_shapes(launches: dict, errs: dict) -> dict:
     ZeRO-1 slices of base16 (torch.optim.AdamW(fused=True) on the same
     slices the library call)."""
     import vitx_torch
-    from vitx_torch.kernels import (adamw_multi_plain, fused_mha_block,
-                                    fused_adamw_multi_, mha_block_plain)
+    from vitx_torch.kernels import fused_mha_block, mha_block_plain
 
     bf = torch.bfloat16
     eps = 1e-5
@@ -7862,26 +7946,9 @@ def parallel_kernel_shapes(launches: dict, errs: dict) -> dict:
                                only="attention_bwd_sm90")
     rows += ln_bwd_rows((B, T, E), 92, eps, launches, errs,
                         only="ln_bwd_onepass")
-    ps, shapes = parallel_shards(vitx_torch.get_config("base16"))
-    gs = [seeded(s, 700 + i, 1e-3) for i, s in enumerate(shapes)]
-    mus = [torch.zeros_like(t) for t in ps]
-    nus = [torch.zeros_like(t) for t in ps]
-    n = sum(t.numel() for t in ps)
-    kw = dict(lr=1e-4, c1=0.1, c2=0.001, b1=0.9, b2=0.999, eps=1e-8,
-              wd=1e-4)
-    lib_opt = torch.optim.AdamW(
-        [torch.nn.Parameter(t.clone()) for t in ps], lr=1e-4, eps=1e-8,
-        weight_decay=1e-4, fused=True)
-    for prm, g in zip(lib_opt.param_groups[0]["params"], gs):
-        prm.grad = g
-    rows.append(kernel_row(
-        "fused_adamw_multi_",
-        lambda: fused_adamw_multi_(ps, gs, mus, nus, **kw),
-        lambda: adamw_multi_plain(ps, gs, mus, nus, **kw), lib_opt.step,
-        15 * n, PEAK_FP32_FLOPS, 7 * 4 * n, launches, errs,
-        leaves=len(ps), elements=n, of="rank 0's ZeRO-1 slices of base16 "
-        "at dp 2"))
-    del ps, gs, mus, nus, lib_opt
+    rows.append(adamw_row(parallel_shards(vitx_torch.get_config("base16")),
+                          launches, errs, "rank 0's ZeRO-1 slices of base16 "
+                          "at dp 2"))
     torch.cuda.empty_cache()
     extra: dict = {}
     for row in rows:
@@ -7940,7 +8007,9 @@ def parallel_nccl() -> None:
 
 def parallel_dryrun() -> str:
     """(e): ``python -m vitx_torch.parallel.dryrun 4`` on the card (four
-    ranks share it: gloo), its summary line."""
+    ranks share it: gloo), its summary line, the pipeline's keys in it:
+    GPipe and 1F1B on (2 data x 2 stage); pp x tp takes 8 ranks, so its
+    loss is ``nan`` at 4, as vitx prints it."""
     env_path = str(Path(__file__).resolve().parent)
     run = subprocess.run([sys.executable, "-m", "vitx_torch.parallel.dryrun",
                           "4"], capture_output=True, text=True,
@@ -7950,8 +8019,11 @@ def parallel_dryrun() -> str:
     emit({"phase": "parallel", "part": "e: python -m "
           "vitx_torch.parallel.dryrun 4", "rc": run.returncode,
           "summary": line})
+    pp_keys = ("pp_loss=", "(pipeline 2 data x 2 stage; 1f1b_loss=",
+               "pp_x_tp_1f1b_loss=nan at 2 data x 2 stage x 2 model")
     if run.returncode != 0 or not line.startswith("dryrun_multichip ok") \
-            or "nan" in line:
+            or not all(k in line for k in pp_keys) \
+            or "nan" in line.replace("pp_x_tp_1f1b_loss=nan", ""):
         raise AssertionError(f"parallel (e): rc {run.returncode}\n"
                              f"{run.stderr[-4000:]}")
     return line
@@ -7987,6 +8059,495 @@ def phase_parallel(errs: dict) -> tuple:
           "one_process_refs": t_ref - t0, "ranks_a_b": t_spawn - t_ref,
           "held": t_b - t_spawn, "c": t_c - t_b, "d": t_d - t_c,
           "e": time.perf_counter() - t_d})
+    return launches, extra
+
+
+# phase pipeline: (a)'s runs -> (dp, pp, tp, schedule), four ranks each
+PIPELINE_A = {"gpipe": (2, 2, 1, "gpipe"), "1f1b": (2, 2, 1, "1f1b"),
+              "pp2_tp2_1f1b": (1, 2, 2, "1f1b")}
+PIPELINE_A_MICRO = 2    # (a): 2 microbatches of each data row's 4 rows
+PIPELINE_SCHEDULES = ("gpipe", "1f1b")   # (b), on (1 data x 2 stage)
+PIPELINE_MICRO = 4      # (b): microbatches of 32 of the global 128
+PIPELINE_STEPS = 3      # (b)'s timed steps, after one warm-up
+PIPELINE_SERVE_B = 8    # (d): the server's batch, 4 rows a rank
+PIPELINE_GRAD_PREDICTED = 5e-6   # (a)'s predicted gradient bar (PERF.md)
+
+
+class CapturedUpdate:
+    """An optimizer that keeps the gradients its update receives (a
+    rank's reduced gradients, in leaf order) and then updates as
+    ``opt``."""
+
+    def __init__(self, opt):
+        self.opt, self.grads = opt, None
+
+    def __getattr__(self, name):
+        return getattr(self.opt, name)
+
+    def update(self, grads, *args, **kw):
+        self.grads = [g.detach().clone() for g in grads]
+        return self.opt.update(grads, *args, **kw)
+
+
+def pipeline_p2p_rank(ctx) -> dict:
+    """Point-to-point on CUDA tensors over the group's backend, once:
+    rank 0 sends 0..3, rank 1 receives; -> what arrived (rank 1)."""
+    import torch.distributed as dist
+
+    x = torch.arange(4, dtype=torch.float32, device=ctx.device)
+    if ctx.rank == 0:
+        dist.send(x, dst=1)
+        torch.cuda.synchronize()
+        return {"backend": ctx.backend}
+    y = torch.zeros_like(x)
+    dist.recv(y, src=0)
+    torch.cuda.synchronize()
+    return {"backend": ctx.backend, "equal": bool(torch.equal(x, y))}
+
+
+def pipeline_p2p() -> dict:
+    """The probe of the phase's start: ``dist.send``/``recv`` of a CUDA
+    tensor between two ranks sharing the card, in ranks of its own (a
+    failure there, an error or a dead rank, is the probe's answer, not
+    the phase's); the handoff is a broadcast over the link's two-rank
+    group (``comm.send_stage``) whatever this prints."""
+    from vitx_torch.parallel import RankError, spawn
+
+    try:
+        got = spawn(pipeline_p2p_rank, 2, device="cuda", timeout=120)
+        answer = "ok" if got[1]["equal"] else "wrong values"
+    except RankError as e:
+        lines = [s for s in str(e).splitlines() if s.strip()]
+        answer = "error: " + (lines[-1] if lines else str(e))[:300]
+    return answer
+
+
+def pipeline_rank_a(ctx) -> dict:
+    """(a) on one of four ranks: each PIPELINE_A run, one step of the
+    depth-2 fp32 copy at base16's widths on (a)'s b8 -> (rank 0) its
+    loss, grad_norm, reduced gradients and params after the step,
+    gathered whole; every rank its B5 (flash_attention) launches."""
+    from vitx_torch.parallel import pipeline, sharded
+    from vitx_torch.train.step import TrainState, leaves, make_optimizer
+
+    out = {}
+    for name, (dp, pp, tp, schedule) in PIPELINE_A.items():
+        mesh = pipeline.make_pp_mesh(dp, pp, tp, device=ctx.device)
+        cfg = parallel_cfg("dp2", 2, "float32")
+        params = parallel_params_a("dp2", mesh.device)
+        opt = CapturedUpdate(make_optimizer(lr=1e-4))
+        whole = TrainState(0, params, opt.init(params))
+        specs = pipeline.pp_state_sharding(whole, cfg, mesh, tp=tp > 1)
+        state = sharded.place_state(whole, cfg, mesh, specs=specs)
+        step = pipeline.make_pp_train_step(
+            cfg, opt, mesh, n_micro=PIPELINE_A_MICRO, state_shardings=specs,
+            schedule=schedule)
+        batch = sharded.shard_batch(parallel_batch(PARALLEL_A_B, 7,
+                                                   mesh.device), mesh)
+        reset_counts()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        b5 = counts()["flash_attention"]
+        plan = sharded.Plan(specs, mesh, state.params)
+        grads = [sharded.gather_part(g, s, mesh).cpu()
+                 for g, s in zip(opt.grads, plan.param)]
+        whole = sharded.gather_state(state, specs, mesh)
+        out[name] = {"b5": b5, "held": step.held}
+        if ctx.rank == 0:
+            out[name].update(
+                loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                grads=[g.numpy() for g in grads],
+                params=[t.cpu().numpy() for t in leaves(whole.params)])
+        del state, whole, grads
+        torch.cuda.empty_cache()
+    return out
+
+
+def pipeline_a(ranks: list) -> None:
+    """(a): each run's step on four card ranks against one process on the
+    CPU: loss, grad_norm and every reduced gradient within FP32_TOL (the
+    prediction, PIPELINE_GRAD_PREDICTED, reported beside), the params
+    within param_gap's allowance; pp x tp's stages on B5 (local heads, T
+    197 >= 128, D 64 >= 32: vitx's rule) in every rank."""
+    ref = parallel_reference_a("dp2")
+    for name, card in ranks[0].items():
+        gc = [torch.from_numpy(g) for g in card["grads"]]
+        errs = {k: abs(card[k] - ref[k]) / max(abs(ref[k]), 1e-12)
+                for k in ("loss", "grad_norm")}
+        errs["grads"], worst = grads_rel_err(gc, ref["grads"], ref["names"])
+        gap = param_gap(gc, ref["grads"],
+                        [torch.from_numpy(t) for t in card["params"]],
+                        ref["params"], 1e-4, 1e-8, ref["names"])
+        dp, pp, tp, schedule = PIPELINE_A[name]
+        b5 = [r[name]["b5"] for r in ranks]
+        emit({"phase": "pipeline", "part": f"a: {name} base16 widths depth "
+              "2 fp32, 4 ranks on the card vs one process on the CPU",
+              "mesh": {"dp": dp, "pp": pp, "tp": tp, "schedule": schedule,
+                       "n_micro": PIPELINE_A_MICRO},
+              "card": {k: card[k] for k in ("loss", "grad_norm")},
+              "cpu": {k: ref[k] for k in ("loss", "grad_norm")},
+              "rel_err": errs, "grads_worst_leaf": worst, "params": gap,
+              "tol": FP32_TOL, "predicted_grads": PIPELINE_GRAD_PREDICTED,
+              "b5_launches_per_rank": b5,
+              "held_per_rank": [r[name]["held"] for r in ranks]})
+        if not (max(errs.values()) <= FP32_TOL and gap["worst"] <= 1.0):
+            raise AssertionError(f"pipeline (a) {name}: {errs}, {gap}")
+        if tp > 1 and min(b5) == 0:
+            raise AssertionError(f"pipeline (a) {name}: B5 launches {b5}")
+
+
+def pipeline_expected(cfg, schedule: str, stage: int, steps: int) -> dict:
+    """A (b) rank's launches over ``steps`` steps at (1 data x 2 stage),
+    per the code's routing: its 6 blocks once a microbatch under grad (K1
+    and K2 with their stashes: the stages keep fuse_mlp "auto"; B2; B3
+    for LN1 and LN2), the last stage's head LayerNorms (B3) a
+    microbatch, B12 once a step; 1F1B's forward slots on stage 0 run K1
+    and K2 once more without their stashes (the last stage's forward is
+    its backward slot's recompute)."""
+    per = cfg.depth // 2 * PIPELINE_MICRO * steps
+    fwd = per * (2 if schedule == "1f1b" and stage == 0 else 1)
+    b3 = 2 * per + (stage == 1) * (head_lns(cfg) + int(cfg.final_norm)) \
+        * PIPELINE_MICRO * steps
+    return block_launches(cfg, fused_mha_block=fwd, fused_mlp_block=fwd,
+                          attention_bwd=per, attention_bwd_sm90=per * sm90(
+                              cfg), ln_bwd=b3, fused_adamw_multi_=steps)
+
+
+def pipeline_rank_b(ctx) -> dict:
+    """(b) on one of two ranks, (1 data x 2 stage): base16 bf16 at full
+    width, b128 global in PIPELINE_MICRO microbatches, fused AdamW, each
+    schedule one warm-up and PIPELINE_STEPS steps -> its losses and grad
+    norms, step ms, peak memory, launches and held inputs."""
+    from vitx_torch.parallel import comm, pipeline, sharded
+    from vitx_torch.train.step import (create_train_state, leaves,
+                                       make_optimizer)
+
+    out = {"backend": None}
+    for schedule in PIPELINE_SCHEDULES:
+        mesh = pipeline.make_pp_mesh(1, 2, device=ctx.device)
+        out["backend"] = mesh.backend
+        cfg = parallel_cfg("dp2")
+        opt = make_optimizer(lr=PARALLEL_LR, fused=True)
+        whole = create_train_state(0, cfg, opt, device=mesh.device)
+        specs = pipeline.pp_state_sharding(whole, cfg, mesh)
+        state = sharded.place_state(whole, cfg, mesh, specs=specs)
+        del whole
+        torch.cuda.empty_cache()
+        step = pipeline.make_pp_train_step(
+            cfg, opt, mesh, n_micro=PIPELINE_MICRO, state_shardings=specs,
+            schedule=schedule)
+        batch = parallel_batch(PARALLEL_B, 11, mesh.device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        losses, norms, ms = [], [], []
+        for _ in range(1 + PIPELINE_STEPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t))
+            norms.append(float(m["grad_norm"]))
+        out[schedule] = {
+            "losses": losses, "grad_norms": norms, "warmup_ms": ms[0],
+            "ms": ms[1:], "step_ms": statistics.median(ms[1:]),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": counts(), "held": step.held, "stage": mesh.coords[
+                "stage"],
+            "rank_params_m": sum(t.numel() for t in leaves(state.params))
+            / 1e6}
+        del state, batch, m
+        torch.cuda.empty_cache()
+    return out
+
+
+def pipeline_b(ranks: list) -> dict:
+    """(b): each schedule's first step against one process's step on the
+    card (loss and grad_norm within PARALLEL_TOL), launches exact in each
+    rank, the losses finite; -> both ranks' launches summed over the
+    schedules."""
+    from vitx_torch.train.step import (create_train_state, make_optimizer,
+                                       train_step)
+
+    cfg = parallel_cfg("dp2")
+    opt = make_optimizer(lr=PARALLEL_LR, fused=True)
+    state = create_train_state(0, cfg, opt)
+    t = time.perf_counter()
+    _, m = train_step(state, parallel_batch(PARALLEL_B, 11, "cuda"),
+                      cfg=cfg, optimizer=opt)
+    ref = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
+    one_ms = 1e3 * (time.perf_counter() - t)
+    del state
+    torch.cuda.empty_cache()
+    launches = {}
+    for schedule in PIPELINE_SCHEDULES:
+        mine = [r[schedule] for r in ranks]
+        errs = {k: abs(mine[0][key][0] - ref[k]) / abs(ref[k])
+                for k, key in (("loss", "losses"),
+                               ("grad_norm", "grad_norms"))}
+        for r, got in enumerate(mine):
+            expect_launches(f"pipeline (b) {schedule} rank {r}",
+                            got["launches"], pipeline_expected(
+                                cfg, schedule, got["stage"],
+                                1 + PIPELINE_STEPS))
+        emit({"phase": "pipeline", "part": f"b: {schedule} base16 full "
+              f"width bf16 at b{PARALLEL_B} global, {PIPELINE_MICRO} "
+              "microbatches, 1 data x 2 stage ranks sharing the card",
+              "card": smi(), "backend": ranks[0]["backend"],
+              "losses": mine[0]["losses"],
+              "grad_norms": mine[0]["grad_norms"], "one_process": ref,
+              "one_process_first_step_ms": one_ms, "rel_err": errs,
+              "tol": PARALLEL_TOL,
+              "step_ms_per_rank": [g["step_ms"] for g in mine],
+              "step_ms_runs_per_rank": [g["ms"] for g in mine],
+              "warmup_ms_per_rank": [g["warmup_ms"] for g in mine],
+              "peak_memory_gb_per_rank": [g["peak_memory_gb"]
+                                          for g in mine],
+              "held_per_rank": [g["held"] for g in mine],
+              "rank_params_m": [g["rank_params_m"] for g in mine],
+              "launches_per_step_per_rank": [
+                  {k: v // (1 + PIPELINE_STEPS) for k, v in
+                   g["launches"].items() if v} for g in mine]})
+        if max(errs.values()) > PARALLEL_TOL:
+            raise AssertionError(f"pipeline (b) {schedule}: {errs}")
+        for got in mine:
+            if not np.isfinite(got["losses"]).all():
+                raise AssertionError(f"pipeline (b) {schedule}: losses "
+                                     f"{got['losses']}")
+            launches = add_launches(launches, got["launches"])
+    return launches
+
+
+def check_pipeline_kernels(errs: dict) -> None:
+    """(c): the kernels at the slice's shapes against their plain versions
+    in bf16 (BF16_TOL), each twice bit for bit: K1 with and without its
+    stash, K2 with its stash at a (b) microbatch's (32, 197, 768); B2 at
+    (32, 12, 197, 64) and B3 at (32, 197, 768) (``check_backward_
+    kernels``); B5 at pp x tp's local heads, (32, 6, 197, 64) in bf16
+    and (a)'s (4, 6, 197, 64) in fp32 (FP32_TOL); B12 over stage 0's
+    update leaves of (b) (``pipeline_shards``: 6 of the 12 blocks and the
+    other leaves whole), fp32 and bf16 gradients."""
+    from vitx_torch.kernels import (flash_attention,
+                                    flash_attention_fwd_plain,
+                                    fused_mha_block, fused_mlp_block,
+                                    mha_block_plain, mlp_block_plain)
+
+    bf = torch.bfloat16
+    B, T, E, H = 32, 197, 768, 12
+    info = {"dtype": str(bf), "shape": [B, T, E], "heads": H}
+    x, mha, mlpw = block_inputs(B, T, E, H, 4 * E, bf, 120, "cuda")
+    for kern, plain, w, key, extra, stash in (
+            (fused_mha_block, mha_block_plain, mha, "fused_mha_block", {},
+             True),
+            (fused_mha_block, mha_block_plain, mha, "fused_mha_block", {},
+             False),
+            (fused_mlp_block, mlp_block_plain, mlpw, "fused_mlp_block",
+             {"act": "gelu_tanh"}, True)):
+        n90 = kern.launches_sm90
+        out = kern(x, **w, **extra, stash=stash)
+        torch.cuda.synchronize()
+        name = key + ("_sm90" if kern.launches_sm90 > n90 else "")
+        what = f"{name} {'with' if stash else 'without'} its stash"
+        check("pipeline", what, out, plain(x, **w, **extra, stash=stash),
+              BF16_TOL, errs, name, **info)
+        bitwise("pipeline", f"{what}, twice",
+                kern(x, **w, **extra, stash=stash), out, **info)
+    del x, mha, mlpw, out
+    check_backward_kernels(B, T, E, H, bf, BF16_TOL, errs, "pipeline")
+    for shape, dtype, tol in (((32, 6, 197, 64), bf, BF16_TOL),
+                              ((4, 6, 197, 64), torch.float32, FP32_TOL)):
+        q, k, v = (seeded(shape, s, 1.5, dtype=dtype) for s in (121, 122,
+                                                                 123))
+        n90 = flash_attention.launches_sm90
+        o = flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        name = ("flash_attention_sm90" if flash_attention.launches_sm90
+                > n90 else "flash_attention")
+        info = {"dtype": str(dtype), "shape": list(shape)}
+        check("pipeline", f"{name}, pp x tp's local heads", o,
+              flash_attention_fwd_plain(q, k, v), tol,
+              errs if dtype == bf else None, name, **info)
+        bitwise("pipeline", f"{name}, twice", flash_attention(q, k, v), o,
+                **info)
+    del q, k, v, o
+    ps, shapes = pipeline_shards(parallel_cfg("dp2"))
+    kw = dict(lr=1e-4, c1=0.1, c2=0.001, b1=0.9, b2=0.999, eps=1e-8,
+              wd=1e-4)
+    for gdt in (torch.float32, torch.bfloat16):
+        gs = [seeded(s, 400 + i, 1e-3, dtype=gdt)
+              for i, s in enumerate(shapes)]
+        mus = [seeded(s, 500 + i, 1e-4) for i, s in enumerate(shapes)]
+        nus = [seeded(s, 600 + i, 1e-6).abs() for i, s in enumerate(shapes)]
+        hold_adamw_multi("pipeline", "stage 0's leaves of base16 at pp 2",
+                         [p.clone() for p in ps], gs, mus, nus, kw, errs,
+                         grad_dtype=str(gdt))
+    del ps, gs, mus, nus
+    torch.cuda.empty_cache()
+
+
+def pipeline_kernel_shapes(launches: dict, errs: dict) -> dict:
+    """(c)'s shapes as more ``shapes`` of the rows, bf16: K1's sm90 row
+    with and without its stash and K2's with its stash at (32, 197,
+    768); B2's sm90 row at (32, 12, 197, 64); B3's one-pass row at (32,
+    197, 768); B5's sm90 row at pp x tp's (32, 6, 197, 64); B12 over
+    stage 0's update leaves of (b) (torch.optim.AdamW(fused=True) on the
+    same leaves the library call)."""
+    import torch.nn.functional as F
+
+    from vitx_torch.kernels import (flash_attention,
+                                    flash_attention_fwd_plain,
+                                    fused_mha_block, fused_mlp_block,
+                                    mha_block_plain, mlp_block_plain)
+
+    bf = torch.bfloat16
+    eps = 1e-5
+    B, T, E, H = 32, 197, 768, 12
+    M = 4 * E
+    of = "a pipeline microbatch of base16 b128 in 4"
+    x, mha, mlpw = block_inputs(B, T, E, H, M, bf, 124, "cuda")
+    rows = []
+    for stash in (True, False):
+        rows.append(kernel_row(
+            "fused_mha_block_sm90",
+            lambda s=stash: fused_mha_block(x, **mha, eps=eps, stash=s),
+            lambda s=stash: mha_block_plain(x, **mha, eps=eps, stash=s),
+            sdpa_mha(x, mha, H, eps),
+            2 * B * T * E * 4 * E + 4 * B * H * T * T * (E // H),
+            PEAK_BF16_FLOPS, 6 * B * T * E * 2 + 4 * E * E * 2 + 3 * E * 4
+            + (2 * B * H * T * 4 if stash else 0), launches, errs,
+            shape=[B, T, E], heads=H, stash=stash, of=of))
+
+    w1t, w2t = (mlpw[k].t().contiguous() for k in ("w1", "w2"))
+
+    def mlp_lib():
+        h = F.layer_norm(x, (E,), mlpw["g"].to(bf), mlpw["b"].to(bf), eps)
+        h = F.gelu(F.linear(h, w1t, mlpw["b1"].to(bf)), approximate="tanh")
+        return F.linear(h, w2t, mlpw["b2"].to(bf))
+    rows.append(kernel_row(
+        "fused_mlp_block_sm90",
+        lambda: fused_mlp_block(x, **mlpw, act="gelu_tanh", eps=eps,
+                                stash=True),
+        lambda: mlp_block_plain(x, **mlpw, act="gelu_tanh", eps=eps,
+                                stash=True),
+        mlp_lib, 4 * B * T * E * M, PEAK_BF16_FLOPS,
+        2 * B * T * E * 2 + 2 * E * M * 2 + B * T * M * 2 + (M + 3 * E) * 4,
+        launches, errs, shape=[B, T, E], M=M, stash=True, of=of))
+    del x, mha, mlpw, w1t, w2t
+    rows += attention_bwd_rows((B, H, T, E // H), 125, launches, errs,
+                               only="attention_bwd_sm90")
+    rows += ln_bwd_rows((B, T, E), 126, eps, launches, errs,
+                        only="ln_bwd_onepass")
+    shape = (B, H // 2, T, E // H)
+    q, k, v = (seeded(shape, s, 1.5, dtype=bf) for s in (127, 128, 129))
+    Bq, Hq, Tq, Dq = shape
+    rows.append(kernel_row(
+        "flash_attention_sm90", lambda: flash_attention(q, k, v),
+        lambda: flash_attention_fwd_plain(q, k, v),
+        lambda: F.scaled_dot_product_attention(q, k, v),
+        4 * Bq * Hq * Tq * Tq * Dq, PEAK_BF16_FLOPS,
+        4 * Bq * Hq * Tq * Dq * 2, launches, errs, shape=list(shape),
+        of="a pp x tp rank's local heads"))
+    del q, k, v
+    rows.append(adamw_row(pipeline_shards(parallel_cfg("dp2")), launches,
+                          errs, "stage 0's leaves of base16 at pp 2"))
+    torch.cuda.empty_cache()
+    extra: dict = {}
+    for row in rows:
+        extra.setdefault(row["name"], []).append(shape_entry(row))
+    return extra
+
+
+def pipeline_serve() -> dict:
+    """(d): ``python -m vitx_torch.cli.serve --preset base16 --dp 2`` on
+    the card (two ranks share it: gloo) answers a few requests over HTTP
+    with the top-1 of a direct forward of the same images in one
+    process; SIGINT stops the server and its rank."""
+    import io
+    import signal
+    import urllib.request
+
+    from vitx_torch.nn.vit import forward, init_params
+
+    import vitx_torch
+
+    cfg = vitx_torch.get_config("base16")
+    env_path = str(Path(__file__).resolve().parent)
+    imgs = np.random.default_rng(31).standard_normal(
+        (6, cfg.image_size, cfg.image_size, 3)).astype(np.float32)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "vitx_torch.cli.serve", "--preset", "base16",
+         "--dp", "2", "--port", "0", "--batch-size",
+         str(PIPELINE_SERVE_B)], cwd=env_path, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        port, banner = None, ""
+        for line in proc.stdout:
+            if line.startswith("serving"):
+                banner = line.strip()
+                port = int(line.split(":")[2].split()[0])
+                break
+        if port is None:
+            raise AssertionError(f"pipeline (d): no server\n"
+                                 f"{proc.stderr.read()[-4000:]}")
+        t_up = time.perf_counter() - t0
+        answers = []
+        for im in imgs:
+            buf = io.BytesIO()
+            np.save(buf, im)
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{port}/predict", data=buf.getvalue(),
+                method="POST")
+            with urllib.request.urlopen(req, timeout=120) as r:
+                answers.append(json.loads(r.read()))
+        proc.send_signal(signal.SIGINT)
+        _, err = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    params = init_params(0, cfg)
+    direct = forward(params, torch.from_numpy(imgs).to(cfg.cdtype()),
+                     cfg).argmax(dim=-1).tolist()
+    got = [a["classes"][0] for a in answers]
+    emit({"phase": "pipeline", "part": "d: python -m vitx_torch.cli.serve "
+          f"--preset base16 --dp 2 (batch {PIPELINE_SERVE_B})",
+          "banner": banner, "rc": proc.returncode, "top1": got,
+          "direct_top1": direct, "startup_s": t_up})
+    if proc.returncode != 0 or got != direct:
+        raise AssertionError(f"pipeline (d): rc {proc.returncode}, top-1 "
+                             f"{got} vs {direct}\n{err[-4000:]}")
+    return {"startup_s": t_up}
+
+
+def phase_pipeline(errs: dict) -> tuple:
+    """Main path 15 (module docstring): pipeline parallelism, GPipe and
+    1F1B, and serving over a data mesh. Returns (both (b) ranks'
+    launches, (c)'s shape entries for the kernels line)."""
+    from vitx_torch.parallel import spawn
+
+    t0 = time.perf_counter()
+    p2p = pipeline_p2p()
+    t_probe = time.perf_counter()
+    emit({"phase": "pipeline", "p2p_on_cuda_tensors": p2p,
+          "handoff_rule": "every backend: broadcast over the link's "
+          "two-rank group (comm.send_stage)"})
+    ranks_a = spawn(pipeline_rank_a, 4, device="cuda")
+    pipeline_a(ranks_a)
+    del ranks_a
+    t_a = time.perf_counter()
+    ranks_b = spawn(pipeline_rank_b, 2, device="cuda")
+    launches = pipeline_b(ranks_b)
+    del ranks_b
+    t_b = time.perf_counter()
+    check_pipeline_kernels(errs)
+    extra = pipeline_kernel_shapes({}, errs)
+    t_c = time.perf_counter()
+    pipeline_serve()
+    emit({"phase": "pipeline", "part": "seconds", "probe": t_probe - t0,
+          "a": t_a - t_probe, "b": t_b - t_a, "c": t_c - t_b,
+          "d": time.perf_counter() - t_c})
     return launches, extra
 
 
@@ -8089,6 +8650,10 @@ def main(argv=None) -> int:
     if "parallel" in phases:
         parallel_launches, parallel_extra = phase_parallel(errs)
     lap("parallel")
+    pipeline_launches, pipeline_extra = {}, {}
+    if "pipeline" in phases:
+        pipeline_launches, pipeline_extra = phase_pipeline(errs)
+    lap("pipeline")
     export_launches, huge14_launches, huge14_inputs = {}, {}, None
     if "artifacts" in phases:
         export_launches = phase_artifacts(cfg, params)
@@ -8101,8 +8666,8 @@ def main(argv=None) -> int:
                             *recipe_launches.values(), transfer_launches,
                             pretrained_launches, families_launches,
                             optim_launches, pretrain_launches,
-                            parallel_launches, export_launches,
-                            huge14_launches)
+                            parallel_launches, pipeline_launches,
+                            export_launches, huge14_launches)
     if "times" in phases:
         rows = phase_times(cfg, params, errs, launches)
         if tome_launches:
@@ -8141,6 +8706,8 @@ def main(argv=None) -> int:
             extras.append(pretrain_extra)
         if parallel_extra:
             extras.append(parallel_extra)
+        if pipeline_extra:
+            extras.append(pipeline_extra)
         del huge14_inputs
         for extra in extras:
             for row in rows:
@@ -8163,6 +8730,7 @@ def main(argv=None) -> int:
                 "optim": optim_launches.get(row["name"], 0),
                 "pretrain": pretrain_launches.get(row["name"], 0),
                 "parallel": parallel_launches.get(row["name"], 0),
+                "pipeline": pipeline_launches.get(row["name"], 0),
                 "export": export_launches.get(row["name"], 0),
                 "huge14": huge14_launches.get(row["name"], 0)}
             if row["name"] in stash:

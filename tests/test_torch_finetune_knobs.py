@@ -452,8 +452,9 @@ def test_still_unported_refuse(call, item):
     under LLRD; SAM and the multi-label loss under a freeze policy, the
     frozen leaves unchanged; SAM through the Trainer and the train CLI.
     ``--tp`` is ported (A13.1): it asks for a mesh of one data rank, and
-    pipeline parallelism beside it is refused, naming A13.2;
-    ``--layerscale`` is ported."""
+    pipeline parallelism beside it (A13.2, ported since) builds a
+    (data, stage, model) mesh of four ranks; ``--layerscale`` is
+    ported."""
     from vitx_torch.cli import train as ttrain
     from vitx_torch.train import loop as tloop
 
@@ -507,8 +508,9 @@ def test_still_unported_refuse(call, item):
         args = p.parse_args(["--tp", "2", "--device", "cpu"])
         ttrain.check_parallel(args)
         assert ttrain.parallel(args) and ttrain.mesh_dp(args) == 1
-        with pytest.raises(SystemExit, match=item):
-            ttrain.main(["--tp", "2", "--pp", "2", "--device", "cpu"])
+        args = p.parse_args(["--tp", "2", "--pp", "2", "--device", "cpu"])
+        ttrain.check_parallel(args)
+        assert ttrain.world_size(args) == 4 and ttrain.mesh_dp(args) == 1
 
 
 def test_cli_fine_tune_conflicts(tmp_path):

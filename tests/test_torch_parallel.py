@@ -261,8 +261,9 @@ def test_sharded_trainer_resume(tmp_path):
 
 def test_train_cli_dp_zero3_and_dryrun(tmp_path, capsys, monkeypatch):
     """``cli.train --dp 2 --zero 3`` spawns its ranks, trains an epoch and
-    writes a ``.ckpt`` that ``cli.eval`` reads; the dryrun's four paths
-    run on four CPU ranks and print vitx's summary line."""
+    writes a ``.ckpt`` that ``cli.eval`` reads; the dryrun's paths run on
+    four CPU ranks and print vitx's summary line, its pipeline part
+    included (pp x tp, which takes 8 ranks, ``nan`` as vitx prints it)."""
     from vitx_torch.cli import eval as teval
     from vitx_torch.cli import train as ttrain
     from vitx_torch.parallel import dryrun
@@ -279,19 +280,27 @@ def test_train_cli_dp_zero3_and_dryrun(tmp_path, capsys, monkeypatch):
     assert re.match(r"dryrun_multichip ok: mesh=\(2 data x 2 model\), "
                     r"loss=\d", line), line
     assert "moe 1 data x 2 model x 2 expert" in line
-    assert "nan" not in line
+    assert re.search(r"pp_loss=\d\.\d{4} \(pipeline 2 data x 2 stage; "
+                     r"1f1b_loss=\d\.\d{4}; pp_x_tp_1f1b_loss=nan at 2 "
+                     r"data x 2 stage x 2 model\)", line), line
+    assert "nan" not in line.replace("pp_x_tp_1f1b_loss=nan", "")
 
 
 @pytest.mark.parametrize("argv,match", [
     (["--sp", "--dp", "1"], "--sp requires --tp > 1"),
     (["--ep", "2"], "--ep > 1 requires --moe-experts"),
     (["--dp", "3", "--batch-size", "8"], "divisible by --dp 3"),
-    (["--pp", "2"], "A13.2"),
-    (["--pp-schedule", "1f1b"], "A13.2"),
+    pytest.param(["--pp", "2", "--ep", "2", "--moe-experts", "2"],
+                 "--ep does not compose with --pp", id="argv3-A13.2"),
+    pytest.param(["--pp-schedule", "1f1b", "--pp", "2", "--batch-size",
+                  "12", "--pp-microbatches", "8"],
+                 "--batch-size 12 must be divisible by --dp 1 x "
+                 "--pp-microbatches 8", id="argv4-A13.2"),
 ])
 def test_cli_refusals(argv, match):
-    """vitx's checks of the parallel flags, with its messages; pipeline
-    parallelism's flags name A13.2."""
+    """vitx's checks of the parallel flags, with its messages; the
+    pipeline's (ported since the case ids were named): ``--ep`` beside
+    ``--pp``, a batch that the data ranks' microbatches do not divide."""
     from vitx_torch.cli import train as ttrain
 
     with pytest.raises(SystemExit, match=re.escape(match)):
@@ -300,8 +309,9 @@ def test_cli_refusals(argv, match):
 
 def test_trainer_and_step_refusals():
     """vitx's refusals: steps_per_dispatch > 1 on a mesh (its message),
-    the pipeline fields (A13.2), sp without tp, ep without a MoE config
-    or an expert axis, a tp flag that disagrees with the mesh."""
+    ZeRO-3 on a pipeline mesh (its message: the pipeline fields, once
+    refused, are ported), sp without tp, ep without a MoE config or an
+    expert axis, a tp flag that disagrees with the mesh."""
     from vitx_torch.train import loop as tloop
 
     cfg = vitx_torch.get_config("tiny", **KW)
@@ -310,9 +320,10 @@ def test_trainer_and_step_refusals():
         tloop.Trainer(cfg, tloop.TrainerConfig(steps_per_dispatch=2),
                       mesh=mesh)
     assert "steps_per_dispatch > 1 is a single-device" in str(got.value)
-    with pytest.raises(NotImplementedError, match="A13.2"):
+    pp_mesh = Mesh({"data": 1, "stage": 2}, 0, "cpu", "gloo")
+    with pytest.raises(ValueError, match="composes with dp, tp and zero1"):
         tloop.Trainer(cfg, tloop.TrainerConfig(pp_microbatches=2),
-                      device="cpu")
+                      mesh=pp_mesh, zero3=True)
     for fn, want in [
             (lambda: sharded.sp_cfg(cfg, False, True),
              lambda: jsh.sp_cfg(vitx.get_config("tiny"), False, True)),

@@ -4,7 +4,8 @@ vitx/cli/probe.py), at tiny size, depth 2, fp32: the features for both
 pools (and ``bug_exact``'s patch-first layout) within 1e-4, the ridge
 probe and the k-NN giving vitx's predictions on the same features, and
 the probe CLI end to end on a ``.quant.npz`` beside vitx's on the same
-file, with ``.pt2`` and ``--dp`` refused."""
+file, with ``.pt2`` refused and ``--dp 2`` (two gloo ranks) giving one
+process's features."""
 
 import json
 
@@ -67,8 +68,8 @@ def test_ridge_and_knn_match_vitx():
 def test_probe_cli_on_quantized_artifact(tmp_path, capsys, monkeypatch):
     """Both probe CLIs on one vitx ``.quant.npz`` over a small procedural
     split (10 classes): the same report up to the accuracies (within one
-    example), the exported features within 1e-4; a ``.pt2`` and ``--dp``
-    are refused."""
+    example), the exported features within 1e-4; a ``.pt2`` is refused;
+    ``--dp 2`` extracts the same features over two data ranks (1e-4)."""
     from vitx.quant import save_quantized
 
     monkeypatch.setenv("VITX_PROC_CACHE", str(tmp_path / "proc"))
@@ -97,5 +98,10 @@ def test_probe_cli_on_quantized_artifact(tmp_path, capsys, monkeypatch):
     with pytest.raises(ValueError, match="no parameters"):
         tprobe.main(["--checkpoint", str(tmp_path / "m.pt2"),
                      "--device", "cpu"])
-    with pytest.raises(SystemExit, match="A13"):
-        tprobe.main(argv + ["--device", "cpu", "--dp", "2"])
+    assert tprobe.main(argv + ["--device", "cpu", "--dp", "2", "--features",
+                               str(tmp_path / "d.npz")]) == 0
+    with np.load(tmp_path / "t.npz") as t, np.load(tmp_path / "d.npz") as d:
+        for k in ("train_features", "val_features"):
+            np.testing.assert_allclose(d[k], t[k], rtol=0, atol=TOL)
+        for k in ("train_labels", "val_labels"):
+            np.testing.assert_array_equal(d[k], t[k])

@@ -70,14 +70,17 @@ def test_tune_bad_candidate_is_a_row(capsys):
 
 
 def test_tune_unported_config_is_a_row(capsys):
-    """A config the port still refuses (an expert-parallel Soft-MoE model,
-    whose mesh waits for ROADMAP A13) is a row for each batch."""
+    """An expert-parallel Soft-MoE config is a row for each batch with
+    vitx's reason: it constrains its tensors to a mesh, and the sweep
+    times one device with no mesh (vitx's row is the RuntimeError of
+    ``with_sharding_constraint``)."""
     cfg = vitx_torch.get_config("tiny", compute_dtype="float32",
                                 moe_experts=2, ep=True)
     rows = ttune.run_sweep(cfg, "infer", [2, 4], 1, 1, device="cpu")
     assert [r["error"].split(":")[0] for r in rows] \
-        == ["NotImplementedError"] * 2
-    assert "A13" in rows[0]["error"]
+        == ["RuntimeError"] * 2
+    assert "with no mesh" in rows[0]["error"]
+    assert "A13" not in rows[0]["error"]
 
 
 def test_tune_timing_error_propagates(monkeypatch):

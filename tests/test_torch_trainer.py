@@ -305,14 +305,23 @@ def test_eval_cli_refuses_unported(argv, item, capsys):
     ("steps_per_dispatch", 4, "A12"), ("profile_epoch", 0, "A12"),
     ("pp_schedule", "1f1b", "A13"), ("mu_dtype", "bfloat16", "A12")])
 def test_trainer_refuses_unported(field, value, item):
-    """Pipeline parallelism (A13) is refused; the fields A12 brought are
-    taken (``tests/test_torch_remat_dispatch.py`` holds what they do): the
-    dispatch width, the profiled epoch, and the bf16 first moment in the
-    optimizer's state."""
+    """The fields once refused are taken: the pipeline's schedule (A13,
+    ported since; it acts on a stage mesh, where the Trainer builds the
+    pipeline step with it, ``tests/test_torch_pipeline.py``), and the
+    fields A12 brought (``tests/test_torch_remat_dispatch.py`` holds what
+    they do): the dispatch width, the profiled epoch, and the bf16 first
+    moment in the optimizer's state."""
     tcfg = tloop.TrainerConfig(**{field: value})
     if item == "A13":
-        with pytest.raises(NotImplementedError, match=item):
-            tloop.Trainer(TCFG, tcfg, device="cpu")
+        from vitx_torch.parallel import Mesh
+        from vitx_torch.parallel.pipeline import PPTrainStep
+
+        assert tloop.Trainer(TCFG, tcfg, device="cpu").tcfg.pp_schedule \
+            == value
+        tr = tloop.Trainer(TCFG, tcfg, mesh=Mesh(
+            {"data": 1, "stage": 2}, 0, "cpu", "gloo"))
+        assert isinstance(tr.train_step, PPTrainStep)
+        assert tr.train_step.schedule == value
         return
     tr = tloop.Trainer(TCFG, tcfg, device="cpu")
     assert getattr(tr.tcfg, field) == value

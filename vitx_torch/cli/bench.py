@@ -2,17 +2,18 @@
 
 The counterpart of ``vitx/cli/bench.py``: vitx's benchmark configurations
 (``BENCHES``), each printing one JSON line with vitx's ``config`` string
-and keys, on one card:
+and keys, on one card (4 and 9: data parallel over every card, one rank
+process each):
 
   1 ViT-Tiny 64x64 4-class, batch 8 (forward + train step)
   2 ViT-Small/16 @224 with the augmentation pipeline, batch 32 (train)
   3 ViT-Base/16 @224 batched inference, batch 256
-  4 ViT-Base/16 @224 train step, batch 128 (one device: dp1)
+  4 ViT-Base/16 @224 train step, batch 128 a card (dp over every card)
   5 ViT-Large/16 @384 inference with attention rollout, batch 8
   6 ViT-Base/16 @224 batch-256 inference with ToMe (r=13, (35, 34))
   7 ViT-Base/16 @224 serving latency at batch 1/4/8
   8 ViT-Large/16 @384 batch-32 inference with ToMe (r=23, to 128)
-  9 ViT-Base/16 @224 batch-128 train with patch dropout (dp1)
+  9 ViT-Base/16 @224 batch-128-a-card train with patch dropout (dp)
  10 Soft-MoE ViT-B (8 experts over the last 6 blocks): inference batch
     256, train step batch 128
  11 the end-to-end input pipeline from disk
@@ -120,6 +121,50 @@ def train_timing(cfg, batch_size, iters, reps, dev, stochastic=False,
     return timed(lambda: step(state, batch, gen), iters, reps, dev)
 
 
+def dp_train_timing(cfg, per_device: int, iters, reps, device, devices: int,
+                    stochastic=False) -> list:
+    """``train_timing`` of a data-parallel step over ``devices`` rank
+    processes (``vitx_torch.parallel.spawn``: nccl with a card each, gloo
+    ranks on the CPU), ``per_device`` rows each -> rank 0's runs."""
+    from vitx_torch.parallel import spawn
+
+    return spawn(_dp_train_rank, devices, (cfg.to_json(), per_device,
+                                           iters, reps, stochastic),
+                 device=str(device))[0]
+
+
+def _dp_train_rank(ctx, cfg_json: str, per_device: int, iters, reps,
+                   stochastic) -> list:
+    from vitx_torch.core.config import ViTConfig
+    from vitx_torch.parallel import make_mesh, sharded
+    from vitx_torch.train.step import create_train_state, make_optimizer
+
+    cfg = ViTConfig.from_json(cfg_json)
+    mesh = make_mesh(ctx.world, device=ctx.device)
+    dev = mesh.device
+    opt = make_optimizer(lr=1e-4)
+    whole = create_train_state(0, cfg, opt, device=dev)
+    specs = sharded.state_sharding(whole, cfg, mesh)
+    state = sharded.place_state(whole, cfg, mesh, specs=specs)
+    del whole
+    step = sharded.make_parallel_train_step(cfg, opt, mesh,
+                                            state_shardings=specs)
+    batch = {"image": _images(per_device, cfg.image_size, dev, 1 + ctx.rank,
+                              cfg.cdtype()),
+             "label": torch.zeros((per_device,), dtype=torch.int32,
+                                  device=dev)}
+    gen = torch.Generator(device=dev).manual_seed(7) if stochastic else None
+    # the step updates the rank's state in place
+    return timed(lambda: step(state, batch, gen), iters, reps, dev)
+
+
+def _dp_devices(dev, devices) -> int:
+    """The data ranks of benches 4 and 9: every card (one on the CPU)."""
+    if devices is not None:
+        return devices
+    return torch.cuda.device_count() if dev.type == "cuda" else 1
+
+
 def forward_timing(cfg, batch_size, iters, reps, dev, seed=1):
     """ms a forward (``vitx_torch.forward``) at ``batch_size``, fresh
     params (seed 0) and the images on the card."""
@@ -204,16 +249,26 @@ def bench_3(device="cuda", iters=None, reps=3):
     return out
 
 
-def bench_4(device="cuda", iters=None, reps=3):
-    """ViT-B/16 train step at 128 a device on one device (vitx's dp1)."""
+def bench_4(device="cuda", iters=None, reps=3, devices=None,
+            per_device_batch=128, cfg=None):
+    """ViT-B/16 train step at 128 a device, data parallel over every card
+    (``vitx/cli/bench.py:195-224``): B = 128 n, config ``...-dp{n}``; one
+    process at n = 1, n rank processes past it (``devices`` and
+    ``per_device_batch``, and ``cfg`` in base16's place, cut the run to a
+    test's size)."""
     from vitx_torch.core.config import get_config
 
     dev = resolve_device(device)
-    out = {"config": "4:vit-b16-train-dp1", "device": device_name(dev)}
-    dt = _put(out, "step_ms", train_timing(get_config("base16"), 128,
-                                            _n(iters, 10), reps, dev))
-    _rate(out, "images_per_sec", 128, dt)
-    out.update(devices=1, per_device_batch=128)
+    n = _dp_devices(dev, devices)
+    cfg = cfg or get_config("base16")
+    B = per_device_batch * n
+    out = {"config": f"4:vit-b16-train-dp{n}", "device": device_name(dev)}
+    runs = (train_timing(cfg, B, _n(iters, 10), reps, dev) if n == 1 else
+            dp_train_timing(cfg, per_device_batch, _n(iters, 10), reps, dev,
+                            n))
+    dt = _put(out, "step_ms", runs)
+    _rate(out, "images_per_sec", B, dt)
+    out.update(devices=n, per_device_batch=per_device_batch)
     return out
 
 
@@ -290,19 +345,27 @@ def bench_8(device="cuda", iters=None, reps=3):
     return out
 
 
-def bench_9(device="cuda", iters=None, reps=3):
-    """ViT-B/16 b128 train with patch dropout at p=0.25 and 0.5 (T 148 and
-    99), a fresh subset every step, on one device (vitx's dp1)."""
+def bench_9(device="cuda", iters=None, reps=3, devices=None,
+            per_device_batch=128, cfg=None):
+    """ViT-B/16 train at 128 a device with patch dropout at p=0.25 and 0.5
+    (T 148 and 99), a fresh subset every step, data parallel over every
+    card as bench 4 (``vitx/cli/bench.py:338-368``)."""
     from vitx_torch.core.config import get_config
 
     dev = resolve_device(device)
-    out = {"config": "9:vit-b16-train-128-patchdrop-dp1",
+    n = _dp_devices(dev, devices)
+    base = cfg or get_config("base16")
+    B = per_device_batch * n
+    out = {"config": f"9:vit-b16-train-128-patchdrop-dp{n}",
            "device": device_name(dev)}
     for tag, pdrop in (("p25", 0.25), ("p50", 0.5)):
-        dt = _put(out, f"{tag}_step_ms", train_timing(
-            get_config("base16", patch_drop=pdrop), 128, _n(iters, 10), reps,
-            dev, stochastic=True))
-        _rate(out, f"{tag}_images_per_sec", 128, dt)
+        c = base.replace(patch_drop=pdrop)
+        runs = (train_timing(c, B, _n(iters, 10), reps, dev,
+                             stochastic=True) if n == 1 else
+                dp_train_timing(c, per_device_batch, _n(iters, 10), reps,
+                                dev, n, stochastic=True))
+        dt = _put(out, f"{tag}_step_ms", runs)
+        _rate(out, f"{tag}_images_per_sec", B, dt)
     return out
 
 

@@ -17,7 +17,9 @@ CLI evaluates works here, by the same rules
 ``.ckpt`` files and directories (the EMA shadow where there is one), int8
 ``.quant.npz`` artifacts, bare params ``.npz`` and reference ``.pt``. A
 ``.pt2`` program is refused (it holds only the logits program, as vitx
-refuses ``.stablehlo``), and so is ``--dp`` (ROADMAP A13.2).
+refuses ``.stablehlo``). ``--dp N`` extracts the features over a data
+mesh of N rank processes: each loads and runs its rows of every batch,
+the features are gathered, and rank 0 fits the probes and prints.
 
     python -m vitx_torch.cli.probe --checkpoint ckpt/run --data folder:data \\
         --pool cls --knn 20 --features /tmp/feats.npz
@@ -36,15 +38,27 @@ from vitx_torch.core.config import PRESETS, ViTConfig
 from vitx_torch.core.device import resolve_device
 from vitx_torch.data import BatchLoader, make_preprocess
 from vitx_torch.nn.vit import forward_features
+from vitx_torch.parallel import comm
+from vitx_torch.parallel.mesh import DATA_AXIS
 
 
 def extract_features(params, dataset, cfg: ViTConfig, *, pool: str = "cls",
                      batch_size: int = 64, normalize: bool = True,
-                     pre=None, device="cuda"):
+                     pre=None, device="cuda", mesh=None):
     """Dataset -> (features (N, E) fp32, labels (N,)); the padded rows of
     a ragged last batch never reach the output. ``pre``: a
     ``make_preprocess`` callable to reuse across calls (built per call
-    otherwise)."""
+    otherwise). ``mesh``: a rank of a data mesh (``vitx_torch.parallel.
+    make_mesh``): it loads and runs its rows of each batch (batch_size
+    must divide over the data axis), and every rank gets the whole
+    batch's features."""
+    rows = None
+    if mesh is not None:
+        if batch_size % mesh.dp:
+            raise ValueError(f"batch_size {batch_size} not divisible by "
+                             f"the mesh's data axis ({mesh.dp})")
+        rows = (mesh.index(DATA_AXIS), mesh.dp)
+        device = mesh.device
     dev = resolve_device(device)
     if pre is None:
         pre = make_preprocess(
@@ -53,13 +67,17 @@ def extract_features(params, dataset, cfg: ViTConfig, *, pool: str = "cls",
             std=(0.5, 0.5, 0.5) if normalize else None,
             random_flip=False)
     feats, labels = [], []
-    for batch in BatchLoader(dataset, batch_size):
+    for batch in BatchLoader(dataset, batch_size, rows=rows):
         x = pre(torch.from_numpy(batch["image"]).to(dev), None, train=False)
-        f = forward_features(params, x, cfg, pool=pool,
-                             device=dev).cpu().numpy()
-        keep = np.asarray(batch["mask"]).astype(bool)
-        feats.append(f[keep])
-        labels.append(np.asarray(batch["label"])[keep])
+        f = forward_features(params, x, cfg, pool=pool, device=dev)
+        keep = torch.from_numpy(np.asarray(batch["mask"])).to(dev)
+        label = torch.from_numpy(np.asarray(batch["label"])).to(dev)
+        if mesh is not None:
+            f, keep, label = (comm.all_gather_cat(t, mesh, DATA_AXIS, 0)
+                              for t in (f, keep, label))
+        keep = keep.cpu().numpy().astype(bool)
+        feats.append(f.cpu().numpy()[keep])
+        labels.append(label.cpu().numpy()[keep])
     return np.concatenate(feats), np.concatenate(labels)
 
 
@@ -128,13 +146,28 @@ def main(argv=None):
                    help="also export raw features+labels for both splits")
     p.add_argument("--no-normalize", action="store_true")
     p.add_argument("--dp", type=int, default=None,
-                   help="a data-parallel mesh: not ported (ROADMAP A13.2)")
+                   help="extract features over a data-parallel mesh of "
+                        "this many ranks (batch-size must divide)")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
-    if args.dp is not None:
-        raise SystemExit("error: --dp is not ported to vitx_torch yet "
-                         "(ROADMAP A13.2)")
-    dev = resolve_device(args.device)
+    if args.dp:
+        from vitx_torch.parallel import spawn
+
+        return spawn(probe_rank, args.dp, (args,), device=args.device)[0]
+    return probe(args)
+
+
+def probe_rank(ctx, args) -> int:
+    """One rank of ``--dp``: its rows' features; rank 0 probes."""
+    from vitx_torch.parallel import make_mesh
+
+    return probe(args, make_mesh(args.dp, device=ctx.device))
+
+
+def probe(args, mesh=None) -> int:
+    """Extract both splits' features (over ``mesh``'s data ranks) and, on
+    rank 0, fit and report the probes."""
+    dev = resolve_device(args.device if mesh is None else mesh.device)
 
     from vitx_torch.cli.train import make_datasets
     from vitx_torch.train.checkpoint import (load_artifact_params,
@@ -157,9 +190,11 @@ def main(argv=None):
         std=None if args.no_normalize else (0.5, 0.5, 0.5),
         random_flip=False)
     kw = dict(pool=args.pool, batch_size=args.batch_size, pre=pre,
-              device=dev)
+              device=dev, mesh=mesh)
     train_x, train_y = extract_features(params, train_ds, cfg, **kw)
     val_x, val_y = extract_features(params, eval_ds, cfg, **kw)
+    if mesh is not None and mesh.rank:
+        return 0
 
     if args.features:
         np.savez(args.features,

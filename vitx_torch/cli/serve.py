@@ -20,8 +20,11 @@ counterpart of ``vitx/cli/serve.py``. Endpoints:
 --export-pt2`` (served through the program; ``/explain`` then answers
 400, and a ToMe program's pinned batch must be ``--batch-size``).
 ``--device`` selects the device (default ``cuda``; the server refuses to
-start without one unless ``--device cpu`` is given). ``--dp`` (serving
-over several cards) is refused, naming ROADMAP A13.2. ``--tome-r`` serves
+start without one unless ``--device cpu`` is given). ``--dp N`` serves
+over a data mesh of N ranks (``InferenceServer(mesh=...)``): this process
+is rank 0 and keeps the front end, N - 1 rank processes beside it run
+their rows of every batch, and they stop when the server does (SIGINT or
+SIGTERM here). ``--tome-r`` serves
 ``/predict`` from the ToMe encoder: ``13`` merges 13 token pairs in every
 block, ``35,34`` follows a per-block schedule, ``to128`` resolves to
 vitx's schedule reaching 128 tokens (``aligned_schedule``); ``/explain``
@@ -139,8 +142,8 @@ def main(argv=None):
     p.add_argument("--top-k", type=int, default=5)
     p.add_argument("--max-delay-ms", type=float, default=5.0)
     p.add_argument("--dp", type=int, default=None,
-                   help="serve over a data-parallel mesh: not ported "
-                        "(ROADMAP A13.2)")
+                   help="serve over a data-parallel mesh of this many "
+                        "ranks (batch-size must divide)")
     p.add_argument("--temperature", type=float, default=None,
                    help="temperature-scale the served probabilities")
     p.add_argument("--device", default="cuda",
@@ -151,18 +154,50 @@ def main(argv=None):
                         "'toN' (e.g. to128)")
     args = p.parse_args(argv)
     if args.dp is not None:
-        raise SystemExit("error: --dp is not ported to vitx_torch yet "
-                         "(ROADMAP A13.2)")
+        from vitx_torch.parallel import lead
+
+        return lead(serve_rank, args.dp, (args,), device=args.device)[0]
+    return serve(args)
+
+
+def serve_rank(ctx, args) -> int:
+    """One rank of ``--dp``: rank 0 serves (``serve``), the others run
+    ``serve_worker`` until it stops; they leave SIGINT to rank 0."""
+    import signal
+
+    from vitx_torch.parallel import make_mesh
+    from vitx_torch.serve import load_params, serve_worker
+
+    mesh = make_mesh(args.dp, device=ctx.device)
+    if ctx.rank == 0:
+        return serve(args, mesh)
+    signal.signal(signal.SIGINT, signal.SIG_IGN)
+    cfg = resolve_artifact_config(args.checkpoint, args.config_json,
+                                  args.preset, args.tome_r)
+    params, cfg = load_params(args.checkpoint, cfg, mesh.device)
+    serve_worker(params, cfg, mesh, args.batch_size)
+    return 0
+
+
+def serve(args, mesh=None) -> int:
+    """Load the server (rank 0 of ``mesh``) and answer HTTP until SIGINT
+    or SIGTERM."""
+    import signal
 
     cfg = resolve_artifact_config(args.checkpoint, args.config_json,
                                   args.preset, args.tome_r)
     server = load_server(args.checkpoint, cfg, batch_size=args.batch_size,
                          top_k=args.top_k, max_delay_ms=args.max_delay_ms,
-                         temperature=args.temperature, device=args.device)
+                         temperature=args.temperature, device=args.device,
+                         mesh=mesh)
+    if mesh is not None:
+        # SIGTERM stops the server as SIGINT does, and the ranks with it
+        signal.signal(signal.SIGTERM, signal.default_int_handler)
     httpd = ThreadingHTTPServer((args.host, args.port), make_handler(server))
+    dp = f", dp {mesh.dp}" if mesh is not None else ""
     print(f"serving {args.preset} on http://{args.host}:{httpd.server_port} "
           f"(batch {args.batch_size}, top-{server.top_k}, "
-          f"tome_r={cfg.tome_r}, {server.device})", flush=True)
+          f"tome_r={cfg.tome_r}, {server.device}{dp})", flush=True)
     try:
         httpd.serve_forever()
     except KeyboardInterrupt:

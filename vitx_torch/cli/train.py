@@ -25,13 +25,13 @@ So are the training knobs: ``--optimizer`` (adamw, sgd, lion, adafactor),
 ``--mu-dtype``, ``--sam-rho``, ``--loss bce`` (multi-label, with ``--data
 synthetic-ml``), ``--class-weights`` (a list or ``balanced``) and
 ``--steps-per-dispatch``. The parallelism flags are vitx's too: ``--dp``,
-``--tp``, ``--zero 0-3``, ``--ep`` and ``--sp`` (with vitx's checks and
+``--tp``, ``--zero 0-3``, ``--ep``, ``--sp`` and ``--pp`` with
+``--pp-microbatches`` and ``--pp-schedule`` (with vitx's checks and
 messages) start one rank process per mesh position
 (``vitx_torch.parallel.spawn``; under ``torchrun`` each process joins
 the group its environment describes), each loading its block of every
-batch; rank 0 logs, prints and writes the checkpoints. Pipeline
-parallelism's flags set away from their defaults exit non-zero, naming
-the ROADMAP item that brings them (``UNPORTED``).
+batch (every stage of a data row the same rows); rank 0 logs, prints and
+writes the checkpoints.
 
 ``CONVERGENCE.md``'s ViT-S/16 recipe (``examples/convergence.py``)::
 
@@ -61,11 +61,6 @@ from vitx_torch.data import (CIFAR10, BatchLoader, DeviceBatchLoader,
                              make_preprocess)
 from vitx_torch.nn.tome import aligned_schedule, parse_tome_r
 from vitx_torch.train.loop import NonFiniteLossError, Trainer, TrainerConfig
-
-# flags the port does not take yet -> the ROADMAP item that brings them;
-# each is refused when set away from its default
-UNPORTED = {"pp": "A13.2", "pp_microbatches": "A13.2",
-            "pp_schedule": "A13.2"}
 
 
 def build_argparser():
@@ -199,9 +194,17 @@ def build_argparser():
       help="sequence parallelism (Megatron SP): residual stream "
            "token-sharded over the model axis between blocks; requires "
            "--tp > 1")
-    a("--pp", type=int, default=1)
-    a("--pp-microbatches", type=int, default=4)
-    a("--pp-schedule", default="gpipe", choices=("gpipe", "1f1b"))
+    a("--pp", type=int, default=1,
+      help="pipeline-parallel stages (encoder blocks split across ranks, "
+           "microbatch pipelining; composes with --dp, --tp (Megatron "
+           "stage blocks over a (data, stage, model) mesh) and --zero 1)")
+    a("--pp-microbatches", type=int, default=4,
+      help="microbatches per data shard for --pp (per-shard batch must "
+           "be divisible by this)")
+    a("--pp-schedule", default="gpipe", choices=("gpipe", "1f1b"),
+      help="pipeline schedule: gpipe (activation memory grows with "
+           "microbatches) or 1f1b (O(stages) activation memory via "
+           "per-stage recompute)")
     a("--device", default="cuda",
       help="torch device to train on (default: cuda)")
     return p
@@ -264,57 +267,80 @@ def make_datasets(spec: str, cfg: ViTConfig, seed: int):
     raise SystemExit(f"error: unknown --data spec {spec!r}")
 
 
-def refuse_unported(args, parser) -> None:
-    """Exit naming the ROADMAP item of the first flag set away from its
-    default that the port does not take."""
-    for dest, item in UNPORTED.items():
-        if getattr(args, dest) != parser.get_default(dest):
-            flag = "--" + dest.replace("_", "-")
-            raise SystemExit(f"error: {flag} is not ported to vitx_torch "
-                             f"yet (ROADMAP {item})")
-
-
 def parallel(args) -> bool:
-    """Whether ``args`` ask for a mesh (vitx/cli/train.py:655)."""
-    return args.dp is not None or args.tp > 1 or args.ep > 1
+    """Whether ``args`` ask for a mesh (vitx/cli/train.py:653-657)."""
+    return (args.pp > 1 or args.dp is not None or args.tp > 1
+            or args.ep > 1)
 
 
 def check_parallel(args) -> None:
     """vitx's checks of the parallelism flags (``vitx/cli/train.py:
-    629-645``), and the batch's split over the data x expert ranks."""
+    629-652``), and the batch's split over the data x expert ranks (x
+    the microbatches under pp)."""
     if args.sp and args.tp <= 1:
         raise SystemExit("--sp requires --tp > 1 (sequence parallelism "
                          "shards the residual stream over the model axis)")
     if args.ep > 1 and not args.moe_experts:
         raise SystemExit("--ep > 1 requires --moe-experts (expert "
                          "parallelism shards MoE expert weights)")
-    if parallel(args):
-        if args.distill_from:
-            raise SystemExit("error: --distill-from builds a single-device "
-                             "step; it does not run with --dp/--tp/--ep")
-        n = mesh_dp(args) * args.ep
-        if args.batch_size % n:
-            raise SystemExit(f"--batch-size {args.batch_size} must be "
-                             f"divisible by --dp {mesh_dp(args)} x --ep "
-                             f"{args.ep}")
+    if args.ep > 1 and args.pp > 1:
+        raise SystemExit("--ep does not compose with --pp (MoE models use "
+                         "dp/tp/ep meshes)")
+    if args.sp and args.pp > 1:
+        raise SystemExit("--sp does not compose with --pp (sequence "
+                         "parallelism lives in the pjit tp path; pp x tp "
+                         "uses the manual Megatron stage block)")
+    if not parallel(args):
+        return
+    if args.distill_from:
+        raise SystemExit("error: --distill-from builds a single-device "
+                         "step; it does not run with --dp/--tp/--ep/--pp")
+    if args.pp > 1:
+        dp = mesh_dp(args)
+        if args.batch_size % dp or (args.batch_size // dp) \
+                % args.pp_microbatches:
+            raise SystemExit(
+                f"--batch-size {args.batch_size} must be divisible by "
+                f"--dp {dp} x --pp-microbatches {args.pp_microbatches}")
+        return
+    n = mesh_dp(args) * args.ep
+    if args.batch_size % n:
+        raise SystemExit(f"--batch-size {args.batch_size} must be "
+                         f"divisible by --dp {mesh_dp(args)} x --ep "
+                         f"{args.ep}")
 
 
 def mesh_dp(args) -> int:
-    """``--dp``, or vitx's default: the devices over tp x ep (one rank on
-    the CPU)."""
+    """``--dp``, or vitx's default: 1 under pp, else the devices over tp x
+    ep (one rank on the CPU)."""
     if args.dp is not None:
         return args.dp
+    if args.pp > 1:
+        return 1
     import torch
 
     n = torch.cuda.device_count() if args.device != "cpu" else 1
     return max(1, n // (args.tp * args.ep))
 
 
+def world_size(args) -> int:
+    """The rank processes of a mesh run: dp x pp x tp x ep."""
+    return mesh_dp(args) * args.pp * args.tp * args.ep
+
+
+def make_rank_mesh(args, device):
+    """This rank's mesh: (data, stage[, model]) under pp, else (data,
+    model[, expert])."""
+    from vitx_torch.parallel import make_mesh, make_pp_mesh
+
+    if args.pp > 1:
+        return make_pp_mesh(mesh_dp(args), args.pp, args.tp, device=device)
+    return make_mesh(mesh_dp(args), args.tp, args.ep, device=device)
+
+
 def build_trainer(args, parser=None, mesh=None):
     """-> (trainer, train_loader, eval_loader) for parsed ``args``; on a
     rank of ``mesh``, its loaders and sharded trainer."""
-    parser = parser or build_argparser()
-    refuse_unported(args, parser)
     check_parallel(args)
     if args.config_json:
         with open(args.config_json) as f:
@@ -493,7 +519,8 @@ def build_trainer(args, parser=None, mesh=None):
         llrd=args.llrd, accum_steps=args.accum_steps,
         train_filter=train_filter, sam_rho=args.sam_rho,
         optimizer=args.optimizer, mu_dtype=args.mu_dtype,
-        steps_per_dispatch=args.steps_per_dispatch)
+        steps_per_dispatch=args.steps_per_dispatch,
+        pp_microbatches=args.pp_microbatches, pp_schedule=args.pp_schedule)
     trainer = Trainer(cfg, tcfg, preprocess=pre, init_state=init_state,
                       optimizer=optimizer, lr_schedule=lr_schedule,
                       train_step=train_step, device=device, mesh=mesh,
@@ -567,12 +594,9 @@ def run(args, parser, mesh=None) -> int:
 
 def rank_main(ctx, argv) -> int:
     """One rank of a sharded run (``vitx_torch.parallel.spawn``)."""
-    from vitx_torch.parallel import make_mesh
-
     parser = build_argparser()
     args = parser.parse_args(argv)
-    mesh = make_mesh(mesh_dp(args), args.tp, args.ep, device=ctx.device)
-    return run(args, parser, mesh)
+    return run(args, parser, make_rank_mesh(args, ctx.device))
 
 
 def main(argv=None):
@@ -580,15 +604,14 @@ def main(argv=None):
     args = parser.parse_args(argv)
     if not parallel(args):
         return run(args, parser)
-    refuse_unported(args, parser)
     check_parallel(args)
     from vitx_torch import parallel as par
 
     if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
         return rank_main(par.from_env(args.device), argv)
     argv = sys.argv[1:] if argv is None else list(argv)
-    world = mesh_dp(args) * args.tp * args.ep
-    codes = par.spawn(rank_main, world, (argv,), device=args.device)
+    codes = par.spawn(rank_main, world_size(args), (argv,),
+                      device=args.device)
     return max(codes)
 
 

@@ -37,17 +37,18 @@ from vitx_torch.core.device import resolve_device
 
 def check_candidate(cfg, batch: int) -> None:
     """Raise for a candidate the port refuses before it runs: a batch
-    below 1 (ValueError), or a config whose throughput is that of a
-    sharded run, expert (``ep``) or sequence (``sp``) parallel
-    (NotImplementedError): the sweep times one process on one card, and
-    the sharded benches wait for ROADMAP A13.2."""
+    below 1 (ValueError), or an expert- (``ep``) or sequence-parallel
+    (``sp``) config (RuntimeError, vitx's reason: such a config constrains
+    its tensors to a mesh, and the sweep times one device with no mesh;
+    vitx's sweep fails there in ``with_sharding_constraint``)."""
     if batch < 1:
         raise ValueError(f"batch {batch} must be positive")
     if cfg.ep or cfg.sp:
-        raise NotImplementedError(
-            "expert- and sequence-parallel configs (ep, sp) shard over a "
-            "mesh of rank processes; the sweep times one process "
-            "(sharded benches: ROADMAP A13.2)")
+        raise RuntimeError(
+            "expert- and sequence-parallel configs (ep, sp) shard their "
+            "tensors over a mesh, and the sweep times one device with no "
+            "mesh (vitx: with_sharding_constraint requires a non-empty "
+            "mesh)")
 
 
 def run_sweep(cfg, mode, batches, iters, reps, emit=print, device="cuda",
@@ -66,7 +67,7 @@ def run_sweep(cfg, mode, batches, iters, reps, emit=print, device="cuda",
         try:
             c = cfg.replace(remat=remat)
             check_candidate(c, batch)
-        except (ValueError, NotImplementedError) as e:
+        except (ValueError, RuntimeError) as e:
             row = {**cand, "error": f"{type(e).__name__}: {e}"[:200]}
         else:
             try:

@@ -290,7 +290,8 @@ def shard_of(leaf, device) -> np.ndarray:
 
 def local_state_from_jax(state, device, *, to="cuda"):
     """A vitx ``TrainState`` placed with ``vitx.parallel.state_sharding``
-    (or ``place_state``) -> the port's local ``TrainState`` of the rank at
+    (or ``place_state``, or the pipeline's ``pp_state_sharding`` /
+    ``place_pp_state``) -> the port's local ``TrainState`` of the rank at
     ``device``'s mesh position (``mesh.devices`` row-major is the port's
     rank order): each param and optimizer slot the part that device holds
     (``shard_of``), the optimizer's state as ``opt_state_from_jax`` reads

@@ -814,7 +814,7 @@ def _checkpointed_block(mode: str, x, pending, bp, cfg: ViTConfig, *,
 
 def run_blocks(layers: list, x, cfg: ViTConfig, *, rng=None,
                deterministic: bool = True, return_probs: bool = False,
-               probs_mode: str = "full", mesh=None):
+               probs_mode: str = "full", mesh=None, rates=None):
     """Run the blocks ``layers`` (``encoder_layers``) over tokens x (B, T,
     E): a Python loop in place of vitx's ``lax.scan``; returns (x +
     pending, probs stacked over the blocks or None) (``vitx/nn/vit.py:
@@ -829,8 +829,11 @@ def run_blocks(layers: list, x, cfg: ViTConfig, *, rng=None,
     sharded step (``vitx_torch.parallel``): a model axis runs
     ``_tp_block``, with ``cfg.sp`` over the token-sharded residual stream
     (``to_carrier``; gathered whole again at the end, a gather every rank
-    consumes alike); an expert axis reaches the Soft-MoE blocks."""
-    rates = drop_path_rates(cfg, len(layers), deterministic)
+    consumes alike); an expert axis reaches the Soft-MoE blocks.
+    ``rates``: the blocks' drop-path rates in place of the rise over
+    ``layers`` (a pipeline stage's slice of the whole depth's)."""
+    if rates is None or deterministic:
+        rates = drop_path_rates(cfg, len(layers), deterministic)
     rope = block_rope(cfg, x)
     mode = remat_mode(cfg, x, layers)
     tokens = T = None

@@ -18,7 +18,13 @@ hand for its pipeline stages (``vitx/parallel/pipeline.py:175-203``,
   slice of the gradient (a gather every rank consumes the same way:
   SimCLR's global negatives, leaving the token-sharded region);
 - ``all_to_all``: chunks of one dim out, the ranks' chunks along another
-  dim in, and the reverse backward (expert parallelism).
+  dim in, and the reverse backward (expert parallelism);
+- ``send_stage`` / ``recv_stage``: the pipeline's stage handoff, a
+  point-to-point shift to the next stage (vitx's ``ppermute`` with
+  ``perm = [(i, i + 1)]``, ``vitx/parallel/pipeline.py:407,425``) or, for
+  cotangents, to the previous one (``pipeline.py:578,646``). They are
+  not differentiable: the pipeline's schedules call them between their
+  forwards and backwards, in an order they fix.
 
 Every op takes the ``Mesh`` and a set of its axes; over axes of size 1 it
 is the identity. A rank's chunk along a dim is its index in the group
@@ -30,7 +36,10 @@ all-reduce, all-gather, reduce-scatter and broadcast in the torch the
 card runs (2.11) -- except all-to-all, which gloo does not implement
 there: on gloo it is an all-gather of each rank's whole input, of which
 each rank keeps the chunks addressed to it (``all_to_all_cat``), on every
-call. ``nccl`` runs the all-to-all itself.
+call. ``nccl`` runs the all-to-all itself. The stage handoff takes one
+route on every backend: a ``broadcast`` from the sender over the link's
+two-rank group (``Mesh.stage_link``), which gloo takes on CUDA tensors
+there, as nccl does; gloo's ``send``/``recv`` is not relied on.
 """
 
 from __future__ import annotations
@@ -245,3 +254,21 @@ def gather_replicated(x, mesh, axes, dim: int):
 def all_to_all(x, mesh, axes, split_dim: int, cat_dim: int):
     """``all_to_all_cat`` with the reverse exchange as its backward."""
     return _op(_AllToAll, x, mesh, axes, split_dim, cat_dim)
+
+
+def send_stage(x, mesh, step: int) -> None:
+    """Send ``x`` to the rank ``step`` (+1 or -1) stages on, at this
+    rank's other coordinates; it calls ``recv_stage(..., -step)``. Blocks
+    until the link has taken it."""
+    group, _ = mesh.stage_link(step)
+    dist.broadcast(x.detach().contiguous(), src=mesh.rank, group=group)
+
+
+def recv_stage(shape, dtype, mesh, step: int):
+    """What the rank ``step`` (-1 or +1) stages on sends this rank
+    (``send_stage(..., -step)``): a new tensor of ``shape`` and ``dtype``
+    on the mesh's device."""
+    group, peer = mesh.stage_link(step)
+    out = torch.empty(shape, dtype=dtype, device=mesh.device)
+    dist.broadcast(out, src=peer, group=group)
+    return out

@@ -1,7 +1,6 @@
 """One step of every sharded path on tiny shapes over N rank processes.
 
-The counterpart of ``__graft_entry__.py::dryrun_multichip`` without its
-pipeline parts (ROADMAP A13.2)::
+The counterpart of ``__graft_entry__.py::dryrun_multichip``::
 
     python -m vitx_torch.parallel.dryrun 4               # ranks on CUDA
     python -m vitx_torch.parallel.dryrun 4 --device cpu  # gloo on the CPU
@@ -10,8 +9,11 @@ It runs, depth 2 at image 16: a (data x model) mesh -- tp 2 when N is
 even and at least 4 -- with sequence parallelism and SAM, then the
 sharded eval (the confusion matrix counts the whole batch); ZeRO-3 at
 dp = N; ZeRO-2 (reduce-scattered gradients, zero1 moments) at dp = N;
-a Soft-MoE model on data x model x expert (ep 2 when 4 divides N). Every
-loss must be finite; the last line is one summary, as vitx's.
+GPipe on (N/2 data x 2 stage) at 2 microbatches (pp 1 for odd N), then
+1F1B on the same mesh, then pp x tp 1F1B on (N/4 data x 2 stage x 2
+model) when 8 divides N (``nan`` otherwise, as vitx prints it); a
+Soft-MoE model on data x model x expert (ep 2 when 4 divides N). Every
+loss that runs must be finite; the last line is one summary, as vitx's.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import numpy as np
 import torch
 
 from vitx_torch.core.config import ViTConfig
-from vitx_torch.parallel import launch, make_mesh, sharded
+from vitx_torch.parallel import launch, make_mesh, pipeline, sharded
 from vitx_torch.train.step import create_train_state, make_optimizer
 
 
@@ -88,6 +90,33 @@ def dryrun_rank(ctx, n: int) -> dict | None:
     _, m2 = step2(state2, batch3, gen)
     out["zero2_loss"] = _check(float(m2["loss"]), "zero2")
 
+    pp = 2 if n % 2 == 0 else 1
+    dp_pp = n // pp
+    mesh_pp = pipeline.make_pp_mesh(dp_pp, pp, device=dev)
+    batch_pp = sharded.shard_batch(_batch(4 * dp_pp, 5), mesh_pp)
+    out["pp_mesh"] = (dp_pp, pp)
+    for key, schedule in (("pp_loss", "gpipe"), ("1f1b_loss", "1f1b")):
+        whole = create_train_state(0, cfg, opt, device=mesh_pp.device)
+        specs_pp = pipeline.pp_state_sharding(whole, cfg, mesh_pp)
+        step_pp = pipeline.make_pp_train_step(
+            cfg, opt, mesh_pp, n_micro=2, state_shardings=specs_pp,
+            schedule=schedule)
+        _, mpp = step_pp(sharded.place_state(whole, cfg, mesh_pp,
+                                             specs=specs_pp), batch_pp)
+        out[key] = _check(float(mpp["loss"]), schedule)
+    out["pp_x_tp_1f1b_loss"] = float("nan")
+    if n % 8 == 0:
+        mesh_pt = pipeline.make_pp_mesh(n // 4, 2, 2, device=dev)
+        whole = create_train_state(0, cfg, opt, device=mesh_pt.device)
+        specs_pt = pipeline.pp_state_sharding(whole, cfg, mesh_pt, tp=True)
+        step_pt = pipeline.make_pp_train_step(
+            cfg, opt, mesh_pt, n_micro=2, state_shardings=specs_pt,
+            schedule="1f1b")
+        _, mpt = step_pt(sharded.place_state(whole, cfg, mesh_pt,
+                                             specs=specs_pt),
+                         sharded.shard_batch(_batch(n, 6), mesh_pt))
+        out["pp_x_tp_1f1b_loss"] = _check(float(mpt["loss"]), "pp x tp")
+
     ep = 2 if n % 4 == 0 else 1
     out["moe_loss"], out["moe_mesh"] = float("nan"), None
     if ep > 1:
@@ -106,15 +135,20 @@ def dryrun_rank(ctx, n: int) -> dict | None:
 
 
 def summary(out: dict) -> str:
-    """The one line vitx's dryrun prints, without its pipeline parts."""
+    """The one line vitx's dryrun prints."""
     moe = out["moe_mesh"]
     where = (f"moe {moe[0]} data x {moe[1]} model x {moe[2]} expert"
              if moe else "moe skipped: 4 does not divide the ranks")
+    dp_pp, pp = out["pp_mesh"]
     return (f"dryrun_multichip ok: mesh=({out['dp']} data x {out['tp']} "
             f"model), loss={out['loss']:.4f}, "
             f"eval_loss={out['eval_loss']:.4f}, "
             f"zero3_loss={out['zero3_loss']:.4f}, "
             f"zero2_loss={out['zero2_loss']:.4f}, "
+            f"pp_loss={out['pp_loss']:.4f} (pipeline {dp_pp} data x {pp} "
+            f"stage; 1f1b_loss={out['1f1b_loss']:.4f}; "
+            f"pp_x_tp_1f1b_loss={out['pp_x_tp_1f1b_loss']:.4f} at 2 data x "
+            f"2 stage x 2 model), "
             f"moe_loss={out['moe_loss']:.4f} ({where})")
 
 

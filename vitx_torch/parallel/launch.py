@@ -4,7 +4,9 @@ vitx is one program over every device (SPMD, ``jax.jit`` over a mesh);
 the port runs one process per rank. ``spawn`` starts ``world`` rank
 processes with ``torch.multiprocessing`` (start method ``spawn``: each
 child imports the port afresh) and returns what each rank's function
-returned; ``from_env`` joins a group that ``torchrun``'s environment
+returned; ``lead`` does the same with rank 0 in the calling process (a
+server's front end, which that process's signals stop); ``from_env``
+joins a group that ``torchrun``'s environment
 describes (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``,
 ``MASTER_ADDR``/``MASTER_PORT``). Both initialise the group, set the
 rank's device (``cuda:{local_rank % device_count}``, or the CPU when the
@@ -120,6 +122,60 @@ class RankError(RuntimeError):
     """A rank process failed; the message holds its traceback."""
 
 
+def _start(fn, ranks, world: int, init_method: str, device, args) -> tuple:
+    """Start ``ranks`` as child processes -> ({rank: process}, the queue
+    their results arrive on)."""
+    import torch.multiprocessing as mpm
+
+    mpc = mpm.get_context("spawn")
+    results = mpc.Queue()
+    procs = {r: mpc.Process(target=_worker, args=(fn, r, world, init_method,
+                                                  device, args, results),
+                            daemon=True)
+             for r in ranks}
+    for p in procs.values():
+        p.start()
+    return procs, results
+
+
+def _gather(procs: dict, results, timeout: float,
+            failure: str | None = None) -> dict:
+    """Every child's result -> {rank: result}; on a failure (a rank's
+    exception, a rank dead without a result, ``timeout`` seconds gone, or
+    ``failure`` already) the others are stopped and ``RankError``
+    raised."""
+    out = {}
+    deadline = datetime.datetime.now() + datetime.timedelta(seconds=timeout)
+    try:
+        while len(out) < len(procs) and failure is None:
+            try:
+                rank, ok, value = results.get(timeout=1.0)
+            except queue.Empty:
+                dead = [r for r, p in procs.items()
+                        if p.exitcode not in (None, 0)]
+                if dead:
+                    failure = (f"rank {dead[0]} exited with code "
+                               f"{procs[dead[0]].exitcode} and no result")
+                elif datetime.datetime.now() > deadline:
+                    failure = f"no result from every rank in {timeout} s"
+                continue
+            if ok:
+                out[rank] = value
+            else:
+                failure = f"rank {rank} failed:\n{value}"
+    finally:
+        for p in procs.values():
+            if failure is not None and p.is_alive():
+                p.terminate()
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    if failure is not None:
+        raise RankError(failure)
+    return out
+
+
 def spawn(fn, world: int, args: tuple = (), *, device="cuda",
           init_method: str | None = None, timeout: float = 1800.0) -> list:
     """Run ``fn(ctx, *args)`` on ``world`` rank processes -> the list of
@@ -129,44 +185,34 @@ def spawn(fn, world: int, args: tuple = (), *, device="cuda",
     default a free port on localhost). When a rank fails, the others are
     stopped and ``RankError`` carries the failing rank's traceback; so it
     does when no result arrives within ``timeout`` seconds."""
-    import torch.multiprocessing as mp
-
     if init_method is None:
         init_method = f"tcp://localhost:{free_port()}"
-    mpc = mp.get_context("spawn")
-    results = mpc.Queue()
-    procs = [mpc.Process(target=_worker, args=(fn, r, world, init_method,
-                                               device, args, results),
-                         daemon=True)
-             for r in range(world)]
-    for p in procs:
-        p.start()
-    out, failure = {}, None
-    deadline = datetime.datetime.now() + datetime.timedelta(seconds=timeout)
-    try:
-        while len(out) < world and failure is None:
-            try:
-                rank, ok, value = results.get(timeout=1.0)
-            except queue.Empty:
-                dead = [p for p in procs if p.exitcode not in (None, 0)]
-                if dead:
-                    failure = (f"rank {procs.index(dead[0])} exited with "
-                               f"code {dead[0].exitcode} and no result")
-                elif datetime.datetime.now() > deadline:
-                    failure = f"no result from every rank in {timeout} s"
-                continue
-            if ok:
-                out[rank] = value
-            else:
-                failure = f"rank {rank} failed:\n{value}"
-    finally:
-        for p in procs:
-            if failure is not None and p.is_alive():
-                p.terminate()
-            p.join(timeout=60)
-            if p.is_alive():
-                p.kill()
-                p.join()
-    if failure is not None:
-        raise RankError(failure)
+    procs, results = _start(fn, range(world), world, init_method, device,
+                            args)
+    out = _gather(procs, results, timeout)
     return [out[r] for r in range(world)]
+
+
+def lead(fn, world: int, args: tuple = (), *, device="cuda",
+         init_method: str | None = None, timeout: float = 1800.0) -> list:
+    """``spawn`` with rank 0 run in this process: ``fn(ctx, *args)`` here
+    and on ``world - 1`` rank processes beside it -> the results by rank.
+    When rank 0 raises (a ``KeyboardInterrupt`` among them) the others are
+    stopped and the exception goes on."""
+    if init_method is None:
+        init_method = f"tcp://localhost:{free_port()}"
+    procs, results = _start(fn, range(1, world), world, init_method, device,
+                            args)
+    try:
+        ctx = init_rank(0, world, init_method, device=device)
+        try:
+            first = fn(ctx, *args)
+        finally:
+            dist.destroy_process_group()
+    except BaseException:
+        for p in procs.values():
+            p.terminate()
+            p.join(timeout=60)
+        raise
+    out = _gather(procs, results, timeout)
+    return [first] + [out[r] for r in range(1, world)]

@@ -4,11 +4,14 @@ The counterpart of ``vitx/parallel/mesh.py``. vitx lays its devices out as
 a ``jax.sharding.Mesh`` with a ``data`` axis (batch and gradient
 parallelism), a ``model`` axis (attention heads and the MLP hidden dim,
 Megatron tensor parallelism) and, when asked, an ``expert`` axis (Soft-MoE
-expert parallelism); XLA's partitioner inserts the collectives. Here each
-rank is one process: ``make_mesh`` gives it its coordinates on the same
-axes, row-major over (data, model[, expert]) as vitx's device array, and
-the process sub-groups the collectives of ``vitx_torch.parallel.comm``
-run over. Every rank builds every sub-group, in the same order, as
+expert parallelism) or a ``stage`` axis (pipeline parallelism,
+``vitx_torch.parallel.pipeline.make_pp_mesh``); XLA's partitioner inserts
+the collectives. Here each rank is one process: ``make_mesh`` gives it its
+coordinates on the same axes, row-major over (data, model[, expert]) --
+(data, stage[, model]) for a pipeline -- as vitx's device array, and the
+process sub-groups the collectives of ``vitx_torch.parallel.comm`` run
+over, with one two-rank group per link between neighbouring stages (the
+stage handoff's). Every rank builds every sub-group, in the same order, as
 ``dist.new_group`` requires.
 """
 
@@ -24,6 +27,7 @@ import torch.distributed as dist
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 EXPERT_AXIS = "expert"
+STAGE_AXIS = "stage"
 
 
 class Mesh:
@@ -47,8 +51,10 @@ class Mesh:
         self.coords = {a: (rank // self._stride[a]) % self.shape[a]
                        for a in self.axis_names}
         self._groups = {}
+        self._links = {}
         if dist.is_initialized():
             self._build_groups()
+            self._build_links()
 
     def _members(self, axes: frozenset, coords: dict) -> list:
         """The ranks that share ``coords`` off ``axes``, ascending (which
@@ -72,6 +78,30 @@ class Mesh:
                     group = dist.new_group(ranks)
                     if self.rank in ranks:
                         self._groups[axes] = group
+
+    def _build_links(self) -> None:
+        """One group per pair of neighbouring stages (s, s + 1) at every
+        other coordinate, in row-major order of the lower rank."""
+        n = self.shape.get(STAGE_AXIS, 1)
+        if n < 2:
+            return
+        stride = self._stride[STAGE_AXIS]
+        for low in range(self.world):
+            if (low // stride) % n == n - 1:
+                continue
+            group = dist.new_group([low, low + stride])
+            if self.rank == low:
+                self._links[1] = group
+            elif self.rank == low + stride:
+                self._links[-1] = group
+
+    def stage_link(self, step: int) -> tuple:
+        """(the two-rank group, the peer's rank) of the link to the stage
+        ``step`` (+1 the next, -1 the previous) on from this rank's."""
+        if step not in self._links:
+            raise ValueError(f"stage {self.coords.get(STAGE_AXIS, 0)} has "
+                             f"no neighbour {step:+d} stage(s) on")
+        return self._links[step], self.rank + step * self._stride[STAGE_AXIS]
 
     def _busy(self, axes) -> frozenset:
         axes = (axes,) if isinstance(axes, str) else tuple(axes)
@@ -108,6 +138,10 @@ class Mesh:
     @property
     def ep(self) -> int:
         return self.shape.get(EXPERT_AXIS, 1)
+
+    @property
+    def pp(self) -> int:
+        return self.shape.get(STAGE_AXIS, 1)
 
     def __repr__(self) -> str:
         return (f"Mesh({self.shape}, rank={self.rank}, coords="

@@ -41,9 +41,14 @@ import torch
 from vitx_torch.core.config import ViTConfig
 from vitx_torch.core.draws import ShardedGenerator
 from vitx_torch.parallel import comm
-from vitx_torch.parallel.mesh import DATA_AXIS, EXPERT_AXIS, MODEL_AXIS
+from vitx_torch.parallel.mesh import (DATA_AXIS, EXPERT_AXIS, MODEL_AXIS,
+                                      STAGE_AXIS)
 
 BATCH_AXES = (DATA_AXIS, EXPERT_AXIS)
+# the axes a leaf's gradient sums over where the leaf is not split on
+# them: the rows' and, on a pipeline mesh, the stages' (a replicated
+# leaf's gradient lives on the stage that reads it)
+REDUCE_AXES = BATCH_AXES + (STAGE_AXIS,)
 
 
 # ---------------------------------------------------------------------------
@@ -479,7 +484,8 @@ class Plan:
 
     def reduce(self, grads: list, wrt: list, final: bool) -> tuple:
         """The rank's gradients (``wrt``'s leaves) summed over the rows'
-        axes -> (gradients, their specs). ``final`` gradients go onto
+        axes (and the stages, ``REDUCE_AXES``) that the leaf is not split
+        on -> (gradients, their specs). ``final`` gradients go onto
         ZeRO-2's splits by reduce-scatter; the others (SAM's first pass)
         are all-reduced whole."""
         mesh = self.mesh
@@ -490,7 +496,7 @@ class Plan:
                 continue
             g = next(it)
             spec = _pad(self.param[i], len(self.shapes[i]))
-            axes = [a for a in BATCH_AXES if a not in spec]
+            axes = [a for a in REDUCE_AXES if a not in spec]
             gspec = self.grad[i]
             split = [d for d, a in spec_dims(gspec).items()
                      if a == DATA_AXIS and spec[d] != DATA_AXIS]

@@ -14,6 +14,14 @@ growing the latency tail. ``explain`` answers one image with a heatmap
 a program with the parameters baked in (a ``.pt2`` from
 ``vitx_torch.export``) in place of the forward; an int8 ``.quant.npz``
 serves dequantized to float, as vitx's does.
+
+``mesh`` (``vitx_torch.parallel.make_mesh``, vitx's mesh serving,
+``vitx/serve.py:116-191``): the server runs on rank 0 of a data mesh,
+which keeps the queue, the batcher and the front end; each batch goes to
+every data rank (a broadcast of the padded batch), each runs the forward
+on its rows and the logits are gathered back, and rank 0 takes the top-k.
+The other ranks run ``serve_worker`` until rank 0's ``close`` tells them
+to stop.
 """
 
 from __future__ import annotations
@@ -32,6 +40,10 @@ from vitx_torch.core.device import resolve_device
 from vitx_torch.nn.saliency import grad_cam
 from vitx_torch.nn.vit import forward_with_rollout, init_params, \
     model_logits, params_to
+from vitx_torch.parallel.mesh import DATA_AXIS
+
+# the header rank 0 broadcasts to its data ranks before each batch
+_STOP, _BATCH = 0, 1
 
 
 class ServerOverloaded(RuntimeError):
@@ -112,7 +124,7 @@ class InferenceServer:
                  top_k: int = 5, max_delay_ms: float = 5.0,
                  max_queue: int | None = None,
                  temperature: float | None = None, device="cuda",
-                 logits_fn=None):
+                 logits_fn=None, mesh=None):
         """``max_queue``: beyond this many queued requests ``predict``
         raises ``ServerOverloaded`` (the HTTP front end answers 503).
         Default: 8 device batches. ``temperature`` scales the logits before
@@ -120,8 +132,22 @@ class InferenceServer:
         ``device``: a CUDA device by default; raises when there is none.
         ``logits_fn``: images -> fp32 logits with the parameters baked in
         (an exported program's ``module()``), run in place of the forward;
-        ``params`` is then ignored and ``explain`` refused.
+        ``params`` is then ignored and ``explain`` refused. ``mesh``: this
+        process is rank 0 of a data mesh (the module's doc), on the
+        mesh's device; ``batch_size`` must divide over its data axis.
         """
+        if mesh is not None:
+            if logits_fn is not None:
+                raise ValueError("logits_fn (.pt2 program) serving is "
+                                 "single-device — re-export from the "
+                                 "checkpoint for mesh serving")
+            if batch_size % mesh.dp:
+                raise ValueError(f"batch_size {batch_size} not divisible by "
+                                 f"the mesh's data axis ({mesh.dp})")
+            device = mesh.device
+        self.mesh = mesh
+        self._mesh_lock = threading.Lock()
+        self._closed = False
         self.device = resolve_device(device)
         self.cfg = cfg
         self.batch_size = batch_size
@@ -158,6 +184,11 @@ class InferenceServer:
         with torch.inference_mode():
             if self._logits_fn is not None:
                 return self._topk(self._logits_fn(images))
+            if self.mesh is not None:
+                with self._mesh_lock:
+                    _broadcast_header(self.mesh, _BATCH)
+                    return self._topk(mesh_logits(self._params, images,
+                                                  self.cfg, self.mesh))
             return self._topk(model_logits(self._params, images, self.cfg))
 
     def _topk(self, logits):
@@ -247,8 +278,15 @@ class InferenceServer:
         return item.result
 
     def close(self):
+        """Stop the collector; on a mesh, then tell the data ranks to stop
+        (once, after any batch in flight)."""
         self._stop.set()
         self._thread.join(timeout=5.0)
+        if self.mesh is not None:
+            with self._mesh_lock:
+                if not self._closed:
+                    _broadcast_header(self.mesh, _STOP)
+                    self._closed = True
 
     def __enter__(self):
         return self
@@ -303,7 +341,60 @@ class InferenceServer:
             item.event.set()
 
 
-def load_server(checkpoint, cfg: ViTConfig, *, device="cuda",
+def _broadcast_header(mesh, cmd: int = _STOP) -> int:
+    """Rank 0's next command (``_BATCH`` or ``_STOP``) to every data rank
+    -> the command (on the other ranks, ``cmd`` is overwritten)."""
+    head = torch.tensor([cmd], dtype=torch.int64, device=mesh.device)
+    group = mesh.group(DATA_AXIS)
+    if group is not None:
+        torch.distributed.broadcast(head, src=0, group=group)
+    return int(head.item())
+
+
+def mesh_logits(params, images, cfg: ViTConfig, mesh):
+    """One batch on every data rank: rank 0's images broadcast, each rank's
+    rows (a contiguous block) through the forward, the logits gathered
+    in row order (the same on every rank)."""
+    from vitx_torch.parallel import comm
+
+    group = mesh.group(DATA_AXIS)
+    if group is not None:
+        torch.distributed.broadcast(images, src=0, group=group)
+    rows = comm.chunk_of(images, mesh, DATA_AXIS, 0)
+    logits = model_logits(params, rows, cfg).float()
+    return comm.all_gather_cat(logits, mesh, DATA_AXIS, 0)
+
+
+def serve_worker(params, cfg: ViTConfig, mesh, batch_size: int) -> int:
+    """A data rank other than 0 of a mesh server: runs its rows of each
+    batch rank 0 sends until rank 0 closes -> the batches it ran."""
+    params = params_to(params, mesh.device)
+    images = torch.empty((batch_size, cfg.image_size, cfg.image_size,
+                          cfg.num_channels), dtype=cfg.cdtype(),
+                         device=mesh.device)
+    n = 0
+    with torch.inference_mode():
+        while _broadcast_header(mesh) == _BATCH:
+            mesh_logits(params, images, cfg, mesh)
+            n += 1
+    return n
+
+
+def load_params(checkpoint, cfg: ViTConfig, device) -> tuple:
+    """(params, cfg) a server serves from ``checkpoint`` (not a ``.pt2``):
+    ``load_server``'s rule."""
+    from vitx_torch.train.checkpoint import load_artifact_params
+
+    if checkpoint is None:
+        return init_params(0, cfg, device=device), cfg
+    from vitx_torch.nn.lora import merge_lora_params
+
+    params, _ = load_artifact_params(checkpoint, cfg, device=device)
+    # a LoRA run's adapters fold in once, not in every forward
+    return merge_lora_params(params, cfg)
+
+
+def load_server(checkpoint, cfg: ViTConfig, *, device="cuda", mesh=None,
                 **kw) -> InferenceServer:
     """A server from ``None`` (fresh parameters, seed 0), a vitx checkpoint
     directory or ``{epoch}.ckpt`` (the EMA shadow where the run kept one),
@@ -315,11 +406,14 @@ def load_server(checkpoint, cfg: ViTConfig, *, device="cuda",
     module with vitx's guards, ``vitx/serve.py:403-419``: a program that
     returns probabilities is refused, a pinned batch must be the
     server's). vitx's ``.stablehlo`` programs and orbax directories need
-    JAX."""
-    from vitx_torch.train.checkpoint import load_artifact_params
-
-    dev = resolve_device(device)
+    JAX. ``mesh``: rank 0 of a data mesh (``InferenceServer``), which
+    refuses a ``.pt2`` program."""
+    dev = resolve_device(device if mesh is None else mesh.device)
     if checkpoint is not None and str(checkpoint).endswith(".pt2"):
+        if mesh is not None:
+            raise ValueError("logits_fn (.pt2 program) serving is "
+                             "single-device — re-export from the "
+                             "checkpoint for mesh serving")
         from vitx_torch.export import load_exported
         from vitx_torch.export import peek_meta as peek_export_meta
 
@@ -336,12 +430,5 @@ def load_server(checkpoint, cfg: ViTConfig, *, device="cuda",
                 f"batch_size={pinned} to serve it")
         program = load_exported(checkpoint).module()
         return InferenceServer({}, cfg, device=dev, logits_fn=program, **kw)
-    if checkpoint is None:
-        params = init_params(0, cfg, device=dev)
-    else:
-        from vitx_torch.nn.lora import merge_lora_params
-
-        params, _ = load_artifact_params(checkpoint, cfg, device=dev)
-        # a LoRA run's adapters fold in once, not in every forward
-        params, cfg = merge_lora_params(params, cfg)
-    return InferenceServer(params, cfg, device=dev, **kw)
+    params, cfg = load_params(checkpoint, cfg, dev)
+    return InferenceServer(params, cfg, device=dev, mesh=mesh, **kw)

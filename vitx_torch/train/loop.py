@@ -31,7 +31,14 @@ those of the global batch; rank 0 alone logs, prints and writes the
 ``.ckpt`` files, in the single-process format, from the gathered state
 (every rank takes part in the gather), and a resume places the restored
 state again. ``steps_per_dispatch`` > 1 is refused there, as vitx
-refuses it; pipeline parallelism's fields wait for ROADMAP A13.2.
+refuses it. On a pipeline mesh (``vitx_torch.parallel.make_pp_mesh``,
+a ``stage`` axis of more than one rank; vitx's stage-mesh branch,
+``vitx/train/loop.py:199-233``) the state is placed by the pipeline's
+specs (``tp``, ``zero1``) and the steps are ``make_pp_train_step`` /
+``make_pp_eval_step`` with ``pp_microbatches`` and ``pp_schedule``;
+ZeRO-2/3 and every recipe knob but label smoothing are refused there
+with vitx's messages. The ``.ckpt`` files keep the single-process
+(stacked) layout, and a resume places them by the pipeline's specs.
 
 Randomness differs from vitx by design (torch cannot draw threefry's
 streams): each step's preprocessing and dropout draw from generators
@@ -70,9 +77,8 @@ from vitx_torch.train.step import (TrainState, create_train_state,
 @dataclasses.dataclass
 class TrainerConfig:
     """vitx's ``TrainerConfig`` (``vitx/train/loop.py:34-132``): every field
-    with its name and default. The fields ``Trainer`` does not take yet,
-    pipeline parallelism's, raise when set away from their default
-    (``UNPORTED``)."""
+    with its name and default (``pp_microbatches`` and ``pp_schedule``
+    act on a pipeline mesh only, as in vitx)."""
     epochs: int = 10
     lr: float = 1e-4
     weight_decay: float = 1e-4
@@ -106,10 +112,6 @@ class TrainerConfig:
     nan_abort: bool = True
     async_checkpoint: bool = False
     seed: int = 0
-
-
-# TrainerConfig fields the port does not take yet -> the ROADMAP item
-UNPORTED = {"pp_microbatches": "A13.2", "pp_schedule": "A13.2"}
 
 
 @torch.no_grad()
@@ -185,12 +187,6 @@ class Trainer:
                  mesh=None, tp: bool = False, zero1: bool = False,
                  zero2: bool = False, zero3: bool = False, sp: bool = False,
                  ep: bool = False):
-        default = TrainerConfig()
-        for name, item in UNPORTED.items():
-            if getattr(tcfg, name) != getattr(default, name):
-                raise NotImplementedError(
-                    f"TrainerConfig.{name}={getattr(tcfg, name)!r} is not "
-                    f"ported to vitx_torch yet (ROADMAP {item})")
         if tcfg.train_filter is None and cfg.lora_rank:
             # LoRA means a frozen base (vitx/train/loop.py:173-177)
             tcfg = dataclasses.replace(tcfg, train_filter="lora")
@@ -220,7 +216,9 @@ class Trainer:
             raise ValueError("steps_per_dispatch > 1 is a single-device "
                              "dispatch-overhead optimization; mesh runs are "
                              "compute-bound — use per-device batch size")
-        if mesh is not None:
+        if mesh is not None and mesh.pp > 1:
+            self._place_pp(tp, zero1, zero2, zero3, train_step)
+        elif mesh is not None:
             self._place(tp, zero1 or zero2, zero3, sp, ep, zero2, train_step)
         else:
             self.train_step = train_step or make_train_step(
@@ -269,6 +267,47 @@ class Trainer:
             cfg, mesh, tp=tp, sp=sp, ep=ep, param_specs=self.specs.params)
         self.eval_cfg = sharded.ep_cfg(sharded.sp_cfg(
             sharded.tp_safe_cfg(cfg, tp), tp, sp), mesh, ep)
+
+    def _place_pp(self, tp, zero1, zero2, zero3, train_step) -> None:
+        """The stage-mesh branch of ``__init__`` (``vitx/train/loop.py:
+        199-233``): vitx's refusals, the state placed by the pipeline's
+        specs, the pipeline steps."""
+        from vitx_torch.parallel import pipeline, sharded
+
+        cfg, tcfg, mesh = self.cfg, self.tcfg, self.mesh
+        if zero2 or zero3:
+            raise ValueError("pipeline parallelism composes with dp, "
+                             "tp and zero1 only (zero2/zero3 use the "
+                             "pjit paths in vitx/parallel/sharded.py)")
+        unsupported = [name for name, v in (
+            ("mixup_alpha", tcfg.mixup_alpha),
+            ("cutmix_alpha", tcfg.cutmix_alpha),
+            ("sam_rho", tcfg.sam_rho),
+            ("class_weights", tcfg.class_weights),
+            ("train_filter", tcfg.train_filter)) if v]
+        if unsupported:
+            raise ValueError(
+                f"pipeline-parallel training supports label_smoothing "
+                f"only; unset {unsupported}")
+        if tcfg.loss != "ce":
+            raise ValueError("the pipeline's train step computes the "
+                             "softmax cross-entropy: loss='bce' runs on "
+                             "the dp/tp paths")
+        if train_step is not None:
+            raise ValueError("a custom train_step does not run on a mesh "
+                             "(use the library's sharded step)")
+        self.specs = pipeline.pp_state_sharding(self.state, cfg, mesh,
+                                                zero1=zero1, tp=tp)
+        self.state = sharded.place_state(self.state, cfg, mesh,
+                                         specs=self.specs)
+        self.train_step = pipeline.make_pp_train_step(
+            cfg, self.optimizer, mesh, n_micro=tcfg.pp_microbatches,
+            state_shardings=self.specs,
+            label_smoothing=tcfg.label_smoothing,
+            schedule=tcfg.pp_schedule)
+        self.eval_step = pipeline.make_pp_eval_step(
+            cfg, mesh, n_micro=tcfg.pp_microbatches)
+        self.eval_cfg = cfg
 
     @property
     def rank0(self) -> bool:

@@ -181,21 +181,24 @@ def trainable_flags(params, train_filter: str | None) -> list:
     return [True] * len(leaves(params)) if mask is None else mask(params)
 
 
-def check_llrd_depth(params, depth: int) -> None:
+def check_llrd_depth(params, depth: int, shapes=None) -> None:
     """vitx's layer-wise decay factors span the whole depth, so a Soft-MoE
     model, whose ``blocks`` hold only its dense blocks, fails there (a
     shape error at the first or second step); here it raises
-    ``ValueError``."""
-    for path, p in zip(leaf_paths(params), leaves(params)):
-        if path[0] == "blocks" and p.shape[0] != depth:
+    ``ValueError``. ``shapes``: the leaves' whole shapes where ``params``
+    holds a rank's parts."""
+    if shapes is None:
+        shapes = [tuple(p.shape) for p in leaves(params)]
+    for path, shape in zip(leaf_paths(params), shapes):
+        if path[0] == "blocks" and shape[0] != depth:
             raise ValueError(
                 f"llrd's per-block factors span the depth {depth}, but "
-                f"blocks/{path[-1]} stacks {p.shape[0]} blocks (a "
+                f"blocks/{path[-1]} stacks {shape[0]} blocks (a "
                 f"Soft-MoE model's dense blocks): vitx's layer-wise "
                 f"decay does not take Soft-MoE models")
 
 
-def llrd_factors(params, decay: float, depth: int) -> list:
+def llrd_factors(params, decay: float, depth: int, shards=None) -> list:
     """Layer-wise lr decay (``vitx/train/step.py:71-106``, the BEiT/MAE
     fine-tune recipe): one factor per leaf of ``leaves(params)`` -- for a
     stacked block leaf an fp32 (depth, 1, ...) tensor of decay**(depth -
@@ -203,15 +206,26 @@ def llrd_factors(params, decay: float, depth: int) -> list:
     decay**(depth + 1) for everything else (the patch embedding, the CLS,
     distillation and register tokens, the positional table, a Soft-MoE
     model's ``moe_blocks``, as vitx's rule has it). A Soft-MoE tree raises
-    (``check_llrd_depth``)."""
-    check_llrd_depth(params, depth)
+    (``check_llrd_depth``). ``shards`` (one ``LeafShard`` or None per
+    leaf): where a leaf is a rank's part, its factor is that part of the
+    whole leaf's (a pipeline stage's blocks)."""
+    shards = shards or [None] * len(leaves(params))
+    check_llrd_depth(params, depth, [
+        tuple(p.shape) if sh is None else sh.shape
+        for p, sh in zip(leaves(params), shards)])
     block = torch.tensor([decay ** (depth - i) for i in range(depth)],
                          dtype=torch.float32)
     embed = torch.tensor(decay ** (depth + 1), dtype=torch.float32)
     out = []
-    for path, p in zip(leaf_paths(params), leaves(params)):
+    for path, p, sh in zip(leaf_paths(params), leaves(params), shards):
         if path[0] == "blocks":
             f = block.reshape((depth,) + (1,) * (p.dim() - 1))
+            if sh is not None:
+                from vitx_torch.parallel import comm
+
+                for d, axis in sh.dims.items():
+                    if f.shape[d] > 1:
+                        f = comm.chunk_of(f, sh.mesh, axis, d)
         elif path[0] in HEAD_KEYS:
             f = None
         else:
@@ -348,9 +362,9 @@ class _Chain:
     def step_leaves(self, pl, gl, state, flags, params, shards=None) -> None:
         decays = (weight_decay_mask(params) if self.wd_exclude
                   else [True] * len(pl))
-        factors = (llrd_factors(params, self.llrd, self.llrd_depth)
-                   if self.llrd is not None else [None] * len(pl))
         shards = shards or [None] * len(pl)
+        factors = (llrd_factors(params, self.llrd, self.llrd_depth, shards)
+                   if self.llrd is not None else [None] * len(pl))
         scalars = self.scalars(state.count)
         slots = iter(zip(*(leaves(getattr(state, name))
                            for name in self.State.SLOTS)))
