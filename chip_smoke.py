@@ -457,7 +457,36 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               requests over HTTP with a direct forward's top-1, and stop
               on SIGINT. (b)'s launches, both ranks', are the kernels
               line's "pipeline" path.
-19. artifacts -- main path 8, the model shipped (base16 bf16 at full
+19. compose -- main path 16, the last compositions: ToMe's merging
+              encoder on a tensor-parallel mesh (its split route, and B8
+              and K2 over gathered weights) and fused blocks (K1, K2)
+              under sequence and expert parallelism, in rank processes
+              that share the card (gloo): (a) at base16's widths, depth
+              2, fp32, b8 global, one step each against one process on
+              the CPU from the same weights (loss, grad_norm and every
+              reduced gradient within FP32_TOL, the params within
+              param_gap's allowance): tp2 ToMe-train r=13 split and with
+              fuse_mha = fuse_mlp = "on", tp2 + sp with both "on" (two
+              ranks), tp2 x ep2 with fuse_mha "on" on the Soft-MoE copy
+              (four ranks); (b) at full width in bf16, one warm-up and 3
+              calls each: the base16 r=13 eval at b64 on tp2 by the split
+              route (no kernel: vitx's XLA route) and the gathered one
+              (B8 and K2 12 a call), the ToMe-train step at b32 on tp2
+              with fuse_mha "on" (B8 12, B3 25, B12 1 a step), base16 at
+              tp2 + sp with both "on" at b32 (K1 and K2 with their
+              stashes 12, B2 12, B3 25, B12 1) and bench 10's Soft-MoE
+              ViT-B at tp2 x ep2 with fuse_mha "on" at b32 (K1 12, B2 12,
+              B3 25, B12 1): the first loss (and grad_norm) within
+              PARALLEL_TOL of one process's on the card, launches exact in
+              every rank, the eval's merges bit for bit the same on every
+              rank, each rank's call ms and peak memory (a shared card,
+              not scaling); (c) B8 at merged lengths (32, 184, 768) and
+              (32, 54, 768), K1 and K2 with their stashes at a tp + sp
+              rank's gathered (32, 197, 768), against their plain
+              versions in bf16, each twice bit for bit, then their times
+              as more "shapes" of the kernels line's rows. Every rank's
+              launches of (b) are the kernels line's "compose" path.
+20. artifacts -- main path 8, the model shipped (base16 bf16 at full
               width): (a) an int8 .quant.npz of the params, about 1/4 of
               their fp32 bytes, quantization_error at most 1/254, a
               server on it answering 32 requests with the top-1 of direct
@@ -473,7 +502,7 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               within 1e-4 and the probe CLI on a .quant.npz over
               procedural:128,64, reports and features alike. Its
               launches are the kernels line's "export" path.
-20. bench  -- main path 9, vitx's bench configurations on the card: K1
+21. bench  -- main path 9, vitx's bench configurations on the card: K1
               (with and without its stash), K2, B2 and B3 at huge14's
               shapes (E 1280, 10 heads of D 128: the earlier attention
               kernels, the sm90 GEMM) held to their plain versions in
@@ -481,7 +510,7 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               last the "huge14" path: its launches asserted), then
               vitx_torch.cli.tune --mode infer on base16 at 64, 128 and
               256 with no error row.
-21. times  -- CUDA-event medians: the base16 forward at batch 256 bf16
+22. times  -- CUDA-event medians: the base16 forward at batch 256 bf16
               (img/s), the train step at batch 128 bf16 (img/s), the
               large16_384 rollout forward at batch 32 bf16 (img/s), the
               same with QKV biases and forward_with_attn("full") at
@@ -540,7 +569,10 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               (c): K1's sm90 row with and without its stash and K2's with
               its stash at a microbatch's (32, 197, 768), B2's sm90 row at
               (32, 12, 197, 64), B3's one-pass row at (32, 197, 768) and
-              B5's sm90 row at pp x tp's (32, 6, 197, 64).
+              B5's sm90 row at pp x tp's (32, 6, 197, 64); and the compose
+              phase's (c): B8's two rows at the merged (32, 184, 768) and
+              (32, 54, 768), K1's and K2's sm90 rows with their stashes
+              at a tp + sp rank's gathered (32, 197, 768).
 
 Each main path runs with the kernels' launch counts set to 0 just before
 it and read just after. ``attention_bwd``, ``flash_attention`` and the
@@ -606,7 +638,7 @@ PROFILE_TRIES = 3             # windows profile_call traces at most
 PHASES = ("device", "build", "kernels", "grad", "forward", "serve", "train",
           "explain", "tome", "finetune", "recipe", "transfer", "pretrained",
           "families", "optim", "pretrain", "parallel", "pipeline",
-          "artifacts", "bench", "times")
+          "compose", "artifacts", "bench", "times")
 
 KERNELS = {
     "fused_mha_block": {
@@ -7527,12 +7559,13 @@ def parallel_params_a(name: str, device):
     return tree_map(lambda t: t.to(device), host)
 
 
-def parallel_setup(name: str, mesh, params, opt, cfg):
-    """-> (the rank's cfg, state, specs, grad specs) of a PARALLEL run."""
+def parallel_setup(flags: tuple, mesh, params, opt, cfg):
+    """-> (the rank's cfg, state, specs, grad specs) of a run whose
+    ``flags`` are (dp, tp, ep, ZeRO stage, sp), as PARALLEL's."""
     from vitx_torch.parallel import sharded
     from vitx_torch.train.step import TrainState
 
-    dp, tp, ep, zero, sp = PARALLEL[name]
+    dp, tp, ep, zero, sp = flags
     run_cfg = sharded.ep_cfg(sharded.sp_cfg(sharded.tp_safe_cfg(
         cfg, tp > 1), tp > 1, sp), mesh, ep > 1)
     whole = TrainState(0, params, opt.init(params))
@@ -7596,7 +7629,7 @@ def parallel_rank(ctx, a_cases, b_cases) -> dict:
         mesh = make_mesh(dp, tp, ep, device=ctx.device)
         opt = make_optimizer(lr=1e-4)
         cfg, state, specs, gspecs, step = parallel_setup(
-            name, mesh, parallel_params_a(name, mesh.device), opt,
+            PARALLEL[name], mesh, parallel_params_a(name, mesh.device), opt,
             parallel_cfg(name, 2, "float32"))
         batch = sharded.shard_batch(parallel_batch(PARALLEL_A_B, 7,
                                                    mesh.device), mesh)
@@ -7622,8 +7655,8 @@ def parallel_rank(ctx, a_cases, b_cases) -> dict:
         opt = make_optimizer(lr=PARALLEL_LR, fused=True)
         base = parallel_cfg(name)
         whole = create_train_state(0, base, opt, device=mesh.device)
-        cfg, state, specs, _, step = parallel_setup(name, mesh, whole.params,
-                                                    opt, base)
+        cfg, state, specs, _, step = parallel_setup(
+            PARALLEL[name], mesh, whole.params, opt, base)
         del whole
         torch.cuda.empty_cache()
         batch = sharded.shard_batch(parallel_batch(PARALLEL_B, 11,
@@ -7652,14 +7685,15 @@ def parallel_rank(ctx, a_cases, b_cases) -> dict:
     return out
 
 
-def parallel_reference_a(name: str) -> dict:
+def parallel_reference_a(name: str, **over) -> dict:
     """(a)'s single-process step on the CPU: the gradients, loss,
-    grad_norm and params after one plain AdamW step."""
+    grad_norm and params after one plain AdamW step (``over``: the
+    config's overrides)."""
     from vitx_torch.train.step import (TrainState, gradients, leaves,
                                        loss_fn, make_optimizer, train_step,
                                        trainable_params)
 
-    cfg = parallel_cfg(name, 2, "float32")
+    cfg = parallel_cfg(name, 2, "float32").replace(**over)
     params = parallel_params_a(name, "cpu")
     batch = parallel_batch(PARALLEL_A_B, 7, "cpu")
     p, wrt = trainable_params(params)
@@ -8551,6 +8585,420 @@ def phase_pipeline(errs: dict) -> tuple:
     return launches, extra
 
 
+# phase compose: the runs of (a) -> ((dp, tp, ep, ZeRO stage, sp), the
+# ranks, the model as parallel_cfg names it, the config's overrides): the
+# merging encoder on a model axis by its split route and over gathered
+# weights (B8, K2), and fused halves under sp and under tp x ep
+COMPOSE = {
+    "tp2_tome": ((1, 2, 1, 0, False), 2, "dp2",
+                 dict(tome_r=13, tome_train=True)),
+    "tp2_tome_fused": ((1, 2, 1, 0, False), 2, "dp2",
+                       dict(tome_r=13, tome_train=True, fuse_mha="on",
+                            fuse_mlp="on")),
+    "tp2_sp_fused": ((1, 2, 1, 0, True), 2, "dp2",
+                     dict(fuse_mha="on", fuse_mlp="on")),
+    "tp2_ep2_fused": ((1, 2, 2, 0, False), 4, "ep2", dict(fuse_mha="on")),
+}
+# (b)'s runs at full width in bf16: name -> (the (a) run whose mesh and
+# model it takes, "eval" or "train", the global batch, the overrides)
+COMPOSE_B = {
+    "tome_eval_split": ("tp2_tome", "eval", 64, dict(tome_r=13)),
+    "tome_eval_gathered": ("tp2_tome", "eval", 64,
+                           dict(tome_r=13, fuse_mha="on", fuse_mlp="on")),
+    "tome_train_gathered": ("tp2_tome", "train", 32,
+                            dict(tome_r=13, tome_train=True,
+                                 fuse_mha="on")),
+    "tp2_sp_fused": ("tp2_sp_fused", "train", 32,
+                     dict(fuse_mha="on", fuse_mlp="on")),
+    "tp2_ep2_fused": ("tp2_ep2_fused", "train", 32, dict(fuse_mha="on")),
+}
+COMPOSE_STEPS = 3       # (b)'s timed calls, after one warm-up
+
+
+def compose_rank(ctx, a_cases, b_runs) -> dict:
+    """Phase compose's (a) and (b) on one rank of those sharing the card
+    (gloo): (a) each run's reduced gradients, loss, grad_norm and params
+    after one step, gathered whole (rank 0); (b) each run's losses (and
+    grad norms), call times, peak memory, the launches counted in this
+    rank over its calls, and under ToMe the partition of the tokens its
+    eval batch merged into (every rank's, to compare)."""
+    from vitx_torch.nn.tome import encode_tome
+    from vitx_torch.parallel import make_mesh, sharded
+    from vitx_torch.train.step import (create_train_state, gradients,
+                                       leaves, loss_fn, make_optimizer,
+                                       trainable_params)
+
+    out = {"a": {}, "b": {}, "backend": ctx.backend}
+    for name in a_cases:
+        flags, _, model, over = COMPOSE[name]
+        mesh = make_mesh(*flags[:3], device=ctx.device)
+        opt = make_optimizer(lr=1e-4)
+        cfg, state, specs, gspecs, step = parallel_setup(
+            flags, mesh, parallel_params_a(model, mesh.device), opt,
+            parallel_cfg(model, 2, "float32").replace(**over))
+        batch = sharded.shard_batch(parallel_batch(PARALLEL_A_B, 7,
+                                                   mesh.device), mesh)
+        plan = sharded.Plan(specs, mesh, state.params, gspecs)
+        p, wrt = trainable_params(state.params)
+        loss_v, _ = loss_fn(sharded.forward_params(p, specs.params, mesh),
+                            batch, cfg, mesh=mesh)
+        grads, gs = plan.reduce(gradients(loss_v, p, wrt), wrt, final=False)
+        grads = [sharded.gather_part(g, s, mesh).cpu()
+                 for g, s in zip(grads, gs)]
+        state, m = step(state, batch)
+        whole = sharded.gather_state(state, specs, mesh)
+        if ctx.rank == 0:
+            out["a"][name] = {
+                "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                "grads": [g.numpy() for g in grads],
+                "params": [t.cpu().numpy() for t in leaves(whole.params)]}
+        del state, whole, grads, p, loss_v
+        torch.cuda.empty_cache()
+    for name in b_runs:
+        case, kind, B, over = COMPOSE_B[name]
+        flags, _, model, _ = COMPOSE[case]
+        dp, tp, ep, _, sp = flags
+        mesh = make_mesh(dp, tp, ep, device=ctx.device)
+        opt = make_optimizer(lr=PARALLEL_LR, fused=True)
+        base = parallel_cfg(model).replace(**over)
+        whole = create_train_state(0, base, opt, device=mesh.device)
+        cfg, state, specs, _, step = parallel_setup(flags, mesh,
+                                                    whole.params, opt, base)
+        del whole
+        torch.cuda.empty_cache()
+        batch = sharded.shard_batch(parallel_batch(B, 17, mesh.device), mesh)
+        if kind == "eval":
+            evaluate = sharded.make_parallel_eval_step(
+                cfg, mesh, tp=tp > 1, sp=sp, ep=ep > 1,
+                param_specs=specs.params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        losses, norms, ms = [], [], []
+        for _ in range(1 + COMPOSE_STEPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if kind == "eval":
+                _, loss = evaluate(state.params, batch)
+            else:
+                state, m = step(state, batch)
+                loss = m["loss"]
+                norms.append(float(m["grad_norm"]))
+            losses.append(float(loss))
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t))
+        got = {"losses": losses, "grad_norms": norms, "warmup_ms": ms[0],
+               "ms": ms[1:], "call_ms": statistics.median(ms[1:]),
+               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "launches": counts(),
+               "rank_params_m": sum(t.numel() for t in leaves(state.params))
+               / 1e6}
+        if kind == "eval":
+            with torch.no_grad():
+                _, src = encode_tome(
+                    sharded.forward_params(state.params, specs.params, mesh),
+                    batch["image"], cfg, return_sources=True, mesh=mesh)
+            got["sources"] = src.to(torch.uint8).cpu().numpy()
+        out["b"][name] = got
+        del state, batch
+        torch.cuda.empty_cache()
+    return out
+
+
+def compose_reference_b(name: str) -> dict:
+    """(b)'s one-process run on the card at the global batch: its losses
+    (and grad norms) over one warm-up and COMPOSE_STEPS calls, the median
+    call time after the warm-up, its peak memory."""
+    from vitx_torch.train.step import (create_train_state, eval_step,
+                                       make_optimizer, train_step)
+
+    case, kind, B, over = COMPOSE_B[name]
+    cfg = parallel_cfg(COMPOSE[case][2]).replace(**over)
+    opt = make_optimizer(lr=PARALLEL_LR, fused=True)
+    state = create_train_state(0, cfg, opt)
+    batch = parallel_batch(B, 17, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, ms = [], [], []
+    for _ in range(1 + COMPOSE_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if kind == "eval":
+            _, loss = eval_step(state.params, batch, cfg=cfg)
+        else:
+            state, m = train_step(state, batch, cfg=cfg, optimizer=opt)
+            loss = m["loss"]
+            norms.append(float(m["grad_norm"]))
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t))
+    out = {"losses": losses, "grad_norms": norms,
+           "call_ms": statistics.median(ms[1:]),
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del state, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def compose_a(got: dict) -> None:
+    """(a): each depth-2 fp32 run on the card ranks against one process
+    on the CPU from the same weights: loss, grad_norm and every gradient
+    within FP32_TOL, the params within ``param_gap``'s allowance. The
+    fused runs are the same function as the split ones: their reference
+    is the CPU's step of the config without the fusions."""
+    refs = {}
+    for name, card in got.items():
+        flags, world, model, over = COMPOSE[name]
+        key = (model, over.get("tome_r", 0))
+        if key not in refs:
+            refs[key] = parallel_reference_a(
+                model, **{k: v for k, v in over.items()
+                          if k.startswith("tome")})
+        ref = refs[key]
+        gc = [torch.from_numpy(g) for g in card["grads"]]
+        errs = {k: abs(card[k] - ref[k]) / max(abs(ref[k]), 1e-12)
+                for k in ("loss", "grad_norm")}
+        errs["grads"], worst = grads_rel_err(gc, ref["grads"], ref["names"])
+        gap = param_gap(gc, ref["grads"],
+                        [torch.from_numpy(t) for t in card["params"]],
+                        ref["params"], 1e-4, 1e-8, ref["names"])
+        emit({"phase": "compose", "part": f"a: {name} base16 widths depth "
+              f"2 fp32, {world} ranks on the card vs one process on the "
+              "CPU", "mesh": dict(zip(("dp", "tp", "ep", "zero", "sp"),
+                                      flags)), "config": over,
+              "card": {k: card[k] for k in ("loss", "grad_norm")},
+              "cpu": {k: ref[k] for k in ("loss", "grad_norm")},
+              "rel_err": errs, "grads_worst_leaf": worst, "params": gap,
+              "tol": FP32_TOL})
+        if not (max(errs.values()) <= FP32_TOL and gap["worst"] <= 1.0):
+            raise AssertionError(f"compose (a) {name}: {errs}, {gap}")
+
+
+def compose_expected(name: str, calls: int) -> dict:
+    """A (b) rank's launches over ``calls`` calls, per the code's routing
+    (base16's 12 blocks; every block's attention at D 64 in bf16, so B8's
+    and K1's on the sm90 GEMM and attention, B2's on its sm90 kernel):
+
+    - ToMe eval, split: none (``composed_tome`` and the MLP's products
+      split over the heads and columns, vitx's XLA route);
+    - ToMe eval, gathered: B8 and K2 once a block;
+    - ToMe train, gathered attention: B8 once a block (its backward
+      differentiates ``composed_tome``), B3 for LN1 in that backward and
+      LN2 of the split MLP, the head's LayerNorm, B12 once;
+    - tp2 + sp, both halves gathered: K1 and K2 with their stashes and B2
+      once a block, B3 for both LayerNorms, the head's, B12 once;
+    - tp2 x ep2, attention gathered: the single-process step's K1 12, B2
+      12, B3 25 (the MLP halves split or Soft-MoE), B12 once."""
+    case, kind, _, over = COMPOSE_B[name]
+    cfg = parallel_cfg(COMPOSE[case][2]).replace(**over)
+    n = cfg.depth * calls
+    b3 = (2 * cfg.depth + head_lns(cfg) + int(cfg.final_norm)) * calls
+    if name == "tome_eval_split":
+        return launches_of()
+    if name == "tome_eval_gathered":
+        return block_launches(cfg, fused_mha_block_tome=n, fused_mlp_block=n)
+    if name == "tome_train_gathered":
+        return block_launches(cfg, fused_mha_block_tome=n, ln_bwd=b3,
+                              fused_adamw_multi_=calls)
+    if name == "tp2_sp_fused":
+        return block_launches(cfg, fused_mha_block=n, fused_mlp_block=n,
+                              attention_bwd=n,
+                              attention_bwd_sm90=n * sm90(cfg), ln_bwd=b3,
+                              fused_adamw_multi_=calls)
+    return expected_train_launches(cfg, calls, calls)
+
+
+def compose_b(ranks: list, refs: dict) -> dict:
+    """(b): each full-width run's first loss (and grad_norm) within
+    PARALLEL_TOL of one process's on the card, the losses finite, the
+    launches exact in every rank, under ToMe the merges bit for bit the
+    same on every rank; -> every rank's launches summed over the runs."""
+    launches = {}
+    for name in ranks[0]["b"]:
+        mine = [r["b"][name] for r in ranks]
+        ref = refs[name]
+        case, kind, B, over = COMPOSE_B[name]
+        keys = [("loss", "losses")] + ([("grad_norm", "grad_norms")]
+                                       if kind == "train" else [])
+        errs = {k: abs(mine[0][key][0] - ref[key][0]) / abs(ref[key][0])
+                for k, key in keys}
+        expect = compose_expected(name, 1 + COMPOSE_STEPS)
+        for r, m in enumerate(mine):
+            expect_launches(f"compose (b) {name} rank {r}", m["launches"],
+                            expect)
+        same = None
+        if "sources" in mine[0]:
+            same = all(np.array_equal(m["sources"], mine[0]["sources"])
+                       for m in mine)
+        flags = COMPOSE[case][0]
+        emit({"phase": "compose", "part": f"b: {name} full width bf16 at "
+              f"b{B} global, {len(mine)} ranks sharing the card (gloo)",
+              "card": smi(), "kind": kind, "config": over,
+              "mesh": dict(zip(("dp", "tp", "ep", "zero", "sp"), flags)),
+              "losses": mine[0]["losses"],
+              "grad_norms": mine[0]["grad_norms"],
+              "one_process": {k: ref[k] for k in ("losses", "grad_norms")},
+              "rel_err": errs, "tol": PARALLEL_TOL,
+              "merges_equal_on_every_rank": same,
+              "note": "shared card, not scaling",
+              "call_ms_per_rank": [m["call_ms"] for m in mine],
+              "call_ms_runs_per_rank": [m["ms"] for m in mine],
+              "warmup_ms_per_rank": [m["warmup_ms"] for m in mine],
+              "peak_memory_gb_per_rank": [m["peak_memory_gb"]
+                                          for m in mine],
+              "rank_params_m": [m["rank_params_m"] for m in mine],
+              "one_process_call_ms": ref["call_ms"],
+              "one_process_peak_memory_gb": ref["peak_memory_gb"],
+              "launches_per_call_per_rank": [
+                  {k: v // (1 + COMPOSE_STEPS) for k, v in
+                   m["launches"].items() if v} for m in mine]})
+        if max(errs.values()) > PARALLEL_TOL:
+            raise AssertionError(f"compose (b) {name}: {errs}")
+        if same is False:
+            raise AssertionError(f"compose (b) {name}: the ranks merged "
+                                 "differently")
+        for m in mine:
+            if not np.isfinite(m["losses"] + m["grad_norms"]).all():
+                raise AssertionError(f"compose (b) {name}: losses "
+                                     f"{m['losses']}")
+            launches = add_launches(launches, m["launches"])
+    return launches
+
+
+COMPOSE_TOME_T = (184, 54)   # B8's first and last merged lengths at r=13
+
+
+def check_compose_kernels(errs: dict) -> None:
+    """(c): the kernels of the gathered routes at a rank's shapes against
+    their plain versions in bf16 (BF16_TOL), each twice bit for bit: B8
+    at the r=13 encoder's merged lengths (32, 184, 768) and (32, 54,
+    768) (a random QKV bias and log_size, ``tome_inputs``), K1 and K2
+    with their stashes at a tp + sp rank's gathered (32, 197, 768)."""
+    from vitx_torch.kernels import (fused_mha_block, fused_mha_block_tome,
+                                    fused_mlp_block, mha_block_plain,
+                                    mha_block_tome_plain, mlp_block_plain)
+
+    bf = torch.bfloat16
+    B, E, H = 32, 768, 12
+    for T in COMPOSE_TOME_T:
+        info = {"dtype": str(bf), "shape": [B, T, E], "heads": H}
+        x, tm = tome_inputs(B, T, E, H, bf, 140 + T)
+        n90 = fused_mha_block_tome.launches_attn_sm90
+        out = fused_mha_block_tome(x, **tm)
+        torch.cuda.synchronize()
+        if fused_mha_block_tome.launches_attn_sm90 != n90 + 1:
+            raise AssertionError(f"compose (c) B8 {info}: not on the sm90 "
+                                 "attention")
+        check("compose", "fused_mha_block_tome_sm90 (out, k_mean) at a "
+              "merged length", out, mha_block_tome_plain(x, **tm),
+              BF16_TOL, errs, "fused_mha_block_tome_sm90", **info)
+        bitwise("compose", "fused_mha_block_tome_sm90, twice",
+                fused_mha_block_tome(x, **tm), out, **info)
+        del x, tm, out
+    T = 197
+    info = {"dtype": str(bf), "shape": [B, T, E], "heads": H}
+    x, mha, mlpw = block_inputs(B, T, E, H, 4 * E, bf, 150, "cuda")
+    for kern, plain, w, key, extra in (
+            (fused_mha_block, mha_block_plain, mha, "fused_mha_block", {}),
+            (fused_mlp_block, mlp_block_plain, mlpw, "fused_mlp_block",
+             {"act": "gelu_tanh"})):
+        n90 = kern.launches_sm90
+        out = kern(x, **w, **extra, stash=True)
+        torch.cuda.synchronize()
+        name = key + ("_sm90" if kern.launches_sm90 > n90 else "")
+        check("compose", f"{name} with its stash", out,
+              plain(x, **w, **extra, stash=True), BF16_TOL, errs, name,
+              **info)
+        bitwise("compose", f"{name} with its stash, twice",
+                kern(x, **w, **extra, stash=True), out, **info)
+    del x, mha, mlpw, out
+    torch.cuda.empty_cache()
+
+
+def compose_kernel_shapes(launches: dict, errs: dict) -> dict:
+    """(c)'s shapes as more ``shapes`` of the rows, bf16: B8's two rows
+    (``tome_rows_at``) at (32, 184, 768) and (32, 54, 768); K1's sm90 row
+    with its stash and K2's with its stash at (32, 197, 768)."""
+    import torch.nn.functional as F
+
+    from vitx_torch.kernels import (fused_mha_block, fused_mlp_block,
+                                    mha_block_plain, mlp_block_plain)
+
+    c = parallel_cfg("dp2")
+    rows = []
+    for T in COMPOSE_TOME_T:
+        rows += tome_rows_at(c, 32, T, launches, errs)
+    bf = torch.bfloat16
+    eps = 1e-5
+    B, T, E, H = 32, 197, 768, 12
+    M = 4 * E
+    of = "a tp 2 + sp rank's gathered half of base16 b32"
+    x, mha, mlpw = block_inputs(B, T, E, H, M, bf, 151, "cuda")
+    rows.append(kernel_row(
+        "fused_mha_block_sm90",
+        lambda: fused_mha_block(x, **mha, eps=eps, stash=True),
+        lambda: mha_block_plain(x, **mha, eps=eps, stash=True),
+        sdpa_mha(x, mha, H, eps),
+        2 * B * T * E * 4 * E + 4 * B * H * T * T * (E // H),
+        PEAK_BF16_FLOPS, 6 * B * T * E * 2 + 4 * E * E * 2 + 3 * E * 4
+        + 2 * B * H * T * 4, launches, errs, shape=[B, T, E], heads=H,
+        stash=True, of=of))
+    w1t, w2t = (mlpw[k].t().contiguous() for k in ("w1", "w2"))
+
+    def mlp_lib():
+        h = F.layer_norm(x, (E,), mlpw["g"].to(bf), mlpw["b"].to(bf), eps)
+        h = F.gelu(F.linear(h, w1t, mlpw["b1"].to(bf)), approximate="tanh")
+        return F.linear(h, w2t, mlpw["b2"].to(bf))
+    rows.append(kernel_row(
+        "fused_mlp_block_sm90",
+        lambda: fused_mlp_block(x, **mlpw, act="gelu_tanh", eps=eps,
+                                stash=True),
+        lambda: mlp_block_plain(x, **mlpw, act="gelu_tanh", eps=eps,
+                                stash=True),
+        mlp_lib, 4 * B * T * E * M, PEAK_BF16_FLOPS,
+        2 * B * T * E * 2 + 2 * E * M * 2 + B * T * M * 2 + (M + 3 * E) * 4,
+        launches, errs, shape=[B, T, E], M=M, stash=True, of=of))
+    del x, mha, mlpw, w1t, w2t
+    torch.cuda.empty_cache()
+    extra: dict = {}
+    for row in rows:
+        extra.setdefault(row["name"], []).append(shape_entry(row))
+    return extra
+
+
+def phase_compose(errs: dict) -> tuple:
+    """Main path 16 (module docstring): the last compositions, ToMe's
+    merging encoder on a tensor-parallel mesh and fused blocks under
+    sequence and expert parallelism. Returns (every rank's launches of
+    (b), (c)'s shape entries for the kernels line)."""
+    from vitx_torch.parallel import spawn
+
+    t0 = time.perf_counter()
+    refs = {name: compose_reference_b(name) for name in COMPOSE_B}
+    t_ref = time.perf_counter()
+    ranks = {}
+    for world in sorted({w for _, w, _, _ in COMPOSE.values()}):
+        a = [n for n, (_, w, _, _) in COMPOSE.items() if w == world]
+        b = [n for n, (case, *_) in COMPOSE_B.items()
+             if COMPOSE[case][1] == world]
+        ranks[world] = spawn(compose_rank, world, (a, b), device="cuda")
+    t_spawn = time.perf_counter()
+    emit({"phase": "compose", "backend": ranks[2][0]["backend"],
+          "card": smi()})
+    compose_a({k: v for r in ranks.values() for k, v in r[0]["a"].items()})
+    t_a = time.perf_counter()
+    launches = add_launches(*(compose_b(r, refs) for r in ranks.values()))
+    del ranks
+    t_b = time.perf_counter()
+    check_compose_kernels(errs)
+    extra = compose_kernel_shapes({}, errs)
+    emit({"phase": "compose", "part": "seconds",
+          "one_process_refs": t_ref - t0, "ranks_a_b": t_spawn - t_ref,
+          "a": t_a - t_spawn, "b": t_b - t_a,
+          "c": time.perf_counter() - t_b})
+    return launches, extra
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--phases", default=",".join(PHASES),
@@ -8654,6 +9102,10 @@ def main(argv=None) -> int:
     if "pipeline" in phases:
         pipeline_launches, pipeline_extra = phase_pipeline(errs)
     lap("pipeline")
+    compose_launches, compose_extra = {}, {}
+    if "compose" in phases:
+        compose_launches, compose_extra = phase_compose(errs)
+    lap("compose")
     export_launches, huge14_launches, huge14_inputs = {}, {}, None
     if "artifacts" in phases:
         export_launches = phase_artifacts(cfg, params)
@@ -8667,7 +9119,8 @@ def main(argv=None) -> int:
                             pretrained_launches, families_launches,
                             optim_launches, pretrain_launches,
                             parallel_launches, pipeline_launches,
-                            export_launches, huge14_launches)
+                            compose_launches, export_launches,
+                            huge14_launches)
     if "times" in phases:
         rows = phase_times(cfg, params, errs, launches)
         if tome_launches:
@@ -8708,6 +9161,8 @@ def main(argv=None) -> int:
             extras.append(parallel_extra)
         if pipeline_extra:
             extras.append(pipeline_extra)
+        if compose_extra:
+            extras.append(compose_extra)
         del huge14_inputs
         for extra in extras:
             for row in rows:
@@ -8731,6 +9186,7 @@ def main(argv=None) -> int:
                 "pretrain": pretrain_launches.get(row["name"], 0),
                 "parallel": parallel_launches.get(row["name"], 0),
                 "pipeline": pipeline_launches.get(row["name"], 0),
+                "compose": compose_launches.get(row["name"], 0),
                 "export": export_launches.get(row["name"], 0),
                 "huge14": huge14_launches.get(row["name"], 0)}
             if row["name"] in stash:

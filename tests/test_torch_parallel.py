@@ -11,8 +11,12 @@ state equals the part of vitx's placed state its mesh position holds
 (``interop.jax_params.local_state_from_jax``), the loss, grad_norm and
 every leaf's gradient at 1e-4, the params after the step within the Adam
 step's allowance, the eval step's confusion matrix exactly and its loss
-at 1e-4. Besides: the shard tables against vitx's for base16, LoRA and
-Soft-MoE configs; random draws under dp against the single-process port;
+at 1e-4. The cases cover the merging encoder at tp2 (``tome_train``, its
+split route and B8/K2 over gathered weights; the merges the same on
+every rank and equal to the one-process port's) and fused blocks under
+sp and tp x ep. Besides: the shard tables against vitx's for base16,
+LoRA and Soft-MoE configs; random draws under dp, and through the
+merging encoder under tp, against the single-process port;
 a sharded Trainer's ``.ckpt`` resume; the train CLI and the dryrun; the
 refusals; and that the port imports no JAX.
 """
@@ -46,8 +50,11 @@ TOL = 1e-4
 KW = dict(image_size=32, depth=2, compute_dtype="float32")
 MOE = dict(KW, moe_experts=2, moe_blocks=1)
 B = 8
-WORLD2 = ["dp2", "zero1", "zero2", "zero3", "tp2", "tp2_sp", "ep2"]
-WORLD4 = ["dp4", "dp2_tp2"]
+WORLD2 = ["dp2", "zero1", "zero2", "zero3", "tp2", "tp2_sp", "ep2",
+          "tp2_tome", "tp2_tome_fused", "tp2_sp_fused"]
+WORLD4 = ["dp4", "dp2_tp2", "tp2_ep2_fused"]
+# run in the world-2 spawn beside WORLD2, held by a test of their own
+DRAWS2 = ["tp2_tome_draws"]
 
 
 def payload() -> dict:
@@ -55,7 +62,7 @@ def payload() -> dict:
     rng = np.random.default_rng(3)
     return {"cfg": tcfg.to_json(), "moe_cfg": mcfg.to_json(),
             "params": draw(param_spec(tcfg), 0),
-            "moe_params": draw(param_spec(mcfg), 1),
+            "moe_params": draw(param_spec(mcfg), 1), "seed": 7,
             "batch": {"image": rng.standard_normal(
                 (B, 32, 32, 3)).astype(np.float32),
                 "label": rng.integers(0, 4, B).astype(np.int32)}}
@@ -68,7 +75,8 @@ def vitx_case(name: str) -> dict:
     params after one AdamW step, the eval step's outputs."""
     case, pl = H.CASES[name], payload()
     moe = case.get("moe")
-    cfg = vitx.get_config("tiny", **(MOE if moe else KW))
+    cfg = vitx.get_config("tiny", **(MOE if moe else KW),
+                          **case.get("over", {}))
     params = pl["moe_params" if moe else "params"]
     tp, sp, ep = case.get("tp", 1) > 1, bool(case.get("sp")), \
         case.get("ep", 1) > 1
@@ -118,7 +126,7 @@ def _spawn(world, names, tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def port2(tmp_path_factory):
-    return _spawn(2, WORLD2, tmp_path_factory)
+    return _spawn(2, WORLD2 + DRAWS2, tmp_path_factory)
 
 
 @pytest.fixture(scope="module")
@@ -151,6 +159,18 @@ def test_case_matches_vitx_sharded_step(name, request):
     assert gap <= 1.0, gap
     assert np.array_equal(got["cm"], ref["cm"]) and got["cm"].sum() == B
     assert rel_err(got["eval_loss"], ref["eval_loss"]) <= TOL
+    if "tome_r" in H.CASES[name].get("over", {}):
+        # the merges: the same bytes on every model rank, and those of the
+        # one-process port
+        for r, rank in enumerate(ranks):
+            assert np.array_equal(rank[name]["sources"], got["sources"]), r
+        cfg = vitx_torch.get_config("tiny", **KW, **H.CASES[name]["over"])
+        with torch.no_grad():
+            _, one = vitx_torch.encode_tome(
+                H.to_torch(payload()["params"]),
+                torch.from_numpy(payload()["batch"]["image"]), cfg,
+                return_sources=True)
+        assert np.array_equal(got["sources"], one.numpy())
 
 
 def _norm(spec) -> tuple:
@@ -230,6 +250,30 @@ def test_draws_under_dp_match_one_process(tmp_path):
     for _ in range(2):
         state, m = tstep.train_step(state, pl["batch"], gen, cfg=cfg,
                                     optimizer=opt, device="cpu", **knobs)
+        hist.append((float(m["loss"]), float(m["grad_norm"])))
+    np.testing.assert_allclose(got["hist"], hist, rtol=TOL)
+    want = H.flat(state.params)
+    for k in want:
+        np.testing.assert_allclose(got["params"][k], want[k], atol=1e-5)
+
+
+def test_tome_train_draws_under_tp_match_one_process(port2):
+    """tp2 through the merging encoder with dropout and drop-path, from a
+    generator seeded alike on both ranks (run in the world-2 spawn): two
+    steps equal the single-process port's with that seed (the masks on
+    the replicated stream drawn alike on every model rank)."""
+    got = port2[0]["tp2_tome_draws"]
+    cfg = vitx_torch.get_config("tiny", **KW,
+                                **H.CASES["tp2_tome_draws"]["over"])
+    pl = payload()
+    opt = tstep.make_optimizer(lr=H.LR, weight_decay=H.WD)
+    params = H.to_torch(pl["params"])
+    state = tstep.TrainState(0, params, opt.init(params))
+    gen = torch.Generator().manual_seed(pl["seed"])
+    hist = []
+    for _ in range(H.CASES["tp2_tome_draws"]["draws"]):
+        state, m = tstep.train_step(state, pl["batch"], gen, cfg=cfg,
+                                    optimizer=opt, device="cpu")
         hist.append((float(m["loss"]), float(m["grad_norm"])))
     np.testing.assert_allclose(got["hist"], hist, rtol=TOL)
     want = H.flat(state.params)

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from vitx_torch.core.config import ViTConfig
+from vitx_torch.nn.tome import encode_tome
 from vitx_torch.parallel import make_mesh, sharded
 from vitx_torch.train.step import (TrainState, _to_device, gradients,
                                    leaf_paths, leaves, loss_fn,
@@ -32,6 +33,21 @@ CASES = {
     "tp2_sp": dict(world=2, dp=1, tp=2, sp=True),
     "dp2_tp2": dict(world=4, dp=2, tp=2),
     "ep2": dict(world=2, dp=1, ep=2, moe=True),
+    # the merging encoder on a model axis: the split route, and B8 and K2
+    # over gathered weights; fused halves under sp and under tp x ep
+    "tp2_tome": dict(world=2, dp=1, tp=2,
+                     over=dict(tome_r=4, tome_train=True)),
+    "tp2_tome_fused": dict(world=2, dp=1, tp=2,
+                           over=dict(tome_r=4, tome_train=True,
+                                     fuse_mha="on", fuse_mlp="on")),
+    "tp2_sp_fused": dict(world=2, dp=1, tp=2, sp=True,
+                         over=dict(fuse_mha="on", fuse_mlp="on")),
+    "tp2_ep2_fused": dict(world=4, dp=1, tp=2, ep=2, moe=True,
+                          over=dict(fuse_mha="on")),
+    # two stochastic ToMe-train steps at tp2 from a seeded generator
+    "tp2_tome_draws": dict(world=2, dp=1, tp=2, draws=2,
+                           over=dict(tome_r=4, tome_train=True, dropout=0.1,
+                                     drop_path=0.2)),
 }
 
 
@@ -55,7 +71,8 @@ def case_setup(case: dict, payload: dict, device="cpu"):
     tp, sp = case.get("tp", 1) > 1, bool(case.get("sp"))
     ep = case.get("ep", 1) > 1
     cfg = ViTConfig.from_json(payload["moe_cfg" if case.get("moe")
-                                      else "cfg"])
+                                      else "cfg"]).replace(
+                                          **case.get("over", {}))
     cfg = sharded.ep_cfg(sharded.sp_cfg(sharded.tp_safe_cfg(cfg, tp), tp,
                                         sp), mesh, ep)
     opt = make_optimizer(lr=LR, weight_decay=WD, **payload.get("opt", {}))
@@ -83,11 +100,24 @@ def run_case(case: dict, payload: dict, device="cpu"):
     mesh, cfg, opt, whole, specs, gspecs, (tp, sp, ep, zero) = \
         case_setup(case, payload, device)
     state = sharded.place_state(whole, cfg, mesh, specs=specs)
+    if case.get("draws"):
+        return draw_steps(mesh, cfg, opt, state, specs, payload,
+                          case["draws"])
+    batch = sharded.shard_batch(payload["batch"], mesh)
+    sources = None
+    if cfg.tome_r:
+        # every rank's merges: the partition of the tokens (sizes are its
+        # row sums)
+        with torch.no_grad():
+            _, sources = encode_tome(
+                sharded.forward_params(state.params, specs.params, mesh),
+                torch.from_numpy(batch["image"]), cfg, return_sources=True,
+                mesh=mesh)
+        sources = sources.numpy()
     placed = {"params": flat(state.params),
               "slots": {f"{name}/{k}": v.shape for name in
                         state.opt_state.SLOTS for k, v in
                         flat(getattr(state.opt_state, name)).items()}}
-    batch = sharded.shard_batch(payload["batch"], mesh)
     plan = sharded.Plan(specs, mesh, state.params, gspecs)
     train_filter = payload.get("opt", {}).get("trainable")
     p, wrt = trainable_params(state.params, train_filter)
@@ -105,14 +135,32 @@ def run_case(case: dict, payload: dict, device="cpu"):
             state.params, batch)
     out = sharded.gather_state(state, specs, mesh)
     if mesh.rank:
-        return {"placed": placed}
+        return {"placed": placed, "sources": sources}
     names = ["/".join(q) for q, w in zip(leaf_paths(out.params), wrt) if w]
     return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
             "accuracy": float(m["accuracy"]),
             "grads": {n: g.float().cpu().numpy()
                       for n, g in zip(names, grads)},
             "params": flat(out.params), "cm": cm.cpu().numpy(),
-            "eval_loss": float(eloss), "placed": placed}
+            "eval_loss": float(eloss), "placed": placed, "sources": sources}
+
+
+def draw_steps(mesh, cfg, opt, state, specs, payload: dict, steps: int,
+               **knobs):
+    """``steps`` sharded steps (``knobs``: the step's) from a generator
+    seeded with ``payload["seed"]``, the same on every rank -> (rank 0)
+    their losses and grad norms and the params after them."""
+    step = sharded.make_parallel_train_step(
+        cfg, opt, mesh, tp=mesh.tp > 1, state_shardings=specs,
+        sp=bool(cfg.sp), ep=bool(cfg.ep), **knobs)
+    gen = torch.Generator(device=mesh.device).manual_seed(payload["seed"])
+    batch = sharded.shard_batch(payload["batch"], mesh)
+    hist = []
+    for _ in range(steps):
+        state, m = step(state, batch, gen)
+        hist.append((float(m["loss"]), float(m["grad_norm"])))
+    out = sharded.gather_state(state, specs, mesh)
+    return None if mesh.rank else {"hist": hist, "params": flat(out.params)}
 
 
 def run_cases(ctx, names: list, payload: dict) -> dict:
@@ -131,16 +179,8 @@ def run_draws(ctx, payload: dict, steps: int = 2):
     whole = TrainState(0, params, opt.init(params))
     specs = sharded.state_sharding(whole, cfg, mesh)
     state = sharded.place_state(whole, cfg, mesh, specs=specs)
-    step = sharded.make_parallel_train_step(
-        cfg, opt, mesh, state_shardings=specs, **payload["knobs"])
-    gen = ctx.generator(payload["seed"])
-    batch = sharded.shard_batch(payload["batch"], mesh)
-    hist = []
-    for _ in range(steps):
-        state, m = step(state, batch, gen)
-        hist.append((float(m["loss"]), float(m["grad_norm"])))
-    out = sharded.gather_state(state, specs, mesh)
-    return None if mesh.rank else {"hist": hist, "params": flat(out.params)}
+    return draw_steps(mesh, cfg, opt, state, specs, payload, steps,
+                      **payload["knobs"])
 
 
 class GradCapture:

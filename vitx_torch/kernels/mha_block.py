@@ -465,7 +465,9 @@ def composed_tome(x, wqkv, bqkv, wo, bo, g, b, log_size, *,
     product, bo is cast and added after the out-projection's cast, and
     k_mean is the mean of the cast k. The kernel-free route on the card,
     the CPU route when the fused rule says no, and what B8's backward
-    differentiates."""
+    differentiates. On a tensor-parallel rank ``wqkv``/``bqkv`` hold its
+    H/tp heads and ``wo`` their rows: out is the rank's partial
+    out-projection and k_mean the mean over its heads."""
     B, T, E = x.shape
     H, D = wqkv.shape[2], wqkv.shape[3]
     h = layer_norm(x, g, b, eps=eps)
@@ -480,7 +482,7 @@ def composed_tome(x, wqkv, bqkv, wo, bo, g, b, log_size, *,
     logits = matmul32(q, k.transpose(-1, -2)) / (D ** 0.5)
     logits = logits + log_size.float()[:, None, None, :]
     probs = torch.softmax(logits, dim=-1).to(dt)
-    o = dot(probs, v).transpose(1, 2).reshape(B, T, E)
+    o = dot(probs, v).transpose(1, 2).reshape(B, T, H * D)
     out = dot(o, wo.to(dt)) + bo.to(dt)
     return out, k.float().mean(dim=1).to(dt)
 

@@ -21,6 +21,11 @@ the same encoder under autograd with dropout and drop-path from one
 ``torch.Generator``: gradients flow through the size-weighted merges, the
 selection is routing and carries none. On CUDA B8's backward
 differentiates ``composed_tome`` (its LayerNorm's backward B3).
+
+On a tensor-parallel rank (``mesh=``, vitx's sharded eval and train
+steps) the encoder runs vitx's two routes: with ``fuse_mha="on"`` B8
+over every head on gathered weights (K2 too with ``fuse_mlp="on"``),
+otherwise the Megatron split of ``composed_tome`` and the MLP.
 """
 
 from __future__ import annotations
@@ -32,9 +37,11 @@ from vitx_torch.core.device import card_routes
 from vitx_torch.kernels.mha_block import composed_tome, fused_mha_block_tome
 from vitx_torch.kernels.mlp_block import fused_mlp_block
 from vitx_torch.nn.layers import drop_path, dropout, layer_norm, mlp
-from vitx_torch.nn.lora import merge_block
-from vitx_torch.nn.vit import (_final_norm, _use_fused_mlp, drop_path_rates,
-                               embed_tokens, unstack)
+from vitx_torch.nn.vit import (ATTN_LEAVES, MLP_LEAVES, _final_norm, _tp,
+                               _use_fused_mlp, drop_path_rates, embed_tokens,
+                               gather_model_shards, merge_tp_lora, unstack)
+from vitx_torch.parallel import comm
+from vitx_torch.parallel.mesh import MODEL_AXIS
 
 
 def parse_tome_r(s):
@@ -162,9 +169,78 @@ def merge_tokens(x, sizes, metric, r: int, n_prefix: int, n_reg: int,
     return x_out, s_out, join(sources, _take(srca, keep), srcb_new)
 
 
+def _attention(x, bp, cfg: ViTConfig, log_size, fused: bool, mesh):
+    """Block ``bp``'s attention half on the tokens x -> (attn_out, the
+    merge metric): B8 (``fused``) or ``composed_tome``. On a rank of a
+    model axis, B8 runs every head on gathered weights (vitx's fused
+    partition rule replicates them); ``composed_tome`` runs the rank's
+    H/tp heads (the Megatron split): x and LN1's leaves enter through
+    ``copy_to``, the partial out-projection leaves through
+    ``reduce_from`` before ``bo``, and the metric, vitx's mean of the
+    cast k over all H heads, is the rank's head mean summed over
+    ``model`` and divided by tp."""
+    dt = x.dtype
+    split = _tp(mesh) and not fused
+    if _tp(mesh) and fused:
+        bp = gather_model_shards(bp, mesh, ATTN_LEAVES)
+    H, D = bp["wqkv"].shape[-2], bp["wqkv"].shape[-1]
+    bq = (bp["bqkv"].float() if "bqkv" in bp else
+          torch.zeros((3, H, D), dtype=torch.float32, device=x.device))
+    bo = (bp["bo"].float() if "bo" in bp and not split else
+          torch.zeros(x.shape[-1], dtype=torch.float32, device=x.device))
+    g, b = bp["ln1_scale"].float(), bp["ln1_bias"].float()
+    if split:
+        x, g, b = (comm.copy_to(t, mesh, MODEL_AXIS) for t in (x, g, b))
+    out, k_mean = (fused_mha_block_tome if fused else composed_tome)(
+        x, bp["wqkv"].to(dt), bq, bp["wo"].to(dt), bo, g, b, log_size,
+        eps=cfg.layer_norm_eps)
+    if not split:
+        # on a model axis every rank runs B8 on the same bytes (x and the
+        # gathered weights agree), so the metric agrees as well
+        return out, k_mean
+    out = comm.reduce_from(out, mesh, MODEL_AXIS)
+    if "bo" in bp:
+        out = out + bp["bo"].to(dt)
+    # merge_tokens' indices come from the metric, so every model rank
+    # must read the same bytes: the metric is the output of one
+    # all-reduce, which hands every rank the same buffer (and x, the
+    # other input of the merge, is built only from all-reduce outputs
+    # and masks drawn alike). That costs nothing beyond the sum the mean
+    # needs anyway, where broadcasting the indices would add a collective
+    # and a second route through merge_tokens. Only the selection reads
+    # the metric, so no gradient flows through the sum.
+    k_sum = comm.all_reduce_(k_mean.detach().float().clone(), mesh,
+                             MODEL_AXIS)
+    return out, (k_sum / mesh.tp).to(dt)
+
+
+def _mlp(x, bp, cfg: ViTConfig, fused: bool, mesh):
+    """Block ``bp``'s MLP half on the merged tokens x: K2 (``fused``; on
+    a rank of a model axis over gathered weights), or LN2 and the
+    composed products (on such a rank split by columns and rows: the
+    normalised tokens enter through ``copy_to``, the second product
+    leaves through ``reduce_from`` before ``b2``)."""
+    dt = x.dtype
+    if fused:
+        if _tp(mesh):
+            bp = gather_model_shards(bp, mesh, MLP_LEAVES)
+        return fused_mlp_block(
+            x, bp["w1"].to(dt), bp["b1"].float(), bp["w2"].to(dt),
+            bp["b2"].float(), bp["ln2_scale"].float(),
+            bp["ln2_bias"].float(), act=cfg.mlp_act, eps=cfg.layer_norm_eps)
+    h = layer_norm(x, bp["ln2_scale"], bp["ln2_bias"], eps=cfg.layer_norm_eps)
+    if not _tp(mesh):
+        return mlp(h, bp["w1"], bp["b1"], bp["w2"], bp["b2"],
+                   act=cfg.mlp_act, w3=bp.get("w3"), b3=bp.get("b3"))
+    out = mlp(comm.copy_to(h, mesh, MODEL_AXIS), bp["w1"], bp["b1"],
+              bp["w2"], torch.zeros_like(bp["b2"]), act=cfg.mlp_act,
+              w3=bp.get("w3"), b3=bp.get("b3"))
+    return comm.reduce_from(out, mesh, MODEL_AXIS) + bp["b2"].to(dt)
+
+
 def encode_tome(params, images, cfg: ViTConfig,
                 return_sources: bool = False, *, rng=None,
-                deterministic: bool = True):
+                deterministic: bool = True, mesh=None):
     """The ToMe encoder (``vitx/nn/tome.py:185-312``): images -> final
     tokens (B, T', E), and with ``return_sources`` also the (B, T', T0)
     fp32 partition of the original tokens among them.
@@ -179,7 +255,14 @@ def encode_tome(params, images, cfg: ViTConfig,
     ``deterministic=False``, dropout on the embedded tokens, then on each
     branch dropout and drop-path at ``linspace(0, cfg.drop_path,
     depth)[l]`` before its residual add, drawn in that order (vitx splits
-    its key the same way, ``tome.py:213-256``; the streams differ)."""
+    its key the same way, ``tome.py:213-256``; the streams differ).
+
+    ``mesh``: a rank of a sharded step whose params are its shards. On a
+    ``model`` axis each half runs as ``_attention`` and ``_mlp`` say, the
+    stream of tokens whole and the same on every model rank (the merge
+    included), its dropout and drop-path masks drawn alike on each, as
+    in ``_tp_block``. ``cfg.sp`` is not read: vitx's merging encoder
+    puts no sequence constraint on the tokens."""
     x = embed_tokens(params, images, cfg)
     stochastic = rng is not None and not deterministic
     if stochastic:
@@ -188,13 +271,9 @@ def encode_tome(params, images, cfg: ViTConfig,
     dt, dev = x.dtype, x.device
     use_attn = _use_fused_tome_attn(cfg, x)
     use_mlp = _use_fused_mlp(cfg, x)
-    attn_fn = fused_mha_block_tome if use_attn else composed_tome
     sizes = torch.ones((B, T), dtype=torch.float32, device=dev)
     sources = (torch.eye(T, dtype=torch.float32, device=dev).expand(B, T, T)
                if return_sources else None)
-    zeros_q = torch.zeros((3, cfg.num_heads, cfg.head_dim),
-                          dtype=torch.float32, device=dev)
-    zeros_o = torch.zeros(E, dtype=torch.float32, device=dev)
     n_pre, n_reg = cfg.num_prefix_tokens, cfg.num_registers
     dp_rates = drop_path_rates(cfg, cfg.depth, not stochastic)
 
@@ -209,13 +288,9 @@ def encode_tome(params, images, cfg: ViTConfig,
     for bp, r, rate in zip(unstack(params["blocks"]), cfg.tome_schedule,
                            dp_rates):
         if cfg.lora_rank:
-            bp = merge_block(bp, cfg)
-        attn_out, k_mean = attn_fn(
-            x, bp["wqkv"].to(dt), bp["bqkv"].float() if "bqkv" in bp
-            else zeros_q, bp["wo"].to(dt),
-            bp["bo"].float() if "bo" in bp else zeros_o,
-            bp["ln1_scale"].float(), bp["ln1_bias"].float(),
-            torch.log(sizes), eps=cfg.layer_norm_eps)
+            bp = merge_tp_lora(bp, cfg, mesh)
+        attn_out, k_mean = _attention(x, bp, cfg, torch.log(sizes),
+                                      use_attn, mesh)
         if "ls1" in bp:
             attn_out = attn_out * bp["ls1"].to(dt)
         x = x + branch(attn_out, rate)
@@ -224,17 +299,7 @@ def encode_tome(params, images, cfg: ViTConfig,
                                              n_reg, sources=sources)
         elif r:
             x, sizes = merge_tokens(x, sizes, k_mean, r, n_pre, n_reg)
-        if use_mlp:
-            mlp_out = fused_mlp_block(
-                x, bp["w1"].to(dt), bp["b1"].float(), bp["w2"].to(dt),
-                bp["b2"].float(), bp["ln2_scale"].float(),
-                bp["ln2_bias"].float(), act=cfg.mlp_act,
-                eps=cfg.layer_norm_eps)
-        else:
-            h = layer_norm(x, bp["ln2_scale"], bp["ln2_bias"],
-                           eps=cfg.layer_norm_eps)
-            mlp_out = mlp(h, bp["w1"], bp["b1"], bp["w2"], bp["b2"],
-                          act=cfg.mlp_act, w3=bp.get("w3"), b3=bp.get("b3"))
+        mlp_out = _mlp(x, bp, cfg, use_mlp, mesh)
         if "ls2" in bp:
             mlp_out = mlp_out * bp["ls2"].to(dt)
         x = x + branch(mlp_out, rate)

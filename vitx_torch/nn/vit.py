@@ -25,8 +25,9 @@ same dropout and drop-path masks on the recompute; ``scan_unroll`` is
 accepted and ignored (there is no scan to unroll).
 On a rank of a ``vitx_torch.parallel`` mesh (``mesh=``) the blocks run
 tensor-parallel over its ``model`` axis (``_tp_block``, the composed
-path as vitx under tp, with sequence parallelism under ``cfg.sp``), and
-the Soft-MoE mixture expert-parallel over its ``expert`` axis.
+path as vitx under tp, a half gathered whole where its fusion is "on",
+with sequence parallelism under ``cfg.sp``), and the Soft-MoE mixture
+expert-parallel over its ``expert`` axis.
 """
 
 from __future__ import annotations
@@ -522,17 +523,8 @@ def _mlp_half(x, attn_out, bp, cfg: ViTConfig, *, rng=None,
         x, h = add_layer_norm(x, attn_out, bp["ln2_scale"], bp["ln2_bias"],
                               eps=cfg.layer_norm_eps)
         mlp_out = soft_moe_mlp(h, bp, cfg, mesh=mesh)
-    elif _use_fused_mlp(cfg, x):
-        x = x + attn_out
-        mlp_out = fused_mlp_block(
-            x, bp["w1"].to(dt), bp["b1"].float(), bp["w2"].to(dt),
-            bp["b2"].float(), bp["ln2_scale"].float(),
-            bp["ln2_bias"].float(), act=cfg.mlp_act, eps=cfg.layer_norm_eps)
     else:
-        x, h = add_layer_norm(x, attn_out, bp["ln2_scale"], bp["ln2_bias"],
-                              eps=cfg.layer_norm_eps)
-        mlp_out = mlp(h, bp["w1"], bp["b1"], bp["w2"], bp["b2"],
-                      act=cfg.mlp_act, w3=bp.get("w3"), b3=bp.get("b3"))
+        x, mlp_out = _dense_mlp(x, attn_out, bp, cfg)
     if "ls2" in bp:
         mlp_out = mlp_out * bp["ls2"].to(dt)
     mlp_out = dropout(mlp_out, cfg.dropout, rng, deterministic=deterministic)
@@ -542,6 +534,22 @@ def _mlp_half(x, attn_out, bp, cfg: ViTConfig, *, rng=None,
     return x, mlp_out
 
 
+def _dense_mlp(x, attn_out, bp, cfg: ViTConfig):
+    """A dense block's MLP product -> (x + attn_out, mlp_out): K2, or the
+    add-LayerNorm (LN2) and the composed products."""
+    dt = x.dtype
+    if _use_fused_mlp(cfg, x):
+        x = x + attn_out
+        return x, fused_mlp_block(
+            x, bp["w1"].to(dt), bp["b1"].float(), bp["w2"].to(dt),
+            bp["b2"].float(), bp["ln2_scale"].float(),
+            bp["ln2_bias"].float(), act=cfg.mlp_act, eps=cfg.layer_norm_eps)
+    x, h = add_layer_norm(x, attn_out, bp["ln2_scale"], bp["ln2_bias"],
+                          eps=cfg.layer_norm_eps)
+    return x, mlp(h, bp["w1"], bp["b1"], bp["w2"], bp["b2"], act=cfg.mlp_act,
+                  w3=bp.get("w3"), b3=bp.get("b3"))
+
+
 def _tp(mesh) -> bool:
     return mesh is not None and mesh.tp > 1
 
@@ -549,6 +557,17 @@ def _tp(mesh) -> bool:
 # the replicated LoRA factors whose product with a model-sharded factor
 # gives each rank a part of their gradient (vitx/parallel/sharded.py:61-75)
 _TP_PARTIAL_LORA = ("lora_wqkv_a", "lora_w1_a", "lora_wo_b", "lora_w2_b")
+
+
+def merge_tp_lora(bp: dict, cfg: ViTConfig, mesh) -> dict:
+    """``merge_block`` on a rank of a model axis: the replicated LoRA
+    factors whose product with a model-sharded one gives the rank a part
+    of their gradient enter through ``copy_to``, so it sums over the
+    ranks; off a tensor-parallel mesh, ``merge_block`` itself."""
+    if _tp(mesh):
+        bp = {k: (comm.copy_to(v, mesh, MODEL_AXIS)
+                  if k in _TP_PARTIAL_LORA else v) for k, v in bp.items()}
+    return merge_block(bp, cfg)
 
 
 def _tp_block(x, pending, bp, cfg: ViTConfig, mesh, *, rng=None,
@@ -573,23 +592,23 @@ def _tp_block(x, pending, bp, cfg: ViTConfig, mesh, *, rng=None,
     all-gather) takes each product back to the chunk. The replicated
     leaves that touch the chunk (LayerNorms, ``bo``, ``b2``, LayerScale)
     enter through ``copy_to``, so their gradients sum over the ranks'
-    tokens. A ``fuse_mha``/``fuse_mlp`` of "on" (vitx honours it under
-    tp by gathering the weights) gathers the rank's shards and runs the
-    dense block, without sequence parallelism."""
+    tokens.
+
+    Each half is decided on its own. ``fuse_mha="on"`` (vitx honours it
+    under tp by gathering the weights: its fused kernels' partition rule
+    replicates them) gathers the attention half's shards and runs it
+    whole (K1, or the composed attention where K1's rule says no), and
+    ``fuse_mlp="on"`` a dense block's MLP half likewise (K2); a Soft-MoE
+    block's MLP half is always ``soft_moe_mlp`` on the mesh, its experts
+    split over ``expert``. Under sp a gathered half takes the whole
+    sequence from the rank's chunk (``gather_replicated``, cut to T) and
+    gives its product back to the chunk (``scatter``): every rank
+    computes the same whole function, so each keeps its slice of the
+    gradients."""
     dt = x.dtype
     sp = tokens is not None
     if cfg.lora_rank:
-        bp = {k: (comm.copy_to(v, mesh, MODEL_AXIS)
-                  if k in _TP_PARTIAL_LORA else v) for k, v in bp.items()}
-        bp = merge_block(bp, cfg)
-    if cfg.fuse_mha == "on" or (cfg.fuse_mlp == "on" and "phi" not in bp):
-        if sp or mesh.ep > 1:
-            raise ValueError("sequence and expert parallelism run the "
-                             "composed block: fuse_mha/fuse_mlp='on' does "
-                             "not compose with sp or ep")
-        return _encoder_block(x, pending, gather_model_shards(bp, cfg, mesh),
-                              cfg, rng=rng, deterministic=deterministic,
-                              dp_rate=dp_rate, rope=rope)
+        bp = merge_tp_lora(bp, cfg, mesh)
 
     def rep(name):
         t = bp.get(name)
@@ -611,20 +630,36 @@ def _tp_block(x, pending, bp, cfg: ViTConfig, mesh, *, rng=None,
             y = torch.nn.functional.pad(y, (0, 0, 0, pad))
         return comm.reduce_scatter(y, mesh, MODEL_AXIS, 1)
 
+    def whole(s, half):
+        """``half`` (the whole sequence -> its product) over the chunks
+        of ``s`` gathered whole; its product back on the rank's chunk."""
+        full = comm.gather_replicated(s, mesh, MODEL_AXIS, 1)[:, :tokens[1]]
+        return comm.scatter(_pad_tokens(half(full), x.shape[1] * mesh.tp),
+                            mesh, MODEL_AXIS, 1)
+
     eps = cfg.layer_norm_eps
-    x, h = add_layer_norm(x, pending, rep("ln1_scale"), rep("ln1_bias"),
-                          eps=eps)
-    attn_out, _ = multi_head_attention(
-        enter(h, True), bp["wqkv"], bp.get("bqkv"), bp["wo"], None,
-        num_heads=bp["wqkv"].shape[-2], impl=cfg.attn_impl,
-        scale=(float(cfg.head_dim) ** 0.5
-               if cfg.parity == "bug_exact" else None),
-        qk_scales=((bp["lnq_scale"], bp["lnk_scale"])
-                   if cfg.qk_norm else None),
-        qk_eps=eps, rope=rope)
-    attn_out = leave(attn_out)
-    if "bo" in bp:
-        attn_out = attn_out + rep("bo").to(dt)
+    if cfg.fuse_mha == "on":
+        g = gather_model_shards(bp, mesh, ATTN_LEAVES)
+        if sp:
+            x = x + pending
+            attn_out = whole(x, lambda t: _attention_half(
+                t, torch.zeros_like(t), g, cfg, rope=rope)[1])
+        else:
+            x, attn_out, _ = _attention_half(x, pending, g, cfg, rope=rope)
+    else:
+        x, h = add_layer_norm(x, pending, rep("ln1_scale"), rep("ln1_bias"),
+                              eps=eps)
+        attn_out, _ = multi_head_attention(
+            enter(h, True), bp["wqkv"], bp.get("bqkv"), bp["wo"], None,
+            num_heads=bp["wqkv"].shape[-2], impl=cfg.attn_impl,
+            scale=(float(cfg.head_dim) ** 0.5
+                   if cfg.parity == "bug_exact" else None),
+            qk_scales=((bp["lnq_scale"], bp["lnk_scale"])
+                       if cfg.qk_norm else None),
+            qk_eps=eps, rope=rope)
+        attn_out = leave(attn_out)
+        if "bo" in bp:
+            attn_out = attn_out + rep("bo").to(dt)
     if "ls1" in bp:
         attn_out = attn_out * rep("ls1").to(dt)
     attn_out = dropout(attn_out, cfg.dropout, rng,
@@ -632,11 +667,11 @@ def _tp_block(x, pending, bp, cfg: ViTConfig, mesh, *, rng=None,
     if cfg.drop_path:
         attn_out = drop_path(attn_out, dp_rate, rng,
                              deterministic=deterministic)
-    x, h = add_layer_norm(x, attn_out, rep("ln2_scale"), rep("ln2_bias"),
-                          eps=eps)
     if "phi" in bp:
         # the router reads every token on every rank; the mixture is whole
         # on each rank after soft_moe_mlp's own all-reduce
+        x, h = add_layer_norm(x, attn_out, rep("ln2_scale"),
+                              rep("ln2_bias"), eps=eps)
         if sp:
             full = comm.gather_replicated(h, mesh, MODEL_AXIS, 1)
             mlp_out = soft_moe_mlp(full[:, :tokens[1]], bp, cfg, mesh=mesh)
@@ -644,7 +679,17 @@ def _tp_block(x, pending, bp, cfg: ViTConfig, mesh, *, rng=None,
                                    mesh, MODEL_AXIS, 1)
         else:
             mlp_out = soft_moe_mlp(h, bp, cfg, mesh=mesh)
+    elif cfg.fuse_mlp == "on":
+        g = gather_model_shards(bp, mesh, MLP_LEAVES)
+        if sp:
+            x = x + attn_out
+            mlp_out = whole(x, lambda t: _dense_mlp(
+                t, torch.zeros_like(t), g, cfg)[1])
+        else:
+            x, mlp_out = _dense_mlp(x, attn_out, g, cfg)
     else:
+        x, h = add_layer_norm(x, attn_out, rep("ln2_scale"),
+                              rep("ln2_bias"), eps=eps)
         mlp_out = mlp(enter(h, False), bp["w1"], bp["b1"], bp["w2"],
                       torch.zeros_like(bp["b2"]), act=cfg.mlp_act,
                       w3=bp.get("w3"), b3=bp.get("b3"))
@@ -670,15 +715,22 @@ def _pad_tokens(y, length: int):
 MODEL_DIMS = {"wqkv": 3, "wo": 1, "w1": 2, "b1": 1, "w2": 1, "w3": 2,
               "b3": 1, "bqkv": 2, "lnq_scale": 1, "lnk_scale": 1,
               "ew1": 3, "eb1": 2, "ew2": 2}
+# the leaves each half of a dense block reads (LayerScale aside)
+ATTN_LEAVES = ("ln1_scale", "ln1_bias", "wqkv", "bqkv", "wo", "bo",
+               "lnq_scale", "lnk_scale")
+MLP_LEAVES = ("ln2_scale", "ln2_bias", "w1", "b1", "w2", "b2", "w3", "b3")
 
 
-def gather_model_shards(bp: dict, cfg: ViTConfig, mesh) -> dict:
-    """One block's leaves with the model-axis shards gathered whole (a
-    gather every rank consumes alike: its backward keeps the rank's
-    slice). ``bp`` is one layer (stacked dims dropped)."""
+def gather_model_shards(bp: dict, mesh, names: tuple) -> dict:
+    """The leaves ``names`` of one block (those it has), the model-axis
+    shards gathered whole (a gather every rank consumes alike: its
+    backward keeps the rank's slice). ``bp`` is one layer (stacked dims
+    dropped)."""
     out = {}
-    for k, v in bp.items():
-        d = MODEL_DIMS.get(k)
+    for k in names:
+        if k not in bp:
+            continue
+        v, d = bp[k], MODEL_DIMS.get(k)
         out[k] = v if d is None else comm.gather_replicated(
             v, mesh, MODEL_AXIS, d - 1)
     return out
@@ -984,7 +1036,8 @@ def model_logits(params: Params, images, cfg: ViTConfig, *, rng=None,
     returns the two apart, (cls_logits, dist_logits), from every token:
     the training form of the distillation step (vitx's
     ``forward_heads``). ``mesh``: a rank of a sharded step, whose
-    params are the rank's shards (``run_blocks``)."""
+    params are the rank's shards (``run_blocks``; the merging encoder's
+    own split, ``encode_tome``)."""
     if heads:
         if not cfg.distill_token:
             raise ValueError("heads=True needs cfg.distill_token")
@@ -992,14 +1045,11 @@ def model_logits(params: Params, images, cfg: ViTConfig, *, rng=None,
                    mesh=mesh)
         return classify(params, x, cfg), classify_dist(params, x, cfg)
     if cfg.tome_r and (deterministic or cfg.tome_train):
-        if _tp(mesh):
-            raise ValueError("the merging encoder (tome_r) does not run on "
-                             "a tensor-parallel mesh")
         # imported here: vitx_torch.nn.tome imports this module
         from vitx_torch.nn.tome import encode_tome
 
         x = encode_tome(params, images, cfg, rng=rng,
-                        deterministic=deterministic)
+                        deterministic=deterministic, mesh=mesh)
     else:
         x = encode(params, images, cfg, rng=rng, deterministic=deterministic,
                    mesh=mesh)
