@@ -13,15 +13,17 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               (vitx_torch/kernels/csrc, one nvcc per source, in parallel)
               and counts, per sm90 kernel (SM90_SOURCES: the sm90 GEMM and
               B5's sm90 body as mha_block.cu and mlp_block.cu build them,
-              the body's KBIAS instantiation, the probability pass in its
+              the body at each head width, 32, 64 and 128, with and without
+              its KBIAS flag, the probability pass in its
               head-mean (B7's, B5's mean mode) and full (B5's full mode)
-              instantiations, B8's, B5's and B2's sm90 kernels), the wgmma
+              instantiations, B8's, B5's and B2's sm90 kernels, B2's two at
+              each width), the wgmma
               (HGMMA), TMA (UTMALDG) and wgmma-wait
               instructions in its SASS (cuobjdump -sass); each must have
               wgmma and TMA. B12's multi-leaf kernel must have no wgmma.
-              The body without the key bias and the head-mean pass must
-              be the same instructions in mha_block's library as in
-              flash_attention_sm90's.
+              The body without the key bias (at each width) and the
+              head-mean pass must be the same instructions in mha_block's
+              library as in flash_attention_sm90's.
 3. kernels -- K1 (fused MHA block) and K2 (fused MLP block) at ViT-B/16
               shapes, batch 8 and 32, against their plain torch versions
               on the same card: float32 within 1e-4 relative, bfloat16 within
@@ -73,6 +75,19 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               ln_fwd_route gives it (launches_onepass one a call) and the
               earlier kernel on the same inputs; the add variant's sum
               equal to x + r bit for bit; each twice, bit for bit.
+              The sm90 attention at head widths 32 and 128 (bf16): B5
+              without probs at huge14's (8, 10, 257, 128) and MAE's
+              decoder's (128, 16, 197, 32), o and its row statistics
+              against plain, twice bit for bit, the earlier kernel beside
+              it, and its probability modes there on the earlier kernel
+              (launches_sm90 unmoved); B2 at the same shapes and at B6's
+              (4, 10, 1025, 128), twice bit for bit, with strided do, o
+              and dqkv, the earlier kernel beside it; K1 with its stash
+              (K1's attention on the sm90 body, launches_attn_sm90 one a
+              call) at huge14's (32, 257, 1280) and MAE's decoder's (128,
+              197, 512); B8 at base16_hd128's (8, 197, 768), 6 heads of D
+              128, and at MAE's decoder width (8, 197, 512), 16 heads of
+              D 32.
 4. grad    -- the training kernels at ViT-B/16 shapes (T 197) against
               their plain versions: batch 8 in float32 (1e-4) and bfloat16,
               and the train main path's batch 128 in bfloat16, and the
@@ -378,12 +393,13 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               losses fall, DINO's finite with the teacher's entropy in (0,
               log K]), six more, the median of the last 5 by CUDA events,
               the peak memory of a fresh state's step, launches exact (a
-              step: MAE K1 and K2 20, B2 20 of which 12 sm90, B3 42; DINO
-              K1 and K2 36, the teacher's 12 without stash, B2 24, B3 50;
-              SimCLR K1 and K2 12, B2 12, B3 25); (c) K1 with its stash,
-              K2 with its stash, B2 and B3 at MAE's decoder (128, 197,
-              512), 16 heads of D 32 (the sm90 GEMM with the earlier
-              attention, B2's earlier kernel), K1 with its stash, B2 (its
+              step: MAE K1 and K2 20, B2 20, B3 42; DINO K1 and K2 36,
+              the teacher's 12 without stash, B2 24, B3 50; SimCLR K1
+              and K2 12, B2 12, B3 25; every K1 and B2 on the sm90
+              attention, MAE's decoder's at D 32 too); (c) K1 with
+              its stash, K2 with its stash, B2 and B3 at MAE's decoder
+              (128, 197, 512), 16 heads of D 32 (the sm90 GEMM with the
+              sm90 attention, B2's sm90 kernel), K1 with its stash, B2 (its
               sm90 kernel in bf16) and B3 at MAE's visible tokens (128,
               50, 768) and DINO's locals (192, 37, 768), against their
               plain versions in fp32 (1e-4) and bf16 (BF16_TOL), each
@@ -405,10 +421,10 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               reduced gradient within FP32_TOL, the params within
               param_gap's allowance; (b) at full width in bf16, b128
               global, fused AdamW: the same six runs (ep2 on bench 10's
-              Soft-MoE ViT-B), one warm-up and 5 steps on one batch: the
+              Soft-MoE ViT-B), one warm-up and 3 steps on one batch: the
               first step's loss and grad_norm within PARALLEL_TOL of one
               process's step on the card, the losses falling, each rank's
-              step ms (host clock around synchronised steps, median of 5)
+              step ms (host clock around synchronised steps, median of 3)
               and peak memory beside one process's, launches exact in
               every rank (K1 12, B2 12, B3 25, B12 1 a step; B5 in K1's
               place under tp, the composed path as vitx); (c) K1 and K2
@@ -504,10 +520,12 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               launches are the kernels line's "export" path.
 21. bench  -- main path 9, vitx's bench configurations on the card: K1
               (with and without its stash), K2, B2 and B3 at huge14's
-              shapes (E 1280, 10 heads of D 128: the earlier attention
-              kernels, the sm90 GEMM) held to their plain versions in
+              shapes (E 1280, 10 heads of D 128: the sm90 GEMM and the
+              sm90 attention at D 128) held to their plain versions in
               bf16, then vitx_torch.cli.bench configs 3, 7 and 13 (the
-              last the "huge14" path: its launches asserted), then
+              last the "huge14" path: its launches asserted), bench 13's
+              forward b32 and train step b8 under the profiler, split
+              by kernel, then
               vitx_torch.cli.tune --mode infer on base16 at 64, 128 and
               256 with no error row.
 22. times  -- CUDA-event medians: the base16 forward at batch 256 bf16
@@ -554,12 +572,16 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               block's attention half under grad at (128, 197) and (128,
               128): B8 with its composed backward against K1 with its
               stash then B2 and B3, forward and backward apart. After the
-              bench phase, K1's and K2's rows at huge14's (32, 257, 1280),
-              B2's earlier kernel at (8, 10, 257, 128) and B3's at (8, 257,
-              1280), as more "shapes"; and the pretrain phase's (c): K1's
-              sm90 row at (128, 197, 512) (D 32), (128, 50, 768) and (192,
-              37, 768), K2's at (128, 197, 512), M 2048, B2's wrapper at
-              (128, 16, 197, 32) (its earlier kernel), B2's sm90 row at
+              bench phase, K1's and K2's rows at huge14's (32, 257, 1280)
+              (K1's sm90 row with its GEMM-only route, the sm90 GEMM with
+              attention_fwd.cuh, as was_ms), B2's two rows at (8, 10, 257,
+              128) and B6's range (4, 10, 1025, 128), B5's two at (32, 10,
+              257, 128), B8's at base16_hd128's (32, 197, 768) and B3's at
+              (8, 257, 1280), as more "shapes"; and the pretrain phase's
+              (c): K1's sm90 row at (128, 197, 512) (D 32, was_ms its
+              GEMM-only route), (128, 50, 768) and (192, 37, 768), K2's at
+              (128, 197, 512), M 2048, B2's two rows and B5's two at (128,
+              16, 197, 32), B2's sm90 row at
               (128, 12, 50, 64) and (192, 12, 37, 64), and B3's one-pass
               row at (128, 197, 512) and (128, 50, 768); and the parallel
               phase's (c): K1's sm90 row at a dp 2 rank's (64, 197, 768),
@@ -652,8 +674,9 @@ KERNELS = {
         "tpu_kernel": "vitx/kernels/mlp_block.py::_kernel",
     },
     # the sm90 route of K1, K2, B7 and B8 (bf16, E a multiple of 8): their
-    # projections on gemm_sm90.cuh, K1's and B8's attention at D 64 on
-    # attention_fwd_sm90.cuh; counted in the wrappers' launches_sm90
+    # projections on gemm_sm90.cuh, K1's and B8's attention at D 32, 64
+    # and 128 on attention_fwd_sm90.cuh (counted in launches_attn_sm90,
+    # EXTRA_COUNTERS); counted in the wrappers' launches_sm90
     # (COUNTERS), while the rows above count every launch, both routes
     "fused_mha_block_sm90": {
         "source": "vitx_torch/kernels/csrc/mha_block.cu",
@@ -677,7 +700,7 @@ KERNELS = {
         "also_replaces": "vitx/kernels/flash_attention.py:238",
         "also_tpu_kernel": "vitx/kernels/flash_attention.py::_bwd_kernel",
     },
-    # the sm90 route of attention_bwd (bf16, D 64): counted in
+    # the sm90 route of attention_bwd (bf16, D 32, 64, 128): counted in
     # attention_bwd.launches_sm90 (COUNTERS), while attention_bwd counts
     # every launch of the wrapper, both routes, as before
     "attention_bwd_sm90": {
@@ -751,7 +774,7 @@ KERNELS = {
         "source": "vitx_torch/kernels/csrc/flash_attention_sm90.cu",
         "replaces": "vitx/kernels/flash_attention.py:132",
         "tpu_kernel": "vitx/kernels/flash_attention.py::_fwd_kernel "
-                      "(no probs, bf16 at D 64)",
+                      "(no probs, bf16 at D 32, 64, 128)",
     },
     "flash_attention_with_probs": {
         "source": "vitx_torch/kernels/csrc/flash_attention_fwd.cu",
@@ -841,32 +864,47 @@ COUNTERS = {"attention_bwd_sm90": ("attention_bwd", "launches_sm90"),
             **{row: (name, "launches_sm90")
                for name, row in BLOCK_SM90.items()}}
 # counts that are no row of their own, read and expected beside the rows':
-# B7's and B8's launches whose attention ran on the sm90 body (B7's with
-# its head-mean pass, B8's in the body's KBIAS form)
-EXTRA_COUNTERS = {"fused_mha_block_with_mean_probs_attn_sm90":
+# K1's, B7's and B8's launches whose attention ran on the sm90 body (B7's
+# with its head-mean pass, B8's in the body's KBIAS form)
+EXTRA_COUNTERS = {"fused_mha_block_attn_sm90":
+                  ("fused_mha_block", "launches_attn_sm90"),
+                  "fused_mha_block_with_mean_probs_attn_sm90":
                   ("fused_mha_block_with_mean_probs", "launches_attn_sm90"),
                   "fused_mha_block_tome_attn_sm90":
                   ("fused_mha_block_tome", "launches_attn_sm90")}
 # the blocks whose attention can take the sm90 body, by their extra counter
-ATTN_SM90_COUNTERS = {"fused_mha_block_with_mean_probs":
+ATTN_SM90_COUNTERS = {"fused_mha_block": "fused_mha_block_attn_sm90",
+                      "fused_mha_block_with_mean_probs":
                       "fused_mha_block_with_mean_probs_attn_sm90",
                       "fused_mha_block_tome": "fused_mha_block_tome_attn_sm90"}
+# each block's mha_block.cu entry, whose route mha_route gives per entry
+BLOCK_ENTRY = {"fused_mha_block": "mha_block",
+               "fused_mha_block_with_mean_probs": "mha_block_mean_probs",
+               "fused_mha_block_tome": "mha_block_tome"}
 # the sources whose SASS the build phase reads, and the sm90 kernels each
 # must hold: the wgmma (HGMMA) and TMA (UTMALDG) instructions that show
 # they reach the tensor cores' asynchronous path. mha_block and mlp_block
 # also hold the earlier kernels (ln_stats_kernel, gemm_kernel,
 # attention_kernel, head_mean_kernel), which use neither and are not read.
 # A kernel named with its template arguments is that instantiation
-# (attention_fwd_sm90<2, true>: B8's KBIAS body); a bare name sums them all.
+# (attention_fwd_sm90<128, 2, true>: B8's KBIAS body at head width 128;
+# dq_kernel_sm90<32, 2>: B2's launch A at 32); a bare name sums them all.
 # attention_probs_sm90<true> is the head-mean probability pass (B7's in
 # mha_block, B5's mean mode in flash_attention_sm90), <false> B5's full mode
-SM90_SOURCES = {"flash_attention_sm90": ("attention_fwd_sm90<2, false>",
-                                         "attention_probs_sm90<true>",
-                                         "attention_probs_sm90<false>"),
-                "attention_bwd_sm90": ("dq_kernel_sm90", "dkdv_kernel_sm90"),
+SM90_WIDTHS = (32, 64, 128)    # the head widths of the sm90 body and B2
+SM90_SOURCES = {"flash_attention_sm90": (
+                    *(f"attention_fwd_sm90<{d}, 2, false>"
+                      for d in SM90_WIDTHS),
+                    "attention_probs_sm90<true>",
+                    "attention_probs_sm90<false>"),
+                "attention_bwd_sm90": (
+                    *(f"{k}<{d}, 2>" for k in ("dq_kernel_sm90",
+                                               "dkdv_kernel_sm90")
+                      for d in SM90_WIDTHS),),
                 "mha_block": ("gemm_sm90_kernel",
-                              "attention_fwd_sm90<2, false>",
-                              "attention_fwd_sm90<2, true>",
+                              *(f"attention_fwd_sm90<{d}, 2, {kb}>"
+                                for kb in ("false", "true")
+                                for d in SM90_WIDTHS),
                               "attention_probs_sm90<true>"),
                 "mlp_block": ("gemm_sm90_kernel",)}
 # kernels whose SASS is read and must hold no wgmma: B12's multi-leaf
@@ -952,9 +990,12 @@ def phase_build():
     _build.build_all()
     seconds = time.perf_counter() - t0
     for name, log in _build.build_log.items():
+        func = ""
         for line in log["ptxas"].splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"ptxas {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                func = line.split("'")[1] if "'" in line else ""
+            elif "registers" in line or "spill" in line:
+                print(f"ptxas {name} {func}: {line.strip()}")
     emit({"phase": "build", "seconds": round(seconds, 2),
           "per_source_s": {n: round(v["seconds"], 2)
                            for n, v in _build.build_log.items()}})
@@ -970,8 +1011,9 @@ def phase_build():
     emit({"phase": "build", "check": "SASS of the sm90 kernels: wgmma "
           "(HGMMA) and TMA (UTMALDG) or other async copies (UBLKCP, LDGSTS) "
           "per kernel, and wgmma waits (WARPGROUP.DEPBAR: one per HGMMA "
-          "would mean ptxas serialised them); attention_fwd_sm90<2, true> "
-          "is B8's KBIAS instantiation, attention_probs_sm90<true> the "
+          "would mean ptxas serialised them); attention_fwd_sm90<D, 2, "
+          "true> is B8's KBIAS instantiation at head width D, "
+          "attention_probs_sm90<true> the "
           "head-mean probability pass (B7's, B5's mean mode), <false> B5's "
           "full mode", "sass": sass})
     for name, wanted in SM90_SOURCES.items():
@@ -994,11 +1036,12 @@ def phase_build():
             if n is None or n["HGMMA"] or n["WARPGROUP.DEPBAR"]:
                 raise AssertionError(f"{name}: {kern} is missing or holds "
                                      f"wgmma: {n}")
-    # the body without the key bias and the head-mean pass are one code in
-    # both sources: K1's and B7's copies (mha_block) and B5's
-    # (flash_attention_sm90), instruction for instruction, so the KBIAS
-    # flag and the full mode's instantiation leave them as they were
-    for kern in ("attention_fwd_sm90<2, false>", "attention_probs_sm90<true>"):
+    # the body without the key bias (at each width) and the head-mean pass
+    # are one code in both sources: K1's and B7's copies (mha_block) and
+    # B5's (flash_attention_sm90), instruction for instruction, so the
+    # KBIAS flag and the full mode's instantiation leave them as they were
+    for kern in (*(f"attention_fwd_sm90<{d}, 2, false>" for d in SM90_WIDTHS),
+                 "attention_probs_sm90<true>"):
         same = (funcs["mha_block"].get(kern)
                 == funcs["flash_attention_sm90"].get(kern))
         emit({"phase": "build", "check": f"{kern}: mha_block's SASS equal "
@@ -1118,6 +1161,17 @@ def phase_kernels(errs: dict):
         for dtype, tol in ((torch.float32, FP32_TOL),
                            (torch.bfloat16, BF16_TOL)):
             check_block(32, T, E, H, dtype, tol, errs, mha=False)
+    # the sm90 attention at head widths 128 (huge14, base16_hd128) and 32
+    # (MAE's decoder): B5 and B2 at their main paths' shapes, B2 also in
+    # B6's range, K1 with its stash, B8 (its KBIAS body)
+    for shape in ((8, 10, 257, 128), (128, 16, 197, 32)):
+        check_flash(shape, torch.bfloat16, errs)
+    for shape in ((8, 10, 257, 128), (128, 16, 197, 32), (4, 10, 1025, 128)):
+        check_attention_bwd(shape, torch.bfloat16, BF16_TOL, errs, "kernels")
+    for shape in ((32, 257, 1280, 10), (128, 197, 512, 16)):
+        check_blocks_sm90(*shape, errs)
+    for shape in ((8, 197, 768, 6), (8, 197, 512, 16)):
+        check_tome_block(*shape, torch.bfloat16, BF16_TOL, errs)
     # B10 at widths off and on the 16-byte vectors (64, 100), the models'
     # (768, 1024) and the reference head's (3072); one row, the two
     # sequences of a base16 server batch, and base16's b256 tokens
@@ -1202,7 +1256,9 @@ def check_rows(what: str, probs, **info) -> None:
 def check_flash(shape, dtype, errs: dict) -> None:
     """B5 in each mode against ``flash_attention_fwd_plain``; the head
     mean twice, bit for bit. In bf16 at D 64 every mode is on its sm90
-    route: ``check_flash_sm90`` and ``check_probs_sm90`` hold them."""
+    route: ``check_flash_sm90`` and ``check_probs_sm90`` hold them; at D
+    32 and 128 the mode without probs is (``check_flash_sm90``), and the
+    probability modes keep the earlier kernel, launches_sm90 unmoved."""
     from vitx_torch.kernels import (flash_attention,
                                     flash_attention_fwd_plain,
                                     flash_attention_with_mean_probs,
@@ -1216,6 +1272,9 @@ def check_flash(shape, dtype, errs: dict) -> None:
         check_flash_sm90(q, k, v, errs if main else None, info)
         check_probs_sm90(q, k, v, errs if main else None, info)
         return
+    body90 = bf and shape[3] in SM90_WIDTHS
+    if body90:
+        check_flash_sm90(q, k, v, errs, info)
     tol, ptol = (BF16_TOL, PROBS_BF16_TOL) if bf else (FP32_TOL, FP32_TOL)
     for name, fn, mode in (
             ("flash_attention", flash_attention, None),
@@ -1223,8 +1282,13 @@ def check_flash(shape, dtype, errs: dict) -> None:
              "full"),
             ("flash_attention_with_mean_probs",
              flash_attention_with_mean_probs, "mean")):
+        if body90 and mode is None:
+            continue
+        n90 = fn.launches_sm90
         out = fn(q, k, v)
         torch.cuda.synchronize()
+        if fn.launches_sm90 != n90:
+            raise AssertionError(f"{name} {info}: took the sm90 route")
         ref = flash_attention_fwd_plain(q, k, v, mode)
         if mode is None:
             check("kernels", name, out, ref, tol, None, **info)
@@ -1361,7 +1425,8 @@ def check_mean_probs_block(B, T, E, H, dtype, tol, errs: dict) -> None:
     x, mha, mlp = block_inputs(B, T, E, H, 4 * E, dtype, 40 + B, "cuda")
     info = {"batch": B, "shape": [B, T, E], "dtype": str(dtype)}
     bf = dtype == torch.bfloat16
-    route = tmha.mha_route(dtype, E, H, tensors=(x, mha["wqkv"], mha["wo"]))
+    route = tmha.mha_route(dtype, E, H, entry="mha_block_mean_probs",
+                           tensors=(x, mha["wqkv"], mha["wo"]))
     n90 = fused_mha_block_with_mean_probs.launches_attn_sm90
     out = fused_mha_block_with_mean_probs(x, **mha)
     torch.cuda.synchronize()
@@ -1448,7 +1513,8 @@ def check_tome_block(B, T, E, H, dtype, tol, errs: dict) -> None:
     x, tm = tome_inputs(B, T, E, H, dtype, 60 + T)
     info = {"batch": B, "shape": [B, T, E], "dtype": str(dtype)}
     bf = dtype == torch.bfloat16
-    route = tmha.mha_route(dtype, E, H, tensors=(x, tm["wqkv"], tm["wo"]))
+    route = tmha.mha_route(dtype, E, H, entry="mha_block_tome",
+                           tensors=(x, tm["wqkv"], tm["wo"]))
     n90 = fused_mha_block_tome.launches_attn_sm90
     out = fused_mha_block_tome(x, **tm)
     torch.cuda.synchronize()
@@ -1473,8 +1539,8 @@ def check_tome_block(B, T, E, H, dtype, tol, errs: dict) -> None:
         raise AssertionError(f"B8 {info}: two calls' k_mean differ")
     zero = dict(tm, bqkv=torch.zeros_like(tm["bqkv"]),
                 log_size=torch.zeros_like(tm["log_size"]))
-    # K1 on its own full route: in bf16 at D 64 the same sm90 GEMM and
-    # attention body, without the key bias
+    # K1 on its own full route: in bf16 at D 32, 64 and 128 the same sm90
+    # GEMM and attention body, without the key bias
     st = torch.empty((2, B, H, T), dtype=torch.float32, device="cuda")
     k1, *_, k1_route = tmha._launch(x, tm["wqkv"], tm["wo"], tm["bo"],
                                     tm["g"], tm["b"], 1e-5, extra=(st,))
@@ -1511,11 +1577,12 @@ def tome_earlier(x, tm, eps=1e-5, route=0):
 
 def check_blocks_sm90(B, T, E, H, errs: dict) -> None:
     """K1 and K2 in bf16 on the sm90 route against their plain versions at
-    (B, T, E), every stash output: K1's out, q, k, v, o_all and, at D 64
-    where B5's sm90 body writes them, the attention's statistics (against
-    attention_stats_plain on the kernel's own q and k, STATS_TOL); K2's out
-    and hp in its three activations. Each call adds one to launches_sm90
-    and gives the same bits twice. The earlier route (gemm_kernel,
+    (B, T, E), every stash output: K1's out, q, k, v, o_all and, at D 32,
+    64 and 128 where B5's sm90 body writes them (launches_attn_sm90 one a
+    call), the attention's statistics (against attention_stats_plain on
+    the kernel's own q and k, STATS_TOL); K2's out and hp in its three
+    activations. Each call adds one to launches_sm90 and gives the same
+    bits twice. The earlier route (gemm_kernel,
     attention_fwd.cuh) on the same inputs through the launchers, against
     the same plain versions."""
     import importlib
@@ -1530,14 +1597,18 @@ def check_blocks_sm90(B, T, E, H, errs: dict) -> None:
     x, mha, mlp = block_inputs(B, T, E, H, 4 * E, bf, 70 + B, "cuda")
     info = {"shape": [B, T, E], "heads": H, "dtype": str(bf)}
     n90 = fused_mha_block.launches_sm90
+    a90 = fused_mha_block.launches_attn_sm90
     got = tmha._forward(x, **mha, eps=1e-5)
     torch.cuda.synchronize()
     if fused_mha_block.launches_sm90 != n90 + 1:
         raise AssertionError(f"K1 {info}: not on the sm90 route")
+    if fused_mha_block.launches_attn_sm90 != a90 + (E // H in SM90_WIDTHS):
+        raise AssertionError(f"K1 {info}: its attention's route is not "
+                             f"mha_route's")
     ref = mha_block_plain(x, **mha, stash=True)
     check("kernels", "fused_mha_block sm90 route (out, q, k, v, o_all)",
           got[:5], ref, BF16_TOL, errs, "fused_mha_block_sm90", **info)
-    if E // H == 64:
+    if E // H in SM90_WIDTHS:
         check("kernels", "fused_mha_block sm90 route: attention stats (m, "
               "1/l)", tuple(got[5]), tuple(attention_stats_plain(got[1],
                                                                  got[2])),
@@ -1641,20 +1712,27 @@ def gemm_sm90(cfg) -> tuple:
 def block_launches(cfg, **per: int) -> dict:
     """``launches_of(**per)`` plus, for each block kernel in ``per``, its
     sm90 row (BLOCK_SM90) with the same count where ``cfg`` takes the sm90
-    GEMM, else 0; and B7's and B8's sm90 attention launches, where ``cfg``
-    takes that attention (``mha_route``: bf16 at D 64)."""
-    import importlib
-
-    mha = importlib.import_module("vitx_torch.kernels.mha_block")
+    GEMM, else 0; and K1's, B7's and B8's sm90 attention launches, where
+    ``cfg`` takes that attention (``attn_sm90``)."""
     mha90, mlp90 = gemm_sm90(cfg)
     sm90_rows = {BLOCK_SM90[k]: n * (mlp90 if k == "fused_mlp_block"
                                      else mha90)
                  for k, n in per.items() if k in BLOCK_SM90}
-    attn90 = bool(mha.mha_route(cfg.cdtype(), cfg.embed_dim, cfg.num_heads)
-                  & mha.ROUTE_ATTN_SM90)
     for block, extra in ATTN_SM90_COUNTERS.items():
-        sm90_rows[extra] = per.get(block, 0) * attn90
+        sm90_rows[extra] = per.get(block, 0) * attn_sm90(cfg, block)
     return launches_of(**per, **sm90_rows)
+
+
+def attn_sm90(cfg, block: str = "fused_mha_block") -> bool:
+    """Whether ``block``'s attention (K1, B7 or B8) runs on the sm90 body
+    for ``cfg``, by its entry's route rule (``mha_route``: bf16 at D 32, 64
+    or 128 for K1 and B8, at D 64 for B7)."""
+    import importlib
+
+    mha = importlib.import_module("vitx_torch.kernels.mha_block")
+    return bool(mha.mha_route(cfg.cdtype(), cfg.embed_dim, cfg.num_heads,
+                              entry=BLOCK_ENTRY[block])
+                & mha.ROUTE_ATTN_SM90)
 
 
 def attention_launches(cfg, n: int) -> dict:
@@ -2180,8 +2258,15 @@ def synthetic_batch(ds, n: int) -> dict:
 
 
 def sm90(cfg) -> bool:
-    """Whether ``cfg``'s attention takes the sm90 kernels: bf16 at head
-    width 64 (``vitx_torch.kernels.flash_attention.sm90_route``)."""
+    """Whether ``cfg``'s attention forward without probabilities and its
+    backward take the sm90 kernels: bf16 at head width 32, 64 or 128
+    (``vitx_torch.kernels.flash_attention.sm90_route``)."""
+    return cfg.compute_dtype == "bfloat16" and cfg.head_dim in SM90_WIDTHS
+
+
+def sm90_probs(cfg) -> bool:
+    """Whether B5's probability modes take the sm90 route for ``cfg``: bf16
+    at head width 64 (``flash_attention.sm90_probs_route``)."""
     return cfg.compute_dtype == "bfloat16" and cfg.head_dim == 64
 
 
@@ -4423,7 +4508,7 @@ def phase_explain(cfg, params) -> dict:
     got = delta(snap)
     expect_launches("(b) forward_with_attn", got, block_launches(
         cfg, flash_attention_with_probs=cfg.depth,
-        flash_attention_with_probs_sm90=cfg.depth * sm90(cfg),
+        flash_attention_with_probs_sm90=cfg.depth * sm90_probs(cfg),
         fused_mlp_block=cfg.depth))
     expected.append(got)
     snap = counts()
@@ -4546,7 +4631,7 @@ def bias_rollout_launches(cfg, calls: int = 1) -> dict:
     n = cfg.depth * calls
     return block_launches(
         cfg, flash_attention_with_mean_probs=n,
-        flash_attention_with_mean_probs_sm90=n * sm90(cfg),
+        flash_attention_with_mean_probs_sm90=n * sm90_probs(cfg),
         fused_mlp_block=n)
 
 
@@ -4939,12 +5024,12 @@ def kernel_row(name, kern, plain, lib, flops, peak, nbytes, launches,
 
 def attention_bwd_rows(shape, seed, launches, errs, per_step=None,
                        only=None):
-    """The rows of B2's two kernels at (B, H, T, D) bf16: the sm90 kernel
-    through ``attention_bwd`` with the forward's o and statistics, and the
-    earlier kernel through its launcher; SDPA's backward beside both. The
-    bound is the function's: q, k, v, do in, dq, dk, dv out, 10*B*H*T^2*D
-    operations, whatever a kernel reads besides. ``only``: that row
-    alone."""
+    """The rows of B2's two kernels at (B, H, T, D) bf16: the earlier
+    kernel through its launcher, then the sm90 kernel through
+    ``attention_bwd`` with the forward's o and statistics and the former's
+    time as was_ms; SDPA's backward beside both. The bound is the
+    function's: q, k, v, do in, dq, dk, dv out, 10*B*H*T^2*D operations,
+    whatever a kernel reads besides. ``only``: that row alone."""
     import torch.nn.functional as F
 
     from vitx_torch.kernels import (attention_bwd, attention_bwd_plain,
@@ -4962,17 +5047,19 @@ def attention_bwd_rows(shape, seed, launches, errs, per_step=None,
     per_step = per_step or {}
     rows = []
     for name, kern in (
+            ("attention_bwd", lambda: tflash._bwd_wmma(q, k, v, do)),
             ("attention_bwd_sm90",
-             lambda: attention_bwd(q, k, v, do, o, st)),
-            ("attention_bwd", lambda: tflash._bwd_wmma(q, k, v, do))):
+             lambda: attention_bwd(q, k, v, do, o, st))):
         if only not in (None, name):
             continue
         extra = {"per_step": per_step[name]} if name in per_step else {}
         if name == "attention_bwd":
             extra["timed"] = ("the earlier kernel on bf16 through its "
-                              "launcher; the wrapper sends bf16 at D 64 to "
-                              "attention_bwd_sm90 and this kernel fp32 and "
-                              "other D")
+                              "launcher; the wrapper sends bf16 at D 32, 64 "
+                              "and 128 to attention_bwd_sm90 and this kernel "
+                              "fp32 and other D")
+        elif rows:
+            extra["was_ms"] = rows[-1]["ms"]
         rows.append(kernel_row(
             name, kern, lambda: attention_bwd_plain(q, k, v, do),
             lambda: torch.autograd.grad(o_lib, (qs, ks, vs), do,
@@ -4980,6 +5067,35 @@ def attention_bwd_rows(shape, seed, launches, errs, per_step=None,
             10 * B * H * T * T * D, PEAK_BF16_FLOPS, 7 * B * H * T * D * 2,
             launches, errs, shape=list(shape), **extra))
     return rows
+
+
+def flash_rows(shape, seed, launches, errs) -> list:
+    """B5 without probs at (B, H, T, D) bf16: the earlier kernel through
+    its launcher, then the wrapper's sm90 route with the former's time as
+    was_ms; SDPA beside both. Bound: q, k, v in, o out, 4*B*H*T^2*D
+    operations."""
+    import torch.nn.functional as F
+
+    from vitx_torch.kernels import flash_attention, flash_attention_fwd_plain
+
+    B, H, T, D = shape
+    q, k, v = (seeded(shape, seed + i, 1.5, dtype=torch.bfloat16)
+               for i in range(3))
+    tflash = attention_module()
+    flops, nbytes = 4 * B * H * T * T * D, 4 * B * H * T * D * 2
+    was = kernel_row(
+        "flash_attention", lambda: tflash._fwd_wmma(q, k, v, None),
+        lambda: flash_attention_fwd_plain(q, k, v),
+        lambda: F.scaled_dot_product_attention(q, k, v), flops,
+        PEAK_BF16_FLOPS, nbytes, launches, errs, shape=list(shape),
+        timed="the earlier kernel on bf16 through its launcher")
+    now = kernel_row(
+        "flash_attention_sm90", lambda: flash_attention(q, k, v),
+        lambda: flash_attention_fwd_plain(q, k, v),
+        lambda: F.scaled_dot_product_attention(q, k, v), flops,
+        PEAK_BF16_FLOPS, nbytes, launches, errs, shape=list(shape),
+        was_ms=was["ms"])
+    return [was, now]
 
 
 def ln_bwd_rows(shape, seed, eps, launches, errs, per_step=None,
@@ -5663,8 +5779,8 @@ class gemm_only_tome_route:
     def __enter__(self):
         self.tmha = block_module()
         self.saved = self.tmha.ATTN_SM90_ENTRIES
-        self.tmha.ATTN_SM90_ENTRIES = tuple(
-            e for e in self.saved if e != "mha_block_tome")
+        self.tmha.ATTN_SM90_ENTRIES = {
+            e: w for e, w in self.saved.items() if e != "mha_block_tome"}
 
     def __exit__(self, *exc):
         self.tmha.ATTN_SM90_ENTRIES = self.saved
@@ -5961,6 +6077,7 @@ def phase_bench(errs: dict) -> tuple:
     x, mha, mlp = block_inputs(B, T, E, H, M, bf, 140, "cuda")
     info = {"batch": B, "T": T, "E": E, "heads": H, "head_dim": D}
     n90 = fused_mha_block.launches_sm90
+    a90 = fused_mha_block.launches_attn_sm90
     check("bench", "fused_mha_block at huge14", fused_mha_block(
         x, **mha, eps=eps), mha_block_plain(x, **mha, eps=eps), BF16_TOL,
         errs, "fused_mha_block_sm90", **info)
@@ -5974,6 +6091,9 @@ def phase_bench(errs: dict) -> tuple:
         "fused_mlp_block_sm90", M=M, **info)
     if fused_mha_block.launches_sm90 != n90 + 2:
         raise AssertionError("K1 at huge14 left the sm90 GEMM")
+    if fused_mha_block.launches_attn_sm90 != a90 + 2:
+        raise AssertionError("K1's attention at huge14 (D 128) left the "
+                             "sm90 body")
     check_backward_kernels(HUGE_TRAIN_B, T, E, H, bf, BF16_TOL, errs,
                            phase="bench")
     torch.cuda.empty_cache()
@@ -5993,6 +6113,7 @@ def phase_bench(errs: dict) -> tuple:
     expect_launches("bench 13 (huge14)", got, want)
     emit({"phase": "bench", "card": card, **res, "launches": got})
     torch.cuda.empty_cache()
+    huge14_profiles(huge)
 
     out = BUILD / "tune.json"
     run_cli(tune.main, ["--mode", "infer", "--preset", "base16",
@@ -6004,23 +6125,49 @@ def phase_bench(errs: dict) -> tuple:
     return got, (x, mha, mlp)
 
 
+def huge14_profiles(huge) -> None:
+    """Bench 13's two calls under the profiler, split by kernel: the
+    forward at b32 and, after a warm-up step, the train step at b8 (plain
+    AdamW, as ``cli.bench.train_timing`` builds it)."""
+    from vitx_torch.nn.vit import forward, init_params
+    from vitx_torch.train.step import (create_train_state, make_optimizer,
+                                       make_train_step)
+
+    params = init_params(0, huge, device="cuda")
+    x = card_images(HUGE_B, huge.image_size, 1)
+    profile_call("huge14 forward b32", lambda: forward(
+        params, x, huge, device="cuda"), top=16)
+    del params, x
+    opt = make_optimizer(lr=1e-4)
+    state = create_train_state(2, huge, opt, device="cuda")
+    step = make_train_step(huge, opt, device="cuda")
+    batch = {"image": card_images(HUGE_TRAIN_B, huge.image_size, 3),
+             "label": torch.zeros((HUGE_TRAIN_B,), dtype=torch.int32,
+                                  device="cuda")}
+    step(state, batch, None)
+    profile_call("huge14 train step b8", lambda: step(state, batch, None),
+                 top=16)
+    del state, step, batch
+    torch.cuda.empty_cache()
+
+
 def huge14_kernel_shapes(inputs, launches: dict, errs: dict) -> dict:
     """huge14's kernel shapes (bench 13: E 1280, 10 heads of D 128, M
     5120, T 257), bf16, as more ``shapes`` of the rows: K1's and K2's two
     rows at b32 on ``inputs``, the (x, mha, mlp) ``phase_bench`` held
     them on (the earlier route, and the wrapper's: the sm90 GEMM with the
-    earlier attention at D 128), B2's earlier kernel through its wrapper
-    at the train step's (8, 10, 257, 128), B3's two at (8, 257, 1280).
+    sm90 attention at D 128, K1's GEMM-only route -- the sm90 GEMM with
+    attention_fwd.cuh -- as its was_ms), B2's two rows at the train
+    step's (8, 10, 257, 128) and in B6's range at (4, 10, 1025, 128),
+    B5's two at the forward's (32, 10, 257, 128), B8's at base16_hd128's
+    (32, 197, 768), 6 heads of D 128, B3's two at (8, 257, 1280).
     Returns row name -> [entries]."""
     import importlib
 
     import torch.nn.functional as F
 
     import vitx_torch
-    from vitx_torch.kernels import (attention_bwd, attention_bwd_plain,
-                                    attention_stats_plain,
-                                    flash_attention_fwd_plain,
-                                    fused_mha_block, fused_mlp_block,
+    from vitx_torch.kernels import (fused_mha_block, fused_mlp_block,
                                     mha_block_plain, mlp_block_plain)
 
     c = vitx_torch.get_config("huge14")
@@ -6044,7 +6191,11 @@ def huge14_kernel_shapes(inputs, launches: dict, errs: dict) -> dict:
         lambda: mha_block_plain(x, **mha, eps=eps), sdpa_mha(x, mha, H, eps),
         2 * B * T * E * 4 * E + 4 * B * H * T * T * D,
         2 * B * T * E * 2 + 4 * E * E * 2 + 3 * E * 4, launches, errs,
-        shape=[B, T, E])
+        was=lambda: block_module()._launch(
+            x, **mha, eps=eps, extra=(st,),
+            route=block_module().ROUTE_GEMM_SM90),
+        was_what="the GEMM-only route: the sm90 GEMM with "
+                 "attention_fwd.cuh", shape=[B, T, E])
     rows += block_rows(
         "fused_mlp_block",
         lambda: fused_mlp_block(x, **mlp, act=c.mlp_act, eps=eps),
@@ -6054,21 +6205,12 @@ def huge14_kernel_shapes(inputs, launches: dict, errs: dict) -> dict:
         4 * B * T * E * M, 2 * B * T * E * 2 + 2 * E * M * 2
         + (M + 3 * E) * 4, launches, errs, shape=[B, T, E])
     del x, mha, mlp
-    shape = (HUGE_TRAIN_B, H, T, D)
-    q, k, v = (seeded(shape, 170 + i, 1.5, dtype=bf) for i in range(3))
-    do = seeded(shape, 173, 0.1, dtype=bf)
-    o, stats = flash_attention_fwd_plain(q, k, v), attention_stats_plain(q, k)
-    qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
-    o_lib = F.scaled_dot_product_attention(qs, ks, vs)
     Bt = HUGE_TRAIN_B
-    rows.append(kernel_row(
-        "attention_bwd", lambda: attention_bwd(q, k, v, do, o, stats),
-        lambda: attention_bwd_plain(q, k, v, do),
-        lambda: torch.autograd.grad(o_lib, (qs, ks, vs), do,
-                                    retain_graph=True),
-        10 * Bt * H * T * T * D, PEAK_BF16_FLOPS, 7 * Bt * H * T * D * 2,
-        launches, errs, shape=list(shape),
-        timed="the wrapper: at D 128 bf16 takes the earlier kernel"))
+    rows += attention_bwd_rows((Bt, H, T, D), 170, launches, errs)
+    rows += attention_bwd_rows((4, H, 1025, D), 180, launches, errs)
+    rows += flash_rows((B, H, T, D), 185, launches, errs)
+    rows += tome_rows_at(vitx_torch.get_config("base16_hd128"), 32, 197,
+                         launches, errs)
     rows += ln_bwd_rows((Bt, T, E), 175, eps, launches, errs)
     torch.cuda.empty_cache()
     extra: dict = {}
@@ -7131,8 +7273,9 @@ def pretrain_step_launches(fcfg, steps: int) -> dict:
     """A family's train-step launches per the code's routing, every block
     on the fused kernels with their stashes (the families keep
     fuse_mlp="auto" under grad): K1 and K2 once a block, forward only in
-    DINO's teacher; B2 once a block under grad (its sm90 kernel at D 64:
-    the encoder's, not MAE's decoder at D 32); B3 for both LayerNorms of
+    DINO's teacher, their attention on the sm90 body where ``attn_sm90``
+    says; B2 once a block under grad (its sm90 kernel at D 64, the
+    encoder's, and at D 32, MAE's decoder's); B3 for both LayerNorms of
     every block under grad and each final norm (MAE's encoder and
     decoder; DINO's two student passes). No B12: the pretrain CLI's
     optimizer keeps the plain update (vitx's ``fused="auto"``)."""
@@ -7146,6 +7289,8 @@ def pretrain_step_launches(fcfg, steps: int) -> dict:
         blocks = L + Ld
         per = dict(fused_mha_block=blocks, fused_mlp_block=blocks,
                    fused_mha_block_sm90=L * mha90 + Ld * dmha,
+                   fused_mha_block_attn_sm90=L * attn_sm90(enc)
+                   + Ld * attn_sm90(dec),
                    fused_mlp_block_sm90=L * mlp90 + Ld * dmlp,
                    attention_bwd=blocks,
                    attention_bwd_sm90=L * sm90(enc) + Ld * sm90(dec),
@@ -7155,6 +7300,7 @@ def pretrain_step_launches(fcfg, steps: int) -> dict:
         fwd = L * (passes + hasattr(fcfg, "n_local"))
         per = dict(fused_mha_block=fwd, fused_mlp_block=fwd,
                    fused_mha_block_sm90=fwd * mha90,
+                   fused_mha_block_attn_sm90=fwd * attn_sm90(enc),
                    fused_mlp_block_sm90=fwd * mlp90,
                    attention_bwd=L * passes,
                    attention_bwd_sm90=L * passes * sm90(enc),
@@ -7303,21 +7449,18 @@ def check_pretrain_kernels(errs: dict) -> None:
 def pretrain_kernel_shapes(launches: dict, errs: dict) -> dict:
     """The families' new kernel shapes, bf16, as more ``shapes`` of the
     rows: K1's sm90 row with its stash at MAE's decoder (128, 197, 512;
-    D 32: the sm90 GEMM and the earlier attention), its visible tokens
-    (128, 50, 768) and DINO's locals (192, 37, 768); B2 through its
-    wrapper at the decoder's (128, 16, 197, 32) (the earlier kernel: the
-    sm90 backward takes D 64 only) and B2's sm90 row at (128, 12, 50, 64)
-    and (192, 12, 37, 64); K2's sm90 row with its stash at the decoder's
-    (128, 197, 512), M 2048; B3's one-pass row at (128, 197, 512) and
-    (128, 50, 768). Library calls: SDPA compositions, SDPA's backward,
-    F.layer_norm / F.linear / GELU / F.linear, F.layer_norm's
-    backward."""
+    D 32: the sm90 GEMM and the sm90 attention, its GEMM-only route --
+    the sm90 GEMM with attention_fwd.cuh -- as was_ms), its visible tokens
+    (128, 50, 768) and DINO's locals (192, 37, 768); B2's two rows and
+    B5's two at the decoder's (128, 16, 197, 32) and B2's sm90 row at
+    (128, 12, 50, 64) and (192, 12, 37, 64); K2's sm90 row with its stash
+    at the decoder's (128, 197, 512), M 2048; B3's one-pass row at (128,
+    197, 512) and (128, 50, 768). Library calls: SDPA compositions, SDPA,
+    SDPA's backward, F.layer_norm / F.linear / GELU / F.linear,
+    F.layer_norm's backward."""
     import torch.nn.functional as F
 
-    from vitx_torch.kernels import (attention_bwd, attention_bwd_plain,
-                                    attention_stats_plain,
-                                    flash_attention_fwd_plain,
-                                    fused_mha_block, fused_mlp_block,
+    from vitx_torch.kernels import (fused_mha_block, fused_mlp_block,
                                     mha_block_plain, mlp_block_plain)
 
     bf = torch.bfloat16
@@ -7327,6 +7470,17 @@ def pretrain_kernel_shapes(launches: dict, errs: dict) -> dict:
                        (192, 37, 768, 12)):
         D = E // H
         x, mha, mlp = block_inputs(B, T, E, H, 4 * E, bf, 50 + T, "cuda")
+        more = {}
+        if E == 512:   # D 32: the attention's earlier kernel beside it
+            tmha = block_module()
+            st = torch.empty((2, B, H, T), dtype=torch.float32,
+                             device="cuda")
+            runs = [cuda_ms(lambda: tmha._launch(
+                x, **mha, eps=eps, extra=(st,),
+                route=tmha.ROUTE_GEMM_SM90), reps=20) for _ in range(2)]
+            more = {"was_ms": min(runs), "was_ms_runs": runs,
+                    "was": "the GEMM-only route with the stash: the sm90 "
+                           "GEMM with attention_fwd.cuh"}
         rows.append(kernel_row(
             "fused_mha_block_sm90",
             lambda: fused_mha_block(x, **mha, eps=eps, stash=True),
@@ -7335,7 +7489,7 @@ def pretrain_kernel_shapes(launches: dict, errs: dict) -> dict:
             2 * B * T * E * 4 * E + 4 * B * H * T * T * D, PEAK_BF16_FLOPS,
             6 * B * T * E * 2 + 4 * E * E * 2 + 3 * E * 4
             + 2 * B * H * T * 4, launches, errs, shape=[B, T, E],
-            heads=H, stash=True))
+            heads=H, stash=True, **more))
         if E == 512:
             M = 4 * E
             w1t, w2t = (mlp[k].t().contiguous() for k in ("w1", "w2"))
@@ -7356,23 +7510,8 @@ def pretrain_kernel_shapes(launches: dict, errs: dict) -> dict:
                 2 * B * T * E * 2 + B * T * M * 2 + 2 * E * M * 2
                 + (M + 3 * E) * 4, launches, errs, shape=[B, T, E], M=M,
                 stash=True))
-            shape = (B, H, T, D)
-            q, k, v = (seeded(shape, 60 + i, 1.5, dtype=bf)
-                       for i in range(3))
-            do = seeded(shape, 63, 0.1, dtype=bf)
-            o, st = (flash_attention_fwd_plain(q, k, v),
-                     attention_stats_plain(q, k))
-            qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
-            o_lib = F.scaled_dot_product_attention(qs, ks, vs)
-            rows.append(kernel_row(
-                "attention_bwd", lambda: attention_bwd(q, k, v, do, o, st),
-                lambda: attention_bwd_plain(q, k, v, do),
-                lambda: torch.autograd.grad(o_lib, (qs, ks, vs), do,
-                                            retain_graph=True),
-                10 * B * H * T * T * D, PEAK_BF16_FLOPS,
-                7 * B * H * T * D * 2, launches, errs, shape=list(shape),
-                timed="the wrapper: bf16 at D 32 takes the earlier kernel"))
-            del q, k, v, do, o, st, qs, ks, vs, o_lib
+            rows += attention_bwd_rows((B, H, T, D), 60, launches, errs)
+            rows += flash_rows((B, H, T, D), 64, launches, errs)
         else:
             rows += attention_bwd_rows((B, H, T, D), 60 + T, launches,
                                        errs, only="attention_bwd_sm90")
@@ -7515,7 +7654,7 @@ PARALLEL = {"dp2": (2, 1, 1, 0, False), "zero1": (2, 1, 1, 1, False),
             "tp2_sp": (1, 2, 1, 0, True), "ep2": (1, 1, 2, 0, False)}
 PARALLEL_A_B = 8        # (a)'s global batch, depth-2 fp32 copies
 PARALLEL_B = 128        # (b)'s global batch at full width, bf16
-PARALLEL_STEPS = 5      # (b)'s timed steps, after one warm-up
+PARALLEL_STEPS = 3      # (b)'s timed steps, after one warm-up
 PARALLEL_LR = 1e-4
 PARALLEL_DRAW = "cuda"  # where the phase's batches are drawn (same values
                         # in every rank and in the parent)
@@ -9170,25 +9309,26 @@ def main(argv=None) -> int:
                     row["shapes"] = (row.get("shapes")
                                      or [shape_entry(row)]) + extra[
                                          row["name"]]
+        paths = {"serve": serve_launches, "train": train_launches,
+                 "explain": explain_launches, "tome": tome_launches,
+                 "finetune": finetune_launches, **recipe_launches,
+                 "transfer": transfer_launches,
+                 "pretrained": pretrained_launches,
+                 "families": families_launches, "optim": optim_launches,
+                 "pretrain": pretrain_launches,
+                 "parallel": parallel_launches,
+                 "pipeline": pipeline_launches, "compose": compose_launches,
+                 "export": export_launches, "huge14": huge14_launches}
         for row in rows:
-            row["launches_by_path"] = {
-                "serve": serve_launches.get(row["name"], 0),
-                "train": train_launches.get(row["name"], 0),
-                "explain": explain_launches.get(row["name"], 0),
-                "tome": tome_launches.get(row["name"], 0),
-                "finetune": finetune_launches.get(row["name"], 0),
-                **{path: got.get(row["name"], 0)
-                   for path, got in recipe_launches.items()},
-                "transfer": transfer_launches.get(row["name"], 0),
-                "pretrained": pretrained_launches.get(row["name"], 0),
-                "families": families_launches.get(row["name"], 0),
-                "optim": optim_launches.get(row["name"], 0),
-                "pretrain": pretrain_launches.get(row["name"], 0),
-                "parallel": parallel_launches.get(row["name"], 0),
-                "pipeline": pipeline_launches.get(row["name"], 0),
-                "compose": compose_launches.get(row["name"], 0),
-                "export": export_launches.get(row["name"], 0),
-                "huge14": huge14_launches.get(row["name"], 0)}
+            row["launches_by_path"] = {path: got.get(row["name"], 0)
+                                       for path, got in paths.items()}
+            block = next((b for b, r in BLOCK_SM90.items()
+                          if r == row["name"] and b in ATTN_SM90_COUNTERS),
+                         None)
+            if block is not None:   # the attention's sm90 launches
+                extra = ATTN_SM90_COUNTERS[block]
+                row["attn_sm90_by_path"] = {path: got.get(extra, 0)
+                                            for path, got in paths.items()}
             if row["name"] in stash:
                 row["stash_ms_b128"] = stash[row["name"]]
         missing = sorted(set(KERNELS) - {row["name"] for row in rows})

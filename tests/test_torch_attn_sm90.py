@@ -1,8 +1,9 @@
 """The algorithms of the sm90 attention kernels against vitx's, on the CPU.
 
 ``csrc/flash_attention_sm90.cu`` (B5 without probs) and
-``csrc/attention_bwd_sm90.cu`` (B2/B6) run only on the card. What they
-compute differently from the earlier kernels is held here, in plain torch
+``csrc/attention_bwd_sm90.cu`` (B2/B6) run only on the card, in bf16 at
+head widths 32, 64 and 128. What they compute differently from the
+earlier kernels is held here, at each of those widths, in plain torch
 mirrors of their algorithms, against vitx's Pallas kernels in interpret
 mode (the CPU backend ``tests/conftest.py`` sets), on inputs from
 ``numpy.random.default_rng``:
@@ -16,7 +17,8 @@ mode (the CPU backend ``tests/conftest.py`` sets), on inputs from
 - ``attention_stats_plain`` vs the m and l of ``_unnormalized_probs``;
 - the wrappers' new arguments on CPU tensors: ``attention_bwd`` with o,
   stats and ``out`` returns ``attention_bwd_plain``'s values; the route
-  and stride rules that decide what reaches the card.
+  and stride rules that decide what reaches the card: the body and the
+  backward at D 32, 64 and 128, the probability modes and B7 at D 64.
 
 Bars are max |a - b| over max |b|: float32 1e-4, bfloat16 1e-2 (B2's bar
 in ``tests/test_torch_grad.py``). The measured gaps are printed (run with
@@ -115,8 +117,10 @@ def bwd_mirror(q, k, v, do, o, stats):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", [(2, 3, 197, 64), (1, 2, 577, 64),
-                                   (1, 2, 1025, 64)],
-                         ids=["T197", "T577", "T1025"])
+                                   (1, 2, 1025, 64), (1, 2, 197, 32),
+                                   (1, 2, 197, 128)],
+                         ids=["T197", "T577", "T1025", "T197_D32",
+                              "T197_D128"])
 def test_online_forward_matches_pallas(shape, dtype):
     jx, tx = inputs(shape, dtype, 11)
     ref = jflash._fwd(*jx[:3])
@@ -133,8 +137,11 @@ def test_online_forward_matches_pallas(shape, dtype):
 # --- the backward: from the forward's o and statistics ----------------------
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", [(2, 3, 197, 64), (1, 2, 1025, 64)],
-                         ids=["T197_nq1", "T1025_q_chunked"])
+@pytest.mark.parametrize("shape", [(2, 3, 197, 64), (1, 2, 1025, 64),
+                                   (1, 2, 197, 32), (1, 2, 197, 128),
+                                   (1, 2, 1025, 128)],
+                         ids=["T197_nq1", "T1025_q_chunked", "T197_D32_nq1",
+                              "T197_D128_nq1", "T1025_D128_q_chunked"])
 def test_backward_from_stats_matches_pallas(shape, dtype):
     jx, tx = inputs(shape, dtype, 12)
     ref = jflash._bwd(tuple(jx[:3]), jx[3])
@@ -232,11 +239,45 @@ def test_flash_attention_grad_with_stats_on_cpu(dtype):
 
 @pytest.mark.parametrize("dtype,D,want", [("bfloat16", 64, True),
                                           ("float32", 64, False),
-                                          ("bfloat16", 32, False),
-                                          ("bfloat16", 128, False)])
-def test_sm90_route_is_bf16_at_head_width_64(dtype, D, want):
+                                          ("bfloat16", 32, True),
+                                          ("bfloat16", 128, True),
+                                          ("bfloat16", 96, False),
+                                          ("float32", 128, False)])
+def test_sm90_route_is_bf16_at_head_widths_32_64_128(dtype, D, want):
+    """The body without probabilities and the backward: bf16 at D 32, 64
+    and 128; fp32 and any other D keep the earlier kernels."""
     t = torch.zeros((1, 1, 8, D), dtype=getattr(torch, dtype))
     assert tflash.sm90_route(t) is want
+
+
+@pytest.mark.parametrize("dtype,D,want", [("bfloat16", 64, True),
+                                          ("bfloat16", 32, False),
+                                          ("bfloat16", 128, False),
+                                          ("float32", 64, False)])
+def test_probs_route_stays_at_head_width_64(dtype, D, want):
+    """B5's probability modes keep the sm90 pass at D 64 only: at D 32
+    and 128 they take the earlier kernel, on planes the pass could read."""
+    t = torch.zeros((2, 3, 8, D), dtype=getattr(torch, dtype))
+    assert tflash.sm90_probs_route(t) is want
+    assert tflash.probs_route(t, t, t) == (tflash.ROUTE_SM90 if want else 0)
+
+
+@pytest.mark.parametrize("E,H", [(512, 16), (1280, 10), (768, 6)],
+                         ids=["D32_mae_decoder", "D128_huge14",
+                              "D128_base16_hd128"])
+def test_mha_route_at_head_widths_32_and_128(E, H):
+    """K1 and B8 take the sm90 attention at D 32 and 128, B7 does not
+    (its head-mean pass is D 64); all three keep the sm90 GEMM, and fp32
+    takes neither."""
+    tmha = importlib.import_module("vitx_torch.kernels.mha_block")
+    both = tmha.ROUTE_GEMM_SM90 | tmha.ROUTE_ATTN_SM90
+    bf = torch.bfloat16
+    assert tmha.mha_route(bf, E, H, entry="mha_block") == both
+    assert tmha.mha_route(bf, E, H, entry="mha_block_tome") == both
+    assert (tmha.mha_route(bf, E, H, entry="mha_block_mean_probs")
+            == tmha.ROUTE_GEMM_SM90)
+    for entry in tmha.ATTN_SM90_ENTRIES:
+        assert tmha.mha_route(torch.float32, E, H, entry=entry) == 0
 
 
 def test_view_keeps_strided_layouts_and_copies_the_rest():

@@ -286,7 +286,7 @@ def test_b7_route(dtype, E, H, attn):
     """B7 asks for ``ROUTE_ATTN_SM90`` (its entry is among the sm90
     attention's), and ``mha_route`` grants it only in bf16 at D 64."""
     assert "mha_block_mean_probs" in tmha.ATTN_SM90_ENTRIES
-    route = tmha.mha_route(dtype, E, H)
+    route = tmha.mha_route(dtype, E, H, entry="mha_block_mean_probs")
     assert bool(route & tmha.ROUTE_ATTN_SM90) == attn
     assert bool(route & tmha.ROUTE_GEMM_SM90) == (dtype == torch.bfloat16)
 

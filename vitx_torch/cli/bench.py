@@ -520,10 +520,9 @@ def bench_12(device="cuda", iters=None, reps=3):
 
 def bench_13(device="cuda", iters=None, reps=3):
     """ViT-Huge/14 (``huge14``: E 1280, depth 32, 10 heads of D 128,
-    M 5120): inference b32 and a train step b8 on one card. At D 128 the
-    blocks' attention runs the earlier kernels (the sm90 attention is D 64
-    only), their products the sm90 GEMM; the step's attention backward
-    B2's earlier kernel."""
+    M 5120): inference b32 and a train step b8 on one card. The blocks'
+    attention runs the sm90 body at D 128, their products the sm90 GEMM;
+    the step's attention backward B2's sm90 kernel."""
     from vitx_torch.core.config import get_config
     from vitx_torch.nn.vit import forward, init_params
     from vitx_torch.train.step import leaves

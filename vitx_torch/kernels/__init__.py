@@ -15,15 +15,17 @@
   ``flash_attention_with_mean_probs`` (B5, ``csrc/flash_attention_fwd.cu``,
   with ``attention_fwd.cuh`` shared with K1 and B7): the attention forward
   without probs, with full probs and with head-mean probs; replace
-  ``vitx/kernels/flash_attention.py::_fwd_kernel``. In bf16 at D = 64
-  all three run ``csrc/flash_attention_sm90.cu`` (wgmma, TMA, an online
+  ``vitx/kernels/flash_attention.py::_fwd_kernel``. In bf16
+  ``flash_attention`` at D = 32, 64 or 128 and the probability modes at
+  D = 64 run ``csrc/flash_attention_sm90.cu`` (wgmma, TMA, an online
   softmax): ``flash_attention`` also returns the row statistics to its
   backward, the probability modes hand them to
   ``csrc/attention_probs_sm90.cuh``'s pass (``probs_route``).
 - ``fused_mlp_block`` (K2, ``csrc/mlp_block.cu``): LN -> W1 -> act -> W2,
   with its stash and a backward; replaces
   ``vitx/kernels/mlp_block.py::_kernel``.
-- ``attention_bwd`` (B2, ``csrc/attention_bwd_sm90.cu`` in bf16 at D = 64,
+- ``attention_bwd`` (B2, ``csrc/attention_bwd_sm90.cu`` in bf16 at D = 32,
+  64 or 128,
   ``csrc/flash_attention_bwd.cu`` otherwise): the attention backward at
   every T; replaces ``vitx/kernels/flash_attention.py::_bwd_kernel_nq1``
   and, past T = 1024, the q-chunked ``_bwd_kernel`` (B6).

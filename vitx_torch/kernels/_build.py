@@ -52,15 +52,17 @@ SIGNATURES = {
     "flash_attention_bwd": ("flash_attention_bwd", "vitx_attention_bwd",
                             [_I, _P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _P]),
+    # (q, k, v, o, stats, views, B, H, T, D, stream)
     "flash_attention_fwd_sm90": ("flash_attention_sm90",
                                  "vitx_attention_fwd_sm90",
-                                 [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
+                                 [_P] * 6 + [_I] * 4 + [_P]),
     # (q, k, v, o, stats, probs, mode, B, H, T, stream)
     "flash_attention_fwd_probs_sm90": ("flash_attention_sm90",
                                        "vitx_attention_fwd_probs_sm90",
                                        [_P] * 6 + [_I] * 4 + [_P]),
+    # (q, k, v, do, o, dq, dk, dv, stats, delta, views, B, H, T, D, stream)
     "attention_bwd_sm90": ("attention_bwd_sm90", "vitx_attention_bwd_sm90",
-                           [_P] * 11 + [_I, _I, _I, _P]),
+                           [_P] * 11 + [_I] * 4 + [_P]),
     # (dtype, route, ...): the route of csrc/layer_norm_bwd.cu
     "layer_norm_bwd": ("layer_norm_bwd", "vitx_ln_bwd",
                        [_I, _I] + [_P] * 8 + [_I, _I, _I, _I, _F, _P]),

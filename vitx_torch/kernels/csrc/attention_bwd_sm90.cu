@@ -1,12 +1,13 @@
 // B2's function (and B6's past T = 1024) on Hopper (sm_90a): the attention
-// backward on wgmma and TMA, bf16 at head width 64, in two deterministic
-// launches that take the forward's output and row statistics.
+// backward on wgmma and TMA, bf16 at head widths 32, 64 and 128, in two
+// deterministic launches that take the forward's output and row
+// statistics.
 //
 // Replaces vitx/kernels/flash_attention.py::_bwd_kernel_nq1 and the
-// q-chunked _bwd_kernel for bf16 q, k, v, do with D = 64, the head width
-// of every model the port runs; fp32 and other D keep
-// flash_attention_bwd.cu. Inputs: q (unscaled), k, v, do and o, bf16
-// (B, H, T, 64) views with any 16-byte-multiple strides (K1's o_all and
+// q-chunked _bwd_kernel for bf16 q, k, v, do with D = 32 (MAE's decoder),
+// 64 (the ViT-B/L family) or 128 (huge14, base16_hd128); fp32 and other D
+// keep flash_attention_bwd.cu. Inputs: q (unscaled), k, v, do and o, bf16
+// (B, H, T, D) views with any 16-byte-multiple strides (K1's o_all and
 // the backward's do are read in their (B, T, H, D) layouts), and stats
 // (2, B, H, T) fp32 from the forward: the row max m of the logits and
 // linv = 1 / l. Outputs dq, dk, dv, bf16 views with any such strides (the
@@ -20,7 +21,13 @@
 //   dv = cast(pu)^T cast(do * linv)
 //   dk = e^T cast(q * scale * linv)
 // At D = 64 the scale is 2^-3: qs = q * scale exactly, so s = scale *
-// (q k^T) and no tile is rescaled for the logits. delta is FA2's identity
+// (q k^T) and no tile is rescaled for the logits. At D = 32 and 128 it is
+// not (sm90.cuh's scale_rows rounds qs = cast(q * scale) in shared
+// memory, and s is the product itself): launch A rounds its q tile in
+// place once; launch B needs q in two roundings, qs for s^T and cast(q *
+// scale * linv) from the unscaled q for dk, so it writes qs into a tile of
+// its own (QS) and keeps the arrived q until it is rescaled to the second.
+// delta is FA2's identity
 // rowsum(do * o) = rowsum(p * dp) for vitx's rowsum(pu * dp) * linv: its
 // rounding point moves from the fp32 pu * dp to the bf16 o of the forward
 // (tests/test_torch_attn_sm90.py measures the cost against vitx).
@@ -34,16 +41,16 @@
 // and a fixed order of every sum, so a call gives the same bits every
 // time:
 //   A. dq_kernel_sm90: one block per (b*h, 64 queries): one consumer
-//      warpgroup and one producer warp, two blocks an SM (166 registers a
-//      thread). The producer loads q, do and o once and keeps the k and v
-//      tiles of a two-stage ring in flight by TMA. The warpgroup computes
-//      delta for its rows (written out for launch B), then per key tile s
-//      and dp by wgmma from shared memory, e in registers, and dq += e k
-//      with e as the register A operand and k read MN-major from the same
-//      tile.
+//      warpgroup and one producer warp (125 registers a thread at D 64,
+//      114 at D 32: three blocks an SM). The producer loads q, do and o
+//      once and keeps the k and v tiles of a two-stage ring in flight by
+//      TMA. The warpgroup computes delta for its rows (written out for
+//      launch B), then per key tile s and dp by wgmma from shared memory,
+//      e in registers, and dq += e k with e as the register A operand and
+//      k read MN-major from the same tile.
 //   B. dkdv_kernel_sm90: one block per (b*h, 64 keys), one consumer
-//      warpgroup with k and v resident (three blocks an SM, 128 registers
-//      a thread), and the producer streaming q, do
+//      warpgroup with k and v resident (168 registers a thread at D 64,
+//      two blocks an SM by registers), and the producer streaming q, do
 //      and the 64 queries' m, linv and delta through the ring. s^T = k q^T
 //      and dp^T = v do^T by wgmma; pu^T and e^T in registers; then the
 //      arrived q and do tiles are rescaled in shared memory, in place, to
@@ -58,6 +65,28 @@
 // tile's products with the next tile's elementwise work inside a
 // warpgroup were both slower than more blocks an SM, which overlap one
 // block's exps with another's products.
+// Per width (sm90.cuh's Tile<D>; registers as ptxas reports them):
+//   - D 128: both launches are held to two blocks an SM by
+//     __launch_bounds__, which ptxas meets with at most 168 registers a
+//     thread (two blocks of five warps put three warps on some of the SM's
+//     four schedulers, each with a quarter of the register file).
+//   - D 128, launch A (160 registers): dq is 64 floats a thread beside s
+//     and dp (32 each). q, do, o and a two-stage k/v ring are 112 KB, a
+//     few hundred bytes past what lets two blocks share an SM with the
+//     alignment slack, so o (read only for delta) arrives in the ring's
+//     second v slot, which the producer fills with v only after the
+//     consumers have released o (an mbarrier).
+//   - D 128, launch B: dk and dv are 128 floats a thread, which leave no
+//     room for s^T and dp^T of 64 queries (32 each). So each arrived
+//     query tile is taken in two halves of 32 queries: s^T and dp^T are
+//     m64n32 products (16 floats each), and dv, dk take the half as two
+//     k16 steps of m64n128; QS holds one half (8 KB); a half whose
+//     queries all lie past T is skipped. K, V, the two-stage q/do ring and
+//     QS are 105 KB, two blocks an SM; ptxas still spills ~300 bytes a
+//     thread. Its in-place passes go one 16-byte chunk at a time, which
+//     spilled less and ran faster than unrolling them (PERF.md).
+//   - D 32: one 64-byte-swizzled box a tile, every accumulator a quarter
+//     of D 128's, the whole query tile at once (QS 4 KB).
 
 #include "common.cuh"
 #include "sm90.cuh"
@@ -80,10 +109,11 @@ struct BwdArgs {
   float scale;
 };
 
-// Rows row0 and row0 + 8 of an m64n64 accumulator, each value times f[r],
+// Rows row0 and row0 + 8 of an m64nN accumulator, each value times f[r],
 // to bf16 at out (rows at or past T skipped).
+template <int N>
 __device__ __forceinline__ void store_rows(const Out& out, int b, int h, int row0, int T,
-                                           const float (&acc)[32], const float (&f)[2]) {
+                                           const float (&acc)[N / 2], const float (&f)[2]) {
   const int cbase = 2 * (threadIdx.x & 3);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -91,42 +121,47 @@ __device__ __forceinline__ void store_rows(const Out& out, int b, int h, int row
     if (t >= T) continue;
     bf16* dst = out.p + b * out.sb + h * out.sh + (long long)t * out.st;
 #pragma unroll
-    for (int nb = 0; nb < 8; ++nb)
+    for (int nb = 0; nb < N / 8; ++nb)
       *reinterpret_cast<__nv_bfloat162*>(dst + 8 * nb + cbase) =
           __floats2bfloat162_rn(acc[4 * nb + 2 * r] * f[r], acc[4 * nb + 2 * r + 1] * f[r]);
   }
 }
 
-template <int NS> struct DqSmem {
+template <int D, int NS> struct DqSmem {
+  static constexpr int TB = sm90::Tile<D>::BYTES;
+  // D 128: o in the second stage's v slot (the header note)
+  static constexpr bool O_IN_RING = D == 128 && NS >= 2;
   static constexpr int Q = 0;                                   // a tile each:
-  static constexpr int DO = Q + sm90::TILE_BYTES;
-  static constexpr int O = DO + sm90::TILE_BYTES;
-  static constexpr int K = O + sm90::TILE_BYTES;                // NS tiles each:
-  static constexpr int V = K + NS * sm90::TILE_BYTES;
-  static constexpr int DELTA = V + NS * sm90::TILE_BYTES;       // 64 fp32
-  static constexpr int BAR = DELTA + 64 * 4;                    // q, full[NS], empty[NS]
-  static constexpr int BYTES = BAR + 8 * (1 + 2 * NS) + 1024;
+  static constexpr int DO = Q + TB;
+  static constexpr int K = DO + TB;                             // NS tiles each:
+  static constexpr int V = K + NS * TB;
+  static constexpr int O = O_IN_RING ? V + TB : V + NS * TB;    // a tile
+  static constexpr int DELTA = O_IN_RING ? V + NS * TB : O + TB;   // 64 fp32
+  static constexpr int BAR = DELTA + 64 * 4;                    // q, full[NS], empty[NS], ofree
+  static constexpr int BYTES = BAR + 8 * (2 + 2 * NS) + 1024;
 };
 
-template <int NS>
-__global__ void __launch_bounds__(BWD_THREADS, 1)
+template <int D, int NS>
+__global__ void __launch_bounds__(BWD_THREADS, D == 128 ? 2 : 1)
 dq_kernel_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
                const __grid_constant__ CUtensorMap to, const BwdArgs a) {
-  using S = DqSmem<NS>;
+  using S = DqSmem<D, NS>;
+  using G = sm90::Tile<D>;
   using namespace sm90;
+  constexpr bool QS = D != 64;   // qs rounded into the q tile before the first product
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = sm90::align_1024(smem_raw);
-  bf16* Qs = reinterpret_cast<bf16*>(smem + S::Q);
-  bf16* DOs = reinterpret_cast<bf16*>(smem + S::DO);
-  bf16* Os = reinterpret_cast<bf16*>(smem + S::O);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + S::K);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + S::V);
+  unsigned char* Qs = smem + S::Q;
+  unsigned char* DOs = smem + S::DO;
+  unsigned char* Os = smem + S::O;
+  unsigned char* Ks = smem + S::K;
+  unsigned char* Vs = smem + S::V;
   float* sdelta = reinterpret_cast<float*>(smem + S::DELTA);
   uint64_t* qbar = reinterpret_cast<uint64_t*>(smem + S::BAR);
   uint64_t* full = qbar + 1;
   uint64_t* empty = full + NS;
-  constexpr int TE = TILE_BYTES / 2;
+  uint64_t* ofree = empty + NS;   // O_IN_RING: the consumers are done with o
 
   const int T = a.T, H = a.H;
   const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
@@ -140,22 +175,24 @@ dq_kernel_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 4);   // the consumer warps
     }
+    mbar_init(ofree, 4);
     mbar_init_fence();
   }
   __syncthreads();
 
   if (warp == 4) {   // the producer
     if (lane == 0) {
-      mbar_arrive_expect_tx(qbar, 3 * TILE_BYTES);
-      tma_load_tile(Qs, &tq, qbar, q0, h, b);
-      tma_load_tile(DOs, &tdo, qbar, q0, h, b);
-      tma_load_tile(Os, &to, qbar, q0, h, b);
+      mbar_arrive_expect_tx(qbar, 3 * G::BYTES);
+      tma_load_tile_d<D>(Qs, &tq, qbar, q0, h, b);
+      tma_load_tile_d<D>(DOs, &tdo, qbar, q0, h, b);
+      tma_load_tile_d<D>(Os, &to, qbar, q0, h, b);
       for (int j = 0; j < nkt; ++j) {
         const int s = j % NS;
         if (j >= NS) mbar_wait(&empty[s], (j / NS - 1) & 1);
-        mbar_arrive_expect_tx(&full[s], 2 * TILE_BYTES);
-        tma_load_tile(Ks + s * TE, &tk, &full[s], 64 * j, h, b);
-        tma_load_tile(Vs + s * TE, &tv, &full[s], 64 * j, h, b);
+        if (S::O_IN_RING && j == 1) mbar_wait(ofree, 0);
+        mbar_arrive_expect_tx(&full[s], 2 * G::BYTES);
+        tma_load_tile_d<D>(Ks + s * G::BYTES, &tk, &full[s], 64 * j, h, b);
+        tma_load_tile_d<D>(Vs + s * G::BYTES, &tv, &full[s], 64 * j, h, b);
       }
     }
     return;
@@ -165,17 +202,18 @@ dq_kernel_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
   const size_t n = (size_t)gridDim.y * T;
   mbar_wait(qbar, 0);
 
-  // delta = rowsum(do * o): two threads a row, four 16-byte chunks each
+  // delta = rowsum(do * o): two threads a row, D/16 16-byte chunks each
   // (both tiles carry the same swizzle, so a chunk of one meets the same
   // columns of the other)
   {
     const int r = tid >> 1, half = tid & 1;
-    const uint4* dr = reinterpret_cast<const uint4*>(DOs + r * 64) + 4 * half;
-    const uint4* orow = reinterpret_cast<const uint4*>(Os + r * 64) + 4 * half;
     float acc = 0.0f;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      uint4 x = dr[c], y = orow[c];
+    for (int c = 0; c < D / 16; ++c) {
+      const int j = half * (D / 16) + c, box = j / G::CPR, p = j % G::CPR;
+      const int off = box * G::BOX_BYTES + r * G::ROW_BYTES + 16 * p;
+      uint4 x = *reinterpret_cast<const uint4*>(DOs + off);
+      uint4 y = *reinterpret_cast<const uint4*>(Os + off);
       const bf16* xe = reinterpret_cast<const bf16*>(&x);
       const bf16* ye = reinterpret_cast<const bf16*>(&y);
 #pragma unroll
@@ -187,6 +225,16 @@ dq_kernel_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
       const int t = q0 + r;
       if (t < T) a.delta[(size_t)bh * T + t] = acc;
     }
+  }
+  if constexpr (S::O_IN_RING) {   // o's slot may take v now
+    fence_proxy_async();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(ofree);
+  }
+  if constexpr (QS) {   // qs = cast(q * scale), vitx's rounding, in place
+    const float qscale = a.scale;
+    scale_rows<D, true>(Qs, Qs, 0, 64, [qscale](int) { return qscale; }, tid, 128);
+    fence_proxy_async();
   }
   named_bar(1, 128);
 
@@ -200,22 +248,28 @@ dq_kernel_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
     linv[r] = t < T ? a.stats[n + i] : 0.0f;
     dlt[r] = sdelta[rl + 8 * r];
   }
-  const float sl2 = a.scale * LOG2E;
+  // exp(s - m) as exp2(s * sl2 - m * log2e): s the product itself (QS), or
+  // it times the scale (D 64)
+  const float sl2 = QS ? LOG2E : a.scale * LOG2E;
   const int cbase = 2 * (lane & 3);
-  const uint64_t dqd = desc_sw128(Qs), dod = desc_sw128(DOs);
+  const uint64_t dqd = desc_tile<D>(Qs), dod = desc_tile<D>(DOs);
 
-  float acc[32], sc[32], dp[32];
+  float acc[D / 2], sc[32], dp[32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = sc[i] = dp[i] = 0.0f;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.0f;
   for (int j = 0; j < nkt; ++j) {
     const int s = j % NS;
     mbar_wait(&full[s], (j / NS) & 1);
-    const uint64_t dk = desc_sw128(Ks + s * TE), dv = desc_sw128(Vs + s * TE);
+    const uint64_t dk = desc_tile<D>(Ks + s * G::BYTES), dv = desc_tile<D>(Vs + s * G::BYTES);
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_ss(sc, desc_kstep(dqd, kk), desc_kstep(dk, kk), kk);
+    for (int kk = 0; kk < G::KSTEPS; ++kk)
+      wgmma_ss(sc, desc_k<D>(dqd, kk), desc_k<D>(dk, kk), kk);
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_ss(dp, desc_kstep(dod, kk), desc_kstep(dv, kk), kk);
+    for (int kk = 0; kk < G::KSTEPS; ++kk)
+      wgmma_ss(dp, desc_k<D>(dod, kk), desc_k<D>(dv, kk), kk);
     wg_commit();
     wg_wait<0>();
     fence_acc(sc);
@@ -231,7 +285,7 @@ dq_kernel_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
     acc_to_a(sc, ea);
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs(acc, ea[kk], desc_rowstep(dk, kk));
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs(acc, ea[kk], desc_rows<D>(dk, kk));
     wg_commit();
     wg_wait<0>();
     fence_acc(acc);
@@ -239,38 +293,49 @@ dq_kernel_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
     if (lane == 0) mbar_arrive(&empty[s]);
   }
   const float f[2] = {a.scale * linv[0], a.scale * linv[1]};
-  store_rows(a.dq, b, h, q0 + rl, T, acc, f);
+  store_rows<D>(a.dq, b, h, q0 + rl, T, acc, f);
 }
 
-template <int NS> struct DkvSmem {
+// queries of a query tile that launch B takes at once: half the tile at
+// D 128 (the header note)
+template <int D> constexpr int DKDV_QW = D == 128 ? 32 : 64;
+
+template <int D, int NS> struct DkvSmem {
+  static constexpr int TB = sm90::Tile<D>::BYTES;
   static constexpr int K = 0;                                   // a tile each:
-  static constexpr int V = K + sm90::TILE_BYTES;
-  static constexpr int Q = V + sm90::TILE_BYTES;                // NS tiles each:
-  static constexpr int DO = Q + NS * sm90::TILE_BYTES;
+  static constexpr int V = K + TB;
+  static constexpr int Q = V + TB;                              // NS tiles each:
+  static constexpr int DO = Q + NS * TB;
+  // D != 64: qs of DKDV_QW<D> queries (a Tile<D>'s boxes of that many rows)
+  static constexpr int QS = DO + NS * TB;
+  static constexpr int QS_BYTES = D == 64 ? 0 : DKDV_QW<D> * D * 2;
   // NS x (m * log2e | linv | delta) x 64 fp32
-  static constexpr int ST = DO + NS * sm90::TILE_BYTES;
+  static constexpr int ST = QS + QS_BYTES;
   static constexpr int BAR = ST + NS * 3 * 64 * 4;              // kv, full[NS], empty[NS]
   static constexpr int BYTES = BAR + 8 * (1 + 2 * NS) + 1024;
 };
 
-template <int NS>
-__global__ void __launch_bounds__(BWD_THREADS, 1)
+template <int D, int NS>
+__global__ void __launch_bounds__(BWD_THREADS, D == 128 ? 2 : D == 32 ? 3 : 1)
 dkdv_kernel_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
                  const BwdArgs a) {
-  using S = DkvSmem<NS>;
+  using S = DkvSmem<D, NS>;
+  using G = sm90::Tile<D>;
   using namespace sm90;
+  constexpr bool QS = D != 64;
+  constexpr int QW = DKDV_QW<D>;   // queries a step: s^T and dp^T are m64nQW
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = sm90::align_1024(smem_raw);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + S::K);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + S::V);
-  bf16* Qs = reinterpret_cast<bf16*>(smem + S::Q);
-  bf16* DOs = reinterpret_cast<bf16*>(smem + S::DO);
+  unsigned char* Ks = smem + S::K;
+  unsigned char* Vs = smem + S::V;
+  unsigned char* Qs = smem + S::Q;
+  unsigned char* DOs = smem + S::DO;
+  unsigned char* QSs = smem + S::QS;
   float* St = reinterpret_cast<float*>(smem + S::ST);
   uint64_t* kvbar = reinterpret_cast<uint64_t*>(smem + S::BAR);
   uint64_t* full = kvbar + 1;
   uint64_t* empty = full + NS;
-  constexpr int TE = TILE_BYTES / 2;
 
   const int T = a.T, H = a.H;
   const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
@@ -291,9 +356,9 @@ dkdv_kernel_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__
 
   if (warp == 4) {   // the producer
     if (lane == 0) {
-      mbar_arrive_expect_tx(kvbar, 2 * TILE_BYTES);
-      tma_load_tile(Ks, &tk, kvbar, k0, h, b);
-      tma_load_tile(Vs, &tv, kvbar, k0, h, b);
+      mbar_arrive_expect_tx(kvbar, 2 * G::BYTES);
+      tma_load_tile_d<D>(Ks, &tk, kvbar, k0, h, b);
+      tma_load_tile_d<D>(Vs, &tv, kvbar, k0, h, b);
     }
     for (int i = 0; i < nqt; ++i) {
       const int s = i % NS;
@@ -307,9 +372,9 @@ dkdv_kernel_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__
         st[128 + r] = t < T ? a.delta[idx] : 0.0f;
       }
       if (lane == 0) {
-        mbar_arrive_expect_tx(&full[s], 2 * TILE_BYTES);
-        tma_load_tile(Qs + s * TE, &tq, &full[s], 64 * i, h, b);
-        tma_load_tile(DOs + s * TE, &tdo, &full[s], 64 * i, h, b);
+        mbar_arrive_expect_tx(&full[s], 2 * G::BYTES);
+        tma_load_tile_d<D>(Qs + s * G::BYTES, &tq, &full[s], 64 * i, h, b);
+        tma_load_tile_d<D>(DOs + s * G::BYTES, &tdo, &full[s], 64 * i, h, b);
       } else {
         mbar_arrive(&full[s]);
       }
@@ -322,98 +387,136 @@ dkdv_kernel_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__
   bool kvalid[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) kvalid[r] = k0 + rl + 8 * r < T;
-  const float sl2 = a.scale * LOG2E;
+  const float sl2 = QS ? LOG2E : a.scale * LOG2E;
+  const float scale = a.scale;
   const int cbase = 2 * (lane & 3);
-  const uint64_t kd = desc_sw128(Ks), vd = desc_sw128(Vs);
+  const uint64_t kd = desc_tile<D>(Ks), vd = desc_tile<D>(Vs);
+  const uint64_t qsd = desc_tile<D>(QSs);   // QW rows: boxes QW * ROW_BYTES apart
 
-  float dka[32], dva[32], sc[32], dp[32];
+  float dka[D / 2], dva[D / 2], sc[QW / 2], dp[QW / 2];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) dka[i] = dva[i] = sc[i] = dp[i] = 0.0f;
+  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < QW / 2; ++i) sc[i] = dp[i] = 0.0f;
   for (int it = 0; it < nqt; ++it) {
     const int s = it % NS;
     mbar_wait(&full[s], (it / NS) & 1);
-    const uint64_t qd = desc_sw128(Qs + s * TE), dod = desc_sw128(DOs + s * TE);
-    wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_ss(sc, desc_kstep(kd, kk), desc_kstep(qd, kk), kk);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_ss(dp, desc_kstep(vd, kk), desc_kstep(dod, kk), kk);
-    wg_commit();
-    wg_wait<0>();
-    fence_acc(sc);
-    fence_acc(dp);
-
-    // pu^T and e^T: rows are keys, columns the tile's queries
+    unsigned char* qt = Qs + s * G::BYTES;
+    unsigned char* dot = DOs + s * G::BYTES;
+    const uint64_t qd = desc_tile<D>(qt), dod = desc_tile<D>(dot);
     const float* st = St + s * 192;
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int qc = 8 * (i >> 2) + cbase + (i & 1);
-      const bool ok = 64 * it + qc < T && kvalid[(i >> 1) & 1];
-      const float pu = ok ? exp2f(sc[i] * sl2 - st[qc]) : 0.0f;
-      sc[i] = pu;
-      dp[i] = pu * (dp[i] - st[128 + qc]);
-    }
-    uint32_t pa[4][4], ea[4][4];
-    acc_to_a(sc, pa);
-    acc_to_a(dp, ea);
+    for (int r0 = 0; r0 < 64; r0 += QW) {
+      if (QW < 64 && 64 * it + r0 >= T) break;   // the step's queries all lie past T
+      if constexpr (QS) {   // QS = cast(q[r0 .. r0 + QW) * scale), the logits' operand
+        scale_rows<D, false>(qt, QSs, r0, QW, [scale](int) { return scale; }, threadIdx.x, 128);
+        fence_proxy_async();
+        named_bar(1, 128);
+      }
+      // s^T = k qs^T and dp^T = v do^T over this step's queries: B is the
+      // rows r0 .. r0 + QW of QS (or, at D 64, of the arrived q) and of do
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < G::KSTEPS; ++kk) {
+        const uint64_t bq = QS ? desc_k<D, QW * G::ROW_BYTES>(qsd, kk) : desc_k<D>(qd, kk);
+        wgmma_ss(sc, desc_k<D>(kd, kk), bq, kk);
+      }
+#pragma unroll
+      for (int kk = 0; kk < G::KSTEPS; ++kk)
+        wgmma_ss(dp, desc_k<D>(vd, kk), desc_k<D>(dod, kk) + r0 * G::ROW_BYTES / 16, kk);
+      wg_commit();
+      wg_wait<0>();
+      fence_acc(sc);
+      fence_acc(dp);
 
-    // q -> cast(q * scale * linv) and do -> cast(do * linv), in place: a
-    // row of the swizzled tile is one query, whatever the chunk order
-    named_bar(1, 128);   // every warp is done reading q and do as they arrived
-    for (int idx = threadIdx.x; idx < 2 * 512; idx += 128) {
-      const int c = idx & 511, row = c >> 3;
-      const bool is_do = idx >= 512;
-      uint4* p = reinterpret_cast<uint4*>((is_do ? DOs : Qs) + s * TE) + c;
-      const float f = is_do ? st[64 + row] : a.scale * st[64 + row];
-      uint4 x = *p;
-      bf16* e = reinterpret_cast<bf16*>(&x);
+      // pu^T and e^T: rows are keys, columns the step's queries
 #pragma unroll
-      for (int u = 0; u < 8; ++u) e[u] = __float2bfloat16_rn(to_f(e[u]) * f);
-      *p = x;
-    }
-    fence_proxy_async();
-    named_bar(1, 128);
+      for (int i = 0; i < QW / 2; ++i) {
+        const int qc = r0 + 8 * (i >> 2) + cbase + (i & 1);
+        const bool ok = 64 * it + qc < T && kvalid[(i >> 1) & 1];
+        const float pu = ok ? exp2f(sc[i] * sl2 - st[qc]) : 0.0f;
+        sc[i] = pu;
+        dp[i] = pu * (dp[i] - st[128 + qc]);
+      }
+      uint32_t pa[QW / 16][4], ea[QW / 16][4];
+      acc_to_a(sc, pa);
+      acc_to_a(dp, ea);
 
-    wg_fence();
+      // q -> cast(q * scale * linv) and do -> cast(do * linv), in place,
+      // rows r0 .. r0 + QW: a row of the swizzled tile is one query,
+      // whatever the chunk order
+      named_bar(1, 128);   // every warp is done reading these rows as they arrived
+      scale_rows<D, true>(qt, qt, r0, QW, [&](int row) { return scale * st[64 + row]; },
+                          threadIdx.x, 128);
+      scale_rows<D, true>(dot, dot, r0, QW, [&](int row) { return st[64 + row]; },
+                          threadIdx.x, 128);
+      fence_proxy_async();
+      named_bar(1, 128);
+
+      wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs(dva, pa[kk], desc_rowstep(dod, kk));
+      for (int kk = 0; kk < QW / 16; ++kk)
+        wgmma_rs(dva, pa[kk], desc_rows<D>(dod, r0 / 16 + kk));
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs(dka, ea[kk], desc_rowstep(qd, kk));
-    wg_commit();
-    wg_wait<0>();
-    fence_acc(dva);
-    fence_acc(dka);
+      for (int kk = 0; kk < QW / 16; ++kk)
+        wgmma_rs(dka, ea[kk], desc_rows<D>(qd, r0 / 16 + kk));
+      wg_commit();
+      wg_wait<0>();
+      fence_acc(dva);
+      fence_acc(dka);
+    }
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[s]);
   }
   const float one[2] = {1.0f, 1.0f};
-  store_rows(a.dk, b, h, k0 + rl, T, dka, one);
-  store_rows(a.dv, b, h, k0 + rl, T, dva, one);
+  store_rows<D>(a.dk, b, h, k0 + rl, T, dka, one);
+  store_rows<D>(a.dv, b, h, k0 + rl, T, dva, one);
+}
+
+// Build the five tensor maps of the Tile<D> boxes, then launch A and B.
+template <int D>
+int run_bwd_sm90(const void* const in[5], const BwdArgs& a, const long long* views, int B,
+                 cudaStream_t s) {
+  CUtensorMap m[5];
+  for (int i = 0; i < 5; ++i) {
+    const int err = sm90::make_tile_map<D>(&m[i], in[i], B, a.H, a.T, views[3 * i],
+                                           views[3 * i + 1], views[3 * i + 2]);
+    if (err != 0) return err;
+  }
+  const dim3 grid((a.T + 63) / 64, B * a.H);
+  using SA = DqSmem<D, BWD_NS>;
+  auto ka = dq_kernel_sm90<D, BWD_NS>;
+  cudaError_t err =
+      cudaFuncSetAttribute(ka, cudaFuncAttributeMaxDynamicSharedMemorySize, SA::BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ka<<<grid, BWD_THREADS, SA::BYTES, s>>>(m[0], m[1], m[2], m[3], m[4], a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  using SB = DkvSmem<D, BWD_NS>;
+  auto kb = dkdv_kernel_sm90<D, BWD_NS>;
+  err = cudaFuncSetAttribute(kb, cudaFuncAttributeMaxDynamicSharedMemorySize, SB::BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kb<<<grid, BWD_THREADS, SB::BYTES, s>>>(m[0], m[1], m[2], m[3], a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace vitx
 
-// q, k, v, do, o (in) and dq, dk, dv (out): bf16 (B, H, T, 64) views whose
-// element strides (sb, sh, st) are views[3*i .. 3*i+2] in that order, each
-// a multiple of 8, the last dim contiguous, pointers 16-byte aligned.
-// stats: (2, B*H*T) fp32 from the forward; delta: (B*H*T) fp32 scratch.
-// Returns 0, the first CUDA error of the launches, or a tensor-map code of
-// sm90.cuh.
+// q, k, v, do, o (in) and dq, dk, dv (out): bf16 (B, H, T, D) views, D 32,
+// 64 or 128, whose element strides (sb, sh, st) are views[3*i .. 3*i+2] in
+// that order, each a multiple of 8, the last dim contiguous, pointers
+// 16-byte aligned. stats: (2, B*H*T) fp32 from the forward; delta: (B*H*T)
+// fp32 scratch. Returns 0, the first CUDA error of the launches, a
+// tensor-map code of sm90.cuh, or ERR_ROUTE for another D.
 extern "C" int vitx_attention_bwd_sm90(const void* q, const void* k, const void* v,
                                        const void* dout, const void* o, void* dq, void* dk,
                                        void* dv, const float* stats, float* delta,
-                                       const long long* views, int B, int H, int T,
+                                       const long long* views, int B, int H, int T, int D,
                                        void* stream) {
   using namespace vitx;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  CUtensorMap tq, tk, tv, tdo, to;
   const void* in[5] = {q, k, v, dout, o};
-  CUtensorMap* maps[5] = {&tq, &tk, &tv, &tdo, &to};
-  for (int i = 0; i < 5; ++i) {
-    const int err = sm90::make_tile_map(maps[i], in[i], B, H, T, views[3 * i],
-                                        views[3 * i + 1], views[3 * i + 2]);
-    if (err != 0) return err;
-  }
   BwdArgs a;
   void* outs[3] = {dq, dk, dv};
   Out* dst[3] = {&a.dq, &a.dk, &a.dv};
@@ -426,22 +529,11 @@ extern "C" int vitx_attention_bwd_sm90(const void* q, const void* k, const void*
   a.stats = stats;
   a.delta = delta;
   a.H = H; a.T = T;
-  a.scale = 0.125f;   // 1 / sqrt(64)
-
-  const dim3 grid((T + 63) / 64, B * H);
-  using SA = DqSmem<BWD_NS>;
-  auto ka = dq_kernel_sm90<BWD_NS>;
-  cudaError_t err =
-      cudaFuncSetAttribute(ka, cudaFuncAttributeMaxDynamicSharedMemorySize, SA::BYTES);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ka<<<grid, BWD_THREADS, SA::BYTES, s>>>(tq, tk, tv, tdo, to, a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  using SB = DkvSmem<BWD_NS>;
-  auto kb = dkdv_kernel_sm90<BWD_NS>;
-  err = cudaFuncSetAttribute(kb, cudaFuncAttributeMaxDynamicSharedMemorySize, SB::BYTES);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kb<<<grid, BWD_THREADS, SB::BYTES, s>>>(tq, tk, tv, tdo, a);
-  return static_cast<int>(cudaGetLastError());
+  a.scale = sm90::attention_scale(D);
+  switch (D) {
+    case 32: return run_bwd_sm90<32>(in, a, views, B, s);
+    case 64: return run_bwd_sm90<64>(in, a, views, B, s);
+    case 128: return run_bwd_sm90<128>(in, a, views, B, s);
+    default: return sm90::ERR_ROUTE;
+  }
 }

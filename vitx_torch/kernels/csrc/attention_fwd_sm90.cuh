@@ -1,12 +1,12 @@
 // The attention forward on Hopper (sm_90a): wgmma, TMA and an online
-// softmax, bf16 at head width 64. One body, five callers: B5
+// softmax, bf16 at head widths 32, 64 and 128. One body, five callers: B5
 // (flash_attention_sm90.cu; in its probability modes followed by
 // attention_probs_sm90.cuh, which reads the row statistics), K1's
 // attention, B7's (followed by the same pass's head mean) and, with the
 // KBIAS flag, B8's (mha_block.cu); each source builds its own copies.
 //
-// Over q, k, v (B, H, T, 64) bf16 views, q unscaled -> o (b, h, t, d) at
-// b*o_sb + h*o_sh + t*o_st + d (B5: (B, H, T, 64); K1: straight into
+// Over q, k, v (B, H, T, D) bf16 views, q unscaled -> o (b, h, t, d) at
+// b*o_sb + h*o_sh + t*o_st + d (B5: (B, H, T, D); K1: straight into
 // o_all (B, T, E)) and, for the backward, the row statistics stats (2, B,
 // H, T) fp32: the row max m of the logits and linv = 1 / l, what
 // attention_bwd_sm90.cu reads.
@@ -19,7 +19,11 @@
 //   o = cast(acc / l), the division after the product as in vitx.
 // At D = 64 the scale is 2^-3, so cast(q * scale) is q * scale exactly and
 // s = scale * (q k^T) exactly up to the order of the fp32 sum: the tile is
-// used as it arrives. One rounding point moves against vitx
+// used as it arrives. At D = 32 and 128 the scale (2^-2.5, 2^-3.5, as
+// the fp32 of 1 / sqrt(D) that vitx uses) is no power of two: the
+// consumers round qs = cast(q * scale) into the q tile, in place, once,
+// before the first product, and the logits are the product itself. One
+// rounding point moves against vitx
 // (flash_attention.py:102-157, mha_block.py:74-84): p is cast to bf16
 // after exp(s - m_j), the running max, rather than exp(s - m), the final
 // one; the two differ only where m_j < m, by the rescale of an
@@ -41,16 +45,29 @@
 //
 // The layout (measured on the H100, PERF.md):
 //   - one block per (b*h, 64 queries): one consumer warpgroup and one
-//     producer warp, under 128 registers a thread, so three blocks share
-//     an SM and one block's softmax runs while another's products do
+//     producer warp, under 128 registers a thread at D 64, so three blocks
+//     share an SM and one block's softmax runs while another's products do
 //     (faster than two consumer warpgroups a block, and than issuing
 //     tile j's s before tile j-1's p v inside a warpgroup);
 //   - the producer loads the q tile once, then keeps the k and v tiles of a
 //     two-stage ring in flight by TMA, signalling an mbarrier per stage;
-//   - the consumer warpgroup runs s = q k^T as 4 wgmma m64n64k16 from
+//   - the consumer warpgroup runs s = q k^T as D/16 wgmma m64n64k16 from
 //     shared memory, keeps s, the running max and sum and the o
 //     accumulator in registers, turns p into the bf16 A operand of the
-//     p v wgmma without a shared-memory round trip, and releases the stage.
+//     p v wgmma (m64nDk16) without a shared-memory round trip, and
+//     releases the stage.
+// Per width (sm90.cuh's Tile<D>):
+//   - D 128: a tile is two 128-byte-swizzled boxes; s takes 8 k16 steps
+//     across both, and p v is one m64n128k16 a key slice whose B operand
+//     (v, MN-major) spans both boxes. The o accumulator is 64 floats a
+//     thread beside s's 32, so the kernel is held to two blocks an SM
+//     (__launch_bounds__; ptxas reports 138 registers, 161 with KBIAS),
+//     which is also what the shared memory holds (q 16 KB and a two-stage
+//     k/v ring of 64 KB).
+//   - D 32: one 64-byte-swizzled box a tile, 2 k16 steps for s and an
+//     m64n32k16 p v; 20 KB of shared memory and 96 registers a thread, so
+//     four blocks share an SM. The exps and the fp32 softmax bound it
+//     there: as many logits as at D 64 for half the products.
 
 #pragma once
 
@@ -72,29 +89,33 @@ struct FwdArgs {
                             // (last, so the fields before keep their offsets)
 };
 
-template <int NS> struct FwdSmem {
-  static constexpr int Q = 0;                                  // a (64, 64) tile
-  static constexpr int K = Q + sm90::TILE_BYTES;               // NS tiles
-  static constexpr int V = K + NS * sm90::TILE_BYTES;          // NS tiles
-  static constexpr int BAR = V + NS * sm90::TILE_BYTES;        // q, full[NS], empty[NS]
+template <int D, int NS> struct FwdSmem {
+  static constexpr int TB = sm90::Tile<D>::BYTES;
+  static constexpr int Q = 0;                                  // a tile
+  static constexpr int K = Q + TB;                             // NS tiles
+  static constexpr int V = K + NS * TB;                        // NS tiles
+  static constexpr int BAR = V + NS * TB;                      // q, full[NS], empty[NS]
   static constexpr int BYTES = BAR + 8 * (1 + 2 * NS) + 1024;  // + the base's alignment
 };
 
-template <int NS, bool KBIAS>
-__global__ void __launch_bounds__(FWD_THREADS, 1)
+// (launch bounds: at D 128 the registers are held to two blocks an SM, for
+// the o accumulator's sake)
+template <int D, int NS, bool KBIAS>
+__global__ void __launch_bounds__(FWD_THREADS, D == 128 ? 2 : 1)
 attention_fwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv, const FwdArgs a) {
-  using S = FwdSmem<NS>;
+  using S = FwdSmem<D, NS>;
+  using G = sm90::Tile<D>;
   using namespace sm90;
+  constexpr bool QS = D != 64;   // qs rounded into the q tile before the first product
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = sm90::align_1024(smem_raw);
-  bf16* Qs = reinterpret_cast<bf16*>(smem + S::Q);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + S::K);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + S::V);
+  unsigned char* Qs = smem + S::Q;
+  unsigned char* Ks = smem + S::K;
+  unsigned char* Vs = smem + S::V;
   uint64_t* qbar = reinterpret_cast<uint64_t*>(smem + S::BAR);
   uint64_t* full = qbar + 1;
   uint64_t* empty = full + NS;
-  constexpr int TE = TILE_BYTES / 2;   // elements of a tile
 
   const int T = a.T, H = a.H;
   const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
@@ -114,25 +135,33 @@ attention_fwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant
 
   if (warp == 4) {   // the producer
     if (lane == 0) {
-      mbar_arrive_expect_tx(qbar, TILE_BYTES);
-      tma_load_tile(Qs, &tq, qbar, q0, h, b);
+      mbar_arrive_expect_tx(qbar, G::BYTES);
+      tma_load_tile_d<D>(Qs, &tq, qbar, q0, h, b);
       for (int j = 0; j < nkt; ++j) {
         const int s = j % NS;
         if (j >= NS) mbar_wait(&empty[s], (j / NS - 1) & 1);
-        mbar_arrive_expect_tx(&full[s], 2 * TILE_BYTES);
-        tma_load_tile(Ks + s * TE, &tk, &full[s], 64 * j, h, b);
-        tma_load_tile(Vs + s * TE, &tv, &full[s], 64 * j, h, b);
+        mbar_arrive_expect_tx(&full[s], 2 * G::BYTES);
+        tma_load_tile_d<D>(Ks + s * G::BYTES, &tk, &full[s], 64 * j, h, b);
+        tma_load_tile_d<D>(Vs + s * G::BYTES, &tv, &full[s], 64 * j, h, b);
       }
     }
     return;
   }
 
   mbar_wait(qbar, 0);
-  const uint64_t dq = desc_sw128(Qs);
+  if constexpr (QS) {   // qs = cast(q * scale), vitx's rounding, in place
+    const float qscale = a.scale;
+    scale_rows<D, true>(Qs, Qs, 0, 64, [qscale](int) { return qscale; }, threadIdx.x, 128);
+    fence_proxy_async();
+    named_bar(1, 128);
+  }
+  const uint64_t dq = desc_tile<D>(Qs);
 
-  float o[32], sc[32];
+  float o[D / 2], sc[32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = sc[i] = 0.0f;
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sc[i] = 0.0f;
   float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.0f, 0.0f};
   const int cbase = 2 * (lane & 3);
 
@@ -155,10 +184,11 @@ attention_fwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant
   for (int j = 0; j < nkt; ++j) {
     const int s = j % NS;
     mbar_wait(&full[s], (j / NS) & 1);
-    const uint64_t dk = desc_sw128(Ks + s * TE);
+    const uint64_t dk = desc_tile<D>(Ks + s * G::BYTES);
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_ss(sc, desc_kstep(dq, kk), desc_kstep(dk, kk), kk);
+    for (int kk = 0; kk < G::KSTEPS; ++kk)
+      wgmma_ss(sc, desc_k<D>(dq, kk), desc_k<D>(dk, kk), kk);
     wg_commit();
     wg_wait<0>();
     fence_acc(sc);
@@ -169,11 +199,12 @@ attention_fwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       const int col = 64 * j + 8 * (i >> 2) + cbase + (i & 1);
+      // the logit: the product itself (QS), or it times the scale (D 64)
+      const float lg = QS ? sc[i] : sc[i] * a.scale;
       if constexpr (KBIAS)
-        sc[i] = col < T ? __fadd_rn(sc[i] * a.scale, kb[2 * (i >> 2) + (i & 1)])
-                        : -CUDART_INF_F;
+        sc[i] = col < T ? __fadd_rn(lg, kb[2 * (i >> 2) + (i & 1)]) : -CUDART_INF_F;
       else
-        sc[i] = col < T ? sc[i] * a.scale : -CUDART_INF_F;
+        sc[i] = col < T ? lg : -CUDART_INF_F;
       mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
     }
     if (j + 1 < nkt) load_kb(j + 1);
@@ -191,15 +222,16 @@ attention_fwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant
       const int r = (i >> 1) & 1;
       sc[i] = exp2f((sc[i] - m[r]) * LOG2E);
       l[r] += sc[i];
-      o[i] *= alpha[r];
     }
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
     uint32_t pa[4][4];
     acc_to_a(sc, pa);
 
-    const uint64_t dv = desc_sw128(Vs + s * TE);
+    const uint64_t dv = desc_tile<D>(Vs + s * G::BYTES);
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs(o, pa[kk], desc_rowstep(dv, kk));
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs(o, pa[kk], desc_rows<D>(dv, kk));
     wg_commit();
     wg_wait<0>();
     fence_acc(o);
@@ -219,7 +251,7 @@ attention_fwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant
     if (t >= T) continue;
     bf16* dst = a.o + b * a.o_sb + h * a.o_sh + (long long)t * a.o_st;
 #pragma unroll
-    for (int nb = 0; nb < 8; ++nb) {
+    for (int nb = 0; nb < D / 8; ++nb) {
       const float v0 = o[4 * nb + 2 * r] / l[r], v1 = o[4 * nb + 2 * r + 1] / l[r];
       *reinterpret_cast<__nv_bfloat162*>(dst + 8 * nb + cbase) = __floats2bfloat162_rn(v0, v1);
     }
@@ -231,28 +263,40 @@ attention_fwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant
   }
 }
 
-// Launch the body over q, k, v bf16 (B, H, T, 64) views at qkv[0..2],
-// element strides strides[3*i .. 3*i+2] = (sb, sh, st) of view i, each a
-// multiple of 8, the last dim contiguous, pointers 16-byte aligned; a.o,
-// its strides, a.stats and (KBIAS) a.key_bias as FwdArgs says. Returns 0,
-// the CUDA error of the launch, or a tensor-map code of sm90.cuh.
-template <bool KBIAS>
-int launch_attention_fwd_sm90(const void* const qkv[3], const long long* strides,
-                              const FwdArgs& a, int B, cudaStream_t s) {
+template <int D, bool KBIAS>
+int launch_attention_fwd_sm90_d(const void* const qkv[3], const long long* strides,
+                                const FwdArgs& a, int B, cudaStream_t s) {
   CUtensorMap maps[3];
   for (int i = 0; i < 3; ++i) {
-    const int err = sm90::make_tile_map(&maps[i], qkv[i], B, a.H, a.T, strides[3 * i],
-                                        strides[3 * i + 1], strides[3 * i + 2]);
+    const int err = sm90::make_tile_map<D>(&maps[i], qkv[i], B, a.H, a.T, strides[3 * i],
+                                           strides[3 * i + 1], strides[3 * i + 2]);
     if (err != 0) return err;
   }
-  using Sm = FwdSmem<FWD_NS>;
-  auto kern = attention_fwd_sm90<FWD_NS, KBIAS>;
+  using Sm = FwdSmem<D, FWD_NS>;
+  auto kern = attention_fwd_sm90<D, FWD_NS, KBIAS>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Sm::BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((a.T + 63) / 64, B * a.H);
   kern<<<grid, FWD_THREADS, Sm::BYTES, s>>>(maps[0], maps[1], maps[2], a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Launch the body over q, k, v bf16 (B, H, T, D) views at qkv[0..2], D 32,
+// 64 or 128, element strides strides[3*i .. 3*i+2] = (sb, sh, st) of view
+// i, each a multiple of 8, the last dim contiguous, pointers 16-byte
+// aligned; a.o, its strides, a.stats, a.scale (sm90::attention_scale(D)) and
+// (KBIAS) a.key_bias as FwdArgs says. Returns 0, the CUDA error of the
+// launch, a tensor-map code of sm90.cuh, or ERR_ROUTE for another D.
+template <bool KBIAS>
+int launch_attention_fwd_sm90(const void* const qkv[3], const long long* strides,
+                              const FwdArgs& a, int B, int D, cudaStream_t s) {
+  switch (D) {
+    case 32: return launch_attention_fwd_sm90_d<32, KBIAS>(qkv, strides, a, B, s);
+    case 64: return launch_attention_fwd_sm90_d<64, KBIAS>(qkv, strides, a, B, s);
+    case 128: return launch_attention_fwd_sm90_d<128, KBIAS>(qkv, strides, a, B, s);
+    default: return sm90::ERR_ROUTE;
+  }
 }
 
 }  // namespace vitx

@@ -161,13 +161,13 @@ attention_probs_sm90(const __grid_constant__ CUtensorMap tq,
     const int s = i % NS;
     mbar_wait(&full[s], (i / NS) & 1);
     const bf16* st = reinterpret_cast<const bf16*>(smem + s * S::STAGE);
-    const uint64_t dq = desc_sw128(st), dk0 = desc_sw128(st + TE),
-                   dk1 = desc_sw128(st + 2 * TE);
+    const uint64_t dq = desc_tile<64>(st), dk0 = desc_tile<64>(st + TE),
+                   dk1 = desc_tile<64>(st + 2 * TE);
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_ss(sc0, desc_kstep(dq, kk), desc_kstep(dk0, kk), kk);
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss(sc0, desc_k<64>(dq, kk), desc_k<64>(dk0, kk), kk);
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_ss(sc1, desc_kstep(dq, kk), desc_kstep(dk1, kk), kk);
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss(sc1, desc_k<64>(dq, kk), desc_k<64>(dk1, kk), kk);
     wg_commit();
     if (i + 1 < nh) load_stats(h0 + i + 1, m_next, linv_next);
     wg_wait<0>();

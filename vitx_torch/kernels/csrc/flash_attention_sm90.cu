@@ -1,22 +1,24 @@
-// B5 on Hopper (sm_90a): wgmma, TMA and an online softmax, bf16 at head
-// width 64, without probabilities and in its two probability modes.
+// B5 on Hopper (sm_90a): wgmma, TMA and an online softmax, bf16, without
+// probabilities at head widths 32, 64 and 128 and in its two probability
+// modes at 64.
 //
 // Replaces vitx/kernels/flash_attention.py::_fwd_kernel (launched by _fwd;
 // entries flash_attention, flash_attention_with_probs and
-// flash_attention_with_mean_probs) for bf16 q, k, v with D = 64, the head
-// width of every model the port runs: q, k, v (B, H, T, 64), q unscaled ->
-// o (B, H, T, 64) bf16 and
-//   - without probabilities (entry vitx_attention_fwd_sm90), for the
-//     backward, the row statistics stats (2, B, H, T) fp32: the row max m
-//     of the logits and linv = 1 / l;
-//   - with them (entry vitx_attention_fwd_probs_sm90), probs: (B, H, T, T)
+// flash_attention_with_mean_probs) for bf16 q, k, v: q, k, v (B, H, T, D),
+// q unscaled -> o (B, H, T, D) bf16 and
+//   - without probabilities (entry vitx_attention_fwd_sm90; D 32, 64 or
+//     128: MAE's decoder, the ViT-B/L family, huge14 and base16_hd128),
+//     for the backward, the row statistics stats (2, B, H, T) fp32: the
+//     row max m of the logits and linv = 1 / l;
+//   - with them (entry vitx_attention_fwd_probs_sm90, D 64), probs: (B, H, T, T)
 //     fp32 in the full mode, the head mean (B, T, T) fp32 in the mean mode.
 //     The body writes the statistics into the caller's scratch, then
 //     attention_probs_sm90.cuh recomputes s = q k^T from the same tiles and
 //     writes p = exp(s - m) * linv (the mean: summed over the heads in
 //     order, / H) -- B7's head-mean pass on B5's own q and k, and the same
 //     pass one head a block for the full mode.
-// fp32 and other D keep attention_fwd.cuh (flash_attention_fwd.cu). The
+// fp32, other D and the probability modes at D != 64 keep
+// attention_fwd.cuh (flash_attention_fwd.cu). The
 // body, its function and its one moved rounding point are in
 // attention_fwd_sm90.cuh, which K1 (mha_block.cu) runs too; o is the
 // body's in every mode, so the probability modes' o equals the no-probs
@@ -39,13 +41,14 @@
 #include "attention_fwd_sm90.cuh"
 #include "attention_probs_sm90.cuh"
 
-// q, k, v, o: bf16 (B, H, T, 64) views whose element strides are
-// views[0..11] = (sb, sh, st) of q, k, v, o, each a multiple of 8, the last
-// dim contiguous, pointers 16-byte aligned. stats: null, or (2, B*H*T) fp32.
-// Returns 0, the CUDA error of the launch, or a tensor-map code of sm90.cuh.
+// q, k, v, o: bf16 (B, H, T, D) views, D 32, 64 or 128, whose element
+// strides are views[0..11] = (sb, sh, st) of q, k, v, o, each a multiple of
+// 8, the last dim contiguous, pointers 16-byte aligned. stats: null, or
+// (2, B*H*T) fp32. Returns 0, the CUDA error of the launch, a tensor-map
+// code of sm90.cuh, or ERR_ROUTE for another D.
 extern "C" int vitx_attention_fwd_sm90(const void* q, const void* k, const void* v, void* o,
                                        float* stats, const long long* views, int B, int H,
-                                       int T, void* stream) {
+                                       int T, int D, void* stream) {
   using namespace vitx;
   const void* in[3] = {q, k, v};
   FwdArgs a = {};
@@ -53,8 +56,8 @@ extern "C" int vitx_attention_fwd_sm90(const void* q, const void* k, const void*
   a.o_sb = views[9]; a.o_sh = views[10]; a.o_st = views[11];
   a.stats = stats;
   a.H = H; a.T = T;
-  a.scale = 0.125f;   // 1 / sqrt(64)
-  return launch_attention_fwd_sm90<false>(in, views, a, B,
+  a.scale = sm90::attention_scale(D);
+  return launch_attention_fwd_sm90<false>(in, views, a, B, D,
                                          static_cast<cudaStream_t>(stream));
 }
 
@@ -79,8 +82,8 @@ extern "C" int vitx_attention_fwd_probs_sm90(const void* q, const void* k, const
   a.o_sb = HTD; a.o_sh = TD; a.o_st = 64;
   a.stats = stats;
   a.H = H; a.T = T;
-  a.scale = 0.125f;   // 1 / sqrt(64)
-  const int err = launch_attention_fwd_sm90<false>(in, views, a, B, s);
+  a.scale = sm90::attention_scale(64);
+  const int err = launch_attention_fwd_sm90<false>(in, views, a, B, 64, s);
   if (err != 0) return err;
   if (mode == MEAN)
     return launch_attention_probs_sm90<true>(q, k, stats, probs, B, H, T, a.scale, s);

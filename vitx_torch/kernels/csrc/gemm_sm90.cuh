@@ -188,7 +188,7 @@ __device__ __forceinline__ void k_step(float (&acc)[G9_NB][32], uint32_t (&f)[4]
   for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
     for (int nb = 0; nb < G9_NB; ++nb)
-      if (nb < nbox) wgmma_rs(acc[nb], f[kk], desc_rowstep(desc_sw128(w + nb * TILE_BYTES), kk));
+      if (nb < nbox) wgmma_rs(acc[nb], f[kk], desc_rows<64>(desc_tile<64>(w + nb * TILE_BYTES), kk));
   }
   wg_commit();
   if (kt > 0) {

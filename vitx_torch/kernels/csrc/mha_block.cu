@@ -66,7 +66,8 @@
 //     wgmma fed by TMA through a ring of stages, the LN applied to the A
 //     fragments in registers, persistent blocks; otherwise common.cuh's
 //     gemm_kernel (mma.sync, register-staged loads), which fp32 needs;
-//   - ROUTE_ATTN_SM90 (K1, B7 and B8: bf16 at D = 64): launch 3 on B5's
+//   - ROUTE_ATTN_SM90 (K1 and B8: bf16 at D = 32, 64 or 128; B7: bf16 at
+//     D = 64, its head-mean pass's width): launch 3 on B5's
 //     sm90 body (attention_fwd_sm90.cuh): one pass over the keys with an
 //     online softmax on wgmma, q, k and v read by TMA from launch 2's
 //     planes, o written straight into o_all and the row statistics into
@@ -76,8 +77,8 @@
 //     that moves against _kernel and _kernel_tome, as it does for B5. B7's
 //     out is then K1's on its full route, bit for bit, and launch 3b adds
 //     the probabilities. Otherwise attention_fwd.cuh (mma.sync, two passes
-//     over the keys, a third for B7's probabilities), which fp32 and other
-//     D take.
+//     over the keys, a third for B7's probabilities), which fp32, other D
+//     and B7 at D != 64 take.
 // B8 is bound as K1 is: the projections' operations; k_mean reads the k
 // plane once more (B*T*E elements) and writes B*T*D, and the per-key bias
 // adds 16 floats per 64-key tile to each consumer thread's reads (L2).
@@ -124,8 +125,9 @@ int run_mha(int route, const void* x, const void* wqkv, const void* wo, const fl
   if (gemm90 && !(BF16 && gemm_sm90_ok(x, wqkv, E, 3 * E, true) &&
                   gemm_sm90_ok(o_all, wo, E, E, false)))
     return sm90::ERR_ROUTE;
-  if (attn90 && !(BF16 && D == 64 &&
-                  (MODE == PROBS_NONE || (MODE == PROBS_MEAN && attn_stats != nullptr))))
+  // the body at D 32, 64 and 128; B7's head-mean pass at D 64 only
+  if (attn90 && !(BF16 && ((MODE == PROBS_NONE && (D == 32 || D == 64 || D == 128)) ||
+                           (MODE == PROBS_MEAN && D == 64 && attn_stats != nullptr))))
     return sm90::ERR_ROUTE;
 
   int err = static_cast<int>(launch_ln_stats<T>(static_cast<const T*>(x), stats, M, E, eps, s));
@@ -146,7 +148,7 @@ int run_mha(int route, const void* x, const void* wqkv, const void* wo, const fl
   const size_t plane = (size_t)B * H * T_ * D;
   const void* k_plane = static_cast<const T*>(qkv) + plane;
   if (attn90) {
-    // q, k, v: the (B, H, T, 64) planes of launch 2; o: o_all (B, T, E)
+    // q, k, v: the (B, H, T, D) planes of launch 2; o: o_all (B, T, E)
     const void* in[3] = {qkv, k_plane, static_cast<const T*>(qkv) + 2 * plane};
     const long long HTD = (long long)H * T_ * D, TD = (long long)T_ * D;
     const long long strides[9] = {HTD, TD, D, HTD, TD, D, HTD, TD, D};
@@ -156,8 +158,8 @@ int run_mha(int route, const void* x, const void* wqkv, const void* wo, const fl
     fa.stats = attn_stats;
     fa.key_bias = key_bias;
     fa.H = H; fa.T = T_;
-    fa.scale = 0.125f;   // 1 / sqrt(64)
-    err = launch_attention_fwd_sm90<TOME>(in, strides, fa, B, s);
+    fa.scale = sm90::attention_scale(D);
+    err = launch_attention_fwd_sm90<TOME>(in, strides, fa, B, D, s);
     if constexpr (MODE == PROBS_MEAN) {
       if (err != 0) return err;
       err = launch_attention_probs_sm90<true>(qkv, k_plane, attn_stats, probs, B, H, T_,

@@ -10,13 +10,15 @@
   variants differentiate the plain reference attention
   (``flash_attention.py:516-538``). Each keeps its own ``launches`` count.
 - Routes on the card, chosen in the open on dtype and head width: bf16
-  at D = 64 (every model the port runs) takes the Hopper kernels on
-  wgmma and TMA, ``csrc/flash_attention_sm90.cu`` for the forward in all
-  three modes (the probability modes: the online-softmax body, then the
-  probability pass ``csrc/attention_probs_sm90.cuh``, where q, k and v are
-  contiguous 16-byte-aligned planes, ``probs_route``) and
-  ``csrc/attention_bwd_sm90.cu`` for the backward; fp32 and any other D
-  keep ``csrc/flash_attention_fwd.cu`` and ``csrc/flash_attention_bwd.cu``.
+  at D = 32, 64 or 128 (MAE's decoder; the ViT-B/L family; huge14 and
+  base16_hd128) takes the Hopper kernels on wgmma and TMA,
+  ``csrc/flash_attention_sm90.cu`` for the forward without probabilities
+  and ``csrc/attention_bwd_sm90.cu`` for the backward (``sm90_route``);
+  the probability modes take them at D = 64 only (the online-softmax body,
+  then the probability pass ``csrc/attention_probs_sm90.cuh``, where q, k
+  and v are contiguous 16-byte-aligned planes, ``probs_route``). fp32, any
+  other D, and the probability modes at D != 64 keep
+  ``csrc/flash_attention_fwd.cu`` and ``csrc/flash_attention_bwd.cu``.
   ``launches`` counts every CUDA launch of a wrapper, ``launches_sm90``
   those that took the sm90 route. The sm90 backward consumes the
   forward's o and row statistics (m and 1 / l, ``attention_stats_plain``'s
@@ -53,13 +55,23 @@ from vitx_torch.nn.layers import matmul32
 MAX_HEAD_DIM = 128    # the backward kernel's shared-memory tiles (csrc note)
 MAX_FWD_HEAD_DIM = 256
 PROBS_MODES = {None: 0, "full": 1, "mean": 2}
-SM90_HEAD_DIM = 64    # the head width of the sm90 kernels' tiles
+# the head widths of the sm90 forward body and backward (csrc/sm90.cuh's
+# Tile<D>), and the one of the probability pass after the body
+SM90_HEAD_DIMS = (32, 64, 128)
+SM90_PROBS_HEAD_DIM = 64
 
 
 def sm90_route(t) -> bool:
-    """Whether the attention kernels take the sm90 route for ``t`` (q):
-    bf16 at D = 64. The caller has checked that t lies on the card."""
-    return t.dtype == torch.bfloat16 and t.shape[-1] == SM90_HEAD_DIM
+    """Whether the forward without probabilities and the backward take
+    the sm90 route for ``t`` (q): bf16 at D = 32, 64 or 128. The caller has
+    checked that t lies on the card."""
+    return t.dtype == torch.bfloat16 and t.shape[-1] in SM90_HEAD_DIMS
+
+
+def sm90_probs_route(t) -> bool:
+    """Whether B5's probability modes (and B7's head mean, which shares
+    their pass) can take the sm90 route for ``t`` (q): bf16 at D = 64."""
+    return t.dtype == torch.bfloat16 and t.shape[-1] == SM90_PROBS_HEAD_DIM
 
 
 def attention_stats_plain(q, k):
@@ -149,9 +161,10 @@ def _bwd_wmma(q, k, v, do):
 
 
 def _bwd_sm90(q, k, v, do, o, stats, out=None):
-    """``csrc/attention_bwd_sm90.cu``: bf16 at D = 64, inputs read and
-    outputs written through their strides (``_view``). Counts nothing."""
-    B, H, T, _ = q.shape
+    """``csrc/attention_bwd_sm90.cu``: bf16 at D = 32, 64 or 128, inputs
+    read and outputs written through their strides (``_view``). Counts
+    nothing."""
+    B, H, T, D = q.shape
     ins = [_view(t) for t in (q, k, v, do, o)]
     if out is None:
         out = tuple(torch.empty_like(q) for _ in range(3))
@@ -167,7 +180,7 @@ def _bwd_sm90(q, k, v, do, o, stats, out=None):
     fn = _build.entry("attention_bwd_sm90")
     with torch.cuda.device(q.device):
         err = fn(*(t.data_ptr() for t, _ in ins + outs), stats.data_ptr(),
-                 delta.data_ptr(), views, B, H, T,
+                 delta.data_ptr(), views, B, H, T, D,
                  torch.cuda.current_stream().cuda_stream)
     _build.check("attention_bwd_sm90", err)
     return out
@@ -179,8 +192,8 @@ def attention_bwd(q, k, v, do, o=None, stats=None, *, out=None):
 
     ``o`` is the forward's output and ``stats`` its row statistics
     (``attention_stats_plain``'s (2, B, H, T) fp32); the sm90 route (bf16,
-    D = 64) needs both, the others ignore them. q, k, v, do and o may be
-    strided views. ``out``, three (B, H, T, D) tensors (views of one
+    D = 32, 64 or 128) needs both, the others ignore them. q, k, v, do and
+    o may be strided views. ``out``, three (B, H, T, D) tensors (views of one
     buffer, say), receives dq, dk, dv and is returned.
 
     CUDA tensors go through a kernel, adding one to
@@ -201,8 +214,9 @@ def attention_bwd(q, k, v, do, o=None, stats=None, *, out=None):
         raise ValueError(f"attention_bwd runs on cuda or cpu, not {q.device}")
     if sm90_route(q):
         if o is None or stats is None:
-            raise ValueError("attention_bwd on bf16 at D = 64 (the sm90 "
-                             "route) takes the forward's o and stats")
+            raise ValueError("attention_bwd on bf16 at D = 32, 64 or 128 "
+                             "(the sm90 route) takes the forward's o and "
+                             "stats")
         res = _bwd_sm90(q, k, v, do, o, stats, out)
         attention_bwd.launches_sm90 += 1
     else:
@@ -275,9 +289,9 @@ def _check_fwd(q, k, v, probs_mode):
 
 
 def _fwd_sm90(q, k, v, want_stats: bool):
-    """``csrc/flash_attention_sm90.cu``: bf16 at D = 64, no probs -> (o,
-    stats (2, B, H, T) fp32 or None). Counts nothing."""
-    B, H, T, _ = q.shape
+    """``csrc/flash_attention_sm90.cu``: bf16 at D = 32, 64 or 128, no
+    probs -> (o, stats (2, B, H, T) fp32 or None). Counts nothing."""
+    B, H, T, D = q.shape
     o = torch.empty_like(q)
     stats = (torch.empty((2, B, H, T), dtype=torch.float32, device=q.device)
              if want_stats else None)
@@ -287,7 +301,7 @@ def _fwd_sm90(q, k, v, want_stats: bool):
     with torch.cuda.device(q.device):
         err = fn(*(t.data_ptr() for t, _ in ins),
                  stats.data_ptr() if stats is not None else None, views,
-                 B, H, T, torch.cuda.current_stream().cuda_stream)
+                 B, H, T, D, torch.cuda.current_stream().cuda_stream)
     _build.check("flash_attention_fwd_sm90", err)
     return o, stats
 
@@ -301,7 +315,7 @@ def probs_route(q, k, v) -> int:
     boundaries (the pass's TMA maps) and B * H at most 65535 (the grids'
     second and third dimensions); 0, ``csrc/flash_attention_fwd.cu``,
     otherwise."""
-    ok = (sm90_route(q) and q.shape[0] * q.shape[1] <= 65535
+    ok = (sm90_probs_route(q) and q.shape[0] * q.shape[1] <= 65535
           and all(t.is_contiguous() and t.data_ptr() % 16 == 0
                   for t in (q, k, v)))
     return ROUTE_SM90 if ok else 0
@@ -366,10 +380,11 @@ def _fwd_wmma(q, k, v, probs_mode):
 
 
 def _fwd(q, k, v, probs_mode, counter, want_stats: bool = False):
-    """B5 on CUDA (adding one to ``counter.launches``; in bf16 at D = 64 the
-    sm90 kernels, which add one to ``counter.launches_sm90`` too), the
-    plain version on the CPU. ``want_stats`` (no probs) returns (o, stats),
-    stats None off the sm90 route."""
+    """B5 on CUDA (adding one to ``counter.launches``; on the sm90 routes,
+    ``sm90_route`` without probs and ``probs_route`` with them, to
+    ``counter.launches_sm90`` too), the plain version on the CPU.
+    ``want_stats`` (no probs) returns (o, stats), stats None off the sm90
+    route."""
     if q.device.type == "cpu":
         o = flash_attention_fwd_plain(q, k, v, probs_mode)
         return (o, None) if want_stats else o

@@ -22,15 +22,15 @@ Routes on the card, chosen here in the open and passed to the kernel,
 which refuses one the inputs cannot take (``mha_route``): in bf16 with E
 a multiple of 8 the projections run on the Hopper GEMM
 ``csrc/gemm_sm90.cuh`` (wgmma fed by TMA, the LayerNorm applied to the A
-operand in registers), and K1's, B7's and B8's attention at head width
-64 on B5's sm90 body (``csrc/attention_fwd_sm90.cuh``; B8's per-key bias
-is one fp32 add per logit there; B7's head-mean probabilities a second
-pass, ``csrc/head_mean_probs_sm90.cuh``, from the body's row statistics);
-fp32 and other shapes keep the earlier kernels (``common.cuh``'s
-``gemm_kernel``, ``attention_fwd.cuh``). ``launches`` counts every CUDA
-launch of a wrapper, ``launches_sm90`` those whose projections ran on the
-sm90 GEMM, and B7's and B8's ``launches_attn_sm90`` those whose attention
-ran on the sm90 body.
+operand in registers), and K1's and B8's attention at head width 32, 64
+or 128, B7's at 64, on B5's sm90 body (``csrc/attention_fwd_sm90.cuh``;
+B8's per-key bias is one fp32 add per logit there; B7's head-mean
+probabilities a second pass, ``csrc/attention_probs_sm90.cuh``, from the
+body's row statistics); fp32 and other shapes keep the earlier kernels
+(``common.cuh``'s ``gemm_kernel``, ``attention_fwd.cuh``). ``launches``
+counts every CUDA launch of a wrapper, ``launches_sm90`` those whose
+projections ran on the sm90 GEMM, and ``launches_attn_sm90`` those whose
+attention ran on the sm90 body.
 
 ``fused_mha_block_with_mean_probs`` (B7, the same source's second entry)
 also returns the head-mean attention probabilities; it replaces
@@ -58,7 +58,9 @@ import torch
 
 from vitx_torch.kernels import _build
 from vitx_torch.kernels._build import DTYPE_CODES
-from vitx_torch.kernels.flash_attention import SM90_HEAD_DIM, attention_bwd
+from vitx_torch.kernels.flash_attention import (SM90_HEAD_DIMS,
+                                                SM90_PROBS_HEAD_DIM,
+                                                attention_bwd)
 from vitx_torch.kernels.layer_norm import ln_bwd
 from vitx_torch.nn.layers import dot, layer_norm, matmul32
 
@@ -66,28 +68,32 @@ MAX_HEAD_DIM = 256
 # the route bits of csrc/mha_block.cu's entries
 ROUTE_GEMM_SM90 = 1   # both projections on csrc/gemm_sm90.cuh
 # the attention on csrc/attention_fwd_sm90.cuh (B7's probabilities then on
-# csrc/head_mean_probs_sm90.cuh)
+# csrc/attention_probs_sm90.cuh)
 ROUTE_ATTN_SM90 = 2
-# the entries whose attention can take ROUTE_ATTN_SM90
-ATTN_SM90_ENTRIES = ("mha_block", "mha_block_mean_probs", "mha_block_tome")
+# the entries whose attention can take ROUTE_ATTN_SM90 -> the head widths
+# at which it does: the body's for K1 and B8, the probability pass's for B7
+ATTN_SM90_ENTRIES = {"mha_block": SM90_HEAD_DIMS,
+                     "mha_block_mean_probs": (SM90_PROBS_HEAD_DIM,),
+                     "mha_block_tome": SM90_HEAD_DIMS}
 
 
-def mha_route(dtype, E: int, H: int, *, attention_sm90: bool = True,
+def mha_route(dtype, E: int, H: int, *, entry: str = "mha_block",
               tensors=()) -> int:
-    """The route of a K1, B7 or B8 launch: ``ROUTE_GEMM_SM90`` where the
-    projections can take the sm90 GEMM (``_build.gemm_sm90``: bf16, E a
-    multiple of 8 and at most 4096, ``tensors`` -- x and the weights --
-    16-byte aligned), plus ``ROUTE_ATTN_SM90`` where the attention can
-    take B5's sm90 body: bf16 at head width 64
-    (``flash_attention.sm90_route``) and ``attention_sm90``, which every
-    entry of ``ATTN_SM90_ENTRIES`` asks for -- K1, B8, and B7, whose
-    head-mean probabilities then come from a second pass over q, k and the
-    body's row statistics (``csrc/head_mean_probs_sm90.cuh``). 0 is the
-    earlier kernels throughout."""
+    """The route of the ``mha_block.cu`` entry ``entry`` (K1
+    ``"mha_block"``, B7 ``"mha_block_mean_probs"``, B8
+    ``"mha_block_tome"``): ``ROUTE_GEMM_SM90`` where the projections can
+    take the sm90 GEMM (``_build.gemm_sm90``: bf16, E a multiple of 8 and
+    at most 4096, ``tensors`` -- x and the weights -- 16-byte aligned),
+    plus ``ROUTE_ATTN_SM90`` where the entry's attention can take B5's
+    sm90 body: bf16 at a head width of ``ATTN_SM90_ENTRIES[entry]`` -- 32,
+    64 or 128 for K1 and B8, 64 for B7, whose head-mean probabilities then
+    come from a second pass over q, k and the body's row statistics
+    (``csrc/attention_probs_sm90.cuh``). 0 is the earlier kernels
+    throughout."""
     route = (ROUTE_GEMM_SM90 if _build.gemm_sm90(dtype, (E,), tensors, ln_k=E)
              else 0)
-    if (attention_sm90 and dtype == torch.bfloat16
-            and E // H == SM90_HEAD_DIM):
+    if (dtype == torch.bfloat16
+            and E // H in ATTN_SM90_ENTRIES.get(entry, ())):
         route |= ROUTE_ATTN_SM90
     return route
 
@@ -204,9 +210,7 @@ def _launch(x, wqkv, wo, bo, g, b, eps, name="mha_block", extra=(),
     H = wqkv.shape[2]
     x, wqkv, wo, bo, g, b = _build.aligned(x, wqkv, wo, bo, g, b)
     if route is None:
-        route = mha_route(x.dtype, E, H,
-                          attention_sm90=name in ATTN_SM90_ENTRIES,
-                          tensors=(x, wqkv, wo))
+        route = mha_route(x.dtype, E, H, entry=name, tensors=(x, wqkv, wo))
     fn = _build.entry(name)
     out = torch.empty_like(x)
     qkv = torch.empty((3, B, H, T, E // H), dtype=x.dtype, device=x.device)
@@ -228,6 +232,8 @@ def _count(wrapper, route) -> None:
     wrapper.launches += 1
     if route & ROUTE_GEMM_SM90:
         wrapper.launches_sm90 += 1
+    if route & ROUTE_ATTN_SM90:
+        wrapper.launches_attn_sm90 += 1
 
 
 def _forward(x, wqkv, wo, bo, g, b, eps):
@@ -327,8 +333,9 @@ def fused_mha_block(x, wqkv, wo, bo, g, b, *, eps: float = 1e-5,
     ``_fused_fwd(stash=True)`` does -- q, k, v (B, H, T, D) with q
     unscaled, o_all (B, T, E) -- and records no gradient. CUDA tensors go
     through kernel K1 and add one to ``fused_mha_block.launches`` (and to
-    ``launches_sm90`` on the sm90 GEMM, ``mha_route``); CPU tensors take
-    the plain version. Where nothing needs a gradient the call is K1
+    ``launches_sm90`` on the sm90 GEMM, to ``launches_attn_sm90`` on the
+    sm90 attention body, ``mha_route``); CPU tensors take the plain
+    version. Where nothing needs a gradient the call is K1
     without its stash, and inside a ``torch.export`` trace it is the op
     ``vitx_torch::mha_block`` (``kernels/ops.py``).
     """
@@ -346,6 +353,7 @@ def fused_mha_block(x, wqkv, wo, bo, g, b, *, eps: float = 1e-5,
 
 fused_mha_block.launches = 0
 fused_mha_block.launches_sm90 = 0
+fused_mha_block.launches_attn_sm90 = 0
 
 
 # --- B7: the block with head-mean probabilities ------------------------------
@@ -359,7 +367,8 @@ def _launch_mean_probs(x, wqkv, wo, bo, g, b, eps, route=None):
     B, T, E = x.shape
     H = wqkv.shape[2]
     if route is None:
-        route = mha_route(x.dtype, E, H, tensors=(x, wqkv, wo))
+        route = mha_route(x.dtype, E, H, entry="mha_block_mean_probs",
+                          tensors=(x, wqkv, wo))
     probs = torch.empty((B, T, T), dtype=torch.float32, device=x.device)
     scratch = (torch.empty((2, B, H, T), dtype=torch.float32,
                            device=x.device)
@@ -376,8 +385,6 @@ def _forward_mean_probs(x, wqkv, wo, bo, g, b, eps):
         return mha_block_mean_probs_plain(x, wqkv, wo, bo, g, b, eps=eps)
     out, probs, *_, route = _launch_mean_probs(x, wqkv, wo, bo, g, b, eps)
     _count(fused_mha_block_with_mean_probs, route)
-    if route & ROUTE_ATTN_SM90:
-        fused_mha_block_with_mean_probs.launches_attn_sm90 += 1
     return out, probs
 
 
@@ -422,7 +429,8 @@ def fused_mha_block_with_mean_probs(x, wqkv, wo, bo, g, b, *,
     to ``fused_mha_block_with_mean_probs.launches`` (and to
     ``launches_sm90`` on the sm90 GEMM, to ``launches_attn_sm90`` on the
     sm90 attention and head-mean pass: bf16 at head width 64, where its
-    out is K1's bit for bit); CPU tensors take the plain version.
+    out is K1's bit for bit; at other widths the earlier attention);
+    CPU tensors take the plain version.
     Differentiable through the composed path.
     """
     _check(x, wqkv, wo, bo, g, b)
@@ -513,8 +521,6 @@ def _forward_tome(x, wqkv, bqkv, wo, bo, g, b, log_size, eps):
     res = _launch(x, wqkv, wo, bo, g, b, eps, "mha_block_tome",
                   (bqkv, log_size, k_mean))
     _count(fused_mha_block_tome, res[-1])
-    if res[-1] & ROUTE_ATTN_SM90:
-        fused_mha_block_tome.launches_attn_sm90 += 1
     return res[0], k_mean
 
 
