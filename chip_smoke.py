@@ -16,13 +16,13 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               the body at each head width, 32, 64 and 128, with and without
               its KBIAS flag, the probability pass in its
               head-mean (B7's, B5's mean mode) and full (B5's full mode)
-              instantiations, B8's, B5's and B2's sm90 kernels, B2's two at
-              each width), the wgmma
+              instantiations at each width, B8's, B5's and B2's sm90
+              kernels, B2's two at each width), the wgmma
               (HGMMA), TMA (UTMALDG) and wgmma-wait
               instructions in its SASS (cuobjdump -sass); each must have
               wgmma and TMA. B12's multi-leaf kernel must have no wgmma.
-              The body without the key bias (at each width) and the
-              head-mean pass must be the same instructions in mha_block's
+              The body without the key bias and the head-mean pass (at
+              each width) must be the same instructions in mha_block's
               library as in flash_attention_sm90's.
 3. kernels -- K1 (fused MHA block) and K2 (fused MLP block) at ViT-B/16
               shapes, batch 8 and 32, against their plain torch versions
@@ -36,8 +36,9 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               1152 and N 384 against 256-wide tiles), launches_sm90 one a
               call, twice bit for bit, and the earlier route (gemm_kernel,
               attention_fwd.cuh) on the same inputs; B7 and B8 on both
-              routes likewise (B7 in bf16 at D 64 on the sm90 attention and
-              its head-mean pass, launches_attn_sm90 one a call, its out
+              routes likewise (B7 in bf16 at D 32, 64 and 128 on the sm90
+              attention and its head-mean pass, launches_attn_sm90 one a
+              call, its out
               bit-equal to K1's on K1's full route, its probabilities within
               PROBS_BF16_TOL of the plain version's). B5 (attention
               forward) in its three modes at (2, 16, 577, 64), (2, 12, 197,
@@ -46,15 +47,19 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               (STATS_TOL), twice bit for bit, and the earlier kernel on
               the same inputs; in bf16 its two probability modes on the
               sm90 route (the body, then the probability pass), also at
-              a ragged (2, 4, 65, 64) and, the head mean, at the
-              rollout's (32, 16, 577, 64): o within BF16_TOL and
+              a ragged (2, 4, 65, 64), (2, 4, 65, 128) and (2, 4, 65,
+              32), at MAE's decoder's width (8, 16, 197, 32) and, the
+              head mean, at the rollout's (32, 16, 577, 64): o within
+              BF16_TOL and
               bit-equal to the no-probs sm90 o, the probabilities within
               PROBS_BF16_TOL, launches_sm90 one a call, twice bit for
               bit, the full mode's head mean within HEAD_MEAN_TOL of the
               mean mode's, and the earlier kernel on the same inputs;
               B7 (block with head-mean probs),
               K1 and K2 (gelu_tanh) at large16_384 block shapes, batch 2
-              and 8; float32 and bfloat16; B5's head mean and B7 twice,
+              and 8, float32 and bfloat16, and in bfloat16 at huge14's
+              (8, 257, 1280), 10 heads, and base16_hd128's (8, 197, 768),
+              6 heads, both D 128; B5's head mean and B7 twice,
               bit for bit; probability rows summing to 1 within 1e-5.
               B8 (the ToMe block, with a random QKV bias and log_size in
               [0, log 40]) against its plain version at the base16 r=13
@@ -79,8 +84,8 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               without probs at huge14's (8, 10, 257, 128) and MAE's
               decoder's (128, 16, 197, 32), o and its row statistics
               against plain, twice bit for bit, the earlier kernel beside
-              it, and its probability modes there on the earlier kernel
-              (launches_sm90 unmoved); B2 at the same shapes and at B6's
+              it, and at (8, 10, 257, 128) its probability modes on the
+              sm90 route as above; B2 at the same shapes and at B6's
               (4, 10, 1025, 128), twice bit for bit, with strided do, o
               and dqkv, the earlier kernel beside it; K1 with its stash
               (K1's attention on the sm90 body, launches_attn_sm90 one a
@@ -437,7 +442,9 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               copy bit for bit one process's; (e) python -m
               vitx_torch.parallel.dryrun 4 on the card, its line with
               vitx's pipeline keys (GPipe and 1F1B at 2 data x 2 stage;
-              pp x tp, which takes 8 ranks, nan as vitx prints it). Rank
+              pp x tp, which takes 8 ranks, nan as vitx prints it), run
+              after (c) beside (a)'s and (b)'s checks and (d), which time
+              nothing. Rank
               0's launches of (b) are the kernels line's "parallel" path.
 18. pipeline -- main path 15, pipeline parallelism (GPipe and 1F1B,
               vitx_torch.parallel.pipeline) in rank processes that share
@@ -523,7 +530,17 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               shapes (E 1280, 10 heads of D 128: the sm90 GEMM and the
               sm90 attention at D 128) held to their plain versions in
               bf16, then vitx_torch.cli.bench configs 3, 7 and 13 (the
-              last the "huge14" path: its launches asserted), bench 13's
+              last the "huge14" path: its launches asserted), the
+              "huge14_explain" path at full depth (launches asserted):
+              forward_with_rollout at b8, B7 on the sm90 attention and
+              its head-mean pass at D 128 in all 32 blocks,
+              forward_with_attn("full") at b2, B5's full mode on its sm90
+              route, and a server's /explain?method=rollout, 4 requests
+              equal to direct calls; the rollout's rows summing to 1,
+              within EXPLAIN_TOL of B7 on its GEMM-only route and, at
+              depth 2, of the CPU's fp32 forward, the attention maps
+              within EXPLAIN_TOL of the earlier kernel's, the rollout on
+              both routes timed in turns and profiled; bench 13's
               forward b32 and train step b8 under the profiler, split
               by kernel, then
               vitx_torch.cli.tune --mode infer on base16 at 64, 128 and
@@ -577,7 +594,10 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               attention_fwd.cuh, as was_ms), B2's two rows at (8, 10, 257,
               128) and B6's range (4, 10, 1025, 128), B5's two at (32, 10,
               257, 128), B8's at base16_hd128's (32, 197, 768) and B3's at
-              (8, 257, 1280), as more "shapes"; and the pretrain phase's
+              (8, 257, 1280), B5's probability modes at (2, 10, 257, 128)
+              (full) and (8, 10, 257, 128) (mean) and B7's two rows at
+              huge14's rollout (8, 257, 1280) and base16_hd128's (32,
+              197, 768), as more "shapes"; and the pretrain phase's
               (c): K1's sm90 row at (128, 197, 512) (D 32, was_ms its
               GEMM-only route), (128, 50, 768) and (192, 37, 768), K2's at
               (128, 197, 512), M 2048, B2's two rows and B5's two at (128,
@@ -656,7 +676,7 @@ PEAK_FP32_FLOPS = 67e12       # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
 PROFILE_LEAD = 1024           # spin kernels that open profile_call's window
 PROFILE_LEAD_KEPT = 960       # of them a window must keep to be read
-PROFILE_TRIES = 3             # windows profile_call traces at most
+PROFILE_TRIES = 2             # windows profile_call traces at most
 PHASES = ("device", "build", "kernels", "grad", "forward", "serve", "train",
           "explain", "tome", "finetune", "recipe", "transfer", "pretrained",
           "families", "optim", "pretrain", "parallel", "pipeline",
@@ -674,8 +694,8 @@ KERNELS = {
         "tpu_kernel": "vitx/kernels/mlp_block.py::_kernel",
     },
     # the sm90 route of K1, K2, B7 and B8 (bf16, E a multiple of 8): their
-    # projections on gemm_sm90.cuh, K1's and B8's attention at D 32, 64
-    # and 128 on attention_fwd_sm90.cuh (counted in launches_attn_sm90,
+    # projections on gemm_sm90.cuh, K1's, B7's and B8's attention at D 32,
+    # 64 and 128 on attention_fwd_sm90.cuh (counted in launches_attn_sm90,
     # EXTRA_COUNTERS); counted in the wrappers' launches_sm90
     # (COUNTERS), while the rows above count every launch, both routes
     "fused_mha_block_sm90": {
@@ -788,8 +808,8 @@ KERNELS = {
         "tpu_kernel": "vitx/kernels/flash_attention.py::_fwd_kernel "
                       "(head-mean probs)",
     },
-    # B5's probability modes on the sm90 route (bf16 at D 64, contiguous
-    # planes): the body, then the probability pass; counted in the
+    # B5's probability modes on the sm90 route (bf16 at D 32, 64 and 128,
+    # contiguous planes): the body, then the probability pass; counted in the
     # wrappers' launches_sm90 (COUNTERS), while the two rows above count
     # every launch, both routes
     "flash_attention_with_probs_sm90": {
@@ -798,7 +818,7 @@ KERNELS = {
                     "vitx_torch/kernels/csrc/attention_probs_sm90.cuh"],
         "replaces": "vitx/kernels/flash_attention.py:132",
         "tpu_kernel": "vitx/kernels/flash_attention.py::_fwd_kernel "
-                      "(full probs, bf16 at D 64)",
+                      "(full probs, bf16 at D 32, 64, 128)",
     },
     "flash_attention_with_mean_probs_sm90": {
         "source": "vitx_torch/kernels/csrc/flash_attention_sm90.cu",
@@ -806,7 +826,7 @@ KERNELS = {
                     "vitx_torch/kernels/csrc/attention_probs_sm90.cuh"],
         "replaces": "vitx/kernels/flash_attention.py:132",
         "tpu_kernel": "vitx/kernels/flash_attention.py::_fwd_kernel "
-                      "(head-mean probs, bf16 at D 64)",
+                      "(head-mean probs, bf16 at D 32, 64, 128)",
     },
     "fused_mha_block_with_mean_probs": {
         "source": "vitx_torch/kernels/csrc/mha_block.cu",
@@ -877,10 +897,6 @@ ATTN_SM90_COUNTERS = {"fused_mha_block": "fused_mha_block_attn_sm90",
                       "fused_mha_block_with_mean_probs":
                       "fused_mha_block_with_mean_probs_attn_sm90",
                       "fused_mha_block_tome": "fused_mha_block_tome_attn_sm90"}
-# each block's mha_block.cu entry, whose route mha_route gives per entry
-BLOCK_ENTRY = {"fused_mha_block": "mha_block",
-               "fused_mha_block_with_mean_probs": "mha_block_mean_probs",
-               "fused_mha_block_tome": "mha_block_tome"}
 # the sources whose SASS the build phase reads, and the sm90 kernels each
 # must hold: the wgmma (HGMMA) and TMA (UTMALDG) instructions that show
 # they reach the tensor cores' asynchronous path. mha_block and mlp_block
@@ -889,14 +905,15 @@ BLOCK_ENTRY = {"fused_mha_block": "mha_block",
 # A kernel named with its template arguments is that instantiation
 # (attention_fwd_sm90<128, 2, true>: B8's KBIAS body at head width 128;
 # dq_kernel_sm90<32, 2>: B2's launch A at 32); a bare name sums them all.
-# attention_probs_sm90<true> is the head-mean probability pass (B7's in
-# mha_block, B5's mean mode in flash_attention_sm90), <false> B5's full mode
-SM90_WIDTHS = (32, 64, 128)    # the head widths of the sm90 body and B2
+# attention_probs_sm90<D, true> is the head-mean probability pass at head
+# width D (B7's in mha_block, B5's mean mode in flash_attention_sm90),
+# <D, false> B5's full mode
+SM90_WIDTHS = (32, 64, 128)    # the head widths of the sm90 body, pass and B2
 SM90_SOURCES = {"flash_attention_sm90": (
                     *(f"attention_fwd_sm90<{d}, 2, false>"
                       for d in SM90_WIDTHS),
-                    "attention_probs_sm90<true>",
-                    "attention_probs_sm90<false>"),
+                    *(f"attention_probs_sm90<{d}, {mean}>"
+                      for mean in ("true", "false") for d in SM90_WIDTHS)),
                 "attention_bwd_sm90": (
                     *(f"{k}<{d}, 2>" for k in ("dq_kernel_sm90",
                                                "dkdv_kernel_sm90")
@@ -905,7 +922,8 @@ SM90_SOURCES = {"flash_attention_sm90": (
                               *(f"attention_fwd_sm90<{d}, 2, {kb}>"
                                 for kb in ("false", "true")
                                 for d in SM90_WIDTHS),
-                              "attention_probs_sm90<true>"),
+                              *(f"attention_probs_sm90<{d}, true>"
+                                for d in SM90_WIDTHS)),
                 "mlp_block": ("gemm_sm90_kernel",)}
 # kernels whose SASS is read and must hold no wgmma: B12's multi-leaf
 # update streams bytes and does no matrix product
@@ -1013,9 +1031,9 @@ def phase_build():
           "per kernel, and wgmma waits (WARPGROUP.DEPBAR: one per HGMMA "
           "would mean ptxas serialised them); attention_fwd_sm90<D, 2, "
           "true> is B8's KBIAS instantiation at head width D, "
-          "attention_probs_sm90<true> the "
-          "head-mean probability pass (B7's, B5's mean mode), <false> B5's "
-          "full mode", "sass": sass})
+          "attention_probs_sm90<D, true> the head-mean probability pass at "
+          "head width D (B7's, B5's mean mode), <D, false> B5's full mode",
+          "sass": sass})
     for name, wanted in SM90_SOURCES.items():
         for kern in wanted:
             n = sass[name].get(kern)
@@ -1036,12 +1054,12 @@ def phase_build():
             if n is None or n["HGMMA"] or n["WARPGROUP.DEPBAR"]:
                 raise AssertionError(f"{name}: {kern} is missing or holds "
                                      f"wgmma: {n}")
-    # the body without the key bias (at each width) and the head-mean pass
+    # the body without the key bias and the head-mean pass (at each width)
     # are one code in both sources: K1's and B7's copies (mha_block) and
     # B5's (flash_attention_sm90), instruction for instruction, so the
     # KBIAS flag and the full mode's instantiation leave them as they were
     for kern in (*(f"attention_fwd_sm90<{d}, 2, false>" for d in SM90_WIDTHS),
-                 "attention_probs_sm90<true>"):
+                 *(f"attention_probs_sm90<{d}, true>" for d in SM90_WIDTHS)):
         same = (funcs["mha_block"].get(kern)
                 == funcs["flash_attention_sm90"].get(kern))
         emit({"phase": "build", "check": f"{kern}: mha_block's SASS equal "
@@ -1130,21 +1148,28 @@ def phase_kernels(errs: dict):
         for dtype in (torch.float32, torch.bfloat16):
             check_flash(shape, dtype, errs)
     # B5's probability modes on the sm90 route at a ragged T (65: a last
-    # key tile of one key, one query tile's rows mostly past T), and the
-    # head mean at the rollout's batch 32
+    # key tile of one key, one query tile's rows mostly past T) at each
+    # head width, the head mean at the rollout's batch 32, and both modes
+    # at MAE's decoder's width (8, 16, 197, 32)
     for shape, modes in (((2, 4, 65, 64), ("full", "mean")),
-                         ((32, 16, 577, 64), ("mean",))):
+                         ((32, 16, 577, 64), ("mean",)),
+                         ((2, 4, 65, 128), ("full", "mean")),
+                         ((2, 4, 65, 32), ("full", "mean")),
+                         ((8, 16, 197, 32), ("full", "mean"))):
         q, k, v = (seeded(shape, s, 1.5, dtype=torch.bfloat16)
                    for s in (34, 35, 36))
-        check_probs_sm90(q, k, v, errs if shape[0] == 32 else None,
+        check_probs_sm90(q, k, v, errs if shape[0] in (8, 32) else None,
                          {"shape": list(shape), "dtype": "torch.bfloat16"},
                          modes)
         del q, k, v
-    # B7 and K1 at large16_384 block shapes
+    # B7 and K1 at large16_384 block shapes; B7 at huge14's (8, 257, 1280),
+    # 10 heads, and base16_hd128's (8, 197, 768), 6 heads, both D 128
     for B in (2, 8):
         for dtype, tol in ((torch.float32, FP32_TOL),
                            (torch.bfloat16, BF16_TOL)):
             check_mean_probs_block(B, 577, 1024, 16, dtype, tol, errs)
+    for shape in ((8, 257, 1280, 10), (8, 197, 768, 6)):
+        check_mean_probs_block(*shape, torch.bfloat16, BF16_TOL, errs)
     # B8 where the base16 r=13 server runs it (batch 32; T 197 the first
     # block, 54 the last, 119 between), at batch 8 and small T; at
     # large16_384's early ToMe blocks, the range of B9 (T 577 .. 416), and
@@ -1162,10 +1187,11 @@ def phase_kernels(errs: dict):
                            (torch.bfloat16, BF16_TOL)):
             check_block(32, T, E, H, dtype, tol, errs, mha=False)
     # the sm90 attention at head widths 128 (huge14, base16_hd128) and 32
-    # (MAE's decoder): B5 and B2 at their main paths' shapes, B2 also in
-    # B6's range, K1 with its stash, B8 (its KBIAS body)
-    for shape in ((8, 10, 257, 128), (128, 16, 197, 32)):
-        check_flash(shape, torch.bfloat16, errs)
+    # (MAE's decoder): B5 and B2 at their main paths' shapes (B5 at D 128
+    # with its probability modes, D 32's above), B2 also in B6's range, K1
+    # with its stash, B8 (its KBIAS body)
+    check_flash((8, 10, 257, 128), torch.bfloat16, errs)
+    check_flash((128, 16, 197, 32), torch.bfloat16, errs, probs=False)
     for shape in ((8, 10, 257, 128), (128, 16, 197, 32), (4, 10, 1025, 128)):
         check_attention_bwd(shape, torch.bfloat16, BF16_TOL, errs, "kernels")
     for shape in ((32, 257, 1280, 10), (128, 197, 512, 16)):
@@ -1253,12 +1279,12 @@ def check_rows(what: str, probs, **info) -> None:
         raise AssertionError(f"{what} {info}: rows sum to 1 +- {dev}")
 
 
-def check_flash(shape, dtype, errs: dict) -> None:
+def check_flash(shape, dtype, errs: dict, probs: bool = True) -> None:
     """B5 in each mode against ``flash_attention_fwd_plain``; the head
-    mean twice, bit for bit. In bf16 at D 64 every mode is on its sm90
-    route: ``check_flash_sm90`` and ``check_probs_sm90`` hold them; at D
-    32 and 128 the mode without probs is (``check_flash_sm90``), and the
-    probability modes keep the earlier kernel, launches_sm90 unmoved."""
+    mean twice, bit for bit. In bf16 at D 32, 64 and 128 every mode is on
+    its sm90 route: ``check_flash_sm90`` and (with ``probs``)
+    ``check_probs_sm90`` hold them; fp32 and other D keep the earlier
+    kernel, launches_sm90 unmoved."""
     from vitx_torch.kernels import (flash_attention,
                                     flash_attention_fwd_plain,
                                     flash_attention_with_mean_probs,
@@ -1267,14 +1293,12 @@ def check_flash(shape, dtype, errs: dict) -> None:
     bf = dtype == torch.bfloat16
     q, k, v = (seeded(shape, s, 1.5, dtype=dtype) for s in (31, 32, 33))
     info = {"shape": list(shape), "dtype": str(dtype)}
-    main = bf and shape[1] == 16 and shape[2] == 577
-    if bf and shape[3] == 64:
+    if bf and shape[3] in SM90_WIDTHS:
+        main = shape[3] != 64 or (shape[1] == 16 and shape[2] == 577)
         check_flash_sm90(q, k, v, errs if main else None, info)
-        check_probs_sm90(q, k, v, errs if main else None, info)
+        if probs:
+            check_probs_sm90(q, k, v, errs if main else None, info)
         return
-    body90 = bf and shape[3] in SM90_WIDTHS
-    if body90:
-        check_flash_sm90(q, k, v, errs, info)
     tol, ptol = (BF16_TOL, PROBS_BF16_TOL) if bf else (FP32_TOL, FP32_TOL)
     for name, fn, mode in (
             ("flash_attention", flash_attention, None),
@@ -1282,8 +1306,6 @@ def check_flash(shape, dtype, errs: dict) -> None:
              "full"),
             ("flash_attention_with_mean_probs",
              flash_attention_with_mean_probs, "mean")):
-        if body90 and mode is None:
-            continue
         n90 = fn.launches_sm90
         out = fn(q, k, v)
         torch.cuda.synchronize()
@@ -1310,7 +1332,8 @@ HEAD_MEAN_TOL = 1e-6
 
 
 def check_probs_sm90(q, k, v, errs, info, modes=("full", "mean")) -> None:
-    """B5's probability ``modes`` on their sm90 route (bf16, D 64): o
+    """B5's probability ``modes`` on their sm90 route (bf16, D 32, 64 or
+    128): o
     within BF16_TOL and the probabilities within PROBS_BF16_TOL of the
     plain version, rows summing to 1 within 1e-5, launches_sm90 one a call,
     twice bit for bit, o bit-equal to ``flash_attention``'s sm90 o; the
@@ -1413,7 +1436,8 @@ def check_mean_probs_block(B, T, E, H, dtype, tol, errs: dict) -> None:
     ``mlp_block_plain`` at (B, T, E); in bf16 also B7 on its GEMM-only route (the
     sm90 GEMM with attention_fwd.cuh) and on the earlier kernels, same
     inputs; B7 twice, bit for bit; its out bit-equal to K1's on K1's own
-    route (in bf16 at D 64 the same GEMMs and sm90 attention body)."""
+    route (in bf16 at D 32, 64 and 128 the same GEMMs and sm90 attention
+    body, which B7 must take there)."""
     from vitx_torch.kernels import (flash_attention_fwd_plain,
                                     fused_mha_block,
                                     fused_mha_block_with_mean_probs,
@@ -1425,8 +1449,10 @@ def check_mean_probs_block(B, T, E, H, dtype, tol, errs: dict) -> None:
     x, mha, mlp = block_inputs(B, T, E, H, 4 * E, dtype, 40 + B, "cuda")
     info = {"batch": B, "shape": [B, T, E], "dtype": str(dtype)}
     bf = dtype == torch.bfloat16
-    route = tmha.mha_route(dtype, E, H, entry="mha_block_mean_probs",
-                           tensors=(x, mha["wqkv"], mha["wo"]))
+    route = tmha.mha_route(dtype, E, H, tensors=(x, mha["wqkv"], mha["wo"]))
+    if bf and E // H in SM90_WIDTHS and not route & tmha.ROUTE_ATTN_SM90:
+        raise AssertionError(f"B7 {info}: route {route} leaves the sm90 "
+                             f"attention")
     n90 = fused_mha_block_with_mean_probs.launches_attn_sm90
     out = fused_mha_block_with_mean_probs(x, **mha)
     torch.cuda.synchronize()
@@ -1513,8 +1539,7 @@ def check_tome_block(B, T, E, H, dtype, tol, errs: dict) -> None:
     x, tm = tome_inputs(B, T, E, H, dtype, 60 + T)
     info = {"batch": B, "shape": [B, T, E], "dtype": str(dtype)}
     bf = dtype == torch.bfloat16
-    route = tmha.mha_route(dtype, E, H, entry="mha_block_tome",
-                           tensors=(x, tm["wqkv"], tm["wo"]))
+    route = tmha.mha_route(dtype, E, H, tensors=(x, tm["wqkv"], tm["wo"]))
     n90 = fused_mha_block_tome.launches_attn_sm90
     out = fused_mha_block_tome(x, **tm)
     torch.cuda.synchronize()
@@ -1719,19 +1744,18 @@ def block_launches(cfg, **per: int) -> dict:
                                      else mha90)
                  for k, n in per.items() if k in BLOCK_SM90}
     for block, extra in ATTN_SM90_COUNTERS.items():
-        sm90_rows[extra] = per.get(block, 0) * attn_sm90(cfg, block)
+        sm90_rows[extra] = per.get(block, 0) * attn_sm90(cfg)
     return launches_of(**per, **sm90_rows)
 
 
-def attn_sm90(cfg, block: str = "fused_mha_block") -> bool:
-    """Whether ``block``'s attention (K1, B7 or B8) runs on the sm90 body
-    for ``cfg``, by its entry's route rule (``mha_route``: bf16 at D 32, 64
-    or 128 for K1 and B8, at D 64 for B7)."""
+def attn_sm90(cfg) -> bool:
+    """Whether the blocks' attention (K1, B7 and B8) runs on the sm90 body
+    for ``cfg``, by their route rule (``mha_route``: bf16 at D 32, 64 or
+    128; B7's head-mean pass after it)."""
     import importlib
 
     mha = importlib.import_module("vitx_torch.kernels.mha_block")
-    return bool(mha.mha_route(cfg.cdtype(), cfg.embed_dim, cfg.num_heads,
-                              entry=BLOCK_ENTRY[block])
+    return bool(mha.mha_route(cfg.cdtype(), cfg.embed_dim, cfg.num_heads)
                 & mha.ROUTE_ATTN_SM90)
 
 
@@ -2258,16 +2282,11 @@ def synthetic_batch(ds, n: int) -> dict:
 
 
 def sm90(cfg) -> bool:
-    """Whether ``cfg``'s attention forward without probabilities and its
-    backward take the sm90 kernels: bf16 at head width 32, 64 or 128
-    (``vitx_torch.kernels.flash_attention.sm90_route``)."""
+    """Whether ``cfg``'s attention forward (with or without
+    probabilities) and its backward take the sm90 kernels: bf16 at head
+    width 32, 64 or 128 (``vitx_torch.kernels.flash_attention.sm90_route``).
+    """
     return cfg.compute_dtype == "bfloat16" and cfg.head_dim in SM90_WIDTHS
-
-
-def sm90_probs(cfg) -> bool:
-    """Whether B5's probability modes take the sm90 route for ``cfg``: bf16
-    at head width 64 (``flash_attention.sm90_probs_route``)."""
-    return cfg.compute_dtype == "bfloat16" and cfg.head_dim == 64
 
 
 def head_lns(cfg) -> int:
@@ -4508,7 +4527,7 @@ def phase_explain(cfg, params) -> dict:
     got = delta(snap)
     expect_launches("(b) forward_with_attn", got, block_launches(
         cfg, flash_attention_with_probs=cfg.depth,
-        flash_attention_with_probs_sm90=cfg.depth * sm90_probs(cfg),
+        flash_attention_with_probs_sm90=cfg.depth * sm90(cfg),
         fused_mlp_block=cfg.depth))
     expected.append(got)
     snap = counts()
@@ -4627,11 +4646,11 @@ def qkv_bias_model(cfg, params) -> tuple:
 def bias_rollout_launches(cfg, calls: int = 1) -> dict:
     """forward_with_rollout (or forward_with_attn("mean")) with QKV biases:
     the composed block, B5's head mean and K2 in every block, B5 on its
-    sm90 route in bf16 at D 64."""
+    sm90 route in bf16 at D 32, 64 and 128."""
     n = cfg.depth * calls
     return block_launches(
         cfg, flash_attention_with_mean_probs=n,
-        flash_attention_with_mean_probs_sm90=n * sm90_probs(cfg),
+        flash_attention_with_mean_probs_sm90=n * sm90(cfg),
         fused_mlp_block=n)
 
 
@@ -5268,13 +5287,7 @@ def phase_explain_times(cfg, params, errs: dict, launches: dict) -> list:
     import torch.nn.functional as F
 
     from vitx_torch import forward_with_attn, forward_with_rollout
-    from vitx_torch.kernels import (flash_attention,
-                                    flash_attention_fwd_plain,
-                                    flash_attention_with_mean_probs,
-                                    flash_attention_with_probs,
-                                    fused_mha_block,
-                                    fused_mha_block_with_mean_probs,
-                                    mha_block_mean_probs_plain)
+    from vitx_torch.kernels import flash_attention, flash_attention_fwd_plain
 
     E, H, T, D = cfg.embed_dim, cfg.num_heads, cfg.seq_len, cfg.head_dim
     bf = torch.bfloat16
@@ -5295,16 +5308,8 @@ def phase_explain_times(cfg, params, errs: dict, launches: dict) -> list:
                "img_per_s": B / (ms / 1000.0)}
         if what != "rollout_forward":
             # the same call with B5's probability modes on the earlier
-            # kernel, in turns with this one (now, was, now, was)
-            runs, was = [ms], []
-            for i in range(3):
-                if i % 2 == 0:
-                    with earlier_probs_route():
-                        was.append(cuda_ms(fn, reps=5))
-                else:
-                    runs.append(cuda_ms(fn, reps=10))
-            with earlier_probs_route():
-                was.append(cuda_ms(fn, reps=5))
+            # kernel, in turns with this one
+            runs, was = in_turns(fn, earlier_probs_route, ms)
             row.update(ms_runs=runs, was_ms_runs=was, was="B5's "
                        "probability modes on the earlier kernel "
                        "(attention_fwd.cuh)")
@@ -5313,13 +5318,9 @@ def phase_explain_times(cfg, params, errs: dict, launches: dict) -> list:
     del imgs, bparams
     torch.cuda.empty_cache()
 
-    def attn(B):
-        q, k, v = (seeded((B, H, T, D), s, 1.5, dtype=bf)
-                   for s in (51, 52, 53))
-        return q, k, v, 4 * B * H * T * T * D, 4 * B * H * T * D * 2
-
     rows = []
-    q, k, v, flops, nbytes = attn(32)
+    q, k, v = (seeded((32, H, T, D), s, 1.5, dtype=bf) for s in (51, 52, 53))
+    flops, nbytes = 4 * 32 * H * T * T * D, 4 * 32 * H * T * D * 2
     tflash = attention_module()
     # B5 without probs: the sm90 kernel the bf16 composed path runs, and
     # the earlier kernel (fp32, other D) on the same bf16 inputs
@@ -5334,53 +5335,73 @@ def phase_explain_times(cfg, params, errs: dict, launches: dict) -> list:
         lambda: F.scaled_dot_product_attention(q, k, v), flops,
         PEAK_BF16_FLOPS, nbytes, launches, errs, shape=[32, H, T, D],
         timed="the earlier kernel on bf16 through its launcher; the "
-              "wrapper sends bf16 at D 64 to flash_attention_sm90 and this "
-              "kernel fp32, other D and the probs modes"))
-    rows += probs_rows("flash_attention_with_mean_probs",
-                       flash_attention_with_mean_probs, "mean", q, k, v,
-                       flops, nbytes + 32 * T * T * 4, launches, errs)
-    q, k, v, flops, nbytes = attn(2)
-    rows += probs_rows("flash_attention_with_probs",
-                       flash_attention_with_probs, "full", q, k, v, flops,
-                       nbytes + 2 * H * T * T * 4, launches, errs)
+              "wrapper sends bf16 at D 32, 64 and 128 to "
+              "flash_attention_sm90 and this kernel fp32 and other D"))
     del q, k, v
-    B = 32
-    x, mha, _ = block_inputs(B, T, E, H, cfg.mlp_dim, bf, 54, "cuda")
-    rows_ = B * T
-    b7_flops = (2 * rows_ * E * 3 * E + 2 * rows_ * E * E
-                + 4 * B * H * T * T * D)
-    b7_bytes = 2 * rows_ * E * 2 + 4 * E * E * 2 + 3 * E * 4 + B * T * T * 4
-    k1_ms = cuda_ms(lambda: fused_mha_block(x, **mha), reps=20)
-    tmha = block_module()
-    rows += block_rows(
-        "fused_mha_block_with_mean_probs",
-        lambda: fused_mha_block_with_mean_probs(x, **mha),
-        lambda: tmha._launch_mean_probs(x, **mha, eps=1e-5, route=0),
-        lambda: mha_block_mean_probs_plain(x, **mha), None, b7_flops,
-        b7_bytes, launches, errs,
-        was=lambda: tmha._launch_mean_probs(x, **mha, eps=1e-5,
-                                            route=tmha.ROUTE_GEMM_SM90),
-        was_what="the GEMM-only route: the sm90 GEMM with "
-                 "attention_fwd.cuh's head-mean mode", shape=[B, T, E],
-        library_note=NO_LIBRARY,
-        k1_ms_same_shape=k1_ms)
+    rows += probs_rows("mean", (32, H, T, D), 51, launches, errs)
+    rows += probs_rows("full", (2, H, T, D), 51, launches, errs)
+    rows += b7_rows(32, T, E, H, cfg.mlp_dim, 54, launches, errs)
     rows[-1]["launches_attn_sm90"] = launches.get(
         "fused_mha_block_with_mean_probs_attn_sm90")
     return rows
 
 
-def probs_rows(name, fn, mode, q, k, v, flops, nbytes, launches,
-               errs) -> list:
-    """B5's probability mode ``mode``, two rows on the same bf16 inputs:
-    ``name``, the earlier kernel (attention_fwd.cuh) through its launcher
-    (``_launch_probs(route=0)``), which the wrapper keeps for fp32 and
-    other D; and ``name``_sm90, the wrapper's call (the sm90 body and the
-    probability pass), with the former's time as was_ms. No PyTorch call
-    returns attention probabilities."""
-    from vitx_torch.kernels import flash_attention_fwd_plain
+def b7_rows(B, T, E, H, M, seed, launches, errs) -> list:
+    """B7's two rows at (B, T, E), H heads, bf16 (``block_rows``): the
+    earlier kernels through the launcher, then the wrapper's sm90 route
+    with its GEMM-only route (the sm90 GEMM with attention_fwd.cuh's
+    head-mean mode) as was_ms, and K1's time on the same inputs. Bound:
+    vitx's operations, 2 B T E 3E + 2 B T E^2 + 4 B H T^2 D, and bytes, x
+    and out, the weights, bo, g, b and the (B, T, T) fp32 probabilities."""
+    from vitx_torch.kernels import (fused_mha_block,
+                                    fused_mha_block_with_mean_probs,
+                                    mha_block_mean_probs_plain)
 
+    D = E // H
+    x, mha, _ = block_inputs(B, T, E, H, M, torch.bfloat16, seed, "cuda")
+    rows_ = B * T
+    flops = (2 * rows_ * E * 3 * E + 2 * rows_ * E * E
+             + 4 * B * H * T * T * D)
+    nbytes = 2 * rows_ * E * 2 + 4 * E * E * 2 + 3 * E * 4 + B * T * T * 4
+    k1_ms = cuda_ms(lambda: fused_mha_block(x, **mha), reps=20)
+    tmha = block_module()
+    return block_rows(
+        "fused_mha_block_with_mean_probs",
+        lambda: fused_mha_block_with_mean_probs(x, **mha),
+        lambda: tmha._launch_mean_probs(x, **mha, eps=1e-5, route=0),
+        lambda: mha_block_mean_probs_plain(x, **mha), None, flops, nbytes,
+        launches, errs,
+        was=lambda: tmha._launch_mean_probs(x, **mha, eps=1e-5,
+                                            route=tmha.ROUTE_GEMM_SM90),
+        was_what="the GEMM-only route: the sm90 GEMM with "
+                 "attention_fwd.cuh's head-mean mode", shape=[B, T, E],
+        heads=H, library_note=NO_LIBRARY, k1_ms_same_shape=k1_ms)
+
+
+def probs_rows(mode, shape, seed, launches, errs) -> list:
+    """B5's probability mode ``mode`` at (B, H, T, D), two rows on the
+    same bf16 inputs (seeds ``seed`` .. ``seed`` + 2): the earlier kernel
+    (attention_fwd.cuh) through its launcher (``_launch_probs(route=0)``),
+    which the wrapper keeps for fp32 and other D; and the wrapper's call
+    (the sm90 body and the probability pass, the ``_sm90`` row), with the
+    former's time as was_ms. Bound: 4 B H T^2 D operations; q, k, v in, o
+    and the fp32 probabilities out. No PyTorch call returns attention
+    probabilities."""
+    from vitx_torch.kernels import (flash_attention_fwd_plain,
+                                    flash_attention_with_mean_probs,
+                                    flash_attention_with_probs)
+
+    name, fn = (("flash_attention_with_probs", flash_attention_with_probs)
+                if mode == "full" else ("flash_attention_with_mean_probs",
+                                        flash_attention_with_mean_probs))
+    B, H, T, D = shape
+    q, k, v = (seeded(shape, seed + i, 1.5, dtype=torch.bfloat16)
+               for i in range(3))
+    flops = 4 * B * H * T * T * D
+    nbytes = (4 * B * H * T * D * 2
+              + (B * H if mode == "full" else B) * T * T * 4)
     tflash = attention_module()
-    shape = list(q.shape)
+    shape = list(shape)
 
     def plain():
         return flash_attention_fwd_plain(q, k, v, mode)
@@ -5545,7 +5566,7 @@ def tome_kernel_rows(base, large, errs: dict, launches: dict) -> list:
     return out
 
 
-SHAPE_KEYS = ("shape", "ms", "device_ms", "plain_ms", "library_ms",
+SHAPE_KEYS = ("shape", "heads", "ms", "device_ms", "plain_ms", "library_ms",
               "bound_ms", "bound_by", "tflops", "was_ms",
               "earlier_kernels_ms")
 
@@ -5694,7 +5715,7 @@ def phase_tome_times(cfg, params, large, large_params, errs: dict,
     (base16 b256 at r=13 and (35, 34); large16_384 b32 at r=23 and
     (65, 64 x 6)) in img/s, a profiler split at r=13 and r=23, and B8's
     rows (``tome_kernel_rows``). At r=13 and r=23 the same forward with
-    B8 on its GEMM-only route (``gemm_only_tome_route``) in turns with
+    B8 on its GEMM-only route (``gemm_only_attention_route``) in turns with
     this one (now, was, now, was), each profiled once: the device's busy
     share before and after; and B8's host time a call on both routes at a
     small shape,
@@ -5720,13 +5741,13 @@ def phase_tome_times(cfg, params, large, large_params, errs: dict,
             runs, was = [ms], []
             for i in range(3):
                 if i % 2 == 0:
-                    with gemm_only_tome_route():
+                    with gemm_only_attention_route():
                         was.append(cuda_ms(lambda: forward(p, imgs, c),
                                            reps=10))
                 else:
                     runs.append(cuda_ms(lambda: forward(p, imgs, c),
                                         reps=10))
-            with gemm_only_tome_route():
+            with gemm_only_attention_route():
                 profile_call(f"{what}, B8 on the GEMM-only route",
                              lambda: forward(p, imgs, c), top=16)
             row.update(ms_runs=runs, was_ms_runs=was, was="B8 on the "
@@ -5758,6 +5779,22 @@ def phase_tome_times(cfg, params, large, large_params, errs: dict,
     return tome_kernel_rows(cfg, large, errs, launches)
 
 
+def in_turns(fn, was_route, ms: float) -> tuple:
+    """(runs, was_runs): ``fn`` timed (``ms`` its first run) in turns with
+    itself under the context ``was_route`` -- now, was, now, was, the
+    comparison inside one call."""
+    runs, was = [ms], []
+    for i in range(3):
+        if i % 2 == 0:
+            with was_route():
+                was.append(cuda_ms(fn, reps=5))
+        else:
+            runs.append(cuda_ms(fn, reps=10))
+    with was_route():
+        was.append(cuda_ms(fn, reps=5))
+    return runs, was
+
+
 class earlier_probs_route:
     """A context in which B5's probability modes keep the earlier kernel
     (attention_fwd.cuh), for a comparison inside one call."""
@@ -5771,19 +5808,19 @@ class earlier_probs_route:
         self.tflash.probs_route = self.saved
 
 
-class gemm_only_tome_route:
-    """A context in which B8's wrapper keeps its attention on
-    attention_fwd.cuh (the GEMM-only route: the sm90 GEMM, the earlier
-    attention), for a comparison inside one call."""
+class gemm_only_attention_route:
+    """A context in which the blocks' wrappers (K1, B7, B8) keep their
+    attention on attention_fwd.cuh (the GEMM-only route: the sm90 GEMM, the
+    earlier attention), for a comparison inside one call."""
 
     def __enter__(self):
         self.tmha = block_module()
-        self.saved = self.tmha.ATTN_SM90_ENTRIES
-        self.tmha.ATTN_SM90_ENTRIES = {
-            e: w for e, w in self.saved.items() if e != "mha_block_tome"}
+        self.saved = saved = self.tmha.mha_route
+        self.tmha.mha_route = lambda *a, **kw: (
+            saved(*a, **kw) & ~self.tmha.ROUTE_ATTN_SM90)
 
     def __exit__(self, *exc):
-        self.tmha.ATTN_SM90_ENTRIES = self.saved
+        self.tmha.mha_route = self.saved
 
 
 def phase_finetune_times(cfg, state, batch, step, launches: dict,
@@ -5867,6 +5904,7 @@ ARTIFACTS = BUILD / "artifacts"
 # huge14's shapes in vitx's bench 13: inference at batch 32, the train
 # step at batch 8, T 257 (16 x 16 patches of 14 and the CLS)
 HUGE_B, HUGE_TRAIN_B = 32, 8
+HUGE_ROLLOUT_B = 8       # huge14's explain path (huge14_explain)
 
 
 def same_top1(what: str, results, logits) -> None:
@@ -6063,8 +6101,9 @@ def phase_artifacts(cfg, params) -> dict:
 
 def phase_bench(errs: dict) -> tuple:
     """Main path 9 (module docstring). Returns bench 13's launches, the
-    huge14 path, and the block inputs K1 and K2 were held on at huge14's
-    shapes, which ``huge14_kernel_shapes`` times."""
+    huge14 path, those of huge14's explain path (``huge14_explain``), and the
+    block inputs K1 and K2 were held on at huge14's shapes, which
+    ``huge14_kernel_shapes`` times."""
     import vitx_torch
     from vitx_torch.cli import bench, tune
     from vitx_torch.kernels import (fused_mha_block, fused_mlp_block,
@@ -6113,6 +6152,7 @@ def phase_bench(errs: dict) -> tuple:
     expect_launches("bench 13 (huge14)", got, want)
     emit({"phase": "bench", "card": card, **res, "launches": got})
     torch.cuda.empty_cache()
+    rollout = huge14_explain(huge)
     huge14_profiles(huge)
 
     out = BUILD / "tune.json"
@@ -6122,7 +6162,139 @@ def phase_bench(errs: dict) -> tuple:
     rows = json.loads(out.read_text())["results"]
     if any("error" in r for r in rows) or len(rows) != 3:
         raise AssertionError(f"tune: {rows}")
-    return got, (x, mha, mlp)
+    return got, rollout, (x, mha, mlp)
+
+
+def huge14_explain(huge) -> dict:
+    """huge14's explain path at full width and depth, bf16, seed-0
+    weights, its counts reset just before and read just after: (a)
+    ``forward_with_rollout`` at b8 -- B7 in all 32 blocks, each on the
+    sm90 attention and its head-mean pass at D 128, and K2 in each; (b)
+    ``forward_with_attn("full")`` at b2 -- B5's full mode on its sm90 route
+    in every block; (c) an InferenceServer's /explain?method=rollout, 4
+    requests one at a time, each equal to a direct call. Then, outside the
+    count: (a) with rows summing to 1, within EXPLAIN_TOL of B7 on its
+    GEMM-only route (the sm90 GEMM with attention_fwd.cuh, huge14's route
+    before the pass took D 128) and, at depth 2, of the CPU's fp32 plain
+    forward; (b) within EXPLAIN_TOL of B5's full mode on the earlier
+    kernel; (a) on both routes timed in turns (img/s) and profiled (the
+    device's busy share, the split by kernel). Returns the path's
+    launches."""
+    from vitx_torch import forward_with_attn, forward_with_rollout
+    from vitx_torch.nn.vit import init_params, params_to
+
+    B = HUGE_ROLLOUT_B
+    params = init_params(0, huge, device="cuda")
+    imgs = explain_images(huge, B, 11)
+    reset_counts()
+    logits, weights = forward_with_rollout(params, imgs, huge)
+    torch.cuda.synchronize()
+    a = counts()
+    expect_launches("huge14 (a) rollout b8", a, rollout_launches(huge))
+    a90 = a["fused_mha_block_with_mean_probs_attn_sm90"]
+    if a90 != huge.depth:
+        raise AssertionError(f"huge14 rollout: B7's sm90 attention "
+                             f"{a90} of {huge.depth} blocks")
+    attn_logits, probs = forward_with_attn(params, imgs[:2], huge)
+    torch.cuda.synchronize()
+    b = delta(a)
+    expect_launches("huge14 (b) forward_with_attn b2", b, block_launches(
+        huge, flash_attention_with_probs=huge.depth,
+        flash_attention_with_probs_sm90=huge.depth,
+        fused_mlp_block=huge.depth))
+    queries = [("rollout", None)] * 4
+    snap = counts()
+    results = serve_explains(huge, params, imgs[:4], queries)
+    c = delta(snap)
+    expect_launches("huge14 (c) server /explain", c, add_launches(
+        forward_launches(huge, 1), rollout_launches(huge, len(queries))))
+    got = counts()
+    verify_explains(huge, params, imgs[:4], queries, results)
+
+    with gemm_only_attention_route():
+        was_logits, was_weights = forward_with_rollout(params, imgs, huge)
+    sums = float((weights.double().sum(-1) - 1).abs().max())
+    gaps = {"logits": card_rel_err(logits, was_logits),
+            "rollout": card_rel_err(weights, was_weights)}
+    emit({"phase": "bench", "check": "huge14 forward_with_rollout b8 bf16, "
+          "B7 on the sm90 attention and pass vs its GEMM-only route",
+          "rel_err": gaps, "tol": EXPLAIN_TOL, "row_sum_dev": sums,
+          "attn_sm90_launches": a90, "blocks": huge.depth,
+          "shape": list(weights.shape), "launches": a})
+    if not (max(gaps.values()) <= EXPLAIN_TOL and sums <= 1e-4
+            and weights.shape == (B, huge.num_patches)
+            and bool(torch.isfinite(logits).all())):
+        raise AssertionError(f"huge14 rollout: {gaps}, rows +- {sums}")
+    del logits, weights, was_logits, was_weights
+    with earlier_probs_route():
+        ref = forward_with_attn(params, imgs[:2], huge)
+    check("bench", "huge14 forward_with_attn full b2 bf16, B5's full mode "
+          "on the sm90 route vs the earlier kernel", (attn_logits, probs),
+          ref, EXPLAIN_TOL, launches=b)
+    check_rows("huge14 forward_with_attn full", probs, batch=2)
+    del attn_logits, probs, ref
+
+    c2 = huge.replace(depth=2)
+    p2 = first_blocks(params)
+    card = forward_with_rollout(p2, imgs[:2], c2)
+    host = forward_with_rollout(params_to(p2, "cpu"), imgs[:2],
+                                c2.replace(compute_dtype="float32"),
+                                device="cpu")
+    check("bench", "huge14 forward_with_rollout depth 2 b2, bf16 on the "
+          "card vs the CPU's fp32 plain forward", card, host, EXPLAIN_TOL)
+    del p2, card, host
+
+    x = torch.from_numpy(imgs).to("cuda", torch.bfloat16)
+
+    def fn():
+        return forward_with_rollout(params, x, huge)
+
+    ms = cuda_ms(fn, reps=10)
+    runs, was = in_turns(fn, gemm_only_attention_route, ms)
+    emit({"phase": "bench", "what": "huge14 forward_with_rollout", "batch": B,
+          "ms_runs": runs, "was_ms_runs": was,
+          "img_per_s": B / (min(runs) / 1000.0),
+          "was_img_per_s": B / (min(was) / 1000.0),
+          "was": "B7 on its GEMM-only route (the sm90 GEMM with "
+                 "attention_fwd.cuh)"})
+    profile_call("huge14 forward_with_rollout b8", fn, top=16)
+    with gemm_only_attention_route():
+        profile_call("huge14 forward_with_rollout b8, B7 on its GEMM-only "
+                     "route", fn, top=16)
+    del params, x
+    torch.cuda.empty_cache()
+    return got
+
+
+def serve_explains(cfg, params, imgs, queries) -> list:
+    """The answers of an InferenceServer for ``cfg`` behind its HTTP front
+    end to /explain with ``queries`` ((method, class or None) for each of
+    ``imgs``), sent one at a time."""
+    import io
+    import urllib.request
+
+    from vitx_torch.cli.serve import serve_in_thread
+    from vitx_torch.serve import InferenceServer
+
+    results = []
+    with InferenceServer(params, cfg, batch_size=4, top_k=5) as srv:
+        httpd, _ = serve_in_thread(srv)
+        base = f"http://127.0.0.1:{httpd.server_port}/explain"
+        try:
+            for img, (method, cls) in zip(imgs, queries):
+                url = f"{base}?method={method}"
+                if cls is not None:
+                    url += f"&class={cls}"
+                buf = io.BytesIO()
+                np.save(buf, img)
+                req = urllib.request.Request(url, data=buf.getvalue(),
+                                             method="POST")
+                results.append(json.loads(urllib.request.urlopen(
+                    req, timeout=600).read()))
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+    return results
 
 
 def huge14_profiles(huge) -> None:
@@ -6160,8 +6332,11 @@ def huge14_kernel_shapes(inputs, launches: dict, errs: dict) -> dict:
     attention_fwd.cuh -- as its was_ms), B2's two rows at the train
     step's (8, 10, 257, 128) and in B6's range at (4, 10, 1025, 128),
     B5's two at the forward's (32, 10, 257, 128), B8's at base16_hd128's
-    (32, 197, 768), 6 heads of D 128, B3's two at (8, 257, 1280).
-    Returns row name -> [entries]."""
+    (32, 197, 768), 6 heads of D 128, B3's two at (8, 257, 1280); the
+    explain path at D 128: B5's probability modes' two rows each, the full
+    mode at (2, 10, 257, 128) and the mean at the rollout's (8, 10, 257,
+    128), and B7's at huge14's rollout (8, 257, 1280) and base16_hd128's
+    (32, 197, 768). Returns row name -> [entries]."""
     import importlib
 
     import torch.nn.functional as F
@@ -6209,9 +6384,14 @@ def huge14_kernel_shapes(inputs, launches: dict, errs: dict) -> dict:
     rows += attention_bwd_rows((Bt, H, T, D), 170, launches, errs)
     rows += attention_bwd_rows((4, H, 1025, D), 180, launches, errs)
     rows += flash_rows((B, H, T, D), 185, launches, errs)
-    rows += tome_rows_at(vitx_torch.get_config("base16_hd128"), 32, 197,
-                         launches, errs)
+    hd128 = vitx_torch.get_config("base16_hd128")
+    rows += tome_rows_at(hd128, 32, 197, launches, errs)
     rows += ln_bwd_rows((Bt, T, E), 175, eps, launches, errs)
+    rows += probs_rows("full", (2, H, T, D), 190, launches, errs)
+    rows += probs_rows("mean", (HUGE_ROLLOUT_B, H, T, D), 190, launches, errs)
+    rows += b7_rows(HUGE_ROLLOUT_B, T, E, H, M, 195, launches, errs)
+    rows += b7_rows(32, hd128.seq_len, hd128.embed_dim, hd128.num_heads,
+                    hd128.mlp_dim, 196, launches, errs)
     torch.cuda.empty_cache()
     extra: dict = {}
     for row in rows:
@@ -8178,27 +8358,47 @@ def parallel_nccl() -> None:
                              f"bit for bit {same}")
 
 
-def parallel_dryrun() -> str:
-    """(e): ``python -m vitx_torch.parallel.dryrun 4`` on the card (four
-    ranks share it: gloo), its summary line, the pipeline's keys in it:
-    GPipe and 1F1B on (2 data x 2 stage); pp x tp takes 8 ranks, so its
-    loss is ``nan`` at 4, as vitx prints it."""
-    env_path = str(Path(__file__).resolve().parent)
-    run = subprocess.run([sys.executable, "-m", "vitx_torch.parallel.dryrun",
-                          "4"], capture_output=True, text=True,
-                         cwd=env_path, timeout=600)
-    print(run.stdout, end="", flush=True)
-    line = run.stdout.strip().splitlines()[-1] if run.stdout.strip() else ""
+DRYRUN_LOG = BUILD / "dryrun"   # (e)'s stdout and stderr, .out and .err
+
+
+def start_dryrun():
+    """(e)'s process: ``python -m vitx_torch.parallel.dryrun 4`` on the
+    card (four ranks share it: gloo), its output into DRYRUN_LOG's files
+    (a pipe could fill and stall it while the caller works)."""
+    DRYRUN_LOG.parent.mkdir(parents=True, exist_ok=True)
+    with open(f"{DRYRUN_LOG}.out", "w") as out, \
+            open(f"{DRYRUN_LOG}.err", "w") as err:
+        return subprocess.Popen(
+            [sys.executable, "-m", "vitx_torch.parallel.dryrun", "4"],
+            stdout=out, stderr=err, text=True,
+            cwd=str(Path(__file__).resolve().parent))
+
+
+def parallel_dryrun(proc) -> str:
+    """(e): the ``start_dryrun`` process ``proc`` to its end (it is
+    killed past 600 s), its summary line, the pipeline's keys in it: GPipe
+    and 1F1B on (2 data x 2 stage); pp x tp takes 8 ranks, so its loss is
+    ``nan`` at 4, as vitx prints it."""
+    try:
+        proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    stdout = Path(f"{DRYRUN_LOG}.out").read_text()
+    stderr = Path(f"{DRYRUN_LOG}.err").read_text()
+    print(stdout, end="", flush=True)
+    line = stdout.strip().splitlines()[-1] if stdout.strip() else ""
     emit({"phase": "parallel", "part": "e: python -m "
-          "vitx_torch.parallel.dryrun 4", "rc": run.returncode,
+          "vitx_torch.parallel.dryrun 4", "rc": proc.returncode,
           "summary": line})
     pp_keys = ("pp_loss=", "(pipeline 2 data x 2 stage; 1f1b_loss=",
                "pp_x_tp_1f1b_loss=nan at 2 data x 2 stage x 2 model")
-    if run.returncode != 0 or not line.startswith("dryrun_multichip ok") \
+    if proc.returncode != 0 or not line.startswith("dryrun_multichip ok") \
             or not all(k in line for k in pp_keys) \
             or "nan" in line.replace("pp_x_tp_1f1b_loss=nan", ""):
-        raise AssertionError(f"parallel (e): rc {run.returncode}\n"
-                             f"{run.stderr[-4000:]}")
+        raise AssertionError(f"parallel (e): rc {proc.returncode}\n"
+                             f"{stderr[-4000:]}")
     return line
 
 
@@ -8215,23 +8415,32 @@ def phase_parallel(errs: dict) -> tuple:
     ranks = spawn(parallel_rank, 2, (list(PARALLEL), list(PARALLEL)),
                   device="cuda")
     t_spawn = time.perf_counter()
-    emit({"phase": "parallel", "backend": ranks[0]["backend"],
-          "card": smi(), "collectives_on_cuda_tensors":
-          ranks[0]["collectives"]})
-    parallel_a(ranks[0]["a"])
-    launches = parallel_b(ranks, refs)
-    del ranks
-    t_b = time.perf_counter()
     check_parallel_kernels(errs)
-    extra = parallel_kernel_shapes({}, errs)
+    extra = parallel_kernel_shapes({}, errs)      # (c): times kernels
     t_c = time.perf_counter()
-    parallel_nccl()
-    t_d = time.perf_counter()
-    parallel_dryrun()
+    # (e) runs beside the parts that time nothing -- (a)'s and (b)'s
+    # holding and (d) -- on the same card and host, which changes only
+    # when each finishes
+    dryrun = start_dryrun()
+    try:
+        emit({"phase": "parallel", "backend": ranks[0]["backend"],
+              "card": smi(), "collectives_on_cuda_tensors":
+              ranks[0]["collectives"]})
+        parallel_a(ranks[0]["a"])
+        launches = parallel_b(ranks, refs)
+        del ranks
+        t_b = time.perf_counter()
+        parallel_nccl()
+        t_d = time.perf_counter()
+    except BaseException:
+        dryrun.kill()
+        dryrun.wait()
+        raise
+    parallel_dryrun(dryrun)
     emit({"phase": "parallel", "part": "seconds",
           "one_process_refs": t_ref - t0, "ranks_a_b": t_spawn - t_ref,
-          "held": t_b - t_spawn, "c": t_c - t_b, "d": t_d - t_c,
-          "e": time.perf_counter() - t_d})
+          "c": t_c - t_spawn, "held": t_b - t_c, "d": t_d - t_b,
+          "e_after_d": time.perf_counter() - t_d})
     return launches, extra
 
 
@@ -9246,11 +9455,13 @@ def main(argv=None) -> int:
         compose_launches, compose_extra = phase_compose(errs)
     lap("compose")
     export_launches, huge14_launches, huge14_inputs = {}, {}, None
+    explain14_launches = {}
     if "artifacts" in phases:
         export_launches = phase_artifacts(cfg, params)
     lap("artifacts")
     if "bench" in phases:
-        huge14_launches, huge14_inputs = phase_bench(errs)
+        huge14_launches, explain14_launches, huge14_inputs = phase_bench(
+            errs)
     lap("bench")
     launches = add_launches(serve_launches, train_launches, explain_launches,
                             tome_launches, finetune_launches,
@@ -9259,7 +9470,7 @@ def main(argv=None) -> int:
                             optim_launches, pretrain_launches,
                             parallel_launches, pipeline_launches,
                             compose_launches, export_launches,
-                            huge14_launches)
+                            huge14_launches, explain14_launches)
     if "times" in phases:
         rows = phase_times(cfg, params, errs, launches)
         if tome_launches:
@@ -9318,7 +9529,8 @@ def main(argv=None) -> int:
                  "pretrain": pretrain_launches,
                  "parallel": parallel_launches,
                  "pipeline": pipeline_launches, "compose": compose_launches,
-                 "export": export_launches, "huge14": huge14_launches}
+                 "export": export_launches, "huge14": huge14_launches,
+                 "huge14_explain": explain14_launches}
         for row in rows:
             row["launches_by_path"] = {path: got.get(row["name"], 0)
                                        for path, got in paths.items()}

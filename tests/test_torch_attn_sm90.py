@@ -15,13 +15,18 @@ mode (the CPU backend ``tests/conftest.py`` sets), on inputs from
   rowsum(do * o) from the cast o, vs ``_bwd`` (``_bwd_kernel_nq1`` at
   T 197, the q-chunked ``_bwd_kernel`` at T 1025);
 - ``attention_stats_plain`` vs the m and l of ``_unnormalized_probs``;
+- the probability pass (``csrc/attention_probs_sm90.cuh``) from the
+  forward's statistics at D 32 and 128, where it rounds qs = cast(q *
+  scale) as the body does, vs ``_fwd(probs_mode=...)``, full and mean;
 - the wrappers' new arguments on CPU tensors: ``attention_bwd`` with o,
   stats and ``out`` returns ``attention_bwd_plain``'s values; the route
-  and stride rules that decide what reaches the card: the body and the
-  backward at D 32, 64 and 128, the probability modes and B7 at D 64.
+  and stride rules that decide what reaches the card: the body, the
+  probability modes, B7 and the backward at D 32, 64 and 128.
 
 Bars are max |a - b| over max |b|: float32 1e-4, bfloat16 1e-2 (B2's bar
-in ``tests/test_torch_grad.py``). The measured gaps are printed (run with
+in ``tests/test_torch_grad.py``); probabilities float32 1e-4, bfloat16
+1e-3 (both sides compute them in fp32 from the same bf16 q and k), rows
+summing to 1 within 1e-5. The measured gaps are printed (run with
 ``-s``): the cost of the moved rounding points, known before the card runs.
 """
 
@@ -43,6 +48,8 @@ tflash = importlib.import_module("vitx_torch.kernels.flash_attention")
 torch.set_num_threads(1)
 
 TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+PROBS_TOL = {"float32": 1e-4, "bfloat16": 1e-3}
+LOG2E = 1.4426950408889634   # the kernels' exp is exp2(x * log2 e) in fp32
 # statistics from the same logits summed in another fp32 order: exp turns
 # an ulp of a logit (|s| up to ~30 here) into ~2e-6 of p
 STATS_TOL = 1e-5
@@ -132,6 +139,46 @@ def test_online_forward_matches_pallas(shape, dtype):
     want = attention_stats_plain(*tx[:2])
     assert rel_err(stats[0], want[0]) <= STATS_TOL
     assert rel_err(stats[1], want[1]) <= STATS_TOL
+
+
+# --- the probability pass: from the forward's statistics -------------------
+
+def probs_pass_mirror(q, k, v, mode):
+    """The probability pass's algorithm -> probs: m and 1 / l from
+    ``online_fwd_mirror``, qs = cast(q * scale) (the body's logits), p =
+    exp2((qs k^T - m) * log2 e) * linv, every head's for "full", their sum
+    in head order divided by H for "mean"."""
+    _, stats = online_fwd_mirror(q, k, v)
+    m, linv = stats[0][..., None], stats[1][..., None]
+    qs = (q.float() * (1.0 / q.shape[-1] ** 0.5)).to(q.dtype)
+    s = matmul32(qs, k.transpose(-1, -2))
+    p = torch.exp2((s - m) * LOG2E) * linv
+    if mode == "full":
+        return p
+    acc = p[:, 0]
+    for h in range(1, p.shape[1]):
+        acc = acc + p[:, h]
+    return acc / p.shape[1]
+
+
+@pytest.mark.parametrize("mode", ["full", "mean"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(1, 2, 197, 32), (1, 2, 197, 128)],
+                         ids=["T197_D32", "T197_D128"])
+def test_probs_pass_matches_pallas(shape, dtype, mode):
+    """The pass at D 32 and 128 vs vitx's ``_fwd(probs_mode=mode)``
+    (``_fwd_kernel``, interpret mode); rows sum to 1."""
+    jx, tx = inputs(shape, dtype, 17)
+    _, ref = jflash._fwd(*jx[:3], probs_mode=mode)
+    probs = probs_pass_mirror(*tx[:3], mode)
+    err = rel_err(f32(probs), f32(ref))
+    rows = float((probs.double().sum(-1) - 1).abs().max())
+    print(f"probability pass {mode} {shape} {dtype}: rel err vs vitx "
+          f"{err:.3e}, row sums {rows:.1e}")
+    assert probs.dtype == torch.float32
+    assert tuple(probs.shape) == tuple(ref.shape)
+    assert err <= PROBS_TOL[dtype], err
+    assert rows <= 1e-5
 
 
 # --- the backward: from the forward's o and statistics ----------------------
@@ -251,14 +298,17 @@ def test_sm90_route_is_bf16_at_head_widths_32_64_128(dtype, D, want):
 
 
 @pytest.mark.parametrize("dtype,D,want", [("bfloat16", 64, True),
-                                          ("bfloat16", 32, False),
-                                          ("bfloat16", 128, False),
-                                          ("float32", 64, False)])
-def test_probs_route_stays_at_head_width_64(dtype, D, want):
-    """B5's probability modes keep the sm90 pass at D 64 only: at D 32
-    and 128 they take the earlier kernel, on planes the pass could read."""
+                                          ("bfloat16", 32, True),
+                                          ("bfloat16", 128, True),
+                                          ("float32", 64, False),
+                                          ("bfloat16", 96, False),
+                                          ("float32", 128, False)])
+def test_probs_route_at_head_widths_32_64_128(dtype, D, want):
+    """B5's probability modes take the sm90 body and pass at the body's
+    widths, on planes the pass can read; fp32 and any other D keep the
+    earlier kernel."""
     t = torch.zeros((2, 3, 8, D), dtype=getattr(torch, dtype))
-    assert tflash.sm90_probs_route(t) is want
+    assert tflash.sm90_route(t) is want
     assert tflash.probs_route(t, t, t) == (tflash.ROUTE_SM90 if want else 0)
 
 
@@ -266,18 +316,13 @@ def test_probs_route_stays_at_head_width_64(dtype, D, want):
                          ids=["D32_mae_decoder", "D128_huge14",
                               "D128_base16_hd128"])
 def test_mha_route_at_head_widths_32_and_128(E, H):
-    """K1 and B8 take the sm90 attention at D 32 and 128, B7 does not
-    (its head-mean pass is D 64); all three keep the sm90 GEMM, and fp32
-    takes neither."""
+    """K1, B7 and B8 (one rule for the three entries) take the sm90
+    GEMM and the sm90 attention at D 32 and 128, B7's head-mean pass
+    included; fp32 takes neither."""
     tmha = importlib.import_module("vitx_torch.kernels.mha_block")
     both = tmha.ROUTE_GEMM_SM90 | tmha.ROUTE_ATTN_SM90
-    bf = torch.bfloat16
-    assert tmha.mha_route(bf, E, H, entry="mha_block") == both
-    assert tmha.mha_route(bf, E, H, entry="mha_block_tome") == both
-    assert (tmha.mha_route(bf, E, H, entry="mha_block_mean_probs")
-            == tmha.ROUTE_GEMM_SM90)
-    for entry in tmha.ATTN_SM90_ENTRIES:
-        assert tmha.mha_route(torch.float32, E, H, entry=entry) == 0
+    assert tmha.mha_route(torch.bfloat16, E, H) == both
+    assert tmha.mha_route(torch.float32, E, H) == 0
 
 
 def test_view_keeps_strided_layouts_and_copies_the_rest():

@@ -1,11 +1,11 @@
 """B5's probability modes and B10's one-pass route against vitx, on the CPU.
 
 ``flash_attention_with_probs`` and ``flash_attention_with_mean_probs`` (B5)
-in bf16 at head width 64 run ``csrc/flash_attention_sm90.cu``: the
-online-softmax body, which writes each row's statistics m and 1 / l, then
-``csrc/attention_probs_sm90.cuh``, a second pass that recomputes s = q k^T
-per 128-key tile and writes exp(s - m) * linv, every head for the full
-mode, summed over the heads in order and divided by H for the mean.
+in bf16 at head widths 32, 64 and 128 run ``csrc/flash_attention_sm90.cu``:
+the online-softmax body, which writes each row's statistics m and 1 / l,
+then ``csrc/attention_probs_sm90.cuh``, a second pass that recomputes s =
+q k^T per 128-key tile and writes exp(s - m) * linv, every head for the
+full mode, summed over the heads in order and divided by H for the mean.
 ``fused_layer_norm`` and ``fused_add_layer_norm`` (B10) run
 ``csrc/layer_norm_fwd.cu``'s one-pass route where E is a multiple of the
 16-byte vector. Both run only on the card; what they compute differently
@@ -25,7 +25,8 @@ from vitx is held here in plain mirrors of their algorithms, on inputs from
   interpret mode) at (2, 197, 768) and ragged row counts; the sum equal to
   x + r bit for bit.
 - (c) the route functions: the probability modes take sm90 only in bf16 at
-  D 64 with 16-byte-aligned contiguous planes; B10's one-pass route takes
+  D 32, 64 and 128 with 16-byte-aligned contiguous planes (the pass at D
+  32 and 128 is held in ``tests/test_torch_attn_sm90.py``); B10's one-pass route takes
   exactly the widths, dtypes and alignments it says; its grid covers every
   row once; the wrappers on CPU tensors count nothing.
 
@@ -284,7 +285,7 @@ def test_b10_wrappers_on_cpu_count_nothing():
 
 @pytest.mark.parametrize("dtype,D,route", [
     (torch.bfloat16, 64, 1), (torch.float32, 64, 0),
-    (torch.bfloat16, 32, 0), (torch.bfloat16, 128, 0),
+    (torch.bfloat16, 32, 1), (torch.bfloat16, 128, 1),
     (torch.float16, 64, 0)])
 def test_b5_probs_route(dtype, D, route):
     q = torch.zeros((2, 3, 65, D), dtype=dtype)

@@ -1,9 +1,9 @@
 """B7's and B3's Hopper algorithms against vitx's kernels, on the CPU.
 
-``fused_mha_block_with_mean_probs`` (B7) in bf16 at head width 64 runs
-its attention on B5's sm90 body, which writes each row's statistics, and
-then ``csrc/head_mean_probs_sm90.cuh``, a second pass that sums the heads'
-probabilities from q k^T and those statistics. ``ln_bwd`` (B3, and B11 on
+``fused_mha_block_with_mean_probs`` (B7) in bf16 at head widths 32, 64
+and 128 runs its attention on B5's sm90 body, which writes each row's
+statistics, and then ``csrc/attention_probs_sm90.cuh``, a second pass that
+sums the heads' probabilities from qs k^T and those statistics. ``ln_bwd`` (B3, and B11 on
 the 2-D view) runs ``csrc/layer_norm_bwd.cu``'s one-pass route where E is a
 multiple of the 16-byte vector. Both run only on the card; what they
 compute differently from vitx is held here in plain mirrors of their
@@ -16,7 +16,9 @@ algorithms, on inputs from ``numpy.random.default_rng``:
   summed and divided by H once, keys past T masked -- against vitx's
   ``_chunked_fwd(mean_probs=True)`` (``_kernel_hchunk`` in Pallas
   interpret mode, one and two heads a chunk) at D 64 with 2 and 4 heads,
-  T 197 and 577.
+  T 197 and 577; with ``mha_block_mean_probs_plain`` at D 128 (qs =
+  cast(q * scale) rounded before the products, as the body and the pass
+  round it there), T 197.
 - (b) B3: the one-pass route's summation order for dscale and dbias (each
   column over a row group's rows in order, the block's groups in order,
   then eight strided runs over the blocks and the runs in order, on the
@@ -24,7 +26,7 @@ algorithms, on inputs from ``numpy.random.default_rng``:
   (``_ln_bwd3_kernel`` in interpret mode) at (2, 197, 768) and ragged row
   counts.
 - (c) the route functions: B7 takes ``ROUTE_ATTN_SM90`` only in bf16 at
-  D 64; B3's one-pass route takes exactly the widths and dtypes it says;
+  D 32, 64 and 128; B3's one-pass route takes exactly the widths and dtypes it says;
   its grid covers every row once.
 
 Bars are max |a - b| over max |b|: float32 1e-4; bfloat16 1e-2 for B7's
@@ -72,16 +74,16 @@ def f32(t):
 
 # --- (a) B7: the sm90 body's statistics, then the head-mean pass -------------
 
-def block_inputs(B, T, H, dtype, seed):
-    """B7's inputs at head width 64 as (jax, torch) lists: x, wqkv and wo
+def block_inputs(B, T, H, dtype, seed, D=64):
+    """B7's inputs at head width D as (jax, torch) lists: x, wqkv and wo
     in ``dtype``; bo, g, b fp32."""
     rng = np.random.default_rng(seed)
-    E = 64 * H
+    E = D * H
 
     def n(*shape, scale=1.0, shift=0.0):
         return (shift + scale * rng.standard_normal(shape)).astype(np.float32)
 
-    arrs = [n(B, T, E), n(E, 3, H, 64, scale=0.1), n(E, E, scale=0.1),
+    arrs = [n(B, T, E), n(E, 3, H, D, scale=0.1), n(E, E, scale=0.1),
             n(E, scale=0.1), n(E, scale=0.1, shift=1.0), n(E, scale=0.1)]
     low = (0, 1, 2)   # the operands in the compute dtype
     jx = [jnp.asarray(a, getattr(jnp, dtype) if i in low else jnp.float32)
@@ -99,13 +101,15 @@ def b7_sm90_mirror(x, wqkv, wo, bo, g, b):
     qkv = matmul32(layer_norm(x, g, b, eps=EPS), wqkv.reshape(E, 3 * E))
     qkv = qkv.to(dt).reshape(B, T, 3, H, D).permute(2, 0, 3, 1, 4)
     q, k, v = qkv[0], qkv[1], qkv[2]
-    scale = 1.0 / D ** 0.5   # 2^-3: q * scale is exact, so s = scale * (q k^T)
+    # qs = cast(q * scale), which the body and the pass round into their q
+    # tiles at D 32 and 128; at D 64 (2^-3) it is q * scale exactly
+    qs = (q.float() * (1.0 / D ** 0.5)).to(dt)
     # launch 3, the body: the online softmax over 64-key tiles
     m = torch.full((B, H, T), -torch.inf)
     l = torch.zeros((B, H, T))
     acc = torch.zeros((B, H, T, D))
     for j in range(0, T, KEY_TILE):
-        s = matmul32(q, k[:, :, j:j + KEY_TILE].transpose(-1, -2)) * scale
+        s = matmul32(qs, k[:, :, j:j + KEY_TILE].transpose(-1, -2))
         m_new = torch.maximum(m, s.amax(dim=-1))
         alpha = torch.exp(m - m_new)
         p = torch.exp(s - m_new[..., None])
@@ -125,8 +129,8 @@ def b7_sm90_mirror(x, wqkv, wo, bo, g, b):
         tile = None
         for h in range(H):
             kt = kpad[:, h, j:j + PASS_KEYS]
-            s = matmul32(q[:, h], kt.transpose(-1, -2))
-            p = torch.exp(s * scale - m[:, h, :, None]) * linv[:, h, :, None]
+            s = matmul32(qs[:, h], kt.transpose(-1, -2))
+            p = torch.exp(s - m[:, h, :, None]) * linv[:, h, :, None]
             tile = p if tile is None else tile + p
         probs[:, :, j:j + PASS_KEYS] = (tile / H)[:, :, :T - j]
     return out, probs
@@ -154,6 +158,31 @@ def test_b7_sm90_mirror_matches_chunked(monkeypatch, B, T, H, hc, dtype):
     assert err_out <= OUT_TOL[dtype], err_out
     assert err_p <= PROBS_TOL[dtype], err_p
     assert rows <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_b7_at_head_width_128_matches_chunked(monkeypatch, dtype):
+    """At D 128, huge14's and base16_hd128's head width ((1, 197, 256),
+    2 heads): ``mha_block_mean_probs_plain`` and the mirror vs
+    ``_chunked_fwd(mean_probs=True)`` (one head a chunk, interpret mode);
+    rows sum to 1."""
+    monkeypatch.setattr(jmha, "_chunk_plan", lambda *a, **k: (1, 0))
+    monkeypatch.setattr(jmha, "_use_interpret", lambda: True)
+    jx, tx = block_inputs(1, 197, 2, dtype, 45, D=128)
+    ref_out, ref_probs = jmha._chunked_fwd(*jx, eps=EPS, mean_probs=True)
+    for what, (out, probs) in (
+            ("plain", mha_block_mean_probs_plain(*tx, eps=EPS)),
+            ("sm90 mirror", b7_sm90_mirror(*tx))):
+        err_out = rel_err(out, f32(ref_out))
+        err_p = rel_err(probs, f32(ref_probs))
+        rows = float((probs.double().sum(-1) - 1).abs().max())
+        print(f"B7 {what} (1, 197, 256) D 128 {dtype}: out {err_out:.3e}, "
+              f"probs {err_p:.3e}, row sums {rows:.1e}")
+        assert out.dtype == tx[0].dtype and probs.dtype == torch.float32
+        assert tuple(probs.shape) == (1, 197, 197)
+        assert err_out <= OUT_TOL[dtype], (what, err_out)
+        assert err_p <= PROBS_TOL[dtype], (what, err_p)
+        assert rows <= 1e-5, what
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -281,12 +310,12 @@ def test_ln_bwd_wrapper_on_cpu_counts_nothing():
 @pytest.mark.parametrize("dtype,E,H,attn", [
     (torch.bfloat16, 1024, 16, True), (torch.bfloat16, 768, 12, True),
     (torch.bfloat16, 128, 2, True), (torch.float32, 1024, 16, False),
-    (torch.bfloat16, 256, 16, False), (torch.bfloat16, 512, 4, False)])
+    (torch.bfloat16, 256, 16, False), (torch.bfloat16, 512, 4, True)])
 def test_b7_route(dtype, E, H, attn):
-    """B7 asks for ``ROUTE_ATTN_SM90`` (its entry is among the sm90
-    attention's), and ``mha_route`` grants it only in bf16 at D 64."""
-    assert "mha_block_mean_probs" in tmha.ATTN_SM90_ENTRIES
-    route = tmha.mha_route(dtype, E, H, entry="mha_block_mean_probs")
+    """``mha_route`` (one rule for K1, B7 and B8) grants B7 the sm90
+    attention and its head-mean pass in bf16 at D 32, 64 and 128 (here 64
+    and 128), not at D 16 nor in fp32."""
+    route = tmha.mha_route(dtype, E, H)
     assert bool(route & tmha.ROUTE_ATTN_SM90) == attn
     assert bool(route & tmha.ROUTE_GEMM_SM90) == (dtype == torch.bfloat16)
 

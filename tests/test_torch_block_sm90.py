@@ -216,16 +216,15 @@ def test_ln_prologue_mirror_is_layer_norm(M, K, dtype):
 
 def expected_routes(cfg, dtype):
     """(K1, B7, B8, K2) routes by the rule of the source notes: the sm90
-    GEMM for bf16 with E (and the MLP's M) a multiple of 8; K1's and B8's
-    attention on the sm90 body for bf16 at D 32, 64 or 128, B7's at D 64
-    (followed by its head-mean pass)."""
+    GEMM for bf16 with E (and the MLP's M) a multiple of 8; K1's, B7's and
+    B8's attention on the sm90 body for bf16 at D 32, 64 or 128 (B7's
+    followed by its head-mean pass)."""
     bf = dtype == torch.bfloat16
     gemm = tmha.ROUTE_GEMM_SM90 if bf and cfg.embed_dim % 8 == 0 else 0
     attn = tmha.ROUTE_ATTN_SM90
     k1 = gemm | (attn if bf and cfg.head_dim in (32, 64, 128) else 0)
-    b7 = gemm | (attn if bf and cfg.head_dim == 64 else 0)
     k2 = tmlp.ROUTE_SM90 if gemm and cfg.mlp_dim % 8 == 0 else 0
-    return k1, b7, k1, k2
+    return k1, k1, k1, k2
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -235,11 +234,8 @@ def test_routes_per_preset(preset, dtype):
     cfg = vitx_torch.get_config(preset)
     E, H, M = cfg.embed_dim, cfg.num_heads, cfg.mlp_dim
 
-    def route(entry):   # as _launch asks for it
-        return tmha.mha_route(dtype, E, H, entry=entry)
-
-    k1, b7, b8 = (route(e) for e in ("mha_block", "mha_block_mean_probs",
-                                     "mha_block_tome"))
+    # as _launch asks for it: one rule for the three mha_block.cu entries
+    k1 = b7 = b8 = tmha.mha_route(dtype, E, H)
     k2 = tmlp.mlp_route(dtype, E, M)
     assert (k1, b7, b8, k2) == expected_routes(cfg, dtype)
     if dtype == torch.float32:

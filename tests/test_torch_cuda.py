@@ -193,7 +193,8 @@ def test_flash_attention_matches_plain(cuda, dims, dtype):
 def test_mha_mean_probs_matches_plain(cuda, dims, dtype):
     """B7 against its plain version at base16, large16_384 and tiny
     shapes; repeated calls agree bit for bit. Where B7 takes the sm90
-    attention and its head-mean pass (bf16 at D 64) its out equals K1's on
+    attention and its head-mean pass (bf16 at D 32, 64 or 128) its out
+    equals K1's on
     K1's full route, the same GEMMs and attention body; elsewhere K1's on
     the attention body they share (``k1_on_shared_attention``)."""
     mha, _ = block_args(*dims, dtype, cuda)
@@ -203,7 +204,7 @@ def test_mha_mean_probs_matches_plain(cuda, dims, dtype):
     torch.cuda.synchronize()
     assert f.launches == n + 1
     assert fused_mha_block.launches == n1
-    sm90 = dtype == "bfloat16" and dims[2] // dims[3] == 64
+    sm90 = dtype == "bfloat16" and dims[2] // dims[3] in (32, 64, 128)
     assert f.launches_attn_sm90 == n90 + sm90
     ref_out, ref_probs = mha_block_mean_probs_plain(*mha)
     assert rel_err(out, ref_out) <= TOL[dtype]
@@ -219,7 +220,8 @@ def test_mha_mean_probs_matches_plain(cuda, dims, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dims", [(2, 577, 1024, 16), (8, 577, 1024, 16),
-                                  (2, 197, 768, 12)])
+                                  (2, 197, 768, 12), (8, 257, 1280, 10),
+                                  (8, 197, 768, 6), (8, 197, 512, 16)])
 def test_mha_mean_probs_sm90_matches_plain(cuda, dims):
     """B7 in bf16 on the sm90 attention and its head-mean pass, against its
     plain version (out 2e-2; probs 2e-2 as a block, and 1e-3 against the
@@ -908,8 +910,9 @@ def test_k2_sm90_matches_plain(cuda, dims):
                                   (3, 41, 64, 4)])
 def test_b7_b8_on_the_sm90_gemm_match_plain(cuda, dims):
     """B7 and B8 in bf16: their projections on the sm90 GEMM; their
-    attention at D 64 on the sm90 body (B7's with its head-mean pass, B8's
-    with the key bias), at D 16 on attention_fwd.cuh."""
+    attention at D 32, 64 and 128 on the sm90 body (B7's with its
+    head-mean pass, B8's with the key bias), at D 16 on
+    attention_fwd.cuh."""
     B, T, E, H = dims
     mha, _ = block_args(*dims, "bfloat16", cuda)
     n7 = fused_mha_block_with_mean_probs.launches_sm90
@@ -918,7 +921,7 @@ def test_b7_b8_on_the_sm90_gemm_match_plain(cuda, dims):
     torch.cuda.synchronize()
     assert fused_mha_block_with_mean_probs.launches_sm90 == n7 + 1
     assert fused_mha_block_with_mean_probs.launches_attn_sm90 == a7 + (
-        E // H == 64)
+        E // H in (32, 64, 128))
     for a, r in zip(out, mha_block_mean_probs_plain(*mha)):
         assert rel_err(a, r) <= TOL["bfloat16"]
     bqkv = seeded((3, H, E // H), 41, 0.1, device=cuda)
@@ -929,7 +932,8 @@ def test_b7_b8_on_the_sm90_gemm_match_plain(cuda, dims):
     out = fused_mha_block_tome(*args)
     torch.cuda.synchronize()
     assert fused_mha_block_tome.launches_sm90 == n8 + 1
-    assert fused_mha_block_tome.launches_attn_sm90 == a8 + (E // H == 64)
+    assert fused_mha_block_tome.launches_attn_sm90 == a8 + (
+        E // H in (32, 64, 128))
     for a, r in zip(out, mha_block_tome_plain(*args)):
         assert rel_err(a, r) <= TOL["bfloat16"]
 
@@ -980,9 +984,12 @@ tflash = importlib.import_module("vitx_torch.kernels.flash_attention")
 @pytest.mark.cuda
 @pytest.mark.parametrize("dims", [(2, 16, 577, 64), (2, 12, 197, 64),
                                   (1, 16, 1100, 64), (2, 4, 65, 64),
-                                  (3, 2, 1, 64)])
+                                  (3, 2, 1, 64), (8, 10, 257, 128),
+                                  (2, 4, 65, 128), (8, 16, 197, 32),
+                                  (2, 4, 65, 32)])
 def test_flash_attention_probs_sm90_match_plain(cuda, dims):
-    """B5's two probability modes on their sm90 route (bf16, D 64): o and
+    """B5's two probability modes on their sm90 route (bf16, D 32, 64 and
+    128: huge14's and MAE's decoder's widths, ragged T 65 at each): o and
     the probabilities against the plain version, rows summing to 1,
     launches_sm90 one a call, two calls equal bit for bit, o bit-equal to
     flash_attention's sm90 o, the full mode's head mean (head order, / H)
@@ -1019,12 +1026,13 @@ def test_flash_attention_probs_sm90_match_plain(cuda, dims):
 
 @pytest.mark.cuda
 def test_flash_attention_probs_off_the_sm90_route(cuda):
-    """fp32, another head width and a q that is not 16-byte aligned keep
-    the earlier kernel: launches count, launches_sm90 does not."""
+    """fp32, a head width off the sm90 route (D 96) and a q that is not
+    16-byte aligned keep the earlier kernel: launches count, launches_sm90
+    does not."""
     base = seeded((2 * 3 * 65 * 64 + 1,), 44, 1.5, dtype="bfloat16",
                   device=cuda)
     for q in (seeded((2, 3, 65, 64), 45, 1.5, device=cuda),
-              seeded((2, 3, 65, 32), 46, 1.5, dtype="bfloat16", device=cuda),
+              seeded((2, 3, 65, 96), 46, 1.5, dtype="bfloat16", device=cuda),
               base[1:].view(2, 3, 65, 64)):
         for fn, mode in ((flash_attention_with_probs, "full"),
                          (flash_attention_with_mean_probs, "mean")):

@@ -4,8 +4,8 @@
   -> out-projection, with its stash and a backward;
   replaces ``vitx/kernels/mha_block.py::_kernel``.
 - ``fused_mha_block_with_mean_probs`` (B7, ``csrc/mha_block.cu``): K1 plus
-  the head-mean attention probabilities (in bf16 at D = 64 K1's sm90
-  attention, then ``csrc/attention_probs_sm90.cuh``); replaces
+  the head-mean attention probabilities (in bf16 at D = 32, 64 or 128
+  K1's sm90 attention, then ``csrc/attention_probs_sm90.cuh``); replaces
   ``vitx/kernels/mha_block.py::_kernel_hchunk`` (mean-probs mode).
 - ``fused_mha_block_tome`` (B8, ``csrc/mha_block.cu``): K1 with a QKV
   bias and a per-key logit bias, plus the head-mean key; replaces
@@ -16,8 +16,8 @@
   with ``attention_fwd.cuh`` shared with K1 and B7): the attention forward
   without probs, with full probs and with head-mean probs; replace
   ``vitx/kernels/flash_attention.py::_fwd_kernel``. In bf16
-  ``flash_attention`` at D = 32, 64 or 128 and the probability modes at
-  D = 64 run ``csrc/flash_attention_sm90.cu`` (wgmma, TMA, an online
+  at D = 32, 64 or 128 ``flash_attention`` and the probability modes
+  run ``csrc/flash_attention_sm90.cu`` (wgmma, TMA, an online
   softmax): ``flash_attention`` also returns the row statistics to its
   backward, the probability modes hand them to
   ``csrc/attention_probs_sm90.cuh``'s pass (``probs_route``).

@@ -56,10 +56,10 @@ SIGNATURES = {
     "flash_attention_fwd_sm90": ("flash_attention_sm90",
                                  "vitx_attention_fwd_sm90",
                                  [_P] * 6 + [_I] * 4 + [_P]),
-    # (q, k, v, o, stats, probs, mode, B, H, T, stream)
+    # (q, k, v, o, stats, probs, mode, B, H, T, D, stream)
     "flash_attention_fwd_probs_sm90": ("flash_attention_sm90",
                                        "vitx_attention_fwd_probs_sm90",
-                                       [_P] * 6 + [_I] * 4 + [_P]),
+                                       [_P] * 6 + [_I] * 5 + [_P]),
     # (q, k, v, do, o, dq, dk, dv, stats, delta, views, B, H, T, D, stream)
     "attention_bwd_sm90": ("attention_bwd_sm90", "vitx_attention_bwd_sm90",
                            [_P] * 11 + [_I] * 4 + [_P]),

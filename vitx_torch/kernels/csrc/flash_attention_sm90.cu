@@ -1,6 +1,6 @@
-// B5 on Hopper (sm_90a): wgmma, TMA and an online softmax, bf16, without
-// probabilities at head widths 32, 64 and 128 and in its two probability
-// modes at 64.
+// B5 on Hopper (sm_90a): wgmma, TMA and an online softmax, bf16 at head
+// widths 32, 64 and 128, without probabilities and in its two probability
+// modes.
 //
 // Replaces vitx/kernels/flash_attention.py::_fwd_kernel (launched by _fwd;
 // entries flash_attention, flash_attention_with_probs and
@@ -10,15 +10,17 @@
 //     128: MAE's decoder, the ViT-B/L family, huge14 and base16_hd128),
 //     for the backward, the row statistics stats (2, B, H, T) fp32: the
 //     row max m of the logits and linv = 1 / l;
-//   - with them (entry vitx_attention_fwd_probs_sm90, D 64), probs: (B, H, T, T)
+//   - with them (entry vitx_attention_fwd_probs_sm90, the same widths: the
+//     attention maps and rollout of every bf16 preset), probs: (B, H, T, T)
 //     fp32 in the full mode, the head mean (B, T, T) fp32 in the mean mode.
 //     The body writes the statistics into the caller's scratch, then
 //     attention_probs_sm90.cuh recomputes s = q k^T from the same tiles and
 //     writes p = exp(s - m) * linv (the mean: summed over the heads in
 //     order, / H) -- B7's head-mean pass on B5's own q and k, and the same
-//     pass one head a block for the full mode.
-// fp32, other D and the probability modes at D != 64 keep
-// attention_fwd.cuh (flash_attention_fwd.cu). The
+//     pass one head a block for the full mode. At D 32 and 128 both round
+//     qs = cast(q * scale) into their q tiles first, so the pass's logits
+//     are the body's.
+// fp32 and other D keep attention_fwd.cuh (flash_attention_fwd.cu). The
 // body, its function and its one moved rounding point are in
 // attention_fwd_sm90.cuh, which K1 (mha_block.cu) runs too; o is the
 // body's in every mode, so the probability modes' o equals the no-probs
@@ -61,31 +63,33 @@ extern "C" int vitx_attention_fwd_sm90(const void* q, const void* k, const void*
                                          static_cast<cudaStream_t>(stream));
 }
 
-// q, k, v, o: bf16 (B, H, T, 64) contiguous, pointers 16-byte aligned,
-// B * H at most 65535. stats: (2, B*H*T) fp32 scratch (the body writes it,
-// the pass reads it). mode: 1 full (probs (B, H, T, T) fp32), 2 head mean
-// (probs (B, T, T) fp32). Returns 0, the first CUDA error of the two
-// launches, a tensor-map code of sm90.cuh, or ERR_ROUTE for another mode.
+// q, k, v, o: bf16 (B, H, T, D) contiguous, D 32, 64 or 128, pointers
+// 16-byte aligned, B * H at most 65535. stats: (2, B*H*T) fp32 scratch
+// (the body writes it, the pass reads it). mode: 1 full (probs (B, H, T,
+// T) fp32), 2 head mean (probs (B, T, T) fp32). Returns 0, the first CUDA
+// error of the two launches, a tensor-map code of sm90.cuh, or ERR_ROUTE
+// for another mode or D.
 extern "C" int vitx_attention_fwd_probs_sm90(const void* q, const void* k, const void* v,
                                              void* o, float* stats, float* probs, int mode,
-                                             int B, int H, int T, void* stream) {
+                                             int B, int H, int T, int D, void* stream) {
   using namespace vitx;
   constexpr int FULL = 1, MEAN = 2;   // flash_attention.py's PROBS_MODES
   if (mode != FULL && mode != MEAN) return sm90::ERR_ROUTE;
+  if (D != 32 && D != 64 && D != 128) return sm90::ERR_ROUTE;
   if ((long long)B * H > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long TD = (long long)T * 64, HTD = H * TD;
-  const long long views[9] = {HTD, TD, 64, HTD, TD, 64, HTD, TD, 64};
+  const long long TD = (long long)T * D, HTD = H * TD;
+  const long long views[9] = {HTD, TD, D, HTD, TD, D, HTD, TD, D};
   const void* in[3] = {q, k, v};
   FwdArgs a = {};
   a.o = static_cast<bf16*>(o);
-  a.o_sb = HTD; a.o_sh = TD; a.o_st = 64;
+  a.o_sb = HTD; a.o_sh = TD; a.o_st = D;
   a.stats = stats;
   a.H = H; a.T = T;
-  a.scale = sm90::attention_scale(64);
-  const int err = launch_attention_fwd_sm90<false>(in, views, a, B, 64, s);
+  a.scale = sm90::attention_scale(D);
+  const int err = launch_attention_fwd_sm90<false>(in, views, a, B, D, s);
   if (err != 0) return err;
   if (mode == MEAN)
-    return launch_attention_probs_sm90<true>(q, k, stats, probs, B, H, T, a.scale, s);
-  return launch_attention_probs_sm90<false>(q, k, stats, probs, B, H, T, a.scale, s);
+    return launch_attention_probs_sm90<true>(q, k, stats, probs, B, H, T, D, a.scale, s);
+  return launch_attention_probs_sm90<false>(q, k, stats, probs, B, H, T, D, a.scale, s);
 }

@@ -51,9 +51,10 @@
 //      (b, 64 queries) over the heads in order for B7 -- with the rounding
 //      points of mha_block.py:74-84 (one moved, on the sm90 route: see
 //      below);
-//   3b. (B7 on the sm90 route) attention_probs_sm90<true>: per (b, 64 queries,
-//      128 keys), the heads in order, probs from q k^T and launch 3's row
-//      statistics, written once (its source note says how it rounds);
+//   3b. (B7 on the sm90 route) attention_probs_sm90<D, true>: per (b, 64
+//      queries, 128 keys), the heads in order, probs from qs k^T and launch
+//      3's row statistics, written once (its source note says how it
+//      rounds);
 //   4. the out-projection GEMM: o_all @ Wo in fp32 plus bo in fp32, one
 //      cast;
 //   5. (B8 only) head_mean_kernel: k_mean = cast(sum_h k_h / H), the fp32
@@ -66,9 +67,8 @@
 //     wgmma fed by TMA through a ring of stages, the LN applied to the A
 //     fragments in registers, persistent blocks; otherwise common.cuh's
 //     gemm_kernel (mma.sync, register-staged loads), which fp32 needs;
-//   - ROUTE_ATTN_SM90 (K1 and B8: bf16 at D = 32, 64 or 128; B7: bf16 at
-//     D = 64, its head-mean pass's width): launch 3 on B5's
-//     sm90 body (attention_fwd_sm90.cuh): one pass over the keys with an
+//   - ROUTE_ATTN_SM90 (K1, B7 and B8: bf16 at D = 32, 64 or 128): launch 3
+//     on B5's sm90 body (attention_fwd_sm90.cuh): one pass over the keys with an
 //     online softmax on wgmma, q, k and v read by TMA from launch 2's
 //     planes, o written straight into o_all and the row statistics into
 //     K1's stash or B7's scratch; B8's key bias is its KBIAS form, one fp32
@@ -77,8 +77,8 @@
 //     that moves against _kernel and _kernel_tome, as it does for B5. B7's
 //     out is then K1's on its full route, bit for bit, and launch 3b adds
 //     the probabilities. Otherwise attention_fwd.cuh (mma.sync, two passes
-//     over the keys, a third for B7's probabilities), which fp32, other D
-//     and B7 at D != 64 take.
+//     over the keys, a third for B7's probabilities), which fp32 and other
+//     D take.
 // B8 is bound as K1 is: the projections' operations; k_mean reads the k
 // plane once more (B*T*E elements) and writes B*T*D, and the per-key bias
 // adds 16 floats per 64-key tile to each consumer thread's reads (L2).
@@ -125,9 +125,9 @@ int run_mha(int route, const void* x, const void* wqkv, const void* wo, const fl
   if (gemm90 && !(BF16 && gemm_sm90_ok(x, wqkv, E, 3 * E, true) &&
                   gemm_sm90_ok(o_all, wo, E, E, false)))
     return sm90::ERR_ROUTE;
-  // the body at D 32, 64 and 128; B7's head-mean pass at D 64 only
-  if (attn90 && !(BF16 && ((MODE == PROBS_NONE && (D == 32 || D == 64 || D == 128)) ||
-                           (MODE == PROBS_MEAN && D == 64 && attn_stats != nullptr))))
+  // the body and B7's head-mean pass at D 32, 64 and 128
+  if (attn90 && !(BF16 && (D == 32 || D == 64 || D == 128) &&
+                  (MODE == PROBS_NONE || attn_stats != nullptr)))
     return sm90::ERR_ROUTE;
 
   int err = static_cast<int>(launch_ln_stats<T>(static_cast<const T*>(x), stats, M, E, eps, s));
@@ -162,7 +162,7 @@ int run_mha(int route, const void* x, const void* wqkv, const void* wo, const fl
     err = launch_attention_fwd_sm90<TOME>(in, strides, fa, B, D, s);
     if constexpr (MODE == PROBS_MEAN) {
       if (err != 0) return err;
-      err = launch_attention_probs_sm90<true>(qkv, k_plane, attn_stats, probs, B, H, T_,
+      err = launch_attention_probs_sm90<true>(qkv, k_plane, attn_stats, probs, B, H, T_, D,
                                               fa.scale, s);
     }
   } else {

@@ -203,8 +203,7 @@ __device__ __forceinline__ void scale_rows(unsigned char* src, unsigned char* ds
 // 128 bytes, 2: 64 bytes). The stride offset steps over 8-row groups (8 *
 // ROW_BYTES); the leading one to the next column block, one box on, which
 // only an MN-major operand of width 128 reads (at D 64, one block, it
-// holds 1024 bytes). The GEMM's and the probability pass's (rows, 64)
-// boxes take Tile<64>'s.
+// holds 1024 bytes). The GEMM's (rows, 64) boxes take Tile<64>'s.
 template <int D> __device__ __forceinline__ uint64_t desc_tile(const void* tile) {
   using G = Tile<D>;
   const uint64_t addr = smem_u32(tile);
@@ -412,7 +411,7 @@ constexpr int ERR_ROUTE = 30000;         // a route asked for that the inputs ca
 // last dim contiguous), boxes of Tile<D>'s (64 tokens, BOX_COLS channels)
 // with its swizzle (128 bytes; 64 at D 32) and zeros past T. Returns 0 or
 // one of the codes above.
-template <int D = 64>
+template <int D>
 inline int make_tile_map(CUtensorMap* map, const void* base, int B, int H, int T, long long sb,
                          long long sh, long long st) {
   EncodeTiled fn = encode_tiled();

@@ -14,11 +14,11 @@
   base16_hd128) takes the Hopper kernels on wgmma and TMA,
   ``csrc/flash_attention_sm90.cu`` for the forward without probabilities
   and ``csrc/attention_bwd_sm90.cu`` for the backward (``sm90_route``);
-  the probability modes take them at D = 64 only (the online-softmax body,
-  then the probability pass ``csrc/attention_probs_sm90.cuh``, where q, k
-  and v are contiguous 16-byte-aligned planes, ``probs_route``). fp32, any
-  other D, and the probability modes at D != 64 keep
-  ``csrc/flash_attention_fwd.cu`` and ``csrc/flash_attention_bwd.cu``.
+  the probability modes take them at the same widths (the online-softmax
+  body, then the probability pass ``csrc/attention_probs_sm90.cuh``, where
+  q, k and v are contiguous 16-byte-aligned planes, ``probs_route``). fp32
+  and any other D keep ``csrc/flash_attention_fwd.cu`` and
+  ``csrc/flash_attention_bwd.cu``.
   ``launches`` counts every CUDA launch of a wrapper, ``launches_sm90``
   those that took the sm90 route. The sm90 backward consumes the
   forward's o and row statistics (m and 1 / l, ``attention_stats_plain``'s
@@ -55,23 +55,16 @@ from vitx_torch.nn.layers import matmul32
 MAX_HEAD_DIM = 128    # the backward kernel's shared-memory tiles (csrc note)
 MAX_FWD_HEAD_DIM = 256
 PROBS_MODES = {None: 0, "full": 1, "mean": 2}
-# the head widths of the sm90 forward body and backward (csrc/sm90.cuh's
-# Tile<D>), and the one of the probability pass after the body
+# the head widths of the sm90 forward body, the probability pass after it
+# and the backward (csrc/sm90.cuh's Tile<D>)
 SM90_HEAD_DIMS = (32, 64, 128)
-SM90_PROBS_HEAD_DIM = 64
 
 
 def sm90_route(t) -> bool:
-    """Whether the forward without probabilities and the backward take
-    the sm90 route for ``t`` (q): bf16 at D = 32, 64 or 128. The caller has
-    checked that t lies on the card."""
+    """Whether the forward (with or without probabilities) and the
+    backward can take the sm90 route for ``t`` (q): bf16 at D = 32, 64 or
+    128. The caller has checked that t lies on the card."""
     return t.dtype == torch.bfloat16 and t.shape[-1] in SM90_HEAD_DIMS
-
-
-def sm90_probs_route(t) -> bool:
-    """Whether B5's probability modes (and B7's head mean, which shares
-    their pass) can take the sm90 route for ``t`` (q): bf16 at D = 64."""
-    return t.dtype == torch.bfloat16 and t.shape[-1] == SM90_PROBS_HEAD_DIM
 
 
 def attention_stats_plain(q, k):
@@ -311,11 +304,11 @@ ROUTE_SM90 = 1   # _launch_probs's route: the sm90 body and the probability pass
 
 def probs_route(q, k, v) -> int:
     """The route of a probability-mode launch on CUDA q, k, v: ``ROUTE_SM90``
-    for bf16 at D = 64 with contiguous (B, H, T, 64) planes on 16-byte
-    boundaries (the pass's TMA maps) and B * H at most 65535 (the grids'
-    second and third dimensions); 0, ``csrc/flash_attention_fwd.cu``,
-    otherwise."""
-    ok = (sm90_probs_route(q) and q.shape[0] * q.shape[1] <= 65535
+    for bf16 at D = 32, 64 or 128 (``sm90_route``) with contiguous (B, H,
+    T, D) planes on 16-byte boundaries (the pass's TMA maps) and B * H at
+    most 65535 (the grids' second and third dimensions); 0,
+    ``csrc/flash_attention_fwd.cu``, otherwise."""
+    ok = (sm90_route(q) and q.shape[0] * q.shape[1] <= 65535
           and all(t.is_contiguous() and t.data_ptr() % 16 == 0
                   for t in (q, k, v)))
     return ROUTE_SM90 if ok else 0
@@ -325,7 +318,7 @@ def _fwd_probs_sm90(q, k, v, probs_mode):
     """``csrc/flash_attention_sm90.cu``'s probability entry -> (o, probs):
     the body with its row statistics in a scratch, then the pass. Counts
     nothing."""
-    B, H, T, _ = q.shape
+    B, H, T, D = q.shape
     o = torch.empty_like(q)
     stats = torch.empty((2, B, H, T), dtype=torch.float32, device=q.device)
     shape = (B, H, T, T) if probs_mode == "full" else (B, T, T)
@@ -334,7 +327,7 @@ def _fwd_probs_sm90(q, k, v, probs_mode):
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  stats.data_ptr(), probs.data_ptr(), PROBS_MODES[probs_mode],
-                 B, H, T, torch.cuda.current_stream().cuda_stream)
+                 B, H, T, D, torch.cuda.current_stream().cuda_stream)
     _build.check("flash_attention_fwd_probs_sm90", err)
     return o, probs
 
@@ -349,7 +342,8 @@ def _launch_probs(q, k, v, probs_mode, route=None):
     if route == ROUTE_SM90:
         if not fits:
             raise ValueError("the sm90 probability route takes bf16 "
-                             "contiguous 16-byte-aligned planes at D = 64")
+                             "contiguous 16-byte-aligned planes at D = 32, "
+                             "64 or 128")
         return (*_fwd_probs_sm90(q, k, v, probs_mode), route)
     if route != 0:
         raise ValueError(f"route must be 0 or {ROUTE_SM90}, got {route}")

@@ -22,9 +22,9 @@ Routes on the card, chosen here in the open and passed to the kernel,
 which refuses one the inputs cannot take (``mha_route``): in bf16 with E
 a multiple of 8 the projections run on the Hopper GEMM
 ``csrc/gemm_sm90.cuh`` (wgmma fed by TMA, the LayerNorm applied to the A
-operand in registers), and K1's and B8's attention at head width 32, 64
-or 128, B7's at 64, on B5's sm90 body (``csrc/attention_fwd_sm90.cuh``;
-B8's per-key bias is one fp32 add per logit there; B7's head-mean
+operand in registers), and K1's, B7's and B8's attention at head width
+32, 64 or 128 on B5's sm90 body (``csrc/attention_fwd_sm90.cuh``; B8's
+per-key bias is one fp32 add per logit there; B7's head-mean
 probabilities a second pass, ``csrc/attention_probs_sm90.cuh``, from the
 body's row statistics); fp32 and other shapes keep the earlier kernels
 (``common.cuh``'s ``gemm_kernel``, ``attention_fwd.cuh``). ``launches``
@@ -58,9 +58,7 @@ import torch
 
 from vitx_torch.kernels import _build
 from vitx_torch.kernels._build import DTYPE_CODES
-from vitx_torch.kernels.flash_attention import (SM90_HEAD_DIMS,
-                                                SM90_PROBS_HEAD_DIM,
-                                                attention_bwd)
+from vitx_torch.kernels.flash_attention import SM90_HEAD_DIMS, attention_bwd
 from vitx_torch.kernels.layer_norm import ln_bwd
 from vitx_torch.nn.layers import dot, layer_norm, matmul32
 
@@ -70,30 +68,21 @@ ROUTE_GEMM_SM90 = 1   # both projections on csrc/gemm_sm90.cuh
 # the attention on csrc/attention_fwd_sm90.cuh (B7's probabilities then on
 # csrc/attention_probs_sm90.cuh)
 ROUTE_ATTN_SM90 = 2
-# the entries whose attention can take ROUTE_ATTN_SM90 -> the head widths
-# at which it does: the body's for K1 and B8, the probability pass's for B7
-ATTN_SM90_ENTRIES = {"mha_block": SM90_HEAD_DIMS,
-                     "mha_block_mean_probs": (SM90_PROBS_HEAD_DIM,),
-                     "mha_block_tome": SM90_HEAD_DIMS}
 
 
-def mha_route(dtype, E: int, H: int, *, entry: str = "mha_block",
-              tensors=()) -> int:
-    """The route of the ``mha_block.cu`` entry ``entry`` (K1
-    ``"mha_block"``, B7 ``"mha_block_mean_probs"``, B8
-    ``"mha_block_tome"``): ``ROUTE_GEMM_SM90`` where the projections can
-    take the sm90 GEMM (``_build.gemm_sm90``: bf16, E a multiple of 8 and
-    at most 4096, ``tensors`` -- x and the weights -- 16-byte aligned),
-    plus ``ROUTE_ATTN_SM90`` where the entry's attention can take B5's
-    sm90 body: bf16 at a head width of ``ATTN_SM90_ENTRIES[entry]`` -- 32,
-    64 or 128 for K1 and B8, 64 for B7, whose head-mean probabilities then
-    come from a second pass over q, k and the body's row statistics
-    (``csrc/attention_probs_sm90.cuh``). 0 is the earlier kernels
-    throughout."""
+def mha_route(dtype, E: int, H: int, *, tensors=()) -> int:
+    """The route of the ``mha_block.cu`` entries (K1, B7 and B8):
+    ``ROUTE_GEMM_SM90`` where the projections can take the sm90 GEMM
+    (``_build.gemm_sm90``: bf16, E a multiple of 8 and at most 4096,
+    ``tensors`` -- x and the weights -- 16-byte aligned), plus
+    ``ROUTE_ATTN_SM90`` where the attention can take B5's sm90 body: bf16
+    at a head width of ``SM90_HEAD_DIMS`` (32, 64 or 128), B7's head-mean
+    probabilities then coming from a second pass over q, k and the body's
+    row statistics (``csrc/attention_probs_sm90.cuh``). 0 is the earlier
+    kernels throughout."""
     route = (ROUTE_GEMM_SM90 if _build.gemm_sm90(dtype, (E,), tensors, ln_k=E)
              else 0)
-    if (dtype == torch.bfloat16
-            and E // H in ATTN_SM90_ENTRIES.get(entry, ())):
+    if dtype == torch.bfloat16 and E // H in SM90_HEAD_DIMS:
         route |= ROUTE_ATTN_SM90
     return route
 
@@ -210,7 +199,7 @@ def _launch(x, wqkv, wo, bo, g, b, eps, name="mha_block", extra=(),
     H = wqkv.shape[2]
     x, wqkv, wo, bo, g, b = _build.aligned(x, wqkv, wo, bo, g, b)
     if route is None:
-        route = mha_route(x.dtype, E, H, entry=name, tensors=(x, wqkv, wo))
+        route = mha_route(x.dtype, E, H, tensors=(x, wqkv, wo))
     fn = _build.entry(name)
     out = torch.empty_like(x)
     qkv = torch.empty((3, B, H, T, E // H), dtype=x.dtype, device=x.device)
@@ -367,8 +356,7 @@ def _launch_mean_probs(x, wqkv, wo, bo, g, b, eps, route=None):
     B, T, E = x.shape
     H = wqkv.shape[2]
     if route is None:
-        route = mha_route(x.dtype, E, H, entry="mha_block_mean_probs",
-                          tensors=(x, wqkv, wo))
+        route = mha_route(x.dtype, E, H, tensors=(x, wqkv, wo))
     probs = torch.empty((B, T, T), dtype=torch.float32, device=x.device)
     scratch = (torch.empty((2, B, H, T), dtype=torch.float32,
                            device=x.device)
@@ -428,9 +416,9 @@ def fused_mha_block_with_mean_probs(x, wqkv, wo, bo, g, b, *,
     calls agree bit for bit. CUDA tensors go through kernel B7 and add one
     to ``fused_mha_block_with_mean_probs.launches`` (and to
     ``launches_sm90`` on the sm90 GEMM, to ``launches_attn_sm90`` on the
-    sm90 attention and head-mean pass: bf16 at head width 64, where its
-    out is K1's bit for bit; at other widths the earlier attention);
-    CPU tensors take the plain version.
+    sm90 attention and head-mean pass: bf16 at head width 32, 64 or 128,
+    where its out is K1's bit for bit; at other widths the earlier
+    attention); CPU tensors take the plain version.
     Differentiable through the composed path.
     """
     _check(x, wqkv, wo, bo, g, b)
