@@ -288,9 +288,25 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               and resizes to 384² on the host), the eval CLI's accuracy
               the logged one. The times phase adds (h): the fine-tune
               step at 384² b32, the loader alone (raw shards, the CIFAR
-              copy, the PNG folder; 8 threads), each source's epoch img/s
-              and device busy share, the host's cores; and K1 with its
-              stash, B2 and B3 at T 577 as more "shapes" of their rows.
+              copy, the PNG folder; 8 threads), the host's cores; each
+              source's epochs through Trainer.fit, in a process of their
+              own started after the kernel rows, on two routes in turns --
+              prefetch (the trainer's device_prefetch: pinned copies on a
+              copy stream) and sync (a pageable upload on the step's
+              stream as the loop reaches the batch); the raw shards over a
+              window of 64 steps (their 256 images read 8 times; 16 under
+              the profiler), with a host read every step and with one
+              every 64: img/s, the fill (the time to the first batch) and
+              the steady img/s after it, one batch's placement by each
+              route, the busy share and the host-to-device copies by stream,
+              with the ms a kernel of another stream overlapped (the
+              prefetched copies must not be on the step's stream), the
+              pinned pool after each prefetched epoch; a prefetched epoch
+              of the raw shards
+              and the same epoch from the same state by this script's
+              loop over Trainer._step with a pageable upload end with
+              params equal bit for bit; and K1 with its stash, B2 and B3
+              at T 577 as more "shapes" of their rows.
 13. pretrained -- main path 10, fine-tuning from public pretrained ViTs
               on the CIFAR-10 copy (5 x 128 + 128 images): (a) timm,
               HF and DeiT-distilled ViT-B/16 state dicts drawn from a
@@ -4276,44 +4292,349 @@ def loader_rate(ds, batch: int) -> dict:
     return {"img_per_s_runs": rates, "batch": batch, "threads": 8}
 
 
-def epoch_rate(what: str, argv: list) -> dict:
+def pageable_route(dev):
+    """The synchronous route as a ``Trainer._prefetch``: each batch
+    uploaded from its pageable host arrays on the step's stream as the
+    loop reaches it (``.to(dev, non_blocking=True)``: from pageable memory
+    the copy waits for the stream's earlier kernels)."""
+    def batches(loader):
+        for b in loader:
+            yield {k: torch.from_numpy(np.asarray(v)).to(dev,
+                                                        non_blocking=True)
+                   for k, v in b.items()}
+    return batches
+
+
+def stamped(route, stamps: list):
+    """``route`` with the host clock appended to ``stamps`` when the loop
+    first asks for a batch and at each batch it hands over."""
+    def batches(loader):
+        stamps.append(time.perf_counter())
+        for b in route(loader):
+            stamps.append(time.perf_counter())
+            yield b
+    return batches
+
+
+class Repeated:
+    """``ds`` read ``times`` over (``len`` and ``get_example``, what
+    ``BatchLoader`` reads): a longer epoch from the same files."""
+
+    def __init__(self, ds, times: int):
+        self.ds, self.times = ds, times
+
+    def __len__(self):
+        return len(self.ds) * self.times
+
+    def get_example(self, i: int):
+        return self.ds.get_example(i % len(self.ds))
+
+
+def copy_overlap(prof) -> dict:
+    """The host-to-device copies of a finished trace by (name, stream):
+    count, ms copied and ms of it overlapped by a kernel on another
+    stream; and the kernels' streams with their ms (the step's stream
+    holds the most)."""
+    import bisect
+
+    copies, kernels = [], []
+    for ev in prof.profiler.kineto_results.events():
+        if (ev.device_type() != torch.autograd.DeviceType.CUDA
+                or ev.is_async()
+                or ev.start_thread_id() != ev.end_thread_id()):
+            continue
+        name, span = ev.name(), (ev.start_ns(), ev.end_ns(),
+                                 ev.device_resource_id())
+        if name.startswith("Memcpy HtoD"):
+            copies.append((name, span))
+        elif not name.startswith(("Memcpy", "Memset")) \
+                and "spin_kernel" not in name:
+            kernels.append(span)
+    streams: dict = {}
+    for a, b, st in kernels:
+        streams[st] = streams.get(st, 0.0) + (b - a) / 1e6
+    others: dict = {}     # stream -> the union of the other streams' kernels
+
+    def union_without(st):
+        if st not in others:
+            merged: list = []
+            for x, y in sorted((x, y) for x, y, s in kernels if s != st):
+                if merged and x <= merged[-1][1]:
+                    merged[-1][1] = max(merged[-1][1], y)
+                else:
+                    merged.append([x, y])
+            others[st] = ([x for x, _ in merged], merged)
+        return others[st]
+    out: dict = {}
+    for name, (a, b, st) in copies:
+        starts, merged = union_without(st)
+        over, i = 0, max(bisect.bisect_right(starts, a) - 1, 0)
+        while i < len(merged) and merged[i][0] < b:
+            over += max(0, min(merged[i][1], b) - max(merged[i][0], a))
+            i += 1
+        row = out.setdefault(f"{name} @ stream {st}", {
+            "stream": st, "count": 0, "ms": 0.0, "overlapped_ms": 0.0})
+        row["count"] += 1
+        row["ms"] += (b - a) / 1e6
+        row["overlapped_ms"] += over / 1e6
+    step_stream = max(streams, key=streams.get) if streams else None
+    return {"htod": out, "kernel_ms_by_stream": streams,
+            "step_stream": step_stream}
+
+
+def pinned_pool() -> dict:
+    """The caching host allocator's pinned bytes (``host_memory_stats``,
+    where this torch has it)."""
+    stats = getattr(torch.cuda, "host_memory_stats", None)
+    if stats is None:
+        return {"pinned": "not measured"}
+    return {k: v for k, v in stats().items()
+            if "bytes" in k or k.startswith("num_host")}
+
+
+def placement_ms(image: np.ndarray, dev, reps: int = 10) -> dict:
+    """One batch's uint8 images placed on ``dev`` with the card idle, host
+    clock, median of ``reps``: ``pin``, ``device_prefetch``'s numpy copy
+    into pinned memory (``_pinned``, in the step loop's thread);
+    ``pinned_enqueue``, the copy from it enqueued on a side stream;
+    ``pageable``, the synchronous route's upload to its end on the card."""
+    from vitx_torch.data import pipeline
+
+    t, side = torch.from_numpy(image), torch.cuda.Stream(dev)
+    runs: dict = {"pin": [], "pinned_enqueue": [], "pageable": []}
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pinned = pipeline._pinned(t)
+        t1 = time.perf_counter()
+        with torch.cuda.stream(side):
+            pinned.to(dev, non_blocking=True)
+        t2 = time.perf_counter()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        t.to(dev, non_blocking=True)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        for key, ms in (("pin", t1 - t0), ("pinned_enqueue", t2 - t1),
+                        ("pageable", t4 - t3)):
+            runs[key].append(ms * 1e3)
+    return {"bytes": image.nbytes, **{k: statistics.median(v)
+                                      for k, v in runs.items()}}
+
+
+def route_epochs(what: str, argv: list, plan: tuple, check: bool = False,
+                 repeat: int = 1, profile_repeat: int = 1) -> dict:
     """A train-CLI trainer on ``argv`` through ``Trainer.fit``, one epoch
-    a call (no eval): a warm-up epoch; the next on the host clock to its
-    end on the card (img/s); a third under the profiler, whose device time
-    and wall time are both of that one epoch (the busy share; its wall
-    includes the profiler's own host cost)."""
-    tr, train_loader, _, _ = build_quietly(argv + ["--epochs", "3"])
-    n = len(train_loader.dataset)
+    a call (no eval), on the routes its loader reaches the card by:
+    ``prefetch`` (``device_prefetch``, the trainer's own) and ``sync``
+    (``pageable_route``). A warm-up epoch; with ``check``, one prefetched
+    epoch and the same epoch again from the same state by this script's
+    own loop over ``Trainer._step`` with a pageable upload, the params
+    compared bit for bit, and ``placement_ms`` on its first batch; then
+    the loader reads its dataset ``repeat`` times a timed epoch and
+    ``profile_repeat`` times a profiled one (a trace of 64 steps takes
+    seconds to read). ``plan``: (``log_every``, None for ``argv``'s; the
+    routes timed in turns, in that order; the routes profiled). A timed
+    epoch, on the host clock to its end on the card: img/s, the fill (ms
+    from the loop's first request to its first batch) and the steady
+    img/s (the batches after the first over the time from their first to
+    the epoch's end); a profiled one: the busy share and the host-to-device
+    copies (``copy_overlap``)."""
+    import copy
 
-    def epoch(i):
-        tr.start_epoch, tr.tcfg.epochs = i, i + 1
-        return tr.fit(train_loader)[-1]
+    from vitx_torch.train.step import leaves
 
-    epoch(0)
-    torch.cuda.synchronize()
+    tr, loader, _, _ = build_quietly(argv + ["--epochs", "1"])
+    dev = tr.device
+    routes = {"prefetch": tr._prefetch, "sync": pageable_route(dev)}
+    done = [0]
+
+    def epoch(route, stamps=None):
+        tr._prefetch = (routes[route] if stamps is None
+                        else stamped(routes[route], stamps))
+        tr.start_epoch = done[0]
+        tr.tcfg.epochs = done[0] = done[0] + 1
+        return tr.fit(loader)[-1]
+
+    out: dict = {}
     t0 = time.perf_counter()
-    stats = epoch(1)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    prof = profile_call(f"{what} train epoch", lambda: epoch(2), top=12,
-                        wall=True)
-    busy_ms, prof_wall_ms = prof if prof else (None, None)
-    return {"epoch_s": wall, "img_per_s": n / wall, "images": n,
-            "trainer_img_per_s": stats["images_per_sec"],
-            "profiled_epoch_s": prof_wall_ms / 1e3 if prof
-            else "not measured",
-            "epoch_device_ms": busy_ms if prof else "not measured",
-            "device_share": busy_ms / prof_wall_ms if prof
-            else "not measured"}
+    epoch("prefetch")
+    out["warm_epoch_s"] = time.perf_counter() - t0
+    emit({"phase": "times", "what": f"{what}: built and warm",
+          "warm_epoch_s": out["warm_epoch_s"]})
+    t0 = time.perf_counter()
+    if check:
+        start = copy.deepcopy(tr.state)
+        e = done[0]
+        epoch("prefetch")
+        got = [t.clone() for t in leaves(tr.state.params)]
+        tr.state = start
+        loader.set_epoch(e)
+        step, sync = int(start.step), pageable_route(dev)
+        for i, b in enumerate(sync(loader)):
+            tr._step(b, e, step + i)
+        same = [torch.equal(a, b) for a, b in zip(got,
+                                                  leaves(tr.state.params))]
+        out["params_equal"] = all(same)
+        out["leaves_equal"] = f"{sum(same)} of {len(same)}"
+        out["check_s"] = time.perf_counter() - t0
+        del got, start
+        out["placement_ms"] = placement_ms(np.stack([
+            loader.dataset.get_example(i)[0]
+            for i in range(loader.batch_size)]), dev)
+    base, batch = loader.dataset, loader.batch_size
+
+    def read(times: int) -> int:
+        loader.dataset = base if times == 1 else Repeated(base, times)
+        return len(loader.dataset)
+    out.update(images=read(repeat), steps=len(loader),
+               profiled_images=len(base) * profile_repeat, pinned_pool=[])
+    for log_every, timed, profiled in plan:
+        if log_every is not None:
+            tr.tcfg.log_every = log_every
+        got = out.setdefault(f"log_every_{tr.tcfg.log_every}", {})
+        got["turns"] = list(timed)
+        n = read(repeat)
+        for route in timed:
+            stamps: list = []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            epoch(route, stamps)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for key, value in (
+                    ("img_per_s", n / (t1 - t0)),
+                    ("fill_ms", (stamps[1] - stamps[0]) * 1e3),
+                    ("steady_img_per_s",
+                     (len(stamps) - 2) * batch / (t1 - stamps[2]))):
+                got.setdefault(key, {}).setdefault(route, []).append(value)
+            if route == "prefetch":
+                out["pinned_pool"].append(pinned_pool())
+        read(profile_repeat)
+        for route in profiled:
+            traces: list = []
+            prof = profile_call(
+                f"{what} train epoch ({route}, log every "
+                f"{tr.tcfg.log_every})", lambda: epoch(route), top=12,
+                wall=True, keep=traces)
+            if prof is None:
+                got[route] = {"busy_share": "not measured",
+                              "copies": "not measured"}
+                continue
+            busy_ms, wall_ms = prof
+            got[route] = {"profiled_epoch_s": wall_ms / 1e3,
+                          "epoch_device_ms": busy_ms,
+                          "busy_share": busy_ms / wall_ms,
+                          "copies": copy_overlap(traces[0])}
+    return out
+
+
+def check_copy_streams(name: str, got: dict) -> None:
+    """A source's prefetched epochs: their batches' copies (from pinned
+    memory) on a stream that is not the step's, where the profiler read
+    an epoch."""
+    for key, runs in got.items():
+        pre = (runs.get("prefetch", {}) if key.startswith("log_every_")
+               else {}).get("copies", "not measured")
+        if pre == "not measured":
+            continue
+        pinned = [row["stream"] for k, row in pre["htod"].items()
+                  if "Pinned" in k]
+        if not pinned or pre["step_stream"] in pinned:
+            raise AssertionError(
+                f"times (h) {name}, {key}: the prefetched copies "
+                f"{sorted(pre['htod'])} are not on a stream of their own "
+                f"(step stream {pre['step_stream']})")
+
+
+def transfer_routes_child(results, src: str, shards: str, cifar: str,
+                          folder: str, t_start: float) -> None:
+    """(h)'s epochs in a process of their own: the profiler keeps a young
+    process's windows whole. A first profiler session (seconds of
+    set-up), then the epochs; their result, or the traceback, goes to
+    ``results``. ``t_start``: the script's clock, so that the lines
+    printed here carry its ``t_s``."""
+    import traceback
+
+    from torch.profiler import ProfilerActivity, profile
+
+    global T_START
+    T_START = t_start
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]):
+            torch.cuda._sleep(100)
+            torch.cuda.synchronize()
+        emit({"phase": "times", "what": "transfer routes: set up"})
+        pair = (None, ("prefetch", "sync"), ("prefetch", "sync"))
+        results.put((True, {
+            "shards_raw_384_b32": route_epochs(
+                "transfer shards", transfer_args(
+                    src, f"shards:{shards}", None, None),
+                ((1, ("prefetch", "sync", "sync", "prefetch"),
+                  ("prefetch", "sync")),
+                 (64, ("sync", "prefetch"), ("prefetch",))),
+                check=True, repeat=8, profile_repeat=2),
+            "cifar10_224_b128": route_epochs("transfer CIFAR-10", [
+                "--preset", "base16", "--data", f"cifar10:{cifar}",
+                "--batch-size", "128", "--seed", "0"], (pair,)),
+            "folder_png_384_b32": route_epochs(
+                "transfer PNG folder", transfer_args(
+                    src, f"folder:{folder}", None, None), (pair,))}))
+    except BaseException:
+        results.put((False, traceback.format_exc()))
+        raise
+
+
+def transfer_routes(info: dict) -> dict:
+    """Run ``transfer_routes_child`` on ``info``'s data; its result, or
+    RuntimeError with its traceback. The process is joined, or stopped,
+    either way."""
+    import queue
+
+    import torch.multiprocessing as mpm
+
+    mpc = mpm.get_context("spawn")
+    results = mpc.Queue()
+    proc = mpc.Process(target=transfer_routes_child, daemon=True, args=(
+        results, str(info["src"]), str(info["shards"]), str(info["cifar"]),
+        str(info["folder"]), T_START))
+    proc.start()
+    deadline = time.perf_counter() + 900
+    try:
+        while True:
+            try:
+                ok, value = results.get(timeout=1.0)
+                break
+            except queue.Empty:
+                if not proc.is_alive() or time.perf_counter() > deadline:
+                    ok, value = False, (f"no result (exit code "
+                                        f"{proc.exitcode})")
+                    break
+    finally:
+        proc.join(timeout=60)
+        if proc.is_alive():
+            proc.terminate()
+            proc.join()
+    if not ok:
+        raise RuntimeError(f"times (h): the epochs' process failed:\n{value}")
+    return value
 
 
 def phase_transfer_times(info: dict) -> None:
     """(h) The transfer path's times on this card: the fine-tune step at
     384² b32 (CUDA events, median of 5 after 1 warm-up; profiler split),
     the loader alone for the raw shards, the CIFAR copy and the PNG
-    folder (decoded and resized by PIL), each source's epoch img/s and the
-    device busy share over an epoch (``epoch_rate``), and the host's
-    cores."""
+    folder (decoded and resized by PIL), the host's cores, and each
+    source's epochs on the routes of ``route_epochs`` (a process of their
+    own, ``transfer_routes``, started once the kernel rows are timed):
+    img/s, fill and steady img/s in turns, the busy share and the
+    host-to-device copies' streams and overlap of a prefetched and a
+    synchronous epoch, the pinned pool; the raw shards over 64 steps (16
+    under the profiler) with a host read every step and every 64, and one
+    batch's placement by each route; for the raw shards the prefetched
+    and the synchronous epoch from one state end with equal params, bit
+    for bit, or the phase fails."""
     import os
     import warnings
 
@@ -4345,21 +4666,20 @@ def phase_transfer_times(info: dict) -> None:
         "folder_png_256_to_384": loader_rate(FolderDataset(
             info["folder"] / "Training", test_size=None, image_size=384),
             32)}
-    epochs = {
-        "shards_raw_384_b32": epoch_rate(
-            "transfer shards", transfer_args(info["src"], f"shards:{shards}",
-                                             None, None)),
-        "cifar10_224_b128": epoch_rate("transfer CIFAR-10", [
-            "--preset", "base16", "--data", f"cifar10:{info['cifar']}",
-            "--batch-size", "128", "--seed", "0"]),
-        "folder_png_384_b32": epoch_rate(
-            "transfer PNG folder", transfer_args(
-                info["src"], f"folder:{info['folder']}", None, None))}
+    epochs = transfer_routes(info)
     emit({"phase": "times", "what": "transfer", "card": smi(),
           "host_cpus": os.cpu_count(), "finetune_step_ms": step_ms,
           "finetune_step_img_per_s": 32 / (step_ms / 1e3),
           "finetune_step_device_ms": step_device_ms or "not measured",
           "T": cfg.seq_len, "loader": loaders, "epoch": epochs})
+    for name, got in epochs.items():
+        check_copy_streams(name, got)
+    if not epochs["shards_raw_384_b32"]["params_equal"]:
+        raise AssertionError(
+            "times (h): the prefetched epoch of shards_raw_384_b32 and the "
+            "synchronous one from the same state end with params that "
+            f"differ ({epochs['shards_raw_384_b32']['leaves_equal']} "
+            "leaves equal)")
 
 
 def transfer_kernel_shapes(launches: dict, errs: dict) -> dict:
@@ -4844,11 +5164,12 @@ def device_records(prof) -> dict:
 
 
 def profile_call(what: str, fn, top: int = 12, calls: int = 1,
-                 wall: bool = False):
+                 wall: bool = False, keep: list | None = None):
     """Device time by kernel name over ``calls`` calls of ``fn``
     (torch.profiler), and the device's busy share of their wall time.
     Returns the device time a call, ms (with ``wall``: and the window's
-    wall time, ms), or None where the profiler saw no device time.
+    wall time, ms), or None where the profiler saw no device time; a
+    window that was read is appended to ``keep``.
 
     The trace drops a window's first activity records, more of them the
     longer the process has run, and where it drops many it also shrinks
@@ -4894,6 +5215,8 @@ def profile_call(what: str, fn, top: int = 12, calls: int = 1,
                   for ms, n, k in rows[:top]]})
     if not rows:
         return None
+    if keep is not None:
+        keep.append(prof)
     return (per_call, wall_ms) if wall else per_call
 
 

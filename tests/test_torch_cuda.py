@@ -1743,3 +1743,106 @@ def test_pretrain_step_on_card_matches_cpu(cuda, family):
         tstep.leaves(card.params), tstep.leaves(host.params))]) / 1e-3
     assert float(dp.max()) <= 2.0
     assert float((dp > 0.01).float().mean()) <= 1e-3
+
+
+# --- device_prefetch on the card ---------------------------------------------
+
+def host_batches(n, shape=(8, 224, 224, 3), seed=0):
+    rng = np.random.default_rng(seed)
+    return [{"image": rng.integers(0, 256, shape, dtype=np.uint8),
+             "label": rng.integers(0, 10, shape[0]).astype(np.int32)}
+            for _ in range(n)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [1, 2, 3])
+def test_device_prefetch_on_card(cuda, size):
+    """Each batch read after a spin on the consumer's stream and dropped
+    at once: the sums are the host arrays' (a copy that landed in memory
+    the step still reads, or a read before the copy ended, would change
+    them)."""
+    from vitx_torch.data.pipeline import device_prefetch
+
+    batches = host_batches(12, seed=size)
+    sums = []
+    for b in device_prefetch(iter(batches), size=size, device=cuda):
+        assert b["image"].is_cuda and b["label"].dtype == torch.int32
+        torch.cuda._sleep(1_000_000)
+        sums.append(b["image"].sum(dtype=torch.int64))
+    assert [int(s) for s in sums] == [int(b["image"].sum(dtype=np.int64))
+                                      for b in batches]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [1, 2, 3])
+def test_device_prefetch_waits_for_its_copies(cuda, size, monkeypatch):
+    """Each copy held back by a spin on the copy stream, enqueued before
+    it, and each batch read at once: the sums are the host arrays' (a
+    read that did not wait for the copies would see memory they had not
+    yet written)."""
+    from vitx_torch.data import pipeline
+
+    pinned = pipeline._pinned
+
+    def slow_pinned(t):
+        out = pinned(t)
+        torch.cuda._sleep(20_000_000)   # on the copy stream
+        return out
+    monkeypatch.setattr(pipeline, "_pinned", slow_pinned)
+    batches = host_batches(6, seed=10 + size)
+    sums = [b["image"].sum(dtype=torch.int64) for b in
+            pipeline.device_prefetch(iter(batches), size=size, device=cuda)]
+    assert [int(s) for s in sums] == [int(b["image"].sum(dtype=np.int64))
+                                      for b in batches]
+
+
+@pytest.mark.cuda
+def test_device_prefetch_passes_card_tensors_and_stops(cuda):
+    from vitx_torch.data.pipeline import device_prefetch
+
+    t = torch.arange(10, device=cuda)
+    (got,) = device_prefetch(iter([{"x": t}]), device="cuda")
+    assert got["x"] is t
+    before = threading.active_count()
+    for _ in device_prefetch(iter(host_batches(6)), device=cuda):
+        break
+    assert threading.active_count() == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2])
+def test_trainer_prefetch_matches_sync_on_card(cuda, k):
+    """A tiny fp32 epoch on the card through ``device_prefetch`` (7
+    batches, the last ragged) against the same steps fed by a pageable
+    upload: equal losses and params, bit for bit."""
+    from vitx_torch.data import BatchLoader, SyntheticDataset, make_preprocess
+    from vitx_torch.train import loop as tloop
+
+    cfg = vitx_torch.get_config("tiny", compute_dtype="float32",
+                                image_size=32, depth=2, num_classes=4)
+    ds = SyntheticDataset(num_examples=26, image_size=32, num_classes=4)
+
+    def trainer():
+        pre = make_preprocess(out_size=32, random_flip=True,
+                              random_crop=True)
+        return tloop.Trainer(cfg, tloop.TrainerConfig(
+            epochs=1, steps_per_dispatch=k, log_every=3, lr=1e-3),
+            preprocess=pre, device=cuda)
+    tr, flushed = trainer(), []
+    flush = tr._flush
+
+    def keep(pending, writer):
+        flushed.extend(float(m["loss"]) for _, m in pending)
+        return flush(pending, writer)
+    tr._flush = keep
+    tr.fit(BatchLoader(ds, 4, shuffle=True))
+    ref = trainer()
+    loader = BatchLoader(ds, 4, shuffle=True)
+    loader.set_epoch(0)
+    losses = [float(ref._step({key: torch.from_numpy(v).to(cuda)
+                               for key, v in b.items()}, 0, i)["loss"])
+              for i, b in enumerate(loader)]
+    assert flushed == losses and len(losses) == 7
+    for a, b in zip(tstep.leaves(tr.state.params),
+                    tstep.leaves(ref.state.params)):
+        assert torch.equal(a, b)

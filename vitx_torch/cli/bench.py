@@ -433,12 +433,14 @@ def bench_11(device="cuda", iters=None, reps=3, n_images=5120):
     bandwidth of a b128 uint8 batch; the loader alone (``BatchLoader``, 8
     threads) from JPEG folders and raw shards; the ``Trainer``'s epoch
     (b128, flips on the card; its first epoch warms, the second is
-    measured) and a b256 inference pass from each."""
+    measured) and a b256 inference pass from each through
+    ``device_prefetch``."""
     import os
 
     from vitx_torch.core.config import get_config
     from vitx_torch.data import (BatchLoader, FolderDataset, ShardDataset,
                                  make_preprocess)
+    from vitx_torch.data.pipeline import device_prefetch
     from vitx_torch.nn.vit import forward, init_params
     from vitx_torch.train.loop import Trainer, TrainerConfig
 
@@ -487,9 +489,8 @@ def bench_11(device="cuda", iters=None, reps=3, n_images=5120):
         loader = BatchLoader(ds, 256, drop_last=True, num_threads=8)
         cnt, logits = 0, None
         t0 = time.perf_counter()
-        for b in loader:
-            x = pre(torch.from_numpy(b["image"]).to(dev, non_blocking=True),
-                    None, train=False).to(cfg.cdtype())
+        for b in device_prefetch(iter(loader), size=2, device=dev):
+            x = pre(b["image"], None, train=False).to(cfg.cdtype())
             logits = forward(params, x, cfg, device=dev)
             cnt += x.shape[0]
         logits.sum().item()

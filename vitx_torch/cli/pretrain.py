@@ -10,7 +10,8 @@ same names and defaults plus ``--device`` (default ``cuda``):
 - ``--method simclr``: NT-Xent over two views (``nn/simclr.py``).
 
 Labels are ignored; any ``--data`` the train CLI takes works here, read
-by a ``drop_last`` loader (no family has a per-row mask). MAE's host
+by a ``drop_last`` loader (no family has a per-row mask) through
+``device_prefetch``, as vitx reads it. MAE's host
 pipeline normalises and flips; DINO and SimCLR get raw [0, 1] images and
 build their views on the device. Each epoch prints one line and writes
 ``{epoch}.ckpt`` (vitx's leaves, meta ``kind``); a rerun on the same
@@ -231,6 +232,7 @@ def run(args, mesh=None) -> int:
     (a data-parallel mesh: rank 0 alone prints, logs and writes)."""
     from vitx_torch.cli.train import make_datasets
     from vitx_torch.data import BatchLoader
+    from vitx_torch.data.pipeline import device_prefetch
     from vitx_torch.train.checkpoint import (find_latest, restore_latest,
                                              save_checkpoint, snapshot)
     from vitx_torch.train.logging import ScalarWriter
@@ -276,10 +278,10 @@ def run(args, mesh=None) -> int:
         t0 = time.time()
         losses, pending, ents, accs = [], [], [], []
         n_steps = 0
-        for batch in loader:
+        for batch in device_prefetch(iter(loader), device=dev):
             g = int(state.step)
-            u8 = torch.from_numpy(batch["image"]).to(dev)
-            images = pre(u8, gen(epoch, g, stream), train=pre_train)
+            images = pre(batch["image"], gen(epoch, g, stream),
+                         train=pre_train)
             state, metrics = step_fn(state, {"image": images},
                                      gen(epoch, g, 1))
             pending.append(metrics["loss"])

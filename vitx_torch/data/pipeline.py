@@ -8,15 +8,20 @@ erasing. The random draws come from one explicit ``torch.Generator``,
 consumed in that order; each augmentation also has a function of its
 draws (``crop_resize``, ``jitter``, ``randaugment.augment_layer``,
 ``flip``, ``randaugment.erase_rect``) so that a test can give it vitx's.
+``device_prefetch`` moves the host's batches to the device ahead of the
+step that reads them.
 """
 
 from __future__ import annotations
 
+import collections
 import math
 from functools import partial
 
+import numpy as np
 import torch
 
+from vitx_torch.core.device import resolve_device
 from vitx_torch.data import randaugment
 from vitx_torch.interop.pretrained import resize_bilinear
 
@@ -144,3 +149,107 @@ def make_preprocess(*, out_size: int | None = None, mean=IMAGENET_MEAN,
                    randaug_layers=randaug_layers,
                    randaug_magnitude=randaug_magnitude,
                    random_erase=random_erase)
+
+
+def device_prefetch(iterator, *, size: int = 2, device=None):
+    """Double-buffered host-to-device transfer (vitx's ``device_prefetch``,
+    ``vitx/data/pipeline.py:132-158``): the batches of ``iterator`` (flat
+    dicts of numpy arrays or tensors), in order, with every value on
+    ``device`` (a CUDA device by default), ``size`` batches read and placed
+    ahead of the consumer as vitx's deque reads them, the rest drained at
+    the end. Values already on ``device`` pass through as they are,
+    without a copy (a device cache's gathers). vitx's ``sharding=`` has no
+    counterpart: a rank of a data-parallel run loads only its own rows
+    (``BatchLoader(rows=...)``), so the target is the rank's own device.
+
+    On the CPU the values are placed on the CPU (no copy of a numpy
+    array's memory). On CUDA each batch's host arrays are copied into
+    pinned memory and their copies enqueued on a copy stream of the
+    generator's own: a copy never waits for the step's stream, as one
+    from pageable memory does, and runs beside the step's kernels wherever
+    the host is ahead of the card; before a batch is yielded the
+    consumer's current stream waits for its copies, and each copied tensor
+    is marked as used by that stream (``record_stream``), so that the
+    caching allocator gives its memory to no later copy while a step may
+    still read it. The reading, pinning and copies run in the consumer's
+    thread: a thread of their own waits for the interpreter lock while the
+    step loop launches kernels (``PERF.md``, §6). Closing the generator
+    (or leaving a loop over it) closes ``iterator``."""
+    if size < 1:
+        raise ValueError(f"device_prefetch needs size >= 1, got {size}")
+    dev = resolve_device("cuda" if device is None else device)
+    if dev.type == "cpu":
+        return _read_ahead(iterator, size, partial(_place, dev=dev),
+                           lambda batch: batch)
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    stream = torch.cuda.Stream(dev)
+
+    def place(batch: dict) -> tuple:
+        """Enqueue the batch's copies on ``stream`` -> (the batch on the
+        device, the keys copied, the copies' event or None)."""
+        out, copied = {}, []
+        with torch.cuda.stream(stream):
+            for k, v in batch.items():
+                t = _as_tensor(v)
+                if t.device != dev:
+                    if t.device.type == "cpu":
+                        t = _pinned(t)
+                    t = t.to(dev, non_blocking=True)
+                    copied.append(k)
+                out[k] = t
+            done = stream.record_event() if copied else None
+        return out, copied, done
+
+    def ready(staged: tuple) -> dict:
+        """The consumer's stream waits for the batch's copies, and owns
+        its tensors from then on."""
+        out, copied, done = staged
+        if done is not None:
+            consumer = torch.cuda.current_stream(dev)
+            consumer.wait_event(done)
+            for k in copied:
+                out[k].record_stream(consumer)
+        return out
+
+    return _read_ahead(iterator, size, place, ready)
+
+
+def _as_tensor(v) -> torch.Tensor:
+    return v if torch.is_tensor(v) else torch.from_numpy(np.asarray(v))
+
+
+def _place(batch: dict, dev: torch.device) -> dict:
+    return {k: _as_tensor(v).to(dev) for k, v in batch.items()}
+
+
+def _read_ahead(iterator, size: int, place, ready):
+    """vitx's deque: ``place`` each batch as it is read, and yield the
+    oldest, through ``ready``, once ``size`` are placed."""
+    src = iter(iterator)
+    try:
+        buf = collections.deque()
+        for batch in src:
+            buf.append(place(batch))
+            if len(buf) >= size:
+                yield ready(buf.popleft())
+        while buf:
+            yield ready(buf.popleft())
+    finally:
+        close = getattr(src, "close", None)
+        if close is not None:
+            close()
+
+
+def _pinned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (on the CPU) in pinned memory: a block of the caching host
+    allocator, which a non-blocking copy from it keeps until the copy has
+    run. numpy copies it in one thread: torch's copy spreads over the
+    intra-op threads, and on a host whose cores the loader's threads hold
+    it stalls for tens of ms (``PERF.md``, §6)."""
+    if t.is_pinned():
+        return t
+    out = torch.empty_like(t, pin_memory=True)
+    np.copyto(out.numpy(), t.numpy())
+    return out
+

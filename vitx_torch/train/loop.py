@@ -15,9 +15,11 @@ resumes from. A LoRA config trains its adapters and heads only
 (``train_filter`` defaults to "lora"); the optimizer (adamw, sgd, lion,
 adafactor; ``mu_dtype``), ``llrd``, ``accum_steps``, SAM (``sam_rho``),
 the loss and the mixing knobs go to ``make_optimizer`` and the train step
-as in vitx. ``steps_per_dispatch`` k > 1 stacks k batches, places them on
-the device once and issues their k steps back to back with no host read
-between them (the epoch's remainder under k runs step by step);
+as in vitx. The train and eval loops read their loaders through
+``device_prefetch`` (batch N+1's transfer overlaps batch N's step).
+``steps_per_dispatch`` k > 1 stacks k batches on the device and runs
+their k steps back to back with no host read between them (the epoch's
+remainder under k runs step by step);
 ``profile_epoch`` writes a ``torch.profiler`` trace of that epoch (CPU
 and CUDA activities) under ``log_dir``. SIGTERM and SIGINT end the epoch
 early and save it as ``partial``, which a resume runs again.
@@ -62,6 +64,7 @@ import torch
 
 from vitx_torch.core.config import ViTConfig
 from vitx_torch.core.device import resolve_device
+from vitx_torch.data.pipeline import device_prefetch
 from vitx_torch.metrics import confusion_to_metrics, multilabel_metrics
 from vitx_torch.nn.vit import model_logits
 from vitx_torch.train.checkpoint import (AsyncCheckpointWriter,
@@ -347,12 +350,11 @@ class Trainer:
                 0 if meta.get("partial") else 1)
         return meta
 
-    def _on_device(self, batch) -> dict:
-        out = {}
-        for k, v in batch.items():
-            t = v if torch.is_tensor(v) else torch.from_numpy(np.asarray(v))
-            out[k] = t.to(self.device, non_blocking=True)
-        return out
+    def _prefetch(self, loader):
+        """The loader's batches on ``self.device``, batch N+1's transfer
+        overlapping batch N's step (``device_prefetch``, as vitx's
+        ``_prefetch``, ``vitx/train/loop.py:326-332``)."""
+        return device_prefetch(iter(loader), size=2, device=self.device)
 
     def _prep(self, batch, gen, train: bool) -> dict:
         image = batch["image"]
@@ -386,8 +388,8 @@ class Trainer:
             return self.evaluate_multilabel(eval_loader)
         cm = loss_sum = None
         params = self.eval_params()
-        for batch in eval_loader:
-            prepped = self._prep(self._on_device(batch), None, train=False)
+        for batch in self._prefetch(eval_loader):
+            prepped = self._prep(batch, None, train=False)
             cm_b, loss = self.eval_step(params, prepped)
             w_loss = loss * cm_b.sum()
             cm = cm_b if cm is None else cm + cm_b
@@ -406,9 +408,8 @@ class Trainer:
         419-445``): ``multilabel_eval`` of ``eval_params()`` over the
         loader."""
         def batches():
-            for batch in eval_loader:
-                prepped = self._prep(self._on_device(batch), None,
-                                     train=False)
+            for batch in self._prefetch(eval_loader):
+                prepped = self._prep(batch, None, train=False)
                 yield (prepped["image"], prepped["label"],
                        prepped.get("mask"))
         if self.mesh is None:
@@ -576,15 +577,12 @@ class Trainer:
 
     def dispatch_steps(self, batches: list, epoch: int, step: int) -> tuple:
         """``steps_per_dispatch``'s k steps from global step ``step``: the
-        k batches (host arrays or device tensors) stacked and placed once,
-        then their steps issued back to back, no host read between them
-        -> (the stacked batch, {name: (k,) metrics on the device})."""
-        stacked = {}
-        for key in batches[0]:
-            vals = [b[key] for b in batches]
-            stacked[key] = (torch.stack(vals) if torch.is_tensor(vals[0])
-                            else torch.from_numpy(np.stack(vals)))
-        stacked = self._on_device(stacked)
+        k batches (on the device) stacked on the device, as vitx's
+        ``jnp.stack``, then their steps run back to back, no host read
+        between them -> (the stacked batch, {name: (k,) metrics on the
+        device})."""
+        stacked = {key: torch.stack([b[key] for b in batches])
+                   for key in batches[0]}
         ms = [self._step({key: v[i] for key, v in stacked.items()}, epoch,
                          step + i) for i in range(len(batches))]
         return stacked, {key: torch.stack([m[key] for m in ms])
@@ -609,7 +607,7 @@ class Trainer:
                 # (B, H, W, C), or (k, B, H, W, C) stacked
                 n_images += int(np.prod(batch["image"].shape[:-3]))
 
-        for batch in train_loader:
+        for batch in self._prefetch(train_loader):
             if self._preempted_anywhere():
                 break
             if k > 1:
@@ -624,7 +622,6 @@ class Trainer:
                 buf = []
                 count(stacked)
             else:
-                batch = self._on_device(batch)
                 pending.append((step + 1, self._step(batch, epoch, step)))
                 step += 1
                 count(batch)
@@ -643,7 +640,6 @@ class Trainer:
         # the epoch's remainder under a whole dispatch: step by step
         if not self._preempted:
             for batch in buf:
-                batch = self._on_device(batch)
                 pending.append((step + 1, self._step(batch, epoch, step)))
                 step += 1
                 count(batch)
